@@ -1,0 +1,88 @@
+"""Simulation runner: a Python step loop, finite-field checks and MLUPS timing.
+
+Port of ``lbm_ferrofluid_tpu/models/runner.py``.  PyTorch runs eagerly, so
+the runner loops over steps in Python (the JAX package scans chunks of
+steps into one XLA computation).  MLUPS counts outer steps x cells, as the
+JAX runner does (:106-144): one ferrofluid step, with its Poisson sweeps,
+is one lattice update.  On the card a timed region ends in
+``torch.cuda.synchronize()``.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from .ferrofluid import ferrofluid_step, prime_premac
+from .params import SimulationParams
+
+__all__ = ["SimulationRunner", "assert_finite"]
+
+
+def assert_finite(state) -> None:
+    """Raise FloatingPointError if a floating field of ``state`` is not
+    finite."""
+    for name, value in vars(state).items():
+        leaves = value if isinstance(value, tuple) else (value,)
+        for leaf in leaves:
+            if torch.is_tensor(leaf) and leaf.is_floating_point():
+                if not bool(torch.isfinite(leaf).all()):
+                    raise FloatingPointError(f"non-finite values in state.{name}")
+
+
+class SimulationRunner:
+    """Drives :func:`ferrofluid_step` over many steps.
+
+    Runs on the card unless ``device="cpu"``."""
+
+    def __init__(self, params: SimulationParams, *, device=None):
+        self.params = params
+        self.device = resolve_device(device)
+
+    def step(self, state):
+        return ferrofluid_step(self.params, state, device=self.device)
+
+    def prepare(self, state):
+        """Prime the carried steady state before the loop."""
+        return prime_premac(self.params, state, device=self.device)
+
+    def run(self, state, n_steps: int, *, check_every: int = 0):
+        """Advance ``n_steps``; with ``check_every`` > 0, check every that
+        many steps that the fields are finite (the exponential feq can pole
+        at |u| -> c)."""
+        state = self.prepare(state)
+        for done in range(1, n_steps + 1):
+            state = self.step(state)
+            if check_every and done % check_every == 0:
+                assert_finite(state)
+        return state
+
+    def benchmark(self, state, *, n_steps: int = 50, warmup: int = 5):
+        """Wall-clock MLUPS (million lattice-site updates per second) over
+        ``n_steps`` steps after ``warmup`` untimed steps."""
+        state = self.prepare(state)
+        for _ in range(warmup):
+            state = self.step(state)
+        self._sync()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            state = self.step(state)
+        self._sync()
+        seconds = time.perf_counter() - t0
+        res = tuple(state.rho.shape[2:])
+        sites = state.rho.shape[0] * int(np.prod(res))
+        return state, {
+            "mlups": sites * n_steps / seconds / 1e6,
+            "seconds": seconds,
+            "steps": n_steps,
+            "sites": sites,
+            "res": res,
+            "device": str(self.device),
+        }
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
