@@ -8,9 +8,13 @@ against; this package imports nothing of it and no JAX.  Layout mirrors it:
 
 Quick start (on the card)::
 
-    from lbm_ferrofluid_tpu_torch.models import SimulationRunner, rosensweig_3d
+    from lbm_ferrofluid_tpu_torch.models import (
+        SimulationRunner, ferrofluid_step, hcz_step, multiphase_3d, rosensweig_3d,
+    )
     params, state = rosensweig_3d()            # 130x66x130, device="cuda"
-    state = SimulationRunner(params).run(state, 100)
+    state = SimulationRunner(params, ferrofluid_step).run(state, 100)
+    params, state = multiphase_3d()            # 130^3 HCZ cube drop
+    state = SimulationRunner(params, hcz_step).run(state, 100)
 
 Pass ``device="cpu"`` to every entry point to run the plain PyTorch versions
 on the CPU; without a GPU the default raises.

@@ -8,15 +8,19 @@
 // in its z-ring.  GPU blocks run in any order with no grid-wide barrier, so
 // here the pass is a chain of four launches, and f'/g' go to a second
 // buffer pair:
-//   (a) lbm_cap_derived: fai = eos(rho) - rho RT, prho = p - RT density,
-//       chi(phi(density)), and the 19-point Laplacian of density(rho_ca)
-//       with its zero boundary ring, into scratch;
+//   (a) lbm_cap_derived (capmac.cu, the capillary stage's first launch):
+//       fai = eos(rho) - rho RT, prho = p - RT density, chi(phi(density)),
+//       and the 19-point Laplacian of density(rho_ca) with its zero
+//       boundary ring, into scratch;
 //   (b) lbm_cap_collide: the 19-point gradients of lap, fai, prho and chi
 //       (reads clamped to the interior, lap/chi substituted at obstacles,
 //       outputs replicated from the nearest interior cell), the force
 //       kappa rho grad lap + g rho - mu0/2 H2 grad chi, velocity and
 //       pressure recovery, then the pull-stream, bounce-back and HCZ LBGK
-//       collide of f and g at the cell; dfai and dprho stay in registers;
+//       collide of f and g at the cell; dfai and dprho stay in registers.
+//       The capillary stage and the per-cell collide are common.cuh's
+//       lbm_capillary_cell and lbm_hcz_*, shared with capmac.cu and
+//       hcz3d.cu;
 //   (c) lbm_prologue (fused_step.cu) on f'/g' with rho_old = rho_ca and
 //       vel_old = the recovered velocity: the next step's rho, vel,
 //       density, m0g, m1g;
@@ -34,89 +38,6 @@
 // the bound's bytes.
 #include "common.cuh"
 
-#define LBM_CHI_K 0.33
-
-struct LbmGas {
-  double rho_gas, rho_fluid, den_gas, den_fluid;
-};
-
-// Carnahan-Starling pressure minus rho RT (ops/moments.py:eos_pressure)
-__device__ __forceinline__ float lbm_fai(float rho, double RT) {
-  const float eta = 4.f * rho / 4.f;
-  const float om = 1.f - eta;
-  const float rt = static_cast<float>(RT);
-  const float p = rho * rt * (4.f * eta - 2.f * eta * eta) / (om * om * om) + rho * rt -
-                  static_cast<float>(12.0 * RT) * rho * rho;
-  return p - rho * rt;
-}
-
-// chi = CHI_K (1 - smooth_phi(phi, 0.1 dx)) with phi from the density
-// (models/ferrofluid.py phi; ops/collide.py:smooth_phi)
-__device__ __forceinline__ float lbm_chi(float den, double dx, double den_gas, double den_fluid) {
-  const float phi = -(2.f * (den - static_cast<float>(den_gas)) /
-                          static_cast<float>(den_fluid - den_gas) -
-                      1.f);
-  const double eps = 0.1 * dx;
-  const float ramp = 0.5f + static_cast<float>(0.5 / eps) * phi +
-                     static_cast<float>(0.5 / 3.141592653589793) *
-                         sinf(static_cast<float>(3.141592653589793 / eps) * phi);
-  const float sm = (phi > static_cast<float>(eps) ? 1.f : 0.f) +
-                   (fabsf(phi) <= static_cast<float>(eps) ? ramp : 0.f);
-  return static_cast<float>(LBM_CHI_K) * (1.f - sm);
-}
-
-__global__ void lbm_cap_derived_kernel(const float* __restrict__ rho_pre,
-                                       const float* __restrict__ den_pre,
-                                       const float* __restrict__ pres_old,
-                                       const float* __restrict__ rho_ca, float* __restrict__ fai,
-                                       float* __restrict__ prho, float* __restrict__ chi,
-                                       float* __restrict__ lap, int Z, int Y, int X, double dx,
-                                       double dt, LbmGas gas) {
-  const long long N = static_cast<long long>(Z) * Y * X;
-  const long long i = lbm_cell();
-  if (i >= N) return;
-  const int x = static_cast<int>(i % X);
-  const int y = static_cast<int>((i / X) % Y);
-  const int z = static_cast<int>(i / (static_cast<long long>(X) * Y));
-  const double c = dx / dt;
-  const double RT = c * c / 3.0;
-  fai[i] = lbm_fai(rho_pre[i], RT);
-  prho[i] = pres_old[i] - static_cast<float>(RT) * den_pre[i];
-  chi[i] = lbm_chi(den_pre[i], dx, gas.den_gas, gas.den_fluid);
-  float l = 0.f;
-  if (z >= 1 && z <= Z - 2 && y >= 1 && y <= Y - 2 && x >= 1 && x <= X - 2) {
-    auto S = [&](int oz, int oy, int ox) -> float {
-      return lbm_density_of(rho_ca[lbm_index(z + oz, y + oy, x + ox, Y, X)], gas.rho_gas,
-                            gas.rho_fluid, gas.den_gas, gas.den_fluid);
-    };
-    const float faces = S(0, 0, 1) + S(0, 0, -1) + S(0, 1, 0) + S(0, -1, 0) + S(1, 0, 0) +
-                        S(-1, 0, 0);
-    const float edges = S(0, 1, 1) + S(0, 1, -1) + S(0, -1, 1) + S(0, -1, -1) + S(1, 0, 1) +
-                        S(1, 0, -1) + S(-1, 0, 1) + S(-1, 0, -1) + S(1, 1, 0) + S(1, -1, 0) +
-                        S(-1, 1, 0) + S(-1, -1, 0);
-    l = (2.f * faces + edges - 24.f * S(0, 0, 0)) / static_cast<float>(6.0 * dx * dx);
-  }
-  lap[i] = l;
-}
-
-// 19-point isotropic gradient at the interior cell (zc, yc, xc); S(oz, oy,
-// ox) returns the (substituted) field value at an offset from it.
-template <class F>
-__device__ __forceinline__ void lbm_iso_grad(F S, float d12, float g[3]) {
-  g[0] = (2.f * (S(0, 0, 1) - S(0, 0, -1)) +
-          (S(1, 0, 1) - S(-1, 0, -1) + S(-1, 0, 1) - S(1, 0, -1) + S(0, 1, 1) - S(0, -1, -1) +
-           S(0, -1, 1) - S(0, 1, -1))) /
-         d12;
-  g[1] = (2.f * (S(0, 1, 0) - S(0, -1, 0)) +
-          (S(1, 1, 0) - S(-1, -1, 0) + S(-1, 1, 0) - S(1, -1, 0) + S(0, 1, 1) - S(0, -1, -1) +
-           S(0, 1, -1) - S(0, -1, 1))) /
-         d12;
-  g[2] = (2.f * (S(1, 0, 0) - S(-1, 0, 0)) +
-          (S(1, 1, 0) - S(-1, -1, 0) + S(1, -1, 0) - S(-1, 1, 0) + S(1, 0, 1) - S(-1, 0, -1) +
-           S(1, 0, -1) - S(-1, 0, 1))) /
-         d12;
-}
-
 __global__ void __launch_bounds__(LBM_THREADS) lbm_cap_collide_kernel(
     const float* __restrict__ f, const float* __restrict__ g, const uint8_t* __restrict__ flags,
     const float* __restrict__ rho_ca, const float* __restrict__ h2,
@@ -125,139 +46,37 @@ __global__ void __launch_bounds__(LBM_THREADS) lbm_cap_collide_kernel(
     const float* __restrict__ fai, const float* __restrict__ prho,
     const float* __restrict__ chi, const float* __restrict__ lap, float* __restrict__ f_out,
     float* __restrict__ g_out, float* __restrict__ vel_out, float* __restrict__ pres_out,
-    float* __restrict__ den_out, int Z, int Y, int X, double kappa, double grav_x,
-    double grav_y, double grav_z, double mu0_half, double tau_f, double tau_g, double dx,
-    double dt, LbmGas gas) {
+    float* __restrict__ den_out, int Z, int Y, int X, LbmCapConsts k, double tau_f,
+    double tau_g) {
   const long long N = static_cast<long long>(Z) * Y * X;
   const long long i = lbm_cell();
   if (i >= N) return;
   const int x = static_cast<int>(i % X);
   const int y = static_cast<int>((i / X) % Y);
   const int z = static_cast<int>(i / (static_cast<long long>(X) * Y));
-  const int zc = lbm_clamp(z, 1, Z - 2), yc = lbm_clamp(y, 1, Y - 2), xc = lbm_clamp(x, 1, X - 2);
-  const double c = dx / dt;
-  const double cs2 = c * c / 3.0;
-  const double RT = cs2;
-  const float d12 = static_cast<float>(12.0 * dx);
 
-  // ---- capillary stage -------------------------------------------------
-  // fai/prho are replicate-padded from the interior, so every tap reads the
-  // clamped cell; lap/chi are replaced by that value only at obstacles
-  auto clamped = [&](int zz, int yy, int xx) {
-    return lbm_index(lbm_clamp(zz, 1, Z - 2), lbm_clamp(yy, 1, Y - 2), lbm_clamp(xx, 1, X - 2),
-                     Y, X);
-  };
-  auto sub = [&](const float* F, int oz, int oy, int ox) -> float {
-    const int zz = zc + oz, yy = yc + oy, xx = xc + ox;
-    const long long n = lbm_index(zz, yy, xx, Y, X);
-    return flags[n] == LBM_OBSTACLE ? F[clamped(zz, yy, xx)] : F[n];
-  };
-  float glap[3], gchi[3], dfai[3], dprho[3];
-  lbm_iso_grad([&](int a, int b, int e) { return sub(lap, a, b, e); }, d12, glap);
-  lbm_iso_grad([&](int a, int b, int e) { return sub(chi, a, b, e); }, d12, gchi);
-  lbm_iso_grad([&](int a, int b, int e) { return fai[clamped(zc + a, yc + b, xc + e)]; }, d12,
-               dfai);
-  lbm_iso_grad([&](int a, int b, int e) { return prho[clamped(zc + a, yc + b, xc + e)]; }, d12,
-               dprho);
-
-  const float rho = rho_ca[i];
-  const float dens = lbm_density_of(rho, gas.rho_gas, gas.rho_fluid, gas.den_gas, gas.den_fluid);
-  const float hh = h2[i];
-  const float grav[3] = {static_cast<float>(grav_x), static_cast<float>(grav_y),
-                         static_cast<float>(grav_z)};
-  const uint8_t fl = flags[i];
-  const bool fluid = fl == LBM_FLUID;
-  float force[3], u[3];
+  const LbmCapIn in{flags, rho_ca, h2, gsum, gmom, vel_old, pres_old, fai, prho, chi, lap};
+  LbmCapCell o;
+  lbm_capillary_cell<true>(in, k, i, N, z, y, x, Z, Y, X, o);
+  den_out[i] = o.dens;
+  pres_out[i] = o.pres;
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    force[d] = static_cast<float>(kappa) * dens * glap[d] + grav[d] * dens -
-               static_cast<float>(mu0_half) * hh * gchi[d];
-    u[d] = fluid ? (gmom[d * N + i] * static_cast<float>(c) +
-                    static_cast<float>(0.5 * dt * RT) * force[d]) /
-                       static_cast<float>(RT) / dens
-                 : vel_old[d * N + i];
-  }
-  const float pres = fluid ? gsum[i] - static_cast<float>(0.5 * dt) *
-                                           (u[0] * dprho[0] + u[1] * dprho[1] + u[2] * dprho[2])
-                           : pres_old[i];
-  den_out[i] = dens;
-  pres_out[i] = pres;
-#pragma unroll
-  for (int d = 0; d < 3; ++d) vel_out[d * N + i] = u[d];
+  for (int d = 0; d < 3; ++d) vel_out[d * N + i] = o.u[d];
 
-  // ---- HCZ LBGK collide (ops/pallas/hcz3d.py:_feq_rows, _gamma_rows) ----
-  const int ex[19] = LBM_D3Q19_EX;
-  const int ey[19] = LBM_D3Q19_EY;
-  const int ez[19] = LBM_D3Q19_EZ;
-  const bool obs = fl == LBM_OBSTACLE;
-  const float cf = static_cast<float>(c);
-  const float cs2f = static_cast<float>(cs2);
-  float tax[3], plus[3], minus[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    const float un = u[d] / cf;
-    tax[d] = sqrtf(1.f + 3.f * un * un);
-    plus[d] = (2.f * un + tax[d]) / (1.f - un);
-    minus[d] = 1.f / plus[d];
-  }
-  const float base = rho * (2.f - tax[0]) * (2.f - tax[1]) * (2.f - tax[2]);
-  const float uv = u[0] * u[0] + u[1] * u[1] + u[2] * u[2];
-  const float gx = -dfai[0], gy = -dfai[1], gz = -dfai[2];
-  const float px = -dprho[0], py = -dprho[1], pz = -dprho[2];
-  const float pref_f = static_cast<float>(dt * dt * (1.0 - 0.5 / tau_f) / cs2);
-  const float pref_g = static_cast<float>(dt * (1.0 - 0.5 / tau_g));
-  const float u_dot_g = u[0] * gx + u[1] * gy + u[2] * gz;
-  const float u_dot_f = u[0] * force[0] + u[1] * force[1] + u[2] * force[2];
-  const float u_dot_p = u[0] * px + u[1] * py + u[2] * pz;
-  const float dens_term = cs2f * dens / rho;
-  const float p_term = pres - cs2f * dens;
-  const float tauf = static_cast<float>(tau_f), taug = static_cast<float>(tau_g);
-
+  const bool fluid = o.flag == LBM_FLUID;
+  const bool obs = o.flag == LBM_OBSTACLE;
+  LbmHcz h;
+  lbm_hcz_prepare(h, o.rho, o.dens, o.pres, o.u, o.force, o.dfai, o.dprho, k.dx, k.dt, tau_f,
+                  tau_g);
   float post[19];
-  float feq[19], gam[19];
-#pragma unroll
-  for (int q = 0; q < 19; ++q) {
-    float v = base * lbm_weight(q);
-    if (ex[q] == 1) v = v * plus[0];
-    if (ex[q] == -1) v = v * minus[0];
-    if (ey[q] == 1) v = v * plus[1];
-    if (ey[q] == -1) v = v * minus[1];
-    if (ez[q] == 1) v = v * plus[2];
-    if (ez[q] == -1) v = v * minus[2];
-    feq[q] = v;
-    const float eu = (static_cast<float>(ex[q]) * u[0] + static_cast<float>(ey[q]) * u[1] +
-                      static_cast<float>(ez[q]) * u[2]) *
-                     cf;
-    gam[q] = lbm_weight(q) *
-             (1.f + eu / cs2f + 0.5f * eu * eu / (cs2f * cs2f) - 0.5f * uv / cs2f);
-  }
   lbm_pull_cell(f, N, z, y, x, Z, Y, X, obs, post);
+  if (fluid) lbm_hcz_collide_f(h, post);
 #pragma unroll
-  for (int q = 0; q < 19; ++q) {
-    const float e_dot_g = (static_cast<float>(ex[q]) * gx + static_cast<float>(ey[q]) * gy +
-                           static_cast<float>(ez[q]) * gz) *
-                          cf;
-    const float fq = post[q];
-    const float coll = fq + (feq[q] - fq) / tauf + pref_f * gam[q] * (e_dot_g - u_dot_g);
-    f_out[q * N + i] = fluid ? coll : fq;
-  }
+  for (int q = 0; q < 19; ++q) f_out[q * N + i] = post[q];
   lbm_pull_cell(g, N, z, y, x, Z, Y, X, obs, post);
+  if (fluid) lbm_hcz_collide_g(h, post);
 #pragma unroll
-  for (int q = 0; q < 19; ++q) {
-    const float wq = lbm_weight(q);
-    const float e_dot_f = (static_cast<float>(ex[q]) * force[0] +
-                           static_cast<float>(ey[q]) * force[1] +
-                           static_cast<float>(ez[q]) * force[2]) *
-                          cf;
-    const float e_dot_p = (static_cast<float>(ex[q]) * px + static_cast<float>(ey[q]) * py +
-                           static_cast<float>(ez[q]) * pz) *
-                          cf;
-    const float gq = post[q];
-    const float geq = wq * p_term + dens_term * feq[q];
-    const float coll = gq + (geq - gq) / taug +
-                       pref_g * (gam[q] * (e_dot_f - u_dot_f) + (gam[q] - wq) * (e_dot_p - u_dot_p));
-    g_out[q * N + i] = fluid ? coll : gq;
-  }
+  for (int q = 0; q < 19; ++q) g_out[q * N + i] = post[q];
 }
 
 // Next step's pre-scaled Poisson source from the emitted density, for a
@@ -289,18 +108,6 @@ __global__ void lbm_cap_rhs_kernel(const float* __restrict__ den,
   rhs[i] = (static_cast<float>(dt) * r) * static_cast<float>(cs2 * (0.5 - tau) * dt);
 }
 
-extern "C" int lbm_cap_derived(const float* rho_pre, const float* den_pre, const float* pres_old,
-                               const float* rho_ca, float* fai, float* prho, float* chi,
-                               float* lap, int Z, int Y, int X, double dx, double dt,
-                               double rho_gas, double rho_fluid, double den_gas,
-                               double den_fluid, void* stream) {
-  const long long N = static_cast<long long>(Z) * Y * X;
-  lbm_cap_derived_kernel<<<lbm_blocks(N), LBM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      rho_pre, den_pre, pres_old, rho_ca, fai, prho, chi, lap, Z, Y, X, dx, dt,
-      LbmGas{rho_gas, rho_fluid, den_gas, den_fluid});
-  return static_cast<int>(cudaGetLastError());
-}
-
 extern "C" int lbm_cap_collide(const float* f, const float* g, const uint8_t* flags,
                                const float* rho_ca, const float* h2, const float* gsum,
                                const float* gmom, const float* vel_old, const float* pres_old,
@@ -312,10 +119,11 @@ extern "C" int lbm_cap_collide(const float* f, const float* g, const uint8_t* fl
                                double rho_gas, double rho_fluid, double den_gas,
                                double den_fluid, void* stream) {
   const long long N = static_cast<long long>(Z) * Y * X;
+  const LbmCapConsts k{kappa, {grav_x, grav_y, grav_z}, mu0_half, dx, dt,
+                       LbmGas{rho_gas, rho_fluid, den_gas, den_fluid}};
   lbm_cap_collide_kernel<<<lbm_blocks(N), LBM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       f, g, flags, rho_ca, h2, gsum, gmom, vel_old, pres_old, fai, prho, chi, lap, f_out, g_out,
-      vel_out, pres_out, den_out, Z, Y, X, kappa, grav_x, grav_y, grav_z, mu0_half, tau_f, tau_g,
-      dx, dt, LbmGas{rho_gas, rho_fluid, den_gas, den_fluid});
+      vel_out, pres_out, den_out, Z, Y, X, k, tau_f, tau_g);
   return static_cast<int>(cudaGetLastError());
 }
 

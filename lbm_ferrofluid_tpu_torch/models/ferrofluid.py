@@ -31,7 +31,8 @@ from ..ops.moments import eos_pressure, phi_from_density
 from ..ops.scalar_poisson import make_cmask, s_prev_from_h, scalar_from_h
 from ..ops.stencils import staggered
 from ..utils.device import check_device, resolve_device
-from ..utils.types import CellType, KBCType
+from ..utils.types import CellType
+from .multiphase import check_supported, storage_dtype
 from .params import SimulationParams
 from .state import FerrofluidState
 
@@ -73,15 +74,6 @@ def validate_mag_shell(params: SimulationParams, magnetic_flags) -> None:
         )
 
 
-def _storage_dtype(name: str) -> torch.dtype:
-    if name != "float32":
-        raise NotImplementedError(
-            f"storage dtype {name!r}: only float32 f/g/h storage is ported "
-            "(bfloat16 storage is ROADMAP A6)"
-        )
-    return torch.float32
-
-
 def init_ferrofluid_state(params: SimulationParams, rho, density, vel, flags,
                           magnetic_flags, *, device=None):
     """Initial state from numpy arrays or tensors: f = feq, g = geq at the
@@ -96,9 +88,9 @@ def init_ferrofluid_state(params: SimulationParams, rho, density, vel, flags,
     pressure = eos_pressure(density, dx=params.dx, dt=params.dt)
     f = feq(lat, density, vel, dx=params.dx, dt=params.dt)
     g = geq(lat, rho, density, pressure, f, dx=params.dx, dt=params.dt)
-    fg_dt = _storage_dtype(params.fg_dtype)
+    fg_dt = storage_dtype(params.fg_dtype)
     f, g = f.to(fg_dt), g.to(fg_dt)
-    h = torch.zeros(f.shape, dtype=_storage_dtype(params.h_dtype), device=dev)
+    h = torch.zeros(f.shape, dtype=storage_dtype(params.h_dtype), device=dev)
     validate_mag_shell(params, magnetic_flags)
     H_ext, H_ext_mac = make_H_ext(
         params, tuple(rho.shape[2:]), batch=rho.shape[0], dtype=rho.dtype, device=dev,
@@ -129,30 +121,15 @@ def _scalar_physics_ok(params: SimulationParams, magnetic_flags) -> bool:
 
 def _check_supported(params: SimulationParams, state) -> None:
     """Raise for configurations this slice does not cover."""
-    if params.dim != 3:
-        raise NotImplementedError("2D models are not ported yet (ROADMAP A7)")
-    if params.kbc_type is not None and KBCType.is_KBC(params.kbc_type):
-        raise NotImplementedError("KBC collisions are not ported yet (ROADMAP A7)")
-    _storage_dtype(params.fg_dtype)
-    _storage_dtype(params.h_dtype)
-    if params.phys_extent is not None:
-        raise NotImplementedError(
-            "padded transposed layouts (phys_extent) are not ported yet (ROADMAP A8)"
-        )
-    if params.gravity_axis not in (0, 1, 2):
-        raise ValueError(f"gravity_axis={params.gravity_axis} is not an axis")
+    check_supported(params, state.f)
     if params.h_ext_axis not in (0, 1):
         raise NotImplementedError(
-            f"h_ext_axis={params.h_ext_axis}: the steady state emits the "
-            "Poisson source for an in-plane field only; an out-of-plane "
-            "field runs the epilogue composition (ROADMAP B5/B6)"
+            f"h_ext_axis={params.h_ext_axis}: only an in-plane field (x or y) is "
+            "ported.  The JAX step runs an out-of-plane field through the "
+            "capillogue with the Poisson source recomputed each step, and only "
+            "the padded transposed layout uses it (scenes.rosensweig_3d_tpu, "
+            "ROADMAP A8)"
         )
-    if state.f.shape[0] != 1:
-        raise NotImplementedError(
-            "batched states are not ported yet (data-parallel dispatch, ROADMAP A12)"
-        )
-    if min(state.f.shape[2:]) < 4:
-        raise ValueError(f"grid {tuple(state.f.shape[2:])}: every axis needs >= 4 cells")
     if state.h.shape[1] != 2 and not _scalar_physics_ok(params, state.magnetic_flags):
         raise NotImplementedError(
             "the magnetic solve needs the tau == 1 scalar collapse (tau == 1, "

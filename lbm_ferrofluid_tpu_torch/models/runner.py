@@ -4,7 +4,7 @@ Port of ``lbm_ferrofluid_tpu/models/runner.py``.  PyTorch runs eagerly, so
 the runner loops over steps in Python (the JAX package scans chunks of
 steps into one XLA computation).  MLUPS counts outer steps x cells, as the
 JAX runner does (:106-144): one ferrofluid step, with its Poisson sweeps,
-is one lattice update.  On the card a timed region ends in
+or one HCZ step is one lattice update.  On the card a timed region ends in
 ``torch.cuda.synchronize()``.
 """
 
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .ferrofluid import ferrofluid_step, prime_premac
+from .ferrofluid import prime_premac
 from .params import SimulationParams
 
 __all__ = ["SimulationRunner", "assert_finite"]
@@ -34,20 +34,27 @@ def assert_finite(state) -> None:
 
 
 class SimulationRunner:
-    """Drives :func:`ferrofluid_step` over many steps.
+    """Drives ``step_fn(params, state, device=...) -> state`` (``hcz_step``
+    or ``ferrofluid_step``) over many steps, as the JAX runner takes
+    ``step_fn`` (runner.py:47).
 
     Runs on the card unless ``device="cpu"``."""
 
-    def __init__(self, params: SimulationParams, *, device=None):
+    def __init__(self, params: SimulationParams, step_fn, *, device=None):
         self.params = params
+        self._step = step_fn
         self.device = resolve_device(device)
 
     def step(self, state):
-        return ferrofluid_step(self.params, state, device=self.device)
+        return self._step(self.params, state, device=self.device)
 
     def prepare(self, state):
-        """Prime the carried steady state before the loop."""
-        return prime_premac(self.params, state, device=self.device)
+        """Prime a ferrofluid state's carried steady state before the loop;
+        states without ``premac`` are returned as they are (the JAX
+        runner's ``_prepare``, :56-64)."""
+        if getattr(state, "premac", "absent") is None:
+            return prime_premac(self.params, state, device=self.device)
+        return state
 
     def run(self, state, n_steps: int, *, check_every: int = 0):
         """Advance ``n_steps``; with ``check_every`` > 0, check every that

@@ -1,8 +1,8 @@
-"""Ferrofluid simulation state, and its exchange with the JAX package.
+"""Simulation states, and their exchange with the JAX package.
 
-``FerrofluidState`` has the fields of the JAX package's
+``HCZState`` and ``FerrofluidState`` have the fields of the JAX package's
 (``lbm_ferrofluid_tpu/models/state.py``), held as tensors on one device.
-On the carried steady state (``models/ferrofluid.py:prime_premac``):
+On the carried ferrofluid steady state (``models/ferrofluid.py:prime_premac``):
 
 * ``premac`` is the 6-tuple (rho, vel, density, m0g, m1g, rhs_scaled) of
   this step's streamed macros and pre-scaled Poisson source, emitted by the
@@ -15,7 +15,8 @@ On the carried steady state (``models/ferrofluid.py:prime_premac``):
 ``step`` is a Python int.  :func:`to_numpy` and :func:`from_numpy` move a
 state to and from a dict of numpy arrays keyed by these field names, so a
 JAX state given as numpy arrays becomes a port state that computes the
-same thing.
+same thing; a dict with an ``h`` field is a ferrofluid state, one without
+it an HCZ state.
 """
 
 from __future__ import annotations
@@ -27,7 +28,29 @@ import torch
 
 from ..utils.device import resolve_device
 
-__all__ = ["FerrofluidState", "from_numpy", "to_numpy"]
+__all__ = ["HCZState", "FerrofluidState", "from_numpy", "to_numpy"]
+
+
+@dataclasses.dataclass
+class HCZState:
+    """HCZ two-distribution multiphase (f, g), with optional velocity
+    pinning: vel <- where(vel_pin_mask, vel_pin_value, vel) after the
+    streamed macros and after the capillary stage."""
+
+    f: torch.Tensor
+    g: torch.Tensor
+    rho: torch.Tensor
+    vel: torch.Tensor
+    density: torch.Tensor
+    pressure: torch.Tensor
+    force: torch.Tensor
+    flags: torch.Tensor
+    step: int
+    vel_pin_mask: torch.Tensor | None = None
+    vel_pin_value: torch.Tensor | None = None
+
+    def replace(self, **kw) -> "HCZState":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass
@@ -63,12 +86,14 @@ def _to_tensor(value, device):
     return torch.as_tensor(np.array(value), device=device)
 
 
-def from_numpy(fields: dict, device=None) -> FerrofluidState:
-    """A state from numpy arrays keyed by the ``FerrofluidState`` field
-    names (None leaves and the premac/H_ext_mac tuples as they are)."""
+def from_numpy(fields: dict, device=None):
+    """A state from numpy arrays keyed by the field names of
+    ``FerrofluidState`` (when ``fields`` has ``h``) or ``HCZState`` (None
+    leaves and the premac/H_ext_mac tuples as they are)."""
     dev = resolve_device(device)
+    cls = FerrofluidState if "h" in fields else HCZState
     kw = {}
-    for fld in dataclasses.fields(FerrofluidState):
+    for fld in dataclasses.fields(cls):
         if fld.name not in fields:
             if fld.default is dataclasses.MISSING:
                 raise KeyError(f"from_numpy: missing field {fld.name!r}")
@@ -76,7 +101,7 @@ def from_numpy(fields: dict, device=None) -> FerrofluidState:
         value = fields[fld.name]
         kw[fld.name] = (int(np.asarray(value)) if fld.name == "step"
                         else _to_tensor(value, dev))
-    return FerrofluidState(**kw)
+    return cls(**kw)
 
 
 def _to_array(value):
@@ -87,7 +112,7 @@ def _to_array(value):
     return value.detach().cpu().numpy()
 
 
-def to_numpy(state: FerrofluidState) -> dict:
+def to_numpy(state) -> dict:
     """The state as numpy arrays keyed by field name; ``step`` becomes an
     int32 scalar array as in the JAX state."""
     out = {}

@@ -3,11 +3,12 @@
 PyTorch twins of ``lbm_ferrofluid_tpu/ops/collide.py``: ``smooth_phi``
 (:315), the 3D ``contact_angle_boundary`` (:321), ``hcz_capillary`` (:510)
 and the LBGK ``hcz_collide`` (:759); reference LBM_collision_HCZ_3d.py.
-They are the plain versions that ``ops/kernels/contact3d.py`` and
-``ops/kernels/capillogue.py`` are held against, in the steady state's form:
-the contact angle is its own stage, the g moments come from the carried
-macros and the Kelvin force is always on.  The BGK/KBC/Shan-Chen
-collisions and the 2D forms are ROADMAP A7.
+They are the plain versions that ``ops/kernels/contact3d.py`` (B2),
+``ops/kernels/capmac.py`` (B6), ``ops/kernels/hcz3d.py`` (B9) and
+``ops/kernels/capillogue.py`` (B3) are held against.  The contact angle is
+its own stage here (the caller passes ``rho_ca``); the JAX function runs it
+inside ``hcz_capillary``.  The BGK/KBC/Shan-Chen collisions and the 2D forms
+are ROADMAP A7.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from ..lattice import Lattice
+from ..lattice import D3Q19, Lattice
 from ..utils.types import CellType
 from .equilibrium import feq, gamma_quadratic, geq
 from .moments import eos_pressure, rho_to_density
@@ -101,18 +102,25 @@ def contact_angle_boundary(rho, flags, contact_angle: float):
 
 
 def hcz_capillary(
-    rho, vel, flags, density, pressure, rho_ca, H2, phi, g_sum, g_mom, *, kappa, gravity, rho_gas, rho_fluid, density_gas, density_fluid,
-    dx=1.0, dt=1.0,
+    rho, vel, flags, density, pressure, rho_ca, H2=None, phi=None, g_sum=None,
+    g_mom=None, *, g=None, kappa, gravity, rho_gas, rho_fluid, density_gas,
+    density_fluid, dx=1.0, dt=1.0,
 ):
     """HCZ capillary step: surface-tension/gravity/Kelvin forces, EOS
     potentials and macro recovery from g (HCZ_3d.py:21-263).
 
-    ``rho``/``density``/``pressure`` are this step's carried macros (fai and
-    prho are taken from them), ``rho_ca`` the contact-angle-rewritten rho,
-    ``g_sum``/``g_mom`` the streamed Σ_q g_q and Σ_q g_q e_q, ``gravity`` a
+    ``rho``/``density``/``pressure`` are this step's pre-contact-angle
+    macros (fai and prho are taken from them) and ``rho_ca`` the
+    contact-angle-rewritten rho, which the caller computes (B2) where the
+    JAX function rewrites it itself.  ``H2``/``phi`` give the Kelvin force;
+    with both None there is no Kelvin term and no chi.
+    ``g_sum``/``g_mom`` are the streamed Σ_q g_q and Σ_q g_q e_q, taken
+    from the post-stream ``g`` when None.  ``gravity`` is a
     ``[1, 3, 1, 1, 1]`` tensor.  Returns (rho_ca, vel, density(rho_ca),
     pressure, force, dfai, dprho).
     """
+    if (H2 is None) != (phi is None):
+        raise ValueError("hcz_capillary: give H2 and phi together, or neither")
     c = dx / dt
     RT = c * c / 3.0
     prho = rep_pad_interior(pressure - RT * density)
@@ -124,11 +132,20 @@ def hcz_capillary(
     lap_density = isotropic_laplacian(density, dx)
     force = kappa * density * isotropic_grad(lap_density, dx, flags)
     force = force + gravity * density
-    chi = CHI_K * (1.0 - smooth_phi(phi, 0.1 * dx))
-    force = force - 0.5 * MU0 * H2 * isotropic_grad(chi, dx, flags)
+    if H2 is not None:
+        chi = CHI_K * (1.0 - smooth_phi(phi, 0.1 * dx))
+        force = force - 0.5 * MU0 * H2 * isotropic_grad(chi, dx, flags)
     dfai = isotropic_grad(fai, dx, flags)
     dprho = isotropic_grad(prho, dx, flags)
 
+    if g_mom is None:
+        e = torch.as_tensor(D3Q19.e.T.astype(np.float64), dtype=g.dtype, device=g.device)
+        g_mom = torch.cat(
+            [torch.sum(g * e[d].reshape(1, -1, 1, 1, 1), dim=1, keepdim=True)
+             for d in range(3)], dim=1,
+        )
+    if g_sum is None:
+        g_sum = torch.sum(g, dim=1, keepdim=True)
     macro_vel = (g_mom * c + 0.5 * dt * RT * force) / RT / density
     is_fluid = flags == int(CellType.FLUID)
     vel = torch.where(is_fluid, macro_vel, vel)

@@ -26,9 +26,15 @@ def _weights(lat: Lattice, like: torch.Tensor) -> torch.Tensor:
                            device=like.device)
 
 
-def feq(lat: Lattice, rho, vel, *, dx=1.0, dt=1.0):
+def feq(lat: Lattice, rho, vel, *, dx=1.0, dt=1.0, tau=None, force=None):
     """Exponential-form equilibrium ``[B, Q, *res]`` from rho ``[B, 1, *res]``
-    and vel ``[B, dim, *res]``."""
+    and vel ``[B, dim, *res]``.  With ``force`` the velocity is first shifted
+    by ``tau * force / rho`` (the reference's forcing by equilibrium shift,
+    LBM_collision_2d.py:121-123)."""
+    if force is not None:
+        if tau is None:
+            raise ValueError("feq: force shift requires tau")
+        vel = vel + tau * force / rho
     c = dx / dt
     u = vel / c
     t = torch.sqrt(1.0 + 3.0 * u * u)
@@ -49,11 +55,15 @@ def feq(lat: Lattice, rho, vel, *, dx=1.0, dt=1.0):
     return out
 
 
-def geq(lat: Lattice, rho, density, pressure, feq_val, *, dx=1.0, dt=1.0):
+def geq(lat: Lattice, rho, density, pressure, feq_val=None, *, vel=None, dx=1.0,
+        dt=1.0, tau=None, force=None):
     """geq = w*(p - cs2*density) + cs2*density/rho * feq
-    (reference: LBM_collision_2d.py:163-181)."""
+    (reference: LBM_collision_2d.py:163-181).  Without ``feq_val``, feq is
+    evaluated from ``vel`` (with the ``tau``/``force`` shift of :func:`feq`)."""
     c = dx / dt
     cs2 = c * c / 3.0
+    if feq_val is None:
+        feq_val = feq(lat, rho, vel, dx=dx, dt=dt, tau=tau, force=force)
     w = _weights(lat, rho)
     return w * (pressure - cs2 * density) + cs2 * density / rho * feq_val
 

@@ -1,21 +1,37 @@
-"""Hand-written Hopper kernels of the main path (counterpart of the JAX
-package's ``ops/pallas/``).
+"""Hand-written Hopper kernels of the port (counterpart of the JAX package's
+``ops/pallas/``).
 
-Each module holds a kernel's wrapper, its plain PyTorch version and its
-launch counter (``wrapper.launches``, one per CUDA launch).  A wrapper given
-CPU tensors runs the plain version; given CUDA tensors it launches the
-kernel or raises.  The CUDA sources are ``lbm_ferrofluid_tpu_torch/csrc``;
-``_lib`` builds them at first use.
+Each module holds a kernel's wrapper, its plain PyTorch version, its
+``cost`` (the bytes and flops a call's inputs need) and its launch counter
+(``wrapper.launches``, one per CUDA launch).  A wrapper given CPU tensors
+runs the plain version; given CUDA tensors it launches the kernel or
+raises.  The CUDA sources are ``lbm_ferrofluid_tpu_torch/csrc``; ``_lib``
+builds them at first use.
 """
 
-from . import capillogue, contact3d, fused_step, scalar_poisson
+from __future__ import annotations
+
+from types import ModuleType
+from typing import Callable, NamedTuple
+
+from . import capillogue, capmac, contact3d, fused_step, hcz3d, scalar_poisson, stream3d
 from .capillogue import lbm_capillogue, lbm_capillogue_plain
+from .capmac import hcz_capillary_gradmac, hcz_capillary_gradmac_plain
 from .contact3d import contact_angle_3d, contact_angle_3d_plain
 from .fused_step import lbm_prologue, lbm_prologue_plain
+from .hcz3d import hcz_collide_fused, hcz_collide_fused_plain
 from .scalar_poisson import scalar_wavefront, scalar_wavefront_plain
+from .stream3d import (
+    stream_bounce_macro,
+    stream_bounce_macro_plain,
+    stream_bounce_moments,
+    stream_bounce_moments_plain,
+)
 
 __all__ = [
+    "Kernel",
     "KERNELS",
+    "PATHS",
     "launch_counts",
     "reset_launch_counts",
     "scalar_wavefront",
@@ -26,21 +42,60 @@ __all__ = [
     "lbm_capillogue_plain",
     "lbm_prologue",
     "lbm_prologue_plain",
+    "hcz_capillary_gradmac",
+    "hcz_capillary_gradmac_plain",
+    "stream_bounce_moments",
+    "stream_bounce_moments_plain",
+    "stream_bounce_macro",
+    "stream_bounce_macro_plain",
+    "hcz_collide_fused",
+    "hcz_collide_fused_plain",
 ]
 
-#: ROADMAP id -> (module, wrapper) of every kernel on the main path
+
+class Kernel(NamedTuple):
+    """One ported TPU kernel: its module (which names ``CUDA_SOURCE``), its
+    wrapper and plain version, its ``cost`` and the TPU kernel it
+    replaces (file:line)."""
+
+    module: ModuleType
+    wrapper: Callable
+    plain: Callable
+    cost: Callable
+    tpu_kernel: str
+
+
+def _kernel(module, wrapper, plain, cost=None, tpu_kernel=None) -> Kernel:
+    return Kernel(module, wrapper, plain, cost or module.cost,
+                  tpu_kernel or module.TPU_KERNEL)
+
+
+#: ROADMAP id -> every ported kernel
 KERNELS = {
-    "B1": (scalar_poisson, scalar_wavefront),
-    "B2": (contact3d, contact_angle_3d),
-    "B3": (capillogue, lbm_capillogue),
-    "B4": (fused_step, lbm_prologue),
+    "B1": _kernel(scalar_poisson, scalar_wavefront, scalar_wavefront_plain),
+    "B2": _kernel(contact3d, contact_angle_3d, contact_angle_3d_plain),
+    "B3": _kernel(capillogue, lbm_capillogue, lbm_capillogue_plain),
+    "B4": _kernel(fused_step, lbm_prologue, lbm_prologue_plain),
+    "B6": _kernel(capmac, hcz_capillary_gradmac, hcz_capillary_gradmac_plain),
+    "B8a": _kernel(stream3d, stream_bounce_moments, stream_bounce_moments_plain,
+                   stream3d.cost_moments, stream3d.TPU_KERNEL_MOMENTS),
+    "B8b": _kernel(stream3d, stream_bounce_macro, stream_bounce_macro_plain,
+                   stream3d.cost_macro, stream3d.TPU_KERNEL_MACRO),
+    "B9": _kernel(hcz3d, hcz_collide_fused, hcz_collide_fused_plain),
+}
+
+#: the kernels each model's step (with its priming) launches
+PATHS = {
+    "ferrofluid": ("B1", "B2", "B3", "B4"),
+    "hcz": ("B2", "B6", "B8a", "B8b", "B9"),
 }
 
 
 def reset_launch_counts() -> None:
-    for _, wrapper in KERNELS.values():
-        wrapper.launches = 0
+    for k in KERNELS.values():
+        k.wrapper.launches = 0
 
 
-def launch_counts() -> dict[str, int]:
-    return {kid: wrapper.launches for kid, (_, wrapper) in KERNELS.items()}
+def launch_counts(ids=None) -> dict[str, int]:
+    """Launches per kernel id since the last reset (all ids, or ``ids``)."""
+    return {kid: KERNELS[kid].wrapper.launches for kid in (ids or KERNELS)}

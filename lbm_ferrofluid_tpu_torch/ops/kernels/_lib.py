@@ -1,7 +1,8 @@
 """Build, load and call the port's CUDA kernels.
 
-All of ``csrc/*.cu`` (with the shared ``csrc/common.cuh``) is compiled by
-one ``nvcc`` call for ``sm_90a`` into one shared library with a plain C
+Each of ``csrc/*.cu`` (with the shared ``csrc/common.cuh``) is compiled
+by its own ``nvcc`` process for ``sm_90a``, all started together, and one
+more ``nvcc`` call links the objects into one shared library with a plain C
 interface, at first use, into ``build/torch_kernels/`` at the repository
 root (listed in ``.gitignore``), and loaded with ``ctypes``.  The file name
 carries a hash of the sources and flags, so an edited source is rebuilt.
@@ -30,10 +31,8 @@ __all__ = ["build", "call", "ptr", "stream_of", "check_cuda"]
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
@@ -50,7 +49,7 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` into one library unless it is built already,
-    and return its path.  The compiler's output (registers and spills per
+    and return its path.  The compilers' output (registers and spills per
     kernel) lands beside it as ``.log``.  Raises with the compiler's message
     if the build fails."""
     sources = sorted(CSRC.glob("*.cu"))
@@ -60,16 +59,33 @@ def build() -> Path:
     target = BUILD_DIR / f"lbm_kernels-{h.hexdigest()[:16]}.so"
     if target.exists():
         return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # nvcc writes to a temporary name, so a cut-off build leaves no library
+    # objects and the library go to temporary names, so a cut-off build
+    # leaves no library behind
+    objdir = BUILD_DIR / f"obj-{h.hexdigest()[:16]}.{os.getpid()}"
+    objdir.mkdir(parents=True, exist_ok=True)
+    objs = [objdir / (src.stem + ".o") for src in sources]
+    procs = [
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources, objs)
+    ]
+    log, failed = [], False
+    for src, proc in zip(sources, procs):
+        out = proc.communicate()[0]
+        log.append(f"== {src.name}\n{out}")
+        failed |= proc.returncode != 0
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    target.with_suffix(".log").write_text(proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}")
+    if not failed:
+        link = subprocess.run(
+            [_nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        log.append(f"== link\n{link.stdout}")
+        failed = link.returncode != 0
+    target.with_suffix(".log").write_text("".join(log))
+    shutil.rmtree(objdir, ignore_errors=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "".join(log))
     os.replace(tmp, target)
     return target
 

@@ -148,14 +148,15 @@ def lbm_capillogue(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2,
 
     scratch = torch.empty((4, 1, Z, Y, X), dtype=torch.float32, device=f.device)
     fai, prho, chi, lap = scratch
-    call("lbm_cap_derived",ptr(rho_pre), ptr(density_pre),
-         ptr(pressure_old), ptr(rho_ca), ptr(fai), ptr(prho), ptr(chi), ptr(lap),
-         *dims, ctypes.c_double(dx), ctypes.c_double(dt), *gas, st)
+    # phi null: chi comes from density_pre
+    call("lbm_cap_derived", ptr(rho_pre), ptr(density_pre),
+         ptr(pressure_old), ptr(rho_ca), ptr(None), ptr(fai), ptr(prho), ptr(chi),
+         ptr(lap), *dims, ctypes.c_double(dx), ctypes.c_double(dt), *gas, st)
     lbm_capillogue.launches += 1
 
     f_out, g_out = torch.empty_like(f), torch.empty_like(g)
     vel, pres, den = torch.empty_like(vel_old), torch.empty_like(rho_ca), torch.empty_like(rho_ca)
-    call("lbm_cap_collide",ptr(f), ptr(g), ptr(flags), ptr(rho_ca),
+    call("lbm_cap_collide", ptr(f), ptr(g), ptr(flags), ptr(rho_ca),
          ptr(H2), ptr(g_sum), ptr(g_mom), ptr(vel_old), ptr(pressure_old), ptr(fai),
          ptr(prho), ptr(chi), ptr(lap), ptr(f_out), ptr(g_out), ptr(vel), ptr(pres),
          ptr(den), *dims, ctypes.c_double(kappa),
@@ -170,7 +171,7 @@ def lbm_capillogue(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2,
     )
     lbm_capillogue.launches += 1
     rhs = torch.empty_like(rho_ca)
-    call("lbm_cap_rhs",ptr(mac[2]), ptr(magnetic_flags), ptr(rhs), *dims,
+    call("lbm_cap_rhs", ptr(mac[2]), ptr(magnetic_flags), ptr(rhs), *dims,
          ctypes.c_int(axis), ctypes.c_double(hm), ctypes.c_double(tau_mag),
          ctypes.c_double(dx), ctypes.c_double(dt), gas[2], gas[3], st)
     lbm_capillogue.launches += 1

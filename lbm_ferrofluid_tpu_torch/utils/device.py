@@ -1,7 +1,8 @@
 """Device selection for the port's entry points.
 
-Every entry point (scene builders, ``init_ferrofluid_state``,
-``prime_premac``, ``ferrofluid_step``, ``SimulationRunner``) takes a
+Every entry point (scene builders, ``init_hcz_state``, ``hcz_step``,
+``init_ferrofluid_state``, ``prime_premac``, ``ferrofluid_step``,
+``SimulationRunner``) takes a
 ``device`` argument.  ``None`` means the card: without CUDA the call raises
 instead of carrying on quietly on the CPU.  ``device="cpu"`` runs the plain
 PyTorch versions of the kernels, as the tests do.

@@ -72,25 +72,39 @@ def _cpu_state():
 def _entry_points():
     from lbm_ferrofluid_tpu_torch.models import (
         SimulationRunner,
+        droplet_spread_3d,
         ferrofluid_step,
+        hcz_step,
         init_ferrofluid_state,
+        init_hcz_state,
+        multiphase_3d,
         prime_premac,
         rosensweig_3d,
+        two_droplets_3d,
     )
 
+    z = np.zeros((1, 1, 6, 8, 10), np.float32)
+    v = np.zeros((1, 3, 6, 8, 10), np.float32)
+    fl = z.astype(np.uint8) + 1
+
     def init(params, state):
-        z = np.zeros((1, 1, 6, 8, 10), np.float32)
-        init_ferrofluid_state(
-            params, z + 0.1, z + 0.1, np.zeros((1, 3, 6, 8, 10), np.float32),
-            z.astype(np.uint8) + 1, z.astype(np.uint8) + 1,
-        )
+        init_ferrofluid_state(params, z + 0.1, z + 0.1, v, fl, fl)
+
+    def hcz(params, state):
+        hcz_step(*multiphase_3d(res=(6, 8, 10), device="cpu"))
 
     return {
         "rosensweig_3d": lambda params, state: rosensweig_3d(res=(6, 8, 10)),
+        "multiphase_3d": lambda params, state: multiphase_3d(res=(6, 8, 10)),
+        "droplet_spread_3d": lambda params, state: droplet_spread_3d(res=(6, 8, 10)),
+        "two_droplets_3d": lambda params, state: two_droplets_3d(res=(6, 8, 10)),
         "init_ferrofluid_state": init,
+        "init_hcz_state": lambda params, state: init_hcz_state(params, z + 0.1, z + 0.1, v,
+                                                               fl),
         "prime_premac": lambda params, state: prime_premac(params, state),
         "ferrofluid_step": lambda params, state: ferrofluid_step(params, state),
-        "SimulationRunner": lambda params, state: SimulationRunner(params),
+        "hcz_step": hcz,
+        "SimulationRunner": lambda params, state: SimulationRunner(params, ferrofluid_step),
     }
 
 
@@ -114,4 +128,17 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
             torch.zeros((1, 2, 6, 8, 10), device="meta"), z, z,
             n_iters=2, h_ext=(0.0, 1.0, 0.0),
         )
+    f = torch.zeros((1, 19, 6, 8, 10), device="meta")
+    v = torch.zeros((1, 3, 6, 8, 10), device="meta")
+    fl = z.to(torch.uint8)
+    gas = dict(rho_gas=0.1, rho_fluid=0.2, density_gas=0.1, density_fluid=0.2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.stream_bounce_moments(f, fl)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.stream_bounce_macro(f, fl, z, v, c=1.0, **gas)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.hcz_capillary_gradmac(z, z, z, z, None, None, fl, z, v, v, kappa=0.1,
+                                      gravity=(0.0, 0.0, 0.0), **gas)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.hcz_collide_fused(f, f, z, v, z, z, fl, v, v, v, tau_f=0.7, tau_g=0.7)
     assert all(v == 0 for v in kernels.launch_counts().values())

@@ -237,13 +237,14 @@ def _leaves(out):
     return [out]
 
 
-@pytest.mark.parametrize("kid", ["B1", "B2", "B3", "B4"])
+@pytest.mark.parametrize("kid", ["B1", "B2", "B3", "B4", "B6", "B6 without H2", "B8a",
+                                 "B8b", "B9"])
 def test_cost_leaves_out_only_unread_inputs(kid):
     """A kernel's bound (``cost``) counts some inputs only at some cells.
     New values at the cells it leaves out must leave every output of the
     plain version exactly as it was, and the count must be the full one
     (each input read and each output written at every cell) less exactly
-    those cells."""
+    those cells.  B8a reads every input everywhere: nothing is left out."""
     res = (6, 8, 10)
     n = int(np.prod(res))
     rng = np.random.default_rng(8)
@@ -277,15 +278,57 @@ def test_cost_leaves_out_only_unread_inputs(kid):
                                                                     args[11]]
         n_fluid = int(fluid.sum())
         full, left_out = 414 * n, 20 * (n - n_fluid) + 12 * n_fluid
-    else:
+    elif kid == "B4":
         args, kw = [d["f"], d["g"], d["flags"], d["rho"], d["vel"]], dict(c=1.0, **GAS)
         # rho_old and vel_old only at obstacles
         changed = args[:3] + [new(args[3], ~obs), new(args[4], ~obs)]
         full, left_out = 205 * n, 16 * int((~obs).sum())
-    mod, wrapper = kernels.KERNELS[kid]
-    plain = getattr(mod, wrapper.__name__ + "_plain")
-    want, got = _leaves(plain(*args, **kw)), _leaves(plain(*changed, **kw))
-    assert left_out > 0 and len(got) == len(want)
+    elif kid.startswith("B6"):
+        kelvin = kid == "B6"
+        flags = d["flags"].clone()
+        flags[..., 1:-1, 0, 1:-1] = FLUID  # fluid ring cells: pressure unread there
+        fluid = flags == FLUID
+        ring = torch.ones_like(fluid)
+        ring[..., 1:-1, 1:-1, 1:-1] = False
+        corner = torch.zeros_like(fluid)
+        corner[..., ::res[0] - 1, ::res[1] - 1, ::res[2] - 1] = True
+        phi = T(rng.uniform(-1.2, 1.2, (1, 1, *res)))
+        H2, phi = (d["H2"], phi) if kelvin else (None, None)
+        args = [d["rho"], d["den"], d["pres"], d["rho"], H2, phi, flags, d["gsum"],
+                d["gmom"], d["vel"]]
+        kw = dict(kappa=0.01, gravity=(0.0, -1e-4, 0.0), **GAS)
+        # rho_pre/density_pre off the ring, pressure at interior and non-fluid
+        # ring cells, phi where neither a ring obstacle nor a corner, g_sum and
+        # g_mom at fluid cells, vel_old at the others
+        ring_obs = ring & ((flags == OBS) | corner)
+        changed = [new(d["rho"], ring), new(d["den"], ring), new(d["pres"], ring & fluid),
+                   d["rho"], H2, new(phi, ring_obs) if kelvin else None, flags,
+                   new(d["gsum"], ~fluid), new(d["gmom"], ~fluid), new(d["vel"], fluid)]
+        n_ring, n_fluid = int(ring.sum()), int(fluid.sum())
+        full = (105 if kelvin else 97) * n
+        left_out = (8 * n_ring + 4 * int((ring & fluid).sum()) + 16 * (n - n_fluid)
+                    + 12 * n_fluid + (4 * int(ring_obs.sum()) if kelvin else 0))
+    elif kid == "B8a":
+        args, kw = [d["f"], d["flags"]], {}
+        changed, full, left_out = args, 169 * n, 0
+    elif kid == "B8b":
+        args, kw = [d["f"], d["flags"], d["rho"], d["vel"]], dict(c=1.0, **GAS)
+        # rho_old and vel_old only at obstacles
+        changed = args[:2] + [new(args[2], ~obs), new(args[3], ~obs)]
+        full, left_out = 189 * n, 16 * int((~obs).sum())
+    else:
+        extra = {k: T(rng.uniform(-1e-3, 1e-3, (1, 3, *res))) for k in ("force", "dfai",
+                                                                     "dprho")}
+        args = [d["f"], d["g"], d["rho"], d["vel"], d["den"], d["pres"], d["flags"],
+                extra["force"], extra["dfai"], extra["dprho"]]
+        kw = dict(tau_f=0.7, tau_g=0.7)
+        # the macro fields only at fluid cells (the others keep f and g)
+        changed = args[:2] + [new(t, ~fluid) for t in args[2:6]] + [args[6]] + [
+            new(t, ~fluid) for t in args[7:]]
+        full, left_out = 365 * n, 60 * int((~fluid).sum())
+    k = kernels.KERNELS[kid.split()[0]]
+    want, got = _leaves(k.plain(*args, **kw)), _leaves(k.plain(*changed, **kw))
+    assert (left_out > 0) == (kid != "B8a") and len(got) == len(want)
     for i, (a, b) in enumerate(zip(got, want)):
         assert torch.equal(a, b), f"{kid} output {i} reads a left-out input"
-    assert mod.cost(*args, **kw)[0] == full - left_out
+    assert k.cost(*args, **kw)[0] == full - left_out
