@@ -12,15 +12,18 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    kernel library from ``csrc/``;
 3. kernels: each kernel against its plain PyTorch version on seeded inputs
    with an interior obstacle block.  Ferrofluid kernels (B1 scalar Poisson
-   sweeps + H2, B2 contact angle, B3 capillogue chain, B4 prologue) at
-   34x66x130 and 130x66x130; HCZ kernels (B8b/B8a stream + bounce, B2 at
+   sweeps + H2, B2 contact angle, B3 capillogue chain at the magnetic tau 1
+   and 0.8, B4 prologue, B11b channel-form Poisson sweeps at tau 1 and 0.8
+   with an interior magnetic obstacle block, B10a gradients of one and of
+   four fields) at 34x66x130 and 130x66x130; HCZ kernels (B8b/B8a stream + bounce, B2 at
    0.75 pi, B6 capillary stage with and without H2, B9 collide, each fed
    with what the kernels before it produced) at 34x66x130 and 130^3.  Bar
    rel <= 5e-5 per field (max|a-b| / max|b|), velocities also pass at
    abs <= 5e-6 (docs/PARITY.md:78-93: FMA contraction and reassociation);
-4. golden: ``tests/golden/ferro3d.npz`` (8 steps) and ``hcz3d.npz`` (10
-   steps), reference solver, through the port with kernels, at
-   tests/test_parity.py's bars;
+4. golden: ``tests/golden/ferro3d.npz`` (8 steps; with the scalar carry
+   and with the channel-form solve, ``scalar_carry=False``) and
+   ``hcz3d.npz`` (10 steps), reference solver, through the port with
+   kernels, at tests/test_parity.py's bars;
 5. main paths, each with the launch counters zeroed just before it and read
    just after it:
    - Rosensweig at the demo's native 130x66x130, primed and stepped 30
@@ -30,10 +33,16 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    - HCZ ``multiphase_3d`` at 130^3 the same way (30 against 30, 200 timed),
      then ``droplet_spread_3d`` at 130^3 (30 against 30);
    - ``two_droplets_3d`` at 50x50x193 on the ferrofluid path (30 against 30);
-6. flagships at 256^3: the Rosensweig scene that bench.py times and the
-   HCZ ``multiphase_3d``, warm steps, MLUPS, peak memory, and per-kernel
-   times with CUDA events (kernel, plain version) beside each kernel's
-   bound, and kernel-vs-plain errors at that size.
+   - Rosensweig 130x66x130 on the channel-form solve: with
+     ``scalar_carry=False`` 30 kernel steps against 30 plain steps and
+     against 30 scalar-carry kernel steps (``compare_views``), then 200
+     timed; with tau = 0.8 30 against 30.  B11b launches 30 times and B10a
+     once a step;
+6. flagships at 256^3: the Rosensweig scene that bench.py times (scalar
+   carry, then the channel-form solve) and the HCZ ``multiphase_3d``, warm
+   steps, MLUPS, peak memory, and per-kernel times with CUDA events
+   (kernel, plain version) beside each kernel's bound, and kernel-vs-plain
+   errors at that size.
 
 Then it prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Bounds use the H100 SXM peaks of
@@ -84,6 +93,8 @@ OUTPUTS = {
     "B8a": ["f_post", "m0", "m1"],
     "B8b": ["f_post", "rho", "vel", "density"],
     "B9": ["f", "g"],
+    "B10a": ["grad"],
+    "B11b": ["h", "psi"],
 }
 VEL_FIELDS = ("vel", "mac_vel")
 
@@ -164,6 +175,8 @@ def seeded_inputs(res, seed, dev):
     flags[..., Z // 2, Y // 2, 2:4] = 2  # an interior obstacle block
     fluid = (flags != 2).float()
     mfluid = (st.magnetic_flags != 2).float()
+    mflags_block = st.magnetic_flags.clone()
+    mflags_block[..., Z // 2 - 1:Z // 2 + 1, Y // 2 - 1:Y // 2 + 1, 5:7] = 2
     gas = dict(rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
                density_gas=params.density_gas, density_fluid=params.density_fluid)
     rho = st.rho + t(1e-3 * rng.uniform(-1, 1, (1, 1, *res)))
@@ -185,6 +198,9 @@ def seeded_inputs(res, seed, dev):
                       t(rng.standard_normal((1, 1, *res)))], dim=1) * mfluid,
         cmask=make_cmask(st.magnetic_flags),
         rhs=t(1e-3 * rng.standard_normal((1, 1, *res))) * mfluid,
+        h=t(0.1 * rng.uniform(-1, 1, (1, 19, *res))) * mfluid,
+        mflags_block=mflags_block,
+        fields4=t(rng.standard_normal((1, 4, *res))),
     )
 
 
@@ -284,30 +300,42 @@ def hcz_chain(K, params, d, record):
 
 
 def phase_kernels(dev, K):
+    from lbm_ferrofluid_tpu_torch.ops.magnetic import substitute_obstacles
+
     worst = {kid: 0.0 for kid in K}
     rows = []
 
-    def log(kid, label, res, angle, r):
+    def log(kid, label, res, r, **extra):
         err = max(v["max_abs_err"] for v in r.values())
         worst[kid] = max(worst[kid], err)
-        rows.append({"kernel": label, "res": list(res), "contact_angle": angle,
+        rows.append({"kernel": label, "res": list(res), **extra,
                      "max_rel": max(v["rel"] for v in r.values()), "max_abs_err": err})
 
     for res, seed in (((34, 66, 130), 1), ((130, 66, 130), 2)):
         params, d = seeded_inputs(res, seed, dev)
         d["rho_ca"] = K["B2"].wrapper(d["rho_pre"], d["flags"], params.contact_angle)
         checks = [("B4", params), ("B1", params), ("B2", params),
-                  ("B2", params.replace(contact_angle=0.35 * math.pi)), ("B3", params)]
+                  ("B2", params.replace(contact_angle=0.35 * math.pi)), ("B3", params),
+                  ("B3", params.replace(tau=0.8))]
         for kid, p in checks:
             args, kw = kernel_calls(p, d)[kid]
-            _, r = run_and_compare(K, kid, args, kw, f"{kid} at {res}")
-            log(kid, kid, res, p.contact_angle, r)
+            _, r = run_and_compare(K, kid, args, kw, f"{kid} tau={p.tau} at {res}")
+            log(kid, kid, res, r, contact_angle=p.contact_angle, tau=p.tau)
+        for tau in (1.0, 0.8):
+            (_, psi), r = run_and_compare(
+                K, "B11b", (d["h"], d["mflags_block"], d["rhs"]),
+                dict(tau=tau, n_iters=params.poisson_iters), f"B11b tau={tau} at {res}")
+            log("B11b", "B11b", res, r, tau=tau, n_iters=params.poisson_iters)
+        for fields in (substitute_obstacles(psi, d["mflags_block"]), d["fields4"]):
+            _, r = run_and_compare(K, "B10a", (fields,), dict(dx=params.dx),
+                                   f"B10a N={fields.shape[1]} at {res}")
+            log("B10a", "B10a", res, r, n_fields=fields.shape[1])
     for res, seed in (((34, 66, 130), 3), ((130, 130, 130), 4)):
         params, d = hcz_seeded_inputs(res, seed, dev)
 
         def record(label, kid, args, kw):
             got, r = run_and_compare(K, kid, args, kw, f"{label} at {res}")
-            log(kid, label, res, params.contact_angle, r)
+            log(kid, label, res, r, contact_angle=params.contact_angle)
             return got
 
         hcz_chain(K, params, d, record)
@@ -347,17 +375,23 @@ def phase_golden(dev):
     )
     mflags = np.full((1, 1, *res), 2, np.uint8)
     mflags[..., 1:-1, :, 1:-1] = 1
-    st = init_ferrofluid_state(params, d["rho0"], d["den0"],
-                               np.zeros((1, 3, *res), np.float32), d["flags"], mflags,
-                               device=dev)
-    for _ in range(8):
-        st = ferrofluid_step(params, st, device=dev)
-    a, b = compare_views(st.h, torch.as_tensor(d["h"], device=dev), st.magnetic_flags)
-    rows = _golden_rows("golden ferro3d", (
-        ("h", a, b), ("f", st.f, d["f"]), ("g", st.g, d["g"]), ("vel", st.vel, d["vel"]),
-        ("density", st.density, d["den"])))
-    emit({"phase": "golden", "file": "tests/golden/ferro3d.npz", "steps": 8,
-          "fields": rows, "ok": True})
+    # the scalar tau == 1 carry (B1), then the channel-form solve (B11b, B10a)
+    for p in (params, params.replace(scalar_carry=False)):
+        st = init_ferrofluid_state(p, d["rho0"], d["den0"],
+                                   np.zeros((1, 3, *res), np.float32), d["flags"], mflags,
+                                   device=dev)
+        for _ in range(8):
+            st = ferrofluid_step(p, st, device=dev)
+        if st.h.shape[1] == 2:
+            a, b = compare_views(st.h, torch.as_tensor(d["h"], device=dev), st.magnetic_flags)
+        else:
+            a, b = st.h, d["h"]
+        rows = _golden_rows(f"golden ferro3d h channels {st.h.shape[1]}", (
+            ("h", a, b), ("f", st.f, d["f"]), ("g", st.g, d["g"]), ("vel", st.vel, d["vel"]),
+            ("density", st.density, d["den"])))
+        emit({"phase": "golden", "file": "tests/golden/ferro3d.npz", "steps": 8,
+              "solve": "scalar carry" if st.h.shape[1] == 2 else "channel form",
+              "fields": rows, "ok": True})
 
     d = np.load(ROOT / "tests" / "golden" / "hcz3d.npz")
     res = d["rho0"].shape[2:]
@@ -484,6 +518,55 @@ def phase_two_droplets(dev, kernels_pkg, card):
     return launches
 
 
+def phase_channel_main(dev, kernels_pkg, card):
+    """The channel-form Rosensweig path at 130x66x130: ``scalar_carry=False``
+    at tau = 1, then tau = 0.8; counters zeroed just before each, read just
+    after.  The first is also held against the scalar carry (B1)."""
+    from lbm_ferrofluid_tpu_torch.models import SimulationRunner, ferrofluid_step, rosensweig_3d
+    from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
+    from lbm_ferrofluid_tpu_torch.ops.scalar_poisson import compare_views
+
+    ids = kernels_pkg.PATHS["ferrofluid_channel"]
+    params, s0 = rosensweig_3d(device=dev)
+    ss = SimulationRunner(params, ferrofluid_step, device=dev).run(s0, 30)
+    out = {"phase": "channel_main_path", "scene": "rosensweig_3d", "res": list(s0.rho.shape[2:]),
+           "card": card}
+    total = {kid: 0 for kid in ids}
+    for label, p, n_timed in (("scalar_carry=False", params.replace(scalar_carry=False), 200),
+                              ("tau=0.8", params.replace(tau=0.8), 0)):
+        runner = SimulationRunner(p, ferrofluid_step, device=dev)
+        kernels_pkg.reset_launch_counts()
+        sk, rows = kernel_vs_plain(p, s0, ferrofluid_step, dev, 30, f"channel {label}",
+                                   FERRO_FIELDS, runner)
+        check(sk.h.shape[1] == 19 and sk.cmask is None, f"{label}: not the channel form")
+        row = {"kernel_vs_plain_after_30_steps": rows}
+        if n_timed:
+            a, b = compare_views(ss.h, sk.h, sk.magnetic_flags)
+            row["against_scalar_carry_after_30_steps"] = compare(
+                f"channel {label} vs scalar carry", ["f", "g", "h", "rho", "vel", "density",
+                                                     "pressure"],
+                [sk.f, sk.g, b, sk.rho, sk.vel, sk.density, sk.pressure],
+                [ss.f, ss.g, a, ss.rho, ss.vel, ss.density, ss.pressure])
+            mass30 = fluid_mass(sk)
+            sk, stats = runner.benchmark(sk, n_steps=n_timed, warmup=0)
+            mass230 = fluid_mass(sk)
+            row.update(mlups=stats["mlups"], seconds_200_steps=stats["seconds"],
+                       sum_rho_fluid={"step30": mass30, "step230": mass230,
+                                      "drift_30_to_230": (mass230 - mass30) / mass30})
+        assert_finite(sk)
+        launches = kernels_pkg.launch_counts()
+        steps = sk.step
+        check(all(launches[kid] > 0 for kid in ids) and launches["B1"] == 0,
+              f"{label}: launches {launches}")
+        check(launches["B11b"] == p.poisson_iters * steps and launches["B10a"] == steps,
+              f"{label}: B11b/B10a launches {launches} over {steps} steps")
+        for kid in ids:
+            total[kid] += launches[kid]
+        out[label] = dict(row, steps=steps, launches={kid: launches[kid] for kid in ids})
+    emit(dict(out, finite=True, ok=True))
+    return total
+
+
 def time_cuda(fn, reps, warm=1):
     """Milliseconds per call from CUDA events around ``reps`` calls."""
     import torch
@@ -555,6 +638,36 @@ def phase_flagship(dev, K, card):
     return out
 
 
+def phase_channel_flagship(dev, K, card):
+    """bench.py's Rosensweig scene at 256^3 on the channel-form solve
+    (``scalar_carry=False``): MLUPS and peak memory over warm steps, then
+    B11b and B10a at the inputs the next step gives them."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import SimulationRunner, ferrofluid_step, rosensweig_3d
+    from lbm_ferrofluid_tpu_torch.ops.magnetic import substitute_obstacles
+
+    params, st = rosensweig_3d(res=(256, 256, 256), mag_strength=85.0, device=dev)
+    params = params.replace(scalar_carry=False)
+    runner = SimulationRunner(params, ferrofluid_step, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    st, stats = runner.benchmark(st, n_steps=20, warmup=10)
+    peak = torch.cuda.max_memory_allocated()
+    check(st.h.shape[1] == 19, "256^3 channel flagship: not the channel form")
+    args = (st.h, st.magnetic_flags, st.premac[5])
+    kw = dict(tau=params.tau, n_iters=params.poisson_iters)
+    out = {"B11b": measure(K, "B11b", args, kw, params.poisson_iters, params.poisson_iters,
+                           "B11b at 256^3")}
+    psi_sub = substitute_obstacles(K["B11b"].wrapper(*args, **kw)[1], st.magnetic_flags)
+    out["B10a"] = measure(K, "B10a", (psi_sub,), dict(dx=params.dx), 1, 1, "B10a at 256^3")
+    emit({"phase": "channel_flagship", "scene": "rosensweig_3d", "res": [256, 256, 256],
+          "solve": "channel form (scalar_carry=False)", "mlups": stats["mlups"],
+          "ms_per_step": stats["seconds"] / stats["steps"] * 1e3,
+          "seconds_20_steps": stats["seconds"], "peak_mem_gb": peak / 1e9, "card": card,
+          "per_kernel": out, "ok": True})
+    return out
+
+
 def phase_hcz_flagship(dev, K, card):
     """``multiphase_3d`` at 256^3: MLUPS and peak memory over warm steps,
     then each HCZ kernel at the inputs the next step gives it."""
@@ -596,14 +709,16 @@ def phase_hcz_flagship(dev, K, card):
 def run_phases(dev, kernels_pkg, smi) -> list:
     """Phases 3-6; returns one row per kernel for the ``kernels`` line.
     ``launches`` sums the kernel's launches over the main paths of phase 5
-    that run it."""
+    that run it (B2, B3 and B4 over both ferrofluid solves)."""
     K = kernels_pkg.KERNELS
     worst = phase_kernels(dev, K)
     phase_golden(dev)
     per_path = [phase_main(dev, kernels_pkg, smi), phase_hcz_main(dev, kernels_pkg, smi),
-                phase_two_droplets(dev, kernels_pkg, smi)]
+                phase_two_droplets(dev, kernels_pkg, smi),
+                phase_channel_main(dev, kernels_pkg, smi)]
     launches = {kid: sum(p.get(kid, 0) for p in per_path) for kid in K}
     flag = phase_flagship(dev, K, smi)
+    flag.update(phase_channel_flagship(dev, K, smi))
     hcz_flag = phase_hcz_flagship(dev, K, smi)
     flag["B2"]["max_abs_err"] = max(flag["B2"]["max_abs_err"], hcz_flag["B2"]["max_abs_err"])
     flag.update({kid: v for kid, v in hcz_flag.items() if kid != "B2"})

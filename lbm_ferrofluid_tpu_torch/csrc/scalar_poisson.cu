@@ -78,22 +78,11 @@ __global__ void lbm_scalar_h2_kernel(const float* __restrict__ psi,
                            Y, X)];
     return psi[n];
   };
-  const float d12 = static_cast<float>(12.0 * dx);
-  const float gx = (2.f * (S(0, 0, 1) - S(0, 0, -1)) +
-                    (S(1, 0, 1) - S(-1, 0, -1) + S(-1, 0, 1) - S(1, 0, -1) + S(0, 1, 1) -
-                     S(0, -1, -1) + S(0, -1, 1) - S(0, 1, -1))) /
-                   d12;
-  const float gy = (2.f * (S(0, 1, 0) - S(0, -1, 0)) +
-                    (S(1, 1, 0) - S(-1, -1, 0) + S(-1, 1, 0) - S(1, -1, 0) + S(0, 1, 1) -
-                     S(0, -1, -1) + S(0, 1, -1) - S(0, -1, 1))) /
-                   d12;
-  const float gz = (2.f * (S(1, 0, 0) - S(-1, 0, 0)) +
-                    (S(1, 1, 0) - S(-1, -1, 0) + S(1, -1, 0) - S(-1, 1, 0) + S(1, 0, 1) -
-                     S(-1, 0, -1) + S(1, 0, -1) - S(-1, 0, 1))) /
-                   d12;
-  const float tx = -gx + static_cast<float>(hx);
-  const float ty = -gy + static_cast<float>(hy);
-  const float tz = -gz + static_cast<float>(hz);
+  float g[3];
+  lbm_iso_grad(S, static_cast<float>(12.0 * dx), g);
+  const float tx = -g[0] + static_cast<float>(hx);
+  const float ty = -g[1] + static_cast<float>(hy);
+  const float tz = -g[2] + static_cast<float>(hz);
   h2[i] = tx * tx + ty * ty + tz * tz;
 }
 

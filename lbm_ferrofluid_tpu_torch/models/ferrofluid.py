@@ -1,21 +1,28 @@
-"""Ferrofluid solver: HCZ multiphase + tau == 1 magnetic Poisson solve +
-Kelvin force, on one device.
+"""Ferrofluid solver: HCZ multiphase + magnetic Poisson solve + Kelvin force,
+on one device.
 
 Port of the steady state of ``lbm_ferrofluid_tpu/models/ferrofluid.py:
 ferrofluid_step_impl`` (:406-580).  After :func:`prime_premac` each step is
 
 1. this step's streamed macros and Poisson source from ``state.premac``;
-2. the scalar Poisson solve with in-kernel H2 (B1,
-   ``ops/kernels/scalar_poisson.py``);
+2. the magnetic solve, in the form the state carries (``state.h.shape[1]``):
+   - 2 channels: the tau == 1 scalar collapse with in-kernel H2 (B1,
+     ``ops/kernels/scalar_poisson.py``), when ``_scalar_physics_ok`` holds;
+   - 19 channels: the Chai Poisson-LBM on the channel distribution at any
+     tau (``ops/magnetic.py:solve_H_int``: the sweeps B11b,
+     ``ops/kernels/poisson.py``, then the gradient of psi B10a,
+     ``ops/kernels/stencil3d.py``);
 3. the contact-angle rewrite of rho (B2, ``ops/kernels/contact3d.py``);
 4. the capillogue: capillary stage, HCZ collide of f and g, and the next
-   step's macros and source (B3, ``ops/kernels/capillogue.py``).
+   step's macros and source at the magnetic tau (B3,
+   ``ops/kernels/capillogue.py``).
 
 Priming runs the prologue (B4, ``ops/kernels/fused_step.py``).  Every entry
 point runs on the card unless ``device="cpu"`` is passed, and the kernels
 run unless ``plain=True`` is passed, which selects their plain PyTorch
-versions.  Configurations outside this slice raise ``NotImplementedError``
-naming their ROADMAP item; nothing falls back.
+versions.  float64 storage runs on the plain versions only.  Configurations
+outside the port raise ``NotImplementedError`` naming their ROADMAP item;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from ..ops.equilibrium import feq, geq
 from ..ops.kernels.capillogue import lbm_capillogue, lbm_capillogue_plain
 from ..ops.kernels.contact3d import contact_angle_3d, contact_angle_3d_plain
 from ..ops.kernels.fused_step import lbm_prologue, lbm_prologue_plain
-from ..ops.magnetic import poisson_rhs_scaled, solve_H_int_scalar
+from ..ops.magnetic import poisson_rhs_scaled, solve_H_int, solve_H_int_scalar
 from ..ops.moments import eos_pressure, phi_from_density
 from ..ops.scalar_poisson import make_cmask, s_prev_from_h, scalar_from_h
 from ..ops.stencils import staggered
@@ -111,10 +118,14 @@ def _mag_boundary_only(magnetic_flags) -> bool:
 
 def _scalar_physics_ok(params: SimulationParams, magnetic_flags) -> bool:
     """Preconditions of the tau == 1 scalar Poisson collapse (the JAX
-    package's ``_scalar_physics_ok``)."""
+    package's ``_scalar_physics_ok``): tau == 1, ``scalar_carry``, h not
+    stored in float64 (the carry is float32), an axis-aligned field, and
+    magnetic obstacles on the boundary ring only."""
     return (
         params.scalar_carry
         and float(params.tau) == 1.0
+        and params.h_dtype != "float64"
+        and params.h_ext_axis in range(params.dim)
         and (params.mag_flags_shell or _mag_boundary_only(magnetic_flags))
     )
 
@@ -130,12 +141,6 @@ def _check_supported(params: SimulationParams, state) -> None:
             "the padded transposed layout uses it (scenes.rosensweig_3d_tpu, "
             "ROADMAP A8)"
         )
-    if state.h.shape[1] != 2 and not _scalar_physics_ok(params, state.magnetic_flags):
-        raise NotImplementedError(
-            "the magnetic solve needs the tau == 1 scalar collapse (tau == 1, "
-            "scalar_carry, magnetic obstacles on the boundary ring only); the "
-            "channel-form solve is not ported yet (ROADMAP B7/B11)"
-        )
 
 
 def _hext_static(params: SimulationParams):
@@ -145,10 +150,12 @@ def _hext_static(params: SimulationParams):
     )
 
 
-def _scalar_convert(state):
-    """(h2, cmask) of the scalar carry from a canonical channel h (zeros at
-    init, post-collision h of any tau == 1 run)."""
-    if state.h.shape[1] == 2:
+def _scalar_convert(params: SimulationParams, state):
+    """(h, cmask) that the step carries: the scalar pair (s, s_prev) and its
+    cmask from a canonical channel h (zeros at init, post-collision h of any
+    tau == 1 run) when the collapse applies, else the channel h as it is
+    (JAX ``_prime_steady`` :926-929)."""
+    if state.h.shape[1] == 2 or not _scalar_physics_ok(params, state.magnetic_flags):
         return state.h, state.cmask
     s = scalar_from_h(state.h, state.magnetic_flags)
     sp = s_prev_from_h(state.h, state.magnetic_flags)
@@ -158,8 +165,9 @@ def _scalar_convert(state):
 def prime_premac(params: SimulationParams, state: FerrofluidState, *,
                  device=None, plain=False) -> FerrofluidState:
     """Run the prologue once and carry this step's macros and Poisson source
-    in ``state.premac`` (a 6-tuple); convert h to the scalar carry; drop the
-    write-only phi, force and H_ext (``_prime_steady`` of the JAX package).
+    in ``state.premac`` (a 6-tuple); convert h to the scalar carry where the
+    collapse applies (else keep the 19-channel h); drop the write-only phi,
+    force and H_ext (``_prime_steady`` of the JAX package).
     A state that is already primed is returned as it is."""
     check_device(state.f, device)
     _check_supported(params, state)
@@ -180,7 +188,7 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
         state.magnetic_flags, _hext_static(params), tau=params.tau,
         dx=params.dx, dt=params.dt,
     )
-    h, cmask = _scalar_convert(state)
+    h, cmask = _scalar_convert(params, state)
     return state.replace(
         h=h, cmask=cmask, premac=tuple(premac) + (rhs,), phi=None, force=None,
         H_ext=None,
@@ -195,10 +203,17 @@ def ferrofluid_step(params: SimulationParams, state: FerrofluidState, *,
     instead of the kernels."""
     state = prime_premac(params, state, device=device, plain=plain)
     rho, vel, density, m0g, m1g, rhs = state.premac
-    H2, h = solve_H_int_scalar(
-        state.h, state.cmask, rhs, n_iters=params.poisson_iters, dx=params.dx,
-        h2_ext=_hext_static(params), plain=plain,
-    )
+    if state.h.shape[1] == 2:
+        H2, h = solve_H_int_scalar(
+            state.h, state.cmask, rhs, n_iters=params.poisson_iters, dx=params.dx,
+            h2_ext=_hext_static(params), plain=plain,
+        )
+    else:
+        H2, h = solve_H_int(
+            params.lattice, state.h, None, state.magnetic_flags, None, tau=float(params.tau),
+            n_iters=params.poisson_iters, dx=params.dx, dt=params.dt, rhs_scaled=rhs,
+            h2_ext=_hext_static(params), plain=plain,
+        )
     surgery = contact_angle_3d_plain if plain else contact_angle_3d
     rho_ca = surgery(rho, state.flags, float(params.contact_angle))
     capillogue = lbm_capillogue_plain if plain else lbm_capillogue

@@ -46,13 +46,15 @@ __all__ = ["init_hcz_state", "hcz_step"]
 
 
 def storage_dtype(name: str) -> torch.dtype:
-    """The torch dtype of a ``params.fg_dtype``/``h_dtype`` name."""
-    if name != "float32":
+    """The torch dtype of a ``params.fg_dtype``/``h_dtype`` name.  float64
+    runs the plain versions only (on the CPU or with ``plain=True``): the
+    kernels take float32 and raise on anything else."""
+    if name not in ("float32", "float64"):
         raise NotImplementedError(
-            f"storage dtype {name!r}: only float32 f/g/h storage is ported "
-            "(bfloat16 storage is ROADMAP A6)"
+            f"storage dtype {name!r}: only float32 and float64 f/g/h storage is "
+            "ported (bfloat16 storage is ROADMAP A6)"
         )
-    return torch.float32
+    return getattr(torch, name)
 
 
 def check_supported(params: SimulationParams, f: torch.Tensor) -> None:

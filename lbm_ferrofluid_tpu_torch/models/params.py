@@ -59,13 +59,14 @@ class SimulationParams:
     # plus the two z-edge planes (the standard ferrofluid scene pattern)
     mag_flags_shell: bool = False
     poisson_psi_halo: bool = True
-    # False keeps the magnetic solve in channel form (not ported: B7/B11)
+    # False keeps the magnetic solve in the 19-channel form at any tau
     scalar_carry: bool = True
     scalar_sliver: bool = False
     use_pallas: bool = True
     # physical extent of an OBSTACLE-padded layout (not ported: A8)
     phys_extent: tuple[int, ...] | None = None
-    # storage dtypes of h and of f/g (only "float32" is ported; A6)
+    # storage dtypes of h and of f/g: "float32", or "float64" on the plain
+    # path only ("bfloat16" is ROADMAP A6)
     h_dtype: str = "float32"
     fg_dtype: str = "float32"
 

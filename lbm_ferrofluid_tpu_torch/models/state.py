@@ -8,7 +8,9 @@ On the carried ferrofluid steady state (``models/ferrofluid.py:prime_premac``):
   this step's streamed macros and pre-scaled Poisson source, emitted by the
   previous step;
 * ``h`` is the fused [1, 2, Z, Y, X] (s, s_prev) pair of the tau == 1
-  scalar Poisson carry and ``cmask`` its static obstacle/wall-weight field;
+  scalar Poisson carry and ``cmask`` its static obstacle/wall-weight field,
+  or, where that collapse does not apply, the [1, 19, Z, Y, X] channel
+  distribution with ``cmask`` None;
 * ``phi``, ``force`` and ``H_ext`` are None (``phi_field`` and
   ``make_H_ext`` rebuild them on demand).
 

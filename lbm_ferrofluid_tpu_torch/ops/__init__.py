@@ -9,8 +9,8 @@ from .collide import (
     hcz_collide,
     smooth_phi,
 )
-from .equilibrium import feq, gamma_quadratic, geq
-from .magnetic import poisson_rhs_scaled, solve_H_int_scalar
+from .equilibrium import feq, gamma_quadratic, geq, heq
+from .magnetic import magnetic_sweep, poisson_rhs_scaled, solve_H_int, solve_H_int_scalar
 from .moments import eos_pressure, rho_to_density
 from .stencils import (
     isotropic_grad,
@@ -32,6 +32,7 @@ __all__ = [
     "feq",
     "geq",
     "gamma_quadratic",
+    "heq",
     "rho_to_density",
     "eos_pressure",
     "isotropic_grad",
@@ -45,5 +46,7 @@ __all__ = [
     "hcz_capillary",
     "hcz_collide",
     "poisson_rhs_scaled",
+    "magnetic_sweep",
+    "solve_H_int",
     "solve_H_int_scalar",
 ]

@@ -1,4 +1,5 @@
-"""Equilibrium distributions: feq (exact exponential form), geq, Gamma.
+"""Equilibrium distributions: feq (exact exponential form), geq, Gamma, and
+the magnetic Poisson equilibrium heq.
 
 PyTorch twins of ``lbm_ferrofluid_tpu/ops/equilibrium.py`` (reference:
 LBM_collision_2d.py:113-191, LBM_collision_3d.py:133-187):
@@ -18,7 +19,7 @@ import torch
 
 from ..lattice import Lattice
 
-__all__ = ["feq", "geq", "gamma_quadratic"]
+__all__ = ["feq", "geq", "gamma_quadratic", "heq"]
 
 
 def _weights(lat: Lattice, like: torch.Tensor) -> torch.Tensor:
@@ -83,3 +84,13 @@ def gamma_quadratic(lat: Lattice, vel, *, dx=1.0, dt=1.0):
         )
         eu = eu + vel[:, d:d + 1] * ed * c
     return w * (1.0 + eu / cs2 + 0.5 * eu * eu / (cs2 * cs2) - 0.5 * uv / cs2)
+
+
+def heq(lat: Lattice, psi):
+    """Equilibrium of the magnetic-potential Poisson distribution h:
+    w_q * psi for q > 0 and (w_0 - 1) * psi for the rest population (Chai
+    et al. 2007 eq. 2.2; reference: LBM_magnetic_2d.py:88-97)."""
+    w = np.copy(lat.weights)
+    w[0] -= 1.0
+    return psi * torch.as_tensor(w.reshape(1, lat.q, *([1] * lat.dim)), dtype=psi.dtype,
+                                 device=psi.device)

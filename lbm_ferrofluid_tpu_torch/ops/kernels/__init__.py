@@ -14,13 +14,25 @@ from __future__ import annotations
 from types import ModuleType
 from typing import Callable, NamedTuple
 
-from . import capillogue, capmac, contact3d, fused_step, hcz3d, scalar_poisson, stream3d
+from . import (
+    capillogue,
+    capmac,
+    contact3d,
+    fused_step,
+    hcz3d,
+    poisson,
+    scalar_poisson,
+    stencil3d,
+    stream3d,
+)
 from .capillogue import lbm_capillogue, lbm_capillogue_plain
 from .capmac import hcz_capillary_gradmac, hcz_capillary_gradmac_plain
 from .contact3d import contact_angle_3d, contact_angle_3d_plain
 from .fused_step import lbm_prologue, lbm_prologue_plain
 from .hcz3d import hcz_collide_fused, hcz_collide_fused_plain
+from .poisson import poisson_sweeps, poisson_sweeps_plain
 from .scalar_poisson import scalar_wavefront, scalar_wavefront_plain
+from .stencil3d import grad_fields, grad_fields_plain
 from .stream3d import (
     stream_bounce_macro,
     stream_bounce_macro_plain,
@@ -50,6 +62,10 @@ __all__ = [
     "stream_bounce_macro_plain",
     "hcz_collide_fused",
     "hcz_collide_fused_plain",
+    "grad_fields",
+    "grad_fields_plain",
+    "poisson_sweeps",
+    "poisson_sweeps_plain",
 ]
 
 
@@ -82,12 +98,17 @@ KERNELS = {
     "B8b": _kernel(stream3d, stream_bounce_macro, stream_bounce_macro_plain,
                    stream3d.cost_macro, stream3d.TPU_KERNEL_MACRO),
     "B9": _kernel(hcz3d, hcz_collide_fused, hcz_collide_fused_plain),
+    "B10a": _kernel(stencil3d, grad_fields, grad_fields_plain),
+    "B11b": _kernel(poisson, poisson_sweeps, poisson_sweeps_plain),
 }
 
-#: the kernels each model's step (with its priming) launches
+#: the kernels each model's step (with its priming) launches; the ferrofluid
+#: step runs the scalar tau == 1 solve (B1) or the channel-form solve
+#: (B11b + B10a)
 PATHS = {
     "ferrofluid": ("B1", "B2", "B3", "B4"),
     "hcz": ("B2", "B6", "B8a", "B8b", "B9"),
+    "ferrofluid_channel": ("B2", "B3", "B4", "B10a", "B11b"),
 }
 
 

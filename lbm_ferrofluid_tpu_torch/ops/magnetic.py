@@ -1,21 +1,38 @@
-"""Magnetic source term, Kelvin magnitude and the tau == 1 scalar solve.
+"""Magnetic scalar-potential solver: an LBM relaxation of the Poisson equation.
 
 PyTorch twins of ``lbm_ferrofluid_tpu/ops/magnetic.py``:
 ``_stag_diff_times`` (:36), ``poisson_rhs_scaled`` (:64), ``_maybe_h2``
-(:104) and the scalar branch of ``solve_H_int_scalar`` (:167).  The Chai
-(2007) Poisson-LBM solve (reference LBM_magnetic_3d.py:108-188) collapses at
-tau == 1 to the scalar sweeps of ``ops/scalar_poisson.py``; the channel-form
-solve for tau != 1 is ROADMAP B7/B11.
+(:104), ``magnetic_sweep`` (:122), the scalar branch of
+``solve_H_int_scalar`` (:167) and ``solve_H_int`` (:313).  The Chai (2007)
+Poisson-LBM solve (reference LBM_magnetic_3d.py:108-188):
+
+* psi  = Σ_{q>0} h_q / (1 - w_0)
+* heq  = psi * w, with the rest population getting (w_0 - 1) psi
+* rhs  = div(chi H_ext)|_staggered * dx / (1 + chi), zeroed off-fluid
+* h'   = (1 - 1/tau) h + heq/tau + dt * w * rhs * cs2 (0.5 - tau) dt
+* H_int = -grad(psi)
+
+runs in two forms: the 19-channel distribution h (:func:`solve_H_int`, any
+tau) and, at tau == 1, its scalar collapse (:func:`solve_H_int_scalar`,
+``ops/scalar_poisson.py``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..lattice import Lattice
 from ..utils.types import CellType
 from .collide import CHI_K, smooth_phi
+from .equilibrium import heq
+from .stencils import isotropic_grad, rep_pad_interior, staggered_x, staggered_y, staggered_z
+from .stream import bounce_back, stream
 
-__all__ = ["poisson_rhs_scaled", "solve_H_int_scalar"]
+__all__ = [
+    "poisson_rhs_scaled", "magnetic_sweep", "solve_H_int", "solve_H_int_scalar", "maybe_h2",
+    "substitute_obstacles", "h_int_from_psi",
+]
 
 
 def _stag_diff_times(x, axis, hm):
@@ -32,31 +49,49 @@ def _stag_diff_times(x, axis, hm):
     return torch.where(edge, torch.zeros((), dtype=x.dtype, device=x.device), d)
 
 
-def poisson_rhs_scaled(phi, magnetic_flags, h2_ext, *, tau, dx, dt):
-    """The loop-invariant, pre-scaled Poisson source term for a static,
-    axis-aligned external field ``h2_ext`` (channel order x, y, z):
+def _div_staggered(chi, H_ext_mac):
+    """div(chi H_ext) from the MAC-staggered chi times the staggered field
+    components (unscaled, every cell)."""
+    chx = staggered_x(chi) * H_ext_mac[0]
+    chy = staggered_y(chi) * H_ext_mac[1]
+    chz = staggered_z(chi) * H_ext_mac[2]
+    return ((chx[..., 1:] - chx[..., :-1]) + (chy[..., 1:, :] - chy[..., :-1, :])
+            + (chz[..., 1:, :, :] - chz[..., :-1, :, :]))
+
+
+def poisson_rhs_scaled(phi, magnetic_flags, h2_ext, *, tau, dx, dt, H_ext_mac=None):
+    """The loop-invariant, pre-scaled Poisson source term:
 
     rhs = div(chi H_ext)|_staggered * dx / (1 + chi), zeroed off-fluid,
     times the dt * cs2 (0.5 - tau) dt collision prefactor
-    (LBM_magnetic_2d.py:140-155)."""
+    (LBM_magnetic_2d.py:140-155).  With ``h2_ext`` (the static axis-aligned
+    field, channel order x, y, z) the staggered difference of the constant
+    field is taken directly; with ``h2_ext=None`` from the staggered field
+    components ``H_ext_mac``."""
     c = dx / dt
     cs2 = c * c / 3.0
     chi = CHI_K * (1.0 - smooth_phi(phi, 0.1 * dx))
-    rhs = None
-    for axis, hm in zip((-1, -2, -3), (float(v) for v in h2_ext)):
-        if hm == 0.0:
-            continue
-        term = _stag_diff_times(chi, axis, hm)
-        rhs = term if rhs is None else rhs + term
-    if rhs is None:
-        rhs = torch.zeros_like(chi)
+    if h2_ext is None:
+        rhs = _div_staggered(chi, H_ext_mac)
+    else:
+        rhs = None
+        for axis, hm in zip((-1, -2, -3), (float(v) for v in h2_ext)):
+            if hm == 0.0:
+                continue
+            term = _stag_diff_times(chi, axis, hm)
+            rhs = term if rhs is None else rhs + term
+        if rhs is None:
+            rhs = torch.zeros_like(chi)
     rhs = rhs * dx / (1.0 + chi)
     rhs = torch.where(magnetic_flags == int(CellType.FLUID), rhs, torch.zeros_like(rhs))
     return dt * rhs * (cs2 * (0.5 - tau) * dt)
 
 
 def maybe_h2(H_int, h2_ext):
-    """H2 = |h2_ext + H_int|^2 with channel-ascending summation."""
+    """H2 = |h2_ext + H_int|^2 with channel-ascending summation when the
+    static field is given, else H_int."""
+    if h2_ext is None:
+        return H_int
     acc = None
     for d, c in enumerate(h2_ext):
         tot = H_int[:, d:d + 1]
@@ -65,6 +100,72 @@ def maybe_h2(H_int, h2_ext):
         sq = tot * tot
         acc = sq if acc is None else acc + sq
     return acc
+
+
+def magnetic_sweep(lat: Lattice, h, phi, flags, H_ext_mac, *, tau, dx=1.0, dt=1.0):
+    """One Poisson-LBM collision sweep with the source recomputed from
+    ``phi`` (not hoisted); returns (H_int, h_new).  ``flags`` is the
+    magnetic flag field."""
+    c = dx / dt
+    cs2 = c * c / 3.0
+    w = torch.as_tensor(lat.w_bcast(np.float64), dtype=h.dtype, device=h.device)
+    w0 = float(lat.weights[0])
+    psi = torch.sum(h[:, 1:], dim=1, keepdim=True) / (1.0 - w0)
+    heq_val = heq(lat, psi)
+    chi = CHI_K * (1.0 - smooth_phi(phi, 0.1 * dx))
+    rhs = _div_staggered(chi, H_ext_mac) * dx / (1.0 + chi)
+    rhs = torch.where(flags == int(CellType.FLUID), rhs, torch.zeros_like(rhs))
+    add_h = dt * w * rhs * (cs2 * (0.5 - tau) * dt)
+    collision_h = (1.0 - 1.0 / tau) * h + heq_val / tau + add_h
+    h_new = torch.where(flags == int(CellType.OBSTACLE), h, collision_h)
+    return -isotropic_grad(psi, dx, flags), h_new
+
+
+def substitute_obstacles(psi, magnetic_flags):
+    """psi with magnetic obstacle cells replaced by the edge-replicated
+    interior (JAX ``solve_H_int`` :467-473)."""
+    return torch.where(magnetic_flags == int(CellType.OBSTACLE), rep_pad_interior(psi), psi)
+
+
+def h_int_from_psi(psi, magnetic_flags, *, dx, h2_ext, grad):
+    """The channel-form solve's tail: obstacle psi substituted, H_int =
+    -grad(psi_sub) through ``grad`` (the B10a kernel or its plain version),
+    then the static field folded in (JAX ``solve_H_int`` :467-478)."""
+    return maybe_h2(-grad(substitute_obstacles(psi, magnetic_flags), dx=dx), h2_ext)
+
+
+def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters=30,
+                dx=1.0, dt=1.0, rhs_scaled=None, h2_ext=None, plain=False):
+    """``n_iters`` sweeps of [stream -> bounce-back -> relaxation] on the
+    19-channel h; returns (H_int of the last sweep's psi, h'), or (H2, h')
+    with ``h2_ext``.
+
+    CUDA tensors run the hand-written kernels: the sweeps (B11b,
+    ``ops/kernels/poisson.py``), then the obstacle substitution of psi and
+    the gradient (B10a, ``ops/kernels/stencil3d.py``), as the JAX
+    package's psi route (:452-478).  CPU tensors, and ``plain=True`` on any
+    device, run the plain body (:480-502).  ``rhs_scaled`` defaults to
+    :func:`poisson_rhs_scaled` of ``phi``."""
+    if rhs_scaled is None:
+        rhs_scaled = poisson_rhs_scaled(phi, magnetic_flags, h2_ext, tau=tau, dx=dx, dt=dt,
+                                        H_ext_mac=H_ext_mac)
+    if not plain and h.device.type != "cpu":
+        from .kernels.poisson import poisson_sweeps
+        from .kernels.stencil3d import grad_fields
+
+        h, psi = poisson_sweeps(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters)
+        return h_int_from_psi(psi, magnetic_flags, dx=dx, h2_ext=h2_ext, grad=grad_fields), h
+    w = torch.as_tensor(lat.w_bcast(np.float64), dtype=h.dtype, device=h.device)
+    w0 = float(lat.weights[0])
+    add_h = w * rhs_scaled
+    is_obs = magnetic_flags == int(CellType.OBSTACLE)
+    psi = None
+    for _ in range(n_iters):
+        h = bounce_back(lat, stream(lat, h), magnetic_flags)
+        psi = torch.sum(h[:, 1:], dim=1, keepdim=True) / (1.0 - w0)
+        collision_h = (1.0 - 1.0 / tau) * h + heq(lat, psi) / tau + add_h
+        h = torch.where(is_obs, h, collision_h)
+    return maybe_h2(-isotropic_grad(psi, dx, magnetic_flags), h2_ext), h
 
 
 def solve_H_int_scalar(s2, cmask, rhs_scaled, *, n_iters=30, dx=1.0, h2_ext,

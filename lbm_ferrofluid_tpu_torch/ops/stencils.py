@@ -14,6 +14,8 @@ import torch.nn.functional as F
 from ..utils.types import CellType
 
 __all__ = [
+    "fix_ring_replicate",
+    "grad_ring_replicate",
     "isotropic_grad",
     "isotropic_laplacian",
     "rep_pad_interior",
@@ -42,12 +44,14 @@ def rep_pad_interior(x):
     return x
 
 
-def _replicate_pad(x):
-    """Replicate-pad an interior-sized field by one cell per side."""
-    for ax in range(x.ndim - 3, x.ndim):
-        n = x.shape[ax]
-        idx = torch.clamp(torch.arange(n + 2, device=x.device) - 1, 0, n - 1)
-        x = torch.index_select(x, ax, idx)
+def fix_ring_replicate(x):
+    """The boundary ring overwritten with nearest-interior values: x edges
+    first, then y, then z (the reference's replicate pad of the interior
+    result; JAX ``ops/pallas/stencil3d.py:fix_ring_replicate``)."""
+    x = x.clone()
+    for ax in (-1, -2, -3):
+        x.select(ax, 0).copy_(x.select(ax, 1))
+        x.select(ax, -1).copy_(x.select(ax, -2))
     return x
 
 
@@ -60,6 +64,24 @@ def isotropic_grad(x, dx, flags):
     if x.shape[1] != 1:
         raise ValueError("isotropic_grad expects a single-channel field")
     xn = torch.where(flags == int(CellType.OBSTACLE), rep_pad_interior(x), x)
+    return grad_ring_replicate(xn, dx)
+
+
+def grad_ring_replicate(x, dx):
+    """19-point isotropic gradients (gx, gy, gz) of each channel of ``x``
+    [B, C, Z, Y, X] -> [B, 3C, Z, Y, X]: the stencil with replicate reads
+    at every cell, then the boundary ring replaced from the interior.  For
+    Z, Y, X >= 3 that is the interior stencil replicate-padded out; smaller
+    axes follow the JAX package's ``grad_fields`` post-pass."""
+    B, C, Z, Y, X = x.shape
+    padded = F.pad(x, (1, 1, 1, 1, 1, 1), mode="replicate")
+    grad = torch.stack(_iso_grad_taps(padded, dx), dim=2)
+    return fix_ring_replicate(grad.reshape(B, 3 * C, Z, Y, X))
+
+
+def _iso_grad_taps(xn, dx):
+    """(gx, gy, gz) of the 19-point isotropic stencil at the interior cells
+    of ``xn`` [B, C, Z, Y, X], each [B, C, Z-2, Y-2, X-2]."""
 
     def S(*off):
         return _sh(xn, off)
@@ -85,7 +107,7 @@ def isotropic_grad(x, dx, flags):
             + S(1, 0, 1) - S(-1, 0, -1) + S(1, 0, -1) - S(-1, 0, 1)
         )
     ) / (12.0 * dx)
-    return _replicate_pad(torch.cat([gx, gy, gz], dim=1))
+    return gx, gy, gz
 
 
 def isotropic_laplacian(x, dx):

@@ -10,16 +10,24 @@
 * ``tests/golden/ferro3d.npz`` (the reference solver) is met at the bars
   of tests/test_parity.py:_assert_close;
 * the carried structure, the NotImplementedError scope and the launch
-  counters (0 on the CPU).
+  counters (0 on the CPU);
+* the channel-form solve (tau != 1, ``scalar_carry=False``, an interior
+  magnetic obstacle): 3 port steps against 3 JAX steps at 2e-5 with the
+  19-channel h compared directly, against the port's own scalar carry at
+  tau == 1 at 2e-5, the ferro3d golden at test_parity.py's bars, and
+  float64 storage (plain path) against JAX float64 steps at 1e-10 —
+  the same formulas, with the solve's sums associated differently.
 
-h is compared through the port's own ``compare_views``: the port carries
-(s, s_prev) where the JAX run (never primed) carries the 19-channel h.
+With the scalar carry, h is compared through the port's own
+``compare_views``: the port carries (s, s_prev) where the JAX run (never
+primed) carries the 19-channel h.
 """
 
 import dataclasses
 import math
 import pathlib
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -30,6 +38,7 @@ from lbm_ferrofluid_tpu.models import scenes as jscenes  # noqa: E402
 
 from lbm_ferrofluid_tpu_torch.models import (  # noqa: E402
     SimulationParams,
+    SimulationRunner,
     ferrofluid_step,
     from_numpy,
     init_ferrofluid_state,
@@ -176,8 +185,6 @@ _UNSUPPORTED = {
     "phys_extent": (dict(phys_extent=(6, 8, 10)), "A8"),
     # the JAX step runs an out-of-plane field only on the padded layout
     "h_ext_axis=2": (dict(h_ext_axis=2), "A8"),
-    "tau!=1": (dict(tau=0.8), "B7/B11"),
-    "channel form": (dict(scalar_carry=False), "B7/B11"),
 }
 
 
@@ -196,8 +203,6 @@ def test_batched_state_raises():
 
 
 def test_cpu_runs_leave_launch_counters_at_zero():
-    from lbm_ferrofluid_tpu_torch.models import SimulationRunner
-
     kernels.reset_launch_counts()
     params, state = rosensweig_3d(res=(6, 8, 10), device="cpu")
     state = SimulationRunner(params, ferrofluid_step, device="cpu").run(
@@ -208,3 +213,142 @@ def test_cpu_runs_leave_launch_counters_at_zero():
         "B1": 0, "B2": 0, "B3": 0, "B4": 0
     }
     assert all(v == 0 for v in kernels.launch_counts().values())
+
+
+# ---------------------------------------------------------------- channel form
+def _interior_obstacle(jp, js):
+    """tau == 1 with a 2x2x2 magnetic obstacle block inside the domain: the
+    scalar collapse must decline (its precondition is boundary-ring
+    obstacles only)."""
+    mf = np.array(js.magnetic_flags)
+    mf[..., 4:6, 5:7, 6:8] = 2
+    return jp.replace(mag_flags_shell=False), dataclasses.replace(
+        js, magnetic_flags=jnp.asarray(mf))
+
+
+_CHANNEL = {
+    "tau=0.8": lambda jp, js: (jp.replace(tau=0.8), js),
+    "scalar_carry=False": lambda jp, js: (jp.replace(scalar_carry=False), js),
+    "interior obstacle": _interior_obstacle,
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CHANNEL))
+def test_channel_form_three_steps_match_jax_step(case):
+    jp, js = _CHANNEL[case](*jscenes.rosensweig_3d(res=RES))
+    pp = SimulationParams.from_json(jp.to_json())
+    ps = from_numpy(_jax_fields(js), device="cpu")
+    jpp = jp.replace(use_pallas=False)
+    for _ in range(3):
+        js = jmodels.ferrofluid_step(jpp, js)
+    for _ in range(3):
+        ps = ferrofluid_step(pp, ps, device="cpu")
+    assert ps.h.shape[1] == 19 and ps.cmask is None
+    for name in ("f", "g", "density", "vel", "pressure", "h"):
+        r = rel(getattr(ps, name), getattr(js, name))
+        assert r <= 2e-5, f"{name}: max rel dev {r:.2e}"
+
+
+def test_channel_form_matches_scalar_carry():
+    params, s0 = rosensweig_3d(res=RES, device="cpu")
+    sc, ch = s0, s0
+    for _ in range(3):
+        sc = ferrofluid_step(params, sc, device="cpu")
+        ch = ferrofluid_step(params.replace(scalar_carry=False), ch, device="cpu")
+    assert sc.h.shape[1] == 2 and ch.h.shape[1] == 19
+    for name in ("f", "g", "density", "vel", "pressure"):
+        r = rel(getattr(ch, name), getattr(sc, name))
+        assert r <= 2e-5, f"{name}: max rel dev {r:.2e}"
+    r, _, _ = _h_rel(sc, ch.h.numpy())
+    assert r <= 2e-5, f"h: max rel dev {r:.2e}"
+
+
+def test_golden_ferro3d_channel_form():
+    d = np.load(GOLDEN / "ferro3d.npz")
+    params = ferro3d_params().replace(scalar_carry=False)
+    mflags = np.full((1, 1, *RES), 2, np.uint8)
+    mflags[..., 1:-1, :, 1:-1] = 1
+    state = init_ferrofluid_state(
+        params, d["rho0"], d["den0"], np.zeros((1, 3, *RES), np.float32),
+        d["flags"], mflags, device="cpu",
+    )
+    for _ in range(8):
+        state = ferrofluid_step(params, state, device="cpu")
+    assert state.h.shape[1] == 19
+    _assert_close(state.h, d["h"], "h")
+    _assert_close(state.f, d["f"], "f")
+    _assert_close(state.g, d["g"], "g")
+    _assert_close(state.vel, d["vel"], "vel")
+    _assert_close(state.density, d["den"], "density")
+
+
+def _float64_states(res):
+    """The Rosensweig scene's initial fields in float64, through both
+    packages' init with float64 f/g/h storage."""
+    jp, js = jscenes.rosensweig_3d(res=res)
+    jp = jp.replace(fg_dtype="float64", h_dtype="float64")
+    args = [np.array(getattr(js, n), np.float64) for n in ("rho", "density", "vel")]
+    args += [np.array(js.flags), np.array(js.magnetic_flags)]
+    pp = SimulationParams.from_json(jp.to_json())
+    return jp, jmodels.init_ferrofluid_state(jp, *args), pp, init_ferrofluid_state(
+        pp, *args, device="cpu")
+
+
+def test_float64_steps_match_jax():
+    jp, js, pp, ps = _float64_states(RES)
+    assert ps.f.dtype == ps.h.dtype == ps.rho.dtype == torch.float64
+    jpp = jp.replace(use_pallas=False)
+    for _ in range(2):
+        js = jmodels.ferrofluid_step(jpp, js)
+        ps = ferrofluid_step(pp, ps, device="cpu")
+    assert ps.h.shape[1] == 19 and ps.h.dtype == torch.float64
+    for name in ("f", "g", "density", "vel", "pressure", "h"):
+        r = rel(getattr(ps, name), getattr(js, name))
+        assert r <= 1e-10, f"{name}: max rel dev {r:.2e}"
+
+
+def test_channel_state_structure_and_round_trip():
+    params, state = rosensweig_3d(res=(6, 8, 10), device="cpu")
+    params = params.replace(tau=0.8)
+    state = prime_premac(params, state, device="cpu")
+    for _ in range(2):
+        assert state.premac is not None and len(state.premac) == 6
+        assert state.h.shape == (1, 19, 6, 8, 10) and state.cmask is None
+        state = ferrofluid_step(params, state, device="cpu")
+    fields = to_numpy(state)
+    assert fields["cmask"] is None and fields["h"].shape[1] == 19
+    back = from_numpy(fields, device="cpu")
+    assert back.cmask is None and torch.equal(back.h, state.h)
+    assert torch.equal(ferrofluid_step(params, back, device="cpu").h,
+                       ferrofluid_step(params, state, device="cpu").h)
+
+
+@pytest.mark.slow
+def test_golden_rosensweig3d_200_plain_float64():
+    """tests/test_parity_rosensweig3d.py's configuration and bars through
+    the port's plain path: float64 storage, so the channel-form solve."""
+    d = np.load(GOLDEN / "rosensweig3d_200.npz")
+    params = SimulationParams(
+        dim=3, density_gas=0.02381, density_fluid=0.2508, rho_gas=0.02381,
+        rho_fluid=0.2508, kappa=0.01, tau_f=0.68, tau_g=0.68,
+        gravity=float(d["gravity"]), mag_strength=float(d["mag"]), poisson_iters=30,
+        fg_dtype="float64", h_dtype="float64",
+    )
+    flags = d["flags"]
+    res = flags.shape[2:]
+    mflags = np.full_like(flags, 2)
+    mflags[..., 1:-1, :, 1:-1] = 1
+    state = init_ferrofluid_state(
+        params, d["rho0"].astype(np.float64), d["den0"].astype(np.float64),
+        np.zeros((1, 3, *res), np.float64), flags, mflags, device="cpu",
+    )
+    runner = SimulationRunner(params, ferrofluid_step, device="cpu")
+    state = runner.run(state, 100)
+    assert state.h.shape[1] == 19
+    np.testing.assert_allclose(state.density.numpy(), d["den_100"], rtol=2e-5, atol=2.5e-6)
+    np.testing.assert_allclose(state.vel.numpy(), d["vel_100"], rtol=0, atol=3e-7)
+    np.testing.assert_allclose(state.pressure.numpy(), d["p_100"], rtol=2e-5, atol=8e-8)
+    state = runner.run(state, int(d["steps"]) - 100)
+    np.testing.assert_allclose(state.density.numpy(), d["den_200"], rtol=6e-5, atol=7e-6)
+    np.testing.assert_allclose(state.pressure.numpy(), d["p_200"], rtol=5e-5, atol=2e-7)
+    np.testing.assert_allclose(state.vel.numpy(), d["vel_200"], rtol=0, atol=1.3e-6)

@@ -141,4 +141,8 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
                                       gravity=(0.0, 0.0, 0.0), **gas)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.hcz_collide_fused(f, f, z, v, z, z, fl, v, v, v, tau_f=0.7, tau_g=0.7)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.poisson_sweeps(f, fl, z, tau=0.8, n_iters=2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.grad_fields(v, dx=1.0)
     assert all(v == 0 for v in kernels.launch_counts().values())

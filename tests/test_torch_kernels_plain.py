@@ -230,6 +230,25 @@ def test_capillogue_plain_matches_jax_composition(res):
         assert rel(a, b) <= 1e-10, f"{name}: {rel(a, b):.2e}"
 
 
+def test_capillogue_plain_emits_rhs_at_the_magnetic_tau():
+    """The emitted Poisson source carries the factor cs2 (0.5 - tau) dt of
+    the magnetic tau; tau = 1 would hide a wrong tau."""
+    d = _fields(RES[0], 11)
+    T_ = {k: T(v) for k, v in d.items()}
+    kw = dict(kappa=0.01, gravity=(0.0, -1e-4, 0.0), tau_f=0.68, tau_g=0.68, dx=1.0,
+              dt=1.0, **GAS)
+    args = (T_["f"], T_["g"], T_["flags"], T_["rho"], T_["den"], T_["pres"], T_["rho"],
+            T_["H2"], T_["gsum"], T_["gmom"], T_["vel"], T_["mflags"])
+    mac = kernels.lbm_capillogue_plain(*args, emit_rhs=(1, 100.0, 0.8), **kw)[5]
+    mac1 = kernels.lbm_capillogue_plain(*args, emit_rhs=(1, 100.0, 1.0), **kw)[5]
+    phi = -(2.0 * (mac[2].numpy() - RG) / (RF - RG) - 1.0)
+    want = jmagnetic.poisson_rhs_scaled(jnp.asarray(phi), jnp.asarray(d["mflags"]), None,
+                                        (0.0, 100.0, 0.0), tau=0.8, dx=1.0, dt=1.0, dim=3)
+    assert rel(mac[5], want) <= 1e-12
+    # (0.5 - 0.8) / (0.5 - 1.0) of the tau == 1 source
+    assert rel(mac[5], 0.6 * mac1[5]) <= 1e-12 and float(mac[5].abs().max()) > 0
+
+
 # ---------------------------------------------------------------- bounds
 def _leaves(out):
     if isinstance(out, (tuple, list)):
@@ -238,13 +257,14 @@ def _leaves(out):
 
 
 @pytest.mark.parametrize("kid", ["B1", "B2", "B3", "B4", "B6", "B6 without H2", "B8a",
-                                 "B8b", "B9"])
+                                 "B8b", "B9", "B10a", "B11b"])
 def test_cost_leaves_out_only_unread_inputs(kid):
     """A kernel's bound (``cost``) counts some inputs only at some cells.
     New values at the cells it leaves out must leave every output of the
     plain version exactly as it was, and the count must be the full one
     (each input read and each output written at every cell) less exactly
-    those cells.  B8a reads every input everywhere: nothing is left out."""
+    those cells.  B8a and B10a read every input everywhere: nothing is left
+    out."""
     res = (6, 8, 10)
     n = int(np.prod(res))
     rng = np.random.default_rng(8)
@@ -311,6 +331,18 @@ def test_cost_leaves_out_only_unread_inputs(kid):
     elif kid == "B8a":
         args, kw = [d["f"], d["flags"]], {}
         changed, full, left_out = args, 169 * n, 0
+    elif kid == "B10a":
+        args, kw = [T(rng.standard_normal((1, 2, *res)))], dict(dx=1.0)
+        changed, full, left_out = args, 32 * n, 0
+    elif kid == "B11b":
+        h = T(rng.uniform(-0.1, 0.1, (1, 19, *res)))
+        rhs = T(rng.uniform(-1e-3, 1e-3, (1, 1, *res)))
+        mf = d["mflags"].clone()
+        mf[..., 2:4, 3:5, 4:6] = OBS
+        args, kw = [h, mf, rhs], dict(tau=0.8, n_iters=3)
+        # rhs only at non-obstacle cells
+        changed = [h, mf, new(rhs, mf == OBS)]
+        full, left_out = 161 * n, 4 * int((mf == OBS).sum())
     elif kid == "B8b":
         args, kw = [d["f"], d["flags"], d["rho"], d["vel"]], dict(c=1.0, **GAS)
         # rho_old and vel_old only at obstacles
@@ -328,7 +360,7 @@ def test_cost_leaves_out_only_unread_inputs(kid):
         full, left_out = 365 * n, 60 * int((~fluid).sum())
     k = kernels.KERNELS[kid.split()[0]]
     want, got = _leaves(k.plain(*args, **kw)), _leaves(k.plain(*changed, **kw))
-    assert (left_out > 0) == (kid != "B8a") and len(got) == len(want)
+    assert (left_out > 0) == (kid not in ("B8a", "B10a")) and len(got) == len(want)
     for i, (a, b) in enumerate(zip(got, want)):
         assert torch.equal(a, b), f"{kid} output {i} reads a left-out input"
     assert k.cost(*args, **kw)[0] == full - left_out
