@@ -15,15 +15,19 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    sweeps + H2, B2 contact angle, B3 capillogue chain at the magnetic tau 1
    and 0.8, B4 prologue, B11b channel-form Poisson sweeps at tau 1 and 0.8
    with an interior magnetic obstacle block, B10a gradients of one and of
-   four fields) at 34x66x130 and 130x66x130; HCZ kernels (B8b/B8a stream + bounce, B2 at
-   0.75 pi, B6 capillary stage with and without H2, B9 collide, each fed
-   with what the kernels before it produced) at 34x66x130 and 130^3.  Bar
-   rel <= 5e-5 per field (max|a-b| / max|b|), velocities also pass at
-   abs <= 5e-6 (docs/PARITY.md:78-93: FMA contraction and reassociation);
-4. golden: ``tests/golden/ferro3d.npz`` (8 steps; with the scalar carry
-   and with the channel-form solve, ``scalar_carry=False``) and
-   ``hcz3d.npz`` (10 steps), reference solver, through the port with
-   kernels, at tests/test_parity.py's bars;
+   four fields, B5 epilogue with and without ``emit_mac`` on B6's outputs,
+   B10b Laplacian) at 34x66x130 and 130x66x130; HCZ kernels (B8b/B8a
+   stream + bounce, B2 at 0.75 pi, B6 capillary stage with and without H2,
+   B9 collide, each fed with what the kernels before it produced, then the
+   capillary stage's stencil route B10b + B10a against its plain version
+   and against B6) at 34x66x130 and 130^3.  Bar rel <= 5e-5 per field
+   (max|a-b| / max|b|), velocities also pass at abs <= 5e-6
+   (docs/PARITY.md:78-93: FMA contraction and reassociation);
+4. golden: ``tests/golden/ferro3d.npz`` (8 steps; the capillogue steady
+   state with the scalar carry and with the channel-form solve,
+   ``scalar_carry=False``, and the un-carried step) and ``hcz3d.npz``
+   (10 steps), reference solver, through the port with kernels, at
+   tests/test_parity.py's bars;
 5. main paths, each with the launch counters zeroed just before it and read
    just after it:
    - Rosensweig at the demo's native 130x66x130, primed and stepped 30
@@ -38,11 +42,19 @@ Phases, each printing one JSON line; any failed check exits non-zero:
      against 30 scalar-carry kernel steps (``compare_views``), then 200
      timed; with tau = 0.8 30 against 30.  B11b launches 30 times and B10a
      once a step;
+   - the un-carried step (Rosensweig 130x66x130 never primed: B4, B11b,
+     B10a, B2, B6, B5) and the epilogue steady state (5-leaf premac with
+     the scalar carry: B1, B2, B6, B5 with ``emit_mac``), each 30 kernel
+     against 30 plain steps with exact launch counts, the latter also
+     against 30 capillogue steady-state steps;
+   - the stencil route in the HCZ step (``multiphase_3d`` 130^3: B8b, B8a,
+     B2, B10b, B10a, B9), 30 against 30 plain HCZ steps;
 6. flagships at 256^3: the Rosensweig scene that bench.py times (scalar
-   carry, then the channel-form solve) and the HCZ ``multiphase_3d``, warm
-   steps, MLUPS, peak memory, and per-kernel times with CUDA events
-   (kernel, plain version) beside each kernel's bound, and kernel-vs-plain
-   errors at that size.
+   carry, then the channel-form solve, then the un-carried step and the
+   epilogue steady state) and the HCZ ``multiphase_3d`` (with the stencil
+   route on its inputs), warm steps, MLUPS, peak memory, and per-kernel
+   times with CUDA events (kernel, plain version) beside each kernel's
+   bound, and kernel-vs-plain errors at that size.
 
 Then it prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Bounds use the H100 SXM peaks of
@@ -89,11 +101,13 @@ OUTPUTS = {
     "B3": ["f", "g", "vel", "pressure", "density", "mac_rho", "mac_vel",
            "mac_density", "mac_m0g", "mac_m1g", "mac_rhs"],
     "B4": ["rho", "vel", "density", "m0g", "m1g"],
+    "B5": ["f", "g", "mac_rho", "mac_vel", "mac_density", "mac_m0g", "mac_m1g"],
     "B6": ["vel", "pressure", "force", "dfai", "dprho"],
     "B8a": ["f_post", "m0", "m1"],
     "B8b": ["f_post", "rho", "vel", "density"],
     "B9": ["f", "g"],
     "B10a": ["grad"],
+    "B10b": ["lap"],
     "B11b": ["h", "psi"],
 }
 VEL_FIELDS = ("vel", "mac_vel")
@@ -227,6 +241,25 @@ def kernel_calls(params, d):
     }
 
 
+def epilogue_call(K, params, d, emit_mac):
+    """B5's (args, kwargs) at the inputs ``d`` as the 5-leaf and the
+    un-carried routes give them: the capillary stage (B6) with H2 and phi
+    from the streamed density, then density(rho_ca)."""
+    from lbm_ferrofluid_tpu_torch.ops.moments import phi_from_density, rho_to_density
+
+    gas = dict(rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+               density_gas=params.density_gas, density_fluid=params.density_fluid)
+    phi = phi_from_density(d["den_pre"], params.density_gas, params.density_fluid)
+    vel, pres, force, dfai, dprho = K["B6"].wrapper(
+        d["rho_pre"], d["den_pre"], d["pres"], d["rho_ca"], d["H2"], phi, d["flags"], d["gsum"],
+        d["gmom"], d["vel_pre"], kappa=params.kappa, dx=params.dx, dt=params.dt,
+        gravity=tuple(float(v) for v in params.gravity_vec().reshape(-1)), **gas)
+    args = (d["f"], d["g"], d["flags"], d["rho_ca"], vel, rho_to_density(d["rho_ca"], **gas),
+            pres, force, dfai, dprho)
+    return args, dict(tau_f=params.tau_f, tau_g=params.tau_g, dx=params.dx, dt=params.dt,
+                      emit_mac=emit_mac, mac_consts=(params.dx / params.dt, *gas.values()))
+
+
 def run_and_compare(K, kid, args, kw, what):
     """Call kernel ``kid`` and its plain version on the same inputs."""
     import torch
@@ -234,7 +267,7 @@ def run_and_compare(K, kid, args, kw, what):
     got = K[kid].wrapper(*args, **kw)
     want = K[kid].plain(*args, **kw)
     torch.cuda.synchronize()
-    return got, compare(what, OUTPUTS[kid], got, want)
+    return got, compare(what, OUTPUTS[kid][:len(flat(got))], got, want)
 
 
 def hcz_seeded_inputs(res, seed, dev):
@@ -292,15 +325,50 @@ def hcz_chain(K, params, d, record):
     vel2, pres, force, dfai, dprho = record(
         "B6", "B6", (rho, den, d["pres"], rho_ca, None, None, fl, m0g, m1g, vel), cap_kw)
     phi = phi_from_density(den, params.density_gas, params.density_fluid)
-    record("B6 with H2", "B6", (rho, den, d["pres"], rho_ca, d["H2"], phi, fl, m0g, m1g, vel),
-           cap_kw)
+    kelvin = record("B6 with H2", "B6",
+                    (rho, den, d["pres"], rho_ca, d["H2"], phi, fl, m0g, m1g, vel), cap_kw)
     record("B9", "B9", (f_post, g_post, rho_ca, vel2, rho_to_density(rho_ca, **gas), pres, fl,
                         force, dfai, dprho),
            dict(tau_f=params.tau_f, tau_g=params.tau_g, dx=params.dx, dt=params.dt))
+    return dict(g_post=g_post, rho=rho, vel=vel, den=den, rho_ca=rho_ca, phi=phi,
+                b6=(vel2, pres, force, dfai, dprho), b6_kelvin=kelvin)
+
+
+def stencil_route_rows(params, d, ctx, what):
+    """The capillary stage's stencil route (B10b + B10a, moments from the
+    post-stream g), without and with H2/phi, on the HCZ chain's
+    intermediates ``ctx``: against its plain version (``hcz_capillary`` on
+    the card) and against B6's kernel outputs (the fused route)."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.collide import hcz_capillary
+    from lbm_ferrofluid_tpu_torch.ops.kernels import hcz_capillary_stencils
+
+    gas = dict(rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+               density_gas=params.density_gas, density_fluid=params.density_fluid)
+    kw = dict(kappa=params.kappa, dx=params.dx, dt=params.dt, g=ctx["g_post"], **gas,
+              gravity=torch.tensor(params.gravity_vec(), dtype=torch.float32,
+                                   device=ctx["rho"].device).reshape(1, 3, 1, 1, 1))
+    names = ["vel", "pressure", "force", "dfai", "dprho"]
+    rows = {}
+    for label, H2, phi, b6 in (("without H2", None, None, ctx["b6"]),
+                               ("with H2", d["H2"], ctx["phi"], ctx["b6_kelvin"])):
+        args = (ctx["rho"], ctx["vel"], d["flags"], ctx["den"], d["pres"], ctx["rho_ca"], H2,
+                phi)
+        got = hcz_capillary_stencils(*args, **kw)
+        want = hcz_capillary(*args, **kw)
+        torch.cuda.synchronize()
+        got = got[1:2] + got[3:]
+        rows[label] = {
+            "against_plain": compare(f"stencil route {label} {what}", names, got,
+                                     want[1:2] + want[3:]),
+            "against_B6": compare(f"stencil route {label} vs B6 {what}", names, got, b6),
+        }
+    return rows
 
 
 def phase_kernels(dev, K):
-    from lbm_ferrofluid_tpu_torch.ops.magnetic import substitute_obstacles
+    from lbm_ferrofluid_tpu_torch.ops.stencils import substitute_obstacles
 
     worst = {kid: 0.0 for kid in K}
     rows = []
@@ -330,6 +398,14 @@ def phase_kernels(dev, K):
             _, r = run_and_compare(K, "B10a", (fields,), dict(dx=params.dx),
                                    f"B10a N={fields.shape[1]} at {res}")
             log("B10a", "B10a", res, r, n_fields=fields.shape[1])
+        for emit_mac in (False, True):
+            args, kw = epilogue_call(K, params, d, emit_mac)
+            _, r = run_and_compare(K, "B5", args, kw, f"B5 emit_mac={emit_mac} at {res}")
+            log("B5", "B5", res, r, emit_mac=emit_mac)
+            for field in (args[5], d["fields4"][:, :1].contiguous()):
+                _, r = run_and_compare(K, "B10b", (field,), dict(dx=params.dx),
+                                       f"B10b at {res}")
+                log("B10b", "B10b", res, r)
     for res, seed in (((34, 66, 130), 3), ((130, 130, 130), 4)):
         params, d = hcz_seeded_inputs(res, seed, dev)
 
@@ -338,7 +414,10 @@ def phase_kernels(dev, K):
             log(kid, label, res, r, contact_angle=params.contact_angle)
             return got
 
-        hcz_chain(K, params, d, record)
+        ctx = hcz_chain(K, params, d, record)
+        for label, r in stencil_route_rows(params, d, ctx, f"at {res}").items():
+            for against, rr in r.items():
+                log("B10b", f"stencil route {label} {against}", res, rr)
     emit({"phase": "kernels", "bar_rel": BAR_REL, "bar_vel_abs": BAR_VEL_ABS,
           "checks": rows, "ok": True})
     return worst
@@ -361,6 +440,7 @@ def phase_golden(dev):
 
     from lbm_ferrofluid_tpu_torch.models import (
         SimulationParams, ferrofluid_step, hcz_step, init_ferrofluid_state, init_hcz_state,
+        prime_premac,
     )
     from lbm_ferrofluid_tpu_torch.ops.scalar_poisson import compare_views
 
@@ -375,23 +455,29 @@ def phase_golden(dev):
     )
     mflags = np.full((1, 1, *res), 2, np.uint8)
     mflags[..., 1:-1, :, 1:-1] = 1
-    # the scalar tau == 1 carry (B1), then the channel-form solve (B11b, B10a)
-    for p in (params, params.replace(scalar_carry=False)):
+    # the capillogue steady state with the scalar tau == 1 carry (B1) and
+    # with the channel-form solve (B11b, B10a), then the un-carried step
+    # (no priming: B4, B11b, B10a, B2, B6, B5)
+    for route, p, prime in (("scalar carry", params, True),
+                            ("channel form", params.replace(scalar_carry=False), True),
+                            ("un-carried", params, False)):
         st = init_ferrofluid_state(p, d["rho0"], d["den0"],
                                    np.zeros((1, 3, *res), np.float32), d["flags"], mflags,
                                    device=dev)
+        if prime:
+            st = prime_premac(p, st, device=dev)
         for _ in range(8):
             st = ferrofluid_step(p, st, device=dev)
+        check((st.premac is None) != prime, f"golden ferro3d {route}: premac {st.premac}")
         if st.h.shape[1] == 2:
             a, b = compare_views(st.h, torch.as_tensor(d["h"], device=dev), st.magnetic_flags)
         else:
             a, b = st.h, d["h"]
-        rows = _golden_rows(f"golden ferro3d h channels {st.h.shape[1]}", (
+        rows = _golden_rows(f"golden ferro3d {route}", (
             ("h", a, b), ("f", st.f, d["f"]), ("g", st.g, d["g"]), ("vel", st.vel, d["vel"]),
             ("density", st.density, d["den"])))
         emit({"phase": "golden", "file": "tests/golden/ferro3d.npz", "steps": 8,
-              "solve": "scalar carry" if st.h.shape[1] == 2 else "channel form",
-              "fields": rows, "ok": True})
+              "route": route, "h_channels": st.h.shape[1], "fields": rows, "ok": True})
 
     d = np.load(ROOT / "tests" / "golden" / "hcz3d.npz")
     res = d["rho0"].shape[2:]
@@ -409,21 +495,42 @@ def phase_golden(dev):
           "fields": rows, "ok": True})
 
 
-def kernel_vs_plain(params, s0, step, dev, n_steps, what, fields, runner):
-    """``n_steps`` kernel steps (through ``runner``) against ``n_steps``
-    plain steps on the card, from ``s0``; returns the kernel state and the
-    per-field errors (phase 3's bars)."""
-    sk = runner.prepare(s0)
+def kernel_vs_plain(params, s0, step, dev, n_steps, what, fields, prepare=None):
+    """``n_steps`` kernel steps against ``n_steps`` plain steps on the card,
+    from ``prepare(s0, plain)`` (``s0`` itself without ``prepare``); returns
+    the kernel state and the per-field errors (phase 3's bars), the carried
+    premac's leaves included."""
+    sk = prepare(s0, False) if prepare else s0
+    sp = prepare(s0, True) if prepare else s0
     for _ in range(n_steps):
-        sk = runner.step(sk)
-    sp = s0
+        sk = step(params, sk, device=dev)
     for _ in range(n_steps):
         sp = step(params, sp, device=dev, plain=True)
-    names = list(fields) + (OUTPUTS["B3"][5:] if getattr(sk, "premac", None) else [])
-    rows = compare(what, names,
-                   [getattr(sk, n) for n in fields] + list(getattr(sk, "premac", None) or ()),
+    premac = list(getattr(sk, "premac", None) or ())
+    names = list(fields) + OUTPUTS["B3"][5:5 + len(premac)]
+    rows = compare(what, names, [getattr(sk, n) for n in fields] + premac,
                    [getattr(sp, n) for n in fields] + list(getattr(sp, "premac", None) or ()))
     return sk, rows
+
+
+def primed(params, dev):
+    """``prepare`` for :func:`kernel_vs_plain`: the capillogue steady state."""
+    from lbm_ferrofluid_tpu_torch.models import prime_premac
+
+    return lambda s, plain: prime_premac(params, s, device=dev, plain=plain)
+
+
+def epilogue_state(params, dev):
+    """``prepare`` for :func:`kernel_vs_plain`: the epilogue steady state
+    (5-leaf premac), built as the JAX package's prime builds it where its
+    capillogue does not fit: the prologue's macros and the scalar carry,
+    with phi, force and H_ext kept."""
+    from lbm_ferrofluid_tpu_torch.models import prime_premac
+
+    def prepare(s, plain):
+        p = prime_premac(params, s, device=dev, plain=plain)
+        return s.replace(h=p.h, cmask=p.cmask, premac=p.premac[:5])
+    return prepare
 
 
 def fluid_mass(state) -> float:
@@ -444,7 +551,7 @@ def phase_main(dev, kernels_pkg, card):
     runner = SimulationRunner(params, ferrofluid_step, device=dev)
     kernels_pkg.reset_launch_counts()
     sk, rows = kernel_vs_plain(params, s0, ferrofluid_step, dev, 30, "main path",
-                               FERRO_FIELDS, runner)
+                               FERRO_FIELDS, primed(params, dev))
     mass0, mass30 = fluid_mass(s0), fluid_mass(sk)
     sk, stats = runner.benchmark(sk, n_steps=200, warmup=0)
     assert_finite(sk)
@@ -472,8 +579,7 @@ def phase_hcz_main(dev, kernels_pkg, card):
     params, s0 = multiphase_3d(device=dev)
     runner = SimulationRunner(params, hcz_step, device=dev)
     kernels_pkg.reset_launch_counts()
-    sk, rows = kernel_vs_plain(params, s0, hcz_step, dev, 30, "hcz main path", HCZ_FIELDS,
-                               runner)
+    sk, rows = kernel_vs_plain(params, s0, hcz_step, dev, 30, "hcz main path", HCZ_FIELDS)
     mass0, mass30 = fluid_mass(s0), fluid_mass(sk)
     sk, stats = runner.benchmark(sk, n_steps=200, warmup=0)
     assert_finite(sk)
@@ -482,7 +588,7 @@ def phase_hcz_main(dev, kernels_pkg, card):
     del sk, s0
     params2, s2 = droplet_spread_3d(device=dev)
     sk2, rows2 = kernel_vs_plain(params2, s2, hcz_step, dev, 30, "droplet spread",
-                                 HCZ_FIELDS, SimulationRunner(params2, hcz_step, device=dev))
+                                 HCZ_FIELDS)
     assert_finite(sk2)
     launches = kernels_pkg.launch_counts(ids)
     check(all(v > 0 for v in launches.values()), f"an HCZ kernel never launched: {launches}")
@@ -500,15 +606,14 @@ def phase_two_droplets(dev, kernels_pkg, card):
     """``two_droplets_3d`` at its native 50x50x193 on the ferrofluid path
     (magnetic walls on all six faces): counters zeroed just before, read
     just after."""
-    from lbm_ferrofluid_tpu_torch.models import SimulationRunner, ferrofluid_step, two_droplets_3d
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, two_droplets_3d
     from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
 
     ids = kernels_pkg.PATHS["ferrofluid"]
     params, s0 = two_droplets_3d(device=dev)
     kernels_pkg.reset_launch_counts()
     sk, rows = kernel_vs_plain(params, s0, ferrofluid_step, dev, 30, "two droplets",
-                               FERRO_FIELDS, SimulationRunner(params, ferrofluid_step,
-                                                              device=dev))
+                               FERRO_FIELDS, primed(params, dev))
     assert_finite(sk)
     launches = kernels_pkg.launch_counts(ids)
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
@@ -537,7 +642,7 @@ def phase_channel_main(dev, kernels_pkg, card):
         runner = SimulationRunner(p, ferrofluid_step, device=dev)
         kernels_pkg.reset_launch_counts()
         sk, rows = kernel_vs_plain(p, s0, ferrofluid_step, dev, 30, f"channel {label}",
-                                   FERRO_FIELDS, runner)
+                                   FERRO_FIELDS, primed(p, dev))
         check(sk.h.shape[1] == 19 and sk.cmask is None, f"{label}: not the channel form")
         row = {"kernel_vs_plain_after_30_steps": rows}
         if n_timed:
@@ -565,6 +670,132 @@ def phase_channel_main(dev, kernels_pkg, card):
         out[label] = dict(row, steps=steps, launches={kid: launches[kid] for kid in ids})
     emit(dict(out, finite=True, ok=True))
     return total
+
+
+def check_launches(label, launches, per_step, steps, extra=None):
+    """Exact launch counts of a path: ``per_step`` launches a step of each
+    kernel it names (plus ``extra``), none of any other kernel."""
+    want = {kid: per_step.get(kid, 0) * steps + (extra or {}).get(kid, 0) for kid in launches}
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+
+
+def phase_uncarried_main(dev, kernels_pkg, card):
+    """The un-carried step at 130x66x130: the Rosensweig state stepped as it
+    is, never primed (channel-form h), 30 kernel steps against 30 plain
+    steps; counters zeroed just before, read just after."""
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, rosensweig_3d
+    from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
+
+    K = kernels_pkg.KERNELS
+    params, s0 = rosensweig_3d(device=dev)
+    kernels_pkg.reset_launch_counts()
+    sk, rows = kernel_vs_plain(params, s0, ferrofluid_step, dev, 30, "un-carried",
+                               FERRO_FIELDS + ("phi", "force"))
+    assert_finite(sk)
+    launches = kernels_pkg.launch_counts()
+    check(sk.premac is None and sk.h.shape[1] == 19 and sk.H_ext is not None,
+          "un-carried: the state changed form")
+    check_launches("un-carried", launches, {
+        "B4": 1, "B11b": params.poisson_iters, "B10a": 1, "B2": K["B2"].module.N_STAGES,
+        "B6": K["B6"].module.N_LAUNCHES, "B5": 1}, sk.step)
+    ids = kernels_pkg.PATHS["ferrofluid_uncarried"]
+    emit({"phase": "uncarried_main_path", "scene": "rosensweig_3d",
+          "res": list(sk.rho.shape[2:]), "steps": sk.step,
+          "kernel_vs_plain_after_30_steps": rows, "finite": True, "card": card,
+          "launches": {kid: launches[kid] for kid in ids}, "ok": True})
+    return launches
+
+
+def phase_epilogue_main(dev, kernels_pkg, card):
+    """The epilogue steady state (5-leaf premac, scalar carry) at
+    130x66x130: 30 kernel steps against 30 plain steps, counters zeroed just
+    before and read just after; then against 30 steps of the capillogue
+    steady state with kernels (the same function, capillogue.py:826-829)."""
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, rosensweig_3d
+    from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
+
+    K = kernels_pkg.KERNELS
+    params, s0 = rosensweig_3d(device=dev)
+    fields = FERRO_FIELDS + ("phi", "force")
+    kernels_pkg.reset_launch_counts()
+    sk, rows = kernel_vs_plain(params, s0, ferrofluid_step, dev, 30, "epilogue steady state",
+                               fields, epilogue_state(params, dev))
+    assert_finite(sk)
+    launches = kernels_pkg.launch_counts()
+    check(len(sk.premac) == 5 and sk.h.shape[1] == 2, "epilogue: the state changed form")
+    check_launches("epilogue steady state", launches, {
+        "B1": params.poisson_iters + 1, "B2": K["B2"].module.N_STAGES,
+        "B6": K["B6"].module.N_LAUNCHES, "B5": 2}, sk.step, extra={"B4": 1})
+    s6 = primed(params, dev)(s0, False)
+    for _ in range(30):
+        s6 = ferrofluid_step(params, s6, device=dev)
+    names = list(FERRO_FIELDS) + OUTPUTS["B3"][5:10]
+    against = compare("epilogue vs capillogue steady state", names,
+                      [getattr(sk, n) for n in FERRO_FIELDS] + list(sk.premac),
+                      [getattr(s6, n) for n in FERRO_FIELDS] + list(s6.premac[:5]))
+    ids = kernels_pkg.PATHS["ferrofluid_epilogue"]
+    emit({"phase": "epilogue_main_path", "scene": "rosensweig_3d",
+          "res": list(sk.rho.shape[2:]), "steps": sk.step,
+          "kernel_vs_plain_after_30_steps": rows,
+          "against_capillogue_steady_state_after_30_steps": against, "finite": True,
+          "card": card, "launches": {kid: launches[kid] for kid in ids}, "ok": True})
+    return launches
+
+
+def stencil_hcz_step(params, state, *, device=None, plain=False):
+    """The HCZ step with its capillary stage on the stencil route (B10b,
+    B10a), as the JAX package's ``hcz_step`` runs it under ``jit``, where
+    gravity is traced: B8b, B8a, B2, ``hcz_capillary_stencils`` with the
+    streamed moments, B9.  ``plain=True`` is the plain HCZ step, the
+    reference it is held to."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import hcz_step
+    from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+
+    if plain:
+        return hcz_step(params, state, device=device, plain=True)
+    K = kernels_pkg.KERNELS
+    gas = dict(rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+               density_gas=params.density_gas, density_fluid=params.density_fluid)
+    fl, dx, dt = state.flags, params.dx, params.dt
+    f, rho, vel, den = K["B8b"].wrapper(state.f, fl, state.rho, state.vel, c=dx / dt, **gas)
+    g, m0g, m1g = K["B8a"].wrapper(state.g, fl)
+    rho_ca = K["B2"].wrapper(rho, fl, params.contact_angle)
+    gravity = torch.tensor(params.gravity_vec(), dtype=torch.float32, device=rho.device)
+    _, vel, den, pres, force, dfai, dprho = kernels_pkg.hcz_capillary_stencils(
+        rho, vel, fl, den, state.pressure, rho_ca, None, None, m0g, m1g, kappa=params.kappa,
+        gravity=gravity.reshape(1, 3, 1, 1, 1), dx=dx, dt=dt, **gas)
+    f, g = K["B9"].wrapper(f, g, rho_ca, vel, den, pres, fl, force, dfai, dprho,
+                           tau_f=params.tau_f, tau_g=params.tau_g, dx=dx, dt=dt)
+    return state.replace(f=f, g=g, rho=rho_ca, vel=vel, density=den, pressure=pres,
+                         force=force, step=state.step + 1)
+
+
+def phase_stencils_main(dev, kernels_pkg, card):
+    """The capillary stage's stencil route on the HCZ ``multiphase_3d`` at
+    130^3: 30 steps of :func:`stencil_hcz_step` against 30 plain HCZ steps;
+    counters zeroed just before, read just after."""
+    from lbm_ferrofluid_tpu_torch.models import multiphase_3d
+    from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
+
+    K = kernels_pkg.KERNELS
+    params, s0 = multiphase_3d(device=dev)
+    check(s0.vel_pin_mask is None, "multiphase_3d pins velocities")
+    kernels_pkg.reset_launch_counts()
+    sk, rows = kernel_vs_plain(params, s0, stencil_hcz_step, dev, 30, "stencil route",
+                               HCZ_FIELDS)
+    assert_finite(sk)
+    launches = kernels_pkg.launch_counts()
+    check_launches("stencil route", launches, {
+        "B8b": 1, "B8a": 1, "B2": K["B2"].module.N_STAGES, "B10b": 1, "B10a": 1, "B9": 1},
+        sk.step)
+    ids = kernels_pkg.PATHS["capillary_stencils"]
+    emit({"phase": "stencils_main_path", "scene": "multiphase_3d",
+          "res": list(sk.rho.shape[2:]), "steps": sk.step,
+          "kernel_vs_plain_after_30_steps": rows, "finite": True, "card": card,
+          "launches": {kid: launches[kid] for kid in ids}, "ok": True})
+    return launches
 
 
 def time_cuda(fn, reps, warm=1):
@@ -645,7 +876,7 @@ def phase_channel_flagship(dev, K, card):
     import torch
 
     from lbm_ferrofluid_tpu_torch.models import SimulationRunner, ferrofluid_step, rosensweig_3d
-    from lbm_ferrofluid_tpu_torch.ops.magnetic import substitute_obstacles
+    from lbm_ferrofluid_tpu_torch.ops.stencils import substitute_obstacles
 
     params, st = rosensweig_3d(res=(256, 256, 256), mag_strength=85.0, device=dev)
     params = params.replace(scalar_carry=False)
@@ -668,12 +899,83 @@ def phase_channel_flagship(dev, K, card):
     return out
 
 
+def timed_steps(params, state, step, dev, n_steps, warmup):
+    """``warmup`` then ``n_steps`` timed steps of ``step`` on the state as it
+    is (``SimulationRunner.benchmark`` primes first): (state, stats)."""
+    import torch
+
+    for _ in range(warmup):
+        state = step(params, state, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state = step(params, state, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return state, {"mlups": state.rho.numel() * n_steps / seconds / 1e6, "seconds": seconds,
+                   "steps": n_steps}
+
+
+def phase_epilogue_flagship(dev, K, card):
+    """bench.py's Rosensweig scene at 256^3 on the two routes of B5: the
+    un-carried step (channel-form h) and the epilogue steady state (scalar
+    carry), MLUPS, ms a step and peak memory over warm steps; then B5 in
+    both modes, and B10b, at the inputs the epilogue steady state's next
+    step gives them."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import SimulationRunner, ferrofluid_step, rosensweig_3d
+    from lbm_ferrofluid_tpu_torch.ops.magnetic import poisson_rhs_scaled
+    from lbm_ferrofluid_tpu_torch.ops.moments import phi_from_density
+
+    params, st = rosensweig_3d(res=(256, 256, 256), mag_strength=85.0, device=dev)
+    out = {"phase": "epilogue_flagship", "scene": "rosensweig_3d", "res": [256, 256, 256],
+           "card": card}
+    torch.cuda.reset_peak_memory_stats()
+    su, stats = timed_steps(params, st, ferrofluid_step, dev, n_steps=20, warmup=10)
+    check(su.premac is None and su.h.shape[1] == 19, "256^3 un-carried: the state changed form")
+    out["uncarried"] = dict(stats, ms_per_step=stats["seconds"] / stats["steps"] * 1e3,
+                            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del su
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runner = SimulationRunner(params, ferrofluid_step, device=dev)
+    s5, stats = runner.benchmark(epilogue_state(params, dev)(st, False), n_steps=20, warmup=10)
+    check(len(s5.premac) == 5, "256^3 epilogue: the state changed form")
+    out["epilogue_steady_state"] = dict(
+        stats, ms_per_step=stats["seconds"] / stats["steps"] * 1e3,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del st
+    # the next step's inputs: its macros, H2 from B1, rho_ca from B2
+    rho_pre, vel_pre, den_pre, gsum, gmom = s5.premac
+    h_ext = tuple(params.mag_strength if a == params.h_ext_axis else 0.0 for a in range(3))
+    rhs = poisson_rhs_scaled(phi_from_density(den_pre, params.density_gas, params.density_fluid),
+                             s5.magnetic_flags, h_ext, tau=params.tau, dx=params.dx,
+                             dt=params.dt)
+    d = dict(f=s5.f, g=s5.g, flags=s5.flags, rho_pre=rho_pre, vel_pre=vel_pre, den_pre=den_pre,
+             gsum=gsum, gmom=gmom, pres=s5.pressure,
+             H2=K["B1"].wrapper(s5.h, s5.cmask, rhs, n_iters=params.poisson_iters, dx=params.dx,
+                                h_ext=h_ext)[1],
+             rho_ca=K["B2"].wrapper(rho_pre, s5.flags, params.contact_angle))
+    per_kernel = {}
+    for emit_mac, label in ((False, "B5"), (True, "B5 emit_mac")):
+        args, kw = epilogue_call(K, params, d, emit_mac)
+        n = 2 if emit_mac else 1
+        per_kernel[label] = measure(K, "B5", args, kw, n, n, f"{label} at 256^3")
+    out["per_kernel"] = per_kernel
+    emit(dict(out, ok=True))
+    return per_kernel
+
+
 def phase_hcz_flagship(dev, K, card):
     """``multiphase_3d`` at 256^3: MLUPS and peak memory over warm steps,
-    then each HCZ kernel at the inputs the next step gives it."""
+    then each HCZ kernel at the inputs the next step gives it, and the
+    capillary stage's stencil route (B10b, B10a) on the same inputs."""
     import torch
 
     from lbm_ferrofluid_tpu_torch.models import SimulationRunner, hcz_step, multiphase_3d
+    from lbm_ferrofluid_tpu_torch.ops.kernels import hcz_capillary_stencils
+    from lbm_ferrofluid_tpu_torch.ops.moments import rho_to_density
 
     params, st = multiphase_3d(res=(256, 256, 256), device=dev)
     runner = SimulationRunner(params, hcz_step, device=dev)
@@ -697,10 +999,25 @@ def phase_hcz_flagship(dev, K, card):
                            f"{kid} at 256^3")
         return K[kid].wrapper(*args, **kw)
 
-    hcz_chain(K, params, d, record)
+    ctx = hcz_chain(K, params, d, record)
+    # the stencil route on the same inputs: B10b alone, then the route
+    # against its plain version and against B6's outputs, and its time
+    den_ca = rho_to_density(ctx["rho_ca"], rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+                            density_gas=params.density_gas, density_fluid=params.density_fluid)
+    out["B10b"] = measure(K, "B10b", (den_ca,), dict(dx=params.dx), 1, 1, "B10b at 256^3")
+    route = stencil_route_rows(params, d, ctx, "at 256^3")
+    errs["stencil route"] = max(v["max_abs_err"] for r in route.values() for rr in r.values()
+                                for v in rr.values())
+    gravity = torch.tensor(params.gravity_vec(), dtype=torch.float32, device=dev)
+    route_ms = time_cuda(lambda: hcz_capillary_stencils(
+        ctx["rho"], ctx["vel"], d["flags"], ctx["den"], d["pres"], ctx["rho_ca"],
+        g=ctx["g_post"], kappa=params.kappa, gravity=gravity.reshape(1, 3, 1, 1, 1),
+        dx=params.dx, dt=params.dt, rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+        density_gas=params.density_gas, density_fluid=params.density_fluid), reps=10)
     emit({"phase": "hcz_flagship", "scene": "multiphase_3d", "res": [256, 256, 256],
           "mlups": stats["mlups"], "seconds_30_steps": stats["seconds"],
           "peak_mem_gb": peak / 1e9, "card": card, "per_kernel": out,
+          "stencil_route": {"ms_moments_from_g": route_ms, "checks": route},
           "other_checks_max_abs_err": errs, "ok": True})
     out["B6"]["max_abs_err"] = max(out["B6"]["max_abs_err"], errs["B6 with H2"])
     return out
@@ -715,10 +1032,15 @@ def run_phases(dev, kernels_pkg, smi) -> list:
     phase_golden(dev)
     per_path = [phase_main(dev, kernels_pkg, smi), phase_hcz_main(dev, kernels_pkg, smi),
                 phase_two_droplets(dev, kernels_pkg, smi),
-                phase_channel_main(dev, kernels_pkg, smi)]
+                phase_channel_main(dev, kernels_pkg, smi),
+                phase_uncarried_main(dev, kernels_pkg, smi),
+                phase_epilogue_main(dev, kernels_pkg, smi),
+                phase_stencils_main(dev, kernels_pkg, smi)]
     launches = {kid: sum(p.get(kid, 0) for p in per_path) for kid in K}
     flag = phase_flagship(dev, K, smi)
     flag.update(phase_channel_flagship(dev, K, smi))
+    epi = phase_epilogue_flagship(dev, K, smi)
+    flag["B5"] = dict(epi["B5"], max_abs_err=max(v["max_abs_err"] for v in epi.values()))
     hcz_flag = phase_hcz_flagship(dev, K, smi)
     flag["B2"]["max_abs_err"] = max(flag["B2"]["max_abs_err"], hcz_flag["B2"]["max_abs_err"])
     flag.update({kid: v for kid, v in hcz_flag.items() if kid != "B2"})

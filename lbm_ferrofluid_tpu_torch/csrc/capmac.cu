@@ -52,16 +52,12 @@ __global__ void lbm_cap_derived_kernel(const float* __restrict__ rho_pre,
                             : lbm_chi(den_pre[i], dx, gas.den_gas, gas.den_fluid);
   float l = 0.f;
   if (z >= 1 && z <= Z - 2 && y >= 1 && y <= Y - 2 && x >= 1 && x <= X - 2) {
-    auto S = [&](int oz, int oy, int ox) -> float {
-      return lbm_density_of(rho_ca[lbm_index(z + oz, y + oy, x + ox, Y, X)], gas.rho_gas,
-                            gas.rho_fluid, gas.den_gas, gas.den_fluid);
-    };
-    const float faces = S(0, 0, 1) + S(0, 0, -1) + S(0, 1, 0) + S(0, -1, 0) + S(1, 0, 0) +
-                        S(-1, 0, 0);
-    const float edges = S(0, 1, 1) + S(0, 1, -1) + S(0, -1, 1) + S(0, -1, -1) + S(1, 0, 1) +
-                        S(1, 0, -1) + S(-1, 0, 1) + S(-1, 0, -1) + S(1, 1, 0) + S(1, -1, 0) +
-                        S(-1, 1, 0) + S(-1, -1, 0);
-    l = (2.f * faces + edges - 24.f * S(0, 0, 0)) / static_cast<float>(6.0 * dx * dx);
+    l = lbm_laplacian(
+        [&](int oz, int oy, int ox) {
+          return lbm_density_of(rho_ca[lbm_index(z + oz, y + oy, x + ox, Y, X)], gas.rho_gas,
+                                gas.rho_fluid, gas.den_gas, gas.den_fluid);
+        },
+        dx);
   }
   lap[i] = l;
 }

@@ -156,6 +156,19 @@ __device__ __forceinline__ void lbm_iso_grad(F S, float d12, float g[3]) {
          d12;
 }
 
+// 19-point Laplacian (2 faces + edges - 24 centre) / (6 dx^2) at an
+// interior cell; S(oz, oy, ox) returns the field at an offset from it
+// (ops/stencils.py:isotropic_laplacian).
+template <class F>
+__device__ __forceinline__ float lbm_laplacian(F S, double dx) {
+  const float faces = S(0, 0, 1) + S(0, 0, -1) + S(0, 1, 0) + S(0, -1, 0) + S(1, 0, 0) +
+                      S(-1, 0, 0);
+  const float edges = S(0, 1, 1) + S(0, 1, -1) + S(0, -1, 1) + S(0, -1, -1) + S(1, 0, 1) +
+                      S(1, 0, -1) + S(-1, 0, 1) + S(-1, 0, -1) + S(1, 1, 0) + S(1, -1, 0) +
+                      S(-1, 1, 0) + S(-1, -1, 0);
+  return (2.f * faces + edges - 24.f * S(0, 0, 0)) / static_cast<float>(6.0 * dx * dx);
+}
+
 // ---- capillary stage (ops/collide.py:hcz_capillary) ----------------------
 // Inputs: flags, rho_ca, and the derived fields fai, prho, lap (and chi)
 // of the capmac.cu derived launch; h2 and chi only with HAS_CHI.  Kernels

@@ -1,28 +1,41 @@
 """Ferrofluid solver: HCZ multiphase + magnetic Poisson solve + Kelvin force,
 on one device.
 
-Port of the steady state of ``lbm_ferrofluid_tpu/models/ferrofluid.py:
-ferrofluid_step_impl`` (:406-580).  After :func:`prime_premac` each step is
+Port of ``lbm_ferrofluid_tpu/models/ferrofluid.py:ferrofluid_step_impl``
+(:280-766) on one device.  The step steps the state it is given and never
+primes; ``state.premac`` selects one of three routes:
 
-1. this step's streamed macros and Poisson source from ``state.premac``;
-2. the magnetic solve, in the form the state carries (``state.h.shape[1]``):
-   - 2 channels: the tau == 1 scalar collapse with in-kernel H2 (B1,
-     ``ops/kernels/scalar_poisson.py``), when ``_scalar_physics_ok`` holds;
-   - 19 channels: the Chai Poisson-LBM on the channel distribution at any
-     tau (``ops/magnetic.py:solve_H_int``: the sweeps B11b,
-     ``ops/kernels/poisson.py``, then the gradient of psi B10a,
-     ``ops/kernels/stencil3d.py``);
-3. the contact-angle rewrite of rho (B2, ``ops/kernels/contact3d.py``);
-4. the capillogue: capillary stage, HCZ collide of f and g, and the next
-   step's macros and source at the magnetic tau (B3,
-   ``ops/kernels/capillogue.py``).
+* **6 leaves, the capillogue steady state** (after :func:`prime_premac`,
+  which runs the prologue B4 once): this step's macros and Poisson source
+  from ``premac``; the magnetic solve; the contact-angle rewrite of rho (B2,
+  ``ops/kernels/contact3d.py``); the capillogue, i.e. capillary stage, HCZ
+  collide of f and g and the next step's macros and source at the magnetic
+  tau (B3, ``ops/kernels/capillogue.py``).  Returns a 6-leaf premac with
+  ``phi``, ``force`` and ``H_ext`` None.
+* **5 leaves, the epilogue steady state** (a state the JAX package primed
+  where its capillogue does not fit, handed over with ``from_numpy``): the
+  macros from ``premac``; phi from the density and the Poisson source from
+  phi; the solve; B2; the capillary stage with H2 and phi (B6,
+  ``ops/kernels/capmac.py``); the epilogue with the next step's macros
+  (B5 with ``emit_mac``, ``ops/kernels/fused_step.py``).  Returns a 5-leaf
+  premac with ``phi`` and ``force`` as tensors.
+* **None, the un-carried step**: the prologue (B4) on ``f``/``g``, then as
+  the 5-leaf route with B5 without ``emit_mac``.  Returns ``premac`` None,
+  with ``phi``, ``force`` and ``H_ext`` kept.
 
-Priming runs the prologue (B4, ``ops/kernels/fused_step.py``).  Every entry
-point runs on the card unless ``device="cpu"`` is passed, and the kernels
-run unless ``plain=True`` is passed, which selects their plain PyTorch
-versions.  float64 storage runs on the plain versions only.  Configurations
-outside the port raise ``NotImplementedError`` naming their ROADMAP item;
-nothing falls back.
+The magnetic solve runs in the form ``state.h`` has (``h.shape[1]``):
+2 channels, the tau == 1 scalar collapse with in-kernel H2 (B1,
+``ops/kernels/scalar_poisson.py``), into which :func:`prime_premac` converts
+h when ``_scalar_physics_ok`` holds; 19 channels, the Chai Poisson-LBM on
+the channel distribution at any tau (``ops/magnetic.py:solve_H_int``: the
+sweeps B11b, ``ops/kernels/poisson.py``, then the gradient of psi B10a,
+``ops/kernels/stencil3d.py``), as ``init_ferrofluid_state`` makes h.
+
+Every entry point runs on the card unless ``device="cpu"`` is passed, and
+the kernels run unless ``plain=True`` is passed, which selects their plain
+PyTorch versions.  float64 storage runs on the plain versions only.
+Configurations outside the port raise ``NotImplementedError`` naming their
+ROADMAP item; nothing falls back.
 """
 
 from __future__ import annotations
@@ -31,10 +44,16 @@ import torch
 
 from ..ops.equilibrium import feq, geq
 from ..ops.kernels.capillogue import lbm_capillogue, lbm_capillogue_plain
+from ..ops.kernels.capmac import hcz_capillary_gradmac, hcz_capillary_gradmac_plain
 from ..ops.kernels.contact3d import contact_angle_3d, contact_angle_3d_plain
-from ..ops.kernels.fused_step import lbm_prologue, lbm_prologue_plain
+from ..ops.kernels.fused_step import (
+    lbm_epilogue,
+    lbm_epilogue_plain,
+    lbm_prologue,
+    lbm_prologue_plain,
+)
 from ..ops.magnetic import poisson_rhs_scaled, solve_H_int, solve_H_int_scalar
-from ..ops.moments import eos_pressure, phi_from_density
+from ..ops.moments import eos_pressure, phi_from_density, rho_to_density
 from ..ops.scalar_poisson import make_cmask, s_prev_from_h, scalar_from_h
 from ..ops.stencils import staggered
 from ..utils.device import check_device, resolve_device
@@ -197,39 +216,76 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
 
 def ferrofluid_step(params: SimulationParams, state: FerrofluidState, *,
                     device=None, plain=False) -> FerrofluidState:
-    """One outer step of the steady state; primes an unprimed state first.
+    """One outer step of the state as it is given; it never primes.
 
-    ``plain=True`` runs the kernels' plain PyTorch versions (on any device)
-    instead of the kernels."""
-    state = prime_premac(params, state, device=device, plain=plain)
-    rho, vel, density, m0g, m1g, rhs = state.premac
+    ``state.premac`` selects the route, as in the JAX step on one device
+    (``ferrofluid_step_impl`` :328-344, :393-395, :516, :679-702): 6 leaves,
+    the capillogue steady state; 5 leaves, the epilogue steady state; None,
+    the un-carried step.  ``plain=True`` runs the kernels' plain PyTorch
+    versions (on any device) instead of the kernels."""
+    check_device(state.f, device)
+    _check_supported(params, state)
+    gas = dict(rho_gas=float(params.rho_gas), rho_fluid=float(params.rho_fluid),
+               density_gas=float(params.density_gas),
+               density_fluid=float(params.density_fluid))
+    dx, dt = float(params.dx), float(params.dt)
+    if state.premac is None:
+        prologue = lbm_prologue_plain if plain else lbm_prologue
+        rho, vel, density, m0g, m1g = prologue(state.f, state.g, state.flags, state.rho,
+                                               state.vel, c=dx / dt, **gas)
+    else:
+        rho, vel, density, m0g, m1g = state.premac[:5]
+    capillogue_route = state.premac is not None and len(state.premac) == 6
+    if capillogue_route:
+        rhs = state.premac[5]
+    else:
+        phi = phi_from_density(density, params.density_gas, params.density_fluid)
+        rhs = poisson_rhs_scaled(phi, state.magnetic_flags, _hext_static(params),
+                                 tau=params.tau, dx=dx, dt=dt)
+    H2, h = _solve(params, state, rhs, plain)
+    surgery = contact_angle_3d_plain if plain else contact_angle_3d
+    rho_ca = surgery(rho, state.flags, float(params.contact_angle))
+    grav = tuple(float(v) for v in params.gravity_vec().reshape(-1))
+    hcz = dict(tau_f=float(params.tau_f), tau_g=float(params.tau_g), dx=dx, dt=dt)
+    if capillogue_route:
+        capillogue = lbm_capillogue_plain if plain else lbm_capillogue
+        f, g, vel, pressure, density, premac = capillogue(
+            state.f, state.g, state.flags, rho, density, state.pressure, rho_ca, H2,
+            m0g, m1g, vel, state.magnetic_flags, kappa=float(params.kappa), gravity=grav,
+            emit_rhs=(params.h_ext_axis, float(params.mag_strength), float(params.tau)),
+            **gas, **hcz,
+        )
+        return state.replace(
+            f=f, g=g, h=h, rho=rho_ca, vel=vel, density=density, pressure=pressure,
+            step=state.step + 1, premac=premac,
+        )
+    # the 5-leaf and the un-carried routes: B2 + B6 with H2 and phi, then
+    # the epilogue (models/multiphase.py's composition)
+    capillary = hcz_capillary_gradmac_plain if plain else hcz_capillary_gradmac
+    vel, pressure, force, dfai, dprho = capillary(
+        rho, density, state.pressure, rho_ca, H2, phi, state.flags, m0g, m1g, vel,
+        kappa=float(params.kappa), gravity=grav, dx=dx, dt=dt, **gas,
+    )
+    density = rho_to_density(rho_ca, **gas)
+    epilogue = lbm_epilogue_plain if plain else lbm_epilogue
+    emit = state.premac is not None
+    out = epilogue(state.f, state.g, state.flags, rho_ca, vel, density, pressure, force, dfai,
+                   dprho, emit_mac=emit, mac_consts=(dx / dt, *gas.values()), **hcz)
+    return state.replace(
+        f=out[0], g=out[1], h=h, rho=rho_ca, vel=vel, density=density, pressure=pressure,
+        force=force, phi=phi, step=state.step + 1, premac=tuple(out[2]) if emit else None,
+    )
+
+
+def _solve(params: SimulationParams, state, rhs, plain):
+    """(H2, h') of the magnetic solve in the form that ``state.h`` has."""
     if state.h.shape[1] == 2:
-        H2, h = solve_H_int_scalar(
+        return solve_H_int_scalar(
             state.h, state.cmask, rhs, n_iters=params.poisson_iters, dx=params.dx,
             h2_ext=_hext_static(params), plain=plain,
         )
-    else:
-        H2, h = solve_H_int(
-            params.lattice, state.h, None, state.magnetic_flags, None, tau=float(params.tau),
-            n_iters=params.poisson_iters, dx=params.dx, dt=params.dt, rhs_scaled=rhs,
-            h2_ext=_hext_static(params), plain=plain,
-        )
-    surgery = contact_angle_3d_plain if plain else contact_angle_3d
-    rho_ca = surgery(rho, state.flags, float(params.contact_angle))
-    capillogue = lbm_capillogue_plain if plain else lbm_capillogue
-    f, g, vel, pressure, density, premac = capillogue(
-        state.f, state.g, state.flags, rho, density, state.pressure, rho_ca, H2,
-        m0g, m1g, vel, state.magnetic_flags,
-        kappa=float(params.kappa),
-        gravity=tuple(float(v) for v in params.gravity_vec().reshape(-1)),
-        rho_gas=float(params.rho_gas), rho_fluid=float(params.rho_fluid),
-        density_gas=float(params.density_gas),
-        density_fluid=float(params.density_fluid),
-        tau_f=float(params.tau_f), tau_g=float(params.tau_g),
-        dx=float(params.dx), dt=float(params.dt),
-        emit_rhs=(params.h_ext_axis, float(params.mag_strength), float(params.tau)),
-    )
-    return state.replace(
-        f=f, g=g, h=h, rho=rho_ca, vel=vel, density=density, pressure=pressure,
-        step=state.step + 1, premac=premac,
+    return solve_H_int(
+        params.lattice, state.h, None, state.magnetic_flags, None, tau=float(params.tau),
+        n_iters=params.poisson_iters, dx=params.dx, dt=params.dt, rhs_scaled=rhs,
+        h2_ext=_hext_static(params), plain=plain,
     )

@@ -2,17 +2,24 @@
 
 ``HCZState`` and ``FerrofluidState`` have the fields of the JAX package's
 (``lbm_ferrofluid_tpu/models/state.py``), held as tensors on one device.
-On the carried ferrofluid steady state (``models/ferrofluid.py:prime_premac``):
+A ferrofluid state comes in three forms, which ``models/ferrofluid.py:
+ferrofluid_step`` steps as they are:
 
-* ``premac`` is the 6-tuple (rho, vel, density, m0g, m1g, rhs_scaled) of
-  this step's streamed macros and pre-scaled Poisson source, emitted by the
-  previous step;
-* ``h`` is the fused [1, 2, Z, Y, X] (s, s_prev) pair of the tau == 1
-  scalar Poisson carry and ``cmask`` its static obstacle/wall-weight field,
-  or, where that collapse does not apply, the [1, 19, Z, Y, X] channel
-  distribution with ``cmask`` None;
-* ``phi``, ``force`` and ``H_ext`` are None (``phi_field`` and
-  ``make_H_ext`` rebuild them on demand).
+* un-carried (``init_ferrofluid_state``): ``premac`` None, ``phi``,
+  ``force`` and ``H_ext`` tensors;
+* the capillogue steady state (``prime_premac``): ``premac`` the 6-tuple
+  (rho, vel, density, m0g, m1g, rhs_scaled) of this step's streamed macros
+  and pre-scaled Poisson source, emitted by the previous step; ``phi``,
+  ``force`` and ``H_ext`` None (``phi_field`` and ``make_H_ext`` rebuild
+  them on demand);
+* the epilogue steady state (a JAX state primed where its capillogue does
+  not fit): ``premac`` the 5-tuple (rho, vel, density, m0g, m1g); ``phi``
+  and ``force`` tensors.
+
+In each, ``h`` is the [1, 19, Z, Y, X] channel distribution with ``cmask``
+None, or, once primed where the tau == 1 collapse applies, the fused
+[1, 2, Z, Y, X] (s, s_prev) pair of the scalar Poisson carry with
+``cmask`` its static obstacle/wall-weight field.
 
 ``step`` is a Python int.  :func:`to_numpy` and :func:`from_numpy` move a
 state to and from a dict of numpy arrays keyed by these field names, so a

@@ -5,7 +5,9 @@ PyTorch twins of ``lbm_ferrofluid_tpu/ops/collide.py``: ``smooth_phi``
 and the LBGK ``hcz_collide`` (:759); reference LBM_collision_HCZ_3d.py.
 They are the plain versions that ``ops/kernels/contact3d.py`` (B2),
 ``ops/kernels/capmac.py`` (B6), ``ops/kernels/hcz3d.py`` (B9) and
-``ops/kernels/capillogue.py`` (B3) are held against.  The contact angle is
+``ops/kernels/capillogue.py`` (B3) are held against; the capillary stage's
+stencil route (``ops/kernels/stencil3d.py:hcz_capillary_stencils``) shares
+its potentials and macro recovery with ``hcz_capillary``.  The contact angle is
 its own stage here (the caller passes ``rho_ca``); the JAX function runs it
 inside ``hcz_capillary``.  The BGK/KBC/Shan-Chen collisions and the 2D forms
 are ROADMAP A7.
@@ -28,7 +30,10 @@ __all__ = [
     "MU0",
     "CHI_K",
     "smooth_phi",
+    "chi_of_phi",
     "contact_angle_boundary",
+    "capillary_potentials",
+    "recover_macros",
     "hcz_capillary",
     "hcz_collide",
 ]
@@ -101,6 +106,44 @@ def contact_angle_boundary(rho, flags, contact_angle: float):
     return rho
 
 
+def chi_of_phi(phi, dx):
+    """Magnetic susceptibility chi = CHI_K (1 - smooth_phi(phi, 0.1 dx))
+    (HCZ_2d.py:143)."""
+    return CHI_K * (1.0 - smooth_phi(phi, 0.1 * dx))
+
+
+def capillary_potentials(rho, density, pressure, *, dx=1.0, dt=1.0):
+    """The EOS potentials fai = p_eos(rho) - rho RT and prho = p - RT
+    density, each with its boundary ring replaced by the nearest interior
+    value (HCZ_3d.py:21-60); taken from the pre-contact-angle fields."""
+    c = dx / dt
+    RT = c * c / 3.0
+    fai = rep_pad_interior(eos_pressure(rho, dx=dx, dt=dt) - rho * RT)
+    return fai, rep_pad_interior(pressure - RT * density)
+
+
+def recover_macros(flags, vel, pressure, density, force, dprho, g_sum, g_mom, g, *, dx=1.0,
+                   dt=1.0):
+    """Velocity and pressure recovered from the moments of g at FLUID cells
+    (the old values elsewhere); ``g_sum``/``g_mom`` are taken from the
+    post-stream ``g`` when None.  Returns (vel, pressure)."""
+    c = dx / dt
+    RT = c * c / 3.0
+    if g_mom is None:
+        e = torch.as_tensor(D3Q19.e.T.astype(np.float64), dtype=g.dtype, device=g.device)
+        g_mom = torch.cat(
+            [torch.sum(g * e[d].reshape(1, -1, 1, 1, 1), dim=1, keepdim=True)
+             for d in range(3)], dim=1,
+        )
+    if g_sum is None:
+        g_sum = torch.sum(g, dim=1, keepdim=True)
+    macro_vel = (g_mom * c + 0.5 * dt * RT * force) / RT / density
+    is_fluid = flags == int(CellType.FLUID)
+    vel = torch.where(is_fluid, macro_vel, vel)
+    macro_pressure = g_sum - 0.5 * dt * torch.sum(vel * dprho, dim=1, keepdim=True)
+    return vel, torch.where(is_fluid, macro_pressure, pressure)
+
+
 def hcz_capillary(
     rho, vel, flags, density, pressure, rho_ca, H2=None, phi=None, g_sum=None,
     g_mom=None, *, g=None, kappa, gravity, rho_gas, rho_fluid, density_gas,
@@ -121,10 +164,7 @@ def hcz_capillary(
     """
     if (H2 is None) != (phi is None):
         raise ValueError("hcz_capillary: give H2 and phi together, or neither")
-    c = dx / dt
-    RT = c * c / 3.0
-    prho = rep_pad_interior(pressure - RT * density)
-    fai = rep_pad_interior(eos_pressure(rho, dx=dx, dt=dt) - rho * RT)
+    fai, prho = capillary_potentials(rho, density, pressure, dx=dx, dt=dt)
     density = rho_to_density(
         rho_ca, rho_gas=rho_gas, rho_fluid=rho_fluid,
         density_gas=density_gas, density_fluid=density_fluid,
@@ -133,24 +173,11 @@ def hcz_capillary(
     force = kappa * density * isotropic_grad(lap_density, dx, flags)
     force = force + gravity * density
     if H2 is not None:
-        chi = CHI_K * (1.0 - smooth_phi(phi, 0.1 * dx))
-        force = force - 0.5 * MU0 * H2 * isotropic_grad(chi, dx, flags)
+        force = force - 0.5 * MU0 * H2 * isotropic_grad(chi_of_phi(phi, dx), dx, flags)
     dfai = isotropic_grad(fai, dx, flags)
     dprho = isotropic_grad(prho, dx, flags)
-
-    if g_mom is None:
-        e = torch.as_tensor(D3Q19.e.T.astype(np.float64), dtype=g.dtype, device=g.device)
-        g_mom = torch.cat(
-            [torch.sum(g * e[d].reshape(1, -1, 1, 1, 1), dim=1, keepdim=True)
-             for d in range(3)], dim=1,
-        )
-    if g_sum is None:
-        g_sum = torch.sum(g, dim=1, keepdim=True)
-    macro_vel = (g_mom * c + 0.5 * dt * RT * force) / RT / density
-    is_fluid = flags == int(CellType.FLUID)
-    vel = torch.where(is_fluid, macro_vel, vel)
-    macro_pressure = g_sum - 0.5 * dt * torch.sum(vel * dprho, dim=1, keepdim=True)
-    pressure = torch.where(is_fluid, macro_pressure, pressure)
+    vel, pressure = recover_macros(flags, vel, pressure, density, force, dprho, g_sum, g_mom,
+                                   g, dx=dx, dt=dt)
     return rho_ca, vel, density, pressure, force, dfai, dprho
 
 

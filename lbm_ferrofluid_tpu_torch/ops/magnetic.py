@@ -24,14 +24,20 @@ import torch
 
 from ..lattice import Lattice
 from ..utils.types import CellType
-from .collide import CHI_K, smooth_phi
+from .collide import chi_of_phi
 from .equilibrium import heq
-from .stencils import isotropic_grad, rep_pad_interior, staggered_x, staggered_y, staggered_z
+from .stencils import (
+    isotropic_grad,
+    staggered_x,
+    staggered_y,
+    staggered_z,
+    substitute_obstacles,
+)
 from .stream import bounce_back, stream
 
 __all__ = [
     "poisson_rhs_scaled", "magnetic_sweep", "solve_H_int", "solve_H_int_scalar", "maybe_h2",
-    "substitute_obstacles", "h_int_from_psi",
+    "h_int_from_psi",
 ]
 
 
@@ -70,7 +76,7 @@ def poisson_rhs_scaled(phi, magnetic_flags, h2_ext, *, tau, dx, dt, H_ext_mac=No
     components ``H_ext_mac``."""
     c = dx / dt
     cs2 = c * c / 3.0
-    chi = CHI_K * (1.0 - smooth_phi(phi, 0.1 * dx))
+    chi = chi_of_phi(phi, dx)
     if h2_ext is None:
         rhs = _div_staggered(chi, H_ext_mac)
     else:
@@ -112,19 +118,13 @@ def magnetic_sweep(lat: Lattice, h, phi, flags, H_ext_mac, *, tau, dx=1.0, dt=1.
     w0 = float(lat.weights[0])
     psi = torch.sum(h[:, 1:], dim=1, keepdim=True) / (1.0 - w0)
     heq_val = heq(lat, psi)
-    chi = CHI_K * (1.0 - smooth_phi(phi, 0.1 * dx))
+    chi = chi_of_phi(phi, dx)
     rhs = _div_staggered(chi, H_ext_mac) * dx / (1.0 + chi)
     rhs = torch.where(flags == int(CellType.FLUID), rhs, torch.zeros_like(rhs))
     add_h = dt * w * rhs * (cs2 * (0.5 - tau) * dt)
     collision_h = (1.0 - 1.0 / tau) * h + heq_val / tau + add_h
     h_new = torch.where(flags == int(CellType.OBSTACLE), h, collision_h)
     return -isotropic_grad(psi, dx, flags), h_new
-
-
-def substitute_obstacles(psi, magnetic_flags):
-    """psi with magnetic obstacle cells replaced by the edge-replicated
-    interior (JAX ``solve_H_int`` :467-473)."""
-    return torch.where(magnetic_flags == int(CellType.OBSTACLE), rep_pad_interior(psi), psi)
 
 
 def h_int_from_psi(psi, magnetic_flags, *, dx, h2_ext, grad):

@@ -19,6 +19,7 @@ __all__ = [
     "isotropic_grad",
     "isotropic_laplacian",
     "rep_pad_interior",
+    "substitute_obstacles",
     "staggered_x",
     "staggered_y",
     "staggered_z",
@@ -63,8 +64,14 @@ def isotropic_grad(x, dx, flags):
     padded back out (reference: LBM_collision_3d.py:209-279)."""
     if x.shape[1] != 1:
         raise ValueError("isotropic_grad expects a single-channel field")
-    xn = torch.where(flags == int(CellType.OBSTACLE), rep_pad_interior(x), x)
-    return grad_ring_replicate(xn, dx)
+    return grad_ring_replicate(substitute_obstacles(x, flags), dx)
+
+
+def substitute_obstacles(x, flags):
+    """``x`` with OBSTACLE cells replaced by the edge-replicated interior:
+    the gradients' input substitution (JAX ``isotropic_grad`` and the
+    stencil kernels' callers, e.g. ``solve_H_int`` :467-473)."""
+    return torch.where(flags == int(CellType.OBSTACLE), rep_pad_interior(x), x)
 
 
 def grad_ring_replicate(x, dx):

@@ -1,4 +1,4 @@
-"""The port's Rosensweig steady state as a whole, against the JAX package.
+"""The port's Rosensweig step as a whole, against the JAX package.
 
 * the scene builders give equal initial states;
 * from the same numpy init, 3 port steps (prime_premac + steady state,
@@ -7,10 +7,15 @@
   tests/test_fastpath_dispatch.py for the same comparison: the port's
   scalar tau == 1 carry and grouped tap order against the channel-form
   solve, both float32, differ at the FMA/reassociation level;
+* the step steps the state it is given: an unprimed state runs the
+  un-carried step (premac None, 19-channel h compared directly) and a
+  5-leaf premac made by the JAX package the epilogue steady state, each
+  against the JAX steps at 2e-5; the epilogue steady state equals the
+  capillogue one on the CPU;
 * ``tests/golden/ferro3d.npz`` (the reference solver) is met at the bars
-  of tests/test_parity.py:_assert_close;
+  of tests/test_parity.py:_assert_close, primed and un-carried;
 * the carried structure, the NotImplementedError scope and the launch
-  counters (0 on the CPU);
+  counters (0 on the CPU, on every route);
 * the channel-form solve (tau != 1, ``scalar_carry=False``, an interior
   magnetic obstacle): 3 port steps against 3 JAX steps at 2e-5 with the
   19-channel h compared directly, against the port's own scalar carry at
@@ -24,6 +29,7 @@ primed) carries the 19-channel h.
 """
 
 import dataclasses
+import importlib
 import math
 import pathlib
 
@@ -34,6 +40,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from lbm_ferrofluid_tpu import models as jmodels  # noqa: E402
+from lbm_ferrofluid_tpu.lattice import D3Q19 as JD3Q19  # noqa: E402
+from lbm_ferrofluid_tpu.models import ferrofluid as jff  # noqa: E402
 from lbm_ferrofluid_tpu.models import scenes as jscenes  # noqa: E402
 
 from lbm_ferrofluid_tpu_torch.models import (  # noqa: E402
@@ -49,6 +57,9 @@ from lbm_ferrofluid_tpu_torch.models import (  # noqa: E402
 )
 from lbm_ferrofluid_tpu_torch.ops import kernels  # noqa: E402
 from lbm_ferrofluid_tpu_torch.ops.scalar_poisson import compare_views  # noqa: E402
+
+# ops/__init__ re-exports the function ``stream`` over the module's name
+jstream = importlib.import_module("lbm_ferrofluid_tpu.ops.stream")
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 RES = (10, 12, 14)
@@ -142,6 +153,7 @@ def test_golden_ferro3d():
     )
     _assert_close(state.f, d["f0"], "f_init", atol=1e-6)
     _assert_close(state.g, d["g0"], "g_init", atol=1e-6)
+    state = prime_premac(params, state, device="cpu")
     for _ in range(8):
         state = ferrofluid_step(params, state, device="cpu")
     _, a, b = _h_rel(state, d["h"])
@@ -203,16 +215,144 @@ def test_batched_state_raises():
 
 
 def test_cpu_runs_leave_launch_counters_at_zero():
+    """The carried steady state (through the runner), the un-carried step
+    and the epilogue steady state on the CPU launch nothing."""
     kernels.reset_launch_counts()
-    params, state = rosensweig_3d(res=(6, 8, 10), device="cpu")
+    params, s0 = rosensweig_3d(res=(6, 8, 10), device="cpu")
     state = SimulationRunner(params, ferrofluid_step, device="cpu").run(
-        state, 2, check_every=1
+        s0, 2, check_every=1
     )
     assert state.step == 2
     assert kernels.launch_counts(kernels.PATHS["ferrofluid"]) == {
         "B1": 0, "B2": 0, "B3": 0, "B4": 0
     }
+    uncarried = ferrofluid_step(params, s0, device="cpu")
+    assert uncarried.premac is None
+    five = _five_leaf(params, s0)
+    assert len(ferrofluid_step(params, five, device="cpu").premac) == 5
+    for path in ("ferrofluid_uncarried", "ferrofluid_epilogue"):
+        assert set(kernels.launch_counts(kernels.PATHS[path]).values()) == {0}, path
+    assert kernels.launch_counts(["B5", "B10b"]) == {"B5": 0, "B10b": 0}
     assert all(v == 0 for v in kernels.launch_counts().values())
+
+
+# ------------------------------------------------- un-carried and epilogue routes
+def _five_leaf(params, state):
+    """The epilogue steady state as the port builds it from its own prime:
+    the 6-leaf premac cut to its 5 macros, phi/force/H_ext kept as the JAX
+    package's 5-leaf prime keeps them (:1052-1077)."""
+    primed = prime_premac(params, state, device="cpu")
+    return state.replace(h=primed.h, cmask=primed.cmask, premac=primed.premac[:5])
+
+
+def test_uncarried_steps_match_jax_step():
+    """An unprimed state steps un-carried, as the JAX step does: premac
+    stays None, h keeps its 19 channels (compared directly), phi and force
+    are tensors, H_ext is kept."""
+    jp, js = jscenes.rosensweig_3d(res=RES)
+    pp = SimulationParams.from_json(jp.to_json())
+    ps = from_numpy(_jax_fields(js), device="cpu")
+    jpp = jp.replace(use_pallas=False)
+    for _ in range(3):
+        js = jmodels.ferrofluid_step(jpp, js)
+        ps = ferrofluid_step(pp, ps, device="cpu")
+    assert ps.step == int(js.step) == 3
+    assert ps.premac is None and js.premac is None
+    assert ps.h.shape[1] == 19 and ps.cmask is None
+    assert ps.H_ext is not None and torch.equal(ps.H_ext, torch.as_tensor(np.array(js.H_ext)))
+    for name in ("f", "g", "density", "vel", "pressure", "h", "phi", "force"):
+        r = rel(getattr(ps, name), getattr(js, name))
+        assert r <= 2e-5, f"{name}: max rel dev {r:.2e}"
+
+
+def test_golden_ferro3d_uncarried():
+    """tests/golden/ferro3d.npz through the un-carried step: 8 steps with no
+    priming, h compared directly."""
+    d = np.load(GOLDEN / "ferro3d.npz")
+    params = ferro3d_params()
+    mflags = np.full((1, 1, *RES), 2, np.uint8)
+    mflags[..., 1:-1, :, 1:-1] = 1
+    state = init_ferrofluid_state(
+        params, d["rho0"], d["den0"], np.zeros((1, 3, *RES), np.float32),
+        d["flags"], mflags, device="cpu",
+    )
+    for _ in range(8):
+        state = ferrofluid_step(params, state, device="cpu")
+    assert state.premac is None and state.h.shape[1] == 19
+    _assert_close(state.h, d["h"], "h")
+    _assert_close(state.f, d["f"], "f")
+    _assert_close(state.g, d["g"], "g")
+    _assert_close(state.vel, d["vel"], "vel")
+    _assert_close(state.density, d["den"], "density")
+
+
+def _jax_five_leaf(jp, js):
+    """The JAX package's 5-leaf prime (ferrofluid.py:1050-1077, the
+    capillogue gated off, as for f32 storage on 256^2 planes): premac from
+    its plain stream_bounce_macro/moments, h converted to the scalar carry
+    where the collapse applies."""
+    _, rho, vel, den = jstream.stream_bounce_macro(
+        JD3Q19, js.f, js.flags, js.rho, js.vel, c=jp.dx / jp.dt, rho_gas=jp.rho_gas,
+        rho_fluid=jp.rho_fluid, density_gas=jp.density_gas,
+        density_fluid=jp.density_fluid, use_pallas=False,
+    )
+    _, m0g, m1g = jstream.stream_bounce_moments(JD3Q19, js.g, js.flags, use_pallas=False)
+    conv = jff._scalar_convert(jp, js)
+    updates = {} if conv is None else {"h": conv[0], "cmask": conv[1]}
+    return dataclasses.replace(js, premac=(rho, vel, den, m0g, m1g), **updates)
+
+
+@pytest.mark.parametrize("scalar_carry", [True, False], ids=["scalar_carry", "channel"])
+def test_five_leaf_state_from_jax_steps_as_jax(scalar_carry):
+    """A JAX state primed to the epilogue steady state, handed over with
+    from_numpy: the port steps it on that route (premac stays 5 leaves,
+    phi and force tensors) and tracks the JAX steps (use_pallas=False, which
+    recompute the same macros from f and g) at 2e-5; the scalar carry's h
+    through compare_views."""
+    jp, js = jscenes.rosensweig_3d(res=RES)
+    jp = jp.replace(scalar_carry=scalar_carry)
+    assert jp.mag_flags_shell
+    j5 = _jax_five_leaf(jp, js)
+    assert j5.h.shape[1] == (2 if scalar_carry else 19)
+    pp = SimulationParams.from_json(jp.to_json())
+    ps = from_numpy(_jax_fields(j5), device="cpu")
+    assert len(ps.premac) == 5
+    jpp = jp.replace(use_pallas=False)
+    for _ in range(3):
+        js = jmodels.ferrofluid_step(jpp, js)
+        ps = ferrofluid_step(pp, ps, device="cpu")
+    assert len(ps.premac) == 5 and ps.phi is not None and ps.force is not None
+    for name in ("f", "g", "density", "vel", "pressure", "phi", "force"):
+        r = rel(getattr(ps, name), getattr(js, name))
+        assert r <= 2e-5, f"{name}: max rel dev {r:.2e}"
+    if scalar_carry:
+        r, _, _ = _h_rel(ps, js.h)
+    else:
+        r = rel(ps.h, js.h)
+    assert r <= 2e-5, f"h: max rel dev {r:.2e}"
+    # the carried macros are the next step's, as a prologue on f/g gives them
+    want = kernels.lbm_prologue_plain(ps.f, ps.g, ps.flags, ps.rho, ps.vel, c=1.0,
+                                      rho_gas=pp.rho_gas, rho_fluid=pp.rho_fluid,
+                                      density_gas=pp.density_gas,
+                                      density_fluid=pp.density_fluid)
+    for a, b in zip(ps.premac, want, strict=True):
+        assert torch.equal(a, b)
+
+
+def test_epilogue_steady_state_matches_capillogue_steady_state():
+    """The 5-leaf and the 6-leaf routes compute the same function
+    (capillogue.py:826-829); on the CPU both run the same plain ops."""
+    params, s0 = rosensweig_3d(res=(6, 8, 10), device="cpu")
+    s6 = prime_premac(params, s0, device="cpu")
+    s5 = _five_leaf(params, s0)
+    for _ in range(3):
+        s6 = ferrofluid_step(params, s6, device="cpu")
+        s5 = ferrofluid_step(params, s5, device="cpu")
+    assert len(s6.premac) == 6 and len(s5.premac) == 5
+    for name in ("f", "g", "h", "rho", "vel", "density", "pressure"):
+        assert torch.equal(getattr(s5, name), getattr(s6, name)), name
+    for a, b in zip(s5.premac, s6.premac[:5]):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------- channel form
@@ -251,7 +391,8 @@ def test_channel_form_three_steps_match_jax_step(case):
 
 def test_channel_form_matches_scalar_carry():
     params, s0 = rosensweig_3d(res=RES, device="cpu")
-    sc, ch = s0, s0
+    sc = prime_premac(params, s0, device="cpu")
+    ch = prime_premac(params.replace(scalar_carry=False), s0, device="cpu")
     for _ in range(3):
         sc = ferrofluid_step(params, sc, device="cpu")
         ch = ferrofluid_step(params.replace(scalar_carry=False), ch, device="cpu")
@@ -272,9 +413,10 @@ def test_golden_ferro3d_channel_form():
         params, d["rho0"], d["den0"], np.zeros((1, 3, *RES), np.float32),
         d["flags"], mflags, device="cpu",
     )
+    state = prime_premac(params, state, device="cpu")
     for _ in range(8):
         state = ferrofluid_step(params, state, device="cpu")
-    assert state.h.shape[1] == 19
+    assert state.h.shape[1] == 19 and len(state.premac) == 6
     _assert_close(state.h, d["h"], "h")
     _assert_close(state.f, d["f"], "f")
     _assert_close(state.g, d["g"], "g")

@@ -103,6 +103,10 @@ def _entry_points():
                                                                fl),
         "prime_premac": lambda params, state: prime_premac(params, state),
         "ferrofluid_step": lambda params, state: ferrofluid_step(params, state),
+        "ferrofluid_step (capillogue steady state)": lambda params, state: ferrofluid_step(
+            params, prime_premac(params, state, device="cpu")),
+        "ferrofluid_step (epilogue steady state)": lambda params, state: ferrofluid_step(
+            params, state.replace(premac=prime_premac(params, state, device="cpu").premac[:5])),
         "hcz_step": hcz,
         "SimulationRunner": lambda params, state: SimulationRunner(params, ferrofluid_step),
     }
@@ -145,4 +149,14 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
         kernels.poisson_sweeps(f, fl, z, tau=0.8, n_iters=2)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.grad_fields(v, dx=1.0)
+    for emit in (False, True):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            kernels.lbm_epilogue(f, f, fl, z, v, z, z, v, v, v, tau_f=0.7, tau_g=0.7,
+                                 emit_mac=emit, mac_consts=(1.0, 0.1, 0.2, 0.1, 0.2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.laplacian_field(z, dx=1.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.hcz_capillary_stencils(z, v, fl, z, z, z, g=f, kappa=0.1,
+                                       gravity=torch.zeros(1, 3, 1, 1, 1, device="meta"),
+                                       **gas)
     assert all(v == 0 for v in kernels.launch_counts().values())

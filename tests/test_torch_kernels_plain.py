@@ -256,15 +256,16 @@ def _leaves(out):
     return [out]
 
 
-@pytest.mark.parametrize("kid", ["B1", "B2", "B3", "B4", "B6", "B6 without H2", "B8a",
-                                 "B8b", "B9", "B10a", "B11b"])
+@pytest.mark.parametrize("kid", ["B1", "B2", "B3", "B4", "B5", "B5 emit_mac", "B6",
+                                 "B6 without H2", "B8a", "B8b", "B9", "B10a", "B10b",
+                                 "B11b"])
 def test_cost_leaves_out_only_unread_inputs(kid):
     """A kernel's bound (``cost``) counts some inputs only at some cells.
     New values at the cells it leaves out must leave every output of the
     plain version exactly as it was, and the count must be the full one
     (each input read and each output written at every cell) less exactly
-    those cells.  B8a and B10a read every input everywhere: nothing is left
-    out."""
+    those cells.  B8a, B10a and B10b read every input everywhere: nothing is
+    left out."""
     res = (6, 8, 10)
     n = int(np.prod(res))
     rng = np.random.default_rng(8)
@@ -328,6 +329,25 @@ def test_cost_leaves_out_only_unread_inputs(kid):
         full = (105 if kelvin else 97) * n
         left_out = (8 * n_ring + 4 * int((ring & fluid).sum()) + 16 * (n - n_fluid)
                     + 12 * n_fluid + (4 * int(ring_obs.sum()) if kelvin else 0))
+    elif kid.startswith("B5"):
+        emit = kid == "B5 emit_mac"
+        flags = d["flags"].clone()
+        flags[..., 2, 3, 4:7] = 4  # EMPTY: neither fluid nor obstacle
+        fluid, obs = flags == FLUID, flags == OBS
+        macros = [d["rho"], d["vel"], d["den"], d["pres"]] + [
+            T(rng.uniform(-1e-3, 1e-3, (1, 3, *res))) for _ in range(3)]
+        args = [d["f"], d["g"], flags] + macros
+        kw = dict(tau_f=0.7, tau_g=0.7, emit_mac=emit, mac_consts=(1.0, RG, RF, RG, RF))
+        # the macro fields only at fluid cells; with emit_mac rho and vel also
+        # at obstacles (the emission's frozen values)
+        read_rv = (fluid | obs) if emit else fluid
+        changed = args[:3] + [new(t, ~read_rv) for t in macros[:2]] + [
+            new(t, ~fluid) for t in macros[2:]]
+        full = (401 if emit else 365) * n
+        left_out = 16 * int((~read_rv).sum()) + 44 * int((~fluid).sum())
+    elif kid == "B10b":
+        args, kw = [T(rng.standard_normal((1, 1, *res)))], dict(dx=1.0)
+        changed, full, left_out = args, 8 * n, 0
     elif kid == "B8a":
         args, kw = [d["f"], d["flags"]], {}
         changed, full, left_out = args, 169 * n, 0
@@ -360,7 +380,7 @@ def test_cost_leaves_out_only_unread_inputs(kid):
         full, left_out = 365 * n, 60 * int((~fluid).sum())
     k = kernels.KERNELS[kid.split()[0]]
     want, got = _leaves(k.plain(*args, **kw)), _leaves(k.plain(*changed, **kw))
-    assert (left_out > 0) == (kid not in ("B8a", "B10a")) and len(got) == len(want)
+    assert (left_out > 0) == (kid not in ("B8a", "B10a", "B10b")) and len(got) == len(want)
     for i, (a, b) in enumerate(zip(got, want)):
         assert torch.equal(a, b), f"{kid} output {i} reads a left-out input"
     assert k.cost(*args, **kw)[0] == full - left_out
