@@ -4,6 +4,7 @@
 Run from the repository root with one CUDA card and the CUDA toolkit::
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --scalar-plans   # only B1's plan sweep (256^3, 130x66x130)
 
 Phases, each printing one JSON line; any failed check exits non-zero:
 
@@ -12,7 +13,8 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    kernel library from ``csrc/``;
 3. kernels: each kernel against its plain PyTorch version on seeded inputs
    with an interior obstacle block.  Ferrofluid kernels (B1 scalar Poisson
-   sweeps + H2, B2 contact angle, B3 capillogue chain at the magnetic tau 1
+   sweeps + H2 at 30 sweeps and at 7, which its pass depth does not divide,
+   B2 contact angle, B3 capillogue chain at the magnetic tau 1
    and 0.8, B4 prologue, B11b channel-form Poisson sweeps at tau 1 and 0.8
    with an interior magnetic obstacle block, B10a gradients of one and of
    four fields, B5 epilogue with and without ``emit_mac`` on B6's outputs,
@@ -33,7 +35,7 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    - Rosensweig at the demo's native 130x66x130, primed and stepped 30
      times with the kernels against 30 plain steps on the card (phase 3's
      bars), then 200 more kernel steps (timed, MLUPS), fields finite, drift
-     of sum(rho) over fluid cells;
+     of sum(rho) over fluid cells, exact launch counts;
    - HCZ ``multiphase_3d`` at 130^3 the same way (30 against 30, 200 timed),
      then ``droplet_spread_3d`` at 130^3 (30 against 30);
    - ``two_droplets_3d`` at 50x50x193 on the ferrofluid path (30 against 30);
@@ -54,7 +56,12 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    epilogue steady state) and the HCZ ``multiphase_3d`` (with the stencil
    route on its inputs), warm steps, MLUPS, peak memory, and per-kernel
    times with CUDA events (kernel, plain version) beside each kernel's
-   bound, and kernel-vs-plain errors at that size.
+   bound, and kernel-vs-plain errors at that size; B3's four launches and
+   B1's pass launches apart from its H2 launch are timed one by one, with
+   B1's plan and the resident blocks an SM of B1's pass and B3's collide.
+
+The build phase reports each kernel's registers, static shared memory and
+spills as ptxas gives them.
 
 Then it prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Bounds use the H100 SXM peaks of
@@ -148,7 +155,8 @@ def nvidia_smi_line() -> str:
 
 
 def ptxas_summary(log: str) -> dict:
-    """Registers and spills per kernel from nvcc's ``-Xptxas -v`` output."""
+    """Registers, static shared memory (bytes) and spills per kernel from
+    nvcc's ``-Xptxas -v`` output."""
     res, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(_Z(\d+)\w+)", line)
@@ -158,6 +166,8 @@ def ptxas_summary(log: str) -> dict:
             res.setdefault(cur, {})
         elif cur and "registers" in line:
             res[cur]["regs"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            res[cur]["smem"] = int(smem.group(1)) if smem else 0
         elif cur and "spill stores" in line:
             nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
             res[cur]["stack"], res[cur]["spill_st"], res[cur]["spill_ld"] = nums[:3]
@@ -382,13 +392,17 @@ def phase_kernels(dev, K):
     for res, seed in (((34, 66, 130), 1), ((130, 66, 130), 2)):
         params, d = seeded_inputs(res, seed, dev)
         d["rho_ca"] = K["B2"].wrapper(d["rho_pre"], d["flags"], params.contact_angle)
-        checks = [("B4", params), ("B1", params), ("B2", params),
-                  ("B2", params.replace(contact_angle=0.35 * math.pi)), ("B3", params),
-                  ("B3", params.replace(tau=0.8))]
+        # B1 also at 7 sweeps, which the plan's k does not divide (a
+        # remainder pass)
+        checks = [("B4", params), ("B1", params), ("B1", params.replace(poisson_iters=7)),
+                  ("B2", params), ("B2", params.replace(contact_angle=0.35 * math.pi)),
+                  ("B3", params), ("B3", params.replace(tau=0.8))]
         for kid, p in checks:
             args, kw = kernel_calls(p, d)[kid]
-            _, r = run_and_compare(K, kid, args, kw, f"{kid} tau={p.tau} at {res}")
-            log(kid, kid, res, r, contact_angle=p.contact_angle, tau=p.tau)
+            _, r = run_and_compare(K, kid, args, kw,
+                                   f"{kid} tau={p.tau} n_iters={p.poisson_iters} at {res}")
+            log(kid, kid, res, r, contact_angle=p.contact_angle, tau=p.tau,
+                n_iters=p.poisson_iters)
         for tau in (1.0, 0.8):
             (_, psi), r = run_and_compare(
                 K, "B11b", (d["h"], d["mflags_block"], d["rhs"]),
@@ -558,6 +572,12 @@ def phase_main(dev, kernels_pkg, card):
     mass230 = fluid_mass(sk)
     launches = kernels_pkg.launch_counts(ids)
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    # the priming runs B4 once; each step B1's passes and H2, B2, B3
+    K = kernels_pkg.KERNELS
+    check_launches("main path", launches, {
+        "B1": K["B1"].module.launches_per_call(params.poisson_iters, sk.rho.shape),
+        "B2": K["B2"].module.N_STAGES, "B3": K["B3"].module.N_LAUNCHES}, sk.step,
+        extra={"B4": 1})
     emit({"phase": "main_path", "scene": "rosensweig_3d", "res": list(sk.rho.shape[2:]),
           "steps": sk.step, "kernel_vs_plain_after_30_steps": rows, "finite": True,
           "sum_rho_fluid": {"step0": mass0, "step30": mass30, "step230": mass230,
@@ -724,7 +744,8 @@ def phase_epilogue_main(dev, kernels_pkg, card):
     launches = kernels_pkg.launch_counts()
     check(len(sk.premac) == 5 and sk.h.shape[1] == 2, "epilogue: the state changed form")
     check_launches("epilogue steady state", launches, {
-        "B1": params.poisson_iters + 1, "B2": K["B2"].module.N_STAGES,
+        "B1": K["B1"].module.launches_per_call(params.poisson_iters, s0.rho.shape),
+        "B2": K["B2"].module.N_STAGES,
         "B6": K["B6"].module.N_LAUNCHES, "B5": 2}, sk.step, extra={"B4": 1})
     s6 = primed(params, dev)(s0, False)
     for _ in range(30):
@@ -814,6 +835,49 @@ def time_cuda(fn, reps, warm=1):
     return start.elapsed_time(end) / reps
 
 
+def launch_split(modules, fn, reps):
+    """Per C entry point that ``fn`` launches through the ``call`` of
+    ``modules``: launches per call and milliseconds per call, from CUDA
+    events around each launch (one warm call first)."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import _lib
+
+    events = {}
+
+    def timed(fn_name, *args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _lib.call(fn_name, *args)
+        end.record()
+        events.setdefault(fn_name, []).append((start, end))
+
+    fn()
+    for m in modules:
+        m.call = timed
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        for m in modules:
+            m.call = _lib.call
+    torch.cuda.synchronize()
+    return {name: {"launches_per_call": len(ev) / reps,
+                   "ms_per_call": sum(s.elapsed_time(e) for s, e in ev) / reps}
+            for name, ev in events.items()}
+
+
+def blocks_per_sm(entry, *ints) -> int:
+    """Resident blocks an SM that the C entry point ``entry`` reports."""
+    import ctypes
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import _lib
+
+    n = ctypes.c_int(0)
+    _lib.call(entry, *(ctypes.c_int(v) for v in ints), ctypes.byref(n))
+    return n.value
+
+
 def measure(K, kid, args, kw, per_call, per_step, what):
     """Kernel-vs-plain errors, times (kernel, plain) and bound of one call."""
     import torch
@@ -857,12 +921,26 @@ def phase_flagship(dev, K, card):
     d["H2"] = K["B1"].wrapper(*calls["B1"][0], **calls["B1"][1])[1]
     d["rho_ca"] = K["B2"].wrapper(*calls["B2"][0], **calls["B2"][1])
     calls = kernel_calls(params, d)
-    per_call = {"B1": params.poisson_iters + 1, "B2": K["B2"].module.N_STAGES,
-                "B3": K["B3"].module.N_LAUNCHES, "B4": 1}
+    sp = K["B1"].module
+    per_call = {"B1": sp.launches_per_call(params.poisson_iters, st.rho.shape),
+                "B2": K["B2"].module.N_STAGES, "B3": K["B3"].module.N_LAUNCHES, "B4": 1}
     # the prologue runs once, at priming; the other three every step
     per_step = dict(per_call, B4=0)
     out = {kid: measure(K, kid, *calls[kid], per_call[kid], per_step[kid], f"{kid} at 256^3")
            for kid in ("B1", "B2", "B3", "B4")}
+    # B1's pass launches apart from H2's; B3's chain launch by launch:
+    # (a) lbm_cap_derived, (b) lbm_cap_collide, (c) lbm_prologue, (d) lbm_cap_rhs
+    from lbm_ferrofluid_tpu_torch.ops.kernels import capillogue, fused_step, scalar_poisson
+    for kid, mods in (("B1", [scalar_poisson]), ("B3", [capillogue, fused_step])):
+        out[kid]["split"] = launch_split(
+            mods, lambda kid=kid: K[kid].wrapper(*calls[kid][0], **calls[kid][1]), reps=10)
+    pl = sp.plan(*st.rho.shape[2:], params.poisson_iters,
+                 torch.cuda.get_device_properties(0).multi_processor_count)
+    out["B1"]["plan"] = dict(k=pl.k, tile=[sp.EXT_WIDTH - 2 * pl.k, pl.ty], lz=pl.lz,
+                             passes=list(pl.passes), smem_bytes=sp.smem_bytes(pl.k, pl.ty),
+                             blocks_per_sm=blocks_per_sm("lbm_scalar_pass_occupancy",
+                                                         pl.k, pl.ty))
+    out["B3"]["collide_blocks_per_sm"] = blocks_per_sm("lbm_cap_collide_occupancy")
     emit({"phase": "flagship", "scene": "rosensweig_3d", "res": [256, 256, 256],
           "mlups": stats["mlups"], "seconds_30_steps": stats["seconds"],
           "peak_mem_gb": peak / 1e9, "card": card, "per_kernel": out, "ok": True})
@@ -1023,6 +1101,55 @@ def phase_hcz_flagship(dev, K, card):
     return out
 
 
+def phase_scalar_plans(dev, card):
+    """B1 on the primed Rosensweig scene at 256^3 and 130x66x130 under the
+    plans its pass kernel takes (k = 1..6, tile heights in steps of 4, z
+    chunk counts from 1 to 32 and the count that fills the card once), each
+    held bit for bit to the plan ``plan`` chooses (the per-cell arithmetic
+    is the same) and timed with CUDA events: the data ``K`` and ``TY`` of
+    ``ops/kernels/scalar_poisson.py`` were chosen from."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import prime_premac, rosensweig_3d
+    from lbm_ferrofluid_tpu_torch.ops.kernels import scalar_poisson as sp
+
+    for res in ((256, 256, 256), (130, 66, 130)):
+        Z, Y, X = res
+        params, st = rosensweig_3d(res=res, mag_strength=85.0, device=dev)
+        st = prime_premac(params, st, device=dev)
+        n = params.poisson_iters
+        h_ext = tuple(params.mag_strength if a == params.h_ext_axis else 0.0 for a in range(3))
+        args, kw = (st.h, st.cmask, st.premac[5]), dict(n_iters=n, dx=params.dx, h_ext=h_ext)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        chosen = sp.plan(*res, n, sms)
+        want = sp.scalar_wavefront(*args, **kw)
+        rows, real = [], sp.plan
+        try:
+            for k in range(1, sp.MAX_K + 1):
+                for ty in range(sp.ROWS, sp.MAX_EXT_HEIGHT - 2 * k + 1, sp.ROWS):
+                    if sp.smem_bytes(k, ty) > sp.SMEM_BLOCK_MAX:
+                        continue
+                    tiles = -(-X // (sp.EXT_WIDTH - 2 * k)) * -(-Y // ty)
+                    fill = max(1, 2 * sms // tiles)
+                    for chunks in sorted({1, 2, 4, 8, 12, 16, 24, 32, fill} & set(range(1, Z + 1))):
+                        pl = sp.ScalarPlan(k, ty, -(-Z // chunks),
+                                           (k,) * (n // k) + ((n % k,) if n % k else ()))
+                        sp.plan = lambda *a, pl=pl, **_: pl
+                        got = sp.scalar_wavefront(*args, **kw)
+                        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                              f"B1 under plan {pl} differs from the chosen plan {chosen}")
+                        rows.append(dict(k=k, ty=ty, lz=pl.lz, smem_bytes=sp.smem_bytes(k, ty),
+                                         ms=time_cuda(lambda: sp.scalar_wavefront(*args, **kw), 5)))
+        finally:
+            sp.plan = real
+        emit({"phase": "scalar_plans", "res": list(res), "n_iters": n, "card": card,
+              "chosen": dict(k=chosen.k, ty=chosen.ty, lz=chosen.lz,
+                             ms=time_cuda(lambda: sp.scalar_wavefront(*args, **kw), 5)),
+              "best": min(rows, key=lambda r: r["ms"]), "plans": rows, "ok": True})
+        del st, args, want
+        torch.cuda.empty_cache()
+
+
 def run_phases(dev, kernels_pkg, smi) -> list:
     """Phases 3-6; returns one row per kernel for the ``kernels`` line.
     ``launches`` sums the kernel's launches over the main paths of phase 5
@@ -1078,9 +1205,13 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "library": str(path),
           "ptxas": ptxas, "ok": True})
 
-    rows = run_phases(dev, kernels_pkg, smi)
-    print(smi, flush=True)
-    emit({"kernels": rows})
+    if "--scalar-plans" in sys.argv[1:]:
+        phase_scalar_plans(dev, smi)
+        print(smi, flush=True)
+    else:
+        rows = run_phases(dev, kernels_pkg, smi)
+        print(smi, flush=True)
+        emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

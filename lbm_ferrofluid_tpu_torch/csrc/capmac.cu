@@ -49,13 +49,12 @@ __global__ void lbm_cap_derived_kernel(const float* __restrict__ rho_pre,
   prho[i] = pres_old[i] - static_cast<float>(RT) * den_pre[i];
   if (chi != nullptr)
     chi[i] = phi != nullptr ? lbm_chi_of_phi(phi[i], dx)
-                            : lbm_chi(den_pre[i], dx, gas.den_gas, gas.den_fluid);
+                            : lbm_chi(den_pre[i], dx, gas.den_gas, gas.dden);
   float l = 0.f;
   if (z >= 1 && z <= Z - 2 && y >= 1 && y <= Y - 2 && x >= 1 && x <= X - 2) {
     l = lbm_laplacian(
         [&](int oz, int oy, int ox) {
-          return lbm_density_of(rho_ca[lbm_index(z + oz, y + oy, x + ox, Y, X)], gas.rho_gas,
-                                gas.rho_fluid, gas.den_gas, gas.den_fluid);
+          return lbm_density_of(rho_ca[lbm_index(z + oz, y + oy, x + ox, Y, X)], gas);
         },
         dx);
   }
@@ -68,7 +67,7 @@ __global__ void __launch_bounds__(LBM_THREADS) lbm_capmac_kernel(
     const float* __restrict__ h2, const float* __restrict__ gsum, const float* __restrict__ gmom,
     const float* __restrict__ vel_old, const float* __restrict__ pres_old,
     const float* __restrict__ fai, const float* __restrict__ prho, const float* __restrict__ chi,
-    const float* __restrict__ lap, LbmCapConsts k, float* __restrict__ vel_out,
+    const float* __restrict__ lap, LbmCapF k, float* __restrict__ vel_out,
     float* __restrict__ pres_out, float* __restrict__ force_out, float* __restrict__ dfai_out,
     float* __restrict__ dprho_out, int Z, int Y, int X) {
   const long long N = static_cast<long long>(Z) * Y * X;
@@ -79,7 +78,7 @@ __global__ void __launch_bounds__(LBM_THREADS) lbm_capmac_kernel(
   const int z = static_cast<int>(i / (static_cast<long long>(X) * Y));
   const LbmCapIn in{flags, rho_ca, h2, gsum, gmom, vel_old, pres_old, fai, prho, chi, lap};
   LbmCapCell o;
-  lbm_capillary_cell<HAS_CHI>(in, k, i, N, z, y, x, Z, Y, X, o);
+  lbm_capillary_cell<HAS_CHI>(in, k, i, N, lbm_cap_global_taps(in, z, y, x, Z, Y, X), o);
   pres_out[i] = o.pres;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
@@ -99,7 +98,7 @@ extern "C" int lbm_cap_derived(const float* rho_pre, const float* den_pre, const
   const long long N = static_cast<long long>(Z) * Y * X;
   lbm_cap_derived_kernel<<<lbm_blocks(N), LBM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       rho_pre, den_pre, pres_old, rho_ca, phi, fai, prho, chi, lap, Z, Y, X, dx, dt,
-      LbmGas{rho_gas, rho_fluid, den_gas, den_fluid});
+      lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -113,8 +112,8 @@ extern "C" int lbm_capmac(const uint8_t* flags, const float* rho_ca, const float
                           double mu0_half, double dx, double dt, double rho_gas,
                           double rho_fluid, double den_gas, double den_fluid, void* stream) {
   const long long N = static_cast<long long>(Z) * Y * X;
-  const LbmCapConsts k{kappa, {grav_x, grav_y, grav_z}, mu0_half, dx, dt,
-                       LbmGas{rho_gas, rho_fluid, den_gas, den_fluid}};
+  const LbmCapF k = lbm_cap_consts(kappa, grav_x, grav_y, grav_z, mu0_half, dx, dt,
+                                   lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (h2 != nullptr)
     lbm_capmac_kernel<true><<<lbm_blocks(N), LBM_THREADS, 0, st>>>(

@@ -4,9 +4,13 @@
 // batch dimension is 1), channel c of cell i at c * N + i with
 // N = Z * Y * X and i = (z * Y + y) * X + x.  Flags are uint8 as stored.
 //
-// Scalar parameters arrive as doubles and are rounded to float at the
-// point of use, which is how the JAX package's Python-float constants
-// enter its float32 arithmetic.  Every C entry point returns
+// Scalar parameters arrive as doubles and are rounded to float, which is
+// how the JAX package's Python-float constants enter its float32
+// arithmetic: at the point of use, or once on the host into the constant
+// structs below (LbmGas, LbmCapF, LbmHczK) where a kernel would otherwise
+// divide by them or do double arithmetic per thread; a division by such a
+// constant becomes a product with its reciprocal, which moves the term by
+// at most an ulp.  Every C entry point returns
 // cudaGetLastError() after its launch so that the Python wrapper can raise
 // (with the text of lbm_error_string, defined once in fused_step.cu).
 #pragma once
@@ -32,10 +36,6 @@ __device__ __forceinline__ long long lbm_cell() {
   return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
 }
 
-__device__ __forceinline__ int lbm_wrap(int i, int n) {
-  return i < 0 ? i + n : (i >= n ? i - n : i);
-}
-
 __device__ __forceinline__ int lbm_clamp(int i, int lo, int hi) {
   return i < lo ? lo : (i > hi ? hi : i);
 }
@@ -52,32 +52,22 @@ __device__ __forceinline__ float lbm_weight(int q) {
                                                  : static_cast<float>(1.0 / 36.0));
 }
 
-// Linear order-parameter -> density map (ops/moments.py:rho_to_density).
-__device__ __forceinline__ float lbm_density_of(float rho, double rho_gas, double rho_fluid,
-                                                double den_gas, double den_fluid) {
-  return static_cast<float>(den_gas) +
-         static_cast<float>(den_fluid - den_gas) *
-             ((rho - static_cast<float>(rho_gas)) / static_cast<float>(rho_fluid - rho_gas));
+static inline float lbm_f32(double v) { return static_cast<float>(v); }
+
+// Constants of the linear order-parameter -> density map, rounded to float
+// once on the host: rho_gas, rho_fluid - rho_gas, den_gas, den_fluid - den_gas.
+struct LbmGas {
+  float rho_gas, drho, den_gas, dden;
+};
+
+static inline LbmGas lbm_gas(double rho_gas, double rho_fluid, double den_gas, double den_fluid) {
+  return LbmGas{lbm_f32(rho_gas), lbm_f32(rho_fluid - rho_gas), lbm_f32(den_gas),
+                lbm_f32(den_fluid - den_gas)};
 }
 
-// Pull-stream one cell's 19 channels with periodic wrap on every axis, then
-// full-way bounce-back at obstacles (ops/stream.py:stream + bounce_back).
-__device__ __forceinline__ void lbm_pull_cell(const float* __restrict__ d, long long N, int z,
-                                              int y, int x, int Z, int Y, int X, bool obs,
-                                              float post[19]) {
-  const int ex[19] = LBM_D3Q19_EX;
-  const int ey[19] = LBM_D3Q19_EY;
-  const int ez[19] = LBM_D3Q19_EZ;
-  const int opp[19] = LBM_D3Q19_OPP;
-  float s[19];
-#pragma unroll
-  for (int q = 0; q < 19; ++q) {
-    const long long src =
-        lbm_index(lbm_wrap(z - ez[q], Z), lbm_wrap(y - ey[q], Y), lbm_wrap(x - ex[q], X), Y, X);
-    s[q] = d[q * N + src];
-  }
-#pragma unroll
-  for (int q = 0; q < 19; ++q) post[q] = obs ? s[opp[q]] : s[q];
+// Linear order-parameter -> density map (ops/moments.py:rho_to_density).
+__device__ __forceinline__ float lbm_density_of(float rho, const LbmGas& g) {
+  return g.den_gas + g.dden * ((rho - g.rho_gas) / g.drho);
 }
 
 // Raw moments Σ_q p_q and Σ_q p_q e_q, in ascending channel order.
@@ -100,10 +90,6 @@ __device__ __forceinline__ void lbm_moments(const float p[19], float& m0, float 
   m1[2] = az;
 }
 
-struct LbmGas {
-  double rho_gas, rho_fluid, den_gas, den_fluid;
-};
-
 #define LBM_CHI_K 0.33
 
 // Carnahan-Starling pressure minus rho RT (ops/moments.py:eos_pressure)
@@ -116,10 +102,10 @@ __device__ __forceinline__ float lbm_fai(float rho, double RT) {
   return p - rho * rt;
 }
 
-// Order parameter phi of a density (ops/moments.py:phi_from_density)
-__device__ __forceinline__ float lbm_phi_of(float den, double den_gas, double den_fluid) {
-  return -(2.f * (den - static_cast<float>(den_gas)) / static_cast<float>(den_fluid - den_gas) -
-           1.f);
+// Order parameter phi of a density (ops/moments.py:phi_from_density), with
+// den_gas and dden = den_fluid - den_gas as LbmGas holds them
+__device__ __forceinline__ float lbm_phi_of(float den, float den_gas, float dden) {
+  return -(2.f * (den - den_gas) / dden - 1.f);
 }
 
 // chi = CHI_K (1 - smooth_phi(phi, 0.1 dx)) (ops/collide.py:smooth_phi)
@@ -134,26 +120,32 @@ __device__ __forceinline__ float lbm_chi_of_phi(float phi, double dx) {
 }
 
 // chi with phi taken from the density (models/ferrofluid.py phi)
-__device__ __forceinline__ float lbm_chi(float den, double dx, double den_gas, double den_fluid) {
-  return lbm_chi_of_phi(lbm_phi_of(den, den_gas, den_fluid), dx);
+__device__ __forceinline__ float lbm_chi(float den, double dx, float den_gas, float dden) {
+  return lbm_chi_of_phi(lbm_phi_of(den, den_gas, dden), dx);
 }
 
-// 19-point isotropic gradient at the interior cell (zc, yc, xc); S(oz, oy,
-// ox) returns the (substituted) field value at an offset from it.
+// Numerators of the 19-point isotropic gradient at the interior cell
+// (zc, yc, xc); S(oz, oy, ox) returns the (substituted) field value at an
+// offset from it.  The gradient is these sums over 12 dx.
+template <class F>
+__device__ __forceinline__ void lbm_iso_sums(F S, float g[3]) {
+  g[0] = 2.f * (S(0, 0, 1) - S(0, 0, -1)) +
+         (S(1, 0, 1) - S(-1, 0, -1) + S(-1, 0, 1) - S(1, 0, -1) + S(0, 1, 1) - S(0, -1, -1) +
+          S(0, -1, 1) - S(0, 1, -1));
+  g[1] = 2.f * (S(0, 1, 0) - S(0, -1, 0)) +
+         (S(1, 1, 0) - S(-1, -1, 0) + S(-1, 1, 0) - S(1, -1, 0) + S(0, 1, 1) - S(0, -1, -1) +
+          S(0, 1, -1) - S(0, -1, 1));
+  g[2] = 2.f * (S(1, 0, 0) - S(-1, 0, 0)) +
+         (S(1, 1, 0) - S(-1, -1, 0) + S(1, -1, 0) - S(-1, 1, 0) + S(1, 0, 1) - S(-1, 0, -1) +
+          S(1, 0, -1) - S(-1, 0, 1));
+}
+
+// The 19-point isotropic gradient, the sums divided by d12 = f32(12 dx).
 template <class F>
 __device__ __forceinline__ void lbm_iso_grad(F S, float d12, float g[3]) {
-  g[0] = (2.f * (S(0, 0, 1) - S(0, 0, -1)) +
-          (S(1, 0, 1) - S(-1, 0, -1) + S(-1, 0, 1) - S(1, 0, -1) + S(0, 1, 1) - S(0, -1, -1) +
-           S(0, -1, 1) - S(0, 1, -1))) /
-         d12;
-  g[1] = (2.f * (S(0, 1, 0) - S(0, -1, 0)) +
-          (S(1, 1, 0) - S(-1, -1, 0) + S(-1, 1, 0) - S(1, -1, 0) + S(0, 1, 1) - S(0, -1, -1) +
-           S(0, 1, -1) - S(0, -1, 1))) /
-         d12;
-  g[2] = (2.f * (S(1, 0, 0) - S(-1, 0, 0)) +
-          (S(1, 1, 0) - S(-1, -1, 0) + S(1, -1, 0) - S(-1, 1, 0) + S(1, 0, 1) - S(-1, 0, -1) +
-           S(1, 0, -1) - S(-1, 0, 1))) /
-         d12;
+  lbm_iso_sums(S, g);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) g[d] = g[d] / d12;
 }
 
 // 19-point Laplacian (2 faces + edges - 24 centre) / (6 dx^2) at an
@@ -188,10 +180,29 @@ struct LbmCapIn {
   const float* __restrict__ lap;
 };
 
-struct LbmCapConsts {
-  double kappa, grav[3], mu0_half, dx, dt;
+struct LbmCapF {
+  float kappa, grav[3], mu0_half, c, inv_d12, half_dt_rt, inv_rt, half_dt;
   LbmGas gas;
 };
+
+static inline LbmCapF lbm_cap_consts(double kappa, double grav_x, double grav_y, double grav_z,
+                                     double mu0_half, double dx, double dt, LbmGas gas) {
+  const double c = dx / dt;
+  const double RT = c * c / 3.0;
+  LbmCapF k;
+  k.kappa = lbm_f32(kappa);
+  k.grav[0] = lbm_f32(grav_x);
+  k.grav[1] = lbm_f32(grav_y);
+  k.grav[2] = lbm_f32(grav_z);
+  k.mu0_half = lbm_f32(mu0_half);
+  k.c = lbm_f32(c);
+  k.inv_d12 = lbm_f32(1.0 / (12.0 * dx));
+  k.half_dt_rt = lbm_f32(0.5 * dt * RT);
+  k.inv_rt = lbm_f32(1.0 / RT);
+  k.half_dt = lbm_f32(0.5 * dt);
+  k.gas = gas;
+  return k;
+}
 
 struct LbmCapCell {
   float rho, dens, pres;
@@ -199,155 +210,281 @@ struct LbmCapCell {
   uint8_t flag;
 };
 
-// The capillary stage at cell i = (z, y, x): the 19-point gradients of lap,
-// fai, prho (and chi), read around the clamped interior cell (so outputs are
-// replicated from the nearest interior cell; z is clamped, not periodic);
-// lap and chi are substituted at obstacles by their value at the clamped
-// cell, fai and prho are interior-padded already so every tap reads the
-// clamped cell.  Then force = kappa dens grad lap + g dens (- mu0/2 H2 grad
-// chi) with dens = density(rho_ca), and velocity/pressure recovery at fluid
-// cells (the old values elsewhere).
-template <bool HAS_CHI>
-__device__ __forceinline__ void lbm_capillary_cell(const LbmCapIn& in, const LbmCapConsts& k,
-                                                   long long i, long long N, int z, int y, int x,
-                                                   int Z, int Y, int X, LbmCapCell& o) {
-  const int zc = lbm_clamp(z, 1, Z - 2), yc = lbm_clamp(y, 1, Y - 2), xc = lbm_clamp(x, 1, X - 2);
-  const double c = k.dx / k.dt;
-  const double RT = c * c / 3.0;
-  const float d12 = static_cast<float>(12.0 * k.dx);
-
-  auto clamped = [&](int zz, int yy, int xx) {
-    return lbm_index(lbm_clamp(zz, 1, Z - 2), lbm_clamp(yy, 1, Y - 2), lbm_clamp(xx, 1, X - 2),
-                     Y, X);
-  };
-  auto sub = [&](const float* F, int oz, int oy, int ox) -> float {
-    const int zz = zc + oz, yy = yc + oy, xx = xc + ox;
-    const long long n = lbm_index(zz, yy, xx, Y, X);
-    return in.flags[n] == LBM_OBSTACLE ? F[clamped(zz, yy, xx)] : F[n];
-  };
+// The capillary stage at cell i.  tap(field, oz, oy, ox) returns field 0
+// (lap), 1 (chi), 2 (fai) or 3 (prho) at an offset from the interior cell
+// nearest to i, read as the TPU kernel reads it: lap and chi substituted at
+// obstacles by their value at the clamped cell, fai and prho (interior-
+// padded already) at the clamped tap.  So outputs are replicated from the
+// nearest interior cell, and z is clamped, not periodic.  Then force =
+// kappa dens grad lap + g dens (- mu0/2 H2 grad chi) with dens =
+// density(rho_ca), and velocity/pressure recovery at fluid cells (the old
+// values elsewhere).
+template <bool HAS_CHI, class Tap>
+__device__ __forceinline__ void lbm_capillary_cell(const LbmCapIn& in, const LbmCapF& k,
+                                                   long long i, long long N, Tap tap,
+                                                   LbmCapCell& o) {
   float glap[3], gchi[3];
-  lbm_iso_grad([&](int a, int b, int e) { return sub(in.lap, a, b, e); }, d12, glap);
-  if (HAS_CHI) lbm_iso_grad([&](int a, int b, int e) { return sub(in.chi, a, b, e); }, d12, gchi);
-  lbm_iso_grad([&](int a, int b, int e) { return in.fai[clamped(zc + a, yc + b, xc + e)]; }, d12,
-               o.dfai);
-  lbm_iso_grad([&](int a, int b, int e) { return in.prho[clamped(zc + a, yc + b, xc + e)]; }, d12,
-               o.dprho);
-
+  lbm_iso_sums([&](int a, int b, int e) { return tap(0, a, b, e); }, glap);
+  if (HAS_CHI) lbm_iso_sums([&](int a, int b, int e) { return tap(1, a, b, e); }, gchi);
+  lbm_iso_sums([&](int a, int b, int e) { return tap(2, a, b, e); }, o.dfai);
+  lbm_iso_sums([&](int a, int b, int e) { return tap(3, a, b, e); }, o.dprho);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    glap[d] = glap[d] * k.inv_d12;
+    if (HAS_CHI) gchi[d] = gchi[d] * k.inv_d12;
+    o.dfai[d] = o.dfai[d] * k.inv_d12;
+    o.dprho[d] = o.dprho[d] * k.inv_d12;
+  }
   o.rho = in.rho_ca[i];
-  o.dens = lbm_density_of(o.rho, k.gas.rho_gas, k.gas.rho_fluid, k.gas.den_gas, k.gas.den_fluid);
+  o.dens = lbm_density_of(o.rho, k.gas);
   const float hh = HAS_CHI ? in.h2[i] : 0.f;
   o.flag = in.flags[i];
   const bool fluid = o.flag == LBM_FLUID;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    float fd = static_cast<float>(k.kappa) * o.dens * glap[d] + static_cast<float>(k.grav[d]) * o.dens;
-    if (HAS_CHI) fd = fd - static_cast<float>(k.mu0_half) * hh * gchi[d];
+    float fd = k.kappa * o.dens * glap[d] + k.grav[d] * o.dens;
+    if (HAS_CHI) fd = fd - k.mu0_half * hh * gchi[d];
     o.force[d] = fd;
-    o.u[d] = fluid ? (in.gmom[d * N + i] * static_cast<float>(c) +
-                      static_cast<float>(0.5 * k.dt * RT) * fd) /
-                         static_cast<float>(RT) / o.dens
+    o.u[d] = fluid ? (in.gmom[d * N + i] * k.c + k.half_dt_rt * fd) * k.inv_rt / o.dens
                    : in.vel_old[d * N + i];
   }
-  o.pres = fluid ? in.gsum[i] - static_cast<float>(0.5 * k.dt) *
-                                    (o.u[0] * o.dprho[0] + o.u[1] * o.dprho[1] +
-                                     o.u[2] * o.dprho[2])
+  o.pres = fluid ? in.gsum[i] - k.half_dt * (o.u[0] * o.dprho[0] + o.u[1] * o.dprho[1] +
+                                              o.u[2] * o.dprho[2])
                  : in.pres_old[i];
 }
 
-// ---- HCZ LBGK collide (ops/collide.py:hcz_collide) ------------------------
-// Per-cell equilibria and forcing terms (ops/pallas/hcz3d.py:_feq_rows,
-// _gamma_rows), then the in-place update of one cell's 19 post-stream f or
-// g values.  The callers apply it at fluid cells only.
-struct LbmHcz {
-  float feq[19], gam[19];
-  float u[3], force[3], gx, gy, gz, px, py, pz;
-  float cf, cs2f, pref_f, pref_g, u_dot_g, u_dot_f, u_dot_p, dens_term, p_term, tauf, taug;
+// tap() of lbm_capillary_cell for the cell (z, y, x), reading device memory.
+__device__ __forceinline__ auto lbm_cap_global_taps(const LbmCapIn& in, int z, int y, int x,
+                                                    int Z, int Y, int X) {
+  const int zc = lbm_clamp(z, 1, Z - 2), yc = lbm_clamp(y, 1, Y - 2), xc = lbm_clamp(x, 1, X - 2);
+  return [=](int fld, int oz, int oy, int ox) -> float {
+    const int zz = zc + oz, yy = yc + oy, xx = xc + ox;
+    const long long n = lbm_index(zz, yy, xx, Y, X);
+    const long long cl = lbm_index(lbm_clamp(zz, 1, Z - 2), lbm_clamp(yy, 1, Y - 2),
+                                   lbm_clamp(xx, 1, X - 2), Y, X);
+    const float* F = fld == 0 ? in.lap : (fld == 1 ? in.chi : (fld == 2 ? in.fai : in.prho));
+    if (fld >= 2) return F[cl];
+    return in.flags[n] == LBM_OBSTACLE ? F[cl] : F[n];
+  };
+}
+
+// ---- pull-stream -----------------------------------------------------------
+// Pull-stream one cell's 19 channels with periodic wrap on every axis, then
+// full-way bounce-back at obstacles (ops/stream.py:stream + bounce_back).
+// The source of channel q at cell i is i plus the offsets along -e_q,
+// computed once per cell (lbm_pull_offsets) and shared by its pulls.
+struct LbmPullOffsets {
+  int xm, xp, ym, yp;
+  long long zm, zp;
 };
 
-__device__ __forceinline__ void lbm_hcz_prepare(LbmHcz& k, float rho, float dens, float pres,
-                                                const float u[3], const float force[3],
-                                                const float dfai[3], const float dprho[3],
-                                                double dx, double dt, double tau_f,
-                                                double tau_g) {
+__device__ __forceinline__ LbmPullOffsets lbm_pull_offsets(int z, int y, int x, int Z, int Y,
+                                                           int X) {
+  const long long XY = static_cast<long long>(X) * Y;
+  return LbmPullOffsets{x == 0 ? X - 1 : -1,
+                        x == X - 1 ? 1 - X : 1,
+                        y == 0 ? (Y - 1) * X : -X,
+                        y == Y - 1 ? (1 - Y) * X : X,
+                        z == 0 ? (Z - 1) * XY : -XY,
+                        z == Z - 1 ? (1 - Z) * XY : XY};
+}
+
+__device__ __forceinline__ void lbm_pull_at(const float* __restrict__ d, long long N, long long i,
+                                            const LbmPullOffsets& o, bool obs, float post[19]) {
   const int ex[19] = LBM_D3Q19_EX;
   const int ey[19] = LBM_D3Q19_EY;
   const int ez[19] = LBM_D3Q19_EZ;
+  const int opp[19] = LBM_D3Q19_OPP;
+  float s[19];
+#pragma unroll
+  for (int q = 0; q < 19; ++q) {
+    long long src = i;
+    if (ex[q] != 0) src += ex[q] == 1 ? o.xm : o.xp;
+    if (ey[q] != 0) src += ey[q] == 1 ? o.ym : o.yp;
+    if (ez[q] != 0) src += ez[q] == 1 ? o.zm : o.zp;
+    s[q] = d[q * N + src];
+  }
+#pragma unroll
+  for (int q = 0; q < 19; ++q) post[q] = obs ? s[opp[q]] : s[q];
+}
+
+// ---- HCZ LBGK collide (ops/collide.py:hcz_collide) ------------------------
+// Replaces the per-cell work of the TPU kernels' _feq_rows and _gamma_rows
+// (ops/pallas/hcz3d.py), which build 19 equilibria and 19 forcing weights
+// per cell.  Held as arrays through both the f and the g update, with the
+// 19 post-stream values, those cost about 157 registers a thread: one
+// 256-thread block an SM.  Here a cell keeps only scalars (LbmHczCell), and
+// each channel's feq_q and Gamma_q are recomputed where they are used, in
+// the f loop and again in the g loop: feq_q = base w_q times the plus/minus
+// factor of each nonzero velocity component, Gamma_q = w_q (1 + eu/cs2 +
+// eu^2/(2 cs2^2) - uv/(2 cs2)) with eu = (e_q . u) c.  The divisions by the
+// launch constants c, cs2, tau_f and tau_g are products with reciprocals
+// (LbmHczK); what is left is 7 IEEE divisions a fluid cell, none per
+// channel.  Callers apply it at fluid cells only.
+struct LbmHczK {
+  float c, inv_c, cs2, inv_cs2, inv_cs2sq, inv_tauf, inv_taug, pref_f, pref_g;
+};
+
+static inline LbmHczK lbm_hcz_consts(double dx, double dt, double tau_f, double tau_g) {
   const double c = dx / dt;
   const double cs2 = c * c / 3.0;
-  k.cf = static_cast<float>(c);
-  k.cs2f = static_cast<float>(cs2);
-  float tax[3], plus[3], minus[3];
+  LbmHczK k;
+  k.c = lbm_f32(c);
+  k.inv_c = lbm_f32(1.0 / c);
+  k.cs2 = lbm_f32(cs2);
+  k.inv_cs2 = lbm_f32(1.0 / cs2);
+  k.inv_cs2sq = lbm_f32(1.0 / (cs2 * cs2));
+  k.inv_tauf = lbm_f32(1.0 / tau_f);
+  k.inv_taug = lbm_f32(1.0 / tau_g);
+  k.pref_f = lbm_f32(dt * dt * (1.0 - 0.5 / tau_f) / cs2);
+  k.pref_g = lbm_f32(dt * (1.0 - 0.5 / tau_g));
+  return k;
+}
+
+struct LbmHczCell {
+  float base, plus[3], minus[3], u[3], uvt;                      // feq_q, Gamma_q
+  float gx, gy, gz, u_dot_g;                                     // f: -grad fai
+  float force[3], px, py, pz, u_dot_f, u_dot_p, dens_term, p_term;  // g
+};
+
+// e_q . (a0, a1, a2) summed over the nonzero components of e_q in x, y, z
+// order: the value of the full sum of products, without its zero terms.
+__device__ __forceinline__ float lbm_edot(int q, float a0, float a1, float a2) {
+  const int ex[19] = LBM_D3Q19_EX;
+  const int ey[19] = LBM_D3Q19_EY;
+  const int ez[19] = LBM_D3Q19_EZ;
+  float s = 0.f;
+  bool first = true;
+  auto add = [&](int e, float a) {
+    if (e != 0) {
+      const float t = e > 0 ? a : -a;
+      s = first ? t : s + t;
+      first = false;
+    }
+  };
+  add(ex[q], a0);
+  add(ey[q], a1);
+  add(ez[q], a2);
+  return s;
+}
+
+__device__ __forceinline__ void lbm_hcz_prepare(LbmHczCell& h, const LbmHczK& k, float rho,
+                                                float dens, float pres, const float u[3],
+                                                const float force[3], const float dfai[3],
+                                                const float dprho[3]) {
+  float tax[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    k.u[d] = u[d];
-    k.force[d] = force[d];
-    const float un = u[d] / k.cf;
+    h.u[d] = u[d];
+    h.force[d] = force[d];
+    const float un = u[d] * k.inv_c;
     tax[d] = sqrtf(1.f + 3.f * un * un);
-    plus[d] = (2.f * un + tax[d]) / (1.f - un);
-    minus[d] = 1.f / plus[d];
+    h.plus[d] = (2.f * un + tax[d]) / (1.f - un);
+    h.minus[d] = 1.f / h.plus[d];
   }
-  const float base = rho * (2.f - tax[0]) * (2.f - tax[1]) * (2.f - tax[2]);
-  const float uv = u[0] * u[0] + u[1] * u[1] + u[2] * u[2];
-  k.gx = -dfai[0], k.gy = -dfai[1], k.gz = -dfai[2];
-  k.px = -dprho[0], k.py = -dprho[1], k.pz = -dprho[2];
-  k.pref_f = static_cast<float>(dt * dt * (1.0 - 0.5 / tau_f) / cs2);
-  k.pref_g = static_cast<float>(dt * (1.0 - 0.5 / tau_g));
-  k.u_dot_g = u[0] * k.gx + u[1] * k.gy + u[2] * k.gz;
-  k.u_dot_f = u[0] * force[0] + u[1] * force[1] + u[2] * force[2];
-  k.u_dot_p = u[0] * k.px + u[1] * k.py + u[2] * k.pz;
-  k.dens_term = k.cs2f * dens / rho;
-  k.p_term = pres - k.cs2f * dens;
-  k.tauf = static_cast<float>(tau_f);
-  k.taug = static_cast<float>(tau_g);
-#pragma unroll
-  for (int q = 0; q < 19; ++q) {
-    float v = base * lbm_weight(q);
-    if (ex[q] == 1) v = v * plus[0];
-    if (ex[q] == -1) v = v * minus[0];
-    if (ey[q] == 1) v = v * plus[1];
-    if (ey[q] == -1) v = v * minus[1];
-    if (ez[q] == 1) v = v * plus[2];
-    if (ez[q] == -1) v = v * minus[2];
-    k.feq[q] = v;
-    const float eu = (static_cast<float>(ex[q]) * u[0] + static_cast<float>(ey[q]) * u[1] +
-                      static_cast<float>(ez[q]) * u[2]) *
-                     k.cf;
-    k.gam[q] = lbm_weight(q) *
-               (1.f + eu / k.cs2f + 0.5f * eu * eu / (k.cs2f * k.cs2f) - 0.5f * uv / k.cs2f);
-  }
+  h.base = rho * (2.f - tax[0]) * (2.f - tax[1]) * (2.f - tax[2]);
+  h.uvt = 0.5f * (u[0] * u[0] + u[1] * u[1] + u[2] * u[2]) * k.inv_cs2;
+  h.gx = -dfai[0], h.gy = -dfai[1], h.gz = -dfai[2];
+  h.px = -dprho[0], h.py = -dprho[1], h.pz = -dprho[2];
+  h.u_dot_g = u[0] * h.gx + u[1] * h.gy + u[2] * h.gz;
+  h.u_dot_f = u[0] * force[0] + u[1] * force[1] + u[2] * force[2];
+  h.u_dot_p = u[0] * h.px + u[1] * h.py + u[2] * h.pz;
+  h.dens_term = k.cs2 * dens / rho;
+  h.p_term = pres - k.cs2 * dens;
 }
 
-__device__ __forceinline__ void lbm_hcz_collide_f(const LbmHcz& k, float p[19]) {
+__device__ __forceinline__ float lbm_feq_q(const LbmHczCell& h, int q) {
   const int ex[19] = LBM_D3Q19_EX;
   const int ey[19] = LBM_D3Q19_EY;
   const int ez[19] = LBM_D3Q19_EZ;
+  float v = h.base * lbm_weight(q);
+  if (ex[q] == 1) v = v * h.plus[0];
+  if (ex[q] == -1) v = v * h.minus[0];
+  if (ey[q] == 1) v = v * h.plus[1];
+  if (ey[q] == -1) v = v * h.minus[1];
+  if (ez[q] == 1) v = v * h.plus[2];
+  if (ez[q] == -1) v = v * h.minus[2];
+  return v;
+}
+
+__device__ __forceinline__ float lbm_gam_q(const LbmHczCell& h, const LbmHczK& k, int q) {
+  const float eu = lbm_edot(q, h.u[0], h.u[1], h.u[2]) * k.c;
+  return lbm_weight(q) * (1.f + eu * k.inv_cs2 + 0.5f * eu * eu * k.inv_cs2sq - h.uvt);
+}
+
+__device__ __forceinline__ void lbm_hcz_collide_f(const LbmHczCell& h, const LbmHczK& k,
+                                                  float p[19]) {
 #pragma unroll
   for (int q = 0; q < 19; ++q) {
-    const float e_dot_g = (static_cast<float>(ex[q]) * k.gx + static_cast<float>(ey[q]) * k.gy +
-                           static_cast<float>(ez[q]) * k.gz) *
-                          k.cf;
+    const float e_dot_g = lbm_edot(q, h.gx, h.gy, h.gz) * k.c;
     const float fq = p[q];
-    p[q] = fq + (k.feq[q] - fq) / k.tauf + k.pref_f * k.gam[q] * (e_dot_g - k.u_dot_g);
+    p[q] = fq + (lbm_feq_q(h, q) - fq) * k.inv_tauf +
+           k.pref_f * lbm_gam_q(h, k, q) * (e_dot_g - h.u_dot_g);
   }
 }
 
-__device__ __forceinline__ void lbm_hcz_collide_g(const LbmHcz& k, float p[19]) {
-  const int ex[19] = LBM_D3Q19_EX;
-  const int ey[19] = LBM_D3Q19_EY;
-  const int ez[19] = LBM_D3Q19_EZ;
+__device__ __forceinline__ void lbm_hcz_collide_g(const LbmHczCell& h, const LbmHczK& k,
+                                                  float p[19]) {
 #pragma unroll
   for (int q = 0; q < 19; ++q) {
     const float wq = lbm_weight(q);
-    const float e_dot_f = (static_cast<float>(ex[q]) * k.force[0] +
-                           static_cast<float>(ey[q]) * k.force[1] +
-                           static_cast<float>(ez[q]) * k.force[2]) *
-                          k.cf;
-    const float e_dot_p = (static_cast<float>(ex[q]) * k.px + static_cast<float>(ey[q]) * k.py +
-                           static_cast<float>(ez[q]) * k.pz) *
-                          k.cf;
+    const float e_dot_f = lbm_edot(q, h.force[0], h.force[1], h.force[2]) * k.c;
+    const float e_dot_p = lbm_edot(q, h.px, h.py, h.pz) * k.c;
+    const float gam = lbm_gam_q(h, k, q);
     const float gq = p[q];
-    const float geq = wq * k.p_term + k.dens_term * k.feq[q];
-    p[q] = gq + (geq - gq) / k.taug +
-           k.pref_g * (k.gam[q] * (e_dot_f - k.u_dot_f) + (k.gam[q] - wq) * (e_dot_p - k.u_dot_p));
+    const float geq = wq * h.p_term + h.dens_term * lbm_feq_q(h, q);
+    p[q] = gq + (geq - gq) * k.inv_taug +
+           k.pref_g * (gam * (e_dot_f - h.u_dot_f) + (gam - wq) * (e_dot_p - h.u_dot_p));
+  }
+}
+
+// ---- z-walk of a tile with a 3-plane shared-memory ring --------------------
+// For stencils evaluated at the interior cell nearest to each cell (the
+// TPU kernels' ring rule).  A block owns a TX x TY (x, y) tile at (x0, y0)
+// and walks the planes [z0, z1).  A cell at z taps the planes zc - 1, zc,
+// zc + 1 with zc = clamp(z, 1, Z - 2); the ring keeps plane p in slot p % 3.
+// load(p) fills slot p % 3 with plane p of the tile and its 1-cell halo
+// (the whole block takes part: see lbm_halo_cells); cell(z, sm, s0, sp)
+// runs for the block's cells inside the grid (active), with the slots of
+// zc - 1, zc and zc + 1.
+template <class Load, class Cell>
+__device__ __forceinline__ void lbm_zwalk(int z0, int z1, int Z, bool active, Load load,
+                                          Cell cell) {
+  int hi = lbm_clamp(z0, 1, Z - 2) + 1;
+  load(hi - 2);
+  load(hi - 1);
+  load(hi);
+  __syncthreads();
+  for (int z = z0; z < z1; ++z) {
+    const int zc = lbm_clamp(z, 1, Z - 2);
+    if (zc + 1 > hi) {  // the same for the whole block
+      __syncthreads();
+      load(++hi);
+      __syncthreads();
+    }
+    if (active) cell(z, (zc - 1) % 3, zc % 3, (zc + 1) % 3);
+  }
+}
+
+// The ring's first row (or column) for a tile starting at t0 on an axis of
+// n cells: one before the first interior cell the tile's cells tap around.
+// A tile holding only the last cell taps around cell n - 2, which is
+// outside it, so the ring does not simply start at t0 - 1.
+__device__ __forceinline__ int lbm_ring_origin(int t0, int n) { return lbm_clamp(t0, 1, n - 2) - 1; }
+
+// The (TY + 2) x (TX + 2) cells of plane p that the ring holds for the tile
+// at (x0, y0), spread over the block's TX x TY threads: f(ey, ex, n, c) with
+// the cell's index n and the index c of the interior cell nearest to it.
+// Ring cells outside the grid are never tapped; they stand on the nearest
+// grid cell.
+template <int TX, int TY, class F>
+__device__ __forceinline__ void lbm_halo_cells(int p, int x0, int y0, int Z, int Y, int X, F f) {
+  const int pc = lbm_clamp(p, 1, Z - 2);
+  const int rx0 = lbm_ring_origin(x0, X), ry0 = lbm_ring_origin(y0, Y);
+  for (int e = threadIdx.y * TX + threadIdx.x; e < (TY + 2) * (TX + 2); e += TX * TY) {
+    const int ey = e / (TX + 2), ex = e - ey * (TX + 2);
+    const int gy = lbm_clamp(ry0 + ey, 0, Y - 1), gx = lbm_clamp(rx0 + ex, 0, X - 1);
+    f(ey, ex, lbm_index(p, gy, gx, Y, X),
+      lbm_index(pc, lbm_clamp(gy, 1, Y - 2), lbm_clamp(gx, 1, X - 2), Y, X));
   }
 }

@@ -32,8 +32,7 @@ __global__ void lbm_stream_macro_kernel(const float* __restrict__ f, const float
                                         const float* __restrict__ vel_old, float* __restrict__ rho,
                                         float* __restrict__ vel, float* __restrict__ den,
                                         float* __restrict__ m0g, float* __restrict__ m1g, int Z,
-                                        int Y, int X, double c, double rho_gas, double rho_fluid,
-                                        double den_gas, double den_fluid) {
+                                        int Y, int X, double c, LbmGas gas) {
   const long long N = static_cast<long long>(Z) * Y * X;
   const long long i = lbm_cell();
   if (i >= N) return;
@@ -41,13 +40,14 @@ __global__ void lbm_stream_macro_kernel(const float* __restrict__ f, const float
   const int y = static_cast<int>((i / X) % Y);
   const int z = static_cast<int>(i / (static_cast<long long>(X) * Y));
   const bool obs = flags[i] == LBM_OBSTACLE;
+  const LbmPullOffsets po = lbm_pull_offsets(z, y, x, Z, Y, X);
 
   float post[19];
   float m0f, m1f[3];
-  lbm_pull_cell(f, N, z, y, x, Z, Y, X, obs, post);
+  lbm_pull_at(f, N, i, po, obs, post);
   lbm_moments(post, m0f, m1f);
   float m0, m1[3];
-  lbm_pull_cell(g, N, z, y, x, Z, Y, X, obs, post);
+  lbm_pull_at(g, N, i, po, obs, post);
   lbm_moments(post, m0, m1);
 
   const float r = obs ? rho_old[i] : m0f;
@@ -55,7 +55,7 @@ __global__ void lbm_stream_macro_kernel(const float* __restrict__ f, const float
   rho[i] = r;
 #pragma unroll
   for (int d = 0; d < 3; ++d) vel[d * N + i] = obs ? vel_old[d * N + i] : m1f[d] * inv_rho;
-  den[i] = lbm_density_of(r, rho_gas, rho_fluid, den_gas, den_fluid);
+  den[i] = lbm_density_of(r, gas);
   m0g[i] = m0;
 #pragma unroll
   for (int d = 0; d < 3; ++d) m1g[d * N + i] = m1[d];
@@ -83,8 +83,7 @@ __global__ void __launch_bounds__(LBM_THREADS) lbm_epilogue_kernel(
     const float* __restrict__ rho, const float* __restrict__ vel, const float* __restrict__ den,
     const float* __restrict__ pres, const float* __restrict__ force,
     const float* __restrict__ dfai, const float* __restrict__ dprho, float* __restrict__ f_out,
-    float* __restrict__ g_out, int Z, int Y, int X, double dx, double dt, double tau_f,
-    double tau_g) {
+    float* __restrict__ g_out, int Z, int Y, int X, LbmHczK k) {
   const long long N = static_cast<long long>(Z) * Y * X;
   const long long i = lbm_cell();
   if (i >= N) return;
@@ -92,13 +91,14 @@ __global__ void __launch_bounds__(LBM_THREADS) lbm_epilogue_kernel(
   const int y = static_cast<int>((i / X) % Y);
   const int z = static_cast<int>(i / (static_cast<long long>(X) * Y));
   const uint8_t flag = flags[i];
+  const LbmPullOffsets po = lbm_pull_offsets(z, y, x, Z, Y, X);
   float post[19];
   if (flag != LBM_FLUID) {
     const bool obs = flag == LBM_OBSTACLE;
-    lbm_pull_cell(f, N, z, y, x, Z, Y, X, obs, post);
+    lbm_pull_at(f, N, i, po, obs, post);
 #pragma unroll
     for (int q = 0; q < 19; ++q) f_out[q * N + i] = post[q];
-    lbm_pull_cell(g, N, z, y, x, Z, Y, X, obs, post);
+    lbm_pull_at(g, N, i, po, obs, post);
 #pragma unroll
     for (int q = 0; q < 19; ++q) g_out[q * N + i] = post[q];
     return;
@@ -111,14 +111,14 @@ __global__ void __launch_bounds__(LBM_THREADS) lbm_epilogue_kernel(
     df[d] = dfai[d * N + i];
     dp[d] = dprho[d * N + i];
   }
-  LbmHcz h;
-  lbm_hcz_prepare(h, rho[i], den[i], pres[i], u, fo, df, dp, dx, dt, tau_f, tau_g);
-  lbm_pull_cell(f, N, z, y, x, Z, Y, X, false, post);
-  lbm_hcz_collide_f(h, post);
+  LbmHczCell h;
+  lbm_hcz_prepare(h, k, rho[i], den[i], pres[i], u, fo, df, dp);
+  lbm_pull_at(f, N, i, po, false, post);
+  lbm_hcz_collide_f(h, k, post);
 #pragma unroll
   for (int q = 0; q < 19; ++q) f_out[q * N + i] = post[q];
-  lbm_pull_cell(g, N, z, y, x, Z, Y, X, false, post);
-  lbm_hcz_collide_g(h, post);
+  lbm_pull_at(g, N, i, po, false, post);
+  lbm_hcz_collide_g(h, k, post);
 #pragma unroll
   for (int q = 0; q < 19; ++q) g_out[q * N + i] = post[q];
 }
@@ -130,8 +130,8 @@ extern "C" int lbm_epilogue(const float* f, const float* g, const uint8_t* flags
                             double tau_f, double tau_g, void* stream) {
   const long long N = static_cast<long long>(Z) * Y * X;
   lbm_epilogue_kernel<<<lbm_blocks(N), LBM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      f, g, flags, rho, vel, den, pres, force, dfai, dprho, f_out, g_out, Z, Y, X, dx, dt, tau_f,
-      tau_g);
+      f, g, flags, rho, vel, den, pres, force, dfai, dprho, f_out, g_out, Z, Y, X,
+      lbm_hcz_consts(dx, dt, tau_f, tau_g));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -142,7 +142,7 @@ extern "C" int lbm_prologue(const float* f, const float* g, const uint8_t* flags
                             void* stream) {
   const long long N = static_cast<long long>(Z) * Y * X;
   lbm_stream_macro_kernel<<<lbm_blocks(N), LBM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      f, g, flags, rho_old, vel_old, rho, vel, den, m0g, m1g, Z, Y, X, c, rho_gas, rho_fluid,
-      den_gas, den_fluid);
+      f, g, flags, rho_old, vel_old, rho, vel, den, m0g, m1g, Z, Y, X, c,
+      lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid));
   return static_cast<int>(cudaGetLastError());
 }

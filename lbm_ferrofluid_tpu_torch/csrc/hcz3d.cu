@@ -6,9 +6,11 @@
 //
 // Here one thread per cell updates both f and g in one launch, out of place
 // into f', g'.  Fluid cells read the seven macro fields and run common.cuh's
-// lbm_hcz_prepare / lbm_hcz_collide_f / lbm_hcz_collide_g (the capillogue's
-// collide runs the same device code); other cells copy their streamed
-// (bounced) values and read no macro field.
+// collide (lbm_hcz_prepare / lbm_hcz_collide_f / lbm_hcz_collide_g: per-cell
+// scalars, feq and Gamma recomputed per channel, reciprocals of the launch
+// constants; the capillogue's and the epilogue's collide run the same device
+// code); other cells copy their streamed (bounced) values and read no macro
+// field.
 //
 // Bound on an H100: bytes.  Read and write f and g (304 B per cell), read
 // flags (1 B), and at fluid cells rho, density, pressure, vel, force, dfai
@@ -21,7 +23,7 @@ __global__ void __launch_bounds__(LBM_THREADS) lbm_hcz_collide_kernel(
     const float* __restrict__ rho, const float* __restrict__ vel, const float* __restrict__ den,
     const float* __restrict__ pres, const float* __restrict__ force,
     const float* __restrict__ dfai, const float* __restrict__ dprho, float* __restrict__ f_out,
-    float* __restrict__ g_out, long long N, double dx, double dt, double tau_f, double tau_g) {
+    float* __restrict__ g_out, long long N, LbmHczK k) {
   const long long i = lbm_cell();
   if (i >= N) return;
   if (flags[i] != LBM_FLUID) {
@@ -39,17 +41,17 @@ __global__ void __launch_bounds__(LBM_THREADS) lbm_hcz_collide_kernel(
     df[d] = dfai[d * N + i];
     dp[d] = dprho[d * N + i];
   }
-  LbmHcz h;
-  lbm_hcz_prepare(h, rho[i], den[i], pres[i], u, fo, df, dp, dx, dt, tau_f, tau_g);
+  LbmHczCell h;
+  lbm_hcz_prepare(h, k, rho[i], den[i], pres[i], u, fo, df, dp);
   float p[19];
 #pragma unroll
   for (int q = 0; q < 19; ++q) p[q] = f[q * N + i];
-  lbm_hcz_collide_f(h, p);
+  lbm_hcz_collide_f(h, k, p);
 #pragma unroll
   for (int q = 0; q < 19; ++q) f_out[q * N + i] = p[q];
 #pragma unroll
   for (int q = 0; q < 19; ++q) p[q] = g[q * N + i];
-  lbm_hcz_collide_g(h, p);
+  lbm_hcz_collide_g(h, k, p);
 #pragma unroll
   for (int q = 0; q < 19; ++q) g_out[q * N + i] = p[q];
 }
@@ -61,6 +63,7 @@ extern "C" int lbm_hcz_collide(const float* f, const float* g, const uint8_t* fl
                                double dx, double dt, double tau_f, double tau_g, void* stream) {
   const long long N = static_cast<long long>(Z) * Y * X;
   lbm_hcz_collide_kernel<<<lbm_blocks(N), LBM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      f, g, flags, rho, vel, den, pres, force, dfai, dprho, f_out, g_out, N, dx, dt, tau_f, tau_g);
+      f, g, flags, rho, vel, den, pres, force, dfai, dprho, f_out, g_out, N,
+      lbm_hcz_consts(dx, dt, tau_f, tau_g));
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,7 +43,7 @@ __global__ void lbm_poisson_sweep_kernel(const float* __restrict__ h,
   const int y = static_cast<int>((i / X) % Y);
   const int z = static_cast<int>(i / (static_cast<long long>(X) * Y));
   float s[19];
-  lbm_pull_cell(h, N, z, y, x, Z, Y, X, false, s);
+  lbm_pull_at(h, N, i, lbm_pull_offsets(z, y, x, Z, Y, X), false, s);
   float psum = s[1];
 #pragma unroll
   for (int q = 2; q < 19; ++q) psum += s[q];

@@ -4,7 +4,7 @@
 //
 // One thread per cell pulls its 19 values with periodic wrap on every axis
 // (the TPU kernel wraps z through its BlockSpec index maps and y, x with
-// pltpu.roll), bounces them at obstacles (common.cuh's lbm_pull_cell, as
+// pltpu.roll), bounces them at obstacles (common.cuh's lbm_pull_at, as
 // the prologue does), writes them (the TPU kernels' out_ref) and then
 //   lbm_stream_moments3d: the raw moments m0 = sum_q f_q, m1 = sum_q f_q e_q;
 //   lbm_stream_macro3d:   rho = m0 and vel = m1 c / rho (both frozen at
@@ -31,7 +31,7 @@ __global__ void lbm_stream_moments3d_kernel(const float* __restrict__ f,
   const int y = static_cast<int>((i / X) % Y);
   const int z = static_cast<int>(i / (static_cast<long long>(X) * Y));
   float post[19];
-  lbm_pull_cell(f, N, z, y, x, Z, Y, X, flags[i] == LBM_OBSTACLE, post);
+  lbm_pull_at(f, N, i, lbm_pull_offsets(z, y, x, Z, Y, X), flags[i] == LBM_OBSTACLE, post);
 #pragma unroll
   for (int q = 0; q < 19; ++q) f_post[q * N + i] = post[q];
   float s, m[3];
@@ -56,7 +56,7 @@ __global__ void lbm_stream_macro3d_kernel(const float* __restrict__ f,
   const int z = static_cast<int>(i / (static_cast<long long>(X) * Y));
   const bool obs = flags[i] == LBM_OBSTACLE;
   float post[19];
-  lbm_pull_cell(f, N, z, y, x, Z, Y, X, obs, post);
+  lbm_pull_at(f, N, i, lbm_pull_offsets(z, y, x, Z, Y, X), obs, post);
 #pragma unroll
   for (int q = 0; q < 19; ++q) f_post[q * N + i] = post[q];
   float m0, m1[3];
@@ -66,7 +66,7 @@ __global__ void lbm_stream_macro3d_kernel(const float* __restrict__ f,
   rho[i] = r;
 #pragma unroll
   for (int d = 0; d < 3; ++d) vel[d * N + i] = obs ? vel_old[d * N + i] : m1[d] * inv_rho;
-  den[i] = lbm_density_of(r, gas.rho_gas, gas.rho_fluid, gas.den_gas, gas.den_fluid);
+  den[i] = lbm_density_of(r, gas);
 }
 
 extern "C" int lbm_stream_moments3d(const float* f, const uint8_t* flags, float* f_post, float* m0,
@@ -86,6 +86,6 @@ extern "C" int lbm_stream_macro3d(const float* f, const uint8_t* flags, const fl
   const long long N = static_cast<long long>(Z) * Y * X;
   lbm_stream_macro3d_kernel<<<lbm_blocks(N), LBM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       f, flags, rho_old, vel_old, f_post, rho, vel, den, Z, Y, X, c,
-      LbmGas{rho_gas, rho_fluid, den_gas, den_fluid});
+      lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid));
   return static_cast<int>(cudaGetLastError());
 }

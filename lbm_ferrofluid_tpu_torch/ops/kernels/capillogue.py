@@ -5,11 +5,14 @@ lbm_capillogue`` (:809).  The TPU kernel collides f and g in place, which is
 safe there only because its z-ring reads lead its writes; its emission
 streams collided neighbours held in that ring.  GPU blocks run in any order
 with no grid-wide barrier, so the CUDA source ``csrc/capillogue.cu`` runs a
-chain of four launches and collides out of place into a new f/g pair:
+chain of ``N_LAUNCHES`` = 4 launches and collides out of place into a new
+f/g pair:
 
   (a) fai, prho, chi and the Laplacian of density(rho_ca), into scratch;
   (b) gradients, force, velocity/pressure recovery, re-stream and collide
-      (dfai and dprho stay in registers);
+      (dfai and dprho stay in registers): blocks walk z over 32 x 8 tiles
+      with the stencil fields in a 3-plane shared-memory ring, and the
+      collide keeps per-cell scalars only, two blocks an SM;
   (c) the prologue kernel on f'/g' with rho_old = rho_ca and vel_old = the
       recovered velocity (the next step's rho, vel, density, m0g, m1g);
   (d) the next step's pre-scaled Poisson source from the emitted density.
