@@ -5,6 +5,7 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
 
     python3 chip_smoke.py
     python3 chip_smoke.py --scalar-plans   # only B1's plan sweep (256^3, 130x66x130)
+    python3 chip_smoke.py --poisson-plans  # only B11b's plan sweep (256^3, 130x66x130)
 
 Phases, each printing one JSON line; any failed check exits non-zero:
 
@@ -16,9 +17,12 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    sweeps + H2 at 30 sweeps and at 7, which its pass depth does not divide,
    B2 contact angle, B3 capillogue chain at the magnetic tau 1
    and 0.8, B4 prologue, B11b channel-form Poisson sweeps at tau 1 and 0.8
-   with an interior magnetic obstacle block, B10a gradients of one and of
+   and at 30 and 7 sweeps, with an interior magnetic obstacle block and one
+   across a tile edge and a z seam of its plan, its chosen plan also held
+   bit for bit to the one-sweep plan, B10a gradients of one and of
    four fields, B5 epilogue with and without ``emit_mac`` on B6's outputs,
-   B10b Laplacian) at 34x66x130 and 130x66x130; HCZ kernels (B8b/B8a
+   B10b Laplacian) at 34x66x130 and 130x66x130, and B11b as above at
+   50x50x193, which no tile divides; HCZ kernels (B8b/B8a
    stream + bounce, B2 at 0.75 pi, B6 capillary stage with and without H2,
    B9 collide, each fed with what the kernels before it produced, then the
    capillary stage's stencil route B10b + B10a against its plain version
@@ -29,7 +33,9 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    state with the scalar carry and with the channel-form solve,
    ``scalar_carry=False``, and the un-carried step) and ``hcz3d.npz``
    (10 steps), reference solver, through the port with kernels, at
-   tests/test_parity.py's bars;
+   tests/test_parity.py's bars; then a grid with an axis of 3 cells, which
+   the kernel route refuses on the card (naming ``plain=True``) and the
+   plain versions step;
 5. main paths, each with the launch counters zeroed just before it and read
    just after it:
    - Rosensweig at the demo's native 130x66x130, primed and stepped 30
@@ -42,8 +48,9 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    - Rosensweig 130x66x130 on the channel-form solve: with
      ``scalar_carry=False`` 30 kernel steps against 30 plain steps and
      against 30 scalar-carry kernel steps (``compare_views``), then 200
-     timed; with tau = 0.8 30 against 30.  B11b launches 30 times and B10a
-     once a step;
+     timed; with tau = 0.8 30 against 30.  B11b launches
+     ``launches_per_call`` times (one a pass of its plan) and B10a once a
+     step;
    - the un-carried step (Rosensweig 130x66x130 never primed: B4, B11b,
      B10a, B2, B6, B5) and the epilogue steady state (5-leaf premac with
      the scalar carry: B1, B2, B6, B5 with ``emit_mac``), each 30 kernel
@@ -56,9 +63,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    epilogue steady state) and the HCZ ``multiphase_3d`` (with the stencil
    route on its inputs), warm steps, MLUPS, peak memory, and per-kernel
    times with CUDA events (kernel, plain version) beside each kernel's
-   bound, and kernel-vs-plain errors at that size; B3's four launches and
-   B1's pass launches apart from its H2 launch are timed one by one, with
-   B1's plan and the resident blocks an SM of B1's pass and B3's collide.
+   bound, and kernel-vs-plain errors at that size; B3's four launches,
+   B1's pass launches apart from its H2 launch and B11b's passes are timed
+   one by one, with B1's and B11b's plans and the resident blocks an SM of
+   B1's pass, B11b's pass and B3's collide.
 
 The build phase reports each kernel's registers, static shared memory and
 spills as ptxas gives them.
@@ -162,7 +170,11 @@ def ptxas_summary(log: str) -> dict:
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(_Z(\d+)\w+)", line)
         if m:
             mangled, n = m.group(1), int(m.group(2))
-            cur = mangled[2 + len(m.group(2)):2 + len(m.group(2)) + n]
+            start = 2 + len(m.group(2))
+            cur = mangled[start:start + n]
+            targs = re.match(r"I((?:L[a-z]+\d+E)+)E", mangled[start + n:])
+            if targs:  # a template's instance: <1,13> for <true, 13>
+                cur += "<" + ",".join(re.findall(r"L[a-z]+(\d+)E", targs.group(1))) + ">"
             res.setdefault(cur, {})
         elif cur and "registers" in line:
             res[cur]["regs"] = int(re.search(r"Used (\d+) registers", line).group(1))
@@ -226,6 +238,43 @@ def seeded_inputs(res, seed, dev):
         mflags_block=mflags_block,
         fields4=t(rng.standard_normal((1, 4, *res))),
     )
+
+
+def poisson_seam_block(mflags, sms, n_iters):
+    """``mflags`` with magnetic obstacles straddling B11b's first tile edge
+    in x and in y and its first z seam, under the plan it takes for
+    ``n_iters`` sweeps on a card of ``sms`` SMs."""
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
+
+    pl = pp.plan(*mflags.shape[2:], n_iters, sms)
+    tx = pp.tile_width(pl.k)
+    out = mflags.clone()
+    out[..., pl.lz - 1:pl.lz + 1, pl.ty - 1:pl.ty + 1, tx - 1:tx + 1] = 2
+    return out
+
+
+def b11b_plan_against_one_sweep(args, kw, sms):
+    """B11b under the plan it chooses against the k = 1 plan (one launch a
+    sweep, the chosen tiles and chunks) on the same inputs: the same bits,
+    or the check fails."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
+
+    real = pp.plan
+    chosen = real(*args[0].shape[2:], kw["n_iters"], sms)
+    one = pp.PoissonPlan(1, chosen.ty, chosen.lz, pp.passes(kw["n_iters"], 1))
+    got = pp.poisson_sweeps(*args, **kw)
+    pp.plan = lambda *a, **_: one
+    try:
+        want = pp.poisson_sweeps(*args, **kw)
+    finally:
+        pp.plan = real
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"B11b under {chosen} differs from the one-sweep plan {one}")
+    return {"chosen": [chosen.k, chosen.ty, chosen.lz], "one_sweep": [one.k, one.ty, one.lz],
+            "bit_for_bit": True}
 
 
 def kernel_calls(params, d):
@@ -378,6 +427,8 @@ def stencil_route_rows(params, d, ctx, what):
 
 
 def phase_kernels(dev, K):
+    import torch
+
     from lbm_ferrofluid_tpu_torch.ops.stencils import substitute_obstacles
 
     worst = {kid: 0.0 for kid in K}
@@ -388,6 +439,26 @@ def phase_kernels(dev, K):
         worst[kid] = max(worst[kid], err)
         rows.append({"kernel": label, "res": list(res), **extra,
                      "max_rel": max(v["rel"] for v in r.values()), "max_abs_err": err})
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def b11b_checks(params, d, res):
+        """B11b at tau 1 and 0.8 and at 30 sweeps and 7 (a remainder pass),
+        with interior magnetic obstacles and a block across a tile edge and
+        a z seam: against its plain version, and its chosen plan against
+        the one-sweep plan bit for bit.  Returns psi at tau 0.8, 30 sweeps."""
+        mfl = poisson_seam_block(d["mflags_block"], sms, params.poisson_iters)
+        psi = None
+        for tau in (1.0, 0.8):
+            for n in (params.poisson_iters, 7):
+                args, kw = (d["h"], mfl, d["rhs"]), dict(tau=tau, n_iters=n)
+                (_, psi_n), r = run_and_compare(K, "B11b", args, kw,
+                                                f"B11b tau={tau} n_iters={n} at {res}")
+                log("B11b", "B11b", res, r, tau=tau, n_iters=n,
+                    against_one_sweep_plan=b11b_plan_against_one_sweep(args, kw, sms))
+                if n == params.poisson_iters:
+                    psi = psi_n
+        return psi
 
     for res, seed in (((34, 66, 130), 1), ((130, 66, 130), 2)):
         params, d = seeded_inputs(res, seed, dev)
@@ -403,11 +474,7 @@ def phase_kernels(dev, K):
                                    f"{kid} tau={p.tau} n_iters={p.poisson_iters} at {res}")
             log(kid, kid, res, r, contact_angle=p.contact_angle, tau=p.tau,
                 n_iters=p.poisson_iters)
-        for tau in (1.0, 0.8):
-            (_, psi), r = run_and_compare(
-                K, "B11b", (d["h"], d["mflags_block"], d["rhs"]),
-                dict(tau=tau, n_iters=params.poisson_iters), f"B11b tau={tau} at {res}")
-            log("B11b", "B11b", res, r, tau=tau, n_iters=params.poisson_iters)
+        psi = b11b_checks(params, d, res)
         for fields in (substitute_obstacles(psi, d["mflags_block"]), d["fields4"]):
             _, r = run_and_compare(K, "B10a", (fields,), dict(dx=params.dx),
                                    f"B10a N={fields.shape[1]} at {res}")
@@ -420,6 +487,10 @@ def phase_kernels(dev, K):
                 _, r = run_and_compare(K, "B10b", (field,), dict(dx=params.dx),
                                        f"B10b at {res}")
                 log("B10b", "B10b", res, r)
+    # two_droplets' grid, which no tile divides
+    params, d = seeded_inputs((50, 50, 193), 6, dev)
+    b11b_checks(params, d, (50, 50, 193))
+    del d
     for res, seed in (((34, 66, 130), 3), ((130, 130, 130), 4)):
         params, d = hcz_seeded_inputs(res, seed, dev)
 
@@ -683,8 +754,11 @@ def phase_channel_main(dev, kernels_pkg, card):
         steps = sk.step
         check(all(launches[kid] > 0 for kid in ids) and launches["B1"] == 0,
               f"{label}: launches {launches}")
-        check(launches["B11b"] == p.poisson_iters * steps and launches["B10a"] == steps,
-              f"{label}: B11b/B10a launches {launches} over {steps} steps")
+        b11b = kernels_pkg.KERNELS["B11b"].module.launches_per_call(p.poisson_iters,
+                                                                    sk.h.shape)
+        check(launches["B11b"] == b11b * steps and launches["B10a"] == steps,
+              f"{label}: B11b/B10a launches {launches} over {steps} steps, expected "
+              f"{b11b} and 1 a step")
         for kid in ids:
             total[kid] += launches[kid]
         out[label] = dict(row, steps=steps, launches={kid: launches[kid] for kid in ids})
@@ -716,7 +790,8 @@ def phase_uncarried_main(dev, kernels_pkg, card):
     check(sk.premac is None and sk.h.shape[1] == 19 and sk.H_ext is not None,
           "un-carried: the state changed form")
     check_launches("un-carried", launches, {
-        "B4": 1, "B11b": params.poisson_iters, "B10a": 1, "B2": K["B2"].module.N_STAGES,
+        "B4": 1, "B11b": K["B11b"].module.launches_per_call(params.poisson_iters, sk.h.shape),
+        "B10a": 1, "B2": K["B2"].module.N_STAGES,
         "B6": K["B6"].module.N_LAUNCHES, "B5": 1}, sk.step)
     ids = kernels_pkg.PATHS["ferrofluid_uncarried"]
     emit({"phase": "uncarried_main_path", "scene": "rosensweig_3d",
@@ -862,9 +937,15 @@ def launch_split(modules, fn, reps):
         for m in modules:
             m.call = _lib.call
     torch.cuda.synchronize()
-    return {name: {"launches_per_call": len(ev) / reps,
-                   "ms_per_call": sum(s.elapsed_time(e) for s, e in ev) / reps}
-            for name, ev in events.items()}
+    res = {}
+    for name, ev in events.items():
+        per = len(ev) // reps
+        res[name] = {"launches_per_call": len(ev) / reps,
+                     "ms_per_call": sum(s.elapsed_time(e) for s, e in ev) / reps}
+        if per > 1:  # the i-th launch of a call, averaged over the calls
+            res[name]["ms_per_launch"] = [
+                sum(s.elapsed_time(e) for s, e in ev[i::per]) / reps for i in range(per)]
+    return res
 
 
 def blocks_per_sm(entry, *ints) -> int:
@@ -947,10 +1028,24 @@ def phase_flagship(dev, K, card):
     return out
 
 
-def phase_channel_flagship(dev, K, card):
+def b11b_plan_report(pl, tau, ptxas=None):
+    """B11b's plan with its shared memory, resident blocks an SM and the
+    pass kernel's ptxas line."""
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
+
+    tau1 = int(1.0 / tau == 1.0)
+    name = f"lbm_poisson_pass_kernel<{tau1},{pl.ty + 2 * pl.k - 2}>"
+    return dict(k=pl.k, tile=[pp.tile_width(pl.k), pl.ty], lz=pl.lz, passes=list(pl.passes),
+                threads=pp.threads(pl.k, pl.ty), smem_bytes=pp.smem_bytes(pl.k, pl.ty),
+                blocks_per_sm=blocks_per_sm("lbm_poisson_pass_occupancy", pl.k, pl.ty, tau1),
+                ptxas={name: (ptxas or {}).get(name)})
+
+
+def phase_channel_flagship(dev, K, card, ptxas=None):
     """bench.py's Rosensweig scene at 256^3 on the channel-form solve
     (``scalar_carry=False``): MLUPS and peak memory over warm steps, then
-    B11b and B10a at the inputs the next step gives them."""
+    B11b and B10a at the inputs the next step gives them, B11b pass by pass
+    with its plan."""
     import torch
 
     from lbm_ferrofluid_tpu_torch.models import SimulationRunner, ferrofluid_step, rosensweig_3d
@@ -965,8 +1060,13 @@ def phase_channel_flagship(dev, K, card):
     check(st.h.shape[1] == 19, "256^3 channel flagship: not the channel form")
     args = (st.h, st.magnetic_flags, st.premac[5])
     kw = dict(tau=params.tau, n_iters=params.poisson_iters)
-    out = {"B11b": measure(K, "B11b", args, kw, params.poisson_iters, params.poisson_iters,
-                           "B11b at 256^3")}
+    pp = K["B11b"].module
+    per_call = pp.launches_per_call(params.poisson_iters, st.h.shape)
+    out = {"B11b": measure(K, "B11b", args, kw, per_call, per_call, "B11b at 256^3")}
+    out["B11b"]["split"] = launch_split([pp], lambda: K["B11b"].wrapper(*args, **kw), reps=10)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out["B11b"]["plan"] = b11b_plan_report(pp.plan(*st.h.shape[2:], params.poisson_iters, sms),
+                                           params.tau, ptxas)
     psi_sub = substitute_obstacles(K["B11b"].wrapper(*args, **kw)[1], st.magnetic_flags)
     out["B10a"] = measure(K, "B10a", (psi_sub,), dict(dx=params.dx), 1, 1, "B10a at 256^3")
     emit({"phase": "channel_flagship", "scene": "rosensweig_3d", "res": [256, 256, 256],
@@ -1150,13 +1250,106 @@ def phase_scalar_plans(dev, card):
         torch.cuda.empty_cache()
 
 
-def run_phases(dev, kernels_pkg, smi) -> list:
+def phase_small_grid(dev, kernels_pkg):
+    """A grid with an axis of 3 cells: the kernel route refuses it on the
+    card and names ``plain=True``; the plain versions step it (one HCZ
+    step, one un-carried ferrofluid step), launching nothing."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import (
+        ferrofluid_step, hcz_step, multiphase_3d, rosensweig_3d,
+    )
+    from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
+
+    res = (3, 8, 16)
+    kernels_pkg.reset_launch_counts()
+    out = {"phase": "small_grid", "res": list(res)}
+    for name, build, step in (("hcz_step", multiphase_3d, hcz_step),
+                              ("ferrofluid_step", rosensweig_3d, ferrofluid_step)):
+        params, st = build(res=res, device=dev)
+        try:
+            step(params, st, device=dev)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "plain=True" in refused,
+              f"{name} on {res}: the kernel route did not refuse the grid ({refused})")
+        nxt = step(params, st, device=dev, plain=True)
+        torch.cuda.synchronize()
+        assert_finite(nxt)
+        out[name] = {"kernel_route": refused, "plain_step_finite": True}
+    check(not any(kernels_pkg.launch_counts().values()),
+          f"small grid: kernels launched {kernels_pkg.launch_counts()}")
+    emit(dict(out, ok=True))
+
+
+def phase_poisson_plans(dev, card):
+    """B11b on the channel-form Rosensweig scene at 256^3 and 130x66x130
+    (three warm steps from the scene, so h is no longer zero) under the
+    plans its pass kernel is built for (k = 1..4, tile heights up to the
+    shared memory limit, z chunk counts from 1 to 32 and the count that fills the
+    card once), each held bit for bit to the plan ``plan`` chooses (the
+    per-cell arithmetic is the same) and timed with CUDA events: the data
+    ``K`` and ``TY`` of ``ops/kernels/poisson.py`` were chosen from.  The
+    chosen plan is also held to the plain version at the phase 3 bars."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac, rosensweig_3d
+    from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
+
+    heights = {1: (8, 12), 2: (8, 12, 16), 3: (5, 7, 9, 11), 4: (3, 5)}
+    for res in ((256, 256, 256), (130, 66, 130)):
+        Z, Y, X = res
+        params, st = rosensweig_3d(res=res, mag_strength=85.0, device=dev)
+        params = params.replace(scalar_carry=False)
+        st = prime_premac(params, st, device=dev)
+        for _ in range(3):
+            st = ferrofluid_step(params, st, device=dev)
+        n = params.poisson_iters
+        args, kw = (st.h, st.magnetic_flags, st.premac[5]), dict(tau=params.tau, n_iters=n)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        chosen = pp.plan(*res, n, sms)
+        want = pp.poisson_sweeps(*args, **kw)
+        against_plain = run_and_compare(kernels_pkg.KERNELS, "B11b", args, kw,
+                                        f"B11b chosen plan at {res}")[1]
+        rows, real = [], pp.plan
+        try:
+            for k, tys in heights.items():
+                for ty in tys:
+                    if pp.smem_bytes(k, ty) > pp.SMEM_BLOCK_MAX:
+                        continue
+                    tiles = -(-X // pp.tile_width(k)) * -(-Y // ty)
+                    fill = max(1, sms // tiles)
+                    for chunks in sorted({1, 2, 4, 8, 12, 16, 24, 32, fill} & set(range(1, Z + 1))):
+                        pl = pp.PoissonPlan(k, ty, -(-Z // chunks), pp.passes(n, k))
+                        pp.plan = lambda *a, pl=pl, **_: pl
+                        got = pp.poisson_sweeps(*args, **kw)
+                        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                              f"B11b under plan {pl} differs from the chosen plan {chosen}")
+                        rows.append(dict(k=k, ty=ty, lz=pl.lz, smem_bytes=pp.smem_bytes(k, ty),
+                                         blocks_per_sm=blocks_per_sm(
+                                             "lbm_poisson_pass_occupancy", k, ty, 1),
+                                         ms=time_cuda(lambda: pp.poisson_sweeps(*args, **kw), 5)))
+        finally:
+            pp.plan = real
+        emit({"phase": "poisson_plans", "res": list(res), "n_iters": n, "card": card,
+              "chosen": dict(k=chosen.k, ty=chosen.ty, lz=chosen.lz,
+                             ms=time_cuda(lambda: pp.poisson_sweeps(*args, **kw), 5)),
+              "chosen_against_plain": against_plain,
+              "best": min(rows, key=lambda r: r["ms"]), "plans": rows, "ok": True})
+        del st, args, want
+        torch.cuda.empty_cache()
+
+
+def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     """Phases 3-6; returns one row per kernel for the ``kernels`` line.
     ``launches`` sums the kernel's launches over the main paths of phase 5
     that run it (B2, B3 and B4 over both ferrofluid solves)."""
     K = kernels_pkg.KERNELS
     worst = phase_kernels(dev, K)
     phase_golden(dev)
+    phase_small_grid(dev, kernels_pkg)
     per_path = [phase_main(dev, kernels_pkg, smi), phase_hcz_main(dev, kernels_pkg, smi),
                 phase_two_droplets(dev, kernels_pkg, smi),
                 phase_channel_main(dev, kernels_pkg, smi),
@@ -1165,7 +1358,7 @@ def run_phases(dev, kernels_pkg, smi) -> list:
                 phase_stencils_main(dev, kernels_pkg, smi)]
     launches = {kid: sum(p.get(kid, 0) for p in per_path) for kid in K}
     flag = phase_flagship(dev, K, smi)
-    flag.update(phase_channel_flagship(dev, K, smi))
+    flag.update(phase_channel_flagship(dev, K, smi, ptxas))
     epi = phase_epilogue_flagship(dev, K, smi)
     flag["B5"] = dict(epi["B5"], max_abs_err=max(v["max_abs_err"] for v in epi.values()))
     hcz_flag = phase_hcz_flagship(dev, K, smi)
@@ -1208,8 +1401,11 @@ def main() -> int:
     if "--scalar-plans" in sys.argv[1:]:
         phase_scalar_plans(dev, smi)
         print(smi, flush=True)
+    elif "--poisson-plans" in sys.argv[1:]:
+        phase_poisson_plans(dev, smi)
+        print(smi, flush=True)
     else:
-        rows = run_phases(dev, kernels_pkg, smi)
+        rows = run_phases(dev, kernels_pkg, smi, ptxas)
         print(smi, flush=True)
         emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,6 +44,12 @@ __device__ __forceinline__ long long lbm_index(int z, int y, int x, int Y, int X
   return (static_cast<long long>(z) * Y + y) * X + x;
 }
 
+// a mod n in [0, n), for the periodic wrap of an index that may be negative
+__device__ __forceinline__ int lbm_mod(int a, int n) {
+  const int r = a % n;
+  return r < 0 ? r + n : r;
+}
+
 // float32-rounded D3Q19 weight of channel q (1/3, 1/18 on the axes, 1/36
 // on the diagonals), as lat.w_bcast cast to float32.
 __device__ __forceinline__ float lbm_weight(int q) {
@@ -306,6 +312,39 @@ __device__ __forceinline__ void lbm_pull_at(const float* __restrict__ d, long lo
   }
 #pragma unroll
   for (int q = 0; q < 19; ++q) post[q] = obs ? s[opp[q]] : s[q];
+}
+
+// ---- channel-form Poisson sweep (ops/pallas/poisson.py:_sweep_math :69) ----
+// One sweep at a cell from its 19 pulled, pre-bounce values s: psi =
+// f32(1/(1 - w0)) (s_1 + ... + s_18), summed in ascending q; then at an
+// obstacle out_q = s_opp(q); elsewhere t = psi/tau (psi at tau == 1), u =
+// t + rhs and out_q = (1 - 1/tau) s_q + w_q u (w_q u at tau == 1), minus t
+// at q = 0.  Every product and sum is rounded on its own, in the plain
+// version's order (the __f*_rn intrinsics keep nvcc from contracting them
+// into FMAs), so any schedule of the sweeps gives poisson_sweeps_plain's
+// outputs bit for bit.  Returns psi.
+template <bool TAU1>
+__device__ __forceinline__ float lbm_poisson_cell(const float s[19], bool obstacle, float rhs,
+                                                  float inv_tau, float a, float out[19]) {
+  float psum = s[1];
+#pragma unroll
+  for (int q = 2; q < 19; ++q) psum = __fadd_rn(psum, s[q]);
+  const float psi = __fmul_rn(psum, static_cast<float>(1.0 / (1.0 - 1.0 / 3.0)));
+  if (obstacle) {
+    const int opp[19] = LBM_D3Q19_OPP;
+#pragma unroll
+    for (int q = 0; q < 19; ++q) out[q] = s[opp[q]];
+    return psi;
+  }
+  const float t = TAU1 ? psi : __fmul_rn(psi, inv_tau);
+  const float u = __fadd_rn(t, rhs);
+#pragma unroll
+  for (int q = 0; q < 19; ++q) {
+    const float wu = __fmul_rn(lbm_weight(q), u);
+    const float c = TAU1 ? wu : __fadd_rn(__fmul_rn(a, s[q]), wu);
+    out[q] = q == 0 ? __fsub_rn(c, t) : c;
+  }
+  return psi;
 }
 
 // ---- HCZ LBGK collide (ops/collide.py:hcz_collide) ------------------------

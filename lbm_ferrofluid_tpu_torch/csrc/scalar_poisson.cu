@@ -66,11 +66,6 @@
 // cells of an extended plane a thread loads
 #define SP_LOADS (SP_EX * SP_MAX_EY / SP_THREADS)
 
-__device__ __forceinline__ int lbm_mod(int a, int n) {
-  const int r = a % n;
-  return r < 0 ? r + n : r;
-}
-
 // 4-byte copy from device to shared memory that bypasses registers.  A
 // thread's copies issued since its last lbm_cp_async_commit form a group;
 // lbm_cp_async_wait_prior waits for all its groups but the newest.

@@ -58,7 +58,7 @@ from ..ops.scalar_poisson import make_cmask, s_prev_from_h, scalar_from_h
 from ..ops.stencils import staggered
 from ..utils.device import check_device, resolve_device
 from ..utils.types import CellType
-from .multiphase import check_supported, storage_dtype
+from .multiphase import check_kernel_grid, check_supported, storage_dtype
 from .params import SimulationParams
 from .state import FerrofluidState
 
@@ -225,6 +225,7 @@ def ferrofluid_step(params: SimulationParams, state: FerrofluidState, *,
     versions (on any device) instead of the kernels."""
     check_device(state.f, device)
     _check_supported(params, state)
+    check_kernel_grid(state.f, plain)
     gas = dict(rho_gas=float(params.rho_gas), rho_fluid=float(params.rho_fluid),
                density_gas=float(params.density_gas),
                density_fluid=float(params.density_fluid))

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.equilibrium import feq, geq
+from ..ops.kernels import KERNELS
 from ..ops.kernels.capmac import hcz_capillary_gradmac, hcz_capillary_gradmac_plain
 from ..ops.kernels.contact3d import contact_angle_3d, contact_angle_3d_plain
 from ..ops.kernels.hcz3d import hcz_collide_fused, hcz_collide_fused_plain
@@ -76,8 +77,22 @@ def check_supported(params: SimulationParams, f: torch.Tensor) -> None:
         raise NotImplementedError(
             "batched states are not ported yet (data-parallel dispatch, ROADMAP A12)"
         )
-    if min(f.shape[2:]) < 4:
-        raise ValueError(f"grid {tuple(f.shape[2:])}: every axis needs >= 4 cells")
+
+
+def check_kernel_grid(f: torch.Tensor, plain: bool) -> None:
+    """Raise on the card without ``plain=True`` where the grid has an axis
+    shorter than a kernel wrapper's ``min_axis`` (B2's needs 4, and every
+    step runs B2), before any kernel launches.  The plain versions (the
+    CPU, or ``plain=True``) step any grid the JAX step steps (the JAX
+    package gates only its kernels and steps smaller grids through jnp)."""
+    if plain or f.device.type != "cuda":
+        return
+    grid = tuple(f.shape[2:])
+    short = [f"{kid} {k.wrapper.__name__} (>= {k.wrapper.min_axis})"
+             for kid, k in KERNELS.items() if min(grid) < getattr(k.wrapper, "min_axis", 1)]
+    if short:
+        raise ValueError(f"grid {grid}: the kernels {', '.join(short)} need more cells an "
+                         "axis; pass plain=True to step this grid on the plain versions")
 
 
 def init_hcz_state(params: SimulationParams, rho, density, vel, flags,
@@ -118,6 +133,7 @@ def hcz_step(params: SimulationParams, state: HCZState, *, device=None,
     versions (on any device) instead of the kernels."""
     check_device(state.f, device)
     check_supported(params, state.f)
+    check_kernel_grid(state.f, plain)
     dx, dt = float(params.dx), float(params.dt)
     gas = dict(rho_gas=float(params.rho_gas), rho_fluid=float(params.rho_fluid),
                density_gas=float(params.density_gas),

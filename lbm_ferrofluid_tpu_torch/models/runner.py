@@ -56,34 +56,55 @@ class SimulationRunner:
             return prime_premac(self.params, state, device=self.device)
         return state
 
-    def run(self, state, n_steps: int, *, check_every: int = 0):
-        """Advance ``n_steps``; with ``check_every`` > 0, check every that
-        many steps that the fields are finite (the exponential feq can pole
-        at |u| -> c)."""
+    def run(self, state, n_steps: int, *, io_interval: int = 0, io_fn=None,
+            nan_guard: bool = False, check_every: int = 0):
+        """Advance ``n_steps``.  With ``io_interval`` > 0, call ``io_fn(state)``
+        every ``io_interval`` steps and after the last step, and with
+        ``nan_guard`` check at those points that the fields are finite
+        (:func:`assert_finite`; the exponential feq can pole at |u| -> c),
+        as the JAX runner does (runner.py:83-103).  ``check_every`` > 0
+        checks every that many steps, whatever ``io_interval`` is."""
         state = self.prepare(state)
+        io = io_interval > 0 and (io_fn is not None or nan_guard)
         for done in range(1, n_steps + 1):
             state = self.step(state)
             if check_every and done % check_every == 0:
                 assert_finite(state)
+            if io and (done % io_interval == 0 or done == n_steps):
+                if nan_guard:
+                    assert_finite(state)
+                if io_fn is not None:
+                    io_fn(state)
         return state
 
-    def benchmark(self, state, *, n_steps: int = 50, warmup: int = 5):
+    def benchmark(self, state, *, n_steps: int = 50, warmup: int = 5, repeats: int = 1):
         """Wall-clock MLUPS (million lattice-site updates per second) over
-        ``n_steps`` steps after ``warmup`` untimed steps."""
+        ``n_steps`` steps, after ``warmup`` untimed steps (none at
+        ``warmup=0``: the JAX runner always runs one untimed chunk, since
+        it must compile it; eager steps need no compile).  The timed steps
+        run ``repeats`` times, each ending in ``torch.cuda.synchronize()``
+        on the card; ``mlups`` and ``seconds`` are the medians, with
+        ``mlups_best`` and every repeat's ``seconds_all`` (the JAX
+        runner's keys, :106-144)."""
         state = self.prepare(state)
         for _ in range(warmup):
             state = self.step(state)
         self._sync()
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            state = self.step(state)
-        self._sync()
-        seconds = time.perf_counter() - t0
+        times = []
+        for _ in range(max(1, repeats)):
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                state = self.step(state)
+            self._sync()
+            times.append(time.perf_counter() - t0)
+        seconds = float(np.median(times))
         res = tuple(state.rho.shape[2:])
         sites = state.rho.shape[0] * int(np.prod(res))
         return state, {
             "mlups": sites * n_steps / seconds / 1e6,
+            "mlups_best": sites * n_steps / min(times) / 1e6,
             "seconds": seconds,
+            "seconds_all": times,
             "steps": n_steps,
             "sites": sites,
             "res": res,

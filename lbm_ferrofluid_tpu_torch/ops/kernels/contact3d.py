@@ -60,8 +60,8 @@ def contact_angle_3d(rho, flags, contact_angle):
     B, C, Z, Y, X = rho.shape
     check_cuda("rho", rho, torch.float32, (1, 1, Z, Y, X))
     check_cuda("flags", flags, torch.uint8, (1, 1, Z, Y, X))
-    if min(Z, Y, X) < 4:
-        raise ValueError("contact_angle_3d needs Z, Y, X >= 4")
+    if min(Z, Y, X) < contact_angle_3d.min_axis:
+        raise ValueError(f"contact_angle_3d needs Z, Y, X >= {contact_angle_3d.min_axis}")
     out = torch.empty_like(rho)
     t = ctypes.c_double(math.tan(math.pi / 2.0 - float(contact_angle)))
     st = stream_of(rho)
@@ -74,3 +74,5 @@ def contact_angle_3d(rho, flags, contact_angle):
 
 
 contact_angle_3d.launches = 0
+#: cells an axis needs at least (below that, a stage reads cells it writes)
+contact_angle_3d.min_axis = 4

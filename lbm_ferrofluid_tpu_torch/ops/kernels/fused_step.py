@@ -167,8 +167,9 @@ def lbm_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, *
     for name, t in (("vel", vel), ("force", force), ("dfai", dfai), ("dprho", dprho)):
         check_cuda(name, t, torch.float32, (1, 3, Z, Y, X))
     check_cuda("flags", flags, torch.uint8, (1, 1, Z, Y, X))
-    if min(Z, Y, X) < 4 or (emit_mac and mac_consts is None):
-        raise ValueError("lbm_epilogue needs Z, Y, X >= 4, and mac_consts with emit_mac")
+    if min(Z, Y, X) < lbm_epilogue.min_axis or (emit_mac and mac_consts is None):
+        raise ValueError(f"lbm_epilogue needs Z, Y, X >= {lbm_epilogue.min_axis}, and "
+                         "mac_consts with emit_mac")
     f_out, g_out = torch.empty_like(f), torch.empty_like(g)
     call("lbm_epilogue", ptr(f), ptr(g), ptr(flags), ptr(rho), ptr(vel), ptr(density),
          ptr(pressure), ptr(force), ptr(dfai), ptr(dprho), ptr(f_out), ptr(g_out),
@@ -183,3 +184,5 @@ def lbm_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, *
 
 
 lbm_epilogue.launches = 0
+#: cells an axis needs at least (the kernel's boundary ring)
+lbm_epilogue.min_axis = 4

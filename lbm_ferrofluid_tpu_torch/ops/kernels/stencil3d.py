@@ -73,8 +73,9 @@ def grad_fields(fields, *, dx=1.0):
         return grad_fields_plain(fields, dx=dx)
     B, n_fields, Z, Y, X = fields.shape
     check_cuda("fields", fields, torch.float32, (1, n_fields, Z, Y, X))
-    if min(Z, Y, X) < 4 or n_fields < 1:
-        raise ValueError("grad_fields needs Z, Y, X >= 4 and at least one field")
+    if min(Z, Y, X) < grad_fields.min_axis or n_fields < 1:
+        raise ValueError(f"grad_fields needs Z, Y, X >= {grad_fields.min_axis} and at least "
+                         "one field")
     out = torch.empty((1, 3 * n_fields, Z, Y, X), dtype=torch.float32, device=fields.device)
     call("lbm_grad_fields", ptr(fields), ptr(out), ctypes.c_int(n_fields), ctypes.c_int(Z),
          ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_double(dx), stream_of(fields))
@@ -83,6 +84,8 @@ def grad_fields(fields, *, dx=1.0):
 
 
 grad_fields.launches = 0
+#: cells an axis needs at least (the ring copies from the interior)
+grad_fields.min_axis = 4
 
 
 def cost_laplacian(field, **_) -> tuple[int, int]:
@@ -106,8 +109,8 @@ def laplacian_field(field, *, dx=1.0):
         return laplacian_field_plain(field, dx=dx)
     B, C, Z, Y, X = field.shape
     check_cuda("field", field, torch.float32, (1, 1, Z, Y, X))
-    if min(Z, Y, X) < 4:
-        raise ValueError("laplacian_field needs Z, Y, X >= 4")
+    if min(Z, Y, X) < laplacian_field.min_axis:
+        raise ValueError(f"laplacian_field needs Z, Y, X >= {laplacian_field.min_axis}")
     out = torch.empty_like(field)
     call("lbm_laplacian_field", ptr(field), ptr(out), ctypes.c_int(Z), ctypes.c_int(Y),
          ctypes.c_int(X), ctypes.c_double(dx), stream_of(field))
@@ -116,6 +119,8 @@ def laplacian_field(field, *, dx=1.0):
 
 
 laplacian_field.launches = 0
+#: cells an axis needs at least (the kernel's boundary ring)
+laplacian_field.min_axis = 4
 
 
 def hcz_capillary_stencils(
