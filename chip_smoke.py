@@ -6,6 +6,7 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
     python3 chip_smoke.py
     python3 chip_smoke.py --scalar-plans   # only B1's plan sweep (256^3, 130x66x130)
     python3 chip_smoke.py --poisson-plans  # only B11b's plan sweep (256^3, 130x66x130)
+    python3 chip_smoke.py --capillary-plans  # only B6's plan sweep (256^3, 130^3)
 
 Phases, each printing one JSON line; any failed check exits non-zero:
 
@@ -26,7 +27,8 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    stream + bounce, B2 at 0.75 pi, B6 capillary stage with and without H2,
    B9 collide, each fed with what the kernels before it produced, then the
    capillary stage's stencil route B10b + B10a against its plain version
-   and against B6) at 34x66x130 and 130^3.  Bar rel <= 5e-5 per field
+   and against B6), with an obstacle block across B6's first tile edge and
+   z strip seam, at 34x66x130, 130^3 and 50x50x193.  Bar rel <= 5e-5 per field
    (max|a-b| / max|b|), velocities also pass at abs <= 5e-6
    (docs/PARITY.md:78-93: FMA contraction and reassociation);
 4. golden: ``tests/golden/ferro3d.npz`` (8 steps; the capillogue steady
@@ -41,7 +43,8 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    - Rosensweig at the demo's native 130x66x130, primed and stepped 30
      times with the kernels against 30 plain steps on the card (phase 3's
      bars), then 200 more kernel steps (timed, MLUPS), fields finite, drift
-     of sum(rho) over fluid cells, exact launch counts;
+     of sum(rho) over fluid cells; every path below checks its exact launch
+     counts a step too (B2 and B6 one launch a call);
    - HCZ ``multiphase_3d`` at 130^3 the same way (30 against 30, 200 timed),
      then ``droplet_spread_3d`` at 130^3 (30 against 30);
    - ``two_droplets_3d`` at 50x50x193 on the ferrofluid path (30 against 30);
@@ -66,7 +69,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    bound, and kernel-vs-plain errors at that size; B3's four launches,
    B1's pass launches apart from its H2 launch and B11b's passes are timed
    one by one, with B1's and B11b's plans and the resident blocks an SM of
-   B1's pass, B11b's pass and B3's collide.
+   B1's pass, B11b's pass and B3's collide; B2 and B6 are timed launch by
+   launch, B6 also with H2, with its plan, resident blocks and ptxas line,
+   and B2, B6 and the stencil route are held to their plain versions again
+   with B6's seam block.
 
 The build phase reports each kernel's registers, static shared memory and
 spills as ptxas gives them.
@@ -277,6 +283,19 @@ def b11b_plan_against_one_sweep(args, kw, sms):
             "bit_for_bit": True}
 
 
+def b2_cells_differing(got, want):
+    """Cells where B2 and its plain version differ, and how many of them
+    are not among the 8 corners (where PyTorch's CUDA division by a Python
+    scalar multiplies by its reciprocal, and the kernel divides)."""
+    import torch
+
+    differ = got[0, 0] != want[0, 0]
+    n = int(differ.sum())
+    differ[::differ.shape[0] - 1, ::differ.shape[1] - 1, ::differ.shape[2] - 1] = False
+    torch.cuda.synchronize()
+    return {"cells_differing": n, "outside_the_corners": int(differ.sum())}
+
+
 def kernel_calls(params, d):
     """Per kernel id: (wrapper args, kwargs) at the inputs ``d``, which hold
     the capillogue's ``rho_ca`` and ``H2`` once B2 and B1 have run."""
@@ -329,11 +348,26 @@ def run_and_compare(K, kid, args, kw, what):
     return got, compare(what, OUTPUTS[kid][:len(flat(got))], got, want)
 
 
+def capillary_seam_block(flags):
+    """``flags`` with an obstacle block across B6's first tile edge in x
+    and in y and its first z strip seam, under the plan it takes on this
+    grid (where the grid has them)."""
+    from lbm_ferrofluid_tpu_torch.ops.kernels import capmac
+
+    import torch
+
+    Z, Y, X = flags.shape[2:]
+    pl = capmac.plan(Z, Y, X, torch.cuda.get_device_properties(0).multi_processor_count)
+    out = flags.clone()
+    out[..., max(pl.zb - 1, 1):pl.zb + 1, pl.ty - 1:pl.ty + 1, pl.tx - 1:pl.tx + 1] = 2
+    return out
+
+
 def hcz_seeded_inputs(res, seed, dev):
     """HCZ inputs on the card from a numpy seed: the ``multiphase_3d``
-    scene's macros with small perturbations and an interior obstacle
-    block, f = feq and g = geq with 0.1 % noise per channel, and an H2 for
-    B6's Kelvin variant."""
+    scene's macros with small perturbations, an interior obstacle block and
+    one across B6's first tile edge and z strip seam, f = feq and g = geq
+    with 0.1 % noise per channel, and an H2 for B6's Kelvin variant."""
     import torch
 
     from lbm_ferrofluid_tpu_torch.models import multiphase_3d
@@ -347,7 +381,7 @@ def hcz_seeded_inputs(res, seed, dev):
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    flags = st.flags.clone()
+    flags = capillary_seam_block(st.flags)
     flags[..., Z // 2, Y // 2, 2:4] = 2  # an interior obstacle block
     fluid = (flags != 2).float()
     rho = st.rho + t(1e-3 * rng.uniform(-1, 1, (1, 1, *res)))
@@ -470,10 +504,11 @@ def phase_kernels(dev, K):
                   ("B3", params), ("B3", params.replace(tau=0.8))]
         for kid, p in checks:
             args, kw = kernel_calls(p, d)[kid]
-            _, r = run_and_compare(K, kid, args, kw,
-                                   f"{kid} tau={p.tau} n_iters={p.poisson_iters} at {res}")
+            got, r = run_and_compare(K, kid, args, kw,
+                                     f"{kid} tau={p.tau} n_iters={p.poisson_iters} at {res}")
+            extra = b2_cells_differing(got, K[kid].plain(*args, **kw)) if kid == "B2" else {}
             log(kid, kid, res, r, contact_angle=p.contact_angle, tau=p.tau,
-                n_iters=p.poisson_iters)
+                n_iters=p.poisson_iters, **extra)
         psi = b11b_checks(params, d, res)
         for fields in (substitute_obstacles(psi, d["mflags_block"]), d["fields4"]):
             _, r = run_and_compare(K, "B10a", (fields,), dict(dx=params.dx),
@@ -491,12 +526,13 @@ def phase_kernels(dev, K):
     params, d = seeded_inputs((50, 50, 193), 6, dev)
     b11b_checks(params, d, (50, 50, 193))
     del d
-    for res, seed in (((34, 66, 130), 3), ((130, 130, 130), 4)):
+    for res, seed in (((34, 66, 130), 3), ((130, 130, 130), 4), ((50, 50, 193), 7)):
         params, d = hcz_seeded_inputs(res, seed, dev)
 
         def record(label, kid, args, kw):
             got, r = run_and_compare(K, kid, args, kw, f"{label} at {res}")
-            log(kid, label, res, r, contact_angle=params.contact_angle)
+            extra = b2_cells_differing(got, K[kid].plain(*args, **kw)) if kid == "B2" else {}
+            log(kid, label, res, r, contact_angle=params.contact_angle, **extra)
             return got
 
         ctx = hcz_chain(K, params, d, record)
@@ -647,7 +683,7 @@ def phase_main(dev, kernels_pkg, card):
     K = kernels_pkg.KERNELS
     check_launches("main path", launches, {
         "B1": K["B1"].module.launches_per_call(params.poisson_iters, sk.rho.shape),
-        "B2": K["B2"].module.N_STAGES, "B3": K["B3"].module.N_LAUNCHES}, sk.step,
+        "B2": K["B2"].module.N_LAUNCHES, "B3": K["B3"].module.N_LAUNCHES}, sk.step,
         extra={"B4": 1})
     emit({"phase": "main_path", "scene": "rosensweig_3d", "res": list(sk.rho.shape[2:]),
           "steps": sk.step, "kernel_vs_plain_after_30_steps": rows, "finite": True,
@@ -675,14 +711,18 @@ def phase_hcz_main(dev, kernels_pkg, card):
     sk, stats = runner.benchmark(sk, n_steps=200, warmup=0)
     assert_finite(sk)
     mass230 = fluid_mass(sk)
-    res = list(sk.rho.shape[2:])
+    res, steps = list(sk.rho.shape[2:]), sk.step
     del sk, s0
     params2, s2 = droplet_spread_3d(device=dev)
     sk2, rows2 = kernel_vs_plain(params2, s2, hcz_step, dev, 30, "droplet spread",
                                  HCZ_FIELDS)
     assert_finite(sk2)
-    launches = kernels_pkg.launch_counts(ids)
-    check(all(v > 0 for v in launches.values()), f"an HCZ kernel never launched: {launches}")
+    launches = kernels_pkg.launch_counts()
+    K = kernels_pkg.KERNELS
+    check_launches("hcz main path", launches, {
+        "B8b": 1, "B8a": 1, "B2": K["B2"].module.N_LAUNCHES, "B6": K["B6"].module.N_LAUNCHES,
+        "B9": 1}, steps + sk2.step)
+    launches = {kid: launches[kid] for kid in ids}
     emit({"phase": "hcz_main_path", "scene": "multiphase_3d", "res": res,
           "kernel_vs_plain_after_30_steps": rows, "finite": True,
           "sum_rho_fluid": {"step0": mass0, "step30": mass30, "step230": mass230,
@@ -706,8 +746,13 @@ def phase_two_droplets(dev, kernels_pkg, card):
     sk, rows = kernel_vs_plain(params, s0, ferrofluid_step, dev, 30, "two droplets",
                                FERRO_FIELDS, primed(params, dev))
     assert_finite(sk)
-    launches = kernels_pkg.launch_counts(ids)
-    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    launches = kernels_pkg.launch_counts()
+    K = kernels_pkg.KERNELS
+    check_launches("two droplets", launches, {
+        "B1": K["B1"].module.launches_per_call(params.poisson_iters, sk.rho.shape),
+        "B2": K["B2"].module.N_LAUNCHES, "B3": K["B3"].module.N_LAUNCHES}, sk.step,
+        extra={"B4": 1})
+    launches = {kid: launches[kid] for kid in ids}
     emit({"phase": "two_droplets", "scene": "two_droplets_3d", "res": list(sk.rho.shape[2:]),
           "kernel_vs_plain_after_30_steps": rows, "finite": True, "card": card,
           "launches": launches, "ok": True})
@@ -752,13 +797,11 @@ def phase_channel_main(dev, kernels_pkg, card):
         assert_finite(sk)
         launches = kernels_pkg.launch_counts()
         steps = sk.step
-        check(all(launches[kid] > 0 for kid in ids) and launches["B1"] == 0,
-              f"{label}: launches {launches}")
-        b11b = kernels_pkg.KERNELS["B11b"].module.launches_per_call(p.poisson_iters,
-                                                                    sk.h.shape)
-        check(launches["B11b"] == b11b * steps and launches["B10a"] == steps,
-              f"{label}: B11b/B10a launches {launches} over {steps} steps, expected "
-              f"{b11b} and 1 a step")
+        K = kernels_pkg.KERNELS
+        check_launches(f"channel {label}", launches, {
+            "B11b": K["B11b"].module.launches_per_call(p.poisson_iters, sk.h.shape),
+            "B10a": 1, "B2": K["B2"].module.N_LAUNCHES, "B3": K["B3"].module.N_LAUNCHES},
+            steps, extra={"B4": 1})
         for kid in ids:
             total[kid] += launches[kid]
         out[label] = dict(row, steps=steps, launches={kid: launches[kid] for kid in ids})
@@ -791,7 +834,7 @@ def phase_uncarried_main(dev, kernels_pkg, card):
           "un-carried: the state changed form")
     check_launches("un-carried", launches, {
         "B4": 1, "B11b": K["B11b"].module.launches_per_call(params.poisson_iters, sk.h.shape),
-        "B10a": 1, "B2": K["B2"].module.N_STAGES,
+        "B10a": 1, "B2": K["B2"].module.N_LAUNCHES,
         "B6": K["B6"].module.N_LAUNCHES, "B5": 1}, sk.step)
     ids = kernels_pkg.PATHS["ferrofluid_uncarried"]
     emit({"phase": "uncarried_main_path", "scene": "rosensweig_3d",
@@ -820,7 +863,7 @@ def phase_epilogue_main(dev, kernels_pkg, card):
     check(len(sk.premac) == 5 and sk.h.shape[1] == 2, "epilogue: the state changed form")
     check_launches("epilogue steady state", launches, {
         "B1": K["B1"].module.launches_per_call(params.poisson_iters, s0.rho.shape),
-        "B2": K["B2"].module.N_STAGES,
+        "B2": K["B2"].module.N_LAUNCHES,
         "B6": K["B6"].module.N_LAUNCHES, "B5": 2}, sk.step, extra={"B4": 1})
     s6 = primed(params, dev)(s0, False)
     for _ in range(30):
@@ -884,7 +927,7 @@ def phase_stencils_main(dev, kernels_pkg, card):
     assert_finite(sk)
     launches = kernels_pkg.launch_counts()
     check_launches("stencil route", launches, {
-        "B8b": 1, "B8a": 1, "B2": K["B2"].module.N_STAGES, "B10b": 1, "B10a": 1, "B9": 1},
+        "B8b": 1, "B8a": 1, "B2": K["B2"].module.N_LAUNCHES, "B10b": 1, "B10a": 1, "B9": 1},
         sk.step)
     ids = kernels_pkg.PATHS["capillary_stencils"]
     emit({"phase": "stencils_main_path", "scene": "multiphase_3d",
@@ -1004,7 +1047,7 @@ def phase_flagship(dev, K, card):
     calls = kernel_calls(params, d)
     sp = K["B1"].module
     per_call = {"B1": sp.launches_per_call(params.poisson_iters, st.rho.shape),
-                "B2": K["B2"].module.N_STAGES, "B3": K["B3"].module.N_LAUNCHES, "B4": 1}
+                "B2": K["B2"].module.N_LAUNCHES, "B3": K["B3"].module.N_LAUNCHES, "B4": 1}
     # the prologue runs once, at priming; the other three every step
     per_step = dict(per_call, B4=0)
     out = {kid: measure(K, kid, *calls[kid], per_call[kid], per_step[kid], f"{kid} at 256^3")
@@ -1145,14 +1188,26 @@ def phase_epilogue_flagship(dev, K, card):
     return per_kernel
 
 
-def phase_hcz_flagship(dev, K, card):
+def b6_plan_report(pl, ptxas=None):
+    """B6's plan with the resident blocks an SM and the ptxas line of its
+    kernel without and with H2."""
+    return dict(tile=[pl.tx, pl.ty], zb=pl.zb, **{
+        f"h2={h2}": dict(
+            blocks_per_sm=blocks_per_sm("lbm_capmac_occupancy", pl.tx, pl.ty, h2),
+            ptxas=(ptxas or {}).get(f"lbm_capmac_kernel<{pl.tx},{pl.ty},{h2}>"))
+        for h2 in (0, 1)})
+
+
+def phase_hcz_flagship(dev, K, card, ptxas=None):
     """``multiphase_3d`` at 256^3: MLUPS and peak memory over warm steps,
-    then each HCZ kernel at the inputs the next step gives it, and the
-    capillary stage's stencil route (B10b, B10a) on the same inputs."""
+    then each HCZ kernel at the inputs the next step gives it (B2 and B6
+    launch by launch, B6 with its plan), the capillary stage's stencil
+    route (B10b, B10a) on the same inputs, and B2, B6 and the stencil route
+    again with an obstacle block across B6's first tile edge and z seam."""
     import torch
 
     from lbm_ferrofluid_tpu_torch.models import SimulationRunner, hcz_step, multiphase_3d
-    from lbm_ferrofluid_tpu_torch.ops.kernels import hcz_capillary_stencils
+    from lbm_ferrofluid_tpu_torch.ops.kernels import capmac, contact3d, hcz_capillary_stencils
     from lbm_ferrofluid_tpu_torch.ops.moments import rho_to_density
 
     params, st = multiphase_3d(res=(256, 256, 256), device=dev)
@@ -1164,11 +1219,12 @@ def phase_hcz_flagship(dev, K, card):
     h2 = 1e4 * (1 + 0.1 * rng.uniform(-1, 1, tuple(st.rho.shape)).astype(np.float32))
     d = dict(flags=st.flags, f=st.f, g=st.g, rho_old=st.rho, vel_old=st.vel,
              pres=st.pressure, H2=torch.as_tensor(h2, device=dev))
-    per_call = {"B8b": 1, "B8a": 1, "B2": K["B2"].module.N_STAGES,
+    per_call = {"B8b": 1, "B8a": 1, "B2": K["B2"].module.N_LAUNCHES,
                 "B6": K["B6"].module.N_LAUNCHES, "B9": 1}
-    out, errs = {}, {}
+    out, errs, calls = {}, {}, {}
 
     def record(label, kid, args, kw):
+        calls[label] = (args, kw)
         if label != kid:  # B6 with H2: errors only, the step runs without it
             got, r = run_and_compare(K, kid, args, kw, f"{label} at 256^3")
             errs[label] = max(v["max_abs_err"] for v in r.values())
@@ -1178,6 +1234,13 @@ def phase_hcz_flagship(dev, K, card):
         return K[kid].wrapper(*args, **kw)
 
     ctx = hcz_chain(K, params, d, record)
+    for kid, mod in (("B2", contact3d), ("B6", capmac)):
+        out[kid]["split"] = launch_split(
+            [mod], lambda kid=kid: K[kid].wrapper(*calls[kid][0], **calls[kid][1]), reps=10)
+    args, kw = calls["B6 with H2"]
+    out["B6"]["ms_with_h2"] = time_cuda(lambda: K["B6"].wrapper(*args, **kw), reps=10)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out["B6"]["plan"] = b6_plan_report(capmac.plan(256, 256, 256, sms), ptxas)
     # the stencil route on the same inputs: B10b alone, then the route
     # against its plain version and against B6's outputs, and its time
     den_ca = rho_to_density(ctx["rho_ca"], rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
@@ -1192,13 +1255,93 @@ def phase_hcz_flagship(dev, K, card):
         g=ctx["g_post"], kappa=params.kappa, gravity=gravity.reshape(1, 3, 1, 1, 1),
         dx=params.dx, dt=params.dt, rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
         density_gas=params.density_gas, density_fluid=params.density_fluid), reps=10)
+    del ctx, calls, args, kw
+    torch.cuda.empty_cache()
+    # errors only: the chain and the stencil route with B6's seam block
+    seam = {}
+
+    def seam_record(label, kid, args, kw):
+        got, r = run_and_compare(K, kid, args, kw, f"{label} at 256^3 with the seam block")
+        seam[label] = max(v["max_abs_err"] for v in r.values())
+        return got
+
+    ds = dict(d, flags=capillary_seam_block(d["flags"]))
+    ctx = hcz_chain(K, params, ds, seam_record)
+    route_seam = stencil_route_rows(params, ds, ctx, "at 256^3 with the seam block")
+    seam["stencil route"] = max(v["max_abs_err"] for r in route_seam.values()
+                                for rr in r.values() for v in rr.values())
     emit({"phase": "hcz_flagship", "scene": "multiphase_3d", "res": [256, 256, 256],
           "mlups": stats["mlups"], "seconds_30_steps": stats["seconds"],
           "peak_mem_gb": peak / 1e9, "card": card, "per_kernel": out,
           "stencil_route": {"ms_moments_from_g": route_ms, "checks": route},
-          "other_checks_max_abs_err": errs, "ok": True})
-    out["B6"]["max_abs_err"] = max(out["B6"]["max_abs_err"], errs["B6 with H2"])
+          "other_checks_max_abs_err": errs, "seam_block_max_abs_err": seam, "ok": True})
+    out["B6"]["max_abs_err"] = max(out["B6"]["max_abs_err"], errs["B6 with H2"], seam["B6"],
+                                   seam["B6 with H2"])
+    out["B2"]["max_abs_err"] = max(out["B2"]["max_abs_err"], seam["B2"])
     return out
+
+
+def phase_capillary_plans(dev, card, ptxas=None):
+    """B6 on the HCZ ``multiphase_3d`` scene at 256^3 and 130^3 (inputs from
+    three warm steps, then B8b, B8a and B2 as the step gives them), without
+    and with H2, under every tile ``TILES`` builds and strips of 1 to 64
+    planes, each held bit for bit to the plan ``plan`` chooses (the
+    per-cell arithmetic is the same) and timed with CUDA events: the data
+    ``TILE`` and ``STRIP_START`` of ``ops/kernels/capmac.py`` were chosen
+    from.  The chosen plan is also held to the plain version at the phase
+    3 bars."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import hcz_step, multiphase_3d
+    from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+    from lbm_ferrofluid_tpu_torch.ops.kernels import capmac
+    from lbm_ferrofluid_tpu_torch.ops.moments import phi_from_density
+
+    K = kernels_pkg.KERNELS
+    for res in ((256, 256, 256), (130, 130, 130)):
+        Z, Y, X = res
+        params, st = multiphase_3d(res=res, device=dev)
+        for _ in range(3):
+            st = hcz_step(params, st, device=dev)
+        gas = dict(rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+                   density_gas=params.density_gas, density_fluid=params.density_fluid)
+        _, rho, vel, den = K["B8b"].wrapper(st.f, st.flags, st.rho, st.vel,
+                                            c=params.dx / params.dt, **gas)
+        _, m0g, m1g = K["B8a"].wrapper(st.g, st.flags)
+        rho_ca = K["B2"].wrapper(rho, st.flags, params.contact_angle)
+        rng = np.random.default_rng(8)
+        H2 = torch.as_tensor(
+            1e4 * (1 + 0.1 * rng.uniform(-1, 1, tuple(rho.shape)).astype(np.float32)), device=dev)
+        phi = phi_from_density(den, params.density_gas, params.density_fluid)
+        kw = dict(kappa=params.kappa, dx=params.dx, dt=params.dt,
+                  gravity=tuple(float(v) for v in params.gravity_vec().reshape(-1)), **gas)
+        chosen = capmac.plan(*res, torch.cuda.get_device_properties(0).multi_processor_count)
+        out = {"phase": "capillary_plans", "res": list(res), "card": card,
+               "chosen": b6_plan_report(chosen, ptxas)}
+        for label, h2, ph in (("without H2", None, None), ("with H2", H2, phi)):
+            args = (rho, den, st.pressure, rho_ca, h2, ph, st.flags, m0g, m1g, vel)
+            want = capmac.hcz_capillary_gradmac(*args, **kw)
+            against_plain = run_and_compare(K, "B6", args, kw, f"B6 {label} at {res}")[1]
+            rows, real = [], capmac.plan
+            try:
+                for tx, ty in capmac.TILES:
+                    for zb in sorted({1, 2, 4, 8, 16, 32, 64, chosen.zb} & set(range(1, Z + 1))):
+                        pl = capmac.CapPlan(tx, ty, zb)
+                        capmac.plan = lambda *a, pl=pl: pl
+                        got = capmac.hcz_capillary_gradmac(*args, **kw)
+                        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                              f"B6 {label} under plan {pl} differs from the chosen plan {chosen}")
+                        rows.append(dict(tile=[tx, ty], zb=zb, ms=time_cuda(
+                            lambda: capmac.hcz_capillary_gradmac(*args, **kw), 5)))
+            finally:
+                capmac.plan = real
+            out[label] = {"chosen_ms": time_cuda(
+                lambda: capmac.hcz_capillary_gradmac(*args, **kw), 5),
+                "chosen_against_plain": against_plain,
+                "best": min(rows, key=lambda r: r["ms"]), "plans": rows}
+        emit(dict(out, ok=True))
+        del st, rho, vel, den, rho_ca, H2, phi, m0g, m1g, want, args
+        torch.cuda.empty_cache()
 
 
 def phase_scalar_plans(dev, card):
@@ -1361,7 +1504,7 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     flag.update(phase_channel_flagship(dev, K, smi, ptxas))
     epi = phase_epilogue_flagship(dev, K, smi)
     flag["B5"] = dict(epi["B5"], max_abs_err=max(v["max_abs_err"] for v in epi.values()))
-    hcz_flag = phase_hcz_flagship(dev, K, smi)
+    hcz_flag = phase_hcz_flagship(dev, K, smi, ptxas)
     flag["B2"]["max_abs_err"] = max(flag["B2"]["max_abs_err"], hcz_flag["B2"]["max_abs_err"])
     flag.update({kid: v for kid, v in hcz_flag.items() if kid != "B2"})
     return [{
@@ -1403,6 +1546,9 @@ def main() -> int:
         print(smi, flush=True)
     elif "--poisson-plans" in sys.argv[1:]:
         phase_poisson_plans(dev, smi)
+        print(smi, flush=True)
+    elif "--capillary-plans" in sys.argv[1:]:
+        phase_capillary_plans(dev, smi, ptxas)
         print(smi, flush=True)
     else:
         rows = run_phases(dev, kernels_pkg, smi, ptxas)

@@ -8,10 +8,9 @@
 // in its z-ring.  GPU blocks run in any order with no grid-wide barrier, so
 // here the pass is a chain of four launches, and f'/g' go to a second
 // buffer pair:
-//   (a) lbm_cap_derived (capmac.cu, the capillary stage's first launch):
-//       fai = eos(rho) - rho RT, prho = p - RT density, chi(phi(density)),
-//       and the 19-point Laplacian of density(rho_ca) with its zero
-//       boundary ring, into scratch;
+//   (a) lbm_cap_derived: fai = eos(rho) - rho RT, prho = p - RT density,
+//       chi(phi(density)), and the 19-point Laplacian of density(rho_ca)
+//       with its zero boundary ring, into scratch;
 //   (b) lbm_cap_collide: the 19-point gradients of lap, fai, prho and chi
 //       (reads clamped to the interior, lap/chi substituted at obstacles,
 //       outputs replicated from the nearest interior cell), the force
@@ -55,6 +54,47 @@
 // SM to hide the latency of 38 pulls a cell.
 #include "common.cuh"
 
+__global__ void lbm_cap_derived_kernel(const float* __restrict__ rho_pre,
+                                       const float* __restrict__ den_pre,
+                                       const float* __restrict__ pres_old,
+                                       const float* __restrict__ rho_ca, float* __restrict__ fai,
+                                       float* __restrict__ prho, float* __restrict__ chi,
+                                       float* __restrict__ lap, int Z, int Y, int X, double dx,
+                                       double dt, LbmGas gas) {
+  const long long N = static_cast<long long>(Z) * Y * X;
+  const long long i = lbm_cell();
+  if (i >= N) return;
+  const int x = static_cast<int>(i % X);
+  const int y = static_cast<int>((i / X) % Y);
+  const int z = static_cast<int>(i / (static_cast<long long>(X) * Y));
+  const double c = dx / dt;
+  const double RT = c * c / 3.0;
+  fai[i] = lbm_fai(rho_pre[i], RT);
+  prho[i] = pres_old[i] - static_cast<float>(RT) * den_pre[i];
+  chi[i] = lbm_chi(den_pre[i], dx, gas.den_gas, gas.dden);
+  float l = 0.f;
+  if (z >= 1 && z <= Z - 2 && y >= 1 && y <= Y - 2 && x >= 1 && x <= X - 2) {
+    l = lbm_laplacian(
+        [&](int oz, int oy, int ox) {
+          return lbm_density_of(rho_ca[lbm_index(z + oz, y + oy, x + ox, Y, X)], gas);
+        },
+        dx);
+  }
+  lap[i] = l;
+}
+
+extern "C" int lbm_cap_derived(const float* rho_pre, const float* den_pre, const float* pres_old,
+                               const float* rho_ca, float* fai, float* prho,
+                               float* chi, float* lap, int Z, int Y, int X, double dx, double dt,
+                               double rho_gas, double rho_fluid, double den_gas,
+                               double den_fluid, void* stream) {
+  const long long N = static_cast<long long>(Z) * Y * X;
+  lbm_cap_derived_kernel<<<lbm_blocks(N), LBM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      rho_pre, den_pre, pres_old, rho_ca, fai, prho, chi, lap, Z, Y, X, dx, dt,
+      lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid));
+  return static_cast<int>(cudaGetLastError());
+}
+
 #define CAP_TX 32
 #define CAP_TY 8
 #define CAP_ZB 16
@@ -78,7 +118,7 @@ __global__ void __launch_bounds__(CAP_TX* CAP_TY, 2) lbm_cap_collide_kernel(
   const int z0 = blockIdx.z * CAP_ZB, z1 = min(z0 + CAP_ZB, Z);
   const long long N = static_cast<long long>(Z) * Y * X;
 
-  const LbmCapIn in{flags, rho_ca, h2, gsum, gmom, vel_old, pres_old, fai, prho, chi, lap};
+  const LbmCapIn in{flags, rho_ca, h2, gsum, gmom, vel_old, pres_old};
   auto load = [&](int p) {
     float(*dst)[CAP_EY][CAP_EX] = ring[p % 3];
     lbm_halo_cells<CAP_TX, CAP_TY>(p, x0, y0, Z, Y, X, [&](int ey, int ex, long long n,
@@ -98,7 +138,7 @@ __global__ void __launch_bounds__(CAP_TX* CAP_TY, 2) lbm_cap_collide_kernel(
     };
     const long long i = (static_cast<long long>(z) * Y + y) * X + x;
     LbmCapCell o;
-    lbm_capillary_cell<true>(in, kc, i, N, tap, o);
+    lbm_capillary_cell<true>(lbm_cap_point<true>(in, i, N, flags[i]), kc, tap, o);
     den_out[i] = o.dens;
     pres_out[i] = o.pres;
 #pragma unroll

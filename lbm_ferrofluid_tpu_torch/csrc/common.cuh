@@ -168,10 +168,10 @@ __device__ __forceinline__ float lbm_laplacian(F S, double dx) {
 }
 
 // ---- capillary stage (ops/collide.py:hcz_capillary) ----------------------
-// Inputs: flags, rho_ca, and the derived fields fai, prho, lap (and chi)
-// of the capmac.cu derived launch; h2 and chi only with HAS_CHI.  Kernels
-// take these as separate __restrict__ parameters and build the struct
-// inside: passed as one struct parameter, B3 ran 6 % slower.
+// The inputs the stage reads at the cell itself; h2 only with HAS_CHI.  The
+// stencil fields (lap, chi, fai, prho) come through a tap.  Kernels take
+// these as separate __restrict__ parameters and build the struct inside:
+// passed as one struct parameter, B3 ran 6 % slower.
 struct LbmCapIn {
   const uint8_t* __restrict__ flags;
   const float* __restrict__ rho_ca;
@@ -180,11 +180,29 @@ struct LbmCapIn {
   const float* __restrict__ gmom;
   const float* __restrict__ vel_old;
   const float* __restrict__ pres_old;
-  const float* __restrict__ fai;
-  const float* __restrict__ prho;
-  const float* __restrict__ chi;
-  const float* __restrict__ lap;
 };
+
+// What the stage reads at cell i with flag fl: rho_ca, h2, and g_sum and
+// g_mom at a fluid cell or the old pressure and velocity, which the stage
+// keeps, elsewhere.  A kernel may load it before its taps (lbm_cap_point).
+struct LbmCapPoint {
+  float rho, h2, s, m[3];  // s, m: g_sum, g_mom (fluid) or pres_old, vel_old
+  uint8_t flag;
+};
+
+template <bool HAS_CHI>
+__device__ __forceinline__ LbmCapPoint lbm_cap_point(const LbmCapIn& in, long long i,
+                                                     long long N, uint8_t fl) {
+  LbmCapPoint p;
+  const bool fluid = fl == LBM_FLUID;
+  p.flag = fl;
+  p.rho = in.rho_ca[i];
+  p.h2 = HAS_CHI ? in.h2[i] : 0.f;
+  p.s = fluid ? in.gsum[i] : in.pres_old[i];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) p.m[d] = fluid ? in.gmom[d * N + i] : in.vel_old[d * N + i];
+  return p;
+}
 
 struct LbmCapF {
   float kappa, grav[3], mu0_half, c, inv_d12, half_dt_rt, inv_rt, half_dt;
@@ -216,19 +234,18 @@ struct LbmCapCell {
   uint8_t flag;
 };
 
-// The capillary stage at cell i.  tap(field, oz, oy, ox) returns field 0
-// (lap), 1 (chi), 2 (fai) or 3 (prho) at an offset from the interior cell
-// nearest to i, read as the TPU kernel reads it: lap and chi substituted at
-// obstacles by their value at the clamped cell, fai and prho (interior-
-// padded already) at the clamped tap.  So outputs are replicated from the
-// nearest interior cell, and z is clamped, not periodic.  Then force =
-// kappa dens grad lap + g dens (- mu0/2 H2 grad chi) with dens =
-// density(rho_ca), and velocity/pressure recovery at fluid cells (the old
-// values elsewhere).
+// The capillary stage at a cell whose inputs are pt.  tap(field, oz, oy,
+// ox) returns field 0 (lap), 1 (chi), 2 (fai) or 3 (prho) at an offset from
+// the interior cell nearest to the cell, read as the TPU kernel reads it:
+// lap and chi substituted at obstacles by their value at the clamped cell,
+// fai and prho (interior-padded already) at the clamped tap.  So outputs
+// are replicated from the nearest interior cell, and z is clamped, not
+// periodic.  Then force = kappa dens grad lap + g dens (- mu0/2 H2 grad chi)
+// with dens = density(rho_ca), and velocity/pressure recovery at fluid
+// cells (the old values elsewhere).
 template <bool HAS_CHI, class Tap>
-__device__ __forceinline__ void lbm_capillary_cell(const LbmCapIn& in, const LbmCapF& k,
-                                                   long long i, long long N, Tap tap,
-                                                   LbmCapCell& o) {
+__device__ __forceinline__ void lbm_capillary_cell(const LbmCapPoint& pt, const LbmCapF& k,
+                                                   Tap tap, LbmCapCell& o) {
   float glap[3], gchi[3];
   lbm_iso_sums([&](int a, int b, int e) { return tap(0, a, b, e); }, glap);
   if (HAS_CHI) lbm_iso_sums([&](int a, int b, int e) { return tap(1, a, b, e); }, gchi);
@@ -241,37 +258,20 @@ __device__ __forceinline__ void lbm_capillary_cell(const LbmCapIn& in, const Lbm
     o.dfai[d] = o.dfai[d] * k.inv_d12;
     o.dprho[d] = o.dprho[d] * k.inv_d12;
   }
-  o.rho = in.rho_ca[i];
+  o.rho = pt.rho;
   o.dens = lbm_density_of(o.rho, k.gas);
-  const float hh = HAS_CHI ? in.h2[i] : 0.f;
-  o.flag = in.flags[i];
+  o.flag = pt.flag;
   const bool fluid = o.flag == LBM_FLUID;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     float fd = k.kappa * o.dens * glap[d] + k.grav[d] * o.dens;
-    if (HAS_CHI) fd = fd - k.mu0_half * hh * gchi[d];
+    if (HAS_CHI) fd = fd - k.mu0_half * pt.h2 * gchi[d];
     o.force[d] = fd;
-    o.u[d] = fluid ? (in.gmom[d * N + i] * k.c + k.half_dt_rt * fd) * k.inv_rt / o.dens
-                   : in.vel_old[d * N + i];
+    o.u[d] = fluid ? (pt.m[d] * k.c + k.half_dt_rt * fd) * k.inv_rt / o.dens : pt.m[d];
   }
-  o.pres = fluid ? in.gsum[i] - k.half_dt * (o.u[0] * o.dprho[0] + o.u[1] * o.dprho[1] +
-                                              o.u[2] * o.dprho[2])
-                 : in.pres_old[i];
-}
-
-// tap() of lbm_capillary_cell for the cell (z, y, x), reading device memory.
-__device__ __forceinline__ auto lbm_cap_global_taps(const LbmCapIn& in, int z, int y, int x,
-                                                    int Z, int Y, int X) {
-  const int zc = lbm_clamp(z, 1, Z - 2), yc = lbm_clamp(y, 1, Y - 2), xc = lbm_clamp(x, 1, X - 2);
-  return [=](int fld, int oz, int oy, int ox) -> float {
-    const int zz = zc + oz, yy = yc + oy, xx = xc + ox;
-    const long long n = lbm_index(zz, yy, xx, Y, X);
-    const long long cl = lbm_index(lbm_clamp(zz, 1, Z - 2), lbm_clamp(yy, 1, Y - 2),
-                                   lbm_clamp(xx, 1, X - 2), Y, X);
-    const float* F = fld == 0 ? in.lap : (fld == 1 ? in.chi : (fld == 2 ? in.fai : in.prho));
-    if (fld >= 2) return F[cl];
-    return in.flags[n] == LBM_OBSTACLE ? F[cl] : F[n];
-  };
+  o.pres = fluid ? pt.s - k.half_dt * (o.u[0] * o.dprho[0] + o.u[1] * o.dprho[1] +
+                                       o.u[2] * o.dprho[2])
+                 : pt.s;
 }
 
 // ---- pull-stream -----------------------------------------------------------

@@ -151,10 +151,9 @@ def lbm_capillogue(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2,
 
     scratch = torch.empty((4, 1, Z, Y, X), dtype=torch.float32, device=f.device)
     fai, prho, chi, lap = scratch
-    # phi null: chi comes from density_pre
-    call("lbm_cap_derived", ptr(rho_pre), ptr(density_pre),
-         ptr(pressure_old), ptr(rho_ca), ptr(None), ptr(fai), ptr(prho), ptr(chi),
-         ptr(lap), *dims, ctypes.c_double(dx), ctypes.c_double(dt), *gas, st)
+    call("lbm_cap_derived", ptr(rho_pre), ptr(density_pre), ptr(pressure_old), ptr(rho_ca),
+         ptr(fai), ptr(prho), ptr(chi), ptr(lap), *dims, ctypes.c_double(dx),
+         ctypes.c_double(dt), *gas, st)
     lbm_capillogue.launches += 1
 
     f_out, g_out = torch.empty_like(f), torch.empty_like(g)

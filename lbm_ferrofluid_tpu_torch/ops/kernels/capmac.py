@@ -2,15 +2,13 @@
 
 Replaces the TPU kernel ``lbm_ferrofluid_tpu/ops/pallas/capmac.py:
 hcz_capillary_gradmac`` (:383) with ``lap=None``, as the single-device step
-calls it: the Laplacian of density(rho_ca) is built inside.  The TPU kernel
-keeps a 5-plane z-ring and builds the Laplacian one body ahead of the
-gradients; the gradient of a Laplacian is a two-hop stencil and GPU blocks
-have no order, so the CUDA source ``csrc/capmac.cu`` runs two launches:
-
-  (a) fai, prho, chi (with ``H2``/``phi``) and the Laplacian, into scratch
-      (the capillogue's first launch, the same entry point);
-  (b) the gradients, force and velocity/pressure recovery at every cell
-      (the capillogue's collide launch runs the same device code).
+calls it: the Laplacian of density(rho_ca) is built inside.  The CUDA
+source ``csrc/capmac.cu`` runs it as ``N_LAUNCHES`` = 1 launch, with no
+scratch field in device memory: a block owns a tile of ``plan``'s
+(tx, ty) and walks a strip of zb planes of z, with density(rho_ca) of the
+tile and a 2-cell halo in a 4-plane shared-memory ring one plane ahead of
+a 3-plane ring of the derived fields (lap, chi with ``H2``, fai, prho) of
+the tile and a 1-cell halo, which the gradients tap.
 
 Semantics kept (capmac.py:14-25): fai and prho come from the
 pre-contact-angle fields, the Laplacian and the force from density(rho_ca);
@@ -26,6 +24,7 @@ per other cell (vel_old).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -33,11 +32,48 @@ from ...utils.types import CellType
 from ..collide import MU0, hcz_capillary
 from ._lib import call, check_cuda, ptr, stream_of
 
-__all__ = ["hcz_capillary_gradmac", "hcz_capillary_gradmac_plain", "cost", "N_LAUNCHES"]
+__all__ = [
+    "hcz_capillary_gradmac", "hcz_capillary_gradmac_plain", "cost", "plan", "CapPlan",
+    "N_LAUNCHES", "TILES",
+]
 
 TPU_KERNEL = "lbm_ferrofluid_tpu/ops/pallas/capmac.py:383"
 CUDA_SOURCE = "lbm_ferrofluid_tpu_torch/csrc/capmac.cu"
-N_LAUNCHES = 2
+N_LAUNCHES = 1
+#: (tx, ty) tiles the kernel is built for: ``CM_TILES`` of ``csrc/capmac.cu``
+TILES = ((32, 8), (64, 4))
+#: threads an SM the kernel's launch bounds ask room for: ``CM_SM_THREADS``
+#: of ``csrc/capmac.cu`` (blocks resident on an SM = this / (tx ty))
+SM_THREADS = 1280
+#: the tile ``plan`` takes, the longest strip it considers, and a strip's
+#: start-up (the derived and density planes it loads before its first cell
+#: plane) in cell planes: from ``chip_smoke.py --capillary-plans``
+TILE = (32, 8)
+MAX_STRIP = 64
+STRIP_START = 0.65
+
+
+class CapPlan(NamedTuple):
+    """A launch's (tx, ty) tile, one of ``TILES``, and its strip of zb
+    planes."""
+
+    tx: int
+    ty: int
+    zb: int
+
+
+def plan(Z: int, Y: int, X: int, sms: int) -> CapPlan:
+    """The tile and strip of a call on a Z x Y x X grid on a card of ``sms``
+    SMs: the strip with the fewest waves of resident blocks times planes a
+    block (its strip and start-up)."""
+    tx, ty = TILE
+    tiles = -(-X // tx) * -(-Y // ty)
+    resident = sms * (SM_THREADS // (tx * ty))
+
+    def ticks(zb):
+        return -(-tiles * -(-Z // zb) // resident) * (zb + STRIP_START)
+
+    return CapPlan(tx, ty, min(range(1, min(Z, MAX_STRIP) + 1), key=ticks))
 
 
 def _read_masks(flags):
@@ -109,7 +145,7 @@ def hcz_capillary_gradmac(rho_pre, density_pre, pressure, rho_ca, H2, phi, flags
     moments of g, ``vel_old`` the velocity kept at non-fluid cells and
     ``gravity`` a 3-tuple; scalars are [1, 1, Z, Y, X] and vectors
     [1, 3, Z, Y, X] float32, flags uint8.  CPU tensors take the plain
-    version; CUDA tensors launch the kernels; anything else raises.  Inputs
+    version; CUDA tensors launch the kernel; anything else raises.  Inputs
     are not modified."""
     kw = dict(kappa=kappa, gravity=gravity, rho_gas=rho_gas, rho_fluid=rho_fluid,
               density_gas=density_gas, density_fluid=density_fluid, dx=dx, dt=dt)
@@ -134,24 +170,16 @@ def hcz_capillary_gradmac(rho_pre, density_pre, pressure, rho_ca, H2, phi, flags
     dims = (ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X))
     gas = tuple(ctypes.c_double(float(v))
                 for v in (rho_gas, rho_fluid, density_gas, density_fluid))
-    st = stream_of(rho_pre)
 
-    scratch = torch.empty((4 if H2 is not None else 3, 1, Z, Y, X), dtype=torch.float32,
-                          device=rho_pre.device)
-    fai, prho, lap = scratch[0], scratch[1], scratch[2]
-    chi = scratch[3] if H2 is not None else None
-    call("lbm_cap_derived", ptr(rho_pre), ptr(density_pre), ptr(pressure), ptr(rho_ca),
-         ptr(phi), ptr(fai), ptr(prho), ptr(chi), ptr(lap), *dims, ctypes.c_double(dx),
-         ctypes.c_double(dt), *gas, st)
-    hcz_capillary_gradmac.launches += 1
-
+    pl = plan(Z, Y, X, torch.cuda.get_device_properties(rho_pre.device).multi_processor_count)
     vel, pres = torch.empty_like(vel_old), torch.empty_like(pressure)
     force, dfai, dprho = (torch.empty_like(vel_old) for _ in range(3))
-    call("lbm_capmac", ptr(flags), ptr(rho_ca), ptr(H2), ptr(g_sum), ptr(g_mom),
-         ptr(vel_old), ptr(pressure), ptr(fai), ptr(prho), ptr(chi), ptr(lap), ptr(vel),
-         ptr(pres), ptr(force), ptr(dfai), ptr(dprho), *dims, ctypes.c_double(kappa),
-         *(ctypes.c_double(float(v)) for v in gravity), ctypes.c_double(0.5 * MU0),
-         ctypes.c_double(dx), ctypes.c_double(dt), *gas, st)
+    call("lbm_capmac", ptr(flags), ptr(rho_pre), ptr(density_pre), ptr(pressure),
+         ptr(rho_ca), ptr(phi), ptr(H2), ptr(g_sum), ptr(g_mom), ptr(vel_old), ptr(vel),
+         ptr(pres), ptr(force), ptr(dfai), ptr(dprho), *dims, *(ctypes.c_int(v) for v in pl),
+         ctypes.c_double(kappa), *(ctypes.c_double(float(v)) for v in gravity),
+         ctypes.c_double(0.5 * MU0), ctypes.c_double(dx), ctypes.c_double(dt), *gas,
+         stream_of(rho_pre))
     hcz_capillary_gradmac.launches += 1
     return vel, pres, force, dfai, dprho
 

@@ -2,11 +2,13 @@
 
 Replaces the TPU kernel ``lbm_ferrofluid_tpu/ops/pallas/contact3d.py:
 contact_angle_3d`` (:309).  The surgery is order-dependent (x faces, y faces
-reading the updated x borders, z faces, edge lines, corners), so the CUDA
-source ``csrc/contact3d.cu`` runs one launch per dependency stage: a
-whole-volume copy that also writes the x faces, then five launches over
-boundary cells only.  A call is 6 launches.  The plain version is
-``ops/collide.py:contact_angle_boundary``.
+reading the updated x borders, z faces, edge lines, corners), but every
+value a stage reads from an earlier one is a closed-form function of rho
+and flags, so the CUDA source ``csrc/contact3d.cu`` runs it as one launch
+over the whole volume: interior cells copy rho, and each boundary cell
+recomputes in registers what the stages before its own wrote.  A call is
+``N_LAUNCHES`` = 1 launch, and equals the plain version
+``ops/collide.py:contact_angle_boundary`` bit for bit.
 
 Bound on an H100: bytes, 8 B per cell plus 1 B per face cell (read rho,
 write rho_ca once, read the uint8 flags only at face cells): 0.040 ms at
@@ -24,11 +26,13 @@ from ...utils.types import CellType
 from ..collide import contact_angle_boundary
 from ._lib import call, check_cuda, ptr, stream_of
 
-__all__ = ["contact_angle_3d", "contact_angle_3d_plain", "cost"]
+__all__ = ["contact_angle_3d", "contact_angle_3d_plain", "cost", "N_LAUNCHES"]
 
 TPU_KERNEL = "lbm_ferrofluid_tpu/ops/pallas/contact3d.py:309"
 CUDA_SOURCE = "lbm_ferrofluid_tpu_torch/csrc/contact3d.cu"
-N_STAGES = 6
+N_LAUNCHES = 1
+#: the kernel indexes cells with 32-bit integers, 4 to a thread
+MAX_CELLS = 2**31 - 4096
 
 
 def cost(rho, flags, contact_angle=None) -> tuple[int, int]:
@@ -62,17 +66,19 @@ def contact_angle_3d(rho, flags, contact_angle):
     check_cuda("flags", flags, torch.uint8, (1, 1, Z, Y, X))
     if min(Z, Y, X) < contact_angle_3d.min_axis:
         raise ValueError(f"contact_angle_3d needs Z, Y, X >= {contact_angle_3d.min_axis}")
+    if rho.numel() > MAX_CELLS:
+        raise ValueError(f"contact_angle_3d takes at most {MAX_CELLS} cells")
     out = torch.empty_like(rho)
+    # 16-byte loads and stores where every plane's groups of 4 cells are aligned
+    vec = (Y * X) % 4 == 0 and rho.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     t = ctypes.c_double(math.tan(math.pi / 2.0 - float(contact_angle)))
-    st = stream_of(rho)
-    for stage in range(N_STAGES):
-        call("lbm_contact_angle_stage", ctypes.c_int(stage), ptr(rho),
-             ptr(flags), ptr(out), ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X),
-             t, st)
-        contact_angle_3d.launches += 1
+    call("lbm_contact_angle", ptr(rho), ptr(flags), ptr(out), ctypes.c_int(Z),
+         ctypes.c_int(Y), ctypes.c_int(X), t, ctypes.c_int(vec), stream_of(rho))
+    contact_angle_3d.launches += 1
     return out
 
 
 contact_angle_3d.launches = 0
-#: cells an axis needs at least (below that, a stage reads cells it writes)
+#: cells an axis needs at least (below that, a face reads cells its own
+#: stage writes, and the one-pass rule does not hold)
 contact_angle_3d.min_axis = 4
