@@ -7,6 +7,7 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
     python3 chip_smoke.py --scalar-plans   # only B1's plan sweep (256^3, 130x66x130)
     python3 chip_smoke.py --poisson-plans  # only B11b's plan sweep (256^3, 130x66x130)
     python3 chip_smoke.py --capillary-plans  # only B6's plan sweep (256^3, 130^3)
+    python3 chip_smoke.py --stencil-plans  # only B10a's and B10b's (256^3, 130x66x130)
 
 Phases, each printing one JSON line; any failed check exits non-zero:
 
@@ -20,10 +21,12 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    and 0.8, B4 prologue, B11b channel-form Poisson sweeps at tau 1 and 0.8
    and at 30 and 7 sweeps, with an interior magnetic obstacle block and one
    across a tile edge and a z seam of its plan, its chosen plan also held
-   bit for bit to the one-sweep plan, B10a gradients of one and of
-   four fields, B5 epilogue with and without ``emit_mac`` on B6's outputs,
-   B10b Laplacian) at 34x66x130 and 130x66x130, and B11b as above at
-   50x50x193, which no tile divides; HCZ kernels (B8b/B8a
+   bit for bit to the one-sweep plan, B10a gradients of 1, 3, 4 and 5
+   fields with the launches ``launches_per_call`` states, B5 epilogue
+   with and without ``emit_mac`` on B6's outputs, B10b Laplacian) at
+   34x66x130 and 130x66x130, B11b, B10a and B10b as above at 50x50x193,
+   which no tile divides, and B10a and B10b at 4x66x130 (the z clamp at
+   both ends of every strip); HCZ kernels (B8b/B8a
    stream + bounce, B2 at 0.75 pi, B6 capillary stage with and without H2,
    B9 collide, each fed with what the kernels before it produced, then the
    capillary stage's stencil route B10b + B10a against its plain version
@@ -72,7 +75,11 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    B1's pass, B11b's pass and B3's collide; B2 and B6 are timed launch by
    launch, B6 also with H2, with its plan, resident blocks and ptxas line,
    and B2, B6 and the stencil route are held to their plain versions again
-   with B6's seam block.
+   with B6's seam block.  B10a is timed on one field (the channel form's
+   psi) and on the stencil route's stacks of 3 and 4 fields, B10b on
+   density(rho_ca), each with its plan, resident blocks and ptxas line,
+   and beside a yardstick that is on no path: cuDNN's ``conv3d`` of the
+   interior then ``F.pad``, 2 calls, in full float32 (``conv3d_pad``).
 
 The build phase reports each kernel's registers, static shared memory and
 spills as ptxas gives them.
@@ -476,6 +483,22 @@ def phase_kernels(dev, K):
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
+    def stencil_checks(one, four, res):
+        """B10a on N = 1 (``one``), 3 and 4 (``four``) and 5 fields (both),
+        B10b on ``one`` and on the first of ``four``: against their plain
+        versions."""
+        for fields in (one, four[:, :3].contiguous(), four, torch.cat([four, one], dim=1)):
+            n = fields.shape[1]
+            before = K["B10a"].wrapper.launches
+            _, r = run_and_compare(K, "B10a", (fields,), dict(dx=1.0), f"B10a N={n} at {res}")
+            launches = K["B10a"].wrapper.launches - before
+            check(launches == K["B10a"].module.launches_per_call(n),
+                  f"B10a N={n} at {res}: {launches} launches")
+            log("B10a", "B10a", res, r, n_fields=n, launches=launches)
+        for field in (one, four[:, :1].contiguous()):
+            _, r = run_and_compare(K, "B10b", (field,), dict(dx=1.0), f"B10b at {res}")
+            log("B10b", "B10b", res, r)
+
     def b11b_checks(params, d, res):
         """B11b at tau 1 and 0.8 and at 30 sweeps and 7 (a remainder pass),
         with interior magnetic obstacles and a block across a tile edge and
@@ -510,22 +533,25 @@ def phase_kernels(dev, K):
             log(kid, kid, res, r, contact_angle=p.contact_angle, tau=p.tau,
                 n_iters=p.poisson_iters, **extra)
         psi = b11b_checks(params, d, res)
-        for fields in (substitute_obstacles(psi, d["mflags_block"]), d["fields4"]):
-            _, r = run_and_compare(K, "B10a", (fields,), dict(dx=params.dx),
-                                   f"B10a N={fields.shape[1]} at {res}")
-            log("B10a", "B10a", res, r, n_fields=fields.shape[1])
+        stencil_checks(substitute_obstacles(psi, d["mflags_block"]), d["fields4"], res)
         for emit_mac in (False, True):
             args, kw = epilogue_call(K, params, d, emit_mac)
             _, r = run_and_compare(K, "B5", args, kw, f"B5 emit_mac={emit_mac} at {res}")
             log("B5", "B5", res, r, emit_mac=emit_mac)
-            for field in (args[5], d["fields4"][:, :1].contiguous()):
-                _, r = run_and_compare(K, "B10b", (field,), dict(dx=params.dx),
-                                       f"B10b at {res}")
-                log("B10b", "B10b", res, r)
+            _, r = run_and_compare(K, "B10b", (args[5],), dict(dx=params.dx),
+                                   f"B10b on density at {res}")
+            log("B10b", "B10b", res, r, field="density(rho_ca)")
     # two_droplets' grid, which no tile divides
     params, d = seeded_inputs((50, 50, 193), 6, dev)
     b11b_checks(params, d, (50, 50, 193))
+    stencil_checks(d["s2"][:, :1].contiguous(), d["fields4"], (50, 50, 193))
     del d
+    # Z = 4: the z clamp at both ends of every strip
+    rng = np.random.default_rng(9)
+    f4 = torch.as_tensor(rng.standard_normal((1, 5, 4, 66, 130)).astype(np.float32),
+                         device=dev)
+    stencil_checks(f4[:, 4:].contiguous(), f4[:, :4].contiguous(), (4, 66, 130))
+    del f4
     for res, seed in (((34, 66, 130), 3), ((130, 130, 130), 4), ((50, 50, 193), 7)):
         params, d = hcz_seeded_inputs(res, seed, dev)
 
@@ -1024,6 +1050,87 @@ def measure(K, kid, args, kw, per_call, per_step, what):
     }
 
 
+def conv3d_pad(kid, x, dx):
+    """The timing yardstick beside B10a (``kid`` "B10a") and B10b, never on
+    a path: cuDNN's ``F.conv3d`` of the interior in full float32 (TF32 off
+    for the timing, then restored), then ``F.pad``, replicate for the
+    gradients (the ring rule), zeros for the Laplacian: 2 calls.  Returns
+    its ms per call and its max abs error against the kernel's plain
+    version."""
+    import torch
+    import torch.nn.functional as F
+
+    from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+
+    n = x.shape[1]
+    offs = [(oz, oy, ox) for oz in (-1, 0, 1) for oy in (-1, 0, 1) for ox in (-1, 0, 1)]
+    if kid == "B10a":
+        # (gx, gy, gz): the tap's step along the axis, twice on it, once one step off it
+        taps = [[o[2 - d] * (2, 1, 0)[sum(map(abs, o)) - abs(o[2 - d])] for o in offs]
+                for d in range(3)]
+        weight = torch.tensor(taps).reshape(3, 1, 3, 3, 3).repeat(n, 1, 1, 1, 1) / (12.0 * dx)
+        mode = "replicate"
+    else:
+        # 2 on the faces, 1 on the edges, -24 at the centre
+        taps = [{0: -24.0, 1: 2.0, 2: 1.0}.get(sum(map(abs, o)), 0.0) for o in offs]
+        weight = torch.tensor(taps).reshape(1, 1, 3, 3, 3) / (6.0 * dx * dx)
+        mode = "constant"
+    weight = weight.to(device=x.device, dtype=x.dtype)
+
+    def fn():
+        return F.pad(F.conv3d(x, weight, groups=n if kid == "B10a" else 1), (1,) * 6,
+                     mode=mode)
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = fn()
+        plain = kernels_pkg.KERNELS[kid].plain(x, dx=dx)
+        err = float((got.double() - plain.double()).abs().max())
+        ms = time_cuda(fn, reps=10)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return {"ms": ms, "calls": 2, "max_abs_err": err,
+            "what": "conv3d + pad, 2 calls (cuDNN, TF32 off)"}
+
+
+def stencil_stack(params, d, ctx, kelvin):
+    """The fields B10a differentiates on the stencil route on the HCZ
+    chain's intermediates ``ctx``: [lap, fai, prho], with chi as a fourth
+    field when ``kelvin``."""
+    from lbm_ferrofluid_tpu_torch.ops.kernels import capillary_stack
+
+    return capillary_stack(
+        ctx["rho"], d["flags"], ctx["den"], d["pres"], ctx["rho_ca"],
+        ctx["phi"] if kelvin else None, rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+        density_gas=params.density_gas, density_fluid=params.density_fluid, dx=params.dx,
+        dt=params.dt)[1]
+
+
+def stencil_plan_report(res, n_fields, ptxas=None):
+    """The plan B10a takes on ``res`` with ``n_fields`` fields (0: B10b's),
+    with resident blocks an SM as the card reports them and as ``plan``
+    models them, shared memory and the instance's ptxas line."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import stencil3d
+
+    lap = n_fields == 0
+    nf = max(n_fields, 1)
+    pl = stencil3d.plan(*res, torch.cuda.get_device_properties(0).multi_processor_count,
+                        min(nf, stencil3d.MAX_FIELDS), laplacian=lap)
+    ry = {(tx, ty): r for tx, ty, r in stencil3d.TILES}[(pl.tx, pl.ty)]
+    chunk = min(nf, stencil3d.MAX_FIELDS)
+    name = f"lbm_stencil_kernel<{pl.tx},{pl.ty},{ry},{chunk},{int(lap)}>"
+    return dict(tile=[pl.tx, pl.ty], rows_a_thread=ry, zb=pl.zb,
+                launches=1 if lap else stencil3d.launches_per_call(nf),
+                smem_bytes=stencil3d.smem_bytes(pl.tx, pl.ty, chunk),
+                blocks_per_sm=blocks_per_sm("lbm_stencil_occupancy", pl.tx, pl.ty, chunk,
+                                            int(lap)),
+                blocks_per_sm_model=stencil3d.blocks_per_sm(pl.tx, pl.ty, chunk, lap),
+                ptxas={name: (ptxas or {}).get(name)})
+
+
 def phase_flagship(dev, K, card):
     import torch
 
@@ -1112,6 +1219,8 @@ def phase_channel_flagship(dev, K, card, ptxas=None):
                                            params.tau, ptxas)
     psi_sub = substitute_obstacles(K["B11b"].wrapper(*args, **kw)[1], st.magnetic_flags)
     out["B10a"] = measure(K, "B10a", (psi_sub,), dict(dx=params.dx), 1, 1, "B10a at 256^3")
+    out["B10a"]["conv3d_pad"] = conv3d_pad("B10a", psi_sub, params.dx)
+    out["B10a"]["plan"] = stencil_plan_report(psi_sub.shape[2:], 1, ptxas)
     emit({"phase": "channel_flagship", "scene": "rosensweig_3d", "res": [256, 256, 256],
           "solve": "channel form (scalar_carry=False)", "mlups": stats["mlups"],
           "ms_per_step": stats["seconds"] / stats["steps"] * 1e3,
@@ -1246,6 +1355,19 @@ def phase_hcz_flagship(dev, K, card, ptxas=None):
     den_ca = rho_to_density(ctx["rho_ca"], rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
                             density_gas=params.density_gas, density_fluid=params.density_fluid)
     out["B10b"] = measure(K, "B10b", (den_ca,), dict(dx=params.dx), 1, 1, "B10b at 256^3")
+    out["B10b"]["conv3d_pad"] = conv3d_pad("B10b", den_ca, params.dx)
+    out["B10b"]["plan"] = stencil_plan_report(den_ca.shape[2:], 0, ptxas)
+    # B10a on the route's stack: N = 3 without H2, 4 with it
+    for kelvin in (False, True):
+        stack = stencil_stack(params, d, ctx, kelvin)
+        n = stack.shape[1]
+        per_call = K["B10a"].module.launches_per_call(n)
+        out[f"B10a N={n}"] = dict(
+            measure(K, "B10a", (stack,), dict(dx=params.dx), per_call, per_call,
+                    f"B10a N={n} at 256^3"),
+            conv3d_pad=conv3d_pad("B10a", stack, params.dx),
+            plan=stencil_plan_report(stack.shape[2:], n, ptxas))
+        del stack
     route = stencil_route_rows(params, d, ctx, "at 256^3")
     errs["stencil route"] = max(v["max_abs_err"] for r in route.values() for rr in r.values()
                                 for v in rr.values())
@@ -1341,6 +1463,78 @@ def phase_capillary_plans(dev, card, ptxas=None):
                 "best": min(rows, key=lambda r: r["ms"]), "plans": rows}
         emit(dict(out, ok=True))
         del st, rho, vel, den, rho_ca, H2, phi, m0g, m1g, want, args
+        torch.cuda.empty_cache()
+
+
+def phase_stencil_plans(dev, card, ptxas=None):
+    """B10a (N = 1, 3 and 4) and B10b on the HCZ ``multiphase_3d`` scene
+    at 256^3 and 130x66x130 (three warm steps, then B8b and B2 as the step
+    gives them, and the stencil route's stacks [lap, fai, prho] and, with
+    chi, of 4 fields; N = 1 takes the first field), under every tile
+    ``TILES`` builds for it and strips of 1 to 64 planes, each held bit for
+    bit to the plan ``plan`` chooses (the per-cell arithmetic is the same)
+    and timed with CUDA events over 20 calls: the data ``SHAPES`` and
+    ``STRIP_START`` of ``ops/kernels/stencil3d.py`` were chosen from.  The
+    chosen plan is also held to the plain version at the phase 3 bars."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import hcz_step, multiphase_3d
+    from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+    from lbm_ferrofluid_tpu_torch.ops.kernels import stencil3d
+    from lbm_ferrofluid_tpu_torch.ops.moments import phi_from_density, rho_to_density
+
+    K = kernels_pkg.KERNELS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for res in ((256, 256, 256), (130, 66, 130)):
+        Z = res[0]
+        params, st = multiphase_3d(res=res, device=dev)
+        for _ in range(3):
+            st = hcz_step(params, st, device=dev)
+        gas = dict(rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+                   density_gas=params.density_gas, density_fluid=params.density_fluid)
+        _, rho, _, den = K["B8b"].wrapper(st.f, st.flags, st.rho, st.vel,
+                                          c=params.dx / params.dt, **gas)
+        rho_ca = K["B2"].wrapper(rho, st.flags, params.contact_angle)
+        ctx = dict(rho=rho, den=den, rho_ca=rho_ca,
+                   phi=phi_from_density(den, params.density_gas, params.density_fluid))
+        stack = stencil_stack(params, dict(pres=st.pressure, flags=st.flags), ctx, kelvin=True)
+        del st, ctx
+        out = {"phase": "stencil_plans", "res": list(res), "card": card}
+        for label, kid, x, n in (("B10a N=1", "B10a", stack[:, :1].contiguous(), 1),
+                                 ("B10a N=3", "B10a", stack[:, :3].contiguous(), 3),
+                                 ("B10a N=4", "B10a", stack, 4),
+                                 ("B10b", "B10b", rho_to_density(rho_ca, **gas), 0)):
+            fn = K[kid].wrapper
+            want = fn(x, dx=params.dx)
+            against_plain = run_and_compare(K, kid, (x,), dict(dx=params.dx),
+                                            f"{label} chosen plan at {res}")[1]
+            rows, real = [], stencil3d.plan
+            chosen = real(*res, sms, max(n, 1), laplacian=n == 0)
+            try:
+                for tx, ty in [t[:2] for t in stencil3d.TILES
+                               if stencil3d.fits(*t[:2], max(n, 1))]:
+                    for zb in sorted({1, 2, 4, 8, 16, 32, 64, chosen.zb} & set(range(1, Z + 1))):
+                        pl = stencil3d.StencilPlan(tx, ty, zb)
+                        stencil3d.plan = lambda *a, pl=pl, **_: pl
+                        check(torch.equal(fn(x, dx=params.dx), want),
+                              f"{label} under plan {pl} differs from the chosen plan")
+                        rows.append(dict(tile=[tx, ty], zb=zb, ms=time_cuda(
+                            lambda: fn(x, dx=params.dx), 20)))
+            finally:
+                stencil3d.plan = real
+            out[label] = {"chosen": stencil_plan_report(res, n, ptxas),
+                          "chosen_ms": time_cuda(lambda: fn(x, dx=params.dx), 20),
+                          "chosen_against_plain": against_plain,
+                          "best": min(rows, key=lambda r: r["ms"]), "plans": rows}
+            del want
+        out["blocks_per_sm"] = {
+            f"{tx}x{ty} N={n}": [blocks_per_sm("lbm_stencil_occupancy", tx, ty, max(n, 1),
+                                               int(n == 0)),
+                                 stencil3d.blocks_per_sm(tx, ty, max(n, 1), n == 0)]
+            for tx, ty, _ in stencil3d.TILES for n in (0, 1, 2, 3, 4)
+            if stencil3d.fits(tx, ty, max(n, 1))}
+        emit(dict(out, ok=True))
+        del stack, rho, den, rho_ca
         torch.cuda.empty_cache()
 
 
@@ -1506,7 +1700,9 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     flag["B5"] = dict(epi["B5"], max_abs_err=max(v["max_abs_err"] for v in epi.values()))
     hcz_flag = phase_hcz_flagship(dev, K, smi, ptxas)
     flag["B2"]["max_abs_err"] = max(flag["B2"]["max_abs_err"], hcz_flag["B2"]["max_abs_err"])
-    flag.update({kid: v for kid, v in hcz_flag.items() if kid != "B2"})
+    flag["B10a"]["max_abs_err"] = max(flag["B10a"]["max_abs_err"],
+                                      *(hcz_flag[f"B10a N={n}"]["max_abs_err"] for n in (3, 4)))
+    flag.update({kid: v for kid, v in hcz_flag.items() if kid in K and kid != "B2"})
     return [{
         "name": f"{kid} {k.wrapper.__name__}", "route": "cuda",
         "source": k.module.CUDA_SOURCE, "replaces": k.tpu_kernel,
@@ -1515,6 +1711,7 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
         "ms": flag[kid]["ms"], "plain_ms": flag[kid]["plain_ms"],
         "bound_ms": flag[kid]["bound_ms"], "bound_by": flag[kid]["bound_by"],
         "library_ms": None,
+        **({"conv3d_pad_ms": flag[kid]["conv3d_pad"]["ms"]} if "conv3d_pad" in flag[kid] else {}),
     } for kid, k in K.items()]
 
 
@@ -1549,6 +1746,9 @@ def main() -> int:
         print(smi, flush=True)
     elif "--capillary-plans" in sys.argv[1:]:
         phase_capillary_plans(dev, smi, ptxas)
+        print(smi, flush=True)
+    elif "--stencil-plans" in sys.argv[1:]:
+        phase_stencil_plans(dev, smi, ptxas)
         print(smi, flush=True)
     else:
         rows = run_phases(dev, kernels_pkg, smi, ptxas)

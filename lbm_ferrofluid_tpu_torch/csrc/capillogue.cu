@@ -60,7 +60,7 @@ __global__ void lbm_cap_derived_kernel(const float* __restrict__ rho_pre,
                                        const float* __restrict__ rho_ca, float* __restrict__ fai,
                                        float* __restrict__ prho, float* __restrict__ chi,
                                        float* __restrict__ lap, int Z, int Y, int X, double dx,
-                                       double dt, LbmGas gas) {
+                                       double dt, float d6, LbmGas gas) {
   const long long N = static_cast<long long>(Z) * Y * X;
   const long long i = lbm_cell();
   if (i >= N) return;
@@ -78,7 +78,7 @@ __global__ void lbm_cap_derived_kernel(const float* __restrict__ rho_pre,
         [&](int oz, int oy, int ox) {
           return lbm_density_of(rho_ca[lbm_index(z + oz, y + oy, x + ox, Y, X)], gas);
         },
-        dx);
+        d6);
   }
   lap[i] = l;
 }
@@ -91,7 +91,7 @@ extern "C" int lbm_cap_derived(const float* rho_pre, const float* den_pre, const
   const long long N = static_cast<long long>(Z) * Y * X;
   lbm_cap_derived_kernel<<<lbm_blocks(N), LBM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       rho_pre, den_pre, pres_old, rho_ca, fai, prho, chi, lap, Z, Y, X, dx, dt,
-      lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid));
+      lbm_f32(6.0 * dx * dx), lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid));
   return static_cast<int>(cudaGetLastError());
 }
 

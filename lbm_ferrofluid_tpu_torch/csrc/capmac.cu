@@ -53,7 +53,7 @@ __global__ void __launch_bounds__(TX* TY, CM_SM_THREADS / (TX * TY)) lbm_capmac_
     const float* __restrict__ vel_old, float* __restrict__ vel_out,
     float* __restrict__ pres_out, float* __restrict__ force_out, float* __restrict__ dfai_out,
     float* __restrict__ dprho_out, int Z, int Y, int X, int zb, LbmCapF k, double dx,
-    double RT) {
+    float d6, double RT) {
   constexpr int EX = TX + 2, EY = TY + 2;  // the derived ring: tile and 1-cell halo
   constexpr int DX = TX + 4, DY = TY + 4;  // the density ring: tile and 2-cell halo
   constexpr int NF = HAS_CHI ? 4 : 3;      // lap, (chi), fai, prho
@@ -91,7 +91,7 @@ __global__ void __launch_bounds__(TX* TY, CM_SM_THREADS / (TX * TY)) lbm_capmac_
       if (mz >= 1 && mz <= Z - 2 && my >= 1 && my <= Y - 2 && mx >= 1 && mx <= X - 2) {
         const int ly = my - ry0 + 1, lx = mx - rx0 + 1;
         l = lbm_laplacian(
-            [&](int oz, int oy, int ox) { return dens[(mz + oz) & 3][ly + oy][lx + ox]; }, dx);
+            [&](int oz, int oy, int ox) { return dens[(mz + oz) & 3][ly + oy][lx + ox]; }, d6);
       }
       dst[0][ey][ex] = l;
       // phi at both cells, so that its load does not wait for the flag's
@@ -184,6 +184,7 @@ extern "C" int lbm_capmac(const uint8_t* flags, const float* rho_pre, const floa
                                    lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid));
   const double c = dx / dt;
   const double RT = c * c / 3.0;
+  const float d6 = lbm_f32(6.0 * dx * dx);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (zb < 1) return static_cast<int>(cudaErrorInvalidValue);
 #define CM_LAUNCH(TX_, TY_)                                                                    \
@@ -192,11 +193,11 @@ extern "C" int lbm_capmac(const uint8_t* flags, const float* rho_pre, const floa
     if (h2 != nullptr)                                                                         \
       lbm_capmac_kernel<TX_, TY_, true><<<grid, dim3(TX_, TY_), 0, st>>>(                      \
           flags, rho_pre, den_pre, pres_old, rho_ca, phi, h2, gsum, gmom, vel_old, vel_out,    \
-          pres_out, force_out, dfai_out, dprho_out, Z, Y, X, zb, k, dx, RT);                   \
+          pres_out, force_out, dfai_out, dprho_out, Z, Y, X, zb, k, dx, d6, RT);               \
     else                                                                                       \
       lbm_capmac_kernel<TX_, TY_, false><<<grid, dim3(TX_, TY_), 0, st>>>(                     \
           flags, rho_pre, den_pre, pres_old, rho_ca, phi, h2, gsum, gmom, vel_old, vel_out,    \
-          pres_out, force_out, dfai_out, dprho_out, Z, Y, X, zb, k, dx, RT);                   \
+          pres_out, force_out, dfai_out, dprho_out, Z, Y, X, zb, k, dx, d6, RT);               \
     return static_cast<int>(cudaGetLastError());                                               \
   }
   CM_TILES(CM_LAUNCH)

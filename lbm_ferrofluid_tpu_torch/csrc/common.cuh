@@ -146,25 +146,35 @@ __device__ __forceinline__ void lbm_iso_sums(F S, float g[3]) {
           S(1, 0, -1) - S(-1, 0, 1));
 }
 
+// a / b; with ZERO, a zero numerator is returned as it is, the quotient's
+// value and sign for b > 0.  The IEEE division takes a slow path for a zero
+// numerator, which B10a and B10b meet wherever a field is uniform; the
+// other kernels divide as they are (ZERO false).
+template <bool ZERO>
+__device__ __forceinline__ float lbm_div(float a, float b) {
+  return ZERO && a == 0.f ? a : a / b;
+}
+
 // The 19-point isotropic gradient, the sums divided by d12 = f32(12 dx).
-template <class F>
+template <bool ZERO = false, class F>
 __device__ __forceinline__ void lbm_iso_grad(F S, float d12, float g[3]) {
   lbm_iso_sums(S, g);
 #pragma unroll
-  for (int d = 0; d < 3; ++d) g[d] = g[d] / d12;
+  for (int d = 0; d < 3; ++d) g[d] = lbm_div<ZERO>(g[d], d12);
 }
 
-// 19-point Laplacian (2 faces + edges - 24 centre) / (6 dx^2) at an
-// interior cell; S(oz, oy, ox) returns the field at an offset from it
-// (ops/stencils.py:isotropic_laplacian).
-template <class F>
-__device__ __forceinline__ float lbm_laplacian(F S, double dx) {
+// 19-point Laplacian (2 faces + edges - 24 centre) / d6 at an interior
+// cell, with d6 = f32(6 dx^2) rounded once on the host; S(oz, oy, ox)
+// returns the field at an offset from it (ops/stencils.py:
+// isotropic_laplacian).
+template <bool ZERO = false, class F>
+__device__ __forceinline__ float lbm_laplacian(F S, float d6) {
   const float faces = S(0, 0, 1) + S(0, 0, -1) + S(0, 1, 0) + S(0, -1, 0) + S(1, 0, 0) +
                       S(-1, 0, 0);
   const float edges = S(0, 1, 1) + S(0, 1, -1) + S(0, -1, 1) + S(0, -1, -1) + S(1, 0, 1) +
                       S(1, 0, -1) + S(-1, 0, 1) + S(-1, 0, -1) + S(1, 1, 0) + S(1, -1, 0) +
                       S(-1, 1, 0) + S(-1, -1, 0);
-  return (2.f * faces + edges - 24.f * S(0, 0, 0)) / static_cast<float>(6.0 * dx * dx);
+  return lbm_div<ZERO>(2.f * faces + edges - 24.f * S(0, 0, 0), d6);
 }
 
 // ---- capillary stage (ops/collide.py:hcz_capillary) ----------------------

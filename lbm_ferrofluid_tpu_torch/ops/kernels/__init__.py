@@ -33,6 +33,7 @@ from .hcz3d import hcz_collide_fused, hcz_collide_fused_plain
 from .poisson import poisson_sweeps, poisson_sweeps_plain
 from .scalar_poisson import scalar_wavefront, scalar_wavefront_plain
 from .stencil3d import (
+    capillary_stack,
     grad_fields,
     grad_fields_plain,
     hcz_capillary_stencils,
@@ -74,6 +75,7 @@ __all__ = [
     "grad_fields_plain",
     "laplacian_field",
     "laplacian_field_plain",
+    "capillary_stack",
     "hcz_capillary_stencils",
     "poisson_sweeps",
     "poisson_sweeps_plain",
