@@ -5,7 +5,7 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
 
     python3 chip_smoke.py
     python3 chip_smoke.py --scalar-plans   # only B1's plan sweep (256^3, 130x66x130)
-    python3 chip_smoke.py --poisson-plans  # only B11b's plan sweep (256^3, 130x66x130)
+    python3 chip_smoke.py --poisson-plans  # only B11b's plan sweep (256^3, 130x66x130; f32, bf16)
     python3 chip_smoke.py --capillary-plans  # only B6's plan sweep (256^3, 130^3)
     python3 chip_smoke.py --stencil-plans  # only B10a's and B10b's (256^3, 130x66x130)
 
@@ -79,13 +79,39 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    psi) and on the stencil route's stacks of 3 and 4 fields, B10b on
    density(rho_ca), each with its plan, resident blocks and ptxas line,
    and beside a yardstick that is on no path: cuDNN's ``conv3d`` of the
-   interior then ``F.pad``, 2 calls, in full float32 (``conv3d_pad``).
+   interior then ``F.pad``, 2 calls, in full float32 (``conv3d_pad``);
+7. bfloat16 storage of f, g and h (the JAX package's turbo mode; run
+   between phases 5 and 6): each bfloat16 form (B3 at the magnetic tau 1
+   and 0.8, B4, B5 with and without ``emit_mac``, B11b at tau 1 and 0.8
+   and 30 and 7 sweeps at 34x66x130 and 130x66x130; B8b, B8a, B9 in the
+   HCZ chain at 34x66x130 and 130^3) against its plain version on phase
+   3's inputs rounded to bfloat16: B8a's and B8b's streamed values and
+   B11b bit for bit (B11b also under its chosen plan against the
+   one-sweep plan, and under every plan of ``--poisson-plans`` at
+   34x66x130), bfloat16 collide outputs equal or one ulp apart in at most
+   ``BF16_SHARE`` of the elements (further only within the float32 bar),
+   float32 outputs at phase 3's bars, B3's and B5's emission on the
+   kernel's own f'/g'.  Then the five routes in bfloat16 (Rosensweig
+   130x66x130 in the capillogue steady state with the scalar carry, the
+   channel form with bfloat16 h, un-carried and in the epilogue steady
+   state; HCZ ``multiphase_3d`` 130^3): 30 kernel steps with exact
+   launch counts (those of float32, every f/g/h kernel in its bfloat16
+   form) against 30 plain steps (within ``BF16_DENSITY`` of max|density|)
+   and 30 float32 kernel steps (the dense phase's mean level within
+   ``BF16_LEVEL`` cells), fluid mass at ``BF16_MASS`` against both; and
+   2000 steps of Rosensweig 130x66x130 in float32 and in bfloat16 (mass,
+   mean interface level, corrugation, as tests/test_bf16_physics.py);
+8. the 256^3 flagships in bfloat16 (after phase 6): Rosensweig in turbo
+   mode, on the channel form, un-carried and in the epilogue steady
+   state, and HCZ, MLUPS and ms a step, then each bfloat16 form timed
+   beside its plain version and its bfloat16 bound, B3 launch by launch.
 
 The build phase reports each kernel's registers, static shared memory and
 spills as ptxas gives them.
 
-Then it prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``.  Bounds use the H100 SXM peaks of
+Then it prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` line (a
+row for every kernel, and one for each bfloat16 form with its launches on
+phase 7's paths) and, last, ``{"ok": true, "device": {...}}``.  Bounds use the H100 SXM peaks of
 NVIDIA's data sheet: 3.35 TB/s and 67 TFLOP/s float32 (non-tensor), and
 each kernel's ``cost``: the bytes and flops that the call's own inputs need
 (an input read only at some cells counts only there).
@@ -185,9 +211,13 @@ def ptxas_summary(log: str) -> dict:
             mangled, n = m.group(1), int(m.group(2))
             start = 2 + len(m.group(2))
             cur = mangled[start:start + n]
-            targs = re.match(r"I((?:L[a-z]+\d+E)+)E", mangled[start + n:])
-            if targs:  # a template's instance: <1,13> for <true, 13>
-                cur += "<" + ",".join(re.findall(r"L[a-z]+(\d+)E", targs.group(1))) + ">"
+            targs = re.match(r"I((?:L[a-z]+\d+E|f|13__nv_bfloat16)+)E", mangled[start + n:])
+            if targs:  # a template's instance: <1,13> for <float, true, 13>,
+                # <bf16,1,13> for <__nv_bfloat16, true, 13>
+                args = ["bf16" if t else v for v, t in re.findall(
+                    r"L[a-z]+(\d+)E|(13__nv_bfloat16)", targs.group(1))]
+                if args:
+                    cur += "<" + ",".join(args) + ">"
             res.setdefault(cur, {})
         elif cur and "registers" in line:
             res[cur]["regs"] = int(re.search(r"Used (\d+) registers", line).group(1))
@@ -253,6 +283,10 @@ def seeded_inputs(res, seed, dev):
     )
 
 
+#: B11b's tile heights for each pass depth k that ``--poisson-plans`` times
+POISSON_PLAN_HEIGHTS = {1: (8, 12), 2: (8, 12, 16), 3: (5, 7, 9, 11), 4: (3, 5)}
+
+
 def poisson_seam_block(mflags, sms, n_iters):
     """``mflags`` with magnetic obstacles straddling B11b's first tile edge
     in x and in y and its first z seam, under the plan it takes for
@@ -273,9 +307,10 @@ def b11b_plan_against_one_sweep(args, kw, sms):
     import torch
 
     from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
+    from lbm_ferrofluid_tpu_torch.ops.kernels._lib import elem_bytes
 
     real = pp.plan
-    chosen = real(*args[0].shape[2:], kw["n_iters"], sms)
+    chosen = real(*args[0].shape[2:], kw["n_iters"], sms, elem_bytes(args[0]))
     one = pp.PoissonPlan(1, chosen.ty, chosen.lz, pp.passes(kw["n_iters"], 1))
     got = pp.poisson_sweeps(*args, **kw)
     pp.plan = lambda *a, **_: one
@@ -1028,12 +1063,14 @@ def blocks_per_sm(entry, *ints) -> int:
     return n.value
 
 
-def measure(K, kid, args, kw, per_call, per_step, what):
-    """Kernel-vs-plain errors, times (kernel, plain) and bound of one call."""
+def measure(K, kid, args, kw, per_call, per_step, what, rows=None):
+    """Kernel-vs-plain errors, times (kernel, plain) and bound of one call;
+    ``rows(K, kid, args, kw, what)`` gives the errors where the float32
+    bars of :func:`run_and_compare` do not apply (the bfloat16 forms)."""
     import torch
 
     k = K[kid]
-    r = run_and_compare(K, kid, args, kw, what)[1]
+    r = (rows or (lambda *a: run_and_compare(*a)[1]))(K, kid, args, kw, what)
     moved, flops = k.cost(*args, **kw)
     ms = time_cuda(lambda: k.wrapper(*args, **kw), reps=10)
     plain_ms = time_cuda(lambda: k.plain(*args, **kw), reps=2)
@@ -1131,6 +1168,40 @@ def stencil_plan_report(res, n_fields, ptxas=None):
                 ptxas={name: (ptxas or {}).get(name)})
 
 
+def next_step_calls(K, params, st):
+    """:func:`kernel_calls` at the inputs that the next step (and the
+    priming) of the primed state ``st`` give each kernel: its carried
+    macros and source, H2 from B1, rho_ca from B2."""
+    pm = st.premac
+    d = dict(s2=st.h, cmask=st.cmask, rhs=pm[5], rho_pre=pm[0], flags=st.flags,
+             f=st.f, g=st.g, den_pre=pm[2], pres=st.pressure, gsum=pm[3], gmom=pm[4],
+             vel_pre=pm[1], mflags=st.magnetic_flags, rho_old=st.rho, vel_old=st.vel,
+             H2=None, rho_ca=None)
+    calls = kernel_calls(params, d)
+    d["H2"] = K["B1"].wrapper(*calls["B1"][0], **calls["B1"][1])[1]
+    d["rho_ca"] = K["B2"].wrapper(*calls["B2"][0], **calls["B2"][1])
+    return kernel_calls(params, d)
+
+
+def epilogue_inputs(K, params, s5):
+    """The inputs that the next step of the epilogue steady state ``s5``
+    (a 5-leaf premac) gives the capillary stage and B5 (for
+    :func:`epilogue_call`): its macros, H2 from B1, rho_ca from B2."""
+    from lbm_ferrofluid_tpu_torch.ops.magnetic import poisson_rhs_scaled
+    from lbm_ferrofluid_tpu_torch.ops.moments import phi_from_density
+
+    rho_pre, vel_pre, den_pre, gsum, gmom = s5.premac
+    h_ext = tuple(params.mag_strength if a == params.h_ext_axis else 0.0 for a in range(3))
+    rhs = poisson_rhs_scaled(phi_from_density(den_pre, params.density_gas, params.density_fluid),
+                             s5.magnetic_flags, h_ext, tau=params.tau, dx=params.dx,
+                             dt=params.dt)
+    return dict(f=s5.f, g=s5.g, flags=s5.flags, rho_pre=rho_pre, vel_pre=vel_pre,
+                den_pre=den_pre, gsum=gsum, gmom=gmom, pres=s5.pressure,
+                H2=K["B1"].wrapper(s5.h, s5.cmask, rhs, n_iters=params.poisson_iters,
+                                   dx=params.dx, h_ext=h_ext)[1],
+                rho_ca=K["B2"].wrapper(rho_pre, s5.flags, params.contact_angle))
+
+
 def phase_flagship(dev, K, card):
     import torch
 
@@ -1142,16 +1213,7 @@ def phase_flagship(dev, K, card):
     torch.cuda.reset_peak_memory_stats()
     st, stats = runner.benchmark(st, n_steps=30, warmup=20)
     peak = torch.cuda.max_memory_allocated()
-    # each kernel's inputs exactly as the next step (and priming) give them
-    pm = st.premac
-    d = dict(s2=st.h, cmask=st.cmask, rhs=pm[5], rho_pre=pm[0], flags=st.flags,
-             f=st.f, g=st.g, den_pre=pm[2], pres=st.pressure, gsum=pm[3], gmom=pm[4],
-             vel_pre=pm[1], mflags=st.magnetic_flags, rho_old=st.rho, vel_old=st.vel,
-             H2=None, rho_ca=None)
-    calls = kernel_calls(params, d)
-    d["H2"] = K["B1"].wrapper(*calls["B1"][0], **calls["B1"][1])[1]
-    d["rho_ca"] = K["B2"].wrapper(*calls["B2"][0], **calls["B2"][1])
-    calls = kernel_calls(params, d)
+    calls = next_step_calls(K, params, st)
     sp = K["B1"].module
     per_call = {"B1": sp.launches_per_call(params.poisson_iters, st.rho.shape),
                 "B2": K["B2"].module.N_LAUNCHES, "B3": K["B3"].module.N_LAUNCHES, "B4": 1}
@@ -1171,23 +1233,25 @@ def phase_flagship(dev, K, card):
                              passes=list(pl.passes), smem_bytes=sp.smem_bytes(pl.k, pl.ty),
                              blocks_per_sm=blocks_per_sm("lbm_scalar_pass_occupancy",
                                                          pl.k, pl.ty))
-    out["B3"]["collide_blocks_per_sm"] = blocks_per_sm("lbm_cap_collide_occupancy")
+    out["B3"]["collide_blocks_per_sm"] = blocks_per_sm("lbm_cap_collide_occupancy", 0)
     emit({"phase": "flagship", "scene": "rosensweig_3d", "res": [256, 256, 256],
           "mlups": stats["mlups"], "seconds_30_steps": stats["seconds"],
           "peak_mem_gb": peak / 1e9, "card": card, "per_kernel": out, "ok": True})
     return out
 
 
-def b11b_plan_report(pl, tau, ptxas=None):
+def b11b_plan_report(pl, tau, ptxas=None, bf16=False):
     """B11b's plan with its shared memory, resident blocks an SM and the
-    pass kernel's ptxas line."""
+    pass kernel's ptxas line (its bfloat16 instance with ``bf16``)."""
     from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
 
     tau1 = int(1.0 / tau == 1.0)
-    name = f"lbm_poisson_pass_kernel<{tau1},{pl.ty + 2 * pl.k - 2}>"
+    name = f"lbm_poisson_pass_kernel<{'bf16,' if bf16 else ''}{tau1},{pl.ty + 2 * pl.k - 2}>"
     return dict(k=pl.k, tile=[pp.tile_width(pl.k), pl.ty], lz=pl.lz, passes=list(pl.passes),
-                threads=pp.threads(pl.k, pl.ty), smem_bytes=pp.smem_bytes(pl.k, pl.ty),
-                blocks_per_sm=blocks_per_sm("lbm_poisson_pass_occupancy", pl.k, pl.ty, tau1),
+                threads=pp.threads(pl.k, pl.ty),
+                smem_bytes=pp.smem_bytes(pl.k, pl.ty, 2 if bf16 else 4),
+                blocks_per_sm=blocks_per_sm("lbm_poisson_pass_occupancy", pl.k, pl.ty, tau1,
+                                            int(bf16)),
                 ptxas={name: (ptxas or {}).get(name)})
 
 
@@ -1255,8 +1319,6 @@ def phase_epilogue_flagship(dev, K, card):
     import torch
 
     from lbm_ferrofluid_tpu_torch.models import SimulationRunner, ferrofluid_step, rosensweig_3d
-    from lbm_ferrofluid_tpu_torch.ops.magnetic import poisson_rhs_scaled
-    from lbm_ferrofluid_tpu_torch.ops.moments import phi_from_density
 
     params, st = rosensweig_3d(res=(256, 256, 256), mag_strength=85.0, device=dev)
     out = {"phase": "epilogue_flagship", "scene": "rosensweig_3d", "res": [256, 256, 256],
@@ -1276,17 +1338,7 @@ def phase_epilogue_flagship(dev, K, card):
         stats, ms_per_step=stats["seconds"] / stats["steps"] * 1e3,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     del st
-    # the next step's inputs: its macros, H2 from B1, rho_ca from B2
-    rho_pre, vel_pre, den_pre, gsum, gmom = s5.premac
-    h_ext = tuple(params.mag_strength if a == params.h_ext_axis else 0.0 for a in range(3))
-    rhs = poisson_rhs_scaled(phi_from_density(den_pre, params.density_gas, params.density_fluid),
-                             s5.magnetic_flags, h_ext, tau=params.tau, dx=params.dx,
-                             dt=params.dt)
-    d = dict(f=s5.f, g=s5.g, flags=s5.flags, rho_pre=rho_pre, vel_pre=vel_pre, den_pre=den_pre,
-             gsum=gsum, gmom=gmom, pres=s5.pressure,
-             H2=K["B1"].wrapper(s5.h, s5.cmask, rhs, n_iters=params.poisson_iters, dx=params.dx,
-                                h_ext=h_ext)[1],
-             rho_ca=K["B2"].wrapper(rho_pre, s5.flags, params.contact_angle))
+    d = epilogue_inputs(K, params, s5)
     per_kernel = {}
     for emit_mac, label in ((False, "B5"), (True, "B5 emit_mac")):
         args, kw = epilogue_call(K, params, d, emit_mac)
@@ -1622,20 +1674,22 @@ def phase_small_grid(dev, kernels_pkg):
 
 def phase_poisson_plans(dev, card):
     """B11b on the channel-form Rosensweig scene at 256^3 and 130x66x130
-    (three warm steps from the scene, so h is no longer zero) under the
-    plans its pass kernel is built for (k = 1..4, tile heights up to the
-    shared memory limit, z chunk counts from 1 to 32 and the count that fills the
-    card once), each held bit for bit to the plan ``plan`` chooses (the
-    per-cell arithmetic is the same) and timed with CUDA events: the data
-    ``K`` and ``TY`` of ``ops/kernels/poisson.py`` were chosen from.  The
-    chosen plan is also held to the plain version at the phase 3 bars."""
+    (three warm steps from the scene, so h is no longer zero), with h in
+    float32 and rounded to bfloat16, under the plans its pass kernel is
+    built for (k = 1..4, tile heights up to the shared memory limit, z
+    chunk counts from 1 to 32 and the count that fills the card once), each
+    held bit for bit to the plan ``plan`` chooses (the per-cell arithmetic
+    is the same) and timed with CUDA events: the data ``K`` and ``TY`` of
+    ``ops/kernels/poisson.py`` were chosen from.  The chosen plan is also
+    held to the plain version at the phase 3 bars (bit for bit at
+    bfloat16)."""
     import torch
 
     from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac, rosensweig_3d
     from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
     from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
 
-    heights = {1: (8, 12), 2: (8, 12, 16), 3: (5, 7, 9, 11), 4: (3, 5)}
+    heights = POISSON_PLAN_HEIGHTS
     for res in ((256, 256, 256), (130, 66, 130)):
         Z, Y, X = res
         params, st = rosensweig_3d(res=res, mag_strength=85.0, device=dev)
@@ -1644,45 +1698,612 @@ def phase_poisson_plans(dev, card):
         for _ in range(3):
             st = ferrofluid_step(params, st, device=dev)
         n = params.poisson_iters
-        args, kw = (st.h, st.magnetic_flags, st.premac[5]), dict(tau=params.tau, n_iters=n)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        chosen = pp.plan(*res, n, sms)
-        want = pp.poisson_sweeps(*args, **kw)
-        against_plain = run_and_compare(kernels_pkg.KERNELS, "B11b", args, kw,
-                                        f"B11b chosen plan at {res}")[1]
-        rows, real = [], pp.plan
-        try:
-            for k, tys in heights.items():
-                for ty in tys:
-                    if pp.smem_bytes(k, ty) > pp.SMEM_BLOCK_MAX:
-                        continue
-                    tiles = -(-X // pp.tile_width(k)) * -(-Y // ty)
-                    fill = max(1, sms // tiles)
-                    for chunks in sorted({1, 2, 4, 8, 12, 16, 24, 32, fill} & set(range(1, Z + 1))):
-                        pl = pp.PoissonPlan(k, ty, -(-Z // chunks), pp.passes(n, k))
-                        pp.plan = lambda *a, pl=pl, **_: pl
-                        got = pp.poisson_sweeps(*args, **kw)
-                        check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                              f"B11b under plan {pl} differs from the chosen plan {chosen}")
-                        rows.append(dict(k=k, ty=ty, lz=pl.lz, smem_bytes=pp.smem_bytes(k, ty),
-                                         blocks_per_sm=blocks_per_sm(
-                                             "lbm_poisson_pass_occupancy", k, ty, 1),
-                                         ms=time_cuda(lambda: pp.poisson_sweeps(*args, **kw), 5)))
-        finally:
-            pp.plan = real
-        emit({"phase": "poisson_plans", "res": list(res), "n_iters": n, "card": card,
-              "chosen": dict(k=chosen.k, ty=chosen.ty, lz=chosen.lz,
-                             ms=time_cuda(lambda: pp.poisson_sweeps(*args, **kw), 5)),
-              "chosen_against_plain": against_plain,
-              "best": min(rows, key=lambda r: r["ms"]), "plans": rows, "ok": True})
-        del st, args, want
+        for storage in (torch.float32, torch.bfloat16):
+            bf16 = storage == torch.bfloat16
+            elem = 2 if bf16 else 4
+            args = (st.h.to(storage), st.magnetic_flags, st.premac[5])
+            kw = dict(tau=params.tau, n_iters=n)
+            chosen = pp.plan(*res, n, sms, elem)
+            want = pp.poisson_sweeps(*args, **kw)
+            K = kernels_pkg.KERNELS
+            against_plain = (bf16_rows if bf16 else lambda *a: run_and_compare(*a)[1])(
+                K, "B11b", args, kw, f"B11b chosen plan at {res} in {storage}")
+            rows, real = [], pp.plan
+            try:
+                for k, tys in heights.items():
+                    for ty in tys:
+                        if pp.smem_bytes(k, ty, elem) > pp.SMEM_BLOCK_MAX:
+                            continue
+                        tiles = -(-X // pp.tile_width(k)) * -(-Y // ty)
+                        fill = max(1, sms // tiles)
+                        for chunks in sorted({1, 2, 4, 8, 12, 16, 24, 32, fill}
+                                             & set(range(1, Z + 1))):
+                            pl = pp.PoissonPlan(k, ty, -(-Z // chunks), pp.passes(n, k))
+                            pp.plan = lambda *a, pl=pl, **_: pl
+                            got = pp.poisson_sweeps(*args, **kw)
+                            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                                  f"B11b ({storage}) under plan {pl} differs from the chosen "
+                                  f"plan {chosen}")
+                            rows.append(dict(
+                                k=k, ty=ty, lz=pl.lz, smem_bytes=pp.smem_bytes(k, ty, elem),
+                                blocks_per_sm=blocks_per_sm("lbm_poisson_pass_occupancy", k, ty,
+                                                            1, int(bf16)),
+                                ms=time_cuda(lambda: pp.poisson_sweeps(*args, **kw), 5)))
+            finally:
+                pp.plan = real
+            emit({"phase": "poisson_plans", "res": list(res), "n_iters": n,
+                  "storage": str(storage), "card": card,
+                  "chosen": dict(k=chosen.k, ty=chosen.ty, lz=chosen.lz,
+                                 ms=time_cuda(lambda: pp.poisson_sweeps(*args, **kw), 5)),
+                  "chosen_against_plain": against_plain,
+                  "best": min(rows, key=lambda r: r["ms"]), "plans": rows, "ok": True})
+            del args, want
+        del st
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- bfloat16 storage
+#: share of a bfloat16 output's elements that may be one ulp apart from the
+#: plain version's (the float32 values before rounding straddle a rounding
+#: point where FMA contraction and sum order move them by an ulp of float32)
+BF16_SHARE = 2e-3
+#: bars of a bfloat16 path (tests/test_bf16_h.py, tests/test_bf16_physics.py):
+#: max |density difference| over max|density| against plain through the
+#: initial transient; the fluid mass and the mean level of the dense phase
+#: (in cells) beyond it and against float32, since bfloat16 storage itself moves
+#: the interface: after 30 steps of the Rosensweig scene at 16x66x16 the JAX
+#: package's own bfloat16 run lies 5.0e-3 of max|density| from its float32
+#: run, and the port's 5.1e-3 (tests/test_torch_bf16_slice.py, on the CPU),
+#: where 3 steps give 2.3e-3, and the distance grows with the grid's width
+BF16_DENSITY, BF16_MASS, BF16_LEVEL = 5e-3, 5e-3, 1.0
+
+
+def turbo(params, state, dev, h="bfloat16"):
+    """``params`` with f and g stored in bfloat16 and h in ``h`` (the JAX
+    package's turbo mode), and the scene's initial state built again by
+    the init entry point in that storage (which rounds f, g and h as JAX's
+    ``astype`` does)."""
+    from lbm_ferrofluid_tpu_torch.models import init_ferrofluid_state, init_hcz_state
+
+    p = params.replace(fg_dtype="bfloat16", h_dtype=h)
+    if hasattr(state, "h"):
+        return p, init_ferrofluid_state(p, state.rho, state.density, state.vel, state.flags,
+                                        state.magnetic_flags, device=dev)
+    return p, init_hcz_state(p, state.rho, state.density, state.vel, state.flags,
+                             state.vel_pin_mask, state.vel_pin_value, device=dev)
+
+
+def compare_bf16(what, names, got, want):
+    """Per-field errors of bfloat16 outputs: each element equal to the
+    plain version's or one bfloat16 ulp (of the larger magnitude) apart, in
+    at most ``BF16_SHARE`` of the elements; raises otherwise.  An element
+    may be more than one ulp apart only where the difference is within the
+    float32 bar (``BAR_REL`` of the field's max): a collided value that
+    cancels to a millionth of the field's scale (an f' of 6e-8 among values
+    of 1e-2) keeps the float32 kernel-vs-plain difference (there 1.5 % of
+    the value before rounding), which spans several of its own ulps."""
+    import torch
+
+    rows = {}
+    for field, a, b in zip(names, flat(got), flat(want), strict=True):
+        check(a.dtype == b.dtype == torch.bfloat16, f"{what} {field}: {a.dtype}, {b.dtype}")
+        check(bool(torch.isfinite(a).all()), f"{what} {field}: non-finite values")
+        differ = a.view(torch.int16) != b.view(torch.int16)
+        a64, b64 = a.double(), b.double()
+        big = torch.maximum(a64.abs(), b64.abs())
+        ulp = torch.exp2(torch.floor(torch.log2(torch.where(big > 0, big, 1.0))) - 7)
+        err = (a64 - b64).abs()
+        share = float(differ.double().mean())
+        scale = max(float(b64.abs().max()), 1e-30)
+        over = err > ulp
+        over_rel = float(err[over].max()) / scale if bool(over.any()) else 0.0
+        rows[field] = {"max_abs_err": float(err.max()), "rel": float(err.max()) / scale,
+                       "ulp_share": share, "over_one_ulp": int(over.sum()),
+                       "over_one_ulp_max_rel": over_rel}
+        check(over_rel <= BAR_REL and share <= BF16_SHARE,
+              f"{what} {field}: {share:.2e} of the elements apart, {int(over.sum())} over one "
+              f"ulp by up to {over_rel:.2e} of the field's max")
+    return rows
+
+
+def bits_equal(what, names, got, want):
+    """Per-field rows of outputs that must equal the plain version's bit
+    for bit; raises otherwise."""
+    import torch
+
+    rows = {}
+    for field, a, b in zip(names, flat(got), flat(want), strict=True):
+        check(a.dtype == b.dtype and torch.equal(a, b), f"{what} {field}: not bit for bit")
+        rows[field] = {"max_abs_err": 0.0, "rel": 0.0, "bit_for_bit": True}
+    return rows
+
+
+def bf16_rows(K, kid, args, kw, what):
+    """Call bfloat16 form ``kid`` and its plain version on the same inputs
+    and hold them to each other: streamed values (B8a, B8b) and B11b bit
+    for bit, bfloat16 collide outputs (B3, B5, B9) within one ulp in a
+    bounded share, float32 outputs at phase 3's bars.  A float32 output
+    computed from a bfloat16 intermediate (B3's and B5's emission) is held
+    to the plain stage fed the kernel's own f'/g', so that a one-ulp flip
+    is not counted twice."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.magnetic import poisson_rhs_scaled
+    from lbm_ferrofluid_tpu_torch.ops.moments import phi_from_density
+
+    got = K[kid].wrapper(*args, **kw)
+    want = K[kid].plain(*args, **kw)
+    torch.cuda.synchronize()
+    names = OUTPUTS[kid][:len(flat(got))]
+    if kid in ("B8a", "B8b"):
+        return dict(bits_equal(what, names[:1], got[:1], want[:1]),
+                    **compare(what, names[1:], got[1:], want[1:]))
+    if kid == "B11b":
+        return bits_equal(what, names, got, want)
+    if kid == "B4":
+        return compare(what, names, got, want)
+    rows = compare_bf16(what, names[:2], got[:2], want[:2])
+    if kid == "B3":
+        rows.update(compare(what, names[2:5], got[2:5], want[2:5]))
+        flags, rho_ca, mflags = args[2], args[6], args[11]
+        c, gas = kw["dx"] / kw["dt"], {n: kw[n] for n in
+                                       ("rho_gas", "rho_fluid", "density_gas", "density_fluid")}
+        mac = K["B4"].plain(got[0], got[1], flags, rho_ca, got[2], c=c, **gas)
+        axis, hm, tau_mag = kw["emit_rhs"]
+        rhs = poisson_rhs_scaled(
+            phi_from_density(mac[2], gas["density_gas"], gas["density_fluid"]), mflags,
+            tuple(hm if a == axis else 0.0 for a in range(3)), tau=tau_mag, dx=kw["dx"],
+            dt=kw["dt"])
+        rows.update(compare(f"{what} (emission on its own f'/g')", names[5:], got[5],
+                            mac + (rhs,)))
+    elif kid == "B5" and kw.get("emit_mac"):
+        c, rg, rf, dg, df = kw["mac_consts"]
+        mac = K["B4"].plain(got[0], got[1], args[2], args[3], args[4], c=c, rho_gas=rg,
+                            rho_fluid=rf, density_gas=dg, density_fluid=df)
+        rows.update(compare(f"{what} (emission on its own f'/g')", names[2:], got[2], mac))
+    return rows
+
+
+def b11b_bf16_plans(K, h, mflags, rhs, res):
+    """B11b at bfloat16 h under every plan ``--poisson-plans`` times (k =
+    1..4 at its tile heights, z chunks of 1, 4 and the count that fills the
+    card once), each bit for bit with the plain version (30 sweeps, tau 1)."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
+
+    Z, Y, X = res
+    kw = dict(tau=1.0, n_iters=30)
+    want = K["B11b"].plain(h, mflags, rhs, **kw)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans, real = [], pp.plan
+    try:
+        for k, tys in POISSON_PLAN_HEIGHTS.items():
+            for ty in tys:
+                if pp.smem_bytes(k, ty, 2) > pp.SMEM_BLOCK_MAX:
+                    continue
+                fill = max(1, sms // (-(-X // pp.tile_width(k)) * -(-Y // ty)))
+                for chunks in sorted({1, 4, fill} & set(range(1, Z + 1))):
+                    pl = pp.PoissonPlan(k, ty, -(-Z // chunks), pp.passes(30, k))
+                    pp.plan = lambda *a, pl=pl, **_: pl
+                    got = pp.poisson_sweeps(h, mflags, rhs, **kw)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                          f"B11b bf16 under plan {pl} differs from the plain version")
+                    plans.append([k, ty, pl.lz])
+    finally:
+        pp.plan = real
+    return {"plans_bit_for_bit": plans}
+
+
+def phase_kernels_bf16(dev, K):
+    """The bfloat16 forms against their plain versions (phase 3's inputs
+    rounded to bfloat16): B4, B3 at the magnetic tau 1 and 0.8, B5 with and
+    without ``emit_mac``, B11b at tau 1 and 0.8 and at 30 and 7 sweeps (its
+    chosen plan also against the one-sweep plan, and every plan of
+    ``--poisson-plans`` at 34x66x130), at 34x66x130 and 130x66x130; the HCZ
+    chain's B8b, B8a and B9 at 34x66x130 and 130^3."""
+    import torch
+
+    bf = torch.bfloat16
+    worst = {kid: 0.0 for kid in ("B3", "B4", "B5", "B8a", "B8b", "B9", "B11b")}
+    rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def log(kid, label, res, r, **extra):
+        err = max(v["max_abs_err"] for v in r.values())
+        worst[kid] = max(worst[kid], err)
+        rows.append({"kernel": label, "res": list(res), **extra, "max_abs_err": err,
+                     "max_ulp_share": max(v.get("ulp_share", 0.0) for v in r.values())})
+
+    for res, seed in (((34, 66, 130), 1), ((130, 66, 130), 2)):
+        params, d = seeded_inputs(res, seed, dev)
+        d["rho_ca"] = K["B2"].wrapper(d["rho_pre"], d["flags"], params.contact_angle)
+        d = dict(d, f=d["f"].to(bf), g=d["g"].to(bf), h=d["h"].to(bf))
+        for kid, p in (("B4", params), ("B3", params), ("B3", params.replace(tau=0.8))):
+            args, kw = kernel_calls(p, d)[kid]
+            log(kid, f"{kid} bf16", res, bf16_rows(K, kid, args, kw, f"{kid} bf16 tau={p.tau}"),
+                tau=p.tau)
+        for emit_mac in (False, True):
+            args, kw = epilogue_call(K, params, d, emit_mac)
+            log("B5", "B5 bf16", res,
+                bf16_rows(K, "B5", args, kw, f"B5 bf16 emit_mac={emit_mac} at {res}"),
+                emit_mac=emit_mac)
+        mfl = poisson_seam_block(d["mflags_block"], sms, params.poisson_iters)
+        for tau in (1.0, 0.8):
+            for n in (params.poisson_iters, 7):
+                args, kw = (d["h"], mfl, d["rhs"]), dict(tau=tau, n_iters=n)
+                r = bf16_rows(K, "B11b", args, kw, f"B11b bf16 tau={tau} n_iters={n} at {res}")
+                log("B11b", "B11b bf16", res, r, tau=tau, n_iters=n,
+                    against_one_sweep_plan=b11b_plan_against_one_sweep(args, kw, sms))
+        if res == (34, 66, 130):
+            rows.append({"kernel": "B11b bf16 plan sweep", "res": list(res),
+                         **b11b_bf16_plans(K, d["h"], mfl, d["rhs"], res)})
+        del d
+    for res, seed in (((34, 66, 130), 3), ((130, 130, 130), 4)):
+        params, d = hcz_seeded_inputs(res, seed, dev)
+        d = dict(d, f=d["f"].to(bf), g=d["g"].to(bf))
+
+        def record(label, kid, args, kw):
+            if kid in worst:
+                log(kid, f"{label} bf16", res, bf16_rows(K, kid, args, kw,
+                                                          f"{label} bf16 at {res}"))
+            return K[kid].wrapper(*args, **kw)
+
+        hcz_chain(K, params, d, record)
+    emit({"phase": "kernels_bf16", "bar_rel": BAR_REL, "bar_vel_abs": BAR_VEL_ABS,
+          "bar_ulp_share": BF16_SHARE, "checks": rows, "ok": True})
+    return worst
+
+
+def dense_level(params, state) -> float:
+    """Mean level of the dense phase: the cells above the midpoint of the
+    two phases' densities, per (z, x) column (the Rosensweig pool's mean
+    interface height; for a drop, its volume over the floor's area)."""
+    mid = 0.5 * (params.density_gas + params.density_fluid)
+    den = state.density[0, 0]
+    return float((den > mid).sum()) / (den.shape[0] * den.shape[2])
+
+
+def against(what, params, sk, sref, fields, pointwise):
+    """The statistical bars of a bfloat16 run against another run: every
+    field finite, fluid mass at rtol ``BF16_MASS``, and with
+    ``pointwise`` max |density difference| within ``BF16_DENSITY`` of
+    max|density|, else the mean level of the dense phase within
+    ``BF16_LEVEL`` cells (the distance is reported either way).  Returns
+    the row; ``row["failed"]`` holds what missed its bar."""
+    import torch
+
+    failed = [f"{what}: {n} not finite" for n in fields
+              if not bool(torch.isfinite(getattr(sk, n).float()).all())]
+    dd = float((sk.density.double() - sref.density.double()).abs().max())
+    scale = float(sref.density.double().abs().max())
+    m, mref = fluid_mass(sk), fluid_mass(sref)
+    level = dense_level(params, sk) - dense_level(params, sref)
+    row = {"max_abs_density_diff": dd, "density_scale": scale, "density_rel": dd / scale,
+           "fluid_mass": m, "fluid_mass_ref": mref, "mass_rel": abs(m / mref - 1.0),
+           "dense_level_diff": level}
+    if abs(m / mref - 1.0) > BF16_MASS:
+        failed.append(f"{what}: mass {abs(m / mref - 1.0):.2e} apart")
+    if pointwise and dd > BF16_DENSITY * scale:
+        failed.append(f"{what}: density {dd / scale:.2e} of max apart")
+    if not pointwise and abs(level) > BF16_LEVEL:
+        failed.append(f"{what}: dense phase {level:.3f} cells apart")
+    return dict(row, failed=failed)
+
+
+def phase_bf16_main(dev, kernels_pkg, card):
+    """The five routes in bfloat16 storage (f, g and h; the scalar carry
+    stays float32): Rosensweig 130x66x130 in the capillogue steady state
+    with the scalar carry, the channel form (bfloat16 h), the un-carried
+    step and the epilogue steady state, and HCZ ``multiphase_3d`` at 130^3.
+    Each: counters zeroed just before 30 kernel steps and read just after
+    (the float32 counts a step, every kernel that reads or writes f, g or h
+    in its bfloat16 form); then 30 plain steps and 30 float32 kernel steps
+    from the same scene.  Held, as tests/test_bf16_physics.py holds the
+    JAX package's turbo mode, pointwise through the sharp initial
+    interface's transient and statistically beyond it: against plain,
+    max |density difference| within ``BF16_DENSITY`` after 10 steps (the
+    one-ulp flips in which any two bfloat16 runs differ grow through the
+    transient; the rows report the distance after 10 and after 30 steps),
+    and one plain step from the kernels' state after 29 steps against their 30th
+    (f, g within one ulp in a bounded share, the macros at phase 3's
+    bars); after 30 steps, against plain and against float32, fluid mass
+    at ``BF16_MASS`` and the dense phase's mean level within
+    ``BF16_LEVEL`` cells, the pointwise distance reported."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import (
+        ferrofluid_step, hcz_step, multiphase_3d, rosensweig_3d,
+    )
+
+    K = kernels_pkg.KERNELS
+    out = {"phase": "bf16_main_paths", "card": card, "bar_density_10_steps": BF16_DENSITY,
+           "bar_mass": BF16_MASS, "bar_level_cells": BF16_LEVEL}
+    total = {kid: 0 for kid in kernels_pkg.BF16_FORMS}
+    params, s0 = rosensweig_3d(device=dev)
+    n = params.poisson_iters
+    b1 = K["B1"].module.launches_per_call(n, s0.rho.shape)
+    b11b = K["B11b"].module.launches_per_call(n, s0.rho.shape)
+    hp, hs0 = multiphase_3d(device=dev)
+    routes = (
+        ("capillogue steady state", params, s0, primed, {"B1": b1, "B2": 1, "B3": 4},
+         {"B4": 1}),
+        ("channel form", params.replace(scalar_carry=False), s0, primed,
+         {"B11b": b11b, "B10a": 1, "B2": 1, "B3": 4}, {"B4": 1}),
+        ("un-carried", params, s0, None,
+         {"B4": 1, "B11b": b11b, "B10a": 1, "B2": 1, "B6": 1, "B5": 1}, {}),
+        ("epilogue steady state", params, s0, epilogue_state,
+         {"B1": b1, "B2": 1, "B6": 1, "B5": 2}, {"B4": 1}),
+        ("hcz", hp, hs0, None, {"B8b": 1, "B8a": 1, "B2": 1, "B6": 1, "B9": 1}, {}),
+    )
+    failed = []
+    for label, p, s32, prep, per_step, extra in routes:
+        p16, s16 = turbo(p, s32, dev)
+        step = hcz_step if label == "hcz" else ferrofluid_step
+        fields = ("f", "g", "rho", "vel", "density", "pressure") + (
+            () if label == "hcz" else ("h",))
+        kernels_pkg.reset_launch_counts()
+        sk = prep(p16, dev)(s16, False) if prep else s16
+        for i in range(30):
+            if i == 10:
+                sk10 = sk
+            if i == 29:
+                sk29 = sk
+            sk = step(p16, sk, device=dev)
+        torch.cuda.synchronize()
+        launches = kernels_pkg.launch_counts()
+        bf16 = kernels_pkg.launch_counts(kernels_pkg.BF16_FORMS, bf16=True)
+        check_launches(f"bf16 {label}", launches, per_step, 30, extra=extra)
+        check(all(bf16[kid] == launches[kid] for kid in bf16) and any(bf16.values()),
+              f"bf16 {label}: a kernel ran its float32 form on bfloat16 storage: {bf16}")
+        check(sk.f.dtype == sk.g.dtype == torch.bfloat16
+              and (label == "hcz" or sk.h.dtype == (torch.float32 if sk.h.shape[1] == 2
+                                                     else torch.bfloat16)),
+              f"bf16 {label}: the state left its storage")
+        one = step(p16, sk29, device=dev, plain=True)
+        names = ("f", "g", "rho", "vel", "density", "pressure")
+        one_step = dict(
+            compare_bf16(f"bf16 {label} step 30 vs a plain step", names[:2],
+                         [sk.f, sk.g], [one.f, one.g]),
+            **compare(f"bf16 {label} step 30 vs a plain step", names[2:],
+                      [getattr(sk, n) for n in names[2:]], [getattr(one, n) for n in names[2:]]))
+        del sk29, one
+        sp = prep(p16, dev)(s16, True) if prep else s16
+        for i in range(30):
+            if i == 10:
+                sp10 = sp
+            sp = step(p16, sp, device=dev, plain=True)
+        sf = prep(p, dev)(s32, False) if prep else s32
+        for _ in range(30):
+            sf = step(p, sf, device=dev)
+        row = {
+            "res": list(sk.rho.shape[2:]), "steps": sk.step,
+            "h": None if label == "hcz" else [sk.h.shape[1], str(sk.h.dtype)],
+            "against_plain_after_10_steps": against(f"bf16 {label} vs plain at 10 steps", p16,
+                                                    sk10, sp10, fields, pointwise=True),
+            "step_30_against_a_plain_step": one_step,
+            "against_plain_after_30_steps": against(f"bf16 {label} vs plain", p16, sk, sp,
+                                                    fields, pointwise=False),
+            "against_float32_after_30_steps": against(f"bf16 {label} vs float32", p16, sk, sf,
+                                                      fields, pointwise=False),
+            "launches": {kid: v for kid, v in launches.items() if v},
+            "launches_bf16_form": {kid: v for kid, v in bf16.items() if v},
+            "launches_a_step": sum(per_step.values()),
+        }
+        failed += [m for key in ("against_plain_after_10_steps", "against_plain_after_30_steps",
+                                 "against_float32_after_30_steps") for m in row[key]["failed"]]
+        out[label] = row
+        for kid in total:
+            total[kid] += bf16[kid]
+        del sk, sp, sf, s16, sk10, sp10
+        torch.cuda.empty_cache()
+    emit(dict(out, finite=True, ok=not failed))
+    check(not failed, "; ".join(failed))
+    return total
+
+
+def interface_heights(params, state):
+    """Fill height of the pool in each (z, x) column: the cells along y
+    whose density is above the midpoint of the two phases' densities (the
+    Rosensweig scene's field and pool are along y)."""
+    import torch
+
+    mid = 0.5 * (params.density_gas + params.density_fluid)
+    return (state.density[0, 0] > mid).sum(dim=1).to(torch.float64)
+
+
+#: bars of the long horizon: the bfloat16 kernels against the bfloat16
+#: plain path (fluid mass), and bfloat16 against float32 (fluid mass; the
+#: dense phase's level in cells, as tests/test_bf16_physics.py).  The JAX
+#: package's own bfloat16 run of this scene loses its float32 run's mass
+#: by more than that test's 5e-3 within 300 steps (5.1e-3 at 16x66x16, the
+#: port's plain path 5.2e-3: tests/test_torch_bf16_slice.py), so bfloat16
+#: against float32 is held at 2e-2 and the kernels' own share of the
+#: drift, against the plain path that computes the same function, at 1e-3
+LONG_MASS_PLAIN, LONG_MASS_F32, LONG_LEVEL = 1e-3, 2e-2, 1.0
+
+
+def phase_long_horizon(dev, card, steps=2000):
+    """``steps`` (2000) kernel steps of Rosensweig 130x66x130 (the
+    capillogue steady state) in float32 and in bfloat16 storage from the
+    same scene, and ``steps // 2`` bfloat16 steps on the plain path:
+    bfloat16 kernels against plain at ``LONG_MASS_PLAIN`` (fluid mass) and
+    the dense phase's mean level within ``LONG_LEVEL`` cells; bfloat16
+    against float32 at ``LONG_MASS_F32`` and the mean interface level
+    within ``LONG_LEVEL`` cells, as tests/test_bf16_physics.py holds the
+    JAX package's turbo mode; the corrugation amplitude and the pointwise
+    height difference are printed, and held to that test's bars only
+    where the float32 run corrugated by 2 cells or more."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac, rosensweig_3d
+    from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
+
+    params, s0 = rosensweig_3d(device=dev)
+    p16, s16 = turbo(params, s0, dev)
+    runs = {}
+    for label, p, s, n, plain in (("float32", params, s0, steps, False),
+                                  ("bfloat16", p16, s16, steps, False),
+                                  ("bfloat16 plain", p16, s16, steps // 2, True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = prime_premac(p, s, device=dev, plain=plain)
+        marks = {}
+        for i in range(1, n + 1):
+            st = ferrofluid_step(p, st, device=dev, plain=plain)
+            if i == steps // 2:
+                marks = {"mass": fluid_mass(st), "level": dense_level(p, st)}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        assert_finite(st)
+        runs[label] = {"state": st, "heights": interface_heights(p, st), "seconds": seconds,
+                       "mlups": st.rho.numel() * n / seconds / 1e6, "half": marks}
+    a, b, c = runs["float32"], runs["bfloat16"], runs["bfloat16 plain"]
+    amp32 = float(a["heights"].max() - a["heights"].min())
+    amp16 = float(b["heights"].max() - b["heights"].min())
+    mean_diff = float(b["heights"].mean() - a["heights"].mean())
+    pointwise = (b["heights"] - a["heights"]).abs()
+    m32, m16 = fluid_mass(a["state"]), fluid_mass(b["state"])
+    half = {k: {"mass": v["half"]["mass"], "dense_level": v["half"]["level"]}
+            for k, v in runs.items()}
+    plain_mass = abs(b["half"]["mass"] / c["half"]["mass"] - 1.0)
+    plain_level = b["half"]["level"] - c["half"]["level"]
+    row = {"phase": "long_horizon", "scene": "rosensweig_3d", "res": list(s0.rho.shape[2:]),
+           "steps": steps, "card": card,
+           "fluid_mass": {"float32": m32, "bfloat16": m16, "rel": abs(m16 / m32 - 1.0)},
+           "at_half": dict(half, bf16_kernels_vs_plain_mass_rel=plain_mass,
+                           bf16_kernels_vs_plain_level_diff=plain_level),
+           "mean_interface_level": {"float32": float(a["heights"].mean()),
+                                    "bfloat16": float(b["heights"].mean()), "diff": mean_diff},
+           "corrugation_amplitude": {"float32": amp32, "bfloat16": amp16},
+           "pointwise_height_diff": {"max": float(pointwise.max()),
+                                     "mean": float(pointwise.mean())},
+           "seconds": {k: v["seconds"] for k, v in runs.items()},
+           "mlups": {k: v["mlups"] for k, v in runs.items()},
+           "bars": {"mass_vs_plain": LONG_MASS_PLAIN, "mass_vs_float32": LONG_MASS_F32,
+                    "level_cells": LONG_LEVEL}}
+    row["corrugated"] = amp32 >= 2
+    failed = []
+    if plain_mass > LONG_MASS_PLAIN or abs(plain_level) > LONG_LEVEL:
+        failed.append(f"long horizon: bf16 kernels vs plain mass {plain_mass:.2e}, "
+                      f"level {plain_level:.3f} cells")
+    if abs(m16 / m32 - 1.0) > LONG_MASS_F32:
+        failed.append(f"long horizon: fluid mass {m16} vs {m32}")
+    if abs(mean_diff) > LONG_LEVEL:
+        failed.append(f"long horizon: mean interface level {mean_diff} cells apart")
+    if row["corrugated"] and not 0.3 * amp32 <= amp16 <= 3.0 * amp32:
+        failed.append(f"long horizon: corrugation {amp16} against {amp32}")
+    if row["corrugated"] and float(pointwise.mean()) > 3.0:
+        failed.append(f"long horizon: mean pointwise height difference {float(pointwise.mean())}")
+    emit(dict(row, ok=not failed))
+    check(not failed, "; ".join(failed))
+
+
+def phase_bf16_flagships(dev, K, card, ptxas=None):
+    """The 256^3 flagships in bfloat16 storage: MLUPS over warm steps of the
+    Rosensweig scene (mag_strength 85) in the capillogue steady state with
+    the scalar carry (turbo), on the channel form (bfloat16 h), un-carried
+    and in the epilogue steady state, and of HCZ ``multiphase_3d``; then
+    each bfloat16 form at the inputs the next step gives it, timed beside
+    its plain version and its bfloat16 bound (``cost``), B3 launch by
+    launch and B11b with its plan."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import (
+        SimulationRunner, ferrofluid_step, hcz_step, multiphase_3d, rosensweig_3d,
+    )
+    from lbm_ferrofluid_tpu_torch.ops.kernels import capillogue, fused_step
+
+    res = (256, 256, 256)
+    out = {"phase": "bf16_flagships", "res": list(res), "card": card}
+    per_kernel = {}
+
+    def steps(label, p, s, run):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        s, stats = run(p, s)
+        out[label] = dict(stats, ms_per_step=stats["seconds"] / stats["steps"] * 1e3,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        return s
+
+    def bench(p, s, n=20, warm=10):
+        return SimulationRunner(p, ferrofluid_step, device=dev).benchmark(
+            s, n_steps=n, warmup=warm)
+
+    params, s32 = rosensweig_3d(res=res, mag_strength=85.0, device=dev)
+    p16, s16 = turbo(params, s32, dev)
+    del s32
+    st = steps("turbo", p16, s16, lambda p, s: bench(p, s, 30, 20))
+    calls = next_step_calls(K, p16, st)
+    for kid, n in (("B3", K["B3"].module.N_LAUNCHES), ("B4", 1)):
+        per_kernel[kid] = measure(K, kid, *calls[kid], n, 0 if kid == "B4" else n,
+                                  f"{kid} bf16 at 256^3", rows=bf16_rows)
+    per_kernel["B3"]["split"] = launch_split(
+        [capillogue, fused_step], lambda: K["B3"].wrapper(*calls["B3"][0], **calls["B3"][1]),
+        reps=10)
+    per_kernel["B3"]["collide_blocks_per_sm"] = blocks_per_sm("lbm_cap_collide_occupancy", 1)
+    del st, calls
+
+    _, s16 = turbo(params, rosensweig_3d(res=res, mag_strength=85.0, device=dev)[1], dev)
+    pc = p16.replace(scalar_carry=False)
+    st = steps("channel_form", pc, s16, bench)
+    check(st.h.shape[1] == 19 and st.h.dtype == torch.bfloat16, "256^3 bf16 channel form")
+    args, kw = (st.h, st.magnetic_flags, st.premac[5]), dict(tau=pc.tau, n_iters=pc.poisson_iters)
+    pp = K["B11b"].module
+    n = pp.launches_per_call(pc.poisson_iters, st.h.shape)
+    per_kernel["B11b"] = measure(K, "B11b", args, kw, n, n, "B11b bf16 at 256^3",
+                                 rows=bf16_rows)
+    per_kernel["B11b"]["plan"] = b11b_plan_report(
+        pp.plan(*res, pc.poisson_iters, torch.cuda.get_device_properties(0).multi_processor_count,
+                2), pc.tau, ptxas, bf16=True)
+    del st, args
+
+    _, s16 = turbo(params, rosensweig_3d(res=res, mag_strength=85.0, device=dev)[1], dev)
+    su = steps("uncarried", p16, s16, lambda p, s: timed_steps(p, s, ferrofluid_step, dev,
+                                                               n_steps=20, warmup=10))
+    check(su.premac is None and su.h.dtype == torch.bfloat16, "256^3 bf16 un-carried")
+    del su
+    s5 = steps("epilogue_steady_state", p16, epilogue_state(p16, dev)(s16, False), bench)
+    check(len(s5.premac) == 5, "256^3 bf16 epilogue: the state changed form")
+    del s16
+    d = epilogue_inputs(K, p16, s5)
+    for emit_mac, label in ((False, "B5"), (True, "B5 emit_mac")):
+        args, kw = epilogue_call(K, p16, d, emit_mac)
+        n = 2 if emit_mac else 1
+        per_kernel[label] = measure(K, "B5", args, kw, n, n, f"{label} bf16 at 256^3",
+                                    rows=bf16_rows)
+    del s5, d, args
+    torch.cuda.empty_cache()
+
+    hp, hs = multiphase_3d(res=res, device=dev)
+    hp16, hs16 = turbo(hp, hs, dev)
+    del hs
+    st = steps("hcz", hp16, hs16, lambda p, s: SimulationRunner(p, hcz_step, device=dev).benchmark(
+        s, n_steps=30, warmup=20))
+    d = dict(flags=st.flags, f=st.f, g=st.g, rho_old=st.rho, vel_old=st.vel, pres=st.pressure,
+             H2=torch.full_like(st.rho, 1e4))
+
+    def record(label, kid, args, kw):
+        if kid in ("B8a", "B8b", "B9") and label == kid:
+            per_kernel[kid] = measure(K, kid, args, kw, 1, 1, f"{kid} bf16 at 256^3",
+                                      rows=bf16_rows)
+        return K[kid].wrapper(*args, **kw)
+
+    hcz_chain(K, hp16, d, record)
+    del st, d
+    torch.cuda.empty_cache()
+    emit(dict(out, per_kernel=per_kernel, ok=True))
+    return per_kernel
+
+
 def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
-    """Phases 3-6; returns one row per kernel for the ``kernels`` line.
-    ``launches`` sums the kernel's launches over the main paths of phase 5
-    that run it (B2, B3 and B4 over both ferrofluid solves)."""
+    """Phases 3-8; returns one row per kernel for the ``kernels`` line, and
+    one per bfloat16 form.  ``launches`` sums the kernel's launches over
+    the main paths of phase 5 that run it (B2, B3 and B4 over both
+    ferrofluid solves), and a bfloat16 form's its launches over phase 7's
+    bfloat16 main paths."""
     K = kernels_pkg.KERNELS
     worst = phase_kernels(dev, K)
     phase_golden(dev)
@@ -1694,6 +2315,9 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
                 phase_epilogue_main(dev, kernels_pkg, smi),
                 phase_stencils_main(dev, kernels_pkg, smi)]
     launches = {kid: sum(p.get(kid, 0) for p in per_path) for kid in K}
+    worst16 = phase_kernels_bf16(dev, K)
+    launches16 = phase_bf16_main(dev, kernels_pkg, smi)
+    phase_long_horizon(dev, smi)
     flag = phase_flagship(dev, K, smi)
     flag.update(phase_channel_flagship(dev, K, smi, ptxas))
     epi = phase_epilogue_flagship(dev, K, smi)
@@ -1703,6 +2327,9 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     flag["B10a"]["max_abs_err"] = max(flag["B10a"]["max_abs_err"],
                                       *(hcz_flag[f"B10a N={n}"]["max_abs_err"] for n in (3, 4)))
     flag.update({kid: v for kid, v in hcz_flag.items() if kid in K and kid != "B2"})
+    flag16 = phase_bf16_flagships(dev, K, smi, ptxas)
+    flag16["B5"] = dict(flag16["B5"], max_abs_err=max(flag16["B5"]["max_abs_err"],
+                                                       flag16["B5 emit_mac"]["max_abs_err"]))
     return [{
         "name": f"{kid} {k.wrapper.__name__}", "route": "cuda",
         "source": k.module.CUDA_SOURCE, "replaces": k.tpu_kernel,
@@ -1712,7 +2339,15 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
         "bound_ms": flag[kid]["bound_ms"], "bound_by": flag[kid]["bound_by"],
         "library_ms": None,
         **({"conv3d_pad_ms": flag[kid]["conv3d_pad"]["ms"]} if "conv3d_pad" in flag[kid] else {}),
-    } for kid, k in K.items()]
+    } for kid, k in K.items()] + [{
+        "name": f"{kid} {K[kid].wrapper.__name__} bf16", "route": "cuda",
+        "source": K[kid].module.CUDA_SOURCE, "replaces": K[kid].tpu_kernel,
+        "launches": launches16[kid],
+        "max_abs_err": max(worst16[kid], flag16[kid]["max_abs_err"]),
+        "ms": flag16[kid]["ms"], "plain_ms": flag16[kid]["plain_ms"],
+        "bound_ms": flag16[kid]["bound_ms"], "bound_by": flag16[kid]["bound_by"],
+        "library_ms": None,
+    } for kid in kernels_pkg.BF16_FORMS]
 
 
 def main() -> int:

@@ -52,6 +52,15 @@
 // it: (c) reads f' and g' again, (a) and (d) round-trip scratch fields,
 // and (b) moves its own bytes below the memory's rate, with 16 warps an
 // SM to hide the latency of 38 pulls a cell.
+//
+// In bfloat16 storage (the JAX package's turbo mode) launches (b) and (c)
+// are the T = __nv_bfloat16 instances: (b) pulls bfloat16 f and g, widens
+// them exactly, collides in float32 and rounds once, on the store of f'
+// and g'; (c) reads those stored bfloat16 values, as the TPU kernel's
+// emission re-streams f'/g' through the storage dtype (capillogue.py
+// :593-594).  (a) and (d) read only float32 fields.  f, g, f' and g' then
+// take 38 B a cell each: 230 B per cell plus 20 B per fluid and 12 B per
+// other cell, 1.23 ms at 256^3.
 #include "common.cuh"
 
 __global__ void lbm_cap_derived_kernel(const float* __restrict__ rho_pre,
@@ -101,14 +110,15 @@ extern "C" int lbm_cap_derived(const float* rho_pre, const float* den_pre, const
 #define CAP_EX (CAP_TX + 2)
 #define CAP_EY (CAP_TY + 2)
 
+template <class T>
 __global__ void __launch_bounds__(CAP_TX* CAP_TY, 2) lbm_cap_collide_kernel(
-    const float* __restrict__ f, const float* __restrict__ g, const uint8_t* __restrict__ flags,
+    const T* __restrict__ f, const T* __restrict__ g, const uint8_t* __restrict__ flags,
     const float* __restrict__ rho_ca, const float* __restrict__ h2,
     const float* __restrict__ gsum, const float* __restrict__ gmom,
     const float* __restrict__ vel_old, const float* __restrict__ pres_old,
     const float* __restrict__ fai, const float* __restrict__ prho,
-    const float* __restrict__ chi, const float* __restrict__ lap, float* __restrict__ f_out,
-    float* __restrict__ g_out, float* __restrict__ vel_out, float* __restrict__ pres_out,
+    const float* __restrict__ chi, const float* __restrict__ lap, T* __restrict__ f_out,
+    T* __restrict__ g_out, float* __restrict__ vel_out, float* __restrict__ pres_out,
     float* __restrict__ den_out, int Z, int Y, int X, LbmCapF kc, LbmHczK kh) {
   // lap, chi, fai, prho of three z planes of the tile and its halo, as the
   // taps read them
@@ -153,11 +163,11 @@ __global__ void __launch_bounds__(CAP_TX* CAP_TY, 2) lbm_cap_collide_kernel(
     lbm_pull_at(f, N, i, po, obs, post);
     if (fluid) lbm_hcz_collide_f(h, kh, post);
 #pragma unroll
-    for (int q = 0; q < 19; ++q) f_out[q * N + i] = post[q];
+    for (int q = 0; q < 19; ++q) lbm_st(f_out + q * N + i, post[q]);
     lbm_pull_at(g, N, i, po, obs, post);
     if (fluid) lbm_hcz_collide_g(h, kh, post);
 #pragma unroll
-    for (int q = 0; q < 19; ++q) g_out[q * N + i] = post[q];
+    for (int q = 0; q < 19; ++q) lbm_st(g_out + q * N + i, post[q]);
   });
 }
 
@@ -190,22 +200,44 @@ __global__ void lbm_cap_rhs_kernel(const float* __restrict__ den,
   rhs[i] = (static_cast<float>(dt) * r) * static_cast<float>(cs2 * (0.5 - tau) * dt);
 }
 
-extern "C" int lbm_cap_collide(const float* f, const float* g, const uint8_t* flags,
+template <class T>
+static void lbm_cap_collide_launch(const void* f, const void* g, const uint8_t* flags,
+                                   const float* rho_ca, const float* h2, const float* gsum,
+                                   const float* gmom, const float* vel_old, const float* pres_old,
+                                   const float* fai, const float* prho, const float* chi,
+                                   const float* lap, void* f_out, void* g_out, float* vel_out,
+                                   float* pres_out, float* den_out, int Z, int Y, int X,
+                                   const LbmCapF& kc, const LbmHczK& kh, cudaStream_t stream) {
+  const dim3 grid((X + CAP_TX - 1) / CAP_TX, (Y + CAP_TY - 1) / CAP_TY, (Z + CAP_ZB - 1) / CAP_ZB);
+  lbm_cap_collide_kernel<T><<<grid, dim3(CAP_TX, CAP_TY), 0, stream>>>(
+      static_cast<const T*>(f), static_cast<const T*>(g), flags, rho_ca, h2, gsum, gmom, vel_old,
+      pres_old, fai, prho, chi, lap, static_cast<T*>(f_out), static_cast<T*>(g_out), vel_out,
+      pres_out, den_out, Z, Y, X, kc, kh);
+}
+
+// f, g, f_out and g_out in float32, or in bfloat16 where bf16 is nonzero
+extern "C" int lbm_cap_collide(const void* f, const void* g, const uint8_t* flags,
                                const float* rho_ca, const float* h2, const float* gsum,
                                const float* gmom, const float* vel_old, const float* pres_old,
                                const float* fai, const float* prho, const float* chi,
-                               const float* lap, float* f_out, float* g_out, float* vel_out,
+                               const float* lap, void* f_out, void* g_out, float* vel_out,
                                float* pres_out, float* den_out, int Z, int Y, int X,
                                double kappa, double grav_x, double grav_y, double grav_z,
                                double mu0_half, double tau_f, double tau_g, double dx, double dt,
                                double rho_gas, double rho_fluid, double den_gas,
-                               double den_fluid, void* stream) {
+                               double den_fluid, int bf16, void* stream) {
   const LbmCapF kc = lbm_cap_consts(kappa, grav_x, grav_y, grav_z, mu0_half, dx, dt,
                                     lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid));
-  const dim3 grid((X + CAP_TX - 1) / CAP_TX, (Y + CAP_TY - 1) / CAP_TY, (Z + CAP_ZB - 1) / CAP_ZB);
-  lbm_cap_collide_kernel<<<grid, dim3(CAP_TX, CAP_TY), 0, static_cast<cudaStream_t>(stream)>>>(
-      f, g, flags, rho_ca, h2, gsum, gmom, vel_old, pres_old, fai, prho, chi, lap, f_out, g_out,
-      vel_out, pres_out, den_out, Z, Y, X, kc, lbm_hcz_consts(dx, dt, tau_f, tau_g));
+  const LbmHczK kh = lbm_hcz_consts(dx, dt, tau_f, tau_g);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    lbm_cap_collide_launch<__nv_bfloat16>(f, g, flags, rho_ca, h2, gsum, gmom, vel_old, pres_old,
+                                          fai, prho, chi, lap, f_out, g_out, vel_out, pres_out,
+                                          den_out, Z, Y, X, kc, kh, st);
+  else
+    lbm_cap_collide_launch<float>(f, g, flags, rho_ca, h2, gsum, gmom, vel_old, pres_old, fai,
+                                  prho, chi, lap, f_out, g_out, vel_out, pres_out, den_out, Z, Y,
+                                  X, kc, kh, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -219,8 +251,12 @@ extern "C" int lbm_cap_rhs(const float* den, const uint8_t* mflags, float* rhs, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of lbm_cap_collide_kernel resident on one SM (for reports).
-extern "C" int lbm_cap_collide_occupancy(int* blocks) {
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, lbm_cap_collide_kernel, CAP_TX * CAP_TY, 0));
+// Blocks of lbm_cap_collide_kernel (its bfloat16 instance where bf16 is
+// nonzero) resident on one SM (for reports).
+extern "C" int lbm_cap_collide_occupancy(int bf16, int* blocks) {
+  return static_cast<int>(
+      bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 blocks, lbm_cap_collide_kernel<__nv_bfloat16>, CAP_TX * CAP_TY, 0)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 blocks, lbm_cap_collide_kernel<float>, CAP_TX * CAP_TY, 0));
 }

@@ -3,6 +3,12 @@
 // Layout: every field is a contiguous [C, Z, Y, X] float32 array (the
 // batch dimension is 1), channel c of cell i at c * N + i with
 // N = Z * Y * X and i = (z * Y + y) * X + x.  Flags are uint8 as stored.
+// The distributions f, g and h are stored in float32 or, in the JAX
+// package's turbo mode, in bfloat16: kernels that read or write them are
+// templates on the storage type T, load through lbm_ld (exact widening to
+// float) and store through lbm_st (round to nearest even, as JAX's astype),
+// and compute in float32 either way.  Entry points take such pointers as
+// void* with an int bf16 that picks the instance.
 //
 // Scalar parameters arrive as doubles and are rounded to float, which is
 // how the JAX package's Python-float constants enter its float32
@@ -15,6 +21,7 @@
 // (with the text of lbm_error_string, defined once in fused_step.cu).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -27,6 +34,18 @@
 #define LBM_D3Q19_EY {0, 0, 1, 0, -1, 1, 1, -1, -1, 0, 0, 1, 0, -1, 0, 0, 1, 0, -1}
 #define LBM_D3Q19_EZ {0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1}
 #define LBM_D3Q19_OPP {0, 3, 4, 1, 2, 7, 8, 5, 6, 14, 17, 18, 15, 16, 9, 12, 13, 10, 11}
+
+// ---- storage of f, g and h --------------------------------------------------
+__device__ __forceinline__ float lbm_ld(const float* p) { return *p; }
+__device__ __forceinline__ float lbm_ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void lbm_st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void lbm_st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// A streaming (evict-first) store, rounded as lbm_st rounds.
+__device__ __forceinline__ void lbm_stcs(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void lbm_stcs(__nv_bfloat16* p, float v) {
+  __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
 
 static inline unsigned lbm_blocks(long long n) {
   return static_cast<unsigned>((n + LBM_THREADS - 1) / LBM_THREADS);
@@ -305,7 +324,8 @@ __device__ __forceinline__ LbmPullOffsets lbm_pull_offsets(int z, int y, int x, 
                         z == Z - 1 ? (1 - Z) * XY : XY};
 }
 
-__device__ __forceinline__ void lbm_pull_at(const float* __restrict__ d, long long N, long long i,
+template <class T>
+__device__ __forceinline__ void lbm_pull_at(const T* __restrict__ d, long long N, long long i,
                                             const LbmPullOffsets& o, bool obs, float post[19]) {
   const int ex[19] = LBM_D3Q19_EX;
   const int ey[19] = LBM_D3Q19_EY;
@@ -318,7 +338,7 @@ __device__ __forceinline__ void lbm_pull_at(const float* __restrict__ d, long lo
     if (ex[q] != 0) src += ex[q] == 1 ? o.xm : o.xp;
     if (ey[q] != 0) src += ey[q] == 1 ? o.ym : o.yp;
     if (ez[q] != 0) src += ez[q] == 1 ? o.zm : o.zp;
-    s[q] = d[q * N + src];
+    s[q] = lbm_ld(d + q * N + src);
   }
 #pragma unroll
   for (int q = 0; q < 19; ++q) post[q] = obs ? s[opp[q]] : s[q];

@@ -20,13 +20,16 @@
 // per cell is far below the float32 rate.  The pulls of neighbouring
 // threads are neighbouring addresses within each channel, so the reads
 // coalesce; the z+-1 and y+-1 planes are re-read by other blocks from L2.
+// In bfloat16 storage (T = __nv_bfloat16) f and g take 38 B a cell each:
+// 113 B per cell plus 16 B per obstacle cell, 0.57 ms at 256^3.
 #include "common.cuh"
 
 extern "C" const char* lbm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-__global__ void lbm_stream_macro_kernel(const float* __restrict__ f, const float* __restrict__ g,
+template <class T>
+__global__ void lbm_stream_macro_kernel(const T* __restrict__ f, const T* __restrict__ g,
                                         const uint8_t* __restrict__ flags,
                                         const float* __restrict__ rho_old,
                                         const float* __restrict__ vel_old, float* __restrict__ rho,
@@ -77,13 +80,16 @@ __global__ void lbm_stream_macro_kernel(const float* __restrict__ f, const float
 // cell), flags (1 B), and the 15 macro channels at fluid cells (60 B):
 // about 1.8 ms at 256^3 over 3.35 TB/s, as B9; the emission adds 36 B per
 // cell written and 16 B per obstacle cell read.  About 900 flops per fluid
-// cell take about 0.2 ms at 67 TFLOP/s.
+// cell take about 0.2 ms at 67 TFLOP/s.  In bfloat16 storage f, g, f' and
+// g' take half: 153 B per cell plus 60 B per fluid cell, about 1.1 ms; the
+// collide rounds once, on the store of f' and g'.
+template <class T>
 __global__ void __launch_bounds__(LBM_THREADS) lbm_epilogue_kernel(
-    const float* __restrict__ f, const float* __restrict__ g, const uint8_t* __restrict__ flags,
+    const T* __restrict__ f, const T* __restrict__ g, const uint8_t* __restrict__ flags,
     const float* __restrict__ rho, const float* __restrict__ vel, const float* __restrict__ den,
     const float* __restrict__ pres, const float* __restrict__ force,
-    const float* __restrict__ dfai, const float* __restrict__ dprho, float* __restrict__ f_out,
-    float* __restrict__ g_out, int Z, int Y, int X, LbmHczK k) {
+    const float* __restrict__ dfai, const float* __restrict__ dprho, T* __restrict__ f_out,
+    T* __restrict__ g_out, int Z, int Y, int X, LbmHczK k) {
   const long long N = static_cast<long long>(Z) * Y * X;
   const long long i = lbm_cell();
   if (i >= N) return;
@@ -97,10 +103,10 @@ __global__ void __launch_bounds__(LBM_THREADS) lbm_epilogue_kernel(
     const bool obs = flag == LBM_OBSTACLE;
     lbm_pull_at(f, N, i, po, obs, post);
 #pragma unroll
-    for (int q = 0; q < 19; ++q) f_out[q * N + i] = post[q];
+    for (int q = 0; q < 19; ++q) lbm_st(f_out + q * N + i, post[q]);
     lbm_pull_at(g, N, i, po, obs, post);
 #pragma unroll
-    for (int q = 0; q < 19; ++q) g_out[q * N + i] = post[q];
+    for (int q = 0; q < 19; ++q) lbm_st(g_out + q * N + i, post[q]);
     return;
   }
   float u[3], fo[3], df[3], dp[3];
@@ -116,33 +122,66 @@ __global__ void __launch_bounds__(LBM_THREADS) lbm_epilogue_kernel(
   lbm_pull_at(f, N, i, po, false, post);
   lbm_hcz_collide_f(h, k, post);
 #pragma unroll
-  for (int q = 0; q < 19; ++q) f_out[q * N + i] = post[q];
+  for (int q = 0; q < 19; ++q) lbm_st(f_out + q * N + i, post[q]);
   lbm_pull_at(g, N, i, po, false, post);
   lbm_hcz_collide_g(h, k, post);
 #pragma unroll
-  for (int q = 0; q < 19; ++q) g_out[q * N + i] = post[q];
+  for (int q = 0; q < 19; ++q) lbm_st(g_out + q * N + i, post[q]);
 }
 
-extern "C" int lbm_epilogue(const float* f, const float* g, const uint8_t* flags, const float* rho,
+template <class T>
+static void lbm_epilogue_launch(const void* f, const void* g, const uint8_t* flags,
+                                const float* rho, const float* vel, const float* den,
+                                const float* pres, const float* force, const float* dfai,
+                                const float* dprho, void* f_out, void* g_out, int Z, int Y, int X,
+                                LbmHczK k, cudaStream_t stream) {
+  const long long N = static_cast<long long>(Z) * Y * X;
+  lbm_epilogue_kernel<T><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
+      static_cast<const T*>(f), static_cast<const T*>(g), flags, rho, vel, den, pres, force, dfai,
+      dprho, static_cast<T*>(f_out), static_cast<T*>(g_out), Z, Y, X, k);
+}
+
+// f, g, f_out and g_out in float32, or in bfloat16 where bf16 is nonzero
+extern "C" int lbm_epilogue(const void* f, const void* g, const uint8_t* flags, const float* rho,
                             const float* vel, const float* den, const float* pres,
                             const float* force, const float* dfai, const float* dprho,
-                            float* f_out, float* g_out, int Z, int Y, int X, double dx, double dt,
-                            double tau_f, double tau_g, void* stream) {
-  const long long N = static_cast<long long>(Z) * Y * X;
-  lbm_epilogue_kernel<<<lbm_blocks(N), LBM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      f, g, flags, rho, vel, den, pres, force, dfai, dprho, f_out, g_out, Z, Y, X,
-      lbm_hcz_consts(dx, dt, tau_f, tau_g));
+                            void* f_out, void* g_out, int Z, int Y, int X, double dx, double dt,
+                            double tau_f, double tau_g, int bf16, void* stream) {
+  const LbmHczK k = lbm_hcz_consts(dx, dt, tau_f, tau_g);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    lbm_epilogue_launch<__nv_bfloat16>(f, g, flags, rho, vel, den, pres, force, dfai, dprho,
+                                       f_out, g_out, Z, Y, X, k, st);
+  else
+    lbm_epilogue_launch<float>(f, g, flags, rho, vel, den, pres, force, dfai, dprho, f_out,
+                               g_out, Z, Y, X, k, st);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int lbm_prologue(const float* f, const float* g, const uint8_t* flags,
+template <class T>
+static void lbm_prologue_launch(const void* f, const void* g, const uint8_t* flags,
+                                const float* rho_old, const float* vel_old, float* rho,
+                                float* vel, float* den, float* m0g, float* m1g, int Z, int Y,
+                                int X, double c, LbmGas gas, cudaStream_t stream) {
+  const long long N = static_cast<long long>(Z) * Y * X;
+  lbm_stream_macro_kernel<T><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
+      static_cast<const T*>(f), static_cast<const T*>(g), flags, rho_old, vel_old, rho, vel, den,
+      m0g, m1g, Z, Y, X, c, gas);
+}
+
+// f and g in float32, or in bfloat16 where bf16 is nonzero
+extern "C" int lbm_prologue(const void* f, const void* g, const uint8_t* flags,
                             const float* rho_old, const float* vel_old, float* rho, float* vel,
                             float* den, float* m0g, float* m1g, int Z, int Y, int X, double c,
                             double rho_gas, double rho_fluid, double den_gas, double den_fluid,
-                            void* stream) {
-  const long long N = static_cast<long long>(Z) * Y * X;
-  lbm_stream_macro_kernel<<<lbm_blocks(N), LBM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      f, g, flags, rho_old, vel_old, rho, vel, den, m0g, m1g, Z, Y, X, c,
-      lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid));
+                            int bf16, void* stream) {
+  const LbmGas gas = lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    lbm_prologue_launch<__nv_bfloat16>(f, g, flags, rho_old, vel_old, rho, vel, den, m0g, m1g,
+                                       Z, Y, X, c, gas, st);
+  else
+    lbm_prologue_launch<float>(f, g, flags, rho_old, vel_old, rho, vel, den, m0g, m1g, Z, Y, X,
+                               c, gas, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -68,6 +68,19 @@
 // one block an SM its loads, stages and stores overlap little, and every
 // byte of the input, the rings and the stores crosses the SM's
 // shared-memory and L1 path (PERF.md, section 7).
+//
+// In bfloat16 storage of h (T = __nv_bfloat16) the pass reads and writes h
+// in bfloat16, and the input plane and the stage rings hold bfloat16 too:
+// each stage below k stores its sweep's outputs rounded to bfloat16 (to
+// nearest even), as the TPU wavefront keeps its stage rings in the storage
+// dtype and as the one-sweep loop stores every sweep, so every plan gives
+// the plain one-sweep loop's bits at bfloat16 as well.  Rings of float32
+// values already rounded would give the same bits; bfloat16 rings halve the
+// block's shared memory (97 KiB at k = 3 on 9-row tiles instead of 186 KiB),
+// so shared memory leaves room for two blocks an SM where it left room for
+// one (ops/kernels/poisson.py:smem_bytes and plan count the element size;
+// whether registers allow two is what the card reports).  A call then must
+// move 85 B per cell: 0.43 ms at 256^3.
 #include "common.cuh"
 
 #define PP_EX 32  // extended tile width
@@ -91,8 +104,8 @@ __device__ __forceinline__ int lbm_ring_zp(int p) { return 18 + (p % 3) * 5; }
 // Channel q of a source whose groups (e_z = 0, +1, -1) start at g0, gp,
 // gm: a compile-time offset from one of three pointers, so a load or store
 // of it is one instruction with an immediate offset.
-__device__ __forceinline__ float* lbm_group_channel(float* g0, float* gp, float* gm, int q,
-                                                    int plane) {
+template <class T>
+__device__ __forceinline__ T* lbm_group_channel(T* g0, T* gp, T* gm, int q, int plane) {
   return q < 9 ? g0 + q * plane : (q < 14 ? gp + (q - 9) * plane : gm + (q - 14) * plane);
 }
 
@@ -101,34 +114,38 @@ __device__ __forceinline__ float* lbm_group_channel(float* g0, float* gp, float*
 __host__ __device__ __forceinline__ int lbm_pass_tx(int k) { return (PP_EX - 2 * k) / 8 * 8; }
 __host__ __device__ __forceinline__ int lbm_pass_hx(int k) { return (PP_EX - lbm_pass_tx(k)) / 2; }
 
-// Registers a thread holds for the input of a tick it has loaded ahead.
+// Registers a thread holds for the input of a tick it has loaded ahead (h
+// as stored).
+template <class T>
 struct LbmPassInput {
-  float h[19], rhs;
+  T h[19];
+  float rhs;
   uint8_t flag;
 };
 
 // EY is a template parameter, so every shared-memory offset of a channel
 // is an immediate of the load or store instead of a multiply by the plane
 // size, and the register bound follows the block's size; the host picks
-// the instance (lbm_poisson_pass_instance).
-template <bool TAU1, int EY>
+// the instance (lbm_poisson_pass_instance).  T is h's storage type, which
+// the input plane and the stage rings keep.
+template <class T, bool TAU1, int EY>
 __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
-    const float* __restrict__ h, const uint8_t* __restrict__ flags, const float* __restrict__ rhs,
-    float* __restrict__ out, float* __restrict__ psi_out, int Z, int Y, int X, int k, int LZ,
+    const T* __restrict__ h, const uint8_t* __restrict__ flags, const float* __restrict__ rhs,
+    T* __restrict__ out, float* __restrict__ psi_out, int Z, int Y, int X, int k, int LZ,
     float inv_tau, float a) {
-  // 4 floats of padding (edge lanes read one float before and after a
+  // 4 elements of padding (edge lanes read one element before and after a
   // plane), the input plane (19 channels), the k - 1 stage rings, 4 more,
-  // the (k + 1)-plane rhs ring, the wrapped grid x of the extended columns
-  // and y * X of the rows -1..EY, then the flags ring.  Every channel plane
-  // of the input and the rings holds rows -1..EY (PI floats, row e at
-  // (e + 1) * 32; the rings leave rows -1 and EY unused), so each stage
-  // reads its source the same way.
+  // all in T; then, in float, the (k + 1)-plane rhs ring, the wrapped grid
+  // x of the extended columns and y * X of the rows -1..EY, then the flags
+  // ring.  Every channel plane of the input and the rings holds rows
+  // -1..EY (PI elements, row e at (e + 1) * 32; the rings leave rows -1
+  // and EY unused), so each stage reads its source the same way.
   extern __shared__ float smem[];
   constexpr int P = PP_EX * EY, PI = PP_EX * (EY + 2);
   const int TX = lbm_pass_tx(k), HX = lbm_pass_hx(k), TY = EY - 2 * (k - 1);
-  float* inp = smem + 4;
-  float* rings = inp + 19 * PI;
-  float* rhr = rings + (k - 1) * PP_RING * PI + 4;
+  T* inp = reinterpret_cast<T*>(smem) + 4;
+  T* rings = inp + 19 * PI;
+  float* rhr = reinterpret_cast<float*>(rings + (k - 1) * PP_RING * PI + 4);
   int* colx = reinterpret_cast<int*>(rhr + (k + 1) * P);
   int* rowy = colx + PP_EX;
   uint8_t* flr = reinterpret_cast<uint8_t*>(rowy + EY + 2);
@@ -159,7 +176,7 @@ __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
   };
   // the input of the tick whose stage 1 computes grid plane zr: channel q
   // of plane zr - e_z(q), flags and rhs of plane zr
-  auto fetch = [&](int zr, LbmPassInput& b) {
+  auto fetch = [&](int zr, LbmPassInput<T>& b) {
     const long long zc[3] = {(zr == 0 ? Z - 1 : zr - 1) * XY, zr * XY,
                              (zr == Z - 1 ? 0 : zr + 1) * XY};
 #pragma unroll
@@ -170,7 +187,7 @@ __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
       b.flag = flags[zc[1] + in_off];
     }
   };
-  auto put = [&](int slot, const LbmPassInput& b) {
+  auto put = [&](int slot, const LbmPassInput<T>& b) {
 #pragma unroll
     for (int q = 0; q < 19; ++q)
       if (needs(q)) inp[q * PI + warp * PP_EX + lane] = b.h[q];
@@ -183,7 +200,7 @@ __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
 
   // tick r, with rk = r % (k + 1) and zr its stage 1's grid plane (kept by
   // the loop, so no stage divides by a runtime value)
-  auto tick = [&](int r, int rk, int zr, LbmPassInput& b) {
+  auto tick = [&](int r, int rk, int zr, LbmPassInput<T>& b) {
     // tick r's input over what stage 1 read last tick, plane r's flags and
     // rhs into the slot of plane r - k - 1, which stage k read two ticks
     // ago; then tick r + 1's loads into the registers just emptied, in
@@ -201,33 +218,33 @@ __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
         // the source's channel groups: the input plane for stage 1, else
         // stage j - 1's ring at planes p (e_z = 0), p - 1 (e_z = +1; (p +
         // 2) % 3 == (p - 1) % 3) and p + 1 (e_z = -1, made this tick)
-        float* src = j == 1 ? inp : rings + (j - 2) * PP_RING * PI;
-        float* g0 = src + (j == 1 ? 0 : lbm_ring_z0(p)) * PI + c1;
-        float* gp = src + (j == 1 ? 9 : lbm_ring_zp(p + 2)) * PI + c1;
-        float* gm = src + (j == 1 ? 14 : LBM_RING_ZM) * PI + c1;
+        T* src = j == 1 ? inp : rings + (j - 2) * PP_RING * PI;
+        T* g0 = src + (j == 1 ? 0 : lbm_ring_z0(p)) * PI + c1;
+        T* gp = src + (j == 1 ? 9 : lbm_ring_zp(p + 2)) * PI + c1;
+        T* gm = src + (j == 1 ? 14 : LBM_RING_ZM) * PI + c1;
         float s[19];
 #pragma unroll
         for (int q = 0; q < 19; ++q)
-          s[q] = lbm_group_channel(g0, gp, gm, q, PI)[-ey[q] * PP_EX - ex[q]];
+          s[q] = lbm_ld(lbm_group_channel(g0, gp, gm, q, PI) - ey[q] * PP_EX - ex[q]);
         const int fs = (rk >= j - 1 ? rk - j + 1 : rk - j + 2 + k) * P + c;
         const bool obstacle = flr[fs] == LBM_OBSTACLE;
         // the sweep's outputs to stage j's ring, or (stage k) the tile's
-        // cells inside the grid to device memory
+        // cells inside the grid to device memory, each rounded to T
         auto finish = [&](const float(&o)[19], float psi) {
           if (j < k) {
-            float* dst = rings + (j - 1) * PP_RING * PI + c1;
-            float* d0 = dst + lbm_ring_z0(p) * PI;
-            float* dp = dst + lbm_ring_zp(p) * PI;
-            float* dm = dst + LBM_RING_ZM * PI;
+            T* dst = rings + (j - 1) * PP_RING * PI + c1;
+            T* d0 = dst + lbm_ring_z0(p) * PI;
+            T* dp = dst + lbm_ring_zp(p) * PI;
+            T* dm = dst + LBM_RING_ZM * PI;
 #pragma unroll
-            for (int q = 0; q < 19; ++q) *lbm_group_channel(d0, dp, dm, q, PI) = o[q];
+            for (int q = 0; q < 19; ++q) lbm_st(lbm_group_channel(d0, dp, dm, q, PI), o[q]);
           } else if (lane >= HX && lane < HX + TX && x0 + lane - HX < X &&
                      y0 + e - (k - 1) < Y) {
             int zw = zr - (j - 1);
             while (zw < 0) zw += Z;
             const long long n = zw * XY + rowy[e + 1] + colx[lane];
 #pragma unroll
-            for (int q = 0; q < 19; ++q) __stcs(out + q * N + n, o[q]);
+            for (int q = 0; q < 19; ++q) lbm_stcs(out + q * N + n, o[q]);
             if (psi_out != nullptr) __stcs(psi_out + n, psi);
           }
         };
@@ -249,7 +266,7 @@ __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
     }
   };
 
-  LbmPassInput b{};
+  LbmPassInput<T> b{};
   int zr = lbm_mod(zb, Z);
   fetch(zr, b);
   for (int r = 0, rk = 0; r < n_ticks; ++r) {
@@ -259,21 +276,22 @@ __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
   }
 }
 
-// Shared memory of a pass block in bytes (ops/kernels/poisson.py:
-// smem_bytes counts the same), and the most a block may take on an H100
-// (SMEM_BLOCK_MAX there).
-static int lbm_poisson_pass_smem(int k, int EY) {
+// Shared memory of a pass block in bytes with h stored in elements of es
+// bytes (ops/kernels/poisson.py:smem_bytes counts the same), and the most
+// a block may take on an H100 (SMEM_BLOCK_MAX there).
+static int lbm_poisson_pass_smem(int k, int EY, int es) {
   const int P = PP_EX * EY, PI = PP_EX * (EY + 2);
-  return 4 * (8 + 19 * PI + (k - 1) * PP_RING * PI + (k + 1) * P + PP_EX + EY + 2) + (k + 1) * P;
+  return es * (8 + 19 * PI + (k - 1) * PP_RING * PI) + 4 * ((k + 1) * P + PP_EX + EY + 2) +
+         (k + 1) * P;
 }
 #define PP_SMEM_MAX 232448
 #define PP_MAX_DEVICES 64
 
 struct LbmPassArgs {
-  const float* h;
+  const void* h;
   const uint8_t* flags;
   const float* rhs;
-  float* out;
+  void* out;
   float* psi_out;
   int Z, Y, X, k, TY, LZ;
   float inv_tau, a;
@@ -283,7 +301,7 @@ struct LbmPassArgs {
 // dynamic shared memory on the current device (one attribute call a
 // device), then launches it (stream non-null) or reports its resident
 // blocks an SM (blocks non-null).
-template <bool TAU1, int EY>
+template <class T, bool TAU1, int EY>
 static cudaError_t lbm_poisson_pass_instance(const LbmPassArgs& g, cudaStream_t stream,
                                              int* blocks) {
   static bool allowed[PP_MAX_DEVICES] = {};
@@ -292,61 +310,73 @@ static cudaError_t lbm_poisson_pass_instance(const LbmPassArgs& g, cudaStream_t 
   if (err != cudaSuccess) return err;
   if (dev >= PP_MAX_DEVICES) return cudaErrorInvalidDevice;
   if (!allowed[dev]) {
-    err = cudaFuncSetAttribute(lbm_poisson_pass_kernel<TAU1, EY>,
+    err = cudaFuncSetAttribute(lbm_poisson_pass_kernel<T, TAU1, EY>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, PP_SMEM_MAX);
     if (err != cudaSuccess) return err;
     allowed[dev] = true;
   }
-  const int smem = lbm_poisson_pass_smem(g.k, EY), threads = PP_EX * (EY + 2);
+  const int smem = lbm_poisson_pass_smem(g.k, EY, sizeof(T)), threads = PP_EX * (EY + 2);
   if (blocks != nullptr)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, lbm_poisson_pass_kernel<TAU1, EY>, threads, smem);
+        blocks, lbm_poisson_pass_kernel<T, TAU1, EY>, threads, smem);
   const int TX = lbm_pass_tx(g.k);
   const dim3 grid((g.X + TX - 1) / TX, (g.Y + g.TY - 1) / g.TY, (g.Z + g.LZ - 1) / g.LZ);
-  lbm_poisson_pass_kernel<TAU1, EY><<<grid, threads, smem, stream>>>(
-      g.h, g.flags, g.rhs, g.out, g.psi_out, g.Z, g.Y, g.X, g.k, g.LZ, g.inv_tau, g.a);
+  lbm_poisson_pass_kernel<T, TAU1, EY><<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(g.h), g.flags, g.rhs, static_cast<T*>(g.out), g.psi_out, g.Z, g.Y,
+      g.X, g.k, g.LZ, g.inv_tau, g.a);
   return cudaGetLastError();
 }
 
-template <bool TAU1>
+template <class T, bool TAU1>
 static cudaError_t lbm_poisson_pass_dispatch(const LbmPassArgs& g, cudaStream_t stream,
                                              int* blocks) {
   switch (g.TY + 2 * (g.k - 1)) {
 #define PP_CASE(E) \
   case E:          \
-    return lbm_poisson_pass_instance<TAU1, E>(g, stream, blocks);
+    return lbm_poisson_pass_instance<T, TAU1, E>(g, stream, blocks);
     PP_EXT_HEIGHTS(PP_CASE)
 #undef PP_CASE
   }
   return cudaErrorInvalidValue;
 }
 
+template <class T>
 static cudaError_t lbm_poisson_pass_run(const LbmPassArgs& g, double tau, cudaStream_t stream,
                                         int* blocks) {
   if (g.k < 1 || g.k > PP_MAX_K || g.TY < 1 || g.LZ < 1) return cudaErrorInvalidValue;
-  if (lbm_poisson_pass_smem(g.k, g.TY + 2 * (g.k - 1)) > PP_SMEM_MAX) return cudaErrorInvalidValue;
-  return 1.0 / tau == 1.0 ? lbm_poisson_pass_dispatch<true>(g, stream, blocks)
-                          : lbm_poisson_pass_dispatch<false>(g, stream, blocks);
+  if (lbm_poisson_pass_smem(g.k, g.TY + 2 * (g.k - 1), sizeof(T)) > PP_SMEM_MAX)
+    return cudaErrorInvalidValue;
+  return 1.0 / tau == 1.0 ? lbm_poisson_pass_dispatch<T, true>(g, stream, blocks)
+                          : lbm_poisson_pass_dispatch<T, false>(g, stream, blocks);
+}
+
+static cudaError_t lbm_poisson_pass_any(const LbmPassArgs& g, double tau, int bf16,
+                                        cudaStream_t stream, int* blocks) {
+  return bf16 ? lbm_poisson_pass_run<__nv_bfloat16>(g, tau, stream, blocks)
+              : lbm_poisson_pass_run<float>(g, tau, stream, blocks);
 }
 
 // k sweeps on h -> out (sweep k) and, unless null, psi_out (psi of sweep
 // k), on tiles lbm_pass_tx(k) x TY and z chunks of LZ planes, with a warp per
 // row of the extended tile and its two halo rows; 1 <= k <= PP_MAX_K,
 // TY + 2(k - 1) one of PP_EXT_HEIGHTS, and the block's shared memory within
-// PP_SMEM_MAX (cudaErrorInvalidValue otherwise).
-extern "C" int lbm_poisson_pass(const float* h, const uint8_t* flags, const float* rhs,
-                                float* out, float* psi_out, int Z, int Y, int X, int k, int TY,
-                                int LZ, double tau, void* stream) {
+// PP_SMEM_MAX (cudaErrorInvalidValue otherwise).  h and out in float32, or
+// in bfloat16 where bf16 is nonzero; psi_out in float32.
+extern "C" int lbm_poisson_pass(const void* h, const uint8_t* flags, const float* rhs,
+                                void* out, float* psi_out, int Z, int Y, int X, int k, int TY,
+                                int LZ, double tau, int bf16, void* stream) {
   const double inv_tau = 1.0 / tau;
   const LbmPassArgs g{h, flags, rhs, out, psi_out, Z, Y, X, k, TY, LZ,
                       static_cast<float>(inv_tau), static_cast<float>(1.0 - inv_tau)};
-  const cudaError_t err = lbm_poisson_pass_run(g, tau, static_cast<cudaStream_t>(stream), nullptr);
+  const cudaError_t err =
+      lbm_poisson_pass_any(g, tau, bf16, static_cast<cudaStream_t>(stream), nullptr);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// Blocks of lbm_poisson_pass_kernel (the tau == 1 form unless tau1 is 0)
-// resident on one SM at a plan's k and TY (for reports).
-extern "C" int lbm_poisson_pass_occupancy(int k, int TY, int tau1, int* blocks) {
+// Blocks of lbm_poisson_pass_kernel (the tau == 1 form unless tau1 is 0,
+// the bfloat16 instance where bf16 is nonzero) resident on one SM at a
+// plan's k and TY (for reports).
+extern "C" int lbm_poisson_pass_occupancy(int k, int TY, int tau1, int bf16, int* blocks) {
   const LbmPassArgs g{nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, 1, k, TY, 1, 1.f, 0.f};
-  return static_cast<int>(lbm_poisson_pass_run(g, tau1 ? 1.0 : 0.5, nullptr, blocks));
+  return static_cast<int>(lbm_poisson_pass_any(g, tau1 ? 1.0 : 0.5, bf16, nullptr, blocks));
 }

@@ -33,7 +33,10 @@ sweeps B11b, ``ops/kernels/poisson.py``, then the gradient of psi B10a,
 
 Every entry point runs on the card unless ``device="cpu"`` is passed, and
 the kernels run unless ``plain=True`` is passed, which selects their plain
-PyTorch versions.  float64 storage runs on the plain versions only.
+PyTorch versions.  bfloat16 storage of f, g and h (``fg_dtype``/``h_dtype``,
+the JAX package's turbo mode) runs on every route, on the kernels'
+bfloat16 forms on the card; the scalar carry stays float32.  float64
+storage runs on the plain versions only.
 Configurations outside the port raise ``NotImplementedError`` naming their
 ROADMAP item; nothing falls back.
 """
@@ -173,12 +176,13 @@ def _scalar_convert(params: SimulationParams, state):
     """(h, cmask) that the step carries: the scalar pair (s, s_prev) and its
     cmask from a canonical channel h (zeros at init, post-collision h of any
     tau == 1 run) when the collapse applies, else the channel h as it is
-    (JAX ``_prime_steady`` :926-929)."""
+    (JAX ``_prime_steady`` :926-929).  The carry is float32 whatever
+    ``h_dtype`` stores the channel h in (JAX ``_scalar_convert`` :889-891)."""
     if state.h.shape[1] == 2 or not _scalar_physics_ok(params, state.magnetic_flags):
         return state.h, state.cmask
     s = scalar_from_h(state.h, state.magnetic_flags)
     sp = s_prev_from_h(state.h, state.magnetic_flags)
-    return torch.cat([s, sp], dim=1), make_cmask(state.magnetic_flags)
+    return torch.cat([s, sp], dim=1).to(torch.float32), make_cmask(state.magnetic_flags)
 
 
 def prime_premac(params: SimulationParams, state: FerrofluidState, *,

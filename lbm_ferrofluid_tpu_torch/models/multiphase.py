@@ -19,6 +19,8 @@ instead.  The port has no ``jit`` and its gravity is always a tuple of
 floats, so it runs the branch that ``hcz_capillary`` itself picks for a
 concrete gravity.  Every entry point runs on the card unless
 ``device="cpu"``; ``plain=True`` runs the kernels' plain PyTorch versions.
+f and g may be stored in bfloat16 (``fg_dtype``), on the kernels' bfloat16
+forms on the card.
 The Shan-Chen step and the 2D forms are ROADMAP A7.
 """
 
@@ -47,13 +49,15 @@ __all__ = ["init_hcz_state", "hcz_step"]
 
 
 def storage_dtype(name: str) -> torch.dtype:
-    """The torch dtype of a ``params.fg_dtype``/``h_dtype`` name.  float64
-    runs the plain versions only (on the CPU or with ``plain=True``): the
-    kernels take float32 and raise on anything else."""
-    if name not in ("float32", "float64"):
+    """The torch dtype of a ``params.fg_dtype``/``h_dtype`` name: float32;
+    bfloat16, the JAX package's turbo mode (storage only: every op computes
+    in float32 and rounds to nearest even where it stores); float64, on
+    the plain versions only (on the CPU or with ``plain=True``), since the
+    kernels take float32 and bfloat16 and raise on anything else."""
+    if name not in ("float32", "bfloat16", "float64"):
         raise NotImplementedError(
-            f"storage dtype {name!r}: only float32 and float64 f/g/h storage is "
-            "ported (bfloat16 storage is ROADMAP A6)"
+            f"storage dtype {name!r}: f/g/h are stored in float32, bfloat16 or "
+            "float64, as in the JAX package (which has no float16 mode)"
         )
     return getattr(torch, name)
 

@@ -65,8 +65,8 @@ class SimulationParams:
     use_pallas: bool = True
     # physical extent of an OBSTACLE-padded layout (not ported: A8)
     phys_extent: tuple[int, ...] | None = None
-    # storage dtypes of h and of f/g: "float32", or "float64" on the plain
-    # path only ("bfloat16" is ROADMAP A6)
+    # storage dtypes of h and of f/g: "float32", "bfloat16" (turbo mode:
+    # bfloat16 storage, float32 arithmetic) or "float64" (plain path only)
     h_dtype: str = "float32"
     fg_dtype: str = "float32"
 

@@ -26,6 +26,15 @@ state to and from a dict of numpy arrays keyed by these field names, so a
 JAX state given as numpy arrays becomes a port state that computes the
 same thing; a dict with an ``h`` field is a ferrofluid state, one without
 it an HCZ state.
+
+bfloat16 leaves cross as their bits.  The JAX package hands them over as
+numpy arrays of the ``ml_dtypes`` bfloat16 dtype, which ``torch.as_tensor``
+does not take, and ``Tensor.numpy()`` does not take a bfloat16 tensor, so
+both directions go through a 16-bit integer view.  The port does not
+import ``ml_dtypes``: :func:`to_numpy` returns bfloat16 arrays when some
+module of the process has registered that dtype with numpy (JAX does), and
+otherwise uint16 arrays of the bits whose dtype carries
+``metadata={"bfloat16": True}``; :func:`from_numpy` takes either.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ import torch
 
 from ..utils.device import resolve_device
 
-__all__ = ["HCZState", "FerrofluidState", "from_numpy", "to_numpy"]
+__all__ = ["HCZState", "FerrofluidState", "from_numpy", "to_numpy", "BF16_BITS"]
 
 
 @dataclasses.dataclass
@@ -87,12 +96,24 @@ class FerrofluidState:
         return dataclasses.replace(self, **kw)
 
 
+#: uint16 bits of bfloat16 values, where numpy has no bfloat16 dtype
+BF16_BITS = np.dtype(np.uint16, metadata={"bfloat16": True})
+
+
+def _is_bf16(dtype: np.dtype) -> bool:
+    return dtype.name == "bfloat16" or bool((dtype.metadata or {}).get("bfloat16"))
+
+
 def _to_tensor(value, device):
     if value is None:
         return None
     if isinstance(value, (tuple, list)):
         return tuple(_to_tensor(v, device) for v in value)
-    return torch.as_tensor(np.array(value), device=device)
+    a = np.array(value)
+    if _is_bf16(a.dtype):
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.as_tensor(a, device=device)
 
 
 def from_numpy(fields: dict, device=None):
@@ -118,7 +139,14 @@ def _to_array(value):
         return None
     if isinstance(value, tuple):
         return tuple(_to_array(v) for v in value)
-    return value.detach().cpu().numpy()
+    value = value.detach().cpu()
+    if value.dtype != torch.bfloat16:
+        return value.numpy()
+    bits = value.contiguous().view(torch.int16).numpy().view(np.uint16)
+    try:
+        return bits.view(np.dtype("bfloat16"))
+    except TypeError:  # no module of this process registered the dtype
+        return bits.view(BF16_BITS)
 
 
 def to_numpy(state) -> dict:

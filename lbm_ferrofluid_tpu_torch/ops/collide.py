@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..lattice import D3Q19, Lattice
-from ..utils.types import CellType
+from ..utils.types import CellType, widen
 from .equilibrium import feq, gamma_quadratic, geq
 from .moments import eos_pressure, rho_to_density
 from .stencils import isotropic_grad, isotropic_laplacian, rep_pad_interior
@@ -129,6 +129,8 @@ def recover_macros(flags, vel, pressure, density, force, dprho, g_sum, g_mom, g,
     post-stream ``g`` when None.  Returns (vel, pressure)."""
     c = dx / dt
     RT = c * c / 3.0
+    if g is not None:
+        g = widen(g)
     if g_mom is None:
         e = torch.as_tensor(D3Q19.e.T.astype(np.float64), dtype=g.dtype, device=g.device)
         g_mom = torch.cat(
@@ -187,8 +189,12 @@ def hcz_collide(
 ):
     """HCZ two-distribution LBGK collision with Guo-style forcing on the
     post-stream f and g; updates apply on FLUID cells only
-    (HCZ_2d.py:282-284, HCZ_3d.py:213-263).  The KBC-stabilized g update
-    is ROADMAP A7."""
+    (HCZ_2d.py:282-284, HCZ_3d.py:213-263).  bfloat16 f and g are widened
+    to float32, collided, and rounded once to their storage dtype on
+    return, as the JAX op's ``astype(f.dtype)``.  The KBC-stabilized g
+    update is ROADMAP A7."""
+    f_dtype, g_dtype = f.dtype, g.dtype
+    f, g = widen(f), widen(g)
     c = dx / dt
     RT = c * c / 3.0
     feq_val = feq(lat, rho, vel, dx=dx, dt=dt)
@@ -220,4 +226,5 @@ def hcz_collide(
         * dt
     )
     is_fluid = flags == int(CellType.FLUID)
-    return torch.where(is_fluid, collision_f, f), torch.where(is_fluid, collision_g, g)
+    return (torch.where(is_fluid, collision_f, f).to(f_dtype),
+            torch.where(is_fluid, collision_g, g).to(g_dtype))

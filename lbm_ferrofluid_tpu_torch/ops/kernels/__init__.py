@@ -2,11 +2,12 @@
 ``ops/pallas/``).
 
 Each module holds a kernel's wrapper, its plain PyTorch version, its
-``cost`` (the bytes and flops a call's inputs need) and its launch counter
-(``wrapper.launches``, one per CUDA launch).  A wrapper given CPU tensors
-runs the plain version; given CUDA tensors it launches the kernel or
-raises.  The CUDA sources are ``lbm_ferrofluid_tpu_torch/csrc``; ``_lib``
-builds them at first use.
+``cost`` (the bytes and flops a call's inputs need) and its launch counters
+(``wrapper.launches``, one per CUDA launch, and ``wrapper.launches_bf16``,
+one per launch of the instance that takes bfloat16 f/g/h storage).  A
+wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises.  The CUDA sources are
+``lbm_ferrofluid_tpu_torch/csrc``; ``_lib`` builds them at first use.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ __all__ = [
     "Kernel",
     "KERNELS",
     "PATHS",
+    "BF16_FORMS",
     "launch_counts",
     "reset_launch_counts",
     "scalar_wavefront",
@@ -134,11 +136,18 @@ PATHS = {
 }
 
 
+#: the kernels with a bfloat16-storage form (they read or write f, g or h)
+BF16_FORMS = ("B3", "B4", "B5", "B8a", "B8b", "B9", "B11b")
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.wrapper.launches = 0
+        k.wrapper.launches_bf16 = 0
 
 
-def launch_counts(ids=None) -> dict[str, int]:
-    """Launches per kernel id since the last reset (all ids, or ``ids``)."""
-    return {kid: KERNELS[kid].wrapper.launches for kid in (ids or KERNELS)}
+def launch_counts(ids=None, bf16=False) -> dict[str, int]:
+    """Launches per kernel id since the last reset (all ids, or ``ids``);
+    with ``bf16`` only those of the bfloat16-storage forms."""
+    attr = "launches_bf16" if bf16 else "launches"
+    return {kid: getattr(KERNELS[kid].wrapper, attr, 0) for kid in (ids or KERNELS)}

@@ -26,7 +26,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "call", "ptr", "stream_of", "check_cuda"]
+__all__ = ["build", "call", "ptr", "stream_of", "check_cuda", "count_launch", "STORAGE",
+           "elem_bytes"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -35,6 +36,8 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+#: the storage types of f, g and h that the kernels take (``check_cuda``)
+STORAGE = (torch.float32, torch.bfloat16)
 
 
 def _nvcc() -> str:
@@ -125,13 +128,30 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype, shape) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
-    ``shape``: what the kernels take."""
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (or of
+    one of a tuple of dtypes, e.g. ``STORAGE``) and ``shape``: what the
+    kernels take."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def count_launch(wrapper, bf16: bool) -> None:
+    """One more launch of ``wrapper``'s kernel: ``wrapper.launches`` counts
+    every launch, ``wrapper.launches_bf16`` those of its bfloat16-storage
+    instance."""
+    wrapper.launches += 1
+    if bf16:
+        wrapper.launches_bf16 += 1
+
+
+def elem_bytes(t: torch.Tensor) -> int:
+    """Bytes an element of the distribution ``t`` takes in the kernels: 2
+    in bfloat16 storage, else 4 (a cost counts float32 for the float64 the
+    plain versions also take)."""
+    return 2 if t.dtype == torch.bfloat16 else 4

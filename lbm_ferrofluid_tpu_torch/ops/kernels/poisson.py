@@ -20,8 +20,15 @@ psi.  A call is :func:`launches_per_call` launches.  Every product and sum
 of a sweep is rounded as :func:`poisson_sweeps_plain` rounds it, so the
 kernel's outputs equal the plain version's bit for bit under any plan.
 
+h may be stored in bfloat16 (the JAX package's ``h_dtype="bfloat16"``):
+the kernel's bfloat16 instance then reads and writes h, and keeps its
+input plane and stage rings, in bfloat16, every sweep's outputs rounded to
+nearest even as the one-sweep loop stores them, so the bits still equal
+the plain version's under any plan; :func:`smem_bytes` and :func:`plan`
+take the element size.
+
 Bound on an H100 (card peaks from NVIDIA's data sheet): see :func:`cost`;
-bytes bound it, 0.81 ms at 256^3 for 30 sweeps.
+bytes bound it, 0.81 ms at 256^3 for 30 sweeps (0.43 ms in bfloat16).
 """
 
 from __future__ import annotations
@@ -33,9 +40,9 @@ from dataclasses import dataclass
 import torch
 
 from ...lattice import D3Q19
-from ...utils.types import CellType
+from ...utils.types import CellType, widen
 from ..stream import stream
-from ._lib import call, check_cuda, ptr, stream_of
+from ._lib import STORAGE, call, check_cuda, count_launch, elem_bytes, ptr, stream_of
 
 __all__ = [
     "PoissonPlan",
@@ -66,7 +73,8 @@ _OBS = int(CellType.OBSTACLE)
 #: 1)-row halo (stage 1's input plane holds the rows on either side); a warp
 #: per input row; the extended heights ty + 2k - 2 it is built for, those of
 #: :func:`plan`'s passes (9, 11, 13) and of the plans ``chip_smoke.py
-#: --poisson-plans`` times; a stage ring keeps 38 floats a cell
+#: --poisson-plans`` times; a stage ring keeps 38 elements (of h's storage
+#: type) a cell
 EXT_WIDTH = 32
 MAX_K = 4
 EXT_HEIGHTS = (5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 18)
@@ -80,16 +88,18 @@ K = 3
 TY = 9
 
 
-def smem_bytes(k: int, ty: int) -> int:
-    """Shared memory of one pass block: 8 floats of padding, the input
+def smem_bytes(k: int, ty: int, elem: int = 4) -> int:
+    """Shared memory of one pass block with h stored in ``elem``-byte
+    elements (4: float32, 2: bfloat16): 8 elements of padding, the input
     plane (19 channels of 32 x (ey + 2) cells, ey = ty + 2k - 2) and k - 1
-    stage rings of 38 such channel planes, the (k + 1)-plane rhs ring of
-    the extended tile (32 x ey cells), the wrapped column and row tables,
-    and the (k + 1)-plane flags ring (1 byte a cell)."""
+    stage rings of 38 such channel planes, all in h's storage type; then
+    the (k + 1)-plane float32 rhs ring of the extended tile (32 x ey cells),
+    the wrapped column and row tables, and the (k + 1)-plane flags ring
+    (1 byte a cell)."""
     ey = ty + 2 * (k - 1)
     p, pi = EXT_WIDTH * ey, EXT_WIDTH * (ey + 2)
-    return (4 * (8 + 19 * pi + (k - 1) * RING_FLOATS * pi + (k + 1) * p + EXT_WIDTH + ey + 2)
-            + (k + 1) * p)
+    return (elem * (8 + 19 * pi + (k - 1) * RING_FLOATS * pi)
+            + 4 * ((k + 1) * p + EXT_WIDTH + ey + 2) + (k + 1) * p)
 
 
 def tile_width(k: int) -> int:
@@ -130,23 +140,25 @@ def passes(n_iters: int, k: int = K) -> tuple:
     return (k,) * (n_iters // k) + ((n_iters % k,) if n_iters % k else ())
 
 
-def check_pass(k: int, ty: int) -> None:
+def check_pass(k: int, ty: int, elem: int = 4) -> None:
     """Raise unless ``lbm_poisson_pass`` runs a pass of ``k`` sweeps on
-    tiles ``ty`` high: 1 <= k <= ``MAX_K``, an extended height in
-    ``EXT_HEIGHTS`` and at most ``SMEM_BLOCK_MAX`` of shared memory."""
+    tiles ``ty`` high with h in ``elem``-byte elements: 1 <= k <=
+    ``MAX_K``, an extended height in ``EXT_HEIGHTS`` and at most
+    ``SMEM_BLOCK_MAX`` of shared memory."""
     if not (1 <= k <= MAX_K and ty >= 1 and ty + 2 * (k - 1) in EXT_HEIGHTS):
         raise ValueError(f"a pass of {k} sweeps on {ty}-row tiles is outside the kernel's "
                          f"limits (k <= {MAX_K}, ty + 2k - 2 in {EXT_HEIGHTS})")
-    smem = smem_bytes(k, ty)
+    smem = smem_bytes(k, ty, elem)
     if smem > SMEM_BLOCK_MAX:
         raise ValueError(f"a pass of {k} sweeps on {ty}-row tiles needs {smem} B of shared "
                          f"memory, more than {SMEM_BLOCK_MAX}")
 
 
 @functools.lru_cache(maxsize=None)
-def plan(Z: int, Y: int, X: int, n_iters: int, sms: int) -> PoissonPlan:
+def plan(Z: int, Y: int, X: int, n_iters: int, sms: int, elem: int = 4) -> PoissonPlan:
     """The passes of ``n_iters`` sweeps on a Z x Y x X grid, on a card of
-    ``sms`` SMs: passes of ``K`` sweeps on tiles ``TY`` high.
+    ``sms`` SMs, with h in ``elem``-byte elements: passes of ``K`` sweeps on
+    tiles ``TY`` high.
 
     The z chunk: a block (a tile and a chunk) walks lz + 2k - 2 planes,
     and the blocks run in waves of as many as the SMs hold, so lz
@@ -157,11 +169,11 @@ def plan(Z: int, Y: int, X: int, n_iters: int, sms: int) -> PoissonPlan:
         raise ValueError(f"grid {(Z, Y, X)}: every axis needs a cell")
     ps, ty = passes(n_iters), TY
     for k in set(ps):
-        check_pass(k, ty)
+        check_pass(k, ty, elem)
     k = ps[0]
     # resident blocks an SM, as shared memory and the SM's 2048 threads
     # allow them
-    slots = min(2048 // threads(k, ty), SMEM_SM // (smem_bytes(k, ty) + 1024)) * sms
+    slots = min(2048 // threads(k, ty), SMEM_SM // (smem_bytes(k, ty, elem) + 1024)) * sms
     tiles = -(-X // tile_width(k)) * -(-Y // ty)
 
     def ticks(lz):
@@ -182,9 +194,9 @@ def launches_per_call(n_iters: int, shape) -> int:
 def cost(h, magnetic_flags, rhs_scaled, *, tau, n_iters) -> tuple[int, int]:
     """(bytes, flops) that a call on these inputs must move and do.
 
-    Bytes: h and the flags read at every cell, rhs only at non-obstacle
-    cells (obstacles keep their bounced populations); h' and psi written
-    at every cell.  Flops per sweep and non-obstacle cell: 18 for psi
+    Bytes: h (in its storage type) and the flags read at every cell, rhs
+    only at non-obstacle cells (obstacles keep their bounced populations);
+    h' and psi written at every cell.  Flops per sweep and non-obstacle cell: 18 for psi
     (17 adds, one multiply), then at tau == 1 one add for u, 19 multiplies
     and the rest-population subtraction (39 in all), otherwise also psi/tau
     and 2 multiplies and an add per channel (78); psi at obstacle cells
@@ -192,7 +204,8 @@ def cost(h, magnetic_flags, rhs_scaled, *, tau, n_iters) -> tuple[int, int]:
     n = magnetic_flags.numel()
     n_obs = int((magnetic_flags == _OBS).sum())
     per_cell = 39 if 1.0 / tau == 1.0 else 78
-    return 161 * n - 4 * n_obs, n_iters * per_cell * (n - n_obs) + 18 * n_obs
+    h_bytes = 19 * elem_bytes(h)
+    return (2 * h_bytes + 9) * n - 4 * n_obs, n_iters * per_cell * (n - n_obs) + 18 * n_obs
 
 
 def sweep_cell(s, is_obs, rhs_scaled, *, tau):
@@ -223,18 +236,22 @@ def sweep_cell(s, is_obs, rhs_scaled, *, tau):
 
 def poisson_sweeps_plain(h, magnetic_flags, rhs_scaled, *, tau, n_iters):
     """Plain PyTorch version of :func:`poisson_sweeps`: ``n_iters`` times
-    the periodic pull and :func:`sweep_cell`."""
+    the periodic pull and :func:`sweep_cell`, each sweep's output stored in
+    h's dtype (a bfloat16 h is widened to float32 for the sweep and its
+    output rounded back, as the TPU kernel stores every sweep); psi is
+    float32 (float64 for a float64 h)."""
     is_obs = magnetic_flags == _OBS
     psi = None
     for _ in range(n_iters):
-        h, psi = sweep_cell(stream(D3Q19, h), is_obs, rhs_scaled, tau=tau)
+        out, psi = sweep_cell(widen(stream(D3Q19, h)), is_obs, rhs_scaled, tau=tau)
+        h = out.to(h.dtype)
     return h, psi
 
 
 def poisson_sweeps(h, magnetic_flags, rhs_scaled, *, tau, n_iters):
     """``n_iters`` channel-form Poisson sweeps.
 
-    ``h``: [1, 19, Z, Y, X] float32; ``magnetic_flags``: [1, 1, Z, Y, X]
+    ``h``: [1, 19, Z, Y, X] float32 or bfloat16; ``magnetic_flags``: [1, 1, Z, Y, X]
     uint8; ``rhs_scaled``: [1, 1, Z, Y, X] float32, dt * rhs * cs2 (0.5 -
     tau) dt without the channel weight.  Returns (h', psi of the last
     pre-collision state).  CPU tensors take the plain version; CUDA
@@ -244,10 +261,12 @@ def poisson_sweeps(h, magnetic_flags, rhs_scaled, *, tau, n_iters):
     if h.device.type == "cpu":
         return poisson_sweeps_plain(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters)
     B, Q, Z, Y, X = h.shape
-    check_cuda("h", h, torch.float32, (1, 19, Z, Y, X))
+    check_cuda("h", h, STORAGE, (1, 19, Z, Y, X))
     check_cuda("magnetic_flags", magnetic_flags, torch.uint8, (1, 1, Z, Y, X))
     check_cuda("rhs_scaled", rhs_scaled, torch.float32, (1, 1, Z, Y, X))
-    pl = plan(Z, Y, X, n_iters, torch.cuda.get_device_properties(h.device).multi_processor_count)
+    bf16 = h.dtype == torch.bfloat16
+    pl = plan(Z, Y, X, n_iters, torch.cuda.get_device_properties(h.device).multi_processor_count,
+              elem_bytes(h))
     out = torch.empty_like(h)
     # pass i writes out when an even number of passes follows it, else tmp:
     # each pass reads what the one before it wrote, and the last writes out
@@ -261,10 +280,11 @@ def poisson_sweeps(h, magnetic_flags, rhs_scaled, *, tau, n_iters):
         dst = out if after % 2 == 0 else tmp
         call("lbm_poisson_pass", ptr(src), ptr(magnetic_flags), ptr(rhs_scaled), ptr(dst),
              ptr(None if after else psi), *dims, ctypes.c_int(k), ctypes.c_int(pl.ty),
-             ctypes.c_int(pl.lz), ctypes.c_double(tau), st)
-        poisson_sweeps.launches += 1
+             ctypes.c_int(pl.lz), ctypes.c_double(tau), ctypes.c_int(bf16), st)
+        count_launch(poisson_sweeps, bf16)
         src = dst
     return out, psi
 
 
 poisson_sweeps.launches = 0
+poisson_sweeps.launches_bf16 = 0

@@ -10,8 +10,13 @@ moments, or with rho and vel (frozen at obstacles) and density.  A call is
 one launch.  The plain versions are ``ops/stream.py:stream_bounce_moments``
 and ``stream_bounce_macro``.
 
+Both take f in float32 or bfloat16 (the JAX package's turbo mode), and
+write f_post in f's type: streaming and bounce-back permute values, so a
+bfloat16 f_post holds the input's bits; the moments and macros are float32.
+
 Bound on an H100: bytes, 169 B per cell (B8a) and 173 B per cell plus 16 B
-per obstacle cell (B8b); see :func:`cost_moments` and :func:`cost_macro`.
+per obstacle cell (B8b), 93 B and 97 B in bfloat16 storage; see
+:func:`cost_moments` and :func:`cost_macro`.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from ...lattice import D3Q19
 from ...utils.types import CellType
 from ..stream import stream_bounce_macro as _macro_plain
 from ..stream import stream_bounce_moments as _moments_plain
-from ._lib import call, check_cuda, ptr, stream_of
+from ._lib import STORAGE, call, check_cuda, count_launch, elem_bytes, ptr, stream_of
 
 __all__ = [
     "stream_bounce_moments", "stream_bounce_moments_plain", "stream_bounce_macro",
@@ -37,20 +42,22 @@ CUDA_SOURCE = "lbm_ferrofluid_tpu_torch/csrc/stream3d.cu"
 
 
 def cost_moments(f, flags) -> tuple[int, int]:
-    """(bytes, flops) that a call on these inputs must move and do: f and
-    flags read and f_post, m0 and m1 written at every cell; 18 adds for m0
-    and 30 signed adds for m1."""
-    return flags.numel() * (76 + 1 + 76 + 16), flags.numel() * 48
+    """(bytes, flops) that a call on these inputs must move and do: f (in
+    its storage type) and flags read and f_post, m0 and m1 written at every
+    cell; 18 adds for m0 and 30 signed adds for m1."""
+    fb = 19 * elem_bytes(f)
+    return flags.numel() * (2 * fb + 1 + 16), flags.numel() * 48
 
 
 def cost_macro(f, flags, rho_old, vel_old, **_) -> tuple[int, int]:
-    """(bytes, flops): f and flags read, f_post, rho, vel and density
-    written at every cell, rho_old and vel_old read only at obstacles; the
-    moments (48 flops), the density map (4) at every cell and vel (a divide
-    and 3 multiplies) elsewhere."""
+    """(bytes, flops): f (in its storage type) and flags read, f_post, rho,
+    vel and density written at every cell, rho_old and vel_old read only
+    at obstacles; the moments (48 flops), the density map (4) at every cell
+    and vel (a divide and 3 multiplies) elsewhere."""
     n = flags.numel()
     n_obs = int((flags == int(CellType.OBSTACLE)).sum())
-    return n * (76 + 1 + 76 + 20) + 16 * n_obs, n * 52 + (n - n_obs) * 4
+    fb = 19 * elem_bytes(f)
+    return n * (2 * fb + 1 + 20) + 16 * n_obs, n * 52 + (n - n_obs) * 4
 
 
 def stream_bounce_moments_plain(f, flags):
@@ -69,32 +76,35 @@ def stream_bounce_macro_plain(f, flags, rho_old, vel_old, *, c, rho_gas, rho_flu
 
 def _check(f, flags):
     B, Q, Z, Y, X = f.shape
-    check_cuda("f", f, torch.float32, (1, 19, Z, Y, X))
+    check_cuda("f", f, STORAGE, (1, 19, Z, Y, X))
     check_cuda("flags", flags, torch.uint8, (1, 1, Z, Y, X))
     return Z, Y, X
 
 
 def stream_bounce_moments(f, flags):
-    """f [1, 19, Z, Y, X] float32, flags uint8 -> (f_post, m0 [1, 1, ...],
-    m1 [1, 3, ...]).  CPU tensors take the plain version; CUDA tensors
-    launch the kernel; anything else raises."""
+    """f [1, 19, Z, Y, X] float32 or bfloat16, flags uint8 -> (f_post in
+    f's type, m0 [1, 1, ...], m1 [1, 3, ...] float32).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel; anything else
+    raises."""
     if f.device.type == "cpu":
         return stream_bounce_moments_plain(f, flags)
     Z, Y, X = _check(f, flags)
+    bf16 = f.dtype == torch.bfloat16
     f_post = torch.empty_like(f)
-    m0 = torch.empty((1, 1, Z, Y, X), dtype=f.dtype, device=f.device)
-    m1 = torch.empty((1, 3, Z, Y, X), dtype=f.dtype, device=f.device)
+    m0 = torch.empty((1, 1, Z, Y, X), dtype=torch.float32, device=f.device)
+    m1 = torch.empty((1, 3, Z, Y, X), dtype=torch.float32, device=f.device)
     call("lbm_stream_moments3d", ptr(f), ptr(flags), ptr(f_post), ptr(m0), ptr(m1),
-         ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X), stream_of(f))
-    stream_bounce_moments.launches += 1
+         ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_int(bf16), stream_of(f))
+    count_launch(stream_bounce_moments, bf16)
     return f_post, m0, m1
 
 
 def stream_bounce_macro(f, flags, rho_old, vel_old, *, c, rho_gas, rho_fluid,
                         density_gas, density_fluid):
-    """f [1, 19, Z, Y, X] float32, flags uint8, rho_old [1, 1, ...], vel_old
-    [1, 3, ...] -> (f_post, rho, vel, density).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel; anything else raises."""
+    """f [1, 19, Z, Y, X] float32 or bfloat16, flags uint8, rho_old [1, 1,
+    ...], vel_old [1, 3, ...] float32 -> (f_post in f's type, rho, vel,
+    density).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel; anything else raises."""
     if f.device.type == "cpu":
         return stream_bounce_macro_plain(
             f, flags, rho_old, vel_old, c=c, rho_gas=rho_gas, rho_fluid=rho_fluid,
@@ -109,10 +119,12 @@ def stream_bounce_macro(f, flags, rho_old, vel_old, *, c, rho_gas, rho_fluid,
          ptr(rho), ptr(vel), ptr(den), ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X),
          *(ctypes.c_double(float(v))
            for v in (c, rho_gas, rho_fluid, density_gas, density_fluid)),
-         stream_of(f))
-    stream_bounce_macro.launches += 1
+         ctypes.c_int(f.dtype == torch.bfloat16), stream_of(f))
+    count_launch(stream_bounce_macro, f.dtype == torch.bfloat16)
     return f_post, rho, vel, den
 
 
 stream_bounce_moments.launches = 0
+stream_bounce_moments.launches_bf16 = 0
 stream_bounce_macro.launches = 0
+stream_bounce_macro.launches_bf16 = 0

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..lattice import Lattice
-from ..utils.types import CellType
+from ..utils.types import CellType, widen
 from .collide import chi_of_phi
 from .equilibrium import heq
 from .stencils import (
@@ -114,6 +114,7 @@ def magnetic_sweep(lat: Lattice, h, phi, flags, H_ext_mac, *, tau, dx=1.0, dt=1.
     magnetic flag field."""
     c = dx / dt
     cs2 = c * c / 3.0
+    h_dtype, h = h.dtype, widen(h)
     w = torch.as_tensor(lat.w_bcast(np.float64), dtype=h.dtype, device=h.device)
     w0 = float(lat.weights[0])
     psi = torch.sum(h[:, 1:], dim=1, keepdim=True) / (1.0 - w0)
@@ -123,7 +124,7 @@ def magnetic_sweep(lat: Lattice, h, phi, flags, H_ext_mac, *, tau, dx=1.0, dt=1.
     rhs = torch.where(flags == int(CellType.FLUID), rhs, torch.zeros_like(rhs))
     add_h = dt * w * rhs * (cs2 * (0.5 - tau) * dt)
     collision_h = (1.0 - 1.0 / tau) * h + heq_val / tau + add_h
-    h_new = torch.where(flags == int(CellType.OBSTACLE), h, collision_h)
+    h_new = torch.where(flags == int(CellType.OBSTACLE), h, collision_h).to(h_dtype)
     return -isotropic_grad(psi, dx, flags), h_new
 
 
@@ -145,7 +146,14 @@ def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters
     the gradient (B10a, ``ops/kernels/stencil3d.py``), as the JAX
     package's psi route (:452-478).  CPU tensors, and ``plain=True`` on any
     device, run the plain body (:480-502).  ``rhs_scaled`` defaults to
-    :func:`poisson_rhs_scaled` of ``phi``."""
+    :func:`poisson_rhs_scaled` of ``phi``.
+
+    bfloat16 h is widened to float32 for each sweep and its output rounded
+    back, as the JAX body and the TPU kernel store it (psi stays float32).
+    The channel weights of the source term are float32 here, as the TPU
+    kernel (and B11b) apply them; the JAX body takes them in h's dtype, so
+    at bfloat16 its ``add_h`` uses weights rounded to bfloat16 (within
+    0.2 %)."""
     if rhs_scaled is None:
         rhs_scaled = poisson_rhs_scaled(phi, magnetic_flags, h2_ext, tau=tau, dx=dx, dt=dt,
                                         H_ext_mac=H_ext_mac)
@@ -155,16 +163,18 @@ def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters
 
         h, psi = poisson_sweeps(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters)
         return h_int_from_psi(psi, magnetic_flags, dx=dx, h2_ext=h2_ext, grad=grad_fields), h
-    w = torch.as_tensor(lat.w_bcast(np.float64), dtype=h.dtype, device=h.device)
+    h_dtype = h.dtype
+    w = torch.as_tensor(lat.w_bcast(np.float64), dtype=widen(h[:, :1]).dtype,
+                        device=h.device)
     w0 = float(lat.weights[0])
     add_h = w * rhs_scaled
     is_obs = magnetic_flags == int(CellType.OBSTACLE)
     psi = None
     for _ in range(n_iters):
-        h = bounce_back(lat, stream(lat, h), magnetic_flags)
-        psi = torch.sum(h[:, 1:], dim=1, keepdim=True) / (1.0 - w0)
-        collision_h = (1.0 - 1.0 / tau) * h + heq(lat, psi) / tau + add_h
-        h = torch.where(is_obs, h, collision_h)
+        hf = widen(bounce_back(lat, stream(lat, h), magnetic_flags))
+        psi = torch.sum(hf[:, 1:], dim=1, keepdim=True) / (1.0 - w0)
+        collision_h = (1.0 - 1.0 / tau) * hf + heq(lat, psi) / tau + add_h
+        h = torch.where(is_obs, hf, collision_h).to(h_dtype)
     return maybe_h2(-isotropic_grad(psi, dx, magnetic_flags), h2_ext), h
 
 

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..lattice import Lattice
-from ..utils.types import CellType
+from ..utils.types import CellType, widen
 
 __all__ = ["stream", "bounce_back", "stream_bounce_moments", "stream_bounce_macro"]
 
@@ -37,16 +37,20 @@ def bounce_back(lat: Lattice, f, flags):
 
 
 def stream_bounce_moments(lat: Lattice, f, flags):
-    """stream -> bounce-back -> raw moments: (f_post, Σ_q f_q, Σ_q f_q e_q)."""
+    """stream -> bounce-back -> raw moments: (f_post, Σ_q f_q, Σ_q f_q e_q).
+    f_post keeps f's storage dtype (streaming and bounce-back permute
+    values); the moments are taken in float32 from bfloat16 storage, as
+    the JAX op takes them."""
     f = bounce_back(lat, stream(lat, f), flags)
-    m0 = torch.sum(f, dim=1, keepdim=True)
+    ff = widen(f)
+    m0 = torch.sum(ff, dim=1, keepdim=True)
     moments = []
     for d in range(lat.dim):
         ed = torch.as_tensor(
             lat.e[:, d].reshape(1, lat.q, *([1] * lat.dim)).astype(np.float64),
-            dtype=f.dtype, device=f.device,
+            dtype=ff.dtype, device=f.device,
         )
-        moments.append(torch.sum(f * ed, dim=1, keepdim=True))
+        moments.append(torch.sum(ff * ed, dim=1, keepdim=True))
     return f, m0, torch.cat(moments, dim=1)
 
 

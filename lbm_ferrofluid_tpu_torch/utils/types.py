@@ -1,17 +1,31 @@
-"""Cell-type flags and KBC collision variants.
+"""Cell-type flags, KBC collision variants, and the compute type of a
+stored distribution.
 
-Copy of ``lbm_ferrofluid_tpu/utils/types.py`` (the port imports nothing of
-the JAX package), which mirrors the reference's enums
-(src/LBM/utils/types.py:7-104) so scene descriptions and golden data are
-interchangeable.  Flag grids are uint8 tensors compared against
-``int(CellType.X)``.
+``CellType`` and ``KBCType`` copy ``lbm_ferrofluid_tpu/utils/types.py``
+(the port imports nothing of the JAX package), which mirrors the
+reference's enums (src/LBM/utils/types.py:7-104) so scene descriptions and
+golden data are interchangeable.  Flag grids are uint8 tensors compared
+against ``int(CellType.X)``.
 """
 
 from __future__ import annotations
 
 from enum import IntEnum
 
-__all__ = ["CellType", "KBCType"]
+import torch
+
+__all__ = ["CellType", "KBCType", "widen"]
+
+
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the type the port computes in: a bfloat16 distribution
+    upcast (exactly) to float32, float32 and float64 as they are.  bfloat16
+    f/g/h is storage only, as in the JAX package: arithmetic on a bfloat16
+    tensor and a Python float would stay bfloat16 in PyTorch, so every op
+    widens its stored distributions before it computes and rounds back
+    (``.to(dtype)``, round to nearest even) only where the JAX package
+    stores."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 class CellType(IntEnum):

@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, nothing of the JAX package, no silent CPU.
 
 * ``lbm_ferrofluid_tpu_torch`` and every submodule import in a process where
-  ``import jax`` fails;
-* no file of the package, nor ``chip_smoke.py``, imports ``jax`` or
-  ``lbm_ferrofluid_tpu`` (checked on the syntax tree);
+  ``import jax`` and ``import ml_dtypes`` fail;
+* no file of the package, nor ``chip_smoke.py``, imports ``jax``,
+  ``lbm_ferrofluid_tpu`` or ``ml_dtypes`` (checked on the syntax tree; the
+  card's machine has no ``ml_dtypes``, which comes here only with JAX);
 * without CUDA the entry points raise unless ``device="cpu"`` is passed,
   and a kernel wrapper given a tensor that is neither on the CPU nor on the
   card raises instead of running its plain version.
@@ -32,10 +33,12 @@ def test_package_imports_without_jax():
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['lbm_ferrofluid_tpu'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import lbm_ferrofluid_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert 'jax' not in {k for k, v in sys.modules.items() if v is not None}\n"
+        "loaded = {k for k, v in sys.modules.items() if v is not None}\n"
+        "assert 'jax' not in loaded and 'ml_dtypes' not in loaded\n"
         "print(len(names))\n"
     )
     out = subprocess.run(
@@ -58,7 +61,7 @@ def test_no_jax_imports(path):
             continue
         for m in mods:
             top = m.split(".")[0]
-            assert top not in ("jax", "jaxlib", "lbm_ferrofluid_tpu"), (
+            assert top not in ("jax", "jaxlib", "lbm_ferrofluid_tpu", "ml_dtypes"), (
                 f"{path.name}:{node.lineno} imports {m}"
             )
 

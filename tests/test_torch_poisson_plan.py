@@ -17,6 +17,13 @@ row, column or plane shows.  The per-cell arithmetic is
 ``poisson.sweep_cell``, the plain version's, so the replay must equal
 ``poisson_sweeps_plain`` bit for bit: a difference is a halo, wrap, ring or
 seam error of the schedule.
+
+In bfloat16 storage of h the kernel keeps its input plane and stage rings
+in bfloat16, so every intermediate sweep is rounded to bfloat16 where a
+stage stores it; the replay does the same (its rings take h's dtype) and
+must equal the plain one-sweep loop, which stores every sweep in
+bfloat16, bit for bit under every plan, and ``plan`` sizes the blocks'
+shared memory with 2-byte elements.
 """
 
 import re
@@ -29,6 +36,7 @@ torch = pytest.importorskip("torch")
 
 from lbm_ferrofluid_tpu_torch.lattice import D3Q19  # noqa: E402
 from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp  # noqa: E402
+from lbm_ferrofluid_tpu_torch.utils.types import widen  # noqa: E402
 
 #: grids the main paths and chip_smoke hand to B11b, and a 4-plane grid
 GRIDS = [(256, 256, 256), (130, 66, 130), (34, 66, 130), (50, 50, 193), (4, 8, 16)]
@@ -142,13 +150,16 @@ def test_plan_fills_the_card_it_is_given():
 # ---------------------------------------------------------------- replay
 def emulate_pass(h, is_obs, rhs, k, ty, lz, tau):
     """One pass of ``k`` sweeps on [19, Z, Y, X] h as lbm_poisson_pass
-    schedules it: returns (h', psi of the last sweep)."""
+    schedules it: returns (h', psi of the last sweep).  The input plane and
+    the stage rings hold h's dtype (a stage's outputs are rounded to it
+    where it stores them), and each sweep computes on their widened
+    values."""
     _, Z, Y, X = h.shape
     ex, ey, ez = (D3Q19.e[:, a] for a in range(3))
     tx, hx, EW, EY = pp.tile_width(k), pp.halo_left(k), pp.EXT_WIDTH, ty + 2 * (k - 1)
     nan = float("nan")
     out = torch.full_like(h, nan)
-    psi_out = torch.full_like(h[:1], nan)
+    psi_out = torch.full_like(widen(h[:1]), nan)
     q_idx = torch.arange(19)[:, None, None]
     ey_t, ex_t = torch.as_tensor(ey)[:, None], torch.as_tensor(ex)[:, None]
 
@@ -191,17 +202,18 @@ def emulate_pass(h, is_obs, rhs, k, ty, lz, tau):
                             src = torch.cat([rings[j - 1, 0, p % 2], rings[j - 1, 1, (p - 1) % 3],
                                              rings[j - 1, -1, 0]])
                             s = pull(src, e)
-                        new, psi = pp.sweep_cell(s[None], fl_ring[p % (k + 1)][e][None, None],
+                        new, psi = pp.sweep_cell(widen(s[None]),
+                                                 fl_ring[p % (k + 1)][e][None, None],
                                                  rh_ring[p % (k + 1)][e][None, None], tau=tau)
                         new, psi = new[0], psi[0]
                         if j < k:
                             for g, n_slot, first in ((0, p % 2, 0), (1, p % 3, 9), (-1, 0, 14)):
                                 n = 9 if g == 0 else 5
-                                rings[j, g, n_slot][:, e] = new[first:first + n]
+                                rings[j, g, n_slot][:, e] = new[first:first + n].to(h.dtype)
                             continue
                         ny, nx = min(ty, Y - y0), min(tx, X - x0)
                         tile = (slice(None), slice(0, ny), slice(hx, hx + nx))
-                        out[:, zw, y0:y0 + ny, x0:x0 + nx] = new[tile]
+                        out[:, zw, y0:y0 + ny, x0:x0 + nx] = new[tile].to(h.dtype)
                         psi_out[:, zw, y0:y0 + ny, x0:x0 + nx] = psi[tile]
     return out, psi_out
 
@@ -215,7 +227,7 @@ def emulate(h, flags, rhs, n_iters, pl, tau):
     return hh[None], psi[None]
 
 
-def _inputs(res, seed, pl):
+def _inputs(res, seed, pl, dtype=torch.float32):
     """The Rosensweig magnetic shell (z planes, x-edge columns), a block
     of magnetic obstacles inside, and one that straddles the plan's first
     tile edge in x and y and its first z seam; h and rhs from the seed."""
@@ -231,42 +243,91 @@ def _inputs(res, seed, pl):
                 mf[..., z % Z, y % Y, x % X] = OBS
     h = rng.uniform(-0.1, 0.1, (1, 19, *res)).astype(np.float32)
     rhs = (rng.uniform(-1e-2, 1e-2, (1, 1, *res)) * (mf == FLUID)).astype(np.float32)
-    return torch.from_numpy(h), torch.from_numpy(mf), torch.from_numpy(rhs)
+    return torch.from_numpy(h).to(dtype), torch.from_numpy(mf), torch.from_numpy(rhs)
 
 
-@pytest.mark.parametrize("tau", [1.0, 0.8])
-@pytest.mark.parametrize("n_iters", [30, 7])
-@pytest.mark.parametrize("res,tile", [
+SCHEDULES = [
     ((7, 30, 29), None),                 # the plan's own choice: 2 x 2 tiles
     ((5, 9, 37), (3, 4, 2)),             # tiles and chunks that divide nothing
     ((4, 11, 61), (2, 5, 3)),
     ((6, 7, 33), (4, 3, 4)),
     ((5, 16, 29), (2, 16, 5)),           # the tallest extended tile (18 rows)
-])
-def test_schedule_equals_plain_sweeps_bit_for_bit(res, tile, n_iters, tau):
+]
+
+
+def _replay_against_plain(res, tile, n_iters, tau, dtype):
     """``tile``: (k, ty, lz) of a plan built as ``--poisson-plans`` builds
-    its plans, or None for :func:`plan`'s own."""
+    its plans, or None for :func:`plan`'s own (for h's element size)."""
     if tile is None:
-        pl = pp.plan(*res, n_iters, SMS)
+        pl = pp.plan(*res, n_iters, SMS, 2 if dtype == torch.bfloat16 else 4)
     else:
         k, ty, lz = tile
         pl = pp.PoissonPlan(k, ty, lz, pp.passes(n_iters, k))
-    h, mf, rhs = _inputs(res, sum(res) + n_iters, pl)
+    h, mf, rhs = _inputs(res, sum(res) + n_iters, pl, dtype)
     got_h, got_psi = emulate(h, mf, rhs, n_iters, pl, tau)
     want_h, want_psi = pp.poisson_sweeps_plain(h, mf, rhs, tau=tau, n_iters=n_iters)
+    assert got_h.dtype == want_h.dtype == dtype and want_psi.dtype == torch.float32
     assert torch.equal(got_h, want_h)
     assert torch.equal(got_psi, want_psi)
+
+
+@pytest.mark.parametrize("tau", [1.0, 0.8])
+@pytest.mark.parametrize("n_iters", [30, 7])
+@pytest.mark.parametrize("res,tile", SCHEDULES)
+def test_schedule_equals_plain_sweeps_bit_for_bit(res, tile, n_iters, tau):
+    _replay_against_plain(res, tile, n_iters, tau, torch.float32)
+
+
+@pytest.mark.parametrize("tau", [1.0, 0.8])
+@pytest.mark.parametrize("res,tile,n_iters", [(res, tile, 7) for res, tile in SCHEDULES]
+                         + [(SCHEDULES[0][0], None, 30)])
+def test_bf16_schedule_equals_plain_sweeps_bit_for_bit(res, tile, n_iters, tau):
+    """bfloat16 h: each intermediate sweep rounded to bfloat16 in the rings
+    equals the one-sweep loop, which stores every sweep in bfloat16.  Every
+    schedule at 7 sweeps (two full passes and a remainder pass, or passes
+    of its k), and the plan's own choice at 30 sweeps."""
+    _replay_against_plain(res, tile, n_iters, tau, torch.bfloat16)
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+def test_bf16_plan_sizes_shared_memory_with_two_byte_elements(grid):
+    """At bfloat16 h a pass block's input plane and rings take 2 bytes an
+    element: k = 3 on 9-row tiles needs 97 KiB where float32 needs 186 KiB,
+    so shared memory leaves room for two blocks an SM, and the plan's z
+    chunks follow (no more waves than at float32)."""
+    p16, p32 = pp.plan(*grid, 30, SMS, 2), pp.plan(*grid, 30, SMS)
+    assert (p16.k, p16.ty, p16.passes) == (p32.k, p32.ty, p32.passes) == (3, 9, (3,) * 10)
+    assert pp.smem_bytes(3, 9, 2) == 99_724 and pp.smem_bytes(3, 9) == 190_940
+    assert pp.SMEM_SM // (pp.smem_bytes(3, 9, 2) + 1024) == 2
+    assert pp.SMEM_SM // (pp.smem_bytes(3, 9) + 1024) == 1
+    for k in set(p16.passes):
+        pp.check_pass(k, p16.ty, 2)
+    # the rings' and input plane's bytes halve; the rhs and flags rings and
+    # the tables do not change
+    ey = 9 + 4
+    assert pp.smem_bytes(3, 9) - pp.smem_bytes(3, 9, 2) == 2 * (8 + (19 + 2 * 38) * 32 * (ey + 2))
+
+
+def _one_sweep_plan_against_plain(dtype):
+    res = (5, 12, 40)
+    pl = pp.PoissonPlan(k=1, ty=pp.TY, lz=2, passes=(1, 1, 1))
+    h, mf, rhs = _inputs(res, 11, pl, dtype)
+    got = emulate(h, mf, rhs, 3, pl, 0.8)
+    want = pp.poisson_sweeps_plain(h, mf, rhs, tau=0.8, n_iters=3)
+    assert got[0].dtype == dtype
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_one_sweep_plan_equals_plain_sweeps():
     """k = 1: the one-sweep kernel as a pass, at the plan's tile height (the
     one-sweep plan chip_smoke holds the chosen plan to)."""
-    res = (5, 12, 40)
-    pl = pp.PoissonPlan(k=1, ty=pp.TY, lz=2, passes=(1, 1, 1))
-    h, mf, rhs = _inputs(res, 11, pl)
-    got = emulate(h, mf, rhs, 3, pl, 0.8)
-    want = pp.poisson_sweeps_plain(h, mf, rhs, tau=0.8, n_iters=3)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _one_sweep_plan_against_plain(torch.float32)
+
+
+def test_bf16_one_sweep_plan_equals_plain_sweeps():
+    """The same at bfloat16 h (chip_smoke holds the bfloat16 instance's
+    chosen plan to it too)."""
+    _one_sweep_plan_against_plain(torch.bfloat16)
 
 
 def test_schedule_at_a_deep_pass_wraps_a_small_grid():
