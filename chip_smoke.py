@@ -80,8 +80,22 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    density(rho_ca), each with its plan, resident blocks and ptxas line,
    and beside a yardstick that is on no path: cuDNN's ``conv3d`` of the
    interior then ``F.pad``, 2 calls, in full float32 (``conv3d_pad``);
+5b. the 2D and single-phase models (after phase 5): the six 2D and
+   single-phase goldens of tests/test_parity.py (``singlephase_bgk``,
+   ``singlephase_kbc_a``, ``sc``, ``hcz``, ``hcz_kbc_wetting``, ``ferro2d``
+   in channel form and in the scalar carry) at that file's bars; 3D
+   single-phase BGK at 256^3 on a seeded Taylor-Green-like field (tau 0.8),
+   30 steps through B8a against 30 ``plain=True`` steps at phase 3's bars,
+   50 timed steps, B8a once a step, B8a timed beside its bound; each 2D
+   scene at its demo's default resolution (130x130, ``two_droplets_2d``
+   98x384) for 1000 steps through the runner, finite, summed rho within
+   ``SCENE_DRIFT``, no kernel launched; the single-phase BGK and KBC, HCZ
+   and ferrofluid (scalar carry, channel form) 2D steps timed at native
+   size and at 2048^2 with their CUDA kernel launches a step from
+   ``torch.profiler``; and 2000 steps of ``rosensweig_2d`` at 64x64 in
+   bfloat16 against float32 with tests/test_bf16_physics.py's assertions;
 7. bfloat16 storage of f, g and h (the JAX package's turbo mode; run
-   between phases 5 and 6): each bfloat16 form (B3 at the magnetic tau 1
+   between phases 5b and 6): each bfloat16 form (B3 at the magnetic tau 1
    and 0.8, B4, B5 with and without ``emit_mac``, B11b at tau 1 and 0.8
    and 30 and 7 sweeps at 34x66x130 and 130x66x130; B8b, B8a, B9 in the
    HCZ chain at 34x66x130 and 130^3) against its plain version on phase
@@ -2298,6 +2312,346 @@ def phase_bf16_flagships(dev, K, card, ptxas=None):
     return per_kernel
 
 
+# ---------------------------------------------------------------- 2D and single phase
+GAS_2D = dict(density_gas=0.02381, density_fluid=0.2508, rho_gas=0.02381, rho_fluid=0.2508)
+
+
+def phase_golden_2d(dev):
+    """The six 2D and single-phase goldens of tests/test_parity.py (reference
+    solver) through the port on the card, at that file's bars and step
+    counts: ``singlephase_bgk`` and ``singlephase_kbc_a`` (20 steps),
+    ``sc`` (20), ``hcz`` and ``hcz_kbc_wetting`` (20), ``ferro2d`` (10; in
+    channel form as tests/test_parity.py runs it, and primed into the
+    scalar carry, its h through ``compare_views``)."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import (
+        SimulationParams, ferrofluid_step, hcz_step, init_ferrofluid_state, init_hcz_state,
+        init_sc_state, init_singlephase_state, prime_premac, sc_step, singlephase_step,
+    )
+    from lbm_ferrofluid_tpu_torch.ops.scalar_poisson import compare_views
+
+    kbc_a = 0b10000101
+    gold = ROOT / "tests" / "golden"
+    rows = {}
+    for variant in ("bgk", "kbc_a"):
+        d = np.load(gold / f"singlephase_{variant}.npz")
+        res = d["f0"].shape[2:]
+        p = SimulationParams(dim=2, tau=float(d["tau"]),
+                             kbc_type=kbc_a if variant == "kbc_a" else None)
+        st = init_singlephase_state(p, np.full((1, 1, *res), 0.265, np.float32),
+                                    d["vel0"].astype(np.float32),
+                                    np.full((1, 1, *res), 1, np.uint8), device=dev)
+        for _ in range(20):
+            st = singlephase_step(p, st, device=dev)
+        rows[f"singlephase_{variant}"] = _golden_rows(f"golden singlephase_{variant}", (
+            ("f", st.f, d["f"]), ("rho", st.rho, d["rho"]), ("vel", st.vel, d["vel"])))
+    d = np.load(gold / "sc.npz")
+    res = d["rho0"].shape[2:]
+    p = SimulationParams(dim=2, tau=1.0, **GAS_2D)
+    st = init_sc_state(p, d["rho0"], d["den0"], np.zeros((1, 2, *res), np.float32), d["flags"],
+                       device=dev)
+    for _ in range(20):
+        st = sc_step(p, st, device=dev)
+    rows["sc"] = _golden_rows("golden sc", (
+        ("f", st.f, d["f"]), ("rho", st.rho, d["rho"]), ("vel", st.vel, d["vel"]),
+        ("density", st.density, d["den"])))
+    hcz = dict(dim=2, kappa=0.08, tau_f=0.7, tau_g=0.8, contact_angle=0.5 * math.pi, **GAS_2D)
+    for name, change in (("hcz", {}), ("hcz_kbc_wetting", dict(
+            kbc_type=kbc_a, gravity=1e-4, contact_angle=0.75 * math.pi))):
+        d = np.load(gold / f"{name}.npz")
+        p = SimulationParams(**dict(hcz, **change))
+        st = init_hcz_state(p, d["rho0"], d["den0"], np.zeros((1, 2, *res), np.float32),
+                            d["flags"], device=dev)
+        for _ in range(20):
+            st = hcz_step(p, st, device=dev)
+        pairs = [("f", st.f, d["f"]), ("g", st.g, d["g"]), ("vel", st.vel, d["vel"]),
+                 ("density", st.density, d["den"])]
+        if name == "hcz":
+            pairs += [("rho", st.rho, d["rho"]), ("pressure", st.pressure, d["p"])]
+        rows[name] = _golden_rows(f"golden {name}", pairs)
+    d = np.load(gold / "ferro2d.npz")
+    p = SimulationParams(**dict(hcz, kappa=0.5, tau_f=0.68, tau_g=0.68, mag_strength=100.0,
+                                poisson_iters=30))
+    mflags = np.full((1, 1, *res), 2, np.uint8)
+    mflags[..., 1:-1, :] = 1
+    for route in ("channel form", "scalar carry"):
+        st = init_ferrofluid_state(p, d["rho0"], d["den0"], np.zeros((1, 2, *res), np.float32),
+                                   d["flags"], mflags, device=dev)
+        if route == "scalar carry":
+            st = prime_premac(p, st, device=dev)
+            check(st.h.shape[1] == 2, "golden ferro2d: priming did not take the scalar carry")
+        for _ in range(10):
+            st = ferrofluid_step(p, st, device=dev)
+        if st.h.shape[1] == 2:
+            a, b = compare_views(st.h, torch.as_tensor(d["h"], device=dev), st.magnetic_flags)
+        else:
+            a, b = st.h, d["h"]
+        rows[f"ferro2d {route}"] = _golden_rows(f"golden ferro2d {route}", (
+            ("h", a, b), ("f", st.f, d["f"]), ("g", st.g, d["g"]), ("vel", st.vel, d["vel"]),
+            ("density", st.density, d["den"])))
+    emit({"phase": "golden_2d", "files": ["singlephase_bgk", "singlephase_kbc_a", "sc", "hcz",
+                                          "hcz_kbc_wetting", "ferro2d"],
+          "bars": "atol 2e-5 + rtol 2e-4 (tests/test_parity.py)", "fields": rows, "ok": True})
+
+
+def taylor_green_3d(res, dev, *, tau=0.8, u0=0.05, seed=0):
+    """Single-phase D3Q19 BGK on a seeded Taylor-Green-like field: rho 1,
+    |u| <= ``u0`` (the vortex's phase per axis from ``seed``), FLUID inside
+    an obstacle frame, tau 0.8.  The JAX package has no 3D single-phase
+    scene; this one is built from numpy on the host."""
+    from lbm_ferrofluid_tpu_torch.models import SimulationParams, init_singlephase_state
+
+    rng = np.random.default_rng(seed)
+    z, y, x = np.meshgrid(*(2 * np.pi * (np.arange(n, dtype=np.float32) + 0.5) / n
+                            for n in res), indexing="ij", sparse=True)
+    a, b, c = (np.float32(v) for v in rng.uniform(0.0, 2 * np.pi, 3))
+    vel = np.zeros((1, 3, *res), np.float32)
+    amp = np.float32(u0 / math.sqrt(2.0))
+    vel[0, 0] = amp * np.sin(x + a) * np.cos(y + b) * np.cos(z + c)
+    vel[0, 1] = -amp * np.cos(x + a) * np.sin(y + b) * np.cos(z + c)
+    flags = np.full((1, 1, *res), 2, np.uint8)
+    flags[..., 1:-1, 1:-1, 1:-1] = 1
+    vel *= flags == 1
+    params = SimulationParams(dim=3, tau=tau)
+    return params, init_singlephase_state(params, np.ones((1, 1, *res), np.float32), vel,
+                                          flags, device=dev)
+
+
+def phase_singlephase_3d(dev, kernels_pkg, card, res=(256, 256, 256)):
+    """Single-phase D3Q19 BGK at 256^3 (16.8 M cells, f 1.27 GB) on the
+    seeded Taylor-Green-like field: 30 steps through B8a against 30
+    ``plain=True`` steps (phase 3's bars), then 50 timed steps (MLUPS);
+    B8a launches once a step; then B8a at the next step's inputs, timed
+    beside its plain version and its bound.  Counters zeroed just before
+    the path, read just after."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import SimulationRunner, singlephase_step
+    from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
+
+    K = kernels_pkg.KERNELS
+    params, s0 = taylor_green_3d(res, dev)
+    check(float(s0.vel.abs().max()) <= 0.05, "Taylor-Green field above |u| 0.05")
+    kernels_pkg.reset_launch_counts()
+    sk, rows = kernel_vs_plain(params, s0, singlephase_step, dev, 30,
+                               "single-phase 3D BGK", ("f", "rho", "vel"))
+    mass0, mass30 = float(s0.rho.double().sum()), float(sk.rho.double().sum())
+    del s0
+    torch.cuda.reset_peak_memory_stats()
+    sk, stats = SimulationRunner(params, singlephase_step, device=dev).benchmark(
+        sk, n_steps=50, warmup=5)
+    peak = torch.cuda.max_memory_allocated()
+    assert_finite(sk)
+    launches = kernels_pkg.launch_counts()
+    check_launches("single-phase 3D", launches, {"B8a": 1}, sk.step)
+    b8a = measure(K, "B8a", (sk.f, sk.flags), {}, 1, 1, f"B8a single-phase at {res}")
+    emit({"phase": "singlephase_3d", "scene": "taylor_green_3d", "res": list(res),
+          "tau": params.tau, "steps": sk.step, "kernel_vs_plain_after_30_steps": rows,
+          "finite": True, "sum_rho": {"step0": mass0, "step30": mass30,
+                                      "step85": float(sk.rho.double().sum())},
+          "mlups": stats["mlups"], "ms_per_step": stats["seconds"] / stats["steps"] * 1e3,
+          "peak_mem_gb": peak / 1e9, "B8a": b8a, "card": card,
+          "launches": {"B8a": launches["B8a"]}, "ok": True})
+    return {"B8a": launches["B8a"]}, b8a
+
+
+def launches_per_step(params, state, step, dev, n=3):
+    """CUDA kernels a step launches, from ``torch.profiler`` over ``n``
+    steps: the host's launch calls (``cudaLaunchKernel`` and kin) and the
+    device's kernel records, each divided by ``n``, with the device's busy
+    milliseconds a step (0 where the profiler records no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            state = step(params, state, device=dev)
+        torch.cuda.synchronize()
+    host = device = 0
+    busy_us = 0.0
+    for e in prof.key_averages():
+        if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx"):
+            host += e.count
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device += e.count
+            busy_us += getattr(e, "self_device_time_total", 0.0) or 0.0
+    return state, {"host_launch_calls": host / n, "device_kernels": device / n,
+                   "device_busy_ms": busy_us / n / 1e3}
+
+
+#: 2D scenes at their demos' default resolutions: (builder, step, res)
+SCENES_2D = {
+    "shear_layer": ("shear_layer", "singlephase_step", (130, 130), {}),
+    "shear_layer_kbc": ("shear_layer", "singlephase_step", (130, 130), {"kbc": True}),
+    "multiphase_drop_sc": ("multiphase_drop_sc", "sc_step", (130, 130), {}),
+    "multiphase_drop_hcz": ("multiphase_drop_hcz", "hcz_step", (130, 130), {}),
+    "wave": ("wave", "hcz_step", (130, 130), {}),
+    "droplet_spread_2d": ("droplet_spread_2d", "hcz_step", (130, 130), {}),
+    "two_droplets_2d": ("two_droplets_2d", "ferrofluid_step", (98, 384), {}),
+    "rosensweig_2d": ("rosensweig_2d", "ferrofluid_step", (130, 130), {}),
+}
+
+#: the largest relative change of the summed rho over 1000 steps at the
+#: native resolutions (fluid cells of the multiphase scenes, every cell of
+#: the periodic shear layer): about 1e-4 for the shear layer in float32
+#: (.claude/skills/verify/SKILL.md); for the others 1.5 times the drift of
+#: the JAX package's own float32 runs on the CPU, which the port's repeat
+#: within 1e-3 (tests/test_torch_hcz2d.py::
+#: test_native_1000_step_drift_matches_jax): the multiphase scenes' sharp
+#: initial interfaces relax, which moves up to about 2 % of the fluid
+#: cells' rho (``rho_drift`` in the phase's output)
+SCENE_DRIFT = {"shear_layer": 2e-4, "shear_layer_kbc": 2e-4, "multiphase_drop_sc": 2e-2,
+               "multiphase_drop_hcz": 3e-2, "wave": 2e-3, "droplet_spread_2d": 3e-2,
+               "two_droplets_2d": 3e-2, "rosensweig_2d": 1e-2}
+
+#: the paths whose ms a step and launches a step are reported, at native
+#: size and at 2048^2: (scene key, params change, prime)
+TIMED_2D = {
+    "singlephase_bgk": ("shear_layer", {}, False),
+    "singlephase_kbc": ("shear_layer_kbc", {}, False),
+    "hcz": ("multiphase_drop_hcz", {}, False),
+    "ferrofluid_scalar_carry": ("rosensweig_2d", {}, True),
+    "ferrofluid_channel": ("rosensweig_2d", {"scalar_carry": False}, True),
+}
+
+
+def _scene_mass(state) -> float:
+    rho = state.rho.double()
+    if hasattr(state, "density"):
+        return float(rho[state.flags == 1].sum())
+    return float(rho.sum())
+
+
+def phase_2d(dev, kernels_pkg, card, steps=1000, big=(2048, 2048)):
+    """Each 2D scene at its demo's default resolution through the runner
+    (which primes the ferrofluid scenes into the scalar carry): ``steps``
+    (1000), fields finite, the summed rho within ``SCENE_DRIFT``; no kernel
+    launches (counters zeroed just before, read just after).  Then the
+    single-phase BGK and KBC, HCZ and ferrofluid (scalar carry and channel
+    form) steps timed at native size and at ``big`` (2048^2, 4.2 M cells): ms a step
+    over warm steps ending in ``torch.cuda.synchronize()``, and CUDA kernel
+    launches a step from ``torch.profiler``."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch import models
+    from lbm_ferrofluid_tpu_torch.models import SimulationRunner
+    from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
+
+    out = {"phase": "scenes_2d", "card": card, "scenes": {}, "timed": {}}
+    kernels_pkg.reset_launch_counts()
+    for name, (build, step, res, kw) in SCENES_2D.items():
+        params, s0 = getattr(models, build)(res=res, device=dev, **kw)
+        runner = SimulationRunner(params, getattr(models, step), device=dev)
+        st = runner.prepare(s0)
+        m0 = _scene_mass(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = runner.run(st, steps)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        assert_finite(st)
+        drift = _scene_mass(st) / m0 - 1.0
+        bar = SCENE_DRIFT[name]
+        check(abs(drift) <= bar, f"2D {name}: summed rho drifted {drift:.3e} in {steps} steps")
+        out["scenes"][name] = {"res": list(res), "steps": st.step, "finite": True,
+                               "rho_drift": drift, "drift_bar": bar,
+                               "ms_per_step": seconds / steps * 1e3,
+                               "h_channels": st.h.shape[1] if hasattr(st, "h") else None}
+    launches = kernels_pkg.launch_counts()
+    check(not any(launches.values()), f"2D scenes launched kernels: {launches}")
+    for label, (scene, change, prime) in TIMED_2D.items():
+        build, step, res, kw = SCENES_2D[scene]
+        step = getattr(models, step)
+        for size in (res, big):
+            params, st = getattr(models, build)(res=size, device=dev, **kw)
+            params = params.replace(**change)
+            if prime:
+                st = models.prime_premac(params, st, device=dev)
+            n = 200 if size == res else 20
+            st, stats = timed_steps(params, st, step, dev, n_steps=n, warmup=10)
+            st, prof = launches_per_step(params, st, step, dev)
+            assert_finite(st)
+            key = "native" if size == res else "x".join(map(str, size))
+            out["timed"].setdefault(label, {})[key] = dict(
+                res=list(size), ms_per_step=stats["seconds"] / n * 1e3, mlups=stats["mlups"],
+                h_channels=st.h.shape[1] if hasattr(st, "h") else None, **prof)
+            del st
+        torch.cuda.empty_cache()
+    launches = kernels_pkg.launch_counts()
+    check(not any(launches.values()), f"2D timed paths launched kernels: {launches}")
+    emit(dict(out, launches=launches, ok=True))
+
+
+def phase_rosensweig_2d_bf16(dev, card, steps=(1000, 2000)):
+    """tests/test_bf16_physics.py on the card: ``rosensweig_2d`` at 64x64
+    for 2000 steps with f, g and h in bfloat16 and in float32 (the runner
+    primes both into the float32 scalar carry), with that test's
+    assertions (:61-88): finite, fluid mass at rtol 5e-3 at 1000 and 2000
+    steps, the fill height per column within 2 cells pointwise at 1000, the
+    float32 pool corrugated by 2 cells or more at 2000, the mean level
+    within 1 cell, the bfloat16 corrugation in [0.3, 3] times float32's and
+    the mean pointwise height difference within 3 cells."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import (
+        SimulationRunner, ferrofluid_step, init_ferrofluid_state, rosensweig_2d,
+    )
+
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        params, s0 = rosensweig_2d(res=(64, 64), mag_strength=100.0, device=dev)
+        params = params.replace(fg_dtype=dtype, h_dtype=dtype)
+        st = init_ferrofluid_state(params, s0.rho, s0.density, s0.vel, s0.flags,
+                                   s0.magnetic_flags, device=dev)
+        runner = SimulationRunner(params, ferrofluid_step, device=dev)
+        mid = 0.5 * (params.density_gas + params.density_fluid)
+        marks, done = {}, 0
+        t0 = time.perf_counter()
+        for t in steps:
+            st = runner.run(st, t - done)
+            done = t
+            marks[t] = {"finite": bool(torch.isfinite(st.density).all()),
+                        "heights": (st.density[0, 0] > mid).sum(dim=0).double().cpu().numpy(),
+                        "mass": float(st.rho.double()[st.flags == 1].sum())}
+        torch.cuda.synchronize()
+        runs[dtype] = dict(marks=marks, seconds=time.perf_counter() - t0,
+                           storage=str(st.f.dtype), h=list(st.h.shape))
+    a, b = runs["float32"]["marks"], runs["bfloat16"]["marks"]
+    first, last = steps[0], steps[-1]
+    h32, h16 = a[last]["heights"], b[last]["heights"]
+    amp32, amp16 = float(np.ptp(h32)), float(np.ptp(h16))
+    row = {"phase": "rosensweig_2d_bf16", "res": [64, 64], "steps": list(steps), "card": card,
+           "mass_rel": {t: b[t]["mass"] / a[t]["mass"] - 1.0 for t in steps},
+           "pointwise_height_diff_first": float(
+               np.abs(b[first]["heights"] - a[first]["heights"]).max()),
+           "mean_level_diff_last": float(h16.mean() - h32.mean()),
+           "corrugation_last": {"float32": amp32, "bfloat16": amp16},
+           "mean_pointwise_diff_last": float(np.abs(h16 - h32).mean()),
+           "seconds": {k: v["seconds"] for k, v in runs.items()},
+           "storage": {k: v["storage"] for k, v in runs.items()}}
+    failed = []
+    for t in steps:
+        if not (a[t]["finite"] and b[t]["finite"]):
+            failed.append(f"rosensweig_2d bf16: non-finite at step {t}")
+        if abs(row["mass_rel"][t]) > 5e-3:
+            failed.append(f"rosensweig_2d bf16: mass {row['mass_rel'][t]:.3e} at step {t}")
+    if row["pointwise_height_diff_first"] > 2:
+        failed.append(f"rosensweig_2d bf16: heights apart by more than 2 cells at step {first}")
+    if amp32 < 2 or amp16 < 2:
+        failed.append(f"rosensweig_2d bf16: no corrugation ({amp32}, {amp16})")
+    if abs(row["mean_level_diff_last"]) > 1.0:
+        failed.append(f"rosensweig_2d bf16: mean level {row['mean_level_diff_last']} cells apart")
+    if not 0.3 * amp32 <= amp16 <= 3.0 * amp32:
+        failed.append(f"rosensweig_2d bf16: corrugation {amp16} against {amp32}")
+    if row["mean_pointwise_diff_last"] > 3.0:
+        failed.append("rosensweig_2d bf16: mean pointwise height difference over 3 cells")
+    emit(dict(row, ok=not failed))
+    check(not failed, "; ".join(failed))
+
+
 def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     """Phases 3-8; returns one row per kernel for the ``kernels`` line, and
     one per bfloat16 form.  ``launches`` sums the kernel's launches over
@@ -2314,6 +2668,11 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
                 phase_uncarried_main(dev, kernels_pkg, smi),
                 phase_epilogue_main(dev, kernels_pkg, smi),
                 phase_stencils_main(dev, kernels_pkg, smi)]
+    phase_golden_2d(dev)
+    sp_launches, sp_b8a = phase_singlephase_3d(dev, kernels_pkg, smi)
+    per_path.append(sp_launches)
+    phase_2d(dev, kernels_pkg, smi)
+    phase_rosensweig_2d_bf16(dev, smi)
     launches = {kid: sum(p.get(kid, 0) for p in per_path) for kid in K}
     worst16 = phase_kernels_bf16(dev, K)
     launches16 = phase_bf16_main(dev, kernels_pkg, smi)
@@ -2327,6 +2686,7 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     flag["B10a"]["max_abs_err"] = max(flag["B10a"]["max_abs_err"],
                                       *(hcz_flag[f"B10a N={n}"]["max_abs_err"] for n in (3, 4)))
     flag.update({kid: v for kid, v in hcz_flag.items() if kid in K and kid != "B2"})
+    flag["B8a"]["max_abs_err"] = max(flag["B8a"]["max_abs_err"], sp_b8a["max_abs_err"])
     flag16 = phase_bf16_flagships(dev, K, smi, ptxas)
     flag16["B5"] = dict(flag16["B5"], max_abs_err=max(flag16["B5"]["max_abs_err"],
                                                        flag16["B5 emit_mac"]["max_abs_err"]))

@@ -16,6 +16,12 @@ Quick start (on the card)::
     params, state = multiphase_3d()            # 130^3 HCZ cube drop
     state = SimulationRunner(params, hcz_step).run(state, 100)
 
+The 2D and single-phase models step the same way (``shear_layer`` with
+``singlephase_step``, ``multiphase_drop_sc`` with ``sc_step``,
+``multiphase_drop_hcz``/``wave``/``droplet_spread_2d`` with ``hcz_step``,
+``rosensweig_2d``/``two_droplets_2d`` with ``ferrofluid_step``; 3D
+single-phase BGK through ``init_singlephase_state``).
+
 Pass ``device="cpu"`` to every entry point to run the plain PyTorch versions
 on the CPU; without a GPU the default raises.
 """

@@ -31,6 +31,15 @@ the channel distribution at any tau (``ops/magnetic.py:solve_H_int``: the
 sweeps B11b, ``ops/kernels/poisson.py``, then the gradient of psi B10a,
 ``ops/kernels/stencil3d.py``), as ``init_ferrofluid_state`` makes h.
 
+In 2D (D2Q9) the step is the JAX step's unfused branch on plain PyTorch
+on any device, as the JAX package runs 2D only through ``jnp``: stream and
+macros of f and g, phi and the Poisson source, the solve in the form
+``state.h`` has (9 channels, or the scalar carry with the exact-order
+sweeps, into which :func:`prime_premac` converts h and which is its only
+2D priming), then the shared 2D HCZ stages with H2 and phi
+(``models/multiphase.py:capillary_collide_2d``, KBC on g with
+``params.kbc_type``).  A 2D step launches no kernel and carries no premac.
+
 Every entry point runs on the card unless ``device="cpu"`` is passed, and
 the kernels run unless ``plain=True`` is passed, which selects their plain
 PyTorch versions.  bfloat16 storage of f, g and h (``fg_dtype``/``h_dtype``,
@@ -61,7 +70,13 @@ from ..ops.scalar_poisson import make_cmask, s_prev_from_h, scalar_from_h
 from ..ops.stencils import staggered
 from ..utils.device import check_device, resolve_device
 from ..utils.types import CellType
-from .multiphase import check_kernel_grid, check_supported, storage_dtype
+from .multiphase import (
+    capillary_collide_2d,
+    check_kernel_grid,
+    check_supported,
+    storage_dtype,
+    stream_2d,
+)
 from .params import SimulationParams
 from .state import FerrofluidState
 
@@ -134,7 +149,7 @@ def init_ferrofluid_state(params: SimulationParams, rho, density, vel, flags,
 def _mag_boundary_only(magnetic_flags) -> bool:
     """Every magnetic OBSTACLE cell lies on the domain's outermost ring:
     the physics precondition of the tau == 1 scalar collapse."""
-    interior = magnetic_flags[..., 1:-1, 1:-1, 1:-1]
+    interior = magnetic_flags[(Ellipsis,) + (slice(1, -1),) * (magnetic_flags.ndim - 2)]
     return not bool((interior == int(CellType.OBSTACLE)).any())
 
 
@@ -168,7 +183,7 @@ def _check_supported(params: SimulationParams, state) -> None:
 def _hext_static(params: SimulationParams):
     return tuple(
         float(params.mag_strength) if d == params.h_ext_axis else 0.0
-        for d in range(3)
+        for d in range(params.dim)
     )
 
 
@@ -191,13 +206,18 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
     in ``state.premac`` (a 6-tuple); convert h to the scalar carry where the
     collapse applies (else keep the 19-channel h); drop the write-only phi,
     force and H_ext (``_prime_steady`` of the JAX package).
-    A state that is already primed is returned as it is."""
+    A state that is already primed is returned as it is.  In 2D the scalar
+    carry is the only priming (JAX :969-977): h converts where the
+    collapse applies and nothing else changes."""
     check_device(state.f, device)
     _check_supported(params, state)
     if state.premac is not None:
         # checked when it was primed; the flags check reads the device
         # and would stall every step's enqueue
         return state
+    if params.dim == 2:
+        h, cmask = _scalar_convert(params, state)
+        return state.replace(h=h, cmask=cmask)
     validate_mag_shell(params, state.magnetic_flags)
     prologue = lbm_prologue_plain if plain else lbm_prologue
     premac = prologue(
@@ -229,6 +249,8 @@ def ferrofluid_step(params: SimulationParams, state: FerrofluidState, *,
     versions (on any device) instead of the kernels."""
     check_device(state.f, device)
     _check_supported(params, state)
+    if params.dim == 2:
+        return _ferrofluid_step_2d(params, state)
     check_kernel_grid(state.f, plain)
     gas = dict(rho_gas=float(params.rho_gas), rho_fluid=float(params.rho_fluid),
                density_gas=float(params.density_gas),
@@ -280,6 +302,29 @@ def ferrofluid_step(params: SimulationParams, state: FerrofluidState, *,
         f=out[0], g=out[1], h=h, rho=rho_ca, vel=vel, density=density, pressure=pressure,
         force=force, phi=phi, step=state.step + 1, premac=tuple(out[2]) if emit else None,
     )
+
+
+def _ferrofluid_step_2d(params: SimulationParams, state):
+    """One 2D step: the JAX step's unfused branch (:358-371), the solve by
+    the form of ``state.h`` (:394-507) and the shared HCZ stages with H2
+    and phi (:636-766)."""
+    f, rho, vel, density, g, m0g, m1g = stream_2d(params, state)
+    phi = phi_from_density(density, params.density_gas, params.density_fluid)
+    hext = _hext_static(params)
+    dx, dt = float(params.dx), float(params.dt)
+    if state.h.shape[1] == 2:
+        rhs = poisson_rhs_scaled(phi, state.magnetic_flags, hext, tau=float(params.tau),
+                                 dx=dx, dt=dt)
+        H2, h = solve_H_int_scalar(state.h, state.cmask, rhs, n_iters=params.poisson_iters,
+                                   dx=dx, h2_ext=hext, magnetic_flags=state.magnetic_flags)
+    else:
+        H2, h = solve_H_int(params.lattice, state.h, phi, state.magnetic_flags,
+                            state.H_ext_mac, tau=float(params.tau),
+                            n_iters=params.poisson_iters, dx=dx, dt=dt, h2_ext=hext)
+    f, g, rho, vel, density, pressure, force = capillary_collide_2d(
+        params, state, f, g, rho, vel, density, m0g, m1g, H2, phi)
+    return state.replace(f=f, g=g, h=h, rho=rho, vel=vel, density=density,
+                         pressure=pressure, force=force, phi=phi, step=state.step + 1)
 
 
 def _solve(params: SimulationParams, state, rhs, plain):

@@ -4,8 +4,8 @@ Port of ``lbm_ferrofluid_tpu/models/runner.py``.  PyTorch runs eagerly, so
 the runner loops over steps in Python (the JAX package scans chunks of
 steps into one XLA computation).  MLUPS counts outer steps x cells, as the
 JAX runner does (:106-144): one ferrofluid step, with its Poisson sweeps,
-or one HCZ step is one lattice update.  On the card a timed region ends in
-``torch.cuda.synchronize()``.
+or one single-phase, Shan-Chen or HCZ step is one lattice update.  On the
+card a timed region ends in ``torch.cuda.synchronize()``.
 """
 
 from __future__ import annotations
@@ -34,9 +34,9 @@ def assert_finite(state) -> None:
 
 
 class SimulationRunner:
-    """Drives ``step_fn(params, state, device=...) -> state`` (``hcz_step``
-    or ``ferrofluid_step``) over many steps, as the JAX runner takes
-    ``step_fn`` (runner.py:47).
+    """Drives ``step_fn(params, state, device=...) -> state``
+    (``singlephase_step``, ``sc_step``, ``hcz_step`` or ``ferrofluid_step``)
+    over many steps, as the JAX runner takes ``step_fn`` (runner.py:47).
 
     Runs on the card unless ``device="cpu"``."""
 

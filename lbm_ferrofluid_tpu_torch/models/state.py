@@ -1,7 +1,9 @@
 """Simulation states, and their exchange with the JAX package.
 
-``HCZState`` and ``FerrofluidState`` have the fields of the JAX package's
-(``lbm_ferrofluid_tpu/models/state.py``), held as tensors on one device.
+``SinglePhaseState``, ``HCZState`` (with ``g`` and ``pressure`` None for
+the Shan-Chen model) and ``FerrofluidState`` have the fields of the JAX
+package's (``lbm_ferrofluid_tpu/models/state.py``), held as tensors on one
+device, in 2D ([B, C, Y, X]) or 3D ([B, C, Z, Y, X]).
 A ferrofluid state comes in three forms, which ``models/ferrofluid.py:
 ferrofluid_step`` steps as they are:
 
@@ -24,8 +26,9 @@ None, or, once primed where the tau == 1 collapse applies, the fused
 ``step`` is a Python int.  :func:`to_numpy` and :func:`from_numpy` move a
 state to and from a dict of numpy arrays keyed by these field names, so a
 JAX state given as numpy arrays becomes a port state that computes the
-same thing; a dict with an ``h`` field is a ferrofluid state, one without
-it an HCZ state.
+same thing; a dict with an ``h`` field is a ferrofluid state, one with a
+``density`` field and no ``h`` an HCZ (or Shan-Chen) state, and one with
+neither a single-phase state.
 
 bfloat16 leaves cross as their bits.  The JAX package hands them over as
 numpy arrays of the ``ml_dtypes`` bfloat16 dtype, which ``torch.as_tensor``
@@ -46,21 +49,39 @@ import torch
 
 from ..utils.device import resolve_device
 
-__all__ = ["HCZState", "FerrofluidState", "from_numpy", "to_numpy", "BF16_BITS"]
+__all__ = [
+    "SinglePhaseState", "HCZState", "FerrofluidState", "from_numpy", "to_numpy", "BF16_BITS",
+]
+
+
+@dataclasses.dataclass
+class SinglePhaseState:
+    """Single-phase BGK/KBC: one distribution f and a constant body force."""
+
+    f: torch.Tensor
+    rho: torch.Tensor
+    vel: torch.Tensor
+    force: torch.Tensor
+    flags: torch.Tensor
+    step: int
+
+    def replace(self, **kw) -> "SinglePhaseState":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass
 class HCZState:
     """HCZ two-distribution multiphase (f, g), with optional velocity
     pinning: vel <- where(vel_pin_mask, vel_pin_value, vel) after the
-    streamed macros and after the capillary stage."""
+    streamed macros and after the capillary stage.  The Shan-Chen model
+    uses it with ``g`` and ``pressure`` None."""
 
     f: torch.Tensor
-    g: torch.Tensor
+    g: torch.Tensor | None
     rho: torch.Tensor
     vel: torch.Tensor
     density: torch.Tensor
-    pressure: torch.Tensor
+    pressure: torch.Tensor | None
     force: torch.Tensor
     flags: torch.Tensor
     step: int
@@ -118,10 +139,12 @@ def _to_tensor(value, device):
 
 def from_numpy(fields: dict, device=None):
     """A state from numpy arrays keyed by the field names of
-    ``FerrofluidState`` (when ``fields`` has ``h``) or ``HCZState`` (None
-    leaves and the premac/H_ext_mac tuples as they are)."""
+    ``FerrofluidState`` (when ``fields`` has ``h``), ``HCZState`` (``density``
+    without ``h``) or ``SinglePhaseState`` (neither); None leaves and the
+    premac/H_ext_mac tuples as they are."""
     dev = resolve_device(device)
-    cls = FerrofluidState if "h" in fields else HCZState
+    cls = (FerrofluidState if "h" in fields
+           else HCZState if "density" in fields else SinglePhaseState)
     kw = {}
     for fld in dataclasses.fields(cls):
         if fld.name not in fields:

@@ -4,14 +4,19 @@ hand-written CUDA kernels that replace the JAX package's Pallas kernels."""
 from .collide import (
     CHI_K,
     MU0,
+    bgk_collide,
     contact_angle_boundary,
     hcz_capillary,
     hcz_collide,
+    kbc_collide,
+    kbc_moment_split,
+    sc_collide,
+    sc_force,
     smooth_phi,
 )
 from .equilibrium import feq, gamma_quadratic, geq, heq
 from .magnetic import magnetic_sweep, poisson_rhs_scaled, solve_H_int, solve_H_int_scalar
-from .moments import eos_pressure, rho_to_density
+from .moments import eos_pressure, macro_moments, rho_to_density
 from .stencils import (
     isotropic_grad,
     isotropic_laplacian,
@@ -33,6 +38,7 @@ __all__ = [
     "geq",
     "gamma_quadratic",
     "heq",
+    "macro_moments",
     "rho_to_density",
     "eos_pressure",
     "isotropic_grad",
@@ -41,6 +47,11 @@ __all__ = [
     "staggered_x",
     "staggered_y",
     "staggered_z",
+    "bgk_collide",
+    "kbc_moment_split",
+    "kbc_collide",
+    "sc_force",
+    "sc_collide",
     "smooth_phi",
     "contact_angle_boundary",
     "hcz_capillary",

@@ -133,6 +133,7 @@ PATHS = {
     "ferrofluid_uncarried": ("B4", "B11b", "B10a", "B2", "B6", "B5"),
     "ferrofluid_epilogue": ("B1", "B2", "B6", "B5"),
     "capillary_stencils": ("B10b", "B10a"),
+    "singlephase3d": ("B8a",),
 }
 
 

@@ -12,9 +12,11 @@ Poisson-LBM solve (reference LBM_magnetic_3d.py:108-188):
 * h'   = (1 - 1/tau) h + heq/tau + dt * w * rhs * cs2 (0.5 - tau) dt
 * H_int = -grad(psi)
 
-runs in two forms: the 19-channel distribution h (:func:`solve_H_int`, any
+runs in two forms: the Q-channel distribution h (:func:`solve_H_int`, any
 tau) and, at tau == 1, its scalar collapse (:func:`solve_H_int_scalar`,
-``ops/scalar_poisson.py``).
+``ops/scalar_poisson.py``), each in 3D (D3Q19, with the kernels on the
+card) and in 2D (D2Q9, plain PyTorch on any device, as the JAX package runs
+2D only through ``jnp``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from .stencils import (
     staggered_z,
     substitute_obstacles,
 )
+from .scalar_poisson import scalar_sweeps_exact
 from .stream import bounce_back, stream
 
 __all__ = [
@@ -57,12 +60,14 @@ def _stag_diff_times(x, axis, hm):
 
 def _div_staggered(chi, H_ext_mac):
     """div(chi H_ext) from the MAC-staggered chi times the staggered field
-    components (unscaled, every cell)."""
+    components (unscaled, every cell; two components in 2D, three in 3D)."""
     chx = staggered_x(chi) * H_ext_mac[0]
     chy = staggered_y(chi) * H_ext_mac[1]
+    rhs = (chx[..., 1:] - chx[..., :-1]) + (chy[..., 1:, :] - chy[..., :-1, :])
+    if chi.ndim == 4:
+        return rhs
     chz = staggered_z(chi) * H_ext_mac[2]
-    return ((chx[..., 1:] - chx[..., :-1]) + (chy[..., 1:, :] - chy[..., :-1, :])
-            + (chz[..., 1:, :, :] - chz[..., :-1, :, :]))
+    return rhs + (chz[..., 1:, :, :] - chz[..., :-1, :, :])
 
 
 def poisson_rhs_scaled(phi, magnetic_flags, h2_ext, *, tau, dx, dt, H_ext_mac=None):
@@ -70,8 +75,9 @@ def poisson_rhs_scaled(phi, magnetic_flags, h2_ext, *, tau, dx, dt, H_ext_mac=No
 
     rhs = div(chi H_ext)|_staggered * dx / (1 + chi), zeroed off-fluid,
     times the dt * cs2 (0.5 - tau) dt collision prefactor
-    (LBM_magnetic_2d.py:140-155).  With ``h2_ext`` (the static axis-aligned
-    field, channel order x, y, z) the staggered difference of the constant
+    (LBM_magnetic_2d.py:140-155), in 2D or 3D by ``phi``'s rank.  With
+    ``h2_ext`` (the static axis-aligned field, channel order x, y[, z]) the
+    staggered difference of the constant
     field is taken directly; with ``h2_ext=None`` from the staggered field
     components ``H_ext_mac``."""
     c = dx / dt
@@ -128,20 +134,24 @@ def magnetic_sweep(lat: Lattice, h, phi, flags, H_ext_mac, *, tau, dx=1.0, dt=1.
     return -isotropic_grad(psi, dx, flags), h_new
 
 
-def h_int_from_psi(psi, magnetic_flags, *, dx, h2_ext, grad):
-    """The channel-form solve's tail: obstacle psi substituted, H_int =
-    -grad(psi_sub) through ``grad`` (the B10a kernel or its plain version),
-    then the static field folded in (JAX ``solve_H_int`` :467-478)."""
+def h_int_from_psi(psi, magnetic_flags, *, dx, h2_ext, grad=None):
+    """The solve's tail: obstacle psi substituted, H_int = -grad(psi_sub)
+    through ``grad`` (the B10a kernel or its plain version, 3D), or through
+    the plain isotropic gradient of psi's rank when ``grad`` is None (2D and
+    the plain bodies), then the static field folded in (JAX
+    ``solve_H_int`` :467-478, :500-502)."""
+    if grad is None:
+        return maybe_h2(-isotropic_grad(psi, dx, magnetic_flags), h2_ext)
     return maybe_h2(-grad(substitute_obstacles(psi, magnetic_flags), dx=dx), h2_ext)
 
 
 def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters=30,
                 dx=1.0, dt=1.0, rhs_scaled=None, h2_ext=None, plain=False):
     """``n_iters`` sweeps of [stream -> bounce-back -> relaxation] on the
-    19-channel h; returns (H_int of the last sweep's psi, h'), or (H2, h')
+    Q-channel h; returns (H_int of the last sweep's psi, h'), or (H2, h')
     with ``h2_ext``.
 
-    CUDA tensors run the hand-written kernels: the sweeps (B11b,
+    3D CUDA tensors run the hand-written kernels: the sweeps (B11b,
     ``ops/kernels/poisson.py``), then the obstacle substitution of psi and
     the gradient (B10a, ``ops/kernels/stencil3d.py``), as the JAX
     package's psi route (:452-478).  CPU tensors, and ``plain=True`` on any
@@ -157,7 +167,7 @@ def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters
     if rhs_scaled is None:
         rhs_scaled = poisson_rhs_scaled(phi, magnetic_flags, h2_ext, tau=tau, dx=dx, dt=dt,
                                         H_ext_mac=H_ext_mac)
-    if not plain and h.device.type != "cpu":
+    if not plain and h.device.type != "cpu" and lat.dim == 3:
         from .kernels.poisson import poisson_sweeps
         from .kernels.stencil3d import grad_fields
 
@@ -175,18 +185,26 @@ def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters
         psi = torch.sum(hf[:, 1:], dim=1, keepdim=True) / (1.0 - w0)
         collision_h = (1.0 - 1.0 / tau) * hf + heq(lat, psi) / tau + add_h
         h = torch.where(is_obs, hf, collision_h).to(h_dtype)
-    return maybe_h2(-isotropic_grad(psi, dx, magnetic_flags), h2_ext), h
+    return h_int_from_psi(psi, magnetic_flags, dx=dx, h2_ext=h2_ext), h
 
 
 def solve_H_int_scalar(s2, cmask, rhs_scaled, *, n_iters=30, dx=1.0, h2_ext,
-                       plain=False):
+                       magnetic_flags=None, plain=False):
     """Scalar-collapse magnetic solve at tau == 1; returns (H2, s2').
 
-    ``s2`` is the fused [1, 2, Z, Y, X] (s, s_prev) carry and ``cmask`` the
-    static obstacle/wall-weight field; its sign marks the magnetic
-    obstacles, so the magnetic flags are not needed here.  Runs the
-    hand-written kernel (``ops/kernels/scalar_poisson.py``) on CUDA tensors
-    and its plain version on CPU tensors or when ``plain`` is set."""
+    ``s2`` is the fused [1, 2, *res] (s, s_prev) carry and ``cmask`` the
+    static obstacle/wall-weight field.  3D: its sign marks the magnetic
+    obstacles, so the magnetic flags are not needed; runs the hand-written
+    kernel (``ops/kernels/scalar_poisson.py``) on CUDA tensors and its plain
+    version on CPU tensors or when ``plain`` is set.  2D: the exact-order
+    sweeps (:func:`ops.scalar_poisson.scalar_sweeps_exact`) and the 2D
+    gradient of the last psi on any device, which need ``magnetic_flags``
+    (JAX ``solve_H_int_scalar`` :229-257)."""
+    if s2.ndim == 4:
+        psi, s, sp = scalar_sweeps_exact(s2[:, :1], s2[:, 1:2], rhs_scaled, magnetic_flags,
+                                         n_iters)
+        return (h_int_from_psi(psi, magnetic_flags, dx=dx, h2_ext=h2_ext),
+                torch.cat([s, sp], dim=1))
     from .kernels.scalar_poisson import scalar_wavefront, scalar_wavefront_plain
 
     fn = scalar_wavefront_plain if plain else scalar_wavefront

@@ -1,10 +1,34 @@
-"""Order-parameter map and equation of state (PyTorch twins of
-``lbm_ferrofluid_tpu/ops/moments.py``; reference:
+"""Macroscopic moments, order-parameter map and equation of state (PyTorch
+twins of ``lbm_ferrofluid_tpu/ops/moments.py``; reference:
 LBM_macro_compute_2d.py:51-101)."""
 
 from __future__ import annotations
 
-__all__ = ["rho_to_density", "eos_pressure", "phi_from_density"]
+import numpy as np
+import torch
+
+from ..lattice import Lattice
+from ..utils.types import CellType
+
+__all__ = ["macro_moments", "rho_to_density", "eos_pressure", "phi_from_density"]
+
+
+def macro_moments(lat: Lattice, f, rho, vel, flags, *, dx=1.0, dt=1.0):
+    """Zeroth and first moments of f, frozen on OBSTACLE cells: rho = Σ_q f_q,
+    vel = Σ_q f_q e_q c / rho (LBM_macro_compute_2d.py:65-92).  Returns
+    (rho, vel)."""
+    c = dx / dt
+    is_obs = flags == int(CellType.OBSTACLE)
+    rho_new = torch.where(is_obs, rho, torch.sum(f, dim=1, keepdim=True))
+    moments = []
+    for d in range(lat.dim):
+        ed = torch.as_tensor(
+            lat.e[:, d].reshape(1, lat.q, *([1] * lat.dim)).astype(np.float64),
+            dtype=f.dtype, device=f.device,
+        )
+        moments.append(torch.sum(f * ed, dim=1, keepdim=True))
+    macro_vel = torch.cat(moments, dim=1) * (c / rho_new)
+    return rho_new, torch.where(is_obs, vel, macro_vel)
 
 
 def rho_to_density(rho, *, rho_gas, rho_fluid, density_gas, density_fluid):

@@ -11,9 +11,14 @@ solve collapses exactly to
 
 with the static wall-weight field c(x) = 1.5 * sum_{q: x-e_q obstacle} w_q.
 The step carries the fused ``[B, 2, Z, Y, X]`` pair (s, s_prev) and the
-``cmask`` field (-1 at obstacles, c(x) >= 0 at fluid cells).  The sweeps
-themselves live in ``ops/kernels/scalar_poisson.py``.  D3Q19 only (the
-D2Q9 collapse is ROADMAP A7).
+``cmask`` field (-1 at obstacles, c(x) >= 0 at fluid cells).  The same
+algebra holds on D2Q9 (reference LBM_magnetic_2d.py:88-164), whose
+1/(1 - w0) = 1.8 is not a float32 value, so psi there divides by
+f32(1 - w0) as the channel-form solve does.  The lattice follows from the
+field's rank.  The 3D sweeps live in ``ops/kernels/scalar_poisson.py`` (B1
+and its plain version, in the TPU kernel's grouped tap order); the 2D
+solve runs :func:`scalar_sweeps_exact`, the JAX package's
+``scalar_sweeps_jnp(order="exact")``, since no kernel takes D2Q9 there.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..lattice import D3Q19
+from ..lattice import get_lattice
 from ..utils.types import CellType
 
 __all__ = [
@@ -31,6 +36,7 @@ __all__ = [
     "make_cmask",
     "scalar_from_h",
     "s_prev_from_h",
+    "scalar_sweeps_exact",
     "compare_views",
 ]
 
@@ -38,6 +44,19 @@ _OBS = int(CellType.OBSTACLE)
 
 #: 1/(1-w0) = 1/(2/3) = 1.5, exactly representable
 INV_1MW0 = 1.5
+
+
+def _lat_of(field):
+    """D3Q19 for [B, C, Z, Y, X] fields, D2Q9 for [B, C, Y, X]."""
+    return get_lattice(field.ndim - 2)
+
+
+def _psi_of(acc, lat):
+    """psi = acc / (1 - w0): times the exact 1.5 on D3Q19, divided by
+    f32(1 - w0) on D2Q9 (JAX ``_psi_of``)."""
+    if lat.dim == 3:
+        return acc * float(np.float32(INV_1MW0))
+    return acc / float(np.float32(1.0 - float(lat.weights[0])))
 
 
 def _roll(x, shift):
@@ -51,14 +70,14 @@ def fluid_mask(magnetic_flags):
 
 def wall_weight_field(magnetic_flags):
     """c(x) = 1/(1-w0) sum_{q: x-e_q obs} w_q, masked to fluid cells."""
-    lat = D3Q19
+    lat = _lat_of(magnetic_flags)
     shifts = lat.shifts()
     obs = (magnetic_flags == _OBS).to(torch.float32)
     c = None
     for q in range(1, lat.q):
         t = float(np.float32(lat.weights[q])) * _roll(obs, shifts[q])
         c = t if c is None else c + t
-    return c * float(np.float32(INV_1MW0)) * fluid_mask(magnetic_flags)
+    return _psi_of(c, lat) * fluid_mask(magnetic_flags)
 
 
 def make_cmask(magnetic_flags):
@@ -68,11 +87,11 @@ def make_cmask(magnetic_flags):
 
 
 def scalar_from_h(h, magnetic_flags):
-    """s = psi(h) = 1.5 * sum_{q>=1} h_q of a canonical h (few-ulp exact),
-    masked to exact zeros at obstacle cells."""
+    """s = psi(h) = sum_{q>=1} h_q / (1 - w0) of a canonical h (few-ulp
+    exact), masked to exact zeros at obstacle cells."""
     hf = h.to(torch.float32)
     return (
-        torch.sum(hf[:, 1:], dim=1, keepdim=True) * float(np.float32(INV_1MW0))
+        _psi_of(torch.sum(hf[:, 1:], dim=1, keepdim=True), _lat_of(h))
         * fluid_mask(magnetic_flags)
     )
 
@@ -81,7 +100,7 @@ def s_prev_from_h(h, magnetic_flags):
     """s_prev at wall-adjacent fluid cells from the wall channels: the
     obstacle cell x - e_q stores h_q = f32(w_q * s_prev(x)).  Cells with no
     obstacle neighbour return 0 (c(x) == 0 there, the value is never read)."""
-    lat = D3Q19
+    lat = _lat_of(h)
     shifts = lat.shifts()
     hf = h.to(torch.float32)
     obs = (magnetic_flags == _OBS).to(torch.float32)
@@ -95,6 +114,29 @@ def s_prev_from_h(h, magnetic_flags):
         den > 0, num / torch.clamp(den, min=1e-30), torch.zeros_like(num)
     )
     return s_prev * fluid_mask(magnetic_flags)
+
+
+def scalar_sweeps_exact(s, s_prev, rhs_scaled, magnetic_flags, n_iters):
+    """``n_iters`` scalar sweeps in the channel form's order; returns
+    (psi_last, s_last, s_prev_last).  JAX ``scalar_sweeps_jnp`` with
+    ``order="exact"`` (:242-314): per-tap products f32(w_q * tap), the wall
+    source substituted per tap, summed in ascending q, then psi as
+    :func:`_psi_of` forms it.  ``s`` and ``s_prev`` are fluid-masked."""
+    lat = _lat_of(s)
+    shifts = lat.shifts()
+    mask = fluid_mask(magnetic_flags)
+    obs_f = 1.0 - mask
+    wall_m = [None] + [_roll(obs_f, shifts[q]) for q in range(1, lat.q)]
+    w = [float(np.float32(v)) for v in lat.weights]
+    psi = torch.zeros_like(s)
+    for _ in range(n_iters):
+        acc = None
+        for q in range(1, lat.q):
+            t = w[q] * (_roll(s, shifts[q]) + wall_m[q] * s_prev)
+            acc = t if acc is None else acc + t
+        psi = _psi_of(acc, lat)
+        s, s_prev = (psi + rhs_scaled) * mask, s
+    return psi, s, s_prev
 
 
 def compare_views(h_scalar, h_channel, magnetic_flags):

@@ -1,9 +1,11 @@
-"""Isotropic finite-difference stencils and staggered-grid helpers, 3D.
+"""Isotropic finite-difference stencils and staggered-grid helpers.
 
-Twins of ``lbm_ferrofluid_tpu/ops/stencils.py``: the reference's 19-point
-isotropic gradient and Laplacian (LBM_collision_3d.py:209-318) and the
-replicate MAC-staggering helpers (utils/grid.py:7-64), on [B, C, Z, Y, X]
-fields.  Replicate padding is an index clamp.  The 2D forms are ROADMAP A7.
+Twins of ``lbm_ferrofluid_tpu/ops/stencils.py``: the reference's 9-point
+(2D) and 19-point (3D) isotropic gradient and Laplacian
+(LBM_collision_2d.py:183-256, LBM_collision_3d.py:209-318) and the
+replicate MAC-staggering helpers (utils/grid.py:7-64), on [B, C, Y, X] and
+[B, C, Z, Y, X] fields: each function dispatches on the field's rank, and
+pads only its spatial axes.  Replicate padding is an index clamp.
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ def _sh(x, off):
 
 def rep_pad_interior(x):
     """Boundary ring replaced by the nearest interior value (the reference's
-    replicate pad of ``x[..., 1:-1, 1:-1, 1:-1]``)."""
-    for ax in range(x.ndim - 3, x.ndim):
+    replicate pad of the interior ``x[..., 1:-1, ..., 1:-1]``) over the
+    spatial axes, those after [B, C]."""
+    for ax in range(2, x.ndim):
         n = x.shape[ax]
         idx = torch.clamp(torch.arange(n, device=x.device), 1, n - 2)
         x = torch.index_select(x, ax, idx)
@@ -57,14 +60,31 @@ def fix_ring_replicate(x):
 
 
 def isotropic_grad(x, dx, flags):
-    """Isotropic central gradient [B, 1, Z, Y, X] -> [B, 3, Z, Y, X].
+    """Isotropic central gradient [B, 1, *res] -> [B, dim, *res].
 
     On OBSTACLE cells the input is first replaced by its nearest-interior
-    value, the 19-point stencil is evaluated on the interior and replicate-
-    padded back out (reference: LBM_collision_3d.py:209-279)."""
+    value, the 9-point (2D) or 19-point (3D) stencil is evaluated on the
+    interior and replicate-padded back out (reference:
+    LBM_collision_2d.py:183-227, LBM_collision_3d.py:209-279)."""
     if x.shape[1] != 1:
         raise ValueError("isotropic_grad expects a single-channel field")
-    return grad_ring_replicate(substitute_obstacles(x, flags), dx)
+    xn = substitute_obstacles(x, flags)
+    if x.ndim == 4:
+        return F.pad(torch.cat(_iso_grad_taps_2d(xn, dx), dim=1), (1, 1, 1, 1),
+                     mode="replicate")
+    return grad_ring_replicate(xn, dx)
+
+
+def _iso_grad_taps_2d(xn, dx):
+    """(gx, gy) of the 9-point isotropic stencil at the interior cells of
+    ``xn`` [B, C, Y, X], each [B, C, Y-2, X-2] (LBM_collision_2d.py:183-227)."""
+
+    def S(*off):
+        return _sh(xn, off)
+
+    gx = (4.0 * (S(0, 1) - S(0, -1)) + (S(1, 1) - S(-1, -1) + S(-1, 1) - S(1, -1))) / (12.0 * dx)
+    gy = (4.0 * (S(1, 0) - S(-1, 0)) + (S(1, 1) - S(-1, -1) + S(1, -1) - S(-1, 1))) / (12.0 * dx)
+    return gx, gy
 
 
 def substitute_obstacles(x, flags):
@@ -118,12 +138,22 @@ def _iso_grad_taps(xn, dx):
 
 
 def isotropic_laplacian(x, dx):
-    """19-point Laplacian (2·Σ_face + Σ_edge − 24·C) / (6 dx²), zero-padded
-    at the boundary ring (reference: LBM_collision_3d.py:281-318)."""
+    """Isotropic Laplacian, zero-padded at the boundary ring: 2D
+    (4·Σ_face + Σ_diag − 20·C) / (5 dx²), with the reference's /5 where an
+    isotropic stencil has /6, kept for field parity
+    (LBM_collision_2d.py:229-256); 3D (2·Σ_face + Σ_edge − 24·C) / (6 dx²)
+    (LBM_collision_3d.py:281-318)."""
 
     def S(*off):
         return _sh(x, off)
 
+    if x.ndim == 4:
+        lap = (
+            4.0 * (S(0, 1) + S(0, -1) + S(1, 0) + S(-1, 0))
+            + (S(1, 1) + S(1, -1) + S(-1, 1) + S(-1, -1))
+            - 20.0 * S(0, 0)
+        ) / (5.0 * dx * dx)
+        return F.pad(lap, (1, 1) * 2)
     faces = (
         S(0, 0, 1) + S(0, 0, -1) + S(0, 1, 0) + S(0, -1, 0)
         + S(1, 0, 0) + S(-1, 0, 0)
@@ -161,6 +191,8 @@ def staggered_z(x):
 
 
 def staggered(vec):
-    """Split a vector field [B, 3, Z, Y, X] into its MAC face components."""
-    return [staggered_x(vec[:, 0:1]), staggered_y(vec[:, 1:2]),
-            staggered_z(vec[:, 2:3])]
+    """Split a vector field [B, dim, *res] into its MAC face components."""
+    out = [staggered_x(vec[:, 0:1]), staggered_y(vec[:, 1:2])]
+    if vec.shape[1] == 3:
+        out.append(staggered_z(vec[:, 2:3]))
+    return out

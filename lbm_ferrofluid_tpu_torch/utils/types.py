@@ -57,3 +57,19 @@ class KBCType(IntEnum):
     @staticmethod
     def is_KBC(v) -> bool:
         return v is not None and (int(v) & 0b10000000) > 0
+
+    @staticmethod
+    def is_KBC_AC(v) -> bool:
+        return v is not None and (int(v) & 0b10000001) > 0
+
+    @staticmethod
+    def is_KBC_BD(v) -> bool:
+        return v is not None and (int(v) & 0b10000010) > 0
+
+    @staticmethod
+    def is_KBC_AB(v) -> bool:
+        return v is not None and (int(v) & 0b10000100) > 0
+
+    @staticmethod
+    def is_KBC_CD(v) -> bool:
+        return v is not None and (int(v) & 0b10001000) > 0
