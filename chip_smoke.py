@@ -8,6 +8,7 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
     python3 chip_smoke.py --poisson-plans  # only B11b's plan sweep (256^3, 130x66x130; f32, bf16)
     python3 chip_smoke.py --capillary-plans  # only B6's plan sweep (256^3, 130^3)
     python3 chip_smoke.py --stencil-plans  # only B10a's and B10b's (256^3, 130x66x130)
+    python3 chip_smoke.py --epilogue-plans  # only B5's (256^3, 130x66x130; f32, bf16)
 
 Phases, each printing one JSON line; any failed check exits non-zero:
 
@@ -31,7 +32,13 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    B9 collide, each fed with what the kernels before it produced, then the
    capillary stage's stencil route B10b + B10a against its plain version
    and against B6), with an obstacle block across B6's first tile edge and
-   z strip seam, at 34x66x130, 130^3 and 50x50x193.  Bar rel <= 5e-5 per field
+   z strip seam, at 34x66x130, 130^3 and 50x50x193; then B5 in both modes
+   on those HCZ inputs (``b5_hcz_inputs``: the chain's rho_ca and capillary
+   fields, with an obstacle block across the first block edge and strip
+   seam of B5's plan) at 34x66x130, 130x66x130, 50x50x193 and 4x66x130,
+   under the step's plan and the stage form in strips of 4 planes, each
+   held bit for bit to the cell plan (one thread a cell), and against its plain
+   version.  Bar rel <= 5e-5 per field
    (max|a-b| / max|b|), velocities also pass at abs <= 5e-6
    (docs/PARITY.md:78-93: FMA contraction and reassociation);
 4. golden: ``tests/golden/ferro3d.npz`` (8 steps; the capillogue steady
@@ -75,7 +82,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    B1's pass, B11b's pass and B3's collide; B2 and B6 are timed launch by
    launch, B6 also with H2, with its plan, resident blocks and ptxas line,
    and B2, B6 and the stencil route are held to their plain versions again
-   with B6's seam block.  B10a is timed on one field (the channel form's
+   with B6's seam block.  B5's plans (the step's, a strip of 4 planes,
+   the cell plan) are held bit for bit to each other in both modes, with
+   each instance's resident blocks and ptxas line, and ``emit_mac`` timed
+   launch by launch (``b5_flagship_plans``).  B10a is timed on one field (the channel form's
    psi) and on the stencil route's stacks of 3 and 4 fields, B10b on
    density(rho_ca), each with its plan, resident blocks and ptxas line,
    and beside a yardstick that is on no path: cuDNN's ``conv3d`` of the
@@ -105,7 +115,8 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    34x66x130), bfloat16 collide outputs equal or one ulp apart in at most
    ``BF16_SHARE`` of the elements (further only within the float32 bar),
    float32 outputs at phase 3's bars, B3's and B5's emission on the
-   kernel's own f'/g'.  Then the five routes in bfloat16 (Rosensweig
+   kernel's own f'/g'; B5's plans bit for bit to the cell plan at phase 3's
+   four grids.  Then the five routes in bfloat16 (Rosensweig
    130x66x130 in the capillogue steady state with the scalar carry, the
    channel form with bfloat16 h, un-carried and in the epilogue steady
    state; HCZ ``multiphase_3d`` 130^3): 30 kernel steps with exact
@@ -118,7 +129,8 @@ Phases, each printing one JSON line; any failed check exits non-zero:
 8. the 256^3 flagships in bfloat16 (after phase 6): Rosensweig in turbo
    mode, on the channel form, un-carried and in the epilogue steady
    state, and HCZ, MLUPS and ms a step, then each bfloat16 form timed
-   beside its plain version and its bfloat16 bound, B3 launch by launch.
+   beside its plain version and its bfloat16 bound, B3 launch by launch,
+   B5 with its plans as in phase 6.
 
 The build phase reports each kernel's registers, static shared memory and
 spills as ptxas gives them.
@@ -394,6 +406,109 @@ def epilogue_call(K, params, d, emit_mac):
                       emit_mac=emit_mac, mac_consts=(params.dx / params.dt, *gas.values()))
 
 
+def with_epilogue_plan(pl, fn):
+    """``fn()`` with B5's ``plan`` fixed to ``pl`` (the sweep's and the
+    checks' way to select a plan the step does not take)."""
+    from lbm_ferrofluid_tpu_torch.ops.kernels import fused_step
+
+    real = fused_step.plan
+    fused_step.plan = lambda *a, **_: pl
+    try:
+        return fn()
+    finally:
+        fused_step.plan = real
+
+
+def epilogue_plans(res, bf16):
+    """B5's plans at ``res`` that the checks hold to the cell plan: the
+    step's, and the stage form in strips of 4 planes where the step's
+    strip is another."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import fused_step
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    step = fused_step.plan(*res, sms, bf16)
+    strip = fused_step.EpiloguePlan("stage", 4)
+    return {"step": step, **({"strip 4": strip} if step != strip else {})}
+
+
+def epilogue_seam_block(flags, pl):
+    """``flags`` with obstacles across the first z strip seam of B5's plan
+    ``pl`` and its first block edge (its first block's last cell and the
+    next block's first, in row-major order of a plane)."""
+    from lbm_ferrofluid_tpu_torch.ops.kernels import fused_step
+
+    Z, Y, X = flags.shape[2:]
+    out = flags.clone()
+    zs = slice(max(pl.zb - 1, 0), pl.zb + 1)
+    for cell in (fused_step.NT - 1, fused_step.NT):
+        if cell < Y * X:
+            out[..., zs, cell // X, cell % X] = 2
+    return out
+
+
+def b5_hcz_inputs(K, res, seed, dev, bf16):
+    """B5's (args, kwargs) on ``hcz_seeded_inputs`` (an interior obstacle
+    block and one across B6's first tile edge and strip seam), with
+    obstacles across the first block edge and strip seam of B5's step plan
+    added, f and g in bfloat16 with ``bf16``:
+    the HCZ chain's B8b, B8a, B2 and B6 give rho_ca and the capillary
+    stage's fields."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import fused_step
+    from lbm_ferrofluid_tpu_torch.ops.moments import rho_to_density
+
+    params, d = hcz_seeded_inputs(res, seed, dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    d["flags"] = epilogue_seam_block(d["flags"], fused_step.plan(*res, sms, bf16))
+    if bf16:
+        d = dict(d, f=d["f"].to(torch.bfloat16), g=d["g"].to(torch.bfloat16))
+    ctx = hcz_chain(K, params, d, lambda label, kid, a, kw: K[kid].wrapper(*a, **kw))
+    gas = dict(rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+               density_gas=params.density_gas, density_fluid=params.density_fluid)
+    vel, pres, force, dfai, dprho = ctx["b6"]
+    args = (d["f"], d["g"], d["flags"], ctx["rho_ca"], vel,
+            rho_to_density(ctx["rho_ca"], **gas), pres, force, dfai, dprho)
+    return args, dict(tau_f=params.tau_f, tau_g=params.tau_g, dx=params.dx, dt=params.dt,
+                      mac_consts=(params.dx / params.dt, *gas.values()))
+
+
+def b5_plan_rows(K, args, kw, what, rows=None):
+    """B5 in both modes at ``args``: under the step's plan and a strip of 4
+    planes (``epilogue_plans``), each held bit for bit to the cell plan (PR
+    10's kernel, the same per-cell code), and the step's plan to its plain
+    version (phase 3's bars, or ``rows``: ``bf16_rows``).  Returns the
+    errors of both modes and the plans held."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import fused_step
+
+    res = tuple(args[0].shape[2:])
+    out, held = {}, {}
+    for emit_mac in (False, True):
+        kwm = dict(kw, emit_mac=emit_mac)
+        cell = with_epilogue_plan(fused_step.CELL, lambda: K["B5"].wrapper(*args, **kwm))
+        for name, pl in epilogue_plans(res, args[0].dtype == torch.bfloat16).items():
+            got = with_epilogue_plan(pl, lambda: K["B5"].wrapper(*args, **kwm))
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(flat(got), flat(cell), strict=True)),
+                  f"B5 {what} emit_mac={emit_mac} under the {name} plan {tuple(pl)} differs "
+                  "from the cell plan")
+            held[f"{name} emit_mac={emit_mac}"] = list(pl)
+        r = (rows or (lambda *a: run_and_compare(*a)[1]))(K, "B5", args, kwm,
+                                                          f"B5 {what} emit_mac={emit_mac}")
+        out.update({f"{k} emit_mac={emit_mac}": v for k, v in r.items()})
+    return out, held
+
+
+#: the grids at which phases 3 and 7 hold B5's plans to the cell plan: the
+#: native Rosensweig slab and grid, two_droplets' grid (which no tile
+#: divides) and Z = 4
+B5_GRIDS = ((34, 66, 130), (130, 66, 130), (50, 50, 193), (4, 66, 130))
+
+
 def run_and_compare(K, kid, args, kw, what):
     """Call kernel ``kid`` and its plain version on the same inputs."""
     import torch
@@ -614,6 +729,12 @@ def phase_kernels(dev, K):
         for label, r in stencil_route_rows(params, d, ctx, f"at {res}").items():
             for against, rr in r.items():
                 log("B10b", f"stencil route {label} {against}", res, rr)
+    # B5's plans against the cell plan, bit for bit, and against plain
+    for seed, res in enumerate(B5_GRIDS, 11):
+        args, kw = b5_hcz_inputs(K, res, seed, dev, bf16=False)
+        r, held = b5_plan_rows(K, args, kw, f"at {res}")
+        log("B5", "B5 plans against the cell plan", res, r, plans=held)
+        del args
     emit({"phase": "kernels", "bar_rel": BAR_REL, "bar_vel_abs": BAR_VEL_ABS,
           "checks": rows, "ok": True})
     return worst
@@ -750,7 +871,7 @@ def phase_main(dev, kernels_pkg, card):
                                FERRO_FIELDS, primed(params, dev))
     mass0, mass30 = fluid_mass(s0), fluid_mass(sk)
     sk, stats = runner.benchmark(sk, n_steps=200, warmup=0)
-    assert_finite(sk)
+    assert_finite(sk, fields=vars(sk))
     mass230 = fluid_mass(sk)
     launches = kernels_pkg.launch_counts(ids)
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
@@ -784,14 +905,14 @@ def phase_hcz_main(dev, kernels_pkg, card):
     sk, rows = kernel_vs_plain(params, s0, hcz_step, dev, 30, "hcz main path", HCZ_FIELDS)
     mass0, mass30 = fluid_mass(s0), fluid_mass(sk)
     sk, stats = runner.benchmark(sk, n_steps=200, warmup=0)
-    assert_finite(sk)
+    assert_finite(sk, fields=vars(sk))
     mass230 = fluid_mass(sk)
     res, steps = list(sk.rho.shape[2:]), sk.step
     del sk, s0
     params2, s2 = droplet_spread_3d(device=dev)
     sk2, rows2 = kernel_vs_plain(params2, s2, hcz_step, dev, 30, "droplet spread",
                                  HCZ_FIELDS)
-    assert_finite(sk2)
+    assert_finite(sk2, fields=vars(sk2))
     launches = kernels_pkg.launch_counts()
     K = kernels_pkg.KERNELS
     check_launches("hcz main path", launches, {
@@ -820,7 +941,7 @@ def phase_two_droplets(dev, kernels_pkg, card):
     kernels_pkg.reset_launch_counts()
     sk, rows = kernel_vs_plain(params, s0, ferrofluid_step, dev, 30, "two droplets",
                                FERRO_FIELDS, primed(params, dev))
-    assert_finite(sk)
+    assert_finite(sk, fields=vars(sk))
     launches = kernels_pkg.launch_counts()
     K = kernels_pkg.KERNELS
     check_launches("two droplets", launches, {
@@ -869,7 +990,7 @@ def phase_channel_main(dev, kernels_pkg, card):
             row.update(mlups=stats["mlups"], seconds_200_steps=stats["seconds"],
                        sum_rho_fluid={"step30": mass30, "step230": mass230,
                                       "drift_30_to_230": (mass230 - mass30) / mass30})
-        assert_finite(sk)
+        assert_finite(sk, fields=vars(sk))
         launches = kernels_pkg.launch_counts()
         steps = sk.step
         K = kernels_pkg.KERNELS
@@ -903,7 +1024,7 @@ def phase_uncarried_main(dev, kernels_pkg, card):
     kernels_pkg.reset_launch_counts()
     sk, rows = kernel_vs_plain(params, s0, ferrofluid_step, dev, 30, "un-carried",
                                FERRO_FIELDS + ("phi", "force"))
-    assert_finite(sk)
+    assert_finite(sk, fields=vars(sk))
     launches = kernels_pkg.launch_counts()
     check(sk.premac is None and sk.h.shape[1] == 19 and sk.H_ext is not None,
           "un-carried: the state changed form")
@@ -933,7 +1054,7 @@ def phase_epilogue_main(dev, kernels_pkg, card):
     kernels_pkg.reset_launch_counts()
     sk, rows = kernel_vs_plain(params, s0, ferrofluid_step, dev, 30, "epilogue steady state",
                                fields, epilogue_state(params, dev))
-    assert_finite(sk)
+    assert_finite(sk, fields=vars(sk))
     launches = kernels_pkg.launch_counts()
     check(len(sk.premac) == 5 and sk.h.shape[1] == 2, "epilogue: the state changed form")
     check_launches("epilogue steady state", launches, {
@@ -999,7 +1120,7 @@ def phase_stencils_main(dev, kernels_pkg, card):
     kernels_pkg.reset_launch_counts()
     sk, rows = kernel_vs_plain(params, s0, stencil_hcz_step, dev, 30, "stencil route",
                                HCZ_FIELDS)
-    assert_finite(sk)
+    assert_finite(sk, fields=vars(sk))
     launches = kernels_pkg.launch_counts()
     check_launches("stencil route", launches, {
         "B8b": 1, "B8a": 1, "B2": K["B2"].module.N_LAUNCHES, "B10b": 1, "B10a": 1, "B9": 1},
@@ -1324,12 +1445,12 @@ def timed_steps(params, state, step, dev, n_steps, warmup):
                    "steps": n_steps}
 
 
-def phase_epilogue_flagship(dev, K, card):
+def phase_epilogue_flagship(dev, K, card, ptxas=None):
     """bench.py's Rosensweig scene at 256^3 on the two routes of B5: the
     un-carried step (channel-form h) and the epilogue steady state (scalar
     carry), MLUPS, ms a step and peak memory over warm steps; then B5 in
-    both modes, and B10b, at the inputs the epilogue steady state's next
-    step gives them."""
+    both modes at the inputs the epilogue steady state's next step gives
+    it, with its plans (``b5_flagship_plans``)."""
     import torch
 
     from lbm_ferrofluid_tpu_torch.models import SimulationRunner, ferrofluid_step, rosensweig_3d
@@ -1358,9 +1479,130 @@ def phase_epilogue_flagship(dev, K, card):
         args, kw = epilogue_call(K, params, d, emit_mac)
         n = 2 if emit_mac else 1
         per_kernel[label] = measure(K, "B5", args, kw, n, n, f"{label} at 256^3")
+    per_kernel["B5"]["plans"] = b5_flagship_plans(K, args, kw, ptxas)
     out["per_kernel"] = per_kernel
     emit(dict(out, ok=True))
     return per_kernel
+
+
+def b5_instance(form, bf16, ptxas=None):
+    """A B5 form (``FORMS``) with its instance's resident blocks an SM and
+    ptxas line."""
+    from lbm_ferrofluid_tpu_torch.ops.kernels import fused_step
+
+    name = {"cell": "lbm_epilogue_kernel", "stage": "lbm_epilogue_stage"}[form] + (
+        "<bf16>" if bf16 else "")
+    return dict(form=form, blocks_per_sm=blocks_per_sm(
+        "lbm_epilogue_occupancy", fused_step.FORMS.index(form), int(bf16)),
+        ptxas={name: (ptxas or {}).get(name)})
+
+
+def b5_flagship_plans(K, args, kw, ptxas=None):
+    """B5 at the flagship's inputs under the step's plan, a strip of 4
+    planes and the cell plan (one thread a cell): each instance's
+    resident blocks an SM and ptxas line, its ``emit_mac`` call timed
+    launch by launch (the form's launch, then the prologue's) after warm
+    calls of its own, and each plan held bit for bit to the cell plan in
+    both modes.  ``--epilogue-plans`` times every plan whole."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import fused_step
+
+    res = tuple(args[0].shape[2:])
+    bf16 = args[0].dtype == torch.bfloat16
+    plans = dict(epilogue_plans(res, bf16), cell=fused_step.CELL)
+    out = {}
+    for emit_mac in (False, True):
+        kwm = dict(kw, emit_mac=emit_mac)
+        want = with_epilogue_plan(fused_step.CELL, lambda: K["B5"].wrapper(*args, **kwm))
+        for label, pl in plans.items():
+            row = out.setdefault(label, dict(plan=list(pl), **b5_instance(pl.form, bf16, ptxas)))
+
+            def fn(pl=pl):
+                return with_epilogue_plan(pl, lambda: K["B5"].wrapper(*args, **kwm))
+
+            got = fn()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(flat(got), flat(want), strict=True)),
+                  f"B5 at {res} emit_mac={emit_mac} under the {label} plan differs from the "
+                  "cell plan")
+            del got
+            if emit_mac:
+                time_cuda(fn, 5)  # warm: the first plan timed read high without it
+                row["emit_mac launches"] = launch_split([fused_step], fn, reps=10)
+        del want
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_epilogue_plans(dev, card, ptxas=None):
+    """B5 at the inputs that the epilogue steady state's next step gives it
+    on the Rosensweig scene at 256^3 (mag 85, bench.py's) and at the native
+    130x66x130, in float32 and in bfloat16 storage, without and with
+    ``emit_mac`` (then the prologue's launch): the stage form with strips
+    of 1 to 64 planes and the cell plan, each held bit for bit to
+    the plan ``plan`` chooses (the per-cell arithmetic is the same) and
+    timed with CUDA events over 20 calls after warm calls of its own; the
+    chosen plan also against its plain version.  ``MAX_STRIP`` and
+    ``STRIP_START`` of ``ops/kernels/fused_step.py`` were chosen from it."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import rosensweig_3d
+    from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+    from lbm_ferrofluid_tpu_torch.ops.kernels import fused_step
+
+    K = kernels_pkg.KERNELS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for res, extra in (((256, 256, 256), dict(mag_strength=85.0)), ((130, 66, 130), {})):
+        Z = res[0]
+        params, st = rosensweig_3d(res=res, device=dev, **extra)
+        for bf16 in (False, True):
+            p, s = turbo(params, st, dev) if bf16 else (params, st)
+            d = epilogue_inputs(K, p, epilogue_state(p, dev)(s, False))
+            args, kw = epilogue_call(K, p, d, False)
+            del d, s
+            out = {"phase": "epilogue_plans", "res": list(res),
+                   "storage": "bfloat16" if bf16 else "float32", "card": card,
+                   "instances": {form: b5_instance(form, bf16, ptxas)
+                                 for form in fused_step.FORMS}}
+            for emit_mac in (False, True):
+                kwm = dict(kw, emit_mac=emit_mac)
+                chosen = fused_step.plan(*res, sms, bf16)
+
+                def run(pl):
+                    return with_epilogue_plan(pl, lambda: K["B5"].wrapper(*args, **kwm))
+
+                want = run(chosen)
+                against_plain = (bf16_rows if bf16 else lambda *a: run_and_compare(*a)[1])(
+                    K, "B5", args, kwm, f"B5 chosen plan at {res}")
+                candidates = [fused_step.EpiloguePlan("stage", zb)
+                              for zb in sorted({1, 2, 4, 8, 16, 32, 64, chosen.zb}
+                                               & set(range(1, Z + 1)))]
+                candidates.append(fused_step.CELL)
+                rows = []
+                for pl in candidates:
+                    got = run(pl)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b) for a, b in zip(flat(got), flat(want),
+                                                                 strict=True)),
+                          f"B5 at {res} emit_mac={emit_mac} under plan {tuple(pl)} differs "
+                          f"from the chosen plan {tuple(chosen)}")
+                    del got
+                    rows.append(dict(plan=list(pl), ms=time_cuda(lambda: run(pl), 20, warm=3)))
+                out[f"emit_mac={emit_mac}"] = {
+                    "chosen": list(chosen),
+                    "chosen_ms": time_cuda(lambda: run(chosen), 20, warm=3),
+                    "chosen_against_plain": against_plain,
+                    "best_stage": min((r for r in rows if r["plan"][0] == "stage"),
+                                      key=lambda r: r["ms"]),
+                    "cell_ms": next(r["ms"] for r in rows if r["plan"][0] == "cell"),
+                    "plans": rows}
+                del want
+                torch.cuda.empty_cache()
+            emit(dict(out, ok=True))
+            del args, kw
+            torch.cuda.empty_cache()
+        del st
 
 
 def b6_plan_report(pl, ptxas=None):
@@ -1679,7 +1921,7 @@ def phase_small_grid(dev, kernels_pkg):
               f"{name} on {res}: the kernel route did not refuse the grid ({refused})")
         nxt = step(params, st, device=dev, plain=True)
         torch.cuda.synchronize()
-        assert_finite(nxt)
+        assert_finite(nxt, fields=vars(nxt))
         out[name] = {"kernel_route": refused, "plain_step_finite": True}
     check(not any(kernels_pkg.launch_counts().values()),
           f"small grid: kernels launched {kernels_pkg.launch_counts()}")
@@ -1966,6 +2208,11 @@ def phase_kernels_bf16(dev, K):
             return K[kid].wrapper(*args, **kw)
 
         hcz_chain(K, params, d, record)
+    for seed, res in enumerate(B5_GRIDS, 11):
+        args, kw = b5_hcz_inputs(K, res, seed, dev, bf16=True)
+        r, held = b5_plan_rows(K, args, kw, f"bf16 at {res}", rows=bf16_rows)
+        log("B5", "B5 bf16 plans against the cell plan", res, r, plans=held)
+        del args
     emit({"phase": "kernels_bf16", "bar_rel": BAR_REL, "bar_vel_abs": BAR_VEL_ABS,
           "bar_ulp_share": BF16_SHARE, "checks": rows, "ok": True})
     return worst
@@ -2171,7 +2418,7 @@ def phase_long_horizon(dev, card, steps=2000):
                 marks = {"mass": fluid_mass(st), "level": dense_level(p, st)}
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        assert_finite(st)
+        assert_finite(st, fields=vars(st))
         runs[label] = {"state": st, "heights": interface_heights(p, st), "seconds": seconds,
                        "mlups": st.rho.numel() * n / seconds / 1e6, "half": marks}
     a, b, c = runs["float32"], runs["bfloat16"], runs["bfloat16 plain"]
@@ -2288,6 +2535,7 @@ def phase_bf16_flagships(dev, K, card, ptxas=None):
         n = 2 if emit_mac else 1
         per_kernel[label] = measure(K, "B5", args, kw, n, n, f"{label} bf16 at 256^3",
                                     rows=bf16_rows)
+    per_kernel["B5"]["plans"] = b5_flagship_plans(K, args, kw, ptxas)
     del s5, d, args
     torch.cuda.empty_cache()
 
@@ -2442,7 +2690,7 @@ def phase_singlephase_3d(dev, kernels_pkg, card, res=(256, 256, 256)):
     sk, stats = SimulationRunner(params, singlephase_step, device=dev).benchmark(
         sk, n_steps=50, warmup=5)
     peak = torch.cuda.max_memory_allocated()
-    assert_finite(sk)
+    assert_finite(sk, fields=vars(sk))
     launches = kernels_pkg.launch_counts()
     check_launches("single-phase 3D", launches, {"B8a": 1}, sk.step)
     b8a = measure(K, "B8a", (sk.f, sk.flags), {}, 1, 1, f"B8a single-phase at {res}")
@@ -2552,7 +2800,7 @@ def phase_2d(dev, kernels_pkg, card, steps=1000, big=(2048, 2048)):
         st = runner.run(st, steps)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        assert_finite(st)
+        assert_finite(st, fields=vars(st))
         drift = _scene_mass(st) / m0 - 1.0
         bar = SCENE_DRIFT[name]
         check(abs(drift) <= bar, f"2D {name}: summed rho drifted {drift:.3e} in {steps} steps")
@@ -2573,7 +2821,7 @@ def phase_2d(dev, kernels_pkg, card, steps=1000, big=(2048, 2048)):
             n = 200 if size == res else 20
             st, stats = timed_steps(params, st, step, dev, n_steps=n, warmup=10)
             st, prof = launches_per_step(params, st, step, dev)
-            assert_finite(st)
+            assert_finite(st, fields=vars(st))
             key = "native" if size == res else "x".join(map(str, size))
             out["timed"].setdefault(label, {})[key] = dict(
                 res=list(size), ms_per_step=stats["seconds"] / n * 1e3, mlups=stats["mlups"],
@@ -2679,7 +2927,7 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     phase_long_horizon(dev, smi)
     flag = phase_flagship(dev, K, smi)
     flag.update(phase_channel_flagship(dev, K, smi, ptxas))
-    epi = phase_epilogue_flagship(dev, K, smi)
+    epi = phase_epilogue_flagship(dev, K, smi, ptxas)
     flag["B5"] = dict(epi["B5"], max_abs_err=max(v["max_abs_err"] for v in epi.values()))
     hcz_flag = phase_hcz_flagship(dev, K, smi, ptxas)
     flag["B2"]["max_abs_err"] = max(flag["B2"]["max_abs_err"], hcz_flag["B2"]["max_abs_err"])
@@ -2744,6 +2992,9 @@ def main() -> int:
         print(smi, flush=True)
     elif "--stencil-plans" in sys.argv[1:]:
         phase_stencil_plans(dev, smi, ptxas)
+        print(smi, flush=True)
+    elif "--epilogue-plans" in sys.argv[1:]:
+        phase_epilogue_plans(dev, smi, ptxas)
         print(smi, flush=True)
     else:
         rows = run_phases(dev, kernels_pkg, smi, ptxas)

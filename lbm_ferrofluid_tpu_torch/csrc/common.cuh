@@ -47,6 +47,28 @@ __device__ __forceinline__ void lbm_stcs(__nv_bfloat16* p, float v) {
   __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16_rn(v)));
 }
 
+// 4-byte copy from device to shared memory that bypasses registers.  A
+// thread's copies issued since its last lbm_cp_async_commit form a group;
+// lbm_cp_async_wait_prior waits for all its groups but the newest,
+// lbm_cp_async_wait_all for all.
+__device__ __forceinline__ void lbm_cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+__device__ __forceinline__ void lbm_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void lbm_cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void lbm_cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 static inline unsigned lbm_blocks(long long n) {
   return static_cast<unsigned>((n + LBM_THREADS - 1) / LBM_THREADS);
 }

@@ -66,23 +66,6 @@
 // cells of an extended plane a thread loads
 #define SP_LOADS (SP_EX * SP_MAX_EY / SP_THREADS)
 
-// 4-byte copy from device to shared memory that bypasses registers.  A
-// thread's copies issued since its last lbm_cp_async_commit form a group;
-// lbm_cp_async_wait_prior waits for all its groups but the newest.
-__device__ __forceinline__ void lbm_cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src));
-}
-
-__device__ __forceinline__ void lbm_cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void lbm_cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 __global__ void __launch_bounds__(SP_THREADS, 2) lbm_scalar_pass_kernel(
     const float* __restrict__ s, const float* __restrict__ sp, const float* __restrict__ cmask,
     const float* __restrict__ rhs, float* __restrict__ s_out, float* __restrict__ sp_out,

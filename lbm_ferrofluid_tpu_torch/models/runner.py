@@ -10,33 +10,34 @@ card a timed region ends in ``torch.cuda.synchronize()``.
 
 from __future__ import annotations
 
+import inspect
 import time
 
 import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.diagnostics import assert_finite
 from .ferrofluid import prime_premac
 from .params import SimulationParams
 
 __all__ = ["SimulationRunner", "assert_finite"]
 
 
-def assert_finite(state) -> None:
-    """Raise FloatingPointError if a floating field of ``state`` is not
-    finite."""
-    for name, value in vars(state).items():
-        leaves = value if isinstance(value, tuple) else (value,)
-        for leaf in leaves:
-            if torch.is_tensor(leaf) and leaf.is_floating_point():
-                if not bool(torch.isfinite(leaf).all()):
-                    raise FloatingPointError(f"non-finite values in state.{name}")
+def _takes_device(step_fn) -> bool:
+    """Whether ``step_fn`` accepts a ``device`` keyword."""
+    try:
+        params = inspect.signature(step_fn).parameters.values()
+    except (TypeError, ValueError):
+        return False
+    return any(p.name == "device" or p.kind is p.VAR_KEYWORD for p in params)
 
 
 class SimulationRunner:
-    """Drives ``step_fn(params, state, device=...) -> state``
-    (``singlephase_step``, ``sc_step``, ``hcz_step`` or ``ferrofluid_step``)
-    over many steps, as the JAX runner takes ``step_fn`` (runner.py:47).
+    """Drives ``step_fn(params, state) -> state`` (``singlephase_step``,
+    ``sc_step``, ``hcz_step``, ``ferrofluid_step`` or any compatible
+    function) over many steps, as the JAX runner does (runner.py:39-47);
+    a step function that takes a ``device`` keyword is given the runner's.
 
     Runs on the card unless ``device="cpu"``."""
 
@@ -44,9 +45,10 @@ class SimulationRunner:
         self.params = params
         self._step = step_fn
         self.device = resolve_device(device)
+        self._step_kw = {"device": self.device} if _takes_device(step_fn) else {}
 
     def step(self, state):
-        return self._step(self.params, state, device=self.device)
+        return self._step(self.params, state, **self._step_kw)
 
     def prepare(self, state):
         """Prime a ferrofluid state's carried steady state before the loop;
@@ -60,9 +62,9 @@ class SimulationRunner:
             nan_guard: bool = False, check_every: int = 0):
         """Advance ``n_steps``.  With ``io_interval`` > 0, call ``io_fn(state)``
         every ``io_interval`` steps and after the last step, and with
-        ``nan_guard`` check at those points that the fields are finite
-        (:func:`assert_finite`; the exponential feq can pole at |u| -> c),
-        as the JAX runner does (runner.py:83-103).  ``check_every`` > 0
+        ``nan_guard`` check at those points that f, rho and vel are finite
+        (``utils/diagnostics.py:assert_finite``, whose message names the
+        step), as the JAX runner does (runner.py:83-103).  ``check_every`` > 0
         checks every that many steps, whatever ``io_interval`` is."""
         state = self.prepare(state)
         io = io_interval > 0 and (io_fn is not None or nan_guard)

@@ -15,14 +15,19 @@ cell, 0.57 ms, with f and g stored in bfloat16.
 
 B5, the epilogue, replaces the TPU kernel ``lbm_epilogue`` (:779): re-stream
 + bounce of f and g and the HCZ collide with the capillary stage's macro
-fields, out of place into a new f/g pair (one launch; the TPU kernel
-collides in place behind its z-ring, which GPU blocks cannot order).  With
-``emit_mac`` a second launch, the prologue's, computes the next step's
-macros from f'/g' (the TPU kernel's trailing in-kernel stage).  The plain
-version is ``hcz_collide(bounce_back(stream(.)))`` then
+fields, out of place into a new f/g pair, and with ``emit_mac`` the next
+step's macros from f'/g' (the TPU kernel's trailing in-kernel stage).  The
+step's launch is the stage form (``csrc/fused_step.cu``): a block owns
+``NT`` consecutive cells of a plane, one thread a cell, and walks a strip of
+zb planes (``plan``); at each plane a thread copies all its loads into
+shared memory by cp.async, then collides.  With ``emit_mac`` the prologue's
+launch on f'/g' follows (two launches).  :data:`CELL`, the
+one-thread-a-cell kernel, exists for ``chip_smoke.py``'s checks and plan
+sweep only.
+The plain version is ``hcz_collide(bounce_back(stream(.)))`` then
 :func:`lbm_prologue_plain` on f'/g'.  Bound on an H100: bytes, B9's 305 B
-per cell plus 60 B per fluid cell (153 B and 60 B in bfloat16 storage), and
-with ``emit_mac`` 36 B per cell plus 16 B per obstacle cell more (see
+per cell plus 60 B per fluid cell (153 B and 60 B in bfloat16 storage),
+and with ``emit_mac`` 36 B per cell plus 16 B per obstacle cell more (see
 :func:`cost_epilogue`).
 
 Both take f and g in float32 or bfloat16 (the JAX package's turbo mode):
@@ -34,6 +39,8 @@ stored bfloat16 f'/g'.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -45,12 +52,69 @@ from ._lib import STORAGE, call, check_cuda, count_launch, elem_bytes, ptr, stre
 
 __all__ = [
     "lbm_prologue", "lbm_prologue_plain", "cost", "stream_macro_launch",
-    "lbm_epilogue", "lbm_epilogue_plain", "cost_epilogue",
+    "lbm_epilogue", "lbm_epilogue_plain", "cost_epilogue", "plan", "EpiloguePlan", "CELL",
+    "FORMS",
 ]
 
 TPU_KERNEL = "lbm_ferrofluid_tpu/ops/pallas/fused_step.py:721"
 TPU_KERNEL_EPILOGUE = "lbm_ferrofluid_tpu/ops/pallas/fused_step.py:779"
 CUDA_SOURCE = "lbm_ferrofluid_tpu_torch/csrc/fused_step.cu"
+#: the forms of B5's kernel, by the index ``lbm_epilogue`` takes: one
+#: thread a cell, and the step's, whose threads copy a plane's loads
+#: into shared memory by cp.async before they collide (``csrc/fused_step.cu``)
+FORMS = ("cell", "stage")
+#: cells a block of the stage form owns, consecutive in a plane, and the
+#: words of a thread's stage: ``EP_NT`` and ``EP_WORDS`` of
+#: ``csrc/fused_step.cu``
+NT = 256
+STAGE_WORDS = 55
+#: the longest strip ``plan`` considers in bfloat16 storage and a strip's
+#: start-up in cell planes (float32 walks one plane a block): from
+#: ``chip_smoke.py --epilogue-plans``
+MAX_STRIP = 4
+STRIP_START = 0.05
+
+
+class EpiloguePlan(NamedTuple):
+    """A launch's form (one of ``FORMS``) and, for the stage form, its
+    strip of zb planes a block.  :data:`CELL` is one thread a cell."""
+
+    form: str
+    zb: int
+
+
+#: the one-thread-a-cell kernel (``lbm_epilogue_kernel``):
+#: ``chip_smoke.py``'s comparisons and plan sweep select it, the step never
+#: does
+CELL = EpiloguePlan("cell", 0)
+
+#: registers a thread the launch bounds leave: ``EP_REGS``
+REGS = 128
+
+
+def blocks_per_sm(threads: int) -> int:
+    """Resident blocks an SM, as the launch bounds ask room for: 65536
+    registers over ``REGS`` a thread of a block of ``threads``."""
+    return 65536 // (REGS * threads)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(Z: int, Y: int, X: int, sms: int, bf16: bool) -> EpiloguePlan:
+    """The step's plan on a Z x Y x X grid on a card of ``sms`` SMs, in
+    either mode (with ``emit_mac`` the prologue's launch follows): the
+    stage form with ``NT`` cells a block, one plane a block in float32,
+    and in bfloat16 storage the strip up to ``MAX_STRIP`` with the fewest
+    waves of resident blocks times planes a block (its strip and
+    start-up).  Cached: the wrapper asks for it at every call."""
+    if not bf16:
+        return EpiloguePlan("stage", 1)
+    blocks = -(-X * Y // NT)
+    resident = sms * blocks_per_sm(NT)
+
+    def ticks(zb):
+        return -(-blocks * -(-Z // zb) // resident) * (zb + STRIP_START)
+
+    return EpiloguePlan("stage", min(range(1, min(Z, MAX_STRIP) + 1), key=ticks))
 
 
 def cost(f, g, flags, rho_old, vel_old, **_) -> tuple[int, int]:
@@ -168,7 +232,8 @@ def lbm_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, *
     density_fluid)``) -> ``(f', g', (rho, vel, density, m0g, m1g))``, the
     next step's macros: the prologue on f'/g' with rho_old = ``rho`` and
     vel_old = ``vel``.  CPU tensors take the plain version; CUDA tensors
-    launch the kernels; anything else raises.  Inputs are not modified."""
+    launch the kernel under ``plan`` (with ``emit_mac`` then the
+    prologue's); anything else raises.  Inputs are not modified."""
     kw = dict(tau_f=tau_f, tau_g=tau_g, dx=dx, dt=dt, emit_mac=emit_mac,
               mac_consts=mac_consts)
     if f.device.type == "cpu":
@@ -186,12 +251,13 @@ def lbm_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, *
         raise ValueError(f"lbm_epilogue needs Z, Y, X >= {lbm_epilogue.min_axis}, and "
                          "mac_consts with emit_mac")
     bf16 = f.dtype == torch.bfloat16
+    pl = plan(Z, Y, X, torch.cuda.get_device_properties(f.device).multi_processor_count, bf16)
     f_out, g_out = torch.empty_like(f), torch.empty_like(g)
     call("lbm_epilogue", ptr(f), ptr(g), ptr(flags), ptr(rho), ptr(vel), ptr(density),
          ptr(pressure), ptr(force), ptr(dfai), ptr(dprho), ptr(f_out), ptr(g_out),
-         ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_double(dx),
-         ctypes.c_double(dt), ctypes.c_double(tau_f), ctypes.c_double(tau_g),
-         ctypes.c_int(bf16), stream_of(f))
+         ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_int(FORMS.index(pl.form)),
+         ctypes.c_int(pl.zb), ctypes.c_double(dx), ctypes.c_double(dt), ctypes.c_double(tau_f),
+         ctypes.c_double(tau_g), ctypes.c_int(bf16), stream_of(f))
     count_launch(lbm_epilogue, bf16)
     if not emit_mac:
         return f_out, g_out

@@ -7,9 +7,14 @@ results: the IO hook sees the same steps as the JAX runner's (the twin of
 ``tests/test_runner.py:38-43``), the benchmark returns the JAX runner's
 keys.  The port's state is the 3D HCZ ``multiphase_3d`` at 8^3 on the CPU
 (the JAX side runs its own singlephase 2D state, which the port has not
-ported, for the sequence and the keys).
+ported, for the sequence and the keys).  The NaN guard and the step
+function's contract (``nan_guard`` checks f, rho and vel and names the
+step; any ``step_fn(params, state)`` runs) are held to the JAX runner on
+the same 3D HCZ scene, stepped by a two-argument function that only counts
+steps, so that a NaN stays in the field it was put in.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -24,6 +29,7 @@ from lbm_ferrofluid_tpu.models import (  # noqa: E402
     init_singlephase_state,
     singlephase_step_impl,
 )
+from lbm_ferrofluid_tpu.models.scenes import multiphase_3d as jmultiphase_3d  # noqa: E402
 
 from lbm_ferrofluid_tpu_torch.models import (  # noqa: E402
     SimulationRunner,
@@ -107,3 +113,53 @@ def test_check_every_still_checks():
     f[0, 3, 2, 2, 2] = float("inf")
     with pytest.raises(FloatingPointError):
         runner.run(state.replace(f=f), 2, check_every=1)
+
+
+def _count_step(params, state):
+    """A two-argument step function that only advances the step count, in
+    either package's state."""
+    return dataclasses.replace(state, step=state.step + 1)
+
+
+def _both_with_nan_in(name):
+    """(port runner, port state, JAX runner, JAX state) on ``multiphase_3d``
+    at 8^3, each state with one NaN in the field ``name`` (none for None)."""
+    params, state = multiphase_3d(res=RES, device="cpu")
+    jparams, jstate = jmultiphase_3d(res=RES)
+    if name is not None:
+        t = getattr(state, name).clone()
+        t[0, 0, 4, 4, 4] = float("nan")
+        state = state.replace(**{name: t})
+        jstate = dataclasses.replace(
+            jstate, **{name: getattr(jstate, name).at[0, 0, 4, 4, 4].set(float("nan"))})
+    return (SimulationRunner(params, _count_step, device="cpu"), state,
+            JRunner(jparams, _count_step), jstate)
+
+
+def test_nan_only_in_g_passes_both_guards():
+    runner, state, jrunner, jstate = _both_with_nan_in("g")
+    out = runner.run(state, 4, io_interval=2, nan_guard=True)
+    jout = jrunner.run(jstate, 4, io_interval=2, nan_guard=True)
+    assert out.step == int(jout.step) == 4
+    assert not bool(torch.isfinite(out.g).all()) and not bool(np.isfinite(jout.g).all())
+
+
+def test_nan_in_f_raises_in_both_naming_the_step():
+    runner, state, jrunner, jstate = _both_with_nan_in("f")
+    messages = []
+    for run, st in ((runner.run, state), (jrunner.run, jstate)):
+        with pytest.raises(FloatingPointError) as err:
+            run(st, 4, io_interval=2, nan_guard=True)
+        messages.append(str(err.value))
+    assert messages[0] == messages[1] == "non-finite values in state.f at step 2"
+
+
+def test_two_argument_step_fn_runs_in_both():
+    runner, state, jrunner, jstate = _both_with_nan_in(None)
+    seen, jseen = [], []
+    out = runner.run(state, 3, io_interval=1, io_fn=lambda s: seen.append(s.step),
+                     nan_guard=True)
+    jout = jrunner.run(jstate, 3, io_interval=1, io_fn=lambda s: jseen.append(int(s.step)),
+                       nan_guard=True)
+    assert out.step == int(jout.step) == 3 and seen == jseen == [1, 2, 3]
+    assert torch.equal(out.f, state.f)
