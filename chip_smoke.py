@@ -9,6 +9,8 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
     python3 chip_smoke.py --capillary-plans  # only B6's plan sweep (256^3, 130^3)
     python3 chip_smoke.py --stencil-plans  # only B10a's and B10b's (256^3, 130x66x130)
     python3 chip_smoke.py --epilogue-plans  # only B5's (256^3, 130x66x130; f32, bf16)
+    python3 chip_smoke.py --spikes         # only the spike-pattern golden (64x33x64)
+    python3 chip_smoke.py --demo           # only the demo drivers (phases 5c demo, demos)
 
 Phases, each printing one JSON line; any failed check exits non-zero:
 
@@ -90,6 +92,24 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    density(rho_ca), each with its plan, resident blocks and ptxas line,
    and beside a yardstick that is on no path: cuDNN's ``conv3d`` of the
    interior then ``F.pad``, 2 calls, in full float32 (``conv3d_pad``);
+5c. the north star and the demos (after phase 5), each with the counters
+   zeroed just before it and read just after:
+   - spikes: the spike-pattern golden (tests/golden/
+     rosensweig3d_spikes_ref.npz, the reference solver's perturbed
+     64x33x64 Rosensweig pool) from its initial fields, 4000 steps of the
+     capillogue steady state in float32 and in turbo (bfloat16 f, g, h),
+     the density every 500 steps held to the reference's through
+     tools/spike_metric.py at tests/test_spike_parity.py's bars
+     (``spike_failures``), ms a step;
+   - demo: the port's Rosensweig driver at 130x66x130, 100 steps with a
+     frame every 50 (frames rendered, the OBJ's face count that of host
+     ``phi_to_mesh``), the final phi through ``make_render_pipeline``
+     against the host path, the on-card triangle set against the host's,
+     ``soft_rasterize`` on the card against the CPU, ms a frame of each
+     path and ms a step;
+   - demos: the other eleven drivers, 20 steps each at their default
+     grids (frames written and not constant), and the 2D two-droplets
+     driver's step-400 Tecplot dump;
 5b. the 2D and single-phase models (after phase 5): the six 2D and
    single-phase goldens of tests/test_parity.py (``singlephase_bgk``,
    ``singlephase_kbc_a``, ``sc``, ``hcz``, ``hcz_kbc_wetting``, ``ferro2d``
@@ -2462,6 +2482,357 @@ def phase_long_horizon(dev, card, steps=2000):
     check(not failed, "; ".join(failed))
 
 
+#: the spike-pattern golden: the reference solver's perturbed 64x33x64
+#: Rosensweig scene with density snapshots every 500 steps to 4000
+SPIKE_REF = ROOT / "tests" / "golden" / "rosensweig3d_spikes_ref.npz"
+SPIKE_SNAPS = tuple(range(500, 4001, 500))
+
+
+def spike_failures(ref, snaps: dict, mode: str) -> tuple[dict, list]:
+    """tests/test_spike_parity.py's bars on one run's density snapshots
+    ``{step: [B, 1, Z, Y, X] array}`` against the reference ``ref`` (the
+    loaded ``SPIKE_REF``).  float32: at every snapshot of ``SPIKE_SNAPS``
+    the same ``k_dominant``, ``|amp_ratio - 1| <= 1e-2`` and correlation
+    >= 0.999, and the run's own k 4 at step 2500 and 3 at step 3000.
+    turbo: at step 4000 the same k, ``0.6 < amp_ratio < 1.7`` and
+    correlation > 0.5.  Returns (metrics per step, failures)."""
+    from tools.spike_metric import compare_runs
+
+    rows, failed = {}, []
+    for step in SPIKE_SNAPS:
+        m = compare_runs(ref[f"den_{step}"][0, 0], np.asarray(snaps[step])[0, 0])
+        rows[step] = {"k_ref": m["ref"]["k_dominant"], "k": m["ours"]["k_dominant"],
+                      "amp_ratio": float(m["amp_ratio"]),
+                      "height_correlation": float(m["height_correlation"])}
+    if mode == "float32":
+        for step, r in rows.items():
+            if r["k"] != r["k_ref"]:
+                failed.append(f"spikes float32 step {step}: k {r['k']} against {r['k_ref']}")
+            if abs(r["amp_ratio"] - 1.0) > 1e-2:
+                failed.append(f"spikes float32 step {step}: amp_ratio {r['amp_ratio']}")
+            if not r["height_correlation"] >= 0.999:
+                failed.append(f"spikes float32 step {step}: correlation "
+                              f"{r['height_correlation']}")
+        if (rows[2500]["k"], rows[3000]["k"]) != (4, 3):
+            failed.append(f"spikes float32: k {rows[2500]['k']} at 2500 and "
+                          f"{rows[3000]['k']} at 3000, not 4 and 3")
+    else:
+        r = rows[4000]
+        if r["k"] != r["k_ref"]:
+            failed.append(f"spikes turbo step 4000: k {r['k']} against {r['k_ref']}")
+        if not 0.6 < r["amp_ratio"] < 1.7:
+            failed.append(f"spikes turbo step 4000: amp_ratio {r['amp_ratio']}")
+        if not r["height_correlation"] > 0.5:
+            failed.append(f"spikes turbo step 4000: correlation {r['height_correlation']}")
+    return rows, failed
+
+
+def spike_params(ref, mode: str):
+    """tools/run_rosensweig_spikes_ours.py's parameters, on the port."""
+    from lbm_ferrofluid_tpu_torch.models import SimulationParams
+
+    dt = "bfloat16" if mode == "turbo" else "float32"
+    return SimulationParams(
+        dim=3, density_gas=0.02381, density_fluid=0.2508, rho_gas=0.02381,
+        rho_fluid=0.2508, kappa=0.01, tau_f=0.68, tau_g=0.68,
+        gravity=float(ref["gravity"]), mag_strength=float(ref["mag"]), poisson_iters=30,
+        fg_dtype=dt, h_dtype=dt, mag_flags_shell=True)
+
+
+def spike_run(ref, mode: str, dev, steps=SPIKE_SNAPS[-1]):
+    """The golden's initial fields (zero velocity), primed, stepped
+    ``steps`` times through ``ferrofluid_step`` on ``dev``; returns the
+    density every 500 steps and the seconds of the stepping."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import (
+        ferrofluid_step, init_ferrofluid_state, prime_premac,
+    )
+
+    params = spike_params(ref, mode)
+    res = ref["flags"].shape[2:]
+    state = init_ferrofluid_state(
+        params, ref["rho0"].astype(np.float32), ref["den0"].astype(np.float32),
+        np.zeros((1, 3, *res), np.float32), ref["flags"], ref["mflags"], device=dev)
+    state = prime_premac(params, state, device=dev)
+    snaps = {}
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, steps + 1):
+        state = ferrofluid_step(params, state, device=dev)
+        if i % 500 == 0:
+            snaps[i] = state.density.float().cpu().numpy()
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return state, snaps, time.perf_counter() - t0
+
+
+def phase_spikes(dev, kernels_pkg, card):
+    """Spike-pattern parity (ROADMAP A14): the reference solver's perturbed
+    64x33x64 Rosensweig scene (``mag_flags_shell``) from its stored initial
+    fields, 4000 steps through the port's kernel route (the capillogue
+    steady state with the scalar carry) in float32 and in turbo (bfloat16
+    f, g and h), each density snapshot every 500 steps held to the
+    reference snapshot through tools/spike_metric.py:compare_runs at
+    tests/test_spike_parity.py's bars (``spike_failures``).  Counters
+    zeroed just before each run and read just after.  Returns the float32
+    run's launches and the turbo run's bfloat16-form launches."""
+    from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
+
+    ref = np.load(SPIKE_REF)
+    K = kernels_pkg.KERNELS
+    ids = kernels_pkg.PATHS["ferrofluid"]
+    failed, launches, launches16 = [], {}, {}
+    for mode in ("float32", "turbo"):
+        kernels_pkg.reset_launch_counts()
+        state, snaps, seconds = spike_run(ref, mode, dev)
+        got = kernels_pkg.launch_counts(ids)
+        got16 = kernels_pkg.launch_counts(kernels_pkg.BF16_FORMS, bf16=True)
+        assert_finite(state, fields=vars(state))
+        check_launches(f"spikes {mode}", got, {
+            "B1": K["B1"].module.launches_per_call(30, state.rho.shape),
+            "B2": K["B2"].module.N_LAUNCHES, "B3": K["B3"].module.N_LAUNCHES},
+            state.step, extra={"B4": 1})
+        if mode == "float32":
+            launches = got
+        else:
+            launches16 = got16
+            check(got16["B3"] == got["B3"] and got16["B4"] == got["B4"],
+                  f"spikes turbo: a kernel ran its float32 form: {got16} against {got}")
+        rows, bad = spike_failures(ref, snaps, mode)
+        failed += bad
+        emit({"phase": "spikes", "mode": mode, "res": list(state.rho.shape[2:]),
+              "steps": state.step, "ms_per_step": 1e3 * seconds / state.step,
+              "snapshots": rows, "card": card, "launches": got, "ok": not bad})
+    check(not failed, "; ".join(failed))
+    return launches, launches16
+
+
+def triangle_set_distance(a, b, chunk=2048) -> float:
+    """How far two triangle sets ([N, 3, 3] tensors on one device) lie
+    apart: for each triangle of one set, its nearest triangle of the other
+    (among the 4 of nearest centroid) by the largest distance from one of
+    its corners to the nearest corner of the other (max-norm), taken over
+    both sets.  The sets are equal within it."""
+    import torch
+
+    def one_way(x, y):
+        cx, cy = x.mean(1), y.mean(1)
+        worst = 0.0
+        for i in range(0, len(x), chunk):
+            near = torch.cdist(cx[i:i + chunk], cy).topk(4, largest=False).indices
+            cand = y[near]  # [n, 4, 3, 3]
+            d = (x[i:i + chunk, None, :, None] - cand[:, :, None]).abs().amax(-1)
+            worst = max(worst, float(d.amin(-1).amax(-1).amin(-1).max()))
+        return worst
+
+    return max(one_way(a, b), one_way(b, a))
+
+
+#: bars of the rendered frames: the on-card pipeline against the host
+#: path (tests/test_mesh_jax.py:97-130), the two triangle sets, and the
+#: rasterizer on the card against the CPU
+PIPE_MEAN, PIPE_MAX, TRI_ATOL, RASTER_ABS = 2e-3, 0.1, 2e-3, 1e-5
+
+
+def frame_is_rendered(img) -> bool:
+    """Neither blank nor constant: more than one value, and some pixels
+    off the background."""
+    return int(img.max()) != int(img.min()) and bool((img < 250).any())
+
+
+def phase_demo(dev, kernels_pkg, card, steps=100, io_interval=50, image_size=256,
+               min_budget=1 << 16):
+    """The north-star demo end to end: the port's Rosensweig driver
+    (``demo_3d_LBM_Rosensweig_instability.main``) at its native 130x66x130
+    on the card, ``steps`` steps with a frame every ``io_interval``, into a
+    temporary directory (counters zeroed just before, read just after:
+    B1, B2, B3 every step, B4 once).  Its frames are written and rendered
+    (not blank, not constant), and its OBJ has the face count of host
+    ``phi_to_mesh`` of the final phi.  The final phi rendered through
+    ``make_render_pipeline`` (on the card) and through the host path,
+    images within ``PIPE_MEAN``/``PIPE_MAX``; ``phi_to_mesh_torch``'s
+    triangle set on the card equal to the host's within ``TRI_ATOL``;
+    ``soft_rasterize`` on the card against the CPU for a 64-pixel sphere
+    within ``RASTER_ABS`` (in float64; float32 reported).  ms a frame of
+    each path, ms a step of the demo's steps.  Frames are ``image_size``
+    pixels a side (the driver's default), and the pipeline's triangle
+    budget the power of 2 of the host mesh, at least ``min_budget`` (the
+    JAX package's default)."""
+    import tempfile
+
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.demo import demo_3d_LBM_Rosensweig_instability as demo
+    from lbm_ferrofluid_tpu_torch.models import (
+        SimulationRunner, ferrofluid_step, phi_field, rosensweig_3d,
+    )
+    from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
+    from lbm_ferrofluid_tpu_torch.render import (
+        _bucket_mesh, _image, default_renderer, make_render_pipeline, phi_to_mesh,
+        phi_to_mesh_torch, render_phi_frame, soft_rasterize, vertices_to_faces,
+    )
+    from lbm_ferrofluid_tpu_torch.utils.io import read_png
+
+    K = kernels_pkg.KERNELS
+    ids = kernels_pkg.PATHS["ferrofluid"]
+    out = {"phase": "demo", "driver": "demo_3d_LBM_Rosensweig_instability", "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels_pkg.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = demo.main(["--total_steps", str(steps), "--io_interval", str(io_interval),
+                           "--out_dir", tmp, "--image_size", str(image_size)])
+        torch.cuda.synchronize()
+        out["demo_seconds"] = time.perf_counter() - t0
+        launches = kernels_pkg.launch_counts(ids)
+        assert_finite(state, fields=vars(state))
+        check_launches("demo", launches, {
+            "B1": K["B1"].module.launches_per_call(30, state.rho.shape),
+            "B2": K["B2"].module.N_LAUNCHES, "B3": K["B3"].module.N_LAUNCHES},
+            state.step, extra={"B4": 1})
+        frames = sorted(pathlib.Path(tmp).glob("*.png"))
+        want = [f"{s:05d}.png" for s in range(0, steps + 1, io_interval)]
+        check([f.name for f in frames] == want, f"demo: frames {[f.name for f in frames]}")
+        for f in frames:
+            img = read_png(f)
+            check(img.shape == (image_size, image_size, 3) and frame_is_rendered(img),
+                  f"demo: frame {f.name} blank or constant ({img.shape})")
+        obj = pathlib.Path(tmp) / demo.OBJ_NAME
+        obj_faces = sum(1 for line in obj.open() if line.startswith("f "))
+    res = tuple(state.rho.shape[2:])
+    params = rosensweig_3d(res, device="cpu")[0]  # the driver's, at its defaults
+    phi = phi_field(params, state)
+    verts, faces = phi_to_mesh(phi, res)
+    check(obj_faces == len(faces), f"demo: OBJ has {obj_faces} faces, phi_to_mesh {len(faces)}")
+    bucket = len(_bucket_mesh(verts, faces)[1])
+    budget = max(min_budget, bucket)
+    renderer = default_renderer(image_size, device=dev)
+
+    def host_frame():
+        v, f = phi_to_mesh(phi, res)
+        vb, fb = _bucket_mesh(v, f)
+        return _image(renderer, torch.as_tensor(vb, device=dev), torch.as_tensor(fb, device=dev),
+                      0.68)
+
+    pipe = make_render_pipeline(res, renderer=renderer, budget=budget, device=dev)
+    img_h = host_frame()
+    img_d, count = pipe(phi)
+    check(int(count) == len(faces) <= budget,
+          f"demo: device mesh {int(count)} triangles, host {len(faces)}, budget {budget}")
+    d = (img_d - img_h).abs()
+    out["pipeline_vs_host"] = {"mean_abs": float(d.mean()), "max_abs": float(d.max()),
+                               "bars": [PIPE_MEAN, PIPE_MAX]}
+    check(float(d.mean()) < PIPE_MEAN and float(d.max()) < PIPE_MAX,
+          f"demo: pipeline image off the host's: {out['pipeline_vs_host']}")
+    tv, _, tcount = phi_to_mesh_torch(phi, res, budget=budget)
+    dist = triangle_set_distance(tv.reshape(-1, 3, 3)[:int(tcount)],
+                                 torch.as_tensor(verts[faces], device=dev))
+    out["triangles"] = {"host": len(faces), "device": int(tcount), "set_distance": dist,
+                        "bar": TRI_ATOL}
+    check(int(tcount) == len(faces) and dist <= TRI_ATOL,
+          f"demo: device triangle set off the host's: {out['triangles']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ms = {}
+        for label, fn in (("host", lambda: render_phi_frame(phi, f"{tmp}/h.png", res,
+                                                            renderer=renderer)),
+                          ("pipeline", lambda: render_phi_frame(phi, f"{tmp}/p.png", res,
+                                                                pipeline=pipe))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+            ms[label] = (time.perf_counter() - t0) / 2 * 1e3
+    out.update(faces=len(faces), bucket=bucket, budget=budget, ms_per_frame=ms)
+    # the rasterizer on the card against the CPU: a sphere at 64 pixels
+    n = 12
+    i, j, k = np.mgrid[0:n, 0:n, 0:n]
+    sph = np.tanh((np.sqrt((i - n / 2) ** 2 + (j - n / 2) ** 2 + (k - n / 2) ** 2) - 4) / 2)
+    sv, sf = phi_to_mesh(sph[None, None].astype(np.float32), (n, n, n))
+    errs = {}
+    for dt in (torch.float64, torch.float32):
+        imgs = []
+        for where in (dev, "cpu"):
+            r = default_renderer(32, device=where)
+            v = torch.as_tensor(sv, device=where, dtype=dt)[None]
+            fv = vertices_to_faces(r.project_to_image(r.transform_to_camera_frame(v)),
+                                   torch.as_tensor(sf, device=where)[None])
+            tex = torch.full((1, len(sf), 2, 3), 0.68, dtype=dt, device=where)
+            imgs.append(soft_rasterize(fv, tex, 64, r.bg_color.to(dt)).cpu())
+        errs[str(dt).split(".")[-1]] = float((imgs[0] - imgs[1]).abs().max())
+    out["soft_rasterize_card_vs_cpu"] = dict(errs, bar_float64=RASTER_ABS, faces=len(sf))
+    check(errs["float64"] <= RASTER_ABS, f"demo: soft_rasterize card vs CPU {errs}")
+    # the demo's steps alone
+    runner = SimulationRunner(params, ferrofluid_step, device=dev)
+    state, stats = runner.benchmark(state, n_steps=50, warmup=5)
+    out.update(res=list(res), steps=steps, io_interval=io_interval, launches=launches,
+               ms_per_step=stats["seconds"] / 50 * 1e3, mlups=stats["mlups"], ok=True)
+    emit(out)
+    del state, pipe, img_d, img_h, tv
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: the other demo drivers
+DEMOS = (
+    "demo_2d_LBM", "demo_2d_LBM_KBC", "demo_2d_LBM_Rosensweig_instability",
+    "demo_2d_LBM_droplet_spread", "demo_2d_LBM_multiphase_HCZ", "demo_2d_LBM_multiphase_SC",
+    "demo_2d_LBM_two_droplets", "demo_2d_wave", "demo_3d_LBM_droplet_spread",
+    "demo_3d_LBM_multiphase", "demo_3d_LBM_two_droplets",
+)
+
+
+def phase_demos(dev, kernels_pkg, card, steps=20, io_interval=10):
+    """Each of the other demo drivers at its default grid on the card,
+    ``steps`` steps with a frame every ``io_interval`` into a temporary
+    directory: its frames written and not constant, its final state
+    finite; the 3D drivers launch their path's kernels (counters zeroed
+    just before the phase, read just after).  Then the 2D two-droplets
+    driver at 24x48 for 400 steps with ``--io_interval 400``: its step-400
+    Tecplot dump is written, with one line a cell."""
+    import importlib
+    import tempfile
+
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
+    from lbm_ferrofluid_tpu_torch.utils.io import read_png
+
+    out = {"phase": "demos", "card": card, "steps": steps, "drivers": {}}
+    kernels_pkg.reset_launch_counts()
+    for name in DEMOS:
+        mod = importlib.import_module(f"lbm_ferrofluid_tpu_torch.demo.{name}")
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = mod.main(["--total_steps", str(steps), "--io_interval", str(io_interval),
+                              "--out_dir", tmp])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            assert_finite(state, fields=vars(state))
+            frames = sorted(pathlib.Path(tmp).glob("*.png"))
+            check(len(frames) == steps // io_interval + 1, f"demos {name}: {len(frames)} frames")
+            for f in frames:
+                img = read_png(f)
+                check(int(img.max()) != int(img.min()), f"demos {name}: frame {f.name} constant")
+        out["drivers"][name] = {"res": list(state.rho.shape[2:]), "steps": state.step,
+                                "frames": len(frames), "seconds": seconds}
+    launches = kernels_pkg.launch_counts()
+    for kid in ("B1", "B2", "B3", "B4", "B6", "B8a", "B8b", "B9"):
+        check(launches[kid] > 0, f"demos: {kid} never launched: {launches}")
+    mod = importlib.import_module("lbm_ferrofluid_tpu_torch.demo.demo_2d_LBM_two_droplets")
+    with tempfile.TemporaryDirectory() as tmp:
+        mod.main(["--res", "24", "48", "--total_steps", "400", "--io_interval", "400",
+                  "--out_dir", tmp])
+        plt = pathlib.Path(tmp) / "00400.plt"
+        lines = plt.read_text().splitlines() if plt.exists() else []
+        check(len(lines) == 4 + 24 * 48, f"demos: step-400 Tecplot dump has {len(lines)} lines")
+    emit(dict(out, plt_lines=len(lines), launches=launches, ok=True))
+    return launches
+
+
 def phase_bf16_flagships(dev, K, card, ptxas=None):
     """The 256^3 flagships in bfloat16 storage: MLUPS over warm steps of the
     Rosensweig scene (mag_strength 85) in the capillogue steady state with
@@ -2903,9 +3274,10 @@ def phase_rosensweig_2d_bf16(dev, card, steps=(1000, 2000)):
 def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     """Phases 3-8; returns one row per kernel for the ``kernels`` line, and
     one per bfloat16 form.  ``launches`` sums the kernel's launches over
-    the main paths of phase 5 that run it (B2, B3 and B4 over both
-    ferrofluid solves), and a bfloat16 form's its launches over phase 7's
-    bfloat16 main paths."""
+    the main paths of phases 5 and 5c that run it (B2, B3 and B4 over both
+    ferrofluid solves, the spike runs and the demo drivers), and a bfloat16
+    form's its launches over phase 7's bfloat16 main paths and the turbo
+    spike run."""
     K = kernels_pkg.KERNELS
     worst = phase_kernels(dev, K)
     phase_golden(dev)
@@ -2916,6 +3288,8 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
                 phase_uncarried_main(dev, kernels_pkg, smi),
                 phase_epilogue_main(dev, kernels_pkg, smi),
                 phase_stencils_main(dev, kernels_pkg, smi)]
+    spikes, spikes16 = phase_spikes(dev, kernels_pkg, smi)
+    per_path += [spikes, phase_demo(dev, kernels_pkg, smi), phase_demos(dev, kernels_pkg, smi)]
     phase_golden_2d(dev)
     sp_launches, sp_b8a = phase_singlephase_3d(dev, kernels_pkg, smi)
     per_path.append(sp_launches)
@@ -2924,6 +3298,7 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     launches = {kid: sum(p.get(kid, 0) for p in per_path) for kid in K}
     worst16 = phase_kernels_bf16(dev, K)
     launches16 = phase_bf16_main(dev, kernels_pkg, smi)
+    launches16 = {kid: n + spikes16.get(kid, 0) for kid, n in launches16.items()}
     phase_long_horizon(dev, smi)
     flag = phase_flagship(dev, K, smi)
     flag.update(phase_channel_flagship(dev, K, smi, ptxas))
@@ -2995,6 +3370,13 @@ def main() -> int:
         print(smi, flush=True)
     elif "--epilogue-plans" in sys.argv[1:]:
         phase_epilogue_plans(dev, smi, ptxas)
+        print(smi, flush=True)
+    elif "--spikes" in sys.argv[1:]:
+        phase_spikes(dev, kernels_pkg, smi)
+        print(smi, flush=True)
+    elif "--demo" in sys.argv[1:]:
+        phase_demo(dev, kernels_pkg, smi)
+        phase_demos(dev, kernels_pkg, smi)
         print(smi, flush=True)
     else:
         rows = run_phases(dev, kernels_pkg, smi, ptxas)

@@ -18,10 +18,11 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.diagnostics import assert_finite
+from ..utils.profiling import sync
 from .ferrofluid import prime_premac
 from .params import SimulationParams
 
-__all__ = ["SimulationRunner", "assert_finite"]
+__all__ = ["SimulationRunner", "assert_finite", "sync"]
 
 
 def _takes_device(step_fn) -> bool:

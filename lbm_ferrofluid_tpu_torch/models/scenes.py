@@ -29,6 +29,7 @@ __all__ = [
     "shear_layer", "wave", "multiphase_drop_sc", "multiphase_drop_hcz",
     "droplet_spread_2d", "two_droplets_2d", "rosensweig_2d",
     "multiphase_3d", "droplet_spread_3d", "two_droplets_3d", "rosensweig_3d",
+    "phys_view",
 ]
 
 # the multiphase demos share one fluid (reference: demo_*_HCZ.py headers)
@@ -290,3 +291,14 @@ def rosensweig_3d(res=(130, 66, 130), mag_strength=100.0, gravity=1e-4, batch=1,
     return params, init_ferrofluid_state(
         params, rho, den, vel, flags, mflags, device=device
     )
+
+
+def phys_view(params: SimulationParams, field, vector: bool = False):
+    """Physical-orientation view of a field (JAX ``scenes.phys_view``): the
+    identity for states without ``phys_extent``.  The padded transposed
+    layout that sets ``phys_extent`` is not ported (ROADMAP A8), so a
+    ``phys_extent`` raises."""
+    if params.phys_extent is None:
+        return field
+    raise NotImplementedError(
+        "phys_view: padded transposed layouts (phys_extent) are not ported yet (ROADMAP A8)")

@@ -51,6 +51,7 @@ from ..utils.device import resolve_device
 
 __all__ = [
     "SinglePhaseState", "HCZState", "FerrofluidState", "from_numpy", "to_numpy", "BF16_BITS",
+    "field_shapes",
 ]
 
 
@@ -115,6 +116,16 @@ class FerrofluidState:
 
     def replace(self, **kw) -> "FerrofluidState":
         return dataclasses.replace(self, **kw)
+
+
+def field_shapes(params, res: tuple[int, ...], batch: int = 1) -> dict:
+    """Canonical field shapes for a resolution (z, y, x ordering)."""
+    lat = params.lattice
+    return {
+        "f": (batch, lat.q, *res),
+        "scalar": (batch, 1, *res),
+        "vector": (batch, lat.dim, *res),
+    }
 
 
 #: uint16 bits of bfloat16 values, where numpy has no bfloat16 dtype

@@ -16,7 +16,7 @@ from .collide import (
 )
 from .equilibrium import feq, gamma_quadratic, geq, heq
 from .magnetic import magnetic_sweep, poisson_rhs_scaled, solve_H_int, solve_H_int_scalar
-from .moments import eos_pressure, macro_moments, rho_to_density
+from .moments import eos_pressure, macro_moments, rho_to_density, vorticity_2d
 from .stencils import (
     isotropic_grad,
     isotropic_laplacian,
@@ -41,6 +41,7 @@ __all__ = [
     "macro_moments",
     "rho_to_density",
     "eos_pressure",
+    "vorticity_2d",
     "isotropic_grad",
     "isotropic_laplacian",
     "staggered",

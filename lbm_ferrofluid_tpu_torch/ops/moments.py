@@ -10,7 +10,8 @@ import torch
 from ..lattice import Lattice
 from ..utils.types import CellType
 
-__all__ = ["macro_moments", "rho_to_density", "eos_pressure", "phi_from_density"]
+__all__ = ["macro_moments", "rho_to_density", "eos_pressure", "phi_from_density",
+           "vorticity_2d"]
 
 
 def macro_moments(lat: Lattice, f, rho, vel, flags, *, dx=1.0, dt=1.0):
@@ -58,3 +59,13 @@ def phi_from_density(density, density_gas, density_fluid):
     """The order parameter phi = -(2 (density - rho_g)/(rho_l - rho_g) - 1)
     (demo_3d_LBM_Rosensweig_instability.py:171)."""
     return -(2.0 * (density - density_gas) / (density_fluid - density_gas) - 1.0)
+
+
+def vorticity_2d(vel, dx: float):
+    """Central-difference vorticity (for frames only), replicate-padded to
+    full size (reference: LBM_macro_compute_2d.py:109-117)."""
+    vort = (
+        (vel[:, 0:1, 2:, 1:-1] - vel[:, 0:1, :-2, 1:-1])
+        - (vel[:, 1:2, 1:-1, 2:] - vel[:, 1:2, 1:-1, :-2])
+    ) / (2.0 * dx)
+    return torch.nn.functional.pad(vort, (1, 1, 1, 1), mode="replicate")

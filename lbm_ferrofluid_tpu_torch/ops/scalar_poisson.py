@@ -37,6 +37,7 @@ __all__ = [
     "scalar_from_h",
     "s_prev_from_h",
     "scalar_sweeps_exact",
+    "h_from_scalar",
     "compare_views",
 ]
 
@@ -137,6 +138,37 @@ def scalar_sweeps_exact(s, s_prev, rhs_scaled, magnetic_flags, n_iters):
         psi = _psi_of(acc, lat)
         s, s_prev = (psi + rhs_scaled) * mask, s
     return psi, s, s_prev
+
+
+def h_from_scalar(s, s_prev, rhs_scaled, magnetic_flags, h_dtype):
+    """The 19-channel h a channel-form solve would carry (for checkpoints
+    and other consumers of the channel form):
+
+    * fluid q >= 1: w_q * s;
+    * fluid q == 0: (w0 - 1) * psi + w0 * rhs with psi = s - rhs (inert for
+      the solve);
+    * obstacle channels read by fluid (x + e_q fluid): w_q * s_prev(x + e_q),
+      the lag-2 reflection value the channel dynamics would hold;
+    * deeper obstacle channels: 0, which no fluid cell ever reads.
+
+    ``h_dtype`` is a torch dtype or its name."""
+    lat = _lat_of(magnetic_flags)
+    shifts = lat.shifts()
+    mask = fluid_mask(magnetic_flags)
+    obs = 1.0 - mask
+    sf = s.to(torch.float32)
+    psi = sf - rhs_scaled
+    w0 = float(lat.weights[0])
+    chans = [((w0 - 1.0) * psi + w0 * rhs_scaled) * mask]
+    spf = s_prev.to(torch.float32) * mask
+    for q in range(1, lat.q):
+        wq = float(np.float32(lat.weights[q]))
+        # the obstacle cell x holds w_q * s_prev(x + e_q): s_prev pulled
+        # back along -e_q
+        lag = wq * _roll(spf, tuple(-v for v in shifts[q]))
+        chans.append(wq * sf * mask + lag * obs)
+    dtype = getattr(torch, h_dtype) if isinstance(h_dtype, str) else h_dtype
+    return torch.cat(chans, dim=1).to(dtype)
 
 
 def compare_views(h_scalar, h_channel, magnetic_flags):

@@ -1,14 +1,27 @@
-"""Checks of a state between steps (``lbm_ferrofluid_tpu/utils/diagnostics.py``).
+"""Per-step scalar diagnostics and the NaN guard
+(``lbm_ferrofluid_tpu/utils/diagnostics.py``).
 
-The NaN guard that ``SimulationRunner.run`` calls; the scalar
-``diagnostics`` reduction is not ported yet.
+``assert_finite`` is the guard that ``SimulationRunner.run`` calls;
+``diagnostics`` gives a few global scalars of rho and vel as 0-d tensors
+on their device (read them with ``float``).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["assert_finite"]
+__all__ = ["diagnostics", "assert_finite"]
+
+
+def diagnostics(rho, vel) -> dict:
+    """Cheap global scalars: {mass, kinetic_energy, max_speed, finite}."""
+    u2 = torch.sum(vel * vel, dim=1, keepdim=True)
+    return {
+        "mass": torch.sum(rho),
+        "kinetic_energy": 0.5 * torch.sum(rho * u2),
+        "max_speed": torch.sqrt(torch.max(u2)),
+        "finite": torch.isfinite(rho).all() & torch.isfinite(vel).all(),
+    }
 
 
 def assert_finite(state, fields=("f", "rho", "vel")) -> None:

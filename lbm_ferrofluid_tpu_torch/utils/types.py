@@ -14,7 +14,7 @@ from enum import IntEnum
 
 import torch
 
-__all__ = ["CellType", "KBCType", "widen"]
+__all__ = ["CellType", "KBCType", "widen", "celltype_colormap"]
 
 
 def widen(t: torch.Tensor) -> torch.Tensor:
@@ -39,6 +39,34 @@ class CellType(IntEnum):
     OUTFLOW = 16
     OPEN = 32
     STICK = 64
+
+    @staticmethod
+    def get_colormap():
+        return celltype_colormap()
+
+
+def celltype_colormap():
+    """Matplotlib colormap, formatter, norm and bins for plotting flag
+    fields (reference: utils/types.py:20-58).  Imports matplotlib."""
+    import matplotlib
+    import matplotlib.ticker
+    import numpy as np
+    from matplotlib.colors import BoundaryNorm, ListedColormap
+
+    col_dict = {
+        0: "black", 1: "blue", 2: "grey", 4: "white",
+        8: "green", 16: "red", 32: "yellow", 64: "orange",
+    }
+    cm = ListedColormap([col_dict[x] for x in col_dict])
+    labels = np.array([
+        "NOTHING", "FLUID", "OBSTACLE", "EMPTY",
+        "INFLOW", "OUTFLOW", "OPEN", "STICK",
+    ])
+    norm_bins = np.sort(list(col_dict)) + 0.5
+    norm_bins = np.insert(norm_bins, 0, np.min(norm_bins) - 1.0)
+    norm = BoundaryNorm(norm_bins, len(labels), clip=True)
+    fmt = matplotlib.ticker.FuncFormatter(lambda x, pos: labels[norm(x)])
+    return cm, fmt, norm, norm_bins
 
 
 class KBCType(IntEnum):

@@ -4,7 +4,9 @@
   ``import jax`` and ``import ml_dtypes`` fail;
 * no file of the package, nor ``chip_smoke.py``, imports ``jax``,
   ``lbm_ferrofluid_tpu`` or ``ml_dtypes`` (checked on the syntax tree; the
-  card's machine has no ``ml_dtypes``, which comes here only with JAX);
+  card's machine has no ``ml_dtypes``, which comes here only with JAX),
+  nor ``PIL`` or ``imageio`` at module level (the card's machine has
+  neither);
 * without CUDA the entry points raise unless ``device="cpu"`` is passed,
   and a kernel wrapper given a tensor that is neither on the CPU nor on the
   card raises instead of running its plain version.
@@ -66,6 +68,22 @@ def test_no_jax_imports(path):
             )
 
 
+@pytest.mark.parametrize("path", _py_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_level_imaging_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for m in mods:
+            assert m.split(".")[0] not in ("PIL", "imageio"), (
+                f"{path.name}:{node.lineno} imports {m} at module level"
+            )
+
+
 def _cpu_state():
     from lbm_ferrofluid_tpu_torch.models import rosensweig_3d
 
@@ -112,7 +130,46 @@ def _entry_points():
             params, state.replace(premac=prime_premac(params, state, device="cpu").premac[:5])),
         "hcz_step": hcz,
         "SimulationRunner": lambda params, state: SimulationRunner(params, ferrofluid_step),
+        "SoftRenderer": lambda params, state: _render().SoftRenderer(image_size=8),
+        "default_renderer": lambda params, state: _render().default_renderer(8),
+        "make_render_pipeline": lambda params, state: _render().make_render_pipeline((6, 8, 10)),
+        "run_demo": lambda params, state: _driver().run_demo(
+            "x", params, state, ferrofluid_step, 1, 1, lambda s, f: None, _UNWRITTEN),
+        **{f"demo {name}.main": _demo_main(name) for name in DEMO_NAMES},
     }
+
+
+#: an artifact directory the entry points must raise before creating
+_UNWRITTEN = str(ROOT / "build" / "no_artifacts_without_cuda")
+
+
+def _render():
+    from lbm_ferrofluid_tpu_torch import render
+
+    return render
+
+
+def _driver():
+    from lbm_ferrofluid_tpu_torch.demo import _driver
+
+    return _driver
+
+
+DEMO_NAMES = sorted(p.stem for p in (PKG / "demo").glob("demo_*.py"))
+
+
+def _demo_main(name):
+    def run(params, state):
+        import importlib
+
+        mod = importlib.import_module(f"lbm_ferrofluid_tpu_torch.demo.{name}")
+        mod.main(["--total_steps", "1", "--out_dir", _UNWRITTEN])
+
+    return run
+
+
+def test_every_demo_is_listed():
+    assert len(DEMO_NAMES) == 12
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))
@@ -122,6 +179,7 @@ def test_entry_points_raise_without_cuda(name):
     params, state = _cpu_state()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[name](params, state)
+    assert not pathlib.Path(_UNWRITTEN).exists()
 
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
