@@ -11,6 +11,10 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
     python3 chip_smoke.py --epilogue-plans  # only B5's (256^3, 130x66x130; f32, bf16)
     python3 chip_smoke.py --spikes         # only the spike-pattern golden (64x33x64)
     python3 chip_smoke.py --demo           # only the demo drivers (phases 5c demo, demos)
+    python3 chip_smoke.py --compat         # only the grad guard and the compat facade
+    python3 chip_smoke.py --dibr --native --inverse  # only those phases (any subset)
+    python3 chip_smoke.py --step-time [ROOT]  # ms a step at 130x66x130 of the
+                                           # package at ROOT (default: this checkout)
 
 Phases, each printing one JSON line; any failed check exits non-zero:
 
@@ -43,6 +47,9 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    version.  Bar rel <= 5e-5 per field
    (max|a-b| / max|b|), velocities also pass at abs <= 5e-6
    (docs/PARITY.md:78-93: FMA contraction and reassociation);
+3b. grad guard: each kernel wrapper of ``KERNELS``, given a CUDA input
+   that requires grad with grad enabled, raises and launches nothing
+   (``ops/kernels/_lib.py:check_no_grad``);
 4. golden: ``tests/golden/ferro3d.npz`` (8 steps; the capillogue steady
    state with the scalar carry and with the channel-form solve,
    ``scalar_carry=False``, and the un-carried step) and ``hcz3d.npz``
@@ -73,6 +80,12 @@ Phases, each printing one JSON line; any failed check exits non-zero:
      against 30 capillogue steady-state steps;
    - the stencil route in the HCZ step (``multiphase_3d`` 130^3: B8b, B8a,
      B2, B10b, B10a, B9), 30 against 30 plain HCZ steps;
+   - compat: the reference's driver API (``compat.py``) op by op on
+     ``multiphase_3d`` 130^3, the loop of tests/test_compat.py in 3D: 10
+     steps against 10 stencil-route steps (phase 3's bars), 100 more with
+     B2, B10b, B10a and B9 once a step, finite, summed rho's drift, ms a
+     step at 130^3 and 256^3, and ``capillary_process`` with H2/phi (B10a
+     over 4 fields) against the plain ops;
 6. flagships at 256^3: the Rosensweig scene that bench.py times (scalar
    carry, then the channel-form solve, then the un-carried step and the
    epilogue steady state) and the HCZ ``multiphase_3d`` (with the stencil
@@ -110,6 +123,17 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    - demos: the other eleven drivers, 20 steps each at their default
      grids (frames written and not constant), and the 2D two-droplets
      driver's step-400 Tecplot dump;
+   - dibr: the DIB-R stack on the card against the same calls on the CPU:
+     the ``multiphase_3d`` droplet's interface (32^3) at 256 pixels in all
+     four modes (float64 within 1e-9), the vertex gradient of an image
+     loss (float64 within 1e-8), ms a frame and peak bytes, a frame of the
+     130^3 droplet, ``voxelize`` of the Rosensweig interface at 128^3
+     (grids equal), ``load_textures``;
+   - native: the port's C++ library's build time, and marching tetrahedra
+     at 130x66x130, native against numpy (triangle sets within 1e-5), ms
+     of each;
+   - inverse: the inverse-design driver at 24x24 and 130x130 (loss curve,
+     ms an iteration, a fall of at least 2x, no kernel launched);
 5b. the 2D and single-phase models (after phase 5): the six 2D and
    single-phase goldens of tests/test_parity.py (``singlephase_bgk``,
    ``singlephase_kbc_a``, ``sc``, ``hcz``, ``hcz_kbc_wetting``, ``ferro2d``
@@ -172,6 +196,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -3271,6 +3296,410 @@ def phase_rosensweig_2d_bf16(dev, card, steps=(1000, 2000)):
     check(not failed, "; ".join(failed))
 
 
+def grad_guard_calls(dev, res=(8, 16, 32)):
+    """Per kernel id: a call of its wrapper on ``dev`` tensors of ``res``
+    whose lead float input requires grad (the values do not matter: the
+    guard runs before any other check)."""
+    import torch
+
+    def t(*c, dtype=torch.float32):
+        return torch.zeros((1, *c, *res), device=dev, dtype=dtype)
+
+    s, v, f = t(1), t(3), t(19)
+    fl = t(1, dtype=torch.uint8)
+    gas = dict(rho_gas=0.1, rho_fluid=0.2, density_gas=0.1, density_fluid=0.2)
+    x = {kid: t(c).requires_grad_(True) for kid, c in (("B1", 2), ("s", 1), ("v", 3))}
+    fg = f.clone().requires_grad_(True)
+    return {
+        "B1": lambda w: w(x["B1"], s, s, n_iters=2, h_ext=(0.0, 1.0, 0.0)),
+        "B2": lambda w: w(x["s"], fl, 1.0),
+        "B3": lambda w: w(fg, f, fl, s, s, s, s, s, s, v, v, fl, kappa=0.1,
+                          gravity=(0.0, 0.0, 0.0), tau_f=0.7, tau_g=0.7,
+                          emit_rhs=(1, 1.0, 1.0), **gas),
+        "B4": lambda w: w(fg, f, fl, s, v, c=1.0, **gas),
+        "B5": lambda w: w(fg, f, fl, s, v, s, s, v, v, v, tau_f=0.7, tau_g=0.7),
+        "B6": lambda w: w(x["s"], s, s, s, None, None, fl, s, v, v, kappa=0.1,
+                          gravity=(0.0, 0.0, 0.0), **gas),
+        "B8a": lambda w: w(fg, fl),
+        "B8b": lambda w: w(fg, fl, s, v, c=1.0, **gas),
+        "B9": lambda w: w(fg, f, s, v, s, s, fl, v, v, v, tau_f=0.7, tau_g=0.7),
+        "B10a": lambda w: w(x["v"], dx=1.0),
+        "B10b": lambda w: w(x["s"], dx=1.0),
+        "B11b": lambda w: w(fg, fl, s, tau=0.8, n_iters=2),
+    }
+
+
+def phase_grad_guard(dev, kernels_pkg):
+    """Each kernel wrapper of ``KERNELS``, given a CUDA input that requires
+    grad with grad enabled, raises (``ops/kernels/_lib.py:check_no_grad``)
+    and launches nothing."""
+    K = kernels_pkg.KERNELS
+    calls = grad_guard_calls(dev)
+    check(sorted(calls) == sorted(K),
+          f"grad guard: calls for {sorted(calls)}, kernels {sorted(K)}")
+    kernels_pkg.reset_launch_counts()
+    raised = {}
+    for kid, k in K.items():
+        try:
+            calls[kid](k.wrapper)
+            raised[kid] = None
+        except RuntimeError as e:
+            raised[kid] = str(e)
+        check(raised[kid] is not None and "an input requires grad" in raised[kid],
+              f"grad guard: {kid} did not raise under autograd ({raised[kid]})")
+    launches = kernels_pkg.launch_counts()
+    check(not any(launches.values()), f"grad guard: launches {launches}")
+    emit({"phase": "grad_guard", "kernels": sorted(raised), "message": raised["B9"],
+          "ok": True})
+
+
+def compat_loop(cp, params, state):
+    """The reference-style HCZ loop (tests/test_compat.py's order) through
+    the facade ``cp`` (``lbm_ferrofluid_tpu_torch.compat``) from an HCZ
+    state: returns ``step()``, which steps the facade's fields once, and
+    ``fields()``, the state's names for them."""
+    sp = cp.SimulationParameters(
+        dim=3, simulation_size=(1, 1, *state.rho.shape[2:]), Q=19, kappa=params.kappa,
+        tau_f=params.tau_f, tau_g=params.tau_g, tau=params.tau,
+        contact_angle=params.contact_angle, rho_gas=params.rho_gas,
+        rho_fluid=params.rho_fluid, density_gas=params.density_gas,
+        density_fluid=params.density_fluid, device=state.rho.device.type)
+    runner = cp.SimulationRunner(sp)
+    prop, macro = runner.create_propagation(), runner.create_macro_compute()
+    coll = runner.create_collision_HCZ()
+    check(params.gravity_axis == 1, "compat: the facade's gravity acts along -y")
+    coll.set_gravity(gravity=params.gravity)
+    fl = state.flags
+    d = dict(f=state.f, g=state.g, rho=state.rho, vel=state.vel, density=state.density,
+             pressure=state.pressure, force=state.force)
+    dx, dt = params.dx, params.dt
+
+    def step():
+        f = prop.propagation(f=d["f"])
+        g = prop.propagation(f=d["g"])
+        rho, vel, den = macro.macro_compute(dx=dx, dt=dt, f=f, rho=d["rho"], vel=d["vel"],
+                                            flags=fl, density=d["density"])
+        f = prop.rebounce_obstacle(f=f, flags=fl)
+        g = prop.rebounce_obstacle(f=g, flags=fl)
+        rho, vel, den, pres, force, dfai, dprho = coll.capillary_process(
+            rho=rho, vel=vel, flags=fl, force=d["force"], dt=dt, dx=dx, g=g, density=den,
+            pressure=d["pressure"])
+        f, g = coll.collision(dx=dx, dt=dt, f=f, rho=rho, vel=vel, density=den, flags=fl,
+                              force=force, g=g, pressure=pres, dfai=dfai, dprho=dprho)
+        runner.step()
+        d.update(f=f, g=g, rho=rho, vel=vel, density=den, pressure=pres, force=force)
+
+    return step, d, coll
+
+
+def phase_compat(dev, kernels_pkg, card):
+    """The reference's driver API through ``compat.py`` on the card, op by
+    op: the 3D HCZ loop on ``multiphase_3d`` at 130^3, 10 steps held to
+    :func:`stencil_hcz_step` at phase 3's bars, then 100 steps (counters
+    zeroed just before, read just after: B2, B10b, B10a and B9 once a
+    step), finite, summed rho's drift; ms a step at 130^3 and 256^3; and
+    ``capillary_process`` with ``H2``/``phi`` (B10a over 4 fields) against
+    the plain ops on the same inputs."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch import compat as cp
+    from lbm_ferrofluid_tpu_torch.models import multiphase_3d
+    from lbm_ferrofluid_tpu_torch.ops.collide import contact_angle_boundary, hcz_capillary
+    from lbm_ferrofluid_tpu_torch.ops.moments import phi_from_density
+    from lbm_ferrofluid_tpu_torch.utils.diagnostics import assert_finite
+
+    K = kernels_pkg.KERNELS
+    out = {"phase": "compat", "card": card}
+    params, s0 = multiphase_3d(device=dev)
+    step, d, coll = compat_loop(cp, params, s0)
+    sk = s0
+    for _ in range(10):
+        step()
+        sk = stencil_hcz_step(params, sk, device=dev)
+    out["facade_vs_stencil_route_after_10_steps"] = compare(
+        "compat vs stencil route", list(HCZ_FIELDS), [d[n] for n in HCZ_FIELDS],
+        [getattr(sk, n) for n in HCZ_FIELDS])
+    del sk
+    mass10 = float(d["rho"].double()[s0.flags == 1].sum())
+    kernels_pkg.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        step()
+    torch.cuda.synchronize()
+    out["ms_per_step"] = {"130^3": (time.perf_counter() - t0) / 100 * 1e3}
+    launches = kernels_pkg.launch_counts()
+    check_launches("compat", launches, {kid: 1 for kid in kernels_pkg.PATHS["compat3d"]}, 100)
+    assert_finite(types.SimpleNamespace(**d, step=110), fields=tuple(d))
+    mass110 = float(d["rho"].double()[s0.flags == 1].sum())
+    out["sum_rho_fluid"] = {"step10": mass10, "step110": mass110,
+                            "drift_10_to_110": (mass110 - mass10) / mass10}
+    # capillary_process with the Kelvin term against the plain ops
+    rng = np.random.default_rng(21)
+    H2 = 1e4 * (1 + torch.as_tensor(rng.uniform(-0.1, 0.1, (1, 1, *s0.rho.shape[2:])),
+                                    dtype=torch.float32, device=dev))
+    phi = phi_from_density(d["density"], params.density_gas, params.density_fluid)
+    args = dict(rho=d["rho"], vel=d["vel"], flags=s0.flags, force=d["force"], g=d["g"],
+                density=d["density"], pressure=d["pressure"], H2=H2, phi=phi)
+    before = K["B10a"].wrapper.launches
+    got = coll.capillary_process(**args)
+    check(K["B10a"].wrapper.launches - before == 1, "compat: B10a over 4 fields, not 1 launch")
+    gravity = torch.as_tensor(coll._gravity, device=dev)
+    want = hcz_capillary(d["rho"], d["vel"], s0.flags, d["density"], d["pressure"],
+                         contact_angle_boundary(d["rho"], s0.flags, params.contact_angle),
+                         H2, phi, g=d["g"], kappa=params.kappa, gravity=gravity,
+                         rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+                         density_gas=params.density_gas, density_fluid=params.density_fluid)
+    out["capillary_process_kelvin_vs_plain"] = compare(
+        "compat capillary_process with H2", ["rho", "vel", "density", "pressure", "force",
+                                             "dfai", "dprho"], got, want)
+    del d, got, want, args, s0
+    torch.cuda.empty_cache()
+    params, s0 = multiphase_3d(res=(256, 256, 256), device=dev)
+    step, d, _ = compat_loop(cp, params, s0)
+    del s0
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step()
+    torch.cuda.synchronize()
+    out["ms_per_step"]["256^3"] = (time.perf_counter() - t0) / 20 * 1e3
+    del d
+    torch.cuda.empty_cache()
+    emit(dict(out, launches=launches, ok=True))
+    return launches
+
+
+#: DIB-R card-vs-CPU bars: float64 images, probability maps and normals
+#: (rel), vertex gradients (rel), and float32 textures (abs)
+DIBR_REL, DIBR_GRAD_REL, TEX_ABS = 1e-9, 1e-8, 1e-6
+
+
+def droplet_mesh(res):
+    """The ``multiphase_3d`` droplet's interface as the demos mesh it
+    (``phi_to_mesh`` of the density's phi): numpy (verts, faces)."""
+    from lbm_ferrofluid_tpu_torch.models import multiphase_3d
+    from lbm_ferrofluid_tpu_torch.ops.moments import phi_from_density
+    from lbm_ferrofluid_tpu_torch.render import phi_to_mesh
+
+    params, st = multiphase_3d(res=res, device="cpu")
+    return phi_to_mesh(phi_from_density(st.density, params.density_gas, params.density_fluid),
+                       res)
+
+
+def dibr_inputs(verts, where, dtype, seed=5):
+    """The DIB-R inputs of each mode for ``verts`` on ``where``: (cameras,
+    points, {mode: extra args}), seeded."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.render import dibr, meshutils
+
+    rng = np.random.default_rng(seed)
+    P = len(verts)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=where)
+
+    rot, pos = dibr.lookat_camera((1.6, 1.1, 2.4), (0, 0, 0), (0, 1, 0))
+    cams = (t(rot)[None], t(pos)[None], t(dibr.perspective_proj_matrix(math.radians(45.0))))
+    uv = (meshutils.get_spherical_coords_x(verts) + 1) / 2
+    tex = rng.uniform(0, 1, (1, 3, 64, 64))
+    light = np.asarray([[0.3, 0.5, 0.8]]) / np.linalg.norm([0.3, 0.5, 0.8])
+    args = {"VertexColor": [rng.uniform(0, 1, (1, P, 3))],
+            "Lambertian": [uv[None], tex],
+            "SphericalHarmonics": [uv[None], tex, rng.normal(size=(1, 9))],
+            "Phong": [uv[None], tex, light, rng.uniform(0.2, 0.8, (1, 3, 3)), [[4.0]]]}
+    return cams, t(verts)[None], {m: [t(a) for a in v] for m, v in args.items()}
+
+
+def phase_dibr(dev, card, res=(32, 32, 32), image=256, big=(130, 130, 130)):
+    """The DIB-R stack on the card against the same calls with
+    ``device="cpu"``: the ``multiphase_3d`` droplet's interface at ``res``
+    rendered at ``image`` pixels in all four modes (float64 within
+    ``DIBR_REL``), ms a frame on each side (and of the card in float32)
+    and the card's peak bytes; the vertex gradient of an image loss (float64,
+    64 pixels, the 16^3 droplet) within ``DIBR_GRAD_REL``; ms a frame of
+    the 130^3 droplet's interface (card only); ``voxelize`` of the
+    Rosensweig interface (130x66x130, the demo's phi) at 128^3, the
+    boolean grids equal; ``load_textures`` within ``TEX_ABS``."""
+    import importlib
+
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import rosensweig_3d
+    from lbm_ferrofluid_tpu_torch.ops.moments import phi_from_density
+    from lbm_ferrofluid_tpu_torch.render import dibr, phi_to_mesh
+
+    voxelize = importlib.import_module("lbm_ferrofluid_tpu_torch.render.voxelize").voxelize
+    load_textures = importlib.import_module(
+        "lbm_ferrofluid_tpu_torch.render.texture").load_textures
+    out = {"phase": "dibr", "card": card, "image": image, "modes": {}}
+    verts, faces = droplet_mesh(res)
+    out["droplet"] = {"res": list(res), "faces": len(faces)}
+    names = ("color", "improb", "normal")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for mode in ("VertexColor", "Lambertian", "SphericalHarmonics", "Phong"):
+        imgs, ms = [], {}
+        for where in (dev, "cpu"):
+            cams, pts, args = dibr_inputs(verts, where, torch.float64)
+            r = dibr.Renderer(image, image, mode)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs.append([x.cpu() for x in r((pts, faces), cams, *args[mode])])
+            torch.cuda.synchronize()
+            ms["card" if where == dev else "cpu"] = (time.perf_counter() - t0) * 1e3
+        rel = {n: float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+               for n, a, b in zip(names, *imgs)}
+        check(max(rel.values()) <= DIBR_REL, f"dibr {mode}: card vs CPU {rel}")
+        check(bool((imgs[0][1] == 1.0).any()) and bool((imgs[0][1] < 0.5).any()),
+              f"dibr {mode}: nothing covered or nothing uncovered")
+        # the card's frame in float32
+        cams, pts, args = dibr_inputs(verts, dev, torch.float32)
+        out["modes"][mode] = {"float64": {"ms_per_frame": ms, "rel": rel},
+                              "ms_per_frame_card_f32": time_cuda(
+                                  lambda: r((pts, faces), cams, *args[mode]), 1)}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    # gradient of an image loss with respect to the vertices, card vs CPU
+    gv, gf = droplet_mesh((16, 16, 16))
+    grads = []
+    for where in (dev, "cpu"):
+        cams, pts, args = dibr_inputs(gv, where, torch.float64)
+        w = torch.as_tensor(np.random.default_rng(8).normal(size=(1, 64, 64, 3)),
+                            device=where)
+        pts.requires_grad_(True)
+        img, prob, _ = dibr.Renderer(64, 64)((pts, gf), cams, *args["VertexColor"])
+        (torch.sum(img * w) + torch.sum(prob * w[..., :1])).backward()
+        grads.append(pts.grad.cpu())
+    rel = float((grads[0] - grads[1]).abs().max() / grads[1].abs().max())
+    out["vertex_grad"] = {"faces": len(gf), "image": 64, "rel": rel,
+                          "max_abs": float(grads[1].abs().max())}
+    check(rel <= DIBR_GRAD_REL and float(grads[1].abs().max()) > 0,
+          f"dibr: vertex gradient card vs CPU {out['vertex_grad']}")
+    # a frame of the 130^3 droplet's interface on the card
+    bv, bf = droplet_mesh(big)
+    cams, pts, args = dibr_inputs(bv, dev, torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    r = dibr.Renderer(image, image)
+    out["droplet_130"] = {"faces": len(bf), "ms_per_frame_card_f32": time_cuda(
+        lambda: r((pts, bf), cams, *args["VertexColor"]), 1, warm=0),
+        "peak_bytes_f32": torch.cuda.max_memory_allocated() - base}
+    del pts, args, cams
+    # voxelize the Rosensweig interface at 128^3, card vs CPU
+    params, st = rosensweig_3d(device="cpu")
+    rres = tuple(st.rho.shape[2:])
+    rv, rf = phi_to_mesh(phi_from_density(st.density, params.density_gas,
+                                          params.density_fluid), rres)
+    tri = (rv[rf] + 1.0) / 2.0
+    grids, ms = [], {}
+    for where in (dev, "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grids.append(voxelize(torch.as_tensor(tri[None], device=where), 128,
+                              normalize=True).cpu())
+        torch.cuda.synchronize()
+        ms["card" if where == dev else "cpu"] = (time.perf_counter() - t0) * 1e3
+    equal = bool(torch.equal(grids[0], grids[1]))
+    out["voxelize"] = {"res": list(rres), "faces": len(rf), "voxel_size": 128,
+                       "solid": int(grids[1].sum()), "equal": equal, "ms": ms}
+    check(equal and int(grids[1].sum()) > 0, f"voxelize: card vs CPU {out['voxelize']}")
+    # texture atlases, card vs CPU
+    rng = np.random.default_rng(13)
+    img = rng.uniform(0, 1, (256, 256, 3)).astype(np.float32)
+    fuv = rng.uniform(0, 1, (len(faces), 3, 2)).astype(np.float32)
+    upd = rng.uniform(size=len(faces)) > 0.2
+    tex = [load_textures(torch.as_tensor(img, device=where), torch.as_tensor(fuv, device=where),
+                         4, torch.as_tensor(upd, device=where)).cpu() for where in (dev, "cpu")]
+    err = float((tex[0] - tex[1]).abs().max())
+    out["load_textures"] = {"faces": len(faces), "texture_res": 4, "max_abs": err,
+                            "bar": TEX_ABS}
+    check(err <= TEX_ABS, f"load_textures: card vs CPU {err}")
+    emit(dict(out, ok=True))
+
+
+def phase_native(card):
+    """The port's native library: its build time (a fresh build into a
+    temporary directory) and marching tetrahedra at 130x66x130 on the
+    Rosensweig interface's volume (the one ``phi_to_mesh`` extracts):
+    native against the numpy path, the triangle sets within
+    ``TRI_NATIVE`` (``triangle_set_distance`` on the card), ms of each."""
+    import tempfile
+
+    import torch
+
+    from lbm_ferrofluid_tpu_torch import native
+    from lbm_ferrofluid_tpu_torch.models import rosensweig_3d
+    from lbm_ferrofluid_tpu_torch.ops.moments import phi_from_density
+    from lbm_ferrofluid_tpu_torch.render.mesh import marching_tetrahedra_numpy
+
+    out = {"phase": "native", "card": card}
+    saved = native.BUILD_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        native.BUILD_DIR = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        native.build()
+        out["build_seconds"] = time.perf_counter() - t0
+    native.BUILD_DIR = saved
+    check(native.available(), "native: the library did not build")
+    params, st = rosensweig_3d(device="cpu")
+    res = tuple(st.rho.shape[2:])
+    phi = phi_from_density(st.density, params.density_gas, params.density_fluid).numpy()
+    closed = np.pad(phi[..., 1:-1, 1:-1, 1:-1], [(0, 0)] * 2 + [(1, 1)] * 3,
+                    constant_values=float(phi.max()))
+    vol = -closed[0, 0] * (2.0 / max(res))
+    ms, meshes = {}, {}
+    for name, fn in (("numpy", marching_tetrahedra_numpy),
+                     ("native", native.marching_tetrahedra_native)):
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            meshes[name] = fn(vol, 0.0)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = min(times)
+    (vn, fn_), (vc, fc) = meshes["numpy"], meshes["native"]
+    dist = triangle_set_distance(torch.as_tensor(vc[fc], device="cuda"),
+                                 torch.as_tensor(vn[fn_], device="cuda"))
+    out.update(res=list(res), faces={"numpy": len(fn_), "native": len(fc)}, ms=ms,
+               speedup=ms["numpy"] / ms["native"], set_distance=dist, bar=TRI_NATIVE)
+    check(len(fc) == len(fn_) > 0 and dist <= TRI_NATIVE, f"native: {out}")
+    emit(dict(out, ok=True))
+
+
+#: how far the native and numpy triangle sets may lie apart (float32
+#: volume against float64)
+TRI_NATIVE = 1e-5
+
+
+def phase_inverse(dev, kernels_pkg, card, grids=((24, 24), (130, 130))):
+    """The inverse-design driver on the card at its default 24x24 and at
+    the 2D demos' 130x130 (4 steps, 40 Adam iterations, lr 0.02): the loss
+    curve, ms an iteration, and a fall of at least 2x; no kernel launches
+    (2D steps run plain PyTorch ops)."""
+    import tempfile
+
+    from lbm_ferrofluid_tpu_torch.demo import demo_inverse_design as demo
+
+    out = {"phase": "inverse", "card": card, "runs": {}}
+    kernels_pkg.reset_launch_counts()
+    for res in grids:
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                r = demo.main(["--res", *map(str, res), "--out_dir", tmp])
+            except SystemExit as e:
+                raise CheckFailed(f"inverse {res}: {e}") from None
+            pngs = sorted(p.name for p in pathlib.Path(tmp).glob("*.png"))
+        losses = r["losses"]
+        out["runs"]["x".join(map(str, res))] = {
+            "losses": losses, "final": r["final"], "fall": losses[0] / r["final"],
+            "ms_per_iter": r["seconds"] / len(losses) * 1e3, "pngs": pngs}
+        check(r["final"] < 0.5 * losses[0] and len(pngs) == 3, f"inverse {res}: {r}")
+    launches = kernels_pkg.launch_counts()
+    check(not any(launches.values()), f"inverse: kernels launched {launches}")
+    emit(dict(out, ok=True))
+
+
 def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     """Phases 3-8; returns one row per kernel for the ``kernels`` line, and
     one per bfloat16 form.  ``launches`` sums the kernel's launches over
@@ -3280,6 +3709,7 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     spike run."""
     K = kernels_pkg.KERNELS
     worst = phase_kernels(dev, K)
+    phase_grad_guard(dev, kernels_pkg)
     phase_golden(dev)
     phase_small_grid(dev, kernels_pkg)
     per_path = [phase_main(dev, kernels_pkg, smi), phase_hcz_main(dev, kernels_pkg, smi),
@@ -3287,9 +3717,13 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
                 phase_channel_main(dev, kernels_pkg, smi),
                 phase_uncarried_main(dev, kernels_pkg, smi),
                 phase_epilogue_main(dev, kernels_pkg, smi),
-                phase_stencils_main(dev, kernels_pkg, smi)]
+                phase_stencils_main(dev, kernels_pkg, smi),
+                phase_compat(dev, kernels_pkg, smi)]
     spikes, spikes16 = phase_spikes(dev, kernels_pkg, smi)
     per_path += [spikes, phase_demo(dev, kernels_pkg, smi), phase_demos(dev, kernels_pkg, smi)]
+    phase_dibr(dev, smi)
+    phase_native(smi)
+    phase_inverse(dev, kernels_pkg, smi)
     phase_golden_2d(dev)
     sp_launches, sp_b8a = phase_singlephase_3d(dev, kernels_pkg, smi)
     per_path.append(sp_launches)
@@ -3333,9 +3767,31 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     } for kid in kernels_pkg.BF16_FORMS]
 
 
+def phase_step_time(dev, card, repeats=5):
+    """ms a step of the native Rosensweig 130x66x130 (the capillogue steady
+    state with the scalar carry, the main path): ``repeats`` timed runs of
+    200 steps after priming and 20 warm steps, in the package that
+    ``lbm_ferrofluid_tpu_torch`` imports from (``--step-time ROOT``: a
+    checkout at ROOT, for an A/B of two trees in one call)."""
+    import lbm_ferrofluid_tpu_torch
+    from lbm_ferrofluid_tpu_torch.models import SimulationRunner, ferrofluid_step, rosensweig_3d
+
+    params, s0 = rosensweig_3d(device=dev)
+    _, stats = SimulationRunner(params, ferrofluid_step, device=dev).benchmark(
+        s0, n_steps=200, warmup=20, repeats=repeats)
+    emit({"phase": "step_time", "package": lbm_ferrofluid_tpu_torch.__file__,
+          "res": list(stats["res"]), "ms_per_step": stats["seconds"] / 200 * 1e3,
+          "ms_per_step_all": [t / 200 * 1e3 for t in stats["seconds_all"]],
+          "mlups": stats["mlups"], "card": card, "ok": True})
+
+
 def main() -> int:
     import torch
 
+    if "--step-time" in sys.argv[1:]:
+        at = sys.argv.index("--step-time") + 1
+        if at < len(sys.argv) and not sys.argv[at].startswith("--"):
+            sys.path.insert(0, str(pathlib.Path(sys.argv[at]).resolve()))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA card is required",
               file=sys.stderr)
@@ -3377,6 +3833,20 @@ def main() -> int:
     elif "--demo" in sys.argv[1:]:
         phase_demo(dev, kernels_pkg, smi)
         phase_demos(dev, kernels_pkg, smi)
+        print(smi, flush=True)
+    elif "--step-time" in sys.argv[1:]:
+        phase_step_time(dev, smi)
+        print(smi, flush=True)
+    elif {"--compat", "--dibr", "--native", "--inverse"} & set(sys.argv[1:]):
+        if "--compat" in sys.argv[1:]:
+            phase_grad_guard(dev, kernels_pkg)
+            phase_compat(dev, kernels_pkg, smi)
+        if "--dibr" in sys.argv[1:]:
+            phase_dibr(dev, smi)
+        if "--native" in sys.argv[1:]:
+            phase_native(smi)
+        if "--inverse" in sys.argv[1:]:
+            phase_inverse(dev, kernels_pkg, smi)
         print(smi, flush=True)
     else:
         rows = run_phases(dev, kernels_pkg, smi, ptxas)

@@ -125,7 +125,8 @@ KERNELS = {
 #: on the carried steady state with the scalar tau == 1 solve (B1) or the
 #: channel-form solve (B11b + B10a); the un-carried step (an unprimed state,
 #: here in channel form); the epilogue steady state (a 5-leaf premac, here
-#: with the scalar carry); the HCZ step; the capillary stage's stencil route
+#: with the scalar carry); the HCZ step; the capillary stage's stencil route;
+#: the reference-style 3D HCZ loop through ``compat.py``, op by op
 PATHS = {
     "ferrofluid": ("B1", "B2", "B3", "B4"),
     "hcz": ("B2", "B6", "B8a", "B8b", "B9"),
@@ -134,6 +135,7 @@ PATHS = {
     "ferrofluid_epilogue": ("B1", "B2", "B6", "B5"),
     "capillary_stencils": ("B10b", "B10a"),
     "singlephase3d": ("B8a",),
+    "compat3d": ("B2", "B10b", "B10a", "B9"),
 }
 
 

@@ -26,8 +26,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "call", "ptr", "stream_of", "check_cuda", "count_launch", "STORAGE",
-           "elem_bytes"]
+__all__ = ["build", "call", "ptr", "stream_of", "check_cuda", "check_no_grad", "count_launch",
+           "STORAGE", "elem_bytes"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -139,6 +139,20 @@ def check_cuda(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise where autograd would record a launch of the kernel ``name``:
+    grad is enabled and one of ``tensors`` (None allowed) requires it.
+    The kernels run outside autograd (ctypes), so their outputs carry no
+    ``grad_fn``: a loss taken through them would silently leave out their
+    part of the gradient.  The plain versions stay differentiable."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the CUDA kernel has no backward; "
+            "for gradients step on the plain PyTorch versions (plain=True, or "
+            "device='cpu'), as the JAX package's use_pallas=False"
+        )
 
 
 def count_launch(wrapper, bf16: bool) -> None:

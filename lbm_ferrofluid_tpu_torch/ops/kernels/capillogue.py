@@ -44,7 +44,8 @@ from ..collide import MU0, hcz_capillary, hcz_collide
 from ..magnetic import poisson_rhs_scaled
 from ..moments import phi_from_density
 from ..stream import bounce_back, stream
-from ._lib import STORAGE, call, check_cuda, count_launch, elem_bytes, ptr, stream_of
+from ._lib import (STORAGE, call, check_cuda, check_no_grad, count_launch, elem_bytes, ptr,
+                   stream_of)
 from .fused_step import cost as prologue_cost
 from .fused_step import lbm_prologue_plain, stream_macro_launch
 
@@ -137,6 +138,8 @@ def lbm_capillogue(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2,
             f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2, g_sum,
             g_mom, vel_old, magnetic_flags, **kw,
         )
+    check_no_grad("lbm_capillogue", f, g, rho_pre, density_pre, pressure_old, rho_ca, H2,
+                  g_sum, g_mom, vel_old)
     B, Q, Z, Y, X = f.shape
     scalar = (1, 1, Z, Y, X)
     for name, t in (("rho_pre", rho_pre), ("density_pre", density_pre),

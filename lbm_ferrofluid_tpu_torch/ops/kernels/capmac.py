@@ -30,7 +30,7 @@ import torch
 
 from ...utils.types import CellType
 from ..collide import MU0, hcz_capillary
-from ._lib import call, check_cuda, ptr, stream_of
+from ._lib import call, check_cuda, check_no_grad, ptr, stream_of
 
 __all__ = [
     "hcz_capillary_gradmac", "hcz_capillary_gradmac_plain", "cost", "plan", "CapPlan",
@@ -152,6 +152,8 @@ def hcz_capillary_gradmac(rho_pre, density_pre, pressure, rho_ca, H2, phi, flags
     if rho_pre.device.type == "cpu":
         return hcz_capillary_gradmac_plain(rho_pre, density_pre, pressure, rho_ca, H2, phi,
                                            flags, g_sum, g_mom, vel_old, **kw)
+    check_no_grad("hcz_capillary_gradmac", rho_pre, density_pre, pressure, rho_ca, H2, phi,
+                  g_sum, g_mom, vel_old)
     if (H2 is None) != (phi is None):
         raise ValueError("hcz_capillary_gradmac: give H2 and phi together, or neither")
     B, C, Z, Y, X = rho_pre.shape

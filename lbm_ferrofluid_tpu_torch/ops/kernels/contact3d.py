@@ -24,7 +24,7 @@ import torch
 
 from ...utils.types import CellType
 from ..collide import contact_angle_boundary
-from ._lib import call, check_cuda, ptr, stream_of
+from ._lib import call, check_cuda, check_no_grad, ptr, stream_of
 
 __all__ = ["contact_angle_3d", "contact_angle_3d_plain", "cost", "N_LAUNCHES"]
 
@@ -61,6 +61,7 @@ def contact_angle_3d(rho, flags, contact_angle):
     kernel; anything else raises.  ``rho`` is not modified."""
     if rho.device.type == "cpu":
         return contact_angle_3d_plain(rho, flags, contact_angle)
+    check_no_grad("contact_angle_3d", rho)
     B, C, Z, Y, X = rho.shape
     check_cuda("rho", rho, torch.float32, (1, 1, Z, Y, X))
     check_cuda("flags", flags, torch.uint8, (1, 1, Z, Y, X))

@@ -48,7 +48,8 @@ from ...lattice import D3Q19
 from ...utils.types import CellType
 from ..collide import hcz_collide
 from ..stream import bounce_back, stream, stream_bounce_macro, stream_bounce_moments
-from ._lib import STORAGE, call, check_cuda, count_launch, elem_bytes, ptr, stream_of
+from ._lib import (STORAGE, call, check_cuda, check_no_grad, count_launch, elem_bytes, ptr,
+                   stream_of)
 
 __all__ = [
     "lbm_prologue", "lbm_prologue_plain", "cost", "stream_macro_launch",
@@ -174,6 +175,7 @@ def lbm_prologue(f, g, flags, rho_old, vel_old, *, c, rho_gas, rho_fluid,
             f, g, flags, rho_old, vel_old, c=c, rho_gas=rho_gas, rho_fluid=rho_fluid,
             density_gas=density_gas, density_fluid=density_fluid,
         )
+    check_no_grad("lbm_prologue", f, g, rho_old, vel_old)
     out = stream_macro_launch(
         f, g, flags, rho_old, vel_old, (c, rho_gas, rho_fluid, density_gas, density_fluid),
     )
@@ -239,6 +241,7 @@ def lbm_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, *
     if f.device.type == "cpu":
         return lbm_epilogue_plain(f, g, flags, rho, vel, density, pressure, force, dfai,
                                   dprho, **kw)
+    check_no_grad("lbm_epilogue", f, g, rho, vel, density, pressure, force, dfai, dprho)
     B, Q, Z, Y, X = f.shape
     check_cuda("f", f, STORAGE, (1, 19, Z, Y, X))
     check_cuda("g", g, (f.dtype,), (1, 19, Z, Y, X))

@@ -24,7 +24,8 @@ import torch
 from ...lattice import D3Q19
 from ...utils.types import CellType
 from ..collide import hcz_collide
-from ._lib import STORAGE, call, check_cuda, count_launch, elem_bytes, ptr, stream_of
+from ._lib import (STORAGE, call, check_cuda, check_no_grad, count_launch, elem_bytes, ptr,
+                   stream_of)
 
 __all__ = ["hcz_collide_fused", "hcz_collide_fused_plain", "cost"]
 
@@ -64,6 +65,7 @@ def hcz_collide_fused(f, g, rho, vel, density, pressure, flags, force, dfai, dpr
     if f.device.type == "cpu":
         return hcz_collide_fused_plain(f, g, rho, vel, density, pressure, flags, force,
                                        dfai, dprho, tau_f=tau_f, tau_g=tau_g, dx=dx, dt=dt)
+    check_no_grad("hcz_collide_fused", f, g, rho, vel, density, pressure, force, dfai, dprho)
     B, Q, Z, Y, X = f.shape
     check_cuda("f", f, STORAGE, (1, 19, Z, Y, X))
     check_cuda("g", g, (f.dtype,), (1, 19, Z, Y, X))

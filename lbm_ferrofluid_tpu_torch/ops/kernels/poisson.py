@@ -42,7 +42,8 @@ import torch
 from ...lattice import D3Q19
 from ...utils.types import CellType, widen
 from ..stream import stream
-from ._lib import STORAGE, call, check_cuda, count_launch, elem_bytes, ptr, stream_of
+from ._lib import (STORAGE, call, check_cuda, check_no_grad, count_launch, elem_bytes, ptr,
+                   stream_of)
 
 __all__ = [
     "PoissonPlan",
@@ -260,6 +261,7 @@ def poisson_sweeps(h, magnetic_flags, rhs_scaled, *, tau, n_iters):
     """
     if h.device.type == "cpu":
         return poisson_sweeps_plain(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters)
+    check_no_grad("poisson_sweeps", h, rhs_scaled)
     B, Q, Z, Y, X = h.shape
     check_cuda("h", h, STORAGE, (1, 19, Z, Y, X))
     check_cuda("magnetic_flags", magnetic_flags, torch.uint8, (1, 1, Z, Y, X))

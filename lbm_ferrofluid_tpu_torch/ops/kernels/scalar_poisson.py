@@ -30,7 +30,7 @@ import torch
 from ...utils.types import CellType
 from ..magnetic import maybe_h2
 from ..stencils import isotropic_grad
-from ._lib import call, check_cuda, ptr, stream_of
+from ._lib import call, check_cuda, check_no_grad, ptr, stream_of
 
 __all__ = [
     "ScalarPlan",
@@ -208,6 +208,7 @@ def scalar_wavefront(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext):
         return scalar_wavefront_plain(
             s2, cmask, rhs_scaled, n_iters=n_iters, dx=dx, h_ext=h_ext
         )
+    check_no_grad("scalar_wavefront", s2, cmask, rhs_scaled)
     B, C, Z, Y, X = s2.shape
     check_cuda("s2", s2, torch.float32, (1, 2, Z, Y, X))
     check_cuda("cmask", cmask, torch.float32, (1, 1, Z, Y, X))

@@ -39,7 +39,7 @@ import torch
 from ..collide import MU0, capillary_potentials, chi_of_phi, recover_macros
 from ..moments import rho_to_density
 from ..stencils import grad_ring_replicate, isotropic_laplacian, substitute_obstacles
-from ._lib import call, check_cuda, ptr, stream_of
+from ._lib import call, check_cuda, check_no_grad, ptr, stream_of
 
 __all__ = [
     "grad_fields", "grad_fields_plain", "cost", "laplacian_field", "laplacian_field_plain",
@@ -158,6 +158,7 @@ def grad_fields(fields, *, dx=1.0):
     times; anything else raises.  The input is not modified."""
     if fields.device.type == "cpu":
         return grad_fields_plain(fields, dx=dx)
+    check_no_grad("grad_fields", fields)
     B, n_fields, Z, Y, X = fields.shape
     check_cuda("fields", fields, torch.float32, (1, n_fields, Z, Y, X))
     if min(Z, Y, X) < grad_fields.min_axis or n_fields < 1:
@@ -200,6 +201,7 @@ def laplacian_field(field, *, dx=1.0):
     kernel; anything else raises.  The input is not modified."""
     if field.device.type == "cpu":
         return laplacian_field_plain(field, dx=dx)
+    check_no_grad("laplacian_field", field)
     B, C, Z, Y, X = field.shape
     check_cuda("field", field, torch.float32, (1, 1, Z, Y, X))
     if min(Z, Y, X) < laplacian_field.min_axis:

@@ -29,7 +29,8 @@ from ...lattice import D3Q19
 from ...utils.types import CellType
 from ..stream import stream_bounce_macro as _macro_plain
 from ..stream import stream_bounce_moments as _moments_plain
-from ._lib import STORAGE, call, check_cuda, count_launch, elem_bytes, ptr, stream_of
+from ._lib import (STORAGE, call, check_cuda, check_no_grad, count_launch, elem_bytes, ptr,
+                   stream_of)
 
 __all__ = [
     "stream_bounce_moments", "stream_bounce_moments_plain", "stream_bounce_macro",
@@ -88,6 +89,7 @@ def stream_bounce_moments(f, flags):
     raises."""
     if f.device.type == "cpu":
         return stream_bounce_moments_plain(f, flags)
+    check_no_grad("stream_bounce_moments", f)
     Z, Y, X = _check(f, flags)
     bf16 = f.dtype == torch.bfloat16
     f_post = torch.empty_like(f)
@@ -110,6 +112,7 @@ def stream_bounce_macro(f, flags, rho_old, vel_old, *, c, rho_gas, rho_fluid,
             f, flags, rho_old, vel_old, c=c, rho_gas=rho_gas, rho_fluid=rho_fluid,
             density_gas=density_gas, density_fluid=density_fluid,
         )
+    check_no_grad("stream_bounce_macro", f, rho_old, vel_old)
     Z, Y, X = _check(f, flags)
     check_cuda("rho_old", rho_old, torch.float32, (1, 1, Z, Y, X))
     check_cuda("vel_old", vel_old, torch.float32, (1, 3, Z, Y, X))

@@ -1,9 +1,11 @@
 """Rendering: the soft rasterizer and isosurface extraction.
 
-Port of the part of ``lbm_ferrofluid_tpu/render/`` that the demos use:
-host marching tetrahedra and classic marching cubes (numpy), on-device
-marching tetrahedra (``mesh_torch``), the camera and lighting, the soft
-rasterizer and ``SoftRenderer``, and the phi -> mesh -> frame helpers.
+Port of ``lbm_ferrofluid_tpu/render/``: host marching tetrahedra (the
+native C++ extractor where it builds, else numpy) and classic marching
+cubes, on-device marching tetrahedra (``mesh_torch``), the camera and
+lighting, the soft rasterizer and ``SoftRenderer``, the phi -> mesh ->
+frame helpers, and the second (DIB-R) render stack: ``dibr``,
+``load_textures``, ``voxelize`` and ``meshutils``.
 The renderer's entry points run on the card unless given
 ``device="cpu"``; ``render_phi_frame`` runs on its phi's device.
 """
@@ -17,6 +19,7 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.io import as_numpy, write_png
+from . import dibr
 from .camera import eye_from_angles, look, look_at, perspective_distortion, vertices_to_faces
 from .lighting import (
     apply_ambient_light,
@@ -28,6 +31,8 @@ from .mesh import marching_cubes, marching_tetrahedra
 from .mesh_torch import marching_tetrahedra_torch, phi_to_mesh_torch
 from .renderer import SoftRenderer
 from .softras import soft_rasterize
+from .texture import load_textures
+from .voxelize import voxelize
 
 __all__ = [
     "SoftRenderer",
@@ -44,6 +49,9 @@ __all__ = [
     "marching_cubes",
     "marching_tetrahedra",
     "marching_tetrahedra_torch",
+    "dibr",
+    "load_textures",
+    "voxelize",
     "phi_to_mesh_torch",
     "phi_to_mesh",
     "render_phi_frame",

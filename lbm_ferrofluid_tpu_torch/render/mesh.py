@@ -1,7 +1,11 @@
-"""Isosurface extraction: vectorized marching tetrahedra (host-side numpy).
+"""Isosurface extraction on the host: marching tetrahedra (native C++ or numpy).
 
-The port's own copy of ``lbm_ferrofluid_tpu/render/mesh.py`` (its numpy
-path; the JAX package's native C++ twin is not ported).  It plays the role
+The port's own copy of ``lbm_ferrofluid_tpu/render/mesh.py``: the native
+C++ extractor (``native/``, built at first use) where a C++ compiler
+exists, as the JAX package takes its native twin where it is built, and
+the numpy path (:func:`marching_tetrahedra_numpy`, the plain version the
+native one is held against; the same triangle set, in another order, with
+vertices rounded through float32 volumes).  It plays the role
 of PyMCubes in the reference render path (src/LBM/utils/io.py:59-61):
 extract a triangle mesh of ``volume == level``.  Marching tetrahedra (each
 cell split into 6 tets around the main diagonal) gives a watertight
@@ -17,7 +21,9 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["marching_tetrahedra", "marching_cubes"]
+from .. import native
+
+__all__ = ["marching_tetrahedra", "marching_tetrahedra_numpy", "marching_cubes"]
 
 # cube corners as (di, dj, dk), index = di*4 + dj*2 + dk
 _CORNERS = np.array(
@@ -70,7 +76,17 @@ _TABLE = _case_table()
 
 
 def marching_tetrahedra(volume: np.ndarray, level: float = 0.0):
-    """Extract the ``volume == level`` isosurface.
+    """Extract the ``volume == level`` isosurface: the native extractor
+    where it builds (``native.available()``), else
+    :func:`marching_tetrahedra_numpy`.  Returns (verts ``[N, 3]`` float32
+    in index coords, faces ``[M, 3]`` int64)."""
+    if native.available():
+        return native.marching_tetrahedra_native(np.asarray(volume), level)
+    return marching_tetrahedra_numpy(volume, level)
+
+
+def marching_tetrahedra_numpy(volume: np.ndarray, level: float = 0.0):
+    """Extract the ``volume == level`` isosurface, vectorized in numpy.
 
     Args:
         volume: ``[D, H, W]`` scalar field.

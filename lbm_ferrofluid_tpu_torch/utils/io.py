@@ -6,8 +6,11 @@ vertical flip and a z-mean projection for 3D fields, 1-indexed OBJ meshes,
 Tecplot POINT-format .plt files.  Inputs are tensors (on any device, in
 any float type; bfloat16 is widened exactly to float32) or numpy arrays.
 PNGs are written by :func:`write_png`, a small encoder on ``zlib`` and
-``struct``, so no imaging package is needed.  The Tecplot writers are the
-numpy form of the JAX package's; its native C++ writers are not ported.
+``struct``, so no imaging package is needed.  The Tecplot writers take the
+native C++ writers (``native/``, built at first use) where a C++ compiler
+exists, as the JAX package's take its native twin where it is built, else
+their Python loops (values as Python prints them; the native ones print
+``%g``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import zlib
 
 import numpy as np
 import torch
+
+from .. import native
 
 __all__ = ["save_img", "export_obj", "dump_2d_plt", "dump_3d_plt", "mkdir",
            "write_png", "read_png", "as_numpy"]
@@ -122,6 +127,9 @@ def dump_2d_plt(filename: str, density, uv, batch: int = 0) -> None:
     """Tecplot ASCII dump, matching io.py:107-121 field for field."""
     density = as_numpy(density)
     uv = as_numpy(uv)
+    if native.available():
+        native.dump_2d_plt_native(filename, density[batch, 0], uv[batch, 0], uv[batch, 1])
+        return
     H, W = density.shape[-2:]
     with open(filename, "w") as fo:
         fo.write('TITLE ="Magnetic internal force"\n')
@@ -144,6 +152,10 @@ def dump_3d_plt(filename: str, density, u, v, w, batch: int = 0, chan: int = 0) 
     u = 0.5 * (u[..., 1:] + u[..., :-1])
     v = 0.5 * (v[..., 1:, :] + v[..., :-1, :])
     w = 0.5 * (w[..., 1:, :, :] + w[..., :-1, :, :])
+    if native.available():
+        native.dump_3d_plt_native(filename, density[batch, chan], u[batch, chan],
+                                  v[batch, chan], w[batch, chan])
+        return
     with open(filename, "w") as fo:
         fo.write('TITLE ="Magnetic internal force"\n')
         fo.write('VARIABLES = "X" "Y" "Z" "RHO" "U" "V" "W" \n')

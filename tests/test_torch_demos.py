@@ -136,8 +136,10 @@ def test_demo_matches_jax(tmp_path, name):
 
 def test_rosensweig_demo_matches_jax(tmp_path, monkeypatch):
     import lbm_ferrofluid_tpu.native as native
+    import lbm_ferrofluid_tpu_torch.native as tnative
 
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     mod = importlib.import_module("lbm_ferrofluid_tpu_torch.demo.demo_3d_LBM_Rosensweig_instability")
     state, out = _run_port("demo_3d_LBM_Rosensweig_instability", RES3, tmp_path,
                            "--image_size", "16")
@@ -169,8 +171,10 @@ def test_two_droplets_plt_at_step_400(tmp_path, monkeypatch):
     """The 2D two-droplets frame function dumps Tecplot at step 400, byte
     for byte as the JAX driver's (its numpy writer)."""
     import lbm_ferrofluid_tpu.native as native
+    import lbm_ferrofluid_tpu_torch.native as tnative
 
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     from lbm_ferrofluid_tpu_torch.demo import demo_2d_LBM_two_droplets as port
 
     jp, js = jscenes.two_droplets_2d((16, 32))

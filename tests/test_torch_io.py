@@ -1,7 +1,7 @@
 """The port's artifact IO (``lbm_ferrofluid_tpu_torch/utils/io.py``) against
 the JAX package's (``lbm_ferrofluid_tpu/utils/io.py``): PNG pixels bit for
 bit (decoded with PIL), OBJ and Tecplot files byte for byte against the
-JAX writers' numpy branch (its native writers disabled), and the port's own
+JAX writers' numpy branch (both packages' native writers disabled), and the port's own
 PNG reader and writer."""
 
 import numpy as np
@@ -25,9 +25,13 @@ def _one_thread():
 
 @pytest.fixture
 def numpy_writers(monkeypatch):
+    """Both packages' Tecplot writers on their Python loops (the native
+    writers print ``%g``)."""
     import lbm_ferrofluid_tpu.native as native
+    import lbm_ferrofluid_tpu_torch.native as tnative
 
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 def _png(path):

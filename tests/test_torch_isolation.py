@@ -7,6 +7,10 @@
   card's machine has no ``ml_dtypes``, which comes here only with JAX),
   nor ``PIL`` or ``imageio`` at module level (the card's machine has
   neither);
+* the modules that have a JAX twin of the same name (the compat facade,
+  the DIB-R stack, the native library, the inverse-design driver) open,
+  load and compile no file under ``lbm_ferrofluid_tpu/`` or the root
+  ``native/`` (an audit hook on a run of each);
 * without CUDA the entry points raise unless ``device="cpu"`` is passed,
   and a kernel wrapper given a tensor that is neither on the CPU nor on the
   card raises instead of running its plain version.
@@ -84,6 +88,62 @@ def test_no_module_level_imaging_imports(path):
             )
 
 
+_AUDITED_RUN = r"""
+import contextlib, math, pathlib, sys, tempfile
+seen = []
+sys.addaudithook(lambda ev, args: seen.append((ev, repr(args)))
+                 if ev in ("open", "ctypes.dlopen", "subprocess.Popen", "os.exec") else None)
+import numpy as np, torch
+from lbm_ferrofluid_tpu_torch import compat, native
+from lbm_ferrofluid_tpu_torch.demo import demo_inverse_design
+from lbm_ferrofluid_tpu_torch.render import dibr, load_textures, meshutils, voxelize
+from lbm_ferrofluid_tpu_torch.utils import io
+tmp = pathlib.Path(tempfile.mkdtemp())
+native.BUILD_DIR = tmp / "native"  # a fresh build: the compiler's command line is seen
+v, f = native.marching_tetrahedra_native(np.random.default_rng(0).normal(size=(5, 6, 7)))
+io.dump_2d_plt(str(tmp / "a.plt"), np.ones((1, 1, 3, 4)), np.ones((1, 2, 3, 4)))
+sp = compat.SimulationParameters(dim=3, simulation_size=(1, 1, 6, 8, 10), Q=19,
+                                 device="cpu")
+run = compat.SimulationRunner(sp)
+coll, macro = run.create_collision_HCZ(), run.create_macro_compute()
+rho = torch.full((1, 1, 6, 8, 10), 0.1); vel = torch.zeros((1, 3, 6, 8, 10))
+fl = torch.ones((1, 1, 6, 8, 10), dtype=torch.uint8)
+p = macro.get_pressure(1.0, 1.0, rho)
+fe = coll.get_feq_(1.0, 1.0, rho, vel)
+g = coll.get_geq_(1.0, 1.0, rho, rho, vel, p, feq=fe)
+out = coll.capillary_process(rho, vel, fl, vel, g=g, density=rho, pressure=p)
+coll.collision(1.0, 1.0, fe, out[0], out[1], out[2], fl, out[4], g=g, pressure=out[3],
+               dfai=out[5], dprho=out[6])
+pts = torch.tensor([[[1., 0, 0], [0, 1, 0], [0, 0, 1], [-1, -1, 0]]], dtype=torch.float64)
+faces = np.asarray([[0, 1, 2], [0, 3, 1]])
+rot, pos = dibr.lookat_camera((0, 0, 3.0), (0, 0, 0), (0, 1, 0))
+cams = (torch.from_numpy(rot).double()[None], torch.from_numpy(pos).double()[None],
+        torch.from_numpy(dibr.perspective_proj_matrix(math.radians(45))).double())
+dibr.Renderer(8, 8)((pts, faces), cams, torch.ones((1, 4, 3), dtype=torch.float64))
+voxelize(pts[:, faces] * 3 + 4, 8)
+load_textures(torch.rand(4, 4, 3), torch.rand(2, 3, 2), 2)
+meshutils.save_mesh(pts[0].numpy(), faces, str(tmp / "m.obj"))
+meshutils.load_obj(str(tmp / "m.obj"))
+with contextlib.suppress(SystemExit):
+    demo_inverse_design.main(["--res", "8", "8", "--steps", "1", "--iters", "1",
+                              "--device", "cpu", "--out_dir", str(tmp / "inv")])
+root = pathlib.Path(sys.argv[1])
+bad = [s for s in seen if str(root / "lbm_ferrofluid_tpu") + "/" in s[1]
+       or str(root / "native") + "/" in s[1] or "build_native" in s[1]]
+assert any(ev == "subprocess.Popen" and "lbmnative.cpp" in a for ev, a in seen), seen
+print(len(seen), bad)
+assert not bad, bad
+"""
+
+
+def test_new_modules_touch_nothing_of_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _AUDITED_RUN, str(ROOT)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def _cpu_state():
     from lbm_ferrofluid_tpu_torch.models import rosensweig_3d
 
@@ -136,6 +196,10 @@ def _entry_points():
         "run_demo": lambda params, state: _driver().run_demo(
             "x", params, state, ferrofluid_step, 1, 1, lambda s, f: None, _UNWRITTEN),
         **{f"demo {name}.main": _demo_main(name) for name in DEMO_NAMES},
+        "compat.SimulationParameters": lambda params, state: _compat().SimulationParameters(
+            dim=3, simulation_size=(1, 1, 6, 8, 10)),
+        "compat.SimulationRunner": lambda params, state: _compat().SimulationRunner(
+            _compat().SimulationParameters(dim=2)),
     }
 
 
@@ -155,6 +219,12 @@ def _driver():
     return _driver
 
 
+def _compat():
+    from lbm_ferrofluid_tpu_torch import compat
+
+    return compat
+
+
 DEMO_NAMES = sorted(p.stem for p in (PKG / "demo").glob("demo_*.py"))
 
 
@@ -163,13 +233,14 @@ def _demo_main(name):
         import importlib
 
         mod = importlib.import_module(f"lbm_ferrofluid_tpu_torch.demo.{name}")
-        mod.main(["--total_steps", "1", "--out_dir", _UNWRITTEN])
+        steps = ["--iters", "1"] if name == "demo_inverse_design" else ["--total_steps", "1"]
+        mod.main([*steps, "--out_dir", _UNWRITTEN])
 
     return run
 
 
 def test_every_demo_is_listed():
-    assert len(DEMO_NAMES) == 12
+    assert len(DEMO_NAMES) == 13
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))

@@ -39,10 +39,13 @@ IMAGE_ABS = 1e-5
 
 @pytest.fixture
 def host_mesh(monkeypatch):
-    """The JAX package's host extractor on its numpy path (no native twin)."""
+    """Both packages' host extractors on their numpy paths (no native twin:
+    it emits the same triangles in another order)."""
     import lbm_ferrofluid_tpu.native as native
+    import lbm_ferrofluid_tpu_torch.native as tnative
 
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 def _volumes():
