@@ -13,6 +13,7 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
     python3 chip_smoke.py --demo           # only the demo drivers (phases 5c demo, demos)
     python3 chip_smoke.py --compat         # only the grad guard and the compat facade
     python3 chip_smoke.py --dibr --native --inverse  # only those phases (any subset)
+    python3 chip_smoke.py --padded         # only the padded transposed layout (66x136x256)
     python3 chip_smoke.py --step-time [ROOT]  # ms a step at 130x66x130 of the
                                            # package at ROOT (default: this checkout)
 
@@ -80,6 +81,15 @@ Phases, each printing one JSON line; any failed check exits non-zero:
      against 30 capillogue steady-state steps;
    - the stencil route in the HCZ step (``multiphase_3d`` 130^3: B8b, B8a,
      B2, B10b, B10a, B9), 30 against 30 plain HCZ steps;
+   - padded: the padded transposed layout (``scenes.rosensweig_3d_tpu``,
+     130x66x130 physical in a 66x136x256 array): B1's psi form, its H2
+     launch on the box and B3's box form against their plain versions
+     (float32, and B3 in bfloat16), timed beside their bounds; 30 padded
+     kernel steps against 30 ``plain=True`` steps through ``phys_view``,
+     then against the native layout after 30 steps; ms a step and MLUPS in
+     array and physical cells; the un-carried padded step (10 against 10);
+     turbo (30 against 30 plain and against float32, as phase 7); and the
+     demo with ``--tpu_layout 1``, 20 steps and a frame (:func:`phase_padded`);
    - compat: the reference's driver API (``compat.py``) op by op on
      ``multiphase_3d`` 130^3, the loop of tests/test_compat.py in 3D: 10
      steps against 10 stencil-route steps (phase 3's bars), 100 more with
@@ -180,8 +190,9 @@ The build phase reports each kernel's registers, static shared memory and
 spills as ptxas gives them.
 
 Then it prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` line (a
-row for every kernel, and one for each bfloat16 form with its launches on
-phase 7's paths) and, last, ``{"ok": true, "device": {...}}``.  Bounds use the H100 SXM peaks of
+row for every kernel, one for each bfloat16 form with its launches on
+phase 7's paths, and one for each of B1's psi and B3's box forms with its
+launches on the padded paths) and, last, ``{"ok": true, "device": {...}}``.  Bounds use the H100 SXM peaks of
 NVIDIA's data sheet: 3.35 TB/s and 67 TFLOP/s float32 (non-tensor), and
 each kernel's ``cost``: the bytes and flops that the call's own inputs need
 (an input read only at some cells counts only there).
@@ -3700,13 +3711,391 @@ def phase_inverse(dev, kernels_pkg, card, grids=((24, 24), (130, 130))):
     emit(dict(out, ok=True))
 
 
+# ---------------------------------------------------------------- padded layout
+#: output names of B3's box form, in return order (force appended last)
+OUTPUTS_B3_BOX = ["f", "g", "vel", "pressure", "density", "mac_rho", "mac_vel", "mac_density",
+                  "mac_m0g", "mac_m1g", "force"]
+#: fields compared through ``phys_view`` after padded steps, and which are vectors
+PADDED_FIELDS = (("f", False), ("g", False), ("h", False), ("rho", False), ("vel", True),
+                 ("density", False), ("pressure", False), ("force", True), ("phi", False))
+
+
+def padded_inputs(seed, dev, bf16=False):
+    """Seeded inputs of B1's psi form, its H2 launch on the box and B3's box
+    form on the padded transposed Rosensweig scene at its full width
+    (130x66x130 physical, 66x136x256 array), as :func:`seeded_inputs`
+    makes them for the plain layout: the scene's macros perturbed, f =
+    feq and g = geq with 0.1 % noise (rounded to bfloat16 with ``bf16``),
+    the carried macros from the plain prologue, rho_ca from the plain
+    contact angle on the box, H2 about mag^2, a seeded scalar carry and
+    source."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid as ff
+    from lbm_ferrofluid_tpu_torch.models import rosensweig_3d_tpu
+    from lbm_ferrofluid_tpu_torch.ops.equilibrium import feq, geq
+    from lbm_ferrofluid_tpu_torch.ops.kernels.fused_step import lbm_prologue_plain
+    from lbm_ferrofluid_tpu_torch.ops.moments import eos_pressure, rho_to_density
+    from lbm_ferrofluid_tpu_torch.ops.scalar_poisson import make_cmask
+
+    params, st = rosensweig_3d_tpu(device=dev)
+    rng = np.random.default_rng(seed)
+    shape = tuple(st.rho.shape)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    fluid = (st.flags == 1).float()
+    mfluid = (st.magnetic_flags == 1).float()
+    gas = dict(rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+               density_gas=params.density_gas, density_fluid=params.density_fluid)
+    rho = st.rho + t(1e-3 * rng.uniform(-1, 1, shape))
+    den = rho_to_density(rho, **gas)
+    vel = t(0.01 * rng.uniform(-1, 1, (1, 3, *shape[2:]))) * fluid
+    pres = eos_pressure(den)
+    f_eq = feq(params.lattice, den, vel)
+    f = f_eq * (1 + t(1e-3 * rng.standard_normal((1, 19, *shape[2:]))))
+    g = geq(params.lattice, rho, den, pres, f_eq) * (
+        1 + t(1e-3 * rng.standard_normal((1, 19, *shape[2:]))))
+    if bf16:
+        f, g = f.to(torch.bfloat16), g.to(torch.bfloat16)
+    rho_pre, vel_pre, den_pre, gsum, gmom = lbm_prologue_plain(
+        f, g, st.flags, rho, vel, c=params.dx / params.dt, **gas)
+    cmask = make_cmask(st.magnetic_flags)
+    return params, dict(
+        flags=st.flags, mflags=st.magnetic_flags, f=f, g=g, pres=pres, rho_pre=rho_pre,
+        vel_pre=vel_pre, den_pre=den_pre, gsum=gsum, gmom=gmom,
+        rho_ca=ff._contact_angle(params, rho_pre, st.flags, plain=True),
+        H2=params.mag_strength ** 2 * (1 + t(0.1 * rng.uniform(-1, 1, shape))),
+        s2=t(rng.standard_normal((1, 2, *shape[2:]))) * mfluid, cmask=cmask,
+        rhs=t(1e-3 * rng.standard_normal(shape)) * mfluid,
+        psi=t(rng.standard_normal(shape)))
+
+
+def padded_calls(params, d):
+    """(wrapper args, kwargs) of B1's psi form and B3's box form at ``d``."""
+    gas = dict(rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+               density_gas=params.density_gas, density_fluid=params.density_fluid)
+    return {
+        "B1": ((d["s2"], d["cmask"], d["rhs"]),
+               dict(n_iters=params.poisson_iters, emit="psi")),
+        "B3": ((d["f"], d["g"], d["flags"], d["rho_pre"], d["den_pre"], d["pres"],
+                d["rho_ca"], d["H2"], d["gsum"], d["gmom"], d["vel_pre"], None),
+               dict(kappa=params.kappa,
+                    gravity=tuple(float(v) for v in params.gravity_vec().reshape(-1)),
+                    tau_f=params.tau_f, tau_g=params.tau_g, dx=params.dx, dt=params.dt,
+                    emit_rhs=None, emit_force=True, bounds=tuple(params.phys_extent[1:]),
+                    **gas)),
+    }
+
+
+def padded_form_rows(K, kid, args, kw, what):
+    """Rows of B1's psi form (s2, psi) or B3's box form against its plain
+    version: float32 at phase 3's bars; in bfloat16 f'/g' within one ulp in
+    a bounded share, the float32 outputs at phase 3's bars, the emission
+    held to the plain prologue on the kernel's own f'/g'."""
+    import torch
+
+    got = K[kid].wrapper(*args, **kw)
+    want = K[kid].plain(*args, **kw)
+    torch.cuda.synchronize()
+    if kid == "B1":
+        return compare(what, ["s2", "psi"], got, want)
+    if got[0].dtype != torch.bfloat16:
+        return compare(what, OUTPUTS_B3_BOX, got, want)
+    names = OUTPUTS_B3_BOX
+    rows = compare_bf16(what, names[:2], got[:2], want[:2])
+    rows.update(compare(what, names[2:5] + names[10:], [*got[2:5], got[6]],
+                        [*want[2:5], want[6]]))
+    c = kw["dx"] / kw["dt"]
+    gas = {n: kw[n] for n in ("rho_gas", "rho_fluid", "density_gas", "density_fluid")}
+    mac = K["B4"].plain(got[0], got[1], args[2], args[6], got[2], c=c, **gas)
+    rows.update(compare(f"{what} (emission on its own f'/g')", names[5:10], got[5], mac))
+    return rows
+
+
+def step_profile(params, state, step, dev, n=5, top=10):
+    """Where a step's device time goes, from ``torch.profiler`` over ``n``
+    steps: the device's busy ms a step, the CUDA kernels a step, and the
+    ``top`` kernels by device time with their ms and launches a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            state = step(params, state, device=dev)
+        torch.cuda.synchronize()
+    rows = [(getattr(e, "self_device_time_total", 0.0) or 0.0, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(reverse=True)
+    return state, {
+        "device_busy_ms": sum(r[0] for r in rows) / n / 1e3,
+        "device_kernels": sum(r[1] for r in rows) / n,
+        "top": [{"kernel": k[:80], "ms": us / n / 1e3, "launches": cnt / n}
+                for us, cnt, k in rows[:top]]}
+
+
+def padded_phys(params, state, fields=PADDED_FIELDS):
+    """The state's fields (and premac leaves) through ``phys_view``."""
+    from lbm_ferrofluid_tpu_torch.models import scenes
+
+    names = [n for n, _ in fields] + [f"premac_{i}" for i in range(len(state.premac or ()))]
+    vals = [scenes.phys_view(params, getattr(state, n), vector=v) for n, v in fields]
+    vals += [scenes.phys_view(params, x, vector=x.shape[1] == 3) for x in state.premac or ()]
+    return names, vals
+
+
+def phase_padded(dev, kernels_pkg, card, steps=30, timed=200):
+    """The padded transposed layout (``scenes.rosensweig_3d_tpu``) at the
+    full width of the native demo, 130x66x130 physical in a 66x136x256
+    array, on the card:
+
+    - forms: B1's psi form (30 sweeps) and B3's box form (``bounds``,
+      ``emit_rhs=None``, ``emit_force``), float32 and bfloat16, and B1's
+      H2 launch on the box copy (``_h2_box``), against their plain versions
+      on seeded inputs at phase 3's bars (bfloat16 as phase 7 holds it),
+      each timed beside its plain version and its bound (``cost``);
+    - the capillogue route, counters zeroed just before and read just
+      after: primed (B4 once, a 5-leaf premac) and ``steps`` kernel steps
+      against ``steps`` ``plain=True`` steps through ``phys_view``, with
+      exact launches a step (B1's psi passes and the H2 launch on the box,
+      B2 on the box, B3's box form without its source launch); then
+      against the port's native 130x66x130 layout after the same
+      ``steps`` (its capillogue steady state), through ``phys_view``;
+    - ``timed`` more steps: ms a step and MLUPS in array and in physical
+      cells (as ``bench.py:run_native_demo`` counts them), beside the
+      native layout's ms a step in the same call;
+    - the un-carried route (premac None: B4, B1, B2 on the box, the plain
+      capillary stage on the box, B5), 10 kernel steps against 10 plain;
+    - turbo (bfloat16 f/g): primed, ``steps`` kernel steps against
+      ``steps`` plain (pointwise after 10 and statistically after
+      ``steps``, as phase 7) and against float32, every f/g kernel in its
+      bfloat16 form;
+    - the demo driver with ``--tpu_layout 1``: 20 steps at 130x66x130
+      with a frame at step 20, its frames and OBJ through ``phys_view``.
+
+    Returns the launches per kernel id of these paths, those of the
+    bfloat16 forms, and the rows of the new forms for the ``kernels`` line."""
+    import pathlib
+    import tempfile
+
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.demo import demo_3d_LBM_Rosensweig_instability as demo
+    from lbm_ferrofluid_tpu_torch.models import (
+        SimulationRunner, ferrofluid_step, prime_premac, rosensweig_3d, rosensweig_3d_tpu,
+        scenes,
+    )
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid as ff
+    from lbm_ferrofluid_tpu_torch.ops.kernels import capillogue as cap_mod
+    from lbm_ferrofluid_tpu_torch.ops.kernels import scalar_poisson as sp_mod
+    from lbm_ferrofluid_tpu_torch.utils.diagnostics import assert_finite
+    from lbm_ferrofluid_tpu_torch.utils.io import read_png
+
+    K = kernels_pkg.KERNELS
+    out = {"phase": "padded", "card": card}
+
+    # the new forms on seeded inputs, float32 and bfloat16
+    forms = {}
+    for bf16 in (False, True):
+        params, d = padded_inputs(14, dev, bf16)
+        calls = padded_calls(params, d)
+        tag = " bf16" if bf16 else ""
+        for kid in ("B1", "B3") if not bf16 else ("B3",):
+            args, kw = calls[kid]
+            per_call = (sp_mod.launches_per_call(params.poisson_iters, d["s2"].shape, "psi")
+                        if kid == "B1" else cap_mod.launches_per_call(None))
+            forms[kid + tag] = measure(K, kid, args, kw, per_call, per_call,
+                                       f"padded {kid}{tag} form", rows=padded_form_rows)
+        if not bf16:
+            psi, cmask = d["psi"], d["cmask"]
+            h2 = ff._h2_box(params, psi, cmask, plain=False)
+            h2_rows = compare("padded B1 H2 on the box", ["H2"], h2,
+                              ff._h2_box(params, psi, cmask, plain=True))
+            box = (ff._to_phys(params, psi), ff._to_phys(params, cmask))
+            h_ext = (0.0, params.mag_strength, 0.0)
+            moved, flops = sp_mod.cost_h2(*box)
+            forms["B1 H2 on the box"] = {
+                "ms": time_cuda(lambda: sp_mod.scalar_h2(*box, params.dx, h_ext), 10),
+                "plain_ms": time_cuda(lambda: sp_mod.h2_from_psi_plain(*box, params.dx,
+                                                                       h_ext), 2),
+                "bound_ms": max(moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
+                "bound_by": ("bytes" if moved / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
+                             else "operations"),
+                "max_abs_err": max(v["max_abs_err"] for v in h2_rows.values()),
+                "max_rel": max(v["rel"] for v in h2_rows.values()),
+                "with_box_copies_ms": time_cuda(lambda: ff._h2_box(params, psi, cmask, False),
+                                                10)}
+        del d, calls
+        torch.cuda.empty_cache()
+    out["forms"] = forms
+
+    params, s0 = rosensweig_3d_tpu(device=dev)
+    pz, py, px = params.phys_extent
+    phys_cells, array_cells = pz * py * px, s0.rho.numel()
+    n = params.poisson_iters
+    b1 = sp_mod.launches_per_call(n, s0.rho.shape, "psi") + 1
+    per_step = {"B1": b1, "B2": K["B2"].module.N_LAUNCHES, "B3": cap_mod.launches_per_call(None)}
+    form_step = {"B1": b1 - 1, "B3": per_step["B3"]}
+    total, total16, total_form, total_form16 = {}, {}, {}, {}
+
+    def count(label, per, steps_run, extra, bf16=False):
+        launches = kernels_pkg.launch_counts()
+        check_launches(label, launches, per, steps_run, extra=extra)
+        fl = kernels_pkg.launch_counts(kernels_pkg.FORMS, form=True)
+        want = {kid: (form_step.get(kid, 0) * steps_run if per.get(kid) else 0) for kid in fl}
+        check(fl == want, f"{label}: form launches {fl}, expected {want}")
+        l16 = kernels_pkg.launch_counts(kernels_pkg.BF16_FORMS, bf16=True)
+        check(all(v == (launches[kid] if bf16 else 0) for kid, v in l16.items()),
+              f"{label}: bfloat16 launches {l16} on {'bf16' if bf16 else 'float32'} storage")
+        for kid, v in launches.items():
+            total[kid] = total.get(kid, 0) + v
+        for kid, v in fl.items():  # B1 runs on the float32 carry in every storage
+            into = total_form16 if bf16 and kid in kernels_pkg.BF16_FORMS else total_form
+            into[kid] = into.get(kid, 0) + v
+        for kid, v in l16.items():
+            total16[kid] = total16.get(kid, 0) + v
+        return {kid: v for kid, v in launches.items() if v}
+
+    # the capillogue route, kernels against plain=True
+    kernels_pkg.reset_launch_counts()
+    sk = prime_premac(params, s0, device=dev)
+    check(len(sk.premac) == 5 and sk.h.shape[1] == 2 and sk.force is not None,
+          "padded: the primed state is not the 5-leaf, scalar-carry form")
+    for _ in range(steps):
+        sk = ferrofluid_step(params, sk, device=dev)
+    torch.cuda.synchronize()
+    out["launches_per_step"] = per_step
+    out["launches_capillogue_route"] = count("padded capillogue route", per_step, steps,
+                                             {"B4": 1})
+    sp = prime_premac(params, s0, device=dev, plain=True)
+    for _ in range(steps):
+        sp = ferrofluid_step(params, sp, device=dev, plain=True)
+    names, got = padded_phys(params, sk)
+    out[f"kernel_vs_plain_after_{steps}_steps"] = compare(
+        "padded capillogue route", names, got, padded_phys(params, sp)[1])
+    assert_finite(sk, fields=vars(sk))
+    del sp
+
+    # against the native layout after the same steps
+    npar, ns0 = rosensweig_3d(device=dev)
+    sn = prime_premac(npar, ns0, device=dev)
+    for _ in range(steps):
+        sn = ferrofluid_step(npar, sn, device=dev)
+    fields = (("rho", False), ("vel", True), ("density", False), ("pressure", False))
+    out[f"padded_vs_native_after_{steps}_steps"] = compare(
+        "padded vs native layout", [n for n, _ in fields],
+        [scenes.phys_view(params, getattr(sk, n), vector=v) for n, v in fields],
+        [getattr(sn, n) for n, _ in fields])
+
+    # ms a step, padded and native in the same call (not counted: no check)
+    _, stats = SimulationRunner(params, ferrofluid_step, device=dev).benchmark(
+        sk, n_steps=timed, warmup=0, repeats=3)
+    _, nstats = SimulationRunner(npar, ferrofluid_step, device=dev).benchmark(
+        sn, n_steps=timed, warmup=0, repeats=3)
+    ms = stats["seconds"] / timed * 1e3
+    _, prof = step_profile(params, sk, ferrofluid_step, dev)
+    _, nprof = step_profile(npar, sn, ferrofluid_step, dev)
+    out["timing"] = {
+        "steps": timed, "repeats": 3, "ms_per_step": ms,
+        "ms_per_step_all": [t / timed * 1e3 for t in stats["seconds_all"]],
+        "mlups_array_cells": array_cells / ms * 1e-3,
+        "mlups_physical_cells": phys_cells / ms * 1e-3,
+        "array_cells": array_cells, "physical_cells": phys_cells,
+        "native_ms_per_step": nstats["seconds"] / timed * 1e3,
+        "native_mlups": nstats["mlups"], "profile": prof, "native_profile": nprof}
+    kernels_pkg.reset_launch_counts()
+    del sk, sn, ns0
+    torch.cuda.empty_cache()
+
+    # the un-carried route
+    kernels_pkg.reset_launch_counts()
+    base = prime_premac(params, s0, device=dev, plain=True).replace(premac=None)
+    sk, su = base, base
+    for _ in range(10):
+        sk = ferrofluid_step(params, sk, device=dev)
+    torch.cuda.synchronize()
+    out["uncarried_launches"] = count("padded un-carried route", {
+        "B4": 1, "B1": b1, "B2": K["B2"].module.N_LAUNCHES, "B5": 1}, 10, {})
+    for _ in range(10):
+        su = ferrofluid_step(params, su, device=dev, plain=True)
+    check(sk.premac is None, "padded un-carried: the state changed form")
+    names, got = padded_phys(params, sk)
+    out["uncarried_kernel_vs_plain_after_10_steps"] = compare(
+        "padded un-carried route", names, got, padded_phys(params, su)[1])
+    del sk, su, base
+    torch.cuda.empty_cache()
+
+    # turbo: bfloat16 f and g (the scalar carry stays float32)
+    p16, s16 = turbo(params, s0, dev)
+    kernels_pkg.reset_launch_counts()
+    sk = prime_premac(p16, s16, device=dev)
+    for i in range(steps):
+        if i == 10:
+            sk10 = sk
+        sk = ferrofluid_step(p16, sk, device=dev)
+    torch.cuda.synchronize()
+    out["bf16_launches"] = count("padded turbo", per_step, steps, {"B4": 1}, bf16=True)
+    sp = prime_premac(p16, s16, device=dev, plain=True)
+    for i in range(steps):
+        if i == 10:
+            sp10 = sp
+        sp = ferrofluid_step(p16, sp, device=dev, plain=True)
+    sf = prime_premac(params, s0, device=dev)
+    for _ in range(steps):
+        sf = ferrofluid_step(params, sf, device=dev)
+    fields = ("f", "g", "rho", "vel", "density", "pressure", "h")
+    out["bf16"] = {
+        "against_plain_after_10_steps": against("padded turbo vs plain at 10 steps", p16,
+                                                sk10, sp10, fields, pointwise=True),
+        f"against_plain_after_{steps}_steps": against("padded turbo vs plain", p16, sk, sp,
+                                                       fields, pointwise=False),
+        f"against_float32_after_{steps}_steps": against("padded turbo vs float32", p16, sk,
+                                                         sf, fields, pointwise=False)}
+    failed = [m for row in out["bf16"].values() for m in row["failed"]]
+    check(not failed, "; ".join(failed))
+    del sk, sp, sf, sk10, sp10, s16
+    torch.cuda.empty_cache()
+
+    # the demo driver with --tpu_layout 1
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels_pkg.reset_launch_counts()
+        t0 = time.perf_counter()
+        st = demo.main(["--tpu_layout", "1", "--total_steps", "20", "--io_interval", "20",
+                        "--out_dir", tmp])
+        torch.cuda.synchronize()
+        demo_s = time.perf_counter() - t0
+        out["demo_launches"] = count("padded demo", per_step, 20, {"B4": 1})
+        frames = sorted(p.name for p in pathlib.Path(tmp).glob("*.png"))
+        obj = pathlib.Path(tmp) / demo.OBJ_NAME
+        check(frames == ["00000.png", "00020.png"] and obj.stat().st_size > 0,
+              f"padded demo: frames {frames}")
+        img = read_png(str(pathlib.Path(tmp) / "00020.png"))
+        check(frame_is_rendered(img), "padded demo: the frame at step 20 is blank")
+        view = scenes.phys_view(params, st.density)
+        check(tuple(view.shape[2:]) == (130, 66, 130) and bool(torch.isfinite(view).all()),
+              "padded demo: the physical view is not the finite 130x66x130 box")
+        out["demo"] = {"steps": 20, "frames": frames, "seconds": demo_s,
+                       "obj_bytes": obj.stat().st_size}
+    out["launches"] = {kid: v for kid, v in total.items() if v}
+    out["launches_bf16_form"] = {kid: v for kid, v in total16.items() if v}
+    out["launches_new_forms"] = {"float32": total_form, "bf16": total_form16}
+    emit(dict(out, finite=True, ok=True))
+    return {"launches": total, "launches16": total16, "forms": forms,
+            "form_launches": total_form, "form_launches16": total_form16}
+
+
 def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
-    """Phases 3-8; returns one row per kernel for the ``kernels`` line, and
-    one per bfloat16 form.  ``launches`` sums the kernel's launches over
-    the main paths of phases 5 and 5c that run it (B2, B3 and B4 over both
-    ferrofluid solves, the spike runs and the demo drivers), and a bfloat16
-    form's its launches over phase 7's bfloat16 main paths and the turbo
-    spike run."""
+    """Phases 3-8; returns one row per kernel for the ``kernels`` line, one
+    per bfloat16 form, and one for each of B1's psi and B3's box forms.
+    ``launches`` sums the kernel's launches over the main paths of phases 5
+    and 5c that run it (B2, B3 and B4 over both ferrofluid solves, the
+    padded paths, the spike runs and the demo drivers), a bfloat16 form's
+    its launches over phase 7's bfloat16 main paths, the padded turbo run
+    and the turbo spike run, and a named form's its launches on the padded
+    paths."""
     K = kernels_pkg.KERNELS
     worst = phase_kernels(dev, K)
     phase_grad_guard(dev, kernels_pkg)
@@ -3719,6 +4108,8 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
                 phase_epilogue_main(dev, kernels_pkg, smi),
                 phase_stencils_main(dev, kernels_pkg, smi),
                 phase_compat(dev, kernels_pkg, smi)]
+    padded = phase_padded(dev, kernels_pkg, smi)
+    per_path.append(padded["launches"])
     spikes, spikes16 = phase_spikes(dev, kernels_pkg, smi)
     per_path += [spikes, phase_demo(dev, kernels_pkg, smi), phase_demos(dev, kernels_pkg, smi)]
     phase_dibr(dev, smi)
@@ -3732,7 +4123,8 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     launches = {kid: sum(p.get(kid, 0) for p in per_path) for kid in K}
     worst16 = phase_kernels_bf16(dev, K)
     launches16 = phase_bf16_main(dev, kernels_pkg, smi)
-    launches16 = {kid: n + spikes16.get(kid, 0) for kid, n in launches16.items()}
+    launches16 = {kid: n + spikes16.get(kid, 0) + padded["launches16"].get(kid, 0)
+                  for kid, n in launches16.items()}
     phase_long_horizon(dev, smi)
     flag = phase_flagship(dev, K, smi)
     flag.update(phase_channel_flagship(dev, K, smi, ptxas))
@@ -3764,7 +4156,16 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
         "ms": flag16[kid]["ms"], "plain_ms": flag16[kid]["plain_ms"],
         "bound_ms": flag16[kid]["bound_ms"], "bound_by": flag16[kid]["bound_by"],
         "library_ms": None,
-    } for kid in kernels_pkg.BF16_FORMS]
+    } for kid in kernels_pkg.BF16_FORMS] + [{
+        "name": f"{kid} {K[kid].wrapper.__name__} {form}", "route": "cuda",
+        "source": K[kid].module.CUDA_SOURCE, "replaces": K[kid].tpu_kernel,
+        "launches": padded[launches_key][kid],
+        **{key: padded["forms"][row][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                                       "bound_ms", "bound_by")},
+        "library_ms": None,
+    } for kid, form, row, launches_key in (
+        ("B1", "psi form", "B1", "form_launches"), ("B3", "box form", "B3", "form_launches"),
+        ("B3", "box form bf16", "B3 bf16", "form_launches16"))]
 
 
 def phase_step_time(dev, card, repeats=5):
@@ -3836,6 +4237,9 @@ def main() -> int:
         print(smi, flush=True)
     elif "--step-time" in sys.argv[1:]:
         phase_step_time(dev, smi)
+        print(smi, flush=True)
+    elif "--padded" in sys.argv[1:]:
+        phase_padded(dev, kernels_pkg, smi)
         print(smi, flush=True)
     elif {"--compat", "--dibr", "--native", "--inverse"} & set(sys.argv[1:]):
         if "--compat" in sys.argv[1:]:

@@ -23,6 +23,19 @@
 //   (d) lbm_cap_rhs: the next step's pre-scaled Poisson source from the
 //       emitted density (it needs the emitted density at the neighbours).
 //
+// The box form (the TPU kernel's bounds=, emit_rhs=None, emit_force=True;
+// models/ferrofluid.py:549-571 of the JAX package) serves an OBSTACLE-padded
+// array whose physical box is [:, :by, :bx] (params.phys_extent), and an
+// out-of-plane field.  The in-plane ring fixes move to the box faces: (a)
+// zeroes the Laplacian at rows 0, by - 1 and columns 0, bx - 1 (and past
+// the box takes it with in-plane reads clamped to the array, as the TPU's
+// shifted reads do), and (b) takes the replicated fai/prho and the
+// obstacle substitutes of lap/chi from rows 1, by - 2 and columns 1,
+// bx - 2 (common.cuh:lbm_box_rep); the gradients' output ring stays at the
+// array faces, as on the TPU.  (b) also writes force, and (d) does not run.
+// With (by, bx) = (Y, X) both launches compute what they compute without
+// the box.
+//
 // Launch (b) carries most of the chain's work.  Its design for Hopper:
 //   - a block owns a 32 x 8 (x, y) tile and walks a strip of CAP_ZB planes
 //     of z, from a 3D grid: no cell divides a 64-bit index;
@@ -68,8 +81,8 @@ __global__ void lbm_cap_derived_kernel(const float* __restrict__ rho_pre,
                                        const float* __restrict__ pres_old,
                                        const float* __restrict__ rho_ca, float* __restrict__ fai,
                                        float* __restrict__ prho, float* __restrict__ chi,
-                                       float* __restrict__ lap, int Z, int Y, int X, double dx,
-                                       double dt, float d6, LbmGas gas) {
+                                       float* __restrict__ lap, int Z, int Y, int X, int by,
+                                       int bx, double dx, double dt, float d6, LbmGas gas) {
   const long long N = static_cast<long long>(Z) * Y * X;
   const long long i = lbm_cell();
   if (i >= N) return;
@@ -82,10 +95,14 @@ __global__ void lbm_cap_derived_kernel(const float* __restrict__ rho_pre,
   prho[i] = pres_old[i] - static_cast<float>(RT) * den_pre[i];
   chi[i] = lbm_chi(den_pre[i], dx, gas.den_gas, gas.dden);
   float l = 0.f;
-  if (z >= 1 && z <= Z - 2 && y >= 1 && y <= Y - 2 && x >= 1 && x <= X - 2) {
+  if (z >= 1 && z <= Z - 2 && y != 0 && y != by - 1 && x != 0 && x != bx - 1) {
+    // in-plane reads clamp at the array faces, which only cells past the box reach
     l = lbm_laplacian(
         [&](int oz, int oy, int ox) {
-          return lbm_density_of(rho_ca[lbm_index(z + oz, y + oy, x + ox, Y, X)], gas);
+          return lbm_density_of(
+              rho_ca[lbm_index(z + oz, lbm_clamp(y + oy, 0, Y - 1), lbm_clamp(x + ox, 0, X - 1),
+                               Y, X)],
+              gas);
         },
         d6);
   }
@@ -94,12 +111,12 @@ __global__ void lbm_cap_derived_kernel(const float* __restrict__ rho_pre,
 
 extern "C" int lbm_cap_derived(const float* rho_pre, const float* den_pre, const float* pres_old,
                                const float* rho_ca, float* fai, float* prho,
-                               float* chi, float* lap, int Z, int Y, int X, double dx, double dt,
-                               double rho_gas, double rho_fluid, double den_gas,
-                               double den_fluid, void* stream) {
+                               float* chi, float* lap, int Z, int Y, int X, int by, int bx,
+                               double dx, double dt, double rho_gas, double rho_fluid,
+                               double den_gas, double den_fluid, void* stream) {
   const long long N = static_cast<long long>(Z) * Y * X;
   lbm_cap_derived_kernel<<<lbm_blocks(N), LBM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      rho_pre, den_pre, pres_old, rho_ca, fai, prho, chi, lap, Z, Y, X, dx, dt,
+      rho_pre, den_pre, pres_old, rho_ca, fai, prho, chi, lap, Z, Y, X, by, bx, dx, dt,
       lbm_f32(6.0 * dx * dx), lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid));
   return static_cast<int>(cudaGetLastError());
 }
@@ -119,7 +136,8 @@ __global__ void __launch_bounds__(CAP_TX* CAP_TY, 2) lbm_cap_collide_kernel(
     const float* __restrict__ fai, const float* __restrict__ prho,
     const float* __restrict__ chi, const float* __restrict__ lap, T* __restrict__ f_out,
     T* __restrict__ g_out, float* __restrict__ vel_out, float* __restrict__ pres_out,
-    float* __restrict__ den_out, int Z, int Y, int X, LbmCapF kc, LbmHczK kh) {
+    float* __restrict__ den_out, float* __restrict__ force_out, int Z, int Y, int X, int by,
+    int bx, LbmCapF kc, LbmHczK kh) {
   // lap, chi, fai, prho of three z planes of the tile and its halo, as the
   // taps read them
   __shared__ float ring[3][4][CAP_EY][CAP_EX];
@@ -131,8 +149,8 @@ __global__ void __launch_bounds__(CAP_TX* CAP_TY, 2) lbm_cap_collide_kernel(
   const LbmCapIn in{flags, rho_ca, h2, gsum, gmom, vel_old, pres_old};
   auto load = [&](int p) {
     float(*dst)[CAP_EY][CAP_EX] = ring[p % 3];
-    lbm_halo_cells<CAP_TX, CAP_TY>(p, x0, y0, Z, Y, X, [&](int ey, int ex, long long n,
-                                                          long long c) {
+    lbm_halo_cells<CAP_TX, CAP_TY>(p, x0, y0, Z, Y, X, by, bx, [&](int ey, int ex, long long n,
+                                                                  long long c) {
       const bool obs = flags[n] == LBM_OBSTACLE;
       dst[0][ey][ex] = lap[obs ? c : n];
       dst[1][ey][ex] = chi[obs ? c : n];
@@ -153,6 +171,10 @@ __global__ void __launch_bounds__(CAP_TX* CAP_TY, 2) lbm_cap_collide_kernel(
     pres_out[i] = o.pres;
 #pragma unroll
     for (int d = 0; d < 3; ++d) vel_out[d * N + i] = o.u[d];
+    if (force_out != nullptr) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) force_out[d * N + i] = o.force[d];
+    }
 
     const bool fluid = o.flag == LBM_FLUID;
     const bool obs = o.flag == LBM_OBSTACLE;
@@ -206,22 +228,25 @@ static void lbm_cap_collide_launch(const void* f, const void* g, const uint8_t* 
                                    const float* gmom, const float* vel_old, const float* pres_old,
                                    const float* fai, const float* prho, const float* chi,
                                    const float* lap, void* f_out, void* g_out, float* vel_out,
-                                   float* pres_out, float* den_out, int Z, int Y, int X,
-                                   const LbmCapF& kc, const LbmHczK& kh, cudaStream_t stream) {
+                                   float* pres_out, float* den_out, float* force_out, int Z,
+                                   int Y, int X, int by, int bx, const LbmCapF& kc,
+                                   const LbmHczK& kh, cudaStream_t stream) {
   const dim3 grid((X + CAP_TX - 1) / CAP_TX, (Y + CAP_TY - 1) / CAP_TY, (Z + CAP_ZB - 1) / CAP_ZB);
   lbm_cap_collide_kernel<T><<<grid, dim3(CAP_TX, CAP_TY), 0, stream>>>(
       static_cast<const T*>(f), static_cast<const T*>(g), flags, rho_ca, h2, gsum, gmom, vel_old,
       pres_old, fai, prho, chi, lap, static_cast<T*>(f_out), static_cast<T*>(g_out), vel_out,
-      pres_out, den_out, Z, Y, X, kc, kh);
+      pres_out, den_out, force_out, Z, Y, X, by, bx, kc, kh);
 }
 
-// f, g, f_out and g_out in float32, or in bfloat16 where bf16 is nonzero
+// f, g, f_out and g_out in float32, or in bfloat16 where bf16 is nonzero;
+// force_out (3 channels) may be null, and then force is not written
 extern "C" int lbm_cap_collide(const void* f, const void* g, const uint8_t* flags,
                                const float* rho_ca, const float* h2, const float* gsum,
                                const float* gmom, const float* vel_old, const float* pres_old,
                                const float* fai, const float* prho, const float* chi,
                                const float* lap, void* f_out, void* g_out, float* vel_out,
-                               float* pres_out, float* den_out, int Z, int Y, int X,
+                               float* pres_out, float* den_out, float* force_out, int Z, int Y,
+                               int X, int by, int bx,
                                double kappa, double grav_x, double grav_y, double grav_z,
                                double mu0_half, double tau_f, double tau_g, double dx, double dt,
                                double rho_gas, double rho_fluid, double den_gas,
@@ -233,11 +258,11 @@ extern "C" int lbm_cap_collide(const void* f, const void* g, const uint8_t* flag
   if (bf16)
     lbm_cap_collide_launch<__nv_bfloat16>(f, g, flags, rho_ca, h2, gsum, gmom, vel_old, pres_old,
                                           fai, prho, chi, lap, f_out, g_out, vel_out, pres_out,
-                                          den_out, Z, Y, X, kc, kh, st);
+                                          den_out, force_out, Z, Y, X, by, bx, kc, kh, st);
   else
     lbm_cap_collide_launch<float>(f, g, flags, rho_ca, h2, gsum, gmom, vel_old, pres_old, fai,
-                                  prho, chi, lap, f_out, g_out, vel_out, pres_out, den_out, Z, Y,
-                                  X, kc, kh, st);
+                                  prho, chi, lap, f_out, g_out, vel_out, pres_out, den_out,
+                                  force_out, Z, Y, X, by, bx, kc, kh, st);
   return static_cast<int>(cudaGetLastError());
 }
 

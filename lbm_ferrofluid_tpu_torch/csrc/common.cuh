@@ -563,19 +563,34 @@ __device__ __forceinline__ void lbm_zwalk(int z0, int z1, int Z, bool active, Lo
 // outside it, so the ring does not simply start at t0 - 1.
 __device__ __forceinline__ int lbm_ring_origin(int t0, int n) { return lbm_clamp(t0, 1, n - 2) - 1; }
 
+// The cell that replaces cell v of an axis whose box ends at cell b - 1:
+// cells 0 and b - 1 take cells 1 and b - 2, the others keep their own
+// (JAX ops/pallas/stencil3d.py:_ring_replicate_plane with bounds).  For
+// b == n and 0 <= v < n it is lbm_clamp(v, 1, n - 2).
+__device__ __forceinline__ int lbm_box_rep(int v, int b) {
+  return v == 0 ? 1 : (v == b - 1 ? b - 2 : v);
+}
+
 // The (TY + 2) x (TX + 2) cells of plane p that the ring holds for the tile
 // at (x0, y0), spread over the block's TX x TY threads: f(ey, ex, n, c) with
-// the cell's index n and the index c of the interior cell nearest to it.
-// Ring cells outside the grid are never tapped; they stand on the nearest
-// grid cell.
+// the cell's index n and the index c of the interior cell nearest to it,
+// in a box of by x bx cells in (y, x) (B3's box form; the grid itself in
+// the overload without them).  Ring cells outside the grid are never
+// tapped; they stand on the nearest grid cell.
 template <int TX, int TY, class F>
-__device__ __forceinline__ void lbm_halo_cells(int p, int x0, int y0, int Z, int Y, int X, F f) {
+__device__ __forceinline__ void lbm_halo_cells(int p, int x0, int y0, int Z, int Y, int X, int by,
+                                               int bx, F f) {
   const int pc = lbm_clamp(p, 1, Z - 2);
   const int rx0 = lbm_ring_origin(x0, X), ry0 = lbm_ring_origin(y0, Y);
   for (int e = threadIdx.y * TX + threadIdx.x; e < (TY + 2) * (TX + 2); e += TX * TY) {
     const int ey = e / (TX + 2), ex = e - ey * (TX + 2);
     const int gy = lbm_clamp(ry0 + ey, 0, Y - 1), gx = lbm_clamp(rx0 + ex, 0, X - 1);
     f(ey, ex, lbm_index(p, gy, gx, Y, X),
-      lbm_index(pc, lbm_clamp(gy, 1, Y - 2), lbm_clamp(gx, 1, X - 2), Y, X));
+      lbm_index(pc, lbm_box_rep(gy, by), lbm_box_rep(gx, bx), Y, X));
   }
+}
+
+template <int TX, int TY, class F>
+__device__ __forceinline__ void lbm_halo_cells(int p, int x0, int y0, int Z, int Y, int X, F f) {
+  lbm_halo_cells<TX, TY>(p, x0, y0, Z, Y, X, Y, X, f);
 }

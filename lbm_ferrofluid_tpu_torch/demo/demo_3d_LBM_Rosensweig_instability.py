@@ -9,9 +9,12 @@ marching tetrahedra, soft rasterizer on the card) and exports the final
 interface as ``Rosensweig_instability.obj``.  The frames' phi is derived
 from the density, as the reference driver derives it (:171); the JAX
 driver renders ``phi_field``, which returns the initial state's stored
-phi, all zeros, so its first frame is blank.  ``--tpu_layout 1`` (the
-padded transposed layout) is not ported (ROADMAP A8).  ``--image_size``
-sets the frames' side (default 256, rendered at 512 and pooled).
+phi, all zeros, so its first frame is blank.  ``--tpu_layout 1`` steps the
+same physics in the JAX package's padded transposed layout
+(``scenes.rosensweig_3d_tpu``: the box form of B3, B1's psi form); frames
+and the OBJ go through ``scenes.phys_view``, as the JAX driver's.
+``--image_size`` sets the frames' side (default 256, rendered at 512 and
+pooled).
 """
 
 from __future__ import annotations
@@ -33,11 +36,9 @@ def main(argv=None):
                                             ("tpu_layout", 0.0, "1 = padded transposed layout"),
                                             ("image_size", 256.0, "Frame side in pixels")],
                      argv=argv)
-    if opt.tpu_layout:
-        raise NotImplementedError(
-            "--tpu_layout 1: the padded transposed layout is not ported (ROADMAP A8)")
     opt.total_steps = opt.total_steps if opt.total_steps != 1000 else 8000
-    params, state = scenes.rosensweig_3d(
+    scene = scenes.rosensweig_3d_tpu if opt.tpu_layout else scenes.rosensweig_3d
+    params, state = scene(
         tuple(opt.res), mag_strength=opt.mag_strength, gravity=opt.gravity_strength,
         device=opt.device)
     renderer = default_renderer(int(opt.image_size), device=state.rho.device)

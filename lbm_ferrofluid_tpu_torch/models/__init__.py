@@ -19,6 +19,7 @@ from .scenes import (
     multiphase_drop_sc,
     rosensweig_2d,
     rosensweig_3d,
+    rosensweig_3d_tpu,
     shear_layer,
     two_droplets_2d,
     two_droplets_3d,
@@ -57,5 +58,6 @@ __all__ = [
     "droplet_spread_3d",
     "two_droplets_3d",
     "rosensweig_3d",
+    "rosensweig_3d_tpu",
     "SimulationRunner",
 ]

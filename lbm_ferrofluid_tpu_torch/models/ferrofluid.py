@@ -23,6 +23,21 @@ primes; ``state.premac`` selects one of three routes:
   the 5-leaf route with B5 without ``emit_mac``.  Returns ``premac`` None,
   with ``phi``, ``force`` and ``H_ext`` kept.
 
+An out-of-plane field (``h_ext_axis=2``) takes the JAX step's other
+capillogue form (:549-571 there): :func:`prime_premac` makes a 5-leaf
+premac and keeps ``phi``, ``force`` and ``H_ext``; each step computes the
+Poisson source from phi again, and B3 runs in its box form (force written,
+no source emitted) where the in-plane field's 6-leaf route runs.  The padded
+transposed layout (``params.phys_extent``, ``scenes.rosensweig_3d_tpu``:
+physical (z, y, x) stored as array (y, z, x), the walled axes padded with
+OBSTACLE cells, gravity and field along array z) is such a state: its
+magnetic solve needs the scalar carry and runs B1's psi form on the padded
+arrays, with H2 composed on the physical box (:func:`_h2_box`, B1's H2
+launch on the box), the contact angle runs on the box in its physical
+orientation (:func:`_contact_angle_box`, B2), B3 puts its in-plane ring
+fixes at the box faces (``bounds``), and the un-carried step runs the plain
+capillary stage on the box (:func:`_hcz_capillary_box`) before B5.
+
 The magnetic solve runs in the form ``state.h`` has (``h.shape[1]``):
 2 channels, the tau == 1 scalar collapse with in-kernel H2 (B1,
 ``ops/kernels/scalar_poisson.py``), into which :func:`prime_premac` converts
@@ -47,13 +62,15 @@ the JAX package's turbo mode) runs on every route, on the kernels'
 bfloat16 forms on the card; the scalar carry stays float32.  float64
 storage runs on the plain versions only.
 Configurations outside the port raise ``NotImplementedError`` naming their
-ROADMAP item; nothing falls back.
+ROADMAP item, or what they lack; nothing falls back.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..ops.collide import hcz_capillary
 from ..ops.equilibrium import feq, geq
 from ..ops.kernels.capillogue import lbm_capillogue, lbm_capillogue_plain
 from ..ops.kernels.capmac import hcz_capillary_gradmac, hcz_capillary_gradmac_plain
@@ -64,7 +81,13 @@ from ..ops.kernels.fused_step import (
     lbm_prologue,
     lbm_prologue_plain,
 )
-from ..ops.magnetic import poisson_rhs_scaled, solve_H_int, solve_H_int_scalar
+from ..ops.kernels.scalar_poisson import h2_from_psi_plain, scalar_h2
+from ..ops.magnetic import (
+    poisson_rhs_scaled,
+    solve_H_int,
+    solve_H_int_scalar,
+    solve_psi_scalar,
+)
 from ..ops.moments import eos_pressure, phi_from_density, rho_to_density
 from ..ops.scalar_poisson import make_cmask, s_prev_from_h, scalar_from_h
 from ..ops.stencils import staggered
@@ -146,38 +169,60 @@ def init_ferrofluid_state(params: SimulationParams, rho, density, vel, flags,
     )
 
 
-def _mag_boundary_only(magnetic_flags) -> bool:
+def _mag_boundary_only(magnetic_flags, phys_extent=None) -> bool:
     """Every magnetic OBSTACLE cell lies on the domain's outermost ring:
-    the physics precondition of the tau == 1 scalar collapse."""
+    the physics precondition of the tau == 1 scalar collapse.  On a padded
+    layout (``phys_extent``) every cell outside the physical box must be an
+    OBSTACLE and the box's interior free of them (JAX :769-805)."""
+    obs = int(CellType.OBSTACLE)
+    if phys_extent is not None:
+        pz, py, px = phys_extent
+        if ((magnetic_flags[..., pz:, :, :] != obs).any()
+                or (magnetic_flags[..., :, py:, :] != obs).any()
+                or (magnetic_flags[..., :, :, px:] != obs).any()):
+            return False
+        return not bool((magnetic_flags[..., 1:pz - 1, 1:py - 1, 1:px - 1] == obs).any())
     interior = magnetic_flags[(Ellipsis,) + (slice(1, -1),) * (magnetic_flags.ndim - 2)]
-    return not bool((interior == int(CellType.OBSTACLE)).any())
+    return not bool((interior == obs).any())
 
 
 def _scalar_physics_ok(params: SimulationParams, magnetic_flags) -> bool:
     """Preconditions of the tau == 1 scalar Poisson collapse (the JAX
-    package's ``_scalar_physics_ok``): tau == 1, ``scalar_carry``, h not
-    stored in float64 (the carry is float32), an axis-aligned field, and
-    magnetic obstacles on the boundary ring only."""
+    package's ``_scalar_physics_ok`` :808-829): tau == 1, ``scalar_carry``,
+    h not stored in float64 (the carry is float32), an axis-aligned field,
+    and magnetic obstacles on the boundary ring only (the declared
+    ``mag_flags_shell`` counts only without ``phys_extent``)."""
     return (
         params.scalar_carry
         and float(params.tau) == 1.0
         and params.h_dtype != "float64"
         and params.h_ext_axis in range(params.dim)
-        and (params.mag_flags_shell or _mag_boundary_only(magnetic_flags))
+        and ((params.mag_flags_shell and params.phys_extent is None)
+             or _mag_boundary_only(magnetic_flags, params.phys_extent))
     )
 
 
 def _check_supported(params: SimulationParams, state) -> None:
-    """Raise for configurations this slice does not cover."""
-    check_supported(params, state.f)
-    if params.h_ext_axis not in (0, 1):
+    """Raise for configurations the port does not step.  A padded layout
+    needs the orientation ``scenes.rosensweig_3d_tpu`` builds: gravity and
+    the field along array z (the JAX package does not check this; its
+    in-plane source emission would then run on a padded layout)."""
+    check_supported(params, state.f, padded=True)
+    if params.h_ext_axis not in range(params.dim):
+        raise ValueError(f"h_ext_axis={params.h_ext_axis} is not an axis")
+    if params.phys_extent is None:
+        return
+    if params.dim != 3 or params.gravity_axis != 2 or params.h_ext_axis != 2:
         raise NotImplementedError(
-            f"h_ext_axis={params.h_ext_axis}: only an in-plane field (x or y) is "
-            "ported.  The JAX step runs an out-of-plane field through the "
-            "capillogue with the Poisson source recomputed each step, and only "
-            "the padded transposed layout uses it (scenes.rosensweig_3d_tpu, "
-            "ROADMAP A8)"
+            f"phys_extent={params.phys_extent} (the padded transposed layout) needs dim=3 "
+            "and gravity and the field along array z: gravity_axis=2 and h_ext_axis=2, got "
+            f"dim={params.dim}, gravity_axis={params.gravity_axis}, "
+            f"h_ext_axis={params.h_ext_axis} (scenes.rosensweig_3d_tpu builds it)"
         )
+    if len(params.phys_extent) != 3 or not all(
+            3 <= b <= n for b, n in zip(params.phys_extent, state.f.shape[2:])):
+        raise ValueError(f"phys_extent={params.phys_extent} is not a box of 3 or more cells "
+                         f"an axis inside the array {tuple(state.f.shape[2:])}")
 
 
 def _hext_static(params: SimulationParams):
@@ -185,6 +230,81 @@ def _hext_static(params: SimulationParams):
         float(params.mag_strength) if d == params.h_ext_axis else 0.0
         for d in range(params.dim)
     )
+
+
+def _box(params: SimulationParams):
+    pz, py, px = params.phys_extent
+    return (Ellipsis, slice(0, pz), slice(0, py), slice(0, px))
+
+
+def _to_phys(params: SimulationParams, x, vector=False):
+    """The physical box of a padded field, (z_a, y_a) swapped back to the
+    physical (z, y), contiguous; vector channels permuted (0, 2, 1)."""
+    out = x[_box(params)].transpose(-3, -2)
+    return (out[:, (0, 2, 1)] if vector else out).contiguous()
+
+
+def _from_phys(params: SimulationParams, base, x_p, vector=False):
+    """``base`` with its box replaced by the physical-orientation ``x_p``."""
+    out = base.clone()
+    out[_box(params)] = (x_p[:, (0, 2, 1)] if vector else x_p).transpose(-3, -2)
+    return out
+
+
+def _contact_angle(params: SimulationParams, rho, flags, plain):
+    """The contact-angle rewrite of rho (B2).  On a padded layout it runs on
+    the physical box in its physical orientation, as the reference's
+    surgery at its array faces, whose corner rule depends on the order of
+    the faces (JAX ``_contact_angle_box`` :162-182); cells past the box
+    keep rho."""
+    surgery = contact_angle_3d_plain if plain else contact_angle_3d
+    angle = float(params.contact_angle)
+    if params.phys_extent is None:
+        return surgery(rho, flags, angle)
+    return _from_phys(params, rho, surgery(_to_phys(params, rho), _to_phys(params, flags),
+                                           angle))
+
+
+def _h2_box(params: SimulationParams, psi, cmask, plain):
+    """H2 = |H_ext + H_int|^2 composed on the physical box of a padded
+    layout, zero past it (JAX ``_h2_box`` :185-206): the box of psi in
+    physical orientation, the gradient's obstacle substitution and output
+    replicate at its faces, the field's channels permuted (0, 2, 1); B1's
+    H2 launch on the box copy (``cmask < 0`` marks the same cells as the
+    box's magnetic obstacles)."""
+    h = _hext_static(params)
+    compose = h2_from_psi_plain if plain else scalar_h2
+    H2_p = compose(_to_phys(params, psi), _to_phys(params, cmask), float(params.dx),
+                   (h[0], h[2], h[1]))
+    return _from_phys(params, torch.zeros_like(psi), H2_p)
+
+
+def _hcz_capillary_box(params: SimulationParams, rho, rho_ca, vel, flags, density, pressure,
+                       H2, phi, m0g, m1g):
+    """The plain capillary stage on the physical box of a padded layout
+    (JAX ``_hcz_capillary_box`` :209-260): the box in physical orientation,
+    vectors permuted (0, 2, 1), gravity along physical y, the ring fixes at
+    its faces.  Returns (vel, density, pressure, force, dfai, dprho): past
+    the box vel, density and pressure keep their values, and force, dfai
+    and dprho are zero (nothing reads them there: every fluid cell's
+    stencil stays inside the box)."""
+    # gravity rounded to float32 as params.gravity_vec() rounds it (JAX :230-231)
+    grav = torch.zeros((1, 3, 1, 1, 1), dtype=vel.dtype, device=vel.device)
+    grav[0, 1] = float(np.float32(-params.gravity))
+
+    def t(x, vector=False):
+        return _to_phys(params, x, vector)
+
+    _, vel_p, den_p, pres_p, force_p, dfai_p, dprho_p = hcz_capillary(
+        t(rho), t(vel, True), t(flags), t(density), t(pressure), t(rho_ca), t(H2), t(phi),
+        t(m0g), t(m1g, True), kappa=params.kappa, gravity=grav, rho_gas=params.rho_gas,
+        rho_fluid=params.rho_fluid, density_gas=params.density_gas,
+        density_fluid=params.density_fluid, dx=params.dx, dt=params.dt,
+    )
+    zeros = torch.zeros_like(vel)
+    return (_from_phys(params, vel, vel_p, True), _from_phys(params, density, den_p),
+            _from_phys(params, pressure, pres_p), _from_phys(params, zeros, force_p, True),
+            _from_phys(params, zeros, dfai_p, True), _from_phys(params, zeros, dprho_p, True))
 
 
 def _scalar_convert(params: SimulationParams, state):
@@ -205,7 +325,9 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
     """Run the prologue once and carry this step's macros and Poisson source
     in ``state.premac`` (a 6-tuple); convert h to the scalar carry where the
     collapse applies (else keep the 19-channel h); drop the write-only phi,
-    force and H_ext (``_prime_steady`` of the JAX package).
+    force and H_ext (``_prime_steady`` of the JAX package).  With an
+    out-of-plane field (``h_ext_axis=2``, every padded layout) the premac
+    is the 5 macros and phi, force and H_ext stay (JAX :1064-1077).
     A state that is already primed is returned as it is.  In 2D the scalar
     carry is the only priming (JAX :969-977): h converts where the
     collapse applies and nothing else changes."""
@@ -226,12 +348,14 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
         rho_fluid=params.rho_fluid, density_gas=params.density_gas,
         density_fluid=params.density_fluid,
     )
+    h, cmask = _scalar_convert(params, state)
+    if params.h_ext_axis == 2:
+        return state.replace(h=h, cmask=cmask, premac=tuple(premac))
     rhs = poisson_rhs_scaled(
         phi_from_density(premac[2], params.density_gas, params.density_fluid),
         state.magnetic_flags, _hext_static(params), tau=params.tau,
         dx=params.dx, dt=params.dt,
     )
-    h, cmask = _scalar_convert(params, state)
     return state.replace(
         h=h, cmask=cmask, premac=tuple(premac) + (rhs,), phi=None, force=None,
         H_ext=None,
@@ -244,9 +368,10 @@ def ferrofluid_step(params: SimulationParams, state: FerrofluidState, *,
 
     ``state.premac`` selects the route, as in the JAX step on one device
     (``ferrofluid_step_impl`` :328-344, :393-395, :516, :679-702): 6 leaves,
-    the capillogue steady state; 5 leaves, the epilogue steady state; None,
-    the un-carried step.  ``plain=True`` runs the kernels' plain PyTorch
-    versions (on any device) instead of the kernels."""
+    the capillogue steady state; 5 leaves, the epilogue steady state (the
+    capillogue's box form with an out-of-plane field); None, the un-carried
+    step.  ``plain=True`` runs the kernels' plain PyTorch versions (on any
+    device) instead of the kernels."""
     check_device(state.f, device)
     _check_supported(params, state)
     if params.dim == 2:
@@ -262,38 +387,55 @@ def ferrofluid_step(params: SimulationParams, state: FerrofluidState, *,
                                                state.vel, c=dx / dt, **gas)
     else:
         rho, vel, density, m0g, m1g = state.premac[:5]
-    capillogue_route = state.premac is not None and len(state.premac) == 6
-    if capillogue_route:
+    box_form = params.h_ext_axis == 2
+    if box_form and state.premac is not None and len(state.premac) != 5:
+        raise ValueError("an out-of-plane field carries a 5-leaf premac (prime_premac); "
+                         f"this state carries {len(state.premac)} leaves")
+    capillogue_route = state.premac is not None and (len(state.premac) == 6 or box_form)
+    if state.premac is not None and len(state.premac) == 6:
         rhs = state.premac[5]
     else:
         phi = phi_from_density(density, params.density_gas, params.density_fluid)
         rhs = poisson_rhs_scaled(phi, state.magnetic_flags, _hext_static(params),
                                  tau=params.tau, dx=dx, dt=dt)
     H2, h = _solve(params, state, rhs, plain)
-    surgery = contact_angle_3d_plain if plain else contact_angle_3d
-    rho_ca = surgery(rho, state.flags, float(params.contact_angle))
+    rho_ca = _contact_angle(params, rho, state.flags, plain)
     grav = tuple(float(v) for v in params.gravity_vec().reshape(-1))
     hcz = dict(tau_f=float(params.tau_f), tau_g=float(params.tau_g), dx=dx, dt=dt)
     if capillogue_route:
+        # an out-of-plane field takes the box form: force written, no source
+        # emitted, the in-plane ring fixes at the box faces of a padded
+        # layout (JAX :549-580)
         capillogue = lbm_capillogue_plain if plain else lbm_capillogue
-        f, g, vel, pressure, density, premac = capillogue(
+        out = capillogue(
             state.f, state.g, state.flags, rho, density, state.pressure, rho_ca, H2,
-            m0g, m1g, vel, state.magnetic_flags, kappa=float(params.kappa), gravity=grav,
-            emit_rhs=(params.h_ext_axis, float(params.mag_strength), float(params.tau)),
+            m0g, m1g, vel, None if box_form else state.magnetic_flags,
+            kappa=float(params.kappa), gravity=grav,
+            emit_rhs=None if box_form else (params.h_ext_axis, float(params.mag_strength),
+                                            float(params.tau)),
+            emit_force=box_form,
+            bounds=tuple(params.phys_extent[1:]) if params.phys_extent else None,
             **gas, **hcz,
         )
+        f, g, vel, pressure, density, premac = out[:6]
         return state.replace(
             f=f, g=g, h=h, rho=rho_ca, vel=vel, density=density, pressure=pressure,
             step=state.step + 1, premac=premac,
+            **(dict(force=out[6], phi=phi) if box_form else {}),
         )
-    # the 5-leaf and the un-carried routes: B2 + B6 with H2 and phi, then
-    # the epilogue (models/multiphase.py's composition)
-    capillary = hcz_capillary_gradmac_plain if plain else hcz_capillary_gradmac
-    vel, pressure, force, dfai, dprho = capillary(
-        rho, density, state.pressure, rho_ca, H2, phi, state.flags, m0g, m1g, vel,
-        kappa=float(params.kappa), gravity=grav, dx=dx, dt=dt, **gas,
-    )
-    density = rho_to_density(rho_ca, **gas)
+    # the 5-leaf and the un-carried routes: B2 + B6 with H2 and phi (on a
+    # padded layout the plain stage on the box, JAX :641-650), then the
+    # epilogue (models/multiphase.py's composition)
+    if params.phys_extent is not None:
+        vel, density, pressure, force, dfai, dprho = _hcz_capillary_box(
+            params, rho, rho_ca, vel, state.flags, density, state.pressure, H2, phi, m0g, m1g)
+    else:
+        capillary = hcz_capillary_gradmac_plain if plain else hcz_capillary_gradmac
+        vel, pressure, force, dfai, dprho = capillary(
+            rho, density, state.pressure, rho_ca, H2, phi, state.flags, m0g, m1g, vel,
+            kappa=float(params.kappa), gravity=grav, dx=dx, dt=dt, **gas,
+        )
+        density = rho_to_density(rho_ca, **gas)
     epilogue = lbm_epilogue_plain if plain else lbm_epilogue
     emit = state.premac is not None
     out = epilogue(state.f, state.g, state.flags, rho_ca, vel, density, pressure, force, dfai,
@@ -328,7 +470,19 @@ def _ferrofluid_step_2d(params: SimulationParams, state):
 
 
 def _solve(params: SimulationParams, state, rhs, plain):
-    """(H2, h') of the magnetic solve in the form that ``state.h`` has."""
+    """(H2, h') of the magnetic solve in the form that ``state.h`` has.  A
+    padded layout runs the scalar sweeps on the padded arrays and composes
+    H2 on the box (JAX :422-439); its channel form raises, as the JAX step's
+    (:485-493), since that solve composes its gradient at the array faces."""
+    if state.h.shape[1] == 2 and params.phys_extent is not None:
+        psi, h = solve_psi_scalar(state.h, state.cmask, rhs, n_iters=params.poisson_iters,
+                                  plain=plain)
+        return _h2_box(params, psi, state.cmask, plain), h
+    if params.phys_extent is not None:
+        raise NotImplementedError(
+            "phys_extent layouts require the tau == 1 scalar Poisson carry: prime_premac "
+            "converts h where the collapse applies (tau 1, scalar_carry, the pad all "
+            "OBSTACLE and the box's interior free of magnetic obstacles)")
     if state.h.shape[1] == 2:
         return solve_H_int_scalar(
             state.h, state.cmask, rhs, n_iters=params.poisson_iters, dx=params.dx,

@@ -72,12 +72,13 @@ def storage_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def check_supported(params: SimulationParams, f: torch.Tensor, hcz: bool = True) -> None:
+def check_supported(params: SimulationParams, f: torch.Tensor, hcz: bool = True,
+                    padded: bool = False) -> None:
     """Raise for what the port does not step: a state whose rank or
     distribution count is not ``params.dim``'s lattice, KBC off D2Q9 (the
     JAX package's own ``ValueError``), and (for the HCZ family, ``hcz``)
-    the storage dtypes and layouts it has no route for, naming the ROADMAP
-    item."""
+    the storage dtypes it has no route for and, unless the caller steps
+    ``padded`` layouts (the ferrofluid step), ``phys_extent``."""
     lat = params.lattice
     if f.ndim - 2 != params.dim or f.shape[1] != lat.q:
         raise ValueError(
@@ -94,9 +95,11 @@ def check_supported(params: SimulationParams, f: torch.Tensor, hcz: bool = True)
         return
     storage_dtype(params.fg_dtype)
     storage_dtype(params.h_dtype)
-    if params.phys_extent is not None:
+    if params.phys_extent is not None and not padded:
         raise NotImplementedError(
-            "padded transposed layouts (phys_extent) are not ported yet (ROADMAP A8)"
+            "phys_extent: only the ferrofluid step steps a padded transposed layout; "
+            "the JAX package's hcz_step ignores phys_extent and would tie its ring "
+            "fixes to the padded array faces, so step the physical grid instead"
         )
     if params.gravity_axis not in range(params.dim):
         raise ValueError(f"gravity_axis={params.gravity_axis} is not an axis")

@@ -5,7 +5,7 @@ same defaults and the same JSON, so one parameter file loads in both
 packages (the port imports nothing of the JAX package).  Fields that select
 JAX-only machinery (``use_pallas``, ``poisson_halo_depth``,
 ``poisson_psi_halo``, ``scalar_sliver``) are carried for that round trip and
-read by nothing in the port; configurations the port does not cover yet
+read by nothing in the port; configurations the port does not cover
 raise ``NotImplementedError`` at the step (``models/ferrofluid.py``).
 """
 
@@ -63,7 +63,9 @@ class SimulationParams:
     scalar_carry: bool = True
     scalar_sliver: bool = False
     use_pallas: bool = True
-    # physical extent of an OBSTACLE-padded layout (not ported: A8)
+    # physical extent (z, y, x array order) of an OBSTACLE-padded layout
+    # (scenes.rosensweig_3d_tpu); the ferrofluid step ties the reference's
+    # array-face behaviours to the box faces; None = the array is the box
     phys_extent: tuple[int, ...] | None = None
     # storage dtypes of h and of f/g: "float32", "bfloat16" (turbo mode:
     # bfloat16 storage, float32 arithmetic) or "float64" (plain path only)

@@ -6,11 +6,11 @@ Port of ``lbm_ferrofluid_tpu/models/scenes.py``: ``shear_layer`` (:69),
 ``rosensweig_2d`` (:211), ``multiphase_3d`` (:233), ``droplet_spread_3d``
 (:256), ``two_droplets_3d`` (:279) and ``rosensweig_3d`` (:380), with
 ``_obstacle_frame`` and ``_apply_wall``: geometry, flags and physics
-constants as the JAX builders take them from the reference drivers.  Each
-returns ``(params, state)`` with the state on the card unless
-``device="cpu"``.  The padded transposed ``rosensweig_3d_tpu`` is ROADMAP
-A8.  Resolution is ``(H, W) = (y, x)`` in 2D, ``(D, H, W) = (z, y, x)`` in
-3D.
+constants as the JAX builders take them from the reference drivers; and
+the padded transposed ``rosensweig_3d_tpu`` (:309) with ``phys_view``
+(:364).  Each returns ``(params, state)`` with the state on the card unless
+``device="cpu"``.  Resolution is ``(H, W) = (y, x)`` in 2D,
+``(D, H, W) = (z, y, x)`` in 3D.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ __all__ = [
     "shear_layer", "wave", "multiphase_drop_sc", "multiphase_drop_hcz",
     "droplet_spread_2d", "two_droplets_2d", "rosensweig_2d",
     "multiphase_3d", "droplet_spread_3d", "two_droplets_3d", "rosensweig_3d",
-    "phys_view",
+    "rosensweig_3d_tpu", "phys_view",
 ]
 
 # the multiphase demos share one fluid (reference: demo_*_HCZ.py headers)
@@ -293,12 +293,54 @@ def rosensweig_3d(res=(130, 66, 130), mag_strength=100.0, gravity=1e-4, batch=1,
     )
 
 
+def _ceil(n, m):
+    return ((n + m - 1) // m) * m
+
+
+def rosensweig_3d_tpu(res=(130, 66, 130), mag_strength=100.0, gravity=1e-4, batch=1, *,
+                      device=None):
+    """The native Rosensweig scene in the JAX package's padded transposed
+    layout (JAX ``scenes.rosensweig_3d_tpu``): the physics of
+    :func:`rosensweig_3d` with physical (z_p, y_p, x_p) = ``res`` stored as
+    array (z_a, y_a, x_a) = (y_p, z_p, x_p), the open field axis y_p on
+    array z, and the two walled axes padded with OBSTACLE cells to
+    multiples of 8 (y_a) and 128 (x_a): 130x66x130 becomes 66x136x256.
+    Gravity and the field act along array z (``gravity_axis=2``,
+    ``h_ext_axis=2``); ``params.phys_extent = (y_p, z_p, x_p)`` marks the
+    box, at whose faces the step ties the reference's array-face
+    behaviours.  The padding is the TPU's alignment, which the port's
+    kernels do not need; the layout is ported so that its states equal
+    the JAX package's field for field.  :func:`phys_view` slices a field
+    back to the physical orientation."""
+    D, H, W = res
+    Za, Ya, Xa = H, _ceil(D, 8), _ceil(W, 128)
+    params = SimulationParams(
+        dim=3, kappa=0.01, tau_f=0.68, tau_g=0.68, gravity=gravity,
+        gravity_axis=2, contact_angle=0.5 * math.pi, mag_strength=mag_strength,
+        h_ext_axis=2, poisson_iters=30, phys_extent=(Za, D, W), **_MP,
+    )
+    shape = (batch, 1, Za, Ya, Xa)
+    flags = np.full(shape, int(CellType.OBSTACLE), np.uint8)
+    flags[..., 1:Za - 1, 1:D - 1, 1:W - 1] = int(CellType.FLUID)
+    mflags = np.full(shape, int(CellType.OBSTACLE), np.uint8)
+    mflags[..., :, 1:D - 1, 1:W - 1] = int(CellType.FLUID)  # open along z_a
+    rho, den = _gas_box((Za, Ya, Xa), batch, (Ellipsis, slice(None, int(0.5 * H)),
+                                              slice(None), slice(None)))
+    _apply_wall(rho, den, flags)
+    vel = np.zeros((batch, 3, Za, Ya, Xa), np.float32)
+    return params, init_ferrofluid_state(params, rho, den, vel, flags, mflags, device=device)
+
+
 def phys_view(params: SimulationParams, field, vector: bool = False):
     """Physical-orientation view of a field (JAX ``scenes.phys_view``): the
-    identity for states without ``phys_extent``.  The padded transposed
-    layout that sets ``phys_extent`` is not ported (ROADMAP A8), so a
-    ``phys_extent`` raises."""
+    identity for states without ``phys_extent``; else the physical box with
+    the (z_a, y_a) axes swapped back to (z_p, y_p), and with ``vector`` the
+    channels permuted to physical (x, y, z) order (array channel 2 is
+    physical y, channel 1 physical z)."""
     if params.phys_extent is None:
         return field
-    raise NotImplementedError(
-        "phys_view: padded transposed layouts (phys_extent) are not ported yet (ROADMAP A8)")
+    pz, py, px = params.phys_extent
+    out = field[..., :pz, :py, :px].transpose(-3, -2)
+    if vector and out.shape[1] == 3:
+        out = out[:, (0, 2, 1)]
+    return out

@@ -281,14 +281,16 @@ def chi_of_phi(phi, dx):
     return CHI_K * (1.0 - smooth_phi(phi, 0.1 * dx))
 
 
-def capillary_potentials(rho, density, pressure, *, dx=1.0, dt=1.0):
+def capillary_potentials(rho, density, pressure, *, dx=1.0, dt=1.0, bounds=None):
     """The EOS potentials fai = p_eos(rho) - rho RT and prho = p - RT
     density, each with its boundary ring replaced by the nearest interior
-    value (HCZ_3d.py:21-60); taken from the pre-contact-angle fields."""
+    value (HCZ_3d.py:21-60), at the box faces of ``bounds``
+    (``ops/stencils.py:rep_pad_interior``); taken from the pre-contact-angle
+    fields."""
     c = dx / dt
     RT = c * c / 3.0
-    fai = rep_pad_interior(eos_pressure(rho, dx=dx, dt=dt) - rho * RT)
-    return fai, rep_pad_interior(pressure - RT * density)
+    fai = rep_pad_interior(eos_pressure(rho, dx=dx, dt=dt) - rho * RT, bounds)
+    return fai, rep_pad_interior(pressure - RT * density, bounds)
 
 
 def recover_macros(flags, vel, pressure, density, force, dprho, g_sum, g_mom, g, *, dx=1.0,
@@ -319,7 +321,7 @@ def recover_macros(flags, vel, pressure, density, force, dprho, g_sum, g_mom, g,
 def hcz_capillary(
     rho, vel, flags, density, pressure, rho_ca, H2=None, phi=None, g_sum=None,
     g_mom=None, *, g=None, kappa, gravity, rho_gas, rho_fluid, density_gas,
-    density_fluid, dx=1.0, dt=1.0,
+    density_fluid, dx=1.0, dt=1.0, bounds=None,
 ):
     """HCZ capillary step: surface-tension/gravity/Kelvin forces, EOS
     potentials and macro recovery from g (HCZ_2d.py:21-173,
@@ -334,21 +336,28 @@ def hcz_capillary(
     from the post-stream ``g`` when None.  ``gravity`` is a
     ``[1, dim, 1, ...]`` tensor.  Returns (rho_ca, vel, density(rho_ca),
     pressure, force, dfai, dprho).
+
+    ``bounds = (by, bx)`` (3D) is the TPU capillogue's box form
+    (``ops/pallas/capillogue.py`` :175, ``params.phys_extent``): the
+    potentials' replicate, the Laplacian's zero ring and the obstacle
+    substitutions sit at the faces of the physical box ``[..., :by, :bx]``
+    of an OBSTACLE-padded array (``ops/stencils.py``), the gradients'
+    output ring stays at the array faces.
     """
     if (H2 is None) != (phi is None):
         raise ValueError("hcz_capillary: give H2 and phi together, or neither")
-    fai, prho = capillary_potentials(rho, density, pressure, dx=dx, dt=dt)
+    fai, prho = capillary_potentials(rho, density, pressure, dx=dx, dt=dt, bounds=bounds)
     density = rho_to_density(
         rho_ca, rho_gas=rho_gas, rho_fluid=rho_fluid,
         density_gas=density_gas, density_fluid=density_fluid,
     )
-    lap_density = isotropic_laplacian(density, dx)
-    force = kappa * density * isotropic_grad(lap_density, dx, flags)
+    lap_density = isotropic_laplacian(density, dx, bounds)
+    force = kappa * density * isotropic_grad(lap_density, dx, flags, bounds)
     force = force + gravity * density
     if H2 is not None:
-        force = force - 0.5 * MU0 * H2 * isotropic_grad(chi_of_phi(phi, dx), dx, flags)
-    dfai = isotropic_grad(fai, dx, flags)
-    dprho = isotropic_grad(prho, dx, flags)
+        force = force - 0.5 * MU0 * H2 * isotropic_grad(chi_of_phi(phi, dx), dx, flags, bounds)
+    dfai = isotropic_grad(fai, dx, flags, bounds)
+    dprho = isotropic_grad(prho, dx, flags, bounds)
     vel, pressure = recover_macros(flags, vel, pressure, density, force, dprho, g_sum, g_mom,
                                    g, dx=dx, dt=dt)
     return rho_ca, vel, density, pressure, force, dfai, dprho

@@ -126,7 +126,10 @@ KERNELS = {
 #: channel-form solve (B11b + B10a); the un-carried step (an unprimed state,
 #: here in channel form); the epilogue steady state (a 5-leaf premac, here
 #: with the scalar carry); the HCZ step; the capillary stage's stencil route;
-#: the reference-style 3D HCZ loop through ``compat.py``, op by op
+#: the reference-style 3D HCZ loop through ``compat.py``, op by op; the
+#: padded transposed layout (``scenes.rosensweig_3d_tpu``) carried (B1's psi
+#: form and its H2 launch on the box, B2 on the box, B3's box form) and
+#: un-carried (B4, B1 as carried, B2 on the box, B5)
 PATHS = {
     "ferrofluid": ("B1", "B2", "B3", "B4"),
     "hcz": ("B2", "B6", "B8a", "B8b", "B9"),
@@ -136,7 +139,13 @@ PATHS = {
     "capillary_stencils": ("B10b", "B10a"),
     "singlephase3d": ("B8a",),
     "compat3d": ("B2", "B10b", "B10a", "B9"),
+    "ferrofluid_padded": ("B1", "B2", "B3", "B4"),
+    "ferrofluid_padded_uncarried": ("B4", "B1", "B2", "B5"),
 }
+
+#: the kernels with a named form and its name (``launches_<name>`` counts
+#: the launches of that form): B1's psi emission, B3's box form
+FORMS = {"B1": "psi", "B3": "box"}
 
 
 #: the kernels with a bfloat16-storage form (they read or write f, g or h)
@@ -144,13 +153,19 @@ BF16_FORMS = ("B3", "B4", "B5", "B8a", "B8b", "B9", "B11b")
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS.values():
+    for kid, k in KERNELS.items():
         k.wrapper.launches = 0
         k.wrapper.launches_bf16 = 0
+        if kid in FORMS:
+            setattr(k.wrapper, f"launches_{FORMS[kid]}", 0)
 
 
-def launch_counts(ids=None, bf16=False) -> dict[str, int]:
+def launch_counts(ids=None, bf16=False, form=False) -> dict[str, int]:
     """Launches per kernel id since the last reset (all ids, or ``ids``);
-    with ``bf16`` only those of the bfloat16-storage forms."""
-    attr = "launches_bf16" if bf16 else "launches"
-    return {kid: getattr(KERNELS[kid].wrapper, attr, 0) for kid in (ids or KERNELS)}
+    with ``bf16`` only those of the bfloat16-storage forms, with ``form``
+    only those of each kernel's named form (``FORMS``; 0 for the others)."""
+    def attr(kid):
+        if form:
+            return f"launches_{FORMS.get(kid)}"
+        return "launches_bf16" if bf16 else "launches"
+    return {kid: getattr(KERNELS[kid].wrapper, attr(kid), 0) for kid in (ids or KERNELS)}

@@ -17,10 +17,15 @@ f/g pair:
       recovered velocity (the next step's rho, vel, density, m0g, m1g);
   (d) the next step's pre-scaled Poisson source from the emitted density.
 
-The steady state emits no force (the reference overwrites it unread each
-step, LBM_collision_HCZ_3d.py:225).  The plain version is the composition
-``hcz_capillary`` -> ``hcz_collide`` -> ``stream_bounce_macro/moments`` ->
-``poisson_rhs_scaled``.
+The steady state with an in-plane field emits no force (the reference
+overwrites it unread each step, LBM_collision_HCZ_3d.py:225).  The box form
+(``emit_rhs=None, emit_force=True``, optionally ``bounds``), which the JAX
+step takes for an out-of-plane field and for the padded transposed layout
+(``models/ferrofluid.py:549-571`` there), writes force, skips (d), and with
+``bounds = (by, bx)`` puts the in-plane ring fixes at the faces of the
+physical box ``[..., :by, :bx]`` (``csrc/capillogue.cu``).  The plain
+version is the composition ``hcz_capillary`` -> ``hcz_collide`` ->
+``stream_bounce_macro/moments`` -> ``poisson_rhs_scaled``.
 
 f and g may be stored in bfloat16 (the JAX package's turbo mode): launches
 (b) and (c) then run their kernels' bfloat16 instances, (b) rounding f'/g'
@@ -49,7 +54,7 @@ from ._lib import (STORAGE, call, check_cuda, check_no_grad, count_launch, elem_
 from .fused_step import cost as prologue_cost
 from .fused_step import lbm_prologue_plain, stream_macro_launch
 
-__all__ = ["lbm_capillogue", "lbm_capillogue_plain", "cost", "N_LAUNCHES"]
+__all__ = ["lbm_capillogue", "lbm_capillogue_plain", "cost", "N_LAUNCHES", "launches_per_call"]
 
 TPU_KERNEL = "lbm_ferrofluid_tpu/ops/pallas/capillogue.py:809"
 CUDA_SOURCE = "lbm_ferrofluid_tpu_torch/csrc/capillogue.cu"
@@ -57,7 +62,8 @@ N_LAUNCHES = 4
 
 
 def cost(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2, g_sum, g_mom,
-         vel_old, magnetic_flags, **_) -> tuple[int, int]:
+         vel_old, magnetic_flags, *, emit_rhs=True, emit_force=False,
+         **_) -> tuple[int, int]:
     """(bytes, flops) that a call on these inputs must move and do.
 
     Bytes: f, g (in their storage type), both flag fields, rho_pre,
@@ -70,24 +76,29 @@ def cost(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2, g_sum, g_m
     gradient components, force and recovery, 19 x 2 equilibrium/forcing
     updates; other cells keep their bounced values), (c) the prologue's
     count on the emitted fields, (d) ~52 per magnetic fluid cell (chi at
-    three cells and the staggered difference)."""
+    three cells and the staggered difference).  ``emit_rhs`` and
+    ``emit_force`` as the call's: the box form (``emit_rhs=None``) reads
+    no magnetic flags and does no (d); force adds 3 float channels."""
     n = flags.numel()
     fluid = int(CellType.FLUID)
     n_fluid = int((flags == fluid).sum())
-    n_mfluid = int((magnetic_flags == fluid).sum())
     fg = 19 * (elem_bytes(f) + elem_bytes(g))
-    nbytes = n * (2 * fg + 2 + 4 * 4 + 15 * 4) + 20 * n_fluid + 12 * (n - n_fluid)
-    emit_flops = prologue_cost(f, g, flags, rho_ca, vel_old)[1]
-    return nbytes, 110 * n + 1000 * n_fluid + emit_flops + 52 * n_mfluid
+    rhs = emit_rhs is not None
+    written = 14 + (3 if emit_force else 0) + (1 if rhs else 0)
+    nbytes = (n * (2 * fg + 1 + rhs + 4 * 4 + written * 4) + 20 * n_fluid
+              + 12 * (n - n_fluid))
+    flops = 110 * n + 1000 * n_fluid + prologue_cost(f, g, flags, rho_ca, vel_old)[1]
+    if rhs:
+        flops += 52 * int((magnetic_flags == fluid).sum())
+    return nbytes, flops
 
 
 def lbm_capillogue_plain(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca,
                          H2, g_sum, g_mom, vel_old, magnetic_flags, *, kappa, gravity,
                          rho_gas, rho_fluid, density_gas, density_fluid, tau_f,
-                         tau_g, dx=1.0, dt=1.0, emit_rhs):
+                         tau_g, dx=1.0, dt=1.0, emit_rhs, emit_force=False, bounds=None):
     """Plain PyTorch version of :func:`lbm_capillogue`."""
     lat = D3Q19
-    axis, hm, tau_mag = emit_rhs
     f_post = bounce_back(lat, stream(lat, f), flags)
     g_post = bounce_back(lat, stream(lat, g), flags)
     grav = torch.tensor(gravity, dtype=vel_old.dtype, device=vel_old.device)
@@ -96,7 +107,7 @@ def lbm_capillogue_plain(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca
         phi_from_density(density_pre, density_gas, density_fluid), g_sum, g_mom,
         kappa=kappa, gravity=grav.reshape(1, 3, 1, 1, 1), rho_gas=rho_gas,
         rho_fluid=rho_fluid, density_gas=density_gas,
-        density_fluid=density_fluid, dx=dx, dt=dt,
+        density_fluid=density_fluid, dx=dx, dt=dt, bounds=bounds,
     )
     f_n, g_n = hcz_collide(
         lat, f_post, g_post, rho, vel, den, pres, flags, force, dfai, dprho,
@@ -106,33 +117,39 @@ def lbm_capillogue_plain(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca
         f_n, g_n, flags, rho, vel, c=dx / dt, rho_gas=rho_gas, rho_fluid=rho_fluid,
         density_gas=density_gas, density_fluid=density_fluid,
     )
-    h_ext = tuple(float(hm) if d == axis else 0.0 for d in range(3))
-    rhs = poisson_rhs_scaled(
-        phi_from_density(mac[2], density_gas, density_fluid), magnetic_flags, h_ext,
-        tau=tau_mag, dx=dx, dt=dt,
-    )
-    return f_n, g_n, vel, pres, den, mac + (rhs,)
+    if emit_rhs is not None:
+        axis, hm, tau_mag = emit_rhs
+        h_ext = tuple(float(hm) if d == axis else 0.0 for d in range(3))
+        mac = mac + (poisson_rhs_scaled(
+            phi_from_density(mac[2], density_gas, density_fluid), magnetic_flags, h_ext,
+            tau=tau_mag, dx=dx, dt=dt,
+        ),)
+    return (f_n, g_n, vel, pres, den, mac) + ((force,) if emit_force else ())
 
 
 def lbm_capillogue(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2,
                    g_sum, g_mom, vel_old, magnetic_flags, *, kappa, gravity,
                    rho_gas, rho_fluid, density_gas, density_fluid, tau_f, tau_g,
-                   dx=1.0, dt=1.0, emit_rhs):
+                   dx=1.0, dt=1.0, emit_rhs, emit_force=False, bounds=None):
     """One steady-state pass: capillary stage, HCZ collide, next-step emission.
 
     ``rho_pre``/``density_pre``/``g_sum``/``g_mom``/``vel_old`` come from
     the carried premac, ``pressure_old`` from the state, ``rho_ca`` from the
     contact-angle kernel, ``H2`` from the Poisson solve; ``gravity`` is a
     3-tuple and ``emit_rhs = (axis, magnitude, tau)`` the static external
-    field along x (0) or y (1).  Returns
-    ``(f', g', vel, pressure, density(rho_ca), premac)`` with premac the
-    6-tuple (rho, vel, density, m0g, m1g, rhs_scaled) of the next step.
+    field along x (0) or y (1), or None (no source emitted, and
+    ``magnetic_flags`` may be None).  ``emit_force`` adds the 3-channel
+    force output; ``bounds = (by, bx)`` the in-plane box of a padded layout.
+    Returns ``(f', g', vel, pressure, density(rho_ca), premac)`` with premac
+    the (rho, vel, density, m0g, m1g) of the next step, plus rhs_scaled
+    with ``emit_rhs``, and force appended last with ``emit_force``.
     CPU tensors take the plain version; CUDA tensors launch the kernels;
     anything else raises.  Inputs are not modified.
     """
     kw = dict(kappa=kappa, gravity=gravity, rho_gas=rho_gas, rho_fluid=rho_fluid,
               density_gas=density_gas, density_fluid=density_fluid, tau_f=tau_f,
-              tau_g=tau_g, dx=dx, dt=dt, emit_rhs=emit_rhs)
+              tau_g=tau_g, dx=dx, dt=dt, emit_rhs=emit_rhs, emit_force=emit_force,
+              bounds=bounds)
     if f.device.type == "cpu":
         return lbm_capillogue_plain(
             f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2, g_sum,
@@ -147,14 +164,19 @@ def lbm_capillogue(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2,
                     ("g_sum", g_sum)):
         check_cuda(name, t, torch.float32, scalar)
     check_cuda("g_mom", g_mom, torch.float32, (1, 3, Z, Y, X))
-    check_cuda("magnetic_flags", magnetic_flags, torch.uint8, scalar)
+    if emit_rhs is not None:
+        check_cuda("magnetic_flags", magnetic_flags, torch.uint8, scalar)
     check_cuda("f", f, STORAGE, (1, 19, Z, Y, X))
     check_cuda("g", g, (f.dtype,), (1, 19, Z, Y, X))
     check_cuda("flags", flags, torch.uint8, scalar)
     check_cuda("vel_old", vel_old, torch.float32, (1, 3, Z, Y, X))
-    axis, hm, tau_mag = emit_rhs
-    if axis not in (0, 1) or min(Z, Y, X) < 3:
-        raise ValueError("lbm_capillogue needs an in-plane field axis and Z, Y, X >= 3")
+    if emit_rhs is not None and emit_rhs[0] not in (0, 1):
+        raise ValueError("lbm_capillogue emits the source for an in-plane field axis only")
+    by, bx = bounds if bounds is not None else (Y, X)
+    if min(Z, Y, X) < 3 or not (3 <= by <= Y and 3 <= bx <= X):
+        raise ValueError("lbm_capillogue needs Z, Y, X >= 3 and a box of 3 to Y x X cells")
+    box = (ctypes.c_int(by), ctypes.c_int(bx))
+    form = "box" if emit_rhs is None else None
     dims = (ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X))
     gas = tuple(ctypes.c_double(float(v))
                 for v in (rho_gas, rho_fluid, density_gas, density_fluid))
@@ -163,34 +185,45 @@ def lbm_capillogue(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2,
     scratch = torch.empty((4, 1, Z, Y, X), dtype=torch.float32, device=f.device)
     fai, prho, chi, lap = scratch
     call("lbm_cap_derived", ptr(rho_pre), ptr(density_pre), ptr(pressure_old), ptr(rho_ca),
-         ptr(fai), ptr(prho), ptr(chi), ptr(lap), *dims, ctypes.c_double(dx),
+         ptr(fai), ptr(prho), ptr(chi), ptr(lap), *dims, *box, ctypes.c_double(dx),
          ctypes.c_double(dt), *gas, st)
     bf16 = f.dtype == torch.bfloat16
-    count_launch(lbm_capillogue, bf16)
+    count_launch(lbm_capillogue, bf16, form)
 
     f_out, g_out = torch.empty_like(f), torch.empty_like(g)
     vel, pres, den = torch.empty_like(vel_old), torch.empty_like(rho_ca), torch.empty_like(rho_ca)
+    force = torch.empty_like(vel_old) if emit_force else None
     call("lbm_cap_collide", ptr(f), ptr(g), ptr(flags), ptr(rho_ca),
          ptr(H2), ptr(g_sum), ptr(g_mom), ptr(vel_old), ptr(pressure_old), ptr(fai),
          ptr(prho), ptr(chi), ptr(lap), ptr(f_out), ptr(g_out), ptr(vel), ptr(pres),
-         ptr(den), *dims, ctypes.c_double(kappa),
+         ptr(den), ptr(force), *dims, *box, ctypes.c_double(kappa),
          *(ctypes.c_double(float(v)) for v in gravity), ctypes.c_double(0.5 * MU0),
          ctypes.c_double(tau_f), ctypes.c_double(tau_g), ctypes.c_double(dx),
          ctypes.c_double(dt), *gas, ctypes.c_int(bf16), st)
-    count_launch(lbm_capillogue, bf16)
+    count_launch(lbm_capillogue, bf16, form)
 
     mac = stream_macro_launch(
         f_out, g_out, flags, rho_ca, vel,
         (dx / dt, rho_gas, rho_fluid, density_gas, density_fluid),
     )
-    count_launch(lbm_capillogue, bf16)
-    rhs = torch.empty_like(rho_ca)
-    call("lbm_cap_rhs", ptr(mac[2]), ptr(magnetic_flags), ptr(rhs), *dims,
-         ctypes.c_int(axis), ctypes.c_double(hm), ctypes.c_double(tau_mag),
-         ctypes.c_double(dx), ctypes.c_double(dt), gas[2], gas[3], st)
-    count_launch(lbm_capillogue, bf16)
-    return f_out, g_out, vel, pres, den, mac + (rhs,)
+    count_launch(lbm_capillogue, bf16, form)
+    if emit_rhs is not None:
+        axis, hm, tau_mag = emit_rhs
+        rhs = torch.empty_like(rho_ca)
+        call("lbm_cap_rhs", ptr(mac[2]), ptr(magnetic_flags), ptr(rhs), *dims,
+             ctypes.c_int(axis), ctypes.c_double(hm), ctypes.c_double(tau_mag),
+             ctypes.c_double(dx), ctypes.c_double(dt), gas[2], gas[3], st)
+        count_launch(lbm_capillogue, bf16)
+        mac = mac + (rhs,)
+    return (f_out, g_out, vel, pres, den, mac) + ((force,) if emit_force else ())
+
+
+def launches_per_call(emit_rhs) -> int:
+    """Launches of one :func:`lbm_capillogue` call: ``N_LAUNCHES``, or one
+    fewer in the box form (no source emitted)."""
+    return N_LAUNCHES if emit_rhs is not None else N_LAUNCHES - 1
 
 
 lbm_capillogue.launches = 0
 lbm_capillogue.launches_bf16 = 0
+lbm_capillogue.launches_box = 0

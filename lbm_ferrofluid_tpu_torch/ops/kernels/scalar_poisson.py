@@ -1,7 +1,8 @@
 """B1: the tau == 1 scalar Poisson sweeps with the in-kernel H2 emission.
 
 Replaces the TPU kernel ``lbm_ferrofluid_tpu/ops/pallas/scalar_poisson.py:
-scalar_wavefront`` (:562) with ``emit="h2"``.  The CUDA source is
+scalar_wavefront`` (:562) with ``emit="h2"`` and ``emit="psi"``.  The CUDA
+source is
 ``csrc/scalar_poisson.cu``.  A call runs the sweeps as passes of k sweeps,
 each one launch of a z-wavefront (the TPU's schedule rethought for a
 227 KB SM): a block holds an (x, y) tile with a k-cell halo and walks its
@@ -10,7 +11,11 @@ memory.  A pass runs k = ``K`` = 3 sweeps on 26 x 28 tiles, and a
 remainder pass ``n_iters mod 3`` with the same kernel; :func:`plan` picks
 the z chunk for the card's SM count.  The last pass also writes psi, and
 one more launch composes H2 = |h_ext - grad psi_sub|^2.  A call is
-:func:`launches_per_call` launches: 11 at 30 sweeps.  The sweeps keep the
+:func:`launches_per_call` launches: 11 at 30 sweeps.  The psi form
+(``emit="psi"``) stops after the passes and returns psi, for callers that
+compose H2 on a physical box of a padded layout (JAX
+``models/ferrofluid.py:_h2_box``), where :func:`scalar_h2` runs the H2
+launch alone on the box.  The sweeps keep the
 grouped tap order ``A·W1 + D·W2 + c·s_prev`` of ``_cmask_sweeps_jnp``.
 
 Bound on an H100 (card peaks from NVIDIA's data sheet): see :func:`cost`;
@@ -30,7 +35,7 @@ import torch
 from ...utils.types import CellType
 from ..magnetic import maybe_h2
 from ..stencils import isotropic_grad
-from ._lib import call, check_cuda, check_no_grad, ptr, stream_of
+from ._lib import call, check_cuda, check_no_grad, count_launch, ptr, stream_of
 
 __all__ = [
     "ScalarPlan",
@@ -41,6 +46,7 @@ __all__ = [
     "scalar_wavefront_plain",
     "scalar_sweeps_plain",
     "h2_from_psi_plain",
+    "scalar_h2",
     "cost",
 ]
 
@@ -135,29 +141,40 @@ def plan(Z: int, Y: int, X: int, n_iters: int, sms: int) -> ScalarPlan:
     return ScalarPlan(k, TY, lz, ps)
 
 
-def launches_per_call(n_iters: int, shape) -> int:
+def launches_per_call(n_iters: int, shape, emit: str = "h2") -> int:
     """Launches of one :func:`scalar_wavefront` call on a grid of ``shape``
-    (its last three entries are Z, Y, X): the passes and H2."""
+    (its last three entries are Z, Y, X): the passes, and H2 unless
+    ``emit="psi"``."""
     _check(*shape[-3:], n_iters)
-    return len(passes(n_iters)) + 1
+    return len(passes(n_iters)) + (emit == "h2")
 
 
-def cost(s2, cmask, rhs_scaled, *, n_iters, **_) -> tuple[int, int]:
+def cost(s2, cmask, rhs_scaled, *, n_iters, emit="h2", **_) -> tuple[int, int]:
     """(bytes, flops) that a call on these inputs must move and do.
 
     Bytes: s and cmask read at every cell, s_prev only where c > 0 (the
     wall-adjacent fluid cells) and rhs only at fluid cells (s' is 0 at
-    obstacles); s', s_prev' and H2 written at every cell.  Flops: per
-    sweep 20 per fluid cell (5 + 11 tap adds, 2 multiplies and 2 adds for
-    psi, 1 for s') and 2 more where c > 0 (c * s_prev); for H2, 36 per
-    interior cell (the gradient; the ring replicates it) and 8 per cell."""
+    obstacles); s', s_prev' and H2 (psi in the psi form) written at every
+    cell.  Flops: per sweep 20 per fluid cell (5 + 11 tap adds, 2
+    multiplies and 2 adds for psi, 1 for s') and 2 more where c > 0
+    (c * s_prev); for H2 (not in the psi form) :func:`cost_h2`."""
     n = cmask.numel()
     n_fluid = int((cmask >= 0).sum())
     n_wall = int((cmask > 0).sum())
-    Z, Y, X = cmask.shape[-3:]
     nbytes = 20 * n + 4 * (n_fluid + n_wall)
-    nflops = n_iters * (20 * n_fluid + 2 * n_wall) + 36 * (Z - 2) * (Y - 2) * (X - 2) + 8 * n
+    nflops = n_iters * (20 * n_fluid + 2 * n_wall)
+    if emit == "h2":
+        nflops += cost_h2(cmask, cmask)[1]
     return nbytes, nflops
+
+
+def cost_h2(psi, cmask, **_) -> tuple[int, int]:
+    """(bytes, flops) of :func:`scalar_h2`: psi and cmask read and H2
+    written at every cell; 36 flops per interior cell (the gradient; the
+    ring replicates it) and 8 per cell."""
+    Z, Y, X = cmask.shape[-3:]
+    n = cmask.numel()
+    return 12 * n, 36 * (Z - 2) * (Y - 2) * (X - 2) + 8 * n
 
 
 def scalar_sweeps_plain(s2, cmask, rhs_scaled, n_iters):
@@ -189,31 +206,38 @@ def h2_from_psi_plain(psi, cmask, dx, h_ext):
     return maybe_h2(-isotropic_grad(psi, dx, flags), h_ext)
 
 
-def scalar_wavefront_plain(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext):
+def scalar_wavefront_plain(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext=None,
+                           emit="h2"):
     """Plain PyTorch version of :func:`scalar_wavefront`."""
     s2, psi = scalar_sweeps_plain(s2, cmask, rhs_scaled, n_iters)
+    if emit == "psi":
+        return s2, psi
     return s2, h2_from_psi_plain(psi, cmask, dx, h_ext)
 
 
-def scalar_wavefront(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext):
+def scalar_wavefront(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext=None, emit="h2"):
     """``n_iters`` scalar sweeps on the fused (s, s_prev) pair, then H2.
 
     ``s2``: [1, 2, Z, Y, X] float32, both channels fluid-masked;
     ``cmask``: [1, 1, Z, Y, X] float32, -1 at obstacles, c(x) >= 0 at fluid
     cells; ``rhs_scaled``: [1, 1, Z, Y, X] float32; ``h_ext`` a 3-tuple.
-    Returns (s2', H2).  CPU tensors take the plain version; CUDA tensors
-    launch the kernel; anything else raises.  Inputs are not modified.
+    Returns (s2', H2), or with ``emit="psi"`` (s2', psi of the last sweep)
+    and no H2 launch (``h_ext`` unused).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel; anything else raises.  Inputs
+    are not modified.
     """
+    if emit not in ("h2", "psi"):
+        raise ValueError(f"scalar_wavefront emits 'h2' or 'psi', not {emit!r}")
     if s2.device.type == "cpu":
         return scalar_wavefront_plain(
-            s2, cmask, rhs_scaled, n_iters=n_iters, dx=dx, h_ext=h_ext
+            s2, cmask, rhs_scaled, n_iters=n_iters, dx=dx, h_ext=h_ext, emit=emit
         )
     check_no_grad("scalar_wavefront", s2, cmask, rhs_scaled)
     B, C, Z, Y, X = s2.shape
     check_cuda("s2", s2, torch.float32, (1, 2, Z, Y, X))
     check_cuda("cmask", cmask, torch.float32, (1, 1, Z, Y, X))
     check_cuda("rhs_scaled", rhs_scaled, torch.float32, (1, 1, Z, Y, X))
-    if min(Z, Y, X) < 3 or n_iters < 1 or len(h_ext) != 3:
+    if min(Z, Y, X) < 3 or n_iters < 1 or (emit == "h2" and len(h_ext) != 3):
         raise ValueError("scalar_wavefront needs Z, Y, X >= 3, n_iters >= 1 and a 3-tuple h_ext")
     pl = plan(Z, Y, X, n_iters, torch.cuda.get_device_properties(s2.device).multi_processor_count)
     out = torch.empty_like(s2)
@@ -221,22 +245,45 @@ def scalar_wavefront(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext):
     # each pass reads the pair the one before it wrote, and the last writes out
     tmp = torch.empty_like(s2) if len(pl.passes) > 1 else None
     psi = torch.empty_like(cmask)
-    h2 = torch.empty_like(cmask)
     dims = (ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X))
     st = stream_of(s2)
     src = s2
+    form = "psi" if emit == "psi" else None
     for i, k in enumerate(pl.passes):
         after = len(pl.passes) - 1 - i
         dst = out if after % 2 == 0 else tmp
         call("lbm_scalar_pass", ptr(src[:, 0]), ptr(src[:, 1]), ptr(cmask), ptr(rhs_scaled),
              ptr(dst[:, 0]), ptr(dst[:, 1]), ptr(None if after else psi), *dims,
              ctypes.c_int(k), ctypes.c_int(pl.ty), ctypes.c_int(pl.lz), st)
-        scalar_wavefront.launches += 1
+        count_launch(scalar_wavefront, False, form)
         src = dst
-    call("lbm_scalar_h2", ptr(psi), ptr(cmask), ptr(h2), *dims,
-         ctypes.c_double(dx), *(ctypes.c_double(float(v)) for v in h_ext), st)
-    scalar_wavefront.launches += 1
-    return out, h2
+    if emit == "psi":
+        return out, psi
+    return out, scalar_h2(psi, cmask, dx, h_ext)
+
+
+def scalar_h2(psi, cmask, dx, h_ext):
+    """H2 = |h_ext - grad(psi_sub)|^2 from psi [1, 1, Z, Y, X] float32 and
+    cmask (its sign marks the obstacles): B1's H2 launch alone, counted
+    with :func:`scalar_wavefront`'s launches.  The psi form's callers run
+    it on the physical box of a padded layout, where the obstacle test
+    ``cmask < 0`` gives the same cells as the magnetic flags of the box.
+    CPU tensors take :func:`h2_from_psi_plain`."""
+    if psi.device.type == "cpu":
+        return h2_from_psi_plain(psi, cmask, dx, h_ext)
+    check_no_grad("scalar_h2", psi, cmask)
+    B, C, Z, Y, X = psi.shape
+    check_cuda("psi", psi, torch.float32, (1, 1, Z, Y, X))
+    check_cuda("cmask", cmask, torch.float32, (1, 1, Z, Y, X))
+    if min(Z, Y, X) < 3 or len(h_ext) != 3:
+        raise ValueError("scalar_h2 needs Z, Y, X >= 3 and a 3-tuple h_ext")
+    h2 = torch.empty_like(cmask)
+    call("lbm_scalar_h2", ptr(psi), ptr(cmask), ptr(h2), ctypes.c_int(Z), ctypes.c_int(Y),
+         ctypes.c_int(X), ctypes.c_double(dx), *(ctypes.c_double(float(v)) for v in h_ext),
+         stream_of(psi))
+    count_launch(scalar_wavefront, False)
+    return h2
 
 
 scalar_wavefront.launches = 0
+scalar_wavefront.launches_psi = 0

@@ -3,7 +3,8 @@
 PyTorch twins of ``lbm_ferrofluid_tpu/ops/magnetic.py``:
 ``_stag_diff_times`` (:36), ``poisson_rhs_scaled`` (:64), ``_maybe_h2``
 (:104), ``magnetic_sweep`` (:122), the scalar branch of
-``solve_H_int_scalar`` (:167) and ``solve_H_int`` (:313).  The Chai (2007)
+``solve_H_int_scalar`` (:167), ``solve_psi_scalar`` (:261) and
+``solve_H_int`` (:313).  The Chai (2007)
 Poisson-LBM solve (reference LBM_magnetic_3d.py:108-188):
 
 * psi  = Σ_{q>0} h_q / (1 - w_0)
@@ -39,8 +40,8 @@ from .scalar_poisson import scalar_sweeps_exact
 from .stream import bounce_back, stream
 
 __all__ = [
-    "poisson_rhs_scaled", "magnetic_sweep", "solve_H_int", "solve_H_int_scalar", "maybe_h2",
-    "h_int_from_psi",
+    "poisson_rhs_scaled", "magnetic_sweep", "solve_H_int", "solve_H_int_scalar",
+    "solve_psi_scalar", "maybe_h2", "h_int_from_psi",
 ]
 
 
@@ -211,3 +212,19 @@ def solve_H_int_scalar(s2, cmask, rhs_scaled, *, n_iters=30, dx=1.0, h2_ext,
     s2, H2 = fn(s2, cmask, rhs_scaled, n_iters=n_iters, dx=dx,
                 h_ext=tuple(float(v) for v in h2_ext))
     return H2, s2
+
+
+def solve_psi_scalar(s2, cmask, rhs_scaled, *, n_iters=30, plain=False):
+    """Scalar-collapse sweeps at tau == 1 without the gradient composition
+    (JAX ``solve_psi_scalar`` :261-311); returns (psi of the last sweep,
+    s2').  For the padded transposed layout, whose caller composes H2 on
+    the physical box (``models/ferrofluid.py:_h2_box``).  3D: B1's psi
+    form (``ops/kernels/scalar_poisson.py``) on CUDA tensors, its plain
+    version on CPU tensors or when ``plain`` is set; the JAX package runs
+    its exact-order jnp sweeps off the TPU, whose grouping differs at the
+    ulp level (ROADMAP C)."""
+    from .kernels.scalar_poisson import scalar_wavefront, scalar_wavefront_plain
+
+    fn = scalar_wavefront_plain if plain else scalar_wavefront
+    s2, psi = fn(s2, cmask, rhs_scaled, n_iters=n_iters, emit="psi")
+    return psi, s2

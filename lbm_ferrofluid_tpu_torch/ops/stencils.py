@@ -37,14 +37,30 @@ def _sh(x, off):
     return x[tuple(idx)]
 
 
-def rep_pad_interior(x):
+def _ring_index(n, b, device):
+    """Indices that replace cells 0 and ``b - 1`` of an axis of ``n`` cells
+    by cells 1 and ``b - 2``; cells past ``b - 1`` keep their own.  For
+    ``b == n`` (n >= 3) this is the clamp to the interior."""
+    idx = torch.arange(n, device=device)
+    idx[0] = 1
+    idx[b - 1] = b - 2
+    return idx
+
+
+def rep_pad_interior(x, bounds=None):
     """Boundary ring replaced by the nearest interior value (the reference's
     replicate pad of the interior ``x[..., 1:-1, ..., 1:-1]``) over the
-    spatial axes, those after [B, C]."""
-    for ax in range(2, x.ndim):
-        n = x.shape[ax]
-        idx = torch.clamp(torch.arange(n, device=x.device), 1, n - 2)
-        x = torch.index_select(x, ax, idx)
+    spatial axes, those after [B, C].
+
+    ``bounds = (by, bx)`` puts the in-plane ring at the faces of a
+    physical box ``[..., :by, :bx]`` of a padded 3D array
+    (``params.phys_extent``): rows ``by - 1`` and columns ``bx - 1`` take
+    rows ``by - 2`` and columns ``bx - 2``, cells past the box keep their
+    own values, and z keeps its array ring (JAX
+    ``ops/pallas/stencil3d.py:_ring_replicate_plane``)."""
+    hi = x.shape[2:] if bounds is None else (x.shape[2], *bounds)
+    for ax, b in zip(range(2, x.ndim), hi):
+        x = torch.index_select(x, ax, _ring_index(x.shape[ax], b, x.device))
     return x
 
 
@@ -59,16 +75,19 @@ def fix_ring_replicate(x):
     return x
 
 
-def isotropic_grad(x, dx, flags):
+def isotropic_grad(x, dx, flags, bounds=None):
     """Isotropic central gradient [B, 1, *res] -> [B, dim, *res].
 
     On OBSTACLE cells the input is first replaced by its nearest-interior
     value, the 9-point (2D) or 19-point (3D) stencil is evaluated on the
     interior and replicate-padded back out (reference:
-    LBM_collision_2d.py:183-227, LBM_collision_3d.py:209-279)."""
+    LBM_collision_2d.py:183-227, LBM_collision_3d.py:209-279).  With
+    ``bounds`` the substitution takes its nearest-interior value at the
+    physical box faces (:func:`rep_pad_interior`); the output ring stays
+    at the array faces, as the TPU capillogue's box form has it."""
     if x.shape[1] != 1:
         raise ValueError("isotropic_grad expects a single-channel field")
-    xn = substitute_obstacles(x, flags)
+    xn = substitute_obstacles(x, flags, bounds)
     if x.ndim == 4:
         return F.pad(torch.cat(_iso_grad_taps_2d(xn, dx), dim=1), (1, 1, 1, 1),
                      mode="replicate")
@@ -87,11 +106,12 @@ def _iso_grad_taps_2d(xn, dx):
     return gx, gy
 
 
-def substitute_obstacles(x, flags):
-    """``x`` with OBSTACLE cells replaced by the edge-replicated interior:
-    the gradients' input substitution (JAX ``isotropic_grad`` and the
-    stencil kernels' callers, e.g. ``solve_H_int`` :467-473)."""
-    return torch.where(flags == int(CellType.OBSTACLE), rep_pad_interior(x), x)
+def substitute_obstacles(x, flags, bounds=None):
+    """``x`` with OBSTACLE cells replaced by the edge-replicated interior
+    (at the box faces of ``bounds``, see :func:`rep_pad_interior`): the
+    gradients' input substitution (JAX ``isotropic_grad`` and the stencil
+    kernels' callers, e.g. ``solve_H_int`` :467-473)."""
+    return torch.where(flags == int(CellType.OBSTACLE), rep_pad_interior(x, bounds), x)
 
 
 def grad_ring_replicate(x, dx):
@@ -137,12 +157,26 @@ def _iso_grad_taps(xn, dx):
     return gx, gy, gz
 
 
-def isotropic_laplacian(x, dx):
+def isotropic_laplacian(x, dx, bounds=None):
     """Isotropic Laplacian, zero-padded at the boundary ring: 2D
     (4·Σ_face + Σ_diag − 20·C) / (5 dx²), with the reference's /5 where an
     isotropic stencil has /6, kept for field parity
     (LBM_collision_2d.py:229-256); 3D (2·Σ_face + Σ_edge − 24·C) / (6 dx²)
-    (LBM_collision_3d.py:281-318)."""
+    (LBM_collision_3d.py:281-318).
+
+    With ``bounds = (by, bx)`` (3D) the in-plane zero ring lies at the
+    physical box faces (rows 0 and ``by - 1``, columns 0 and ``bx - 1``),
+    and cells past the box take the stencil with in-plane reads clamped to
+    the array, as the TPU capillogue's box form fills them (JAX
+    ``ops/pallas/capillogue.py:fill_lap``)."""
+    if bounds is not None:
+        Z, Y, X = x.shape[-3:]
+        lap = isotropic_laplacian(F.pad(x, (1, 1, 1, 1, 0, 0), mode="replicate"), dx)
+        lap = lap[..., 1:-1, 1:-1]
+        y = torch.arange(Y, device=x.device).reshape(Y, 1)
+        xi = torch.arange(X, device=x.device)
+        ring = (y == 0) | (y == bounds[0] - 1) | (xi == 0) | (xi == bounds[1] - 1)
+        return torch.where(ring, torch.zeros((), dtype=x.dtype, device=x.device), lap)
 
     def S(*off):
         return _sh(x, off)

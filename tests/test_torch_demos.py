@@ -188,11 +188,20 @@ def test_two_droplets_plt_at_step_400(tmp_path, monkeypatch):
 
 
 def test_tpu_layout_and_phys_view_name_a8(tmp_path):
+    """``--tpu_layout 1`` (the padded transposed layout, ROADMAP A8) runs 2
+    steps on the CPU at a small grid and writes its frames and OBJ through
+    ``phys_view``: the final state is the padded one, and its physical
+    view is the box; the plain layout's view is the field itself."""
     from lbm_ferrofluid_tpu_torch.demo import demo_3d_LBM_Rosensweig_instability as demo
 
-    with pytest.raises(NotImplementedError, match="A8"):
-        demo.main(["--tpu_layout", "1", "--device", "cpu", "--out_dir", str(tmp_path)])
+    state = demo.main(["--tpu_layout", "1", "--device", "cpu", "--res", *map(str, RES3),
+                       "--total_steps", "2", "--io_interval", "2", "--image_size", "32",
+                       "--out_dir", str(tmp_path)])
+    params, _ = tscenes.rosensweig_3d_tpu(RES3, device="cpu")
+    assert tuple(state.density.shape[2:]) == (10, 16, 128) and int(state.step) == 2
+    assert tscenes.phys_view(params, state.density).shape == (1, 1, *RES3)
+    frames = sorted(p.name for p in (tmp_path).glob("*.png"))
+    assert frames == ["00000.png", "00002.png"]
+    assert (tmp_path / demo.OBJ_NAME).stat().st_size > 0
     params, state = tscenes.rosensweig_3d(RES3, device="cpu")
     assert tscenes.phys_view(params, state.density) is state.density
-    with pytest.raises(NotImplementedError, match="A8"):
-        tscenes.phys_view(params.replace(phys_extent=(4, 4, 4)), state.density)

@@ -198,10 +198,39 @@ _UNSUPPORTED = {
     "KBC": (dict(kbc_type=0b10000101), "D2Q9 only"),
     "float16 f/g": (dict(fg_dtype="float16"), "'float16'.*no float16 mode"),
     "float16 h": (dict(h_dtype="float16"), "'float16'.*no float16 mode"),
-    "phys_extent": (dict(phys_extent=(6, 8, 10)), "ROADMAP A8"),
-    # the JAX step runs an out-of-plane field only on the padded layout
-    "h_ext_axis=2": (dict(h_ext_axis=2), "ROADMAP A8"),
+    # a padded layout needs gravity and the field along array z, which the
+    # JAX package does not check (ADVICE.md:4); this scene has both on y
+    "phys_extent": (dict(phys_extent=(6, 8, 10)), "gravity_axis=2 and h_ext_axis=2"),
 }
+
+
+@pytest.mark.parametrize("route", ["capillogue", "uncarried"])
+def test_out_of_plane_field_matches_jax_step(route):
+    """An out-of-plane field (``h_ext_axis=2``) on the plain layout: the
+    port primes a 5-leaf premac and steps B3's box form without bounds
+    (``emit_rhs=None``, force written) or, un-carried, B4 + B6 + B5, the
+    source recomputed each step along array z; 3 steps against 3 JAX
+    steps on the same state (primed on the CPU: the scalar carry only) at
+    this file's 2e-5, h through ``compare_views``."""
+    jp0, js0 = jscenes.rosensweig_3d(res=RES)
+    jp = jp0.replace(h_ext_axis=2)
+    js = jff.init_ferrofluid_state(jp, js0.rho, js0.density, js0.vel, js0.flags,
+                                   js0.magnetic_flags)
+    pp = SimulationParams.from_json(jp.to_json())
+    ps = from_numpy(_jax_fields(js), device="cpu")
+    ps = prime_premac(pp, ps, device="cpu")
+    assert len(ps.premac) == 5 and ps.force is not None and ps.phi is not None
+    if route == "uncarried":
+        ps = ps.replace(premac=None)
+    js = jff.prime_premac(jp, js)
+    for _ in range(3):
+        js = jff.ferrofluid_step_impl(jp, js)
+        ps = ferrofluid_step(pp, ps, device="cpu")
+    assert (ps.premac is None) == (route == "uncarried")
+    for name in ("f", "g", "density", "vel", "pressure", "force"):
+        r = rel(getattr(ps, name), getattr(js, name))
+        assert r <= 2e-5, f"{name}: max rel dev {r:.2e}"
+    assert rel(ps.h, js.h) <= 2e-5
 
 
 @pytest.mark.parametrize("case", sorted(_UNSUPPORTED))

@@ -161,6 +161,7 @@ def _entry_points():
         multiphase_3d,
         prime_premac,
         rosensweig_3d,
+        rosensweig_3d_tpu,
         two_droplets_3d,
     )
 
@@ -188,6 +189,9 @@ def _entry_points():
             params, prime_premac(params, state, device="cpu")),
         "ferrofluid_step (epilogue steady state)": lambda params, state: ferrofluid_step(
             params, state.replace(premac=prime_premac(params, state, device="cpu").premac[:5])),
+        "rosensweig_3d_tpu": lambda params, state: rosensweig_3d_tpu(res=(6, 8, 10)),
+        "ferrofluid_step (padded layout)": lambda params, state: ferrofluid_step(
+            *_padded_primed()),
         "hcz_step": hcz,
         "SimulationRunner": lambda params, state: SimulationRunner(params, ferrofluid_step),
         "SoftRenderer": lambda params, state: _render().SoftRenderer(image_size=8),
@@ -201,6 +205,13 @@ def _entry_points():
         "compat.SimulationRunner": lambda params, state: _compat().SimulationRunner(
             _compat().SimulationParameters(dim=2)),
     }
+
+
+def _padded_primed():
+    from lbm_ferrofluid_tpu_torch.models import prime_premac, rosensweig_3d_tpu
+
+    params, state = rosensweig_3d_tpu(res=(6, 8, 10), device="cpu")
+    return params, prime_premac(params, state, device="cpu")
 
 
 #: an artifact directory the entry points must raise before creating
@@ -292,3 +303,28 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
                                        gravity=torch.zeros(1, 3, 1, 1, 1, device="meta"),
                                        **gas)
     assert all(v == 0 for v in kernels.launch_counts().values())
+
+
+def test_new_forms_refuse_non_cpu_non_cuda_tensors():
+    """B1's psi form and its H2 launch alone, and B3's box form, take CUDA
+    tensors or CPU tensors (their plain versions) and nothing else."""
+    from lbm_ferrofluid_tpu_torch.ops import kernels
+    from lbm_ferrofluid_tpu_torch.ops.kernels import scalar_poisson
+
+    z = torch.zeros((1, 1, 6, 8, 10), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.scalar_wavefront(torch.zeros((1, 2, 6, 8, 10), device="meta"), z, z,
+                                 n_iters=2, emit="psi")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        scalar_poisson.scalar_h2(z, z, 1.0, (0.0, 0.0, 1.0))
+    f = torch.zeros((1, 19, 6, 8, 10), device="meta")
+    v = torch.zeros((1, 3, 6, 8, 10), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.lbm_capillogue(f, f, z.to(torch.uint8), z, z, z, z, z, z, v, v, None,
+                               kappa=0.1, gravity=(0.0, 0.0, -1e-4), rho_gas=0.1,
+                               rho_fluid=0.2, density_gas=0.1, density_fluid=0.2, tau_f=0.7,
+                               tau_g=0.7, emit_rhs=None, emit_force=True, bounds=(6, 8))
+    with pytest.raises(ValueError, match="emits 'h2' or 'psi'"):
+        kernels.scalar_wavefront(z, z, z, n_iters=2, emit="grad")
+    assert all(v == 0 for v in kernels.launch_counts().values())
+    assert all(v == 0 for v in kernels.launch_counts(form=True).values())
