@@ -4,7 +4,8 @@
 Run from the repository root with one CUDA card and the CUDA toolkit::
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --scalar-plans   # only B1's plan sweep (256^3, 130x66x130)
+    python3 chip_smoke.py --scalar-plans   # only B1's plan sweeps, single-device and slab
+                                           # rounds (256^3, 130x66x130)
     python3 chip_smoke.py --poisson-plans  # only B11b's plan sweep (256^3, 130x66x130; f32, bf16)
     python3 chip_smoke.py --capillary-plans  # only B6's plan sweep (256^3, 130^3)
     python3 chip_smoke.py --stencil-plans  # only B10a's and B10b's (256^3, 130x66x130)
@@ -14,6 +15,7 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
     python3 chip_smoke.py --compat         # only the grad guard and the compat facade
     python3 chip_smoke.py --dibr --native --inverse  # only those phases (any subset)
     python3 chip_smoke.py --padded         # only the padded transposed layout (66x136x256)
+    python3 chip_smoke.py --sharded        # only the z-slab path over ranks (phase sharded)
     python3 chip_smoke.py --step-time [ROOT]  # ms a step at 130x66x130 of the
                                            # package at ROOT (default: this checkout)
 
@@ -221,7 +223,13 @@ class CheckFailed(Exception):
     pass
 
 
+_T0 = time.monotonic()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line with the seconds since the start."""
+    if "phase" in obj:
+        obj = dict(obj, clock_s=time.monotonic() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -1908,11 +1916,15 @@ def phase_scalar_plans(dev, card):
     chunk counts from 1 to 32 and the count that fills the card once), each
     held bit for bit to the plan ``plan`` chooses (the per-cell arithmetic
     is the same) and timed with CUDA events: the data ``K`` and ``TY`` of
-    ``ops/kernels/scalar_poisson.py`` were chosen from."""
+    ``ops/kernels/scalar_poisson.py`` were chosen from.  Then B1's slab
+    solve on one rank with ``slab=True`` under every round length k that
+    divides the sweeps (G = k + 1 <= Zl), each bit for bit to the chosen
+    one: the data ``parallel/step3d.py:ROUND_CELL_SWEEPS`` was chosen from."""
     import torch
 
     from lbm_ferrofluid_tpu_torch.models import prime_premac, rosensweig_3d
     from lbm_ferrofluid_tpu_torch.ops.kernels import scalar_poisson as sp
+    from lbm_ferrofluid_tpu_torch.parallel import make_mesh, step3d
 
     for res in ((256, 256, 256), (130, 66, 130)):
         Z, Y, X = res
@@ -1947,6 +1959,28 @@ def phase_scalar_plans(dev, card):
               "chosen": dict(k=chosen.k, ty=chosen.ty, lz=chosen.lz,
                              ms=time_cuda(lambda: sp.scalar_wavefront(*args, **kw), 5)),
               "best": min(rows, key=lambda r: r["ms"]), "plans": rows, "ok": True})
+        del want
+        mesh, real = make_mesh(slab=True), step3d.scalar_slab_plan
+        chosen = real(mesh, st.h.shape, n)
+
+        def slab_solve():
+            return step3d.scalar_poisson_sharded(*args, mesh, **kw)
+
+        want = slab_solve()
+        rows = []
+        try:
+            for k in [k for k in range(2, n + 1) if n % k == 0 and k < st.h.shape[2]]:
+                step3d.scalar_slab_plan = lambda *a, k=k: (k, k + 1)
+                got = slab_solve()
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"B1 slab solve in rounds of {k} differs from rounds of {chosen[0]}")
+                rows.append(dict(k=k, rounds=n // k, ms=time_cuda(slab_solve, 5)))
+        finally:
+            step3d.scalar_slab_plan = real
+        emit({"phase": "scalar_slab_plans", "res": list(res), "n_iters": n, "card": card,
+              "chosen": dict(k=chosen[0], ms=time_cuda(slab_solve, 5)),
+              "single_device_ms": time_cuda(lambda: sp.scalar_wavefront(*args, **kw), 5),
+              "best": min(rows, key=lambda r: r["ms"]), "rounds": rows, "ok": True})
         del st, args, want
         torch.cuda.empty_cache()
 
@@ -4087,6 +4121,409 @@ def phase_padded(dev, kernels_pkg, card, steps=30, timed=200):
             "form_launches": total_form, "form_launches16": total_form16}
 
 
+# ---------------------------------------------------------------------------
+# the z-slab path over ranks (phase sharded)
+# ---------------------------------------------------------------------------
+
+#: the slab-forced grids (bench.py's 256^3 at mag 85, the native Rosensweig
+#: grid at its own field) and the gloo jobs: (grid, mag, (batch, z) mesh, batch)
+SHARDED_GRIDS = (((256, 256, 256), 85.0), ((130, 66, 130), None))
+SHARDED_JOBS = (((256, 256, 256), 85.0, (1, 2), 1), ((256, 256, 256), 85.0, (1, 4), 1),
+                ((130, 66, 130), None, (1, 2), 1), ((130, 66, 130), None, (2, 1), 2))
+#: the slab-forced steps once through NCCL: one rank sending its ghosts to
+#: itself (NCCL takes a one-rank group's send to itself)
+NCCL_SELF_JOB = ((256, 256, 256), 85.0, (1, 1), 1)
+#: seconds a rank job's ranks may take, the card shared by all of them
+SHARDED_TIMEOUT = 420
+
+
+def sharded_scene(res, mag, dev, batch=1):
+    from lbm_ferrofluid_tpu_torch.models import rosensweig_3d
+
+    kw = {} if mag is None else {"mag_strength": mag}
+    return rosensweig_3d(res=res, batch=batch, device=dev, **kw)
+
+
+def slab_launches_per_step(K, params, shape, mesh):
+    """Launches a step of each slab form on ``mesh`` (B4 runs at priming
+    only): B1's rounds of passes and its H2, B2 once, B3's four."""
+    from lbm_ferrofluid_tpu_torch.parallel import step3d
+
+    k, _ = step3d.scalar_slab_plan(mesh, step3d.global_shape((1, 2, *shape[2:]), mesh),
+                                   params.poisson_iters)
+    passes = len(K["B1"].module.passes(k))
+    return {"B1": params.poisson_iters // k * passes + 1, "B2": K["B2"].module.N_LAUNCHES,
+            "B3": K["B3"].module.N_LAUNCHES}
+
+
+def meshed_step(mesh):
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step
+
+    return lambda params, state, device=None: ferrofluid_step(params, state, device=device,
+                                                              mesh=mesh)
+
+
+def slab_form_calls(params, st, mesh):
+    """Per slab form: (the slab call as the step makes it on ``mesh``, its
+    plain version, the single-device form on the same inputs, the slab
+    kernel's (bytes, flops)) on the primed slab state ``st``: B4 on its f
+    and g, B1's solve (its rounds and exchanges), B2 on the carried rho,
+    B3 on the step's inputs (H2 and rho_ca from B1 and B2)."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import capillogue, contact3d, fused_step
+    from lbm_ferrofluid_tpu_torch.ops.kernels import scalar_poisson
+    from lbm_ferrofluid_tpu_torch.ops.magnetic import poisson_rhs_scaled
+    from lbm_ferrofluid_tpu_torch.ops.moments import phi_from_density
+    from lbm_ferrofluid_tpu_torch.parallel import step3d
+
+    gas = dict(rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+               density_gas=params.density_gas, density_fluid=params.density_fluid)
+    h_ext = tuple(params.mag_strength if a == params.h_ext_axis else 0.0 for a in range(3))
+    rho, vel, den, m0g, m1g, rhs = st.premac
+    cap_kw = dict(kappa=params.kappa,
+                  gravity=tuple(float(v) for v in params.gravity_vec().reshape(-1)),
+                  tau_f=params.tau_f, tau_g=params.tau_g, dx=params.dx, dt=params.dt,
+                  emit_rhs=(params.h_ext_axis, params.mag_strength, params.tau), **gas)
+    n = params.poisson_iters
+    H2, _ = step3d.scalar_poisson_sharded(st.h, st.cmask, rhs, mesh, n_iters=n, dx=params.dx,
+                                          h_ext=h_ext)
+    rho_ca = step3d.contact3d_sharded(rho, st.flags, params.contact_angle, mesh)
+    fg = step3d._fg_ghosts(st.f, st.g, mesh)
+    fields = (rho, den, st.pressure, rho_ca, st.flags)
+    cap = (step3d.ring_halo(capillogue.cap_bundle(*fields, "lo"), mesh, +1),
+           step3d.ring_halo(capillogue.cap_bundle(*fields, "hi"), mesh, -1))
+    k, G = step3d.scalar_slab_plan(mesh, step3d.global_shape((1, 2, *st.f.shape[2:]), mesh), n)
+    c_ext = step3d._extend(st.cmask, G, mesh)
+    bands = (step3d.ring_halo(st.h[:, :, -G:], mesh, +1),
+             step3d.ring_halo(st.h[:, :, :G], mesh, -1))
+    b1 = [scalar_poisson.cost_slab(st.h, c_ext, c_ext, n_iters=k, emit=emit, ghosts=bands)
+          for emit in [None] * (n // k - 1) + ["h2"]]
+    b1_bytes, b1_flops = (sum(c[i] for c in b1) for i in (0, 1))
+    cap_args = (st.f, st.g, st.flags, rho, den, st.pressure, rho_ca, H2, m0g, m1g, vel,
+                st.magnetic_flags)
+    pro_args = (st.f, st.g, st.flags, st.rho, st.vel)
+    b2g = (step3d.ring_halo(rho[:, :, -1:], mesh, +1), step3d.ring_halo(rho[:, :, :1], mesh, -1))
+
+    def sharded(fn, *args, **kw):
+        return (lambda: fn(*args, mesh, **kw), lambda: fn(*args, mesh, plain=True, **kw))
+
+    def emission(fn, gn, vel_n):
+        """The plain emission (macros and source) from the kernel's own
+        f'/g' and velocity: a bfloat16 flip of f'/g' is not counted twice."""
+        mac = step3d.fused_prologue_sharded(fn, gn, st.flags, rho_ca, vel_n, mesh, plain=True,
+                                            c=params.dx / params.dt, **gas)
+        axis, hm, tau_mag = cap_kw["emit_rhs"]
+        rhs = poisson_rhs_scaled(
+            phi_from_density(mac[2], params.density_gas, params.density_fluid),
+            st.magnetic_flags, tuple(hm if a == axis else 0.0 for a in range(3)), tau=tau_mag,
+            dx=params.dx, dt=params.dt)
+        return tuple(mac) + (rhs,)
+
+    calls = {
+        "B4": (*sharded(step3d.fused_prologue_sharded, *pro_args, c=params.dx / params.dt,
+                        **gas),
+               lambda: fused_step.lbm_prologue(*pro_args, c=params.dx / params.dt, **gas),
+               fused_step.cost_slab(*pro_args, fg)),
+        "B1": (*sharded(step3d.scalar_poisson_sharded, st.h, st.cmask, rhs, n_iters=n,
+                        dx=params.dx, h_ext=h_ext),
+               lambda: scalar_poisson.scalar_wavefront(st.h, st.cmask, rhs, n_iters=n,
+                                                       dx=params.dx, h_ext=h_ext)[::-1],
+               (int(b1_bytes), int(b1_flops))),
+        "B2": (*sharded(step3d.contact3d_sharded, rho, st.flags, params.contact_angle),
+               lambda: contact3d.contact_angle_3d(rho, st.flags, params.contact_angle),
+               contact3d.cost_slab(rho, st.flags, ghosts=b2g)),
+        "B3": (*sharded(step3d.capillogue_sharded, *cap_args, **cap_kw),
+               lambda: capillogue.lbm_capillogue(*cap_args, **cap_kw, emit_force=False),
+               capillogue.cost_slab(*cap_args, ghosts=fg, cap_ghosts=cap, **cap_kw)),
+    }
+    torch.cuda.synchronize()
+    return calls, emission
+
+
+def slab_form_rows(params, st, mesh, what, bf16=False):
+    """Each slab form on the primed slab state: against its plain version
+    (phase 3's bars; bfloat16 outputs within one ulp, as phase 7) and bit
+    for bit against its single-device form on the same inputs (the wrap as
+    ghosts at one rank); ms a call of the slab call, its plain version and
+    the single-device form, and the bound of what the slab call moves."""
+    import torch
+
+    rows = {}
+    calls, emission = slab_form_calls(params, st, mesh)
+    for kid, (slab, plain, single, (nbytes, flops)) in calls.items():
+        got, want, one = slab(), plain(), single()
+        torch.cuda.synchronize()
+        names = OUTPUTS[kid][:len(flat(got))] if kid != "B1" else ["H2", "s2"]
+        if bf16 and kid == "B3":
+            err = {**compare_bf16(f"{what} {kid} slab", names[:2], got[:2], want[:2]),
+                   **compare(f"{what} {kid} slab", names[2:5], got[2:5], want[2:5]),
+                   **compare(f"{what} {kid} slab (emission on its own f'/g')", names[5:],
+                             got[5], emission(got[0], got[1], got[2]))}
+        else:
+            err = compare(f"{what} {kid} slab", names, got, want)
+        bits_equal(f"{what} {kid} slab against its single-device form", names, got, one)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        rows[kid] = {
+            "ms": time_cuda(slab, reps=10), "single_device_ms": time_cuda(single, reps=10),
+            "plain_ms": time_cuda(plain, reps=2),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "flops": int(flops),
+            "max_abs_err": max(v["max_abs_err"] for v in err.values()),
+            "bit_for_bit_to_single_device": True,
+        }
+        torch.cuda.empty_cache()
+    return rows
+
+
+def slab_forced(K, kernels_pkg, params, s0, dev, card, what, steps=30, timed=20, bf16=False):
+    """One rank with ``slab=True`` on the card: prime and ``steps`` meshed
+    steps (launch counters zeroed just before, read just after, exact a
+    step) against as many single-device kernel steps (phase 3's bars; in
+    bfloat16 pointwise within ``BF16_DENSITY``, as phase 7), the slab forms'
+    rows, and ms a step of both routes, timed in turns in this call."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac
+    from lbm_ferrofluid_tpu_torch.parallel import make_mesh, shard_state
+
+    mesh = make_mesh(slab=True)
+    step = meshed_step(mesh)
+    kernels_pkg.reset_launch_counts()
+    sm = prime_premac(params, shard_state(s0, mesh), mesh=mesh)
+    for _ in range(steps):
+        sm = step(params, sm)
+    torch.cuda.synchronize()
+    ids = kernels_pkg.SLAB_FORMS
+    slab_l, all_l = kernels_pkg.launch_counts(ids, slab=True), kernels_pkg.launch_counts()
+    per = slab_launches_per_step(K, params, sm.f.shape, mesh)
+    check_launches(f"{what} slab forms", slab_l, per, steps, extra={"B4": 1})
+    check(all_l == {**{kid: 0 for kid in all_l}, **slab_l},
+          f"{what}: a launch outside the slab forms: {all_l}")
+    ss = prime_premac(params, s0, device=dev)
+    for _ in range(steps):
+        ss = ferrofluid_step(params, ss, device=dev)
+    fields = list(FERRO_FIELDS)
+    if bf16:
+        row = against(f"{what} against single-device", params, sm, ss, fields, True)
+        check(not row["failed"], "; ".join(row["failed"]))
+        errs = {"density_rel": row["density_rel"], "mass_rel": row["mass_rel"]}
+    else:
+        errs = compare(f"{what} against single-device", fields + OUTPUTS["B3"][5:11],
+                       [getattr(sm, n) for n in fields] + list(sm.premac),
+                       [getattr(ss, n) for n in fields] + list(ss.premac))
+    bits = all(torch.equal(getattr(sm, n), getattr(ss, n)) for n in fields)
+    forms = slab_form_rows(params, sm, mesh, what, bf16=bf16)
+    ms = {}
+    for label, fn, s in (("single_device", ferrofluid_step, ss), ("slab", step, sm),
+                         ("slab_again", step, sm), ("single_device_again", ferrofluid_step,
+                                                    ss)):
+        _, st = timed_steps(params, s, fn, dev, timed, warmup=3)
+        ms[label] = st["seconds"] / timed * 1e3
+    emit({"phase": "sharded", "part": "slab_forced", "what": what,
+          "res": list(s0.f.shape[2:]), "steps": steps, "storage": str(sm.f.dtype),
+          "against_single_device": errs, "bit_for_bit_to_single_device": bits,
+          "ms_per_step": ms, "slab_forms": forms, "launches": slab_l,
+          "launches_per_step": per, "card": card, "ok": True})
+    return forms, slab_l
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_rank_job(res, mag, shape, batch, steps=30, slab=False):
+    """One job's ranks as processes on the one card (``--sharded-rank``),
+    torchrun's variables set for each (gloo for several ranks on the card,
+    NCCL for one: ``parallel/mesh.py:default_backend``): their rows, or
+    CheckFailed for a rank that fails or outlasts ``SHARDED_TIMEOUT``
+    (every rank is then stopped).  ``slab``: the mesh's ``slab=True`` (one
+    NCCL rank then sends its ghosts to itself)."""
+    import os
+
+    world = shape[0] * shape[1]
+    job = json.dumps({"res": list(res), "mag": mag, "shape": list(shape), "batch": batch,
+                      "steps": steps, "slab": slab})
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-rank", job],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=str(ROOT)) for r in range(world)]
+    outs, deadline = [], time.monotonic() + SHARDED_TIMEOUT
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise CheckFailed(f"rank job {job}: rank {r} outlasted {SHARDED_TIMEOUT} s")
+            check(p.returncode == 0, f"rank job {job}: rank {r} exited {p.returncode}:\n"
+                  f"{err[-4000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = [json.loads(line.split(" ", 1)[1]) for out in outs for line in out.splitlines()
+               if line.startswith("SHARDED_RANK ")]
+    check(len(results) == world, f"rank job {job}: {len(results)} of {world} ranks reported")
+    return results
+
+
+def sharded_rank(job_json) -> int:
+    """A rank of a job of ``run_rank_job``: joins the group from
+    torchrun's variables, builds the scene on the card, cuts its part,
+    primes and steps it on the mesh (launch counters zeroed just before,
+    read just after, exact a step), gathers, and on rank 0 holds the whole
+    state to as many single-device kernel steps of the same scene (phase
+    3's bars; each batch element on a batch mesh).  Prints its row."""
+    import torch
+    import torch.distributed as dist
+
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac
+    from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+    from lbm_ferrofluid_tpu_torch.parallel import (
+        gather_state, initialize_distributed, make_mesh, ring_halo, shard_state, step3d,
+    )
+
+    job = json.loads(job_json)
+    world = initialize_distributed()
+    try:
+        mesh = make_mesh(("batch", "z"), tuple(job["shape"]), slab=job["slab"])
+        K = kernels_pkg.KERNELS
+        params, whole = sharded_scene(tuple(job["res"]), job["mag"], mesh.device, job["batch"])
+        part = shard_state(whole, mesh)
+        step = meshed_step(mesh)
+        kernels_pkg.reset_launch_counts()
+        st = prime_premac(params, part, mesh=mesh)
+        ring_halo.sent_bytes = 0
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(job["steps"]):
+            st = step(params, st)
+        torch.cuda.synchronize()
+        dist.barrier()
+        seconds = time.perf_counter() - t0
+        launches = kernels_pkg.launch_counts(kernels_pkg.SLAB_FORMS)
+        slab_l = kernels_pkg.launch_counts(kernels_pkg.SLAB_FORMS, slab=True)
+        if step3d.dp_dispatch(mesh):
+            per = {"B1": K["B1"].module.launches_per_call(params.poisson_iters, st.rho.shape),
+                   "B2": 1, "B3": K["B3"].module.N_LAUNCHES}
+            check_launches("batch mesh", launches, per, job["steps"], extra={"B4": 1})
+            check(not any(slab_l.values()), f"batch mesh: slab forms launched: {slab_l}")
+        else:
+            per = slab_launches_per_step(K, params, st.f.shape, mesh)
+            check_launches("z-slab mesh", slab_l, per, job["steps"], extra={"B4": 1})
+            check(launches == slab_l, f"z-slab mesh: launches outside the slab forms {launches}")
+        out = {"rank": mesh.rank, "world": world, "backend": mesh.backend,
+               "launches": launches, "slab_launches": slab_l,
+               "launches_per_step": per, "ms_per_step": seconds / job["steps"] * 1e3,
+               "bytes_sent_per_step": ring_halo.sent_bytes / job["steps"]}
+        got = gather_state(st, mesh)
+        if mesh.rank == 0:
+            one = sharded_scene(tuple(job["res"]), job["mag"], mesh.device)[1]
+            ref = prime_premac(params, one, device=mesh.device.type)
+            for _ in range(job["steps"]):
+                ref = ferrofluid_step(params, ref, device=mesh.device.type)
+            fields = list(FERRO_FIELDS)
+            errs = {}
+            for b in range(job["batch"]):
+                errs[f"batch {b}"] = compare(
+                    f"rank job {job} element {b}", fields + OUTPUTS["B3"][5:11],
+                    [getattr(got, n)[b:b + 1] for n in fields] + [x[b:b + 1] for x in got.premac],
+                    [getattr(ref, n) for n in fields] + list(ref.premac))
+            out["against_single_device"] = errs
+            out["bit_for_bit_to_single_device"] = all(
+                torch.equal(getattr(got, n)[b:b + 1], getattr(ref, n))
+                for n in fields for b in range(job["batch"]))
+    finally:
+        dist.destroy_process_group()
+    print("SHARDED_RANK " + json.dumps(out), flush=True)
+    return 0
+
+
+def phase_sharded(dev, kernels_pkg, card):
+    """The z-slab path of the steady state on the one card (phase
+    ``sharded``): one rank with ``slab=True`` at 256^3 (bench.py's scene)
+    and 130x66x130, float32 and turbo; gloo jobs of 2 and 4 z ranks at
+    256^3 and 2 at 130x66x130, all sharing the card (host-staged gloo
+    transport: a correctness check, not a multi-GPU number), a batch mesh
+    of 2 ranks, and the slab-forced 256^3 steps once through NCCL (one rank
+    sending to itself); the refusal of 4 z ranks at 130x66x130.  Returns
+    the slab forms' rows for the ``kernels`` line."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.parallel import Mesh, shard_state
+
+    K = kernels_pkg.KERNELS
+    launches = {kid: 0 for kid in kernels_pkg.SLAB_FORMS}
+    launches16 = dict(launches)
+    forms = {}
+    for res, mag in SHARDED_GRIDS:
+        params, s0 = sharded_scene(res, mag, dev)
+        rows, used = slab_forced(K, kernels_pkg, params, s0, dev, card, f"slab-forced {res}")
+        if not forms:
+            forms = rows  # the times at 256^3; the largest error of both grids
+        for kid, row in rows.items():
+            forms[kid]["max_abs_err"] = max(forms[kid]["max_abs_err"], row["max_abs_err"])
+        for kid in launches:
+            launches[kid] += used[kid]
+        p16, s16 = turbo(params, s0, dev)
+        _, used16 = slab_forced(K, kernels_pkg, p16, s16, dev, card,
+                                f"slab-forced turbo {res}", steps=10, timed=10, bf16=True)
+        for kid in launches16:
+            launches16[kid] += used16[kid]
+        del s0, s16
+        torch.cuda.empty_cache()
+    _, s130 = sharded_scene((130, 66, 130), None, dev)
+    try:
+        shard_state(s130, Mesh(("batch", "z"), (1, 4), 0, torch.device(dev), "gloo"))
+        raise CheckFailed("130x66x130 on 4 z ranks did not raise")
+    except ValueError as e:
+        refused = str(e)
+    del s130
+    torch.cuda.empty_cache()
+    jobs = []
+    for (res, mag, shape, batch), slab in ([(j, False) for j in SHARDED_JOBS]
+                                          + [(NCCL_SELF_JOB, True)]):
+        t0 = time.perf_counter()
+        ranks = run_rank_job(res, mag, shape, batch, slab=slab)
+        for r in ranks:
+            for kid in launches:
+                launches[kid] += r["slab_launches"][kid]
+        lead = next(r for r in ranks if r["rank"] == 0)
+        check(lead["backend"] == ("nccl" if slab else "gloo"),
+              f"rank job {res} {shape}: backend {lead['backend']}")
+        jobs.append({"res": list(res), "mesh": list(shape), "batch": batch,
+                     "transport": ("nccl, one rank sending its ghosts to itself" if slab
+                                   else "gloo, host-staged, all ranks on one card (not a "
+                                        "multi-GPU number)"),
+                     "ms_per_step": [r["ms_per_step"] for r in ranks],
+                     "bytes_sent_per_step": [r["bytes_sent_per_step"] for r in ranks],
+                     "launches_per_step": lead["launches_per_step"],
+                     "against_single_device": lead["against_single_device"],
+                     "bit_for_bit_to_single_device": lead["bit_for_bit_to_single_device"],
+                     "wall_s": time.perf_counter() - t0})
+    emit({"phase": "sharded", "part": "ranks", "jobs": jobs, "refused_4_ranks_130": refused,
+          "slab_launches": launches, "slab_launches_bf16": launches16, "card": card,
+          "ok": True})
+    return [{
+        "name": f"{kid} {K[kid].wrapper.__name__} slab", "route": "cuda",
+        "source": K[kid].module.CUDA_SOURCE, "replaces": kernels_pkg.SLAB_TPU_KERNELS[kid],
+        "launches": launches[kid], "launches_bf16": launches16[kid],
+        **{key: forms[kid][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "bound_by", "single_device_ms")},
+        "library_ms": None,
+    } for kid in kernels_pkg.SLAB_FORMS]
+
+
 def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     """Phases 3-8; returns one row per kernel for the ``kernels`` line, one
     per bfloat16 form, and one for each of B1's psi and B3's box forms.
@@ -4110,6 +4547,7 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
                 phase_compat(dev, kernels_pkg, smi)]
     padded = phase_padded(dev, kernels_pkg, smi)
     per_path.append(padded["launches"])
+    sharded = phase_sharded(dev, kernels_pkg, smi)
     spikes, spikes16 = phase_spikes(dev, kernels_pkg, smi)
     per_path += [spikes, phase_demo(dev, kernels_pkg, smi), phase_demos(dev, kernels_pkg, smi)]
     phase_dibr(dev, smi)
@@ -4165,7 +4603,7 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
         "library_ms": None,
     } for kid, form, row, launches_key in (
         ("B1", "psi form", "B1", "form_launches"), ("B3", "box form", "B3", "form_launches"),
-        ("B3", "box form bf16", "B3 bf16", "form_launches16"))]
+        ("B3", "box form bf16", "B3 bf16", "form_launches16"))] + sharded
 
 
 def phase_step_time(dev, card, repeats=5):
@@ -4189,6 +4627,8 @@ def phase_step_time(dev, card, repeats=5):
 def main() -> int:
     import torch
 
+    if "--sharded-rank" in sys.argv[1:]:
+        return sharded_rank(sys.argv[sys.argv.index("--sharded-rank") + 1])
     if "--step-time" in sys.argv[1:]:
         at = sys.argv.index("--step-time") + 1
         if at < len(sys.argv) and not sys.argv[at].startswith("--"):
@@ -4241,6 +4681,10 @@ def main() -> int:
     elif "--padded" in sys.argv[1:]:
         phase_padded(dev, kernels_pkg, smi)
         print(smi, flush=True)
+    elif "--sharded" in sys.argv[1:]:
+        rows = phase_sharded(dev, kernels_pkg, smi)
+        print(smi, flush=True)
+        emit({"kernels": rows})
     elif {"--compat", "--dibr", "--native", "--inverse"} & set(sys.argv[1:]):
         if "--compat" in sys.argv[1:]:
             phase_grad_guard(dev, kernels_pkg)

@@ -366,6 +366,50 @@ __device__ __forceinline__ void lbm_pull_at(const T* __restrict__ d, long long N
   for (int q = 0; q < 19; ++q) post[q] = obs ? s[opp[q]] : s[q];
 }
 
+// lbm_pull_at on a slab of a z-decomposed domain: plane 0 pulls its z-1
+// channels (9-13) from the ghost plane lo, and plane Z - 1 its z+1 channels
+// (14-18) from hi, instead of the wrap.  lo and hi hold those 5 channels of
+// the neighbours' edge planes, [5, Y, X] each (NP = Y X), channel q at
+// (q - 9) NP or (q - 14) NP.
+template <class T>
+__device__ __forceinline__ void lbm_pull_slab(const T* __restrict__ d, const T* __restrict__ lo,
+                                              const T* __restrict__ hi, long long N, long long NP,
+                                              long long i, int z, int Z, const LbmPullOffsets& o,
+                                              bool obs, float post[19]) {
+  const int ex[19] = LBM_D3Q19_EX;
+  const int ey[19] = LBM_D3Q19_EY;
+  const int ez[19] = LBM_D3Q19_EZ;
+  const int opp[19] = LBM_D3Q19_OPP;
+  const long long ip = i - static_cast<long long>(z) * NP;
+  float s[19];
+#pragma unroll
+  for (int q = 0; q < 19; ++q) {
+    long long off = 0;
+    if (ex[q] != 0) off += ex[q] == 1 ? o.xm : o.xp;
+    if (ey[q] != 0) off += ey[q] == 1 ? o.ym : o.yp;
+    if (ez[q] == 1 && z == 0) {
+      s[q] = lbm_ld(lo + (q - 9) * NP + ip + off);
+    } else if (ez[q] == -1 && z == Z - 1) {
+      s[q] = lbm_ld(hi + (q - 14) * NP + ip + off);
+    } else {
+      if (ez[q] != 0) off += ez[q] == 1 ? o.zm : o.zp;
+      s[q] = lbm_ld(d + q * N + i + off);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 19; ++q) post[q] = obs ? s[opp[q]] : s[q];
+}
+
+// Value of a scalar field at plane z of a slab of Z planes, in-plane index
+// ip: the slab's own planes from v, planes -depth..-1 from lo and Z..Z +
+// depth - 1 from hi (the neighbours' edge planes, in z order).
+template <class T>
+__device__ __forceinline__ T lbm_slab_at(const T* __restrict__ v, const T* __restrict__ lo,
+                                         const T* __restrict__ hi, int depth, int z, int Z,
+                                         long long ip, long long NP) {
+  return z < 0 ? lo[(z + depth) * NP + ip] : (z >= Z ? hi[(z - Z) * NP + ip] : v[z * NP + ip]);
+}
+
 // ---- channel-form Poisson sweep (ops/pallas/poisson.py:_sweep_math :69) ----
 // One sweep at a cell from its 19 pulled, pre-bounce values s: psi =
 // f32(1/(1 - w0)) (s_1 + ... + s_18), summed in ascending q; then at an
@@ -533,28 +577,37 @@ __device__ __forceinline__ void lbm_hcz_collide_g(const LbmHczCell& h, const Lbm
 // For stencils evaluated at the interior cell nearest to each cell (the
 // TPU kernels' ring rule).  A block owns a TX x TY (x, y) tile at (x0, y0)
 // and walks the planes [z0, z1).  A cell at z taps the planes zc - 1, zc,
-// zc + 1 with zc = clamp(z, 1, Z - 2); the ring keeps plane p in slot p % 3.
-// load(p) fills slot p % 3 with plane p of the tile and its 1-cell halo
-// (the whole block takes part: see lbm_halo_cells); cell(z, sm, s0, sp)
-// runs for the block's cells inside the grid (active), with the slots of
-// zc - 1, zc and zc + 1.
+// zc + 1 with zc = clamp(z, zlo, zhi): zlo = 1 and zhi = Z - 2 on a whole
+// domain; on a slab of a z-decomposed one the clamp holds only at the
+// domain's true edges, and zlo = -1 or zhi = Z where the slab has a
+// neighbour (its ghost planes -1 and Z are then tapped).  The ring keeps
+// plane p in slot p mod 3.  load(p) fills slot p mod 3 with plane p of the
+// tile and its 1-cell halo (the whole block takes part: see
+// lbm_halo_cells); cell(z, sm, s0, sp) runs for the block's cells inside
+// the grid (active), with the slots of zc - 1, zc and zc + 1.
 template <class Load, class Cell>
-__device__ __forceinline__ void lbm_zwalk(int z0, int z1, int Z, bool active, Load load,
-                                          Cell cell) {
-  int hi = lbm_clamp(z0, 1, Z - 2) + 1;
+__device__ __forceinline__ void lbm_zwalk(int z0, int z1, int zlo, int zhi, bool active,
+                                          Load load, Cell cell) {
+  int hi = lbm_clamp(z0, zlo, zhi) + 1;
   load(hi - 2);
   load(hi - 1);
   load(hi);
   __syncthreads();
   for (int z = z0; z < z1; ++z) {
-    const int zc = lbm_clamp(z, 1, Z - 2);
+    const int zc = lbm_clamp(z, zlo, zhi);
     if (zc + 1 > hi) {  // the same for the whole block
       __syncthreads();
       load(++hi);
       __syncthreads();
     }
-    if (active) cell(z, (zc - 1) % 3, zc % 3, (zc + 1) % 3);
+    if (active) cell(z, lbm_mod(zc - 1, 3), lbm_mod(zc, 3), lbm_mod(zc + 1, 3));
   }
+}
+
+template <class Load, class Cell>
+__device__ __forceinline__ void lbm_zwalk(int z0, int z1, int Z, bool active, Load load,
+                                          Cell cell) {
+  lbm_zwalk(z0, z1, 1, Z - 2, active, load, cell);
 }
 
 // The ring's first row (or column) for a tile starting at t0 on an axis of
@@ -575,12 +628,14 @@ __device__ __forceinline__ int lbm_box_rep(int v, int b) {
 // at (x0, y0), spread over the block's TX x TY threads: f(ey, ex, n, c) with
 // the cell's index n and the index c of the interior cell nearest to it,
 // in a box of by x bx cells in (y, x) (B3's box form; the grid itself in
-// the overload without them).  Ring cells outside the grid are never
-// tapped; they stand on the nearest grid cell.
+// the overloads without them), its plane clamped to [zlo, zhi] (lbm_zwalk;
+// [1, Z - 2] in the overloads without them).  On a slab p may be -1 or Z,
+// and n and c then index before or past the slab's planes.  Ring cells
+// outside the grid are never tapped; they stand on the nearest grid cell.
 template <int TX, int TY, class F>
-__device__ __forceinline__ void lbm_halo_cells(int p, int x0, int y0, int Z, int Y, int X, int by,
-                                               int bx, F f) {
-  const int pc = lbm_clamp(p, 1, Z - 2);
+__device__ __forceinline__ void lbm_halo_cells_clamped(int p, int x0, int y0, int zlo, int zhi,
+                                                       int Y, int X, int by, int bx, F f) {
+  const int pc = lbm_clamp(p, zlo, zhi);
   const int rx0 = lbm_ring_origin(x0, X), ry0 = lbm_ring_origin(y0, Y);
   for (int e = threadIdx.y * TX + threadIdx.x; e < (TY + 2) * (TX + 2); e += TX * TY) {
     const int ey = e / (TX + 2), ex = e - ey * (TX + 2);
@@ -588,6 +643,12 @@ __device__ __forceinline__ void lbm_halo_cells(int p, int x0, int y0, int Z, int
     f(ey, ex, lbm_index(p, gy, gx, Y, X),
       lbm_index(pc, lbm_box_rep(gy, by), lbm_box_rep(gx, bx), Y, X));
   }
+}
+
+template <int TX, int TY, class F>
+__device__ __forceinline__ void lbm_halo_cells(int p, int x0, int y0, int Z, int Y, int X, int by,
+                                               int bx, F f) {
+  lbm_halo_cells_clamped<TX, TY>(p, x0, y0, 1, Z - 2, Y, X, by, bx, f);
 }
 
 template <int TX, int TY, class F>

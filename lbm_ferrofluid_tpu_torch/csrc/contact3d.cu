@@ -33,6 +33,16 @@
 // there): 8 B per cell plus 1 B per face cell, 0.040 ms at 256^3 over
 // 3.35 TB/s.  The boundary cells' reads of neighbouring rows and planes
 // hit L2 because a plane's ring blocks follow its copy blocks.
+//
+// Slab form (the TPU kernel's ghosts= and clamp=, contact3d.py:25-37, for a
+// z-slab of a domain decomposed along z): every read across planes is of a
+// pre-update rho, so one neighbour plane a side (lo, hi) is all a slab
+// needs; bot and top say whether its planes 0 and Z-1 are the domain's true
+// edges.  Only those take the edge surgery (z-face copy, edge lines,
+// corners; full-plane blocks); a slab-boundary plane with a neighbour is an
+// interior plane (copy and ring blocks) whose face terms read z-1 or z+1
+// from the ghost.  Flags of the ghosts are never read.  The whole domain is
+// the slab with bot = top = 1.
 #include "common.cuh"
 
 // blocks an SM the launch bounds ask room for (registers <= 40): the copy
@@ -44,7 +54,14 @@ struct LbmCa {
   const uint8_t* __restrict__ flags;
   int Z, Y, X;
   float t;
-  __device__ float r(int z, int y, int x) const { return rho[lbm_index(z, y, x, Y, X)]; }
+  const float* __restrict__ lo;  // plane -1 and plane Z of a slab (else null)
+  const float* __restrict__ hi;
+  bool bot, top;                 // planes 0 and Z-1 are the domain's edges
+  __device__ float r(int z, int y, int x) const {
+    const long long ip = static_cast<long long>(y) * X + x;
+    return z < 0 ? lo[ip] : (z >= Z ? hi[ip] : rho[lbm_index(z, y, x, Y, X)]);
+  }
+  __device__ bool edge(int z) const { return (z == 0 && bot) || (z == Z - 1 && top); }
   __device__ bool obs(int z, int y, int x) const {
     return flags[lbm_index(z, y, x, Y, X)] == LBM_OBSTACLE;
   }
@@ -103,8 +120,7 @@ __device__ float lbm_ca_z_edge(const LbmCa& a, int z, int y, int x) {
 
 // rho_ca at a cell whose rho is v
 __device__ float lbm_ca_cell(const LbmCa& a, int z, int y, int x, float v) {
-  const bool bz = z == 0 || z == a.Z - 1, by = y == 0 || y == a.Y - 1,
-             bx = x == 0 || x == a.X - 1;
+  const bool bz = a.edge(z), by = y == 0 || y == a.Y - 1, bx = x == 0 || x == a.X - 1;
   const int nb = bz + by + bx;
   if (nb == 0) return v;
   if (nb == 1) return bx ? lbm_ca_xface(a, z, y, x)
@@ -117,35 +133,37 @@ __device__ float lbm_ca_cell(const LbmCa& a, int z, int y, int x, float v) {
 }
 
 // One launch, its blocks in plane order so that a plane's boundary cells
-// are evaluated while its rows are still in L2: planes 0 and Z-1 take F
-// blocks of one boundary cell a thread; every plane between takes P copy
-// blocks, 4 consecutive cells of the plane a thread (a 16-byte load and
-// store where VEC: X Y % 4 == 0 and rho and out 16-byte aligned), which
-// skip the plane's ring, then R blocks of one ring cell a thread.  The
-// wrapper keeps N below 2^31, so cell indices are 32-bit.
+// are evaluated while its rows are still in L2: the edge planes (0 if bot,
+// Z-1 if top) take F blocks of one boundary cell a thread; every other
+// plane takes P copy blocks, 4 consecutive cells of the plane a thread (a
+// 16-byte load and store where VEC: X Y % 4 == 0 and rho and out 16-byte
+// aligned), which skip the plane's ring, then R blocks of one ring cell a
+// thread.  The wrapper keeps N below 2^31, so cell indices are 32-bit.
 template <bool VEC>
 __global__ void __launch_bounds__(LBM_THREADS, CA_MIN_BLOCKS) lbm_contact_angle_kernel(
     const float* __restrict__ rho, const uint8_t* __restrict__ flags, float* __restrict__ out,
-    int Z, int Y, int X, float t, int F, int P, int R) {
+    int Z, int Y, int X, float t, int F, int P, int R, const float* __restrict__ lo,
+    const float* __restrict__ hi, int bot, int top) {
   const int plane = Y * X;
+  const int Fb = bot ? F : 0, zm = bot ? 1 : 0, nm = Z - zm - (top ? 1 : 0);
   int b = blockIdx.x, z, k;
   bool copy = false;
-  if (b < F) {
+  if (b < Fb) {
     z = 0, k = b * LBM_THREADS + threadIdx.x;
-  } else if (b < F + (Z - 2) * (P + R)) {
-    b -= F;
-    z = 1 + b / (P + R);
-    b -= (z - 1) * (P + R);
+  } else if (b < Fb + nm * (P + R)) {
+    b -= Fb;
+    z = zm + b / (P + R);
+    b -= (z - zm) * (P + R);
     copy = b < P;
     k = (copy ? b : b - P) * LBM_THREADS + threadIdx.x;
   } else {
-    z = Z - 1, k = (b - F - (Z - 2) * (P + R)) * LBM_THREADS + threadIdx.x;
+    z = Z - 1, k = (b - Fb - nm * (P + R)) * LBM_THREADS + threadIdx.x;
   }
-  const LbmCa a{rho, flags, Z, Y, X, t};
+  const LbmCa a{rho, flags, Z, Y, X, t, lo, hi, bot != 0, top != 0};
   const int base = z * plane;
   if (!copy) {
     int y, x;
-    if (z == 0 || z == Z - 1) {
+    if (a.edge(z)) {
       if (k >= plane) return;
       y = k / X, x = k - y * X;
     } else {
@@ -189,19 +207,24 @@ __global__ void __launch_bounds__(LBM_THREADS, CA_MIN_BLOCKS) lbm_contact_angle_
   }
 }
 
+// The whole domain with lo = hi = null and bot = top = 1; a slab with its
+// neighbours' edge planes lo and hi ([Y, X] each) and the flags of its
+// true edges.
 extern "C" int lbm_contact_angle(const float* rho, const uint8_t* flags, float* out, int Z, int Y,
-                                 int X, double t, int vec, void* stream) {
+                                 int X, double t, int vec, const float* lo, const float* hi,
+                                 int bot, int top, void* stream) {
   const long long plane = static_cast<long long>(Y) * X;
   const int F = static_cast<int>(lbm_blocks(plane));
   const int P = static_cast<int>(lbm_blocks((plane + 3) / 4));
   const int R = static_cast<int>(lbm_blocks(2LL * X + 2LL * (Y - 2)));
-  const unsigned blocks = 2 * F + (Z - 2) * (P + R);
+  const int nm = Z - (bot ? 1 : 0) - (top ? 1 : 0);
+  const unsigned blocks = (bot ? F : 0) + (top ? F : 0) + nm * (P + R);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec)
     lbm_contact_angle_kernel<true><<<blocks, LBM_THREADS, 0, st>>>(
-        rho, flags, out, Z, Y, X, static_cast<float>(t), F, P, R);
+        rho, flags, out, Z, Y, X, static_cast<float>(t), F, P, R, lo, hi, bot, top);
   else
     lbm_contact_angle_kernel<false><<<blocks, LBM_THREADS, 0, st>>>(
-        rho, flags, out, Z, Y, X, static_cast<float>(t), F, P, R);
+        rho, flags, out, Z, Y, X, static_cast<float>(t), F, P, R, lo, hi, bot, top);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,20 +22,32 @@
 // coalesce; the z+-1 and y+-1 planes are re-read by other blocks from L2.
 // In bfloat16 storage (T = __nv_bfloat16) f and g take 38 B a cell each:
 // 113 B per cell plus 16 B per obstacle cell, 0.57 ms at 256^3.
+//
+// Slab form (the TPU kernel's ghosts=, fused_step.py:26-31, for a z-slab of
+// a domain decomposed along z over ranks): plane 0 pulls its z-1 channels
+// (9-13) and plane Z-1 its z+1 channels (14-18) from the neighbours' edge
+// planes instead of the wrap (common.cuh:lbm_pull_slab), 5 channels of one
+// plane a side.  Everything else is the same, so a slab's outputs equal
+// those of the same planes of the whole domain bit for bit.  Its bound adds
+// the ghost planes' 2 x 5 values a plane cell of f and of g.
 #include "common.cuh"
 
 extern "C" const char* lbm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-template <class T>
+// SLAB: the slab form, whose z-1 pulls of plane 0 and z+1 pulls of plane
+// Z-1 read the ghost planes f_lo/f_hi and g_lo/g_hi ([5, Y, X] each).
+template <class T, bool SLAB>
 __global__ void lbm_stream_macro_kernel(const T* __restrict__ f, const T* __restrict__ g,
                                         const uint8_t* __restrict__ flags,
                                         const float* __restrict__ rho_old,
                                         const float* __restrict__ vel_old, float* __restrict__ rho,
                                         float* __restrict__ vel, float* __restrict__ den,
                                         float* __restrict__ m0g, float* __restrict__ m1g, int Z,
-                                        int Y, int X, double c, LbmGas gas) {
+                                        int Y, int X, double c, LbmGas gas,
+                                        const T* __restrict__ f_lo, const T* __restrict__ f_hi,
+                                        const T* __restrict__ g_lo, const T* __restrict__ g_hi) {
   const long long N = static_cast<long long>(Z) * Y * X;
   const long long i = lbm_cell();
   if (i >= N) return;
@@ -47,10 +59,17 @@ __global__ void lbm_stream_macro_kernel(const T* __restrict__ f, const T* __rest
 
   float post[19];
   float m0f, m1f[3];
-  lbm_pull_at(f, N, i, po, obs, post);
+  const long long NP = static_cast<long long>(Y) * X;
+  if (SLAB)
+    lbm_pull_slab(f, f_lo, f_hi, N, NP, i, z, Z, po, obs, post);
+  else
+    lbm_pull_at(f, N, i, po, obs, post);
   lbm_moments(post, m0f, m1f);
   float m0, m1[3];
-  lbm_pull_at(g, N, i, po, obs, post);
+  if (SLAB)
+    lbm_pull_slab(g, g_lo, g_hi, N, NP, i, z, Z, po, obs, post);
+  else
+    lbm_pull_at(g, N, i, po, obs, post);
   lbm_moments(post, m0, m1);
 
   const float r = obs ? rho_old[i] : m0f;
@@ -379,26 +398,38 @@ template <class T>
 static void lbm_prologue_launch(const void* f, const void* g, const uint8_t* flags,
                                 const float* rho_old, const float* vel_old, float* rho,
                                 float* vel, float* den, float* m0g, float* m1g, int Z, int Y,
-                                int X, double c, LbmGas gas, cudaStream_t stream) {
+                                int X, double c, LbmGas gas, const void* f_lo, const void* f_hi,
+                                const void* g_lo, const void* g_hi, cudaStream_t stream) {
   const long long N = static_cast<long long>(Z) * Y * X;
-  lbm_stream_macro_kernel<T><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
-      static_cast<const T*>(f), static_cast<const T*>(g), flags, rho_old, vel_old, rho, vel, den,
-      m0g, m1g, Z, Y, X, c, gas);
+  const T *tf = static_cast<const T*>(f), *tg = static_cast<const T*>(g);
+  const T *flo = static_cast<const T*>(f_lo), *fhi = static_cast<const T*>(f_hi);
+  const T *glo = static_cast<const T*>(g_lo), *ghi = static_cast<const T*>(g_hi);
+  if (f_lo != nullptr)
+    lbm_stream_macro_kernel<T, true><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
+        tf, tg, flags, rho_old, vel_old, rho, vel, den, m0g, m1g, Z, Y, X, c, gas, flo, fhi, glo,
+        ghi);
+  else
+    lbm_stream_macro_kernel<T, false><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
+        tf, tg, flags, rho_old, vel_old, rho, vel, den, m0g, m1g, Z, Y, X, c, gas, flo, fhi, glo,
+        ghi);
 }
 
-// f and g in float32, or in bfloat16 where bf16 is nonzero
+// f and g in float32, or in bfloat16 where bf16 is nonzero; the slab form
+// where f_lo is not null (f_lo, f_hi, g_lo, g_hi: [5, Y, X] ghost planes in
+// the storage type)
 extern "C" int lbm_prologue(const void* f, const void* g, const uint8_t* flags,
                             const float* rho_old, const float* vel_old, float* rho, float* vel,
                             float* den, float* m0g, float* m1g, int Z, int Y, int X, double c,
                             double rho_gas, double rho_fluid, double den_gas, double den_fluid,
-                            int bf16, void* stream) {
+                            int bf16, const void* f_lo, const void* f_hi, const void* g_lo,
+                            const void* g_hi, void* stream) {
   const LbmGas gas = lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     lbm_prologue_launch<__nv_bfloat16>(f, g, flags, rho_old, vel_old, rho, vel, den, m0g, m1g,
-                                       Z, Y, X, c, gas, st);
+                                       Z, Y, X, c, gas, f_lo, f_hi, g_lo, g_hi, st);
   else
     lbm_prologue_launch<float>(f, g, flags, rho_old, vel_old, rho, vel, den, m0g, m1g, Z, Y, X,
-                               c, gas, st);
+                               c, gas, f_lo, f_hi, g_lo, g_hi, st);
   return static_cast<int>(cudaGetLastError());
 }

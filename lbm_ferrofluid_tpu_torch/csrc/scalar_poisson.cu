@@ -55,6 +55,16 @@
 // solve_H_int_scalar :236-241 and _maybe_h2 :104).  It walks z through a
 // 3-plane ring of the substituted psi (common.cuh:lbm_zwalk), so each tap
 // is one shared-memory read.
+//
+// Slab form (the TPU kernel's ghosts=, slab_clamp= and emit_bands=,
+// scalar_poisson.py:562-612, for a z-slab of a domain decomposed along z):
+// a round of k sweeps runs the passes above on the slab extended by G =
+// k + 1 ghost planes a side (the neighbours' edge bands of (s, s_prev)).
+// The passes' wrap at the extension's ends reaches only ghost planes, each
+// sweep spoiling one more of them from each end, so after k sweeps the
+// slab's planes and one plane a side are exact.  The last round's H2
+// launch (lbm_scalar_h2_slab) reads psi of the extension and writes the
+// slab's planes, its z clamp [zlo, zhi] at the domain's true edges only.
 #include "common.cuh"
 
 #define SP_THREADS 256
@@ -232,24 +242,29 @@ __global__ void __launch_bounds__(SP_THREADS, 2) lbm_scalar_pass_kernel(
 #define H2_TY 8
 #define H2_ZB 16
 
+// H2 of planes [zo, zo + Zo) of psi [Z, Y, X], the gradient's plane and the
+// substitution's clamped to [zlo, zhi], written to h2 [Zo, Y, X]: the whole
+// domain with zo = 0, Zo = Z, zlo = 1, zhi = Z - 2.
 __global__ void __launch_bounds__(H2_TX* H2_TY) lbm_scalar_h2_kernel(
     const float* __restrict__ psi, const float* __restrict__ cmask, float* __restrict__ h2,
-    int Z, int Y, int X, float d12, float hx, float hy, float hz) {
+    int Z, int Y, int X, int zo, int Zo, int zlo, int zhi, float d12, float hx, float hy,
+    float hz) {
   // psi of three planes of the tile and its halo, replaced at obstacles by
   // the value at the nearest interior cell
   __shared__ float ring[3][H2_TY + 2][H2_TX + 2];
   const int x0 = blockIdx.x * H2_TX, y0 = blockIdx.y * H2_TY;
   const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
-  const int z0 = blockIdx.z * H2_ZB, z1 = min(z0 + H2_ZB, Z);
+  const int z0 = zo + blockIdx.z * H2_ZB, z1 = min(z0 + H2_ZB, zo + Zo);
   auto load = [&](int p) {
-    lbm_halo_cells<H2_TX, H2_TY>(p, x0, y0, Z, Y, X, [&](int ey, int ex, long long n,
-                                                        long long c) {
-      ring[p % 3][ey][ex] = psi[cmask[n] < 0.f ? c : n];
-    });
+    lbm_halo_cells_clamped<H2_TX, H2_TY>(p, x0, y0, zlo, zhi, Y, X, Y, X,
+                                         [&](int ey, int ex, long long n, long long c) {
+                                           ring[lbm_mod(p, 3)][ey][ex] =
+                                               psi[cmask[n] < 0.f ? c : n];
+                                         });
   };
   const int xl = lbm_clamp(x, 1, X - 2) - lbm_ring_origin(x0, X);
   const int yl = lbm_clamp(y, 1, Y - 2) - lbm_ring_origin(y0, Y);
-  lbm_zwalk(z0, z1, Z, x < X && y < Y, load, [&](int z, int sm, int s0, int sp) {
+  lbm_zwalk(z0, z1, zlo, zhi, x < X && y < Y, load, [&](int z, int sm, int s0, int sp) {
     float g[3];
     lbm_iso_grad(
         [&](int oz, int oy, int ox) {
@@ -257,7 +272,7 @@ __global__ void __launch_bounds__(H2_TX* H2_TY) lbm_scalar_h2_kernel(
         },
         d12, g);
     const float tx = -g[0] + hx, ty = -g[1] + hy, tz = -g[2] + hz;
-    h2[(static_cast<long long>(z) * Y + y) * X + x] = tx * tx + ty * ty + tz * tz;
+    h2[(static_cast<long long>(z - zo) * Y + y) * X + x] = tx * tx + ty * ty + tz * tz;
   });
 }
 
@@ -316,11 +331,28 @@ extern "C" int lbm_scalar_pass_occupancy(int k, int TY, int* blocks) {
       blocks, lbm_scalar_pass_kernel, SP_THREADS, lbm_scalar_pass_smem(k, TY)));
 }
 
+static int lbm_scalar_h2_launch(const float* psi, const float* cmask, float* h2, int Z, int Y,
+                                int X, int zo, int Zo, int zlo, int zhi, double dx, double hx,
+                                double hy, double hz, void* stream) {
+  const dim3 grid((X + H2_TX - 1) / H2_TX, (Y + H2_TY - 1) / H2_TY, (Zo + H2_ZB - 1) / H2_ZB);
+  lbm_scalar_h2_kernel<<<grid, dim3(H2_TX, H2_TY), 0, static_cast<cudaStream_t>(stream)>>>(
+      psi, cmask, h2, Z, Y, X, zo, Zo, zlo, zhi, static_cast<float>(12.0 * dx),
+      static_cast<float>(hx), static_cast<float>(hy), static_cast<float>(hz));
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int lbm_scalar_h2(const float* psi, const float* cmask, float* h2, int Z, int Y, int X,
                              double dx, double hx, double hy, double hz, void* stream) {
-  const dim3 grid((X + H2_TX - 1) / H2_TX, (Y + H2_TY - 1) / H2_TY, (Z + H2_ZB - 1) / H2_ZB);
-  lbm_scalar_h2_kernel<<<grid, dim3(H2_TX, H2_TY), 0, static_cast<cudaStream_t>(stream)>>>(
-      psi, cmask, h2, Z, Y, X, static_cast<float>(12.0 * dx), static_cast<float>(hx),
-      static_cast<float>(hy), static_cast<float>(hz));
-  return static_cast<int>(cudaGetLastError());
+  return lbm_scalar_h2_launch(psi, cmask, h2, Z, Y, X, 0, Z, 1, Z - 2, dx, hx, hy, hz, stream);
+}
+
+// The slab form: psi and cmask of the extended slab [Z, Y, X], H2 of its
+// planes [zo, zo + Zo) into h2 [Zo, Y, X], clamped to [zlo, zhi] (extended
+// coordinates; 1 <= zlo and zhi <= Z - 2).
+extern "C" int lbm_scalar_h2_slab(const float* psi, const float* cmask, float* h2, int Z, int Y,
+                                  int X, int zo, int Zo, int zlo, int zhi, double dx, double hx,
+                                  double hy, double hz, void* stream) {
+  if (zlo < 1 || zhi > Z - 2 || zo < 0 || zo + Zo > Z)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return lbm_scalar_h2_launch(psi, cmask, h2, Z, Y, X, zo, Zo, zlo, zhi, dx, hx, hy, hz, stream);
 }

@@ -55,6 +55,18 @@ sweeps, into which :func:`prime_premac` converts h and which is its only
 (``models/multiphase.py:capillary_collide_2d``, KBC on g with
 ``params.kbc_type``).  A 2D step launches no kernel and carries no premac.
 
+With ``mesh`` (``parallel/mesh.py``: this rank's place among the ranks of a
+('batch', 'z') mesh) :func:`prime_premac` and :func:`ferrofluid_step` take
+and return this rank's part of the state (``parallel/sharding.py``), as the
+JAX step's ``mesh=`` does (:318-358, :419-466, :583-633, :979-1026 there).
+On a z-slab mesh (``nz > 1``, or ``slab=True``) the capillogue steady state
+with the scalar carry runs on the slab forms of B4, B1, B2 and B3
+(``parallel/step3d.py``); every other route raises ``NotImplementedError``
+naming ROADMAP A12 (the un-carried step, the 5-leaf epilogue steady state,
+the channel form, an out-of-plane field, ``phys_extent`` and 2D).  On a
+batch mesh (``nz == 1``) each rank steps its own batch element on the
+single-device route its state selects.
+
 Every entry point runs on the card unless ``device="cpu"`` is passed, and
 the kernels run unless ``plain=True`` is passed, which selects their plain
 PyTorch versions.  bfloat16 storage of f, g and h (``fg_dtype``/``h_dtype``,
@@ -320,8 +332,60 @@ def _scalar_convert(params: SimulationParams, state):
     return torch.cat([s, sp], dim=1).to(torch.float32), make_cmask(state.magnetic_flags)
 
 
+def _on_mesh(state, mesh, device):
+    """The device a meshed call runs on: the mesh's, which the state and
+    ``device`` (if given) must agree with."""
+    dev = mesh.device if device is None else resolve_device(device)
+    if dev.type != mesh.device.type:
+        raise ValueError(f"device={dev} does not match the mesh's device {mesh.device}")
+    return dev.type
+
+
+def _prime_premac_slab(params: SimulationParams, state, mesh, plain):
+    """:func:`prime_premac` on a z-slab mesh: B4's slab form, the scalar
+    carry converted across the slab's faces, and the 6-leaf premac of the
+    capillogue steady state (JAX :979-1022); the routes the port does not
+    run on a slab raise."""
+    from ..parallel import step3d
+
+    shape = step3d.global_shape(state.f.shape, mesh)
+    if params.dim != 3 or params.phys_extent is not None:
+        raise step3d.unported("a 2D state" if params.dim != 3 else "phys_extent")
+    if params.h_ext_axis not in (0, 1):
+        raise step3d.unported("an out-of-plane field (h_ext_axis=2, the 5-leaf box form)")
+    if state.f.shape[0] != 1:
+        raise ValueError("a z-slab mesh steps one batch element a rank: shard_state the "
+                         "state on a mesh whose batch axis has one rank per element")
+    if shape[2] // mesh.nz < 4:
+        raise ValueError(f"a slab of {shape[2] // mesh.nz} planes: the slab forms need 4 or "
+                         "more planes a rank; use fewer ranks along z")
+    if not step3d.fused_step_sharded_ok(mesh, shape, params.kbc_type):
+        raise step3d.unported(f"kbc_type={params.kbc_type}")
+    if not (_scalar_physics_ok(params, state.magnetic_flags) or state.h.shape[1] == 2):
+        raise step3d.unported("the channel-form (19-channel) magnetic solve")
+    if not step3d.scalar_sharded_ok(mesh, (1, 2, *shape[2:]), params.poisson_iters):
+        raise step3d.unported(f"{params.poisson_iters} sweeps on slabs of "
+                              f"{shape[2] // mesh.nz} planes (no round plan)")
+    validate_mag_shell(params, state.magnetic_flags)
+    premac = step3d.fused_prologue_sharded(
+        state.f, state.g, state.flags, state.rho, state.vel, mesh, c=params.dx / params.dt,
+        rho_gas=params.rho_gas, rho_fluid=params.rho_fluid, density_gas=params.density_gas,
+        density_fluid=params.density_fluid, plain=plain,
+    )
+    h, cmask = state.h, state.cmask
+    if h.shape[1] != 2:
+        h, cmask = step3d.scalar_convert_sharded(state.h, state.magnetic_flags, mesh)
+    rhs = poisson_rhs_scaled(
+        phi_from_density(premac[2], params.density_gas, params.density_fluid),
+        state.magnetic_flags, _hext_static(params), tau=params.tau,
+        dx=params.dx, dt=params.dt,
+    )
+    return state.replace(h=h, cmask=cmask, premac=tuple(premac) + (rhs,), phi=None,
+                         force=None, H_ext=None)
+
+
 def prime_premac(params: SimulationParams, state: FerrofluidState, *,
-                 device=None, plain=False) -> FerrofluidState:
+                 device=None, plain=False, mesh=None) -> FerrofluidState:
     """Run the prologue once and carry this step's macros and Poisson source
     in ``state.premac`` (a 6-tuple); convert h to the scalar carry where the
     collapse applies (else keep the 19-channel h); drop the write-only phi,
@@ -330,7 +394,18 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
     is the 5 macros and phi, force and H_ext stay (JAX :1064-1077).
     A state that is already primed is returned as it is.  In 2D the scalar
     carry is the only priming (JAX :969-977): h converts where the
-    collapse applies and nothing else changes."""
+    collapse applies and nothing else changes.  With ``mesh`` the state is
+    this rank's part (module docstring)."""
+    if mesh is not None:
+        from ..parallel.step3d import dp_dispatch
+
+        device = _on_mesh(state, mesh, device)
+        if not dp_dispatch(mesh):
+            check_device(state.f, device)
+            _check_supported(params, state)
+            if state.premac is not None:
+                return state
+            return _prime_premac_slab(params, state, mesh, plain)
     check_device(state.f, device)
     _check_supported(params, state)
     if state.premac is not None:
@@ -362,8 +437,46 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
     )
 
 
+def _ferrofluid_step_slab(params: SimulationParams, state, mesh, plain):
+    """:func:`ferrofluid_step` on a z-slab mesh: the capillogue steady state
+    with the scalar carry on the slab forms of B1, B2 and B3 (JAX :440-472,
+    :588-634); the other routes raise."""
+    from ..parallel import step3d
+
+    if params.dim != 3 or params.phys_extent is not None:
+        raise step3d.unported("a 2D state" if params.dim != 3 else "phys_extent")
+    if state.premac is None:
+        raise step3d.unported("the un-carried step (premac None; prime_premac(..., mesh=) "
+                              "primes the steady state)")
+    if len(state.premac) != 6:
+        raise step3d.unported(f"the {len(state.premac)}-leaf epilogue steady state")
+    if state.h.shape[1] != 2:
+        raise step3d.unported("the channel-form (19-channel) magnetic solve")
+    check_kernel_grid(state.f, plain)
+    gas = dict(rho_gas=float(params.rho_gas), rho_fluid=float(params.rho_fluid),
+               density_gas=float(params.density_gas),
+               density_fluid=float(params.density_fluid))
+    dx, dt = float(params.dx), float(params.dt)
+    rho, vel, density, m0g, m1g, rhs = state.premac
+    H2, h = step3d.scalar_poisson_sharded(
+        state.h, state.cmask, rhs, mesh, n_iters=params.poisson_iters, dx=dx,
+        h_ext=_hext_static(params), plain=plain,
+    )
+    rho_ca = step3d.contact3d_sharded(rho, state.flags, float(params.contact_angle), mesh,
+                                      plain=plain)
+    f, g, vel, pressure, density, premac = step3d.capillogue_sharded(
+        state.f, state.g, state.flags, rho, density, state.pressure, rho_ca, H2, m0g, m1g, vel,
+        state.magnetic_flags, mesh, kappa=float(params.kappa),
+        gravity=tuple(float(v) for v in params.gravity_vec().reshape(-1)),
+        emit_rhs=(params.h_ext_axis, float(params.mag_strength), float(params.tau)),
+        tau_f=float(params.tau_f), tau_g=float(params.tau_g), dx=dx, dt=dt, plain=plain, **gas,
+    )
+    return state.replace(f=f, g=g, h=h, rho=rho_ca, vel=vel, density=density,
+                         pressure=pressure, step=state.step + 1, premac=premac)
+
+
 def ferrofluid_step(params: SimulationParams, state: FerrofluidState, *,
-                    device=None, plain=False) -> FerrofluidState:
+                    device=None, plain=False, mesh=None) -> FerrofluidState:
     """One outer step of the state as it is given; it never primes.
 
     ``state.premac`` selects the route, as in the JAX step on one device
@@ -371,7 +484,16 @@ def ferrofluid_step(params: SimulationParams, state: FerrofluidState, *,
     the capillogue steady state; 5 leaves, the epilogue steady state (the
     capillogue's box form with an out-of-plane field); None, the un-carried
     step.  ``plain=True`` runs the kernels' plain PyTorch versions (on any
-    device) instead of the kernels."""
+    device) instead of the kernels.  With ``mesh`` the state is this rank's
+    part (module docstring)."""
+    if mesh is not None:
+        from ..parallel.step3d import dp_dispatch
+
+        device = _on_mesh(state, mesh, device)
+        if not dp_dispatch(mesh):
+            check_device(state.f, device)
+            _check_supported(params, state)
+            return _ferrofluid_step_slab(params, state, mesh, plain)
     check_device(state.f, device)
     _check_supported(params, state)
     if params.dim == 2:

@@ -89,7 +89,9 @@ def check_supported(params: SimulationParams, f: torch.Tensor, hcz: bool = True,
         raise ValueError("KBC moment split is defined for D2Q9 only")
     if f.shape[0] != 1:
         raise NotImplementedError(
-            "batched states are not ported yet (data-parallel dispatch, ROADMAP A12)"
+            f"a batch of {f.shape[0]} on one device is not ported (ROADMAP A12); run a batch "
+            "through a mesh with a batch axis (parallel.make_mesh(('batch', 'z'), (B, 1)), "
+            "shard_state, then the entry points with mesh=): one element a rank"
         )
     if not hcz:
         return
@@ -234,10 +236,18 @@ def capillary_collide_2d(params: SimulationParams, state, f, g, rho, vel, densit
 
 
 def hcz_step(params: SimulationParams, state: HCZState, *, device=None,
-             plain=False) -> HCZState:
+             plain=False, mesh=None) -> HCZState:
     """One HCZ step.  ``plain=True`` runs the kernels' plain PyTorch
     versions (on any device) instead of the kernels; a 2D step runs the
-    plain ops and launches no kernel."""
+    plain ops and launches no kernel.  With a batch ``mesh`` (nz == 1)
+    each rank steps its own batch element; a z-slab mesh raises (its slab
+    forms of B8a, B8b, B9 and B10b are ROADMAP A12's later slices)."""
+    if mesh is not None:
+        from ..parallel.step3d import dp_dispatch, unported
+
+        if not dp_dispatch(mesh):
+            raise unported("hcz_step")
+        device = mesh.device.type if device is None else device
     check_device(state.f, device)
     check_supported(params, state.f)
     if params.dim == 2:

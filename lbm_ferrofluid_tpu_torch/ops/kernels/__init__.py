@@ -53,6 +53,8 @@ __all__ = [
     "KERNELS",
     "PATHS",
     "BF16_FORMS",
+    "SLAB_FORMS",
+    "SLAB_TPU_KERNELS",
     "launch_counts",
     "reset_launch_counts",
     "scalar_wavefront",
@@ -151,6 +153,19 @@ FORMS = {"B1": "psi", "B3": "box"}
 #: the kernels with a bfloat16-storage form (they read or write f, g or h)
 BF16_FORMS = ("B3", "B4", "B5", "B8a", "B8b", "B9", "B11b")
 
+#: the kernels with a slab form (``ghosts=``: a z-slab of a domain
+#: decomposed along z over ranks, ``parallel/step3d.py``), whose launches
+#: ``launches_slab`` counts: the z-slab path of the capillogue steady state
+SLAB_FORMS = ("B1", "B2", "B3", "B4")
+
+#: the TPU kernels' ghost modes that the slab forms replace
+SLAB_TPU_KERNELS = {
+    "B1": "lbm_ferrofluid_tpu/ops/pallas/scalar_poisson.py:562",
+    "B2": "lbm_ferrofluid_tpu/ops/pallas/contact3d.py:309",
+    "B3": "lbm_ferrofluid_tpu/ops/pallas/capillogue.py:809",
+    "B4": "lbm_ferrofluid_tpu/ops/pallas/fused_step.py:721",
+}
+
 
 def reset_launch_counts() -> None:
     for kid, k in KERNELS.items():
@@ -158,13 +173,19 @@ def reset_launch_counts() -> None:
         k.wrapper.launches_bf16 = 0
         if kid in FORMS:
             setattr(k.wrapper, f"launches_{FORMS[kid]}", 0)
+        if kid in SLAB_FORMS:
+            k.wrapper.launches_slab = 0
 
 
-def launch_counts(ids=None, bf16=False, form=False) -> dict[str, int]:
+def launch_counts(ids=None, bf16=False, form=False, slab=False) -> dict[str, int]:
     """Launches per kernel id since the last reset (all ids, or ``ids``);
     with ``bf16`` only those of the bfloat16-storage forms, with ``form``
-    only those of each kernel's named form (``FORMS``; 0 for the others)."""
+    only those of each kernel's named form (``FORMS``; 0 for the others),
+    with ``slab`` only those of the slab forms (``SLAB_FORMS``; 0 for the
+    others)."""
     def attr(kid):
+        if slab:
+            return "launches_slab"
         if form:
             return f"launches_{FORMS.get(kid)}"
         return "launches_bf16" if bf16 else "launches"

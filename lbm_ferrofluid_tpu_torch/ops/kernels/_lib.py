@@ -12,6 +12,12 @@ nor ``nvcc``.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`call` raises on a non-zero code, so a refused launch never passes
 silently.
+
+A kernel launches on the runtime's current device.  Every wrapper takes
+its stream from :func:`stream_of` of its first tensor, which raises unless
+that tensor lies on the current card: a rank whose state lies on
+``cuda:1`` while ``cuda:0`` is current is refused, never launched on the
+wrong card (``parallel.make_mesh`` makes the rank's card current).
 """
 
 from __future__ import annotations
@@ -124,6 +130,15 @@ def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    """The current stream of ``t``'s card, for the launch of a kernel on
+    ``t``; raises unless that card is the current device, on which the
+    kernel would launch."""
+    current = torch.cuda.current_device()
+    if t.device.index not in (None, current):
+        raise RuntimeError(
+            f"a kernel launches on the current card (cuda:{current}), but its tensor lies on "
+            f"{t.device}: make that card current (torch.cuda.set_device, as "
+            "parallel.make_mesh does for a rank)")
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 

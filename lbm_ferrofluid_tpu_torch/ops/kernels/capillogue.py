@@ -35,6 +35,26 @@ kernel's emission re-streams f'/g' through the storage dtype.
 Bound on an H100: bytes, 382 B per cell plus 20 B per fluid and 12 B per
 other cell (see :func:`cost`): 2.01 ms at 256^3 over 3.35 TB/s; 230 B per
 cell plus the same, 1.23 ms, in bfloat16 storage.
+
+The slab form (``ghosts``, ``cap_ghosts``, ``clamp`` and ``emit_ghosts``,
+the TPU kernel's ghost mode, for a z-slab of a domain decomposed along z
+over ranks: ``parallel/step3d.py``) takes the neighbours' edge planes:
+``ghosts = (f_lo, f_hi, g_lo, g_hi)`` as B4's slab form takes them
+(``fused_step.ghost_planes``), ``cap_ghosts = (lo, hi)`` two [1, 6, Y, X]
+float32 bundles of (rho_pre, density_pre, pressure_old, rho_ca, rho_ca,
+flags) with the plane below the slab (lo: rho_ca planes -2 and -1) and above
+it (hi: planes Zl and Zl + 1), see :func:`cap_bundle`, and ``clamp = (zlo,
+zhi)``, the capillary stage's z clamp (1 and Zl-2 at the domain's true
+edges, -1 and Zl where the slab has a neighbour).  (a) runs over the slab
+and one plane a side, so that (b) sees the neighbours' Laplacian of
+density(rho_ca); (b) pulls f and g across the slab's faces from their
+ghosts; between (b) and (c) ``emit_ghosts(f', g')`` returns the
+neighbours' collided edge planes in ``ghosts``' format (the caller's
+exchange), and (c) is B4's slab form on them, so every plane's macros are
+emitted in the kernels.  Four launches (``launches_slab``).  The plain
+version: the stream of f and g extended by their ghosts, the capillary
+stage on the slab extended by two planes on each side that has a
+neighbour, then as on the whole domain.
 """
 
 from __future__ import annotations
@@ -52,9 +72,10 @@ from ..stream import bounce_back, stream
 from ._lib import (STORAGE, call, check_cuda, check_no_grad, count_launch, elem_bytes, ptr,
                    stream_of)
 from .fused_step import cost as prologue_cost
-from .fused_step import lbm_prologue_plain, stream_macro_launch
+from .fused_step import extend_ghosts, lbm_prologue_plain, repeat_ends, stream_macro_launch
 
-__all__ = ["lbm_capillogue", "lbm_capillogue_plain", "cost", "N_LAUNCHES", "launches_per_call"]
+__all__ = ["lbm_capillogue", "lbm_capillogue_plain", "cost", "cost_slab", "N_LAUNCHES",
+           "launches_per_call", "cap_bundle", "CAP_PLANES"]
 
 TPU_KERNEL = "lbm_ferrofluid_tpu/ops/pallas/capillogue.py:809"
 CUDA_SOURCE = "lbm_ferrofluid_tpu_torch/csrc/capillogue.cu"
@@ -93,29 +114,117 @@ def cost(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2, g_sum, g_m
     return nbytes, flops
 
 
+#: the planes of a ``cap_ghosts`` bundle, in order
+CAP_PLANES = ("rho_pre", "density_pre", "pressure_old", "rho_ca", "rho_ca", "flags")
+
+
+def cap_bundle(rho_pre, density_pre, pressure_old, rho_ca, flags, side):
+    """The [1, 6, Y, X] float32 bundle of a slab's edge planes that its
+    neighbour on ``side`` ("lo": the rank below, which takes the slab's top
+    planes; "hi": the rank above, its bottom planes) needs: rho_pre,
+    density_pre, pressure_old and flags (as float) of the edge plane and
+    the two rho_ca planes nearest to it, in z order."""
+    if side == "lo":
+        one, two = slice(-1, None), slice(-2, None)
+    else:
+        one, two = slice(0, 1), slice(0, 2)
+    return torch.cat([rho_pre[:, :, one], density_pre[:, :, one], pressure_old[:, :, one],
+                      rho_ca[:, :, two], flags[:, :, one].to(rho_pre.dtype)], dim=2)[:, 0]
+
+
+def cost_slab(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2, g_sum, g_mom,
+              vel_old, magnetic_flags, *, emit_rhs=True, emit_force=False, ghosts=None,
+              cap_ghosts=None, **_) -> tuple[int, int]:
+    """:func:`cost` of the slab form: the ghost planes of f and g twice (for
+    (b) and, collided, for (c)) and the two capillary bundles read once
+    more."""
+    nbytes, flops = cost(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2, g_sum,
+                         g_mom, vel_old, magnetic_flags, emit_rhs=emit_rhs,
+                         emit_force=emit_force)
+    gh = 2 * sum(t.numel() * t.element_size() for t in ghosts)
+    return nbytes + gh + sum(t.numel() * 4 for t in cap_ghosts), flops
+
+
+def _cap_extend(x, lo, hi, clamp):
+    """``x`` extended by two planes on each side with a neighbour (``clamp``'s
+    -1 or Zl), ``lo``/``hi`` (one or two planes, [1, C, n, Y, X]) nearest the
+    slab and the outer plane repeated to two (the slab's edge plane where
+    None); nothing on a side that is a true edge."""
+    def two(planes):
+        return planes if planes.shape[2] == 2 else torch.cat([planes, planes], dim=2)
+
+    parts = [x]
+    if clamp[0] < 0:
+        parts.insert(0, two(x[:, :, :1] if lo is None else lo))
+    if clamp[1] >= x.shape[2]:
+        parts.append(two(x[:, :, -1:] if hi is None else hi))
+    return torch.cat(parts, dim=2)
+
+
+def _capillary_slab(rho_pre, vel_old, flags, density_pre, pressure_old, rho_ca, H2, g_sum,
+                    g_mom, cap_ghosts, clamp, **kw):
+    """The plain capillary stage of a slab: ``hcz_capillary`` on the slab
+    extended by two planes on each side with a neighbour (the neighbour's
+    planes next to the slab from ``cap_ghosts``, two of rho_ca for the
+    Laplacian of the nearer), whose taps then reach the slab's planes as
+    the whole domain's would; fields read only at the cell itself extend by
+    repeats, as do the outer planes, which no kept plane reads."""
+    lo, hi = cap_ghosts
+
+    def ext(x, j=None, n=1):
+        if j is None:
+            return _cap_extend(x, None, None, clamp)
+        return _cap_extend(x, lo[:, None, j:j + n], hi[:, None, j:j + n], clamp)
+
+    density = ext(density_pre, 1)
+    out = hcz_capillary(
+        ext(rho_pre, 0), ext(vel_old), ext(flags.to(rho_pre.dtype), 5).to(flags.dtype), density,
+        ext(pressure_old, 2), ext(rho_ca, 3, 2), ext(H2),
+        phi_from_density(density, kw["density_gas"], kw["density_fluid"]), ext(g_sum),
+        ext(g_mom), **kw,
+    )
+    start = 2 if clamp[0] < 0 else 0
+    Z = flags.shape[2]
+    return tuple(x[:, :, start:start + Z] for x in out)
+
+
 def lbm_capillogue_plain(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca,
-                         H2, g_sum, g_mom, vel_old, magnetic_flags, *, kappa, gravity,
+                         H2, g_sum, g_mom, vel_old, magnetic_flags, ghosts=None,
+                         cap_ghosts=None, clamp=None, emit_ghosts=None, *, kappa, gravity,
                          rho_gas, rho_fluid, density_gas, density_fluid, tau_f,
                          tau_g, dx=1.0, dt=1.0, emit_rhs, emit_force=False, bounds=None):
     """Plain PyTorch version of :func:`lbm_capillogue`."""
     lat = D3Q19
-    f_post = bounce_back(lat, stream(lat, f), flags)
-    g_post = bounce_back(lat, stream(lat, g), flags)
+    slab = ghosts is not None
+    if slab:
+        f_lo, f_hi, g_lo, g_hi = ghosts
+        f_post = bounce_back(lat, stream(lat, extend_ghosts(f, f_lo, f_hi)),
+                             repeat_ends(flags))[:, :, 1:-1]
+        g_post = bounce_back(lat, stream(lat, extend_ghosts(g, g_lo, g_hi)),
+                             repeat_ends(flags))[:, :, 1:-1]
+    else:
+        f_post = bounce_back(lat, stream(lat, f), flags)
+        g_post = bounce_back(lat, stream(lat, g), flags)
     grav = torch.tensor(gravity, dtype=vel_old.dtype, device=vel_old.device)
-    rho, vel, den, pres, force, dfai, dprho = hcz_capillary(
-        rho_pre, vel_old, flags, density_pre, pressure_old, rho_ca, H2,
-        phi_from_density(density_pre, density_gas, density_fluid), g_sum, g_mom,
-        kappa=kappa, gravity=grav.reshape(1, 3, 1, 1, 1), rho_gas=rho_gas,
-        rho_fluid=rho_fluid, density_gas=density_gas,
-        density_fluid=density_fluid, dx=dx, dt=dt, bounds=bounds,
-    )
+    cap_kw = dict(kappa=kappa, gravity=grav.reshape(1, 3, 1, 1, 1), rho_gas=rho_gas,
+                  rho_fluid=rho_fluid, density_gas=density_gas,
+                  density_fluid=density_fluid, dx=dx, dt=dt, bounds=bounds)
+    if slab:
+        rho, vel, den, pres, force, dfai, dprho = _capillary_slab(
+            rho_pre, vel_old, flags, density_pre, pressure_old, rho_ca, H2, g_sum, g_mom,
+            cap_ghosts, clamp, **cap_kw)
+    else:
+        rho, vel, den, pres, force, dfai, dprho = hcz_capillary(
+            rho_pre, vel_old, flags, density_pre, pressure_old, rho_ca, H2,
+            phi_from_density(density_pre, density_gas, density_fluid), g_sum, g_mom, **cap_kw)
     f_n, g_n = hcz_collide(
         lat, f_post, g_post, rho, vel, den, pres, flags, force, dfai, dprho,
         tau_f=tau_f, tau_g=tau_g, dx=dx, dt=dt,
     )
     mac = lbm_prologue_plain(
-        f_n, g_n, flags, rho, vel, c=dx / dt, rho_gas=rho_gas, rho_fluid=rho_fluid,
-        density_gas=density_gas, density_fluid=density_fluid,
+        f_n, g_n, flags, rho, vel, emit_ghosts(f_n, g_n) if slab else None, c=dx / dt,
+        rho_gas=rho_gas, rho_fluid=rho_fluid, density_gas=density_gas,
+        density_fluid=density_fluid,
     )
     if emit_rhs is not None:
         axis, hm, tau_mag = emit_rhs
@@ -128,7 +237,8 @@ def lbm_capillogue_plain(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca
 
 
 def lbm_capillogue(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2,
-                   g_sum, g_mom, vel_old, magnetic_flags, *, kappa, gravity,
+                   g_sum, g_mom, vel_old, magnetic_flags, ghosts=None, cap_ghosts=None,
+                   clamp=None, emit_ghosts=None, *, kappa, gravity,
                    rho_gas, rho_fluid, density_gas, density_fluid, tau_f, tau_g,
                    dx=1.0, dt=1.0, emit_rhs, emit_force=False, bounds=None):
     """One steady-state pass: capillary stage, HCZ collide, next-step emission.
@@ -140,12 +250,20 @@ def lbm_capillogue(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2,
     field along x (0) or y (1), or None (no source emitted, and
     ``magnetic_flags`` may be None).  ``emit_force`` adds the 3-channel
     force output; ``bounds = (by, bx)`` the in-plane box of a padded layout.
+    ``ghosts``, ``cap_ghosts``, ``clamp`` and ``emit_ghosts`` together give
+    the slab form (module docstring).
     Returns ``(f', g', vel, pressure, density(rho_ca), premac)`` with premac
     the (rho, vel, density, m0g, m1g) of the next step, plus rhs_scaled
     with ``emit_rhs``, and force appended last with ``emit_force``.
-    CPU tensors take the plain version; CUDA tensors launch the kernels;
-    anything else raises.  Inputs are not modified.
+    CPU tensors take the plain version; CUDA tensors launch the kernels on
+    their card; anything else raises.  Inputs are not modified.
     """
+    slab = ghosts is not None
+    if {slab} != {cap_ghosts is not None, clamp is not None, emit_ghosts is not None}:
+        raise ValueError("lbm_capillogue: give ghosts, cap_ghosts, clamp and emit_ghosts "
+                         "together, or none of them")
+    if slab and bounds is not None:
+        raise ValueError("lbm_capillogue: the slab form has no box form (bounds)")
     kw = dict(kappa=kappa, gravity=gravity, rho_gas=rho_gas, rho_fluid=rho_fluid,
               density_gas=density_gas, density_fluid=density_fluid, tau_f=tau_f,
               tau_g=tau_g, dx=dx, dt=dt, emit_rhs=emit_rhs, emit_force=emit_force,
@@ -153,7 +271,7 @@ def lbm_capillogue(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2,
     if f.device.type == "cpu":
         return lbm_capillogue_plain(
             f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2, g_sum,
-            g_mom, vel_old, magnetic_flags, **kw,
+            g_mom, vel_old, magnetic_flags, ghosts, cap_ghosts, clamp, emit_ghosts, **kw,
         )
     check_no_grad("lbm_capillogue", f, g, rho_pre, density_pre, pressure_old, rho_ca, H2,
                   g_sum, g_mom, vel_old)
@@ -175,36 +293,59 @@ def lbm_capillogue(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2,
     by, bx = bounds if bounds is not None else (Y, X)
     if min(Z, Y, X) < 3 or not (3 <= by <= Y and 3 <= bx <= X):
         raise ValueError("lbm_capillogue needs Z, Y, X >= 3 and a box of 3 to Y x X cells")
+    if slab:
+        for name, t in zip(("f_lo", "f_hi", "g_lo", "g_hi"), ghosts, strict=True):
+            check_cuda(name, t, (f.dtype,), (1, 5, 1, Y, X))
+        for name, t in zip(("cap_lo", "cap_hi"), cap_ghosts, strict=True):
+            check_cuda(name, t, torch.float32, (1, len(CAP_PLANES), Y, X))
+        if clamp[0] not in (-1, 1) or clamp[1] not in (Z - 2, Z) or Z < 4:
+            raise ValueError(f"lbm_capillogue: slab clamp (-1 or 1, {Z - 2} or {Z}) on a "
+                             f"slab of 4 or more planes, got {tuple(clamp)} on {Z}")
     box = (ctypes.c_int(by), ctypes.c_int(bx))
-    form = "box" if emit_rhs is None else None
+    form = "slab" if slab else ("box" if emit_rhs is None else None)
     dims = (ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X))
     gas = tuple(ctypes.c_double(float(v))
                 for v in (rho_gas, rho_fluid, density_gas, density_fluid))
     st = stream_of(f)
-
-    scratch = torch.empty((4, 1, Z, Y, X), dtype=torch.float32, device=f.device)
-    fai, prho, chi, lap = scratch
-    call("lbm_cap_derived", ptr(rho_pre), ptr(density_pre), ptr(pressure_old), ptr(rho_ca),
-         ptr(fai), ptr(prho), ptr(chi), ptr(lap), *dims, *box, ctypes.c_double(dx),
-         ctypes.c_double(dt), *gas, st)
     bf16 = f.dtype == torch.bfloat16
+
+    scratch = torch.empty((4, 1, Z + 2 * slab, Y, X), dtype=torch.float32, device=f.device)
+    fai, prho, chi, lap = scratch
+    if slab:
+        lo, hi = cap_ghosts
+        call("lbm_cap_derived_slab", ptr(rho_pre), ptr(density_pre), ptr(pressure_old),
+             ptr(rho_ca), ptr(fai), ptr(prho), ptr(chi), ptr(lap), *dims, *box,
+             ctypes.c_double(dx), ctypes.c_double(dt), *gas,
+             *(ptr(b[:, j]) for j in range(3) for b in (lo, hi)),
+             ptr(lo[:, 3]), ptr(hi[:, 3]), *(ctypes.c_int(v) for v in clamp), st)
+    else:
+        call("lbm_cap_derived", ptr(rho_pre), ptr(density_pre), ptr(pressure_old), ptr(rho_ca),
+             ptr(fai), ptr(prho), ptr(chi), ptr(lap), *dims, *box, ctypes.c_double(dx),
+             ctypes.c_double(dt), *gas, st)
     count_launch(lbm_capillogue, bf16, form)
 
     f_out, g_out = torch.empty_like(f), torch.empty_like(g)
     vel, pres, den = torch.empty_like(vel_old), torch.empty_like(rho_ca), torch.empty_like(rho_ca)
     force = torch.empty_like(vel_old) if emit_force else None
-    call("lbm_cap_collide", ptr(f), ptr(g), ptr(flags), ptr(rho_ca),
-         ptr(H2), ptr(g_sum), ptr(g_mom), ptr(vel_old), ptr(pressure_old), ptr(fai),
-         ptr(prho), ptr(chi), ptr(lap), ptr(f_out), ptr(g_out), ptr(vel), ptr(pres),
-         ptr(den), ptr(force), *dims, *box, ctypes.c_double(kappa),
-         *(ctypes.c_double(float(v)) for v in gravity), ctypes.c_double(0.5 * MU0),
-         ctypes.c_double(tau_f), ctypes.c_double(tau_g), ctypes.c_double(dx),
-         ctypes.c_double(dt), *gas, ctypes.c_int(bf16), st)
+    args = (ptr(f), ptr(g), ptr(flags), ptr(rho_ca),
+            ptr(H2), ptr(g_sum), ptr(g_mom), ptr(vel_old), ptr(pressure_old), ptr(fai),
+            ptr(prho), ptr(chi), ptr(lap), ptr(f_out), ptr(g_out), ptr(vel), ptr(pres),
+            ptr(den), ptr(force), *dims, *box, ctypes.c_double(kappa),
+            *(ctypes.c_double(float(v)) for v in gravity), ctypes.c_double(0.5 * MU0),
+            ctypes.c_double(tau_f), ctypes.c_double(tau_g), ctypes.c_double(dx),
+            ctypes.c_double(dt), *gas, ctypes.c_int(bf16))
+    if slab:
+        fl_lo, fl_hi = (b[:, CAP_PLANES.index("flags")].to(torch.uint8) for b in cap_ghosts)
+        call("lbm_cap_collide_slab", *args, *(ptr(t) for t in ghosts), ptr(fl_lo), ptr(fl_hi),
+             *(ctypes.c_int(v) for v in clamp), st)
+    else:
+        call("lbm_cap_collide", *args, st)
     count_launch(lbm_capillogue, bf16, form)
 
     mac = stream_macro_launch(
         f_out, g_out, flags, rho_ca, vel,
         (dx / dt, rho_gas, rho_fluid, density_gas, density_fluid),
+        emit_ghosts(f_out, g_out) if slab else None,
     )
     count_launch(lbm_capillogue, bf16, form)
     if emit_rhs is not None:
@@ -213,7 +354,7 @@ def lbm_capillogue(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2,
         call("lbm_cap_rhs", ptr(mac[2]), ptr(magnetic_flags), ptr(rhs), *dims,
              ctypes.c_int(axis), ctypes.c_double(hm), ctypes.c_double(tau_mag),
              ctypes.c_double(dx), ctypes.c_double(dt), gas[2], gas[3], st)
-        count_launch(lbm_capillogue, bf16)
+        count_launch(lbm_capillogue, bf16, "slab" if slab else None)
         mac = mac + (rhs,)
     return (f_out, g_out, vel, pres, den, mac) + ((force,) if emit_force else ())
 
@@ -227,3 +368,4 @@ def launches_per_call(emit_rhs) -> int:
 lbm_capillogue.launches = 0
 lbm_capillogue.launches_bf16 = 0
 lbm_capillogue.launches_box = 0
+lbm_capillogue.launches_slab = 0

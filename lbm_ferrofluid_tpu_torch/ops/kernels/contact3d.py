@@ -13,6 +13,15 @@ recomputes in registers what the stages before its own wrote.  A call is
 Bound on an H100: bytes, 8 B per cell plus 1 B per face cell (read rho,
 write rho_ca once, read the uint8 flags only at face cells): 0.040 ms at
 256^3 over 3.35 TB/s.
+
+The slab form (``ghosts=(rho_lo, rho_hi), clamp=(bottom, top)``, the TPU
+kernel's ghost mode, for a z-slab of a domain decomposed along z over
+ranks: ``parallel/step3d.py``) takes one neighbour rho plane a side,
+[1, 1, 1, Y, X] each, and runs the edge surgery only on the planes that
+are the domain's true edges (``bottom``, ``top``); a slab-boundary plane
+with a neighbour is an interior plane whose face terms read the ghost.
+One launch (``launches_slab``); its plain version runs the surgery on the
+slab extended by the ghosts where it has a neighbour.
 """
 
 from __future__ import annotations
@@ -24,9 +33,9 @@ import torch
 
 from ...utils.types import CellType
 from ..collide import contact_angle_boundary
-from ._lib import call, check_cuda, check_no_grad, ptr, stream_of
+from ._lib import call, check_cuda, check_no_grad, count_launch, ptr, stream_of
 
-__all__ = ["contact_angle_3d", "contact_angle_3d_plain", "cost", "N_LAUNCHES"]
+__all__ = ["contact_angle_3d", "contact_angle_3d_plain", "cost", "cost_slab", "N_LAUNCHES"]
 
 TPU_KERNEL = "lbm_ferrofluid_tpu/ops/pallas/contact3d.py:309"
 CUDA_SOURCE = "lbm_ferrofluid_tpu_torch/csrc/contact3d.cu"
@@ -50,21 +59,55 @@ def cost(rho, flags, contact_angle=None) -> tuple[int, int]:
     return 8 * flags.numel() + faces, 9 * xy_face_obs + 2 * edges + 3 * 8
 
 
-def contact_angle_3d_plain(rho, flags, contact_angle):
-    """Plain PyTorch version of :func:`contact_angle_3d`."""
-    return contact_angle_boundary(rho, flags, contact_angle)
+def cost_slab(rho, flags, contact_angle=None, ghosts=None) -> tuple[int, int]:
+    """:func:`cost` of the slab form: the two ghost planes read once more;
+    the surgery's flops as counted over the whole domain (an upper bound
+    on a slab's, which does the edge surgery only at true edges)."""
+    nbytes, flops = cost(rho, flags)
+    return nbytes + 8 * flags.shape[-2] * flags.shape[-1], flops
 
 
-def contact_angle_3d(rho, flags, contact_angle):
+def contact_angle_3d_plain(rho, flags, contact_angle, ghosts=None, clamp=None):
+    """Plain PyTorch version of :func:`contact_angle_3d`.  The slab form runs
+    the surgery on the slab extended by the ghost plane on each side that
+    is not a true edge (the ghost then stands at the extension's edge, and
+    the slab's plane next to it is an interior plane) and keeps the slab's
+    planes; the extension's flags are the slab's edge plane's, never read
+    for a kept plane."""
+    if ghosts is None:
+        return contact_angle_boundary(rho, flags, contact_angle)
+    bottom, top = clamp
+    lo, hi = ghosts
+    parts, fparts = [rho], [flags]
+    if not bottom:
+        parts.insert(0, lo)
+        fparts.insert(0, flags[:, :, :1])
+    if not top:
+        parts.append(hi)
+        fparts.append(flags[:, :, -1:])
+    out = contact_angle_boundary(torch.cat(parts, dim=2), torch.cat(fparts, dim=2),
+                                 contact_angle)
+    Z = rho.shape[2]
+    start = 0 if bottom else 1
+    return out[:, :, start:start + Z]
+
+
+def contact_angle_3d(rho, flags, contact_angle, ghosts=None, clamp=None):
     """rho [1, 1, Z, Y, X] float32 and flags [1, 1, Z, Y, X] uint8 ->
-    rho_ca.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel; anything else raises.  ``rho`` is not modified."""
+    rho_ca; with ``ghosts`` and ``clamp`` the slab form.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel on their card;
+    anything else raises.  ``rho`` is not modified."""
+    if (ghosts is None) != (clamp is None):
+        raise ValueError("contact_angle_3d: give ghosts and clamp together, or neither")
     if rho.device.type == "cpu":
-        return contact_angle_3d_plain(rho, flags, contact_angle)
+        return contact_angle_3d_plain(rho, flags, contact_angle, ghosts, clamp)
     check_no_grad("contact_angle_3d", rho)
     B, C, Z, Y, X = rho.shape
     check_cuda("rho", rho, torch.float32, (1, 1, Z, Y, X))
     check_cuda("flags", flags, torch.uint8, (1, 1, Z, Y, X))
+    if ghosts is not None:
+        for name, t in zip(("rho_lo", "rho_hi"), ghosts, strict=True):
+            check_cuda(name, t, torch.float32, (1, 1, 1, Y, X))
     if min(Z, Y, X) < contact_angle_3d.min_axis:
         raise ValueError(f"contact_angle_3d needs Z, Y, X >= {contact_angle_3d.min_axis}")
     if rho.numel() > MAX_CELLS:
@@ -73,13 +116,18 @@ def contact_angle_3d(rho, flags, contact_angle):
     # 16-byte loads and stores where every plane's groups of 4 cells are aligned
     vec = (Y * X) % 4 == 0 and rho.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     t = ctypes.c_double(math.tan(math.pi / 2.0 - float(contact_angle)))
+    lo, hi = ghosts if ghosts is not None else (None, None)
+    bottom, top = clamp if clamp is not None else (1, 1)
     call("lbm_contact_angle", ptr(rho), ptr(flags), ptr(out), ctypes.c_int(Z),
-         ctypes.c_int(Y), ctypes.c_int(X), t, ctypes.c_int(vec), stream_of(rho))
-    contact_angle_3d.launches += 1
+         ctypes.c_int(Y), ctypes.c_int(X), t, ctypes.c_int(vec), ptr(lo), ptr(hi),
+         ctypes.c_int(int(bool(bottom))), ctypes.c_int(int(bool(top))), stream_of(rho))
+    count_launch(contact_angle_3d, False, "slab" if ghosts is not None else None)
     return out
 
 
 contact_angle_3d.launches = 0
+contact_angle_3d.launches_bf16 = 0
+contact_angle_3d.launches_slab = 0
 #: cells an axis needs at least (below that, a face reads cells its own
 #: stage writes, and the one-pass rule does not hold)
 contact_angle_3d.min_axis = 4

@@ -30,6 +30,15 @@ per cell plus 60 B per fluid cell (153 B and 60 B in bfloat16 storage),
 and with ``emit_mac`` 36 B per cell plus 16 B per obstacle cell more (see
 :func:`cost_epilogue`).
 
+B4's slab form (``ghosts=``, the TPU kernel's ghost mode, for a z-slab of a
+domain decomposed along z over ranks: ``parallel/step3d.py``) pulls the
+z-1 channels of plane 0 and the z+1 channels of plane Z-1 from the
+neighbours' edge planes instead of the wrap: ``ghosts = (f_lo, f_hi, g_lo,
+g_hi)``, each [1, 5, 1, Y, X] in the storage type, channels 9:14 of the
+plane below the slab and 14:19 of the plane above (:func:`ghost_planes`),
+which is all a pull reads there.  One launch (``launches_slab``); its plain
+version streams the slab extended by those planes.
+
 Both take f and g in float32 or bfloat16 (the JAX package's turbo mode):
 the CUDA kernels' bfloat16 instances widen what they pull, compute in
 float32 and round f'/g' once, on the store, and the emission reads the
@@ -52,7 +61,8 @@ from ._lib import (STORAGE, call, check_cuda, check_no_grad, count_launch, elem_
                    stream_of)
 
 __all__ = [
-    "lbm_prologue", "lbm_prologue_plain", "cost", "stream_macro_launch",
+    "lbm_prologue", "lbm_prologue_plain", "cost", "cost_slab", "stream_macro_launch",
+    "ghost_planes", "extend_ghosts", "repeat_ends",
     "lbm_epilogue", "lbm_epilogue_plain", "cost_epilogue", "plan", "EpiloguePlan", "CELL",
     "FORMS",
 ]
@@ -130,9 +140,54 @@ def cost(f, g, flags, rho_old, vel_old, **_) -> tuple[int, int]:
     return n * (fg + 1 + 36) + 16 * n_obs, n * 51 + (n - n_obs) * 52
 
 
-def lbm_prologue_plain(f, g, flags, rho_old, vel_old, *, c, rho_gas, rho_fluid,
+def cost_slab(f, g, flags, rho_old, vel_old, ghosts=None, **_) -> tuple[int, int]:
+    """:func:`cost` of the slab form: the ghost planes' 5 channels of f and
+    g a side read once more."""
+    nbytes, flops = cost(f, g, flags, rho_old, vel_old)
+    plane = flags.shape[-2] * flags.shape[-1]
+    return nbytes + 2 * 5 * plane * (elem_bytes(f) + elem_bytes(g)), flops
+
+
+def ghost_planes(f):
+    """The planes of ``f`` [1, 19, Z, Y, X] that the neighbours of its slab
+    pull: (channels 9:14 of plane Z-1, channels 14:19 of plane 0), each
+    [1, 5, 1, Y, X].  The rank above takes the first as its ``lo`` ghost,
+    the rank below the second as its ``hi``."""
+    return f[:, 9:14, -1:], f[:, 14:19, :1]
+
+
+def repeat_ends(x):
+    """``x`` with its first and last planes repeated once outside: the
+    planes around a slab whose values no kept output reads."""
+    return torch.cat([x[:, :, :1], x, x[:, :, -1:]], dim=2)
+
+
+def extend_ghosts(f, lo, hi):
+    """``f`` [1, 19, Z, Y, X] with one plane a side: ``lo``'s channels at
+    9:14 of plane -1, ``hi``'s at 14:19 of plane Z, zeros elsewhere (no pull
+    of the slab's planes reads them)."""
+    B, Q, Z, Y, X = f.shape
+    plane = torch.zeros((B, Q, 1, Y, X), dtype=f.dtype, device=f.device)
+    below, above = plane.clone(), plane
+    below[:, 9:14] = lo
+    above[:, 14:19] = hi
+    return torch.cat([below, f, above], dim=2)
+
+
+def lbm_prologue_plain(f, g, flags, rho_old, vel_old, ghosts=None, *, c, rho_gas, rho_fluid,
                        density_gas, density_fluid):
-    """Plain PyTorch version of :func:`lbm_prologue`."""
+    """Plain PyTorch version of :func:`lbm_prologue`.  The slab form streams
+    f and g extended by their ghost planes (:func:`extend_ghosts`) and keeps
+    the slab's planes; the extension's planes hold any flags and old
+    macros, since their outputs are dropped."""
+    if ghosts is not None:
+        f_lo, f_hi, g_lo, g_hi = ghosts
+        out = lbm_prologue_plain(
+            extend_ghosts(f, f_lo, f_hi), extend_ghosts(g, g_lo, g_hi), repeat_ends(flags),
+            repeat_ends(rho_old), repeat_ends(vel_old), c=c, rho_gas=rho_gas,
+            rho_fluid=rho_fluid, density_gas=density_gas, density_fluid=density_fluid,
+        )
+        return tuple(x[:, :, 1:-1] for x in out)
     _, rho, vel, density = stream_bounce_macro(
         D3Q19, f, flags, rho_old, vel_old, c=c, rho_gas=rho_gas,
         rho_fluid=rho_fluid, density_gas=density_gas, density_fluid=density_fluid,
@@ -141,17 +196,20 @@ def lbm_prologue_plain(f, g, flags, rho_old, vel_old, *, c, rho_gas, rho_fluid,
     return rho, vel, density, m0g, m1g
 
 
-def stream_macro_launch(f, g, flags, rho_old, vel_old, consts):
+def stream_macro_launch(f, g, flags, rho_old, vel_old, consts, ghosts=None):
     """Check shapes, allocate the 5 outputs and launch the stream-macro
-    kernel (its bfloat16 instance for bfloat16 f and g); shared with the
-    capillogue's and the epilogue's emissions, which count their own
-    launches."""
+    kernel (its bfloat16 instance for bfloat16 f and g, its slab form with
+    ``ghosts``); shared with the capillogue's and the epilogue's emissions,
+    which count their own launches."""
     B, Q, Z, Y, X = f.shape
     check_cuda("f", f, STORAGE, (1, 19, Z, Y, X))
     check_cuda("g", g, (f.dtype,), (1, 19, Z, Y, X))
     check_cuda("flags", flags, torch.uint8, (1, 1, Z, Y, X))
     check_cuda("rho_old", rho_old, torch.float32, (1, 1, Z, Y, X))
     check_cuda("vel_old", vel_old, torch.float32, (1, 3, Z, Y, X))
+    if ghosts is not None:
+        for name, t in zip(("f_lo", "f_hi", "g_lo", "g_hi"), ghosts, strict=True):
+            check_cuda(name, t, (f.dtype,), (1, 5, 1, Y, X))
     rho = torch.empty_like(rho_old)
     vel = torch.empty_like(vel_old)
     den = torch.empty_like(rho_old)
@@ -160,31 +218,31 @@ def stream_macro_launch(f, g, flags, rho_old, vel_old, consts):
     call("lbm_prologue", ptr(f), ptr(g), ptr(flags), ptr(rho_old), ptr(vel_old), ptr(rho),
          ptr(vel), ptr(den), ptr(m0g), ptr(m1g), ctypes.c_int(Z), ctypes.c_int(Y),
          ctypes.c_int(X), *(ctypes.c_double(float(v)) for v in consts),
-         ctypes.c_int(f.dtype == torch.bfloat16), stream_of(f))
+         ctypes.c_int(f.dtype == torch.bfloat16),
+         *(ptr(t) for t in (ghosts or (None,) * 4)), stream_of(f))
     return rho, vel, den, m0g, m1g
 
 
-def lbm_prologue(f, g, flags, rho_old, vel_old, *, c, rho_gas, rho_fluid,
+def lbm_prologue(f, g, flags, rho_old, vel_old, ghosts=None, *, c, rho_gas, rho_fluid,
                  density_gas, density_fluid):
     """f, g [1, 19, Z, Y, X] float32 or bfloat16, flags uint8, rho_old
     [1, 1, ...], vel_old [1, 3, ...] float32 -> (rho, vel, density, m0g,
-    m1g) float32.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel; anything else raises."""
+    m1g) float32; with ``ghosts`` the slab form.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel on their card; anything else
+    raises."""
+    consts = dict(c=c, rho_gas=rho_gas, rho_fluid=rho_fluid, density_gas=density_gas,
+                  density_fluid=density_fluid)
     if f.device.type == "cpu":
-        return lbm_prologue_plain(
-            f, g, flags, rho_old, vel_old, c=c, rho_gas=rho_gas, rho_fluid=rho_fluid,
-            density_gas=density_gas, density_fluid=density_fluid,
-        )
+        return lbm_prologue_plain(f, g, flags, rho_old, vel_old, ghosts, **consts)
     check_no_grad("lbm_prologue", f, g, rho_old, vel_old)
-    out = stream_macro_launch(
-        f, g, flags, rho_old, vel_old, (c, rho_gas, rho_fluid, density_gas, density_fluid),
-    )
-    count_launch(lbm_prologue, f.dtype == torch.bfloat16)
+    out = stream_macro_launch(f, g, flags, rho_old, vel_old, tuple(consts.values()), ghosts)
+    count_launch(lbm_prologue, f.dtype == torch.bfloat16, "slab" if ghosts is not None else None)
     return out
 
 
 lbm_prologue.launches = 0
 lbm_prologue.launches_bf16 = 0
+lbm_prologue.launches_slab = 0
 
 
 def cost_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, *,

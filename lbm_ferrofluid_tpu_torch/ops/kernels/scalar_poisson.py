@@ -21,6 +21,21 @@ grouped tap order ``A·W1 + D·W2 + c·s_prev`` of ``_cmask_sweeps_jnp``.
 Bound on an H100 (card peaks from NVIDIA's data sheet): see :func:`cost`;
 at 30 sweeps the float32 operation rate bounds it (0.16 ms at 256^3
 against 0.12 ms for the bytes).
+
+The slab form (``ghosts=``, the TPU kernel's ghost mode, for a z-slab of a
+domain decomposed along z over ranks: ``parallel/step3d.py``) is one round
+of ``n_iters`` sweeps: ``s2`` holds the slab's Zl planes, ``cmask`` and
+``rhs_scaled`` come extended by G planes a side ([1, 1, Zl + 2G, Y, X]) and
+``ghosts = (lo, hi)`` are the neighbours' edge bands of (s, s_prev),
+[1, 2, G, Y, X] each.  The round copies the bands and the slab into one
+extended pair, runs the passes on it (their z-wrap reaches only ghost
+planes, so G >= ``n_iters`` keeps the slab exact, and G >= ``n_iters`` + 1
+keeps psi exact one plane past it for H2), and returns the slab's planes
+with either the boundary bands of the result (``emit_bands=True``, for the
+next round's exchange) or H2 of the slab's planes (``emit="h2"`` with
+``slab_clamp = (zlo, zhi)``, the gradient's z clamp in extended coordinates:
+G + 1 and G + Zl - 2 at the domain's true edges, 1 and Zl + 2G - 2
+elsewhere).  Its launches count in ``launches_slab``.
 """
 
 from __future__ import annotations
@@ -48,6 +63,7 @@ __all__ = [
     "h2_from_psi_plain",
     "scalar_h2",
     "cost",
+    "cost_slab",
 ]
 
 TPU_KERNEL = "lbm_ferrofluid_tpu/ops/pallas/scalar_poisson.py:562"
@@ -168,6 +184,21 @@ def cost(s2, cmask, rhs_scaled, *, n_iters, emit="h2", **_) -> tuple[int, int]:
     return nbytes, nflops
 
 
+def cost_slab(s2, cmask, rhs_scaled, *, n_iters, emit="h2", ghosts=None, **_) -> tuple[int, int]:
+    """(bytes, flops) of a slab round: :func:`cost`'s sweeps over the
+    extended planes (``cmask`` comes extended; the ghost bands are among
+    those planes), with no psi written, and in the final round H2 of the
+    slab's own planes (:func:`cost_h2` over them)."""
+    nbytes, flops = cost(s2, cmask, rhs_scaled, n_iters=n_iters, emit="psi")
+    nbytes -= 4 * cmask.numel()
+    if emit == "h2":
+        G, Zl = ghosts[0].shape[2], s2.shape[2]
+        own = cmask[:, :, G:G + Zl]
+        nbytes += 4 * own.numel()
+        flops += cost_h2(own, own)[1]
+    return nbytes, flops
+
+
 def cost_h2(psi, cmask, **_) -> tuple[int, int]:
     """(bytes, flops) of :func:`scalar_h2`: psi and cmask read and H2
     written at every cell; 36 flops per interior cell (the gradient; the
@@ -206,49 +237,72 @@ def h2_from_psi_plain(psi, cmask, dx, h_ext):
     return maybe_h2(-isotropic_grad(psi, dx, flags), h_ext)
 
 
+def _check_slab(s2, cmask, n_iters, emit, ghosts, slab_clamp, emit_bands):
+    """G, the ghost bands' depth, once the slab form's arguments hold."""
+    if (emit, emit_bands, slab_clamp is None) not in (("h2", False, False), (None, True, True)):
+        raise ValueError("the slab form emits H2 (emit='h2' with slab_clamp) or the "
+                         "boundary bands (emit=None, emit_bands=True)")
+    G = ghosts[0].shape[2]
+    Zl = s2.shape[2]
+    if cmask.shape[2] != Zl + 2 * G or G < n_iters + (emit == "h2") or G > Zl:
+        raise ValueError(f"slab round of {n_iters} sweeps: cmask/rhs extended by G planes a "
+                         f"side with n_iters{' + 1' if emit == 'h2' else ''} <= G <= Zl; got "
+                         f"G={G}, Zl={Zl}, extended {cmask.shape[2]}")
+    return G
+
+
+def _slab_out(ext, G, Zl, emit_bands):
+    """The slab's planes of an extended pair, and its boundary bands (the
+    final values of planes [0, G) and [Zl - G, Zl)) with ``emit_bands``."""
+    s2 = ext[:, :, G:G + Zl].contiguous()
+    if not emit_bands:
+        return s2
+    return s2, (ext[:, :, G:2 * G].contiguous(), ext[:, :, Zl:Zl + G].contiguous())
+
+
+def h2_slab_plain(psi, cmask, dx, h_ext, G, Zl, slab_clamp):
+    """H2 of the slab's planes [G, G + Zl) of the extended psi, the
+    gradient's plane and the obstacle substitution clamped to
+    ``slab_clamp``: :func:`h2_from_psi_plain` on planes [zlo - 1, zhi + 1],
+    whose own edges are then the clamp."""
+    zlo, zhi = slab_clamp
+    h2 = h2_from_psi_plain(psi[:, :, zlo - 1:zhi + 2], cmask[:, :, zlo - 1:zhi + 2], dx, h_ext)
+    start = G - zlo + 1
+    return h2[:, :, start:start + Zl]
+
+
 def scalar_wavefront_plain(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext=None,
-                           emit="h2"):
-    """Plain PyTorch version of :func:`scalar_wavefront`."""
+                           emit="h2", ghosts=None, slab_clamp=None, emit_bands=False):
+    """Plain PyTorch version of :func:`scalar_wavefront`; the slab form
+    sweeps the extended pair."""
+    if ghosts is not None:
+        G = _check_slab(s2, cmask, n_iters, emit, ghosts, slab_clamp, emit_bands)
+        Zl = s2.shape[2]
+        ext, psi = scalar_sweeps_plain(torch.cat([ghosts[0], s2, ghosts[1]], dim=2), cmask,
+                                       rhs_scaled, n_iters)
+        if emit_bands:
+            return _slab_out(ext, G, Zl, True)
+        return _slab_out(ext, G, Zl, False), h2_slab_plain(psi, cmask, dx, h_ext, G, Zl,
+                                                           slab_clamp)
     s2, psi = scalar_sweeps_plain(s2, cmask, rhs_scaled, n_iters)
     if emit == "psi":
         return s2, psi
     return s2, h2_from_psi_plain(psi, cmask, dx, h_ext)
 
 
-def scalar_wavefront(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext=None, emit="h2"):
-    """``n_iters`` scalar sweeps on the fused (s, s_prev) pair, then H2.
-
-    ``s2``: [1, 2, Z, Y, X] float32, both channels fluid-masked;
-    ``cmask``: [1, 1, Z, Y, X] float32, -1 at obstacles, c(x) >= 0 at fluid
-    cells; ``rhs_scaled``: [1, 1, Z, Y, X] float32; ``h_ext`` a 3-tuple.
-    Returns (s2', H2), or with ``emit="psi"`` (s2', psi of the last sweep)
-    and no H2 launch (``h_ext`` unused).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel; anything else raises.  Inputs
-    are not modified.
-    """
-    if emit not in ("h2", "psi"):
-        raise ValueError(f"scalar_wavefront emits 'h2' or 'psi', not {emit!r}")
-    if s2.device.type == "cpu":
-        return scalar_wavefront_plain(
-            s2, cmask, rhs_scaled, n_iters=n_iters, dx=dx, h_ext=h_ext, emit=emit
-        )
-    check_no_grad("scalar_wavefront", s2, cmask, rhs_scaled)
+def _passes(s2, cmask, rhs_scaled, n_iters, want_psi, form):
+    """Launch the passes of ``n_iters`` sweeps on the pair ``s2``; returns
+    (s2', psi of the last sweep, or None)."""
     B, C, Z, Y, X = s2.shape
-    check_cuda("s2", s2, torch.float32, (1, 2, Z, Y, X))
-    check_cuda("cmask", cmask, torch.float32, (1, 1, Z, Y, X))
-    check_cuda("rhs_scaled", rhs_scaled, torch.float32, (1, 1, Z, Y, X))
-    if min(Z, Y, X) < 3 or n_iters < 1 or (emit == "h2" and len(h_ext) != 3):
-        raise ValueError("scalar_wavefront needs Z, Y, X >= 3, n_iters >= 1 and a 3-tuple h_ext")
     pl = plan(Z, Y, X, n_iters, torch.cuda.get_device_properties(s2.device).multi_processor_count)
     out = torch.empty_like(s2)
     # pass i writes out when an even number of passes follows it, else tmp:
     # each pass reads the pair the one before it wrote, and the last writes out
     tmp = torch.empty_like(s2) if len(pl.passes) > 1 else None
-    psi = torch.empty_like(cmask)
+    psi = torch.empty_like(cmask) if want_psi else None
     dims = (ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X))
     st = stream_of(s2)
     src = s2
-    form = "psi" if emit == "psi" else None
     for i, k in enumerate(pl.passes):
         after = len(pl.passes) - 1 - i
         dst = out if after % 2 == 0 else tmp
@@ -257,9 +311,60 @@ def scalar_wavefront(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext=None, emit
              ctypes.c_int(k), ctypes.c_int(pl.ty), ctypes.c_int(pl.lz), st)
         count_launch(scalar_wavefront, False, form)
         src = dst
-    if emit == "psi":
-        return out, psi
-    return out, scalar_h2(psi, cmask, dx, h_ext)
+    return out, psi
+
+
+def scalar_wavefront(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext=None, emit="h2",
+                     ghosts=None, slab_clamp=None, emit_bands=False):
+    """``n_iters`` scalar sweeps on the fused (s, s_prev) pair, then H2.
+
+    ``s2``: [1, 2, Z, Y, X] float32, both channels fluid-masked;
+    ``cmask``: [1, 1, Z, Y, X] float32, -1 at obstacles, c(x) >= 0 at fluid
+    cells; ``rhs_scaled``: [1, 1, Z, Y, X] float32; ``h_ext`` a 3-tuple.
+    Returns (s2', H2), or with ``emit="psi"`` (s2', psi of the last sweep)
+    and no H2 launch (``h_ext`` unused).  With ``ghosts`` the slab form
+    (module docstring): (s2', H2) with ``emit="h2"`` and ``slab_clamp``, or
+    (s2', (band_lo, band_hi)) with ``emit=None, emit_bands=True``.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel on their
+    card; anything else raises.  Inputs are not modified.
+    """
+    if emit not in ("h2", "psi") and not (ghosts is not None and emit is None):
+        raise ValueError(f"scalar_wavefront emits 'h2' or 'psi', not {emit!r}")
+    kw = dict(n_iters=n_iters, dx=dx, h_ext=h_ext, emit=emit)
+    if ghosts is not None:
+        kw.update(ghosts=ghosts, slab_clamp=slab_clamp, emit_bands=emit_bands)
+    if s2.device.type == "cpu":
+        return scalar_wavefront_plain(s2, cmask, rhs_scaled, **kw)
+    check_no_grad("scalar_wavefront", s2, cmask, rhs_scaled)
+    B, C, Z, Y, X = s2.shape
+    check_cuda("s2", s2, torch.float32, (1, 2, Z, Y, X))
+    Ze = Z
+    if ghosts is not None:
+        G = _check_slab(s2, cmask, n_iters, emit, ghosts, slab_clamp, emit_bands)
+        Ze = Z + 2 * G
+        for name, t in zip(("band_lo", "band_hi"), ghosts, strict=True):
+            check_cuda(name, t, torch.float32, (1, 2, G, Y, X))
+    check_cuda("cmask", cmask, torch.float32, (1, 1, Ze, Y, X))
+    check_cuda("rhs_scaled", rhs_scaled, torch.float32, (1, 1, Ze, Y, X))
+    if min(Z, Y, X) < 3 or n_iters < 1 or (emit == "h2" and len(h_ext) != 3):
+        raise ValueError("scalar_wavefront needs Z, Y, X >= 3, n_iters >= 1 and a 3-tuple h_ext")
+    if ghosts is None:
+        out, psi = _passes(s2, cmask, rhs_scaled, n_iters, True,
+                           "psi" if emit == "psi" else None)
+        if emit == "psi":
+            return out, psi
+        return out, scalar_h2(psi, cmask, dx, h_ext)
+    ext, psi = _passes(torch.cat([ghosts[0], s2, ghosts[1]], dim=2), cmask, rhs_scaled,
+                       n_iters, emit == "h2", "slab")
+    if emit_bands:
+        return _slab_out(ext, G, Z, True)
+    h2 = torch.empty_like(s2[:, :1])
+    call("lbm_scalar_h2_slab", ptr(psi), ptr(cmask), ptr(h2), ctypes.c_int(Ze), ctypes.c_int(Y),
+         ctypes.c_int(X), ctypes.c_int(G), ctypes.c_int(Z), *(ctypes.c_int(int(v))
+                                                                for v in slab_clamp),
+         ctypes.c_double(dx), *(ctypes.c_double(float(v)) for v in h_ext), stream_of(psi))
+    count_launch(scalar_wavefront, False, "slab")
+    return _slab_out(ext, G, Z, False), h2
 
 
 def scalar_h2(psi, cmask, dx, h_ext):
@@ -286,4 +391,6 @@ def scalar_h2(psi, cmask, dx, h_ext):
 
 
 scalar_wavefront.launches = 0
+scalar_wavefront.launches_bf16 = 0
 scalar_wavefront.launches_psi = 0
+scalar_wavefront.launches_slab = 0

@@ -1,0 +1,266 @@
+"""The z-slab decomposition of the ferrofluid steady state over ranks.
+
+Port of the part of ``lbm_ferrofluid_tpu/parallel/step3d.py`` that the
+north-star steady state runs on a mesh: the capillogue route with the
+scalar Poisson carry (``models/ferrofluid.py``'s 6-leaf premac).  The JAX
+package runs each Pallas kernel inside ``shard_map`` over a ('batch', 'z')
+mesh and feeds its ghost mode from ``ppermute`` ring exchanges; here each
+rank is a process that holds its slab (``parallel/sharding.py``), runs the
+slab form of each kernel (``ops/kernels``: B4, B1, B2, B3 with ``ghosts=``)
+and exchanges the ghost planes with :func:`~.halo.ring_halo`:
+
+* priming: :func:`fused_prologue_sharded` (B4's slab form, the f and g
+  planes the pulls cross the slab's faces for);
+* each step: :func:`scalar_poisson_sharded` (rounds of k sweeps of B1's
+  slab form on the slab extended by G = k + 1 planes a side, the boundary
+  bands of (s, s_prev) exchanged between rounds, H2 from the last),
+  :func:`contact3d_sharded` (B2's, one rho plane a side) and
+  :func:`capillogue_sharded` (B3's: the f and g planes, one bundle of the
+  capillary fields' planes a side, and one exchange of the collided edge
+  planes between its collide and its emission).
+
+At ``nz == 1`` the mesh is data parallel over ``batch`` (or one rank): each
+rank holds the whole z of its batch element and runs the single-device
+kernels (:func:`dp_dispatch`), unless the mesh is made with ``slab=True``,
+which keeps the slab forms with the rank's own wrap as its ghosts (the JAX
+package's ``LBM_SLAB_FORCE``).
+
+The gates take GLOBAL [B, C, Z, Y, X] shapes, as the JAX package's; their
+structural conditions are the port's (the TPU's alignment and VMEM gates
+are not: ROADMAP ground rules).  Every function here takes and returns the
+rank's own slab; ``plain=True`` runs the slab forms' plain versions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.kernels.capillogue import cap_bundle, lbm_capillogue, lbm_capillogue_plain
+from ..ops.kernels.contact3d import contact_angle_3d, contact_angle_3d_plain
+from ..ops.kernels.fused_step import ghost_planes, lbm_prologue, lbm_prologue_plain
+from ..ops.kernels.scalar_poisson import scalar_wavefront, scalar_wavefront_plain
+from ..ops.scalar_poisson import make_cmask, s_prev_from_h, scalar_from_h
+from .halo import ring_halo
+from .mesh import AXES, Mesh
+
+__all__ = [
+    "dp_dispatch",
+    "sharded3d_ok",
+    "fused_step_sharded_ok",
+    "contact3d_sharded_ok",
+    "capillogue_sharded_ok",
+    "scalar_sharded_ok",
+    "scalar_slab_plan",
+    "global_shape",
+    "unported",
+    "fused_prologue_sharded",
+    "scalar_poisson_sharded",
+    "contact3d_sharded",
+    "capillogue_sharded",
+    "scalar_convert_sharded",
+]
+
+
+def dp_dispatch(mesh: Mesh) -> bool:
+    """True where each rank holds the whole z of its batch element and runs
+    the single-device kernels: a z axis of one rank, and no ``slab=True``
+    (JAX ``_dp_dispatch``)."""
+    return mesh.nz == 1 and not mesh.slab
+
+
+def global_shape(local_shape, mesh: Mesh) -> tuple:
+    """The whole domain's [B, C, Z, Y, X] shape of a rank's slab."""
+    B, C, Z, *rest = local_shape
+    return (B * mesh.nb, C, Z * mesh.nz, *rest)
+
+
+def unported(route: str) -> NotImplementedError:
+    """The error for a route of the meshed step that the port does not run
+    on a z-slab mesh."""
+    return NotImplementedError(
+        f"{route} on a z-slab mesh is not ported yet (ROADMAP A12, the slices after the "
+        "capillogue steady state); step it on one device or on a batch mesh (nz = 1), or "
+        "prime_premac(..., mesh=) an in-plane-field 3D state with the scalar carry")
+
+
+def sharded3d_ok(mesh: Mesh, shape) -> bool:
+    """Can the slab path run this global [B, C, Z, Y, X] shape on ``mesh``?
+    Only the batch and z axes larger than 1, one batch element a rank, and
+    Z dividing into slabs of 2 or more planes."""
+    if len(shape) != 5:
+        return False
+    B, _, Z, _, _ = shape
+    if any(size > 1 and name not in AXES for name, size in mesh.sizes.items()):
+        return False
+    if B % mesh.nb or B // mesh.nb != 1:
+        return False
+    return Z % mesh.nz == 0 and Z // mesh.nz >= 2
+
+
+def fused_step_sharded_ok(mesh: Mesh, shape, kbc_type) -> bool:
+    """B4's slab form: LBGK f and g of 19 channels, slabs of 4 or more
+    planes."""
+    return (kbc_type is None and len(shape) == 5 and shape[1] == 19
+            and sharded3d_ok(mesh, shape) and shape[2] // mesh.nz >= 4)
+
+
+def contact3d_sharded_ok(mesh: Mesh, shape, dtype) -> bool:
+    """B2's slab form: float32 rho, slabs of 4 or more planes."""
+    return (dtype == torch.float32 and sharded3d_ok(mesh, shape)
+            and shape[2] // mesh.nz >= 4)
+
+
+def capillogue_sharded_ok(mesh: Mesh, shape) -> bool:
+    """B3's slab form: slabs of 4 or more planes."""
+    return sharded3d_ok(mesh, shape) and shape[2] // mesh.nz >= 4
+
+
+#: a round's own cost in cell-sweeps of B1's passes, whatever its plane:
+#: the copies of the extended pair, the exchanges and the launches (about
+#: 0.25 ms a round on an H100 at 256^3 and at 130x66x130, chip_smoke.py
+#: --scalar-plans)
+ROUND_CELL_SWEEPS = 24_000_000
+
+
+def scalar_slab_plan(mesh: Mesh, s2_shape, n_iters: int):
+    """(k, G) of B1's slab rounds on the global [1, 2, Z, Y, X] carry, or
+    None: k >= 2 divides ``n_iters`` with G = k + 1 <= Zl (one exchange
+    brings at most a slab's planes; JAX ``_scalar_slab_plan`` without its
+    VMEM gate).  Every such k computes the same sweeps; this one has the
+    least ``n_iters / k * ROUND_CELL_SWEEPS + 2 n_iters (k + 1) Y X``,
+    fewer rounds against fewer ghost planes swept: at 30 sweeps k = 15 on
+    256^2 planes and k = 30 on 66x130, the fastest k at both grids
+    (chip_smoke.py --scalar-plans)."""
+    _, C, Z, Y, X = s2_shape
+    if C != 2 or Z % mesh.nz:
+        return None
+    Zl = Z // mesh.nz
+    ks = [k for k in range(2, n_iters + 1) if n_iters % k == 0 and k + 1 <= Zl]
+    if not ks:
+        return None
+    k = min(ks, key=lambda k: n_iters // k * ROUND_CELL_SWEEPS + 2 * n_iters * (k + 1) * Y * X)
+    return k, k + 1
+
+
+def scalar_sharded_ok(mesh: Mesh, s2_shape, n_iters: int) -> bool:
+    """Can B1 solve the global [1, 2, Z, Y, X] carry on ``mesh``: the
+    single-device kernel under :func:`dp_dispatch`, else a slab plan."""
+    if not sharded3d_ok(mesh, s2_shape):
+        return False
+    if dp_dispatch(mesh):
+        return min(s2_shape[2:]) >= 3
+    return scalar_slab_plan(mesh, s2_shape, n_iters) is not None
+
+
+def _fg_ghosts(f, g, mesh: Mesh):
+    """(f_lo, f_hi, g_lo, g_hi): the 5-channel planes of the neighbours that
+    the pulls of the slab's edge planes read (``fused_step.ghost_planes``),
+    f and g in one exchange a side."""
+    f_up, f_dn = ghost_planes(f)
+    g_up, g_dn = ghost_planes(g)
+    lo = ring_halo(torch.cat([f_up, g_up], dim=1), mesh, +1)  # the rank below's top
+    hi = ring_halo(torch.cat([f_dn, g_dn], dim=1), mesh, -1)  # the rank above's bottom
+    return lo[:, :5], hi[:, :5], lo[:, 5:], hi[:, 5:]
+
+
+def _extend(x, G: int, mesh: Mesh):
+    """``x`` [B, C, Zl, Y, X] with the neighbours' G nearest planes a side."""
+    lo = ring_halo(x[:, :, -G:], mesh, +1)
+    hi = ring_halo(x[:, :, :G], mesh, -1)
+    return torch.cat([lo, x, hi], dim=2)
+
+
+def fused_prologue_sharded(f, g, flags, rho_old, vel_old, mesh: Mesh, *, c, rho_gas,
+                           rho_fluid, density_gas, density_fluid, plain=False):
+    """B4 on the rank's slab: the macros of the slab's planes."""
+    prologue = lbm_prologue_plain if plain else lbm_prologue
+    kw = dict(c=c, rho_gas=rho_gas, rho_fluid=rho_fluid, density_gas=density_gas,
+              density_fluid=density_fluid)
+    ghosts = None if dp_dispatch(mesh) else _fg_ghosts(f, g, mesh)
+    return prologue(f, g, flags, rho_old, vel_old, ghosts, **kw)
+
+
+def contact3d_sharded(rho, flags, contact_angle, mesh: Mesh, *, plain=False):
+    """B2 on the rank's slab: one rho plane a side, the edge surgery on the
+    domain's true edges only."""
+    surgery = contact_angle_3d_plain if plain else contact_angle_3d
+    if dp_dispatch(mesh):
+        return surgery(rho, flags, contact_angle)
+    ghosts = (ring_halo(rho[:, :, -1:], mesh, +1), ring_halo(rho[:, :, :1], mesh, -1))
+    return surgery(rho, flags, contact_angle, ghosts, (mesh.iz == 0, mesh.iz == mesh.nz - 1))
+
+
+def capillogue_sharded(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2, g_sum,
+                       g_mom, vel_old, magnetic_flags, mesh: Mesh, *, kappa, gravity,
+                       rho_gas, rho_fluid, density_gas, density_fluid, tau_f, tau_g, dx=1.0,
+                       dt=1.0, emit_rhs, plain=False):
+    """B3 on the rank's slab, the steady state's form (no force written):
+    returns (f', g', vel, pressure, density, premac).  Exchanges: the f
+    and g planes, one bundle a side of the capillary fields' planes
+    (``capillogue.cap_bundle``: small planes, where an exchange's latency
+    rivals its transfer), and the collided f'/g' planes between the
+    collide and the emission."""
+    capillogue = lbm_capillogue_plain if plain else lbm_capillogue
+    kw = dict(kappa=kappa, gravity=gravity, rho_gas=rho_gas, rho_fluid=rho_fluid,
+              density_gas=density_gas, density_fluid=density_fluid, tau_f=tau_f,
+              tau_g=tau_g, dx=dx, dt=dt, emit_rhs=emit_rhs, emit_force=False)
+    args = (f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2, g_sum, g_mom,
+            vel_old, magnetic_flags)
+    if dp_dispatch(mesh):
+        return capillogue(*args, **kw)
+    Zl = f.shape[2]
+    fields = (rho_pre, density_pre, pressure_old, rho_ca, flags)
+    cap = (ring_halo(cap_bundle(*fields, "lo"), mesh, +1),
+           ring_halo(cap_bundle(*fields, "hi"), mesh, -1))
+    clamp = (1 if mesh.iz == 0 else -1, Zl - 2 if mesh.iz == mesh.nz - 1 else Zl)
+    return capillogue(*args, _fg_ghosts(f, g, mesh), cap, clamp,
+                      lambda fn, gn: _fg_ghosts(fn, gn, mesh), **kw)
+
+
+def scalar_poisson_sharded(s2, cmask, rhs_scaled, mesh: Mesh, *, n_iters, dx=1.0, h_ext,
+                           plain=False):
+    """B1 on the rank's slab; returns (H2, s2').  ``n_iters / k`` rounds of
+    k sweeps on the slab extended by G = k + 1 planes a side
+    (:func:`scalar_slab_plan`); cmask and rhs are extended once, the bands
+    of (s, s_prev) are exchanged before each round (taken from the
+    previous round's output, never from its input), and the last round
+    emits H2 with the z clamp at the domain's true edges only."""
+    wavefront = scalar_wavefront_plain if plain else scalar_wavefront
+    if dp_dispatch(mesh):
+        s2o, h2 = wavefront(s2, cmask, rhs_scaled, n_iters=n_iters, emit="h2", dx=dx,
+                            h_ext=h_ext)
+        return h2, s2o
+    plan = scalar_slab_plan(mesh, global_shape(s2.shape, mesh), n_iters)
+    if plan is None:
+        raise ValueError("no slab plan for B1: gate on scalar_sharded_ok")
+    k, G = plan
+    Zl = s2.shape[2]
+    Ze = Zl + 2 * G
+    cr = _extend(torch.cat([cmask, rhs_scaled], dim=1), G, mesh)
+    c_ext, r_ext = cr[:, :1].contiguous(), cr[:, 1:].contiguous()
+    clamp = (G + 1 if mesh.iz == 0 else 1, G + Zl - 2 if mesh.iz == mesh.nz - 1 else Ze - 2)
+    bands = (ring_halo(s2[:, :, -G:], mesh, +1), ring_halo(s2[:, :, :G], mesh, -1))
+    for _ in range(n_iters // k - 1):
+        s2, (blo, bhi) = wavefront(s2, c_ext, r_ext, n_iters=k, emit=None, ghosts=bands,
+                                   emit_bands=True)
+        bands = (ring_halo(bhi, mesh, +1), ring_halo(blo, mesh, -1))
+    s2, h2 = wavefront(s2, c_ext, r_ext, n_iters=k, emit="h2", dx=dx, h_ext=h_ext,
+                       ghosts=bands, slab_clamp=clamp)
+    return h2, s2
+
+
+def scalar_convert_sharded(h, magnetic_flags, mesh: Mesh):
+    """(s2, cmask) of the scalar carry from the channel h of the rank's slab
+    (``models/ferrofluid.py:_scalar_convert``): the conversion and the wall
+    weights read one plane across the slab's faces, so they run on the
+    slab extended by the neighbours' planes."""
+    if dp_dispatch(mesh):
+        hx, mx = h, magnetic_flags
+    else:
+        hx, mx = _extend(h, 1, mesh), _extend(magnetic_flags, 1, mesh)
+    s = scalar_from_h(hx, mx)
+    sp = s_prev_from_h(hx, mx)
+    s2, cmask = torch.cat([s, sp], dim=1).to(torch.float32), make_cmask(mx)
+    if dp_dispatch(mesh):
+        return s2, cmask
+    return s2[:, :, 1:-1].contiguous(), cmask[:, :, 1:-1].contiguous()
