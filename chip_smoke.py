@@ -15,7 +15,8 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
     python3 chip_smoke.py --compat         # only the grad guard and the compat facade
     python3 chip_smoke.py --dibr --native --inverse  # only those phases (any subset)
     python3 chip_smoke.py --padded         # only the padded transposed layout (66x136x256)
-    python3 chip_smoke.py --sharded        # only the z-slab path over ranks (phase sharded)
+    python3 chip_smoke.py --2d             # only the 2D scenes, their timed steps, rosensweig_2d
+    python3 chip_smoke.py --sharded        # only the z-slab paths over ranks (phase sharded)
     python3 chip_smoke.py --step-time [ROOT]  # ms a step at 130x66x130 of the
                                            # package at ROOT (default: this checkout)
 
@@ -92,6 +93,16 @@ Phases, each printing one JSON line; any failed check exits non-zero:
      array and physical cells; the un-carried padded step (10 against 10);
      turbo (30 against 30 plain and against float32, as phase 7); and the
      demo with ``--tpu_layout 1``, 20 steps and a frame (:func:`phase_padded`);
+   - sharded: the z-slab paths (:func:`phase_sharded`) on each route: Z, the
+     capillogue steady state (B1, B2, B3 in slab form), and the epilogue
+     routes E (5-leaf premac), O (an out-of-plane field) and U (un-carried,
+     B4 each step), through B1, B2, B10b, B6 and B5 in slab form; one rank
+     with ``slab=True`` at 256^3 and 130x66x130, float32 (30 steps) and
+     turbo (10), exact launches a step, against single-device kernel steps,
+     each slab form against its plain version and its single-device form,
+     timed beside it and its bound; gloo ranks sharing the card (route Z
+     on 2 and 4 ranks at 256^3 and 2 at 130x66x130, a batch mesh; E and O
+     on 2 ranks at 256^3) and NCCL to the rank itself;
    - compat: the reference's driver API (``compat.py``) op by op on
      ``multiphase_3d`` 130^3, the loop of tests/test_compat.py in 3D: 10
      steps against 10 stencil-route steps (phase 3's bars), 100 more with
@@ -155,12 +166,17 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    50 timed steps, B8a once a step, B8a timed beside its bound; each 2D
    scene at its demo's default resolution (130x130, ``two_droplets_2d``
    98x384) for 1000 steps through the runner, finite, summed rho within
-   ``SCENE_DRIFT``, no kernel launched; the single-phase BGK and KBC, HCZ
-   and ferrofluid (scalar carry, channel form) 2D steps timed at native
-   size and at 2048^2 with their CUDA kernel launches a step from
-   ``torch.profiler``; and 2000 steps of ``rosensweig_2d`` at 64x64 in
-   bfloat16 against float32 with tests/test_bf16_physics.py's assertions;
-7. bfloat16 storage of f, g and h (the JAX package's turbo mode; run
+   ``SCENE_DRIFT``, no kernel launched, and 2000 steps of ``rosensweig_2d``
+   at 64x64 in bfloat16 against float32 with tests/test_bf16_physics.py's
+   assertions, these ten runs in four concurrent processes of this script
+   on the card (``--2d-job``: host-bound runs, each process checking that
+   it launches no kernel) while phase 7's first two parts, which time
+   nothing, run in this process; then, in this process alone, the single-phase BGK and KBC,
+   HCZ and ferrofluid (scalar carry, channel form) 2D steps timed at
+   native size and at 2048^2 with their CUDA kernel launches a step from
+   ``torch.profiler``;
+7. bfloat16 storage of f, g and h (the JAX package's turbo mode; its
+   forms and routes run while phase 5b's 2D processes do, the rest
    between phases 5b and 6): each bfloat16 form (B3 at the magnetic tau 1
    and 0.8, B4, B5 with and without ``emit_mac``, B11b at tau 1 and 0.8
    and 30 and 7 sweeps at 34x66x130 and 130x66x130; B8b, B8a, B9 in the
@@ -3214,43 +3230,159 @@ def _scene_mass(state) -> float:
     return float(rho.sum())
 
 
-def phase_2d(dev, kernels_pkg, card, steps=1000, big=(2048, 2048)):
-    """Each 2D scene at its demo's default resolution through the runner
+#: seconds the 2D jobs' processes may take, together
+JOBS_2D_TIMEOUT = 400
+#: the 2D scenes' drift runs in two processes of about equal length (45.7
+#: and 48.0 s when each scene runs alone on an H100): with the two
+#: 2000-step ``rosensweig_2d`` runs, four processes share the card (ten,
+#: one a run, slowed the short steps up to 8x; four, up to 4x)
+SCENE_GROUPS_2D = (("rosensweig_2d", "wave", "shear_layer_kbc", "shear_layer"),
+                   ("two_droplets_2d", "droplet_spread_2d", "multiphase_drop_hcz",
+                    "multiphase_drop_sc"))
+
+
+def scene_2d_run(dev, name, steps):
+    """One 2D scene at its demo's default resolution through the runner
     (which primes the ferrofluid scenes into the scalar carry): ``steps``
-    (1000), fields finite, the summed rho within ``SCENE_DRIFT``; no kernel
-    launches (counters zeroed just before, read just after).  Then the
-    single-phase BGK and KBC, HCZ and ferrofluid (scalar carry and channel
-    form) steps timed at native size and at ``big`` (2048^2, 4.2 M cells): ms a step
-    over warm steps ending in ``torch.cuda.synchronize()``, and CUDA kernel
-    launches a step from ``torch.profiler``."""
+    steps, fields finite, the summed rho within ``SCENE_DRIFT``."""
     import torch
 
     from lbm_ferrofluid_tpu_torch import models
     from lbm_ferrofluid_tpu_torch.models import SimulationRunner
     from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
 
-    out = {"phase": "scenes_2d", "card": card, "scenes": {}, "timed": {}}
+    build, step, res, kw = SCENES_2D[name]
+    params, s0 = getattr(models, build)(res=res, device=dev, **kw)
+    runner = SimulationRunner(params, getattr(models, step), device=dev)
+    st = runner.prepare(s0)
+    m0 = _scene_mass(st)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = runner.run(st, steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    assert_finite(st, fields=vars(st))
+    drift = _scene_mass(st) / m0 - 1.0
+    bar = SCENE_DRIFT[name]
+    check(abs(drift) <= bar, f"2D {name}: summed rho drifted {drift:.3e} in {steps} steps")
+    return {"res": list(res), "steps": st.step, "finite": True, "rho_drift": drift,
+            "drift_bar": bar, "ms_per_step": seconds / steps * 1e3,
+            "h_channels": st.h.shape[1] if hasattr(st, "h") else None}
+
+
+def rosensweig_2d_run(dev, dtype, steps):
+    """``rosensweig_2d`` at 64x64 with f, g and h in ``dtype`` (the runner
+    primes it into the float32 scalar carry), stopped at each of ``steps``:
+    per stop whether the density is finite, the fill height per column and
+    the fluid mass."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import (
+        SimulationRunner, ferrofluid_step, init_ferrofluid_state, rosensweig_2d,
+    )
+
+    params, s0 = rosensweig_2d(res=(64, 64), mag_strength=100.0, device=dev)
+    params = params.replace(fg_dtype=dtype, h_dtype=dtype)
+    st = init_ferrofluid_state(params, s0.rho, s0.density, s0.vel, s0.flags,
+                               s0.magnetic_flags, device=dev)
+    runner = SimulationRunner(params, ferrofluid_step, device=dev)
+    mid = 0.5 * (params.density_gas + params.density_fluid)
+    marks, done = {}, 0
+    t0 = time.perf_counter()
+    for t in steps:
+        st = runner.run(st, t - done)
+        done = t
+        marks[t] = {"finite": bool(torch.isfinite(st.density).all()),
+                    "heights": (st.density[0, 0] > mid).sum(dim=0).double().cpu().tolist(),
+                    "mass": float(st.rho.double()[st.flags == 1].sum())}
+    torch.cuda.synchronize()
+    return dict(marks=marks, seconds=time.perf_counter() - t0, storage=str(st.f.dtype),
+                h=list(st.h.shape))
+
+
+def job_2d(job_json) -> int:
+    """One 2D job in a process of its own (``--2d-job``): scenes' drift runs
+    one after another, or a ``rosensweig_2d`` run, with its launch counters zeroed just
+    before and checked to be zero just after (2D paths launch no kernel);
+    prints its row."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+
+    job = json.loads(job_json)
+    check(torch.cuda.is_available(), "2D job: torch.cuda.is_available() is False")
+    torch.set_num_threads(1)
     kernels_pkg.reset_launch_counts()
-    for name, (build, step, res, kw) in SCENES_2D.items():
-        params, s0 = getattr(models, build)(res=res, device=dev, **kw)
-        runner = SimulationRunner(params, getattr(models, step), device=dev)
-        st = runner.prepare(s0)
-        m0 = _scene_mass(st)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = runner.run(st, steps)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        assert_finite(st, fields=vars(st))
-        drift = _scene_mass(st) / m0 - 1.0
-        bar = SCENE_DRIFT[name]
-        check(abs(drift) <= bar, f"2D {name}: summed rho drifted {drift:.3e} in {steps} steps")
-        out["scenes"][name] = {"res": list(res), "steps": st.step, "finite": True,
-                               "rho_drift": drift, "drift_bar": bar,
-                               "ms_per_step": seconds / steps * 1e3,
-                               "h_channels": st.h.shape[1] if hasattr(st, "h") else None}
+    if job["kind"] == "scenes":
+        row = {"scenes": {name: scene_2d_run("cuda", name, job["steps"])
+                          for name in job["names"]}}
+    else:
+        row = rosensweig_2d_run("cuda", job["dtype"], tuple(job["steps"]))
     launches = kernels_pkg.launch_counts()
-    check(not any(launches.values()), f"2D scenes launched kernels: {launches}")
+    check(not any(launches.values()), f"2D job {job}: launched kernels: {launches}")
+    print("JOB_2D " + json.dumps(dict(row, launches=launches)), flush=True)
+    return 0
+
+
+def run_2d_jobs(jobs, meanwhile=()):
+    """The 2D jobs as concurrent processes on the card (``--2d-job``), and
+    the callables ``meanwhile`` in this process while they run: the jobs'
+    rows, in order, and the callables' results; a failing process fails the
+    phase, and a failing callable stops the processes."""
+    import os
+
+    procs = start_processes([[str(ROOT / "chip_smoke.py"), "--2d-job", json.dumps(j)]
+                             for j in jobs], [dict(os.environ)] * len(jobs))
+    try:
+        during = [fn() for fn in meanwhile]
+    except BaseException:
+        stop_processes(procs)
+        raise
+    outs = wait_processes("2D jobs", procs, JOBS_2D_TIMEOUT, "JOB_2D")
+    for job, out in zip(jobs, outs):
+        check(len(out) == 1, f"2D job {job}: {len(out)} rows")
+    return [out[0] for out in outs], during
+
+
+def phase_2d(dev, kernels_pkg, card, steps=1000, big=(2048, 2048), bf16_steps=(1000, 2000),
+             meanwhile=()):
+    """Each 2D scene at its demo's default resolution (:func:`scene_2d_run`,
+    ``steps`` = 1000), and ``rosensweig_2d`` in float32 and bfloat16 for
+    ``bf16_steps`` (:func:`rosensweig_2d_run`, held by
+    :func:`phase_rosensweig_2d_bf16`), as four concurrent processes on the
+    card (the scenes in ``SCENE_GROUPS_2D``), each checking that it
+    launches no kernel, while this process runs the callables
+    ``meanwhile`` (phases that time nothing).  Then, in this process alone,
+    the single-phase BGK and KBC, HCZ and ferrofluid (scalar carry and
+    channel form) steps timed at native size and at ``big`` (2048^2, 4.2 M
+    cells): ms a step over warm steps ending in ``torch.cuda.synchronize()``,
+    and CUDA kernel launches a step from ``torch.profiler``, no kernel
+    launched (counters zeroed just before, read just after).  Returns the
+    ``rosensweig_2d`` runs by storage type and the results of
+    ``meanwhile``."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch import models
+    from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
+
+    out = {"phase": "scenes_2d", "card": card, "scenes": {}, "timed": {}}
+    check(sorted(n for g in SCENE_GROUPS_2D for n in g) == sorted(SCENES_2D),
+          "SCENE_GROUPS_2D does not hold every 2D scene once")
+    jobs = [{"kind": "scenes", "names": list(g), "steps": steps} for g in SCENE_GROUPS_2D]
+    jobs += [{"kind": "rosensweig_2d", "dtype": dtype, "steps": list(bf16_steps)}
+             for dtype in ("float32", "bfloat16")]
+    torch.cuda.empty_cache()  # the jobs share the card
+    t0 = time.perf_counter()
+    rows, during = run_2d_jobs(jobs, meanwhile)
+    out["jobs_wall_s"] = time.perf_counter() - t0
+    runs = {}
+    for job, row in zip(jobs, rows):
+        if job["kind"] == "scenes":
+            out["scenes"].update(row["scenes"])
+        else:
+            runs[job["dtype"]] = row
+    out["scenes"] = {name: out["scenes"][name] for name in SCENES_2D}
+    kernels_pkg.reset_launch_counts()
     for label, (scene, change, prime) in TIMED_2D.items():
         build, step, res, kw = SCENES_2D[scene]
         step = getattr(models, step)
@@ -3272,43 +3404,22 @@ def phase_2d(dev, kernels_pkg, card, steps=1000, big=(2048, 2048)):
     launches = kernels_pkg.launch_counts()
     check(not any(launches.values()), f"2D timed paths launched kernels: {launches}")
     emit(dict(out, launches=launches, ok=True))
+    return runs, during
 
 
-def phase_rosensweig_2d_bf16(dev, card, steps=(1000, 2000)):
+def phase_rosensweig_2d_bf16(card, runs, steps=(1000, 2000)):
     """tests/test_bf16_physics.py on the card: ``rosensweig_2d`` at 64x64
-    for 2000 steps with f, g and h in bfloat16 and in float32 (the runner
-    primes both into the float32 scalar carry), with that test's
-    assertions (:61-88): finite, fluid mass at rtol 5e-3 at 1000 and 2000
-    steps, the fill height per column within 2 cells pointwise at 1000, the
-    float32 pool corrugated by 2 cells or more at 2000, the mean level
-    within 1 cell, the bfloat16 corrugation in [0.3, 3] times float32's and
-    the mean pointwise height difference within 3 cells."""
-    import torch
-
-    from lbm_ferrofluid_tpu_torch.models import (
-        SimulationRunner, ferrofluid_step, init_ferrofluid_state, rosensweig_2d,
-    )
-
-    runs = {}
-    for dtype in ("float32", "bfloat16"):
-        params, s0 = rosensweig_2d(res=(64, 64), mag_strength=100.0, device=dev)
-        params = params.replace(fg_dtype=dtype, h_dtype=dtype)
-        st = init_ferrofluid_state(params, s0.rho, s0.density, s0.vel, s0.flags,
-                                   s0.magnetic_flags, device=dev)
-        runner = SimulationRunner(params, ferrofluid_step, device=dev)
-        mid = 0.5 * (params.density_gas + params.density_fluid)
-        marks, done = {}, 0
-        t0 = time.perf_counter()
-        for t in steps:
-            st = runner.run(st, t - done)
-            done = t
-            marks[t] = {"finite": bool(torch.isfinite(st.density).all()),
-                        "heights": (st.density[0, 0] > mid).sum(dim=0).double().cpu().numpy(),
-                        "mass": float(st.rho.double()[st.flags == 1].sum())}
-        torch.cuda.synchronize()
-        runs[dtype] = dict(marks=marks, seconds=time.perf_counter() - t0,
-                           storage=str(st.f.dtype), h=list(st.h.shape))
-    a, b = runs["float32"]["marks"], runs["bfloat16"]["marks"]
+    for 2000 steps with f, g and h in bfloat16 and in float32 (``runs``,
+    from :func:`phase_2d`'s processes), with that test's assertions
+    (:61-88): finite, fluid mass at rtol 5e-3 at 1000 and 2000 steps, the
+    fill height per column within 2 cells pointwise at 1000, the float32
+    pool corrugated by 2 cells or more at 2000, the mean level within 1
+    cell, the bfloat16 corrugation in [0.3, 3] times float32's and the mean
+    pointwise height difference within 3 cells."""
+    a = {t: dict(m, heights=np.asarray(m["heights"])) for t, m in
+         ((int(t), m) for t, m in runs["float32"]["marks"].items())}
+    b = {t: dict(m, heights=np.asarray(m["heights"])) for t, m in
+         ((int(t), m) for t, m in runs["bfloat16"]["marks"].items())}
     first, last = steps[0], steps[-1]
     h32, h16 = a[last]["heights"], b[last]["heights"]
     amp32, amp16 = float(np.ptp(h32)), float(np.ptp(h16))
@@ -3320,7 +3431,8 @@ def phase_rosensweig_2d_bf16(dev, card, steps=(1000, 2000)):
            "corrugation_last": {"float32": amp32, "bfloat16": amp16},
            "mean_pointwise_diff_last": float(np.abs(h16 - h32).mean()),
            "seconds": {k: v["seconds"] for k, v in runs.items()},
-           "storage": {k: v["storage"] for k, v in runs.items()}}
+           "storage": {k: v["storage"] for k, v in runs.items()},
+           "concurrent_processes": True}
     failed = []
     for t in steps:
         if not (a[t]["finite"] and b[t]["finite"]):
@@ -4126,34 +4238,64 @@ def phase_padded(dev, kernels_pkg, card, steps=30, timed=200):
 # ---------------------------------------------------------------------------
 
 #: the slab-forced grids (bench.py's 256^3 at mag 85, the native Rosensweig
-#: grid at its own field) and the gloo jobs: (grid, mag, (batch, z) mesh, batch)
+#: grid at its own field) and the gloo jobs: (grid, mag, (batch, z) mesh,
+#: batch, route)
 SHARDED_GRIDS = (((256, 256, 256), 85.0), ((130, 66, 130), None))
-SHARDED_JOBS = (((256, 256, 256), 85.0, (1, 2), 1), ((256, 256, 256), 85.0, (1, 4), 1),
-                ((130, 66, 130), None, (1, 2), 1), ((130, 66, 130), None, (2, 1), 2))
+SHARDED_JOBS = (((256, 256, 256), 85.0, (1, 2), 1, "Z"), ((256, 256, 256), 85.0, (1, 4), 1, "Z"),
+                ((130, 66, 130), None, (1, 2), 1, "Z"), ((130, 66, 130), None, (2, 1), 2, "Z"),
+                ((256, 256, 256), 85.0, (1, 2), 1, "E"), ((256, 256, 256), 85.0, (1, 2), 1, "O"))
 #: the slab-forced steps once through NCCL: one rank sending its ghosts to
 #: itself (NCCL takes a one-rank group's send to itself)
-NCCL_SELF_JOB = ((256, 256, 256), 85.0, (1, 1), 1)
+NCCL_SELF_JOB = ((256, 256, 256), 85.0, (1, 1), 1, "Z")
+#: the meshed step's routes: Z the capillogue steady state (6-leaf premac:
+#: B1, B2, B3), E the epilogue steady state (its first 5 leaves: B1, B2,
+#: B10b, B6, B5 with emit_mac), O an out-of-plane field (h_ext_axis=2,
+#: primed to 5 leaves, E's kernels), U the un-carried step with the scalar
+#: carry (premac None: B4 each step, then E's kernels, B5 without emit_mac)
+ROUTES = ("Z", "E", "O", "U")
+#: the single-device route each meshed route is held to: its own, except
+#: O, whose single-device steps run B3's box form where the meshed step
+#: runs E's kernels; the un-carried steps of the same field run those
+#: (B4 on f' equals the emission B5 makes)
+REF_ROUTE = {"Z": "Z", "E": "E", "O": "U", "U": "U"}
 #: seconds a rank job's ranks may take, the card shared by all of them
 SHARDED_TIMEOUT = 420
 
 
-def sharded_scene(res, mag, dev, batch=1):
+def sharded_scene(res, mag, dev, batch=1, route="Z"):
+    """The Rosensweig scene at ``res`` (field ``mag`` if given), with the
+    field along z on route O."""
     from lbm_ferrofluid_tpu_torch.models import rosensweig_3d
 
     kw = {} if mag is None else {"mag_strength": mag}
-    return rosensweig_3d(res=res, batch=batch, device=dev, **kw)
+    params, state = rosensweig_3d(res=res, batch=batch, device=dev, **kw)
+    return (params.replace(h_ext_axis=2) if route == "O" else params), state
 
 
-def slab_launches_per_step(K, params, shape, mesh):
-    """Launches a step of each slab form on ``mesh`` (B4 runs at priming
-    only): B1's rounds of passes and its H2, B2 once, B3's four."""
+def on_route(state, route):
+    """A primed state put on ``route``: E keeps 5 of the 6 leaves, U none."""
+    if route == "E":
+        return state.replace(premac=state.premac[:5])
+    if route == "U":
+        return state.replace(premac=None)
+    return state
+
+
+def slab_launches_per_step(K, params, shape, mesh, route="Z"):
+    """Launches a step of each slab form on ``mesh`` on ``route`` (B4 runs
+    at priming, and on U each step): B1's rounds of passes and its H2, B2
+    once, B3's four (Z); B10b and B6 once and B5 once, twice with emit_mac
+    (E, O, U)."""
     from lbm_ferrofluid_tpu_torch.parallel import step3d
 
     k, _ = step3d.scalar_slab_plan(mesh, step3d.global_shape((1, 2, *shape[2:]), mesh),
                                    params.poisson_iters)
     passes = len(K["B1"].module.passes(k))
-    return {"B1": params.poisson_iters // k * passes + 1, "B2": K["B2"].module.N_LAUNCHES,
-            "B3": K["B3"].module.N_LAUNCHES}
+    per = {"B1": params.poisson_iters // k * passes + 1, "B2": K["B2"].module.N_LAUNCHES}
+    if route == "Z":
+        return dict(per, B3=K["B3"].module.N_LAUNCHES)
+    per.update({"B10b": 1, "B6": K["B6"].module.N_LAUNCHES, "B5": 1 if route == "U" else 2})
+    return dict(per, B4=1) if route == "U" else per
 
 
 def meshed_step(mesh):
@@ -4241,6 +4383,115 @@ def slab_form_calls(params, st, mesh):
     return calls, emission
 
 
+def epilogue_form_calls(params, st, mesh):
+    """Per slab form of the epilogue route: (the slab call as the step
+    makes it on ``mesh``, its plain version, the single-device form on the
+    same inputs, the slab kernel's (bytes, flops)) on route E's primed slab
+    state ``st``: B10b on rho_ca with its density map, B6 with that
+    Laplacian (its single-device form builds the Laplacian from rho_ca
+    itself), B5 without and with ``emit_mac`` on B6's outputs."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import capmac, fused_step, stencil3d
+    from lbm_ferrofluid_tpu_torch.ops.moments import phi_from_density, rho_to_density
+    from lbm_ferrofluid_tpu_torch.parallel import step3d
+
+    gas = dict(rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+               density_gas=params.density_gas, density_fluid=params.density_fluid)
+    h_ext = tuple(params.mag_strength if a == params.h_ext_axis else 0.0 for a in range(3))
+    rho, vel, den, m0g, m1g = st.premac
+    phi = phi_from_density(den, params.density_gas, params.density_fluid)
+    rhs = step3d.poisson_rhs_sharded(phi, st.magnetic_flags, mesh, h_ext, tau=params.tau,
+                                     dx=params.dx, dt=params.dt)
+    H2, _ = step3d.scalar_poisson_sharded(st.h, st.cmask, rhs, mesh,
+                                          n_iters=params.poisson_iters, dx=params.dx,
+                                          h_ext=h_ext)
+    rho_ca = step3d.contact3d_sharded(rho, st.flags, params.contact_angle, mesh)
+    den_ca = rho_to_density(rho_ca, **gas)
+    Zl = st.f.shape[2]
+    clamp = step3d.slab_clamp(mesh, Zl)
+    dens_of = tuple(gas.values())
+    lap = step3d.laplacian_field_sharded(rho_ca, mesh, dx=params.dx, density_of=dens_of)
+    cap_kw = dict(kappa=params.kappa, dx=params.dx, dt=params.dt,
+                  gravity=tuple(float(v) for v in params.gravity_vec().reshape(-1)), **gas)
+    cap_args = (rho, den, st.pressure, rho_ca, H2, phi, st.flags, m0g, m1g, vel)
+    bundles = tuple(capmac.slab_bundle(lap, rho, den, st.pressure, st.flags, phi, side)
+                    for side in ("lo", "hi"))
+    vel_n, pres, force, dfai, dprho = step3d.capmac_sharded(lap, *cap_args, mesh, **cap_kw)
+    epi_args = (st.f, st.g, st.flags, rho_ca, vel_n, den_ca, pres, force, dfai, dprho)
+    hcz = dict(tau_f=params.tau_f, tau_g=params.tau_g, dx=params.dx, dt=params.dt)
+    emit = dict(emit_mac=True, mac_consts=(params.dx / params.dt, *gas.values()))
+    fg = step3d._fg_ghosts(st.f, st.g, mesh)
+
+    def sharded(fn, *args, **kw):
+        return (lambda: fn(*args, mesh, **kw), lambda: fn(*args, mesh, plain=True, **kw))
+
+    calls = {
+        "B10b": (*sharded(step3d.laplacian_field_sharded, rho_ca, dx=params.dx,
+                          density_of=dens_of),
+                 lambda: stencil3d.laplacian_field(rho_ca, dx=params.dx, density_of=dens_of),
+                 stencil3d.cost_laplacian_slab(rho_ca, clamp=clamp, density_of=dens_of)),
+        "B6": (*sharded(step3d.capmac_sharded, lap, *cap_args, **cap_kw),
+               lambda: capmac.hcz_capillary_gradmac(*cap_args, **cap_kw),
+               capmac.cost_slab(*cap_args, lap=lap, ghosts=bundles, clamp=clamp)),
+        "B5": (*sharded(step3d.fused_epilogue_sharded, *epi_args, **hcz),
+               lambda: fused_step.lbm_epilogue(*epi_args, **hcz),
+               fused_step.cost_epilogue_slab(*epi_args, fg)),
+        "B5 emit_mac": (*sharded(step3d.fused_epilogue_sharded, *epi_args, **hcz, **emit),
+                        lambda: fused_step.lbm_epilogue(*epi_args, **hcz, **emit),
+                        fused_step.cost_epilogue_slab(*epi_args, fg, **emit)),
+    }
+
+    def emission(fn, gn):
+        """The plain emission from the kernel's own f'/g': a bfloat16 flip
+        of f'/g' is not counted twice."""
+        return step3d.fused_prologue_sharded(fn, gn, st.flags, rho_ca, vel_n, mesh, plain=True,
+                                             c=params.dx / params.dt, **gas)
+
+    torch.cuda.synchronize()
+    return calls, emission
+
+
+def epilogue_form_rows(params, st, mesh, what, bf16=False):
+    """Each slab form of the epilogue route on route E's primed slab state:
+    against its plain version (phase 3's bars; bfloat16 f'/g' within one
+    ulp, as phase 7, the emission against the plain one on the kernel's
+    own f'/g'); each bit for bit against its single-device form on the
+    same inputs (the wrap as ghosts at one rank; B6's single-device form
+    builds the Laplacian itself, with the density map B10b takes); ms a
+    call of the slab call, its plain version and the single-device form,
+    and the bound of what the slab call moves."""
+    import torch
+
+    rows = {}
+    calls, emission = epilogue_form_calls(params, st, mesh)
+    for key, (slab, plain, single, (nbytes, flops)) in calls.items():
+        got, want, one = slab(), plain(), single()
+        torch.cuda.synchronize()
+        kid = key.split()[0]
+        names = OUTPUTS[kid][:len(flat(got))]
+        if bf16 and kid == "B5":
+            err = compare_bf16(f"{what} {key} slab", names[:2], got[:2], want[:2])
+            if len(names) > 2:
+                err.update(compare(f"{what} {key} slab (emission on its own f'/g')", names[2:],
+                                   got[2], emission(got[0], got[1])))
+        else:
+            err = compare(f"{what} {key} slab", names, got, want)
+        bits_equal(f"{what} {key} slab against its single-device form", names, got, one)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        rows[key] = {
+            "ms": time_cuda(slab, reps=10), "single_device_ms": time_cuda(single, reps=10),
+            "plain_ms": time_cuda(plain, reps=2),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "flops": int(flops),
+            "max_abs_err": max(v["max_abs_err"] for v in err.values()),
+            "bit_for_bit_to_single_device": True,
+        }
+        torch.cuda.empty_cache()
+    return rows
+
+
 def slab_form_rows(params, st, mesh, what, bf16=False):
     """Each slab form on the primed slab state: against its plain version
     (phase 3's bars; bfloat16 outputs within one ulp, as phase 7) and bit
@@ -4277,12 +4528,16 @@ def slab_form_rows(params, st, mesh, what, bf16=False):
     return rows
 
 
-def slab_forced(K, kernels_pkg, params, s0, dev, card, what, steps=30, timed=20, bf16=False):
-    """One rank with ``slab=True`` on the card: prime and ``steps`` meshed
-    steps (launch counters zeroed just before, read just after, exact a
-    step) against as many single-device kernel steps (phase 3's bars; in
-    bfloat16 pointwise within ``BF16_DENSITY``, as phase 7), the slab forms'
-    rows, and ms a step of both routes, timed in turns in this call."""
+def slab_forced(K, kernels_pkg, params, s0, dev, card, what, steps=30, timed=20, bf16=False,
+                route="Z"):
+    """One rank with ``slab=True`` on the card, on ``route``: prime and
+    ``steps`` meshed steps (launch counters zeroed just before, read just
+    after, exact a step) against as many single-device kernel steps of
+    ``REF_ROUTE[route]`` (phase 3's bars; in bfloat16 pointwise within
+    ``BF16_DENSITY``, as phase 7; route O also against its own
+    single-device route, B3's box form, reported), the slab forms' rows
+    (route Z: B4, B1, B2, B3; route E: B10b, B6, B5), and ms a step of both
+    routes, timed in turns in this call."""
     import torch
 
     from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac
@@ -4291,39 +4546,64 @@ def slab_forced(K, kernels_pkg, params, s0, dev, card, what, steps=30, timed=20,
     mesh = make_mesh(slab=True)
     step = meshed_step(mesh)
     kernels_pkg.reset_launch_counts()
-    sm = prime_premac(params, shard_state(s0, mesh), mesh=mesh)
+    sm = on_route(prime_premac(params, shard_state(s0, mesh), mesh=mesh), route)
     for _ in range(steps):
         sm = step(params, sm)
     torch.cuda.synchronize()
     ids = kernels_pkg.SLAB_FORMS
     slab_l, all_l = kernels_pkg.launch_counts(ids, slab=True), kernels_pkg.launch_counts()
-    per = slab_launches_per_step(K, params, sm.f.shape, mesh)
+    per = slab_launches_per_step(K, params, sm.f.shape, mesh, route)
     check_launches(f"{what} slab forms", slab_l, per, steps, extra={"B4": 1})
     check(all_l == {**{kid: 0 for kid in all_l}, **slab_l},
           f"{what}: a launch outside the slab forms: {all_l}")
-    ss = prime_premac(params, s0, device=dev)
-    for _ in range(steps):
-        ss = ferrofluid_step(params, ss, device=dev)
-    fields = list(FERRO_FIELDS)
+
+    def single(ref_route):
+        ss = on_route(prime_premac(params, s0, device=dev), ref_route)
+        for _ in range(steps):
+            ss = ferrofluid_step(params, ss, device=dev)
+        return ss
+
+    ss = single(REF_ROUTE[route])
+    fields = list(FERRO_FIELDS) + ([] if route == "Z" else ["phi", "force"])
+    premac = route != "U" and REF_ROUTE[route] != "U"
     if bf16:
         row = against(f"{what} against single-device", params, sm, ss, fields, True)
         check(not row["failed"], "; ".join(row["failed"]))
         errs = {"density_rel": row["density_rel"], "mass_rel": row["mass_rel"]}
     else:
-        errs = compare(f"{what} against single-device", fields + OUTPUTS["B3"][5:11],
-                       [getattr(sm, n) for n in fields] + list(sm.premac),
-                       [getattr(ss, n) for n in fields] + list(ss.premac))
+        n_mac = len(sm.premac) if premac else 0
+        errs = compare(f"{what} against single-device {REF_ROUTE[route]}",
+                       fields + OUTPUTS["B3"][5:5 + n_mac],
+                       [getattr(sm, n) for n in fields] + list(sm.premac or ())[:n_mac],
+                       [getattr(ss, n) for n in fields] + list(ss.premac or ())[:n_mac])
     bits = all(torch.equal(getattr(sm, n), getattr(ss, n)) for n in fields)
-    forms = slab_form_rows(params, sm, mesh, what, bf16=bf16)
+    extra = {}
+    if route == "O":
+        sb = single("O")
+        extra["against_single_device_box_form"] = (
+            against(f"{what} against the box form", params, sm, sb, fields, True) if bf16 else {
+                n: {"max_abs_err": float((getattr(sm, n).double() - getattr(sb, n).double())
+                                         .abs().max()),
+                    "rel": float((getattr(sm, n).double() - getattr(sb, n).double()).abs().max())
+                    / max(float(getattr(sb, n).double().abs().max()), 1e-30)}
+                for n in fields})
+        del sb
+    if route == "Z":
+        forms = slab_form_rows(params, sm, mesh, what, bf16=bf16)
+    elif route == "E":
+        forms = epilogue_form_rows(params, sm, mesh, what, bf16=bf16)
+    else:
+        forms = {}
     ms = {}
     for label, fn, s in (("single_device", ferrofluid_step, ss), ("slab", step, sm),
                          ("slab_again", step, sm), ("single_device_again", ferrofluid_step,
                                                     ss)):
         _, st = timed_steps(params, s, fn, dev, timed, warmup=3)
         ms[label] = st["seconds"] / timed * 1e3
-    emit({"phase": "sharded", "part": "slab_forced", "what": what,
+    emit({"phase": "sharded", "part": "slab_forced", "what": what, "route": route,
+          "single_device_route": REF_ROUTE[route],
           "res": list(s0.f.shape[2:]), "steps": steps, "storage": str(sm.f.dtype),
-          "against_single_device": errs, "bit_for_bit_to_single_device": bits,
+          "against_single_device": errs, "bit_for_bit_to_single_device": bits, **extra,
           "ms_per_step": ms, "slab_forms": forms, "launches": slab_l,
           "launches_per_step": per, "card": card, "ok": True})
     return forms, slab_l
@@ -4337,7 +4617,48 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_rank_job(res, mag, shape, batch, steps=30, slab=False):
+def start_processes(argvs, envs):
+    """The ``argvs`` (with ``envs``) started as concurrent processes of this
+    Python from the checkout's root."""
+    return [subprocess.Popen([sys.executable, *argv], env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, cwd=str(ROOT))
+            for argv, env in zip(argvs, envs, strict=True)]
+
+
+def stop_processes(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def run_processes(label, argvs, envs, timeout, tag):
+    """Run the ``argvs`` (with ``envs``) as concurrent processes: each
+    one's JSON results (:func:`wait_processes`)."""
+    return wait_processes(label, start_processes(argvs, envs), timeout, tag)
+
+
+def wait_processes(label, procs, timeout, tag):
+    """Wait for the processes ``procs``: each one's JSON results (its stdout
+    lines that start with ``tag``), or CheckFailed for a process that fails
+    or outlasts ``timeout`` seconds (every process is then stopped)."""
+    outs, deadline = [], time.monotonic() + timeout
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise CheckFailed(f"{label}: process {r} outlasted {timeout} s")
+            check(p.returncode == 0, f"{label}: process {r} exited {p.returncode}:\n"
+                  f"{err[-4000:]}")
+            outs.append([json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
+                         if line.startswith(tag + " ")])
+    finally:
+        stop_processes(procs)
+    return outs
+
+
+def run_rank_job(res, mag, shape, batch, route, slab, steps=30):
     """One job's ranks as processes on the one card (``--sharded-rank``),
     torchrun's variables set for each (gloo for several ranks on the card,
     NCCL for one: ``parallel/mesh.py:default_backend``): their rows, or
@@ -4348,32 +4669,16 @@ def run_rank_job(res, mag, shape, batch, steps=30, slab=False):
 
     world = shape[0] * shape[1]
     job = json.dumps({"res": list(res), "mag": mag, "shape": list(shape), "batch": batch,
-                      "steps": steps, "slab": slab})
+                      "steps": steps, "slab": slab, "route": route})
     env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
                WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-rank", job],
-        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, cwd=str(ROOT)) for r in range(world)]
-    outs, deadline = [], time.monotonic() + SHARDED_TIMEOUT
-    try:
-        for r, p in enumerate(procs):
-            try:
-                out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                raise CheckFailed(f"rank job {job}: rank {r} outlasted {SHARDED_TIMEOUT} s")
-            check(p.returncode == 0, f"rank job {job}: rank {r} exited {p.returncode}:\n"
-                  f"{err[-4000:]}")
-            outs.append(out)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    results = [json.loads(line.split(" ", 1)[1]) for out in outs for line in out.splitlines()
-               if line.startswith("SHARDED_RANK ")]
-    check(len(results) == world, f"rank job {job}: {len(results)} of {world} ranks reported")
-    return results
+    outs = run_processes(f"rank job {job}",
+                         [[str(ROOT / "chip_smoke.py"), "--sharded-rank", job]] * world,
+                         [dict(env, RANK=str(r), LOCAL_RANK=str(r)) for r in range(world)],
+                         SHARDED_TIMEOUT, "SHARDED_RANK")
+    rows = [row for out in outs for row in out]
+    check(len(rows) == world, f"rank job {job}: {len(rows)} of {world} ranks reported")
+    return rows
 
 
 def sharded_rank(job_json) -> int:
@@ -4393,15 +4698,19 @@ def sharded_rank(job_json) -> int:
     )
 
     job = json.loads(job_json)
+    route = job["route"]
     world = initialize_distributed()
     try:
         mesh = make_mesh(("batch", "z"), tuple(job["shape"]), slab=job["slab"])
         K = kernels_pkg.KERNELS
-        params, whole = sharded_scene(tuple(job["res"]), job["mag"], mesh.device, job["batch"])
+        params, whole = sharded_scene(tuple(job["res"]), job["mag"], mesh.device, job["batch"],
+                                      route)
         part = shard_state(whole, mesh)
+        del whole  # several ranks share the card
+        torch.cuda.empty_cache()
         step = meshed_step(mesh)
         kernels_pkg.reset_launch_counts()
-        st = prime_premac(params, part, mesh=mesh)
+        st = on_route(prime_premac(params, part, mesh=mesh), route)
         ring_halo.sent_bytes = 0
         torch.cuda.synchronize()
         dist.barrier()
@@ -4419,27 +4728,30 @@ def sharded_rank(job_json) -> int:
             check_launches("batch mesh", launches, per, job["steps"], extra={"B4": 1})
             check(not any(slab_l.values()), f"batch mesh: slab forms launched: {slab_l}")
         else:
-            per = slab_launches_per_step(K, params, st.f.shape, mesh)
+            per = slab_launches_per_step(K, params, st.f.shape, mesh, route)
             check_launches("z-slab mesh", slab_l, per, job["steps"], extra={"B4": 1})
             check(launches == slab_l, f"z-slab mesh: launches outside the slab forms {launches}")
-        out = {"rank": mesh.rank, "world": world, "backend": mesh.backend,
+        out = {"rank": mesh.rank, "world": world, "backend": mesh.backend, "route": route,
                "launches": launches, "slab_launches": slab_l,
                "launches_per_step": per, "ms_per_step": seconds / job["steps"] * 1e3,
                "bytes_sent_per_step": ring_halo.sent_bytes / job["steps"]}
         got = gather_state(st, mesh)
         if mesh.rank == 0:
             one = sharded_scene(tuple(job["res"]), job["mag"], mesh.device)[1]
-            ref = prime_premac(params, one, device=mesh.device.type)
+            ref = on_route(prime_premac(params, one, device=mesh.device.type), REF_ROUTE[route])
             for _ in range(job["steps"]):
                 ref = ferrofluid_step(params, ref, device=mesh.device.type)
-            fields = list(FERRO_FIELDS)
+            fields = list(FERRO_FIELDS) + ([] if route == "Z" else ["phi", "force"])
+            n_mac = len(ref.premac) if ref.premac is not None else 0
             errs = {}
             for b in range(job["batch"]):
                 errs[f"batch {b}"] = compare(
-                    f"rank job {job} element {b}", fields + OUTPUTS["B3"][5:11],
-                    [getattr(got, n)[b:b + 1] for n in fields] + [x[b:b + 1] for x in got.premac],
-                    [getattr(ref, n) for n in fields] + list(ref.premac))
+                    f"rank job {job} element {b}", fields + OUTPUTS["B3"][5:5 + n_mac],
+                    [getattr(got, n)[b:b + 1] for n in fields]
+                    + [x[b:b + 1] for x in (got.premac or ())[:n_mac]],
+                    [getattr(ref, n) for n in fields] + list(ref.premac or ())[:n_mac])
             out["against_single_device"] = errs
+            out["single_device_route"] = REF_ROUTE[route]
             out["bit_for_bit_to_single_device"] = all(
                 torch.equal(getattr(got, n)[b:b + 1], getattr(ref, n))
                 for n in fields for b in range(job["batch"]))
@@ -4450,38 +4762,47 @@ def sharded_rank(job_json) -> int:
 
 
 def phase_sharded(dev, kernels_pkg, card):
-    """The z-slab path of the steady state on the one card (phase
-    ``sharded``): one rank with ``slab=True`` at 256^3 (bench.py's scene)
-    and 130x66x130, float32 and turbo; gloo jobs of 2 and 4 z ranks at
-    256^3 and 2 at 130x66x130, all sharing the card (host-staged gloo
-    transport: a correctness check, not a multi-GPU number), a batch mesh
-    of 2 ranks, and the slab-forced 256^3 steps once through NCCL (one rank
-    sending to itself); the refusal of 4 z ranks at 130x66x130.  Returns
-    the slab forms' rows for the ``kernels`` line."""
+    """The z-slab path on the one card (phase ``sharded``): one rank with
+    ``slab=True`` at 256^3 (bench.py's scene) and 130x66x130, float32 and
+    turbo, on each route (Z the capillogue steady state; E, O and U, the
+    epilogue routes); gloo jobs of 2 and 4 z ranks at 256^3 and 2 at
+    130x66x130 on route Z, of 2 at 256^3 on E and on O, all sharing the card
+    (host-staged gloo transport: a correctness check, not a multi-GPU
+    number), a batch mesh of 2 ranks, and the slab-forced 256^3 steps once
+    through NCCL (one rank sending to itself); the refusal of 4 z ranks at
+    130x66x130, and a state primed on one device refused at the step on
+    3-plane slabs (ROADMAP C7).  Returns the slab forms' rows for the
+    ``kernels`` line."""
     import torch
 
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac
     from lbm_ferrofluid_tpu_torch.parallel import Mesh, shard_state
 
     K = kernels_pkg.KERNELS
     launches = {kid: 0 for kid in kernels_pkg.SLAB_FORMS}
     launches16 = dict(launches)
-    forms = {}
+    forms, forms16 = {}, {}
     for res, mag in SHARDED_GRIDS:
-        params, s0 = sharded_scene(res, mag, dev)
-        rows, used = slab_forced(K, kernels_pkg, params, s0, dev, card, f"slab-forced {res}")
-        if not forms:
-            forms = rows  # the times at 256^3; the largest error of both grids
-        for kid, row in rows.items():
-            forms[kid]["max_abs_err"] = max(forms[kid]["max_abs_err"], row["max_abs_err"])
-        for kid in launches:
-            launches[kid] += used[kid]
-        p16, s16 = turbo(params, s0, dev)
-        _, used16 = slab_forced(K, kernels_pkg, p16, s16, dev, card,
-                                f"slab-forced turbo {res}", steps=10, timed=10, bf16=True)
-        for kid in launches16:
-            launches16[kid] += used16[kid]
-        del s0, s16
-        torch.cuda.empty_cache()
+        for route in ROUTES:
+            params, s0 = sharded_scene(res, mag, dev, route=route)
+            rows, used = slab_forced(K, kernels_pkg, params, s0, dev, card,
+                                     f"slab-forced {route} {res}", route=route)
+            for key, row in rows.items():  # the times at 256^3; the largest error of both
+                if key not in forms:
+                    forms[key] = row
+                forms[key]["max_abs_err"] = max(forms[key]["max_abs_err"], row["max_abs_err"])
+            for kid in launches:
+                launches[kid] += used[kid]
+            p16, s16 = turbo(params, s0, dev)
+            rows16, used16 = slab_forced(K, kernels_pkg, p16, s16, dev, card,
+                                         f"slab-forced turbo {route} {res}", steps=10,
+                                         timed=10, bf16=True, route=route)
+            for key, row in rows16.items():
+                forms16.setdefault(key, row)
+            for kid in launches16:
+                launches16[kid] += used16[kid]
+            del s0, s16
+            torch.cuda.empty_cache()
     _, s130 = sharded_scene((130, 66, 130), None, dev)
     try:
         shard_state(s130, Mesh(("batch", "z"), (1, 4), 0, torch.device(dev), "gloo"))
@@ -4489,39 +4810,68 @@ def phase_sharded(dev, kernels_pkg, card):
     except ValueError as e:
         refused = str(e)
     del s130
+    params, s12 = sharded_scene((12, 66, 130), None, dev)
+    thin = Mesh(("batch", "z"), (1, 4), 1, torch.device(dev), "gloo")
+    try:
+        ferrofluid_step(params, shard_state(prime_premac(params, s12, device=dev), thin),
+                        mesh=thin)
+        raise CheckFailed("a primed state on 3-plane slabs stepped")
+    except ValueError as e:
+        refused_step = str(e)
+    check("4 or more planes a rank" in refused_step, f"3-plane slabs: {refused_step}")
+    del s12
     torch.cuda.empty_cache()
     jobs = []
-    for (res, mag, shape, batch), slab in ([(j, False) for j in SHARDED_JOBS]
-                                          + [(NCCL_SELF_JOB, True)]):
+    for res, mag, shape, batch, route, slab in ([(*j, False) for j in SHARDED_JOBS]
+                                               + [(*NCCL_SELF_JOB, True)]):
         t0 = time.perf_counter()
-        ranks = run_rank_job(res, mag, shape, batch, slab=slab)
+        ranks = run_rank_job(res, mag, shape, batch, route, slab)
         for r in ranks:
             for kid in launches:
                 launches[kid] += r["slab_launches"][kid]
         lead = next(r for r in ranks if r["rank"] == 0)
         check(lead["backend"] == ("nccl" if slab else "gloo"),
               f"rank job {res} {shape}: backend {lead['backend']}")
-        jobs.append({"res": list(res), "mesh": list(shape), "batch": batch,
+        jobs.append({"res": list(res), "mesh": list(shape), "batch": batch, "route": route,
                      "transport": ("nccl, one rank sending its ghosts to itself" if slab
                                    else "gloo, host-staged, all ranks on one card (not a "
                                         "multi-GPU number)"),
                      "ms_per_step": [r["ms_per_step"] for r in ranks],
                      "bytes_sent_per_step": [r["bytes_sent_per_step"] for r in ranks],
                      "launches_per_step": lead["launches_per_step"],
+                     "single_device_route": lead["single_device_route"],
                      "against_single_device": lead["against_single_device"],
                      "bit_for_bit_to_single_device": lead["bit_for_bit_to_single_device"],
                      "wall_s": time.perf_counter() - t0})
     emit({"phase": "sharded", "part": "ranks", "jobs": jobs, "refused_4_ranks_130": refused,
+          "refused_step_3_planes": refused_step,
           "slab_launches": launches, "slab_launches_bf16": launches16, "card": card,
           "ok": True})
-    return [{
-        "name": f"{kid} {K[kid].wrapper.__name__} slab", "route": "cuda",
-        "source": K[kid].module.CUDA_SOURCE, "replaces": kernels_pkg.SLAB_TPU_KERNELS[kid],
-        "launches": launches[kid], "launches_bf16": launches16[kid],
-        **{key: forms[kid][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                            "bound_by", "single_device_ms")},
-        "library_ms": None,
-    } for kid in kernels_pkg.SLAB_FORMS]
+    rows = []
+    for kid in kernels_pkg.SLAB_FORMS:
+        row = forms["B5 emit_mac" if kid == "B5" else kid]
+        rows.append({
+            "name": f"{kid} {K[kid].wrapper.__name__} slab", "route": "cuda",
+            "source": K[kid].module.CUDA_SOURCE, "replaces": kernels_pkg.SLAB_TPU_KERNELS[kid],
+            "launches": launches[kid], "launches_bf16": launches16[kid],
+            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "single_device_ms")},
+            "library_ms": None,
+            **({"emit_mac": True, "without_emit_mac": {
+                key: forms["B5"][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                  "single_device_ms")}} if kid == "B5" else {}),
+        })
+    row16 = forms16["B5 emit_mac"]
+    rows.append({
+        "name": "B5 lbm_epilogue slab bf16", "route": "cuda", "source": K["B5"].module.CUDA_SOURCE,
+        "replaces": kernels_pkg.SLAB_TPU_KERNELS["B5"], "launches": launches16["B5"],
+        **{key: row16[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "single_device_ms")},
+        "library_ms": None, "emit_mac": True,
+        "without_emit_mac": {key: forms16["B5"][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "single_device_ms")},
+    })
+    return rows
 
 
 def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
@@ -4556,11 +4906,11 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     phase_golden_2d(dev)
     sp_launches, sp_b8a = phase_singlephase_3d(dev, kernels_pkg, smi)
     per_path.append(sp_launches)
-    phase_2d(dev, kernels_pkg, smi)
-    phase_rosensweig_2d_bf16(dev, smi)
+    # phase 7's first two parts time nothing: they run while the 2D runs do
+    runs, (worst16, launches16) = phase_2d(dev, kernels_pkg, smi, meanwhile=(
+        lambda: phase_kernels_bf16(dev, K), lambda: phase_bf16_main(dev, kernels_pkg, smi)))
+    phase_rosensweig_2d_bf16(smi, runs)
     launches = {kid: sum(p.get(kid, 0) for p in per_path) for kid in K}
-    worst16 = phase_kernels_bf16(dev, K)
-    launches16 = phase_bf16_main(dev, kernels_pkg, smi)
     launches16 = {kid: n + spikes16.get(kid, 0) + padded["launches16"].get(kid, 0)
                   for kid, n in launches16.items()}
     phase_long_horizon(dev, smi)
@@ -4629,6 +4979,8 @@ def main() -> int:
 
     if "--sharded-rank" in sys.argv[1:]:
         return sharded_rank(sys.argv[sys.argv.index("--sharded-rank") + 1])
+    if "--2d-job" in sys.argv[1:]:
+        return job_2d(sys.argv[sys.argv.index("--2d-job") + 1])
     if "--step-time" in sys.argv[1:]:
         at = sys.argv.index("--step-time") + 1
         if at < len(sys.argv) and not sys.argv[at].startswith("--"):
@@ -4677,6 +5029,9 @@ def main() -> int:
         print(smi, flush=True)
     elif "--step-time" in sys.argv[1:]:
         phase_step_time(dev, smi)
+        print(smi, flush=True)
+    elif "--2d" in sys.argv[1:]:
+        phase_rosensweig_2d_bf16(smi, phase_2d(dev, kernels_pkg, smi)[0])
         print(smi, flush=True)
     elif "--padded" in sys.argv[1:]:
         phase_padded(dev, kernels_pkg, smi)

@@ -36,6 +36,21 @@
 // barriers, so what hides that is blocks: the launch bounds hold a block
 // of 256 threads to 48 registers, five an SM, and ops/kernels/capmac.py:
 // plan picks the strip that fills whole waves of them.
+//
+// Slab form (the TPU kernel's ghosts= and clamp=, capmac.py:383, for a
+// z-slab of a domain decomposed along z over ranks: parallel/step3d.py),
+// lbm_capmac_slab: as on the TPU, the Laplacian comes in as an input (B10b's
+// slab form, stencil3d.cu), so no density ring is needed.  The block walks
+// its strip with a 3-plane ring of lap, chi, fai and prho (common.cuh:
+// lbm_zwalk and lbm_halo_cells_clamped, as B3's collide launch walks its
+// slab), whose planes -1 and Z come from the neighbours' edge planes of
+// lap, rho_pre, density_pre, pressure, phi and flags (one plane a side
+// each), and the z clamp is [zlo, zhi]: [1, Z-2] at the domain's true
+// edges, [-1, Z] where the slab has a neighbour.  The substitutions, the
+// per-cell stage (lbm_capillary_cell) and its order of taps are the
+// single-device kernel's, so a slab's outputs equal the single-device
+// kernel's on the same lap bit for bit.  Its bound adds the lap field and
+// the ghost planes' reads, and drops the Laplacian's flops.
 #include "common.cuh"
 
 // (TX, TY) tiles lbm_capmac is built for: ops/kernels/capmac.py:TILES (a
@@ -168,6 +183,79 @@ __global__ void __launch_bounds__(TX* TY, CM_SM_THREADS / (TX * TY)) lbm_capmac_
   }
 }
 
+// The neighbours' edge planes of the slab form ([Y, X] each): lo from the
+// plane below the slab, hi from the plane above it.
+struct LbmCmGhosts {
+  const float *lap_lo, *lap_hi, *rho_lo, *rho_hi, *den_lo, *den_hi, *pres_lo, *pres_hi,
+      *phi_lo, *phi_hi;
+  const uint8_t *fl_lo, *fl_hi;
+};
+
+template <int TX, int TY, bool HAS_CHI>
+__global__ void __launch_bounds__(TX* TY, CM_SM_THREADS / (TX * TY)) lbm_capmac_slab_kernel(
+    const uint8_t* __restrict__ flags, const float* __restrict__ lap,
+    const float* __restrict__ rho_pre, const float* __restrict__ den_pre,
+    const float* __restrict__ pres_old, const float* __restrict__ rho_ca,
+    const float* __restrict__ phi, const float* __restrict__ h2, const float* __restrict__ gsum,
+    const float* __restrict__ gmom, const float* __restrict__ vel_old,
+    float* __restrict__ vel_out, float* __restrict__ pres_out, float* __restrict__ force_out,
+    float* __restrict__ dfai_out, float* __restrict__ dprho_out, int Z, int Y, int X, int zb,
+    LbmCapF k, double dx, double RT, LbmCmGhosts gh, int zlo, int zhi) {
+  constexpr int EX = TX + 2, EY = TY + 2;  // the ring: tile and 1-cell halo
+  constexpr int NF = HAS_CHI ? 4 : 3;      // lap, (chi), fai, prho
+  __shared__ float ring[3][NF][EY][EX];
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
+  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
+  const int z0 = blockIdx.z * zb, z1 = min(z0 + zb, Z);
+  const long long NP = static_cast<long long>(Y) * X, N = Z * NP;
+
+  // a field's value at cell n of plane p (p may be -1 or Z)
+  auto at = [&](const float* v, const float* lo, const float* hi, int p, long long n) {
+    return lbm_slab_at(v, lo, hi, 1, p, Z, n - p * NP, NP);
+  };
+  // the derived fields of plane p as the taps read them: lap and chi taken
+  // at c (the nearest interior cell) at an obstacle, fai and prho at c
+  auto load = [&](int p) {
+    float(*dst)[EY][EX] = ring[lbm_mod(p, 3)];
+    const int pc = lbm_clamp(p, zlo, zhi);
+    lbm_halo_cells_clamped<TX, TY>(
+        p, x0, y0, zlo, zhi, Y, X, Y, X, [&](int ey, int ex, long long n, long long c) {
+          const bool obs =
+              lbm_slab_at(flags, gh.fl_lo, gh.fl_hi, 1, p, Z, n - p * NP, NP) == LBM_OBSTACLE;
+          dst[0][ey][ex] = obs ? at(lap, gh.lap_lo, gh.lap_hi, pc, c)
+                               : at(lap, gh.lap_lo, gh.lap_hi, p, n);
+          if (HAS_CHI) {
+            const float phn = at(phi, gh.phi_lo, gh.phi_hi, p, n);
+            const float phc = at(phi, gh.phi_lo, gh.phi_hi, pc, c);
+            dst[1][ey][ex] = lbm_chi_of_phi(obs ? phc : phn, dx);
+          }
+          dst[NF - 2][ey][ex] = lbm_fai(at(rho_pre, gh.rho_lo, gh.rho_hi, pc, c), RT);
+          dst[NF - 1][ey][ex] = at(pres_old, gh.pres_lo, gh.pres_hi, pc, c) -
+                                static_cast<float>(RT) * at(den_pre, gh.den_lo, gh.den_hi, pc, c);
+        });
+  };
+  const LbmCapIn in{flags, rho_ca, h2, gsum, gmom, vel_old, pres_old};
+  const int xl = lbm_clamp(x, 1, X - 2) - lbm_ring_origin(x0, X);
+  const int yl = lbm_clamp(y, 1, Y - 2) - lbm_ring_origin(y0, Y);
+  lbm_zwalk(z0, z1, zlo, zhi, x < X && y < Y, load, [&](int z, int sm, int s0, int sp) {
+    auto tap = [&](int fld, int oz, int oy, int ox) -> float {
+      const int f = HAS_CHI || fld == 0 ? fld : fld - 1;
+      return ring[oz < 0 ? sm : (oz > 0 ? sp : s0)][f][yl + oy][xl + ox];
+    };
+    const long long i = (static_cast<long long>(z) * Y + y) * X + x;
+    LbmCapCell o;
+    lbm_capillary_cell<HAS_CHI>(lbm_cap_point<HAS_CHI>(in, i, N, flags[i]), k, tap, o);
+    pres_out[i] = o.pres;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      vel_out[d * N + i] = o.u[d];
+      force_out[d * N + i] = o.force[d];
+      dfai_out[d * N + i] = o.dfai[d];
+      dprho_out[d * N + i] = o.dprho[d];
+    }
+  });
+}
+
 // The capillary stage in one launch on (tx, ty) tiles (one of CM_TILES)
 // and strips of zb planes.  h2 and phi both null select the variant
 // without the Kelvin term.
@@ -202,6 +290,54 @@ extern "C" int lbm_capmac(const uint8_t* flags, const float* rho_pre, const floa
   }
   CM_TILES(CM_LAUNCH)
 #undef CM_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The slab form in one launch on (tx, ty) tiles (one of CM_TILES) and
+// strips of zb planes: lap the Laplacian of density(rho_ca) on the slab;
+// g[0..11] the ghost planes ([Y, X] each) of lap, rho_pre, density_pre,
+// pressure and phi (below, above) as floats, then flags (below, above) as
+// uint8; [zlo, zhi] the z clamp.  h2 and phi both null select the variant
+// without the Kelvin term.
+extern "C" int lbm_capmac_slab(const uint8_t* flags, const float* lap, const float* rho_pre,
+                               const float* den_pre, const float* pres_old,
+                               const float* rho_ca, const float* phi, const float* h2,
+                               const float* gsum, const float* gmom, const float* vel_old,
+                               float* vel_out, float* pres_out, float* force_out,
+                               float* dfai_out, float* dprho_out, int Z, int Y, int X, int tx,
+                               int ty, int zb, double kappa, double grav_x, double grav_y,
+                               double grav_z, double mu0_half, double dx, double dt,
+                               double rho_gas, double rho_fluid, double den_gas,
+                               double den_fluid, const float* lap_lo, const float* lap_hi,
+                               const float* rho_lo, const float* rho_hi, const float* den_lo,
+                               const float* den_hi, const float* pres_lo, const float* pres_hi,
+                               const float* phi_lo, const float* phi_hi, const uint8_t* fl_lo,
+                               const uint8_t* fl_hi, int zlo, int zhi, void* stream) {
+  const LbmCapF k = lbm_cap_consts(kappa, grav_x, grav_y, grav_z, mu0_half, dx, dt,
+                                   lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid));
+  const double c = dx / dt;
+  const double RT = c * c / 3.0;
+  const LbmCmGhosts gh{lap_lo, lap_hi, rho_lo, rho_hi, den_lo, den_hi, pres_lo, pres_hi,
+                       phi_lo, phi_hi, fl_lo, fl_hi};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (zb < 1 || zlo > zhi) return static_cast<int>(cudaErrorInvalidValue);
+#define CM_SLAB_LAUNCH(TX_, TY_)                                                               \
+  if (tx == TX_ && ty == TY_) {                                                                \
+    const dim3 grid((X + TX_ - 1) / TX_, (Y + TY_ - 1) / TY_, (Z + zb - 1) / zb);             \
+    if (h2 != nullptr)                                                                         \
+      lbm_capmac_slab_kernel<TX_, TY_, true><<<grid, dim3(TX_, TY_), 0, st>>>(                 \
+          flags, lap, rho_pre, den_pre, pres_old, rho_ca, phi, h2, gsum, gmom, vel_old,        \
+          vel_out, pres_out, force_out, dfai_out, dprho_out, Z, Y, X, zb, k, dx, RT, gh, zlo,  \
+          zhi);                                                                                \
+    else                                                                                       \
+      lbm_capmac_slab_kernel<TX_, TY_, false><<<grid, dim3(TX_, TY_), 0, st>>>(                \
+          flags, lap, rho_pre, den_pre, pres_old, rho_ca, phi, h2, gsum, gmom, vel_old,        \
+          vel_out, pres_out, force_out, dfai_out, dprho_out, Z, Y, X, zb, k, dx, RT, gh, zlo,  \
+          zhi);                                                                                \
+    return static_cast<int>(cudaGetLastError());                                               \
+  }
+  CM_TILES(CM_SLAB_LAUNCH)
+#undef CM_SLAB_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -127,6 +127,19 @@ __global__ void lbm_stream_macro_kernel(const T* __restrict__ f, const T* __rest
 // g' take half: 153 B per cell plus 60 B per fluid cell, about 1.1 ms (1.24
 // ms with the emission); the collide rounds once, on the store of f' and
 // g'.
+//
+// B5's slab form (the TPU kernel's ghosts=, fused_step.py:779, for a z-slab
+// of a domain decomposed along z over ranks: parallel/step3d.py): the
+// stage form whose plane 0 copies its z-1 channels (9-13) and plane Z-1
+// its z+1 channels (14-18) from the neighbours' pre-stream edge planes
+// instead of the wrap, 5 channels of one plane a side, as B4's slab form
+// pulls them (common.cuh:lbm_pull_slab).  The collide is local, so
+// nothing else changes and a slab's f'/g' equal those of the same planes
+// of the whole domain bit for bit.  With emit_mac the wrapper exchanges
+// the collided edge planes and launches B4's slab form on f'/g' (where the
+// TPU's wrapper rebuilds the two edge planes' macros in jnp,
+// parallel/step3d.py:_mac_plane_jnp), so every plane's macros come from
+// the kernels.  Its bound adds the ghost planes' reads.
 
 // The 15 macro channels: channel c of cell i is lbm_ep_macro(m, c, N)[i],
 // c = 0 rho, 1-3 vel, 4 density, 5 pressure, 6-8 force, 9-11 dfai, 12-14
@@ -245,14 +258,25 @@ __device__ __forceinline__ float lbm_stage_val(uint32_t w, bool hi, const __nv_b
   return __uint_as_float(hi ? w & 0xffff0000u : w << 16);
 }
 
-// Issues the copies of cell i's loads into the stage st (this thread's
-// word 0; word w at st[w * EP_NT]) and commits them as one group:
-// lbm_pull_at's sources of f and g, then the macro channels.
+// The pre-stream edge planes of the slab form's neighbours ([5, Y, X] each):
+// channels 9-13 of the plane below the slab (lo), 14-18 of the plane above
+// it (hi), of f and g.
 template <class T>
+struct LbmEpGhosts {
+  const T *f_lo, *f_hi, *g_lo, *g_hi;
+};
+
+// Issues the copies of cell i (plane z, in-plane index i - z NP) into the
+// stage st (this thread's word 0; word w at st[w * EP_NT]) and commits
+// them as one group: lbm_pull_at's sources of f and g (SLAB: plane 0's z-1
+// and plane Z-1's z+1 channels from the ghost planes gh, lbm_pull_slab's
+// sources), then the macro channels.
+template <class T, bool SLAB>
 __device__ __forceinline__ void lbm_stage_issue(uint32_t* st, const T* __restrict__ f,
                                                 const T* __restrict__ g, const LbmEpMacros& m,
                                                 long long N, long long i,
-                                                const LbmPullOffsets& o) {
+                                                const LbmPullOffsets& o, const LbmEpGhosts<T>& gh,
+                                                int z, int Z, long long NP) {
   const int ex[19] = LBM_D3Q19_EX;
   const int ey[19] = LBM_D3Q19_EY;
   const int ez[19] = LBM_D3Q19_EZ;
@@ -265,9 +289,17 @@ __device__ __forceinline__ void lbm_stage_issue(uint32_t* st, const T* __restric
       long long src = i;
       if (ex[q] != 0) src += ex[q] == 1 ? o.xm : o.xp;
       if (ey[q] != 0) src += ey[q] == 1 ? o.ym : o.yp;
-      if (ez[q] != 0) src += ez[q] == 1 ? o.zm : o.zp;
-      const bool hi = lbm_cp_word(st + (19 * d + q) * EP_NT, a + q * N + src, a, a + 19 * N,
-                                  q == 0 || q == 18);
+      bool hi;
+      if (SLAB && ((ez[q] == 1 && z == 0) || (ez[q] == -1 && z == Z - 1))) {
+        const T* __restrict__ b = ez[q] == 1 ? (d ? gh.g_lo : gh.f_lo) : (d ? gh.g_hi : gh.f_hi);
+        hi = lbm_cp_word(st + (19 * d + q) * EP_NT,
+                         b + (ez[q] == 1 ? q - 9 : q - 14) * NP + (src - z * NP), b, b + 5 * NP,
+                         true);
+      } else {
+        if (ez[q] != 0) src += ez[q] == 1 ? o.zm : o.zp;
+        hi = lbm_cp_word(st + (19 * d + q) * EP_NT, a + q * N + src, a, a + 19 * N,
+                         q == 0 || q == 18);
+      }
       bits |= static_cast<uint32_t>(hi) << q;
     }
     if (sizeof(T) == 2) st[(38 + d) * EP_NT] = bits;
@@ -278,12 +310,12 @@ __device__ __forceinline__ void lbm_stage_issue(uint32_t* st, const T* __restric
 }
 
 // The stage form (the step's): EP_STAGE_BYTES of dynamic shared memory a
-// block.
-template <class T>
+// block.  SLAB: the slab form, its pulls across the slab's faces from gh.
+template <class T, bool SLAB>
 __global__ void __launch_bounds__(EP_NT, 65536 / (EP_REGS * EP_NT)) lbm_epilogue_stage(
     const T* __restrict__ f, const T* __restrict__ g, const uint8_t* __restrict__ flags,
     LbmEpMacros m, T* __restrict__ f_out, T* __restrict__ g_out, int Z, int Y, int X, int zb,
-    LbmHczK k) {
+    LbmHczK k, LbmEpGhosts<T> gh) {
   extern __shared__ uint32_t lbm_ep_stage[];
   const long long XY = static_cast<long long>(X) * Y, N = XY * Z;
   const long long l = static_cast<long long>(blockIdx.x) * EP_NT + threadIdx.x;
@@ -294,7 +326,8 @@ __global__ void __launch_bounds__(EP_NT, 65536 / (EP_REGS * EP_NT)) lbm_epilogue
   uint32_t* const st = lbm_ep_stage + threadIdx.x;
   for (int z = z0; z < z1; ++z) {
     const long long i = z * XY + l;
-    lbm_stage_issue(st, f, g, m, N, i, lbm_pull_offsets(z, y, x, Z, Y, X));
+    lbm_stage_issue<T, SLAB>(st, f, g, m, N, i, lbm_pull_offsets(z, y, x, Z, Y, X), gh, z, Z,
+                             XY);
     const uint8_t flag = flags[i];
     lbm_cp_async_wait_all();
     lbm_epilogue_cell(
@@ -316,7 +349,7 @@ __global__ void __launch_bounds__(EP_NT, 65536 / (EP_REGS * EP_NT)) lbm_epilogue
 // Lets the stage form's instance for T take EP_STAGE_BYTES of dynamic
 // shared memory on the current device (one attribute call a device).
 #define EP_MAX_DEVICES 64
-template <class T>
+template <class T, bool SLAB>
 static cudaError_t lbm_ep_stage_allow() {
   static bool allowed[EP_MAX_DEVICES] = {};
   int dev = 0;
@@ -324,7 +357,7 @@ static cudaError_t lbm_ep_stage_allow() {
   if (err != cudaSuccess) return err;
   if (dev >= EP_MAX_DEVICES) return cudaErrorInvalidDevice;
   if (!allowed[dev]) {
-    err = cudaFuncSetAttribute(lbm_epilogue_stage<T>,
+    err = cudaFuncSetAttribute(lbm_epilogue_stage<T, SLAB>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, EP_STAGE_BYTES);
     if (err != cudaSuccess) return err;
     allowed[dev] = true;
@@ -334,17 +367,29 @@ static cudaError_t lbm_ep_stage_allow() {
 
 // form: 0 the cell plan, 1 the stage form in strips of zb planes.  With
 // blocks non-null, reports the form's resident blocks an SM instead of
-// launching.
+// launching.  gh non-null: the slab form's ghost planes (f_lo, f_hi, g_lo,
+// g_hi), the stage form only.
 template <class T>
 static int lbm_epilogue_launch(const void* f, const void* g, const uint8_t* flags,
                                const LbmEpMacros& m, void* f_out, void* g_out, int Z, int Y,
                                int X, int form, int zb, LbmHczK k, cudaStream_t st,
-                               int* blocks) {
+                               int* blocks, const void* const* gh = nullptr) {
   const T* fi = static_cast<const T*>(f);
   const T* gi = static_cast<const T*>(g);
   T* fo = static_cast<T*>(f_out);
   T* go = static_cast<T*>(g_out);
   const long long XY = static_cast<long long>(X) * Y;
+  if (gh != nullptr) {
+    if (zb < 1 || form != 1) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = lbm_ep_stage_allow<T, true>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const LbmEpGhosts<T> g4{static_cast<const T*>(gh[0]), static_cast<const T*>(gh[1]),
+                            static_cast<const T*>(gh[2]), static_cast<const T*>(gh[3])};
+    const dim3 grid(static_cast<unsigned>((XY + EP_NT - 1) / EP_NT), (Z + zb - 1) / zb);
+    lbm_epilogue_stage<T, true><<<grid, EP_NT, EP_STAGE_BYTES, st>>>(fi, gi, flags, m, fo, go,
+                                                                     Z, Y, X, zb, k, g4);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (form == 0) {
     if (blocks != nullptr)
       return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -354,14 +399,14 @@ static int lbm_epilogue_launch(const void* f, const void* g, const uint8_t* flag
     return static_cast<int>(cudaGetLastError());
   }
   if (zb < 1 || form != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = lbm_ep_stage_allow<T>();
+  const cudaError_t err = lbm_ep_stage_allow<T, false>();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks != nullptr)
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, lbm_epilogue_stage<T>, EP_NT, EP_STAGE_BYTES));
+        blocks, lbm_epilogue_stage<T, false>, EP_NT, EP_STAGE_BYTES));
   const dim3 grid(static_cast<unsigned>((XY + EP_NT - 1) / EP_NT), (Z + zb - 1) / zb);
-  lbm_epilogue_stage<T><<<grid, EP_NT, EP_STAGE_BYTES, st>>>(fi, gi, flags, m, fo, go, Z, Y, X,
-                                                             zb, k);
+  lbm_epilogue_stage<T, false><<<grid, EP_NT, EP_STAGE_BYTES, st>>>(
+      fi, gi, flags, m, fo, go, Z, Y, X, zb, k, LbmEpGhosts<T>{});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -381,6 +426,27 @@ extern "C" int lbm_epilogue(const void* f, const void* g, const uint8_t* flags, 
                                               k, st, nullptr);
   return lbm_epilogue_launch<float>(f, g, flags, m, f_out, g_out, Z, Y, X, form, zb, k, st,
                                     nullptr);
+}
+
+// B5's slab form: the stage form in strips of zb planes, f_lo, f_hi, g_lo
+// and g_hi the neighbours' pre-stream edge planes ([5, Y, X] each, in the
+// storage type).
+extern "C" int lbm_epilogue_slab(const void* f, const void* g, const uint8_t* flags,
+                                 const float* rho, const float* vel, const float* den,
+                                 const float* pres, const float* force, const float* dfai,
+                                 const float* dprho, void* f_out, void* g_out, int Z, int Y,
+                                 int X, int zb, double dx, double dt, double tau_f,
+                                 double tau_g, int bf16, const void* f_lo, const void* f_hi,
+                                 const void* g_lo, const void* g_hi, void* stream) {
+  const LbmHczK k = lbm_hcz_consts(dx, dt, tau_f, tau_g);
+  const LbmEpMacros m{rho, vel, den, pres, force, dfai, dprho};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* gh[4] = {f_lo, f_hi, g_lo, g_hi};
+  if (bf16)
+    return lbm_epilogue_launch<__nv_bfloat16>(f, g, flags, m, f_out, g_out, Z, Y, X, 1, zb, k,
+                                              st, nullptr, gh);
+  return lbm_epilogue_launch<float>(f, g, flags, m, f_out, g_out, Z, Y, X, 1, zb, k, st, nullptr,
+                                    gh);
 }
 
 // Blocks of B5's form (lbm_epilogue_launch) resident on one SM, in bfloat16

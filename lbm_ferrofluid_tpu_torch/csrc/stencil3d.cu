@@ -44,6 +44,24 @@
 // fields give zero numerators, which the IEEE division sends down its slow
 // path; the per-cell functions' ZERO form (common.cuh:lbm_div) returns
 // those as they are.
+//
+// Slab form of the Laplacian (the TPU kernel's ghost_lo/ghost_hi, for a
+// z-slab of a domain decomposed along z over ranks: parallel/step3d.py):
+// the walk's planes -1 and Z are the neighbours' edge planes (glo, ghi:
+// [Y, X] each) instead of the clamped reads, and the z clamp is [zlo, zhi]:
+// [1, Z-2] at the domain's true edges, whose planes 0 and Z-1 then take
+// the zero ring, and [-1, Z] where the slab has a neighbour, whose planes
+// are then tapped across the face.  The y/x ring is zeroed as on the whole
+// domain.  The taps and their order are the same, so a slab's planes equal
+// the whole domain's bit for bit (the TPU caller zeroes the true edges'
+// planes after its kernel, parallel/step3d.py:laplacian_field_sharded).
+// Its bound adds the two ghost planes' reads.  Either form may take rho and
+// map each value through the linear density map as it loads it (MAP,
+// common.cuh:lbm_density_of): the Laplacian of density(rho_ca), as B6's
+// single-device kernel builds it from its own density map (capmac.cu), so
+// that the z-slab route's Laplacian, which B6's slab form takes as an
+// input, is the single-device route's bit for bit (PyTorch's map of the
+// same values rounds twice where the kernels' contracts an FMA).
 #include "common.cuh"
 
 // (TX, TY, RY) tiles the kernel is built for, RY rows a thread:
@@ -64,10 +82,14 @@ constexpr bool lbm_stencil_fits() {
   return 4 * 4 * NF * (TY + 2) * (TX + 2) <= ST_SMEM_MAX;
 }
 
-template <int TX, int TY, int RY, int NF, bool LAP>
+// SLAB: the slab form (planes -1 and Z from glo and ghi, the z clamp
+// [zlo, zhi]); the whole domain's instances ignore those four arguments.
+// MAP: each loaded value is rho, mapped through gas's density map.
+template <int TX, int TY, int RY, int NF, bool LAP, bool SLAB, bool MAP>
 __global__ void __launch_bounds__(TX* TY / RY, ST_MIN_BLOCKS(NF, LAP)) lbm_stencil_kernel(
     const float* __restrict__ in, float* __restrict__ out, int Z, int Y, int X, int zb,
-    float k) {
+    float k, const float* __restrict__ glo, const float* __restrict__ ghi, int zlo, int zhi,
+    LbmGas gas) {
   constexpr int TT = TY / RY;             // thread rows
   constexpr int EX = TX + 2, EY = TY + 2;  // the ring: tile and 1-cell halo
   constexpr int PLANE = EY * EX;
@@ -79,6 +101,7 @@ __global__ void __launch_bounds__(TX* TY / RY, ST_MIN_BLOCKS(NF, LAP)) lbm_stenc
   const int z0 = blockIdx.z * zb, z1 = min(z0 + zb, Z);
   const int rx0 = lbm_ring_origin(x0, X), ry0 = lbm_ring_origin(y0, Y);
   const long long XY = static_cast<long long>(X) * Y, N = XY * Z;
+  const int clo = SLAB ? zlo : 1, chi = SLAB ? zhi : Z - 2;  // the z clamp
 
   // What this thread loads of each plane: ring cells (r tt + ty + 1, tx + 1)
   // for r < RY, and halo cell (hy, hx) if tid < NH (rows 0 and EY - 1, then
@@ -108,12 +131,19 @@ __global__ void __launch_bounds__(TX* TY / RY, ST_MIN_BLOCKS(NF, LAP)) lbm_stenc
     dst[RY] = hy * EX + hx;
   }
   auto fetch = [&](int p, float (&v)[NF][RY + 1]) {
-    const float* __restrict__ s = in + p * XY;
+    const float* __restrict__ s =
+        SLAB && p < 0 ? glo : (SLAB && p >= Z ? ghi : in + p * XY);
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
 #pragma unroll
-      for (int r = 0; r < RY; ++r) v[f][r] = s[f * N + src[r]];
-      if (halo) v[f][RY] = s[f * N + src[RY]];
+      for (int r = 0; r < RY; ++r) {
+        v[f][r] = s[f * N + src[r]];
+        if (MAP) v[f][r] = lbm_density_of(v[f][r], gas);
+      }
+      if (halo) {
+        v[f][RY] = s[f * N + src[RY]];
+        if (MAP) v[f][RY] = lbm_density_of(v[f][RY], gas);
+      }
     }
   };
   auto put = [&](int p, const float (&v)[NF][RY + 1]) {
@@ -144,9 +174,10 @@ __global__ void __launch_bounds__(TX* TY / RY, ST_MIN_BLOCKS(NF, LAP)) lbm_stenc
   }
 
   // The walk: planes lo..last, where a cell at z taps zc - 1..zc + 1 with
-  // zc = clamp(z, 1, Z - 2); hi is the last plane in the ring, v holds
-  // plane hi + 1 (when the strip needs it).
-  const int lo = lbm_clamp(z0, 1, Z - 2) - 1, last = lbm_clamp(z1 - 1, 1, Z - 2) + 1;
+  // zc = clamp(z, clo, chi); hi is the last plane in the ring, v holds
+  // plane hi + 1 (when the strip needs it).  Slot p & 3 holds plane p
+  // (plane -1 of a slab in slot 3).
+  const int lo = lbm_clamp(z0, clo, chi) - 1, last = lbm_clamp(z1 - 1, clo, chi) + 1;
   float v[NF][RY + 1];
   {
     float w[NF][RY + 1];
@@ -158,7 +189,7 @@ __global__ void __launch_bounds__(TX* TY / RY, ST_MIN_BLOCKS(NF, LAP)) lbm_stenc
   fetch(lo + 2, v);
   int hi = lo + 1;
   for (int z = z0; z < z1; ++z, o += XY) {
-    const int zc = lbm_clamp(z, 1, Z - 2);
+    const int zc = lbm_clamp(z, clo, chi);
     if (zc + 1 > hi) {  // the same for the whole block
       put(++hi, v);
       if (hi + 1 <= last) fetch(hi + 1, v);
@@ -191,14 +222,17 @@ __global__ void __launch_bounds__(TX* TY / RY, ST_MIN_BLOCKS(NF, LAP)) lbm_stenc
 #define ST_FIELDS(M, TX_, TY_, RY_) M(TX_, TY_, RY_, 1) M(TX_, TY_, RY_, 2) \
   M(TX_, TY_, RY_, 3) M(TX_, TY_, RY_, 4)
 
-// One launch of an instance on strips of zb planes, if it is built.
-template <int TX, int TY, int RY, int NF, bool LAP>
+// One launch of an instance on strips of zb planes, if it is built (SLAB:
+// the slab form, with glo, ghi, zlo and zhi; MAP: the density map gas).
+template <int TX, int TY, int RY, int NF, bool LAP, bool SLAB = false, bool MAP = false>
 static int lbm_stencil_launch(const float* in, float* out, int Z, int Y, int X, int zb,
-                              float k, cudaStream_t st) {
+                              float k, cudaStream_t st, const float* glo = nullptr,
+                              const float* ghi = nullptr, int zlo = 1, int zhi = 0,
+                              LbmGas gas = LbmGas{}) {
   if constexpr (lbm_stencil_fits<TX, TY, NF>()) {
     const dim3 grid((X + TX - 1) / TX, (Y + TY - 1) / TY, (Z + zb - 1) / zb);
-    lbm_stencil_kernel<TX, TY, RY, NF, LAP><<<grid, dim3(TX, TY / RY), 0, st>>>(in, out, Z, Y, X,
-                                                                              zb, k);
+    lbm_stencil_kernel<TX, TY, RY, NF, LAP, SLAB, MAP><<<grid, dim3(TX, TY / RY), 0, st>>>(
+        in, out, Z, Y, X, zb, k, glo, ghi, zlo, zhi, gas);
     return static_cast<int>(cudaGetLastError());
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -209,7 +243,7 @@ template <int TX, int TY, int RY, int NF, bool LAP>
 static int lbm_stencil_blocks(int* blocks) {
   if constexpr (lbm_stencil_fits<TX, TY, NF>())
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, lbm_stencil_kernel<TX, TY, RY, NF, LAP>, TX * TY / RY, 0));
+        blocks, lbm_stencil_kernel<TX, TY, RY, NF, LAP, false, false>, TX * TY / RY, 0));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -233,15 +267,37 @@ extern "C" int lbm_grad_fields(const float* in, float* out, int nf, int Z, int Y
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The Laplacian in one launch on (tx, ty) tiles and strips of zb planes.
-extern "C" int lbm_laplacian_field(const float* in, float* out, int Z, int Y, int X, int tx,
-                                   int ty, int zb, double dx, void* stream) {
-  if (zb < 1) return static_cast<int>(cudaErrorInvalidValue);
+// The Laplacian in one launch on (tx, ty) tiles (one of ST_TILES) and
+// strips of zb planes: the slab form where glo is not null (glo and ghi
+// the neighbours' edge planes, [Y, X] each; [zlo, zhi] the z clamp, 1 and
+// Z-2 at the domain's true edges, -1 and Z where the slab has a
+// neighbour), the whole domain's otherwise (zlo and zhi unused); with map
+// nonzero, of density(in) (in, glo and ghi hold rho).
+extern "C" int lbm_laplacian_field(const float* in, const float* glo, const float* ghi,
+                                   float* out, int Z, int Y, int X, int tx, int ty, int zb,
+                                   int zlo, int zhi, double dx, int map, double rho_gas,
+                                   double rho_fluid, double den_gas, double den_fluid,
+                                   void* stream) {
+  const bool slab = glo != nullptr;
+  if (zb < 1 || (slab && zlo > zhi)) return static_cast<int>(cudaErrorInvalidValue);
   const float d6 = lbm_f32(6.0 * dx * dx);
-#define ST_LAP(TX_, TY_, RY_)                                                               \
-  if (tx == TX_ && ty == TY_)                                                               \
-    return lbm_stencil_launch<TX_, TY_, RY_, 1, true>(in, out, Z, Y, X, zb, d6,             \
-                                                      static_cast<cudaStream_t>(stream));
+  const LbmGas gas = lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ST_LAP(TX_, TY_, RY_)                                                           \
+  if (tx == TX_ && ty == TY_) {                                                            \
+    if (slab && map)                                                                       \
+      return lbm_stencil_launch<TX_, TY_, RY_, 1, true, true, true>(in, out, Z, Y, X, zb,  \
+                                                                    d6, st, glo, ghi, zlo, \
+                                                                    zhi, gas);             \
+    if (slab)                                                                              \
+      return lbm_stencil_launch<TX_, TY_, RY_, 1, true, true, false>(in, out, Z, Y, X, zb, \
+                                                                     d6, st, glo, ghi, zlo, \
+                                                                     zhi);                  \
+    if (map)                                                                               \
+      return lbm_stencil_launch<TX_, TY_, RY_, 1, true, false, true>(                      \
+          in, out, Z, Y, X, zb, d6, st, nullptr, nullptr, 1, 0, gas);                      \
+    return lbm_stencil_launch<TX_, TY_, RY_, 1, true>(in, out, Z, Y, X, zb, d6, st);       \
+  }
   ST_TILES(ST_LAP)
 #undef ST_LAP
   return static_cast<int>(cudaErrorInvalidValue);

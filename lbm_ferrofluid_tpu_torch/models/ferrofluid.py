@@ -58,14 +58,23 @@ sweeps, into which :func:`prime_premac` converts h and which is its only
 With ``mesh`` (``parallel/mesh.py``: this rank's place among the ranks of a
 ('batch', 'z') mesh) :func:`prime_premac` and :func:`ferrofluid_step` take
 and return this rank's part of the state (``parallel/sharding.py``), as the
-JAX step's ``mesh=`` does (:318-358, :419-466, :583-633, :979-1026 there).
-On a z-slab mesh (``nz > 1``, or ``slab=True``) the capillogue steady state
-with the scalar carry runs on the slab forms of B4, B1, B2 and B3
-(``parallel/step3d.py``); every other route raises ``NotImplementedError``
-naming ROADMAP A12 (the un-carried step, the 5-leaf epilogue steady state,
-the channel form, an out-of-plane field, ``phys_extent`` and 2D).  On a
-batch mesh (``nz == 1``) each rank steps its own batch element on the
-single-device route its state selects.
+JAX step's ``mesh=`` does (:318-358, :419-466, :583-735, :979-1026 there).
+On a z-slab mesh (``nz > 1``, or ``slab=True``) the routes with the scalar
+carry run on the kernels' slab forms (``parallel/step3d.py``): the
+capillogue steady state (6 leaves: B1, B2, B3); the epilogue steady state
+(5 leaves), which is also what an out-of-plane field (``h_ext_axis=2``)
+primes to, and the un-carried step (premac None: B4 each step), each
+through B1, B2, B10b (the Laplacian of density(rho_ca), the density map
+taken as B6's single-device kernel takes it, so the routes equal the
+single-device ones bit for bit), B6 with that Laplacian as an input, and
+B5 (with ``emit_mac`` on 5 leaves), as the JAX
+meshed step takes the capillogue only for a 6-leaf premac (:588-592
+there).  An out-of-plane field's Poisson source reads phi a plane across
+the slab's faces (``step3d.poisson_rhs_sharded``).  Priming and the step
+run the same gates (:func:`_slab_gates`); the routes left raise
+``NotImplementedError`` naming their ROADMAP A12 slice (the channel form,
+``phys_extent``, 2D).  On a batch mesh (``nz == 1``) each rank steps its
+own batch element on the single-device route its state selects.
 
 Every entry point runs on the card unless ``device="cpu"`` is passed, and
 the kernels run unless ``plain=True`` is passed, which selects their plain
@@ -341,18 +350,20 @@ def _on_mesh(state, mesh, device):
     return dev.type
 
 
-def _prime_premac_slab(params: SimulationParams, state, mesh, plain):
-    """:func:`prime_premac` on a z-slab mesh: B4's slab form, the scalar
-    carry converted across the slab's faces, and the 6-leaf premac of the
-    capillogue steady state (JAX :979-1022); the routes the port does not
-    run on a slab raise."""
+def _slab_gates(params: SimulationParams, state, mesh, plain, primed):
+    """The gates of the z-slab routes, shared by priming and the step with
+    the same messages (ROADMAP C7: a state primed on one device and cut
+    onto a slab mesh meets them at its first step): one batch element a
+    rank, slabs of 4 or more planes (B4, B5, B6 and B3), the scalar carry
+    (``primed``: already in ``state.h``, as the step never converts it),
+    a plan of B1's slab rounds, and the kernels' grid on the card."""
     from ..parallel import step3d
 
     shape = step3d.global_shape(state.f.shape, mesh)
-    if params.dim != 3 or params.phys_extent is not None:
-        raise step3d.unported("a 2D state" if params.dim != 3 else "phys_extent")
-    if params.h_ext_axis not in (0, 1):
-        raise step3d.unported("an out-of-plane field (h_ext_axis=2, the 5-leaf box form)")
+    if params.dim != 3:
+        raise step3d.unported("a 2D state", 4)
+    if params.phys_extent is not None:
+        raise step3d.unported("phys_extent (the padded layout)", 4)
     if state.f.shape[0] != 1:
         raise ValueError("a z-slab mesh steps one batch element a rank: shard_state the "
                          "state on a mesh whose batch axis has one rank per element")
@@ -361,11 +372,26 @@ def _prime_premac_slab(params: SimulationParams, state, mesh, plain):
                          "more planes a rank; use fewer ranks along z")
     if not step3d.fused_step_sharded_ok(mesh, shape, params.kbc_type):
         raise step3d.unported(f"kbc_type={params.kbc_type}")
-    if not (_scalar_physics_ok(params, state.magnetic_flags) or state.h.shape[1] == 2):
-        raise step3d.unported("the channel-form (19-channel) magnetic solve")
+    if state.h.shape[1] != 2 and (primed or not _scalar_physics_ok(params,
+                                                                  state.magnetic_flags)):
+        raise step3d.unported(
+            "the channel-form (19-channel) magnetic solve" + (
+                " (prime_premac(..., mesh=) converts h to the scalar carry where the collapse "
+                "applies)" if primed else ""), 2)
     if not step3d.scalar_sharded_ok(mesh, (1, 2, *shape[2:]), params.poisson_iters):
         raise step3d.unported(f"{params.poisson_iters} sweeps on slabs of "
                               f"{shape[2] // mesh.nz} planes (no round plan)")
+    check_kernel_grid(state.f, plain)
+
+
+def _prime_premac_slab(params: SimulationParams, state, mesh, plain):
+    """:func:`prime_premac` on a z-slab mesh: B4's slab form, the scalar
+    carry converted across the slab's faces, and the 6-leaf premac of the
+    capillogue steady state, or with an out-of-plane field the 5-leaf one
+    that keeps phi, force and H_ext (JAX :979-1022)."""
+    from ..parallel import step3d
+
+    _slab_gates(params, state, mesh, plain, primed=False)
     validate_mag_shell(params, state.magnetic_flags)
     premac = step3d.fused_prologue_sharded(
         state.f, state.g, state.flags, state.rho, state.vel, mesh, c=params.dx / params.dt,
@@ -375,6 +401,8 @@ def _prime_premac_slab(params: SimulationParams, state, mesh, plain):
     h, cmask = state.h, state.cmask
     if h.shape[1] != 2:
         h, cmask = step3d.scalar_convert_sharded(state.h, state.magnetic_flags, mesh)
+    if params.h_ext_axis == 2:
+        return state.replace(h=h, cmask=cmask, premac=tuple(premac))
     rhs = poisson_rhs_scaled(
         phi_from_density(premac[2], params.density_gas, params.density_fluid),
         state.magnetic_flags, _hext_static(params), tau=params.tau,
@@ -395,7 +423,8 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
     A state that is already primed is returned as it is.  In 2D the scalar
     carry is the only priming (JAX :969-977): h converts where the
     collapse applies and nothing else changes.  With ``mesh`` the state is
-    this rank's part (module docstring)."""
+    this rank's part (module docstring); on a z-slab mesh priming runs the
+    step's gates first."""
     if mesh is not None:
         from ..parallel.step3d import dp_dispatch
 
@@ -438,41 +467,71 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
 
 
 def _ferrofluid_step_slab(params: SimulationParams, state, mesh, plain):
-    """:func:`ferrofluid_step` on a z-slab mesh: the capillogue steady state
-    with the scalar carry on the slab forms of B1, B2 and B3 (JAX :440-472,
-    :588-634); the other routes raise."""
+    """:func:`ferrofluid_step` on a z-slab mesh, by ``state.premac`` as on
+    one device: 6 leaves, the capillogue steady state (B1, B2, B3; JAX
+    :440-472, :588-634); 5 leaves (an in-plane or an out-of-plane field)
+    and None, the epilogue route (B4 first when None; B1, B2, B10b, B6, B5
+    with ``emit_mac`` on 5 leaves; JAX :318-359, :455-471, :636-686,
+    :708-735).  Each kernel runs its slab form (``parallel/step3d.py``)."""
     from ..parallel import step3d
 
-    if params.dim != 3 or params.phys_extent is not None:
-        raise step3d.unported("a 2D state" if params.dim != 3 else "phys_extent")
-    if state.premac is None:
-        raise step3d.unported("the un-carried step (premac None; prime_premac(..., mesh=) "
-                              "primes the steady state)")
-    if len(state.premac) != 6:
-        raise step3d.unported(f"the {len(state.premac)}-leaf epilogue steady state")
-    if state.h.shape[1] != 2:
-        raise step3d.unported("the channel-form (19-channel) magnetic solve")
-    check_kernel_grid(state.f, plain)
+    _slab_gates(params, state, mesh, plain, primed=True)
+    premac = state.premac
+    if premac is not None and len(premac) not in (5, 6):
+        raise ValueError(f"a premac of 5 or 6 leaves, or None; this state carries {len(premac)}")
+    if params.h_ext_axis == 2 and premac is not None and len(premac) != 5:
+        raise ValueError("an out-of-plane field carries a 5-leaf premac (prime_premac); "
+                         f"this state carries {len(premac)} leaves")
     gas = dict(rho_gas=float(params.rho_gas), rho_fluid=float(params.rho_fluid),
                density_gas=float(params.density_gas),
                density_fluid=float(params.density_fluid))
     dx, dt = float(params.dx), float(params.dt)
-    rho, vel, density, m0g, m1g, rhs = state.premac
-    H2, h = step3d.scalar_poisson_sharded(
-        state.h, state.cmask, rhs, mesh, n_iters=params.poisson_iters, dx=dx,
-        h_ext=_hext_static(params), plain=plain,
-    )
+    grav = tuple(float(v) for v in params.gravity_vec().reshape(-1))
+    hcz = dict(tau_f=float(params.tau_f), tau_g=float(params.tau_g), dx=dx, dt=dt)
+    solve = dict(n_iters=params.poisson_iters, dx=dx, h_ext=_hext_static(params), plain=plain)
+    if premac is not None and len(premac) == 6:
+        rho, vel, density, m0g, m1g, rhs = premac
+        H2, h = step3d.scalar_poisson_sharded(state.h, state.cmask, rhs, mesh, **solve)
+        rho_ca = step3d.contact3d_sharded(rho, state.flags, float(params.contact_angle), mesh,
+                                          plain=plain)
+        f, g, vel, pressure, density, premac = step3d.capillogue_sharded(
+            state.f, state.g, state.flags, rho, density, state.pressure, rho_ca, H2, m0g, m1g,
+            vel, state.magnetic_flags, mesh, kappa=float(params.kappa), gravity=grav,
+            emit_rhs=(params.h_ext_axis, float(params.mag_strength), float(params.tau)),
+            plain=plain, **hcz, **gas,
+        )
+        return state.replace(f=f, g=g, h=h, rho=rho_ca, vel=vel, density=density,
+                             pressure=pressure, step=state.step + 1, premac=premac)
+    if premac is None:
+        rho, vel, density, m0g, m1g = step3d.fused_prologue_sharded(
+            state.f, state.g, state.flags, state.rho, state.vel, mesh, c=dx / dt, plain=plain,
+            **gas)
+    else:
+        rho, vel, density, m0g, m1g = premac
+    phi = phi_from_density(density, params.density_gas, params.density_fluid)
+    rhs = step3d.poisson_rhs_sharded(phi, state.magnetic_flags, mesh, _hext_static(params),
+                                     tau=params.tau, dx=dx, dt=dt)
+    H2, h = step3d.scalar_poisson_sharded(state.h, state.cmask, rhs, mesh, **solve)
     rho_ca = step3d.contact3d_sharded(rho, state.flags, float(params.contact_angle), mesh,
                                       plain=plain)
-    f, g, vel, pressure, density, premac = step3d.capillogue_sharded(
-        state.f, state.g, state.flags, rho, density, state.pressure, rho_ca, H2, m0g, m1g, vel,
-        state.magnetic_flags, mesh, kappa=float(params.kappa),
-        gravity=tuple(float(v) for v in params.gravity_vec().reshape(-1)),
-        emit_rhs=(params.h_ext_axis, float(params.mag_strength), float(params.tau)),
-        tau_f=float(params.tau_f), tau_g=float(params.tau_g), dx=dx, dt=dt, plain=plain, **gas,
+    density_ca = rho_to_density(rho_ca, **gas)
+    # the Laplacian of density(rho_ca) as B6's single-device kernel builds it
+    # (B10b maps rho_ca as it loads it)
+    lap = step3d.laplacian_field_sharded(rho_ca, mesh, dx=dx, density_of=tuple(gas.values()),
+                                         plain=plain)
+    vel, pressure, force, dfai, dprho = step3d.capmac_sharded(
+        lap, rho, density, state.pressure, rho_ca, H2, phi, state.flags, m0g, m1g, vel, mesh,
+        kappa=float(params.kappa), gravity=grav, plain=plain, dx=dx, dt=dt, **gas,
     )
-    return state.replace(f=f, g=g, h=h, rho=rho_ca, vel=vel, density=density,
-                         pressure=pressure, step=state.step + 1, premac=premac)
+    emit = premac is not None
+    out = step3d.fused_epilogue_sharded(
+        state.f, state.g, state.flags, rho_ca, vel, density_ca, pressure, force, dfai, dprho,
+        mesh, emit_mac=emit, mac_consts=(dx / dt, *gas.values()), plain=plain, **hcz,
+    )
+    return state.replace(
+        f=out[0], g=out[1], h=h, rho=rho_ca, vel=vel, density=density_ca, pressure=pressure,
+        force=force, phi=phi, step=state.step + 1, premac=tuple(out[2]) if emit else None,
+    )
 
 
 def ferrofluid_step(params: SimulationParams, state: FerrofluidState, *,

@@ -240,13 +240,13 @@ def hcz_step(params: SimulationParams, state: HCZState, *, device=None,
     """One HCZ step.  ``plain=True`` runs the kernels' plain PyTorch
     versions (on any device) instead of the kernels; a 2D step runs the
     plain ops and launches no kernel.  With a batch ``mesh`` (nz == 1)
-    each rank steps its own batch element; a z-slab mesh raises (its slab
-    forms of B8a, B8b, B9 and B10b are ROADMAP A12's later slices)."""
+    each rank steps its own batch element; a z-slab mesh raises (the slab
+    forms of B8a and B8b are ROADMAP A12 slice 3; B9 is local)."""
     if mesh is not None:
         from ..parallel.step3d import dp_dispatch, unported
 
         if not dp_dispatch(mesh):
-            raise unported("hcz_step")
+            raise unported("hcz_step", 3)
         device = mesh.device.type if device is None else device
     check_device(state.f, device)
     check_supported(params, state.f)

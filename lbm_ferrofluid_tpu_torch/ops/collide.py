@@ -321,7 +321,7 @@ def recover_macros(flags, vel, pressure, density, force, dprho, g_sum, g_mom, g,
 def hcz_capillary(
     rho, vel, flags, density, pressure, rho_ca, H2=None, phi=None, g_sum=None,
     g_mom=None, *, g=None, kappa, gravity, rho_gas, rho_fluid, density_gas,
-    density_fluid, dx=1.0, dt=1.0, bounds=None,
+    density_fluid, dx=1.0, dt=1.0, bounds=None, lap=None,
 ):
     """HCZ capillary step: surface-tension/gravity/Kelvin forces, EOS
     potentials and macro recovery from g (HCZ_2d.py:21-173,
@@ -343,6 +343,10 @@ def hcz_capillary(
     substitutions sit at the faces of the physical box ``[..., :by, :bx]``
     of an OBSTACLE-padded array (``ops/stencils.py``), the gradients'
     output ring stays at the array faces.
+
+    ``lap``, the Laplacian of density(rho_ca) with its zero ring, is taken
+    as given where the caller has it (B6's slab form, whose ghost planes it
+    crosses), else computed here.
     """
     if (H2 is None) != (phi is None):
         raise ValueError("hcz_capillary: give H2 and phi together, or neither")
@@ -351,7 +355,7 @@ def hcz_capillary(
         rho_ca, rho_gas=rho_gas, rho_fluid=rho_fluid,
         density_gas=density_gas, density_fluid=density_fluid,
     )
-    lap_density = isotropic_laplacian(density, dx, bounds)
+    lap_density = isotropic_laplacian(density, dx, bounds) if lap is None else lap
     force = kappa * density * isotropic_grad(lap_density, dx, flags, bounds)
     force = force + gravity * density
     if H2 is not None:

@@ -155,8 +155,10 @@ BF16_FORMS = ("B3", "B4", "B5", "B8a", "B8b", "B9", "B11b")
 
 #: the kernels with a slab form (``ghosts=``: a z-slab of a domain
 #: decomposed along z over ranks, ``parallel/step3d.py``), whose launches
-#: ``launches_slab`` counts: the z-slab path of the capillogue steady state
-SLAB_FORMS = ("B1", "B2", "B3", "B4")
+#: ``launches_slab`` counts: the z-slab paths of the capillogue steady
+#: state (B1, B2, B3, B4 at priming), and of the epilogue steady state, the
+#: out-of-plane field and the un-carried step (B1, B2, B10b, B6, B5, B4)
+SLAB_FORMS = ("B1", "B2", "B3", "B4", "B5", "B6", "B10b")
 
 #: the TPU kernels' ghost modes that the slab forms replace
 SLAB_TPU_KERNELS = {
@@ -164,6 +166,9 @@ SLAB_TPU_KERNELS = {
     "B2": "lbm_ferrofluid_tpu/ops/pallas/contact3d.py:309",
     "B3": "lbm_ferrofluid_tpu/ops/pallas/capillogue.py:809",
     "B4": "lbm_ferrofluid_tpu/ops/pallas/fused_step.py:721",
+    "B5": "lbm_ferrofluid_tpu/ops/pallas/fused_step.py:779",
+    "B6": "lbm_ferrofluid_tpu/ops/pallas/capmac.py:383",
+    "B10b": "lbm_ferrofluid_tpu/ops/pallas/stencil3d.py:242",
 }
 
 

@@ -156,6 +156,15 @@ def check_cuda(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
+def check_slab_clamp(name: str, clamp, Z: int, min_planes: int) -> None:
+    """Raise unless ``clamp`` is a slab form's z clamp on a slab of ``Z``
+    planes: -1 or 1 below, Z or Z-2 above, ``min_planes`` or more planes."""
+    if (clamp[0] not in (-1, 1) or clamp[1] not in (Z - 2, Z) or Z < min_planes
+            or clamp[0] > clamp[1]):
+        raise ValueError(f"{name}: slab clamp (-1 or 1, {Z - 2} or {Z}) on a slab of "
+                         f"{min_planes} or more planes, got {tuple(clamp)} on {Z}")
+
+
 def check_no_grad(name: str, *tensors) -> None:
     """Raise where autograd would record a launch of the kernel ``name``:
     grad is enabled and one of ``tensors`` (None allowed) requires it.

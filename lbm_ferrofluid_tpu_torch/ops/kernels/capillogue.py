@@ -69,13 +69,13 @@ from ..collide import MU0, hcz_capillary, hcz_collide
 from ..magnetic import poisson_rhs_scaled
 from ..moments import phi_from_density
 from ..stream import bounce_back, stream
-from ._lib import (STORAGE, call, check_cuda, check_no_grad, count_launch, elem_bytes, ptr,
-                   stream_of)
+from ._lib import (STORAGE, call, check_cuda, check_no_grad, check_slab_clamp, count_launch,
+                   elem_bytes, ptr, stream_of)
 from .fused_step import cost as prologue_cost
 from .fused_step import extend_ghosts, lbm_prologue_plain, repeat_ends, stream_macro_launch
 
 __all__ = ["lbm_capillogue", "lbm_capillogue_plain", "cost", "cost_slab", "N_LAUNCHES",
-           "launches_per_call", "cap_bundle", "CAP_PLANES"]
+           "launches_per_call", "cap_bundle", "cap_extend", "CAP_PLANES"]
 
 TPU_KERNEL = "lbm_ferrofluid_tpu/ops/pallas/capillogue.py:809"
 CUDA_SOURCE = "lbm_ferrofluid_tpu_torch/csrc/capillogue.cu"
@@ -145,7 +145,7 @@ def cost_slab(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2, g_sum
     return nbytes + gh + sum(t.numel() * 4 for t in cap_ghosts), flops
 
 
-def _cap_extend(x, lo, hi, clamp):
+def cap_extend(x, lo, hi, clamp):
     """``x`` extended by two planes on each side with a neighbour (``clamp``'s
     -1 or Zl), ``lo``/``hi`` (one or two planes, [1, C, n, Y, X]) nearest the
     slab and the outer plane repeated to two (the slab's edge plane where
@@ -173,8 +173,8 @@ def _capillary_slab(rho_pre, vel_old, flags, density_pre, pressure_old, rho_ca, 
 
     def ext(x, j=None, n=1):
         if j is None:
-            return _cap_extend(x, None, None, clamp)
-        return _cap_extend(x, lo[:, None, j:j + n], hi[:, None, j:j + n], clamp)
+            return cap_extend(x, None, None, clamp)
+        return cap_extend(x, lo[:, None, j:j + n], hi[:, None, j:j + n], clamp)
 
     density = ext(density_pre, 1)
     out = hcz_capillary(
@@ -298,9 +298,7 @@ def lbm_capillogue(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2,
             check_cuda(name, t, (f.dtype,), (1, 5, 1, Y, X))
         for name, t in zip(("cap_lo", "cap_hi"), cap_ghosts, strict=True):
             check_cuda(name, t, torch.float32, (1, len(CAP_PLANES), Y, X))
-        if clamp[0] not in (-1, 1) or clamp[1] not in (Z - 2, Z) or Z < 4:
-            raise ValueError(f"lbm_capillogue: slab clamp (-1 or 1, {Z - 2} or {Z}) on a "
-                             f"slab of 4 or more planes, got {tuple(clamp)} on {Z}")
+        check_slab_clamp("lbm_capillogue", clamp, Z, 4)
     box = (ctypes.c_int(by), ctypes.c_int(bx))
     form = "slab" if slab else ("box" if emit_rhs is None else None)
     dims = (ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X))

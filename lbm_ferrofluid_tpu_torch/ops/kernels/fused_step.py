@@ -39,6 +39,16 @@ plane below the slab and 14:19 of the plane above (:func:`ghost_planes`),
 which is all a pull reads there.  One launch (``launches_slab``); its plain
 version streams the slab extended by those planes.
 
+B5's slab form (``ghosts=`` and, with ``emit_mac``, ``emit_ghosts=``) is
+the stage form whose plane 0 and plane Z-1 pull across the slab's faces
+from the same 5-channel ghost planes; between its launch and the emission
+``emit_ghosts(f', g')`` returns the neighbours' collided edge planes (the
+caller's exchange), and the emission is B4's slab form on them, so every
+plane's macros come from the kernels (the TPU's wrapper rebuilds the two
+edge planes' in jnp).  One launch, two with ``emit_mac``
+(``launches_slab``); its plain version streams f and g extended by their
+ghosts, collides the slab, and emits through B4's plain slab form.
+
 Both take f and g in float32 or bfloat16 (the JAX package's turbo mode):
 the CUDA kernels' bfloat16 instances widen what they pull, compute in
 float32 and round f'/g' once, on the store, and the emission reads the
@@ -63,7 +73,8 @@ from ._lib import (STORAGE, call, check_cuda, check_no_grad, count_launch, elem_
 __all__ = [
     "lbm_prologue", "lbm_prologue_plain", "cost", "cost_slab", "stream_macro_launch",
     "ghost_planes", "extend_ghosts", "repeat_ends",
-    "lbm_epilogue", "lbm_epilogue_plain", "cost_epilogue", "plan", "EpiloguePlan", "CELL",
+    "lbm_epilogue", "lbm_epilogue_plain", "cost_epilogue", "cost_epilogue_slab", "plan",
+    "EpiloguePlan", "CELL",
     "FORMS",
 ]
 
@@ -265,25 +276,47 @@ def cost_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, 
     return nbytes, flops
 
 
-def lbm_epilogue_plain(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, *,
-                       tau_f, tau_g, dx=1.0, dt=1.0, emit_mac=False, mac_consts=None):
-    """Plain PyTorch version of :func:`lbm_epilogue`."""
+def cost_epilogue_slab(f, g, flags, rho, vel, density, pressure, force, dfai, dprho,
+                       ghosts=None, emit_ghosts=None, *, emit_mac=False, mac_consts=None,
+                       **_) -> tuple[int, int]:
+    """:func:`cost_epilogue` of the slab form: the ghost planes' 5 channels
+    of f and g a side read once more, and with ``emit_mac`` the collided
+    ones the emission takes."""
+    nbytes, flops = cost_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai,
+                                  dprho, emit_mac=emit_mac)
+    gh = sum(t.numel() * t.element_size() for t in ghosts)
+    return nbytes + gh * (2 if emit_mac else 1), flops
+
+
+def lbm_epilogue_plain(f, g, flags, rho, vel, density, pressure, force, dfai, dprho,
+                       ghosts=None, emit_ghosts=None, *, tau_f, tau_g, dx=1.0, dt=1.0,
+                       emit_mac=False, mac_consts=None):
+    """Plain PyTorch version of :func:`lbm_epilogue`.  The slab form streams
+    f and g extended by their ghost planes (:func:`extend_ghosts`), keeps
+    the slab's planes and emits through B4's plain slab form."""
+    def post(x, i):
+        if ghosts is None:
+            return bounce_back(D3Q19, stream(D3Q19, x), flags)
+        ext = extend_ghosts(x, ghosts[i], ghosts[i + 1])
+        return bounce_back(D3Q19, stream(D3Q19, ext), repeat_ends(flags))[:, :, 1:-1]
+
     f_n, g_n = hcz_collide(
-        D3Q19, bounce_back(D3Q19, stream(D3Q19, f), flags),
-        bounce_back(D3Q19, stream(D3Q19, g), flags), rho, vel, density, pressure, flags,
+        D3Q19, post(f, 0), post(g, 2), rho, vel, density, pressure, flags,
         force, dfai, dprho, tau_f=tau_f, tau_g=tau_g, dx=dx, dt=dt,
     )
     if not emit_mac:
         return f_n, g_n
     c, rho_gas, rho_fluid, density_gas, density_fluid = mac_consts
     return f_n, g_n, lbm_prologue_plain(
-        f_n, g_n, flags, rho, vel, c=c, rho_gas=rho_gas, rho_fluid=rho_fluid,
-        density_gas=density_gas, density_fluid=density_fluid,
+        f_n, g_n, flags, rho, vel, None if ghosts is None else emit_ghosts(f_n, g_n), c=c,
+        rho_gas=rho_gas, rho_fluid=rho_fluid, density_gas=density_gas,
+        density_fluid=density_fluid,
     )
 
 
-def lbm_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, *, tau_f,
-                 tau_g, dx=1.0, dt=1.0, emit_mac=False, mac_consts=None):
+def lbm_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, ghosts=None,
+                 emit_ghosts=None, *, tau_f, tau_g, dx=1.0, dt=1.0, emit_mac=False,
+                 mac_consts=None):
     """Re-stream, bounce and HCZ-collide f and g [1, 19, Z, Y, X] float32
     or bfloat16 (f'/g' in the same type) with this step's float32 rho,
     density, pressure [1, 1, ...] and vel, force,
@@ -291,14 +324,19 @@ def lbm_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, *
     ``emit_mac`` (and ``mac_consts = (c, rho_gas, rho_fluid, density_gas,
     density_fluid)``) -> ``(f', g', (rho, vel, density, m0g, m1g))``, the
     next step's macros: the prologue on f'/g' with rho_old = ``rho`` and
-    vel_old = ``vel``.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel under ``plan`` (with ``emit_mac`` then the
-    prologue's); anything else raises.  Inputs are not modified."""
+    vel_old = ``vel``.  ``ghosts`` (and ``emit_ghosts`` with ``emit_mac``)
+    give the slab form (module docstring).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel under ``plan`` (with
+    ``emit_mac`` then the prologue's); anything else raises.  Inputs are
+    not modified."""
     kw = dict(tau_f=tau_f, tau_g=tau_g, dx=dx, dt=dt, emit_mac=emit_mac,
               mac_consts=mac_consts)
+    slab = ghosts is not None
+    if slab and emit_mac and emit_ghosts is None:
+        raise ValueError("lbm_epilogue: the slab form's emit_mac needs emit_ghosts")
     if f.device.type == "cpu":
         return lbm_epilogue_plain(f, g, flags, rho, vel, density, pressure, force, dfai,
-                                  dprho, **kw)
+                                  dprho, ghosts, emit_ghosts, **kw)
     check_no_grad("lbm_epilogue", f, g, rho, vel, density, pressure, force, dfai, dprho)
     B, Q, Z, Y, X = f.shape
     check_cuda("f", f, STORAGE, (1, 19, Z, Y, X))
@@ -311,23 +349,37 @@ def lbm_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, *
     if min(Z, Y, X) < lbm_epilogue.min_axis or (emit_mac and mac_consts is None):
         raise ValueError(f"lbm_epilogue needs Z, Y, X >= {lbm_epilogue.min_axis}, and "
                          "mac_consts with emit_mac")
+    if slab:
+        for name, t in zip(("f_lo", "f_hi", "g_lo", "g_hi"), ghosts, strict=True):
+            check_cuda(name, t, (f.dtype,), (1, 5, 1, Y, X))
     bf16 = f.dtype == torch.bfloat16
     pl = plan(Z, Y, X, torch.cuda.get_device_properties(f.device).multi_processor_count, bf16)
     f_out, g_out = torch.empty_like(f), torch.empty_like(g)
-    call("lbm_epilogue", ptr(f), ptr(g), ptr(flags), ptr(rho), ptr(vel), ptr(density),
-         ptr(pressure), ptr(force), ptr(dfai), ptr(dprho), ptr(f_out), ptr(g_out),
-         ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_int(FORMS.index(pl.form)),
-         ctypes.c_int(pl.zb), ctypes.c_double(dx), ctypes.c_double(dt), ctypes.c_double(tau_f),
-         ctypes.c_double(tau_g), ctypes.c_int(bf16), stream_of(f))
-    count_launch(lbm_epilogue, bf16)
+    args = (ptr(f), ptr(g), ptr(flags), ptr(rho), ptr(vel), ptr(density), ptr(pressure),
+            ptr(force), ptr(dfai), ptr(dprho), ptr(f_out), ptr(g_out), ctypes.c_int(Z),
+            ctypes.c_int(Y), ctypes.c_int(X))
+    consts = (ctypes.c_double(dx), ctypes.c_double(dt), ctypes.c_double(tau_f),
+              ctypes.c_double(tau_g), ctypes.c_int(bf16))
+    if slab:
+        if pl.form != "stage":
+            raise ValueError(f"lbm_epilogue: the slab form is the stage form, not {pl.form}")
+        call("lbm_epilogue_slab", *args, ctypes.c_int(pl.zb), *consts,
+             *(ptr(t) for t in ghosts), stream_of(f))
+    else:
+        call("lbm_epilogue", *args, ctypes.c_int(FORMS.index(pl.form)), ctypes.c_int(pl.zb),
+             *consts, stream_of(f))
+    form = "slab" if slab else None
+    count_launch(lbm_epilogue, bf16, form)
     if not emit_mac:
         return f_out, g_out
-    mac = stream_macro_launch(f_out, g_out, flags, rho, vel, mac_consts)
-    count_launch(lbm_epilogue, bf16)
+    mac = stream_macro_launch(f_out, g_out, flags, rho, vel, mac_consts,
+                              emit_ghosts(f_out, g_out) if slab else None)
+    count_launch(lbm_epilogue, bf16, form)
     return f_out, g_out, mac
 
 
 lbm_epilogue.launches = 0
 lbm_epilogue.launches_bf16 = 0
+lbm_epilogue.launches_slab = 0
 #: cells an axis needs at least (the kernel's boundary ring)
 lbm_epilogue.min_axis = 4

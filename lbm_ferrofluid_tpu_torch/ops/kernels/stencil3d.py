@@ -26,6 +26,21 @@ and macro recovery in PyTorch.
 Bounds on an H100 (card peaks from NVIDIA's data sheet): bytes.  B10a 16 B
 per cell and field, 0.080 ms at 256^3 for one field over 3.35 TB/s; B10b
 8 B per cell, 0.040 ms at 256^3.
+
+B10b's slab form (``ghosts=``, ``clamp=``: the TPU kernel's ghost_lo and
+ghost_hi, for a z-slab of a domain decomposed along z over ranks,
+``parallel/step3d.py``) takes the neighbours' edge planes ``ghosts = (lo,
+hi)``, [1, 1, 1, Y, X] each, as planes -1 and Z, and the z clamp ``clamp =
+(zlo, zhi)``: 1 and Z-2 at the domain's true edges (their planes take the
+zero ring), -1 and Z where the slab has a neighbour.  One launch
+(``launches_slab``); its plain version is the Laplacian of the slab
+extended by the ghost planes, with the true edges' planes zeroed.  Either
+form takes rho with ``density_of = (rho_gas, rho_fluid, density_gas,
+density_fluid)`` and maps each value as it loads it: the Laplacian of
+density(rho_ca) as B6's single-device kernel builds it, so that the z-slab
+route's (B6's slab form takes it as an input) equals the single-device
+route's bit for bit; the plain version maps with
+``ops/moments.py:rho_to_density``.
 """
 
 from __future__ import annotations
@@ -39,11 +54,12 @@ import torch
 from ..collide import MU0, capillary_potentials, chi_of_phi, recover_macros
 from ..moments import rho_to_density
 from ..stencils import grad_ring_replicate, isotropic_laplacian, substitute_obstacles
-from ._lib import call, check_cuda, check_no_grad, ptr, stream_of
+from ._lib import (call, check_cuda, check_no_grad, check_slab_clamp, count_launch, ptr,
+                   stream_of)
 
 __all__ = [
     "grad_fields", "grad_fields_plain", "cost", "laplacian_field", "laplacian_field_plain",
-    "cost_laplacian", "capillary_stack", "hcz_capillary_stencils", "plan", "StencilPlan", "chunks",
+    "cost_laplacian", "cost_laplacian_slab", "capillary_stack", "hcz_capillary_stencils", "plan", "StencilPlan", "chunks",
     "launches_per_call", "TILES", "fits",
 ]
 
@@ -190,33 +206,82 @@ def cost_laplacian(field, **_) -> tuple[int, int]:
     return 8 * Z * Y * X, 21 * (Z - 2) * (Y - 2) * (X - 2)
 
 
-def laplacian_field_plain(field, *, dx=1.0):
-    """Plain PyTorch version of :func:`laplacian_field`."""
-    return isotropic_laplacian(field, dx)
+def cost_laplacian_slab(field, ghosts=None, clamp=None, *, density_of=None,
+                        **_) -> tuple[int, int]:
+    """:func:`cost_laplacian` of the slab form: the two ghost planes read
+    once more; the stencil at the planes that ``clamp`` computes (a true
+    edge's plane takes the zero ring), and with ``density_of`` 3 flops a
+    cell and ghost cell for the map."""
+    _, _, Z, Y, X = field.shape
+    planes = Z - (clamp[0] > 0) - (clamp[1] < Z)
+    flops = 21 * planes * (Y - 2) * (X - 2)
+    if density_of is not None:
+        flops += 3 * (Z + 2) * Y * X
+    return 8 * Z * Y * X + 8 * Y * X, flops
 
 
-def laplacian_field(field, *, dx=1.0):
+def laplacian_field_plain(field, ghosts=None, clamp=None, *, dx=1.0, density_of=None):
+    """Plain PyTorch version of :func:`laplacian_field`.  The slab form
+    takes the Laplacian of the slab extended by its ghost planes and
+    zeroes the planes of the domain's true edges."""
+    if density_of is not None:
+        rho_gas, rho_fluid, density_gas, density_fluid = density_of
+
+        def dens(x):
+            return rho_to_density(x, rho_gas=rho_gas, rho_fluid=rho_fluid,
+                                  density_gas=density_gas, density_fluid=density_fluid)
+
+        field = dens(field)
+        ghosts = None if ghosts is None else tuple(dens(t) for t in ghosts)
+    if ghosts is None:
+        return isotropic_laplacian(field, dx)
+    lo, hi = ghosts
+    out = isotropic_laplacian(torch.cat([lo, field, hi], dim=2), dx)[:, :, 1:-1].contiguous()
+    if clamp[0] > 0:
+        out[:, :, 0] = 0.0
+    if clamp[1] < field.shape[2]:
+        out[:, :, -1] = 0.0
+    return out
+
+
+def laplacian_field(field, ghosts=None, clamp=None, *, dx=1.0, density_of=None):
     """19-point Laplacian of ``[1, 1, Z, Y, X]`` float32, zero boundary
-    ring.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel; anything else raises.  The input is not modified."""
+    ring; with ``ghosts`` and ``clamp`` the slab form, with ``density_of``
+    of the density map of ``field`` (module docstring).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel; anything else
+    raises.  The input is not modified."""
+    if (ghosts is None) != (clamp is None):
+        raise ValueError("laplacian_field: give ghosts and clamp together, or neither")
     if field.device.type == "cpu":
-        return laplacian_field_plain(field, dx=dx)
+        return laplacian_field_plain(field, ghosts, clamp, dx=dx, density_of=density_of)
     check_no_grad("laplacian_field", field)
     B, C, Z, Y, X = field.shape
     check_cuda("field", field, torch.float32, (1, 1, Z, Y, X))
-    if min(Z, Y, X) < laplacian_field.min_axis:
+    if ghosts is not None:
+        for name, t in zip(("ghost_lo", "ghost_hi"), ghosts, strict=True):
+            check_cuda(name, t, torch.float32, (1, 1, 1, Y, X))
+        check_slab_clamp("laplacian_field", clamp, Z, laplacian_field.min_planes)
+    if min(Y, X, Z if ghosts is None else laplacian_field.min_axis) < laplacian_field.min_axis:
         raise ValueError(f"laplacian_field needs Z, Y, X >= {laplacian_field.min_axis}")
     out = torch.empty_like(field)
     pl = plan(Z, Y, X, torch.cuda.get_device_properties(field.device).multi_processor_count,
               laplacian=True)
-    call("lbm_laplacian_field", ptr(field), ptr(out), ctypes.c_int(Z), ctypes.c_int(Y),
-         ctypes.c_int(X), *(ctypes.c_int(v) for v in pl), ctypes.c_double(dx),
+    lo, hi = ghosts or (None, None)
+    call("lbm_laplacian_field", ptr(field), ptr(lo), ptr(hi), ptr(out), ctypes.c_int(Z),
+         ctypes.c_int(Y), ctypes.c_int(X), *(ctypes.c_int(v) for v in pl),
+         *(ctypes.c_int(v) for v in (clamp or (1, Z - 2))), ctypes.c_double(dx),
+         ctypes.c_int(density_of is not None),
+         *(ctypes.c_double(float(v)) for v in (density_of or (0.0, 1.0, 0.0, 1.0))),
          stream_of(field))
-    laplacian_field.launches += 1
+    count_launch(laplacian_field, False, None if ghosts is None else "slab")
     return out
 
 
 laplacian_field.launches = 0
+laplacian_field.launches_bf16 = 0
+laplacian_field.launches_slab = 0
+#: planes a slab of the slab form needs at least
+laplacian_field.min_planes = 2
 #: cells an axis needs at least (the kernel's boundary ring)
 laplacian_field.min_axis = 4
 

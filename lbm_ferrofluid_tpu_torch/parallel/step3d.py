@@ -1,23 +1,33 @@
-"""The z-slab decomposition of the ferrofluid steady state over ranks.
+"""The z-slab decomposition of the ferrofluid step over ranks.
 
 Port of the part of ``lbm_ferrofluid_tpu/parallel/step3d.py`` that the
-north-star steady state runs on a mesh: the capillogue route with the
-scalar Poisson carry (``models/ferrofluid.py``'s 6-leaf premac).  The JAX
-package runs each Pallas kernel inside ``shard_map`` over a ('batch', 'z')
-mesh and feeds its ghost mode from ``ppermute`` ring exchanges; here each
-rank is a process that holds its slab (``parallel/sharding.py``), runs the
-slab form of each kernel (``ops/kernels``: B4, B1, B2, B3 with ``ghosts=``)
-and exchanges the ghost planes with :func:`~.halo.ring_halo`:
+ferrofluid step with the scalar Poisson carry runs on a mesh
+(``models/ferrofluid.py``).  The JAX package runs each Pallas kernel inside
+``shard_map`` over a ('batch', 'z') mesh and feeds its ghost mode from
+``ppermute`` ring exchanges; here each rank is a process that holds its
+slab (``parallel/sharding.py``), runs the slab form of each kernel
+(``ops/kernels``: B4, B1, B2, B3, B10b, B6, B5 with ``ghosts=``) and
+exchanges the ghost planes with :func:`~.halo.ring_halo`, each exchange
+with its own tag:
 
-* priming: :func:`fused_prologue_sharded` (B4's slab form, the f and g
-  planes the pulls cross the slab's faces for);
+* priming, and each un-carried step: :func:`fused_prologue_sharded` (B4's
+  slab form, the f and g planes the pulls cross the slab's faces for);
 * each step: :func:`scalar_poisson_sharded` (rounds of k sweeps of B1's
   slab form on the slab extended by G = k + 1 planes a side, the boundary
-  bands of (s, s_prev) exchanged between rounds, H2 from the last),
-  :func:`contact3d_sharded` (B2's, one rho plane a side) and
-  :func:`capillogue_sharded` (B3's: the f and g planes, one bundle of the
-  capillary fields' planes a side, and one exchange of the collided edge
-  planes between its collide and its emission).
+  bands of (s, s_prev) exchanged between rounds, H2 from the last) and
+  :func:`contact3d_sharded` (B2's, one rho plane a side);
+* the capillogue steady state (6-leaf premac): :func:`capillogue_sharded`
+  (B3's: the f and g planes, one bundle of the capillary fields' planes a
+  side, and one exchange of the collided edge planes between its collide
+  and its emission);
+* the epilogue route (5-leaf premac, and the un-carried step):
+  :func:`poisson_rhs_sharded` (the Poisson source; an out-of-plane field's
+  reads phi a plane across the faces), :func:`laplacian_field_sharded`
+  (B10b's, of density(rho_ca), one rho_ca plane a side),
+  :func:`capmac_sharded` (B6's, one bundle of the stencil fields' planes a
+  side, the Laplacian an input) and :func:`fused_epilogue_sharded` (B5's:
+  the f and g planes, and with ``emit_mac`` the collided edge planes
+  before B4's slab form emits the next step's macros).
 
 At ``nz == 1`` the mesh is data parallel over ``batch`` (or one rank): each
 rank holds the whole z of its batch element and runs the single-device
@@ -36,9 +46,22 @@ from __future__ import annotations
 import torch
 
 from ..ops.kernels.capillogue import cap_bundle, lbm_capillogue, lbm_capillogue_plain
+from ..ops.kernels.capmac import (
+    hcz_capillary_gradmac,
+    hcz_capillary_gradmac_plain,
+    slab_bundle,
+)
 from ..ops.kernels.contact3d import contact_angle_3d, contact_angle_3d_plain
-from ..ops.kernels.fused_step import ghost_planes, lbm_prologue, lbm_prologue_plain
+from ..ops.kernels.fused_step import (
+    ghost_planes,
+    lbm_epilogue,
+    lbm_epilogue_plain,
+    lbm_prologue,
+    lbm_prologue_plain,
+)
 from ..ops.kernels.scalar_poisson import scalar_wavefront, scalar_wavefront_plain
+from ..ops.kernels.stencil3d import laplacian_field, laplacian_field_plain
+from ..ops.magnetic import poisson_rhs_scaled
 from ..ops.scalar_poisson import make_cmask, s_prev_from_h, scalar_from_h
 from .halo import ring_halo
 from .mesh import AXES, Mesh
@@ -58,7 +81,16 @@ __all__ = [
     "contact3d_sharded",
     "capillogue_sharded",
     "scalar_convert_sharded",
+    "slab_clamp",
+    "poisson_rhs_sharded",
+    "laplacian_field_sharded",
+    "capmac_sharded",
+    "fused_epilogue_sharded",
 ]
+
+#: ROADMAP A12's slices after the first, which a refusal names
+SLICES = {2: "the channel form", 3: "hcz_step(mesh=)",
+          4: "the 2D and jnp paths, and their y/x decomposition", 5: "a batch on one device"}
 
 
 def dp_dispatch(mesh: Mesh) -> bool:
@@ -74,13 +106,13 @@ def global_shape(local_shape, mesh: Mesh) -> tuple:
     return (B * mesh.nb, C, Z * mesh.nz, *rest)
 
 
-def unported(route: str) -> NotImplementedError:
+def unported(route: str, slice_: int | None = None) -> NotImplementedError:
     """The error for a route of the meshed step that the port does not run
-    on a z-slab mesh."""
+    on a z-slab mesh, naming the ROADMAP A12 slice that would port it."""
+    where = "ROADMAP A12" if slice_ is None else f"ROADMAP A12 slice {slice_}: {SLICES[slice_]}"
     return NotImplementedError(
-        f"{route} on a z-slab mesh is not ported yet (ROADMAP A12, the slices after the "
-        "capillogue steady state); step it on one device or on a batch mesh (nz = 1), or "
-        "prime_premac(..., mesh=) an in-plane-field 3D state with the scalar carry")
+        f"{route} on a z-slab mesh is not ported yet ({where}); step it on one device or on "
+        "a batch mesh (nz = 1), or prime_premac(..., mesh=) a 3D state with the scalar carry")
 
 
 def sharded3d_ok(mesh: Mesh, shape) -> bool:
@@ -113,6 +145,12 @@ def contact3d_sharded_ok(mesh: Mesh, shape, dtype) -> bool:
 def capillogue_sharded_ok(mesh: Mesh, shape) -> bool:
     """B3's slab form: slabs of 4 or more planes."""
     return sharded3d_ok(mesh, shape) and shape[2] // mesh.nz >= 4
+
+
+def slab_clamp(mesh: Mesh, Zl: int) -> tuple[int, int]:
+    """The z clamp of a slab of ``Zl`` planes: 1 and Zl-2 at the domain's
+    true edges, -1 and Zl where the slab has a neighbour."""
+    return (1 if mesh.iz == 0 else -1, Zl - 2 if mesh.iz == mesh.nz - 1 else Zl)
 
 
 #: a round's own cost in cell-sweeps of B1's passes, whatever its plane:
@@ -208,13 +246,86 @@ def capillogue_sharded(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, 
             vel_old, magnetic_flags)
     if dp_dispatch(mesh):
         return capillogue(*args, **kw)
-    Zl = f.shape[2]
     fields = (rho_pre, density_pre, pressure_old, rho_ca, flags)
     cap = (ring_halo(cap_bundle(*fields, "lo"), mesh, +1),
            ring_halo(cap_bundle(*fields, "hi"), mesh, -1))
-    clamp = (1 if mesh.iz == 0 else -1, Zl - 2 if mesh.iz == mesh.nz - 1 else Zl)
-    return capillogue(*args, _fg_ghosts(f, g, mesh), cap, clamp,
+    return capillogue(*args, _fg_ghosts(f, g, mesh), cap, slab_clamp(mesh, f.shape[2]),
                       lambda fn, gn: _fg_ghosts(fn, gn, mesh), **kw)
+
+
+def poisson_rhs_sharded(phi, magnetic_flags, mesh: Mesh, h_ext, *, tau, dx=1.0, dt=1.0):
+    """``ops/magnetic.py:poisson_rhs_scaled`` on the rank's slab.  An
+    in-plane field's source is local; an out-of-plane field's (``h_ext``
+    along z) takes a z-staggered difference of chi, which reads phi at
+    z -+ 1 and is zero at the domain's edge planes: phi comes with the
+    neighbours' edge planes (one exchange a side) on each side that has a
+    neighbour, and nothing on a true edge, so that its planes take the
+    zero as on the whole domain."""
+    kw = dict(tau=tau, dx=dx, dt=dt)
+    if dp_dispatch(mesh) or float(h_ext[2]) == 0.0:
+        return poisson_rhs_scaled(phi, magnetic_flags, h_ext, **kw)
+    Zl = phi.shape[2]
+    lo = ring_halo(phi[:, :, -1:], mesh, +1)
+    hi = ring_halo(phi[:, :, :1], mesh, -1)
+    zlo, zhi = slab_clamp(mesh, Zl)
+    below, above = zlo < 0, zhi >= Zl
+    phi_x = torch.cat([lo] * below + [phi] + [hi] * above, dim=2)
+    m_x = torch.cat([magnetic_flags[:, :, :1]] * below + [magnetic_flags]
+                    + [magnetic_flags[:, :, -1:]] * above, dim=2)
+    return poisson_rhs_scaled(phi_x, m_x, h_ext, **kw)[:, :, int(below):int(below) + Zl]
+
+
+def laplacian_field_sharded(field, mesh: Mesh, *, dx=1.0, density_of=None, plain=False):
+    """B10b on the rank's slab: one plane a side of ``field``, the zero ring
+    at the domain's true edges only (JAX ``laplacian_field_sharded``, whose
+    masked fix the clamp does in the kernel); with ``density_of`` the
+    Laplacian of the density map of ``field`` (rho), as B6 builds it."""
+    lap = laplacian_field_plain if plain else laplacian_field
+    kw = dict(dx=dx, density_of=density_of)
+    if dp_dispatch(mesh):
+        return lap(field, **kw)
+    ghosts = (ring_halo(field[:, :, -1:], mesh, +1), ring_halo(field[:, :, :1], mesh, -1))
+    return lap(field, ghosts, slab_clamp(mesh, field.shape[2]), **kw)
+
+
+def capmac_sharded(lap, rho_pre, density_pre, pressure, rho_ca, H2, phi, flags, g_sum, g_mom,
+                   vel_old, mesh: Mesh, *, kappa, gravity, rho_gas, rho_fluid, density_gas,
+                   density_fluid, dx=1.0, dt=1.0, plain=False):
+    """B6 on the rank's slab -> (vel, pressure, force, dfai, dprho): ``lap``
+    (:func:`laplacian_field_sharded` of rho_ca with its density map) an input, one
+    bundle a side of the stencil fields' edge planes (lap, rho_pre,
+    density_pre, pressure, flags and, with ``H2``, phi), the z clamp at the
+    domain's true edges only (JAX ``capmac_sharded``).  Under
+    :func:`dp_dispatch` the single-device kernel, which builds the
+    Laplacian itself (``lap`` unused)."""
+    capillary = hcz_capillary_gradmac_plain if plain else hcz_capillary_gradmac
+    kw = dict(kappa=kappa, gravity=gravity, rho_gas=rho_gas, rho_fluid=rho_fluid,
+              density_gas=density_gas, density_fluid=density_fluid, dx=dx, dt=dt)
+    args = (rho_pre, density_pre, pressure, rho_ca, H2, phi, flags, g_sum, g_mom, vel_old)
+    if dp_dispatch(mesh):
+        return capillary(*args, **kw)
+    fields = (lap, rho_pre, density_pre, pressure, flags, phi)
+    ghosts = (ring_halo(slab_bundle(*fields, "lo"), mesh, +1),
+              ring_halo(slab_bundle(*fields, "hi"), mesh, -1))
+    return capillary(*args, lap, ghosts, slab_clamp(mesh, rho_pre.shape[2]), **kw)
+
+
+def fused_epilogue_sharded(f, g, flags, rho, vel, density, pressure, force, dfai, dprho,
+                           mesh: Mesh, *, tau_f, tau_g, dx=1.0, dt=1.0, emit_mac=False,
+                           mac_consts=None, plain=False):
+    """B5 on the rank's slab -> (f', g') or, with ``emit_mac``, (f', g',
+    mac): the f and g planes its pulls cross the faces for, and with
+    ``emit_mac`` the collided edge planes exchanged before B4's slab form
+    emits every plane's macros (the JAX wrapper rebuilds the two edge
+    planes' in jnp, ``_mac_plane_jnp``)."""
+    epilogue = lbm_epilogue_plain if plain else lbm_epilogue
+    kw = dict(tau_f=tau_f, tau_g=tau_g, dx=dx, dt=dt, emit_mac=emit_mac,
+              mac_consts=mac_consts)
+    args = (f, g, flags, rho, vel, density, pressure, force, dfai, dprho)
+    if dp_dispatch(mesh):
+        return epilogue(*args, **kw)
+    emit = (lambda fn, gn: _fg_ghosts(fn, gn, mesh)) if emit_mac else None
+    return epilogue(*args, _fg_ghosts(f, g, mesh), emit, **kw)
 
 
 def scalar_poisson_sharded(s2, cmask, rhs_scaled, mesh: Mesh, *, n_iters, dx=1.0, h_ext,

@@ -11,10 +11,17 @@ own scene for its sharded tests (tests/test_sharded_step.py:_flagship,
   steps, gathered, against 3 JAX single-device steps (``use_pallas=False``)
   at that file's bars, rtol 2e-5 and atol 1e-6, with h through
   ``compare_views``; and against 3 of the port's single-device steps bit for
-  bit, since every cell's arithmetic is the same;
-* the sharded checkpoint resume (2 z ranks): gather, save, load into a
-  freshly primed template, re-cut and step, equal to the uninterrupted run
-  bit for bit;
+  bit, since every cell's arithmetic is the same.  Route Z (the capillogue
+  steady state) at 2 and 4 ranks; the epilogue routes (B10b, B6 and B5 in
+  slab form) at 2 ranks: E (the 5-leaf epilogue steady state), O (an
+  out-of-plane field, its Poisson source a z-stencil across the faces:
+  against JAX's steps of the same field, and bit for bit against the
+  port's single-device route, the capillogue's box form, whose plain
+  versions compute the same cells) and U (the un-carried step with the
+  scalar carry); E at 4 ranks too;
+* the sharded checkpoint resume (2 z ranks, routes Z and E): gather, save,
+  load into a freshly primed template, re-cut and step, equal to the
+  uninterrupted run bit for bit;
 * a batch mesh (2, 1) of a batch-2 state against the JAX single-device
   steps of each element, and one rank with ``slab=True`` (the slab forms
   with the rank's own wrap as ghosts) bit for bit to the single-device
@@ -22,7 +29,9 @@ own scene for its sharded tests (tests/test_sharded_step.py:_flagship,
 * ``halo.sharded_poisson_sweeps`` on 2 gloo z ranks against the JAX
   package's single-device channel-form loop (tests/test_halo.py's bars);
 * the gates and refusals: Z not divisible by nz, slabs under 4 planes, a y
-  or x axis, and the routes the slab mesh does not run; ``auto_mesh_shape``
+  or x axis, and the routes the slab mesh does not run; the step's gates
+  are priming's (a state primed on one device and cut onto 3- and 2-plane
+  slabs, ROADMAP C7); ``auto_mesh_shape``
   against JAX's; ``initialize_distributed`` without torchrun's variables;
 * a kernel's launch is refused for a tensor off the current card
   (``_lib.stream_of``), held with a fake card index.
@@ -82,27 +91,29 @@ def _threads():
 @pytest.fixture(scope="module")
 def jax_steps():
     """3 JAX single-device steps of the flagship scene, by sweeps a solve
-    (tests/test_sharded_step.py's reference: jnp, the channel-form solve)."""
+    (tests/test_sharded_step.py's reference: jnp, the channel-form solve),
+    and with the field along z (route O's scene) at 3 sweeps."""
     out = {}
-    for iters in (3, 6):
-        params = JParams(poisson_iters=iters, **worker.FLAGSHIP).replace(use_pallas=False)
+    for key, iters, axis in ((3, 3, 1), (6, 6, 1), ("O", 3, 2)):
+        params = JParams(poisson_iters=iters, **worker.FLAGSHIP, h_ext_axis=axis).replace(
+            use_pallas=False)
         s = jinit(params, *worker.flagship_fields())
         for _ in range(STEPS):
             s = jstep(params, s)
-        out[iters] = s
+        out[key] = s
     return out
 
 
-def port_steps(iters):
-    params, s = worker.port_state(iters)
-    s = prime_premac(params, s, device="cpu")
+def port_steps(iters, route="Z"):
+    params, s = worker.port_state(iters, route=route)
+    s = worker.on_route(prime_premac(params, s, device="cpu"), route)
     for _ in range(STEPS):
         s = ferrofluid_step(params, s, device="cpu")
     return s
 
 
-def assert_matches_jax(got, want, batch_index=None):
-    for name in FIELDS:
+def assert_matches_jax(got, want, batch_index=None, fields=FIELDS):
+    for name in fields:
         a = got[name] if batch_index is None else got[name][batch_index:batch_index + 1]
         np.testing.assert_allclose(a, np.asarray(getattr(want, name)), rtol=2e-5, atol=1e-6,
                                    err_msg=name)
@@ -132,6 +143,76 @@ def test_sharded_steady_state_matches(nz, iters, jax_steps, tmp_path):
         assert resumed.keys() == got.keys()
         for name in got:
             np.testing.assert_array_equal(resumed[name], got[name], err_msg=name)
+
+
+#: the fields the epilogue routes also return (the JAX step's force and phi)
+EPI_FIELDS = FIELDS + ("force", "phi")
+
+
+@pytest.mark.parametrize("route,nz,iters", [("E", 2, 3), ("O", 2, 3), ("U", 2, 3),
+                                            ("E", 4, 6)],
+                         ids=["E-nz2", "O-nz2", "U-nz2", "E-nz4"])
+def test_meshed_epilogue_routes_match(route, nz, iters, jax_steps, tmp_path):
+    """Routes E, O and U (B10b, B6 and B5 in slab form; B4 each step on U):
+    prime and 3 steps on nz gloo ranks against JAX's single-device steps of
+    the same scene at the bars above (force and phi too), and bit for bit
+    against the port's single-device steps of the same route: every cell's
+    arithmetic is the same in the plain versions (on the card B6's
+    single-device kernel builds the Laplacian from its own density map,
+    the slab route feeds it B10b's: see chip_smoke.py's sharded phase);
+    E on 2 ranks with the checkpoint resume."""
+    got = worker.run_ranks(nz, tmp_path, shape=(1, nz), slab=False, poisson_iters=iters,
+                           batch=1, steps=STEPS, checkpoint=route == "E" and nz == 2,
+                           route=route)
+    n_premac = {"E": 5, "O": 5, "U": 0}[route]
+    assert got["h"].shape[1] == 2 and {k for k in got if k.startswith("premac.")} == {
+        f"premac.{i}" for i in range(n_premac)}
+    assert_matches_jax(got, jax_steps["O" if route == "O" else iters], fields=EPI_FIELDS)
+    ref = port_steps(iters, route)
+    for name in EPI_FIELDS + ("h", "rho"):
+        np.testing.assert_array_equal(got[name], getattr(ref, name).numpy(), err_msg=name)
+    for i, leaf in enumerate(ref.premac or ()):
+        np.testing.assert_array_equal(got[f"premac.{i}"], leaf.numpy(), err_msg=f"premac {i}")
+    if route == "E" and nz == 2:
+        resumed = dict(np.load(tmp_path / "resumed.npz"))
+        assert resumed.keys() == got.keys()
+        for name in got:
+            np.testing.assert_array_equal(resumed[name], got[name], err_msg=name)
+
+
+@pytest.mark.parametrize("route", ["E", "O", "U"])
+def test_slab_forced_epilogue_routes_match(route):
+    """One rank with ``slab=True`` on routes E, O and U: every slab form,
+    its ghosts the rank's own wrap and both z edges true, bit for bit to
+    the single-device steps of the same route."""
+    mesh = make_mesh(device="cpu", slab=True)
+    params, s = worker.port_state(3, route=route)
+    s = worker.on_route(prime_premac(params, shard_state(s, mesh), mesh=mesh), route)
+    for _ in range(STEPS):
+        s = ferrofluid_step(params, s, mesh=mesh)
+    ref = port_steps(3, route)
+    for name in EPI_FIELDS + ("h", "rho"):
+        assert torch.equal(getattr(s, name), getattr(ref, name)), name
+    assert (s.premac is None) == (route == "U")
+
+
+@pytest.mark.parametrize("Z", [12, 8], ids=["3-plane", "2-plane"])
+def test_step_gates_match_priming(Z):
+    """ROADMAP C7: a state primed on one device and cut onto 4 z ranks of
+    3- or 2-plane slabs refuses at the step with priming's message, on
+    every route, where it used to step (3 planes) or raise B1's 'no slab
+    plan' (2 planes)."""
+    params, s = rosensweig_3d(res=(Z, 8, 10), device="cpu")
+    primed = prime_premac(params, s, device="cpu")
+    for iz in range(4):
+        mesh = _mesh((1, 4), iz=iz)
+        with pytest.raises(ValueError, match="4 or more planes a rank") as at_prime:
+            prime_premac(params, shard_state(s, mesh), mesh=mesh)
+        for route in ("Z", "E", "U"):
+            part = worker.on_route(shard_state(primed, mesh), route)
+            with pytest.raises(ValueError, match="4 or more planes a rank") as at_step:
+                ferrofluid_step(params, part, mesh=mesh)
+            assert str(at_step.value) == str(at_prime.value)
 
 
 def test_batch_mesh_matches(jax_steps, tmp_path):
@@ -248,18 +329,9 @@ def _routes():
         p, s = rosensweig_3d(res=(8, 8, 10), device="cpu")
         ferrofluid_step(p, shard_state(s, slab), mesh=slab)
 
-    def epilogue():
-        p, s = rosensweig_3d(res=(8, 8, 10), device="cpu")
-        s = primed(p, s)
-        ferrofluid_step(p, s.replace(premac=s.premac[:5]), mesh=slab)
-
     def channel():
         p, s = rosensweig_3d(res=(8, 8, 10), device="cpu")
         primed(p.replace(scalar_carry=False), s)
-
-    def out_of_plane():
-        p, s = rosensweig_3d(res=(8, 8, 10), device="cpu")
-        primed(p.replace(h_ext_axis=2), s)
 
     def padded():
         primed(*rosensweig_3d_tpu(res=(6, 8, 10), device="cpu"))
@@ -272,14 +344,17 @@ def _routes():
         p, s = multiphase_3d(res=(8, 8, 10), device="cpu")
         hcz_step(p, s, mesh=slab)
 
-    return {"uncarried": uncarried, "epilogue": epilogue, "channel": channel,
-            "out_of_plane": out_of_plane, "padded": padded, "2d": two_d, "hcz": hcz}
+    return {"uncarried": (uncarried, 2), "channel": (channel, 2), "padded": (padded, 4),
+            "2d": (two_d, 4), "hcz": (hcz, 3)}
 
 
 @pytest.mark.parametrize("route", sorted(_routes()))
 def test_unported_meshed_routes_raise(route):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        _routes()[route]()
+    """Each route left raises, naming its ROADMAP A12 slice (an un-primed
+    19-channel h and the channel form: the channel-form slice)."""
+    call, slice_ = _routes()[route]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP A12 slice {slice_}"):
+        call()
 
 
 def test_auto_mesh_shape_matches_jax():

@@ -46,17 +46,34 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def port_state(poisson_iters, batch=1):
+#: the meshed step's routes: Z the capillogue steady state (6-leaf premac),
+#: E the epilogue steady state (its first 5 leaves), O an out-of-plane
+#: field (h_ext_axis=2, primed to 5 leaves), U the un-carried step with the
+#: scalar carry (premac None)
+ROUTES = ("Z", "E", "O", "U")
+
+
+def port_state(poisson_iters, batch=1, route="Z"):
     from lbm_ferrofluid_tpu_torch.models import SimulationParams, init_ferrofluid_state
 
-    params = SimulationParams(poisson_iters=poisson_iters, **FLAGSHIP)
+    params = SimulationParams(poisson_iters=poisson_iters, **FLAGSHIP,
+                              h_ext_axis=2 if route == "O" else 1)
     return params, init_ferrofluid_state(params, *flagship_fields(batch=batch), device="cpu")
 
 
+def on_route(state, route):
+    """A primed state put on ``route``: E keeps 5 of the 6 leaves, U none."""
+    if route == "E":
+        return state.replace(premac=state.premac[:5])
+    if route == "U":
+        return state.replace(premac=None)
+    return state
+
+
 def rank_main(rank, world, port, shape, slab, poisson_iters, batch, steps, out_dir,
-              checkpoint):
-    """One rank: prime and ``steps`` meshed steps of the flagship scene;
-    rank 0 writes ``steps.npz`` (the gathered state) and, with
+              checkpoint, route="Z"):
+    """One rank: prime and ``steps`` meshed steps of the flagship scene on
+    ``route``; rank 0 writes ``steps.npz`` (the gathered state) and, with
     ``checkpoint``, ``resumed.npz``: the state after ``steps - 1`` steps
     gathered, saved, loaded into a freshly primed template, re-cut and
     stepped once."""
@@ -75,13 +92,15 @@ def rank_main(rank, world, port, shape, slab, poisson_iters, batch, steps, out_d
     assert initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo") == world
     try:
         mesh = make_mesh(("batch", "z"), shape, device="cpu", slab=slab)
-        params, whole = port_state(poisson_iters, batch)
+        params, whole = port_state(poisson_iters, batch, route)
 
         def fresh():
-            return prime_premac(params, shard_state(whole, mesh), mesh=mesh)
+            return on_route(prime_premac(params, shard_state(whole, mesh), mesh=mesh), route)
 
         state = fresh()
-        assert len(state.premac) == 6 and state.h.shape[1] == 2
+        assert state.h.shape[1] == 2
+        assert (None if state.premac is None else len(state.premac)) == {
+            "Z": 6, "E": 5, "O": 5, "U": None}[route]
         for i in range(steps):
             if checkpoint and i == steps - 1:
                 before = gather_state(state, mesh)
@@ -160,5 +179,6 @@ def run_ranks(world, out_dir, **job):
 
     mp.start_processes(rank_main, args=(world, free_port(), *(job[k] for k in (
         "shape", "slab", "poisson_iters", "batch", "steps")), str(out_dir),
-        job.get("checkpoint", False)), nprocs=world, start_method="spawn")
+        job.get("checkpoint", False), job.get("route", "Z")), nprocs=world,
+        start_method="spawn")
     return dict(np.load(pathlib.Path(out_dir) / "steps.npz"))
