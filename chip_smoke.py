@@ -6,7 +6,9 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
     python3 chip_smoke.py
     python3 chip_smoke.py --scalar-plans   # only B1's plan sweeps, single-device and slab
                                            # rounds (256^3, 130x66x130)
-    python3 chip_smoke.py --poisson-plans  # only B11b's plan sweep (256^3, 130x66x130; f32, bf16)
+    python3 chip_smoke.py --poisson-plans  # only B11b's plan sweep (256^3, 130x66x130; f32, bf16),
+                                           # then its slab rounds at every k
+    python3 chip_smoke.py --channel-slab-plans  # only B11b's slab rounds at every k
     python3 chip_smoke.py --capillary-plans  # only B6's plan sweep (256^3, 130^3)
     python3 chip_smoke.py --stencil-plans  # only B10a's and B10b's (256^3, 130x66x130)
     python3 chip_smoke.py --epilogue-plans  # only B5's (256^3, 130x66x130; f32, bf16)
@@ -96,13 +98,17 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    - sharded: the z-slab paths (:func:`phase_sharded`) on each route: Z, the
      capillogue steady state (B1, B2, B3 in slab form), and the epilogue
      routes E (5-leaf premac), O (an out-of-plane field) and U (un-carried,
-     B4 each step), through B1, B2, B10b, B6 and B5 in slab form; one rank
-     with ``slab=True`` at 256^3 and 130x66x130, float32 (30 steps) and
-     turbo (10), exact launches a step, against single-device kernel steps,
-     each slab form against its plain version and its single-device form,
-     timed beside it and its bound; gloo ranks sharing the card (route Z
-     on 2 and 4 ranks at 256^3 and 2 at 130x66x130, a batch mesh; E and O
-     on 2 ranks at 256^3) and NCCL to the rank itself;
+     B4 each step), through B1, B2, B10b, B6 and B5 in slab form; C and
+     U19, the capillogue steady state and the un-carried step with the
+     channel-form solve (tau 0.8, 19-channel h: B11b's slab rounds and
+     B10a's slab form); H, the HCZ step (B8b, B8a, B2, B10b, B6 in slab
+     form, B9 local); one rank with ``slab=True`` at 256^3 and 130x66x130
+     (HCZ at 256^3 and 130^3), float32 (30 steps) and turbo (10), exact
+     launches a step, against single-device kernel steps, each slab form
+     against its plain version and its single-device form, timed beside it
+     and its bound; gloo ranks sharing the card (route Z on 4 ranks at
+     256^3, a batch mesh; O on 2 ranks at 256^3; C on 2 at 130x66x130; H
+     on 2 at 256^3) and NCCL to the rank itself;
    - compat: the reference's driver API (``compat.py``) op by op on
      ``multiphase_3d`` 130^3, the loop of tests/test_compat.py in 3D: 10
      steps against 10 stencil-route steps (phase 3's bars), 100 more with
@@ -218,6 +224,7 @@ each kernel's ``cost``: the bytes and flops that the call's own inputs need
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import pathlib
@@ -2100,6 +2107,58 @@ def phase_poisson_plans(dev, card):
                                  ms=time_cuda(lambda: pp.poisson_sweeps(*args, **kw), 5)),
                   "chosen_against_plain": against_plain,
                   "best": min(rows, key=lambda r: r["ms"]), "plans": rows, "ok": True})
+            del args, want
+        del st
+        torch.cuda.empty_cache()
+
+
+def phase_channel_slab_plans(dev, card):
+    """B11b's slab solve (``parallel/step3d.py:poisson_sweeps_sharded``) on
+    one rank with ``slab=True``, on the channel-form Rosensweig scene at
+    256^3 and 130x66x130 (three warm steps, so h is no longer zero), h in
+    float32 and bfloat16, in rounds of every k of 1..``MAX_K`` (G = k, the
+    remainder round on the same bands), each bit for bit to the chosen
+    plan's and timed with CUDA events beside the single-device call: the
+    data ``CHANNEL_ROUND_NS`` and ``CHANNEL_PASS_NS`` of ``step3d`` were
+    chosen from."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac, rosensweig_3d
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
+    from lbm_ferrofluid_tpu_torch.parallel import make_mesh, step3d
+
+    mesh = make_mesh(slab=True)
+    for res in ((256, 256, 256), (130, 66, 130)):
+        params, st = rosensweig_3d(res=res, mag_strength=85.0, device=dev)
+        params = params.replace(**CHANNEL)
+        st = prime_premac(params, st, device=dev)
+        for _ in range(3):
+            st = ferrofluid_step(params, st, device=dev)
+        n, real = params.poisson_iters, step3d.channel_slab_plan
+        for storage in (torch.float32, torch.bfloat16):
+            args = (st.h.to(storage), st.magnetic_flags, st.premac[5])
+            kw = dict(tau=params.tau, n_iters=n)
+            chosen = real(mesh, args[0].shape, n)
+
+            def solve():
+                return step3d.poisson_sweeps_sharded(*args, mesh, **kw)
+
+            want = solve()
+            rows = []
+            try:
+                for k in range(1, pp.MAX_K + 1):
+                    step3d.channel_slab_plan = lambda *a, k=k: (k, k, n % k)
+                    got = solve()
+                    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                          f"B11b slab solve in rounds of {k} differs from rounds of {chosen[0]}")
+                    rows.append(dict(k=k, rounds=-(-n // k), ms=time_cuda(solve, 5)))
+            finally:
+                step3d.channel_slab_plan = real
+            emit({"phase": "channel_slab_plans", "res": list(res), "n_iters": n,
+                  "storage": str(storage), "card": card,
+                  "chosen": dict(k=chosen[0], remainder=chosen[2], ms=time_cuda(solve, 5)),
+                  "single_device_ms": time_cuda(lambda: pp.poisson_sweeps(*args, **kw), 5),
+                  "best": min(rows, key=lambda r: r["ms"]), "rounds": rows, "ok": True})
             del args, want
         del st
         torch.cuda.empty_cache()
@@ -4241,35 +4300,61 @@ def phase_padded(dev, kernels_pkg, card, steps=30, timed=200):
 #: grid at its own field) and the gloo jobs: (grid, mag, (batch, z) mesh,
 #: batch, route)
 SHARDED_GRIDS = (((256, 256, 256), 85.0), ((130, 66, 130), None))
-SHARDED_JOBS = (((256, 256, 256), 85.0, (1, 2), 1, "Z"), ((256, 256, 256), 85.0, (1, 4), 1, "Z"),
-                ((130, 66, 130), None, (1, 2), 1, "Z"), ((130, 66, 130), None, (2, 1), 2, "Z"),
-                ((256, 256, 256), 85.0, (1, 2), 1, "E"), ((256, 256, 256), 85.0, (1, 2), 1, "O"))
-#: the slab-forced steps once through NCCL: one rank sending its ghosts to
-#: itself (NCCL takes a one-rank group's send to itself)
-NCCL_SELF_JOB = ((256, 256, 256), 85.0, (1, 1), 1, "Z")
+#: the HCZ step's grid in place of each Rosensweig grid (bench.py's 256^3,
+#: the multiphase demo's 130^3)
+HCZ_GRID = {(256, 256, 256): (256, 256, 256), (130, 66, 130): (130, 130, 130)}
+#: No job runs Z on 2 ranks or E: Z on 4 ranks runs every exchange of Z on
+#: 2 (B1's rounds and their bands, B2, B3), C on 2 at 130x66x130 runs B2's
+#: and B3's at that grid, and O on 2 every kernel and exchange of E (and its
+#: source's phi planes besides).  Two lanes run side by side, each job after
+#: the one before it in its lane, the last field True for the slab-forced
+#: steps once through NCCL (one rank sending its ghosts to itself, which
+#: NCCL takes): the jobs of several ranks at 256^3 in one lane, since two at
+#: once ran out of the card's memory, the rest in the other
+SHARDED_LANES = (
+    (((256, 256, 256), 85.0, (1, 4), 1, "Z", False), ((256, 256, 256), 85.0, (1, 2), 1, "O", False),
+     ((256, 256, 256), None, (1, 2), 1, "H", False)),
+    (((130, 66, 130), None, (2, 1), 2, "Z", False), ((130, 66, 130), None, (1, 2), 1, "C", False),
+     ((256, 256, 256), 85.0, (1, 1), 1, "Z", True)),
+)
 #: the meshed step's routes: Z the capillogue steady state (6-leaf premac:
 #: B1, B2, B3), E the epilogue steady state (its first 5 leaves: B1, B2,
 #: B10b, B6, B5 with emit_mac), O an out-of-plane field (h_ext_axis=2,
 #: primed to 5 leaves, E's kernels), U the un-carried step with the scalar
-#: carry (premac None: B4 each step, then E's kernels, B5 without emit_mac)
-ROUTES = ("Z", "E", "O", "U")
+#: carry (premac None: B4 each step, then E's kernels, B5 without emit_mac);
+#: C the capillogue steady state with the channel-form solve (tau 0.8, the
+#: 19-channel h kept at priming: B11b's rounds, B10a, B2, B3), U19 the
+#: un-carried step on the 19-channel h (never primed: B4, B11b, B10a, B2,
+#: B10b, B6, B5), H the HCZ step (B8b, B8a, B2, B10b, B6, then B9)
+ROUTES = ("Z", "E", "O", "U", "C", "U19", "H")
 #: the single-device route each meshed route is held to: its own, except
 #: O, whose single-device steps run B3's box form where the meshed step
 #: runs E's kernels; the un-carried steps of the same field run those
 #: (B4 on f' equals the emission B5 makes)
-REF_ROUTE = {"Z": "Z", "E": "E", "O": "U", "U": "U"}
+REF_ROUTE = {"Z": "Z", "E": "E", "O": "U", "U": "U", "C": "C", "U19": "U19", "H": "H"}
+#: the routes whose state is primed before its steps (U drops the premac)
+PRIMED = ("Z", "E", "O", "U", "C")
+#: the channel-form routes' change of the scene's parameters
+CHANNEL = dict(scalar_carry=False, tau=0.8)
 #: seconds a rank job's ranks may take, the card shared by all of them
 SHARDED_TIMEOUT = 420
 
 
 def sharded_scene(res, mag, dev, batch=1, route="Z"):
     """The Rosensweig scene at ``res`` (field ``mag`` if given), with the
-    field along z on route O."""
-    from lbm_ferrofluid_tpu_torch.models import rosensweig_3d
+    field along z on route O and the channel form on C and U19; the HCZ
+    scene ``multiphase_3d`` on H."""
+    from lbm_ferrofluid_tpu_torch.models import multiphase_3d, rosensweig_3d
 
+    if route == "H":
+        return multiphase_3d(res=res, batch=batch, device=dev)
     kw = {} if mag is None else {"mag_strength": mag}
     params, state = rosensweig_3d(res=res, batch=batch, device=dev, **kw)
-    return (params.replace(h_ext_axis=2) if route == "O" else params), state
+    if route == "O":
+        params = params.replace(h_ext_axis=2)
+    if route in ("C", "U19"):
+        params = params.replace(**CHANNEL)
+    return params, state
 
 
 def on_route(state, route):
@@ -4281,28 +4366,61 @@ def on_route(state, route):
     return state
 
 
+def start_route(params, state, route, **where):
+    """The state ``route`` steps from: primed (``where``: ``mesh=`` or
+    ``device=``) and put on the route, or as built (U19, H)."""
+    from lbm_ferrofluid_tpu_torch.models import prime_premac
+
+    if route not in PRIMED:
+        return state
+    return on_route(prime_premac(params, state, **where), route)
+
+
+def route_step(route):
+    """The entry point that steps ``route``."""
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, hcz_step
+
+    return hcz_step if route == "H" else ferrofluid_step
+
+
+def route_fields(route):
+    """The state's fields a route's runs are compared on (the epilogue
+    routes also return phi and force)."""
+    if route == "H":
+        return list(HCZ_FIELDS)
+    return list(FERRO_FIELDS) + ([] if route in ("Z", "C") else ["phi", "force"])
+
+
 def slab_launches_per_step(K, params, shape, mesh, route="Z"):
     """Launches a step of each slab form on ``mesh`` on ``route`` (B4 runs
-    at priming, and on U each step): B1's rounds of passes and its H2, B2
-    once, B3's four (Z); B10b and B6 once and B5 once, twice with emit_mac
-    (E, O, U)."""
+    at priming, and on U and U19 each step): the solve, B1's rounds of
+    passes and its H2 or (C, U19) B11b's rounds and B10a once, B2 once,
+    B3's four (Z, C); B10b and B6 once and B5 once, twice with emit_mac
+    (E, O, U, U19); on H B8b, B8a, B2, B10b and B6 once (B9, local, runs
+    its single-device kernel)."""
     from lbm_ferrofluid_tpu_torch.parallel import step3d
 
-    k, _ = step3d.scalar_slab_plan(mesh, step3d.global_shape((1, 2, *shape[2:]), mesh),
-                                   params.poisson_iters)
-    passes = len(K["B1"].module.passes(k))
-    per = {"B1": params.poisson_iters // k * passes + 1, "B2": K["B2"].module.N_LAUNCHES}
-    if route == "Z":
+    per = {"B2": K["B2"].module.N_LAUNCHES}
+    if route == "H":
+        return dict(per, B8a=1, B8b=1, B10b=1, B6=K["B6"].module.N_LAUNCHES)
+    n = params.poisson_iters
+    if route in ("C", "U19"):
+        k, _, _ = step3d.channel_slab_plan(
+            mesh, step3d.global_shape((1, 19, *shape[2:]), mesh), n)
+        per.update(B11b=-(-n // k), B10a=K["B10a"].module.launches_per_call(1))
+    else:
+        k, _ = step3d.scalar_slab_plan(mesh, step3d.global_shape((1, 2, *shape[2:]), mesh), n)
+        per["B1"] = n // k * len(K["B1"].module.passes(k)) + 1
+    if route in ("Z", "C"):
         return dict(per, B3=K["B3"].module.N_LAUNCHES)
-    per.update({"B10b": 1, "B6": K["B6"].module.N_LAUNCHES, "B5": 1 if route == "U" else 2})
-    return dict(per, B4=1) if route == "U" else per
+    uncarried = route in ("U", "U19")
+    per.update({"B10b": 1, "B6": K["B6"].module.N_LAUNCHES, "B5": 1 if uncarried else 2})
+    return dict(per, B4=1) if uncarried else per
 
 
-def meshed_step(mesh):
-    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step
-
-    return lambda params, state, device=None: ferrofluid_step(params, state, device=device,
-                                                              mesh=mesh)
+def meshed_step(mesh, route="Z"):
+    step = route_step(route)
+    return lambda params, state, device=None: step(params, state, device=device, mesh=mesh)
 
 
 def slab_form_calls(params, st, mesh):
@@ -4452,6 +4570,99 @@ def epilogue_form_calls(params, st, mesh):
     return calls, emission
 
 
+def channel_form_calls(params, st, mesh):
+    """Per slab form of the channel-form solve: (the slab call as the step
+    makes it on ``mesh``, its plain version, the single-device form on the
+    same inputs, the slab kernel's (bytes, flops)) on route C's primed slab
+    state ``st``: B11b's slab rounds (:func:`step3d.poisson_sweeps_sharded`,
+    their exchanges included) and B10a on the substituted psi."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson, stencil3d
+    from lbm_ferrofluid_tpu_torch.parallel import step3d
+
+    n, tau, mf, rhs = params.poisson_iters, params.tau, st.magnetic_flags, st.premac[5]
+    k, G, r = step3d.channel_slab_plan(mesh, step3d.global_shape(st.h.shape, mesh), n)
+    _, psi = step3d.poisson_sweeps_sharded(st.h, mf, rhs, mesh, tau=tau, n_iters=n)
+    psi_sub = step3d.substitute_obstacles_sharded(psi, mf, mesh)
+    rounds = [k] * (n // k) + [r] * (r > 0)
+    clamp = step3d.slab_clamp(mesh, st.h.shape[2])
+
+    def sharded(fn, *args, **kw):
+        return (lambda: fn(*args, mesh, **kw), lambda: fn(*args, mesh, plain=True, **kw))
+
+    calls = {
+        "B11b": (*sharded(step3d.poisson_sweeps_sharded, st.h, mf, rhs, tau=tau, n_iters=n),
+                 lambda: poisson.poisson_sweeps(st.h, mf, rhs, tau=tau, n_iters=n),
+                 poisson.cost_slab(st.h, mf, rhs, tau=tau, n_iters=n, rounds=rounds, G=G)),
+        "B10a": (*sharded(step3d.grad_fields_sharded, psi_sub, dx=params.dx),
+                 lambda: stencil3d.grad_fields(psi_sub, dx=params.dx),
+                 stencil3d.cost_slab(psi_sub, clamp=clamp)),
+    }
+    torch.cuda.synchronize()
+    return calls
+
+
+def hcz_form_calls(params, st, mesh):
+    """Per slab form of the HCZ step's streams, as :func:`channel_form_calls`,
+    on route H's slab state ``st``: B8b on f with the old macros, B8a on g."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import stream3d
+    from lbm_ferrofluid_tpu_torch.parallel import step3d
+
+    gas = dict(rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+               density_gas=params.density_gas, density_fluid=params.density_fluid)
+    c = params.dx / params.dt
+    macro_args = (st.f, st.flags, st.rho, st.vel)
+    ghosts = tuple(torch.empty_like(st.f[:, :5, :1]) for _ in range(2))
+
+    def sharded(fn, *args, **kw):
+        return (lambda: fn(*args, mesh, **kw), lambda: fn(*args, mesh, plain=True, **kw))
+
+    calls = {
+        "B8b": (*sharded(step3d.stream_bounce_macro_sharded, *macro_args, c=c, **gas),
+                lambda: stream3d.stream_bounce_macro(*macro_args, c=c, **gas),
+                stream3d.cost_slab(stream3d.cost_macro, *macro_args, ghosts=ghosts)),
+        "B8a": (*sharded(step3d.stream_bounce_moments_sharded, st.g, st.flags),
+                lambda: stream3d.stream_bounce_moments(st.g, st.flags),
+                stream3d.cost_slab(stream3d.cost_moments, st.g, st.flags, ghosts=ghosts)),
+    }
+    torch.cuda.synchronize()
+    return calls
+
+
+def form_rows(calls, what):
+    """Each slab form of ``calls`` against its plain version (phase 3's
+    bars; bfloat16 f_post and B11b's h are equal bit for bit: values moved,
+    or rounded where the plain version rounds them) and bit for bit
+    against its single-device form on the same inputs (the wrap as ghosts
+    at one rank); ms a call of the slab call, its plain version and the
+    single-device form, and the bound of what the slab call moves."""
+    import torch
+
+    rows = {}
+    for kid, (slab, plain, single, (nbytes, flops)) in calls.items():
+        got, want, one = slab(), plain(), single()
+        torch.cuda.synchronize()
+        names = OUTPUTS[kid][:len(flat(got))]
+        err = compare(f"{what} {kid} slab", names, got, want)
+        bits_equal(f"{what} {kid} slab against its single-device form", names, got, one)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        rows[kid] = {
+            "ms": time_cuda(slab, reps=10), "single_device_ms": time_cuda(single, reps=10),
+            "plain_ms": time_cuda(plain, reps=1, warm=0),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "flops": int(flops),
+            "max_abs_err": max(v["max_abs_err"] for v in err.values()),
+            "bit_for_bit_to_single_device": True,
+        }
+        del got, want, one
+        torch.cuda.empty_cache()
+    return rows
+
+
 def epilogue_form_rows(params, st, mesh, what, bf16=False):
     """Each slab form of the epilogue route on route E's primed slab state:
     against its plain version (phase 3's bars; bfloat16 f'/g' within one
@@ -4481,7 +4692,7 @@ def epilogue_form_rows(params, st, mesh, what, bf16=False):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
         rows[key] = {
             "ms": time_cuda(slab, reps=10), "single_device_ms": time_cuda(single, reps=10),
-            "plain_ms": time_cuda(plain, reps=2),
+            "plain_ms": time_cuda(plain, reps=1, warm=0),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": int(nbytes), "flops": int(flops),
@@ -4517,7 +4728,7 @@ def slab_form_rows(params, st, mesh, what, bf16=False):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
         rows[kid] = {
             "ms": time_cuda(slab, reps=10), "single_device_ms": time_cuda(single, reps=10),
-            "plain_ms": time_cuda(plain, reps=2),
+            "plain_ms": time_cuda(plain, reps=1, warm=0),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": int(nbytes), "flops": int(flops),
@@ -4528,54 +4739,56 @@ def slab_form_rows(params, st, mesh, what, bf16=False):
     return rows
 
 
-def slab_forced(K, kernels_pkg, params, s0, dev, card, what, steps=30, timed=20, bf16=False,
+def slab_forced(K, kernels_pkg, params, s0, dev, card, what, steps=30, timed=10, bf16=False,
                 route="Z"):
-    """One rank with ``slab=True`` on the card, on ``route``: prime and
-    ``steps`` meshed steps (launch counters zeroed just before, read just
-    after, exact a step) against as many single-device kernel steps of
-    ``REF_ROUTE[route]`` (phase 3's bars; in bfloat16 pointwise within
-    ``BF16_DENSITY``, as phase 7; route O also against its own
-    single-device route, B3's box form, reported), the slab forms' rows
-    (route Z: B4, B1, B2, B3; route E: B10b, B6, B5), and ms a step of both
-    routes, timed in turns in this call."""
+    """One rank with ``slab=True`` on the card, on ``route``: prime where the
+    route primes and ``steps`` meshed steps (launch counters zeroed just
+    before, read just after, exact a step) against as many single-device
+    kernel steps of ``REF_ROUTE[route]`` (phase 3's bars; in bfloat16
+    pointwise within ``BF16_DENSITY``, as phase 7; route O also against its
+    own single-device route, B3's box form, reported), the slab forms'
+    rows (route Z: B4, B1, B2, B3; route E: B10b, B6, B5; route C: B11b,
+    B10a; route H: B8b, B8a), and ms a step of both routes, timed in turns
+    in this call."""
     import torch
 
-    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac
     from lbm_ferrofluid_tpu_torch.parallel import make_mesh, shard_state
 
     mesh = make_mesh(slab=True)
-    step = meshed_step(mesh)
+    step = meshed_step(mesh, route)
     kernels_pkg.reset_launch_counts()
-    sm = on_route(prime_premac(params, shard_state(s0, mesh), mesh=mesh), route)
+    sm = start_route(params, shard_state(s0, mesh), route, mesh=mesh)
     for _ in range(steps):
         sm = step(params, sm)
     torch.cuda.synchronize()
     ids = kernels_pkg.SLAB_FORMS
     slab_l, all_l = kernels_pkg.launch_counts(ids, slab=True), kernels_pkg.launch_counts()
     per = slab_launches_per_step(K, params, sm.f.shape, mesh, route)
-    check_launches(f"{what} slab forms", slab_l, per, steps, extra={"B4": 1})
-    check(all_l == {**{kid: 0 for kid in all_l}, **slab_l},
+    check_launches(f"{what} slab forms", slab_l, per, steps,
+                   extra={"B4": 1} if route in PRIMED else {})
+    local = {"B9": steps} if route == "H" else {}
+    check(all_l == {**{kid: 0 for kid in all_l}, **slab_l, **local},
           f"{what}: a launch outside the slab forms: {all_l}")
 
     def single(ref_route):
-        ss = on_route(prime_premac(params, s0, device=dev), ref_route)
+        ss = start_route(params, s0, ref_route, device=dev)
         for _ in range(steps):
-            ss = ferrofluid_step(params, ss, device=dev)
+            ss = route_step(ref_route)(params, ss, device=dev)
         return ss
 
     ss = single(REF_ROUTE[route])
-    fields = list(FERRO_FIELDS) + ([] if route == "Z" else ["phi", "force"])
-    premac = route != "U" and REF_ROUTE[route] != "U"
+    fields = route_fields(route)
+    premac = REF_ROUTE[route] == route and getattr(sm, "premac", None) is not None
     if bf16:
         row = against(f"{what} against single-device", params, sm, ss, fields, True)
         check(not row["failed"], "; ".join(row["failed"]))
         errs = {"density_rel": row["density_rel"], "mass_rel": row["mass_rel"]}
     else:
-        n_mac = len(sm.premac) if premac else 0
+        mac, mac_ref = (list(sm.premac), list(ss.premac)) if premac else ([], [])
         errs = compare(f"{what} against single-device {REF_ROUTE[route]}",
-                       fields + OUTPUTS["B3"][5:5 + n_mac],
-                       [getattr(sm, n) for n in fields] + list(sm.premac or ())[:n_mac],
-                       [getattr(ss, n) for n in fields] + list(ss.premac or ())[:n_mac])
+                       fields + OUTPUTS["B3"][5:5 + len(mac)],
+                       [getattr(sm, n) for n in fields] + mac,
+                       [getattr(ss, n) for n in fields] + mac_ref)
     bits = all(torch.equal(getattr(sm, n), getattr(ss, n)) for n in fields)
     extra = {}
     if route == "O":
@@ -4592,12 +4805,16 @@ def slab_forced(K, kernels_pkg, params, s0, dev, card, what, steps=30, timed=20,
         forms = slab_form_rows(params, sm, mesh, what, bf16=bf16)
     elif route == "E":
         forms = epilogue_form_rows(params, sm, mesh, what, bf16=bf16)
+    elif route == "C":
+        forms = form_rows(channel_form_calls(params, sm, mesh), what)
+    elif route == "H":
+        forms = form_rows(hcz_form_calls(params, sm, mesh), what)
     else:
         forms = {}
     ms = {}
-    for label, fn, s in (("single_device", ferrofluid_step, ss), ("slab", step, sm),
-                         ("slab_again", step, sm), ("single_device_again", ferrofluid_step,
-                                                    ss)):
+    one = route_step(route)
+    for label, fn, s in (("single_device", one, ss), ("slab", step, sm),
+                         ("slab_again", step, sm), ("single_device_again", one, ss)):
         _, st = timed_steps(params, s, fn, dev, timed, warmup=3)
         ms[label] = st["seconds"] / timed * 1e3
     emit({"phase": "sharded", "part": "slab_forced", "what": what, "route": route,
@@ -4691,7 +4908,6 @@ def sharded_rank(job_json) -> int:
     import torch
     import torch.distributed as dist
 
-    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac
     from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
     from lbm_ferrofluid_tpu_torch.parallel import (
         gather_state, initialize_distributed, make_mesh, ring_halo, shard_state, step3d,
@@ -4708,9 +4924,9 @@ def sharded_rank(job_json) -> int:
         part = shard_state(whole, mesh)
         del whole  # several ranks share the card
         torch.cuda.empty_cache()
-        step = meshed_step(mesh)
+        step = meshed_step(mesh, route)
         kernels_pkg.reset_launch_counts()
-        st = on_route(prime_premac(params, part, mesh=mesh), route)
+        st = start_route(params, part, route, mesh=mesh)
         ring_halo.sent_bytes = 0
         torch.cuda.synchronize()
         dist.barrier()
@@ -4729,7 +4945,8 @@ def sharded_rank(job_json) -> int:
             check(not any(slab_l.values()), f"batch mesh: slab forms launched: {slab_l}")
         else:
             per = slab_launches_per_step(K, params, st.f.shape, mesh, route)
-            check_launches("z-slab mesh", slab_l, per, job["steps"], extra={"B4": 1})
+            check_launches("z-slab mesh", slab_l, per, job["steps"],
+                           extra={"B4": 1} if route in PRIMED else {})
             check(launches == slab_l, f"z-slab mesh: launches outside the slab forms {launches}")
         out = {"rank": mesh.rank, "world": world, "backend": mesh.backend, "route": route,
                "launches": launches, "slab_launches": slab_l,
@@ -4737,19 +4954,19 @@ def sharded_rank(job_json) -> int:
                "bytes_sent_per_step": ring_halo.sent_bytes / job["steps"]}
         got = gather_state(st, mesh)
         if mesh.rank == 0:
-            one = sharded_scene(tuple(job["res"]), job["mag"], mesh.device)[1]
-            ref = on_route(prime_premac(params, one, device=mesh.device.type), REF_ROUTE[route])
+            one = sharded_scene(tuple(job["res"]), job["mag"], mesh.device, route=route)[1]
+            ref = start_route(params, one, REF_ROUTE[route], device=mesh.device.type)
             for _ in range(job["steps"]):
-                ref = ferrofluid_step(params, ref, device=mesh.device.type)
-            fields = list(FERRO_FIELDS) + ([] if route == "Z" else ["phi", "force"])
-            n_mac = len(ref.premac) if ref.premac is not None else 0
+                ref = route_step(REF_ROUTE[route])(params, ref, device=mesh.device.type)
+            fields = route_fields(route)
+            n_mac = len(ref.premac) if getattr(ref, "premac", None) is not None else 0
             errs = {}
             for b in range(job["batch"]):
                 errs[f"batch {b}"] = compare(
                     f"rank job {job} element {b}", fields + OUTPUTS["B3"][5:5 + n_mac],
                     [getattr(got, n)[b:b + 1] for n in fields]
-                    + [x[b:b + 1] for x in (got.premac or ())[:n_mac]],
-                    [getattr(ref, n) for n in fields] + list(ref.premac or ())[:n_mac])
+                    + [x[b:b + 1] for x in (getattr(got, "premac", None) or ())[:n_mac]],
+                    [getattr(ref, n) for n in fields] + (list(ref.premac) if n_mac else []))
             out["against_single_device"] = errs
             out["single_device_route"] = REF_ROUTE[route]
             out["bit_for_bit_to_single_device"] = all(
@@ -4763,16 +4980,18 @@ def sharded_rank(job_json) -> int:
 
 def phase_sharded(dev, kernels_pkg, card):
     """The z-slab path on the one card (phase ``sharded``): one rank with
-    ``slab=True`` at 256^3 (bench.py's scene) and 130x66x130, float32 and
-    turbo, on each route (Z the capillogue steady state; E, O and U, the
-    epilogue routes); gloo jobs of 2 and 4 z ranks at 256^3 and 2 at
-    130x66x130 on route Z, of 2 at 256^3 on E and on O, all sharing the card
-    (host-staged gloo transport: a correctness check, not a multi-GPU
-    number), a batch mesh of 2 ranks, and the slab-forced 256^3 steps once
-    through NCCL (one rank sending to itself); the refusal of 4 z ranks at
-    130x66x130, and a state primed on one device refused at the step on
-    3-plane slabs (ROADMAP C7).  Returns the slab forms' rows for the
-    ``kernels`` line."""
+    ``slab=True`` at 256^3 (bench.py's scene) and 130x66x130 (the HCZ step at
+    256^3 and 130^3), float32 and turbo, on each route (Z the capillogue
+    steady state; E, O and U, the epilogue routes; C and U19 with the
+    channel-form solve; H the HCZ step); gloo jobs of 4 z ranks at 256^3
+    on route Z, of 2 at 256^3 on O, of 2 at 130x66x130 on C and of 2 at
+    256^3 on H, in two lanes side by side (``SHARDED_LANES``), all sharing
+    the card (host-staged gloo
+    transport: a correctness check, not a multi-GPU number), a batch mesh
+    of 2 ranks, and the slab-forced 256^3 steps once through NCCL (one rank
+    sending to itself); the refusal of 4 z ranks at 130x66x130, and a state
+    primed on one device refused at the step on 3-plane slabs (ROADMAP C7).
+    Returns the slab forms' rows for the ``kernels`` line."""
     import torch
 
     from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac
@@ -4784,9 +5003,10 @@ def phase_sharded(dev, kernels_pkg, card):
     forms, forms16 = {}, {}
     for res, mag in SHARDED_GRIDS:
         for route in ROUTES:
-            params, s0 = sharded_scene(res, mag, dev, route=route)
+            grid = HCZ_GRID[res] if route == "H" else res
+            params, s0 = sharded_scene(grid, mag, dev, route=route)
             rows, used = slab_forced(K, kernels_pkg, params, s0, dev, card,
-                                     f"slab-forced {route} {res}", route=route)
+                                     f"slab-forced {route} {grid}", route=route)
             for key, row in rows.items():  # the times at 256^3; the largest error of both
                 if key not in forms:
                     forms[key] = row
@@ -4795,8 +5015,9 @@ def phase_sharded(dev, kernels_pkg, card):
                 launches[kid] += used[kid]
             p16, s16 = turbo(params, s0, dev)
             rows16, used16 = slab_forced(K, kernels_pkg, p16, s16, dev, card,
-                                         f"slab-forced turbo {route} {res}", steps=10,
-                                         timed=10, bf16=True, route=route)
+                                         f"slab-forced turbo {route} {grid}", steps=10,
+                                         timed=10 if grid == res and res[0] == 256 else 5,
+                                         bf16=True, route=route)
             for key, row in rows16.items():
                 forms16.setdefault(key, row)
             for kid in launches16:
@@ -4821,28 +5042,38 @@ def phase_sharded(dev, kernels_pkg, card):
     check("4 or more planes a rank" in refused_step, f"3-plane slabs: {refused_step}")
     del s12
     torch.cuda.empty_cache()
+    def lane(lane_jobs):
+        """The lane's jobs one after another: each job's ranks' rows and
+        wall seconds."""
+        out = []
+        for res, mag, shape, batch, route, slab in lane_jobs:
+            t0 = time.perf_counter()
+            out.append((run_rank_job(res, mag, shape, batch, route, slab),
+                        time.perf_counter() - t0))
+        return out
+
+    with concurrent.futures.ThreadPoolExecutor(len(SHARDED_LANES)) as pool:
+        done = [f.result() for f in [pool.submit(lane, jobs) for jobs in SHARDED_LANES]]
     jobs = []
-    for res, mag, shape, batch, route, slab in ([(*j, False) for j in SHARDED_JOBS]
-                                               + [(*NCCL_SELF_JOB, True)]):
-        t0 = time.perf_counter()
-        ranks = run_rank_job(res, mag, shape, batch, route, slab)
-        for r in ranks:
-            for kid in launches:
-                launches[kid] += r["slab_launches"][kid]
-        lead = next(r for r in ranks if r["rank"] == 0)
-        check(lead["backend"] == ("nccl" if slab else "gloo"),
-              f"rank job {res} {shape}: backend {lead['backend']}")
-        jobs.append({"res": list(res), "mesh": list(shape), "batch": batch, "route": route,
-                     "transport": ("nccl, one rank sending its ghosts to itself" if slab
-                                   else "gloo, host-staged, all ranks on one card (not a "
-                                        "multi-GPU number)"),
-                     "ms_per_step": [r["ms_per_step"] for r in ranks],
-                     "bytes_sent_per_step": [r["bytes_sent_per_step"] for r in ranks],
-                     "launches_per_step": lead["launches_per_step"],
-                     "single_device_route": lead["single_device_route"],
-                     "against_single_device": lead["against_single_device"],
-                     "bit_for_bit_to_single_device": lead["bit_for_bit_to_single_device"],
-                     "wall_s": time.perf_counter() - t0})
+    for lane_jobs, results in zip(SHARDED_LANES, done):
+        for (res, mag, shape, batch, route, slab), (ranks, wall) in zip(lane_jobs, results):
+            for r in ranks:
+                for kid in launches:
+                    launches[kid] += r["slab_launches"][kid]
+            lead = next(r for r in ranks if r["rank"] == 0)
+            check(lead["backend"] == ("nccl" if slab else "gloo"),
+                  f"rank job {res} {shape}: backend {lead['backend']}")
+            jobs.append({"res": list(res), "mesh": list(shape), "batch": batch, "route": route,
+                         "transport": ("nccl, one rank sending its ghosts to itself" if slab
+                                       else "gloo, host-staged, all ranks on one card (not a "
+                                            "multi-GPU number)"),
+                         "ms_per_step": [r["ms_per_step"] for r in ranks],
+                         "bytes_sent_per_step": [r["bytes_sent_per_step"] for r in ranks],
+                         "launches_per_step": lead["launches_per_step"],
+                         "single_device_route": lead["single_device_route"],
+                         "against_single_device": lead["against_single_device"],
+                         "bit_for_bit_to_single_device": lead["bit_for_bit_to_single_device"],
+                         "wall_s": wall})
     emit({"phase": "sharded", "part": "ranks", "jobs": jobs, "refused_4_ranks_130": refused,
           "refused_step_3_planes": refused_step,
           "slab_launches": launches, "slab_launches_bf16": launches16, "card": card,
@@ -4871,6 +5102,15 @@ def phase_sharded(dev, kernels_pkg, card):
         "without_emit_mac": {key: forms16["B5"][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "single_device_ms")},
     })
+    for kid in ("B8a", "B8b", "B11b"):
+        rows.append({
+            "name": f"{kid} {K[kid].wrapper.__name__} slab bf16", "route": "cuda",
+            "source": K[kid].module.CUDA_SOURCE, "replaces": kernels_pkg.SLAB_TPU_KERNELS[kid],
+            "launches": launches16[kid],
+            **{key: forms16[kid][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "single_device_ms")},
+            "library_ms": None,
+        })
     return rows
 
 
@@ -5010,6 +5250,10 @@ def main() -> int:
         print(smi, flush=True)
     elif "--poisson-plans" in sys.argv[1:]:
         phase_poisson_plans(dev, smi)
+        phase_channel_slab_plans(dev, smi)
+        print(smi, flush=True)
+    elif "--channel-slab-plans" in sys.argv[1:]:
+        phase_channel_slab_plans(dev, smi)
         print(smi, flush=True)
     elif "--capillary-plans" in sys.argv[1:]:
         phase_capillary_plans(dev, smi, ptxas)

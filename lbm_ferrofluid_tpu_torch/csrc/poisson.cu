@@ -60,6 +60,15 @@
 //   - stage k writes h' (and, on the last pass, psi) of the tile, with
 //     streaming (evict-first) stores, so they do not push the input's
 //     halo rows, which neighbouring blocks read again, out of L2.
+// The slab form (lbm_poisson_slab_kernel, the TPU wavefront's ghost-ref mode,
+// poisson.py:881-888, for a z-slab of a domain decomposed along z) is the
+// same walk over the slab's planes -k..Z + k - 1 without a wrap: the slab's
+// own planes come from h, the G >= k planes a side from two band arrays,
+// each read in place (no copy of the slab into an extended array), and the
+// valid region shrinks a plane a sweep, so the k sweeps leave the real planes
+// exact; stage k also writes the first and last G planes to the bands the
+// next exchange sends.  Its bound adds the bands' reads and writes.
+//
 // Passes write out of place, so no input is overwritten during a pass; the
 // k = 1 pass is the one-sweep kernel, and every pass computes each cell with
 // lbm_poisson_cell, so every plan gives the same bits.  A pass of k = 3 at
@@ -90,6 +99,9 @@
 // passes (9, 11, 13) and of the plans chip_smoke.py --poisson-plans times
 // (EXT_HEIGHTS there)
 #define PP_EXT_HEIGHTS(M) M(5) M(7) M(8) M(9) M(10) M(11) M(12) M(13) M(14) M(15) M(18)
+// the extended heights the slab form is built for: those of its passes of
+// k = 1..PP_MAX_K sweeps (ops/kernels/poisson.py:SLAB_EXT_HEIGHTS, slab_plan)
+#define PP_SLAB_HEIGHTS(M) M(9) M(11) M(13) M(15)
 // floats a stage ring keeps a cell: 9 channels x 2 planes + 5 x 3 + 5 x 1
 #define PP_RING 38
 
@@ -127,12 +139,16 @@ struct LbmPassInput {
 // is an immediate of the load or store instead of a multiply by the plane
 // size, and the register bound follows the block's size; the host picks
 // the instance (lbm_poisson_pass_instance).  T is h's storage type, which
-// the input plane and the stage rings keep.
-template <class T, bool TAU1, int EY>
-__global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
+// the input plane and the stage rings keep.  SLAB: the slab form (planes
+// -G..-1 from glo and Z..Z + G - 1 from ghi, no wrap, the bands written to
+// blo and bhi), its own kernel so that the one-device kernel's code is as
+// it was.
+template <class T, bool TAU1, int EY, bool SLAB>
+__device__ __forceinline__ void lbm_poisson_pass_body(
     const T* __restrict__ h, const uint8_t* __restrict__ flags, const float* __restrict__ rhs,
     T* __restrict__ out, float* __restrict__ psi_out, int Z, int Y, int X, int k, int LZ,
-    float inv_tau, float a) {
+    float inv_tau, float a, const T* __restrict__ glo, const T* __restrict__ ghi, int G,
+    T* __restrict__ blo, T* __restrict__ bhi) {
   // 4 elements of padding (edge lanes read one element before and after a
   // plane), the input plane (19 channels), the k - 1 stage rings, 4 more,
   // all in T; then, in float, the (k + 1)-plane rhs ring, the wrapped grid
@@ -152,7 +168,7 @@ __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
   const int z0 = blockIdx.z * LZ, z1 = min(z0 + LZ, Z);
-  const long long XY = static_cast<long long>(X) * Y, N = XY * Z;
+  const long long XY = static_cast<long long>(X) * Y, N = XY * Z, GN = XY * G;
   if (warp == 0) colx[lane] = lbm_mod(x0 - HX + lane, X);
   if (lane == 0) rowy[warp] = lbm_mod(y0 - k + warp, Y) * X;  // a warp per row -1..EY
   __syncthreads();
@@ -175,16 +191,37 @@ __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
     return warp == 0 ? ey[q] == 1 : (warp == EY + 1 ? ey[q] == -1 : true);
   };
   // the input of the tick whose stage 1 computes grid plane zr: channel q
-  // of plane zr - e_z(q), flags and rhs of plane zr
+  // of plane zr - e_z(q), flags and rhs of plane zr; on a slab, planes
+  // -G..-1 of h from the lo band and Z..Z + G - 1 from the hi band, read in
+  // place, and flags and rhs of plane zr + G of the extended pair
   auto fetch = [&](int zr, LbmPassInput<T>& b) {
-    const long long zc[3] = {(zr == 0 ? Z - 1 : zr - 1) * XY, zr * XY,
-                             (zr == Z - 1 ? 0 : zr + 1) * XY};
+    if constexpr (!SLAB) {
+      const long long zc[3] = {(zr == 0 ? Z - 1 : zr - 1) * XY, zr * XY,
+                               (zr == Z - 1 ? 0 : zr + 1) * XY};
 #pragma unroll
-    for (int q = 0; q < 19; ++q)
-      if (needs(q)) b.h[q] = h[q * N + zc[1 - ez[q]] + in_off];
-    if (has_cell) {
-      b.rhs = rhs[zc[1] + in_off];
-      b.flag = flags[zc[1] + in_off];
+      for (int q = 0; q < 19; ++q)
+        if (needs(q)) b.h[q] = h[q * N + zc[1 - ez[q]] + in_off];
+      if (has_cell) {
+        b.rhs = rhs[zc[1] + in_off];
+        b.flag = flags[zc[1] + in_off];
+      }
+    } else {
+      const T* base[3];
+      long long cs[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const int p = zr - 1 + d;
+        base[d] = p < 0 ? glo + (p + G) * XY : (p >= Z ? ghi + (p - Z) * XY : h + p * XY);
+        cs[d] = p < 0 || p >= Z ? GN : N;
+      }
+#pragma unroll
+      for (int q = 0; q < 19; ++q)
+        if (needs(q)) b.h[q] = base[1 - ez[q]][q * cs[1 - ez[q]] + in_off];
+      if (has_cell) {
+        const long long fz = (zr + G) * XY + in_off;
+        b.rhs = rhs[fz];
+        b.flag = flags[fz];
+      }
     }
   };
   auto put = [&](int slot, const LbmPassInput<T>& b) {
@@ -206,7 +243,7 @@ __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
     // ago; then tick r + 1's loads into the registers just emptied, in
     // flight while the stages compute
     put(rk, b);
-    if (r + 1 < n_ticks) fetch(zr == Z - 1 ? 0 : zr + 1, b);
+    if (r + 1 < n_ticks) fetch(!SLAB && zr == Z - 1 ? 0 : zr + 1, b);
     __syncthreads();
     for (int j = 1; j <= k; ++j) {
       const int p = r - j + 1;
@@ -242,10 +279,23 @@ __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
                      y0 + e - (k - 1) < Y) {
             int zw = zr - (j - 1);
             while (zw < 0) zw += Z;
-            const long long n = zw * XY + rowy[e + 1] + colx[lane];
+            const long long ip = rowy[e + 1] + colx[lane], n = zw * XY + ip;
 #pragma unroll
             for (int q = 0; q < 19; ++q) lbm_stcs(out + q * N + n, o[q]);
             if (psi_out != nullptr) __stcs(psi_out + n, psi);
+            // a slab's boundary bands, the next exchange's planes: its
+            // first and its last G planes again
+            if constexpr (SLAB) {
+              if (blo != nullptr && zw < G) {
+#pragma unroll
+                for (int q = 0; q < 19; ++q) lbm_stcs(blo + q * GN + zw * XY + ip, o[q]);
+              }
+              if (bhi != nullptr && zw >= Z - G) {
+#pragma unroll
+                for (int q = 0; q < 19; ++q)
+                  lbm_stcs(bhi + q * GN + (zw - Z + G) * XY + ip, o[q]);
+              }
+            }
           }
         };
         // a row without an obstacle (almost every one) computes its outputs
@@ -267,13 +317,32 @@ __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
   };
 
   LbmPassInput<T> b{};
-  int zr = lbm_mod(zb, Z);
+  int zr = SLAB ? zb : lbm_mod(zb, Z);
   fetch(zr, b);
   for (int r = 0, rk = 0; r < n_ticks; ++r) {
     tick(r, rk, zr, b);
     rk = rk == k ? 0 : rk + 1;
-    zr = zr == Z - 1 ? 0 : zr + 1;
+    zr = !SLAB && zr == Z - 1 ? 0 : zr + 1;
   }
+}
+
+template <class T, bool TAU1, int EY>
+__global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
+    const T* __restrict__ h, const uint8_t* __restrict__ flags, const float* __restrict__ rhs,
+    T* __restrict__ out, float* __restrict__ psi_out, int Z, int Y, int X, int k, int LZ,
+    float inv_tau, float a) {
+  lbm_poisson_pass_body<T, TAU1, EY, false>(h, flags, rhs, out, psi_out, Z, Y, X, k, LZ,
+                                            inv_tau, a, nullptr, nullptr, 0, nullptr, nullptr);
+}
+
+template <class T, bool TAU1, int EY>
+__global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_slab_kernel(
+    const T* __restrict__ h, const uint8_t* __restrict__ flags, const float* __restrict__ rhs,
+    T* __restrict__ out, float* __restrict__ psi_out, int Z, int Y, int X, int k, int LZ,
+    float inv_tau, float a, const T* __restrict__ glo, const T* __restrict__ ghi, int G,
+    T* __restrict__ blo, T* __restrict__ bhi) {
+  lbm_poisson_pass_body<T, TAU1, EY, true>(h, flags, rhs, out, psi_out, Z, Y, X, k, LZ, inv_tau,
+                                           a, glo, ghi, G, blo, bhi);
 }
 
 // Shared memory of a pass block in bytes with h stored in elements of es
@@ -295,45 +364,68 @@ struct LbmPassArgs {
   float* psi_out;
   int Z, Y, X, k, TY, LZ;
   float inv_tau, a;
+  const void *glo, *ghi;  // a slab's bands (null on one device)
+  int G;
+  void *blo, *bhi;  // a slab's emitted bands (null: none)
 };
 
 // One instance of the pass kernel: lets it take PP_SMEM_MAX bytes of
 // dynamic shared memory on the current device (one attribute call a
 // device), then launches it (stream non-null) or reports its resident
 // blocks an SM (blocks non-null).
-template <class T, bool TAU1, int EY>
+template <class T, bool TAU1, int EY, bool SLAB>
 static cudaError_t lbm_poisson_pass_instance(const LbmPassArgs& g, cudaStream_t stream,
                                              int* blocks) {
   static bool allowed[PP_MAX_DEVICES] = {};
+  const void* kernel;
+  if constexpr (SLAB)
+    kernel = reinterpret_cast<const void*>(lbm_poisson_slab_kernel<T, TAU1, EY>);
+  else
+    kernel = reinterpret_cast<const void*>(lbm_poisson_pass_kernel<T, TAU1, EY>);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= PP_MAX_DEVICES) return cudaErrorInvalidDevice;
   if (!allowed[dev]) {
-    err = cudaFuncSetAttribute(lbm_poisson_pass_kernel<T, TAU1, EY>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, PP_SMEM_MAX);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PP_SMEM_MAX);
     if (err != cudaSuccess) return err;
     allowed[dev] = true;
   }
   const int smem = lbm_poisson_pass_smem(g.k, EY, sizeof(T)), threads = PP_EX * (EY + 2);
   if (blocks != nullptr)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, lbm_poisson_pass_kernel<T, TAU1, EY>, threads, smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
   const int TX = lbm_pass_tx(g.k);
   const dim3 grid((g.X + TX - 1) / TX, (g.Y + g.TY - 1) / g.TY, (g.Z + g.LZ - 1) / g.LZ);
-  lbm_poisson_pass_kernel<T, TAU1, EY><<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(g.h), g.flags, g.rhs, static_cast<T*>(g.out), g.psi_out, g.Z, g.Y,
-      g.X, g.k, g.LZ, g.inv_tau, g.a);
+  if constexpr (SLAB)
+    lbm_poisson_slab_kernel<T, TAU1, EY><<<grid, threads, smem, stream>>>(
+        static_cast<const T*>(g.h), g.flags, g.rhs, static_cast<T*>(g.out), g.psi_out, g.Z,
+        g.Y, g.X, g.k, g.LZ, g.inv_tau, g.a, static_cast<const T*>(g.glo),
+        static_cast<const T*>(g.ghi), g.G, static_cast<T*>(g.blo), static_cast<T*>(g.bhi));
+  else
+    lbm_poisson_pass_kernel<T, TAU1, EY><<<grid, threads, smem, stream>>>(
+        static_cast<const T*>(g.h), g.flags, g.rhs, static_cast<T*>(g.out), g.psi_out, g.Z,
+        g.Y, g.X, g.k, g.LZ, g.inv_tau, g.a);
   return cudaGetLastError();
 }
 
 template <class T, bool TAU1>
 static cudaError_t lbm_poisson_pass_dispatch(const LbmPassArgs& g, cudaStream_t stream,
                                              int* blocks) {
-  switch (g.TY + 2 * (g.k - 1)) {
+  const int ey = g.TY + 2 * (g.k - 1);
+  if (g.glo != nullptr) {
+    switch (ey) {
 #define PP_CASE(E) \
   case E:          \
-    return lbm_poisson_pass_instance<T, TAU1, E>(g, stream, blocks);
+    return lbm_poisson_pass_instance<T, TAU1, E, true>(g, stream, blocks);
+      PP_SLAB_HEIGHTS(PP_CASE)
+#undef PP_CASE
+    }
+    return cudaErrorInvalidValue;
+  }
+  switch (ey) {
+#define PP_CASE(E) \
+  case E:          \
+    return lbm_poisson_pass_instance<T, TAU1, E, false>(g, stream, blocks);
     PP_EXT_HEIGHTS(PP_CASE)
 #undef PP_CASE
   }
@@ -344,6 +436,8 @@ template <class T>
 static cudaError_t lbm_poisson_pass_run(const LbmPassArgs& g, double tau, cudaStream_t stream,
                                         int* blocks) {
   if (g.k < 1 || g.k > PP_MAX_K || g.TY < 1 || g.LZ < 1) return cudaErrorInvalidValue;
+  if (g.glo != nullptr && (g.ghi == nullptr || g.k > g.G || g.G > g.Z))
+    return cudaErrorInvalidValue;
   if (lbm_poisson_pass_smem(g.k, g.TY + 2 * (g.k - 1), sizeof(T)) > PP_SMEM_MAX)
     return cudaErrorInvalidValue;
   return 1.0 / tau == 1.0 ? lbm_poisson_pass_dispatch<T, true>(g, stream, blocks)
@@ -362,12 +456,23 @@ static cudaError_t lbm_poisson_pass_any(const LbmPassArgs& g, double tau, int bf
 // TY + 2(k - 1) one of PP_EXT_HEIGHTS, and the block's shared memory within
 // PP_SMEM_MAX (cudaErrorInvalidValue otherwise).  h and out in float32, or
 // in bfloat16 where bf16 is nonzero; psi_out in float32.
+//
+// The slab form (glo not null): h holds the Z real planes of a z-slab,
+// glo and ghi the G planes of the neighbours below and above ([19, G, Y, X]
+// each, read in place), and flags and rhs the Z + 2G planes of the slab
+// extended by G a side; k <= G <= Z.  The walk covers planes -k..Z + k - 1
+// without a wrap, so the real planes are exact after the k sweeps (the
+// valid region shrinks a plane a sweep), and only they are written; blo and
+// bhi, unless null, take the first and the last G planes of out again, the
+// bands the next exchange sends.
 extern "C" int lbm_poisson_pass(const void* h, const uint8_t* flags, const float* rhs,
                                 void* out, float* psi_out, int Z, int Y, int X, int k, int TY,
-                                int LZ, double tau, int bf16, void* stream) {
+                                int LZ, double tau, int bf16, const void* glo, const void* ghi,
+                                int G, void* blo, void* bhi, void* stream) {
   const double inv_tau = 1.0 / tau;
   const LbmPassArgs g{h, flags, rhs, out, psi_out, Z, Y, X, k, TY, LZ,
-                      static_cast<float>(inv_tau), static_cast<float>(1.0 - inv_tau)};
+                      static_cast<float>(inv_tau), static_cast<float>(1.0 - inv_tau),
+                      glo, ghi, glo != nullptr ? G : 0, blo, bhi};
   const cudaError_t err =
       lbm_poisson_pass_any(g, tau, bf16, static_cast<cudaStream_t>(stream), nullptr);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
@@ -377,6 +482,7 @@ extern "C" int lbm_poisson_pass(const void* h, const uint8_t* flags, const float
 // the bfloat16 instance where bf16 is nonzero) resident on one SM at a
 // plan's k and TY (for reports).
 extern "C" int lbm_poisson_pass_occupancy(int k, int TY, int tau1, int bf16, int* blocks) {
-  const LbmPassArgs g{nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, 1, k, TY, 1, 1.f, 0.f};
+  const LbmPassArgs g{nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, 1, k, TY, 1, 1.f, 0.f,
+                      nullptr, nullptr, 0, nullptr, nullptr};
   return static_cast<int>(lbm_poisson_pass_any(g, tau1 ? 1.0 : 0.5, bf16, nullptr, blocks));
 }

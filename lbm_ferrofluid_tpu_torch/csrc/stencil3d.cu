@@ -1,7 +1,7 @@
 // Capillary stencils: replaces the TPU kernels of
-// lbm_ferrofluid_tpu/ops/pallas/stencil3d.py in their single-device form
-// (no ghost planes): grad_fields (:176, _grad_kernel :90) and
-// laplacian_field (:242, _lap_kernel :131).
+// lbm_ferrofluid_tpu/ops/pallas/stencil3d.py, grad_fields (:176,
+// _grad_kernel :90) and laplacian_field (:242, _lap_kernel :131), in their
+// single-device form and, for a z-slab, their ghost-plane form (below).
 //
 // lbm_grad_fields writes, for each field f and each cell, the 19-point
 // isotropic gradient (gx, gy, gz) into output channels 3f, 3f+1, 3f+2.  The
@@ -44,6 +44,13 @@
 // fields give zero numerators, which the IEEE division sends down its slow
 // path; the per-cell functions' ZERO form (common.cuh:lbm_div) returns
 // those as they are.
+//
+// Slab form of the gradients (the TPU kernel's ghost_lo/ghost_hi with its
+// caller's fix, parallel/step3d.py:grad_fields_sharded): the walk's planes
+// -1 and Z are the neighbours' edge planes of each field, and the z clamp
+// is [zlo, zhi] as for the Laplacian below, so the output replicate runs in
+// x and y on every slab and in z only at the domain's true edges, where the
+// clamped taps reproduce the whole domain's ring bit for bit.
 //
 // Slab form of the Laplacian (the TPU kernel's ghost_lo/ghost_hi, for a
 // z-slab of a domain decomposed along z over ranks: parallel/step3d.py):
@@ -130,18 +137,21 @@ __global__ void __launch_bounds__(TX* TY / RY, ST_MIN_BLOCKS(NF, LAP)) lbm_stenc
     src[RY] = lbm_clamp(ry0 + hy, 0, Y - 1) * X + lbm_clamp(rx0 + hx, 0, X - 1);
     dst[RY] = hy * EX + hx;
   }
+  // a field's planes lie N apart in the slab and XY apart in a ghost
+  // plane ([NF, Y, X])
   auto fetch = [&](int p, float (&v)[NF][RY + 1]) {
-    const float* __restrict__ s =
-        SLAB && p < 0 ? glo : (SLAB && p >= Z ? ghi : in + p * XY);
+    const bool ghost = SLAB && (p < 0 || p >= Z);
+    const float* __restrict__ s = ghost ? (p < 0 ? glo : ghi) : in + p * XY;
+    const long long fs = ghost ? XY : N;
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
 #pragma unroll
       for (int r = 0; r < RY; ++r) {
-        v[f][r] = s[f * N + src[r]];
+        v[f][r] = s[f * fs + src[r]];
         if (MAP) v[f][r] = lbm_density_of(v[f][r], gas);
       }
       if (halo) {
-        v[f][RY] = s[f * N + src[RY]];
+        v[f][RY] = s[f * fs + src[RY]];
         if (MAP) v[f][RY] = lbm_density_of(v[f][RY], gas);
       }
     }
@@ -248,15 +258,25 @@ static int lbm_stencil_blocks(int* blocks) {
 }
 
 // The gradients of nf <= ST_MAX_FIELDS fields in one launch on (tx, ty)
-// tiles (one of ST_TILES) and strips of zb planes.
-extern "C" int lbm_grad_fields(const float* in, float* out, int nf, int Z, int Y, int X, int tx,
-                               int ty, int zb, double dx, void* stream) {
-  if (zb < 1) return static_cast<int>(cudaErrorInvalidValue);
+// tiles (one of ST_TILES) and strips of zb planes: the slab form where glo
+// is not null (glo and ghi the neighbours' edge planes of each field, [nf,
+// Y, X] each; [zlo, zhi] the z clamp, 1 and Z-2 at the domain's true edges,
+// whose planes then take the z replicate, -1 and Z where the slab has a
+// neighbour), the whole domain's otherwise (zlo and zhi unused).
+extern "C" int lbm_grad_fields(const float* in, const float* glo, const float* ghi, float* out,
+                               int nf, int Z, int Y, int X, int tx, int ty, int zb, int zlo,
+                               int zhi, double dx, void* stream) {
+  const bool slab = glo != nullptr;
+  if (zb < 1 || (slab && zlo > zhi)) return static_cast<int>(cudaErrorInvalidValue);
   const float d12 = lbm_f32(12.0 * dx);
-#define ST_GRAD(TX_, TY_, RY_, NF_)                                                        \
-  if (nf == NF_)                                                                           \
-    return lbm_stencil_launch<TX_, TY_, RY_, NF_, false>(in, out, Z, Y, X, zb, d12,        \
-                                                         static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ST_GRAD(TX_, TY_, RY_, NF_)                                                         \
+  if (nf == NF_) {                                                                          \
+    if (slab)                                                                               \
+      return lbm_stencil_launch<TX_, TY_, RY_, NF_, false, true>(in, out, Z, Y, X, zb, d12, \
+                                                                 st, glo, ghi, zlo, zhi);   \
+    return lbm_stencil_launch<TX_, TY_, RY_, NF_, false>(in, out, Z, Y, X, zb, d12, st);    \
+  }
 #define ST_GRAD_TILE(TX_, TY_, RY_) \
   if (tx == TX_ && ty == TY_) {     \
     ST_FIELDS(ST_GRAD, TX_, TY_, RY_) \

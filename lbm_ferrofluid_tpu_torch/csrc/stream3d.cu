@@ -21,13 +21,37 @@
 // and f_post take 38 B a cell each: 93 B and 97 B per cell, 0.47 and
 // 0.49 ms at 256^3.  The streamed values are permuted, not rounded, so
 // f_post holds the same bfloat16 bits as the input.
+//
+// Slab forms (the TPU kernels' up_ghost/dn_ghost, stream3d.py:46-80, for a
+// z-slab of a domain decomposed along z over ranks): plane 0 pulls its z-1
+// channels (9-13) from the neighbour's plane lo and plane Z-1 its z+1
+// channels (14-18) from hi, 5 channels of one plane a side, instead of the
+// wrap (common.cuh:lbm_pull_slab, as B4's slab form pulls).  Everything else
+// is the same, so a slab's outputs equal those of the same planes of the
+// whole domain bit for bit.  Their bound adds the ghost planes' 2 x 5 values
+// a plane cell.
 #include "common.cuh"
 
-template <class T>
+// The 19 pulled and bounced values of cell i at (z, y, x): across the
+// slab's faces from lo and hi where SLAB, else with the periodic wrap.
+template <class T, bool SLAB>
+__device__ __forceinline__ void lbm_stream_pull(const T* __restrict__ f, const T* __restrict__ lo,
+                                                const T* __restrict__ hi, long long N, long long i,
+                                                int z, int y, int x, int Z, int Y, int X,
+                                                bool obs, float post[19]) {
+  const LbmPullOffsets po = lbm_pull_offsets(z, y, x, Z, Y, X);
+  if (SLAB)
+    lbm_pull_slab(f, lo, hi, N, static_cast<long long>(Y) * X, i, z, Z, po, obs, post);
+  else
+    lbm_pull_at(f, N, i, po, obs, post);
+}
+
+template <class T, bool SLAB>
 __global__ void lbm_stream_moments3d_kernel(const T* __restrict__ f,
                                             const uint8_t* __restrict__ flags,
                                             T* __restrict__ f_post, float* __restrict__ m0,
-                                            float* __restrict__ m1, int Z, int Y, int X) {
+                                            float* __restrict__ m1, int Z, int Y, int X,
+                                            const T* __restrict__ lo, const T* __restrict__ hi) {
   const long long N = static_cast<long long>(Z) * Y * X;
   const long long i = lbm_cell();
   if (i >= N) return;
@@ -35,7 +59,7 @@ __global__ void lbm_stream_moments3d_kernel(const T* __restrict__ f,
   const int y = static_cast<int>((i / X) % Y);
   const int z = static_cast<int>(i / (static_cast<long long>(X) * Y));
   float post[19];
-  lbm_pull_at(f, N, i, lbm_pull_offsets(z, y, x, Z, Y, X), flags[i] == LBM_OBSTACLE, post);
+  lbm_stream_pull<T, SLAB>(f, lo, hi, N, i, z, y, x, Z, Y, X, flags[i] == LBM_OBSTACLE, post);
 #pragma unroll
   for (int q = 0; q < 19; ++q) lbm_st(f_post + q * N + i, post[q]);
   float s, m[3];
@@ -45,14 +69,15 @@ __global__ void lbm_stream_moments3d_kernel(const T* __restrict__ f,
   for (int d = 0; d < 3; ++d) m1[d * N + i] = m[d];
 }
 
-template <class T>
+template <class T, bool SLAB>
 __global__ void lbm_stream_macro3d_kernel(const T* __restrict__ f,
                                           const uint8_t* __restrict__ flags,
                                           const float* __restrict__ rho_old,
                                           const float* __restrict__ vel_old,
                                           T* __restrict__ f_post, float* __restrict__ rho,
                                           float* __restrict__ vel, float* __restrict__ den, int Z,
-                                          int Y, int X, double c, LbmGas gas) {
+                                          int Y, int X, double c, LbmGas gas,
+                                          const T* __restrict__ lo, const T* __restrict__ hi) {
   const long long N = static_cast<long long>(Z) * Y * X;
   const long long i = lbm_cell();
   if (i >= N) return;
@@ -61,7 +86,7 @@ __global__ void lbm_stream_macro3d_kernel(const T* __restrict__ f,
   const int z = static_cast<int>(i / (static_cast<long long>(X) * Y));
   const bool obs = flags[i] == LBM_OBSTACLE;
   float post[19];
-  lbm_pull_at(f, N, i, lbm_pull_offsets(z, y, x, Z, Y, X), obs, post);
+  lbm_stream_pull<T, SLAB>(f, lo, hi, N, i, z, y, x, Z, Y, X, obs, post);
 #pragma unroll
   for (int q = 0; q < 19; ++q) lbm_st(f_post + q * N + i, post[q]);
   float m0, m1[3];
@@ -77,20 +102,29 @@ __global__ void lbm_stream_macro3d_kernel(const T* __restrict__ f,
 template <class T>
 static void lbm_stream_moments3d_launch(const void* f, const uint8_t* flags, void* f_post,
                                         float* m0, float* m1, int Z, int Y, int X,
-                                        cudaStream_t stream) {
+                                        const void* lo, const void* hi, cudaStream_t stream) {
   const long long N = static_cast<long long>(Z) * Y * X;
-  lbm_stream_moments3d_kernel<T><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
-      static_cast<const T*>(f), flags, static_cast<T*>(f_post), m0, m1, Z, Y, X);
+  const T *tlo = static_cast<const T*>(lo), *thi = static_cast<const T*>(hi);
+  if (lo != nullptr)
+    lbm_stream_moments3d_kernel<T, true><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
+        static_cast<const T*>(f), flags, static_cast<T*>(f_post), m0, m1, Z, Y, X, tlo, thi);
+  else
+    lbm_stream_moments3d_kernel<T, false><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
+        static_cast<const T*>(f), flags, static_cast<T*>(f_post), m0, m1, Z, Y, X, tlo, thi);
 }
 
-// f and f_post in float32, or in bfloat16 where bf16 is nonzero
+// f and f_post in float32, or in bfloat16 where bf16 is nonzero; lo and hi
+// (5 channels of one plane each, f's type) give the slab form, null the
+// whole domain's
 extern "C" int lbm_stream_moments3d(const void* f, const uint8_t* flags, void* f_post, float* m0,
-                                    float* m1, int Z, int Y, int X, int bf16, void* stream) {
+                                    float* m1, int Z, int Y, int X, int bf16, const void* lo,
+                                    const void* hi, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((lo == nullptr) != (hi == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
-    lbm_stream_moments3d_launch<__nv_bfloat16>(f, flags, f_post, m0, m1, Z, Y, X, st);
+    lbm_stream_moments3d_launch<__nv_bfloat16>(f, flags, f_post, m0, m1, Z, Y, X, lo, hi, st);
   else
-    lbm_stream_moments3d_launch<float>(f, flags, f_post, m0, m1, Z, Y, X, st);
+    lbm_stream_moments3d_launch<float>(f, flags, f_post, m0, m1, Z, Y, X, lo, hi, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -98,26 +132,35 @@ template <class T>
 static void lbm_stream_macro3d_launch(const void* f, const uint8_t* flags, const float* rho_old,
                                       const float* vel_old, void* f_post, float* rho, float* vel,
                                       float* den, int Z, int Y, int X, double c, LbmGas gas,
-                                      cudaStream_t stream) {
+                                      const void* lo, const void* hi, cudaStream_t stream) {
   const long long N = static_cast<long long>(Z) * Y * X;
-  lbm_stream_macro3d_kernel<T><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
-      static_cast<const T*>(f), flags, rho_old, vel_old, static_cast<T*>(f_post), rho, vel, den,
-      Z, Y, X, c, gas);
+  const T *tlo = static_cast<const T*>(lo), *thi = static_cast<const T*>(hi);
+  if (lo != nullptr)
+    lbm_stream_macro3d_kernel<T, true><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
+        static_cast<const T*>(f), flags, rho_old, vel_old, static_cast<T*>(f_post), rho, vel,
+        den, Z, Y, X, c, gas, tlo, thi);
+  else
+    lbm_stream_macro3d_kernel<T, false><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
+        static_cast<const T*>(f), flags, rho_old, vel_old, static_cast<T*>(f_post), rho, vel,
+        den, Z, Y, X, c, gas, tlo, thi);
 }
 
-// f and f_post in float32, or in bfloat16 where bf16 is nonzero
+// f and f_post in float32, or in bfloat16 where bf16 is nonzero; lo and hi
+// (5 channels of one plane each, f's type) give the slab form, null the
+// whole domain's
 extern "C" int lbm_stream_macro3d(const void* f, const uint8_t* flags, const float* rho_old,
                                   const float* vel_old, void* f_post, float* rho, float* vel,
                                   float* den, int Z, int Y, int X, double c, double rho_gas,
                                   double rho_fluid, double den_gas, double den_fluid, int bf16,
-                                  void* stream) {
+                                  const void* lo, const void* hi, void* stream) {
   const LbmGas gas = lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((lo == nullptr) != (hi == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
     lbm_stream_macro3d_launch<__nv_bfloat16>(f, flags, rho_old, vel_old, f_post, rho, vel, den,
-                                             Z, Y, X, c, gas, st);
+                                             Z, Y, X, c, gas, lo, hi, st);
   else
     lbm_stream_macro3d_launch<float>(f, flags, rho_old, vel_old, f_post, rho, vel, den, Z, Y, X,
-                                     c, gas, st);
+                                     c, gas, lo, hi, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,22 +59,25 @@ With ``mesh`` (``parallel/mesh.py``: this rank's place among the ranks of a
 ('batch', 'z') mesh) :func:`prime_premac` and :func:`ferrofluid_step` take
 and return this rank's part of the state (``parallel/sharding.py``), as the
 JAX step's ``mesh=`` does (:318-358, :419-466, :583-735, :979-1026 there).
-On a z-slab mesh (``nz > 1``, or ``slab=True``) the routes with the scalar
-carry run on the kernels' slab forms (``parallel/step3d.py``): the
-capillogue steady state (6 leaves: B1, B2, B3); the epilogue steady state
-(5 leaves), which is also what an out-of-plane field (``h_ext_axis=2``)
-primes to, and the un-carried step (premac None: B4 each step), each
-through B1, B2, B10b (the Laplacian of density(rho_ca), the density map
-taken as B6's single-device kernel takes it, so the routes equal the
-single-device ones bit for bit), B6 with that Laplacian as an input, and
-B5 (with ``emit_mac`` on 5 leaves), as the JAX
-meshed step takes the capillogue only for a 6-leaf premac (:588-592
-there).  An out-of-plane field's Poisson source reads phi a plane across
+On a z-slab mesh (``nz > 1``, or ``slab=True``) every 3D route runs on the
+kernels' slab forms (``parallel/step3d.py``): the capillogue steady state
+(6 leaves: the solve, B2, B3); the epilogue steady state (5 leaves), which
+is also what an out-of-plane field (``h_ext_axis=2``) primes to, and the
+un-carried step (premac None: B4 each step), each through the solve, B2,
+B10b (the Laplacian of density(rho_ca), the density map taken as B6's
+single-device kernel takes it, so the routes equal the single-device ones
+bit for bit), B6 with that Laplacian as an input, and B5 (with
+``emit_mac`` on 5 leaves), as the JAX meshed step takes the capillogue
+only for a 6-leaf premac (:588-592 there).  The solve takes the form of
+``state.h``: the scalar carry (B1's slab rounds) or the 19-channel h
+(``ops/magnetic.py:solve_H_int`` with ``mesh``: B11b's slab rounds, the
+substitution, B10a), which priming keeps where the collapse does not
+apply.  An out-of-plane field's Poisson source reads phi a plane across
 the slab's faces (``step3d.poisson_rhs_sharded``).  Priming and the step
-run the same gates (:func:`_slab_gates`); the routes left raise
-``NotImplementedError`` naming their ROADMAP A12 slice (the channel form,
-``phys_extent``, 2D).  On a batch mesh (``nz == 1``) each rank steps its
-own batch element on the single-device route its state selects.
+run the same gates (:func:`_slab_gates`); ``phys_extent`` and 2D raise
+``NotImplementedError`` naming their ROADMAP A12 slice.  On a batch mesh
+(``nz == 1``) each rank steps its own batch element on the single-device
+route its state selects.
 
 Every entry point runs on the card unless ``device="cpu"`` is passed, and
 the kernels run unless ``plain=True`` is passed, which selects their plain
@@ -354,9 +357,10 @@ def _slab_gates(params: SimulationParams, state, mesh, plain, primed):
     """The gates of the z-slab routes, shared by priming and the step with
     the same messages (ROADMAP C7: a state primed on one device and cut
     onto a slab mesh meets them at its first step): one batch element a
-    rank, slabs of 4 or more planes (B4, B5, B6 and B3), the scalar carry
-    (``primed``: already in ``state.h``, as the step never converts it),
-    a plan of B1's slab rounds, and the kernels' grid on the card."""
+    rank, slabs of 4 or more planes (B4, B5, B6 and B3), a plan of the
+    solve's slab rounds in the form h will have (``primed``: as
+    ``state.h`` has it, since the step never converts it), and the
+    kernels' grid on the card."""
     from ..parallel import step3d
 
     shape = step3d.global_shape(state.f.shape, mesh)
@@ -372,23 +376,31 @@ def _slab_gates(params: SimulationParams, state, mesh, plain, primed):
                          "more planes a rank; use fewer ranks along z")
     if not step3d.fused_step_sharded_ok(mesh, shape, params.kbc_type):
         raise step3d.unported(f"kbc_type={params.kbc_type}")
-    if state.h.shape[1] != 2 and (primed or not _scalar_physics_ok(params,
-                                                                  state.magnetic_flags)):
-        raise step3d.unported(
-            "the channel-form (19-channel) magnetic solve" + (
-                " (prime_premac(..., mesh=) converts h to the scalar carry where the collapse "
-                "applies)" if primed else ""), 2)
-    if not step3d.scalar_sharded_ok(mesh, (1, 2, *shape[2:]), params.poisson_iters):
+    if _channel_form(params, state, primed):
+        if not step3d.channel_sharded_ok(mesh, (1, 19, *shape[2:]), params.poisson_iters):
+            raise step3d.unported(f"{params.poisson_iters} channel-form sweeps on slabs of "
+                                  f"{shape[2] // mesh.nz} planes (no round plan)")
+    elif not step3d.scalar_sharded_ok(mesh, (1, 2, *shape[2:]), params.poisson_iters):
         raise step3d.unported(f"{params.poisson_iters} sweeps on slabs of "
                               f"{shape[2] // mesh.nz} planes (no round plan)")
     check_kernel_grid(state.f, plain)
 
 
+def _channel_form(params: SimulationParams, state, primed) -> bool:
+    """Whether the step solves on a 19-channel h: ``state.h`` has 19
+    channels and, before priming (``primed`` False), the collapse to the
+    scalar carry does not apply."""
+    return state.h.shape[1] != 2 and (primed or not _scalar_physics_ok(params,
+                                                                       state.magnetic_flags))
+
+
 def _prime_premac_slab(params: SimulationParams, state, mesh, plain):
     """:func:`prime_premac` on a z-slab mesh: B4's slab form, the scalar
-    carry converted across the slab's faces, and the 6-leaf premac of the
-    capillogue steady state, or with an out-of-plane field the 5-leaf one
-    that keeps phi, force and H_ext (JAX :979-1022)."""
+    carry converted across the slab's faces where the collapse applies
+    (else the 19-channel h kept, JAX ``_scalar_convert(mesh=)`` :845-893),
+    and the 6-leaf premac of the capillogue steady state, or with an
+    out-of-plane field the 5-leaf one that keeps phi, force and H_ext (JAX
+    :979-1022)."""
     from ..parallel import step3d
 
     _slab_gates(params, state, mesh, plain, primed=False)
@@ -399,7 +411,7 @@ def _prime_premac_slab(params: SimulationParams, state, mesh, plain):
         density_fluid=params.density_fluid, plain=plain,
     )
     h, cmask = state.h, state.cmask
-    if h.shape[1] != 2:
+    if h.shape[1] != 2 and not _channel_form(params, state, primed=False):
         h, cmask = step3d.scalar_convert_sharded(state.h, state.magnetic_flags, mesh)
     if params.h_ext_axis == 2:
         return state.replace(h=h, cmask=cmask, premac=tuple(premac))
@@ -466,13 +478,33 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
     )
 
 
+def _solve_slab(params: SimulationParams, state, rhs, mesh, plain):
+    """(H2, h') of the magnetic solve on the rank's slab, in the form that
+    ``state.h`` has: B1's slab rounds on the scalar carry, else
+    :func:`~..ops.magnetic.solve_H_int` with ``mesh`` (B11b's slab rounds,
+    the substitution, B10a)."""
+    from ..parallel import step3d
+
+    if state.h.shape[1] == 2:
+        return step3d.scalar_poisson_sharded(state.h, state.cmask, rhs, mesh,
+                                             n_iters=params.poisson_iters, dx=float(params.dx),
+                                             h_ext=_hext_static(params), plain=plain)
+    return solve_H_int(
+        params.lattice, state.h, None, state.magnetic_flags, None, tau=float(params.tau),
+        n_iters=params.poisson_iters, dx=params.dx, dt=params.dt, rhs_scaled=rhs,
+        h2_ext=_hext_static(params), plain=plain, mesh=mesh,
+    )
+
+
 def _ferrofluid_step_slab(params: SimulationParams, state, mesh, plain):
     """:func:`ferrofluid_step` on a z-slab mesh, by ``state.premac`` as on
-    one device: 6 leaves, the capillogue steady state (B1, B2, B3; JAX
-    :440-472, :588-634); 5 leaves (an in-plane or an out-of-plane field)
-    and None, the epilogue route (B4 first when None; B1, B2, B10b, B6, B5
-    with ``emit_mac`` on 5 leaves; JAX :318-359, :455-471, :636-686,
-    :708-735).  Each kernel runs its slab form (``parallel/step3d.py``)."""
+    one device: 6 leaves, the capillogue steady state (the solve, B2, B3;
+    JAX :440-472, :588-634); 5 leaves (an in-plane or an out-of-plane
+    field) and None, the epilogue route (B4 first when None; the solve, B2,
+    B10b, B6, B5 with ``emit_mac`` on 5 leaves; JAX :318-359, :455-471,
+    :636-686, :708-735); the solve by the form of ``state.h``
+    (:func:`_solve_slab`).  Each kernel runs its slab form
+    (``parallel/step3d.py``)."""
     from ..parallel import step3d
 
     _slab_gates(params, state, mesh, plain, primed=True)
@@ -488,10 +520,9 @@ def _ferrofluid_step_slab(params: SimulationParams, state, mesh, plain):
     dx, dt = float(params.dx), float(params.dt)
     grav = tuple(float(v) for v in params.gravity_vec().reshape(-1))
     hcz = dict(tau_f=float(params.tau_f), tau_g=float(params.tau_g), dx=dx, dt=dt)
-    solve = dict(n_iters=params.poisson_iters, dx=dx, h_ext=_hext_static(params), plain=plain)
     if premac is not None and len(premac) == 6:
         rho, vel, density, m0g, m1g, rhs = premac
-        H2, h = step3d.scalar_poisson_sharded(state.h, state.cmask, rhs, mesh, **solve)
+        H2, h = _solve_slab(params, state, rhs, mesh, plain)
         rho_ca = step3d.contact3d_sharded(rho, state.flags, float(params.contact_angle), mesh,
                                           plain=plain)
         f, g, vel, pressure, density, premac = step3d.capillogue_sharded(
@@ -511,7 +542,7 @@ def _ferrofluid_step_slab(params: SimulationParams, state, mesh, plain):
     phi = phi_from_density(density, params.density_gas, params.density_fluid)
     rhs = step3d.poisson_rhs_sharded(phi, state.magnetic_flags, mesh, _hext_static(params),
                                      tau=params.tau, dx=dx, dt=dt)
-    H2, h = step3d.scalar_poisson_sharded(state.h, state.cmask, rhs, mesh, **solve)
+    H2, h = _solve_slab(params, state, rhs, mesh, plain)
     rho_ca = step3d.contact3d_sharded(rho, state.flags, float(params.contact_angle), mesh,
                                       plain=plain)
     density_ca = rho_to_density(rho_ca, **gas)

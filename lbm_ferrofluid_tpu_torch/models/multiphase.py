@@ -192,6 +192,9 @@ def init_hcz_state(params: SimulationParams, rho, density, vel, flags,
 
 
 def _maybe_pin(state, vel):
+    """``vel`` with the state's pinned velocities, if it carries a mask
+    (on a z-slab mesh the rank's part of the mask and values, which
+    ``shard_state`` cuts)."""
     if getattr(state, "vel_pin_mask", None) is not None:
         return torch.where(state.vel_pin_mask, state.vel_pin_value, vel)
     return vel
@@ -235,19 +238,63 @@ def capillary_collide_2d(params: SimulationParams, state, f, g, rho, vel, densit
     return f, g, rho_ca, vel, density, pressure, force
 
 
+def _hcz_step_slab(params: SimulationParams, state, mesh, plain):
+    """:func:`hcz_step` on a z-slab mesh (JAX ``_hcz_step_shared`` :175-256
+    with ``mesh``, ``ops/collide.py`` :631-690): B8b, B8a, B2, B10b (of
+    rho_ca with its density map, as B6's single-device kernel builds the
+    Laplacian), B6 in slab form, then B9 on the rank's planes (the collide
+    is local); the pins are the rank's part of the state's."""
+    from ..parallel import step3d
+
+    shape = step3d.global_shape(state.f.shape, mesh)
+    if params.dim != 3:
+        raise step3d.unported("a 2D state", 4)
+    if shape[2] // mesh.nz < 4:
+        raise ValueError(f"a slab of {shape[2] // mesh.nz} planes: the slab forms need 4 or "
+                         "more planes a rank; use fewer ranks along z")
+    check_kernel_grid(state.f, plain)
+    dx, dt = float(params.dx), float(params.dt)
+    gas = _gas(params)
+    collide = hcz_collide_fused_plain if plain else hcz_collide_fused
+    f, rho, vel, density = step3d.stream_bounce_macro_sharded(
+        state.f, state.flags, state.rho, state.vel, mesh, c=dx / dt, plain=plain, **gas)
+    g, m0g, m1g = step3d.stream_bounce_moments_sharded(state.g, state.flags, mesh, plain=plain)
+    vel = _maybe_pin(state, vel)
+    rho_ca = step3d.contact3d_sharded(rho, state.flags, float(params.contact_angle), mesh,
+                                      plain=plain)
+    lap = step3d.laplacian_field_sharded(rho_ca, mesh, dx=dx, density_of=tuple(gas.values()),
+                                         plain=plain)
+    vel, pressure, force, dfai, dprho = step3d.capmac_sharded(
+        lap, rho, density, state.pressure, rho_ca, None, None, state.flags, m0g, m1g, vel,
+        mesh, kappa=float(params.kappa),
+        gravity=tuple(float(v) for v in params.gravity_vec().reshape(-1)), dx=dx, dt=dt,
+        plain=plain, **gas,
+    )
+    density = rho_to_density(rho_ca, **gas)
+    vel = _maybe_pin(state, vel)
+    f, g = collide(f, g, rho_ca, vel, density, pressure, state.flags, force, dfai, dprho,
+                   tau_f=float(params.tau_f), tau_g=float(params.tau_g), dx=dx, dt=dt)
+    return state.replace(f=f, g=g, rho=rho_ca, vel=vel, density=density,
+                         pressure=pressure, force=force, step=state.step + 1)
+
+
 def hcz_step(params: SimulationParams, state: HCZState, *, device=None,
              plain=False, mesh=None) -> HCZState:
     """One HCZ step.  ``plain=True`` runs the kernels' plain PyTorch
     versions (on any device) instead of the kernels; a 2D step runs the
-    plain ops and launches no kernel.  With a batch ``mesh`` (nz == 1)
-    each rank steps its own batch element; a z-slab mesh raises (the slab
-    forms of B8a and B8b are ROADMAP A12 slice 3; B9 is local)."""
+    plain ops and launches no kernel.  With ``mesh`` the state is this
+    rank's part (``parallel/sharding.py``): on a batch mesh (nz == 1) each
+    rank steps its own batch element; on a z-slab mesh (``nz > 1``, or
+    ``slab=True``) a 3D state steps on the kernels' slab forms
+    (:func:`_hcz_step_slab`), bit for bit to one device."""
     if mesh is not None:
-        from ..parallel.step3d import dp_dispatch, unported
+        from ..parallel.step3d import dp_dispatch
 
-        if not dp_dispatch(mesh):
-            raise unported("hcz_step", 3)
         device = mesh.device.type if device is None else device
+        if not dp_dispatch(mesh):
+            check_device(state.f, device)
+            check_supported(params, state.f)
+            return _hcz_step_slab(params, state, mesh, plain)
     check_device(state.f, device)
     check_supported(params, state.f)
     if params.dim == 2:

@@ -156,11 +156,15 @@ BF16_FORMS = ("B3", "B4", "B5", "B8a", "B8b", "B9", "B11b")
 #: the kernels with a slab form (``ghosts=``: a z-slab of a domain
 #: decomposed along z over ranks, ``parallel/step3d.py``), whose launches
 #: ``launches_slab`` counts: the z-slab paths of the capillogue steady
-#: state (B1, B2, B3, B4 at priming), and of the epilogue steady state, the
-#: out-of-plane field and the un-carried step (B1, B2, B10b, B6, B5, B4)
-SLAB_FORMS = ("B1", "B2", "B3", "B4", "B5", "B6", "B10b")
+#: state (the solve, B2, B3, B4 at priming), and of the epilogue steady
+#: state, the out-of-plane field and the un-carried step (the solve, B2,
+#: B10b, B6, B5, B4), the solve B1 on the scalar carry or B11b and B10a
+#: on a 19-channel h; the HCZ step (B8b, B8a, B2, B10b, B6; B9 is local)
+SLAB_FORMS = ("B1", "B2", "B3", "B4", "B5", "B6", "B8a", "B8b", "B10a", "B10b", "B11b")
 
-#: the TPU kernels' ghost modes that the slab forms replace
+#: the TPU kernels' ghost modes that the slab forms replace (B11b's slab
+#: form is the counterpart of B7's ghost-ref mode, the TPU's only channel-
+#: form kernel with ghosts)
 SLAB_TPU_KERNELS = {
     "B1": "lbm_ferrofluid_tpu/ops/pallas/scalar_poisson.py:562",
     "B2": "lbm_ferrofluid_tpu/ops/pallas/contact3d.py:309",
@@ -168,7 +172,12 @@ SLAB_TPU_KERNELS = {
     "B4": "lbm_ferrofluid_tpu/ops/pallas/fused_step.py:721",
     "B5": "lbm_ferrofluid_tpu/ops/pallas/fused_step.py:779",
     "B6": "lbm_ferrofluid_tpu/ops/pallas/capmac.py:383",
+    "B8a": "lbm_ferrofluid_tpu/ops/pallas/stream3d.py:164",
+    "B8b": "lbm_ferrofluid_tpu/ops/pallas/stream3d.py:231",
+    "B10a": "lbm_ferrofluid_tpu/ops/pallas/stencil3d.py:176",
     "B10b": "lbm_ferrofluid_tpu/ops/pallas/stencil3d.py:242",
+    "B11b": "lbm_ferrofluid_tpu/ops/pallas/poisson.py:1301 (poisson_wavefront, B7, in its "
+            "ghost-ref mode: ghosts=, emit_bands=)",
 }
 
 

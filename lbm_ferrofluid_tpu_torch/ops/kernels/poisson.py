@@ -29,6 +29,20 @@ take the element size.
 
 Bound on an H100 (card peaks from NVIDIA's data sheet): see :func:`cost`;
 bytes bound it, 0.81 ms at 256^3 for 30 sweeps (0.43 ms in bfloat16).
+
+The slab form (``ghosts=``: the TPU wavefront's ghost-ref mode, B7's
+``ghosts=`` and ``emit_bands=``, for a z-slab of a domain decomposed along
+z over ranks, ``parallel/step3d.py``) is one pass of k <= ``MAX_K``
+sweeps: ``h`` holds the slab's Zl real planes, ``ghosts = (lo, hi)`` the
+neighbours' G >= k nearest planes below and above ([1, 19, G, Y, X] each,
+read in place: the slab is never copied into an extended array), and the
+flags and rhs cover the slab extended by G planes a side.  The walk covers
+planes -k..Zl + k - 1 without a wrap, so the valid region shrinks a plane
+a sweep and the real planes are exact after the k sweeps; only they are
+written, psi with ``emit_psi``, and with ``emit_bands`` the first and last
+G planes again as the bands the next exchange sends.  One launch
+(``launches_slab``); its plain version sweeps the slab extended by its
+bands' k nearest planes.
 """
 
 from __future__ import annotations
@@ -59,6 +73,9 @@ __all__ = [
     "poisson_sweeps_plain",
     "sweep_cell",
     "cost",
+    "cost_slab",
+    "slab_plan",
+    "SLAB_EXT_HEIGHTS",
 ]
 
 TPU_KERNEL = ("lbm_ferrofluid_tpu/ops/pallas/poisson.py:200 (poisson_sweeps, B11b; also "
@@ -79,6 +96,9 @@ _OBS = int(CellType.OBSTACLE)
 EXT_WIDTH = 32
 MAX_K = 4
 EXT_HEIGHTS = (5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 18)
+#: the extended heights of the slab form's instances (csrc/poisson.cu:
+#: PP_SLAB_HEIGHTS): those of :func:`slab_plan`'s passes of k = 1..MAX_K
+SLAB_EXT_HEIGHTS = (9, 11, 13, 15)
 RING_FLOATS = 38
 #: shared memory one block may use on an H100 (PP_SMEM_MAX), and the SM's
 #: (228 KB, of which 1 KB is reserved for each resident block)
@@ -155,23 +175,10 @@ def check_pass(k: int, ty: int, elem: int = 4) -> None:
                          f"memory, more than {SMEM_BLOCK_MAX}")
 
 
-@functools.lru_cache(maxsize=None)
-def plan(Z: int, Y: int, X: int, n_iters: int, sms: int, elem: int = 4) -> PoissonPlan:
-    """The passes of ``n_iters`` sweeps on a Z x Y x X grid, on a card of
-    ``sms`` SMs, with h in ``elem``-byte elements: passes of ``K`` sweeps on
-    tiles ``TY`` high.
-
-    The z chunk: a block (a tile and a chunk) walks lz + 2k - 2 planes,
-    and the blocks run in waves of as many as the SMs hold, so lz
-    minimises waves x (lz + 2k - 2); ties go to the larger lz.  Raises
-    where a pass does not pass :func:`check_pass`.
-    """
-    if min(Z, Y, X) < 1:
-        raise ValueError(f"grid {(Z, Y, X)}: every axis needs a cell")
-    ps, ty = passes(n_iters), TY
-    for k in set(ps):
-        check_pass(k, ty, elem)
-    k = ps[0]
+def _chunk(Z: int, Y: int, X: int, k: int, ty: int, sms: int, elem: int) -> int:
+    """The z chunk of a pass: a block (a tile and a chunk) walks lz + 2k -
+    2 planes, and the blocks run in waves of as many as the SMs hold, so
+    lz minimises waves x (lz + 2k - 2); ties go to the larger lz."""
     # resident blocks an SM, as shared memory and the SM's 2048 threads
     # allow them
     slots = min(2048 // threads(k, ty), SMEM_SM // (smem_bytes(k, ty, elem) + 1024)) * sms
@@ -180,8 +187,22 @@ def plan(Z: int, Y: int, X: int, n_iters: int, sms: int, elem: int = 4) -> Poiss
     def ticks(lz):
         return -(-tiles * -(-Z // lz) // slots) * (lz + 2 * k - 2)
 
-    lz = min(sorted({-(-Z // c) for c in range(1, Z + 1)}, reverse=True), key=ticks)
-    return PoissonPlan(k, ty, lz, ps)
+    return min(sorted({-(-Z // c) for c in range(1, Z + 1)}, reverse=True), key=ticks)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(Z: int, Y: int, X: int, n_iters: int, sms: int, elem: int = 4) -> PoissonPlan:
+    """The passes of ``n_iters`` sweeps on a Z x Y x X grid, on a card of
+    ``sms`` SMs, with h in ``elem``-byte elements: passes of ``K`` sweeps on
+    tiles ``TY`` high, z chunks by :func:`_chunk`.  Raises where a pass
+    does not pass :func:`check_pass`.
+    """
+    if min(Z, Y, X) < 1:
+        raise ValueError(f"grid {(Z, Y, X)}: every axis needs a cell")
+    ps, ty = passes(n_iters), TY
+    for k in set(ps):
+        check_pass(k, ty, elem)
+    return PoissonPlan(ps[0], ty, _chunk(Z, Y, X, ps[0], ty, sms, elem), ps)
 
 
 def launches_per_call(n_iters: int, shape) -> int:
@@ -207,6 +228,26 @@ def cost(h, magnetic_flags, rhs_scaled, *, tau, n_iters) -> tuple[int, int]:
     per_cell = 39 if 1.0 / tau == 1.0 else 78
     h_bytes = 19 * elem_bytes(h)
     return (2 * h_bytes + 9) * n - 4 * n_obs, n_iters * per_cell * (n - n_obs) + 18 * n_obs
+
+
+def cost_slab(h, magnetic_flags, rhs_scaled, *, tau, n_iters, rounds, G) -> tuple[int, int]:
+    """(bytes, flops) that a slab solve of ``n_iters`` sweeps in ``rounds``
+    (the sweeps of each launch, G band planes a side; flags and rhs
+    extended by G) must move and do, as :func:`cost` counts one device's
+    call: h's real planes read and written once, psi written once, the
+    flags and rhs of the Zl + 2G planes read once, and the bands each
+    round reads (the first round's from the incoming h), which the round
+    before it writes; the sweeps' flops over the planes each sweep of a
+    round's shrinking region computes (Zl + 2(k - j) at its sweep j), 78
+    or 39 a cell by tau."""
+    _, _, Zl, Y, X = h.shape
+    plane = Y * X
+    h_bytes = 19 * elem_bytes(h)
+    bands = 2 * G * h_bytes * plane * (2 * len(rounds) - 1)
+    nbytes = (2 * h_bytes + 4) * Zl * plane + 5 * (Zl + 2 * G) * plane + bands
+    per_cell = 39 if 1.0 / tau == 1.0 else 78
+    return nbytes, per_cell * plane * sum(Zl + 2 * (k - j) for k in rounds
+                                          for j in range(1, k + 1))
 
 
 def sweep_cell(s, is_obs, rhs_scaled, *, tau):
@@ -235,12 +276,26 @@ def sweep_cell(s, is_obs, rhs_scaled, *, tau):
     return torch.where(is_obs, s[:, opp], coll), psi
 
 
-def poisson_sweeps_plain(h, magnetic_flags, rhs_scaled, *, tau, n_iters):
+def poisson_sweeps_plain(h, magnetic_flags, rhs_scaled, *, tau, n_iters, ghosts=None,
+                         emit_bands=False, emit_psi=True):
     """Plain PyTorch version of :func:`poisson_sweeps`: ``n_iters`` times
     the periodic pull and :func:`sweep_cell`, each sweep's output stored in
     h's dtype (a bfloat16 h is widened to float32 for the sweep and its
     output rounded back, as the TPU kernel stores every sweep); psi is
-    float32 (float64 for a float64 h)."""
+    float32 (float64 for a float64 h).  The slab form sweeps the slab
+    extended by the k nearest planes of each band (and of the extended
+    flags and rhs), whose wrap reaches no real plane in k sweeps, and keeps
+    the real planes."""
+    if ghosts is not None:
+        k, G = n_iters, ghosts[0].shape[2]
+        Zl = h.shape[2]
+        ext = slice(G - k, G + Zl + k)
+        he, psi = poisson_sweeps_plain(
+            torch.cat([ghosts[0][:, :, G - k:], h, ghosts[1][:, :, :k]], dim=2),
+            magnetic_flags[:, :, ext], rhs_scaled[:, :, ext], tau=tau, n_iters=k)
+        h = he[:, :, k:k + Zl].contiguous()
+        out = (h, psi[:, :, k:k + Zl].contiguous() if emit_psi else None)
+        return out + ((h[:, :, :G].contiguous(), h[:, :, -G:].contiguous()),) * emit_bands
     is_obs = magnetic_flags == _OBS
     psi = None
     for _ in range(n_iters):
@@ -249,19 +304,60 @@ def poisson_sweeps_plain(h, magnetic_flags, rhs_scaled, *, tau, n_iters):
     return h, psi
 
 
-def poisson_sweeps(h, magnetic_flags, rhs_scaled, *, tau, n_iters):
+def _check_slab(h, magnetic_flags, rhs_scaled, ghosts, n_iters):
+    """Raise unless the slab form takes these inputs; returns G."""
+    _, _, Zl, Y, X = h.shape
+    G = ghosts[0].shape[2]
+    if not 1 <= n_iters <= min(MAX_K, G) or G > Zl:
+        raise ValueError(f"poisson_sweeps' slab form runs one pass of 1 <= k <= G <= Zl sweeps "
+                         f"(k <= {MAX_K}), got k = {n_iters}, G = {G}, Zl = {Zl}")
+    for name, t in zip(("ghost_lo", "ghost_hi"), ghosts, strict=True):
+        check_cuda(name, t, (h.dtype,), (1, 19, G, Y, X))
+    check_cuda("magnetic_flags", magnetic_flags, torch.uint8, (1, 1, Zl + 2 * G, Y, X))
+    check_cuda("rhs_scaled", rhs_scaled, torch.float32, (1, 1, Zl + 2 * G, Y, X))
+    return G
+
+
+@functools.lru_cache(maxsize=None)
+def slab_plan(Zl: int, Y: int, X: int, k: int, sms: int, elem: int = 4) -> PoissonPlan:
+    """The one pass of k sweeps of the slab form on a slab of Zl planes:
+    tiles ``TY`` high, or where that block does not fit the shared memory
+    the tallest below it among ``SLAB_EXT_HEIGHTS`` that does (k = 4 in
+    float32: 5 rows), z chunks by :func:`_chunk`.  Raises where no height
+    fits."""
+    if min(Zl, Y, X) < 1:
+        raise ValueError(f"grid {(Zl, Y, X)}: every axis needs a cell")
+    fits = [ty for ty in range(TY, 0, -1) if ty + 2 * (k - 1) in SLAB_EXT_HEIGHTS
+            and smem_bytes(k, ty, elem) <= SMEM_BLOCK_MAX]
+    if not fits:
+        raise ValueError(f"no slab pass of {k} sweeps fits: the slab form is built for "
+                         f"extended heights {SLAB_EXT_HEIGHTS} within {SMEM_BLOCK_MAX} B")
+    return PoissonPlan(k, fits[0], _chunk(Zl, Y, X, k, fits[0], sms, elem), (k,))
+
+
+def poisson_sweeps(h, magnetic_flags, rhs_scaled, *, tau, n_iters, ghosts=None,
+                   emit_bands=False, emit_psi=True):
     """``n_iters`` channel-form Poisson sweeps.
 
     ``h``: [1, 19, Z, Y, X] float32 or bfloat16; ``magnetic_flags``: [1, 1, Z, Y, X]
     uint8; ``rhs_scaled``: [1, 1, Z, Y, X] float32, dt * rhs * cs2 (0.5 -
     tau) dt without the channel weight.  Returns (h', psi of the last
-    pre-collision state).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel, one launch a pass of :func:`plan`; anything
-    else raises.  Inputs are not modified.
+    pre-collision state).  With ``ghosts`` the slab form (module
+    docstring), flags and rhs extended by G planes a side: returns (h', psi
+    or None without ``emit_psi``) and with ``emit_bands`` also (band_lo,
+    band_hi).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel, one launch a pass of :func:`plan` (the slab form one launch);
+    anything else raises.  Inputs are not modified.
     """
+    if ghosts is None and (emit_bands or not emit_psi):
+        raise ValueError("poisson_sweeps: emit_bands and emit_psi=False are the slab form's")
     if h.device.type == "cpu":
-        return poisson_sweeps_plain(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters)
+        return poisson_sweeps_plain(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters,
+                                    ghosts=ghosts, emit_bands=emit_bands, emit_psi=emit_psi)
     check_no_grad("poisson_sweeps", h, rhs_scaled)
+    if ghosts is not None:
+        return _sweeps_slab(h, magnetic_flags, rhs_scaled, ghosts, tau, n_iters, emit_bands,
+                            emit_psi)
     B, Q, Z, Y, X = h.shape
     check_cuda("h", h, STORAGE, (1, 19, Z, Y, X))
     check_cuda("magnetic_flags", magnetic_flags, torch.uint8, (1, 1, Z, Y, X))
@@ -282,11 +378,33 @@ def poisson_sweeps(h, magnetic_flags, rhs_scaled, *, tau, n_iters):
         dst = out if after % 2 == 0 else tmp
         call("lbm_poisson_pass", ptr(src), ptr(magnetic_flags), ptr(rhs_scaled), ptr(dst),
              ptr(None if after else psi), *dims, ctypes.c_int(k), ctypes.c_int(pl.ty),
-             ctypes.c_int(pl.lz), ctypes.c_double(tau), ctypes.c_int(bf16), st)
+             ctypes.c_int(pl.lz), ctypes.c_double(tau), ctypes.c_int(bf16), ptr(None),
+             ptr(None), ctypes.c_int(0), ptr(None), ptr(None), st)
         count_launch(poisson_sweeps, bf16)
         src = dst
     return out, psi
 
 
+def _sweeps_slab(h, magnetic_flags, rhs_scaled, ghosts, tau, k, emit_bands, emit_psi):
+    """The slab form's one launch (:func:`poisson_sweeps`)."""
+    B, Q, Zl, Y, X = h.shape
+    check_cuda("h", h, STORAGE, (1, 19, Zl, Y, X))
+    G = _check_slab(h, magnetic_flags, rhs_scaled, ghosts, k)
+    bf16 = h.dtype == torch.bfloat16
+    pl = slab_plan(Zl, Y, X, k, torch.cuda.get_device_properties(h.device).multi_processor_count,
+                   elem_bytes(h))
+    out = torch.empty_like(h)
+    psi = torch.empty((1, 1, Zl, Y, X), dtype=torch.float32, device=h.device) if emit_psi else None
+    bands = tuple(torch.empty_like(ghosts[0]) for _ in range(2)) if emit_bands else (None, None)
+    call("lbm_poisson_pass", ptr(h), ptr(magnetic_flags), ptr(rhs_scaled), ptr(out), ptr(psi),
+         ctypes.c_int(Zl), ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_int(k),
+         ctypes.c_int(pl.ty), ctypes.c_int(pl.lz), ctypes.c_double(tau), ctypes.c_int(bf16),
+         ptr(ghosts[0]), ptr(ghosts[1]), ctypes.c_int(G), ptr(bands[0]), ptr(bands[1]),
+         stream_of(h))
+    count_launch(poisson_sweeps, bf16, "slab")
+    return (out, psi, bands) if emit_bands else (out, psi)
+
+
 poisson_sweeps.launches = 0
 poisson_sweeps.launches_bf16 = 0
+poisson_sweeps.launches_slab = 0

@@ -41,6 +41,15 @@ density(rho_ca) as B6's single-device kernel builds it, so that the z-slab
 route's (B6's slab form takes it as an input) equals the single-device
 route's bit for bit; the plain version maps with
 ``ops/moments.py:rho_to_density``.
+
+B10a's slab form (``ghosts=``, ``clamp=``: the TPU kernel's ghost_lo and
+ghost_hi with its caller's fix, ``parallel/step3d.py:grad_fields_sharded``)
+takes each field's neighbour planes, ``ghosts = (lo, hi)`` [1, N, 1, Y, X]
+each, and the same z clamp: the output ring is replicated in x and y on
+every slab and in z only at the domain's true edges (``launches_slab``,
+one a chunk of fields); its plain version is :func:`grad_fields_plain` of
+the slab extended by the ghost planes, with the true edges' planes
+replicated from their neighbours.
 """
 
 from __future__ import annotations
@@ -59,7 +68,7 @@ from ._lib import (call, check_cuda, check_no_grad, check_slab_clamp, count_laun
 
 __all__ = [
     "grad_fields", "grad_fields_plain", "cost", "laplacian_field", "laplacian_field_plain",
-    "cost_laplacian", "cost_laplacian_slab", "capillary_stack", "hcz_capillary_stencils", "plan", "StencilPlan", "chunks",
+    "cost_laplacian", "cost_laplacian_slab", "cost_slab", "capillary_stack", "hcz_capillary_stencils", "plan", "StencilPlan", "chunks",
     "launches_per_call", "TILES", "fits",
 ]
 
@@ -158,26 +167,56 @@ def cost(fields, **_) -> tuple[int, int]:
     return 16 * n_fields * n, 33 * n_fields * (Z - 2) * (Y - 2) * (X - 2)
 
 
-def grad_fields_plain(fields, *, dx=1.0):
+def cost_slab(fields, ghosts=None, clamp=None, **_) -> tuple[int, int]:
+    """:func:`cost` of the slab form: the two ghost planes of each field
+    read once more; the stencil at the planes that ``clamp`` computes (a
+    true edge's plane copies its neighbour's)."""
+    _, n_fields, Z, Y, X = fields.shape
+    planes = Z - (clamp[0] > 0) - (clamp[1] < Z)
+    return 16 * n_fields * Z * Y * X + 8 * n_fields * Y * X, 33 * n_fields * planes * (
+        Y - 2) * (X - 2)
+
+
+def grad_fields_plain(fields, ghosts=None, clamp=None, *, dx=1.0):
     """Plain PyTorch version of :func:`grad_fields`, for any grid: the
     stencil with replicate reads at every cell, then the boundary ring
     replaced from the interior (the TPU kernel's rule, and for Z < 4 its
-    ``fix_ring_replicate`` post-pass)."""
-    return grad_ring_replicate(fields, dx)
+    ``fix_ring_replicate`` post-pass).  The slab form takes the gradients
+    of the slab extended by its ghost planes (their x/y ring replicated),
+    keeps the slab's planes and replicates the true edges' planes from
+    their neighbours."""
+    if ghosts is None:
+        return grad_ring_replicate(fields, dx)
+    out = grad_ring_replicate(torch.cat([ghosts[0], fields, ghosts[1]], dim=2),
+                              dx)[:, :, 1:-1].contiguous()
+    if clamp[0] > 0:
+        out[:, :, 0] = out[:, :, 1]
+    if clamp[1] < fields.shape[2]:
+        out[:, :, -1] = out[:, :, -2]
+    return out
 
 
-def grad_fields(fields, *, dx=1.0):
+def grad_fields(fields, ghosts=None, clamp=None, *, dx=1.0):
     """(gx, gy, gz) of each of N fields, ``[1, N, Z, Y, X]`` float32 ->
     ``[1, 3N, Z, Y, X]``, with the boundary ring replicated from the
-    interior.  Obstacle substitution is the caller's.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel, ``launches_per_call``
-    times; anything else raises.  The input is not modified."""
+    interior; with ``ghosts`` and ``clamp`` the slab form (module
+    docstring).  Obstacle substitution is the caller's.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel,
+    ``launches_per_call`` times; anything else raises.  The input is not
+    modified."""
+    if (ghosts is None) != (clamp is None):
+        raise ValueError("grad_fields: give ghosts and clamp together, or neither")
     if fields.device.type == "cpu":
-        return grad_fields_plain(fields, dx=dx)
+        return grad_fields_plain(fields, ghosts, clamp, dx=dx)
     check_no_grad("grad_fields", fields)
     B, n_fields, Z, Y, X = fields.shape
     check_cuda("fields", fields, torch.float32, (1, n_fields, Z, Y, X))
-    if min(Z, Y, X) < grad_fields.min_axis or n_fields < 1:
+    if ghosts is not None:
+        for name, t in zip(("ghost_lo", "ghost_hi"), ghosts, strict=True):
+            check_cuda(name, t, torch.float32, (1, n_fields, 1, Y, X))
+        check_slab_clamp("grad_fields", clamp, Z, grad_fields.min_planes)
+    if (min(Y, X, Z if ghosts is None else grad_fields.min_axis) < grad_fields.min_axis
+            or n_fields < 1):
         raise ValueError(f"grad_fields needs Z, Y, X >= {grad_fields.min_axis} and at least "
                          "one field")
     out = torch.empty((1, 3 * n_fields, Z, Y, X), dtype=torch.float32, device=fields.device)
@@ -185,17 +224,24 @@ def grad_fields(fields, *, dx=1.0):
     f0 = 0
     for n in chunks(n_fields):
         pl = plan(Z, Y, X, sms, n)
-        call("lbm_grad_fields", ptr(fields[:, f0:f0 + n]), ptr(out[:, 3 * f0:3 * (f0 + n)]),
-             ctypes.c_int(n), ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X),
-             *(ctypes.c_int(v) for v in pl), ctypes.c_double(dx), stream_of(fields))
-        grad_fields.launches += 1
+        lo, hi = (None, None) if ghosts is None else (g[:, f0:f0 + n] for g in ghosts)
+        call("lbm_grad_fields", ptr(fields[:, f0:f0 + n]), ptr(lo), ptr(hi),
+             ptr(out[:, 3 * f0:3 * (f0 + n)]), ctypes.c_int(n), ctypes.c_int(Z),
+             ctypes.c_int(Y), ctypes.c_int(X), *(ctypes.c_int(v) for v in pl),
+             *(ctypes.c_int(v) for v in (clamp or (1, Z - 2))), ctypes.c_double(dx),
+             stream_of(fields))
+        count_launch(grad_fields, False, None if ghosts is None else "slab")
         f0 += n
     return out
 
 
 grad_fields.launches = 0
+grad_fields.launches_bf16 = 0
+grad_fields.launches_slab = 0
 #: cells an axis needs at least (the ring copies from the interior)
 grad_fields.min_axis = 4
+#: planes a slab of the slab form needs at least
+grad_fields.min_planes = 2
 
 
 def cost_laplacian(field, **_) -> tuple[int, int]:

@@ -147,17 +147,23 @@ def h_int_from_psi(psi, magnetic_flags, *, dx, h2_ext, grad=None):
 
 
 def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters=30,
-                dx=1.0, dt=1.0, rhs_scaled=None, h2_ext=None, plain=False):
+                dx=1.0, dt=1.0, rhs_scaled=None, h2_ext=None, plain=False, mesh=None):
     """``n_iters`` sweeps of [stream -> bounce-back -> relaxation] on the
     Q-channel h; returns (H_int of the last sweep's psi, h'), or (H2, h')
     with ``h2_ext``.
 
-    3D CUDA tensors run the hand-written kernels: the sweeps (B11b,
+    3D runs the hand-written kernels' wrappers: the sweeps (B11b,
     ``ops/kernels/poisson.py``), then the obstacle substitution of psi and
     the gradient (B10a, ``ops/kernels/stencil3d.py``), as the JAX
-    package's psi route (:452-478).  CPU tensors, and ``plain=True`` on any
-    device, run the plain body (:480-502).  ``rhs_scaled`` defaults to
-    :func:`poisson_rhs_scaled` of ``phi``.
+    package's psi route (:452-478); on CPU tensors, and with ``plain=True``
+    on any device, their plain versions, which the kernels equal cell for
+    cell.  With a z-slab ``mesh`` (``parallel/step3d.py``) h, the flags and
+    the source are the rank's slab, and each runs its slab form: B11b in
+    rounds whose bands the ranks exchange, the substitution with its z pad
+    at the domain's true edges only (JAX pads the whole domain, :466-475),
+    B10a with one psi plane a side.  2D runs the JAX body (:480-502) on any
+    device.  ``rhs_scaled`` defaults to :func:`poisson_rhs_scaled` of
+    ``phi``.
 
     bfloat16 h is widened to float32 for each sweep and its output rounded
     back, as the JAX body and the TPU kernel store it (psi stays float32).
@@ -168,12 +174,22 @@ def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters
     if rhs_scaled is None:
         rhs_scaled = poisson_rhs_scaled(phi, magnetic_flags, h2_ext, tau=tau, dx=dx, dt=dt,
                                         H_ext_mac=H_ext_mac)
-    if not plain and h.device.type != "cpu" and lat.dim == 3:
-        from .kernels.poisson import poisson_sweeps
-        from .kernels.stencil3d import grad_fields
+    if lat.dim == 3:
+        if mesh is not None:
+            from ..parallel import step3d
 
-        h, psi = poisson_sweeps(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters)
-        return h_int_from_psi(psi, magnetic_flags, dx=dx, h2_ext=h2_ext, grad=grad_fields), h
+            if not step3d.dp_dispatch(mesh):
+                h, psi = step3d.poisson_sweeps_sharded(h, magnetic_flags, rhs_scaled, mesh,
+                                                       tau=tau, n_iters=n_iters, plain=plain)
+                psi_sub = step3d.substitute_obstacles_sharded(psi, magnetic_flags, mesh)
+                return maybe_h2(-step3d.grad_fields_sharded(psi_sub, mesh, dx=dx, plain=plain),
+                                h2_ext), h
+        from .kernels import poisson, stencil3d
+
+        sweeps = poisson.poisson_sweeps_plain if plain else poisson.poisson_sweeps
+        grad = stencil3d.grad_fields_plain if plain else stencil3d.grad_fields
+        h, psi = sweeps(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters)
+        return h_int_from_psi(psi, magnetic_flags, dx=dx, h2_ext=h2_ext, grad=grad), h
     h_dtype = h.dtype
     w = torch.as_tensor(lat.w_bcast(np.float64), dtype=widen(h[:, :1]).dtype,
                         device=h.device)

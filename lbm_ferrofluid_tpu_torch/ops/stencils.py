@@ -22,6 +22,7 @@ __all__ = [
     "isotropic_laplacian",
     "rep_pad_interior",
     "substitute_obstacles",
+    "substitute_obstacles_slab",
     "staggered_x",
     "staggered_y",
     "staggered_z",
@@ -62,6 +63,24 @@ def rep_pad_interior(x, bounds=None):
     for ax, b in zip(range(2, x.ndim), hi):
         x = torch.index_select(x, ax, _ring_index(x.shape[ax], b, x.device))
     return x
+
+
+def substitute_obstacles_slab(x, flags, edges):
+    """:func:`substitute_obstacles` on a z-slab of a domain decomposed along
+    z (``parallel/step3d.py``): the nearest-interior values in x and y on
+    every slab, and in z only at the domain's true edges (``edges =
+    (bottom, top)``), where the whole domain's replicate pad binds; an
+    obstacle on an inner face plane keeps its own plane, as on the whole
+    domain."""
+    zi = torch.arange(x.shape[2], device=x.device)
+    if edges[0]:
+        zi[0] = 1
+    if edges[1]:
+        zi[-1] = x.shape[2] - 2
+    rep = torch.index_select(x, 2, zi)
+    for ax in (3, 4):
+        rep = torch.index_select(rep, ax, _ring_index(x.shape[ax], x.shape[ax], x.device))
+    return torch.where(flags == int(CellType.OBSTACLE), rep, x)
 
 
 def fix_ring_replicate(x):

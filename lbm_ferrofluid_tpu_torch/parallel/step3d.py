@@ -1,14 +1,14 @@
-"""The z-slab decomposition of the ferrofluid step over ranks.
+"""The z-slab decomposition of the 3D ferrofluid and HCZ steps over ranks.
 
-Port of the part of ``lbm_ferrofluid_tpu/parallel/step3d.py`` that the
-ferrofluid step with the scalar Poisson carry runs on a mesh
-(``models/ferrofluid.py``).  The JAX package runs each Pallas kernel inside
-``shard_map`` over a ('batch', 'z') mesh and feeds its ghost mode from
-``ppermute`` ring exchanges; here each rank is a process that holds its
-slab (``parallel/sharding.py``), runs the slab form of each kernel
-(``ops/kernels``: B4, B1, B2, B3, B10b, B6, B5 with ``ghosts=``) and
-exchanges the ghost planes with :func:`~.halo.ring_halo`, each exchange
-with its own tag:
+Port of ``lbm_ferrofluid_tpu/parallel/step3d.py`` for the ferrofluid step
+(``models/ferrofluid.py``) in either form of its magnetic solve and the
+HCZ step (``models/multiphase.py``).  The JAX package runs each Pallas
+kernel inside ``shard_map`` over a ('batch', 'z') mesh and feeds its ghost
+mode from ``ppermute`` ring exchanges; here each rank is a process that
+holds its slab (``parallel/sharding.py``), runs the slab form of each
+kernel (``ops/kernels``: B4, B1, B11b, B10a, B2, B3, B10b, B6, B5, B8a,
+B8b with ``ghosts=``; B9 is local) and exchanges the ghost planes with
+:func:`~.halo.ring_halo`, each exchange with its own tag:
 
 * priming, and each un-carried step: :func:`fused_prologue_sharded` (B4's
   slab form, the f and g planes the pulls cross the slab's faces for);
@@ -27,7 +27,17 @@ with its own tag:
   :func:`capmac_sharded` (B6's, one bundle of the stencil fields' planes a
   side, the Laplacian an input) and :func:`fused_epilogue_sharded` (B5's:
   the f and g planes, and with ``emit_mac`` the collided edge planes
-  before B4's slab form emits the next step's macros).
+  before B4's slab form emits the next step's macros);
+* a 19-channel h (the channel-form solve, ``ops/magnetic.py:solve_H_int``
+  with ``mesh``): :func:`poisson_sweeps_sharded` (rounds of one launch of
+  k <= 4 sweeps of B11b's slab form, the slab read in place with G = k
+  band planes a side, the bands of each round's output exchanged before
+  the next, flags and rhs extended once: :func:`channel_slab_plan`),
+  :func:`substitute_obstacles_sharded` (local: the z pad at true edges
+  only) and :func:`grad_fields_sharded` (B10a's, one psi plane a side);
+* the HCZ step: :func:`stream_bounce_macro_sharded` and
+  :func:`stream_bounce_moments_sharded` (B8b's and B8a's, one 5-channel
+  plane a side), then B2, B10b, B6 as above and B9, which is local.
 
 At ``nz == 1`` the mesh is data parallel over ``batch`` (or one rank): each
 rank holds the whole z of its batch element and runs the single-device
@@ -59,10 +69,23 @@ from ..ops.kernels.fused_step import (
     lbm_prologue,
     lbm_prologue_plain,
 )
+from ..ops.kernels.poisson import MAX_K, poisson_sweeps, poisson_sweeps_plain
 from ..ops.kernels.scalar_poisson import scalar_wavefront, scalar_wavefront_plain
-from ..ops.kernels.stencil3d import laplacian_field, laplacian_field_plain
+from ..ops.kernels.stencil3d import (
+    grad_fields,
+    grad_fields_plain,
+    laplacian_field,
+    laplacian_field_plain,
+)
+from ..ops.kernels.stream3d import (
+    stream_bounce_macro,
+    stream_bounce_macro_plain,
+    stream_bounce_moments,
+    stream_bounce_moments_plain,
+)
 from ..ops.magnetic import poisson_rhs_scaled
 from ..ops.scalar_poisson import make_cmask, s_prev_from_h, scalar_from_h
+from ..ops.stencils import substitute_obstacles, substitute_obstacles_slab
 from .halo import ring_halo
 from .mesh import AXES, Mesh
 
@@ -74,6 +97,8 @@ __all__ = [
     "capillogue_sharded_ok",
     "scalar_sharded_ok",
     "scalar_slab_plan",
+    "channel_slab_plan",
+    "channel_sharded_ok",
     "global_shape",
     "unported",
     "fused_prologue_sharded",
@@ -86,11 +111,15 @@ __all__ = [
     "laplacian_field_sharded",
     "capmac_sharded",
     "fused_epilogue_sharded",
+    "poisson_sweeps_sharded",
+    "substitute_obstacles_sharded",
+    "grad_fields_sharded",
+    "stream_bounce_macro_sharded",
+    "stream_bounce_moments_sharded",
 ]
 
 #: ROADMAP A12's slices after the first, which a refusal names
-SLICES = {2: "the channel form", 3: "hcz_step(mesh=)",
-          4: "the 2D and jnp paths, and their y/x decomposition", 5: "a batch on one device"}
+SLICES = {4: "the 2D and jnp paths, and their y/x decomposition", 5: "a batch on one device"}
 
 
 def dp_dispatch(mesh: Mesh) -> bool:
@@ -188,6 +217,55 @@ def scalar_sharded_ok(mesh: Mesh, s2_shape, n_iters: int) -> bool:
     if dp_dispatch(mesh):
         return min(s2_shape[2:]) >= 3
     return scalar_slab_plan(mesh, s2_shape, n_iters) is not None
+
+
+#: B11b's slab rounds on an NVIDIA H100 80GB HBM3 at a 700 W power limit:
+#: a round's own cost (its two exchanges, its launch and its walk's start)
+#: in ns, and a pass's cost in ns a cell of the Zl + 2k - 2 planes a block
+#: walks, by its k sweeps: fitted to the slab solve's times at every k at
+#: 256^3 and 130x66x130, float32 h, one rank (chip_smoke.py
+#: --channel-slab-plans; k = 3 the fastest at both, and in bfloat16 within
+#: 1.5 % of the fastest)
+CHANNEL_ROUND_NS = 75_000
+CHANNEL_PASS_NS = {1: 0.0734, 2: 0.0761, 3: 0.0974, 4: 0.194}
+
+
+def channel_slab_plan(mesh: Mesh, h_shape, n_iters: int):
+    """(k, G, r) of B11b's slab rounds on the global [1, 19, Z, Y, X] h, or
+    None: ``n_iters // k`` rounds of one launch of k <= ``MAX_K`` sweeps
+    with G = k <= Zl band planes a side (one exchange brings at most a
+    slab's planes), then a remainder round of r = ``n_iters % k`` sweeps
+    (0: none) that reads the nearest r planes of the same bands.  Every k
+    computes the same sweeps; this one has the least cost by
+    ``CHANNEL_ROUND_NS`` and ``CHANNEL_PASS_NS``.  The JAX package's
+    ``params.poisson_halo_depth`` is not read: its depth was the TPU's
+    VMEM stopping point."""
+    _, C, Z, Y, X = h_shape
+    if C != 19 or Z % mesh.nz:
+        return None
+    Zl = Z // mesh.nz
+    ks = [k for k in range(1, min(MAX_K, n_iters) + 1) if k <= Zl]
+    if not ks:
+        return None
+
+    def walk(k):
+        return (Zl + 2 * k - 2) * Y * X * CHANNEL_PASS_NS[k]
+
+    def cost(k):
+        r = n_iters % k
+        return (-(-n_iters // k) * CHANNEL_ROUND_NS + n_iters // k * walk(k)
+                + (walk(r) if r else 0))
+
+    k = min(ks, key=cost)
+    return k, k, n_iters % k
+
+
+def channel_sharded_ok(mesh: Mesh, h_shape, n_iters: int) -> bool:
+    """Can B11b solve the global [1, 19, Z, Y, X] h on ``mesh``: the
+    single-device kernel under :func:`dp_dispatch`, else a slab plan."""
+    if not sharded3d_ok(mesh, h_shape):
+        return False
+    return dp_dispatch(mesh) or channel_slab_plan(mesh, h_shape, n_iters) is not None
 
 
 def _fg_ghosts(f, g, mesh: Mesh):
@@ -375,3 +453,83 @@ def scalar_convert_sharded(h, magnetic_flags, mesh: Mesh):
     if dp_dispatch(mesh):
         return s2, cmask
     return s2[:, :, 1:-1].contiguous(), cmask[:, :, 1:-1].contiguous()
+
+
+def _extend_flags_rhs(flags, rhs, G: int, mesh: Mesh):
+    """The flags and the source of the slab extended by the neighbours' G
+    nearest planes a side, in one exchange a side (the flags travel as
+    values of the source's type, which holds them exactly)."""
+    ext = _extend(torch.cat([flags.to(rhs.dtype), rhs], dim=1), G, mesh)
+    return ext[:, :1].to(flags.dtype).contiguous(), ext[:, 1:].contiguous()
+
+
+def poisson_sweeps_sharded(h, magnetic_flags, rhs_scaled, mesh: Mesh, *, tau, n_iters,
+                           plain=False):
+    """B11b on the rank's slab; returns (h', psi of the last sweep).  Rounds
+    of :func:`channel_slab_plan`: each one launch of the slab form, which
+    reads h in place and its two G-plane bands through their own pointers
+    (the TPU wavefront's ghost-ref mode, JAX ``poisson_sweeps_sharded``
+    :1181-1250); the first round's bands are the incoming h's edge planes,
+    each later round's those the round before it emitted; flags and rhs
+    are extended once.  Under :func:`dp_dispatch` the single-device call."""
+    sweeps = poisson_sweeps_plain if plain else poisson_sweeps
+    if dp_dispatch(mesh):
+        return sweeps(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters)
+    plan = channel_slab_plan(mesh, global_shape(h.shape, mesh), n_iters)
+    if plan is None:
+        raise ValueError("no slab plan for B11b: gate on channel_sharded_ok")
+    k, G, r = plan
+    f_ext, r_ext = _extend_flags_rhs(magnetic_flags, rhs_scaled, G, mesh)
+    bands = (ring_halo(h[:, :, -G:], mesh, +1), ring_halo(h[:, :, :G], mesh, -1))
+    rounds = [k] * (n_iters // k) + [r] * (r > 0)
+    for kk in rounds[:-1]:
+        h, _, (blo, bhi) = sweeps(h, f_ext, r_ext, tau=tau, n_iters=kk, ghosts=bands,
+                                  emit_bands=True, emit_psi=False)
+        bands = (ring_halo(bhi, mesh, +1), ring_halo(blo, mesh, -1))
+    return sweeps(h, f_ext, r_ext, tau=tau, n_iters=rounds[-1], ghosts=bands)
+
+
+def substitute_obstacles_sharded(x, magnetic_flags, mesh: Mesh):
+    """The gradient's obstacle substitution on the rank's slab
+    (``ops/stencils.py:substitute_obstacles_slab``): local, its z pad at the
+    domain's true edges only, as the JAX package pads the whole domain
+    outside ``shard_map`` (``ops/magnetic.py`` :466-475 there)."""
+    if dp_dispatch(mesh):
+        return substitute_obstacles(x, magnetic_flags)
+    return substitute_obstacles_slab(x, magnetic_flags, (mesh.iz == 0, mesh.iz == mesh.nz - 1))
+
+
+def grad_fields_sharded(fields, mesh: Mesh, *, dx=1.0, plain=False):
+    """B10a on the rank's slab: one plane of each field a side, the output
+    ring replicated in x and y on every slab and in z at the domain's true
+    edges only (JAX ``grad_fields_sharded`` :1601-1628, whose fix the clamp
+    does in the kernel)."""
+    grad = grad_fields_plain if plain else grad_fields
+    if dp_dispatch(mesh):
+        return grad(fields, dx=dx)
+    ghosts = (ring_halo(fields[:, :, -1:], mesh, +1), ring_halo(fields[:, :, :1], mesh, -1))
+    return grad(fields, ghosts, slab_clamp(mesh, fields.shape[2]), dx=dx)
+
+
+def _stream_ghosts(f, mesh: Mesh):
+    """The 5-channel planes of the neighbours that the pulls of the slab's
+    edge planes read (``fused_step.ghost_planes``), one exchange a side."""
+    up, dn = ghost_planes(f)
+    return ring_halo(up, mesh, +1), ring_halo(dn, mesh, -1)
+
+
+def stream_bounce_macro_sharded(f, flags, rho_old, vel_old, mesh: Mesh, *, c, rho_gas,
+                                rho_fluid, density_gas, density_fluid, plain=False):
+    """B8b on the rank's slab (JAX ``stream_bounce_macro_sharded`` :151)."""
+    macro = stream_bounce_macro_plain if plain else stream_bounce_macro
+    kw = dict(c=c, rho_gas=rho_gas, rho_fluid=rho_fluid, density_gas=density_gas,
+              density_fluid=density_fluid)
+    ghosts = None if dp_dispatch(mesh) else _stream_ghosts(f, mesh)
+    return macro(f, flags, rho_old, vel_old, ghosts, **kw)
+
+
+def stream_bounce_moments_sharded(g, flags, mesh: Mesh, *, plain=False):
+    """B8a on the rank's slab (JAX ``stream_bounce_moments_sharded``
+    :129)."""
+    moments = stream_bounce_moments_plain if plain else stream_bounce_moments
+    return moments(g, flags, None if dp_dispatch(mesh) else _stream_ghosts(g, mesh))

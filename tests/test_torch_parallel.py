@@ -29,7 +29,8 @@ own scene for its sharded tests (tests/test_sharded_step.py:_flagship,
 * ``halo.sharded_poisson_sweeps`` on 2 gloo z ranks against the JAX
   package's single-device channel-form loop (tests/test_halo.py's bars);
 * the gates and refusals: Z not divisible by nz, slabs under 4 planes, a y
-  or x axis, and the routes the slab mesh does not run; the step's gates
+  or x axis, and the routes the slab mesh does not run (the padded layout
+  and 2D); the step's gates
   are priming's (a state primed on one device and cut onto 3- and 2-plane
   slabs, ROADMAP C7); ``auto_mesh_shape``
   against JAX's; ``initialize_distributed`` without torchrun's variables;
@@ -56,8 +57,6 @@ from lbm_ferrofluid_tpu.parallel.mesh import auto_mesh_shape as jauto  # noqa: E
 
 from lbm_ferrofluid_tpu_torch.models import (  # noqa: E402
     ferrofluid_step,
-    hcz_step,
-    multiphase_3d,
     prime_premac,
     rosensweig_2d,
     rosensweig_3d,
@@ -325,14 +324,6 @@ def _routes():
     def primed(p, s):
         return prime_premac(p, shard_state(s, slab), mesh=slab)
 
-    def uncarried():
-        p, s = rosensweig_3d(res=(8, 8, 10), device="cpu")
-        ferrofluid_step(p, shard_state(s, slab), mesh=slab)
-
-    def channel():
-        p, s = rosensweig_3d(res=(8, 8, 10), device="cpu")
-        primed(p.replace(scalar_carry=False), s)
-
     def padded():
         primed(*rosensweig_3d_tpu(res=(6, 8, 10), device="cpu"))
 
@@ -340,18 +331,15 @@ def _routes():
         p, s = rosensweig_2d(res=(16, 16), device="cpu")
         ferrofluid_step(p, s, mesh=slab)
 
-    def hcz():
-        p, s = multiphase_3d(res=(8, 8, 10), device="cpu")
-        hcz_step(p, s, mesh=slab)
-
-    return {"uncarried": (uncarried, 2), "channel": (channel, 2), "padded": (padded, 4),
-            "2d": (two_d, 4), "hcz": (hcz, 3)}
+    return {"padded": (padded, 4), "2d": (two_d, 4)}
 
 
 @pytest.mark.parametrize("route", sorted(_routes()))
 def test_unported_meshed_routes_raise(route):
-    """Each route left raises, naming its ROADMAP A12 slice (an un-primed
-    19-channel h and the channel form: the channel-form slice)."""
+    """Each route left raises, naming its ROADMAP A12 slice (the padded
+    layout and 2D: the y/x slice); the channel form, an un-primed
+    19-channel h and the HCZ step run on slabs
+    (tests/test_torch_parallel_channel.py)."""
     call, slice_ = _routes()[route]
     with pytest.raises(NotImplementedError, match=f"ROADMAP A12 slice {slice_}"):
         call()

@@ -1,0 +1,373 @@
+"""The slab forms of B11b (the counterpart of B7's ghost-ref mode), B10a,
+B8a and B8b (``ghosts=``: a z-slab of a domain decomposed along z over
+ranks) in the port, on the CPU: the kernels of the meshed channel-form
+solve and the meshed HCZ step.
+
+* Each slab form's plain version against the TPU kernel's ghost mode,
+  called directly in interpret mode on one device with the ghost planes
+  given as arrays (no mesh), at an edge and an interior slab of 4: B11b
+  against ``poisson_wavefront(ghosts=, emit_bands=True)`` (one pass of 3
+  sweeps on 3-plane bands) with h in float32 and bfloat16; B10a against
+  ``grad_fields(x, ghost_lo, ghost_hi)`` with its caller's fix (the x/y
+  ring replicated on every slab, z at the domain's true edges only,
+  ``parallel/step3d.py:grad_fields_sharded`` there) at 1 and 3 fields;
+  B8a and B8b against their ``up_ghost``/``dn_ghost`` modes.  Bars: B11b
+  rel <= 1e-6 in float32 (tests/test_torch_poisson.py's, the same
+  ``_sweep_math``) and in bfloat16 each value within one bfloat16 ulp, at
+  most 1e-3 of them apart (a float32 ulp of a sweep can round a stored
+  value the other way: one of 7296 here), psi within what one such value
+  moves, B10a rel <=
+  1e-6 (the kernel multiplies by 1/(12 dx), the port divides), B8a and B8b
+  f_post bit for bit (values moved, not computed) and the moments at the
+  port's float32 contract, rel <= 5e-5, velocities also abs <= 5e-6.
+* Split and reassemble: a domain cut into 2 and 4 slabs, each slab form's
+  plain version fed the neighbours' planes, put back together, equals the
+  single-device plain version bit for bit (every cell's arithmetic is the
+  same): B11b over 30 sweeps in rounds of k = 1..4 (k = 4 ends with a
+  remainder round of 2 sweeps on the same 4-plane bands), the bands each
+  round emits exchanged before the next; B10a at 1 and 3 fields; B8a and
+  B8b in float32 and bfloat16.
+* The substitution trap: psi's obstacle substitution on a slab pads z only
+  at the domain's true edges; a magnetic obstacle on an inner slab's face
+  plane, with the x-edge ring cells there, takes the whole domain's
+  values, where padding each slab's own faces would not.
+* The round plan, and the wrappers' argument checks.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from lbm_ferrofluid_tpu.ops.pallas.poisson import poisson_wavefront as jwavefront  # noqa: E402
+from lbm_ferrofluid_tpu.ops.pallas.stencil3d import grad_fields as jgrad  # noqa: E402
+from lbm_ferrofluid_tpu.ops.pallas.stream3d import (  # noqa: E402
+    stream_bounce_macro as jmacro,
+)
+from lbm_ferrofluid_tpu.ops.pallas.stream3d import (  # noqa: E402
+    stream_bounce_moments as jmoments,
+)
+
+from lbm_ferrofluid_tpu_torch.ops.kernels import poisson, stencil3d, stream3d  # noqa: E402
+from lbm_ferrofluid_tpu_torch.ops.kernels.fused_step import ghost_planes  # noqa: E402
+from lbm_ferrofluid_tpu_torch.ops.stencils import (  # noqa: E402
+    substitute_obstacles,
+    substitute_obstacles_slab,
+)
+from lbm_ferrofluid_tpu_torch.parallel import Mesh, step3d  # noqa: E402
+
+RES = (16, 8, 12)
+OBS, FLUID = 2, 1
+BF = torch.bfloat16
+GAS = dict(rho_gas=0.02381, rho_fluid=0.2508, density_gas=0.02381, density_fluid=0.2508)
+
+
+@pytest.fixture(autouse=True)
+def _threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def rel(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def close(name, got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max())
+    assert rel(got, want) <= 5e-5 or ("vel" in name and err <= 5e-6), (name, err)
+
+
+def J(t):
+    return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) if t.dtype == BF else \
+        jnp.asarray(t.numpy())
+
+
+def cut(x, nz, i, lo=0, hi=0):
+    """Slab i of nz along z, with ``lo`` planes below and ``hi`` above it
+    (periodic)."""
+    Z = x.shape[2]
+    Zl = Z // nz
+    idx = torch.arange(i * Zl - lo, (i + 1) * Zl + hi) % Z
+    return x[:, :, idx]
+
+
+def bands(x, nz, i, G):
+    """The G planes of slab i's neighbours below and above it."""
+    return cut(x, nz, i, G)[:, :, :G], cut(x, nz, i, 0, G)[:, :, -G:]
+
+
+def clamp_of(nz, i):
+    Zl = RES[0] // nz
+    return (1 if i == 0 else -1, Zl - 2 if i == nz - 1 else Zl)
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """The Rosensweig magnetic shell (x-edge columns, z-edge planes) with a
+    block of magnetic obstacles across the inner faces of 2 and 4 slabs,
+    h, the source, psi-like fields, and f, g, rho and vel from the seed."""
+    rng = np.random.default_rng(11)
+    Z, Y, X = RES
+    mf = np.full((1, 1, *RES), OBS, np.uint8)
+    mf[..., 1:-1, :, 1:-1] = FLUID
+    mf[..., [3, 4, 7, 8], 3:5, 5:7] = OBS
+    flags = np.full((1, 1, *RES), OBS, np.uint8)
+    flags[..., 1:-1, 1:-1, 1:-1] = FLUID
+    rhs = (rng.uniform(-1e-2, 1e-2, (1, 1, *RES)) * (mf == FLUID)).astype(np.float32)
+    f = rng.uniform(0.005, 0.02, (1, 19, *RES)).astype(np.float32)
+    return dict(
+        h=torch.from_numpy(rng.uniform(-0.1, 0.1, (1, 19, *RES)).astype(np.float32)),
+        mflags=torch.from_numpy(mf), flags=torch.from_numpy(flags), rhs=torch.from_numpy(rhs),
+        fields=torch.from_numpy(rng.standard_normal((1, 3, *RES)).astype(np.float32)),
+        f=torch.from_numpy(f),
+        rho=torch.from_numpy(rng.uniform(0.02, 0.26, (1, 1, *RES)).astype(np.float32)),
+        vel=torch.from_numpy(rng.uniform(-0.01, 0.01, (1, 3, *RES)).astype(np.float32)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# against the TPU kernels' ghost modes (interpret mode, one device)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
+@pytest.mark.parametrize("i", [0, 1], ids=["edge", "interior"])
+def test_poisson_slab_matches_wavefront_ghost_mode(scene, i, dtype):
+    """One round of 3 sweeps on slab i of 4 (4 planes, 3-plane bands):
+    h', psi and the two emitted bands against B7's ghost-ref mode."""
+    nz, k = 4, 3
+    h = scene["h"].to(dtype)
+    hs, ghosts = cut(h, nz, i), bands(h, nz, i, k)
+    f_ext, r_ext = cut(scene["mflags"], nz, i, k, k), cut(scene["rhs"], nz, i, k, k)
+    jh, jpsi, (jlo, jhi) = jwavefront(J(hs), J(f_ext), J(r_ext), tau=0.8, n_iters=k,
+                                      ghosts=tuple(J(b)[0] for b in ghosts), emit_bands=True,
+                                      interpret=True)
+    ph, ppsi, (plo, phi) = poisson.poisson_sweeps_plain(hs, f_ext, r_ext, tau=0.8, n_iters=k,
+                                                        ghosts=ghosts, emit_bands=True)
+    assert ph.dtype == plo.dtype == dtype and ppsi.dtype == torch.float32
+    pairs = (("h", ph, jh), ("band_lo", plo[0], jlo), ("band_hi", phi[0], jhi))
+    if dtype == torch.float32:
+        for name, a, b in pairs + (("psi", ppsi, jpsi),):
+            assert rel(a, b) <= 1e-6, name
+        return
+    for name, a, b in pairs:
+        a, b = a.float().numpy(), np.asarray(b, np.float32)
+        assert np.all(np.abs(a - b) <= 2.0 ** -7 * np.abs(b)), name
+        assert np.count_nonzero(a != b) <= 1e-3 * a.size, name
+    assert rel(ppsi, jpsi) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("n_fields", [1, 3])
+@pytest.mark.parametrize("i", [0, 1], ids=["edge", "interior"])
+def test_grad_slab_matches_jax_with_its_fix(scene, i, n_fields):
+    nz = 4
+    x = scene["fields"][:, :n_fields]
+    xs, ghosts = cut(x, nz, i), bands(x, nz, i, 1)
+    want = np.array(jgrad(J(xs), J(ghosts[0]), J(ghosts[1]), dx=0.5, interpret=True))
+    # the caller's fix (JAX grad_fields_sharded): x/y ring, then z at true edges
+    for ax in (-1, -2):
+        for a, b in ((0, 1), (-1, -2)):
+            idx_a, idx_b = [slice(None)] * 5, [slice(None)] * 5
+            idx_a[ax], idx_b[ax] = a, b
+            want[tuple(idx_a)] = want[tuple(idx_b)]
+    if i == 0:
+        want[:, :, 0] = want[:, :, 1]
+    got = stencil3d.grad_fields_plain(xs, ghosts, clamp_of(nz, i), dx=0.5)
+    assert got.shape == (1, 3 * n_fields, RES[0] // nz, *RES[1:])
+    assert rel(got, want) <= 1e-6
+
+
+@pytest.mark.parametrize("i", [0, 1], ids=["edge", "interior"])
+def test_stream_slabs_match_jax_ghost_modes(scene, i):
+    nz = 4
+    f, flags = scene["f"], scene["flags"]
+    fs, fl = cut(f, nz, i), cut(flags, nz, i)
+    up = ghost_planes(cut(f, nz, (i - 1) % nz))[0]
+    dn = ghost_planes(cut(f, nz, (i + 1) % nz))[1]
+    jm = jmoments(J(fs), J(fl), J(up), J(dn), interpret=True)
+    pm = stream3d.stream_bounce_moments_plain(fs, fl, (up, dn))
+    np.testing.assert_array_equal(pm[0].numpy(), np.asarray(jm[0]))
+    for name, a, b in zip(("m0", "m1"), pm[1:], jm[1:]):
+        close(name, a, b)
+    rho_old, vel_old = cut(scene["rho"], nz, i), cut(scene["vel"], nz, i)
+    jM = jmacro(J(fs), J(fl), J(rho_old), J(vel_old), J(up), J(dn), c=1.0, interpret=True,
+                **GAS)
+    pM = stream3d.stream_bounce_macro_plain(fs, fl, rho_old, vel_old, (up, dn), c=1.0, **GAS)
+    np.testing.assert_array_equal(pM[0].numpy(), np.asarray(jM[0]))
+    for name, a, b in zip(("rho", "vel", "density"), pM[1:], jM[1:]):
+        close(name, a, b)
+
+
+# ---------------------------------------------------------------------------
+# split and reassemble, bit for bit
+# ---------------------------------------------------------------------------
+
+def _sweep_slabs(scene, nz, k, n_iters=30, dtype=torch.float32):
+    """``n_iters`` sweeps on nz slabs in rounds of k (G = k band planes a
+    side), then a remainder round on the same bands, as
+    ``step3d.poisson_sweeps_sharded`` runs them: the gathered (h', psi)."""
+    h = scene["h"].to(dtype)
+    hs = [cut(h, nz, i) for i in range(nz)]
+    ext = [(cut(scene["mflags"], nz, i, k, k), cut(scene["rhs"], nz, i, k, k))
+           for i in range(nz)]
+    gb = [bands(h, nz, i, k) for i in range(nz)]
+    rounds = [k] * (n_iters // k) + [n_iters % k] * (n_iters % k > 0)
+    for kk in rounds[:-1]:
+        outs = [poisson.poisson_sweeps_plain(hs[i], *ext[i], tau=0.8, n_iters=kk, ghosts=gb[i],
+                                             emit_bands=True, emit_psi=False)
+                for i in range(nz)]
+        assert all(o[1] is None for o in outs)
+        hs = [o[0] for o in outs]
+        gb = [(outs[(i - 1) % nz][2][1], outs[(i + 1) % nz][2][0]) for i in range(nz)]
+    outs = [poisson.poisson_sweeps_plain(hs[i], *ext[i], tau=0.8, n_iters=rounds[-1],
+                                         ghosts=gb[i]) for i in range(nz)]
+    return tuple(torch.cat([o[j] for o in outs], dim=2) for j in (0, 1))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("nz", [2, 4])
+def test_poisson_split_reassembles(scene, nz, k):
+    whole = poisson.poisson_sweeps_plain(scene["h"], scene["mflags"], scene["rhs"], tau=0.8,
+                                         n_iters=30)
+    got = _sweep_slabs(scene, nz, k)
+    assert torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])
+
+
+def test_poisson_split_reassembles_bf16(scene):
+    whole = poisson.poisson_sweeps_plain(scene["h"].to(BF), scene["mflags"], scene["rhs"],
+                                         tau=0.8, n_iters=30)
+    got = _sweep_slabs(scene, 4, 3, dtype=BF)
+    assert got[0].dtype == BF
+    assert torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])
+
+
+@pytest.mark.parametrize("n_fields", [1, 3])
+@pytest.mark.parametrize("nz", [2, 4])
+def test_grad_split_reassembles(scene, nz, n_fields):
+    x = scene["fields"][:, :n_fields]
+    whole = stencil3d.grad_fields_plain(x, dx=0.5)
+    parts = [stencil3d.grad_fields_plain(cut(x, nz, i), bands(x, nz, i, 1), clamp_of(nz, i),
+                                         dx=0.5) for i in range(nz)]
+    assert torch.equal(torch.cat(parts, dim=2), whole)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
+@pytest.mark.parametrize("nz", [2, 4])
+def test_stream_split_reassembles(scene, nz, dtype):
+    f, flags, rho, vel = scene["f"].to(dtype), scene["flags"], scene["rho"], scene["vel"]
+
+    def ghosts(i):
+        return (ghost_planes(cut(f, nz, (i - 1) % nz))[0],
+                ghost_planes(cut(f, nz, (i + 1) % nz))[1])
+
+    whole = stream3d.stream_bounce_moments_plain(f, flags)
+    parts = [stream3d.stream_bounce_moments_plain(cut(f, nz, i), cut(flags, nz, i), ghosts(i))
+             for i in range(nz)]
+    for j, w in enumerate(whole):
+        assert torch.equal(torch.cat([p[j] for p in parts], dim=2), w), j
+    whole = stream3d.stream_bounce_macro_plain(f, flags, rho, vel, c=1.0, **GAS)
+    parts = [stream3d.stream_bounce_macro_plain(
+        cut(f, nz, i), cut(flags, nz, i), cut(rho, nz, i), cut(vel, nz, i), ghosts(i), c=1.0,
+        **GAS) for i in range(nz)]
+    for j, w in enumerate(whole):
+        assert torch.equal(torch.cat([p[j] for p in parts], dim=2), w), j
+
+
+# ---------------------------------------------------------------------------
+# the substitution trap, the plan, the arguments
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nz", [2, 4])
+def test_obstacle_substitution_pads_true_edges_only(scene, nz):
+    """psi's obstacle substitution, slab by slab, equals the whole
+    domain's: the obstacle block on the inner face planes and the x-edge
+    ring cells of every face plane take their own plane's interior value;
+    padding each slab's faces (``substitute_obstacles`` on the slab) moves
+    them a plane inward and differs there."""
+    psi, mf = scene["fields"][:, :1], scene["mflags"]
+    whole = substitute_obstacles(psi, mf)
+    parts = [substitute_obstacles_slab(cut(psi, nz, i), cut(mf, nz, i), (i == 0, i == nz - 1))
+             for i in range(nz)]
+    assert torch.equal(torch.cat(parts, dim=2), whole)
+    naive = torch.cat([substitute_obstacles(cut(psi, nz, i), cut(mf, nz, i))
+                       for i in range(nz)], dim=2)
+    Zl = RES[0] // nz
+    differ = (naive != whole)[0, 0]
+    assert differ.any() and set(differ.nonzero()[:, 0].tolist()) <= {
+        z for i in range(1, nz) for z in (i * Zl - 1, i * Zl)}
+    assert differ[Zl - 1, 0, 0] and differ[Zl, 3, 5]
+
+
+def _mesh(nz, slab=False):
+    return Mesh(("batch", "z"), (1, nz), 0, torch.device("cpu"), "gloo" if nz > 1 else None,
+                slab)
+
+
+def test_channel_slab_plan():
+    """k <= MAX_K sweeps a round with G = k <= Zl and the remainder; None
+    where h is not 19-channel or Z does not split; every k, G = k."""
+    for nz, Z, n in ((2, 256, 30), (2, 130, 30), (4, 16, 6), (1, 256, 30), (4, 16, 30)):
+        plan = step3d.channel_slab_plan(_mesh(nz, slab=nz == 1), (1, 19, Z, 66, 130), n)
+        k, G, r = plan
+        assert 1 <= k <= poisson.MAX_K and G == k <= Z // nz and r == n % k
+    assert step3d.channel_slab_plan(_mesh(2), (1, 2, 16, 8, 8), 30) is None
+    assert step3d.channel_slab_plan(_mesh(3), (1, 19, 16, 8, 8), 30) is None
+    assert step3d.channel_slab_plan(_mesh(8), (1, 19, 16, 8, 8), 30)[0] <= 2
+    assert step3d.channel_sharded_ok(_mesh(2), (1, 19, 16, 8, 8), 30)
+    assert not step3d.channel_sharded_ok(_mesh(3), (1, 19, 16, 8, 8), 30)
+
+
+def test_slab_wrappers_refuse_partial_arguments(scene):
+    """B10a's ghosts come with a clamp; B11b's bands and psi options are the
+    slab form's, its round at most ``MAX_K`` sweeps and at most G; the
+    costs count the bands and ghost planes."""
+    nz, i = 4, 1
+    x = scene["fields"][:, :1]
+    with pytest.raises(ValueError, match="ghosts and clamp together"):
+        stencil3d.grad_fields(cut(x, nz, i), bands(x, nz, i, 1))
+    h = scene["h"]
+    with pytest.raises(ValueError, match="slab form's"):
+        poisson.poisson_sweeps(h, scene["mflags"], scene["rhs"], tau=0.8, n_iters=3,
+                               emit_bands=True)
+    hs = cut(h, nz, i).to("meta")
+    args = (hs, torch.empty((1, 1, 10, *RES[1:]), dtype=torch.uint8, device="meta"),
+            torch.empty((1, 1, 10, *RES[1:]), device="meta"))
+    gb = tuple(torch.empty((1, 19, 3, *RES[1:]), device="meta") for _ in range(2))
+    with pytest.raises(ValueError, match="1 <= k <= G <= Zl"):
+        poisson._check_slab(*args, gb, 4)
+    nbytes, flops = poisson.cost_slab(cut(h, nz, i), *args[1:], tau=0.8, n_iters=30,
+                                      rounds=(4,) * 7 + (2,), G=4)
+    plane = RES[1] * RES[2]
+    assert nbytes == ((2 * 76 + 4) * 4 + 5 * 12 + 2 * 4 * 76 * 15) * plane
+    assert flops == 78 * plane * (7 * (10 + 8 + 6 + 4) + (6 + 4))
+    assert stencil3d.cost_slab(cut(x, nz, i), clamp=(-1, 4))[0] == 16 * 4 * plane + 8 * plane
+    b8 = stream3d.cost_slab(stream3d.cost_moments, cut(scene["f"], nz, i),
+                            cut(scene["flags"], nz, i), ghosts=bands(scene["f"][:, 9:14], nz,
+                                                                    i, 1))
+    assert b8[0] == stream3d.cost_moments(cut(scene["f"], nz, i), cut(scene["flags"], nz, i))[
+        0] + 2 * 5 * 4 * plane
+
+
+def test_slab_pass_instances_are_the_cuda_sources():
+    """``SLAB_EXT_HEIGHTS`` is csrc/poisson.cu's PP_SLAB_HEIGHTS, the
+    extended heights the slab kernel is built for, and the slab pass of
+    every k of 1..``MAX_K`` in float32 and bfloat16 is among them (k = 4 in
+    float32 on 5-row tiles, whose block fits the shared memory)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(poisson.__file__).parents[2] / "csrc" / "poisson.cu").read_text()
+    line = re.search(r"#define PP_SLAB_HEIGHTS\(M\) (.*)", src)[1]
+    assert tuple(int(e) for e in re.findall(r"M\((\d+)\)", line)) == poisson.SLAB_EXT_HEIGHTS
+    assert set(poisson.SLAB_EXT_HEIGHTS) <= set(poisson.EXT_HEIGHTS)
+    for k in range(1, poisson.MAX_K + 1):
+        for elem in (4, 2):
+            pl = poisson.slab_plan(128, 256, 256, k, 132, elem)
+            assert pl.passes == (k,) and pl.ty + 2 * k - 2 in poisson.SLAB_EXT_HEIGHTS
+            assert poisson.smem_bytes(k, pl.ty, elem) <= poisson.SMEM_BLOCK_MAX
+    assert poisson.slab_plan(128, 256, 256, 4, 132, 4).ty == 5

@@ -1,4 +1,6 @@
-"""Ranks of the port's meshed step, for tests/test_torch_parallel.py.
+"""Ranks of the port's meshed step, for tests/test_torch_parallel.py and
+tests/test_torch_parallel_channel.py (``run_routes``: the channel-form and
+HCZ routes).
 
 Imports torch, numpy and the port only: the test spawns these ranks as
 processes (``spawn`` start method), which must not load JAX.  Each rank
@@ -120,6 +122,117 @@ def rank_main(rank, world, port, shape, slab, poisson_iters, batch, steps, out_d
                 np.savez(out / "resumed.npz", **_flat(to_numpy(resumed)))
     finally:
         dist.destroy_process_group()
+
+
+#: the routes of the channel-form solve and the HCZ step on z-slabs: C the
+#: capillogue steady state with the 19-channel h (primed to 6 leaves, h kept
+#: at tau 0.8 without the scalar carry), U19 the un-carried step on that h
+#: (never primed), CM route C where an interior magnetic obstacle on the
+#: slabs' inner face planes keeps h in 19 channels (tau 1, no declared
+#: shell); H the HCZ step on multiphase_3d with velocities pinned across
+#: the inner faces, HD on droplet_spread_3d (gravity, the wetting floor)
+CHANNEL_ROUTES = ("C", "U19", "CM")
+HCZ_ROUTES = ("H", "HD")
+CHANNEL = dict(scalar_carry=False, tau=0.8)
+HCZ_RES = (16, 8, 12)
+#: the planes on either side of the inner faces of 2 and 4 slabs of 16
+FACE_PLANES = [3, 4, 7, 8, 11, 12]
+
+
+def channel_config(route, batch=1):
+    """(params keywords, (rho, density, vel, flags, magnetic_flags)) of a
+    channel-form route's flagship scene."""
+    kw = dict(FLAGSHIP, h_ext_axis=1)
+    fields = flagship_fields(batch=batch)
+    if route == "CM":
+        kw["mag_flags_shell"] = False
+        fields[4][..., FACE_PLANES, 3:5, 5:7] = OBSTACLE
+    else:
+        kw.update(CHANNEL)
+    return kw, fields
+
+
+def hcz_pins(res=HCZ_RES):
+    """(mask [1, 1, *res] bool, value [1, 3, *res] float32): a row of pinned
+    velocities in each plane of ``FACE_PLANES``."""
+    mask = np.zeros((1, 1, *res), bool)
+    mask[:, :, FACE_PLANES, 2, 3:9] = True
+    value = np.zeros((1, 3, *res), np.float32)
+    value[:, 0], value[:, 1], value[:, 2] = 0.01, -0.005, 0.002
+    return mask, value
+
+
+def route_state(route, poisson_iters=3):
+    """(params, whole state on the CPU, step function) of a route of
+    ``CHANNEL_ROUTES`` or ``HCZ_ROUTES``, before priming."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch import models
+
+    if route in HCZ_ROUTES:
+        build = models.multiphase_3d if route == "H" else models.droplet_spread_3d
+        params, state = build(res=HCZ_RES, device="cpu")
+        if route == "H":
+            mask, value = hcz_pins()
+            state = state.replace(vel_pin_mask=torch.from_numpy(mask),
+                                  vel_pin_value=torch.from_numpy(value))
+        return params, state, models.hcz_step
+    kw, fields = channel_config(route)
+    params = models.SimulationParams(poisson_iters=poisson_iters, **kw)
+    return params, models.init_ferrofluid_state(params, *fields, device="cpu"), \
+        models.ferrofluid_step
+
+
+def prime_route(params, state, route, **where):
+    """A route's state as it steps: C and CM primed (``where``: ``mesh=``
+    or ``device=``), the others as built."""
+    from lbm_ferrofluid_tpu_torch.models import prime_premac
+
+    return prime_premac(params, state, **where) if route in ("C", "CM") else state
+
+
+def routes_main(rank, world, port, routes, poisson_iters, steps, out_dir):
+    """One rank of a job of several routes on a z mesh of ``world`` ranks:
+    each route's whole state cut to the rank's slab, primed as the route
+    asks, ``steps`` meshed steps, gathered; rank 0 writes
+    ``<route>.npz``."""
+    import torch
+    import torch.distributed as dist
+
+    from lbm_ferrofluid_tpu_torch.models.state import to_numpy
+    from lbm_ferrofluid_tpu_torch.parallel import (
+        gather_state, initialize_distributed, make_mesh, shard_state,
+    )
+
+    torch.set_num_threads(1)
+    out = pathlib.Path(out_dir)
+    assert initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo") == world
+    try:
+        mesh = make_mesh(("batch", "z"), (1, world), device="cpu")
+        for route in routes:
+            params, whole, step = route_state(route, poisson_iters)
+            state = prime_route(params, shard_state(whole, mesh), route, mesh=mesh)
+            if route in CHANNEL_ROUTES:
+                assert state.h.shape[1] == 19
+                assert (state.premac is None) == (route == "U19")
+            for _ in range(steps):
+                state = step(params, state, mesh=mesh)
+            whole_out = gather_state(state, mesh)
+            if rank == 0:
+                np.savez(out / f"{route}.npz", **_flat(to_numpy(whole_out)))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_routes(world, out_dir, routes, poisson_iters, steps):
+    """Spawn ``world`` ranks of :func:`routes_main`: {route: the gathered
+    state's arrays}."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(routes_main, args=(world, free_port(), tuple(routes), poisson_iters,
+                                          steps, str(out_dir)),
+                       nprocs=world, start_method="spawn")
+    return {r: dict(np.load(pathlib.Path(out_dir) / f"{r}.npz")) for r in routes}
 
 
 def _flat(fields):
