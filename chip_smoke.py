@@ -34,7 +34,11 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    and 0.8, B4 prologue, B11b channel-form Poisson sweeps at tau 1 and 0.8
    and at 30 and 7 sweeps, with an interior magnetic obstacle block and one
    across a tile edge and a z seam of its plan, its chosen plan also held
-   bit for bit to the one-sweep plan, B10a gradients of 1, 3, 4 and 5
+   bit for bit to the one-sweep plan; the same with B7's trailing stage in
+   its last pass (``emit="hint"`` and ``"h2"``, float32 and bfloat16 h),
+   bit for bit to its plain version, with blocks across the trailing
+   pass's first tile edges and seam and on the grid's last row and column
+   (``b11b_emit_checks``); B10a gradients of 1, 3, 4 and 5
    fields with the launches ``launches_per_call`` states, B5 epilogue
    with and without ``emit_mac`` on B6's outputs, B10b Laplacian) at
    34x66x130 and 130x66x130, B11b, B10a and B10b as above at 50x50x193,
@@ -77,10 +81,11 @@ Phases, each printing one JSON line; any failed check exits non-zero:
      ``scalar_carry=False`` 30 kernel steps against 30 plain steps and
      against 30 scalar-carry kernel steps (``compare_views``), then 200
      timed; with tau = 0.8 30 against 30.  B11b launches
-     ``launches_per_call`` times (one a pass of its plan) and B10a once a
-     step;
-   - the un-carried step (Rosensweig 130x66x130 never primed: B4, B11b,
-     B10a, B2, B6, B5) and the epilogue steady state (5-leaf premac with
+     ``launches_per_call`` times (one a pass of its plan), the last with
+     B7's trailing stage emitting H2 (``launches_emit``, once a step; no
+     B10a);
+   - the un-carried step (Rosensweig 130x66x130 never primed: B4, B11b
+     with the trailing stage, B2, B6, B5) and the epilogue steady state (5-leaf premac with
      the scalar carry: B1, B2, B6, B5 with ``emit_mac``), each 30 kernel
      against 30 plain steps with exact launch counts, the latter also
      against 30 capillogue steady-state steps;
@@ -100,8 +105,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
      routes E (5-leaf premac), O (an out-of-plane field) and U (un-carried,
      B4 each step), through B1, B2, B10b, B6 and B5 in slab form; C and
      U19, the capillogue steady state and the un-carried step with the
-     channel-form solve (tau 0.8, 19-channel h: B11b's slab rounds and
-     B10a's slab form); H, the HCZ step (B8b, B8a, B2, B10b, B6 in slab
+     channel-form solve (tau 0.8, 19-channel h: B11b's slab rounds, the
+     last emitting H2 with the clamp at true edges only; B10a's slab form
+     on the psi route, three solves without a static field); H, the HCZ
+     step (B8b, B8a, B2, B10b, B6 in slab
      form, B9 local); one rank with ``slab=True`` at 256^3 and 130x66x130
      (HCZ at 256^3 and 130^3), float32 (30 steps) and turbo (10), exact
      launches a step, against single-device kernel steps, each slab form
@@ -133,7 +140,13 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    psi) and on the stencil route's stacks of 3 and 4 fields, B10b on
    density(rho_ca), each with its plan, resident blocks and ptxas line,
    and beside a yardstick that is on no path: cuDNN's ``conv3d`` of the
-   interior then ``F.pad``, 2 calls, in full float32 (``conv3d_pad``);
+   interior then ``F.pad``, 2 calls, in full float32 (``conv3d_pad``).
+   B11b with B7's trailing stage on the channel flagship's inputs
+   (``trail_report``): h2 and hint bit for bit to the plain version,
+   launch by launch, the trailing pass's plan, resident blocks and ptxas
+   line, the h2 call timed in turns against the psi route (B11b's psi,
+   the substitution, B10a, the H2 ops); C and U ms a step at 256^3 on
+   both routes in turns, with their launches a step (``route_turns``);
 5c. the north star and the demos (after phase 5), each with the counters
    zeroed just before it and read just after:
    - spikes: the spike-pattern golden (tests/golden/
@@ -185,7 +198,8 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    forms and routes run while phase 5b's 2D processes do, the rest
    between phases 5b and 6): each bfloat16 form (B3 at the magnetic tau 1
    and 0.8, B4, B5 with and without ``emit_mac``, B11b at tau 1 and 0.8
-   and 30 and 7 sweeps at 34x66x130 and 130x66x130; B8b, B8a, B9 in the
+   and 30 and 7 sweeps at 34x66x130 and 130x66x130, with and without the
+   trailing stage; B8b, B8a, B9 in the
    HCZ chain at 34x66x130 and 130^3) against its plain version on phase
    3's inputs rounded to bfloat16: B8a's and B8b's streamed values and
    B11b bit for bit (B11b also under its chosen plan against the
@@ -215,8 +229,10 @@ spills as ptxas gives them.
 
 Then it prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` line (a
 row for every kernel, one for each bfloat16 form with its launches on
-phase 7's paths, and one for each of B1's psi and B3's box forms with its
-launches on the padded paths) and, last, ``{"ok": true, "device": {...}}``.  Bounds use the H100 SXM peaks of
+phase 7's paths, one for B11b's last pass with B7's trailing stage in
+float32 and bfloat16 with its launches on the channel-form paths, one for
+each of B1's psi and B3's box forms with its launches on the padded
+paths, and the slab forms' rows) and, last, ``{"ok": true, "device": {...}}``.  Bounds use the H100 SXM peaks of
 NVIDIA's data sheet: 3.35 TB/s and 67 TFLOP/s float32 (non-tensor), and
 each kernel's ``cost``: the bytes and flops that the call's own inputs need
 (an input read only at some cells counts only there).
@@ -225,6 +241,7 @@ each kernel's ``cost``: the bytes and flops that the call's own inputs need
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import math
 import pathlib
@@ -276,6 +293,7 @@ OUTPUTS = {
     "B10a": ["grad"],
     "B10b": ["lap"],
     "B11b": ["h", "psi"],
+    "B11b emit": ["h", "H2"],
 }
 VEL_FIELDS = ("vel", "mac_vel")
 
@@ -718,6 +736,63 @@ def stencil_route_rows(params, d, ctx, what):
     return rows
 
 
+def static_field(params):
+    """The ferrofluid step's static external field (x, y, z)."""
+    return tuple(params.mag_strength if a == params.h_ext_axis else 0.0 for a in range(3))
+
+
+def emit_kw(params, emit, tau, n_iters):
+    """Keywords of a B11b call whose last pass's trailing stage (B7's)
+    emits ``emit`` ("hint" or "h2", the scene's static field)."""
+    return dict(tau=tau, n_iters=n_iters, emit=emit, dx=params.dx,
+                h_ext=static_field(params) if emit == "h2" else None)
+
+
+def trail_seam_block(mflags, sms, n_iters):
+    """``mflags`` with magnetic obstacles straddling the trailing pass's
+    first tile edge in x and y and its first z seam, and on the grid's last
+    row and column beside a tile edge (the output ring whose source lies in
+    the tile before), under the plans B11b takes for ``n_iters`` sweeps."""
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
+
+    Z, Y, X = mflags.shape[2:]
+    tp = pp.trail_pass(Z, Y, X, pp.plan(Z, Y, X, n_iters, sms).passes[-1], sms)
+    tx = pp.tile_width(tp.k + 1)
+    out = mflags.clone()
+    out[..., tp.lz - 1:tp.lz + 1, tp.ty - 1:tp.ty + 1, tx - 1:tx + 1] = 2
+    out[..., Z // 2, Y - 1, tx - 1:tx + 1] = 2
+    out[..., Z // 2, tp.ty - 1:tp.ty + 1, X - 1] = 2
+    return out
+
+
+def b11b_emit_checks(K, params, h, mflags, rhs, sms, what):
+    """B11b with the trailing stage (hint and h2) at tau 1 and 0.8 and at
+    30 and 7 sweeps (a remainder pass ends the call), with the seam blocks
+    of its passes and of the trailing pass: bit for bit to its plain
+    version, and its chosen plan bit for bit to the one-sweep plan.  Rows
+    with max_abs_err 0 (the check fails otherwise)."""
+    import torch
+
+    mfl = trail_seam_block(poisson_seam_block(mflags, sms, params.poisson_iters), sms,
+                           params.poisson_iters)
+    rows = []
+    for emit in ("hint", "h2"):
+        for tau in (1.0, 0.8):
+            for n in (params.poisson_iters, 7):
+                args, kw = (h, mfl, rhs), emit_kw(params, emit, tau, n)
+                got = K["B11b"].wrapper(*args, **kw)
+                want = K["B11b"].plain(*args, **kw)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"B11b emit={emit} tau={tau} n_iters={n} {what}: differs from its plain "
+                      f"version by {float((got[1] - want[1]).abs().max()):.3e}")
+                rows.append({"kernel": f"B11b emit={emit}", "tau": tau, "n_iters": n,
+                             "storage": str(h.dtype), "max_abs_err": 0.0,
+                             "against_one_sweep_plan": b11b_plan_against_one_sweep(args, kw,
+                                                                                   sms)})
+    return rows
+
+
 def phase_kernels(dev, K):
     import torch
 
@@ -766,6 +841,9 @@ def phase_kernels(dev, K):
                     against_one_sweep_plan=b11b_plan_against_one_sweep(args, kw, sms))
                 if n == params.poisson_iters:
                     psi = psi_n
+        for row in b11b_emit_checks(K, params, d["h"], d["mflags_block"], d["rhs"], sms,
+                                    f"at {res}"):
+            rows.append(dict(row, res=list(res)))
         return psi
 
     for res, seed in (((34, 66, 130), 1), ((130, 66, 130), 2)):
@@ -1056,6 +1134,7 @@ def phase_channel_main(dev, kernels_pkg, card):
     out = {"phase": "channel_main_path", "scene": "rosensweig_3d", "res": list(s0.rho.shape[2:]),
            "card": card}
     total = {kid: 0 for kid in ids}
+    total["B11b emit"] = 0
     for label, p, n_timed in (("scalar_carry=False", params.replace(scalar_carry=False), 200),
                               ("tau=0.8", params.replace(tau=0.8), 0)):
         runner = SimulationRunner(p, ferrofluid_step, device=dev)
@@ -1081,13 +1160,14 @@ def phase_channel_main(dev, kernels_pkg, card):
         launches = kernels_pkg.launch_counts()
         steps = sk.step
         K = kernels_pkg.KERNELS
-        check_launches(f"channel {label}", launches, {
-            "B11b": K["B11b"].module.launches_per_call(p.poisson_iters, sk.h.shape),
-            "B10a": 1, "B2": K["B2"].module.N_LAUNCHES, "B3": K["B3"].module.N_LAUNCHES},
-            steps, extra={"B4": 1})
+        per_step = {"B11b": K["B11b"].module.launches_per_call(p.poisson_iters, sk.h.shape),
+                    "B2": K["B2"].module.N_LAUNCHES, "B3": K["B3"].module.N_LAUNCHES}
+        check_launches(f"channel {label}", launches, per_step, steps, extra={"B4": 1})
+        total["B11b emit"] += check_emit_launches(f"channel {label}", kernels_pkg, steps)
         for kid in ids:
             total[kid] += launches[kid]
-        out[label] = dict(row, steps=steps, launches={kid: launches[kid] for kid in ids})
+        out[label] = dict(row, steps=steps, launches={kid: launches[kid] for kid in ids},
+                          launches_a_step=sum(per_step.values()))
     emit(dict(out, finite=True, ok=True))
     return total
 
@@ -1097,6 +1177,15 @@ def check_launches(label, launches, per_step, steps, extra=None):
     kernel it names (plus ``extra``), none of any other kernel."""
     want = {kid: per_step.get(kid, 0) * steps + (extra or {}).get(kid, 0) for kid in launches}
     check(launches == want, f"{label}: launches {launches}, expected {want}")
+
+
+def check_emit_launches(label, kernels_pkg, steps):
+    """B11b's launches with the trailing stage (``launches_emit``) on a
+    channel-form path: one a step, the solve's last pass (on a slab its
+    last round); returns them."""
+    n = kernels_pkg.launch_counts(["B11b"], form=True)["B11b"]
+    check(n == steps, f"{label}: {n} launches of B11b's trailing stage in {steps} steps")
+    return n
 
 
 def phase_uncarried_main(dev, kernels_pkg, card):
@@ -1115,16 +1204,18 @@ def phase_uncarried_main(dev, kernels_pkg, card):
     launches = kernels_pkg.launch_counts()
     check(sk.premac is None and sk.h.shape[1] == 19 and sk.H_ext is not None,
           "un-carried: the state changed form")
-    check_launches("un-carried", launches, {
-        "B4": 1, "B11b": K["B11b"].module.launches_per_call(params.poisson_iters, sk.h.shape),
-        "B10a": 1, "B2": K["B2"].module.N_LAUNCHES,
-        "B6": K["B6"].module.N_LAUNCHES, "B5": 1}, sk.step)
+    per_step = {"B4": 1, "B11b": K["B11b"].module.launches_per_call(params.poisson_iters,
+                                                                     sk.h.shape),
+                "B2": K["B2"].module.N_LAUNCHES, "B6": K["B6"].module.N_LAUNCHES, "B5": 1}
+    check_launches("un-carried", launches, per_step, sk.step)
+    n_emit = check_emit_launches("un-carried", kernels_pkg, sk.step)
     ids = kernels_pkg.PATHS["ferrofluid_uncarried"]
     emit({"phase": "uncarried_main_path", "scene": "rosensweig_3d",
           "res": list(sk.rho.shape[2:]), "steps": sk.step,
           "kernel_vs_plain_after_30_steps": rows, "finite": True, "card": card,
-          "launches": {kid: launches[kid] for kid in ids}, "ok": True})
-    return launches
+          "launches": {kid: launches[kid] for kid in ids},
+          "launches_a_step": sum(per_step.values()), "ok": True})
+    return dict(launches, **{"B11b emit": n_emit})
 
 
 def phase_epilogue_main(dev, kernels_pkg, card):
@@ -1473,8 +1564,120 @@ def b11b_plan_report(pl, tau, ptxas=None, bf16=False):
                 threads=pp.threads(pl.k, pl.ty),
                 smem_bytes=pp.smem_bytes(pl.k, pl.ty, 2 if bf16 else 4),
                 blocks_per_sm=blocks_per_sm("lbm_poisson_pass_occupancy", pl.k, pl.ty, tau1,
-                                            int(bf16)),
+                                            int(bf16), 0),
                 ptxas={name: (ptxas or {}).get(name)})
+
+
+def bits_rows(K, kid, args, kw, what):
+    """Kernel ``kid`` against its plain version on the same inputs, bit for
+    bit (the check fails otherwise): rows of :func:`measure`."""
+    import torch
+
+    got, want = K[kid].wrapper(*args, **kw), K[kid].plain(*args, **kw)
+    torch.cuda.synchronize()
+    names = ["h", kw.get("emit", "psi")]
+    for n, a, b in zip(names, got, want):
+        check(torch.equal(a, b), f"{what} {n}: differs from the plain version by "
+                                 f"{float((a.double() - b.double()).abs().max()):.3e}")
+    return {n: {"max_abs_err": 0.0, "rel": 0.0} for n in names}
+
+
+@contextlib.contextmanager
+def psi_route():
+    """Within the block the solve takes the psi route, the channel-form
+    tail before B7's trailing stage was ported: B11b's psi, the obstacle
+    substitution, B10a and the H2 ops (``poisson.emit_ok`` refuses every
+    grid): the yardstick of time in the same call."""
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
+
+    real, pp.emit_ok = pp.emit_ok, lambda *a, **kw: False
+    try:
+        yield
+    finally:
+        pp.emit_ok = real
+
+
+def trail_report(K, params, st, ptxas, bf16=False):
+    """B11b with B7's trailing stage at the inputs of the next channel-form
+    step: the h2 call (``measure``, bit for bit to its plain version, its
+    bound from ``cost(emit="h2")``), the hint call, and the psi call with
+    the tail it replaces (the substitution, B10a, the H2 ops), these two
+    timed in turns (psi route, h2, h2, psi route); each call launch by
+    launch (the last launch the trailing pass, or psi's last pass); the
+    trailing pass's plan, shared memory, resident blocks an SM and ptxas
+    line."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
+    from lbm_ferrofluid_tpu_torch.ops.kernels import stencil3d
+    from lbm_ferrofluid_tpu_torch.ops.magnetic import h_int_from_psi
+
+    tag = " bf16" if bf16 else ""
+    args = (st.h, st.magnetic_flags, st.premac[5])
+    n = params.poisson_iters
+    per_call = pp.launches_per_call(n, st.h.shape)
+    out = {}
+    for emit in ("h2", "hint"):
+        kw = emit_kw(params, emit, params.tau, n)
+        row = measure(K, "B11b", args, kw, per_call, per_call, f"B11b emit={emit}{tag} at 256^3",
+                      rows=bits_rows)
+        row["split"] = launch_split([pp], lambda kw=kw: K["B11b"].wrapper(*args, **kw), reps=5)
+        out[emit] = row
+    psi_kw = dict(tau=params.tau, n_iters=n)
+    hext = static_field(params)
+
+    def composition():
+        _, psi = K["B11b"].wrapper(*args, **psi_kw)
+        return h_int_from_psi(psi, st.magnetic_flags, dx=params.dx, h2_ext=hext,
+                              grad=stencil3d.grad_fields)
+
+    h2_kw = emit_kw(params, "h2", params.tau, n)
+    turns = {}
+    for label, fn in (("psi_route", composition), ("h2", lambda: K["B11b"].wrapper(*args, **h2_kw)),
+                      ("h2_again", lambda: K["B11b"].wrapper(*args, **h2_kw)),
+                      ("psi_route_again", composition)):
+        turns[label] = time_cuda(fn, reps=10)
+    d = (K["B11b"].wrapper(*args, **h2_kw)[1].double() - composition().double()).abs().max()
+    out["against_psi_route"] = dict(turns, h2_max_abs_diff=float(d), psi_split=launch_split(
+        [pp], lambda: K["B11b"].wrapper(*args, **psi_kw), reps=5))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tp = pp.trail_pass(*st.h.shape[2:], pp.plan(*st.h.shape[2:], n, sms, 2 if bf16 else 4)
+                       .passes[-1], sms, 2 if bf16 else 4)
+    tau1 = int(1.0 / params.tau == 1.0)
+    name = f"lbm_poisson_trail_kernel<{'bf16,' if bf16 else ''}{tau1},{tp.ty + 2 * tp.k},0>"
+    out["trail_pass"] = dict(
+        k=tp.k, tile=[pp.tile_width(tp.k + 1), tp.ty], lz=tp.lz,
+        threads=pp.threads(tp.k + 1, tp.ty),
+        smem_bytes=pp.smem_bytes(tp.k, tp.ty, 2 if bf16 else 4, trail=True),
+        blocks_per_sm=blocks_per_sm("lbm_poisson_pass_occupancy", tp.k, tp.ty, tau1, int(bf16),
+                                    1),
+        ptxas={name: (ptxas or {}).get(name)})
+    torch.cuda.empty_cache()
+    return out
+
+
+def route_turns(params, state, dev):
+    """ms a step of ``state``'s route at the trailing stage and on the psi
+    route, in turns (trailing stage, psi route, psi route, trailing stage;
+    10 steps each after 3), with the kernels' launches a step of each:
+    (ms, launches a step)."""
+    n_steps = 10
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step
+    from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+
+    ms, per_step = {}, {}
+    for label, psi in (("trailing_stage", False), ("psi_route", True),
+                       ("psi_route_again", True), ("trailing_stage_again", False)):
+        with psi_route() if psi else contextlib.nullcontext():
+            _, st = timed_steps(params, state, ferrofluid_step, dev, n_steps, warmup=3)
+            ms[label] = st["seconds"] / n_steps * 1e3
+            kernels_pkg.reset_launch_counts()
+            ferrofluid_step(params, state, device=dev)
+            torch.cuda.synchronize()
+            per_step[label.replace("_again", "")] = sum(kernels_pkg.launch_counts().values())
+    return ms, per_step
 
 
 def phase_channel_flagship(dev, K, card, ptxas=None):
@@ -1507,11 +1710,26 @@ def phase_channel_flagship(dev, K, card, ptxas=None):
     out["B10a"] = measure(K, "B10a", (psi_sub,), dict(dx=params.dx), 1, 1, "B10a at 256^3")
     out["B10a"]["conv3d_pad"] = conv3d_pad("B10a", psi_sub, params.dx)
     out["B10a"]["plan"] = stencil_plan_report(psi_sub.shape[2:], 1, ptxas)
+    del psi_sub
+    trail = trail_report(K, params, st, ptxas)
+    out["B11b emit"] = trail["h2"]
+    routes = {"C": route_turns(params, st, dev)}
+    del st
+    torch.cuda.empty_cache()
+    su = rosensweig_3d(res=(256, 256, 256), mag_strength=85.0, device=dev)[1]
+    routes["U"] = route_turns(params.replace(scalar_carry=True), su, dev)
+    check(all(r[1] == {"trailing_stage": n, "psi_route": n + 1} for r, n in
+              ((routes["C"], 15), (routes["U"], 14))),
+          f"256^3 launches a step: {[r[1] for r in routes.values()]}")
+    del su
+    torch.cuda.empty_cache()
     emit({"phase": "channel_flagship", "scene": "rosensweig_3d", "res": [256, 256, 256],
           "solve": "channel form (scalar_carry=False)", "mlups": stats["mlups"],
           "ms_per_step": stats["seconds"] / stats["steps"] * 1e3,
           "seconds_20_steps": stats["seconds"], "peak_mem_gb": peak / 1e9, "card": card,
-          "per_kernel": out, "ok": True})
+          "per_kernel": out, "trailing_stage": trail,
+          "routes_ms_a_step": {k: v[0] for k, v in routes.items()},
+          "routes_launches_a_step": {k: v[1] for k, v in routes.items()}, "ok": True})
     return out
 
 
@@ -2097,7 +2315,7 @@ def phase_poisson_plans(dev, card):
                             rows.append(dict(
                                 k=k, ty=ty, lz=pl.lz, smem_bytes=pp.smem_bytes(k, ty, elem),
                                 blocks_per_sm=blocks_per_sm("lbm_poisson_pass_occupancy", k, ty,
-                                                            1, int(bf16)),
+                                                            1, int(bf16), 0),
                                 ms=time_cuda(lambda: pp.poisson_sweeps(*args, **kw), 5)))
             finally:
                 pp.plan = real
@@ -2358,6 +2576,9 @@ def phase_kernels_bf16(dev, K):
                 r = bf16_rows(K, "B11b", args, kw, f"B11b bf16 tau={tau} n_iters={n} at {res}")
                 log("B11b", "B11b bf16", res, r, tau=tau, n_iters=n,
                     against_one_sweep_plan=b11b_plan_against_one_sweep(args, kw, sms))
+        for row in b11b_emit_checks(K, params, d["h"], d["mflags_block"], d["rhs"], sms,
+                                    f"bf16 at {res}"):
+            rows.append(dict(row, res=list(res)))
         if res == (34, 66, 130):
             rows.append({"kernel": "B11b bf16 plan sweep", "res": list(res),
                          **b11b_bf16_plans(K, d["h"], mfl, d["rhs"], res)})
@@ -2448,6 +2669,7 @@ def phase_bf16_main(dev, kernels_pkg, card):
     out = {"phase": "bf16_main_paths", "card": card, "bar_density_10_steps": BF16_DENSITY,
            "bar_mass": BF16_MASS, "bar_level_cells": BF16_LEVEL}
     total = {kid: 0 for kid in kernels_pkg.BF16_FORMS}
+    total["B11b emit"] = 0
     params, s0 = rosensweig_3d(device=dev)
     n = params.poisson_iters
     b1 = K["B1"].module.launches_per_call(n, s0.rho.shape)
@@ -2457,9 +2679,9 @@ def phase_bf16_main(dev, kernels_pkg, card):
         ("capillogue steady state", params, s0, primed, {"B1": b1, "B2": 1, "B3": 4},
          {"B4": 1}),
         ("channel form", params.replace(scalar_carry=False), s0, primed,
-         {"B11b": b11b, "B10a": 1, "B2": 1, "B3": 4}, {"B4": 1}),
+         {"B11b": b11b, "B2": 1, "B3": 4}, {"B4": 1}),
         ("un-carried", params, s0, None,
-         {"B4": 1, "B11b": b11b, "B10a": 1, "B2": 1, "B6": 1, "B5": 1}, {}),
+         {"B4": 1, "B11b": b11b, "B2": 1, "B6": 1, "B5": 1}, {}),
         ("epilogue steady state", params, s0, epilogue_state,
          {"B1": b1, "B2": 1, "B6": 1, "B5": 2}, {"B4": 1}),
         ("hcz", hp, hs0, None, {"B8b": 1, "B8a": 1, "B2": 1, "B6": 1, "B9": 1}, {}),
@@ -2482,6 +2704,8 @@ def phase_bf16_main(dev, kernels_pkg, card):
         launches = kernels_pkg.launch_counts()
         bf16 = kernels_pkg.launch_counts(kernels_pkg.BF16_FORMS, bf16=True)
         check_launches(f"bf16 {label}", launches, per_step, 30, extra=extra)
+        if "B11b" in per_step:
+            total["B11b emit"] += check_emit_launches(f"bf16 {label}", kernels_pkg, 30)
         check(all(bf16[kid] == launches[kid] for kid in bf16) and any(bf16.values()),
               f"bf16 {label}: a kernel ran its float32 form on bfloat16 storage: {bf16}")
         check(sk.f.dtype == sk.g.dtype == torch.bfloat16
@@ -2521,7 +2745,7 @@ def phase_bf16_main(dev, kernels_pkg, card):
         failed += [m for key in ("against_plain_after_10_steps", "against_plain_after_30_steps",
                                  "against_float32_after_30_steps") for m in row[key]["failed"]]
         out[label] = row
-        for kid in total:
+        for kid in kernels_pkg.BF16_FORMS:
             total[kid] += bf16[kid]
         del sk, sp, sf, s16, sk10, sp10
         torch.cuda.empty_cache()
@@ -2551,12 +2775,14 @@ def interface_heights(params, state):
 LONG_MASS_PLAIN, LONG_MASS_F32, LONG_LEVEL = 1e-3, 2e-2, 1.0
 
 
-def phase_long_horizon(dev, card, steps=2000):
+def phase_long_horizon(dev, card, steps=2000, plain_steps=500):
     """``steps`` (2000) kernel steps of Rosensweig 130x66x130 (the
     capillogue steady state) in float32 and in bfloat16 storage from the
-    same scene, and ``steps // 2`` bfloat16 steps on the plain path:
-    bfloat16 kernels against plain at ``LONG_MASS_PLAIN`` (fluid mass) and
-    the dense phase's mean level within ``LONG_LEVEL`` cells; bfloat16
+    same scene, and ``plain_steps`` (500; 1000 before PR 18, which cut it
+    for card time: the plain run was 55 of the phase's 59 s) bfloat16
+    steps on the plain path: after as many kernel steps, bfloat16 kernels
+    against plain at ``LONG_MASS_PLAIN`` (fluid mass) and the dense phase's
+    mean level within ``LONG_LEVEL`` cells; bfloat16
     against float32 at ``LONG_MASS_F32`` and the mean interface level
     within ``LONG_LEVEL`` cells, as tests/test_bf16_physics.py holds the
     JAX package's turbo mode; the corrugation amplitude and the pointwise
@@ -2572,14 +2798,14 @@ def phase_long_horizon(dev, card, steps=2000):
     runs = {}
     for label, p, s, n, plain in (("float32", params, s0, steps, False),
                                   ("bfloat16", p16, s16, steps, False),
-                                  ("bfloat16 plain", p16, s16, steps // 2, True)):
+                                  ("bfloat16 plain", p16, s16, plain_steps, True)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st = prime_premac(p, s, device=dev, plain=plain)
         marks = {}
         for i in range(1, n + 1):
             st = ferrofluid_step(p, st, device=dev, plain=plain)
-            if i == steps // 2:
+            if i == plain_steps:
                 marks = {"mass": fluid_mass(st), "level": dense_level(p, st)}
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -2594,12 +2820,13 @@ def phase_long_horizon(dev, card, steps=2000):
     m32, m16 = fluid_mass(a["state"]), fluid_mass(b["state"])
     half = {k: {"mass": v["half"]["mass"], "dense_level": v["half"]["level"]}
             for k, v in runs.items()}
+    half["step"] = plain_steps
     plain_mass = abs(b["half"]["mass"] / c["half"]["mass"] - 1.0)
     plain_level = b["half"]["level"] - c["half"]["level"]
     row = {"phase": "long_horizon", "scene": "rosensweig_3d", "res": list(s0.rho.shape[2:]),
            "steps": steps, "card": card,
            "fluid_mass": {"float32": m32, "bfloat16": m16, "rel": abs(m16 / m32 - 1.0)},
-           "at_half": dict(half, bf16_kernels_vs_plain_mass_rel=plain_mass,
+           "at_plain_steps": dict(half, bf16_kernels_vs_plain_mass_rel=plain_mass,
                            bf16_kernels_vs_plain_level_diff=plain_level),
            "mean_interface_level": {"float32": float(a["heights"].mean()),
                                     "bfloat16": float(b["heights"].mean()), "diff": mean_diff},
@@ -3035,6 +3262,9 @@ def phase_bf16_flagships(dev, K, card, ptxas=None):
     per_kernel["B11b"]["plan"] = b11b_plan_report(
         pp.plan(*res, pc.poisson_iters, torch.cuda.get_device_properties(0).multi_processor_count,
                 2), pc.tau, ptxas, bf16=True)
+    trail = trail_report(K, pc, st, ptxas, bf16=True)
+    per_kernel["B11b emit"] = trail["h2"]
+    out["trailing_stage"] = trail
     del st, args
 
     _, s16 = turbo(params, rosensweig_3d(res=res, mag_strength=85.0, device=dev)[1], dev)
@@ -4394,7 +4624,8 @@ def route_fields(route):
 def slab_launches_per_step(K, params, shape, mesh, route="Z"):
     """Launches a step of each slab form on ``mesh`` on ``route`` (B4 runs
     at priming, and on U and U19 each step): the solve, B1's rounds of
-    passes and its H2 or (C, U19) B11b's rounds and B10a once, B2 once,
+    passes and its H2 or (C, U19) B11b's rounds, the last with B7's
+    trailing stage emitting H2 (``channel_slab_plan(..., h2=True)``), B2 once,
     B3's four (Z, C); B10b and B6 once and B5 once, twice with emit_mac
     (E, O, U, U19); on H B8b, B8a, B2, B10b and B6 once (B9, local, runs
     its single-device kernel)."""
@@ -4406,8 +4637,8 @@ def slab_launches_per_step(K, params, shape, mesh, route="Z"):
     n = params.poisson_iters
     if route in ("C", "U19"):
         k, _, _ = step3d.channel_slab_plan(
-            mesh, step3d.global_shape((1, 19, *shape[2:]), mesh), n)
-        per.update(B11b=-(-n // k), B10a=K["B10a"].module.launches_per_call(1))
+            mesh, step3d.global_shape((1, 19, *shape[2:]), mesh), n, h2=True)
+        per.update(B11b=-(-n // k))
     else:
         k, _ = step3d.scalar_slab_plan(mesh, step3d.global_shape((1, 2, *shape[2:]), mesh), n)
         per["B1"] = n // k * len(K["B1"].module.passes(k)) + 1
@@ -4575,7 +4806,9 @@ def channel_form_calls(params, st, mesh):
     makes it on ``mesh``, its plain version, the single-device form on the
     same inputs, the slab kernel's (bytes, flops)) on route C's primed slab
     state ``st``: B11b's slab rounds (:func:`step3d.poisson_sweeps_sharded`,
-    their exchanges included) and B10a on the substituted psi."""
+    their exchanges included) with B7's trailing stage emitting H2 in the
+    last, as the step runs them ("B11b emit"); the psi route's, psi and
+    B10a on the substituted psi."""
     import torch
 
     from lbm_ferrofluid_tpu_torch.ops.kernels import poisson, stencil3d
@@ -4583,6 +4816,9 @@ def channel_form_calls(params, st, mesh):
 
     n, tau, mf, rhs = params.poisson_iters, params.tau, st.magnetic_flags, st.premac[5]
     k, G, r = step3d.channel_slab_plan(mesh, step3d.global_shape(st.h.shape, mesh), n)
+    k2, G2, r2 = step3d.channel_slab_plan(mesh, step3d.global_shape(st.h.shape, mesh), n, h2=True)
+    rounds2 = [k2] * (n // k2) + [r2] * (r2 > 0)
+    hext = static_field(params)
     _, psi = step3d.poisson_sweeps_sharded(st.h, mf, rhs, mesh, tau=tau, n_iters=n)
     psi_sub = step3d.substitute_obstacles_sharded(psi, mf, mesh)
     rounds = [k] * (n // k) + [r] * (r > 0)
@@ -4591,7 +4827,19 @@ def channel_form_calls(params, st, mesh):
     def sharded(fn, *args, **kw):
         return (lambda: fn(*args, mesh, **kw), lambda: fn(*args, mesh, plain=True, **kw))
 
+    def emitting(plain):
+        h, h2, emitted = step3d.poisson_sweeps_sharded(st.h, mf, rhs, mesh, tau=tau, n_iters=n,
+                                                       emit_h2=hext, dx=params.dx, plain=plain)
+        check(emitted, "route C's slab solve did not take B7's trailing stage")
+        return h, h2
+
     calls = {
+        "B11b emit": (lambda: emitting(False), lambda: emitting(True),
+                      lambda: poisson.poisson_sweeps(st.h, mf, rhs, **emit_kw(params, "h2", tau,
+                                                                                n)),
+                      poisson.cost_slab(st.h, mf, rhs, tau=tau, n_iters=n, rounds=rounds2, G=G2,
+                                        emit="h2", h_ext=hext,
+                                        clamp=step3d.slab_clamp(mesh, st.h.shape[2]))),
         "B11b": (*sharded(step3d.poisson_sweeps_sharded, st.h, mf, rhs, tau=tau, n_iters=n),
                  lambda: poisson.poisson_sweeps(st.h, mf, rhs, tau=tau, n_iters=n),
                  poisson.cost_slab(st.h, mf, rhs, tau=tau, n_iters=n, rounds=rounds, G=G)),
@@ -4766,6 +5014,7 @@ def slab_forced(K, kernels_pkg, params, s0, dev, card, what, steps=30, timed=10,
     per = slab_launches_per_step(K, params, sm.f.shape, mesh, route)
     check_launches(f"{what} slab forms", slab_l, per, steps,
                    extra={"B4": 1} if route in PRIMED else {})
+    n_emit = check_emit_launches(what, kernels_pkg, steps) if route in ("C", "U19") else 0
     local = {"B9": steps} if route == "H" else {}
     check(all_l == {**{kid: 0 for kid in all_l}, **slab_l, **local},
           f"{what}: a launch outside the slab forms: {all_l}")
@@ -4807,6 +5056,19 @@ def slab_forced(K, kernels_pkg, params, s0, dev, card, what, steps=30, timed=10,
         forms = epilogue_form_rows(params, sm, mesh, what, bf16=bf16)
     elif route == "C":
         forms = form_rows(channel_form_calls(params, sm, mesh), what)
+        # the psi route (a field that is not a static constant: solve_H_int
+        # without h2_ext), the meshed solve's path through B10a's slab form
+        kernels_pkg.reset_launch_counts()
+        from lbm_ferrofluid_tpu_torch.ops import solve_H_int
+
+        for _ in range(3):
+            solve_H_int(params.lattice, sm.h, None, sm.magnetic_flags, None,
+                        tau=float(params.tau), n_iters=params.poisson_iters, dx=params.dx,
+                        dt=params.dt, rhs_scaled=sm.premac[5], mesh=mesh)
+        torch.cuda.synchronize()
+        psi_route = kernels_pkg.launch_counts(["B10a"], slab=True)["B10a"]
+        check(psi_route == 3, f"{what}: the psi route launched B10a's slab form {psi_route} times")
+        slab_l = dict(slab_l, B10a=slab_l["B10a"] + psi_route)
     elif route == "H":
         forms = form_rows(hcz_form_calls(params, sm, mesh), what)
     else:
@@ -4822,8 +5084,8 @@ def slab_forced(K, kernels_pkg, params, s0, dev, card, what, steps=30, timed=10,
           "res": list(s0.f.shape[2:]), "steps": steps, "storage": str(sm.f.dtype),
           "against_single_device": errs, "bit_for_bit_to_single_device": bits, **extra,
           "ms_per_step": ms, "slab_forms": forms, "launches": slab_l,
-          "launches_per_step": per, "card": card, "ok": True})
-    return forms, slab_l
+          "launches_emit": n_emit, "launches_per_step": per, "card": card, "ok": True})
+    return forms, dict(slab_l, **{"B11b emit": n_emit})
 
 
 def _free_port() -> int:
@@ -4998,7 +5260,7 @@ def phase_sharded(dev, kernels_pkg, card):
     from lbm_ferrofluid_tpu_torch.parallel import Mesh, shard_state
 
     K = kernels_pkg.KERNELS
-    launches = {kid: 0 for kid in kernels_pkg.SLAB_FORMS}
+    launches = {kid: 0 for kid in kernels_pkg.SLAB_FORMS + ("B11b emit",)}
     launches16 = dict(launches)
     forms, forms16 = {}, {}
     for res, mag in SHARDED_GRIDS:
@@ -5059,7 +5321,7 @@ def phase_sharded(dev, kernels_pkg, card):
         for (res, mag, shape, batch, route, slab), (ranks, wall) in zip(lane_jobs, results):
             for r in ranks:
                 for kid in launches:
-                    launches[kid] += r["slab_launches"][kid]
+                    launches[kid] += r["slab_launches"].get(kid, 0)
             lead = next(r for r in ranks if r["rank"] == 0)
             check(lead["backend"] == ("nccl" if slab else "gloo"),
                   f"rank job {res} {shape}: backend {lead['backend']}")
@@ -5111,12 +5373,26 @@ def phase_sharded(dev, kernels_pkg, card):
                                                    "bound_by", "single_device_ms")},
             "library_ms": None,
         })
+    for tag, fm, n in (("", forms, launches["B11b emit"]),
+                       (" bf16", forms16, launches16["B11b emit"])):
+        rows.append({
+            "name": f"B11b poisson_sweeps slab emit{tag}", "route": "cuda",
+            "source": K["B11b"].module.CUDA_SOURCE_EMIT,
+            "replaces": K["B11b"].module.TPU_KERNEL_EMIT + " with slab_clamp= and ghosts=",
+            "launches": n,
+            **{key: fm["B11b emit"][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                                      "bound_ms", "bound_by",
+                                                      "single_device_ms")},
+            "library_ms": None, "what": "the slab solve, its last round with the trailing stage",
+        })
     return rows
 
 
 def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     """Phases 3-8; returns one row per kernel for the ``kernels`` line, one
-    per bfloat16 form, and one for each of B1's psi and B3's box forms.
+    per bfloat16 form, one for B11b's last pass with B7's trailing stage in
+    float32 and in bfloat16 (its launches on the channel-form main paths),
+    and one for each of B1's psi and B3's box forms.
     ``launches`` sums the kernel's launches over the main paths of phases 5
     and 5c that run it (B2, B3 and B4 over both ferrofluid solves, the
     padded paths, the spike runs and the demo drivers), a bfloat16 form's
@@ -5185,6 +5461,15 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
         "bound_ms": flag16[kid]["bound_ms"], "bound_by": flag16[kid]["bound_by"],
         "library_ms": None,
     } for kid in kernels_pkg.BF16_FORMS] + [{
+        "name": f"B11b poisson_sweeps emit{tag}", "route": "cuda",
+        "source": K["B11b"].module.CUDA_SOURCE_EMIT,
+        "replaces": K["B11b"].module.TPU_KERNEL_EMIT,
+        "launches": n, "max_abs_err": row["max_abs_err"],
+        **{key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "mode": "h2 (the main paths' mode; hint: the phase line)",
+    } for tag, row, n in (
+        ("", flag["B11b emit"], sum(p.get("B11b emit", 0) for p in per_path)),
+        (" bf16", flag16["B11b emit"], launches16["B11b emit"]))] + [{
         "name": f"{kid} {K[kid].wrapper.__name__} {form}", "route": "cuda",
         "source": K[kid].module.CUDA_SOURCE, "replaces": K[kid].tpu_kernel,
         "launches": padded[launches_key][kid],

@@ -69,6 +69,35 @@
 // exact; stage k also writes the first and last G planes to the bands the
 // next exchange sends.  Its bound adds the bands' reads and writes.
 //
+// The trailing stage (lbm_poisson_trail_kernel, the TPU wavefront's emit="hint"
+// and emit="h2", poisson.py:1150-1162 and :1203-1266) takes the place of the
+// psi store on the last pass of a call: psi never reaches device memory.  The
+// block keeps the final sweep's psi and obstacle flag of its last three planes
+// in a ring of shared memory and, one plane behind stage k, computes at each
+// cell of the tile the field at the interior cell nearest to it (its source:
+// x and y clamped to [1, X-2] and [1, Y-2], z to [zlo, zhi]), which is the TPU
+// stage's boundary-ring replication of its output:
+//   - the substituted psi of the source's 18 neighbours: at a magnetic
+//     obstacle psi of the nearest interior cell, ring-replicated in x and y
+//     and with z clamped to [zlo, zhi] (_ring_replicate_plane and the clamp
+//     of the TPU's trailing stage), elsewhere psi itself;
+//   - H_int_d = (the taps of _GRAD_TAPS[d], ops/pallas/stencil3d.py:47-57,
+//     summed in that order) * f32(-1 / (12 dx));
+//   - with h2, H2 = sum_d (H_int_d + h_ext_d)^2 in channel order, a zero h_ext
+//     component not added;
+// and writes H_int (3 channels) or H2 (1 channel).  The stage needs psi one
+// cell past the tile: the pass takes the geometry of a pass of k + 1 sweeps
+// (tiles lbm_pass_tx(k + 1) wide, ty + 2k rows extended, and a z walk one
+// plane longer at each end of its chunk), and the last grid column and row
+// are written by the tile that ends just before them where no tile starts
+// there (the grid has ceil((X - 1) / tx) x ceil((Y - 1) / ty) tiles), so every
+// source lies in its output's tile.  In z the stage at source plane zlo also
+// writes plane zlo - 1 and at zhi plane zhi + 1 (ops/kernels/poisson.py:
+// trail_pass keeps each in its source's chunk).  On one device [zlo, zhi] =
+// [1, Z - 2]; the slab form clamps only at the domain's true edges (1 or -1,
+// Zl - 2 or Zl), and reads psi of the planes either side of the slab, which
+// its G >= k + 1 band planes keep exact after k sweeps.
+//
 // Passes write out of place, so no input is overwritten during a pass; the
 // k = 1 pass is the one-sweep kernel, and every pass computes each cell with
 // lbm_poisson_cell, so every plan gives the same bits.  A pass of k = 3 at
@@ -90,9 +119,11 @@
 // one (ops/kernels/poisson.py:smem_bytes and plan count the element size;
 // whether registers allow two is what the card reports).  A call then must
 // move 85 B per cell: 0.43 ms at 256^3.
-#include "common.cuh"
+//
+// The pass body, with the trailing stage, is csrc/poisson_pass.cuh; the
+// trailing stage's instances are csrc/poisson_trail.cu.
+#include "poisson_pass.cuh"
 
-#define PP_EX 32  // extended tile width
 #define PP_MAX_K 4
 // the extended heights EY = TY + 2(k - 1) the kernel is built for (a block
 // has a warp per input row, EY + 2): those of ops/kernels/poisson.py:plan's
@@ -102,237 +133,17 @@
 // the extended heights the slab form is built for: those of its passes of
 // k = 1..PP_MAX_K sweeps (ops/kernels/poisson.py:SLAB_EXT_HEIGHTS, slab_plan)
 #define PP_SLAB_HEIGHTS(M) M(9) M(11) M(13) M(15)
-// floats a stage ring keeps a cell: 9 channels x 2 planes + 5 x 3 + 5 x 1
-#define PP_RING 38
-
-// First channel plane of each channel group in a stage ring: channels
-// 0..8 (e_z = 0) of plane p (p >= 0, counted from the block's first plane)
-// in one of 2 slots, 9..13 (e_z = +1) in one of 3 slots, 14..18 (e_z = -1)
-// in the only slot.
-__device__ __forceinline__ int lbm_ring_z0(int p) { return (p % 2) * 9; }
-__device__ __forceinline__ int lbm_ring_zp(int p) { return 18 + (p % 3) * 5; }
-#define LBM_RING_ZM 33
-
-// Channel q of a source whose groups (e_z = 0, +1, -1) start at g0, gp,
-// gm: a compile-time offset from one of three pointers, so a load or store
-// of it is one instruction with an immediate offset.
-template <class T>
-__device__ __forceinline__ T* lbm_group_channel(T* g0, T* gp, T* gm, int q, int plane) {
-  return q < 9 ? g0 + q * plane : (q < 14 ? gp + (q - 9) * plane : gm + (q - 14) * plane);
-}
-
-// Tile width of a pass of k sweeps (a multiple of 8 floats, at most 32 -
-// 2k) and the halo columns left of it in the extended tile.
-__host__ __device__ __forceinline__ int lbm_pass_tx(int k) { return (PP_EX - 2 * k) / 8 * 8; }
-__host__ __device__ __forceinline__ int lbm_pass_hx(int k) { return (PP_EX - lbm_pass_tx(k)) / 2; }
-
-// Registers a thread holds for the input of a tick it has loaded ahead (h
-// as stored).
-template <class T>
-struct LbmPassInput {
-  T h[19];
-  float rhs;
-  uint8_t flag;
-};
-
-// EY is a template parameter, so every shared-memory offset of a channel
-// is an immediate of the load or store instead of a multiply by the plane
-// size, and the register bound follows the block's size; the host picks
-// the instance (lbm_poisson_pass_instance).  T is h's storage type, which
-// the input plane and the stage rings keep.  SLAB: the slab form (planes
-// -G..-1 from glo and Z..Z + G - 1 from ghi, no wrap, the bands written to
-// blo and bhi), its own kernel so that the one-device kernel's code is as
-// it was.
-template <class T, bool TAU1, int EY, bool SLAB>
-__device__ __forceinline__ void lbm_poisson_pass_body(
-    const T* __restrict__ h, const uint8_t* __restrict__ flags, const float* __restrict__ rhs,
-    T* __restrict__ out, float* __restrict__ psi_out, int Z, int Y, int X, int k, int LZ,
-    float inv_tau, float a, const T* __restrict__ glo, const T* __restrict__ ghi, int G,
-    T* __restrict__ blo, T* __restrict__ bhi) {
-  // 4 elements of padding (edge lanes read one element before and after a
-  // plane), the input plane (19 channels), the k - 1 stage rings, 4 more,
-  // all in T; then, in float, the (k + 1)-plane rhs ring, the wrapped grid
-  // x of the extended columns and y * X of the rows -1..EY, then the flags
-  // ring.  Every channel plane of the input and the rings holds rows
-  // -1..EY (PI elements, row e at (e + 1) * 32; the rings leave rows -1
-  // and EY unused), so each stage reads its source the same way.
-  extern __shared__ float smem[];
-  constexpr int P = PP_EX * EY, PI = PP_EX * (EY + 2);
-  const int TX = lbm_pass_tx(k), HX = lbm_pass_hx(k), TY = EY - 2 * (k - 1);
-  T* inp = reinterpret_cast<T*>(smem) + 4;
-  T* rings = inp + 19 * PI;
-  float* rhr = reinterpret_cast<float*>(rings + (k - 1) * PP_RING * PI + 4);
-  int* colx = reinterpret_cast<int*>(rhr + (k + 1) * P);
-  int* rowy = colx + PP_EX;
-  uint8_t* flr = reinterpret_cast<uint8_t*>(rowy + EY + 2);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-  const int z0 = blockIdx.z * LZ, z1 = min(z0 + LZ, Z);
-  const long long XY = static_cast<long long>(X) * Y, N = XY * Z, GN = XY * G;
-  if (warp == 0) colx[lane] = lbm_mod(x0 - HX + lane, X);
-  if (lane == 0) rowy[warp] = lbm_mod(y0 - k + warp, Y) * X;  // a warp per row -1..EY
-  __syncthreads();
-  const int ex[19] = LBM_D3Q19_EX;
-  const int ey[19] = LBM_D3Q19_EY;
-  const int ez[19] = LBM_D3Q19_EZ;
-  // plane p of the block is grid plane zb + p (wrapped); tick r runs stage
-  // j at p = r - j + 1, over p in [j - 1, n_ticks - j + 1), so stage k
-  // covers [z0, z1)
-  const int zb = z0 - k + 1, n_ticks = z1 - z0 + 2 * k - 2;
-
-  // the warp's input row (row warp - 1 of the extended tile) and, for rows
-  // 0..EY - 1, its cell of the flags and rhs plane, at in-plane offsets of
-  // the grid
-  const int in_off = rowy[warp] + colx[lane];
-  const bool has_cell = warp >= 1 && warp <= EY;
-  // stage 1 reads the halo row above the extended tile only in the 5
-  // channels with e_y = +1 and the row below only in those with e_y = -1
-  auto needs = [&](int q) {
-    return warp == 0 ? ey[q] == 1 : (warp == EY + 1 ? ey[q] == -1 : true);
-  };
-  // the input of the tick whose stage 1 computes grid plane zr: channel q
-  // of plane zr - e_z(q), flags and rhs of plane zr; on a slab, planes
-  // -G..-1 of h from the lo band and Z..Z + G - 1 from the hi band, read in
-  // place, and flags and rhs of plane zr + G of the extended pair
-  auto fetch = [&](int zr, LbmPassInput<T>& b) {
-    if constexpr (!SLAB) {
-      const long long zc[3] = {(zr == 0 ? Z - 1 : zr - 1) * XY, zr * XY,
-                               (zr == Z - 1 ? 0 : zr + 1) * XY};
-#pragma unroll
-      for (int q = 0; q < 19; ++q)
-        if (needs(q)) b.h[q] = h[q * N + zc[1 - ez[q]] + in_off];
-      if (has_cell) {
-        b.rhs = rhs[zc[1] + in_off];
-        b.flag = flags[zc[1] + in_off];
-      }
-    } else {
-      const T* base[3];
-      long long cs[3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const int p = zr - 1 + d;
-        base[d] = p < 0 ? glo + (p + G) * XY : (p >= Z ? ghi + (p - Z) * XY : h + p * XY);
-        cs[d] = p < 0 || p >= Z ? GN : N;
-      }
-#pragma unroll
-      for (int q = 0; q < 19; ++q)
-        if (needs(q)) b.h[q] = base[1 - ez[q]][q * cs[1 - ez[q]] + in_off];
-      if (has_cell) {
-        const long long fz = (zr + G) * XY + in_off;
-        b.rhs = rhs[fz];
-        b.flag = flags[fz];
-      }
-    }
-  };
-  auto put = [&](int slot, const LbmPassInput<T>& b) {
-#pragma unroll
-    for (int q = 0; q < 19; ++q)
-      if (needs(q)) inp[q * PI + warp * PP_EX + lane] = b.h[q];
-    if (has_cell) {
-      const int c = (warp - 1) * PP_EX + lane;
-      rhr[slot * P + c] = b.rhs;
-      flr[slot * P + c] = b.flag;
-    }
-  };
-
-  // tick r, with rk = r % (k + 1) and zr its stage 1's grid plane (kept by
-  // the loop, so no stage divides by a runtime value)
-  auto tick = [&](int r, int rk, int zr, LbmPassInput<T>& b) {
-    // tick r's input over what stage 1 read last tick, plane r's flags and
-    // rhs into the slot of plane r - k - 1, which stage k read two ticks
-    // ago; then tick r + 1's loads into the registers just emptied, in
-    // flight while the stages compute
-    put(rk, b);
-    if (r + 1 < n_ticks) fetch(!SLAB && zr == Z - 1 ? 0 : zr + 1, b);
-    __syncthreads();
-    for (int j = 1; j <= k; ++j) {
-      const int p = r - j + 1;
-      if (p < j - 1 || p >= n_ticks - j + 1) continue;  // the same for the whole block
-      // a warp a row: row e of [j - 1, EY - j + 1)
-      const int e = j - 1 + warp;
-      if (e < EY - j + 1) {
-        const int c = e * PP_EX + lane, c1 = c + PP_EX;
-        // the source's channel groups: the input plane for stage 1, else
-        // stage j - 1's ring at planes p (e_z = 0), p - 1 (e_z = +1; (p +
-        // 2) % 3 == (p - 1) % 3) and p + 1 (e_z = -1, made this tick)
-        T* src = j == 1 ? inp : rings + (j - 2) * PP_RING * PI;
-        T* g0 = src + (j == 1 ? 0 : lbm_ring_z0(p)) * PI + c1;
-        T* gp = src + (j == 1 ? 9 : lbm_ring_zp(p + 2)) * PI + c1;
-        T* gm = src + (j == 1 ? 14 : LBM_RING_ZM) * PI + c1;
-        float s[19];
-#pragma unroll
-        for (int q = 0; q < 19; ++q)
-          s[q] = lbm_ld(lbm_group_channel(g0, gp, gm, q, PI) - ey[q] * PP_EX - ex[q]);
-        const int fs = (rk >= j - 1 ? rk - j + 1 : rk - j + 2 + k) * P + c;
-        const bool obstacle = flr[fs] == LBM_OBSTACLE;
-        // the sweep's outputs to stage j's ring, or (stage k) the tile's
-        // cells inside the grid to device memory, each rounded to T
-        auto finish = [&](const float(&o)[19], float psi) {
-          if (j < k) {
-            T* dst = rings + (j - 1) * PP_RING * PI + c1;
-            T* d0 = dst + lbm_ring_z0(p) * PI;
-            T* dp = dst + lbm_ring_zp(p) * PI;
-            T* dm = dst + LBM_RING_ZM * PI;
-#pragma unroll
-            for (int q = 0; q < 19; ++q) lbm_st(lbm_group_channel(d0, dp, dm, q, PI), o[q]);
-          } else if (lane >= HX && lane < HX + TX && x0 + lane - HX < X &&
-                     y0 + e - (k - 1) < Y) {
-            int zw = zr - (j - 1);
-            while (zw < 0) zw += Z;
-            const long long ip = rowy[e + 1] + colx[lane], n = zw * XY + ip;
-#pragma unroll
-            for (int q = 0; q < 19; ++q) lbm_stcs(out + q * N + n, o[q]);
-            if (psi_out != nullptr) __stcs(psi_out + n, psi);
-            // a slab's boundary bands, the next exchange's planes: its
-            // first and its last G planes again
-            if constexpr (SLAB) {
-              if (blo != nullptr && zw < G) {
-#pragma unroll
-                for (int q = 0; q < 19; ++q) lbm_stcs(blo + q * GN + zw * XY + ip, o[q]);
-              }
-              if (bhi != nullptr && zw >= Z - G) {
-#pragma unroll
-                for (int q = 0; q < 19; ++q)
-                  lbm_stcs(bhi + q * GN + (zw - Z + G) * XY + ip, o[q]);
-              }
-            }
-          }
-        };
-        // a row without an obstacle (almost every one) computes its outputs
-        // without a select per channel
-        float o[19];
-        if (__any_sync(0xffffffffu, obstacle)) {
-          const float psi = lbm_poisson_cell<TAU1>(s, obstacle, rhr[fs], inv_tau, a, o);
-          finish(o, psi);
-        } else {
-          const float psi = lbm_poisson_cell<TAU1>(s, false, rhr[fs], inv_tau, a, o);
-          finish(o, psi);
-        }
-      }
-      // stage 1 of a one-sweep pass reads the input plane that the next
-      // put overwrites; a later stage reads nothing the next tick's put
-      // or stage 1 writes before its barrier
-      if (j < k || k == 1) __syncthreads();
-    }
-  };
-
-  LbmPassInput<T> b{};
-  int zr = SLAB ? zb : lbm_mod(zb, Z);
-  fetch(zr, b);
-  for (int r = 0, rk = 0; r < n_ticks; ++r) {
-    tick(r, rk, zr, b);
-    rk = rk == k ? 0 : rk + 1;
-    zr = !SLAB && zr == Z - 1 ? 0 : zr + 1;
-  }
-}
+// (as in poisson_pass.cuh: ops/kernels/poisson.py:SMEM_BLOCK_MAX)
+#define PP_SMEM_MAX 232448
 
 template <class T, bool TAU1, int EY>
 __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
     const T* __restrict__ h, const uint8_t* __restrict__ flags, const float* __restrict__ rhs,
     T* __restrict__ out, float* __restrict__ psi_out, int Z, int Y, int X, int k, int LZ,
     float inv_tau, float a) {
-  lbm_poisson_pass_body<T, TAU1, EY, false>(h, flags, rhs, out, psi_out, Z, Y, X, k, LZ,
-                                            inv_tau, a, nullptr, nullptr, 0, nullptr, nullptr);
+  lbm_poisson_pass_body<T, TAU1, EY, false, false>(h, flags, rhs, out, psi_out, Z, Y, X, k, LZ,
+                                                   inv_tau, a, nullptr, nullptr, 0, nullptr,
+                                                   nullptr, LbmTrail{});
 }
 
 template <class T, bool TAU1, int EY>
@@ -341,33 +152,10 @@ __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_slab_kernel(
     T* __restrict__ out, float* __restrict__ psi_out, int Z, int Y, int X, int k, int LZ,
     float inv_tau, float a, const T* __restrict__ glo, const T* __restrict__ ghi, int G,
     T* __restrict__ blo, T* __restrict__ bhi) {
-  lbm_poisson_pass_body<T, TAU1, EY, true>(h, flags, rhs, out, psi_out, Z, Y, X, k, LZ, inv_tau,
-                                           a, glo, ghi, G, blo, bhi);
+  lbm_poisson_pass_body<T, TAU1, EY, true, false>(h, flags, rhs, out, psi_out, Z, Y, X, k, LZ,
+                                                  inv_tau, a, glo, ghi, G, blo, bhi,
+                                                  LbmTrail{});
 }
-
-// Shared memory of a pass block in bytes with h stored in elements of es
-// bytes (ops/kernels/poisson.py:smem_bytes counts the same), and the most
-// a block may take on an H100 (SMEM_BLOCK_MAX there).
-static int lbm_poisson_pass_smem(int k, int EY, int es) {
-  const int P = PP_EX * EY, PI = PP_EX * (EY + 2);
-  return es * (8 + 19 * PI + (k - 1) * PP_RING * PI) + 4 * ((k + 1) * P + PP_EX + EY + 2) +
-         (k + 1) * P;
-}
-#define PP_SMEM_MAX 232448
-#define PP_MAX_DEVICES 64
-
-struct LbmPassArgs {
-  const void* h;
-  const uint8_t* flags;
-  const float* rhs;
-  void* out;
-  float* psi_out;
-  int Z, Y, X, k, TY, LZ;
-  float inv_tau, a;
-  const void *glo, *ghi;  // a slab's bands (null on one device)
-  int G;
-  void *blo, *bhi;  // a slab's emitted bands (null: none)
-};
 
 // One instance of the pass kernel: lets it take PP_SMEM_MAX bytes of
 // dynamic shared memory on the current device (one attribute call a
@@ -382,16 +170,9 @@ static cudaError_t lbm_poisson_pass_instance(const LbmPassArgs& g, cudaStream_t 
     kernel = reinterpret_cast<const void*>(lbm_poisson_slab_kernel<T, TAU1, EY>);
   else
     kernel = reinterpret_cast<const void*>(lbm_poisson_pass_kernel<T, TAU1, EY>);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = lbm_pass_allow_smem(kernel, allowed);
   if (err != cudaSuccess) return err;
-  if (dev >= PP_MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!allowed[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PP_SMEM_MAX);
-    if (err != cudaSuccess) return err;
-    allowed[dev] = true;
-  }
-  const int smem = lbm_poisson_pass_smem(g.k, EY, sizeof(T)), threads = PP_EX * (EY + 2);
+  const int smem = lbm_poisson_pass_smem(g.k, EY, sizeof(T), false), threads = PP_EX * (EY + 2);
   if (blocks != nullptr)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
   const int TX = lbm_pass_tx(g.k);
@@ -435,17 +216,20 @@ static cudaError_t lbm_poisson_pass_dispatch(const LbmPassArgs& g, cudaStream_t 
 template <class T>
 static cudaError_t lbm_poisson_pass_run(const LbmPassArgs& g, double tau, cudaStream_t stream,
                                         int* blocks) {
-  if (g.k < 1 || g.k > PP_MAX_K || g.TY < 1 || g.LZ < 1) return cudaErrorInvalidValue;
-  if (g.glo != nullptr && (g.ghi == nullptr || g.k > g.G || g.G > g.Z))
-    return cudaErrorInvalidValue;
-  if (lbm_poisson_pass_smem(g.k, g.TY + 2 * (g.k - 1), sizeof(T)) > PP_SMEM_MAX)
-    return cudaErrorInvalidValue;
   return 1.0 / tau == 1.0 ? lbm_poisson_pass_dispatch<T, true>(g, stream, blocks)
                           : lbm_poisson_pass_dispatch<T, false>(g, stream, blocks);
 }
 
 static cudaError_t lbm_poisson_pass_any(const LbmPassArgs& g, double tau, int bf16,
                                         cudaStream_t stream, int* blocks) {
+  const bool trail = g.trail != 0;
+  if (g.k < 1 || g.k > PP_MAX_K || g.TY < 1 || g.LZ < 1) return cudaErrorInvalidValue;
+  if (g.glo != nullptr && (g.ghi == nullptr || g.k + trail > g.G || g.G > g.Z))
+    return cudaErrorInvalidValue;
+  if (lbm_poisson_pass_smem(g.k, g.TY + 2 * (g.k - 1) + 2 * trail, bf16 ? 2 : 4, trail) >
+      PP_SMEM_MAX)
+    return cudaErrorInvalidValue;
+  if (trail) return lbm_poisson_trail_run(g, tau, bf16, stream, blocks);
   return bf16 ? lbm_poisson_pass_run<__nv_bfloat16>(g, tau, stream, blocks)
               : lbm_poisson_pass_run<float>(g, tau, stream, blocks);
 }
@@ -465,24 +249,39 @@ static cudaError_t lbm_poisson_pass_any(const LbmPassArgs& g, double tau, int bf
 // valid region shrinks a plane a sweep), and only they are written; blo and
 // bhi, unless null, take the first and the last G planes of out again, the
 // bands the next exchange sends.
+//
+// trail (1: H_int, 2: H2): the trailing stage writes H_int [3, Z, Y, X]
+// (or H2 [1, Z, Y, X]) to psi_out, float32, in place of psi, with the
+// gradient's and the substitution's z clamp [zlo, zhi] (1 <= zlo <= zhi <=
+// Z - 2 on one device; on a slab 1 or -1 and Z - 2 or Z), dx, and for H2
+// the constant field (hx, hy, hz); k <= PP_TRAIL_MAX_K, TY + 2k one of
+// PP_TRAIL_HEIGHTS, Y, X >= 3, G >= k + 1 on a slab, no bands, and LZ such
+// that the chunk holding plane zlo - 1 (zhi + 1) holds zlo (zhi).
 extern "C" int lbm_poisson_pass(const void* h, const uint8_t* flags, const float* rhs,
                                 void* out, float* psi_out, int Z, int Y, int X, int k, int TY,
                                 int LZ, double tau, int bf16, const void* glo, const void* ghi,
-                                int G, void* blo, void* bhi, void* stream) {
+                                int G, void* blo, void* bhi, int trail, int zlo, int zhi,
+                                double dx, double hx, double hy, double hz, void* stream) {
   const double inv_tau = 1.0 / tau;
+  const LbmTrail tr{trail == 2, zlo, zhi, static_cast<float>(-1.0 / (12.0 * dx)),
+                    {static_cast<float>(hx), static_cast<float>(hy), static_cast<float>(hz)},
+                    {hx != 0.0, hy != 0.0, hz != 0.0}};
   const LbmPassArgs g{h, flags, rhs, out, psi_out, Z, Y, X, k, TY, LZ,
                       static_cast<float>(inv_tau), static_cast<float>(1.0 - inv_tau),
-                      glo, ghi, glo != nullptr ? G : 0, blo, bhi};
+                      glo, ghi, glo != nullptr ? G : 0, blo, bhi, trail, tr};
+  if (trail && psi_out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
       lbm_poisson_pass_any(g, tau, bf16, static_cast<cudaStream_t>(stream), nullptr);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // Blocks of lbm_poisson_pass_kernel (the tau == 1 form unless tau1 is 0,
-// the bfloat16 instance where bf16 is nonzero) resident on one SM at a
-// plan's k and TY (for reports).
-extern "C" int lbm_poisson_pass_occupancy(int k, int TY, int tau1, int bf16, int* blocks) {
-  const LbmPassArgs g{nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, 1, k, TY, 1, 1.f, 0.f,
-                      nullptr, nullptr, 0, nullptr, nullptr};
+// the bfloat16 instance where bf16 is nonzero, lbm_poisson_trail_kernel on
+// one device where trail is nonzero) resident on one SM at a plan's k and
+// TY (for reports).
+extern "C" int lbm_poisson_pass_occupancy(int k, int TY, int tau1, int bf16, int trail,
+                                          int* blocks) {
+  const LbmPassArgs g{nullptr, nullptr, nullptr, nullptr, nullptr, 3, 3, 3, k, TY, 1, 1.f, 0.f,
+                      nullptr, nullptr, 0, nullptr, nullptr, trail, LbmTrail{0, 1, 1}};
   return static_cast<int>(lbm_poisson_pass_any(g, tau1 ? 1.0 : 0.5, bf16, nullptr, blocks));
 }

@@ -125,8 +125,9 @@ KERNELS = {
 
 #: the kernels each path launches: the ferrofluid step (with its priming)
 #: on the carried steady state with the scalar tau == 1 solve (B1) or the
-#: channel-form solve (B11b + B10a); the un-carried step (an unprimed state,
-#: here in channel form); the epilogue steady state (a 5-leaf premac, here
+#: channel-form solve (B11b, its last pass B7's trailing stage); the
+#: un-carried step (an unprimed state, here in channel form); the epilogue
+#: steady state (a 5-leaf premac, here
 #: with the scalar carry); the HCZ step; the capillary stage's stencil route;
 #: the reference-style 3D HCZ loop through ``compat.py``, op by op; the
 #: padded transposed layout (``scenes.rosensweig_3d_tpu``) carried (B1's psi
@@ -135,8 +136,8 @@ KERNELS = {
 PATHS = {
     "ferrofluid": ("B1", "B2", "B3", "B4"),
     "hcz": ("B2", "B6", "B8a", "B8b", "B9"),
-    "ferrofluid_channel": ("B2", "B3", "B4", "B10a", "B11b"),
-    "ferrofluid_uncarried": ("B4", "B11b", "B10a", "B2", "B6", "B5"),
+    "ferrofluid_channel": ("B2", "B3", "B4", "B11b"),
+    "ferrofluid_uncarried": ("B4", "B11b", "B2", "B6", "B5"),
     "ferrofluid_epilogue": ("B1", "B2", "B6", "B5"),
     "capillary_stencils": ("B10b", "B10a"),
     "singlephase3d": ("B8a",),
@@ -146,8 +147,9 @@ PATHS = {
 }
 
 #: the kernels with a named form and its name (``launches_<name>`` counts
-#: the launches of that form): B1's psi emission, B3's box form
-FORMS = {"B1": "psi", "B3": "box"}
+#: the launches of that form): B1's psi emission, B3's box form, B11b's
+#: last pass with B7's trailing stage (``emit="hint"`` or ``"h2"``)
+FORMS = {"B1": "psi", "B3": "box", "B11b": "emit"}
 
 
 #: the kernels with a bfloat16-storage form (they read or write f, g or h)

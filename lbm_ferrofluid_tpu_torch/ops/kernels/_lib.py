@@ -183,12 +183,13 @@ def count_launch(wrapper, bf16: bool, form: str | None = None) -> None:
     """One more launch of ``wrapper``'s kernel: ``wrapper.launches`` counts
     every launch, ``wrapper.launches_bf16`` those of its bfloat16-storage
     instance, and ``wrapper.launches_<form>`` those of a named form (B1's
-    ``psi``, B3's ``box``)."""
+    ``psi``, B3's ``box``; a tuple names several, as B11b's ``slab`` and
+    ``emit``)."""
     wrapper.launches += 1
     if bf16:
         wrapper.launches_bf16 += 1
-    if form is not None:
-        setattr(wrapper, f"launches_{form}", getattr(wrapper, f"launches_{form}") + 1)
+    for name in (form,) if isinstance(form, str) else form or ():
+        setattr(wrapper, f"launches_{name}", getattr(wrapper, f"launches_{name}") + 1)
 
 
 def elem_bytes(t: torch.Tensor) -> int:

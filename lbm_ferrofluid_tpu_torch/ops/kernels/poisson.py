@@ -6,9 +6,11 @@ poisson_sweeps`` (:200; ``_sweep_kernel`` :120, arithmetic ``_sweep_math``
 its in-place multisweeps (``poisson_multisweep2`` :700,
 ``poisson_multisweep`` :413) run the same sweeps bit-identically, so this
 kernel computes their function too.  The CUDA source is
-``csrc/poisson.cu``.  A call runs the sweeps as passes of k sweeps, each
-one launch of a z-wavefront (the TPU's ``_wavefront_kernel`` :866
-rethought for a 227 KB SM): a block holds an (x, y) tile with its halo and
+``csrc/poisson.cu`` (the pass body in ``csrc/poisson_pass.cuh``, the
+trailing stage's instances in ``csrc/poisson_trail.cu``).  A call runs the
+sweeps as passes of k sweeps, each one launch of a z-wavefront (the TPU's
+``_wavefront_kernel`` :866 rethought for a 227 KB SM): a block holds an
+(x, y) tile with its halo and
 walks its chunk of z with k stages one plane apart; stage 1 pulls from an
 input plane that the block loads through registers a tick ahead, and each
 later stage pulls from the ring of shared memory that the stage before it
@@ -43,6 +45,22 @@ written, psi with ``emit_psi``, and with ``emit_bands`` the first and last
 G planes again as the bands the next exchange sends.  One launch
 (``launches_slab``); its plain version sweeps the slab extended by its
 bands' k nearest planes.
+
+B7's trailing stage (``emit="hint"`` and ``emit="h2"``: the TPU wavefront's
+emission of H_int = -grad(psi_sub) or of the Kelvin magnitude H2 = |h_ext +
+H_int|^2, ``_wavefront_kernel`` :1150-1162 and :1203-1266) runs in the last
+pass in place of the psi store (``csrc/poisson_trail.cu``), so psi never
+reaches device memory and the call returns (h', H_int or H2): the obstacle
+substitution, the 18-tap isotropic gradient summed in the TPU's tap order
+times f32(-1/(12 dx)), and the output's x/y ring and z edge planes taken
+from the nearest interior cell (:func:`trail_plain`).  That pass has the
+geometry of a pass of k + 1 sweeps (:func:`trail_pass`: tiles
+``tile_width(k + 1)`` wide and ty + 2k rows extended, the grid's last
+column and row written by the tile before them, z chunks that keep each
+edge plane with the plane it copies); ``launches_emit`` counts it.  Its
+slab form takes ``clamp`` (the z clamp: 1 and Zl - 2 at the domain's true
+edges, -1 and Zl where the slab has a neighbour) and G >= k + 1 band
+planes, as the TPU's ``slab_clamp`` and its spare ghost plane.
 """
 
 from __future__ import annotations
@@ -56,8 +74,8 @@ import torch
 from ...lattice import D3Q19
 from ...utils.types import CellType, widen
 from ..stream import stream
-from ._lib import (STORAGE, call, check_cuda, check_no_grad, count_launch, elem_bytes, ptr,
-                   stream_of)
+from ._lib import (STORAGE, call, check_cuda, check_no_grad, check_slab_clamp, count_launch,
+                   elem_bytes, ptr, stream_of)
 
 __all__ = [
     "PoissonPlan",
@@ -76,12 +94,23 @@ __all__ = [
     "cost_slab",
     "slab_plan",
     "SLAB_EXT_HEIGHTS",
+    "trail_pass",
+    "trail_plain",
+    "emit_ok",
+    "TRAIL_EXT_HEIGHTS",
+    "EMITS",
 ]
 
 TPU_KERNEL = ("lbm_ferrofluid_tpu/ops/pallas/poisson.py:200 (poisson_sweeps, B11b; also "
               "serves B7 poisson_wavefront :1301, B11a poisson_multisweep2 :700, "
               "B12 poisson_multisweep :413)")
+#: the TPU kernel mode that the trailing stage replaces
+TPU_KERNEL_EMIT = ("lbm_ferrofluid_tpu/ops/pallas/poisson.py:1301 (poisson_wavefront, B7, "
+                   "emit=\"hint\" and emit=\"h2\": _wavefront_kernel :866, trailing stage "
+                   ":1150-1162 and :1203-1266)")
 CUDA_SOURCE = "lbm_ferrofluid_tpu_torch/csrc/poisson.cu"
+#: the trailing stage's pass (the body shared in csrc/poisson_pass.cuh)
+CUDA_SOURCE_EMIT = "lbm_ferrofluid_tpu_torch/csrc/poisson_trail.cu"
 
 _OBS = int(CellType.OBSTACLE)
 
@@ -100,6 +129,26 @@ EXT_HEIGHTS = (5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 18)
 #: PP_SLAB_HEIGHTS): those of :func:`slab_plan`'s passes of k = 1..MAX_K
 SLAB_EXT_HEIGHTS = (9, 11, 13, 15)
 RING_FLOATS = 38
+#: the trailing stage's pass (csrc/poisson_trail.cu: PP_TRAIL_HEIGHTS,
+#: PP_TRAIL_MAX_K): extended heights ty + 2k of its instances, on one device
+#: and on a slab, and its most sweeps
+TRAIL_EXT_HEIGHTS = (11, 13, 15)
+TRAIL_MAX_K = 3
+#: what a call writes beside h': psi, H_int (3 channels) or H2 (1 channel)
+EMITS = ("psi", "hint", "h2")
+#: the 19-point isotropic gradient's taps, (z, y, x) offsets and weights,
+#: summed in this order (lbm_ferrofluid_tpu/ops/pallas/stencil3d.py:47-57)
+GRAD_TAPS = (
+    (((0, 0, 1), 2.0), ((0, 0, -1), -2.0), ((1, 0, 1), 1.0), ((-1, 0, -1), -1.0),
+     ((-1, 0, 1), 1.0), ((1, 0, -1), -1.0), ((0, 1, 1), 1.0), ((0, -1, -1), -1.0),
+     ((0, -1, 1), 1.0), ((0, 1, -1), -1.0)),
+    (((0, 1, 0), 2.0), ((0, -1, 0), -2.0), ((1, 1, 0), 1.0), ((-1, -1, 0), -1.0),
+     ((-1, 1, 0), 1.0), ((1, -1, 0), -1.0), ((0, 1, 1), 1.0), ((0, -1, -1), -1.0),
+     ((0, 1, -1), 1.0), ((0, -1, 1), -1.0)),
+    (((1, 0, 0), 2.0), ((-1, 0, 0), -2.0), ((1, 1, 0), 1.0), ((-1, -1, 0), -1.0),
+     ((1, -1, 0), 1.0), ((-1, 1, 0), -1.0), ((1, 0, 1), 1.0), ((-1, 0, -1), -1.0),
+     ((1, 0, -1), 1.0), ((-1, 0, 1), -1.0)),
+)
 #: shared memory one block may use on an H100 (PP_SMEM_MAX), and the SM's
 #: (228 KB, of which 1 KB is reserved for each resident block)
 SMEM_BLOCK_MAX = 232_448
@@ -109,18 +158,20 @@ K = 3
 TY = 9
 
 
-def smem_bytes(k: int, ty: int, elem: int = 4) -> int:
+def smem_bytes(k: int, ty: int, elem: int = 4, trail: bool = False) -> int:
     """Shared memory of one pass block with h stored in ``elem``-byte
     elements (4: float32, 2: bfloat16): 8 elements of padding, the input
-    plane (19 channels of 32 x (ey + 2) cells, ey = ty + 2k - 2) and k - 1
-    stage rings of 38 such channel planes, all in h's storage type; then
-    the (k + 1)-plane float32 rhs ring of the extended tile (32 x ey cells),
-    the wrapped column and row tables, and the (k + 1)-plane flags ring
-    (1 byte a cell)."""
-    ey = ty + 2 * (k - 1)
+    plane (19 channels of 32 x (ey + 2) cells, ey = ty + 2k - 2, or ty + 2k
+    with the trailing stage) and k - 1 stage rings of 38 such channel
+    planes, all in h's storage type; then the (k + 1)-plane float32 rhs
+    ring of the extended tile (32 x ey cells), the wrapped column and row
+    tables, and the (k + 1)-plane flags ring (1 byte a cell); with
+    ``trail`` the final sweep's psi (float32) and obstacle flags (1 byte) of
+    3 planes."""
+    ey = ty + 2 * (k - 1) + 2 * trail
     p, pi = EXT_WIDTH * ey, EXT_WIDTH * (ey + 2)
     return (elem * (8 + 19 * pi + (k - 1) * RING_FLOATS * pi)
-            + 4 * ((k + 1) * p + EXT_WIDTH + ey + 2) + (k + 1) * p)
+            + 4 * ((k + 1) * p + EXT_WIDTH + ey + 2) + (k + 1) * p + 15 * p * trail)
 
 
 def tile_width(k: int) -> int:
@@ -175,19 +226,28 @@ def check_pass(k: int, ty: int, elem: int = 4) -> None:
                          f"memory, more than {SMEM_BLOCK_MAX}")
 
 
-def _chunk(Z: int, Y: int, X: int, k: int, ty: int, sms: int, elem: int) -> int:
+def _chunk(Z: int, Y: int, X: int, k: int, ty: int, sms: int, elem: int,
+           trail: bool = False) -> int:
     """The z chunk of a pass: a block (a tile and a chunk) walks lz + 2k -
     2 planes, and the blocks run in waves of as many as the SMs hold, so
-    lz minimises waves x (lz + 2k - 2); ties go to the larger lz."""
+    lz minimises waves x (lz + 2k - 2); ties go to the larger lz.  The
+    trailing stage's pass walks lz + 2k planes on the tiles of a pass of
+    k + 1 sweeps, and its chunks hold 2 planes or more, the last one too, so
+    that each z edge plane lies in the chunk of the plane it copies."""
+    kg = k + trail
     # resident blocks an SM, as shared memory and the SM's 2048 threads
     # allow them
-    slots = min(2048 // threads(k, ty), SMEM_SM // (smem_bytes(k, ty, elem) + 1024)) * sms
-    tiles = -(-X // tile_width(k)) * -(-Y // ty)
+    slots = min(2048 // threads(kg, ty),
+                SMEM_SM // (smem_bytes(k, ty, elem, trail) + 1024)) * sms
+    tiles = -(-(X - trail) // tile_width(kg)) * -(-(Y - trail) // ty)
 
     def ticks(lz):
-        return -(-tiles * -(-Z // lz) // slots) * (lz + 2 * k - 2)
+        return -(-tiles * -(-Z // lz) // slots) * (lz + 2 * kg - 2)
 
-    return min(sorted({-(-Z // c) for c in range(1, Z + 1)}, reverse=True), key=ticks)
+    lzs = sorted({-(-Z // c) for c in range(1, Z + 1)}, reverse=True)
+    if trail:
+        lzs = [lz for lz in lzs if lz == Z or (lz >= 2 and Z % lz != 1)]
+    return min(lzs, key=ticks)
 
 
 @functools.lru_cache(maxsize=None)
@@ -205,6 +265,24 @@ def plan(Z: int, Y: int, X: int, n_iters: int, sms: int, elem: int = 4) -> Poiss
     return PoissonPlan(ps[0], ty, _chunk(Z, Y, X, ps[0], ty, sms, elem), ps)
 
 
+@functools.lru_cache(maxsize=None)
+def trail_pass(Z: int, Y: int, X: int, k: int, sms: int, elem: int = 4) -> PoissonPlan:
+    """The last pass of a call with the trailing stage, k sweeps on a grid
+    (or slab) of Z x Y x X: tiles ``TY`` high on the geometry of a pass of
+    k + 1 sweeps, z chunks by :func:`_chunk`.  Raises where the kernel has
+    no such instance (k <= ``TRAIL_MAX_K``, ty + 2k in ``TRAIL_EXT_HEIGHTS``)
+    or its block does not fit the shared memory."""
+    ty = TY
+    if not (1 <= k <= TRAIL_MAX_K and ty + 2 * k in TRAIL_EXT_HEIGHTS):
+        raise ValueError(f"the trailing stage's pass runs 1 <= k <= {TRAIL_MAX_K} sweeps, "
+                         f"got {k}")
+    smem = smem_bytes(k, ty, elem, trail=True)
+    if smem > SMEM_BLOCK_MAX:
+        raise ValueError(f"the trailing stage's pass of {k} sweeps needs {smem} B of shared "
+                         f"memory, more than {SMEM_BLOCK_MAX}")
+    return PoissonPlan(k, ty, _chunk(Z, Y, X, k, ty, sms, elem, trail=True), (k,))
+
+
 def launches_per_call(n_iters: int, shape) -> int:
     """Launches of one :func:`poisson_sweeps` call on a grid of ``shape``
     (its last three entries are Z, Y, X): one a pass."""
@@ -213,41 +291,78 @@ def launches_per_call(n_iters: int, shape) -> int:
     return len(passes(n_iters))
 
 
-def cost(h, magnetic_flags, rhs_scaled, *, tau, n_iters) -> tuple[int, int]:
+#: float32 channels a call writes beside h', by ``emit``
+EMIT_CHANNELS = {"psi": 1, "hint": 3, "h2": 1}
+
+
+def _trail_flops(interior: int, emit: str, h_ext) -> int:
+    """Flops of the trailing stage at ``interior`` source cells: 33 for the
+    gradient (10 weighted taps a component and its scale); for H2 an add
+    a nonzero field component, 3 squares and 2 adds."""
+    if emit == "psi":
+        return 0
+    return interior * (33 + (5 + sum(1 for c in h_ext if c) if emit == "h2" else 0))
+
+
+def cost(h, magnetic_flags, rhs_scaled, *, tau, n_iters, emit="psi", h_ext=None,
+         **_) -> tuple[int, int]:
     """(bytes, flops) that a call on these inputs must move and do.
 
     Bytes: h (in its storage type) and the flags read at every cell, rhs
     only at non-obstacle cells (obstacles keep their bounced populations);
-    h' and psi written at every cell.  Flops per sweep and non-obstacle cell: 18 for psi
+    h' and psi (H_int's 3 channels, or H2, by ``emit``) written at every
+    cell.  Flops per sweep and non-obstacle cell: 18 for psi
     (17 adds, one multiply), then at tau == 1 one add for u, 19 multiplies
     and the rest-population subtraction (39 in all), otherwise also psi/tau
     and 2 multiplies and an add per channel (78); psi at obstacle cells
-    (18) only in the last sweep, whose psi is returned."""
+    (18) only in the last sweep, whose psi is returned or differentiated;
+    the trailing stage's at the interior cells (:func:`_trail_flops`)."""
     n = magnetic_flags.numel()
     n_obs = int((magnetic_flags == _OBS).sum())
     per_cell = 39 if 1.0 / tau == 1.0 else 78
     h_bytes = 19 * elem_bytes(h)
-    return (2 * h_bytes + 9) * n - 4 * n_obs, n_iters * per_cell * (n - n_obs) + 18 * n_obs
+    Z, Y, X = h.shape[2:]
+    interior = max(Z - 2, 1) * (Y - 2) * (X - 2)
+    return ((2 * h_bytes + 5 + 4 * EMIT_CHANNELS[emit]) * n - 4 * n_obs,
+            n_iters * per_cell * (n - n_obs) + 18 * n_obs + _trail_flops(interior, emit, h_ext))
 
 
-def cost_slab(h, magnetic_flags, rhs_scaled, *, tau, n_iters, rounds, G) -> tuple[int, int]:
+def cost_slab(h, magnetic_flags, rhs_scaled, *, tau, n_iters, rounds, G, emit="psi",
+              h_ext=None, clamp=None, **_) -> tuple[int, int]:
     """(bytes, flops) that a slab solve of ``n_iters`` sweeps in ``rounds``
     (the sweeps of each launch, G band planes a side; flags and rhs
     extended by G) must move and do, as :func:`cost` counts one device's
-    call: h's real planes read and written once, psi written once, the
-    flags and rhs of the Zl + 2G planes read once, and the bands each
-    round reads (the first round's from the incoming h), which the round
-    before it writes; the sweeps' flops over the planes each sweep of a
-    round's shrinking region computes (Zl + 2(k - j) at its sweep j), 78
-    or 39 a cell by tau."""
+    call: h's real planes read and written once, psi (H_int, H2) written
+    once, the flags and rhs of the Zl + 2G planes read once, and the bands
+    each round reads (the first round's from the incoming h), which the
+    round before it writes; the sweeps' flops over the planes each sweep of
+    a round's shrinking region computes (Zl + 2(k - j) at its sweep j), 78
+    or 39 a cell by tau.  With the trailing stage (``emit``, ``clamp``)
+    the last round reads G_f = k_f + 1 band planes a side of h (the round
+    before it writes none), flags and rhs are extended by max(G, G_f), the
+    last round's sweeps reach one plane further a side, and the stage's
+    flops count the planes its clamp computes."""
     _, _, Zl, Y, X = h.shape
     plane = Y * X
     h_bytes = 19 * elem_bytes(h)
-    bands = 2 * G * h_bytes * plane * (2 * len(rounds) - 1)
-    nbytes = (2 * h_bytes + 4) * Zl * plane + 5 * (Zl + 2 * G) * plane + bands
     per_cell = 39 if 1.0 / tau == 1.0 else 78
-    return nbytes, per_cell * plane * sum(Zl + 2 * (k - j) for k in rounds
-                                          for j in range(1, k + 1))
+    reach = [0] * len(rounds)
+    if emit == "psi":
+        bands = 2 * G * h_bytes * plane * (2 * len(rounds) - 1)
+        G_ext = G
+        trail = 0
+    else:
+        G_f = rounds[-1] + 1
+        written = max(len(rounds) - 2, 0)
+        bands = 2 * h_bytes * plane * (G * (len(rounds) - 1 + written) + G_f)
+        G_ext = max(G, G_f)
+        reach[-1] = 1
+        planes = Zl - (clamp[0] > 0) - (clamp[1] < Zl)
+        trail = _trail_flops(planes * (Y - 2) * (X - 2), emit, h_ext)
+    nbytes = ((2 * h_bytes + 4 * EMIT_CHANNELS[emit]) * Zl * plane + 5 * (Zl + 2 * G_ext) * plane
+              + bands)
+    return nbytes, per_cell * plane * sum(Zl + 2 * (k - j + d) for k, d in zip(rounds, reach)
+                                          for j in range(1, k + 1)) + trail
 
 
 def sweep_cell(s, is_obs, rhs_scaled, *, tau):
@@ -276,8 +391,90 @@ def sweep_cell(s, is_obs, rhs_scaled, *, tau):
     return torch.where(is_obs, s[:, opp], coll), psi
 
 
+def trail_plain(psi, magnetic_flags, *, dx, h_ext=None, emit="h2", clamp, out=None):
+    """The trailing stage's plain version: H_int [1, 3, ...] (``emit="hint"``)
+    or H2 [1, 1, ...] (``emit="h2"``, ``h_ext`` the constant field) of the
+    output planes ``out = (o0, o1)`` (default all) of psi [1, 1, Zp, Y, X]
+    and the magnetic flags of the same planes, as the TPU wavefront's
+    trailing stage computes them: at each cell the value at its source, the
+    interior cell nearest to it (z clamped to ``clamp = (zlo, zhi)``, x and y
+    to the interior), which is the stage's ring replication of its output;
+    there the 10 taps of ``GRAD_TAPS`` of each component, on psi with its
+    magnetic obstacles substituted (psi of the nearest interior cell, z
+    clamped the same), each weighted and summed in the TPU's order, times
+    f32(-1/(12 dx)); for H2 the field added to each nonzero component and
+    the squares summed in channel order (``ops/magnetic.py:maybe_h2``).
+    The source planes' neighbours must lie inside psi's planes."""
+    from ..magnetic import maybe_h2
+
+    _, _, Zp, Y, X = psi.shape
+    zlo, zhi = clamp
+    o0, o1 = out or (0, Zp)
+    dev = psi.device
+    zi = torch.clamp(torch.arange(Zp, device=dev), zlo, zhi)
+    yi = torch.clamp(torch.arange(Y, device=dev), 1, Y - 2)
+    xi = torch.clamp(torch.arange(X, device=dev), 1, X - 2)
+    rep = psi.index_select(2, zi).index_select(3, yi).index_select(4, xi)
+    sub = torch.where(magnetic_flags == _OBS, rep, psi)
+    s0, s1 = min(max(o0, zlo), zhi), min(max(o1 - 1, zlo), zhi)
+    if s0 < 1 or s1 > Zp - 2:
+        raise ValueError(f"trail_plain: source planes {s0}..{s1} need psi one plane past them "
+                         f"in {Zp} planes")
+
+    def S(oz, oy, ox):
+        return sub[:, :, s0 + oz:s1 + 1 + oz, 1 + oy:Y - 1 + oy, 1 + ox:X - 1 + ox]
+
+    m = torch.tensor(-1.0 / (12.0 * dx), dtype=psi.dtype, device=dev)
+    comps = []
+    for taps in GRAD_TAPS:
+        acc = None
+        for off, w in taps:
+            tp = S(*off) * w
+            acc = tp if acc is None else acc + tp
+        comps.append(acc * m)
+    H = torch.cat(comps, dim=1)
+    if emit == "h2":
+        H = maybe_h2(H, h_ext)
+    zo = torch.clamp(torch.arange(o0, o1, device=dev), zlo, zhi) - s0
+    return H.index_select(2, zo).index_select(3, yi - 1).index_select(4, xi - 1).contiguous()
+
+
+def emit_ok(shape, slab=False) -> bool:
+    """Can a call on an h of ``shape`` ([.., Z, Y, X]; with ``slab`` a
+    slab's) emit H_int or H2: an interior cell in x and y (Y, X >= 3) and,
+    on one device, in z (Z >= 3; a slab's clamp is checked on its own)."""
+    Z, Y, X = shape[-3:]
+    return min(Y, X) >= 3 and (slab or Z >= 3)
+
+
+def _check_emit(h, ghosts, emit, n_iters, h_ext, clamp, emit_bands):
+    """Raise unless the call's emission is one this function takes: psi, or
+    H_int or H2 on a grid :func:`emit_ok` admits, H2 with a 3-component
+    field, on a slab with ``clamp``, G >= k + 1 band planes and no bands."""
+    if emit not in EMITS:
+        raise ValueError(f"poisson_sweeps emits one of {EMITS}, not {emit!r}")
+    if emit == "psi":
+        if clamp is not None:
+            raise ValueError("poisson_sweeps: clamp is the trailing stage's (emit='hint' or 'h2')")
+        return
+    if (ghosts is None) == (clamp is not None) or emit_bands:
+        raise ValueError("poisson_sweeps: the trailing stage takes clamp on a slab (and no "
+                         "emit_bands), none on one device")
+    if emit == "h2" and (h_ext is None or len(h_ext) != 3):
+        raise ValueError("emit='h2' needs the 3-component constant field h_ext")
+    if ghosts is not None:
+        check_slab_clamp("poisson_sweeps", clamp, h.shape[2], 2)
+        if ghosts[0].shape[2] < n_iters + 1:
+            raise ValueError(f"the trailing stage on a slab needs G >= k + 1 = {n_iters + 1} "
+                             f"band planes, got {ghosts[0].shape[2]}")
+    if not emit_ok(h.shape, slab=ghosts is not None):
+        raise ValueError(f"emit={emit!r} needs Y, X >= 3 and Z >= 3 on one device, got "
+                         f"{tuple(h.shape[2:])}")
+
+
 def poisson_sweeps_plain(h, magnetic_flags, rhs_scaled, *, tau, n_iters, ghosts=None,
-                         emit_bands=False, emit_psi=True):
+                         emit_bands=False, emit_psi=True, emit="psi", dx=1.0, h_ext=None,
+                         clamp=None):
     """Plain PyTorch version of :func:`poisson_sweeps`: ``n_iters`` times
     the periodic pull and :func:`sweep_cell`, each sweep's output stored in
     h's dtype (a bfloat16 h is widened to float32 for the sweep and its
@@ -285,22 +482,35 @@ def poisson_sweeps_plain(h, magnetic_flags, rhs_scaled, *, tau, n_iters, ghosts=
     float32 (float64 for a float64 h).  The slab form sweeps the slab
     extended by the k nearest planes of each band (and of the extended
     flags and rhs), whose wrap reaches no real plane in k sweeps, and keeps
-    the real planes."""
+    the real planes; with the trailing stage by k + 1 planes, so psi is
+    exact a plane past the slab, and H_int or H2 comes from
+    :func:`trail_plain` of the slab's psi and one plane a side."""
+    _check_emit(h, ghosts, emit, n_iters, h_ext, clamp, emit_bands)
+    trail = emit != "psi"
     if ghosts is not None:
         k, G = n_iters, ghosts[0].shape[2]
         Zl = h.shape[2]
-        ext = slice(G - k, G + Zl + k)
+        w = k + trail
+        ext = slice(G - w, G + Zl + w)
         he, psi = poisson_sweeps_plain(
-            torch.cat([ghosts[0][:, :, G - k:], h, ghosts[1][:, :, :k]], dim=2),
+            torch.cat([ghosts[0][:, :, G - w:], h, ghosts[1][:, :, :w]], dim=2),
             magnetic_flags[:, :, ext], rhs_scaled[:, :, ext], tau=tau, n_iters=k)
-        h = he[:, :, k:k + Zl].contiguous()
-        out = (h, psi[:, :, k:k + Zl].contiguous() if emit_psi else None)
-        return out + ((h[:, :, :G].contiguous(), h[:, :, -G:].contiguous()),) * emit_bands
+        h = he[:, :, w:w + Zl].contiguous()
+        if trail:
+            aux = trail_plain(psi[:, :, k:k + Zl + 2], magnetic_flags[:, :, G - 1:G + Zl + 1],
+                              dx=dx, h_ext=h_ext, emit=emit,
+                              clamp=(clamp[0] + 1, clamp[1] + 1), out=(1, Zl + 1))
+        else:
+            aux = psi[:, :, w:w + Zl].contiguous() if emit_psi else None
+        return (h, aux) + ((h[:, :, :G].contiguous(), h[:, :, -G:].contiguous()),) * emit_bands
     is_obs = magnetic_flags == _OBS
     psi = None
     for _ in range(n_iters):
         out, psi = sweep_cell(widen(stream(D3Q19, h)), is_obs, rhs_scaled, tau=tau)
         h = out.to(h.dtype)
+    if trail:
+        return h, trail_plain(psi, magnetic_flags, dx=dx, h_ext=h_ext, emit=emit,
+                              clamp=(1, h.shape[2] - 2))
     return h, psi
 
 
@@ -335,76 +545,101 @@ def slab_plan(Zl: int, Y: int, X: int, k: int, sms: int, elem: int = 4) -> Poiss
     return PoissonPlan(k, fits[0], _chunk(Zl, Y, X, k, fits[0], sms, elem), (k,))
 
 
+def _trail_args(emit, dx, h_ext, clamp):
+    """The C entry point's trailing-stage arguments: mode (0 none, 1 H_int,
+    2 H2), the z clamp, dx and the field."""
+    hx = tuple(float(v) for v in (h_ext or (0.0, 0.0, 0.0)))
+    return (ctypes.c_int(EMITS.index(emit)), *(ctypes.c_int(v) for v in clamp),
+            ctypes.c_double(dx), *(ctypes.c_double(v) for v in hx))
+
+
 def poisson_sweeps(h, magnetic_flags, rhs_scaled, *, tau, n_iters, ghosts=None,
-                   emit_bands=False, emit_psi=True):
+                   emit_bands=False, emit_psi=True, emit="psi", dx=1.0, h_ext=None, clamp=None):
     """``n_iters`` channel-form Poisson sweeps.
 
     ``h``: [1, 19, Z, Y, X] float32 or bfloat16; ``magnetic_flags``: [1, 1, Z, Y, X]
     uint8; ``rhs_scaled``: [1, 1, Z, Y, X] float32, dt * rhs * cs2 (0.5 -
     tau) dt without the channel weight.  Returns (h', psi of the last
-    pre-collision state).  With ``ghosts`` the slab form (module
-    docstring), flags and rhs extended by G planes a side: returns (h', psi
-    or None without ``emit_psi``) and with ``emit_bands`` also (band_lo,
-    band_hi).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel, one launch a pass of :func:`plan` (the slab form one launch);
-    anything else raises.  Inputs are not modified.
+    pre-collision state), or with ``emit="hint"`` (h', H_int [1, 3, Z, Y,
+    X]) and with ``emit="h2"`` (h', H2 [1, 1, Z, Y, X]) of the constant
+    field ``h_ext``, both with the gradient's ``dx`` (the trailing stage,
+    module docstring).  With ``ghosts`` the slab form (module docstring),
+    flags and rhs extended by G planes a side: returns (h', psi or None
+    without ``emit_psi``, or H_int or H2 with ``clamp``) and with
+    ``emit_bands`` also (band_lo, band_hi).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel, one launch a pass of
+    :func:`plan` (the last one :func:`trail_pass` with the trailing stage;
+    the slab form one launch); anything else raises.  Inputs are not
+    modified.
     """
     if ghosts is None and (emit_bands or not emit_psi):
         raise ValueError("poisson_sweeps: emit_bands and emit_psi=False are the slab form's")
     if h.device.type == "cpu":
         return poisson_sweeps_plain(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters,
-                                    ghosts=ghosts, emit_bands=emit_bands, emit_psi=emit_psi)
+                                    ghosts=ghosts, emit_bands=emit_bands, emit_psi=emit_psi,
+                                    emit=emit, dx=dx, h_ext=h_ext, clamp=clamp)
     check_no_grad("poisson_sweeps", h, rhs_scaled)
+    _check_emit(h, ghosts, emit, n_iters, h_ext, clamp, emit_bands)
     if ghosts is not None:
         return _sweeps_slab(h, magnetic_flags, rhs_scaled, ghosts, tau, n_iters, emit_bands,
-                            emit_psi)
+                            emit_psi, emit, dx, h_ext, clamp)
     B, Q, Z, Y, X = h.shape
     check_cuda("h", h, STORAGE, (1, 19, Z, Y, X))
     check_cuda("magnetic_flags", magnetic_flags, torch.uint8, (1, 1, Z, Y, X))
     check_cuda("rhs_scaled", rhs_scaled, torch.float32, (1, 1, Z, Y, X))
     bf16 = h.dtype == torch.bfloat16
-    pl = plan(Z, Y, X, n_iters, torch.cuda.get_device_properties(h.device).multi_processor_count,
-              elem_bytes(h))
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    pl = plan(Z, Y, X, n_iters, sms, elem_bytes(h))
+    last = trail_pass(Z, Y, X, pl.passes[-1], sms, elem_bytes(h)) if emit != "psi" else pl
     out = torch.empty_like(h)
     # pass i writes out when an even number of passes follows it, else tmp:
     # each pass reads what the one before it wrote, and the last writes out
     tmp = torch.empty_like(h) if len(pl.passes) > 1 else None
-    psi = torch.empty_like(rhs_scaled)
+    aux = torch.empty((1, EMIT_CHANNELS[emit], Z, Y, X), dtype=torch.float32, device=h.device)
     dims = (ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X))
     st = stream_of(h)
     src = h
     for i, k in enumerate(pl.passes):
         after = len(pl.passes) - 1 - i
         dst = out if after % 2 == 0 else tmp
+        mode = "psi" if after else emit
+        tile = last if not after else pl
         call("lbm_poisson_pass", ptr(src), ptr(magnetic_flags), ptr(rhs_scaled), ptr(dst),
-             ptr(None if after else psi), *dims, ctypes.c_int(k), ctypes.c_int(pl.ty),
-             ctypes.c_int(pl.lz), ctypes.c_double(tau), ctypes.c_int(bf16), ptr(None),
-             ptr(None), ctypes.c_int(0), ptr(None), ptr(None), st)
-        count_launch(poisson_sweeps, bf16)
+             ptr(None if after else aux), *dims, ctypes.c_int(k), ctypes.c_int(tile.ty),
+             ctypes.c_int(tile.lz), ctypes.c_double(tau), ctypes.c_int(bf16), ptr(None),
+             ptr(None), ctypes.c_int(0), ptr(None), ptr(None),
+             *_trail_args(mode, dx, h_ext, (1, Z - 2)), st)
+        count_launch(poisson_sweeps, bf16, "emit" if mode != "psi" else None)
         src = dst
-    return out, psi
+    return out, aux
 
 
-def _sweeps_slab(h, magnetic_flags, rhs_scaled, ghosts, tau, k, emit_bands, emit_psi):
+def _sweeps_slab(h, magnetic_flags, rhs_scaled, ghosts, tau, k, emit_bands, emit_psi, emit, dx,
+                 h_ext, clamp):
     """The slab form's one launch (:func:`poisson_sweeps`)."""
     B, Q, Zl, Y, X = h.shape
     check_cuda("h", h, STORAGE, (1, 19, Zl, Y, X))
     G = _check_slab(h, magnetic_flags, rhs_scaled, ghosts, k)
     bf16 = h.dtype == torch.bfloat16
-    pl = slab_plan(Zl, Y, X, k, torch.cuda.get_device_properties(h.device).multi_processor_count,
-                   elem_bytes(h))
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    if emit == "psi":
+        pl = slab_plan(Zl, Y, X, k, sms, elem_bytes(h))
+    else:
+        pl = trail_pass(Zl, Y, X, k, sms, elem_bytes(h))
     out = torch.empty_like(h)
-    psi = torch.empty((1, 1, Zl, Y, X), dtype=torch.float32, device=h.device) if emit_psi else None
+    aux = (torch.empty((1, EMIT_CHANNELS[emit], Zl, Y, X), dtype=torch.float32, device=h.device)
+           if emit_psi or emit != "psi" else None)
     bands = tuple(torch.empty_like(ghosts[0]) for _ in range(2)) if emit_bands else (None, None)
-    call("lbm_poisson_pass", ptr(h), ptr(magnetic_flags), ptr(rhs_scaled), ptr(out), ptr(psi),
+    call("lbm_poisson_pass", ptr(h), ptr(magnetic_flags), ptr(rhs_scaled), ptr(out), ptr(aux),
          ctypes.c_int(Zl), ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_int(k),
          ctypes.c_int(pl.ty), ctypes.c_int(pl.lz), ctypes.c_double(tau), ctypes.c_int(bf16),
          ptr(ghosts[0]), ptr(ghosts[1]), ctypes.c_int(G), ptr(bands[0]), ptr(bands[1]),
-         stream_of(h))
-    count_launch(poisson_sweeps, bf16, "slab")
-    return (out, psi, bands) if emit_bands else (out, psi)
+         *_trail_args(emit, dx, h_ext, clamp or (1, Zl - 2)), stream_of(h))
+    count_launch(poisson_sweeps, bf16, ("slab", "emit") if emit != "psi" else "slab")
+    return (out, aux, bands) if emit_bands else (out, aux)
 
 
 poisson_sweeps.launches = 0
 poisson_sweeps.launches_bf16 = 0
 poisson_sweeps.launches_slab = 0
+poisson_sweeps.launches_emit = 0

@@ -152,18 +152,29 @@ def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters
     Q-channel h; returns (H_int of the last sweep's psi, h'), or (H2, h')
     with ``h2_ext``.
 
-    3D runs the hand-written kernels' wrappers: the sweeps (B11b,
-    ``ops/kernels/poisson.py``), then the obstacle substitution of psi and
-    the gradient (B10a, ``ops/kernels/stencil3d.py``), as the JAX
-    package's psi route (:452-478); on CPU tensors, and with ``plain=True``
-    on any device, their plain versions, which the kernels equal cell for
-    cell.  With a z-slab ``mesh`` (``parallel/step3d.py``) h, the flags and
-    the source are the rank's slab, and each runs its slab form: B11b in
-    rounds whose bands the ranks exchange, the substitution with its z pad
-    at the domain's true edges only (JAX pads the whole domain, :466-475),
-    B10a with one psi plane a side.  2D runs the JAX body (:480-502) on any
-    device.  ``rhs_scaled`` defaults to :func:`poisson_rhs_scaled` of
-    ``phi``.
+    3D runs one call of the hand-written kernel's wrapper (B11b,
+    ``ops/kernels/poisson.py``) whose last pass's trailing stage (B7's)
+    emits H2 where ``h2_ext`` is the 3-component static field
+    (``emit="h2"``), else H_int (``emit="hint"``), as the JAX package's
+    wavefront route (:434-452): the obstacle substitution and the
+    gradient in the kernel, psi never stored.  A grid without an interior
+    cell in some axis (``poisson.emit_ok``) takes the psi route instead:
+    the sweeps, the substitution and the gradient (B10a,
+    ``ops/kernels/stencil3d.py``), as the JAX package's psi route
+    (:452-478).  On CPU tensors, and with ``plain=True`` on any device,
+    their plain versions, which the kernels equal cell for cell.  With a
+    z-slab ``mesh`` (``parallel/step3d.py``) h, the flags and the source
+    are the rank's slab: B11b's slab form in rounds whose bands the ranks
+    exchange, the last emitting H2 where ``step3d.channel_slab_plan(...,
+    h2=True)`` admits it; otherwise (and without a static field) the psi
+    route's slab forms, the substitution with its z pad at the domain's
+    true edges only (JAX pads the whole domain, :466-475) and B10a with
+    one psi plane a side.  2D runs the JAX body (:480-502) on any device.
+    ``rhs_scaled`` defaults to :func:`poisson_rhs_scaled` of ``phi``.
+
+    The trailing stage multiplies the gradient's sums by f32(-1/(12 dx)),
+    as the TPU's; B10a (the psi route) divides them by 12 dx: the two
+    routes differ by an ulp of H_int.
 
     bfloat16 h is widened to float32 for each sweep and its output rounded
     back, as the JAX body and the TPU kernel store it (psi stays float32).
@@ -175,20 +186,33 @@ def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters
         rhs_scaled = poisson_rhs_scaled(phi, magnetic_flags, h2_ext, tau=tau, dx=dx, dt=dt,
                                         H_ext_mac=H_ext_mac)
     if lat.dim == 3:
+        from .kernels import poisson, stencil3d
+
+        h2 = tuple(h2_ext) if h2_ext is not None and len(h2_ext) == 3 else None
         if mesh is not None:
             from ..parallel import step3d
 
             if not step3d.dp_dispatch(mesh):
-                h, psi = step3d.poisson_sweeps_sharded(h, magnetic_flags, rhs_scaled, mesh,
-                                                       tau=tau, n_iters=n_iters, plain=plain)
-                psi_sub = step3d.substitute_obstacles_sharded(psi, magnetic_flags, mesh)
+                kw = dict(tau=tau, n_iters=n_iters, plain=plain)
+                if h2 is not None:
+                    h, aux, emitted = step3d.poisson_sweeps_sharded(
+                        h, magnetic_flags, rhs_scaled, mesh, emit_h2=h2, dx=dx, **kw)
+                    if emitted:
+                        return aux, h
+                else:
+                    h, aux = step3d.poisson_sweeps_sharded(h, magnetic_flags, rhs_scaled, mesh,
+                                                           **kw)
+                psi_sub = step3d.substitute_obstacles_sharded(aux, magnetic_flags, mesh)
                 return maybe_h2(-step3d.grad_fields_sharded(psi_sub, mesh, dx=dx, plain=plain),
                                 h2_ext), h
-        from .kernels import poisson, stencil3d
-
         sweeps = poisson.poisson_sweeps_plain if plain else poisson.poisson_sweeps
+        kw = dict(tau=tau, n_iters=n_iters)
+        if poisson.emit_ok(h.shape):
+            h, aux = sweeps(h, magnetic_flags, rhs_scaled, emit="h2" if h2 else "hint", dx=dx,
+                            h_ext=h2, **kw)
+            return (aux if h2 else maybe_h2(aux, h2_ext)), h
         grad = stencil3d.grad_fields_plain if plain else stencil3d.grad_fields
-        h, psi = sweeps(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters)
+        h, psi = sweeps(h, magnetic_flags, rhs_scaled, **kw)
         return h_int_from_psi(psi, magnetic_flags, dx=dx, h2_ext=h2_ext, grad=grad), h
     h_dtype = h.dtype
     w = torch.as_tensor(lat.w_bcast(np.float64), dtype=widen(h[:, :1]).dtype,

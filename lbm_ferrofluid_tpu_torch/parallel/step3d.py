@@ -32,8 +32,11 @@ B8b with ``ghosts=``; B9 is local) and exchanges the ghost planes with
   with ``mesh``): :func:`poisson_sweeps_sharded` (rounds of one launch of
   k <= 4 sweeps of B11b's slab form, the slab read in place with G = k
   band planes a side, the bands of each round's output exchanged before
-  the next, flags and rhs extended once: :func:`channel_slab_plan`),
-  :func:`substitute_obstacles_sharded` (local: the z pad at true edges
+  the next, flags and rhs extended once: :func:`channel_slab_plan`), whose
+  last round's trailing stage (B7's ``emit="h2"``) emits H2 with the z
+  clamp at the domain's true edges only, from G = k + 1 band planes taken
+  from h; where :func:`channel_slab_plan` with ``h2=True`` refuses, psi and
+  then :func:`substitute_obstacles_sharded` (local: the z pad at true edges
   only) and :func:`grad_fields_sharded` (B10a's, one psi plane a side);
 * the HCZ step: :func:`stream_bounce_macro_sharded` and
   :func:`stream_bounce_moments_sharded` (B8b's and B8a's, one 5-channel
@@ -69,7 +72,13 @@ from ..ops.kernels.fused_step import (
     lbm_prologue,
     lbm_prologue_plain,
 )
-from ..ops.kernels.poisson import MAX_K, poisson_sweeps, poisson_sweeps_plain
+from ..ops.kernels.poisson import (
+    MAX_K,
+    TRAIL_MAX_K,
+    emit_ok,
+    poisson_sweeps,
+    poisson_sweeps_plain,
+)
 from ..ops.kernels.scalar_poisson import scalar_wavefront, scalar_wavefront_plain
 from ..ops.kernels.stencil3d import (
     grad_fields,
@@ -230,7 +239,7 @@ CHANNEL_ROUND_NS = 75_000
 CHANNEL_PASS_NS = {1: 0.0734, 2: 0.0761, 3: 0.0974, 4: 0.194}
 
 
-def channel_slab_plan(mesh: Mesh, h_shape, n_iters: int):
+def channel_slab_plan(mesh: Mesh, h_shape, n_iters: int, h2: bool = False):
     """(k, G, r) of B11b's slab rounds on the global [1, 19, Z, Y, X] h, or
     None: ``n_iters // k`` rounds of one launch of k <= ``MAX_K`` sweeps
     with G = k <= Zl band planes a side (one exchange brings at most a
@@ -239,12 +248,23 @@ def channel_slab_plan(mesh: Mesh, h_shape, n_iters: int):
     computes the same sweeps; this one has the least cost by
     ``CHANNEL_ROUND_NS`` and ``CHANNEL_PASS_NS``.  The JAX package's
     ``params.poisson_halo_depth`` is not read: its depth was the TPU's
-    VMEM stopping point."""
+    VMEM stopping point.
+
+    ``h2``: the last round also emits H2, which needs psi exact a plane
+    past the slab: its k_f sweeps (r, or k) read G_f = k_f + 1 <= Zl band
+    planes (JAX clamps its depth to Zl - 1 for the same reason, :1076-1093)
+    and k_f <= ``TRAIL_MAX_K``, so a k whose last round breaks that is
+    dropped (Zl = 3: k = 2; Zl = 2: k = 1); None also where the output has
+    no interior cell in x or y (``poisson.emit_ok``).  The caller then
+    takes the psi route."""
     _, C, Z, Y, X = h_shape
     if C != 19 or Z % mesh.nz:
         return None
     Zl = Z // mesh.nz
     ks = [k for k in range(1, min(MAX_K, n_iters) + 1) if k <= Zl]
+    if h2:
+        ks = [k for k in ks if (n_iters % k or k) + 1 <= min(Zl, TRAIL_MAX_K + 1)
+              and emit_ok((Zl, Y, X), slab=True)]
     if not ks:
         return None
 
@@ -463,30 +483,71 @@ def _extend_flags_rhs(flags, rhs, G: int, mesh: Mesh):
     return ext[:, :1].to(flags.dtype).contiguous(), ext[:, 1:].contiguous()
 
 
+def _edge_bands(h, G: int, mesh: Mesh):
+    """The neighbours' G nearest planes of ``h`` a side: (below, above)."""
+    return ring_halo(h[:, :, -G:], mesh, +1), ring_halo(h[:, :, :G], mesh, -1)
+
+
 def poisson_sweeps_sharded(h, magnetic_flags, rhs_scaled, mesh: Mesh, *, tau, n_iters,
-                           plain=False):
+                           plain=False, emit_h2=None, dx=1.0):
     """B11b on the rank's slab; returns (h', psi of the last sweep).  Rounds
     of :func:`channel_slab_plan`: each one launch of the slab form, which
     reads h in place and its two G-plane bands through their own pointers
     (the TPU wavefront's ghost-ref mode, JAX ``poisson_sweeps_sharded``
     :1181-1250); the first round's bands are the incoming h's edge planes,
     each later round's those the round before it emitted; flags and rhs
-    are extended once.  Under :func:`dp_dispatch` the single-device call."""
+    are extended once.  Under :func:`dp_dispatch` the single-device call.
+
+    ``emit_h2`` (the static field's 3 components): returns (h', H2, True)
+    where the plan with ``h2=True`` admits it, the last round's trailing
+    stage emitting H2 with the z clamp at the domain's true edges only
+    (:func:`slab_clamp`) from bands of G_f = k_f + 1 planes that it takes
+    from h (the round before it emits none; JAX exchanges k + 1 planes every
+    round, :1083-1093), flags and rhs extended by max(G, G_f); else (h',
+    psi, False), psi for the caller's substitution and gradient (JAX's
+    fall-through)."""
     sweeps = poisson_sweeps_plain if plain else poisson_sweeps
     if dp_dispatch(mesh):
-        return sweeps(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters)
-    plan = channel_slab_plan(mesh, global_shape(h.shape, mesh), n_iters)
+        if emit_h2 is None:
+            return sweeps(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters)
+        emitted = emit_ok(h.shape)
+        kw = dict(emit="h2", dx=dx, h_ext=emit_h2) if emitted else {}
+        return (*sweeps(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters, **kw),
+                emitted)
+    shape = global_shape(h.shape, mesh)
+    plan = channel_slab_plan(mesh, shape, n_iters, h2=True) if emit_h2 is not None else None
+    emitted = plan is not None
+    plan = plan or channel_slab_plan(mesh, shape, n_iters)
     if plan is None:
         raise ValueError("no slab plan for B11b: gate on channel_sharded_ok")
     k, G, r = plan
-    f_ext, r_ext = _extend_flags_rhs(magnetic_flags, rhs_scaled, G, mesh)
-    bands = (ring_halo(h[:, :, -G:], mesh, +1), ring_halo(h[:, :, :G], mesh, -1))
+    Zl = h.shape[2]
     rounds = [k] * (n_iters // k) + [r] * (r > 0)
-    for kk in rounds[:-1]:
-        h, _, (blo, bhi) = sweeps(h, f_ext, r_ext, tau=tau, n_iters=kk, ghosts=bands,
-                                  emit_bands=True, emit_psi=False)
-        bands = (ring_halo(bhi, mesh, +1), ring_halo(blo, mesh, -1))
-    return sweeps(h, f_ext, r_ext, tau=tau, n_iters=rounds[-1], ghosts=bands)
+    G_f = rounds[-1] + 1 if emitted else G
+    G_ext = max(G, G_f)
+    f_ext, r_ext = _extend_flags_rhs(magnetic_flags, rhs_scaled, G_ext, mesh)
+
+    def extended(g):
+        """The flags and source of the slab extended by g planes a side."""
+        return f_ext[:, :, G_ext - g:G_ext + Zl + g], r_ext[:, :, G_ext - g:G_ext + Zl + g]
+
+    # the last round with the trailing stage takes its bands from h, so the
+    # round before it emits none (and a single round exchanges only those)
+    bands = _edge_bands(h, G, mesh) if len(rounds) > 1 or not emitted else None
+    for i, kk in enumerate(rounds[:-1]):
+        emit_bands = not (emitted and i == len(rounds) - 2)
+        out = sweeps(h, *extended(G), tau=tau, n_iters=kk, ghosts=bands, emit_bands=emit_bands,
+                     emit_psi=False)
+        h = out[0]
+        if emit_bands:
+            bands = (ring_halo(out[2][1], mesh, +1), ring_halo(out[2][0], mesh, -1))
+    if emitted:
+        h, h2 = sweeps(h, *extended(G_f), tau=tau, n_iters=rounds[-1],
+                       ghosts=_edge_bands(h, G_f, mesh), emit="h2", dx=dx, h_ext=emit_h2,
+                       clamp=slab_clamp(mesh, Zl))
+        return h, h2, True
+    out = sweeps(h, *extended(G), tau=tau, n_iters=rounds[-1], ghosts=bands)
+    return (*out, False) if emit_h2 is not None else out
 
 
 def substitute_obstacles_sharded(x, magnetic_flags, mesh: Mesh):

@@ -32,6 +32,17 @@ solve and the meshed HCZ step.
   plane, with the x-edge ring cells there, takes the whole domain's
   values, where padding each slab's own faces would not.
 * The round plan, and the wrappers' argument checks.
+* B7's trailing stage on slabs (``emit="h2"``/``"hint"`` with ``clamp``):
+  the slab form against the TPU wavefront's ghost mode with ``slab_clamp``
+  and ``emit="h2"`` at an edge and an interior slab of 4 (rel <= 1e-6, the
+  one-device bar of tests/test_torch_poisson_emit.py); split and
+  reassembled (the rounds before the last as above, the last from bands of
+  k_f + 1 planes, its clamp at the domain's true edges only) bit for bit to
+  one device's emitting call, on 2 and 4 slabs; and the meshed solve
+  (``solve_H_int`` with ``mesh``) on 2 gloo ranks of
+  ``tests/torch_mesh_worker.py:h2_main`` bit for bit to one device, with k
+  clamped by the last round's spare plane on 3-plane slabs and the psi
+  route where the plan refuses the trailing stage.
 """
 
 import jax.numpy as jnp
@@ -49,6 +60,9 @@ from lbm_ferrofluid_tpu.ops.pallas.stream3d import (  # noqa: E402
     stream_bounce_moments as jmoments,
 )
 
+import torch_mesh_worker as worker  # noqa: E402
+from lbm_ferrofluid_tpu_torch.lattice import D3Q19  # noqa: E402
+from lbm_ferrofluid_tpu_torch.ops import solve_H_int  # noqa: E402
 from lbm_ferrofluid_tpu_torch.ops.kernels import poisson, stencil3d, stream3d  # noqa: E402
 from lbm_ferrofluid_tpu_torch.ops.kernels.fused_step import ghost_planes  # noqa: E402
 from lbm_ferrofluid_tpu_torch.ops.stencils import (  # noqa: E402
@@ -371,3 +385,142 @@ def test_slab_pass_instances_are_the_cuda_sources():
             assert pl.passes == (k,) and pl.ty + 2 * k - 2 in poisson.SLAB_EXT_HEIGHTS
             assert poisson.smem_bytes(k, pl.ty, elem) <= poisson.SMEM_BLOCK_MAX
     assert poisson.slab_plan(128, 256, 256, 4, 132, 4).ty == 5
+
+
+# ---------------------------------------------------------------------------
+# B7's trailing stage on slabs
+# ---------------------------------------------------------------------------
+
+H_EXT = (0.0, 85.0, 0.0)
+
+
+@pytest.mark.parametrize("i", [0, 1], ids=["edge", "interior"])
+def test_trail_slab_matches_wavefront_slab_clamp(scene, i):
+    """One round of 3 sweeps on slab i of 4 with 4-plane bands and H2: the
+    TPU wavefront's ghost mode with ``emit="h2"`` and its ``slab_clamp``
+    (extended coordinates: G + 1 at the domain's bottom, else 1)."""
+    nz, k, G = 4, 3, 4
+    Zl = RES[0] // nz
+    hs, ghosts = cut(scene["h"], nz, i), bands(scene["h"], nz, i, G)
+    f_ext, r_ext = cut(scene["mflags"], nz, i, G, G), cut(scene["rhs"], nz, i, G, G)
+    clamp = clamp_of(nz, i)
+    jclamp = jnp.asarray([G + 1 if i == 0 else 1, Zl + 2 * G - 2], jnp.int32)
+    _, jh2 = jwavefront(J(hs), J(f_ext), J(r_ext), tau=0.8, n_iters=k, emit="h2", dx=1.0,
+                        h_ext=H_EXT, slab_clamp=jclamp, ghosts=tuple(J(b)[0] for b in ghosts),
+                        interpret=True)
+    ph, ph2 = poisson.poisson_sweeps_plain(hs, f_ext, r_ext, tau=0.8, n_iters=k, ghosts=ghosts,
+                                           emit="h2", h_ext=H_EXT, clamp=clamp)
+    assert ph2.shape == (1, 1, Zl, *RES[1:])
+    assert rel(ph2, jh2) <= 1e-6
+
+
+def _trail_slabs(scene, nz, k, n_iters, emit):
+    """``n_iters`` sweeps on nz slabs as ``step3d.poisson_sweeps_sharded``
+    runs them with the trailing stage: rounds of k on k-plane bands (the
+    round before the last emits none), then the last round of k_f sweeps
+    on the neighbours' k_f + 1 nearest planes of h, flags and rhs extended
+    by the larger band; the gathered (h', H_int or H2)."""
+    rounds = [k] * (n_iters // k) + [n_iters % k] * (n_iters % k > 0)
+    G, G_f = k, rounds[-1] + 1
+    Ge = max(G, G_f)
+    hs = [cut(scene["h"], nz, i) for i in range(nz)]
+    ext = [(cut(scene["mflags"], nz, i, Ge, Ge), cut(scene["rhs"], nz, i, Ge, Ge))
+           for i in range(nz)]
+
+    def sl(i, g):
+        return tuple(x[:, :, Ge - g:x.shape[2] - Ge + g] for x in ext[i])
+
+    def edge_bands(g):
+        whole = torch.cat(hs, dim=2)
+        return [bands(whole, nz, i, g) for i in range(nz)]
+
+    gb = edge_bands(G)
+    for j, kk in enumerate(rounds[:-1]):
+        last = j == len(rounds) - 2
+        outs = [poisson.poisson_sweeps_plain(hs[i], *sl(i, G), tau=0.8, n_iters=kk, ghosts=gb[i],
+                                             emit_bands=not last, emit_psi=False)
+                for i in range(nz)]
+        hs = [o[0] for o in outs]
+        if not last:
+            gb = [(outs[(i - 1) % nz][2][1], outs[(i + 1) % nz][2][0]) for i in range(nz)]
+    gb = edge_bands(G_f)
+    outs = [poisson.poisson_sweeps_plain(hs[i], *sl(i, G_f), tau=0.8, n_iters=rounds[-1],
+                                         ghosts=gb[i], emit=emit, dx=0.5,
+                                         h_ext=H_EXT if emit == "h2" else None,
+                                         clamp=clamp_of(nz, i))
+            for i in range(nz)]
+    return tuple(torch.cat([o[j] for o in outs], dim=2) for j in (0, 1))
+
+
+@pytest.mark.parametrize("emit", ["h2", "hint"])
+@pytest.mark.parametrize("nz,k,n_iters", [(2, 3, 6), (2, 2, 7), (4, 3, 6), (4, 3, 7)])
+def test_trail_split_reassembles(scene, nz, k, n_iters, emit):
+    whole = poisson.poisson_sweeps_plain(scene["h"], scene["mflags"], scene["rhs"], tau=0.8,
+                                         n_iters=n_iters, emit=emit, dx=0.5,
+                                         h_ext=H_EXT if emit == "h2" else None)
+    got = _trail_slabs(scene, nz, k, n_iters, emit)
+    assert torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])
+
+
+@pytest.fixture(scope="module")
+def meshed_h2(tmp_path_factory):
+    return worker.run_h2(2, tmp_path_factory.mktemp("h2"), worker.H2_CASES)
+
+
+@pytest.mark.parametrize("case", sorted(worker.H2_CASES))
+def test_meshed_h2_solve_bit_for_bit(meshed_h2, case):
+    """2 gloo ranks: (H2, h') gathered equal one device's ``solve_H_int``
+    bit for bit; the route as the plan says: the trailing stage on every
+    case but the one without an interior row (where B10a's slab form runs),
+    and k clamped on 3-plane slabs (the last round's G_f = k_f + 1 <=
+    Zl)."""
+    H2, h, emitted, (k_h2, k_psi) = meshed_h2[case]
+    res, n = worker.H2_CASES[case]
+    h0, mf, rhs = (torch.from_numpy(a) for a in worker.h2_inputs(res))
+    wH2, wh = solve_H_int(D3Q19, h0, None, mf, None, tau=0.8, n_iters=n, rhs_scaled=rhs,
+                          h2_ext=worker.H2_FIELD)
+    np.testing.assert_array_equal(h, wh.numpy())
+    np.testing.assert_array_equal(H2, wH2.numpy())
+    assert emitted == [case != "psi_route"] * 2
+    assert (k_h2, k_psi) == {"h2": (3, 3), "clamped": (2, 3), "remainder": (4, 4),
+                             "psi_route": (0, 3)}[case]
+
+
+def test_channel_h2_plan():
+    """The plan of the emitting solve: the last round's k_f sweeps read
+    k_f + 1 <= Zl band planes and k_f <= ``TRAIL_MAX_K`` (a k that breaks it
+    is dropped), the rounds before it as the psi plan's; None where the
+    output has no interior row or column."""
+    for nz, Z, n in ((2, 256, 30), (2, 130, 30), (4, 16, 6), (4, 16, 7), (2, 6, 30),
+                     (4, 8, 30), (1, 256, 30)):
+        mesh = _mesh(nz, slab=nz == 1)
+        k, G, r = step3d.channel_slab_plan(mesh, (1, 19, Z, 66, 130), n, h2=True)
+        k_f = r or k
+        assert G == k <= Z // nz and k_f + 1 <= Z // nz and k_f <= poisson.TRAIL_MAX_K
+    # 3-plane slabs: k = 3 (the psi plan's) would leave no spare plane
+    assert step3d.channel_slab_plan(_mesh(2), (1, 19, 6, 8, 8), 6)[0] == 3
+    assert step3d.channel_slab_plan(_mesh(2), (1, 19, 6, 8, 8), 6, h2=True)[0] == 2
+    assert step3d.channel_slab_plan(_mesh(2), (1, 19, 16, 2, 8), 6, h2=True) is None
+    assert step3d.channel_slab_plan(_mesh(2), (1, 19, 16, 8, 2), 6, h2=True) is None
+
+
+def test_cost_slab_counts_the_last_rounds_bands(scene):
+    """With the trailing stage the last round reads G_f = k_f + 1 band
+    planes a side from h and the round before it writes none; H2 is written
+    where psi was, H_int's three channels take 8 B a cell more; the last
+    round's sweeps reach one plane further a side."""
+    nz, i = 4, 1
+    hs = cut(scene["h"], nz, i)
+    Zl, plane = RES[0] // nz, RES[1] * RES[2]
+    args = (hs, cut(scene["mflags"], nz, i, 4, 4), cut(scene["rhs"], nz, i, 4, 4))
+    kw = dict(tau=0.8, n_iters=6, rounds=(3, 3), G=3, clamp=(-1, Zl), h_ext=H_EXT)
+    psi = poisson.cost_slab(*args, **{k: v for k, v in kw.items() if k in ("tau", "n_iters",
+                                                                             "rounds", "G")})
+    h2 = poisson.cost_slab(*args, emit="h2", **kw)
+    hint = poisson.cost_slab(*args, emit="hint", **kw)
+    band = 19 * 4 * plane
+    # psi: reads 3 + 3 planes a side, writes 3; h2: reads 3 + 4, writes none
+    assert h2[0] - psi[0] == band * 2 * (1 - 3) + 5 * 2 * plane
+    assert hint[0] - h2[0] == 8 * Zl * plane
+    interior = Zl * (RES[1] - 2) * (RES[2] - 2)
+    assert h2[1] - psi[1] == 78 * plane * 2 * 3 + (33 + 6) * interior

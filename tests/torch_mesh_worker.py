@@ -285,6 +285,85 @@ def run_sweeps(world, out_dir, h, flags, rhs, *, tau, n_iters):
     return tuple(np.concatenate([p[k] for p in parts], axis=2) for k in ("h", "psi"))
 
 
+#: the meshed channel-form solve's cases with the static field (name: grid,
+#: sweeps) on 2 z ranks: the last round emits H2 (6 sweeps: two rounds of
+#: 3, the second from 4-plane bands taken from h), k clamped by the last
+#: round's spare band plane (3-plane slabs: rounds of 2 where the psi
+#: route takes one of 3), a remainder round (7 sweeps: 4, then 3 from
+#: 4-plane bands), and the psi route (2 cells in y: no interior row for
+#: the output's ring, so the plan refuses the trailing stage)
+H2_CASES = {"h2": ((16, 8, 12), 6), "clamped": ((6, 8, 12), 6), "remainder": ((16, 8, 12), 7),
+            "psi_route": ((8, 2, 12), 6)}
+H2_FIELD = (0.0, 85.0, 0.0)
+
+
+def h2_inputs(res, seed=21):
+    """(h, magnetic flags, rhs) of a meshed solve's case: the magnetic
+    shell (z edge planes, x edge columns) and obstacles on every z plane of
+    a column crossing the faces of 2 slabs, h and the source from the
+    seed."""
+    rng = np.random.default_rng(seed)
+    mf = np.full((1, 1, *res), OBSTACLE, np.uint8)
+    mf[..., 1:-1, :, 1:-1] = FLUID
+    mf[..., :, res[1] // 2, 3:5] = OBSTACLE
+    h = rng.uniform(-0.1, 0.1, (1, 19, *res)).astype(np.float32)
+    rhs = (rng.uniform(-1e-2, 1e-2, (1, 1, *res)) * (mf == FLUID)).astype(np.float32)
+    return h, mf, rhs
+
+
+def h2_main(rank, world, port, out_dir, cases):
+    """One rank of the meshed solve (``ops/magnetic.py:solve_H_int`` with
+    ``mesh`` and the static field) on each case of :data:`H2_CASES`: writes
+    its slab of (H2, h'), the route (``emitted``: no call of B10a's slab
+    form) and the plans' k to ``h2_<case>_<rank>.npz``."""
+    import torch
+    import torch.distributed as dist
+
+    from lbm_ferrofluid_tpu_torch.lattice import D3Q19
+    from lbm_ferrofluid_tpu_torch.ops import solve_H_int
+    from lbm_ferrofluid_tpu_torch.parallel import initialize_distributed, make_mesh, step3d
+
+    torch.set_num_threads(1)
+    out = pathlib.Path(out_dir)
+    grads = []
+    real = step3d.grad_fields_sharded
+    step3d.grad_fields_sharded = lambda *a, **kw: grads.append(1) or real(*a, **kw)
+    assert initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo") == world
+    try:
+        mesh = make_mesh(("batch", "z"), (1, world), device="cpu")
+        for case in cases:
+            res, n = H2_CASES[case]
+            Zl = res[0] // world
+            h, mf, rhs = (torch.from_numpy(a[:, :, rank * Zl:(rank + 1) * Zl].copy())
+                          for a in h2_inputs(res))
+            del grads[:]
+            H2, h = solve_H_int(D3Q19, h, None, mf, None, tau=0.8, n_iters=n, rhs_scaled=rhs,
+                                h2_ext=H2_FIELD, mesh=mesh)
+            plans = [step3d.channel_slab_plan(mesh, (1, 19, *res), n, h2=h2)
+                     for h2 in (True, False)]
+            np.savez(out / f"h2_{case}_{rank}.npz", H2=H2.numpy(), h=h.numpy(),
+                     emitted=not grads, k=[p[0] if p else 0 for p in plans])
+    finally:
+        step3d.grad_fields_sharded = real
+        dist.destroy_process_group()
+
+
+def run_h2(world, out_dir, cases):
+    """:func:`h2_main` on ``world`` spawned z ranks: {case: (H2, h',
+    emitted, (k of the h2 plan or 0, k of the psi plan))}, gathered."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(h2_main, args=(world, free_port(), str(out_dir), tuple(cases)),
+                       nprocs=world, start_method="spawn")
+    res = {}
+    for case in cases:
+        parts = [np.load(pathlib.Path(out_dir) / f"h2_{case}_{r}.npz") for r in range(world)]
+        res[case] = (np.concatenate([p["H2"] for p in parts], axis=2),
+                     np.concatenate([p["h"] for p in parts], axis=2),
+                     [bool(p["emitted"]) for p in parts], tuple(parts[0]["k"]))
+    return res
+
+
 def run_ranks(world, out_dir, **job):
     """Spawn ``world`` ranks of :func:`rank_main` on a free port and wait
     for them (a failure or a hang of any rank raises)."""
