@@ -21,6 +21,9 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
     python3 chip_smoke.py --sharded        # only the z-slab paths over ranks (phase sharded)
     python3 chip_smoke.py --step-time [ROOT]  # ms a step at 130x66x130 of the
                                            # package at ROOT (default: this checkout)
+    python3 chip_smoke.py --batch          # only batched states on one device (phase batch)
+    python3 chip_smoke.py --route-time [ROOT]  # ms a step of routes U and H at 256^3,
+                                           # B = 1, of the package at ROOT
 
 Phases, each printing one JSON line; any failed check exits non-zero:
 
@@ -222,7 +225,23 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    mode, on the channel form, un-carried and in the epilogue steady
    state, and HCZ, MLUPS and ms a step, then each bfloat16 form timed
    beside its plain version and its bfloat16 bound, B3 launch by launch,
-   B5 with its plans as in phase 6.
+   B5 with its plans as in phase 6;
+9. batch (after phase 8; ``--batch`` alone): batched states on one device
+   (:func:`phase_batch`), each element moved by its own seeded noise.
+   Each cell of ``BATCH_CELLS`` (route U, the un-carried Rosensweig step
+   on the 19-channel h, at 130x66x130 with B = 4 and 256^3 with B = 2 in
+   float32 and turbo; HCZ ``multiphase_3d`` at 130^3 with B = 4 and 256^3
+   with B = 2; 3D single phase at 130^3 with B = 2) steps its batch 30
+   times (5 at 256^3) with the counters zeroed just before and read just
+   after: every kernel of the route once a step, each launch for the whole
+   batch (U 14, H 5, P 1); every element then bit for bit to as many B = 1
+   kernel steps of it alone; the peak memory; ms a step and MLUPS against
+   B sequential B = 1 steps, in turns.  At 256^3 B = 2 (float32) each
+   kernel of routes U and H on the batched state, in the step's order:
+   bit for bit to its elements' B = 1 calls, against its plain version,
+   timed beside those B = 1 calls and its bound at B.  ``rosensweig_2d``
+   at 130x130 with B = 16 against B = 1 (plain ops, ms a step in turns,
+   element 0 against the B = 1 run).
 
 The build phase reports each kernel's registers, static shared memory and
 spills as ptxas gives them.
@@ -232,16 +251,19 @@ row for every kernel, one for each bfloat16 form with its launches on
 phase 7's paths, one for B11b's last pass with B7's trailing stage in
 float32 and bfloat16 with its launches on the channel-form paths, one for
 each of B1's psi and B3's box forms with its launches on the padded
-paths, and the slab forms' rows) and, last, ``{"ok": true, "device": {...}}``.  Bounds use the H100 SXM peaks of
-NVIDIA's data sheet: 3.35 TB/s and 67 TFLOP/s float32 (non-tensor), and
-each kernel's ``cost``: the bytes and flops that the call's own inputs need
-(an input read only at some cells counts only there).
+paths, the slab forms' rows, and the batch forms' rows with their
+launches on phase 9's paths) and, last, ``{"ok": true, "device":
+{...}}``.  Bounds use the H100 SXM peaks of NVIDIA's data sheet: 3.35
+TB/s and 67 TFLOP/s float32 (non-tensor), and each kernel's ``cost``: the
+bytes and flops that the call's own inputs need (an input read only at
+some cells counts only there).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import hashlib
 import json
 import math
 import pathlib
@@ -1559,7 +1581,7 @@ def b11b_plan_report(pl, tau, ptxas=None, bf16=False):
     from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
 
     tau1 = int(1.0 / tau == 1.0)
-    name = f"lbm_poisson_pass_kernel<{'bf16,' if bf16 else ''}{tau1},{pl.ty + 2 * pl.k - 2}>"
+    name = f"lbm_poisson_pass_kernel<{'bf16,' if bf16 else ''}{tau1},{pl.ty + 2 * pl.k - 2},0>"
     return dict(k=pl.k, tile=[pp.tile_width(pl.k), pl.ty], lz=pl.lz, passes=list(pl.passes),
                 threads=pp.threads(pl.k, pl.ty),
                 smem_bytes=pp.smem_bytes(pl.k, pl.ty, 2 if bf16 else 4),
@@ -1644,7 +1666,7 @@ def trail_report(K, params, st, ptxas, bf16=False):
     tp = pp.trail_pass(*st.h.shape[2:], pp.plan(*st.h.shape[2:], n, sms, 2 if bf16 else 4)
                        .passes[-1], sms, 2 if bf16 else 4)
     tau1 = int(1.0 / params.tau == 1.0)
-    name = f"lbm_poisson_trail_kernel<{'bf16,' if bf16 else ''}{tau1},{tp.ty + 2 * tp.k},0>"
+    name = f"lbm_poisson_trail_kernel<{'bf16,' if bf16 else ''}{tau1},{tp.ty + 2 * tp.k},0,0>"
     out["trail_pass"] = dict(
         k=tp.k, tile=[pp.tile_width(tp.k + 1), tp.ty], lz=tp.lz,
         threads=pp.threads(tp.k + 1, tp.ty),
@@ -3966,7 +3988,8 @@ def phase_dibr(dev, card, res=(32, 32, 32), image=256, big=(130, 130, 130)):
     ``DIBR_REL``), ms a frame on each side (and of the card in float32)
     and the card's peak bytes; the vertex gradient of an image loss (float64,
     64 pixels, the 16^3 droplet) within ``DIBR_GRAD_REL``; ms a frame of
-    the 130^3 droplet's interface (card only); ``voxelize`` of the
+    the ``big`` droplet's interface (card only; the default run takes
+    64^3, ``--dibr`` 130^3); ``voxelize`` of the
     Rosensweig interface (130x66x130, the demo's phi) at 128^3, the
     boolean grids equal; ``load_textures`` within ``TEX_ABS``."""
     import importlib
@@ -4023,13 +4046,13 @@ def phase_dibr(dev, card, res=(32, 32, 32), image=256, big=(130, 130, 130)):
                           "max_abs": float(grads[1].abs().max())}
     check(rel <= DIBR_GRAD_REL and float(grads[1].abs().max()) > 0,
           f"dibr: vertex gradient card vs CPU {out['vertex_grad']}")
-    # a frame of the 130^3 droplet's interface on the card
+    # a frame of the ``big`` droplet's interface on the card
     bv, bf = droplet_mesh(big)
     cams, pts, args = dibr_inputs(bv, dev, torch.float32)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     r = dibr.Renderer(image, image)
-    out["droplet_130"] = {"faces": len(bf), "ms_per_frame_card_f32": time_cuda(
+    out["droplet_big"] = {"res": list(big), "faces": len(bf), "ms_per_frame_card_f32": time_cuda(
         lambda: r((pts, bf), cams, *args["VertexColor"]), 1, warm=0),
         "peak_bytes_f32": torch.cuda.max_memory_allocated() - base}
     del pts, args, cams
@@ -5278,7 +5301,7 @@ def phase_sharded(dev, kernels_pkg, card):
             p16, s16 = turbo(params, s0, dev)
             rows16, used16 = slab_forced(K, kernels_pkg, p16, s16, dev, card,
                                          f"slab-forced turbo {route} {grid}", steps=10,
-                                         timed=10 if grid == res and res[0] == 256 else 5,
+                                         timed=10 if grid == res and res[0] == 256 else 2,
                                          bf16=True, route=route)
             for key, row in rows16.items():
                 forms16.setdefault(key, row)
@@ -5388,11 +5411,343 @@ def phase_sharded(dev, kernels_pkg, card):
     return rows
 
 
+#: the batched cells of the batch phase: route (U the un-carried Rosensweig
+#: step on the 19-channel h, H the HCZ step on ``multiphase_3d``, P 3D
+#: single-phase BGK), grid, batch, steps held bit for bit to each element's
+#: own B = 1 kernel steps, steps a timed turn, storage of f, g and h
+BATCH_CELLS = (
+    ("U", (130, 66, 130), 4, 30, 10, "float32"),
+    ("U", (130, 66, 130), 4, 30, 10, "bfloat16"),
+    ("U", (256, 256, 256), 2, 5, 4, "float32"),
+    ("U", (256, 256, 256), 2, 5, 4, "bfloat16"),
+    ("H", (130, 130, 130), 4, 30, 10, "float32"),
+    ("H", (256, 256, 256), 2, 5, 4, "float32"),
+    ("P", (130, 130, 130), 2, 5, 5, "float32"),
+)
+#: the kernels each batched route launches (``kernels.PATHS``)
+BATCH_PATHS = {"U": "ferrofluid_uncarried", "H": "hcz", "P": "singlephase3d"}
+BATCH_FIELDS = {"U": FERRO_FIELDS + ("phi", "force"), "H": HCZ_FIELDS, "P": ("f", "rho", "vel")}
+#: the 2D cell: ``rosensweig_2d``'s grid, batch and steps a timed turn
+BATCH_2D = ((130, 130), 16, 20)
+
+
+def batch_scene(route, res, batch, storage, dev, seed=17):
+    """(params, state, step) of a batched cell: the route's scene at
+    ``batch`` elements, f, g and h in ``storage``, each element's f and g
+    moved by a relative 1e-3 and its h (zero at init) by 1e-4 of noise from
+    its own seed, so that an element that read another would show."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch import models
+
+    if route == "P":
+        params, st = taylor_green_3d(res, dev)
+        st = st.replace(**{k: torch.cat([v] * batch) for k, v in vars(st).items()
+                           if torch.is_tensor(v)})
+        step = models.singlephase_step
+    elif route == "H":
+        params, st = models.multiphase_3d(res=res, batch=batch, device=dev)
+        step = models.hcz_step
+    else:
+        params, st = models.rosensweig_3d(res=res, batch=batch, device=dev)
+        step = models.ferrofluid_step
+    if storage == "bfloat16":
+        params, st = turbo(params, st, dev)
+    noisy = {}
+    for name, scale, relative in (("f", 1e-3, True), ("g", 1e-3, True), ("h", 1e-4, False)):
+        x = getattr(st, name, None)
+        if x is None:
+            continue
+        parts = []
+        for b in range(batch):
+            gen = torch.Generator(device=x.device).manual_seed(seed + 101 * b)
+            n = torch.rand(x[b:b + 1].shape, generator=gen, device=x.device) * 2 - 1
+            xb = x[b:b + 1].float()
+            parts.append((xb * (1 + scale * n) if relative else xb + scale * n).to(x.dtype))
+            del n
+        noisy[name] = torch.cat(parts)
+    return params, st.replace(**noisy), step
+
+
+def batch_element(state, b):
+    """Element ``b`` of a batched state, as a state of one element."""
+    import torch
+
+    def part(v):
+        if torch.is_tensor(v):
+            return v[b:b + 1]
+        if isinstance(v, tuple):
+            return tuple(part(x) for x in v)
+        return v
+    return state.replace(**{k: part(v) for k, v in vars(state).items()})
+
+
+def batch_launches_a_step(K, route, params, shape):
+    """Launches a step of each kernel of a batched route, at every B."""
+    if route == "U":
+        return {"B4": 1, "B11b": K["B11b"].module.launches_per_call(params.poisson_iters, shape),
+                "B2": K["B2"].module.N_LAUNCHES, "B6": K["B6"].module.N_LAUNCHES, "B5": 1}
+    if route == "H":
+        return {"B8b": 1, "B8a": 1, "B2": K["B2"].module.N_LAUNCHES,
+                "B6": K["B6"].module.N_LAUNCHES, "B9": 1}
+    return {"B8a": 1}
+
+
+def batch_turns(params, state, step, dev, n, batch):
+    """ms a step of the batched state against ``batch`` sequential B = 1
+    steps (one an element) a step, in turns batched, sequential,
+    sequential, batched, ``n`` steps a turn, after one untimed step of the
+    elements (the batch is warm): (state, row)."""
+    import torch
+
+    out = {"batched": [], "sequential": []}
+    elements = [step(params, batch_element(state, b), device=dev) for b in range(batch)]
+    for kind in ("batched", "sequential", "sequential", "batched"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            if kind == "batched":
+                state = step(params, state, device=dev)
+            else:
+                elements = [step(params, e, device=dev) for e in elements]
+        torch.cuda.synchronize()
+        out[kind].append((time.perf_counter() - t0) / n * 1e3)
+    cells = state.rho.numel()
+    return state, {
+        "ms_per_step": out["batched"], "sequential_ms_per_step": out["sequential"],
+        "mlups": [cells / ms / 1e3 for ms in out["batched"]],
+        "sequential_mlups": [cells / ms / 1e3 for ms in out["sequential"]],
+        "steps_a_turn": n, "order": "batched, sequential, sequential, batched"}
+
+
+def batch_cell(dev, kernels_pkg, route, res, batch, n_bits, n_timed, storage):
+    """One batched cell: ``n_bits`` steps of the batch with the launch
+    counters zeroed just before and read just after (every kernel of the
+    route once a step, each launch for the whole batch), each element then
+    held bit for bit to ``n_bits`` B = 1 kernel steps of it alone, the
+    peak memory of the batched steps, and ms a step in turns against
+    sequential B = 1 steps.  Returns (row, launches, params, state)."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import prime_premac
+    from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
+
+    K = kernels_pkg.KERNELS
+    label = f"batch {route} {'x'.join(map(str, res))} B={batch} {storage}"
+    params, s0, step = batch_scene(route, res, batch, storage, dev)
+    ids = kernels_pkg.PATHS[BATCH_PATHS[route]]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels_pkg.reset_launch_counts()
+    sb = s0
+    if route == "U":
+        sb = prime_premac(params, s0, device=dev)
+        check(sb is s0 and sb.premac is None and sb.h.shape[1] == 19,
+              f"{label}: prime_premac changed a batch")
+    for _ in range(n_bits):
+        sb = step(params, sb, device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = kernels_pkg.launch_counts()
+    batched = kernels_pkg.launch_counts(ids, batch=True)
+    per_step = batch_launches_a_step(K, route, params, s0.f.shape)
+    check_launches(label, launches, per_step, n_bits)
+    check(all(batched[kid] == launches[kid] for kid in ids),
+          f"{label}: launches not at the batch: {batched} of {launches}")
+    n_emit = check_emit_launches(label, kernels_pkg, n_bits) if route == "U" else 0
+    assert_finite(sb, fields=vars(sb))
+    names = BATCH_FIELDS[route]
+    for b in range(batch):
+        sa = batch_element(s0, b)
+        for _ in range(n_bits):
+            sa = step(params, sa, device=dev)
+        torch.cuda.synchronize()
+        for n in names:
+            got, want = getattr(sb, n)[b:b + 1], getattr(sa, n)
+            check(torch.equal(got, want),
+                  f"{label} element {b} {n}: differs from its B = 1 kernel steps by "
+                  f"{float((got.double() - want.double()).abs().max()):.3e}")
+        del sa
+    del s0
+    sb, turns = batch_turns(params, sb, step, dev, n_timed, batch)
+    torch.cuda.empty_cache()
+    row = {"route": route, "res": list(res), "batch": batch, "storage": storage,
+           "steps_held_bit_for_bit": n_bits, "fields": list(names),
+           "launches_a_step": sum(per_step.values()), "launches": {k: launches[k] for k in ids},
+           "peak_mem_gb": peak / 1e9, **turns}
+    return row, dict(launches, **{"B11b emit": n_emit}), params, sb
+
+
+def uncarried_chain(K, params, st, record):
+    """The un-carried step's kernels in its order on the state ``st``, each
+    fed with what the kernels before it produced: B4, B11b with B7's
+    trailing stage (H2), B2, B6 with H2 and phi, B5."""
+    from lbm_ferrofluid_tpu_torch.ops.magnetic import poisson_rhs_scaled
+    from lbm_ferrofluid_tpu_torch.ops.moments import phi_from_density, rho_to_density
+
+    gas = dict(rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
+               density_gas=params.density_gas, density_fluid=params.density_fluid)
+    rho, vel, den, m0g, m1g = record("B4", "B4", (st.f, st.g, st.flags, st.rho, st.vel),
+                                     dict(c=params.dx / params.dt, **gas))
+    phi = phi_from_density(den, params.density_gas, params.density_fluid)
+    rhs = poisson_rhs_scaled(phi, st.magnetic_flags, static_field(params), tau=params.tau,
+                             dx=params.dx, dt=params.dt)
+    _, H2 = record("B11b", "B11b", (st.h, st.magnetic_flags, rhs),
+                   emit_kw(params, "h2", params.tau, params.poisson_iters))
+    rho_ca = record("B2", "B2", (rho, st.flags, params.contact_angle), {})
+    cap_kw = dict(kappa=params.kappa, dx=params.dx, dt=params.dt,
+                  gravity=tuple(float(v) for v in params.gravity_vec().reshape(-1)), **gas)
+    vel2, pres, force, dfai, dprho = record(
+        "B6", "B6", (rho, den, st.pressure, rho_ca, H2, phi, st.flags, m0g, m1g, vel), cap_kw)
+    record("B5", "B5", (st.f, st.g, st.flags, rho_ca, vel2, rho_to_density(rho_ca, **gas), pres,
+                        force, dfai, dprho),
+           dict(tau_f=params.tau_f, tau_g=params.tau_g, dx=params.dx, dt=params.dt))
+
+
+def batch_kernel_rows(K, params, st, chain, what):
+    """Each kernel of a batched route on the batched state ``st`` (``chain``
+    runs the route's kernels in its order): the batched call bit for bit
+    to B = 1 calls of its elements, against its plain version at phase 3's
+    bars, ms beside the B = 1 calls of all its elements one after another
+    (``sequential_ms``) and the plain version, its bound at B (``cost``
+    counts every element)."""
+    import torch
+
+    batch = st.f.shape[0]
+    rows = {}
+
+    def element(args, b):
+        return tuple(a[b:b + 1] if torch.is_tensor(a) else a for a in args)
+
+    def record(label, kid, args, kw):
+        k = K[kid]
+        out = k.wrapper(*args, **kw)
+        for b in range(batch):
+            alone = k.wrapper(*element(args, b), **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x[b:b + 1], y) for x, y in zip(flat(out), flat(alone),
+                                                                  strict=True)),
+                  f"{label} {what}: element {b} of the batched call differs from its B = 1 call")
+            del alone
+        per_call = (k.module.launches_per_call(kw["n_iters"], args[0].shape)
+                    if kid == "B11b" else 1)
+        rows[label] = dict(measure(K, kid, args, kw, per_call, per_call, f"{label} {what}"),
+                           batch=batch, res=list(args[0].shape[2:]), sequential_ms=time_cuda(
+                               lambda: [k.wrapper(*element(args, b), **kw)
+                                        for b in range(batch)], reps=3))
+        return out
+
+    chain(K, params, st, record)
+    return rows
+
+
+def hcz_state_chain(K, params, st, record):
+    """:func:`hcz_chain` on a batched HCZ state (the Kelvin variant of B6
+    with H2 1e4)."""
+    import torch
+
+    hcz_chain(K, params, dict(flags=st.flags, f=st.f, g=st.g, rho_old=st.rho, vel_old=st.vel,
+                              pres=st.pressure, H2=torch.full_like(st.rho, 1e4)), record)
+
+
+def batch_2d(dev):
+    """``rosensweig_2d`` at 130x130 with B = 16 against B = 1 (plain ops,
+    no kernel launch; un-primed, so both solve on the 9-channel h): ms a
+    step in turns (B = 16, B = 1, B = 1, B = 16), and element 0 of the
+    batch (the B = 1 state; the others moved by noise) against the B = 1
+    run at phase 3's bars."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, rosensweig_2d
+
+    res, batch, n = BATCH_2D
+    params, one = rosensweig_2d(res=res, device=dev)
+    _, many = rosensweig_2d(res=res, batch=batch, device=dev)
+    gen = torch.Generator(device=many.f.device).manual_seed(23)
+    noise = torch.rand(many.f.shape, generator=gen, device=many.f.device) * 2 - 1
+    noise[0] = 0
+    many = many.replace(f=many.f * (1 + 1e-3 * noise))
+    check(torch.equal(many.f[:1], one.f), "2D batch: element 0 is not the B = 1 state")
+    times = {1: [], batch: []}
+    states = {1: one, batch: many}
+    for b in (batch, 1, 1, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            states[b] = ferrofluid_step(params, states[b], device=dev)
+        torch.cuda.synchronize()
+        times[b].append((time.perf_counter() - t0) / n * 1e3)
+    s1, sb = states[1], states[batch]
+    check(sb.h.shape[1] == 9 and s1.h.shape[1] == 9, "2D batch: not on the 9-channel h")
+    rows = compare("2D batch element 0 vs B = 1", list(FERRO_FIELDS),
+                   [getattr(sb, k)[:1] for k in FERRO_FIELDS],
+                   [getattr(s1, k) for k in FERRO_FIELDS])
+    return {"scene": "rosensweig_2d", "res": list(res), "batch": batch, "steps": s1.step,
+            "ms_per_step_b1": times[1], f"ms_per_step_b{batch}": times[batch],
+            "order": f"B={batch}, B=1, B=1, B={batch}",
+            "element0_vs_b1": rows}
+
+
+def phase_batch(dev, kernels_pkg, card):
+    """Batched states on one device (ROADMAP A12 slice 5): each cell of
+    ``BATCH_CELLS`` (:func:`batch_cell`), the kernels of routes U and H at
+    256^3 B = 2 (float32) on the batched state (:func:`batch_kernel_rows`)
+    and the 2D cell.  Returns (launches of the kernels summed over the
+    cells' counted steps, the kernel rows)."""
+    import torch
+
+    K = kernels_pkg.KERNELS
+    t0 = time.perf_counter()
+    cells, total, kernel_rows = [], {}, {}
+    for route, res, batch, n_bits, n_timed, storage in BATCH_CELLS:
+        row, launches, params, sb = batch_cell(dev, kernels_pkg, route, res, batch, n_bits,
+                                               n_timed, storage)
+        for kid, n in launches.items():
+            total[kid] = total.get(kid, 0) + n
+        if res == (256, 256, 256) and storage == "float32" and route in ("U", "H"):
+            rows = batch_kernel_rows(K, params, sb,
+                                     uncarried_chain if route == "U" else hcz_state_chain,
+                                     f"batch {route} 256^3 B={batch}")
+            kernel_rows.update({f"{route} {label}": r for label, r in rows.items()})
+        del sb
+        torch.cuda.empty_cache()
+        cells.append(row)
+    two_d = batch_2d(dev)
+    emit({"phase": "batch", "cells": cells, "kernels": kernel_rows, "2d": two_d,
+          "launches": {kid: total.get(kid, 0) for kid in kernels_pkg.BATCH_FORMS},
+          "seconds": time.perf_counter() - t0, "card": card, "ok": True})
+    return total, kernel_rows
+
+
+def batch_rows(K, total, kernel_rows):
+    """The ``kernels`` line's rows of the batch forms: launches over the
+    batch phase's counted steps; times and bound of the batched call at
+    256^3 B = 2 on route U (B2, B4, B5, B6 with H2, B11b with the trailing
+    stage) or the HCZ route (B8a, B8b, B9), the largest error over both
+    routes."""
+    from lbm_ferrofluid_tpu_torch.ops.kernels import BATCH_FORMS
+
+    rows = []
+    for kid in BATCH_FORMS:
+        own = [r for label, r in kernel_rows.items() if label.split(" ", 1)[1] == kid]
+        row = kernel_rows.get(f"U {kid}", own[0])
+        rows.append({
+            "name": f"{kid} {K[kid].wrapper.__name__} batch", "route": "cuda",
+            "source": K[kid].module.CUDA_SOURCE, "replaces": K[kid].tpu_kernel,
+            "launches": total.get(kid, 0),
+            **{key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "batch",
+                                         "res", "sequential_ms")},
+            "max_abs_err": max(r["max_abs_err"] for r in own), "library_ms": None})
+    return rows
+
+
 def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     """Phases 3-8; returns one row per kernel for the ``kernels`` line, one
     per bfloat16 form, one for B11b's last pass with B7's trailing stage in
     float32 and in bfloat16 (its launches on the channel-form main paths),
-    and one for each of B1's psi and B3's box forms.
+    and one for each of B1's psi and B3's box forms, the slab forms' rows
+    and the batch forms' (:func:`batch_rows`).
     ``launches`` sums the kernel's launches over the main paths of phases 5
     and 5c that run it (B2, B3 and B4 over both ferrofluid solves, the
     padded paths, the spike runs and the demo drivers), a bfloat16 form's
@@ -5416,7 +5771,7 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     sharded = phase_sharded(dev, kernels_pkg, smi)
     spikes, spikes16 = phase_spikes(dev, kernels_pkg, smi)
     per_path += [spikes, phase_demo(dev, kernels_pkg, smi), phase_demos(dev, kernels_pkg, smi)]
-    phase_dibr(dev, smi)
+    phase_dibr(dev, smi, big=(64, 64, 64))
     phase_native(smi)
     phase_inverse(dev, kernels_pkg, smi)
     phase_golden_2d(dev)
@@ -5443,6 +5798,7 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     flag16 = phase_bf16_flagships(dev, K, smi, ptxas)
     flag16["B5"] = dict(flag16["B5"], max_abs_err=max(flag16["B5"]["max_abs_err"],
                                                        flag16["B5 emit_mac"]["max_abs_err"]))
+    batch_total, batch_kernels = phase_batch(dev, kernels_pkg, smi)
     return [{
         "name": f"{kid} {k.wrapper.__name__}", "route": "cuda",
         "source": k.module.CUDA_SOURCE, "replaces": k.tpu_kernel,
@@ -5478,7 +5834,8 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
         "library_ms": None,
     } for kid, form, row, launches_key in (
         ("B1", "psi form", "B1", "form_launches"), ("B3", "box form", "B3", "form_launches"),
-        ("B3", "box form bf16", "B3 bf16", "form_launches16"))] + sharded
+        ("B3", "box form bf16", "B3 bf16", "form_launches16"))] + sharded + batch_rows(
+            K, batch_total, batch_kernels)
 
 
 def phase_step_time(dev, card, repeats=5):
@@ -5499,6 +5856,42 @@ def phase_step_time(dev, card, repeats=5):
           "mlups": stats["mlups"], "card": card, "ok": True})
 
 
+def phase_route_time(dev, card, steps=20, repeats=3, res=(256, 256, 256)):
+    """ms a step of the un-carried Rosensweig step (route U, channel-form h)
+    and of the HCZ ``multiphase_3d`` step at ``res`` and B = 1: ``repeats``
+    timed runs of ``steps`` steps after 5 warm steps, in the package that
+    ``lbm_ferrofluid_tpu_torch`` imports from (``--route-time ROOT``: a
+    checkout at ROOT, for an A/B of two trees in one call), and a hash of
+    the final rho's bits (two trees with the same kernels at B = 1 give
+    the same)."""
+    import torch
+
+    import lbm_ferrofluid_tpu_torch
+    from lbm_ferrofluid_tpu_torch.models import (
+        ferrofluid_step, hcz_step, multiphase_3d, rosensweig_3d,
+    )
+
+    out = {"phase": "route_time", "package": lbm_ferrofluid_tpu_torch.__file__,
+           "res": list(res), "steps": steps}
+    for route, build, step in (("U", rosensweig_3d, ferrofluid_step),
+                               ("H", multiphase_3d, hcz_step)):
+        params, st = build(res=res, device=dev)
+        for _ in range(5):
+            st = step(params, st, device=dev)
+        runs = []
+        for _ in range(repeats):
+            st, stats = timed_steps(params, st, step, dev, steps, 0)
+            runs.append(stats["seconds"] / steps * 1e3)
+        check(bool(torch.isfinite(st.rho).all()), f"route time {route}: non-finite rho")
+        # the final rho's bits, to hold two trees' steps to each other
+        sha = hashlib.sha256(st.rho.cpu().numpy().tobytes()).hexdigest()[:16]
+        out[route] = {"ms_per_step": float(np.median(runs)), "ms_per_step_all": runs,
+                      "steps_done": st.step, "rho_sha256": sha}
+        del st
+        torch.cuda.empty_cache()
+    emit(dict(out, card=card, ok=True))
+
+
 def main() -> int:
     import torch
 
@@ -5506,10 +5899,11 @@ def main() -> int:
         return sharded_rank(sys.argv[sys.argv.index("--sharded-rank") + 1])
     if "--2d-job" in sys.argv[1:]:
         return job_2d(sys.argv[sys.argv.index("--2d-job") + 1])
-    if "--step-time" in sys.argv[1:]:
-        at = sys.argv.index("--step-time") + 1
-        if at < len(sys.argv) and not sys.argv[at].startswith("--"):
-            sys.path.insert(0, str(pathlib.Path(sys.argv[at]).resolve()))
+    for flag in ("--step-time", "--route-time"):
+        if flag in sys.argv[1:]:
+            at = sys.argv.index(flag) + 1
+            if at < len(sys.argv) and not sys.argv[at].startswith("--"):
+                sys.path.insert(0, str(pathlib.Path(sys.argv[at]).resolve()))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA card is required",
               file=sys.stderr)
@@ -5569,6 +5963,13 @@ def main() -> int:
         rows = phase_sharded(dev, kernels_pkg, smi)
         print(smi, flush=True)
         emit({"kernels": rows})
+    elif "--batch" in sys.argv[1:]:
+        total, rows = phase_batch(dev, kernels_pkg, smi)
+        print(smi, flush=True)
+        emit({"kernels": batch_rows(kernels_pkg.KERNELS, total, rows)})
+    elif "--route-time" in sys.argv[1:]:
+        phase_route_time(dev, smi)
+        print(smi, flush=True)
     elif {"--compat", "--dibr", "--native", "--inverse"} & set(sys.argv[1:]):
         if "--compat" in sys.argv[1:]:
             phase_grad_guard(dev, kernels_pkg)

@@ -51,6 +51,12 @@
 // single-device kernel's, so a slab's outputs equal the single-device
 // kernel's on the same lap bit for bit.  Its bound adds the lap field and
 // the ghost planes' reads, and drops the Laplacian's flops.
+//
+// Batch ([B, ...] states on one device): one launch of lbm_capmac for the
+// B elements, gridDim.z = B nzb with nzb an element's strips
+// (common.cuh:lbm_fold_z); a block moves its fields to its element
+// (lbm_elem), so its rings and z clamp are an element's and the plan
+// (tile, strip) is the one-element plan.  The slab form takes one element.
 #include "common.cuh"
 
 // (TX, TY) tiles lbm_capmac is built for: ops/kernels/capmac.py:TILES (a
@@ -74,12 +80,23 @@ __global__ void __launch_bounds__(TX* TY, CM_SM_THREADS / (TX * TY)) lbm_capmac_
   constexpr int NF = HAS_CHI ? 4 : 3;      // lap, (chi), fai, prho
   __shared__ float ring[3][NF][EY][EX];
   __shared__ float dens[4][DY][DX];
+  const long long N = static_cast<long long>(Z) * Y * X;
+  // the batch element and the strip: B elements of nzb strips on gridDim.z
+  long long b;
+  int zs;
+  lbm_fold_z((Z + zb - 1) / zb, b, zs);
+  flags = lbm_elem(flags, b, 1, N), rho_pre = lbm_elem(rho_pre, b, 1, N);
+  den_pre = lbm_elem(den_pre, b, 1, N), pres_old = lbm_elem(pres_old, b, 1, N);
+  rho_ca = lbm_elem(rho_ca, b, 1, N), phi = lbm_elem(phi, b, 1, N), h2 = lbm_elem(h2, b, 1, N);
+  gsum = lbm_elem(gsum, b, 1, N), gmom = lbm_elem(gmom, b, 3, N);
+  vel_old = lbm_elem(vel_old, b, 3, N), vel_out = lbm_elem(vel_out, b, 3, N);
+  pres_out = lbm_elem(pres_out, b, 1, N), force_out = lbm_elem(force_out, b, 3, N);
+  dfai_out = lbm_elem(dfai_out, b, 3, N), dprho_out = lbm_elem(dprho_out, b, 3, N);
   const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
   const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
-  const int z0 = blockIdx.z * zb, z1 = min(z0 + zb, Z);
+  const int z0 = zs * zb, z1 = min(z0 + zb, Z);
   const int tid = threadIdx.y * TX + threadIdx.x;
   const int rx0 = lbm_ring_origin(x0, X), ry0 = lbm_ring_origin(y0, Y);
-  const long long N = static_cast<long long>(Z) * Y * X;
 
   // density(rho_ca) of plane q, rows ry0 - 1.. and columns rx0 - 1.. (cells
   // outside the grid stand on the nearest grid cell and are never tapped)
@@ -263,8 +280,8 @@ extern "C" int lbm_capmac(const uint8_t* flags, const float* rho_pre, const floa
                           const float* pres_old, const float* rho_ca, const float* phi,
                           const float* h2, const float* gsum, const float* gmom,
                           const float* vel_old, float* vel_out, float* pres_out,
-                          float* force_out, float* dfai_out, float* dprho_out, int Z, int Y,
-                          int X, int tx, int ty, int zb, double kappa, double grav_x,
+                          float* force_out, float* dfai_out, float* dprho_out, int B, int Z,
+                          int Y, int X, int tx, int ty, int zb, double kappa, double grav_x,
                           double grav_y, double grav_z, double mu0_half, double dx, double dt,
                           double rho_gas, double rho_fluid, double den_gas, double den_fluid,
                           void* stream) {
@@ -274,10 +291,11 @@ extern "C" int lbm_capmac(const uint8_t* flags, const float* rho_pre, const floa
   const double RT = c * c / 3.0;
   const float d6 = lbm_f32(6.0 * dx * dx);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (zb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (zb < 1 || B < 1 || static_cast<long long>(B) * ((Z + zb - 1) / zb) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
 #define CM_LAUNCH(TX_, TY_)                                                                    \
   if (tx == TX_ && ty == TY_) {                                                                \
-    const dim3 grid((X + TX_ - 1) / TX_, (Y + TY_ - 1) / TY_, (Z + zb - 1) / zb);             \
+    const dim3 grid((X + TX_ - 1) / TX_, (Y + TY_ - 1) / TY_, B * ((Z + zb - 1) / zb));       \
     if (h2 != nullptr)                                                                         \
       lbm_capmac_kernel<TX_, TY_, true><<<grid, dim3(TX_, TY_), 0, st>>>(                      \
           flags, rho_pre, den_pre, pres_old, rho_ca, phi, h2, gsum, gmom, vel_old, vel_out,    \

@@ -1,8 +1,15 @@
 // Shared pieces of the port's CUDA kernels (compiled for sm_90a).
 //
-// Layout: every field is a contiguous [C, Z, Y, X] float32 array (the
-// batch dimension is 1), channel c of cell i at c * N + i with
-// N = Z * Y * X and i = (z * Y + y) * X + x.  Flags are uint8 as stored.
+// Layout: every field is a contiguous [B, C, Z, Y, X] float32 array,
+// channel c of cell i of batch element b at (b C + c) N + i with
+// N = Z * Y * X and i = (z * Y + y) * X + x.  Flags are uint8 as stored,
+// one channel an element.  A kernel steps the B elements of a batch in one
+// launch: its grid holds one copy of the single-element grid an element
+// (on gridDim.y, or folded into gridDim.z), and each block moves its
+// fields' pointers to its element (lbm_elem) before it computes, so every
+// neighbour an element's cells read lies in that element and each
+// element's outputs are those of a launch on it alone, bit for bit.  The
+// slab forms take one element.
 // The distributions f, g and h are stored in float32 or, in the JAX
 // package's turbo mode, in bfloat16: kernels that read or write them are
 // templates on the storage type T, load through lbm_ld (exact widening to
@@ -71,6 +78,21 @@ __device__ __forceinline__ void lbm_cp_async_wait_all() {
 
 static inline unsigned lbm_blocks(long long n) {
   return static_cast<unsigned>((n + LBM_THREADS - 1) / LBM_THREADS);
+}
+
+// p moved to batch element b of a field of c channels of N cells (64-bit
+// offsets: an element of f at 256^3 alone holds 3.2e8 values); null stays
+// null
+template <class P>
+__device__ __forceinline__ P* lbm_elem(P* p, long long b, int c, long long N) {
+  return p == nullptr ? p : p + b * c * N;
+}
+
+// The batch element and the block along z of a grid that folds B elements of
+// nzb blocks along z each into gridDim.z (blockIdx.z = b nzb + zblock).
+__device__ __forceinline__ void lbm_fold_z(int nzb, long long& b, int& zblock) {
+  b = blockIdx.z / nzb;
+  zblock = static_cast<int>(blockIdx.z - b * nzb);
 }
 
 __device__ __forceinline__ long long lbm_cell() {

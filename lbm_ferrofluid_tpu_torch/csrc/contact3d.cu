@@ -43,6 +43,11 @@
 // interior plane (copy and ring blocks) whose face terms read z-1 or z+1
 // from the ghost.  Flags of the ghosts are never read.  The whole domain is
 // the slab with bot = top = 1.
+//
+// Batch ([B, ...] states on one device): one launch, the plane-ordered
+// blocks of an element on a row of gridDim.y each; a block moves rho,
+// flags and rho_ca to its element (common.cuh:lbm_elem) and indexes its
+// cells in 32 bits within it.  The slab form takes one element.
 #include "common.cuh"
 
 // blocks an SM the launch bounds ask room for (registers <= 40): the copy
@@ -145,6 +150,9 @@ __global__ void __launch_bounds__(LBM_THREADS, CA_MIN_BLOCKS) lbm_contact_angle_
     int Z, int Y, int X, float t, int F, int P, int R, const float* __restrict__ lo,
     const float* __restrict__ hi, int bot, int top) {
   const int plane = Y * X;
+  // the batch element: a row of blocks an element (a slab form's launch has one)
+  const long long eb = blockIdx.y, N = static_cast<long long>(Z) * plane;
+  rho = lbm_elem(rho, eb, 1, N), flags = lbm_elem(flags, eb, 1, N), out = lbm_elem(out, eb, 1, N);
   const int Fb = bot ? F : 0, zm = bot ? 1 : 0, nm = Z - zm - (top ? 1 : 0);
   int b = blockIdx.x, z, k;
   bool copy = false;
@@ -210,9 +218,11 @@ __global__ void __launch_bounds__(LBM_THREADS, CA_MIN_BLOCKS) lbm_contact_angle_
 // The whole domain with lo = hi = null and bot = top = 1; a slab with its
 // neighbours' edge planes lo and hi ([Y, X] each) and the flags of its
 // true edges.
-extern "C" int lbm_contact_angle(const float* rho, const uint8_t* flags, float* out, int Z, int Y,
-                                 int X, double t, int vec, const float* lo, const float* hi,
+extern "C" int lbm_contact_angle(const float* rho, const uint8_t* flags, float* out, int B, int Z,
+                                 int Y, int X, double t, int vec, const float* lo, const float* hi,
                                  int bot, int top, void* stream) {
+  if (B < 1 || B > 65535 || (lo != nullptr && B != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long plane = static_cast<long long>(Y) * X;
   const int F = static_cast<int>(lbm_blocks(plane));
   const int P = static_cast<int>(lbm_blocks((plane + 3) / 4));
@@ -221,10 +231,10 @@ extern "C" int lbm_contact_angle(const float* rho, const uint8_t* flags, float* 
   const unsigned blocks = (bot ? F : 0) + (top ? F : 0) + nm * (P + R);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec)
-    lbm_contact_angle_kernel<true><<<blocks, LBM_THREADS, 0, st>>>(
+    lbm_contact_angle_kernel<true><<<dim3(blocks, B), LBM_THREADS, 0, st>>>(
         rho, flags, out, Z, Y, X, static_cast<float>(t), F, P, R, lo, hi, bot, top);
   else
-    lbm_contact_angle_kernel<false><<<blocks, LBM_THREADS, 0, st>>>(
+    lbm_contact_angle_kernel<false><<<dim3(blocks, B), LBM_THREADS, 0, st>>>(
         rho, flags, out, Z, Y, X, static_cast<float>(t), F, P, R, lo, hi, bot, top);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,6 +30,14 @@
 // plane a side.  Everything else is the same, so a slab's outputs equal
 // those of the same planes of the whole domain bit for bit.  Its bound adds
 // the ghost planes' 2 x 5 values a plane cell of f and of g.
+//
+// Batch ([B, ...] states on one device): each kernel here steps the B
+// elements in one launch, B4 and B5's cell form with a row of blocks an
+// element on gridDim.y, B5's stage form with an element on gridDim.z
+// (its blocks along y are an element's strips, as at B = 1).  A block
+// moves its fields' pointers to its element (common.cuh:lbm_elem), so no
+// pull crosses from one element to the next; the emission (emit_mac)
+// launches B4 on the whole batch.  The slab forms take one element.
 #include "common.cuh"
 
 extern "C" const char* lbm_error_string(int err) {
@@ -51,6 +59,11 @@ __global__ void lbm_stream_macro_kernel(const T* __restrict__ f, const T* __rest
   const long long N = static_cast<long long>(Z) * Y * X;
   const long long i = lbm_cell();
   if (i >= N) return;
+  const long long b = blockIdx.y;  // the batch element
+  f = lbm_elem(f, b, 19, N), g = lbm_elem(g, b, 19, N), flags = lbm_elem(flags, b, 1, N);
+  rho_old = lbm_elem(rho_old, b, 1, N), vel_old = lbm_elem(vel_old, b, 3, N);
+  rho = lbm_elem(rho, b, 1, N), vel = lbm_elem(vel, b, 3, N), den = lbm_elem(den, b, 1, N);
+  m0g = lbm_elem(m0g, b, 1, N), m1g = lbm_elem(m1g, b, 3, N);
   const int x = static_cast<int>(i % X);
   const int y = static_cast<int>((i / X) % Y);
   const int z = static_cast<int>(i / (static_cast<long long>(X) * Y));
@@ -148,6 +161,15 @@ struct LbmEpMacros {
   const float *rho, *vel, *den, *pres, *force, *dfai, *dprho;
 };
 
+// The macro channels of batch element b.
+__device__ __forceinline__ LbmEpMacros lbm_ep_elem(const LbmEpMacros& m, long long b,
+                                                   long long N) {
+  return LbmEpMacros{lbm_elem(m.rho, b, 1, N),   lbm_elem(m.vel, b, 3, N),
+                     lbm_elem(m.den, b, 1, N),   lbm_elem(m.pres, b, 1, N),
+                     lbm_elem(m.force, b, 3, N), lbm_elem(m.dfai, b, 3, N),
+                     lbm_elem(m.dprho, b, 3, N)};
+}
+
 __device__ __forceinline__ const float* lbm_ep_macro(const LbmEpMacros& m, int c, long long N) {
   return c == 0    ? m.rho
          : c <= 3  ? m.vel + (c - 1) * N
@@ -203,6 +225,10 @@ __global__ void __launch_bounds__(LBM_THREADS) lbm_epilogue_kernel(
   const long long N = static_cast<long long>(Z) * Y * X;
   const long long i = lbm_cell();
   if (i >= N) return;
+  const long long b = blockIdx.y;  // the batch element
+  f = lbm_elem(f, b, 19, N), g = lbm_elem(g, b, 19, N), flags = lbm_elem(flags, b, 1, N);
+  m = lbm_ep_elem(m, b, N);
+  f_out = lbm_elem(f_out, b, 19, N), g_out = lbm_elem(g_out, b, 19, N);
   const int x = static_cast<int>(i % X);
   const int y = static_cast<int>((i / X) % Y);
   const int z = static_cast<int>(i / (static_cast<long long>(X) * Y));
@@ -320,6 +346,11 @@ __global__ void __launch_bounds__(EP_NT, 65536 / (EP_REGS * EP_NT)) lbm_epilogue
   const long long XY = static_cast<long long>(X) * Y, N = XY * Z;
   const long long l = static_cast<long long>(blockIdx.x) * EP_NT + threadIdx.x;
   if (l >= XY) return;
+  // the batch element (a slab form's launch has one)
+  const long long b = blockIdx.z;
+  f = lbm_elem(f, b, 19, N), g = lbm_elem(g, b, 19, N), flags = lbm_elem(flags, b, 1, N);
+  m = lbm_ep_elem(m, b, N);
+  f_out = lbm_elem(f_out, b, 19, N), g_out = lbm_elem(g_out, b, 19, N);
   const int y = static_cast<int>(l / X), x = static_cast<int>(l - static_cast<long long>(y) * X);
   const int z0 = static_cast<int>(blockIdx.y) * zb, z1 = min(z0 + zb, Z);
   const int opp[19] = LBM_D3Q19_OPP;
@@ -371,16 +402,17 @@ static cudaError_t lbm_ep_stage_allow() {
 // g_hi), the stage form only.
 template <class T>
 static int lbm_epilogue_launch(const void* f, const void* g, const uint8_t* flags,
-                               const LbmEpMacros& m, void* f_out, void* g_out, int Z, int Y,
-                               int X, int form, int zb, LbmHczK k, cudaStream_t st,
+                               const LbmEpMacros& m, void* f_out, void* g_out, int B, int Z,
+                               int Y, int X, int form, int zb, LbmHczK k, cudaStream_t st,
                                int* blocks, const void* const* gh = nullptr) {
   const T* fi = static_cast<const T*>(f);
   const T* gi = static_cast<const T*>(g);
   T* fo = static_cast<T*>(f_out);
   T* go = static_cast<T*>(g_out);
   const long long XY = static_cast<long long>(X) * Y;
+  if (B < 1 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (gh != nullptr) {
-    if (zb < 1 || form != 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (zb < 1 || form != 1 || B != 1) return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t err = lbm_ep_stage_allow<T, true>();
     if (err != cudaSuccess) return static_cast<int>(err);
     const LbmEpGhosts<T> g4{static_cast<const T*>(gh[0]), static_cast<const T*>(gh[1]),
@@ -394,8 +426,8 @@ static int lbm_epilogue_launch(const void* f, const void* g, const uint8_t* flag
     if (blocks != nullptr)
       return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           blocks, lbm_epilogue_kernel<T>, LBM_THREADS, 0));
-    lbm_epilogue_kernel<T><<<lbm_blocks(XY * Z), LBM_THREADS, 0, st>>>(fi, gi, flags, m, fo, go,
-                                                                       Z, Y, X, k);
+    lbm_epilogue_kernel<T><<<dim3(lbm_blocks(XY * Z), B), LBM_THREADS, 0, st>>>(
+        fi, gi, flags, m, fo, go, Z, Y, X, k);
     return static_cast<int>(cudaGetLastError());
   }
   if (zb < 1 || form != 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -404,7 +436,7 @@ static int lbm_epilogue_launch(const void* f, const void* g, const uint8_t* flag
   if (blocks != nullptr)
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks, lbm_epilogue_stage<T, false>, EP_NT, EP_STAGE_BYTES));
-  const dim3 grid(static_cast<unsigned>((XY + EP_NT - 1) / EP_NT), (Z + zb - 1) / zb);
+  const dim3 grid(static_cast<unsigned>((XY + EP_NT - 1) / EP_NT), (Z + zb - 1) / zb, B);
   lbm_epilogue_stage<T, false><<<grid, EP_NT, EP_STAGE_BYTES, st>>>(
       fi, gi, flags, m, fo, go, Z, Y, X, zb, k, LbmEpGhosts<T>{});
   return static_cast<int>(cudaGetLastError());
@@ -415,16 +447,16 @@ static int lbm_epilogue_launch(const void* f, const void* g, const uint8_t* flag
 extern "C" int lbm_epilogue(const void* f, const void* g, const uint8_t* flags, const float* rho,
                             const float* vel, const float* den, const float* pres,
                             const float* force, const float* dfai, const float* dprho,
-                            void* f_out, void* g_out, int Z, int Y, int X, int form, int zb,
-                            double dx, double dt, double tau_f, double tau_g, int bf16,
+                            void* f_out, void* g_out, int B, int Z, int Y, int X, int form,
+                            int zb, double dx, double dt, double tau_f, double tau_g, int bf16,
                             void* stream) {
   const LbmHczK k = lbm_hcz_consts(dx, dt, tau_f, tau_g);
   const LbmEpMacros m{rho, vel, den, pres, force, dfai, dprho};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return lbm_epilogue_launch<__nv_bfloat16>(f, g, flags, m, f_out, g_out, Z, Y, X, form, zb,
-                                              k, st, nullptr);
-  return lbm_epilogue_launch<float>(f, g, flags, m, f_out, g_out, Z, Y, X, form, zb, k, st,
+    return lbm_epilogue_launch<__nv_bfloat16>(f, g, flags, m, f_out, g_out, B, Z, Y, X, form,
+                                              zb, k, st, nullptr);
+  return lbm_epilogue_launch<float>(f, g, flags, m, f_out, g_out, B, Z, Y, X, form, zb, k, st,
                                     nullptr);
 }
 
@@ -443,10 +475,10 @@ extern "C" int lbm_epilogue_slab(const void* f, const void* g, const uint8_t* fl
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* gh[4] = {f_lo, f_hi, g_lo, g_hi};
   if (bf16)
-    return lbm_epilogue_launch<__nv_bfloat16>(f, g, flags, m, f_out, g_out, Z, Y, X, 1, zb, k,
-                                              st, nullptr, gh);
-  return lbm_epilogue_launch<float>(f, g, flags, m, f_out, g_out, Z, Y, X, 1, zb, k, st, nullptr,
-                                    gh);
+    return lbm_epilogue_launch<__nv_bfloat16>(f, g, flags, m, f_out, g_out, 1, Z, Y, X, 1, zb,
+                                              k, st, nullptr, gh);
+  return lbm_epilogue_launch<float>(f, g, flags, m, f_out, g_out, 1, Z, Y, X, 1, zb, k, st,
+                                    nullptr, gh);
 }
 
 // Blocks of B5's form (lbm_epilogue_launch) resident on one SM, in bfloat16
@@ -455,27 +487,29 @@ extern "C" int lbm_epilogue_occupancy(int form, int bf16, int* blocks) {
   const LbmEpMacros m{};
   const LbmHczK k{};
   return bf16 ? lbm_epilogue_launch<__nv_bfloat16>(nullptr, nullptr, nullptr, m, nullptr,
-                                                   nullptr, 4, 4, 4, form, 1, k, nullptr, blocks)
-              : lbm_epilogue_launch<float>(nullptr, nullptr, nullptr, m, nullptr, nullptr, 4, 4,
-                                           4, form, 1, k, nullptr, blocks);
+                                                   nullptr, 1, 4, 4, 4, form, 1, k, nullptr,
+                                                   blocks)
+              : lbm_epilogue_launch<float>(nullptr, nullptr, nullptr, m, nullptr, nullptr, 1, 4,
+                                           4, 4, form, 1, k, nullptr, blocks);
 }
 
 template <class T>
 static void lbm_prologue_launch(const void* f, const void* g, const uint8_t* flags,
                                 const float* rho_old, const float* vel_old, float* rho,
-                                float* vel, float* den, float* m0g, float* m1g, int Z, int Y,
-                                int X, double c, LbmGas gas, const void* f_lo, const void* f_hi,
-                                const void* g_lo, const void* g_hi, cudaStream_t stream) {
+                                float* vel, float* den, float* m0g, float* m1g, int B, int Z,
+                                int Y, int X, double c, LbmGas gas, const void* f_lo,
+                                const void* f_hi, const void* g_lo, const void* g_hi,
+                                cudaStream_t stream) {
   const long long N = static_cast<long long>(Z) * Y * X;
   const T *tf = static_cast<const T*>(f), *tg = static_cast<const T*>(g);
   const T *flo = static_cast<const T*>(f_lo), *fhi = static_cast<const T*>(f_hi);
   const T *glo = static_cast<const T*>(g_lo), *ghi = static_cast<const T*>(g_hi);
   if (f_lo != nullptr)
-    lbm_stream_macro_kernel<T, true><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
+    lbm_stream_macro_kernel<T, true><<<dim3(lbm_blocks(N), B), LBM_THREADS, 0, stream>>>(
         tf, tg, flags, rho_old, vel_old, rho, vel, den, m0g, m1g, Z, Y, X, c, gas, flo, fhi, glo,
         ghi);
   else
-    lbm_stream_macro_kernel<T, false><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
+    lbm_stream_macro_kernel<T, false><<<dim3(lbm_blocks(N), B), LBM_THREADS, 0, stream>>>(
         tf, tg, flags, rho_old, vel_old, rho, vel, den, m0g, m1g, Z, Y, X, c, gas, flo, fhi, glo,
         ghi);
 }
@@ -485,17 +519,19 @@ static void lbm_prologue_launch(const void* f, const void* g, const uint8_t* fla
 // the storage type)
 extern "C" int lbm_prologue(const void* f, const void* g, const uint8_t* flags,
                             const float* rho_old, const float* vel_old, float* rho, float* vel,
-                            float* den, float* m0g, float* m1g, int Z, int Y, int X, double c,
-                            double rho_gas, double rho_fluid, double den_gas, double den_fluid,
-                            int bf16, const void* f_lo, const void* f_hi, const void* g_lo,
-                            const void* g_hi, void* stream) {
+                            float* den, float* m0g, float* m1g, int B, int Z, int Y, int X,
+                            double c, double rho_gas, double rho_fluid, double den_gas,
+                            double den_fluid, int bf16, const void* f_lo, const void* f_hi,
+                            const void* g_lo, const void* g_hi, void* stream) {
   const LbmGas gas = lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B < 1 || B > 65535 || (f_lo != nullptr && B != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
     lbm_prologue_launch<__nv_bfloat16>(f, g, flags, rho_old, vel_old, rho, vel, den, m0g, m1g,
-                                       Z, Y, X, c, gas, f_lo, f_hi, g_lo, g_hi, st);
+                                       B, Z, Y, X, c, gas, f_lo, f_hi, g_lo, g_hi, st);
   else
-    lbm_prologue_launch<float>(f, g, flags, rho_old, vel_old, rho, vel, den, m0g, m1g, Z, Y, X,
-                               c, gas, f_lo, f_hi, g_lo, g_hi, st);
+    lbm_prologue_launch<float>(f, g, flags, rho_old, vel_old, rho, vel, den, m0g, m1g, B, Z, Y,
+                               X, c, gas, f_lo, f_hi, g_lo, g_hi, st);
   return static_cast<int>(cudaGetLastError());
 }

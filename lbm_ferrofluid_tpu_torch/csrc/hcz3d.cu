@@ -18,6 +18,10 @@
 // fluid cell take about 0.2 ms at 67 TFLOP/s.  In bfloat16 storage (T =
 // __nv_bfloat16) f, g, f' and g' take half: 153 B per cell plus 60 B per
 // fluid cell, about 1.1 ms; the collide rounds once, on the store.
+//
+// Batch ([B, ...] states on one device): one launch, a row of blocks an
+// element on gridDim.y; each block moves its fields to its element
+// (common.cuh:lbm_elem).  The bound is B times an element's.
 #include "common.cuh"
 
 template <class T>
@@ -29,6 +33,12 @@ __global__ void __launch_bounds__(LBM_THREADS) lbm_hcz_collide_kernel(
     T* __restrict__ g_out, long long N, LbmHczK k) {
   const long long i = lbm_cell();
   if (i >= N) return;
+  const long long b = blockIdx.y;  // the batch element
+  f = lbm_elem(f, b, 19, N), g = lbm_elem(g, b, 19, N), flags = lbm_elem(flags, b, 1, N);
+  rho = lbm_elem(rho, b, 1, N), vel = lbm_elem(vel, b, 3, N), den = lbm_elem(den, b, 1, N);
+  pres = lbm_elem(pres, b, 1, N), force = lbm_elem(force, b, 3, N);
+  dfai = lbm_elem(dfai, b, 3, N), dprho = lbm_elem(dprho, b, 3, N);
+  f_out = lbm_elem(f_out, b, 19, N), g_out = lbm_elem(g_out, b, 19, N);
   if (flags[i] != LBM_FLUID) {
 #pragma unroll
     for (int q = 0; q < 19; ++q) f_out[q * N + i] = f[q * N + i];
@@ -63,9 +73,9 @@ template <class T>
 static void lbm_hcz_collide_launch(const void* f, const void* g, const uint8_t* flags,
                                    const float* rho, const float* vel, const float* den,
                                    const float* pres, const float* force, const float* dfai,
-                                   const float* dprho, void* f_out, void* g_out, long long N,
-                                   LbmHczK k, cudaStream_t stream) {
-  lbm_hcz_collide_kernel<T><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
+                                   const float* dprho, void* f_out, void* g_out, int B,
+                                   long long N, LbmHczK k, cudaStream_t stream) {
+  lbm_hcz_collide_kernel<T><<<dim3(lbm_blocks(N), B), LBM_THREADS, 0, stream>>>(
       static_cast<const T*>(f), static_cast<const T*>(g), flags, rho, vel, den, pres, force, dfai,
       dprho, static_cast<T*>(f_out), static_cast<T*>(g_out), N, k);
 }
@@ -74,17 +84,18 @@ static void lbm_hcz_collide_launch(const void* f, const void* g, const uint8_t* 
 extern "C" int lbm_hcz_collide(const void* f, const void* g, const uint8_t* flags,
                                const float* rho, const float* vel, const float* den,
                                const float* pres, const float* force, const float* dfai,
-                               const float* dprho, void* f_out, void* g_out, int Z, int Y, int X,
-                               double dx, double dt, double tau_f, double tau_g, int bf16,
+                               const float* dprho, void* f_out, void* g_out, int B, int Z, int Y,
+                               int X, double dx, double dt, double tau_f, double tau_g, int bf16,
                                void* stream) {
+  if (B < 1 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const long long N = static_cast<long long>(Z) * Y * X;
   const LbmHczK k = lbm_hcz_consts(dx, dt, tau_f, tau_g);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     lbm_hcz_collide_launch<__nv_bfloat16>(f, g, flags, rho, vel, den, pres, force, dfai, dprho,
-                                          f_out, g_out, N, k, st);
+                                          f_out, g_out, B, N, k, st);
   else
     lbm_hcz_collide_launch<float>(f, g, flags, rho, vel, den, pres, force, dfai, dprho, f_out,
-                                  g_out, N, k, st);
+                                  g_out, B, N, k, st);
   return static_cast<int>(cudaGetLastError());
 }

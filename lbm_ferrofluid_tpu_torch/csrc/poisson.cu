@@ -122,6 +122,19 @@
 //
 // The pass body, with the trailing stage, is csrc/poisson_pass.cuh; the
 // trailing stage's instances are csrc/poisson_trail.cu.
+//
+// Batch ([B, ...] states on one device): every pass (and the trailing
+// pass, csrc/poisson_trail.cu) runs the B elements in one launch,
+// gridDim.z = B nzb with nzb an element's z chunks (LBM_PASS_ELEM in
+// csrc/poisson_pass.cuh); a block moves h, flags, rhs, out and psi (or
+// H_int, H2) to its element, so its walk, its z wrap and its bits are
+// those of a one-element pass under the same plan.  The plan stays an
+// element's (ops/kernels/poisson.py:plan), B times the blocks.  These are
+// instances of their own (BATCH), at the extended heights of plan's passes
+// only (PP_BATCH_HEIGHTS): moving the pointers in the one-element kernel
+// cost it 0.85 ms a call of 30 sweeps at 256^3 (15.75 -> 16.6 ms), the
+// same registers, so a call of one element keeps its kernel as it was.
+// The slab form takes one element.
 #include "poisson_pass.cuh"
 
 #define PP_MAX_K 4
@@ -133,17 +146,29 @@
 // the extended heights the slab form is built for: those of its passes of
 // k = 1..PP_MAX_K sweeps (ops/kernels/poisson.py:SLAB_EXT_HEIGHTS, slab_plan)
 #define PP_SLAB_HEIGHTS(M) M(9) M(11) M(13) M(15)
+// the extended heights the batch instances are built for: those of plan's
+// passes of k = 1..3 sweeps on 9-row tiles (ops/kernels/poisson.py:
+// BATCH_EXT_HEIGHTS)
+#define PP_BATCH_HEIGHTS(M) M(9) M(11) M(13)
 // (as in poisson_pass.cuh: ops/kernels/poisson.py:SMEM_BLOCK_MAX)
 #define PP_SMEM_MAX 232448
 
-template <class T, bool TAU1, int EY>
+// BATCH: the instance of a batch of more than one element (LBM_PASS_ELEM)
+template <class T, bool TAU1, int EY, bool BATCH>
 __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
     const T* __restrict__ h, const uint8_t* __restrict__ flags, const float* __restrict__ rhs,
     T* __restrict__ out, float* __restrict__ psi_out, int Z, int Y, int X, int k, int LZ,
     float inv_tau, float a) {
-  lbm_poisson_pass_body<T, TAU1, EY, false, false>(h, flags, rhs, out, psi_out, Z, Y, X, k, LZ,
-                                                   inv_tau, a, nullptr, nullptr, 0, nullptr,
-                                                   nullptr, LbmTrail{});
+  if constexpr (BATCH) {
+    LBM_PASS_ELEM(1)
+    lbm_poisson_pass_body<T, TAU1, EY, false, false>(h, flags, rhs, out, psi_out, Z, Y, X, k,
+                                                     LZ, inv_tau, a, nullptr, nullptr, 0,
+                                                     nullptr, nullptr, LbmTrail{}, zblk);
+  } else {
+    lbm_poisson_pass_body<T, TAU1, EY, false, false>(h, flags, rhs, out, psi_out, Z, Y, X, k,
+                                                     LZ, inv_tau, a, nullptr, nullptr, 0,
+                                                     nullptr, nullptr, LbmTrail{}, blockIdx.z);
+  }
 }
 
 template <class T, bool TAU1, int EY>
@@ -154,14 +179,14 @@ __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_slab_kernel(
     T* __restrict__ blo, T* __restrict__ bhi) {
   lbm_poisson_pass_body<T, TAU1, EY, true, false>(h, flags, rhs, out, psi_out, Z, Y, X, k, LZ,
                                                   inv_tau, a, glo, ghi, G, blo, bhi,
-                                                  LbmTrail{});
+                                                  LbmTrail{}, blockIdx.z);
 }
 
-// One instance of the pass kernel: lets it take PP_SMEM_MAX bytes of
-// dynamic shared memory on the current device (one attribute call a
-// device), then launches it (stream non-null) or reports its resident
-// blocks an SM (blocks non-null).
-template <class T, bool TAU1, int EY, bool SLAB>
+// One instance of the pass kernel (SLAB the slab form, BATCH the batch
+// instance): lets it take PP_SMEM_MAX bytes of dynamic shared memory on the
+// current device (one attribute call a device), then launches it (stream
+// non-null) or reports its resident blocks an SM (blocks non-null).
+template <class T, bool TAU1, int EY, bool SLAB, bool BATCH = false>
 static cudaError_t lbm_poisson_pass_instance(const LbmPassArgs& g, cudaStream_t stream,
                                              int* blocks) {
   static bool allowed[PP_MAX_DEVICES] = {};
@@ -169,21 +194,22 @@ static cudaError_t lbm_poisson_pass_instance(const LbmPassArgs& g, cudaStream_t 
   if constexpr (SLAB)
     kernel = reinterpret_cast<const void*>(lbm_poisson_slab_kernel<T, TAU1, EY>);
   else
-    kernel = reinterpret_cast<const void*>(lbm_poisson_pass_kernel<T, TAU1, EY>);
+    kernel = reinterpret_cast<const void*>(lbm_poisson_pass_kernel<T, TAU1, EY, BATCH>);
   cudaError_t err = lbm_pass_allow_smem(kernel, allowed);
   if (err != cudaSuccess) return err;
   const int smem = lbm_poisson_pass_smem(g.k, EY, sizeof(T), false), threads = PP_EX * (EY + 2);
   if (blocks != nullptr)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
   const int TX = lbm_pass_tx(g.k);
-  const dim3 grid((g.X + TX - 1) / TX, (g.Y + g.TY - 1) / g.TY, (g.Z + g.LZ - 1) / g.LZ);
+  const dim3 grid((g.X + TX - 1) / TX, (g.Y + g.TY - 1) / g.TY,
+                  g.B * ((g.Z + g.LZ - 1) / g.LZ));
   if constexpr (SLAB)
     lbm_poisson_slab_kernel<T, TAU1, EY><<<grid, threads, smem, stream>>>(
         static_cast<const T*>(g.h), g.flags, g.rhs, static_cast<T*>(g.out), g.psi_out, g.Z,
         g.Y, g.X, g.k, g.LZ, g.inv_tau, g.a, static_cast<const T*>(g.glo),
         static_cast<const T*>(g.ghi), g.G, static_cast<T*>(g.blo), static_cast<T*>(g.bhi));
   else
-    lbm_poisson_pass_kernel<T, TAU1, EY><<<grid, threads, smem, stream>>>(
+    lbm_poisson_pass_kernel<T, TAU1, EY, BATCH><<<grid, threads, smem, stream>>>(
         static_cast<const T*>(g.h), g.flags, g.rhs, static_cast<T*>(g.out), g.psi_out, g.Z,
         g.Y, g.X, g.k, g.LZ, g.inv_tau, g.a);
   return cudaGetLastError();
@@ -199,6 +225,16 @@ static cudaError_t lbm_poisson_pass_dispatch(const LbmPassArgs& g, cudaStream_t 
   case E:          \
     return lbm_poisson_pass_instance<T, TAU1, E, true>(g, stream, blocks);
       PP_SLAB_HEIGHTS(PP_CASE)
+#undef PP_CASE
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (g.B > 1) {
+    switch (ey) {
+#define PP_CASE(E) \
+  case E:          \
+    return lbm_poisson_pass_instance<T, TAU1, E, false, true>(g, stream, blocks);
+      PP_BATCH_HEIGHTS(PP_CASE)
 #undef PP_CASE
     }
     return cudaErrorInvalidValue;
@@ -223,7 +259,10 @@ static cudaError_t lbm_poisson_pass_run(const LbmPassArgs& g, double tau, cudaSt
 static cudaError_t lbm_poisson_pass_any(const LbmPassArgs& g, double tau, int bf16,
                                         cudaStream_t stream, int* blocks) {
   const bool trail = g.trail != 0;
-  if (g.k < 1 || g.k > PP_MAX_K || g.TY < 1 || g.LZ < 1) return cudaErrorInvalidValue;
+  if (g.k < 1 || g.k > PP_MAX_K || g.TY < 1 || g.LZ < 1 || g.B < 1 ||
+      static_cast<long long>(g.B) * ((g.Z + g.LZ - 1) / g.LZ) > 65535 ||
+      (g.glo != nullptr && g.B != 1))
+    return cudaErrorInvalidValue;
   if (g.glo != nullptr && (g.ghi == nullptr || g.k + trail > g.G || g.G > g.Z))
     return cudaErrorInvalidValue;
   if (lbm_poisson_pass_smem(g.k, g.TY + 2 * (g.k - 1) + 2 * trail, bf16 ? 2 : 4, trail) >
@@ -258,15 +297,16 @@ static cudaError_t lbm_poisson_pass_any(const LbmPassArgs& g, double tau, int bf
 // PP_TRAIL_HEIGHTS, Y, X >= 3, G >= k + 1 on a slab, no bands, and LZ such
 // that the chunk holding plane zlo - 1 (zhi + 1) holds zlo (zhi).
 extern "C" int lbm_poisson_pass(const void* h, const uint8_t* flags, const float* rhs,
-                                void* out, float* psi_out, int Z, int Y, int X, int k, int TY,
-                                int LZ, double tau, int bf16, const void* glo, const void* ghi,
-                                int G, void* blo, void* bhi, int trail, int zlo, int zhi,
-                                double dx, double hx, double hy, double hz, void* stream) {
+                                void* out, float* psi_out, int B, int Z, int Y, int X, int k,
+                                int TY, int LZ, double tau, int bf16, const void* glo,
+                                const void* ghi, int G, void* blo, void* bhi, int trail, int zlo,
+                                int zhi, double dx, double hx, double hy, double hz,
+                                void* stream) {
   const double inv_tau = 1.0 / tau;
   const LbmTrail tr{trail == 2, zlo, zhi, static_cast<float>(-1.0 / (12.0 * dx)),
                     {static_cast<float>(hx), static_cast<float>(hy), static_cast<float>(hz)},
                     {hx != 0.0, hy != 0.0, hz != 0.0}};
-  const LbmPassArgs g{h, flags, rhs, out, psi_out, Z, Y, X, k, TY, LZ,
+  const LbmPassArgs g{h, flags, rhs, out, psi_out, B, Z, Y, X, k, TY, LZ,
                       static_cast<float>(inv_tau), static_cast<float>(1.0 - inv_tau),
                       glo, ghi, glo != nullptr ? G : 0, blo, bhi, trail, tr};
   if (trail && psi_out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -281,7 +321,7 @@ extern "C" int lbm_poisson_pass(const void* h, const uint8_t* flags, const float
 // TY (for reports).
 extern "C" int lbm_poisson_pass_occupancy(int k, int TY, int tau1, int bf16, int trail,
                                           int* blocks) {
-  const LbmPassArgs g{nullptr, nullptr, nullptr, nullptr, nullptr, 3, 3, 3, k, TY, 1, 1.f, 0.f,
-                      nullptr, nullptr, 0, nullptr, nullptr, trail, LbmTrail{0, 1, 1}};
+  const LbmPassArgs g{nullptr, nullptr, nullptr, nullptr, nullptr, 1, 3, 3, 3, k, TY, 1, 1.f,
+                      0.f, nullptr, nullptr, 0, nullptr, nullptr, trail, LbmTrail{0, 1, 1}};
   return static_cast<int>(lbm_poisson_pass_any(g, tau1 ? 1.0 : 0.5, bf16, nullptr, blocks));
 }

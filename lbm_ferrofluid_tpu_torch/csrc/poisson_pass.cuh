@@ -73,13 +73,15 @@ struct LbmPassInput {
 // -G..-1 from glo and Z..Z + G - 1 from ghi, no wrap, the bands written to
 // blo and bhi), its own kernel so that the one-device kernel's code is as
 // it was.  TRAIL: the trailing stage writes H_int or H2 (tr) to psi_out in
-// place of psi, on the geometry of a pass of k + 1 sweeps.
+// place of psi, on the geometry of a pass of k + 1 sweeps.  zblk is the
+// block's z chunk (blockIdx.z, or its part of it where the launch folds a
+// batch into gridDim.z: LBM_PASS_ELEM).
 template <class T, bool TAU1, int EY, bool SLAB, bool TRAIL>
 __device__ __forceinline__ void lbm_poisson_pass_body(
     const T* __restrict__ h, const uint8_t* __restrict__ flags, const float* __restrict__ rhs,
     T* __restrict__ out, float* __restrict__ psi_out, int Z, int Y, int X, int k, int LZ,
     float inv_tau, float a, const T* __restrict__ glo, const T* __restrict__ ghi, int G,
-    T* __restrict__ blo, T* __restrict__ bhi, const LbmTrail& tr) {
+    T* __restrict__ blo, T* __restrict__ bhi, const LbmTrail& tr, int zblk) {
   // 4 elements of padding (edge lanes read one element before and after a
   // plane), the input plane (19 channels), the k - 1 stage rings, 4 more,
   // all in T; then, in float, the (k + 1)-plane rhs ring, the wrapped grid
@@ -103,7 +105,7 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
   uint8_t* obr = reinterpret_cast<uint8_t*>(psr + 3 * P);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-  const int z0 = blockIdx.z * LZ, z1 = min(z0 + LZ, Z);
+  const int z0 = zblk * LZ, z1 = min(z0 + LZ, Z);
   const long long XY = static_cast<long long>(X) * Y, N = XY * Z, GN = XY * G;
   if (warp == 0) colx[lane] = lbm_mod(x0 - HX + lane, X);
   if (lane == 0) rowy[warp] = lbm_mod(y0 - KG + warp, Y) * X;  // a warp per row -1..EY
@@ -344,6 +346,21 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
   }
 }
 
+// A one-device pass on a batch: B elements of nzb z chunks each on
+// gridDim.z.  Declares zblk, the block's z chunk, and moves h, flags, rhs,
+// out and psi_out (PC channels: psi or H2 1, H_int 3) to the block's
+// element (a macro: the kernels' pointer parameters are __restrict__).
+#define LBM_PASS_ELEM(PC)                                                                    \
+  long long pass_b;                                                                          \
+  int zblk;                                                                                  \
+  lbm_fold_z((Z + LZ - 1) / LZ, pass_b, zblk);                                               \
+  {                                                                                          \
+    const long long pass_n = static_cast<long long>(Z) * Y * X;                              \
+    h = lbm_elem(h, pass_b, 19, pass_n), flags = lbm_elem(flags, pass_b, 1, pass_n);         \
+    rhs = lbm_elem(rhs, pass_b, 1, pass_n), out = lbm_elem(out, pass_b, 19, pass_n);         \
+    psi_out = lbm_elem(psi_out, pass_b, (PC), pass_n);                                       \
+  }
+
 // Shared memory of a pass block in bytes with h stored in elements of es
 // bytes, with the trailing stage's psi and flags ring where trail is set
 // (ops/kernels/poisson.py:smem_bytes counts the same), and the most a block
@@ -360,7 +377,7 @@ struct LbmPassArgs {
   const float* rhs;
   void* out;
   float* psi_out;  // psi, or with trail the trailing stage's output
-  int Z, Y, X, k, TY, LZ;
+  int B, Z, Y, X, k, TY, LZ;  // B: batch elements (one device only)
   float inv_tau, a;
   const void *glo, *ghi;  // a slab's bands (null on one device)
   int G;

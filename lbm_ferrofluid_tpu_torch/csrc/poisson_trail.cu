@@ -10,22 +10,34 @@
 #define PP_TRAIL_HEIGHTS(M) M(11) M(13) M(15)
 #define PP_TRAIL_MAX_K 3
 
-// The last pass with the trailing stage, on one device or (SLAB) on a slab.
-template <class T, bool TAU1, int EY, bool SLAB>
+// The last pass with the trailing stage, on one device or (SLAB) on a slab;
+// BATCH: on one device, a batch of more than one element (its own
+// instance, as csrc/poisson.cu's batch instances of the pass).
+template <class T, bool TAU1, int EY, bool SLAB, bool BATCH>
 __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_trail_kernel(
     const T* __restrict__ h, const uint8_t* __restrict__ flags, const float* __restrict__ rhs,
-    T* __restrict__ out, float* __restrict__ hint, int Z, int Y, int X, int k, int LZ,
+    T* __restrict__ out, float* __restrict__ psi_out, int Z, int Y, int X, int k, int LZ,
     float inv_tau, float a, const T* __restrict__ glo, const T* __restrict__ ghi, int G,
     LbmTrail tr) {
-  lbm_poisson_pass_body<T, TAU1, EY, SLAB, true>(h, flags, rhs, out, hint, Z, Y, X, k, LZ,
-                                                 inv_tau, a, glo, ghi, G, nullptr, nullptr, tr);
+  if constexpr (BATCH) {
+    // the block's batch element (H2 one channel, H_int three)
+    LBM_PASS_ELEM(tr.h2 ? 1 : 3)
+    lbm_poisson_pass_body<T, TAU1, EY, SLAB, true>(h, flags, rhs, out, psi_out, Z, Y, X, k, LZ,
+                                                   inv_tau, a, glo, ghi, G, nullptr, nullptr,
+                                                   tr, zblk);
+  } else {
+    lbm_poisson_pass_body<T, TAU1, EY, SLAB, true>(h, flags, rhs, out, psi_out, Z, Y, X, k, LZ,
+                                                   inv_tau, a, glo, ghi, G, nullptr, nullptr,
+                                                   tr, blockIdx.z);
+  }
 }
 
-template <class T, bool TAU1, int EY, bool SLAB>
+template <class T, bool TAU1, int EY, bool SLAB, bool BATCH>
 static cudaError_t lbm_poisson_trail_instance(const LbmPassArgs& g, cudaStream_t stream,
                                               int* blocks) {
   static bool allowed[PP_MAX_DEVICES] = {};
-  const void* kernel = reinterpret_cast<const void*>(lbm_poisson_trail_kernel<T, TAU1, EY, SLAB>);
+  const void* kernel =
+      reinterpret_cast<const void*>(lbm_poisson_trail_kernel<T, TAU1, EY, SLAB, BATCH>);
   cudaError_t err = lbm_pass_allow_smem(kernel, allowed);
   if (err != cudaSuccess) return err;
   const int smem = lbm_poisson_pass_smem(g.k, EY, sizeof(T), true), threads = PP_EX * (EY + 2);
@@ -34,21 +46,22 @@ static cudaError_t lbm_poisson_trail_instance(const LbmPassArgs& g, cudaStream_t
   // the last column and row go with the tile before them (tiles over X - 1
   // and Y - 1 cells)
   const int TX = lbm_pass_tx(g.k + 1);
-  const dim3 grid((g.X - 1 + TX - 1) / TX, (g.Y - 1 + g.TY - 1) / g.TY, (g.Z + g.LZ - 1) / g.LZ);
-  lbm_poisson_trail_kernel<T, TAU1, EY, SLAB><<<grid, threads, smem, stream>>>(
+  const dim3 grid((g.X - 1 + TX - 1) / TX, (g.Y - 1 + g.TY - 1) / g.TY,
+                  g.B * ((g.Z + g.LZ - 1) / g.LZ));
+  lbm_poisson_trail_kernel<T, TAU1, EY, SLAB, BATCH><<<grid, threads, smem, stream>>>(
       static_cast<const T*>(g.h), g.flags, g.rhs, static_cast<T*>(g.out), g.psi_out, g.Z, g.Y,
       g.X, g.k, g.LZ, g.inv_tau, g.a, static_cast<const T*>(g.glo),
       static_cast<const T*>(g.ghi), g.G, g.tr);
   return cudaGetLastError();
 }
 
-template <class T, bool TAU1, bool SLAB>
+template <class T, bool TAU1, bool SLAB, bool BATCH>
 static cudaError_t lbm_poisson_trail_dispatch(const LbmPassArgs& g, cudaStream_t stream,
                                               int* blocks) {
   switch (g.TY + 2 * g.k) {
 #define PP_CASE(E) \
   case E:          \
-    return lbm_poisson_trail_instance<T, TAU1, E, SLAB>(g, stream, blocks);
+    return lbm_poisson_trail_instance<T, TAU1, E, SLAB, BATCH>(g, stream, blocks);
     PP_TRAIL_HEIGHTS(PP_CASE)
 #undef PP_CASE
   }
@@ -58,8 +71,9 @@ static cudaError_t lbm_poisson_trail_dispatch(const LbmPassArgs& g, cudaStream_t
 template <class T, bool TAU1>
 static cudaError_t lbm_poisson_trail_form(const LbmPassArgs& g, cudaStream_t stream,
                                           int* blocks) {
-  return g.glo != nullptr ? lbm_poisson_trail_dispatch<T, TAU1, true>(g, stream, blocks)
-                          : lbm_poisson_trail_dispatch<T, TAU1, false>(g, stream, blocks);
+  if (g.glo != nullptr) return lbm_poisson_trail_dispatch<T, TAU1, true, false>(g, stream, blocks);
+  return g.B > 1 ? lbm_poisson_trail_dispatch<T, TAU1, false, true>(g, stream, blocks)
+                 : lbm_poisson_trail_dispatch<T, TAU1, false, false>(g, stream, blocks);
 }
 
 cudaError_t lbm_poisson_trail_run(const LbmPassArgs& g, double tau, int bf16,

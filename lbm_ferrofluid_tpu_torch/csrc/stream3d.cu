@@ -30,6 +30,13 @@
 // is the same, so a slab's outputs equal those of the same planes of the
 // whole domain bit for bit.  Their bound adds the ghost planes' 2 x 5 values
 // a plane cell.
+//
+// Batch ([B, ...] states on one device): one launch for the B elements, a
+// row of lbm_blocks(N) blocks an element on gridDim.y.  Each block moves
+// its fields' pointers to its element (common.cuh:lbm_elem) before it
+// pulls, so the periodic wrap stays within the element and a batched
+// call's bits are those of B calls on one element each.  The bound is B
+// times an element's.  The slab forms take one element.
 #include "common.cuh"
 
 // The 19 pulled and bounced values of cell i at (z, y, x): across the
@@ -55,6 +62,9 @@ __global__ void lbm_stream_moments3d_kernel(const T* __restrict__ f,
   const long long N = static_cast<long long>(Z) * Y * X;
   const long long i = lbm_cell();
   if (i >= N) return;
+  const long long b = blockIdx.y;  // the batch element
+  f = lbm_elem(f, b, 19, N), flags = lbm_elem(flags, b, 1, N);
+  f_post = lbm_elem(f_post, b, 19, N), m0 = lbm_elem(m0, b, 1, N), m1 = lbm_elem(m1, b, 3, N);
   const int x = static_cast<int>(i % X);
   const int y = static_cast<int>((i / X) % Y);
   const int z = static_cast<int>(i / (static_cast<long long>(X) * Y));
@@ -81,6 +91,11 @@ __global__ void lbm_stream_macro3d_kernel(const T* __restrict__ f,
   const long long N = static_cast<long long>(Z) * Y * X;
   const long long i = lbm_cell();
   if (i >= N) return;
+  const long long b = blockIdx.y;  // the batch element
+  f = lbm_elem(f, b, 19, N), flags = lbm_elem(flags, b, 1, N);
+  rho_old = lbm_elem(rho_old, b, 1, N), vel_old = lbm_elem(vel_old, b, 3, N);
+  f_post = lbm_elem(f_post, b, 19, N), rho = lbm_elem(rho, b, 1, N);
+  vel = lbm_elem(vel, b, 3, N), den = lbm_elem(den, b, 1, N);
   const int x = static_cast<int>(i % X);
   const int y = static_cast<int>((i / X) % Y);
   const int z = static_cast<int>(i / (static_cast<long long>(X) * Y));
@@ -101,15 +116,15 @@ __global__ void lbm_stream_macro3d_kernel(const T* __restrict__ f,
 
 template <class T>
 static void lbm_stream_moments3d_launch(const void* f, const uint8_t* flags, void* f_post,
-                                        float* m0, float* m1, int Z, int Y, int X,
+                                        float* m0, float* m1, int B, int Z, int Y, int X,
                                         const void* lo, const void* hi, cudaStream_t stream) {
   const long long N = static_cast<long long>(Z) * Y * X;
   const T *tlo = static_cast<const T*>(lo), *thi = static_cast<const T*>(hi);
   if (lo != nullptr)
-    lbm_stream_moments3d_kernel<T, true><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
+    lbm_stream_moments3d_kernel<T, true><<<dim3(lbm_blocks(N), B), LBM_THREADS, 0, stream>>>(
         static_cast<const T*>(f), flags, static_cast<T*>(f_post), m0, m1, Z, Y, X, tlo, thi);
   else
-    lbm_stream_moments3d_kernel<T, false><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
+    lbm_stream_moments3d_kernel<T, false><<<dim3(lbm_blocks(N), B), LBM_THREADS, 0, stream>>>(
         static_cast<const T*>(f), flags, static_cast<T*>(f_post), m0, m1, Z, Y, X, tlo, thi);
 }
 
@@ -117,30 +132,32 @@ static void lbm_stream_moments3d_launch(const void* f, const uint8_t* flags, voi
 // (5 channels of one plane each, f's type) give the slab form, null the
 // whole domain's
 extern "C" int lbm_stream_moments3d(const void* f, const uint8_t* flags, void* f_post, float* m0,
-                                    float* m1, int Z, int Y, int X, int bf16, const void* lo,
-                                    const void* hi, void* stream) {
+                                    float* m1, int B, int Z, int Y, int X, int bf16,
+                                    const void* lo, const void* hi, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((lo == nullptr) != (hi == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if ((lo == nullptr) != (hi == nullptr) || B < 1 || B > 65535 || (lo != nullptr && B != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
-    lbm_stream_moments3d_launch<__nv_bfloat16>(f, flags, f_post, m0, m1, Z, Y, X, lo, hi, st);
+    lbm_stream_moments3d_launch<__nv_bfloat16>(f, flags, f_post, m0, m1, B, Z, Y, X, lo, hi, st);
   else
-    lbm_stream_moments3d_launch<float>(f, flags, f_post, m0, m1, Z, Y, X, lo, hi, st);
+    lbm_stream_moments3d_launch<float>(f, flags, f_post, m0, m1, B, Z, Y, X, lo, hi, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class T>
 static void lbm_stream_macro3d_launch(const void* f, const uint8_t* flags, const float* rho_old,
                                       const float* vel_old, void* f_post, float* rho, float* vel,
-                                      float* den, int Z, int Y, int X, double c, LbmGas gas,
-                                      const void* lo, const void* hi, cudaStream_t stream) {
+                                      float* den, int B, int Z, int Y, int X, double c,
+                                      LbmGas gas, const void* lo, const void* hi,
+                                      cudaStream_t stream) {
   const long long N = static_cast<long long>(Z) * Y * X;
   const T *tlo = static_cast<const T*>(lo), *thi = static_cast<const T*>(hi);
   if (lo != nullptr)
-    lbm_stream_macro3d_kernel<T, true><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
+    lbm_stream_macro3d_kernel<T, true><<<dim3(lbm_blocks(N), B), LBM_THREADS, 0, stream>>>(
         static_cast<const T*>(f), flags, rho_old, vel_old, static_cast<T*>(f_post), rho, vel,
         den, Z, Y, X, c, gas, tlo, thi);
   else
-    lbm_stream_macro3d_kernel<T, false><<<lbm_blocks(N), LBM_THREADS, 0, stream>>>(
+    lbm_stream_macro3d_kernel<T, false><<<dim3(lbm_blocks(N), B), LBM_THREADS, 0, stream>>>(
         static_cast<const T*>(f), flags, rho_old, vel_old, static_cast<T*>(f_post), rho, vel,
         den, Z, Y, X, c, gas, tlo, thi);
 }
@@ -150,17 +167,19 @@ static void lbm_stream_macro3d_launch(const void* f, const uint8_t* flags, const
 // whole domain's
 extern "C" int lbm_stream_macro3d(const void* f, const uint8_t* flags, const float* rho_old,
                                   const float* vel_old, void* f_post, float* rho, float* vel,
-                                  float* den, int Z, int Y, int X, double c, double rho_gas,
-                                  double rho_fluid, double den_gas, double den_fluid, int bf16,
-                                  const void* lo, const void* hi, void* stream) {
+                                  float* den, int B, int Z, int Y, int X, double c,
+                                  double rho_gas, double rho_fluid, double den_gas,
+                                  double den_fluid, int bf16, const void* lo, const void* hi,
+                                  void* stream) {
   const LbmGas gas = lbm_gas(rho_gas, rho_fluid, den_gas, den_fluid);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((lo == nullptr) != (hi == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if ((lo == nullptr) != (hi == nullptr) || B < 1 || B > 65535 || (lo != nullptr && B != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
     lbm_stream_macro3d_launch<__nv_bfloat16>(f, flags, rho_old, vel_old, f_post, rho, vel, den,
-                                             Z, Y, X, c, gas, lo, hi, st);
+                                             B, Z, Y, X, c, gas, lo, hi, st);
   else
-    lbm_stream_macro3d_launch<float>(f, flags, rho_old, vel_old, f_post, rho, vel, den, Z, Y, X,
-                                     c, gas, lo, hi, st);
+    lbm_stream_macro3d_launch<float>(f, flags, rho_old, vel_old, f_post, rho, vel, den, B, Z, Y,
+                                     X, c, gas, lo, hi, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -76,8 +76,16 @@ apply.  An out-of-plane field's Poisson source reads phi a plane across
 the slab's faces (``step3d.poisson_rhs_sharded``).  Priming and the step
 run the same gates (:func:`_slab_gates`); ``phys_extent`` and 2D raise
 ``NotImplementedError`` naming their ROADMAP A12 slice.  On a batch mesh
-(``nz == 1``) each rank steps its own batch element on the single-device
+(``nz == 1``) each rank steps its own batch elements on the single-device
 route its state selects.
+
+A batch of more than one element ([B, ...]; a batch mesh's rank part too)
+steps as the JAX package steps it: :func:`prime_premac` returns it as it
+is, so in 3D it steps un-carried on its 19-channel h (B4, B11b's passes
+with B7's trailing stage, B2, B6, B5), each kernel one launch for the whole
+batch; in 2D on the plain ops.  The scalar carry and the 6-leaf premac at
+B > 1 (B1 and B3 have no batch form, ROADMAP A12 slice 8) and the padded
+layout at B > 1 (slice 6) raise.
 
 Every entry point runs on the card unless ``device="cpu"`` is passed, and
 the kernels run unless ``plain=True`` is passed, which selects their plain
@@ -234,6 +242,13 @@ def _check_supported(params: SimulationParams, state) -> None:
     check_supported(params, state.f, padded=True)
     if params.h_ext_axis not in range(params.dim):
         raise ValueError(f"h_ext_axis={params.h_ext_axis} is not an axis")
+    if params.dim == 3 and state.f.shape[0] != 1 and (
+            state.h.shape[1] == 2 or (state.premac is not None and len(state.premac) == 6)):
+        raise NotImplementedError(
+            f"a batch of {state.f.shape[0]} with the scalar carry or the 6-leaf capillogue "
+            "premac is not ported (ROADMAP A12 slice 8: B1's and B3's batch forms); a batch "
+            "steps un-carried on the 19-channel h, as the JAX package steps it (prime_premac "
+            "leaves a batch as it is)")
     if params.phys_extent is None:
         return
     if params.dim != 3 or params.gravity_axis != 2 or params.h_ext_axis != 2:
@@ -336,8 +351,11 @@ def _scalar_convert(params: SimulationParams, state):
     cmask from a canonical channel h (zeros at init, post-collision h of any
     tau == 1 run) when the collapse applies, else the channel h as it is
     (JAX ``_prime_steady`` :926-929).  The carry is float32 whatever
-    ``h_dtype`` stores the channel h in (JAX ``_scalar_convert`` :889-891)."""
-    if state.h.shape[1] == 2 or not _scalar_physics_ok(params, state.magnetic_flags):
+    ``h_dtype`` stores the channel h in (JAX ``_scalar_convert`` :889-891).
+    A batch of more than one keeps its channel h, in 2D too (JAX
+    ``_scalar_carry_ok`` :832-842)."""
+    if (state.h.shape[1] == 2 or state.h.shape[0] != 1
+            or not _scalar_physics_ok(params, state.magnetic_flags)):
         return state.h, state.cmask
     s = scalar_from_h(state.h, state.magnetic_flags)
     sp = s_prev_from_h(state.h, state.magnetic_flags)
@@ -369,8 +387,7 @@ def _slab_gates(params: SimulationParams, state, mesh, plain, primed):
     if params.phys_extent is not None:
         raise step3d.unported("phys_extent (the padded layout)", 4)
     if state.f.shape[0] != 1:
-        raise ValueError("a z-slab mesh steps one batch element a rank: shard_state the "
-                         "state on a mesh whose batch axis has one rank per element")
+        raise step3d.unported(f"{state.f.shape[0]} batch elements a rank", 7)
     if shape[2] // mesh.nz < 4:
         raise ValueError(f"a slab of {shape[2] // mesh.nz} planes: the slab forms need 4 or "
                          "more planes a rank; use fewer ranks along z")
@@ -436,7 +453,10 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
     carry is the only priming (JAX :969-977): h converts where the
     collapse applies and nothing else changes.  With ``mesh`` the state is
     this rank's part (module docstring); on a z-slab mesh priming runs the
-    step's gates first."""
+    step's gates first.  A batch of more than one element (a rank's part
+    too) is returned as it is, in 2D and 3D, as the JAX package returns it
+    (``fused_step_supported`` and the scalar carry need B == 1): it steps
+    un-carried on its channel h."""
     if mesh is not None:
         from ..parallel.step3d import dp_dispatch
 
@@ -457,6 +477,8 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
         h, cmask = _scalar_convert(params, state)
         return state.replace(h=h, cmask=cmask)
     validate_mag_shell(params, state.magnetic_flags)
+    if state.f.shape[0] != 1:
+        return state
     prologue = lbm_prologue_plain if plain else lbm_prologue
     premac = prologue(
         state.f, state.g, state.flags, state.rho, state.vel,

@@ -78,7 +78,10 @@ def check_supported(params: SimulationParams, f: torch.Tensor, hcz: bool = True,
     distribution count is not ``params.dim``'s lattice, KBC off D2Q9 (the
     JAX package's own ``ValueError``), and (for the HCZ family, ``hcz``)
     the storage dtypes it has no route for and, unless the caller steps
-    ``padded`` layouts (the ferrofluid step), ``phys_extent``."""
+    ``padded`` layouts (the ferrofluid step), ``phys_extent``; a padded
+    layout at a batch of more than one (ROADMAP A12 slice 6).  Any other
+    batch [B, ...] steps on one device, the B elements in each kernel's
+    one launch."""
     lat = params.lattice
     if f.ndim - 2 != params.dim or f.shape[1] != lat.q:
         raise ValueError(
@@ -87,12 +90,6 @@ def check_supported(params: SimulationParams, f: torch.Tensor, hcz: bool = True,
         )
     if KBCType.is_KBC(params.kbc_type) and lat.q != 9:
         raise ValueError("KBC moment split is defined for D2Q9 only")
-    if f.shape[0] != 1:
-        raise NotImplementedError(
-            f"a batch of {f.shape[0]} on one device is not ported (ROADMAP A12); run a batch "
-            "through a mesh with a batch axis (parallel.make_mesh(('batch', 'z'), (B, 1)), "
-            "shard_state, then the entry points with mesh=): one element a rank"
-        )
     if not hcz:
         return
     storage_dtype(params.fg_dtype)
@@ -102,6 +99,13 @@ def check_supported(params: SimulationParams, f: torch.Tensor, hcz: bool = True,
             "phys_extent: only the ferrofluid step steps a padded transposed layout; "
             "the JAX package's hcz_step ignores phys_extent and would tie its ring "
             "fixes to the padded array faces, so step the physical grid instead"
+        )
+    if params.phys_extent is not None and f.shape[0] != 1:
+        raise NotImplementedError(
+            f"phys_extent (the padded layout) at a batch of {f.shape[0]} is not ported "
+            "(ROADMAP A12 slice 6: the padded layout at a batch of more than one; its B1 psi "
+            "form and B3 box form step one element): step each element on its own, or a "
+            "batch of the native layout"
         )
     if params.gravity_axis not in range(params.dim):
         raise ValueError(f"gravity_axis={params.gravity_axis} is not an axis")
@@ -249,6 +253,8 @@ def _hcz_step_slab(params: SimulationParams, state, mesh, plain):
     shape = step3d.global_shape(state.f.shape, mesh)
     if params.dim != 3:
         raise step3d.unported("a 2D state", 4)
+    if state.f.shape[0] != 1:
+        raise step3d.unported(f"{state.f.shape[0]} batch elements a rank", 7)
     if shape[2] // mesh.nz < 4:
         raise ValueError(f"a slab of {shape[2] // mesh.nz} planes: the slab forms need 4 or "
                          "more planes a rank; use fewer ranks along z")
@@ -282,9 +288,10 @@ def hcz_step(params: SimulationParams, state: HCZState, *, device=None,
              plain=False, mesh=None) -> HCZState:
     """One HCZ step.  ``plain=True`` runs the kernels' plain PyTorch
     versions (on any device) instead of the kernels; a 2D step runs the
-    plain ops and launches no kernel.  With ``mesh`` the state is this
+    plain ops and launches no kernel.  A batch [B, ...] steps in one launch
+    a kernel (B8b, B8a, B2, B6, B9).  With ``mesh`` the state is this
     rank's part (``parallel/sharding.py``): on a batch mesh (nz == 1) each
-    rank steps its own batch element; on a z-slab mesh (``nz > 1``, or
+    rank steps its own batch elements; on a z-slab mesh (``nz > 1``, or
     ``slab=True``) a 3D state steps on the kernels' slab forms
     (:func:`_hcz_step_slab`), bit for bit to one device."""
     if mesh is not None:

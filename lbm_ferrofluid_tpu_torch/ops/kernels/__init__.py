@@ -54,6 +54,7 @@ __all__ = [
     "PATHS",
     "BF16_FORMS",
     "SLAB_FORMS",
+    "BATCH_FORMS",
     "SLAB_TPU_KERNELS",
     "launch_counts",
     "reset_launch_counts",
@@ -146,6 +147,14 @@ PATHS = {
     "ferrofluid_padded_uncarried": ("B4", "B1", "B2", "B5"),
 }
 
+#: the kernels with a batch form: one launch steps every element of a
+#: [B, ...] batch (``launches_batch`` counts the launches at B > 1).  The
+#: routes a batch takes on one device launch only these: the un-carried
+#: ferrofluid step on the 19-channel h (B4, B11b with B7's trailing stage,
+#: B2, B6, B5), the HCZ step (B8b, B8a, B2, B6, B9) and 3D single phase
+#: (B8a); B1, B3, B10a and B10b raise on a batch (ROADMAP A12 slice 8)
+BATCH_FORMS = ("B2", "B4", "B5", "B6", "B8a", "B8b", "B9", "B11b")
+
 #: the kernels with a named form and its name (``launches_<name>`` counts
 #: the launches of that form): B1's psi emission, B3's box form, B11b's
 #: last pass with B7's trailing stage (``emit="hint"`` or ``"h2"``)
@@ -191,15 +200,21 @@ def reset_launch_counts() -> None:
             setattr(k.wrapper, f"launches_{FORMS[kid]}", 0)
         if kid in SLAB_FORMS:
             k.wrapper.launches_slab = 0
+        if kid in BATCH_FORMS:
+            k.wrapper.launches_batch = 0
 
 
-def launch_counts(ids=None, bf16=False, form=False, slab=False) -> dict[str, int]:
+def launch_counts(ids=None, bf16=False, form=False, slab=False,
+                  batch=False) -> dict[str, int]:
     """Launches per kernel id since the last reset (all ids, or ``ids``);
     with ``bf16`` only those of the bfloat16-storage forms, with ``form``
     only those of each kernel's named form (``FORMS``; 0 for the others),
     with ``slab`` only those of the slab forms (``SLAB_FORMS``; 0 for the
-    others)."""
+    others), with ``batch`` only those at a batch of more than one element
+    (``BATCH_FORMS``; 0 for the others)."""
     def attr(kid):
+        if batch:
+            return "launches_batch"
         if slab:
             return "launches_slab"
         if form:

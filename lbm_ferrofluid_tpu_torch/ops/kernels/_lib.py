@@ -32,8 +32,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "call", "ptr", "stream_of", "check_cuda", "check_no_grad", "count_launch",
-           "STORAGE", "elem_bytes"]
+__all__ = ["build", "call", "ptr", "stream_of", "check_cuda", "check_batch", "check_unbatched",
+           "check_no_grad",
+           "count_launch", "STORAGE", "elem_bytes", "MAX_BATCH"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -156,6 +157,36 @@ def check_cuda(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
+#: batch elements a launch takes: its grid holds a copy of the one-element
+#: grid an element on gridDim.y (at most 65535), or on gridDim.z with the
+#: element's blocks along z (see :func:`check_batch`)
+MAX_BATCH = 65535
+
+
+def check_batch(name: str, B: int, slab: bool = False, zblocks: int = 1) -> None:
+    """Raise unless a launch takes a batch of ``B`` elements: 1 to
+    ``MAX_BATCH``, ``B * zblocks`` within gridDim.z where the kernel folds
+    the batch into it beside its ``zblocks`` blocks along z, and 1 for a
+    slab form (one element a rank, ROADMAP A12)."""
+    if slab and B != 1:
+        raise NotImplementedError(
+            f"{name}: the slab forms step one batch element a rank, got {B} (ROADMAP A12 "
+            "slice 7: the slab forms at more than one batch element a rank)")
+    if not 1 <= B * zblocks <= MAX_BATCH:
+        raise ValueError(f"{name}: a launch takes 1 to {MAX_BATCH // zblocks} batch elements "
+                         f"here ({zblocks} blocks along z an element), got {B}")
+
+
+def check_unbatched(name: str, B: int) -> None:
+    """Raise for a batch of more than one element at a kernel without a batch
+    form (B1, B3, B10a, B10b: no batched route of the port launches them)."""
+    if B != 1:
+        raise NotImplementedError(
+            f"{name}: a batch of {B} elements is not ported (ROADMAP A12 slice 8: the batch "
+            "forms of B1, B3, B10a and B10b); a batch steps on the routes of B2, B4, B5, B6, "
+            "B8a, B8b, B9 and B11b")
+
+
 def check_slab_clamp(name: str, clamp, Z: int, min_planes: int) -> None:
     """Raise unless ``clamp`` is a slab form's z clamp on a slab of ``Z``
     planes: -1 or 1 below, Z or Z-2 above, ``min_planes`` or more planes."""
@@ -179,15 +210,18 @@ def check_no_grad(name: str, *tensors) -> None:
         )
 
 
-def count_launch(wrapper, bf16: bool, form: str | None = None) -> None:
+def count_launch(wrapper, bf16: bool, form: str | None = None, batch: int = 1) -> None:
     """One more launch of ``wrapper``'s kernel: ``wrapper.launches`` counts
     every launch, ``wrapper.launches_bf16`` those of its bfloat16-storage
-    instance, and ``wrapper.launches_<form>`` those of a named form (B1's
+    instance, ``wrapper.launches_<form>`` those of a named form (B1's
     ``psi``, B3's ``box``; a tuple names several, as B11b's ``slab`` and
-    ``emit``)."""
+    ``emit``), and ``wrapper.launches_batch`` those of a batch of more than
+    one element (``batch``), one launch for the whole batch."""
     wrapper.launches += 1
     if bf16:
         wrapper.launches_bf16 += 1
+    if batch > 1:
+        wrapper.launches_batch += 1
     for name in (form,) if isinstance(form, str) else form or ():
         setattr(wrapper, f"launches_{name}", getattr(wrapper, f"launches_{name}") + 1)
 

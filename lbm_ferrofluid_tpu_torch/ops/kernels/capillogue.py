@@ -69,8 +69,8 @@ from ..collide import MU0, hcz_capillary, hcz_collide
 from ..magnetic import poisson_rhs_scaled
 from ..moments import phi_from_density
 from ..stream import bounce_back, stream
-from ._lib import (STORAGE, call, check_cuda, check_no_grad, check_slab_clamp, count_launch,
-                   elem_bytes, ptr, stream_of)
+from ._lib import (STORAGE, call, check_cuda, check_no_grad, check_slab_clamp, check_unbatched,
+                   count_launch, elem_bytes, ptr, stream_of)
 from .fused_step import cost as prologue_cost
 from .fused_step import extend_ghosts, lbm_prologue_plain, repeat_ends, stream_macro_launch
 
@@ -276,6 +276,7 @@ def lbm_capillogue(f, g, flags, rho_pre, density_pre, pressure_old, rho_ca, H2,
     check_no_grad("lbm_capillogue", f, g, rho_pre, density_pre, pressure_old, rho_ca, H2,
                   g_sum, g_mom, vel_old)
     B, Q, Z, Y, X = f.shape
+    check_unbatched("lbm_capillogue", B)
     scalar = (1, 1, Z, Y, X)
     for name, t in (("rho_pre", rho_pre), ("density_pre", density_pre),
                     ("pressure_old", pressure_old), ("rho_ca", rho_ca), ("H2", H2),

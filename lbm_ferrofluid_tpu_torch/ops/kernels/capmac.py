@@ -18,7 +18,9 @@ interior cell.  The plain version is ``ops/collide.py:hcz_capillary``.
 
 Bound on an H100: bytes (see :func:`cost`), about 69 B per cell without
 ``H2`` and 77 B with it, plus 16 B per fluid cell (g_sum, g_mom) and 12 B
-per other cell (vel_old).
+per other cell (vel_old).  A batch ``[B, ...]`` is one launch (the batch
+folded into the grid's z, the plan an element's), each element's bits
+those of a call on it alone; the slab form takes one element.
 
 The slab form (``lap=``, ``ghosts=``, ``clamp=``: the TPU kernel's slab
 mode, for a z-slab of a domain decomposed along z over ranks,
@@ -43,7 +45,8 @@ import torch
 
 from ...utils.types import CellType
 from ..collide import MU0, hcz_capillary
-from ._lib import call, check_cuda, check_no_grad, check_slab_clamp, count_launch, ptr, stream_of
+from ._lib import (call, check_batch, check_cuda, check_no_grad, check_slab_clamp, count_launch,
+                   ptr, stream_of)
 from .capillogue import cap_extend
 
 __all__ = [
@@ -118,13 +121,14 @@ def cost(rho_pre, density_pre, pressure, rho_ca, H2, phi, flags, g_sum, g_mom,
     (13 channels) written.  Flops: ~16 per cell for fai, prho and the
     density map, 30 per interior cell for the Laplacian, 60 per cell for
     each of the 3 (or 4, with chi's ~10 more) gradient fields, 12 (18)
-    for the force and ~24 per fluid cell for the recovery."""
+    for the force and ~24 per fluid cell for the recovery.  Each of the B
+    elements of a batch counts."""
     n = flags.numel()
-    f = flags[0, 0]
+    f = flags[:, 0]
     interior, ring, corner = _read_masks(flags, clamp)
     fluid = f == int(CellType.FLUID)
     obs = f == int(CellType.OBSTACLE)
-    n_int, n_fluid = int(interior.sum()), int(fluid.sum())
+    n_int, n_fluid = int(interior.sum()) * flags.shape[0], int(fluid.sum())
     n_pres = n_int + int((ring & ~fluid).sum())
     nbytes = 4 * (2 * n_int + n_pres) + n * (4 + 1 + 13 * 4)
     nbytes += 16 * n_fluid + 12 * (n - n_fluid)
@@ -159,7 +163,7 @@ def cost_slab(rho_pre, density_pre, pressure, rho_ca, H2, phi, flags, g_sum, g_m
     bundles once more, no Laplacian's flops."""
     nbytes, flops = cost(rho_pre, density_pre, pressure, rho_ca, H2, phi, flags, g_sum,
                          g_mom, vel_old, clamp)
-    n_int = int(_read_masks(flags, clamp)[0].sum())
+    n_int = int(_read_masks(flags, clamp)[0].sum()) * flags.shape[0]
     return (nbytes + 4 * flags.numel() + sum(t.numel() * 4 for t in ghosts),
             flops - 30 * n_int)
 
@@ -220,9 +224,10 @@ def hcz_capillary_gradmac(rho_pre, density_pre, pressure, rho_ca, H2, phi, flags
     contact-angle-rewritten rho, ``H2``/``phi`` the Kelvin field and order
     parameter (both None: no Kelvin term), ``g_sum``/``g_mom`` the streamed
     moments of g, ``vel_old`` the velocity kept at non-fluid cells and
-    ``gravity`` a 3-tuple; scalars are [1, 1, Z, Y, X] and vectors
-    [1, 3, Z, Y, X] float32, flags uint8.  ``lap``, ``ghosts`` and
-    ``clamp`` together give the slab form (module docstring); the
+    ``gravity`` a 3-tuple; scalars are [B, 1, Z, Y, X] and vectors
+    [B, 3, Z, Y, X] float32, flags uint8, the B elements in one launch (the
+    plan's tile and strip are an element's).  ``lap``, ``ghosts`` and
+    ``clamp`` together give the slab form (module docstring, B = 1); the
     single-device kernel builds the Laplacian itself.  CPU tensors take the
     plain version; CUDA tensors launch the kernel; anything else raises.
     Inputs are not modified."""
@@ -241,15 +246,15 @@ def hcz_capillary_gradmac(rho_pre, density_pre, pressure, rho_ca, H2, phi, flags
     if (H2 is None) != (phi is None):
         raise ValueError("hcz_capillary_gradmac: give H2 and phi together, or neither")
     B, C, Z, Y, X = rho_pre.shape
-    scalar = (1, 1, Z, Y, X)
+    scalar = (B, 1, Z, Y, X)
     named = [("rho_pre", rho_pre), ("density_pre", density_pre), ("pressure", pressure),
              ("rho_ca", rho_ca), ("g_sum", g_sum)]
     if H2 is not None:
         named += [("H2", H2), ("phi", phi)]
     for name, t in named:
         check_cuda(name, t, torch.float32, scalar)
-    check_cuda("g_mom", g_mom, torch.float32, (1, 3, Z, Y, X))
-    check_cuda("vel_old", vel_old, torch.float32, (1, 3, Z, Y, X))
+    check_cuda("g_mom", g_mom, torch.float32, (B, 3, Z, Y, X))
+    check_cuda("vel_old", vel_old, torch.float32, (B, 3, Z, Y, X))
     check_cuda("flags", flags, torch.uint8, scalar)
     if min(Z, Y, X) < 3:
         raise ValueError("hcz_capillary_gradmac needs Z, Y, X >= 3")
@@ -264,16 +269,18 @@ def hcz_capillary_gradmac(rho_pre, density_pre, pressure, rho_ca, H2, phi, flags
                 for v in (rho_gas, rho_fluid, density_gas, density_fluid))
 
     pl = plan(Z, Y, X, torch.cuda.get_device_properties(rho_pre.device).multi_processor_count)
+    check_batch("hcz_capillary_gradmac", B, slab, -(-Z // pl.zb))
     vel, pres = torch.empty_like(vel_old), torch.empty_like(pressure)
     force, dfai, dprho = (torch.empty_like(vel_old) for _ in range(3))
-    consts = (*dims, *(ctypes.c_int(v) for v in pl), ctypes.c_double(kappa),
+    consts = (*(ctypes.c_int(v) for v in pl), ctypes.c_double(kappa),
               *(ctypes.c_double(float(v)) for v in gravity), ctypes.c_double(0.5 * MU0),
               ctypes.c_double(dx), ctypes.c_double(dt), *gas)
     if not slab:
         call("lbm_capmac", ptr(flags), ptr(rho_pre), ptr(density_pre), ptr(pressure),
              ptr(rho_ca), ptr(phi), ptr(H2), ptr(g_sum), ptr(g_mom), ptr(vel_old), ptr(vel),
-             ptr(pres), ptr(force), ptr(dfai), ptr(dprho), *consts, stream_of(rho_pre))
-        count_launch(hcz_capillary_gradmac, False)
+             ptr(pres), ptr(force), ptr(dfai), ptr(dprho), ctypes.c_int(B), *dims, *consts,
+             stream_of(rho_pre))
+        count_launch(hcz_capillary_gradmac, False, None, B)
         return vel, pres, force, dfai, dprho
     lo, hi = ghosts
     planes = [(lo[:, j], hi[:, j]) for j in range(4)]
@@ -281,7 +288,7 @@ def hcz_capillary_gradmac(rho_pre, density_pre, pressure, rho_ca, H2, phi, flags
     fl_lo, fl_hi = (b[:, SLAB_PLANES.index("flags")].to(torch.uint8) for b in ghosts)
     call("lbm_capmac_slab", ptr(flags), ptr(lap), ptr(rho_pre), ptr(density_pre),
          ptr(pressure), ptr(rho_ca), ptr(phi), ptr(H2), ptr(g_sum), ptr(g_mom), ptr(vel_old),
-         ptr(vel), ptr(pres), ptr(force), ptr(dfai), ptr(dprho), *consts,
+         ptr(vel), ptr(pres), ptr(force), ptr(dfai), ptr(dprho), *dims, *consts,
          *(ptr(t) for pair in planes for t in pair), ptr(fl_lo), ptr(fl_hi),
          *(ctypes.c_int(v) for v in clamp), stream_of(rho_pre))
     count_launch(hcz_capillary_gradmac, False, "slab")
@@ -291,6 +298,7 @@ def hcz_capillary_gradmac(rho_pre, density_pre, pressure, rho_ca, H2, phi, flags
 hcz_capillary_gradmac.launches = 0
 hcz_capillary_gradmac.launches_bf16 = 0
 hcz_capillary_gradmac.launches_slab = 0
+hcz_capillary_gradmac.launches_batch = 0
 #: planes a slab of the slab form needs at least (the TPU kernel's 5-slot
 #: ring: planes -1 to 2 in flight at its preamble)
 hcz_capillary_gradmac.min_planes = 4

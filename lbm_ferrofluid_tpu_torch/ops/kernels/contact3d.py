@@ -22,6 +22,10 @@ are the domain's true edges (``bottom``, ``top``); a slab-boundary plane
 with a neighbour is an interior plane whose face terms read the ghost.
 One launch (``launches_slab``); its plain version runs the surgery on the
 slab extended by the ghosts where it has a neighbour.
+
+A batch ``[B, 1, Z, Y, X]`` is one launch (a row of blocks an element),
+each element's bits those of a call on it alone; the slab form takes one
+element.
 """
 
 from __future__ import annotations
@@ -33,14 +37,14 @@ import torch
 
 from ...utils.types import CellType
 from ..collide import contact_angle_boundary
-from ._lib import call, check_cuda, check_no_grad, count_launch, ptr, stream_of
+from ._lib import call, check_batch, check_cuda, check_no_grad, count_launch, ptr, stream_of
 
 __all__ = ["contact_angle_3d", "contact_angle_3d_plain", "cost", "cost_slab", "N_LAUNCHES"]
 
 TPU_KERNEL = "lbm_ferrofluid_tpu/ops/pallas/contact3d.py:309"
 CUDA_SOURCE = "lbm_ferrofluid_tpu_torch/csrc/contact3d.cu"
 N_LAUNCHES = 1
-#: the kernel indexes cells with 32-bit integers, 4 to a thread
+#: the kernel indexes an element's cells with 32-bit integers, 4 to a thread
 MAX_CELLS = 2**31 - 4096
 
 
@@ -50,13 +54,14 @@ def cost(rho, flags, contact_angle=None) -> tuple[int, int]:
     (the interior of each of the 6 faces).  Flops: 9 per obstacle cell of
     an x or y face (two differences, two squares, two adds, sqrt,
     multiply-add; z faces are plain copies), 2 per edge-line cell, 3 per
-    corner."""
+    corner; each of the B elements of a batch counts."""
+    B = flags.shape[0]
     Z, Y, X = flags.shape[-3:]
-    obs = (flags == int(CellType.OBSTACLE))[0, 0]
+    obs = (flags == int(CellType.OBSTACLE))[:, 0]
     faces = 2 * ((Z - 2) * (Y - 2) + (Z - 2) * (X - 2) + (Y - 2) * (X - 2))
-    xy_face_obs = int(obs[1:-1, 1:-1, [0, -1]].sum() + obs[1:-1, [0, -1], 1:-1].sum())
+    xy_face_obs = int(obs[:, 1:-1, 1:-1, [0, -1]].sum() + obs[:, 1:-1, [0, -1], 1:-1].sum())
     edges = 4 * ((Z - 2) + (Y - 2) + (X - 2))
-    return 8 * flags.numel() + faces, 9 * xy_face_obs + 2 * edges + 3 * 8
+    return 8 * flags.numel() + B * faces, 9 * xy_face_obs + B * (2 * edges + 3 * 8)
 
 
 def cost_slab(rho, flags, contact_angle=None, ghosts=None) -> tuple[int, int]:
@@ -93,8 +98,9 @@ def contact_angle_3d_plain(rho, flags, contact_angle, ghosts=None, clamp=None):
 
 
 def contact_angle_3d(rho, flags, contact_angle, ghosts=None, clamp=None):
-    """rho [1, 1, Z, Y, X] float32 and flags [1, 1, Z, Y, X] uint8 ->
-    rho_ca; with ``ghosts`` and ``clamp`` the slab form.  CPU tensors take
+    """rho [B, 1, Z, Y, X] float32 and flags [B, 1, Z, Y, X] uint8 ->
+    rho_ca, the B elements in one launch; with ``ghosts`` and ``clamp`` the
+    slab form (B = 1).  CPU tensors take
     the plain version; CUDA tensors launch the kernel on their card;
     anything else raises.  ``rho`` is not modified."""
     if (ghosts is None) != (clamp is None):
@@ -103,31 +109,33 @@ def contact_angle_3d(rho, flags, contact_angle, ghosts=None, clamp=None):
         return contact_angle_3d_plain(rho, flags, contact_angle, ghosts, clamp)
     check_no_grad("contact_angle_3d", rho)
     B, C, Z, Y, X = rho.shape
-    check_cuda("rho", rho, torch.float32, (1, 1, Z, Y, X))
-    check_cuda("flags", flags, torch.uint8, (1, 1, Z, Y, X))
+    check_batch("contact_angle_3d", B, ghosts is not None)
+    check_cuda("rho", rho, torch.float32, (B, 1, Z, Y, X))
+    check_cuda("flags", flags, torch.uint8, (B, 1, Z, Y, X))
     if ghosts is not None:
         for name, t in zip(("rho_lo", "rho_hi"), ghosts, strict=True):
             check_cuda(name, t, torch.float32, (1, 1, 1, Y, X))
     if min(Z, Y, X) < contact_angle_3d.min_axis:
         raise ValueError(f"contact_angle_3d needs Z, Y, X >= {contact_angle_3d.min_axis}")
-    if rho.numel() > MAX_CELLS:
-        raise ValueError(f"contact_angle_3d takes at most {MAX_CELLS} cells")
+    if Z * Y * X > MAX_CELLS:
+        raise ValueError(f"contact_angle_3d takes at most {MAX_CELLS} cells an element")
     out = torch.empty_like(rho)
     # 16-byte loads and stores where every plane's groups of 4 cells are aligned
     vec = (Y * X) % 4 == 0 and rho.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     t = ctypes.c_double(math.tan(math.pi / 2.0 - float(contact_angle)))
     lo, hi = ghosts if ghosts is not None else (None, None)
     bottom, top = clamp if clamp is not None else (1, 1)
-    call("lbm_contact_angle", ptr(rho), ptr(flags), ptr(out), ctypes.c_int(Z),
+    call("lbm_contact_angle", ptr(rho), ptr(flags), ptr(out), ctypes.c_int(B), ctypes.c_int(Z),
          ctypes.c_int(Y), ctypes.c_int(X), t, ctypes.c_int(vec), ptr(lo), ptr(hi),
          ctypes.c_int(int(bool(bottom))), ctypes.c_int(int(bool(top))), stream_of(rho))
-    count_launch(contact_angle_3d, False, "slab" if ghosts is not None else None)
+    count_launch(contact_angle_3d, False, "slab" if ghosts is not None else None, B)
     return out
 
 
 contact_angle_3d.launches = 0
 contact_angle_3d.launches_bf16 = 0
 contact_angle_3d.launches_slab = 0
+contact_angle_3d.launches_batch = 0
 #: cells an axis needs at least (below that, a face reads cells its own
 #: stage writes, and the one-pass rule does not hold)
 contact_angle_3d.min_axis = 4

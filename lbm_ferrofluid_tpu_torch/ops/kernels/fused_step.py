@@ -49,6 +49,10 @@ edge planes' in jnp).  One launch, two with ``emit_mac``
 (``launches_slab``); its plain version streams f and g extended by their
 ghosts, collides the slab, and emits through B4's plain slab form.
 
+Both take a batch ``[B, 19, Z, Y, X]`` in one launch (B5's plan is an
+element's; each element's bits are those of a call on it alone); their
+slab forms take one element.
+
 Both take f and g in float32 or bfloat16 (the JAX package's turbo mode):
 the CUDA kernels' bfloat16 instances widen what they pull, compute in
 float32 and round f'/g' once, on the store, and the emission reads the
@@ -67,8 +71,8 @@ from ...lattice import D3Q19
 from ...utils.types import CellType
 from ..collide import hcz_collide
 from ..stream import bounce_back, stream, stream_bounce_macro, stream_bounce_moments
-from ._lib import (STORAGE, call, check_cuda, check_no_grad, count_launch, elem_bytes, ptr,
-                   stream_of)
+from ._lib import (STORAGE, call, check_batch, check_cuda, check_no_grad, count_launch,
+                   elem_bytes, ptr, stream_of)
 
 __all__ = [
     "lbm_prologue", "lbm_prologue_plain", "cost", "cost_slab", "stream_macro_launch",
@@ -213,11 +217,12 @@ def stream_macro_launch(f, g, flags, rho_old, vel_old, consts, ghosts=None):
     ``ghosts``); shared with the capillogue's and the epilogue's emissions,
     which count their own launches."""
     B, Q, Z, Y, X = f.shape
-    check_cuda("f", f, STORAGE, (1, 19, Z, Y, X))
-    check_cuda("g", g, (f.dtype,), (1, 19, Z, Y, X))
-    check_cuda("flags", flags, torch.uint8, (1, 1, Z, Y, X))
-    check_cuda("rho_old", rho_old, torch.float32, (1, 1, Z, Y, X))
-    check_cuda("vel_old", vel_old, torch.float32, (1, 3, Z, Y, X))
+    check_batch("lbm_prologue", B, ghosts is not None)
+    check_cuda("f", f, STORAGE, (B, 19, Z, Y, X))
+    check_cuda("g", g, (f.dtype,), (B, 19, Z, Y, X))
+    check_cuda("flags", flags, torch.uint8, (B, 1, Z, Y, X))
+    check_cuda("rho_old", rho_old, torch.float32, (B, 1, Z, Y, X))
+    check_cuda("vel_old", vel_old, torch.float32, (B, 3, Z, Y, X))
     if ghosts is not None:
         for name, t in zip(("f_lo", "f_hi", "g_lo", "g_hi"), ghosts, strict=True):
             check_cuda(name, t, (f.dtype,), (1, 5, 1, Y, X))
@@ -227,8 +232,8 @@ def stream_macro_launch(f, g, flags, rho_old, vel_old, consts, ghosts=None):
     m0g = torch.empty_like(rho_old)
     m1g = torch.empty_like(vel_old)
     call("lbm_prologue", ptr(f), ptr(g), ptr(flags), ptr(rho_old), ptr(vel_old), ptr(rho),
-         ptr(vel), ptr(den), ptr(m0g), ptr(m1g), ctypes.c_int(Z), ctypes.c_int(Y),
-         ctypes.c_int(X), *(ctypes.c_double(float(v)) for v in consts),
+         ptr(vel), ptr(den), ptr(m0g), ptr(m1g), ctypes.c_int(B), ctypes.c_int(Z),
+         ctypes.c_int(Y), ctypes.c_int(X), *(ctypes.c_double(float(v)) for v in consts),
          ctypes.c_int(f.dtype == torch.bfloat16),
          *(ptr(t) for t in (ghosts or (None,) * 4)), stream_of(f))
     return rho, vel, den, m0g, m1g
@@ -236,9 +241,10 @@ def stream_macro_launch(f, g, flags, rho_old, vel_old, consts, ghosts=None):
 
 def lbm_prologue(f, g, flags, rho_old, vel_old, ghosts=None, *, c, rho_gas, rho_fluid,
                  density_gas, density_fluid):
-    """f, g [1, 19, Z, Y, X] float32 or bfloat16, flags uint8, rho_old
-    [1, 1, ...], vel_old [1, 3, ...] float32 -> (rho, vel, density, m0g,
-    m1g) float32; with ``ghosts`` the slab form.  CPU tensors take the plain
+    """f, g [B, 19, Z, Y, X] float32 or bfloat16, flags uint8, rho_old
+    [B, 1, ...], vel_old [B, 3, ...] float32 -> (rho, vel, density, m0g,
+    m1g) float32, the B elements in one launch; with ``ghosts`` the slab
+    form (B = 1).  CPU tensors take the plain
     version; CUDA tensors launch the kernel on their card; anything else
     raises."""
     consts = dict(c=c, rho_gas=rho_gas, rho_fluid=rho_fluid, density_gas=density_gas,
@@ -247,13 +253,15 @@ def lbm_prologue(f, g, flags, rho_old, vel_old, ghosts=None, *, c, rho_gas, rho_
         return lbm_prologue_plain(f, g, flags, rho_old, vel_old, ghosts, **consts)
     check_no_grad("lbm_prologue", f, g, rho_old, vel_old)
     out = stream_macro_launch(f, g, flags, rho_old, vel_old, tuple(consts.values()), ghosts)
-    count_launch(lbm_prologue, f.dtype == torch.bfloat16, "slab" if ghosts is not None else None)
+    count_launch(lbm_prologue, f.dtype == torch.bfloat16, "slab" if ghosts is not None else None,
+                 f.shape[0])
     return out
 
 
 lbm_prologue.launches = 0
 lbm_prologue.launches_bf16 = 0
 lbm_prologue.launches_slab = 0
+lbm_prologue.launches_batch = 0
 
 
 def cost_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, *,
@@ -317,15 +325,16 @@ def lbm_epilogue_plain(f, g, flags, rho, vel, density, pressure, force, dfai, dp
 def lbm_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, ghosts=None,
                  emit_ghosts=None, *, tau_f, tau_g, dx=1.0, dt=1.0, emit_mac=False,
                  mac_consts=None):
-    """Re-stream, bounce and HCZ-collide f and g [1, 19, Z, Y, X] float32
+    """Re-stream, bounce and HCZ-collide f and g [B, 19, Z, Y, X] float32
     or bfloat16 (f'/g' in the same type) with this step's float32 rho,
-    density, pressure [1, 1, ...] and vel, force,
-    dfai, dprho [1, 3, ...] (flags uint8) -> ``(f', g')``.  With
+    density, pressure [B, 1, ...] and vel, force,
+    dfai, dprho [B, 3, ...] (flags uint8) -> ``(f', g')``, the B elements
+    in one launch (the plan's strip is an element's).  With
     ``emit_mac`` (and ``mac_consts = (c, rho_gas, rho_fluid, density_gas,
     density_fluid)``) -> ``(f', g', (rho, vel, density, m0g, m1g))``, the
     next step's macros: the prologue on f'/g' with rho_old = ``rho`` and
     vel_old = ``vel``.  ``ghosts`` (and ``emit_ghosts`` with ``emit_mac``)
-    give the slab form (module docstring).  CPU tensors take the plain
+    give the slab form (module docstring, B = 1).  CPU tensors take the plain
     version; CUDA tensors launch the kernel under ``plan`` (with
     ``emit_mac`` then the prologue's); anything else raises.  Inputs are
     not modified."""
@@ -339,13 +348,14 @@ def lbm_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, g
                                   dprho, ghosts, emit_ghosts, **kw)
     check_no_grad("lbm_epilogue", f, g, rho, vel, density, pressure, force, dfai, dprho)
     B, Q, Z, Y, X = f.shape
-    check_cuda("f", f, STORAGE, (1, 19, Z, Y, X))
-    check_cuda("g", g, (f.dtype,), (1, 19, Z, Y, X))
+    check_batch("lbm_epilogue", B, slab)
+    check_cuda("f", f, STORAGE, (B, 19, Z, Y, X))
+    check_cuda("g", g, (f.dtype,), (B, 19, Z, Y, X))
     for name, t in (("rho", rho), ("density", density), ("pressure", pressure)):
-        check_cuda(name, t, torch.float32, (1, 1, Z, Y, X))
+        check_cuda(name, t, torch.float32, (B, 1, Z, Y, X))
     for name, t in (("vel", vel), ("force", force), ("dfai", dfai), ("dprho", dprho)):
-        check_cuda(name, t, torch.float32, (1, 3, Z, Y, X))
-    check_cuda("flags", flags, torch.uint8, (1, 1, Z, Y, X))
+        check_cuda(name, t, torch.float32, (B, 3, Z, Y, X))
+    check_cuda("flags", flags, torch.uint8, (B, 1, Z, Y, X))
     if min(Z, Y, X) < lbm_epilogue.min_axis or (emit_mac and mac_consts is None):
         raise ValueError(f"lbm_epilogue needs Z, Y, X >= {lbm_epilogue.min_axis}, and "
                          "mac_consts with emit_mac")
@@ -356,30 +366,31 @@ def lbm_epilogue(f, g, flags, rho, vel, density, pressure, force, dfai, dprho, g
     pl = plan(Z, Y, X, torch.cuda.get_device_properties(f.device).multi_processor_count, bf16)
     f_out, g_out = torch.empty_like(f), torch.empty_like(g)
     args = (ptr(f), ptr(g), ptr(flags), ptr(rho), ptr(vel), ptr(density), ptr(pressure),
-            ptr(force), ptr(dfai), ptr(dprho), ptr(f_out), ptr(g_out), ctypes.c_int(Z),
-            ctypes.c_int(Y), ctypes.c_int(X))
+            ptr(force), ptr(dfai), ptr(dprho), ptr(f_out), ptr(g_out))
+    dims = (ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X))
     consts = (ctypes.c_double(dx), ctypes.c_double(dt), ctypes.c_double(tau_f),
               ctypes.c_double(tau_g), ctypes.c_int(bf16))
     if slab:
         if pl.form != "stage":
             raise ValueError(f"lbm_epilogue: the slab form is the stage form, not {pl.form}")
-        call("lbm_epilogue_slab", *args, ctypes.c_int(pl.zb), *consts,
+        call("lbm_epilogue_slab", *args, *dims, ctypes.c_int(pl.zb), *consts,
              *(ptr(t) for t in ghosts), stream_of(f))
     else:
-        call("lbm_epilogue", *args, ctypes.c_int(FORMS.index(pl.form)), ctypes.c_int(pl.zb),
-             *consts, stream_of(f))
+        call("lbm_epilogue", *args, ctypes.c_int(B), *dims, ctypes.c_int(FORMS.index(pl.form)),
+             ctypes.c_int(pl.zb), *consts, stream_of(f))
     form = "slab" if slab else None
-    count_launch(lbm_epilogue, bf16, form)
+    count_launch(lbm_epilogue, bf16, form, B)
     if not emit_mac:
         return f_out, g_out
     mac = stream_macro_launch(f_out, g_out, flags, rho, vel, mac_consts,
                               emit_ghosts(f_out, g_out) if slab else None)
-    count_launch(lbm_epilogue, bf16, form)
+    count_launch(lbm_epilogue, bf16, form, B)
     return f_out, g_out, mac
 
 
 lbm_epilogue.launches = 0
 lbm_epilogue.launches_bf16 = 0
 lbm_epilogue.launches_slab = 0
+lbm_epilogue.launches_batch = 0
 #: cells an axis needs at least (the kernel's boundary ring)
 lbm_epilogue.min_axis = 4

@@ -12,7 +12,9 @@ instance widens them, collides in float32 and rounds f'/g' once, on the
 store.
 
 Bound on an H100: bytes, 305 B per cell plus 60 B per fluid cell (153 B
-plus 60 B in bfloat16 storage; see :func:`cost`).
+plus 60 B in bfloat16 storage; see :func:`cost`).  A batch ``[B, 19, Z, Y,
+X]`` is one launch (a row of blocks an element), each element's bits those
+of a call on it alone.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ import torch
 from ...lattice import D3Q19
 from ...utils.types import CellType
 from ..collide import hcz_collide
-from ._lib import (STORAGE, call, check_cuda, check_no_grad, count_launch, elem_bytes, ptr,
-                   stream_of)
+from ._lib import (STORAGE, call, check_batch, check_cuda, check_no_grad, count_launch,
+                   elem_bytes, ptr, stream_of)
 
 __all__ = ["hcz_collide_fused", "hcz_collide_fused_plain", "cost"]
 
@@ -56,10 +58,10 @@ def hcz_collide_fused_plain(f, g, rho, vel, density, pressure, flags, force, dfa
 
 def hcz_collide_fused(f, g, rho, vel, density, pressure, flags, force, dfai, dprho, *,
                       tau_f, tau_g, dx=1.0, dt=1.0):
-    """Post-stream f, g [1, 19, Z, Y, X] float32 or bfloat16 (f', g' in the
+    """Post-stream f, g [B, 19, Z, Y, X] float32 or bfloat16 (f', g' in the
     same type), the capillary stage's float32
-    rho, density, pressure [1, 1, ...] and vel, force, dfai, dprho
-    [1, 3, ...], flags uint8 -> (f', g').  CPU tensors take the plain
+    rho, density, pressure [B, 1, ...] and vel, force, dfai, dprho
+    [B, 3, ...], flags uint8 -> (f', g'), the B elements in one launch.  CPU tensors take the plain
     version; CUDA tensors launch the kernel; anything else raises.  Inputs
     are not modified."""
     if f.device.type == "cpu":
@@ -67,22 +69,24 @@ def hcz_collide_fused(f, g, rho, vel, density, pressure, flags, force, dfai, dpr
                                        dfai, dprho, tau_f=tau_f, tau_g=tau_g, dx=dx, dt=dt)
     check_no_grad("hcz_collide_fused", f, g, rho, vel, density, pressure, force, dfai, dprho)
     B, Q, Z, Y, X = f.shape
-    check_cuda("f", f, STORAGE, (1, 19, Z, Y, X))
-    check_cuda("g", g, (f.dtype,), (1, 19, Z, Y, X))
+    check_batch("hcz_collide_fused", B)
+    check_cuda("f", f, STORAGE, (B, 19, Z, Y, X))
+    check_cuda("g", g, (f.dtype,), (B, 19, Z, Y, X))
     for name, t in (("rho", rho), ("density", density), ("pressure", pressure)):
-        check_cuda(name, t, torch.float32, (1, 1, Z, Y, X))
+        check_cuda(name, t, torch.float32, (B, 1, Z, Y, X))
     for name, t in (("vel", vel), ("force", force), ("dfai", dfai), ("dprho", dprho)):
-        check_cuda(name, t, torch.float32, (1, 3, Z, Y, X))
-    check_cuda("flags", flags, torch.uint8, (1, 1, Z, Y, X))
+        check_cuda(name, t, torch.float32, (B, 3, Z, Y, X))
+    check_cuda("flags", flags, torch.uint8, (B, 1, Z, Y, X))
     f_out, g_out = torch.empty_like(f), torch.empty_like(g)
     call("lbm_hcz_collide", ptr(f), ptr(g), ptr(flags), ptr(rho), ptr(vel), ptr(density),
          ptr(pressure), ptr(force), ptr(dfai), ptr(dprho), ptr(f_out), ptr(g_out),
-         ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_double(dx),
+         ctypes.c_int(B), ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_double(dx),
          ctypes.c_double(dt), ctypes.c_double(tau_f), ctypes.c_double(tau_g),
          ctypes.c_int(f.dtype == torch.bfloat16), stream_of(f))
-    count_launch(hcz_collide_fused, f.dtype == torch.bfloat16)
+    count_launch(hcz_collide_fused, f.dtype == torch.bfloat16, None, B)
     return f_out, g_out
 
 
 hcz_collide_fused.launches = 0
 hcz_collide_fused.launches_bf16 = 0
+hcz_collide_fused.launches_batch = 0

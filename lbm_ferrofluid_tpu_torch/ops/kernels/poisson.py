@@ -22,6 +22,11 @@ psi.  A call is :func:`launches_per_call` launches.  Every product and sum
 of a sweep is rounded as :func:`poisson_sweeps_plain` rounds it, so the
 kernel's outputs equal the plain version's bit for bit under any plan.
 
+A batch ``[B, 19, Z, Y, X]`` runs each pass in one launch for the B
+elements, on an element's plan (the batch folded into the grid's z); each
+element's bits are those of a call on it alone.  The slab form takes one
+element.
+
 h may be stored in bfloat16 (the JAX package's ``h_dtype="bfloat16"``):
 the kernel's bfloat16 instance then reads and writes h, and keeps its
 input plane and stage rings, in bfloat16, every sweep's outputs rounded to
@@ -74,8 +79,8 @@ import torch
 from ...lattice import D3Q19
 from ...utils.types import CellType, widen
 from ..stream import stream
-from ._lib import (STORAGE, call, check_cuda, check_no_grad, check_slab_clamp, count_launch,
-                   elem_bytes, ptr, stream_of)
+from ._lib import (STORAGE, call, check_batch, check_cuda, check_no_grad, check_slab_clamp,
+                   count_launch, elem_bytes, ptr, stream_of)
 
 __all__ = [
     "PoissonPlan",
@@ -128,6 +133,11 @@ EXT_HEIGHTS = (5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 18)
 #: the extended heights of the slab form's instances (csrc/poisson.cu:
 #: PP_SLAB_HEIGHTS): those of :func:`slab_plan`'s passes of k = 1..MAX_K
 SLAB_EXT_HEIGHTS = (9, 11, 13, 15)
+#: the extended heights of the pass kernel's batch instances (csrc/
+#: poisson.cu: PP_BATCH_HEIGHTS): those of :func:`plan`'s passes (k = 1..3
+#: on ``TY``-row tiles); the trailing pass's batch instances are built at
+#: every ``TRAIL_EXT_HEIGHTS``
+BATCH_EXT_HEIGHTS = (9, 11, 13)
 RING_FLOATS = 38
 #: the trailing stage's pass (csrc/poisson_trail.cu: PP_TRAIL_HEIGHTS,
 #: PP_TRAIL_MAX_K): extended heights ty + 2k of its instances, on one device
@@ -316,13 +326,14 @@ def cost(h, magnetic_flags, rhs_scaled, *, tau, n_iters, emit="psi", h_ext=None,
     and the rest-population subtraction (39 in all), otherwise also psi/tau
     and 2 multiplies and an add per channel (78); psi at obstacle cells
     (18) only in the last sweep, whose psi is returned or differentiated;
-    the trailing stage's at the interior cells (:func:`_trail_flops`)."""
+    the trailing stage's at the interior cells (:func:`_trail_flops`).  Each
+    of the B elements of a batch counts."""
     n = magnetic_flags.numel()
     n_obs = int((magnetic_flags == _OBS).sum())
     per_cell = 39 if 1.0 / tau == 1.0 else 78
     h_bytes = 19 * elem_bytes(h)
-    Z, Y, X = h.shape[2:]
-    interior = max(Z - 2, 1) * (Y - 2) * (X - 2)
+    B, _, Z, Y, X = h.shape
+    interior = B * max(Z - 2, 1) * (Y - 2) * (X - 2)
     return ((2 * h_bytes + 5 + 4 * EMIT_CHANNELS[emit]) * n - 4 * n_obs,
             n_iters * per_cell * (n - n_obs) + 18 * n_obs + _trail_flops(interior, emit, h_ext))
 
@@ -557,13 +568,14 @@ def poisson_sweeps(h, magnetic_flags, rhs_scaled, *, tau, n_iters, ghosts=None,
                    emit_bands=False, emit_psi=True, emit="psi", dx=1.0, h_ext=None, clamp=None):
     """``n_iters`` channel-form Poisson sweeps.
 
-    ``h``: [1, 19, Z, Y, X] float32 or bfloat16; ``magnetic_flags``: [1, 1, Z, Y, X]
-    uint8; ``rhs_scaled``: [1, 1, Z, Y, X] float32, dt * rhs * cs2 (0.5 -
+    ``h``: [B, 19, Z, Y, X] float32 or bfloat16; ``magnetic_flags``: [B, 1, Z, Y, X]
+    uint8; ``rhs_scaled``: [B, 1, Z, Y, X] float32, dt * rhs * cs2 (0.5 -
     tau) dt without the channel weight.  Returns (h', psi of the last
-    pre-collision state), or with ``emit="hint"`` (h', H_int [1, 3, Z, Y,
-    X]) and with ``emit="h2"`` (h', H2 [1, 1, Z, Y, X]) of the constant
+    pre-collision state), or with ``emit="hint"`` (h', H_int [B, 3, Z, Y,
+    X]) and with ``emit="h2"`` (h', H2 [B, 1, Z, Y, X]) of the constant
     field ``h_ext``, both with the gradient's ``dx`` (the trailing stage,
-    module docstring).  With ``ghosts`` the slab form (module docstring),
+    module docstring).  The B elements of a batch run in each launch, on
+    an element's plan.  With ``ghosts`` the slab form (module docstring, B = 1),
     flags and rhs extended by G planes a side: returns (h', psi or None
     without ``emit_psi``, or H_int or H2 with ``clamp``) and with
     ``emit_bands`` also (band_lo, band_hi).  CPU tensors take the plain
@@ -584,19 +596,20 @@ def poisson_sweeps(h, magnetic_flags, rhs_scaled, *, tau, n_iters, ghosts=None,
         return _sweeps_slab(h, magnetic_flags, rhs_scaled, ghosts, tau, n_iters, emit_bands,
                             emit_psi, emit, dx, h_ext, clamp)
     B, Q, Z, Y, X = h.shape
-    check_cuda("h", h, STORAGE, (1, 19, Z, Y, X))
-    check_cuda("magnetic_flags", magnetic_flags, torch.uint8, (1, 1, Z, Y, X))
-    check_cuda("rhs_scaled", rhs_scaled, torch.float32, (1, 1, Z, Y, X))
+    check_cuda("h", h, STORAGE, (B, 19, Z, Y, X))
+    check_cuda("magnetic_flags", magnetic_flags, torch.uint8, (B, 1, Z, Y, X))
+    check_cuda("rhs_scaled", rhs_scaled, torch.float32, (B, 1, Z, Y, X))
     bf16 = h.dtype == torch.bfloat16
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     pl = plan(Z, Y, X, n_iters, sms, elem_bytes(h))
     last = trail_pass(Z, Y, X, pl.passes[-1], sms, elem_bytes(h)) if emit != "psi" else pl
+    check_batch("poisson_sweeps", B, zblocks=-(-Z // min(pl.lz, last.lz)))
     out = torch.empty_like(h)
     # pass i writes out when an even number of passes follows it, else tmp:
     # each pass reads what the one before it wrote, and the last writes out
     tmp = torch.empty_like(h) if len(pl.passes) > 1 else None
-    aux = torch.empty((1, EMIT_CHANNELS[emit], Z, Y, X), dtype=torch.float32, device=h.device)
-    dims = (ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X))
+    aux = torch.empty((B, EMIT_CHANNELS[emit], Z, Y, X), dtype=torch.float32, device=h.device)
+    dims = (ctypes.c_int(B), ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X))
     st = stream_of(h)
     src = h
     for i, k in enumerate(pl.passes):
@@ -609,7 +622,7 @@ def poisson_sweeps(h, magnetic_flags, rhs_scaled, *, tau, n_iters, ghosts=None,
              ctypes.c_int(tile.lz), ctypes.c_double(tau), ctypes.c_int(bf16), ptr(None),
              ptr(None), ctypes.c_int(0), ptr(None), ptr(None),
              *_trail_args(mode, dx, h_ext, (1, Z - 2)), st)
-        count_launch(poisson_sweeps, bf16, "emit" if mode != "psi" else None)
+        count_launch(poisson_sweeps, bf16, "emit" if mode != "psi" else None, B)
         src = dst
     return out, aux
 
@@ -618,6 +631,7 @@ def _sweeps_slab(h, magnetic_flags, rhs_scaled, ghosts, tau, k, emit_bands, emit
                  h_ext, clamp):
     """The slab form's one launch (:func:`poisson_sweeps`)."""
     B, Q, Zl, Y, X = h.shape
+    check_batch("poisson_sweeps", B, slab=True)
     check_cuda("h", h, STORAGE, (1, 19, Zl, Y, X))
     G = _check_slab(h, magnetic_flags, rhs_scaled, ghosts, k)
     bf16 = h.dtype == torch.bfloat16
@@ -631,7 +645,7 @@ def _sweeps_slab(h, magnetic_flags, rhs_scaled, ghosts, tau, k, emit_bands, emit
            if emit_psi or emit != "psi" else None)
     bands = tuple(torch.empty_like(ghosts[0]) for _ in range(2)) if emit_bands else (None, None)
     call("lbm_poisson_pass", ptr(h), ptr(magnetic_flags), ptr(rhs_scaled), ptr(out), ptr(aux),
-         ctypes.c_int(Zl), ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_int(k),
+         ctypes.c_int(1), ctypes.c_int(Zl), ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_int(k),
          ctypes.c_int(pl.ty), ctypes.c_int(pl.lz), ctypes.c_double(tau), ctypes.c_int(bf16),
          ptr(ghosts[0]), ptr(ghosts[1]), ctypes.c_int(G), ptr(bands[0]), ptr(bands[1]),
          *_trail_args(emit, dx, h_ext, clamp or (1, Zl - 2)), stream_of(h))
@@ -643,3 +657,4 @@ poisson_sweeps.launches = 0
 poisson_sweeps.launches_bf16 = 0
 poisson_sweeps.launches_slab = 0
 poisson_sweeps.launches_emit = 0
+poisson_sweeps.launches_batch = 0

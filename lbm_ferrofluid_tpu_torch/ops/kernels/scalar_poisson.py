@@ -50,7 +50,7 @@ import torch
 from ...utils.types import CellType
 from ..magnetic import maybe_h2
 from ..stencils import isotropic_grad
-from ._lib import call, check_cuda, check_no_grad, count_launch, ptr, stream_of
+from ._lib import call, check_cuda, check_no_grad, check_unbatched, count_launch, ptr, stream_of
 
 __all__ = [
     "ScalarPlan",
@@ -337,6 +337,7 @@ def scalar_wavefront(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext=None, emit
         return scalar_wavefront_plain(s2, cmask, rhs_scaled, **kw)
     check_no_grad("scalar_wavefront", s2, cmask, rhs_scaled)
     B, C, Z, Y, X = s2.shape
+    check_unbatched("scalar_wavefront", B)
     check_cuda("s2", s2, torch.float32, (1, 2, Z, Y, X))
     Ze = Z
     if ghosts is not None:
@@ -378,6 +379,7 @@ def scalar_h2(psi, cmask, dx, h_ext):
         return h2_from_psi_plain(psi, cmask, dx, h_ext)
     check_no_grad("scalar_h2", psi, cmask)
     B, C, Z, Y, X = psi.shape
+    check_unbatched("scalar_h2", B)
     check_cuda("psi", psi, torch.float32, (1, 1, Z, Y, X))
     check_cuda("cmask", cmask, torch.float32, (1, 1, Z, Y, X))
     if min(Z, Y, X) < 3 or len(h_ext) != 3:

@@ -63,8 +63,8 @@ import torch
 from ..collide import MU0, capillary_potentials, chi_of_phi, recover_macros
 from ..moments import rho_to_density
 from ..stencils import grad_ring_replicate, isotropic_laplacian, substitute_obstacles
-from ._lib import (call, check_cuda, check_no_grad, check_slab_clamp, count_launch, ptr,
-                   stream_of)
+from ._lib import (call, check_cuda, check_no_grad, check_slab_clamp, check_unbatched,
+                   count_launch, ptr, stream_of)
 
 __all__ = [
     "grad_fields", "grad_fields_plain", "cost", "laplacian_field", "laplacian_field_plain",
@@ -210,6 +210,7 @@ def grad_fields(fields, ghosts=None, clamp=None, *, dx=1.0):
         return grad_fields_plain(fields, ghosts, clamp, dx=dx)
     check_no_grad("grad_fields", fields)
     B, n_fields, Z, Y, X = fields.shape
+    check_unbatched("grad_fields", B)
     check_cuda("fields", fields, torch.float32, (1, n_fields, Z, Y, X))
     if ghosts is not None:
         for name, t in zip(("ghost_lo", "ghost_hi"), ghosts, strict=True):
@@ -302,6 +303,7 @@ def laplacian_field(field, ghosts=None, clamp=None, *, dx=1.0, density_of=None):
         return laplacian_field_plain(field, ghosts, clamp, dx=dx, density_of=density_of)
     check_no_grad("laplacian_field", field)
     B, C, Z, Y, X = field.shape
+    check_unbatched("laplacian_field", B)
     check_cuda("field", field, torch.float32, (1, 1, Z, Y, X))
     if ghosts is not None:
         for name, t in zip(("ghost_lo", "ghost_hi"), ghosts, strict=True):

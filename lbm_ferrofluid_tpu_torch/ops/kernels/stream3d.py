@@ -10,6 +10,10 @@ moments, or with rho and vel (frozen at obstacles) and density.  A call is
 one launch.  The plain versions are ``ops/stream.py:stream_bounce_moments``
 and ``stream_bounce_macro``.
 
+Both take a batch ``[B, 19, Z, Y, X]`` in one launch (a row of blocks an
+element; each element's bits those of a call on it alone); the slab forms
+one element.
+
 Both take f in float32 or bfloat16 (the JAX package's turbo mode), and
 write f_post in f's type: streaming and bounce-back permute values, so a
 bfloat16 f_post holds the input's bits; the moments and macros are float32.
@@ -39,8 +43,8 @@ from ...lattice import D3Q19
 from ...utils.types import CellType
 from ..stream import stream_bounce_macro as _macro_plain
 from ..stream import stream_bounce_moments as _moments_plain
-from ._lib import (STORAGE, call, check_cuda, check_no_grad, count_launch, elem_bytes, ptr,
-                   stream_of)
+from ._lib import (STORAGE, call, check_batch, check_cuda, check_no_grad, count_launch,
+                   elem_bytes, ptr, stream_of)
 from .fused_step import extend_ghosts, repeat_ends
 
 __all__ = [
@@ -111,40 +115,43 @@ def stream_bounce_macro_plain(f, flags, rho_old, vel_old, ghosts=None, *, c, rho
 
 def _check(f, flags, ghosts):
     B, Q, Z, Y, X = f.shape
-    check_cuda("f", f, STORAGE, (1, 19, Z, Y, X))
-    check_cuda("flags", flags, torch.uint8, (1, 1, Z, Y, X))
+    check_batch("f", B, ghosts is not None)
+    check_cuda("f", f, STORAGE, (B, 19, Z, Y, X))
+    check_cuda("flags", flags, torch.uint8, (B, 1, Z, Y, X))
     if ghosts is not None:
         for name, t in zip(("ghost_lo", "ghost_hi"), ghosts, strict=True):
             check_cuda(name, t, (f.dtype,), (1, 5, 1, Y, X))
-    return Z, Y, X
+    return B, Z, Y, X
 
 
 def stream_bounce_moments(f, flags, ghosts=None):
-    """f [1, 19, Z, Y, X] float32 or bfloat16, flags uint8 -> (f_post in
-    f's type, m0 [1, 1, ...], m1 [1, 3, ...] float32); with ``ghosts`` the
-    slab form (module docstring).  CPU tensors take the plain version;
-    CUDA tensors launch the kernel; anything else raises."""
+    """f [B, 19, Z, Y, X] float32 or bfloat16, flags uint8 -> (f_post in
+    f's type, m0 [B, 1, ...], m1 [B, 3, ...] float32), the B elements in
+    one launch; with ``ghosts`` the slab form (module docstring, B = 1).
+    CPU tensors take the plain version; CUDA tensors launch the kernel;
+    anything else raises."""
     if f.device.type == "cpu":
         return stream_bounce_moments_plain(f, flags, ghosts)
     check_no_grad("stream_bounce_moments", f)
-    Z, Y, X = _check(f, flags, ghosts)
+    B, Z, Y, X = _check(f, flags, ghosts)
     bf16 = f.dtype == torch.bfloat16
     f_post = torch.empty_like(f)
-    m0 = torch.empty((1, 1, Z, Y, X), dtype=torch.float32, device=f.device)
-    m1 = torch.empty((1, 3, Z, Y, X), dtype=torch.float32, device=f.device)
+    m0 = torch.empty((B, 1, Z, Y, X), dtype=torch.float32, device=f.device)
+    m1 = torch.empty((B, 3, Z, Y, X), dtype=torch.float32, device=f.device)
     lo, hi = ghosts or (None, None)
     call("lbm_stream_moments3d", ptr(f), ptr(flags), ptr(f_post), ptr(m0), ptr(m1),
-         ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_int(bf16), ptr(lo), ptr(hi),
-         stream_of(f))
-    count_launch(stream_bounce_moments, bf16, None if ghosts is None else "slab")
+         ctypes.c_int(B), ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_int(bf16),
+         ptr(lo), ptr(hi), stream_of(f))
+    count_launch(stream_bounce_moments, bf16, None if ghosts is None else "slab", B)
     return f_post, m0, m1
 
 
 def stream_bounce_macro(f, flags, rho_old, vel_old, ghosts=None, *, c, rho_gas, rho_fluid,
                         density_gas, density_fluid):
-    """f [1, 19, Z, Y, X] float32 or bfloat16, flags uint8, rho_old [1, 1,
-    ...], vel_old [1, 3, ...] float32 -> (f_post in f's type, rho, vel,
-    density); with ``ghosts`` the slab form (module docstring).  CPU
+    """f [B, 19, Z, Y, X] float32 or bfloat16, flags uint8, rho_old [B, 1,
+    ...], vel_old [B, 3, ...] float32 -> (f_post in f's type, rho, vel,
+    density), the B elements in one launch; with ``ghosts`` the slab form
+    (module docstring, B = 1).  CPU
     tensors take the plain version; CUDA tensors launch the kernel;
     anything else raises."""
     if f.device.type == "cpu":
@@ -153,25 +160,28 @@ def stream_bounce_macro(f, flags, rho_old, vel_old, ghosts=None, *, c, rho_gas, 
             density_gas=density_gas, density_fluid=density_fluid,
         )
     check_no_grad("stream_bounce_macro", f, rho_old, vel_old)
-    Z, Y, X = _check(f, flags, ghosts)
-    check_cuda("rho_old", rho_old, torch.float32, (1, 1, Z, Y, X))
-    check_cuda("vel_old", vel_old, torch.float32, (1, 3, Z, Y, X))
+    B, Z, Y, X = _check(f, flags, ghosts)
+    check_cuda("rho_old", rho_old, torch.float32, (B, 1, Z, Y, X))
+    check_cuda("vel_old", vel_old, torch.float32, (B, 3, Z, Y, X))
     f_post = torch.empty_like(f)
     rho, vel, den = torch.empty_like(rho_old), torch.empty_like(vel_old), torch.empty_like(rho_old)
     lo, hi = ghosts or (None, None)
     call("lbm_stream_macro3d", ptr(f), ptr(flags), ptr(rho_old), ptr(vel_old), ptr(f_post),
-         ptr(rho), ptr(vel), ptr(den), ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X),
+         ptr(rho), ptr(vel), ptr(den), ctypes.c_int(B), ctypes.c_int(Z), ctypes.c_int(Y),
+         ctypes.c_int(X),
          *(ctypes.c_double(float(v))
            for v in (c, rho_gas, rho_fluid, density_gas, density_fluid)),
          ctypes.c_int(f.dtype == torch.bfloat16), ptr(lo), ptr(hi), stream_of(f))
     count_launch(stream_bounce_macro, f.dtype == torch.bfloat16,
-                 None if ghosts is None else "slab")
+                 None if ghosts is None else "slab", B)
     return f_post, rho, vel, den
 
 
 stream_bounce_moments.launches = 0
 stream_bounce_moments.launches_bf16 = 0
 stream_bounce_moments.launches_slab = 0
+stream_bounce_moments.launches_batch = 0
 stream_bounce_macro.launches = 0
 stream_bounce_macro.launches_bf16 = 0
 stream_bounce_macro.launches_slab = 0
+stream_bounce_macro.launches_batch = 0

@@ -128,7 +128,8 @@ __all__ = [
 ]
 
 #: ROADMAP A12's slices after the first, which a refusal names
-SLICES = {4: "the 2D and jnp paths, and their y/x decomposition", 5: "a batch on one device"}
+SLICES = {4: "the 2D and jnp paths, and their y/x decomposition",
+          7: "the slab forms at more than one batch element a rank"}
 
 
 def dp_dispatch(mesh: Mesh) -> bool:

@@ -243,9 +243,38 @@ def test_unsupported_configs_raise(case):
 
 
 def test_batched_state_raises():
-    params, state = rosensweig_3d(res=(6, 8, 10), batch=2, device="cpu")
+    """A batch whose state carries the scalar carry or the 6-leaf premac
+    (made here from primed elements; ``prime_premac`` never makes one) has
+    no route: B1 and B3 have no batch form (ROADMAP A12)."""
+    params, state = rosensweig_3d(res=(6, 8, 10), device="cpu")
+    primed = prime_premac(params, state, device="cpu")
+    two = primed.replace(**{k: torch.cat([v, v]) for k, v in vars(primed).items()
+                            if torch.is_tensor(v)},
+                         premac=tuple(torch.cat([x, x]) for x in primed.premac))
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        prime_premac(params, state, device="cpu")
+        prime_premac(params, two, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        ferrofluid_step(params, two.replace(premac=None), device="cpu")
+
+
+def test_batched_state_steps_uncarried_per_element():
+    """A batch of 2 on one device: ``prime_premac`` returns it as it is
+    (premac None, h kept in 19 channels, as the JAX package primes a batch)
+    and a step equals each element's own step bit for bit; the second
+    element's f is scaled so the two differ."""
+    params, state = rosensweig_3d(res=(6, 8, 10), batch=2, device="cpu")
+    params = params.replace(poisson_iters=3)
+    state = state.replace(f=state.f * torch.tensor([1.0, 1.001]).reshape(2, 1, 1, 1, 1))
+    primed = prime_premac(params, state, device="cpu")
+    assert primed is state and primed.premac is None and primed.h.shape[1] == 19
+    out = ferrofluid_step(params, primed, device="cpu")
+    for b in range(2):
+        one = state.replace(**{k: v[b:b + 1] for k, v in vars(state).items()
+                               if torch.is_tensor(v)},
+                            H_ext_mac=tuple(t[b:b + 1] for t in state.H_ext_mac))
+        alone = ferrofluid_step(params, one, device="cpu")
+        for name in ("f", "g", "h", "rho", "vel", "pressure", "phi"):
+            assert torch.equal(getattr(out, name)[b:b + 1], getattr(alone, name)), (b, name)
 
 
 def test_cpu_runs_leave_launch_counters_at_zero():

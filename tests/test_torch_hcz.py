@@ -387,9 +387,30 @@ def test_unsupported_hcz_configs_raise(case):
 
 
 def test_batched_hcz_state_raises():
+    """A batch of two on a z-slab mesh (one rank, ``slab=True``) has no
+    route: the slab forms step one element a rank (ROADMAP A12)."""
+    from lbm_ferrofluid_tpu_torch.parallel import make_mesh, shard_state
+
     params, state = multiphase_3d(res=(6, 8, 10), batch=2, device="cpu")
+    slab = make_mesh(device="cpu", slab=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        hcz_step(params, state, device="cpu")
+        hcz_step(params, shard_state(state, slab), mesh=slab)
+
+
+def test_batched_hcz_state_steps_per_element():
+    """A batch of 2 on one device steps, each element bit for bit as its
+    own step (the plain versions on the CPU); the second element's f and g
+    are scaled so the two differ."""
+    params, state = multiphase_3d(res=(6, 8, 10), batch=2, device="cpu")
+    scale = torch.tensor([1.0, 1.001]).reshape(2, 1, 1, 1, 1)
+    state = state.replace(f=state.f * scale, g=state.g * scale)
+    out = hcz_step(params, state, device="cpu")
+    for b in range(2):
+        one = state.replace(**{k: v[b:b + 1] for k, v in vars(state).items()
+                               if torch.is_tensor(v)})
+        alone = hcz_step(params, one, device="cpu")
+        for name in ("f", "g", "rho", "vel", "density", "pressure", "force"):
+            assert torch.equal(getattr(out, name)[b:b + 1], getattr(alone, name)), (b, name)
 
 
 def test_cpu_hcz_runs_leave_launch_counters_at_zero():

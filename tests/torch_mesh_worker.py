@@ -1,6 +1,7 @@
-"""Ranks of the port's meshed step, for tests/test_torch_parallel.py and
+"""Ranks of the port's meshed step, for tests/test_torch_parallel.py,
 tests/test_torch_parallel_channel.py (``run_routes``: the channel-form and
-HCZ routes).
+HCZ routes) and tests/test_torch_batch.py (``run_batch``: a batch mesh with
+several elements a rank).
 
 Imports torch, numpy and the port only: the test spawns these ranks as
 processes (``spawn`` start method), which must not load JAX.  Each rank
@@ -362,6 +363,66 @@ def run_h2(world, out_dir, cases):
                      np.concatenate([p["h"] for p in parts], axis=2),
                      [bool(p["emitted"]) for p in parts], tuple(parts[0]["k"]))
     return res
+
+
+def batch_state(batch, poisson_iters=3, seed=5):
+    """(params, whole state) of the flagship scene at a batch of ``batch``
+    elements that all differ: each element's f, g and h moved by noise from
+    its own seed (f and g by a relative 1e-3, h by 1e-4), so that a step in
+    which one element reads another shows it."""
+    import torch
+
+    params, state = port_state(poisson_iters, batch)
+    noisy = {}
+    for name, scale, relative in (("f", 1e-3, True), ("g", 1e-3, True), ("h", 1e-4, False)):
+        x = getattr(state, name).numpy().copy()
+        for b in range(batch):
+            n = np.random.default_rng(seed + 101 * b).uniform(-1, 1, x[b].shape)
+            x[b] = x[b] * (1 + scale * n) if relative else x[b] + scale * n
+        noisy[name] = torch.from_numpy(x.astype(np.float32))
+    return params, state.replace(**noisy)
+
+
+def batch_main(rank, world, port, batch, steps, out_dir):
+    """One rank of a batch mesh (``world`` ranks on the batch axis, z 1)
+    of :func:`batch_state`: each rank primes (a no-op at more than one
+    element a rank) and steps its ``batch // world`` elements batched on
+    the single-device route; rank 0 writes the gathered state to
+    ``batch.npz``."""
+    import torch
+    import torch.distributed as dist
+
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac
+    from lbm_ferrofluid_tpu_torch.models.state import to_numpy
+    from lbm_ferrofluid_tpu_torch.parallel import (
+        gather_state, initialize_distributed, make_mesh, shard_state,
+    )
+
+    torch.set_num_threads(1)
+    assert initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo") == world
+    try:
+        mesh = make_mesh(("batch", "z"), (world, 1), device="cpu")
+        params, whole = batch_state(batch)
+        state = prime_premac(params, shard_state(whole, mesh), mesh=mesh)
+        assert state.f.shape[0] == batch // world and state.premac is None
+        assert state.h.shape[1] == 19
+        for _ in range(steps):
+            state = ferrofluid_step(params, state, mesh=mesh)
+        whole_out = gather_state(state, mesh)
+        if rank == 0:
+            np.savez(pathlib.Path(out_dir) / "batch.npz", **_flat(to_numpy(whole_out)))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_batch(world, out_dir, batch, steps):
+    """:func:`batch_main` on ``world`` spawned ranks: the gathered state's
+    arrays."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(batch_main, args=(world, free_port(), batch, steps, str(out_dir)),
+                       nprocs=world, start_method="spawn")
+    return dict(np.load(pathlib.Path(out_dir) / "batch.npz"))
 
 
 def run_ranks(world, out_dir, **job):
