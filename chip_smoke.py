@@ -24,6 +24,7 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
     python3 chip_smoke.py --batch          # only batched states on one device (phase batch)
     python3 chip_smoke.py --route-time [ROOT]  # ms a step of routes U and H at 256^3,
                                            # B = 1, of the package at ROOT
+    python3 chip_smoke.py --mesh2d         # only the 2D models on y/x meshes (phase mesh2d)
 
 Phases, each printing one JSON line; any failed check exits non-zero:
 
@@ -266,6 +267,7 @@ import contextlib
 import hashlib
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -5742,6 +5744,219 @@ def batch_rows(K, total, kernel_rows):
     return rows
 
 
+# ---------------------------------------------------------------- phase mesh2d
+#: the 2D models on y/x meshes (phase ``mesh2d``): each run (scene of
+#: ``SCENES_2D``, mesh axes, mesh shape, grid, storage, params change,
+#: batch, timed steps) after 2 warm steps, held bit for bit to one device's
+#: steps on the card.  ``rosensweig_2d`` at 2048^2 (phase 7's large 2D
+#: size) on 2x2 ranks in float32 and bfloat16 storage with h in the scalar
+#: carry and in 9 channels; the other models at their demo size cut to
+#: 128^2 (130 does not split into 4) on 4x2 and 2x4 ranks; a batch of 2 on
+#: (batch, y, x) = (2, 2, 1) at the demo size
+MESH2D_BIG = (2048, 2048)
+MESH2D_DEMO = (128, 128)
+MESH2D_JOBS = (
+    [(scene, ("y", "x"), shape, MESH2D_DEMO, "float32", {}, 1, 6)
+     for shape in ((4, 2), (2, 4))
+     for scene in ("droplet_spread_2d", "multiphase_drop_sc", "shear_layer", "shear_layer_kbc")],
+    [("rosensweig_2d", ("y", "x"), (2, 2), MESH2D_BIG, storage, change, 1, 6)
+     for storage in ("float32", "bfloat16") for change in ({}, {"scalar_carry": False})]
+    + [("rosensweig_2d", ("batch", "y", "x"), (2, 2, 1), (130, 130), "float32", {}, 2, 6)],
+)
+#: seconds a job's ranks may take
+MESH2D_TIMEOUT = 300
+MESH2D_FIELDS = ("f", "g", "h", "rho", "vel", "density", "pressure", "force", "phi")
+
+
+def mesh2d_scene(run, dev):
+    """(params, whole state, step function) of a run of :data:`MESH2D_JOBS`
+    on ``dev``: the scene at the run's grid and storage, its batch elements
+    after the first moved by seeded noise (f by a relative 1e-3)."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch import models
+
+    scene, _, _, res, storage, change, batch, _ = run
+    build, step, _, kw = SCENES_2D[scene]
+    params, st = getattr(models, build)(res=tuple(res), batch=batch, device=dev, **kw)
+    params = params.replace(**change)
+    if storage == "bfloat16":
+        params = params.replace(fg_dtype="bfloat16", h_dtype="bfloat16")
+        st = models.init_ferrofluid_state(params, st.rho, st.density, st.vel, st.flags,
+                                          st.magnetic_flags, device=dev)
+    if batch > 1:
+        gen = torch.Generator(device=st.f.device).manual_seed(29)
+        noise = torch.rand(st.f.shape, generator=gen, device=st.f.device) * 2 - 1
+        noise[0] = 0
+        st = st.replace(f=(st.f.float() * (1 + 1e-3 * noise)).to(st.f.dtype))
+    return params, st, getattr(models, step)
+
+
+def _state_fields(st):
+    return {n: getattr(st, n) for n in MESH2D_FIELDS if getattr(st, n, None) is not None}
+
+
+def _bits_sha(x) -> str:
+    import torch
+
+    x = x.detach().contiguous()
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+    return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+
+
+def mesh2d_one_device(run, dev):
+    """The one-device steps of a run (each batch element alone, as each
+    rank of the batch mesh primes and steps its own): the state after the
+    warm and timed steps, and ms a timed step."""
+    import dataclasses
+
+    import torch
+
+    params, whole, step = mesh2d_scene(run, dev)
+    prime = SCENES_2D[run[0]][1] == "ferrofluid_step"
+    from lbm_ferrofluid_tpu_torch.models import prime_premac
+
+    elems, ms = [], []
+    for b in range(whole.f.shape[0]):
+        st = dataclasses.replace(whole, **{
+            f.name: _elem(getattr(whole, f.name), b)
+            for f in dataclasses.fields(whole) if f.name != "step"})
+        if prime:
+            st = prime_premac(params, st, device=dev)
+        st, stats = timed_steps(params, st, step, dev, run[7], warmup=2)
+        elems.append(st)
+        ms.append(stats["seconds"] / run[7] * 1e3)
+    out = elems[0] if len(elems) == 1 else dataclasses.replace(elems[0], **{
+        n: torch.cat([getattr(e, n) for e in elems]) for n in _state_fields(elems[0])})
+    return out, float(np.mean(ms))
+
+
+def _elem(v, b):
+    if v is None or isinstance(v, (int, float)):
+        return v
+    if isinstance(v, tuple):
+        return tuple(_elem(x, b) for x in v)
+    return v[b:b + 1] if v.shape[0] > 1 else v
+
+
+def mesh2d_rank(job_json) -> int:
+    """A rank of a job of :func:`phase_mesh2d`: joins the group from
+    torchrun's variables and, for each run, builds the scene on the card,
+    cuts its block, primes (the ferrofluid scenes) and steps it on the mesh
+    through the model's entry point (2 warm steps, then the timed ones,
+    each rank synchronising its device, then a barrier), launch counters
+    zeroed before the job and read after it (2D launches no kernel); hashes
+    its block of each field.  Rank 0 then runs the one-device steps alone
+    and holds each rank's block of them to that rank's hashes.  The host
+    wall time inside the exchanges is summed (each staged exchange first
+    waits for the device work queued before it).  Prints its rows."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from lbm_ferrofluid_tpu_torch.models import prime_premac
+    from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+    from lbm_ferrofluid_tpu_torch.parallel import (
+        initialize_distributed, make_mesh, ring_halo, shard_state, step2d,
+    )
+
+    in_exchanges = [0.0]
+
+    def timed_halo(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return ring_halo(*args, **kw)
+        finally:
+            in_exchanges[0] += time.perf_counter() - t
+
+    step2d.ring_halo = timed_halo
+    runs = json.loads(job_json)
+    world = initialize_distributed()
+    rows = []
+    try:
+        kernels_pkg.reset_launch_counts()
+        for run in runs:
+            scene, axes, shape, res, storage, change, batch, steps = run
+            mesh = make_mesh(tuple(axes), tuple(shape))
+            params, whole, step = mesh2d_scene(run, mesh.device)
+            st = shard_state(whole, mesh)
+            del whole
+            if step.__name__ == "ferrofluid_step":
+                st = prime_premac(params, st, mesh=mesh)
+            for _ in range(2):
+                st = step(params, st, mesh=mesh)
+            n0, b0 = ring_halo.exchanges, ring_halo.sent_bytes
+            torch.cuda.synchronize()
+            dist.barrier()
+            in_exchanges[0] = 0.0
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                st = step(params, st, mesh=mesh)
+            torch.cuda.synchronize()
+            dist.barrier()
+            seconds = time.perf_counter() - t0
+            row = {"scene": scene, "mesh": dict(zip(axes, shape)), "res": list(res),
+                   "storage": storage, "change": change, "batch": batch,
+                   "h_channels": st.h.shape[1] if getattr(st, "h", None) is not None else None,
+                   "steps": st.step, "ms_per_step": seconds / steps * 1e3,
+                   "exchanges_per_step": (ring_halo.exchanges - n0) / steps,
+                   "ms_in_exchanges_per_step": in_exchanges[0] / steps * 1e3,
+                   "bytes_sent_per_step": (ring_halo.sent_bytes - b0) / steps}
+            mine = {n: _bits_sha(x) for n, x in _state_fields(st).items()}
+            every = [None] * world
+            dist.all_gather_object(every, mine)
+            if mesh.rank == 0:
+                ref, ms1 = mesh2d_one_device(run, mesh.device)
+                differ = [(r, n) for r in range(world) for n, x in _state_fields(
+                    shard_state(ref, dataclasses.replace(mesh, rank=r))).items()
+                          if every[r].get(n) != _bits_sha(x)]
+                row.update(ms_per_step_one_device=ms1, bit_for_bit_to_one_device=not differ,
+                           differ=differ[:8])
+                check(not differ, f"mesh2d {scene} {dict(zip(axes, shape))} {res} "
+                      f"{storage} {change}: blocks differ from one device: {differ[:8]}")
+            dist.barrier()
+            rows.append(row)
+            del st
+            torch.cuda.empty_cache()
+        launches = kernels_pkg.launch_counts()
+        check(not any(launches.values()), f"mesh2d: 2D steps launched kernels: {launches}")
+    finally:
+        dist.destroy_process_group()
+    print("MESH2D_RANK " + json.dumps({"rank": int(os.environ["RANK"]), "rows": rows}),
+          flush=True)
+    return 0
+
+
+def phase_mesh2d(dev, card):
+    """The 2D models on y/x meshes (phase ``mesh2d``, ROADMAP A12 slice 4):
+    each job of :data:`MESH2D_JOBS` as gloo ranks sharing the one card
+    (processes of ``chip_smoke.py --mesh2d-rank``, torchrun's variables
+    set), one job after the other; each run bit for bit to one device's
+    steps, with ms a step beside one device's in the same call, bytes a
+    rank sends a step and exchanges a step (rank 0's)."""
+    del dev
+    t0 = time.perf_counter()
+    out = []
+    for runs in MESH2D_JOBS:
+        world = math.prod(runs[0][2])
+        check(all(math.prod(r[2]) == world for r in runs), "mesh2d: a job's meshes differ")
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                   WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+        outs = run_processes("mesh2d job",
+                             [[str(ROOT / "chip_smoke.py"), "--mesh2d-rank", json.dumps(runs)]]
+                             * world,
+                             [dict(env, RANK=str(r), LOCAL_RANK=str(r)) for r in range(world)],
+                             MESH2D_TIMEOUT, "MESH2D_RANK")
+        first = [o for out_ in outs for o in out_ if o["rank"] == 0]
+        check(len(first) == 1, f"mesh2d: rank 0 reported {len(first)} times")
+        out += first[0]["rows"]
+    emit({"phase": "mesh2d", "runs": out, "seconds": time.perf_counter() - t0, "card": card,
+          "ok": True})
+    return out
+
+
 def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     """Phases 3-8; returns one row per kernel for the ``kernels`` line, one
     per bfloat16 form, one for B11b's last pass with B7's trailing stage in
@@ -5799,6 +6014,7 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     flag16["B5"] = dict(flag16["B5"], max_abs_err=max(flag16["B5"]["max_abs_err"],
                                                        flag16["B5 emit_mac"]["max_abs_err"]))
     batch_total, batch_kernels = phase_batch(dev, kernels_pkg, smi)
+    phase_mesh2d(dev, smi)
     return [{
         "name": f"{kid} {k.wrapper.__name__}", "route": "cuda",
         "source": k.module.CUDA_SOURCE, "replaces": k.tpu_kernel,
@@ -5899,6 +6115,8 @@ def main() -> int:
         return sharded_rank(sys.argv[sys.argv.index("--sharded-rank") + 1])
     if "--2d-job" in sys.argv[1:]:
         return job_2d(sys.argv[sys.argv.index("--2d-job") + 1])
+    if "--mesh2d-rank" in sys.argv[1:]:
+        return mesh2d_rank(sys.argv[sys.argv.index("--mesh2d-rank") + 1])
     for flag in ("--step-time", "--route-time"):
         if flag in sys.argv[1:]:
             at = sys.argv.index(flag) + 1
@@ -5969,6 +6187,9 @@ def main() -> int:
         emit({"kernels": batch_rows(kernels_pkg.KERNELS, total, rows)})
     elif "--route-time" in sys.argv[1:]:
         phase_route_time(dev, smi)
+        print(smi, flush=True)
+    elif "--mesh2d" in sys.argv[1:]:
+        phase_mesh2d(dev, smi)
         print(smi, flush=True)
     elif {"--compat", "--dibr", "--native", "--inverse"} & set(sys.argv[1:]):
         if "--compat" in sys.argv[1:]:

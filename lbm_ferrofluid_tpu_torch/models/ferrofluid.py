@@ -56,9 +56,9 @@ sweeps, into which :func:`prime_premac` converts h and which is its only
 ``params.kbc_type``).  A 2D step launches no kernel and carries no premac.
 
 With ``mesh`` (``parallel/mesh.py``: this rank's place among the ranks of a
-('batch', 'z') mesh) :func:`prime_premac` and :func:`ferrofluid_step` take
-and return this rank's part of the state (``parallel/sharding.py``), as the
-JAX step's ``mesh=`` does (:318-358, :419-466, :583-735, :979-1026 there).
+('batch', 'z') or ('batch', 'y', 'x') mesh) :func:`prime_premac` and
+:func:`ferrofluid_step` take and return this rank's part of the state
+(``parallel/sharding.py``), as the JAX step's ``mesh=`` does (:318-358, :419-466, :583-735, :979-1026 there).
 On a z-slab mesh (``nz > 1``, or ``slab=True``) every 3D route runs on the
 kernels' slab forms (``parallel/step3d.py``): the capillogue steady state
 (6 leaves: the solve, B2, B3); the epilogue steady state (5 leaves), which
@@ -74,10 +74,14 @@ only for a 6-leaf premac (:588-592 there).  The solve takes the form of
 substitution, B10a), which priming keeps where the collapse does not
 apply.  An out-of-plane field's Poisson source reads phi a plane across
 the slab's faces (``step3d.poisson_rhs_sharded``).  Priming and the step
-run the same gates (:func:`_slab_gates`); ``phys_extent`` and 2D raise
-``NotImplementedError`` naming their ROADMAP A12 slice.  On a batch mesh
-(``nz == 1``) each rank steps its own batch elements on the single-device
-route its state selects.
+run the same gates (:func:`_slab_gates`); ``phys_extent`` on a split grid
+and a 3D state on a mesh with a y or x axis raise ``NotImplementedError``
+naming ROADMAP A12 slice 4b.  A 2D state on a mesh with ``y`` and ``x``
+axes steps on the rank's block (``parallel/step2d.py``): the same plain
+ops on the block extended by ghost cells, the solve's sweeps in rounds,
+priming's scalar conversion across the block's faces, bit for bit to one
+device; a 2D state on a z mesh raises.  On a batch mesh each rank steps
+its own batch elements on the single-device route its state selects.
 
 A batch of more than one element ([B, ...]; a batch mesh's rank part too)
 steps as the JAX package steps it: :func:`prime_premac` returns it as it
@@ -129,6 +133,8 @@ from .multiphase import (
     capillary_collide_2d,
     check_kernel_grid,
     check_supported,
+    mesh_blocks,
+    on_block,
     storage_dtype,
     stream_2d,
 )
@@ -218,19 +224,26 @@ def _mag_boundary_only(magnetic_flags, phys_extent=None) -> bool:
     return not bool((interior == obs).any())
 
 
-def _scalar_physics_ok(params: SimulationParams, magnetic_flags) -> bool:
+def _scalar_physics_ok(params: SimulationParams, magnetic_flags, blk=None) -> bool:
     """Preconditions of the tau == 1 scalar Poisson collapse (the JAX
     package's ``_scalar_physics_ok`` :808-829): tau == 1, ``scalar_carry``,
     h not stored in float64 (the carry is float32), an axis-aligned field,
     and magnetic obstacles on the boundary ring only (the declared
-    ``mag_flags_shell`` counts only without ``phys_extent``)."""
+    ``mag_flags_shell`` counts only without ``phys_extent``); with ``blk``
+    (a rank's block of a 2D state on a y/x mesh) the ring is the whole
+    domain's, checked on every rank."""
+    if blk is not None:
+        from ..parallel.step2d import mag_boundary_only
+
+        boundary_only = mag_boundary_only(blk, magnetic_flags)
+    else:
+        boundary_only = _mag_boundary_only(magnetic_flags, params.phys_extent)
     return (
         params.scalar_carry
         and float(params.tau) == 1.0
         and params.h_dtype != "float64"
         and params.h_ext_axis in range(params.dim)
-        and ((params.mag_flags_shell and params.phys_extent is None)
-             or _mag_boundary_only(magnetic_flags, params.phys_extent))
+        and ((params.mag_flags_shell and params.phys_extent is None) or boundary_only)
     )
 
 
@@ -346,20 +359,23 @@ def _hcz_capillary_box(params: SimulationParams, rho, rho_ca, vel, flags, densit
             _from_phys(params, zeros, dfai_p, True), _from_phys(params, zeros, dprho_p, True))
 
 
-def _scalar_convert(params: SimulationParams, state):
+def _scalar_convert(params: SimulationParams, state, blk=None):
     """(h, cmask) that the step carries: the scalar pair (s, s_prev) and its
     cmask from a canonical channel h (zeros at init, post-collision h of any
     tau == 1 run) when the collapse applies, else the channel h as it is
     (JAX ``_prime_steady`` :926-929).  The carry is float32 whatever
     ``h_dtype`` stores the channel h in (JAX ``_scalar_convert`` :889-891).
     A batch of more than one keeps its channel h, in 2D too (JAX
-    ``_scalar_carry_ok`` :832-842)."""
+    ``_scalar_carry_ok`` :832-842).  With ``blk`` (a 2D state on a y/x
+    mesh) the rank's block: the obstacle check over the whole domain, the
+    wall channels read across the block's faces."""
     if (state.h.shape[1] == 2 or state.h.shape[0] != 1
-            or not _scalar_physics_ok(params, state.magnetic_flags)):
+            or not _scalar_physics_ok(params, state.magnetic_flags, blk)):
         return state.h, state.cmask
     s = scalar_from_h(state.h, state.magnetic_flags)
-    sp = s_prev_from_h(state.h, state.magnetic_flags)
-    return torch.cat([s, sp], dim=1).to(torch.float32), make_cmask(state.magnetic_flags)
+    sp = on_block(blk, s_prev_from_h)(state.h, state.magnetic_flags)
+    return (torch.cat([s, sp], dim=1).to(torch.float32),
+            on_block(blk, make_cmask)(state.magnetic_flags))
 
 
 def _on_mesh(state, mesh, device):
@@ -369,6 +385,17 @@ def _on_mesh(state, mesh, device):
     if dev.type != mesh.device.type:
         raise ValueError(f"device={dev} does not match the mesh's device {mesh.device}")
     return dev.type
+
+
+def _split_gates(params: SimulationParams, mesh) -> None:
+    """Raise for a 3D state on a split grid the port does not step, before
+    the state's own checks read its cut arrays: a y or x axis, and the
+    padded layout (ROADMAP A12 slice 4b)."""
+    from ..parallel import step3d
+
+    step3d.check_slab_mesh(mesh)
+    if params.phys_extent is not None:
+        raise step3d.unported("phys_extent (the padded layout) on a split grid", "4b")
 
 
 def _slab_gates(params: SimulationParams, state, mesh, plain, primed):
@@ -382,12 +409,8 @@ def _slab_gates(params: SimulationParams, state, mesh, plain, primed):
     from ..parallel import step3d
 
     shape = step3d.global_shape(state.f.shape, mesh)
-    if params.dim != 3:
-        raise step3d.unported("a 2D state", 4)
-    if params.phys_extent is not None:
-        raise step3d.unported("phys_extent (the padded layout)", 4)
     if state.f.shape[0] != 1:
-        raise step3d.unported(f"{state.f.shape[0]} batch elements a rank", 7)
+        raise step3d.unported(f"{state.f.shape[0]} batch elements a rank on a z-slab mesh", 7)
     if shape[2] // mesh.nz < 4:
         raise ValueError(f"a slab of {shape[2] // mesh.nz} planes: the slab forms need 4 or "
                          "more planes a rank; use fewer ranks along z")
@@ -457,11 +480,15 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
     too) is returned as it is, in 2D and 3D, as the JAX package returns it
     (``fused_step_supported`` and the scalar carry need B == 1): it steps
     un-carried on its channel h."""
+    blk = None
     if mesh is not None:
         from ..parallel.step3d import dp_dispatch
 
         device = _on_mesh(state, mesh, device)
-        if not dp_dispatch(mesh):
+        if params.dim == 2:
+            blk = mesh_blocks(params, state, mesh, device)
+        elif not dp_dispatch(mesh):
+            _split_gates(params, mesh)
             check_device(state.f, device)
             _check_supported(params, state)
             if state.premac is not None:
@@ -474,7 +501,7 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
         # and would stall every step's enqueue
         return state
     if params.dim == 2:
-        h, cmask = _scalar_convert(params, state)
+        h, cmask = _scalar_convert(params, state, blk)
         return state.replace(h=h, cmask=cmask)
     validate_mag_shell(params, state.magnetic_flags)
     if state.f.shape[0] != 1:
@@ -598,18 +625,22 @@ def ferrofluid_step(params: SimulationParams, state: FerrofluidState, *,
     step.  ``plain=True`` runs the kernels' plain PyTorch versions (on any
     device) instead of the kernels.  With ``mesh`` the state is this rank's
     part (module docstring)."""
+    blk = None
     if mesh is not None:
         from ..parallel.step3d import dp_dispatch
 
         device = _on_mesh(state, mesh, device)
-        if not dp_dispatch(mesh):
+        if params.dim == 2:
+            blk = mesh_blocks(params, state, mesh, device)
+        elif not dp_dispatch(mesh):
+            _split_gates(params, mesh)
             check_device(state.f, device)
             _check_supported(params, state)
             return _ferrofluid_step_slab(params, state, mesh, plain)
     check_device(state.f, device)
     _check_supported(params, state)
     if params.dim == 2:
-        return _ferrofluid_step_2d(params, state)
+        return _ferrofluid_step_2d(params, state, blk)
     check_kernel_grid(state.f, plain)
     gas = dict(rho_gas=float(params.rho_gas), rho_fluid=float(params.rho_fluid),
                density_gas=float(params.density_gas),
@@ -680,25 +711,28 @@ def ferrofluid_step(params: SimulationParams, state: FerrofluidState, *,
     )
 
 
-def _ferrofluid_step_2d(params: SimulationParams, state):
+def _ferrofluid_step_2d(params: SimulationParams, state, blk=None):
     """One 2D step: the JAX step's unfused branch (:358-371), the solve by
     the form of ``state.h`` (:394-507) and the shared HCZ stages with H2
-    and phi (:636-766)."""
-    f, rho, vel, density, g, m0g, m1g = stream_2d(params, state)
+    and phi (:636-766); with ``blk`` on the rank's block of a y/x mesh
+    (``parallel/step2d.py``: the same ops, the solve's sweeps in rounds)."""
+    f, rho, vel, density, g, m0g, m1g = stream_2d(params, state, blk)
     phi = phi_from_density(density, params.density_gas, params.density_fluid)
     hext = _hext_static(params)
     dx, dt = float(params.dx), float(params.dt)
     if state.h.shape[1] == 2:
-        rhs = poisson_rhs_scaled(phi, state.magnetic_flags, hext, tau=float(params.tau),
-                                 dx=dx, dt=dt)
+        rhs = on_block(blk, poisson_rhs_scaled)(phi, state.magnetic_flags, hext,
+                                                tau=float(params.tau), dx=dx, dt=dt)
         H2, h = solve_H_int_scalar(state.h, state.cmask, rhs, n_iters=params.poisson_iters,
-                                   dx=dx, h2_ext=hext, magnetic_flags=state.magnetic_flags)
+                                   dx=dx, h2_ext=hext, magnetic_flags=state.magnetic_flags,
+                                   blocks=blk)
     else:
         H2, h = solve_H_int(params.lattice, state.h, phi, state.magnetic_flags,
                             state.H_ext_mac, tau=float(params.tau),
-                            n_iters=params.poisson_iters, dx=dx, dt=dt, h2_ext=hext)
+                            n_iters=params.poisson_iters, dx=dx, dt=dt, h2_ext=hext,
+                            blocks=blk)
     f, g, rho, vel, density, pressure, force = capillary_collide_2d(
-        params, state, f, g, rho, vel, density, m0g, m1g, H2, phi)
+        params, state, f, g, rho, vel, density, m0g, m1g, H2, phi, blk=blk)
     return state.replace(f=f, g=g, h=h, rho=rho, vel=vel, density=density,
                          pressure=pressure, force=force, phi=phi, step=state.step + 1)
 

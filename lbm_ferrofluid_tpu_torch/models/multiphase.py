@@ -24,10 +24,12 @@ gravity is always a tuple of floats, so it runs the branch that
 ``hcz_capillary`` itself picks for a concrete gravity.  In 2D (D2Q9) the
 same six stages run the plain ops on any device, with KBC on g when
 ``params.kbc_type`` asks for it, as the JAX package runs 2D through
-``jnp`` only.  Every entry point runs on the card unless ``device="cpu"``;
-``plain=True`` runs the kernels' plain PyTorch versions.  f and g may be
-stored in bfloat16 (``fg_dtype``), on the kernels' bfloat16 forms on the
-card.
+``jnp`` only.  With ``mesh`` a 2D state is the rank's block of a y/x mesh
+and its ops run on it extended by ghost cells (``parallel/step2d.py``),
+a 3D HCZ state a z-slab (:func:`_hcz_step_slab`).  Every entry point runs
+on the card unless ``device="cpu"``; ``plain=True`` runs the kernels'
+plain PyTorch versions.  f and g may be stored in bfloat16
+(``fg_dtype``), on the kernels' bfloat16 forms on the card.
 """
 
 from __future__ import annotations
@@ -146,25 +148,57 @@ def init_sc_state(params: SimulationParams, rho, density, vel, flags, *,
                     force=force, flags=torch.as_tensor(flags, device=dev), step=0)
 
 
+def on_block(blk, fn, depth=None):
+    """``fn`` on this rank's block of a 2D domain split over a y/x mesh
+    (``parallel/step2d.py:Blocks.op``: its fields extended by the op's
+    ghost cells, its outputs cut back), or ``fn`` itself on one device
+    (``blk`` None)."""
+    return fn if blk is None else blk.op(fn, depth)
+
+
+def mesh_blocks(params: SimulationParams, state, mesh, device):
+    """The :class:`~..parallel.step2d.Blocks` of a 2D step on ``mesh``, or
+    None where each rank steps its part on the single-device route (a batch
+    mesh); a 3D state on a split grid raises (ROADMAP A12 slice 4b), as
+    does a 2D state on a z mesh.  Checks ``device`` against the mesh's."""
+    from ..parallel import step2d, step3d
+
+    if device is not None and torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device={device} does not match the mesh's device {mesh.device}")
+    if step3d.dp_dispatch(mesh):
+        return None
+    if params.dim != 2:
+        raise step3d.unported(f"the {params.lattice.name} step on a split grid "
+                              f"(z={mesh.nz}, y={mesh.ny}, x={mesh.nx})", "4b")
+    return step2d.blocks(mesh, state.f)
+
+
 def sc_step(params: SimulationParams, state: HCZState, *, device=None,
-            plain=False) -> HCZState:
+            plain=False, mesh=None) -> HCZState:
     """One Shan-Chen step (JAX ``sc_step_impl`` :65-106), plain PyTorch on
     any device; ``plain`` is accepted for the runner's and the tests'
-    uniform calls and changes nothing."""
+    uniform calls and changes nothing.  With ``mesh`` the state is this
+    rank's part: a 2D state on a y/x mesh steps on its block
+    (``parallel/step2d.py``), bit for bit to one device; a batch mesh
+    steps each rank's elements."""
     del plain
+    blk = None
+    if mesh is not None:
+        blk = mesh_blocks(params, state, mesh, device)
+        device = mesh.device.type if device is None else device
     check_device(state.f, device)
     check_supported(params, state.f, hcz=False)
     lat = params.lattice
     dx, dt = float(params.dx), float(params.dt)
-    f = stream(lat, state.f)
+    f = on_block(blk, stream)(lat, state.f)
     rho, vel = macro_moments(lat, f, state.rho, state.vel, state.flags, dx=dx, dt=dt)
     density = rho_to_density(rho, rho_gas=params.rho_gas, rho_fluid=params.rho_fluid,
                              density_gas=params.density_gas,
                              density_fluid=params.density_fluid)
     f = bounce_back(lat, f, state.flags)
-    f, force = sc_collide(lat, f, rho, density, vel, state.flags, tau=params.tau,
-                          density_wall=0.5 * (params.density_gas + params.density_fluid),
-                          dx=dx, dt=dt)
+    f, force = on_block(blk, sc_collide)(
+        lat, f, rho, density, vel, state.flags, tau=params.tau,
+        density_wall=0.5 * (params.density_gas + params.density_fluid), dx=dx, dt=dt)
     return state.replace(f=f, rho=rho, vel=vel, density=density, force=force,
                          step=state.step + 1)
 
@@ -210,27 +244,32 @@ def _gas(params: SimulationParams) -> dict:
                 density_fluid=float(params.density_fluid))
 
 
-def stream_2d(params: SimulationParams, state):
-    """Stages 1-2 in 2D (plain ops): (f', rho, vel, density, g', m0g, m1g)."""
+def stream_2d(params: SimulationParams, state, blk=None):
+    """Stages 1-2 in 2D (plain ops; on the rank's block with ``blk``):
+    (f', rho, vel, density, g', m0g, m1g)."""
     lat = params.lattice
-    f, rho, vel, density = stream_bounce_macro_ops(
+    f, rho, vel, density = on_block(blk, stream_bounce_macro_ops)(
         lat, state.f, state.flags, state.rho, state.vel, c=float(params.dx / params.dt),
         **_gas(params))
-    g, m0g, m1g = stream_bounce_moments_ops(lat, state.g, state.flags)
+    g, m0g, m1g = on_block(blk, stream_bounce_moments_ops)(lat, state.g, state.flags)
     return f, rho, vel, density, g, m0g, m1g
 
 
 def capillary_collide_2d(params: SimulationParams, state, f, g, rho, vel, density, m0g,
-                         m1g, H2=None, phi=None):
+                         m1g, H2=None, phi=None, blk=None):
     """Stages 4-6 in 2D (plain ops; JAX ``_hcz_step_shared`` :180-256 and the
     ferrofluid step's unfused tail): the contact angle, the capillary stage
     (with the Kelvin force when ``H2`` and ``phi`` are given), pinning and
-    the HCZ collide (KBC on g with ``params.kbc_type``).  Returns (f', g',
-    rho_ca, vel, density, pressure, force)."""
+    the HCZ collide (KBC on g with ``params.kbc_type``); on the rank's block
+    with ``blk``.  Returns (f', g', rho_ca, vel, density, pressure,
+    force)."""
     dx, dt = float(params.dx), float(params.dt)
-    rho_ca = contact_angle_boundary(rho, state.flags, float(params.contact_angle))
-    _, vel, density, pressure, force, dfai, dprho = hcz_capillary(
-        rho, vel, state.flags, density, state.pressure, rho_ca, H2, phi, m0g, m1g, g=g,
+    rho_ca = on_block(blk, contact_angle_boundary)(rho, state.flags,
+                                                   float(params.contact_angle))
+    # the capillary stage takes g's moments as m0g, m1g (it reads g only
+    # where they are None)
+    _, vel, density, pressure, force, dfai, dprho = on_block(blk, hcz_capillary)(
+        rho, vel, state.flags, density, state.pressure, rho_ca, H2, phi, m0g, m1g,
         kappa=float(params.kappa),
         gravity=torch.as_tensor(params.gravity_vec(), dtype=vel.dtype, device=vel.device),
         dx=dx, dt=dt, **_gas(params),
@@ -251,10 +290,9 @@ def _hcz_step_slab(params: SimulationParams, state, mesh, plain):
     from ..parallel import step3d
 
     shape = step3d.global_shape(state.f.shape, mesh)
-    if params.dim != 3:
-        raise step3d.unported("a 2D state", 4)
+    step3d.check_slab_mesh(mesh)
     if state.f.shape[0] != 1:
-        raise step3d.unported(f"{state.f.shape[0]} batch elements a rank", 7)
+        raise step3d.unported(f"{state.f.shape[0]} batch elements a rank on a z-slab mesh", 7)
     if shape[2] // mesh.nz < 4:
         raise ValueError(f"a slab of {shape[2] // mesh.nz} planes: the slab forms need 4 or "
                          "more planes a rank; use fewer ranks along z")
@@ -293,22 +331,26 @@ def hcz_step(params: SimulationParams, state: HCZState, *, device=None,
     rank's part (``parallel/sharding.py``): on a batch mesh (nz == 1) each
     rank steps its own batch elements; on a z-slab mesh (``nz > 1``, or
     ``slab=True``) a 3D state steps on the kernels' slab forms
-    (:func:`_hcz_step_slab`), bit for bit to one device."""
+    (:func:`_hcz_step_slab`), and on a y/x mesh a 2D state steps on its
+    block (``parallel/step2d.py``), each bit for bit to one device."""
+    blk = None
     if mesh is not None:
         from ..parallel.step3d import dp_dispatch
 
+        if params.dim == 2:
+            blk = mesh_blocks(params, state, mesh, device)
         device = mesh.device.type if device is None else device
-        if not dp_dispatch(mesh):
+        if params.dim != 2 and not dp_dispatch(mesh):
             check_device(state.f, device)
             check_supported(params, state.f)
             return _hcz_step_slab(params, state, mesh, plain)
     check_device(state.f, device)
     check_supported(params, state.f)
     if params.dim == 2:
-        f, rho, vel, density, g, m0g, m1g = stream_2d(params, state)
+        f, rho, vel, density, g, m0g, m1g = stream_2d(params, state, blk)
         vel = _maybe_pin(state, vel)
         f, g, rho, vel, density, pressure, force = capillary_collide_2d(
-            params, state, f, g, rho, vel, density, m0g, m1g)
+            params, state, f, g, rho, vel, density, m0g, m1g, blk=blk)
         return state.replace(f=f, g=g, rho=rho, vel=vel, density=density,
                              pressure=pressure, force=force, step=state.step + 1)
     check_kernel_grid(state.f, plain)

@@ -39,14 +39,20 @@ class SimulationRunner:
     ``sc_step``, ``hcz_step``, ``ferrofluid_step`` or any compatible
     function) over many steps, as the JAX runner does (runner.py:39-47);
     a step function that takes a ``device`` keyword is given the runner's.
+    With ``mesh`` (``parallel/mesh.py``) the state is this rank's part: the
+    step function and priming are given the mesh, and the runner runs and
+    synchronises on the mesh's device (each rank times its own).
 
     Runs on the card unless ``device="cpu"``."""
 
-    def __init__(self, params: SimulationParams, step_fn, *, device=None):
+    def __init__(self, params: SimulationParams, step_fn, *, device=None, mesh=None):
         self.params = params
         self._step = step_fn
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self._step_kw = {"device": self.device} if _takes_device(step_fn) else {}
+        if mesh is not None:
+            self._step_kw["mesh"] = mesh
 
     def step(self, state):
         return self._step(self.params, state, **self._step_kw)
@@ -56,7 +62,7 @@ class SimulationRunner:
         states without ``premac`` are returned as they are (the JAX
         runner's ``_prepare``, :56-64)."""
         if getattr(state, "premac", "absent") is None:
-            return prime_premac(self.params, state, device=self.device)
+            return prime_premac(self.params, state, device=self.device, mesh=self.mesh)
         return state
 
     def run(self, state, n_steps: int, *, io_interval: int = 0, io_fn=None,

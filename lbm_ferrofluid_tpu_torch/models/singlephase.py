@@ -25,7 +25,7 @@ from ..ops.kernels.stream3d import stream_bounce_moments_plain as b8a_plain
 from ..ops.stream import stream_bounce_moments
 from ..utils.device import check_device, resolve_device
 from ..utils.types import CellType, KBCType
-from .multiphase import check_kernel_grid, check_supported
+from .multiphase import check_kernel_grid, check_supported, mesh_blocks, on_block
 from .params import SimulationParams
 from .state import SinglePhaseState
 
@@ -46,9 +46,16 @@ def init_state(params: SimulationParams, rho, vel, flags, force=None, *,
 
 
 def step(params: SimulationParams, state: SinglePhaseState, *, device=None,
-         plain=False) -> SinglePhaseState:
+         plain=False, mesh=None) -> SinglePhaseState:
     """One single-phase step.  3D launches B8a once on the card unless
-    ``plain=True``; 2D launches no kernel of the port."""
+    ``plain=True``; 2D launches no kernel of the port.  With ``mesh`` the
+    state is this rank's part: a 2D state on a y/x mesh steps on its block
+    (``parallel/step2d.py``), bit for bit to one device; a batch mesh
+    steps each rank's elements."""
+    blk = None
+    if mesh is not None:
+        blk = mesh_blocks(params, state, mesh, device)
+        device = mesh.device.type if device is None else device
     check_device(state.f, device)
     check_supported(params, state.f, hcz=False)
     lat = params.lattice
@@ -57,7 +64,7 @@ def step(params: SimulationParams, state: SinglePhaseState, *, device=None,
         check_kernel_grid(state.f, plain, ("B8a",))
         f, m0, m1 = (b8a_plain if plain else b8a)(state.f, state.flags)
     else:
-        f, m0, m1 = stream_bounce_moments(lat, state.f, state.flags)
+        f, m0, m1 = on_block(blk, stream_bounce_moments)(lat, state.f, state.flags)
     is_obs = state.flags == int(CellType.OBSTACLE)
     rho = torch.where(is_obs, state.rho, m0)
     vel = torch.where(is_obs, state.vel, m1 * ((dx / dt) / rho))

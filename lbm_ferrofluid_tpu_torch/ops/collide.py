@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..lattice import Lattice, get_lattice
-from ..utils.types import CellType, KBCType, widen
+from ..utils.types import CellType, KBCType, chan_sum, widen
 from .equilibrium import feq, gamma_quadratic, geq
 from .moments import eos_pressure, rho_to_density
 from .stencils import isotropic_grad, isotropic_laplacian, rep_pad_interior
@@ -85,19 +85,19 @@ def kbc_moment_split(lat: Lattice, f, rho, vel, kbc_type, *, dx=1.0, dt=1.0):
         bx = ex - vel[:, 0:1]
         by = ey - vel[:, 1:2]
         c2 = c * c
-        m20 = c2 * torch.sum(bx * bx * fr, dim=1)
-        m02 = c2 * torch.sum(by * by * fr, dim=1)
-        m11 = c2 * torch.sum(bx * by * fr, dim=1)
-        m21 = c2 * torch.sum(bx * bx * by * fr, dim=1)
-        m12 = c2 * torch.sum(bx * by * by * fr, dim=1)
-        m22 = c2 * torch.sum(bx * bx * by * by * fr, dim=1)
+        m20 = c2 * chan_sum(bx * bx * fr)
+        m02 = c2 * chan_sum(by * by * fr)
+        m11 = c2 * chan_sum(bx * by * fr)
+        m21 = c2 * chan_sum(bx * bx * by * fr)
+        m12 = c2 * chan_sum(bx * by * by * fr)
+        m22 = c2 * chan_sum(bx * bx * by * by * fr)
     else:
-        m20 = (c * c) * torch.sum(ex * ex * fr, dim=1)
-        m02 = (c * c) * torch.sum(ey * ey * fr, dim=1)
-        m11 = (c * c) * torch.sum(ex * ey * fr, dim=1)
-        m21 = (c * c * c) * torch.sum(ex * ex * ey * fr, dim=1)
-        m12 = (c * c * c) * torch.sum(ex * ey * ey * fr, dim=1)
-        m22 = (c * c * c * c) * torch.sum(ex * ex * ey * ey * fr, dim=1)
+        m20 = (c * c) * chan_sum(ex * ex * fr)
+        m02 = (c * c) * chan_sum(ey * ey * fr)
+        m11 = (c * c) * chan_sum(ex * ey * fr)
+        m21 = (c * c * c) * chan_sum(ex * ex * ey * fr)
+        m12 = (c * c * c) * chan_sum(ex * ey * ey * fr)
+        m22 = (c * c * c * c) * chan_sum(ex * ex * ey * ey * fr)
     T = m20 + m02
     N = m20 - m02
     PI = m11
@@ -134,9 +134,9 @@ def _entropic_relax(lat: Lattice, f, feq_val, rho, vel, kbc_type, tau, *, dx, dt
           - kbc_moment_split(lat, feq_val, rho, vel, kbc_type, dx=dx, dt=dt))
     dh = (f - feq_val) - ds
     beta = 0.5 / tau
-    num = torch.sum(ds * dh / feq_val, dim=1, keepdim=True)
-    den = torch.sum(dh * dh / feq_val, dim=1, keepdim=True)
-    scale = torch.sum(feq_val, dim=1, keepdim=True)
+    num = chan_sum(ds * dh / feq_val, keepdim=True)
+    den = chan_sum(dh * dh / feq_val, keepdim=True)
+    scale = chan_sum(feq_val, keepdim=True)
     ill = den <= 1e-10 * torch.abs(scale)
     one = torch.ones((), dtype=den.dtype, device=den.device)
     gamma = torch.where(
@@ -306,11 +306,11 @@ def recover_macros(flags, vel, pressure, density, force, dprho, g_sum, g_mom, g,
         lat = get_lattice(g.ndim - 2)
         e = torch.as_tensor(lat.e.T.astype(np.float64), dtype=g.dtype, device=g.device)
         g_mom = torch.cat(
-            [torch.sum(g * e[d].reshape(1, -1, *([1] * lat.dim)), dim=1, keepdim=True)
+            [chan_sum(g * e[d].reshape(1, -1, *([1] * lat.dim)), keepdim=True)
              for d in range(lat.dim)], dim=1,
         )
     if g_sum is None:
-        g_sum = torch.sum(g, dim=1, keepdim=True)
+        g_sum = chan_sum(g, keepdim=True)
     macro_vel = (g_mom * c + 0.5 * dt * RT * force) / RT / density
     is_fluid = flags == int(CellType.FLUID)
     vel = torch.where(is_fluid, macro_vel, vel)

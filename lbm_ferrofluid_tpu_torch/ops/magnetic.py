@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..lattice import Lattice
-from ..utils.types import CellType, widen
+from ..utils.types import CellType, chan_sum, widen
 from .collide import chi_of_phi
 from .equilibrium import heq
 from .stencils import (
@@ -41,7 +41,7 @@ from .stream import bounce_back, stream
 
 __all__ = [
     "poisson_rhs_scaled", "magnetic_sweep", "solve_H_int", "solve_H_int_scalar",
-    "solve_psi_scalar", "maybe_h2", "h_int_from_psi",
+    "solve_psi_scalar", "maybe_h2", "h_int_from_psi", "channel_sweeps_2d",
 ]
 
 
@@ -124,7 +124,7 @@ def magnetic_sweep(lat: Lattice, h, phi, flags, H_ext_mac, *, tau, dx=1.0, dt=1.
     h_dtype, h = h.dtype, widen(h)
     w = torch.as_tensor(lat.w_bcast(np.float64), dtype=h.dtype, device=h.device)
     w0 = float(lat.weights[0])
-    psi = torch.sum(h[:, 1:], dim=1, keepdim=True) / (1.0 - w0)
+    psi = chan_sum(h[:, 1:], keepdim=True) / (1.0 - w0)
     heq_val = heq(lat, psi)
     chi = chi_of_phi(phi, dx)
     rhs = _div_staggered(chi, H_ext_mac) * dx / (1.0 + chi)
@@ -146,8 +146,15 @@ def h_int_from_psi(psi, magnetic_flags, *, dx, h2_ext, grad=None):
     return maybe_h2(-grad(substitute_obstacles(psi, magnetic_flags), dx=dx), h2_ext)
 
 
+def _on(blocks, fn, depth=None):
+    """``fn``, or ``fn`` on a rank's block of a 2D grid split over a y/x
+    mesh (``parallel/step2d.py:Blocks.op``)."""
+    return fn if blocks is None else blocks.op(fn, depth)
+
+
 def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters=30,
-                dx=1.0, dt=1.0, rhs_scaled=None, h2_ext=None, plain=False, mesh=None):
+                dx=1.0, dt=1.0, rhs_scaled=None, h2_ext=None, plain=False, mesh=None,
+                blocks=None):
     """``n_iters`` sweeps of [stream -> bounce-back -> relaxation] on the
     Q-channel h; returns (H_int of the last sweep's psi, h'), or (H2, h')
     with ``h2_ext``.
@@ -169,8 +176,11 @@ def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters
     h2=True)`` admits it; otherwise (and without a static field) the psi
     route's slab forms, the substitution with its z pad at the domain's
     true edges only (JAX pads the whole domain, :466-475) and B10a with
-    one psi plane a side.  2D runs the JAX body (:480-502) on any device.
-    ``rhs_scaled`` defaults to :func:`poisson_rhs_scaled` of ``phi``.
+    one psi plane a side.  2D runs the JAX body (:480-502) on any device;
+    with ``blocks`` (``parallel/step2d.py:Blocks``, a rank's block of a y/x
+    mesh) on the block, the sweeps in rounds of k on a k-cell halo, bit for
+    bit to one device.  ``rhs_scaled`` defaults to
+    :func:`poisson_rhs_scaled` of ``phi``.
 
     The trailing stage multiplies the gradient's sums by f32(-1/(12 dx)),
     as the TPU's; B10a (the psi route) divides them by 12 dx: the two
@@ -183,8 +193,8 @@ def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters
     at bfloat16 its ``add_h`` uses weights rounded to bfloat16 (within
     0.2 %)."""
     if rhs_scaled is None:
-        rhs_scaled = poisson_rhs_scaled(phi, magnetic_flags, h2_ext, tau=tau, dx=dx, dt=dt,
-                                        H_ext_mac=H_ext_mac)
+        rhs_scaled = _on(blocks, poisson_rhs_scaled)(phi, magnetic_flags, h2_ext, tau=tau,
+                                                     dx=dx, dt=dt, H_ext_mac=H_ext_mac)
     if lat.dim == 3:
         from .kernels import poisson, stencil3d
 
@@ -214,6 +224,17 @@ def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters
         grad = stencil3d.grad_fields_plain if plain else stencil3d.grad_fields
         h, psi = sweeps(h, magnetic_flags, rhs_scaled, **kw)
         return h_int_from_psi(psi, magnetic_flags, dx=dx, h2_ext=h2_ext, grad=grad), h
+    psi = None
+    for k in [n_iters] if blocks is None else blocks.rounds(n_iters):
+        h, psi = _on(blocks, channel_sweeps_2d, k)(lat, h, magnetic_flags, rhs_scaled, tau=tau,
+                                                   n_iters=k)
+    return _on(blocks, h_int_from_psi)(psi, magnetic_flags, dx=dx, h2_ext=h2_ext), h
+
+
+def channel_sweeps_2d(lat: Lattice, h, magnetic_flags, rhs_scaled, *, tau, n_iters):
+    """``n_iters`` sweeps of [stream -> bounce-back -> relaxation] on the
+    D2Q9 channel h (the JAX body, :480-499); returns (h', psi of the last
+    sweep, None without a sweep)."""
     h_dtype = h.dtype
     w = torch.as_tensor(lat.w_bcast(np.float64), dtype=widen(h[:, :1]).dtype,
                         device=h.device)
@@ -223,14 +244,14 @@ def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters
     psi = None
     for _ in range(n_iters):
         hf = widen(bounce_back(lat, stream(lat, h), magnetic_flags))
-        psi = torch.sum(hf[:, 1:], dim=1, keepdim=True) / (1.0 - w0)
+        psi = chan_sum(hf[:, 1:], keepdim=True) / (1.0 - w0)
         collision_h = (1.0 - 1.0 / tau) * hf + heq(lat, psi) / tau + add_h
         h = torch.where(is_obs, hf, collision_h).to(h_dtype)
-    return h_int_from_psi(psi, magnetic_flags, dx=dx, h2_ext=h2_ext), h
+    return h, psi
 
 
 def solve_H_int_scalar(s2, cmask, rhs_scaled, *, n_iters=30, dx=1.0, h2_ext,
-                       magnetic_flags=None, plain=False):
+                       magnetic_flags=None, plain=False, blocks=None):
     """Scalar-collapse magnetic solve at tau == 1; returns (H2, s2').
 
     ``s2`` is the fused [1, 2, *res] (s, s_prev) carry and ``cmask`` the
@@ -240,11 +261,14 @@ def solve_H_int_scalar(s2, cmask, rhs_scaled, *, n_iters=30, dx=1.0, h2_ext,
     version on CPU tensors or when ``plain`` is set.  2D: the exact-order
     sweeps (:func:`ops.scalar_poisson.scalar_sweeps_exact`) and the 2D
     gradient of the last psi on any device, which need ``magnetic_flags``
-    (JAX ``solve_H_int_scalar`` :229-257)."""
+    (JAX ``solve_H_int_scalar`` :229-257); with ``blocks`` on a rank's
+    block of a y/x mesh, as :func:`solve_H_int`."""
     if s2.ndim == 4:
-        psi, s, sp = scalar_sweeps_exact(s2[:, :1], s2[:, 1:2], rhs_scaled, magnetic_flags,
-                                         n_iters)
-        return (h_int_from_psi(psi, magnetic_flags, dx=dx, h2_ext=h2_ext),
+        psi, s, sp = None, s2[:, :1], s2[:, 1:2]
+        for k in [n_iters] if blocks is None else blocks.rounds(n_iters):
+            psi, s, sp = _on(blocks, scalar_sweeps_exact, k)(s, sp, rhs_scaled,
+                                                             magnetic_flags, k)
+        return (_on(blocks, h_int_from_psi)(psi, magnetic_flags, dx=dx, h2_ext=h2_ext),
                 torch.cat([s, sp], dim=1))
     from .kernels.scalar_poisson import scalar_wavefront, scalar_wavefront_plain
 

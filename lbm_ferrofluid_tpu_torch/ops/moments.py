@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from ..lattice import Lattice
-from ..utils.types import CellType
+from ..utils.types import CellType, chan_sum
 
 __all__ = ["macro_moments", "rho_to_density", "eos_pressure", "phi_from_density",
            "vorticity_2d"]
@@ -20,14 +20,14 @@ def macro_moments(lat: Lattice, f, rho, vel, flags, *, dx=1.0, dt=1.0):
     (rho, vel)."""
     c = dx / dt
     is_obs = flags == int(CellType.OBSTACLE)
-    rho_new = torch.where(is_obs, rho, torch.sum(f, dim=1, keepdim=True))
+    rho_new = torch.where(is_obs, rho, chan_sum(f, keepdim=True))
     moments = []
     for d in range(lat.dim):
         ed = torch.as_tensor(
             lat.e[:, d].reshape(1, lat.q, *([1] * lat.dim)).astype(np.float64),
             dtype=f.dtype, device=f.device,
         )
-        moments.append(torch.sum(f * ed, dim=1, keepdim=True))
+        moments.append(chan_sum(f * ed, keepdim=True))
     macro_vel = torch.cat(moments, dim=1) * (c / rho_new)
     return rho_new, torch.where(is_obs, vel, macro_vel)
 

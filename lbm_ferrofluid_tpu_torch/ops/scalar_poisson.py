@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..lattice import get_lattice
-from ..utils.types import CellType
+from ..utils.types import CellType, chan_sum
 
 __all__ = [
     "INV_1MW0",
@@ -92,7 +92,7 @@ def scalar_from_h(h, magnetic_flags):
     exact), masked to exact zeros at obstacle cells."""
     hf = h.to(torch.float32)
     return (
-        _psi_of(torch.sum(hf[:, 1:], dim=1, keepdim=True), _lat_of(h))
+        _psi_of(chan_sum(hf[:, 1:], keepdim=True), _lat_of(h))
         * fluid_mask(magnetic_flags)
     )
 

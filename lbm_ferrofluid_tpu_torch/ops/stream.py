@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..lattice import Lattice
-from ..utils.types import CellType, widen
+from ..utils.types import CellType, chan_sum, widen
 
 __all__ = ["stream", "bounce_back", "stream_bounce_moments", "stream_bounce_macro"]
 
@@ -43,14 +43,14 @@ def stream_bounce_moments(lat: Lattice, f, flags):
     the JAX op takes them."""
     f = bounce_back(lat, stream(lat, f), flags)
     ff = widen(f)
-    m0 = torch.sum(ff, dim=1, keepdim=True)
+    m0 = chan_sum(ff, keepdim=True)
     moments = []
     for d in range(lat.dim):
         ed = torch.as_tensor(
             lat.e[:, d].reshape(1, lat.q, *([1] * lat.dim)).astype(np.float64),
             dtype=ff.dtype, device=f.device,
         )
-        moments.append(torch.sum(ff * ed, dim=1, keepdim=True))
+        moments.append(chan_sum(ff * ed, keepdim=True))
     return f, m0, torch.cat(moments, dim=1)
 
 

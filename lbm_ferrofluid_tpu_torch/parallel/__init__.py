@@ -1,5 +1,6 @@
-"""Rank meshes, halo exchange and the z-slab decomposition of the ferrofluid
-steady state over ranks (counterpart of ``lbm_ferrofluid_tpu/parallel/``)."""
+"""Rank meshes, halo exchange, the z-slab decomposition of the 3D steps
+(``step3d``) and the y/x decomposition of the 2D steps (``step2d``) over
+ranks (counterpart of ``lbm_ferrofluid_tpu/parallel/``)."""
 
 from .halo import ring_halo, sharded_poisson_sweeps
 from .mesh import Mesh, auto_mesh_shape, initialize_distributed, make_mesh

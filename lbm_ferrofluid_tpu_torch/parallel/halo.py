@@ -1,17 +1,20 @@
-"""Ring halo exchange between the z-neighbours of a mesh.
+"""Ring halo exchange between the neighbours of a mesh along one axis.
 
 Port of ``lbm_ferrofluid_tpu/parallel/halo.py``.  The JAX package runs
-``ppermute`` over a mesh axis inside ``shard_map``; here each rank is a
+``ppermute`` over a mesh axis inside ``shard_map`` (and GSPMD inserts the
+same collective-permutes for its y/x-sharded 2D paths); here each rank is a
 process and :func:`ring_halo` is one ``torch.distributed.batch_isend_irecv``
-of a send to the ring neighbour ``shift`` steps up z and a receive from the
-one ``shift`` steps down; ``ring_halo.sent_bytes`` counts what it sends.
-With one rank along z it is the wrap of the rank's own slab, as
-``ppermute`` over a one-device axis is: a send to the rank itself through
-NCCL, else a copy on the device (gloo has no connection from a rank to
-itself, and without a group there is nothing to send through).  The transport is the mesh's backend:
-NCCL moves CUDA tensors between cards; gloo moves CPU tensors, and stages
-CUDA tensors through pinned host buffers (several ranks sharing one card,
-which NCCL refuses).
+of a send to the ring neighbour ``shift`` steps up the named axis (``z``,
+``y`` or ``x``) and a receive from the one ``shift`` steps down;
+``ring_halo.sent_bytes`` counts what it sends and ``ring_halo.exchanges``
+the exchanges.  With one rank along the axis it is the wrap of the rank's
+own part, as ``ppermute`` over a one-device axis is: a send to the rank
+itself through NCCL, else a copy on the device (gloo has no connection
+from a rank to itself, and without a group there is nothing to send
+through).  The transport is the mesh's backend: NCCL moves CUDA tensors
+between cards; gloo moves CPU tensors, and stages CUDA tensors through
+pinned host buffers (several ranks sharing one card, which NCCL refuses).
+bfloat16 travels as its 16-bit patterns.
 
 :func:`sharded_poisson_sweeps` is the JAX module's demonstration of the
 pattern on the channel-form Poisson loop, in plain PyTorch: one plane of
@@ -32,22 +35,25 @@ from .mesh import Mesh
 __all__ = ["ring_halo", "sharded_poisson_sweeps"]
 
 
-def ring_halo(x: torch.Tensor, mesh: Mesh, shift: int) -> torch.Tensor:
-    """Send ``x`` to the z-neighbour ``shift`` steps up the ring and return
-    what the neighbour ``shift`` steps down sent (a contiguous tensor of
-    ``x``'s shape, type and device)."""
+def ring_halo(x: torch.Tensor, mesh: Mesh, shift: int, axis: str = "z") -> torch.Tensor:
+    """Send ``x`` to the neighbour ``shift`` steps up the ring of mesh axis
+    ``axis`` and return what the neighbour ``shift`` steps down sent (a
+    contiguous tensor of ``x``'s shape, type and device)."""
     x = x.contiguous()
-    if mesh.nz == 1 and mesh.backend != "nccl":
+    size, idx = mesh.sizes.get(axis, 1), mesh.coords.get(axis, 0)
+    if size == 1 and mesh.backend != "nccl":
         return x.clone()
     ring_halo.sent_bytes += x.nbytes
-    dst, src = mesh.z_rank(mesh.iz + shift), mesh.z_rank(mesh.iz - shift)
+    dst, src = mesh.rank_at(**{axis: idx + shift}), mesh.rank_at(**{axis: idx - shift})
+    # gloo has no bfloat16 reduction ops and needs none here: send the bits
+    wire = x.view(torch.int16) if x.dtype == torch.bfloat16 else x
     staged = x.device.type == "cuda" and mesh.backend == "gloo"
     if staged:
-        send = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        send.copy_(x)
-        recv = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        send = torch.empty(wire.shape, dtype=wire.dtype, pin_memory=True)
+        send.copy_(wire)
+        recv = torch.empty(wire.shape, dtype=wire.dtype, pin_memory=True)
     else:
-        send, recv = x, torch.empty_like(x)
+        send, recv = wire, torch.empty_like(wire)
     # every rank makes the same exchanges in the same order, so a count of
     # them tags each one alike on both sides: a message can only meet the
     # receive of its own exchange
@@ -56,7 +62,8 @@ def ring_halo(x: torch.Tensor, mesh: Mesh, shift: int) -> torch.Tensor:
     for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst, tag=tag),
                                        dist.P2POp(dist.irecv, recv, src, tag=tag)]):
         req.wait()
-    return recv.to(x.device) if staged else recv
+    out = recv.to(x.device) if staged else recv
+    return out.view(x.dtype)
 
 
 #: bytes this rank has sent through :func:`ring_halo` (a copy sends

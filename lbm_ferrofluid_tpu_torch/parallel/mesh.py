@@ -5,9 +5,11 @@ Port of ``lbm_ferrofluid_tpu/parallel/mesh.py``.  The JAX package lays a
 one device, joined by ``torch.distributed``, and :class:`Mesh` is this
 rank's view of the ranks: its coordinates along the named axes, its device
 and the backend its exchanges use.  The axes are ``batch`` (data parallel:
-a batch element a rank) and ``z`` (slabs of the grid along z); the port
-decomposes along nothing else (``parallel/step3d.py:sharded3d_ok``), so a
-``y`` or ``x`` axis larger than 1 raises.
+a batch element a rank), ``z`` (slabs of a 3D grid along z,
+``parallel/step3d.py``), and ``y`` and ``x`` (blocks of a 2D grid,
+``parallel/step2d.py``).  A ``z`` axis larger than 1 together with a ``y``
+or ``x`` axis larger than 1 raises: the 3D paths split along z only
+(ROADMAP A12 slice 4b).
 
 The transport is chosen, never found by trying: NCCL where every rank of a
 host has a card of its own, gloo otherwise (the CPU, and several ranks that
@@ -27,7 +29,7 @@ import torch.distributed as dist
 __all__ = ["Mesh", "make_mesh", "auto_mesh_shape", "initialize_distributed", "AXES"]
 
 #: the mesh axes that may be larger than 1
-AXES = ("batch", "z")
+AXES = ("batch", "z", "y", "x")
 
 #: this process's rank on its host, as :func:`initialize_distributed` read it
 _local_rank: int | None = None
@@ -137,12 +139,28 @@ class Mesh:
         return self.sizes.get("z", 1)
 
     @property
+    def ny(self) -> int:
+        return self.sizes.get("y", 1)
+
+    @property
+    def nx(self) -> int:
+        return self.sizes.get("x", 1)
+
+    @property
     def ib(self) -> int:
         return self.coords.get("batch", 0)
 
     @property
     def iz(self) -> int:
         return self.coords.get("z", 0)
+
+    @property
+    def iy(self) -> int:
+        return self.coords.get("y", 0)
+
+    @property
+    def ix(self) -> int:
+        return self.coords.get("x", 0)
 
     def rank_at(self, **coords) -> int:
         """The rank at this rank's coordinates with ``coords`` in their
@@ -169,18 +187,23 @@ def make_mesh(axis_names: tuple = ("batch", "z"), shape: tuple | None = None, *,
     then).  ``backend`` names the exchanges' transport, by default the
     group's.  ``slab=True`` runs the slab forms at ``nz == 1`` too (their
     ghosts from the rank itself: sent to itself through NCCL, else
-    copied, :func:`~.halo.ring_halo`).  Raises where ``shape`` does not cover the ranks or
-    an axis other than ``batch`` and ``z`` is larger than 1."""
+    copied, :func:`~.halo.ring_halo`).  Raises where ``shape`` does not cover the ranks,
+    names an axis other than ``batch``, ``z``, ``y`` and ``x`` larger than 1, or puts
+    more than one rank on z and on y or x together."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     axis_names = tuple(axis_names)
     shape = auto_mesh_shape(world, len(axis_names)) if shape is None else tuple(shape)
     wide = [f"{n}={s}" for n, s in zip(axis_names, shape) if s > 1 and n not in AXES]
     if wide:
-        raise ValueError(
-            f"mesh axes {', '.join(wide)}: the port decomposes a state along batch and z only "
-            "(the y/x sharding of the JAX package's 2D and jnp paths is not ported, ROADMAP "
-            "A12); put the ranks on the batch and z axes")
+        raise ValueError(f"mesh axes {', '.join(wide)}: the port's mesh axes are "
+                         f"{', '.join(AXES)}")
+    sizes = dict(zip(axis_names, shape))
+    if sizes.get("z", 1) > 1 and sizes.get("y", 1) * sizes.get("x", 1) > 1:
+        raise NotImplementedError(
+            f"mesh {sizes}: z together with y or x is not ported (ROADMAP A12 slice 4b: a 3D "
+            "state on a mesh with a y or x axis); 3D states split along z, 2D states along "
+            "y and x")
     if len(shape) != len(axis_names) or math.prod(shape) != world:
         raise ValueError(f"mesh shape {shape} over axes {axis_names} does not cover "
                          f"{world} ranks")

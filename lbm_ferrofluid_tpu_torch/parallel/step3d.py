@@ -100,6 +100,7 @@ from .mesh import AXES, Mesh
 
 __all__ = [
     "dp_dispatch",
+    "check_slab_mesh",
     "sharded3d_ok",
     "fused_step_sharded_ok",
     "contact3d_sharded_ok",
@@ -128,15 +129,22 @@ __all__ = [
 ]
 
 #: ROADMAP A12's slices after the first, which a refusal names
-SLICES = {4: "the 2D and jnp paths, and their y/x decomposition",
+SLICES = {"4b": "a 3D state on a mesh with a y or x axis, the padded layout on a mesh, and "
+                "the 3D single-phase and Shan-Chen steps on a split grid",
           7: "the slab forms at more than one batch element a rank"}
 
 
 def dp_dispatch(mesh: Mesh) -> bool:
-    """True where each rank holds the whole z of its batch element and runs
-    the single-device kernels: a z axis of one rank, and no ``slab=True``
-    (JAX ``_dp_dispatch``)."""
-    return mesh.nz == 1 and not mesh.slab
+    """True where each rank holds the whole grid of its batch elements and
+    runs the single-device route: z, y and x axes of one rank, and no
+    ``slab=True`` (JAX ``_dp_dispatch``)."""
+    return mesh.nz * mesh.ny * mesh.nx == 1 and not mesh.slab
+
+
+def check_slab_mesh(mesh: Mesh) -> None:
+    """Raise where a 3D state meets a mesh with a y or x axis (slice 4b)."""
+    if mesh.ny * mesh.nx > 1:
+        raise unported(f"a 3D state on a mesh with y={mesh.ny}, x={mesh.nx}", "4b")
 
 
 def global_shape(local_shape, mesh: Mesh) -> tuple:
@@ -145,13 +153,13 @@ def global_shape(local_shape, mesh: Mesh) -> tuple:
     return (B * mesh.nb, C, Z * mesh.nz, *rest)
 
 
-def unported(route: str, slice_: int | None = None) -> NotImplementedError:
+def unported(route: str, slice_=None) -> NotImplementedError:
     """The error for a route of the meshed step that the port does not run
-    on a z-slab mesh, naming the ROADMAP A12 slice that would port it."""
+    on its mesh, naming the ROADMAP A12 slice that would port it."""
     where = "ROADMAP A12" if slice_ is None else f"ROADMAP A12 slice {slice_}: {SLICES[slice_]}"
     return NotImplementedError(
-        f"{route} on a z-slab mesh is not ported yet ({where}); step it on one device or on "
-        "a batch mesh (nz = 1), or prime_premac(..., mesh=) a 3D state with the scalar carry")
+        f"{route} is not ported yet ({where}); step it on one device or on a batch mesh, "
+        "a 3D state with the scalar carry on a z-slab mesh, or a 2D state on a y/x mesh")
 
 
 def sharded3d_ok(mesh: Mesh, shape) -> bool:
@@ -161,7 +169,8 @@ def sharded3d_ok(mesh: Mesh, shape) -> bool:
     if len(shape) != 5:
         return False
     B, _, Z, _, _ = shape
-    if any(size > 1 and name not in AXES for name, size in mesh.sizes.items()):
+    if mesh.ny * mesh.nx > 1 or any(size > 1 and name not in AXES
+                                    for name, size in mesh.sizes.items()):
         return False
     if B % mesh.nb or B // mesh.nb != 1:
         return False

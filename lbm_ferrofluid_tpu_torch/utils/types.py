@@ -14,7 +14,7 @@ from enum import IntEnum
 
 import torch
 
-__all__ = ["CellType", "KBCType", "widen", "celltype_colormap"]
+__all__ = ["CellType", "KBCType", "widen", "chan_sum", "celltype_colormap"]
 
 
 def widen(t: torch.Tensor) -> torch.Tensor:
@@ -26,6 +26,22 @@ def widen(t: torch.Tensor) -> torch.Tensor:
     (``.to(dtype)``, round to nearest even) only where the JAX package
     stores."""
     return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def chan_sum(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """The sum over the channels (dim 1) of ``x``.  A 2D field [B, C, Y, X]
+    on the CPU adds its channels one after another in ascending order:
+    that is torch.sum's order for the cells of its vectorized stretches,
+    but not for the cells past the last full vector of a flattened grid,
+    so torch.sum of a 2D field depends on the grid's extent there, and a
+    rank's block (``parallel/step2d.py``) would not sum as the whole domain
+    does.  3D fields, and tensors on the card, keep torch.sum."""
+    if x.ndim != 4 or x.device.type != "cpu":
+        return torch.sum(x, dim=1, keepdim=keepdim)
+    acc = x[:, 0]
+    for i in range(1, x.shape[1]):
+        acc = acc + x[:, i]
+    return acc.unsqueeze(1) if keepdim else acc
 
 
 class CellType(IntEnum):

@@ -28,9 +28,9 @@ own scene for its sharded tests (tests/test_sharded_step.py:_flagship,
   steps;
 * ``halo.sharded_poisson_sweeps`` on 2 gloo z ranks against the JAX
   package's single-device channel-form loop (tests/test_halo.py's bars);
-* the gates and refusals: Z not divisible by nz, slabs under 4 planes, a y
-  or x axis, and the routes the slab mesh does not run (the padded layout
-  and 2D); the step's gates
+* the gates and refusals: Z not divisible by nz, slabs under 4 planes, z
+  together with y or x, and the routes the slab mesh does not run (the
+  padded layout and 2D); the step's gates
   are priming's (a state primed on one device and cut onto 3- and 2-plane
   slabs, ROADMAP C7); ``auto_mesh_shape``
   against JAX's; ``initialize_distributed`` without torchrun's variables;
@@ -303,8 +303,8 @@ def test_gates_and_refusals():
     thin = _mesh((1, 8))
     with pytest.raises(ValueError, match="4 or more planes a rank"):
         prime_premac(params, shard_state(s, thin), mesh=thin)
-    with pytest.raises(ValueError, match="batch and z only"):
-        make_mesh(("z", "y"), (1, 2), device="cpu")
+    with pytest.raises(NotImplementedError, match="z together with y or x"):
+        make_mesh(("z", "y"), (2, 2), device="cpu")
     assert not step3d.sharded3d_ok(Mesh(("z", "y"), (1, 2), 0, CPU), (1, 19, 16, 8, 10))
     assert not step3d.sharded3d_ok(_mesh((1, 3)), (1, 19, 16, 8, 10))
     assert step3d.fused_step_sharded_ok(_mesh((1, 4)), (1, 19, 16, 8, 10), None)
@@ -331,17 +331,18 @@ def _routes():
         p, s = rosensweig_2d(res=(16, 16), device="cpu")
         ferrofluid_step(p, s, mesh=slab)
 
-    return {"padded": (padded, 4), "2d": (two_d, 4)}
+    return {"padded": (padded, "ROADMAP A12 slice 4b"),
+            "2d": (two_d, "2D states split along y and x")}
 
 
 @pytest.mark.parametrize("route", sorted(_routes()))
 def test_unported_meshed_routes_raise(route):
-    """Each route left raises, naming its ROADMAP A12 slice (the padded
-    layout and 2D: the y/x slice); the channel form, an un-primed
-    19-channel h and the HCZ step run on slabs
-    (tests/test_torch_parallel_channel.py)."""
-    call, slice_ = _routes()[route]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP A12 slice {slice_}"):
+    """Each route left raises: the padded layout naming its ROADMAP A12
+    slice (4b), a 2D state saying that 2D states split along y and x
+    (tests/test_torch_mesh2d.py); the channel form, an un-primed 19-channel
+    h and the HCZ step run on slabs (tests/test_torch_parallel_channel.py)."""
+    call, message = _routes()[route]
+    with pytest.raises(NotImplementedError, match=message):
         call()
 
 

@@ -435,3 +435,155 @@ def run_ranks(world, out_dir, **job):
         job.get("checkpoint", False), job.get("route", "Z")), nprocs=world,
         start_method="spawn")
     return dict(np.load(pathlib.Path(out_dir) / "steps.npz"))
+
+
+# ------------------------------------------------------------------ 2D on y/x meshes
+#: the 2D cases on y/x meshes: (model, grid, params change, prime).  bgk and
+#: kbc: the JAX package's tests/test_sharding.py single-phase scene
+#: (32x16, tau 0.6, velocities from a seed), with KBC_A for kbc; sc: the
+#: Shan-Chen drop; hcz: that file's HCZ scene (16x24: a box of liquid in an
+#: obstacle frame, contact angle 0.75 pi, gravity 1e-4), hcz_kbc
+#: droplet_spread_2d (the wetting floor, KBC_A on g); scalar and channel:
+#: rosensweig_2d with h in the scalar carry (primed) and in 9 channels,
+#: bf16 the scalar carry with f, g and h stored in bfloat16
+MESH2D_CASES = {
+    "bgk": ("single", (32, 16), {}, False),
+    "kbc": ("single", (32, 16), {"kbc_type": 1}, False),
+    "sc": ("sc", (16, 24), {}, False),
+    "hcz": ("hcz", (16, 24), {}, False),
+    "hcz_kbc": ("hcz_kbc", (16, 24), {}, False),
+    "scalar": ("ferro", (16, 24), {}, True),
+    "channel": ("ferro", (16, 24), {"scalar_carry": False}, True),
+    "bf16": ("ferro", (16, 24), {"fg_dtype": "bfloat16", "h_dtype": "bfloat16"}, True),
+}
+#: the step a model takes (``lbm_ferrofluid_tpu_torch.models`` names)
+MESH2D_STEPS = {"single": "singlephase_step", "sc": "sc_step", "hcz": "hcz_step",
+                "hcz_kbc": "hcz_step", "ferro": "ferrofluid_step"}
+
+
+def mesh2d_fields(model, res, batch=1, seed=3):
+    """(params keywords, numpy fields) of a 2D case's whole state: each
+    batch element's velocity (the single-phase scene) or density moved by
+    its own noise from ``seed``."""
+    OBS = OBSTACLE
+    rng = np.random.default_rng(seed)
+    H, W = res
+    flags = np.full((batch, 1, H, W), FLUID, np.uint8)
+    vel = np.zeros((batch, 2, H, W), np.float32)
+    if model == "single":
+        rho = np.full((batch, 1, H, W), 0.265, np.float32)
+        vel[:] = rng.uniform(-0.05, 0.05, vel.shape)
+        return dict(dim=2, tau=0.6), dict(rho=rho, vel=vel, flags=flags)
+    mp = dict(density_gas=0.02381, density_fluid=0.2508, rho_gas=0.02381, rho_fluid=0.2508)
+    flags[..., 0, :] = flags[..., -1, :] = OBS
+    flags[..., :, 0] = flags[..., :, -1] = OBS
+    rho = np.full((batch, 1, H, W), mp["rho_gas"], np.float32)
+    if model == "hcz_kbc":  # droplet_spread_2d's half disc on the floor
+        r = 0.6 * max(res) / 2
+        j, i = np.arange(H)[:, None], np.arange(W)[None, :]
+        rho[:, 0][..., j * j + (i - W / 2) ** 2 <= r * r] = mp["rho_fluid"]
+        kw = dict(kappa=0.1, tau_f=0.7, tau_g=0.8, gravity=1e-5,
+                  contact_angle=0.75 * np.pi, kbc_type=1)
+    elif model == "ferro":  # rosensweig_2d's pool
+        rho[..., : int(0.45 * H), :] = mp["rho_fluid"]
+        kw = dict(kappa=0.01, tau_f=0.7, tau_g=0.8, gravity=1e-4, contact_angle=0.75 * np.pi,
+                  mag_strength=100.0, poisson_iters=30, kbc_type=1)
+    else:
+        rho[..., H // 4: 3 * H // 4, W // 4: 3 * W // 4] = mp["rho_fluid"]
+        kw = dict(kappa=0.08, tau_f=0.7, tau_g=0.8, contact_angle=0.75 * np.pi, gravity=1e-4)
+        if model == "sc":
+            kw = dict(tau=1.0)
+    rho = (rho * (1 + 1e-3 * rng.uniform(-1, 1, rho.shape))).astype(np.float32)
+    den = rho.copy()
+    fields = dict(rho=rho, density=den, vel=vel, flags=flags)
+    if model == "ferro":
+        mflags = np.full((batch, 1, H, W), OBS, np.uint8)
+        mflags[..., :, 1:-1] = FLUID
+        fields["magnetic_flags"] = mflags
+    return dict(dim=2, **mp, **kw), fields
+
+
+def mesh2d_state(case, batch=1, res=None, storage=None):
+    """(params, whole state) of a case of :data:`MESH2D_CASES` on the CPU
+    (``res`` overrides its grid)."""
+    from lbm_ferrofluid_tpu_torch import models as pm
+
+    model, grid, change, _ = MESH2D_CASES[case]
+    kw, fd = mesh2d_fields(model, res or grid, batch)
+    params = pm.SimulationParams(**kw).replace(**change)
+    if model == "single":
+        return params, pm.init_singlephase_state(params, fd["rho"], fd["vel"], fd["flags"],
+                                                 device="cpu")
+    args = (params, fd["rho"], fd["density"], fd["vel"], fd["flags"])
+    if model == "sc":
+        return params, pm.init_sc_state(*args, device="cpu")
+    if model == "ferro":
+        return params, pm.init_ferrofluid_state(*args, fd["magnetic_flags"], device="cpu")
+    return params, pm.init_hcz_state(*args, device="cpu")
+
+
+def mesh2d_main(rank, world, port, axes, shape, jobs, steps, out_dir):
+    """One rank of 2D steps on a ('batch', 'y', 'x') mesh: for each job
+    (case, batch, grid or None), the whole state built on every rank, this
+    rank's block cut,
+    primed where the case primes, ``steps`` meshed steps through the
+    model's entry point, gathered; rank 0 writes ``<job>.npz`` with the
+    exchanges and bytes a step (``stats.``).  A job named ``roundtrip``
+    writes the whole state cut and gathered again, and this rank's
+    ``H_ext_mac`` shapes; a job named ``runner...`` steps through
+    ``SimulationRunner(..., mesh=)``, which primes."""
+    import torch
+    import torch.distributed as dist
+
+    from lbm_ferrofluid_tpu_torch import models as pm
+    from lbm_ferrofluid_tpu_torch.models.state import to_numpy
+    from lbm_ferrofluid_tpu_torch.parallel import (
+        gather_state, initialize_distributed, make_mesh, ring_halo, shard_state,
+    )
+
+    torch.set_num_threads(1)
+    out_dir = pathlib.Path(out_dir)
+    assert initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo") == world
+    try:
+        mesh = make_mesh(axes, shape, device="cpu")
+        for name, (case, batch, res) in jobs.items():
+            params, whole = mesh2d_state(case, batch, res)
+            st = shard_state(whole, mesh)
+            if name == "roundtrip":
+                back = gather_state(st, mesh)
+                if rank == 0:
+                    np.savez(out_dir / f"{name}.npz", **_flat(to_numpy(back)),
+                             mac_shapes=np.array([t.shape for t in st.H_ext_mac]))
+                continue
+            step = getattr(pm, MESH2D_STEPS[MESH2D_CASES[case][0]])
+            if name.startswith("runner"):
+                n0, b0 = ring_halo.exchanges, ring_halo.sent_bytes
+                st = pm.SimulationRunner(params, step, mesh=mesh).run(st, steps)
+            else:
+                if MESH2D_CASES[case][3]:
+                    st = pm.prime_premac(params, st, mesh=mesh)
+                n0, b0 = ring_halo.exchanges, ring_halo.sent_bytes
+                for _ in range(steps):
+                    st = step(params, st, mesh=mesh)
+            stats = dict(exchanges=(ring_halo.exchanges - n0) / steps,
+                         bytes=(ring_halo.sent_bytes - b0) / steps)
+            out = gather_state(st, mesh)
+            if rank == 0:
+                np.savez(out_dir / f"{name}.npz", **_flat(to_numpy(out)),
+                         **{"stats." + key: v for key, v in stats.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh2d(out_dir, axes, shape, jobs, steps=5):
+    """:func:`mesh2d_main` on the ranks of ``shape`` (spawned): {job: the
+    gathered state's arrays}."""
+    import math
+
+    import torch.multiprocessing as mp
+
+    world = math.prod(shape)
+    mp.start_processes(mesh2d_main, args=(world, free_port(), tuple(axes), tuple(shape), jobs,
+                                          steps, str(out_dir)),
+                       nprocs=world, start_method="spawn")
+    return {name: dict(np.load(pathlib.Path(out_dir) / f"{name}.npz")) for name in jobs}
