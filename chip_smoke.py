@@ -25,6 +25,7 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
     python3 chip_smoke.py --route-time [ROOT]  # ms a step of routes U and H at 256^3,
                                            # B = 1, of the package at ROOT
     python3 chip_smoke.py --mesh2d         # only the 2D models on y/x meshes (phase mesh2d)
+    python3 chip_smoke.py --mesh3d         # only 3D states on the block route (phase mesh3d)
 
 Phases, each printing one JSON line; any failed check exits non-zero:
 
@@ -188,7 +189,7 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    30 steps through B8a against 30 ``plain=True`` steps at phase 3's bars,
    50 timed steps, B8a once a step, B8a timed beside its bound; each 2D
    scene at its demo's default resolution (130x130, ``two_droplets_2d``
-   98x384) for 1000 steps through the runner, finite, summed rho within
+   98x384) for 500 steps through the runner, finite, summed rho within
    ``SCENE_DRIFT``, no kernel launched, and 2000 steps of ``rosensweig_2d``
    at 64x64 in bfloat16 against float32 with tests/test_bf16_physics.py's
    assertions, these ten runs in four concurrent processes of this script
@@ -242,7 +243,17 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    bit for bit to its elements' B = 1 calls, against its plain version,
    timed beside those B = 1 calls and its bound at B.  ``rosensweig_2d``
    at 130x130 with B = 16 against B = 1 (plain ops, ms a step in turns,
-   element 0 against the B = 1 run).
+   element 0 against the B = 1 run);
+10. mesh2d (``--mesh2d`` alone): the 2D models on y/x meshes as gloo ranks
+   sharing the card, bit for bit to one device (:func:`phase_mesh2d`);
+11. mesh3d (``--mesh3d`` alone): 3D states on the block route as 4 gloo
+   ranks sharing the card (:data:`MESH3D_RUNS`: Rosensweig 130x66x130 on
+   (z, y) = (2, 2) in float32 and turbo and 256^3, the channel form on
+   (y, x) = (2, 2), HCZ 130^3 on (z, y, x) = (2, 2, 1), single phase 128^3,
+   HCZ on 2-plane z-slabs), every run bit for bit to one device's steps on
+   the same route by hashes of each rank's blocks, the single-device
+   kernels' launches a step checked, ms a step beside one device's,
+   exchanges and bytes a step.
 
 The build phase reports each kernel's registers, static shared memory and
 spills as ptxas gives them.
@@ -2799,11 +2810,11 @@ def interface_heights(params, state):
 LONG_MASS_PLAIN, LONG_MASS_F32, LONG_LEVEL = 1e-3, 2e-2, 1.0
 
 
-def phase_long_horizon(dev, card, steps=2000, plain_steps=500):
+def phase_long_horizon(dev, card, steps=2000, plain_steps=250):
     """``steps`` (2000) kernel steps of Rosensweig 130x66x130 (the
     capillogue steady state) in float32 and in bfloat16 storage from the
-    same scene, and ``plain_steps`` (500; 1000 before PR 18, which cut it
-    for card time: the plain run was 55 of the phase's 59 s) bfloat16
+    same scene, and ``plain_steps`` (250; 1000, then 500, each cut for card
+    time: the plain run was 55 of the phase's 59 s, then 23 of 26) bfloat16
     steps on the plain path: after as many kernel steps, bfloat16 kernels
     against plain at ``LONG_MASS_PLAIN`` (fluid mass) and the dense phase's
     mean level within ``LONG_LEVEL`` cells; bfloat16
@@ -3546,7 +3557,7 @@ def _scene_mass(state) -> float:
 #: seconds the 2D jobs' processes may take, together
 JOBS_2D_TIMEOUT = 400
 #: the 2D scenes' drift runs in two processes of about equal length (45.7
-#: and 48.0 s when each scene runs alone on an H100): with the two
+#: and 48.0 s at 1000 steps when each scene runs alone on an H100): with the two
 #: 2000-step ``rosensweig_2d`` runs, four processes share the card (ten,
 #: one a run, slowed the short steps up to 8x; four, up to 4x)
 SCENE_GROUPS_2D = (("rosensweig_2d", "wave", "shear_layer_kbc", "shear_layer"),
@@ -3657,10 +3668,11 @@ def run_2d_jobs(jobs, meanwhile=()):
     return [out[0] for out in outs], during
 
 
-def phase_2d(dev, kernels_pkg, card, steps=1000, big=(2048, 2048), bf16_steps=(1000, 2000),
+def phase_2d(dev, kernels_pkg, card, steps=500, big=(2048, 2048), bf16_steps=(1000, 2000),
              meanwhile=()):
     """Each 2D scene at its demo's default resolution (:func:`scene_2d_run`,
-    ``steps`` = 1000), and ``rosensweig_2d`` in float32 and bfloat16 for
+    ``steps`` = 500; 1000 before the block route's phase ``mesh3d`` took
+    their card time), and ``rosensweig_2d`` in float32 and bfloat16 for
     ``bf16_steps`` (:func:`rosensweig_2d_run`, held by
     :func:`phase_rosensweig_2d_bf16`), as four concurrent processes on the
     card (the scenes in ``SCENE_GROUPS_2D``), each checking that it
@@ -5326,7 +5338,8 @@ def phase_sharded(dev, kernels_pkg, card):
         raise CheckFailed("a primed state on 3-plane slabs stepped")
     except ValueError as e:
         refused_step = str(e)
-    check("4 or more planes a rank" in refused_step, f"3-plane slabs: {refused_step}")
+    # 3-plane slabs take the block route, which steps un-carried
+    check("premac on the block route" in refused_step, f"3-plane slabs: {refused_step}")
     del s12
     torch.cuda.empty_cache()
     def lane(lane_jobs):
@@ -5859,7 +5872,7 @@ def mesh2d_rank(job_json) -> int:
     from lbm_ferrofluid_tpu_torch.models import prime_premac
     from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
     from lbm_ferrofluid_tpu_torch.parallel import (
-        initialize_distributed, make_mesh, ring_halo, shard_state, step2d,
+        blocks, initialize_distributed, make_mesh, ring_halo, shard_state,
     )
 
     in_exchanges = [0.0]
@@ -5871,7 +5884,7 @@ def mesh2d_rank(job_json) -> int:
         finally:
             in_exchanges[0] += time.perf_counter() - t
 
-    step2d.ring_halo = timed_halo
+    blocks.ring_halo = timed_halo
     runs = json.loads(job_json)
     world = initialize_distributed()
     rows = []
@@ -5957,6 +5970,228 @@ def phase_mesh2d(dev, card):
     return out
 
 
+# ---------------------------------------------------------------- phase mesh3d
+#: the 3D states on the block route (phase ``mesh3d``), one job of 4 gloo
+#: ranks sharing the card: (label, scene builder, its keywords, mesh axes,
+#: mesh shape, storage, params change).  Rosensweig at the demo's native
+#: 130x66x130 (mag 100) on (z, y) = (2, 2) with the scalar carry, in float32
+#: and turbo; bench.py's 256^3 (mag 85) on (2, 2); the channel form at
+#: 130x66x130 on (y, x) = (2, 2); HCZ multiphase_3d 130^3 on (z, y, x) =
+#: (2, 2, 1); single phase 128^3 on (y, x) = (2, 2); HCZ on 2-plane z-slabs
+#: (8x130x130 on 4 z ranks, which the slab forms do not take)
+MESH3D_RUNS = (
+    ("rosensweig", "rosensweig_3d", {"res": (130, 66, 130)}, ("z", "y"), (2, 2), "float32", {}),
+    ("rosensweig turbo", "rosensweig_3d", {"res": (130, 66, 130)}, ("z", "y"), (2, 2),
+     "bfloat16", {}),
+    ("rosensweig 256", "rosensweig_3d", {"res": (256, 256, 256), "mag_strength": 85.0},
+     ("z", "y"), (2, 2), "float32", {}),
+    ("channel", "rosensweig_3d", {"res": (130, 66, 130)}, ("y", "x"), (2, 2), "float32",
+     {"scalar_carry": False}),
+    ("hcz", "multiphase_3d", {"res": (130, 130, 130)}, ("z", "y", "x"), (2, 2, 1), "float32",
+     {}),
+    ("single", "taylor_green_3d", {"res": (128, 128, 128)}, ("y", "x"), (2, 2), "float32", {}),
+    ("hcz 2-plane slabs", "multiphase_3d", {"res": (8, 130, 130)}, ("z",), (4,), "float32", {}),
+)
+MESH3D_WARM, MESH3D_STEPS = 2, 4
+MESH3D_TIMEOUT = 240
+
+
+def mesh3d_scene(run, dev):
+    """(params, whole state, step function) of a run of :data:`MESH3D_RUNS`
+    on ``dev``."""
+    from lbm_ferrofluid_tpu_torch import models
+
+    _, build, kw, _, _, storage, change = run
+    if build == "taylor_green_3d":
+        params, st = taylor_green_3d(tuple(kw["res"]), dev)
+        return params, st, models.singlephase_step
+    kw = dict(kw, res=tuple(kw["res"]))
+    params, st = getattr(models, build)(device=dev, **kw)
+    params = params.replace(**change)
+    if storage == "bfloat16":
+        params, st = turbo(params, st, dev)
+    step = models.ferrofluid_step if build == "rosensweig_3d" else models.hcz_step
+    return params, st, step
+
+
+def mesh3d_expected(params, state, step, blk) -> dict:
+    """The kernels a step on the block route launches, and how often: B4,
+    B1's passes in each round and its H2 launch (or B11b's passes in each
+    round and B10a on psi), B2, B6 and B5; HCZ B8b, B8a, B2, B6 and B9;
+    single phase B8a."""
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, hcz_step
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson, scalar_poisson, stencil3d
+
+    if step is hcz_step:
+        return {k: 1 for k in ("B8b", "B8a", "B2", "B6", "B9")}
+    if step is not ferrofluid_step:
+        return {"B8a": 1}
+    rounds = blk.rounds(params.poisson_iters)
+    out = {k: 1 for k in ("B4", "B2", "B6", "B5")}
+    if state.h.shape[1] == 2:
+        out["B1"] = sum(len(scalar_poisson.passes(k)) for k in rounds) + 1
+    else:
+        out["B11b"] = sum(len(poisson.passes(k)) for k in rounds)
+        out["B10a"] = stencil3d.launches_per_call(1)
+    return out
+
+
+def mesh3d_one_device(run, params, whole, step, dev):
+    """One device's steps on the block route's route (priming only converts
+    h: the un-carried step; the channel form's solve on the psi route): the
+    state after the warm and timed steps, ms a timed step and launches a
+    step."""
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac
+    from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+
+    st = whole
+    if step is ferrofluid_step:
+        primed = prime_premac(params, st, device=dev)
+        st = st.replace(h=primed.h, cmask=primed.cmask)
+    with psi_route():
+        for _ in range(MESH3D_WARM):
+            st = step(params, st, device=dev)
+        kernels_pkg.reset_launch_counts()
+        st, stats = timed_steps(params, st, step, dev, MESH3D_STEPS, warmup=0)
+        launches = {k: n / MESH3D_STEPS for k, n in kernels_pkg.launch_counts().items() if n}
+    return st, stats["seconds"] / MESH3D_STEPS * 1e3, launches
+
+
+def mesh3d_rank(job_json) -> int:
+    """A rank of phase ``mesh3d``: joins the group from torchrun's
+    variables and, for each run, builds the scene on the card, cuts its
+    block, primes it on the mesh (the ferrofluid scenes) and steps it
+    through the model's entry point (warm steps, then the timed ones, each
+    rank synchronising its device, then a barrier), with the launch
+    counters zeroed just before the warm steps and read after the timed
+    ones; hashes its block of each field.  Rank 0 then runs one device's
+    steps alone and holds each rank's block of them to that rank's hashes.
+    Prints its rows and its launches over the runs."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from lbm_ferrofluid_tpu_torch.models import prime_premac
+    from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+    from lbm_ferrofluid_tpu_torch.parallel import (
+        blocks, initialize_distributed, make_mesh, ring_halo, shard_state, step3d,
+    )
+
+    in_exchanges = [0.0]
+
+    def timed_halo(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return ring_halo(*args, **kw)
+        finally:
+            in_exchanges[0] += time.perf_counter() - t
+
+    blocks.ring_halo = timed_halo
+    runs = json.loads(job_json)
+    world = initialize_distributed()
+    rows, total = [], {}
+    try:
+        for run in runs:
+            label, _, _, axes, shape, storage, change = run
+            mesh = make_mesh(tuple(axes), tuple(shape))
+            params, whole, step = mesh3d_scene(run, mesh.device)
+            st = shard_state(whole, mesh)
+            if mesh.rank != 0:
+                del whole
+            torch.cuda.empty_cache()
+            kernels_pkg.reset_launch_counts()
+            if step.__name__ == "ferrofluid_step":
+                st = prime_premac(params, st, mesh=mesh)
+            check(getattr(st, "premac", None) is None, f"mesh3d {label}: priming left a premac")
+            for _ in range(MESH3D_WARM):
+                st = step(params, st, mesh=mesh)
+            n0, b0 = ring_halo.exchanges, ring_halo.sent_bytes
+            before = kernels_pkg.launch_counts()
+            torch.cuda.synchronize()
+            dist.barrier()
+            in_exchanges[0] = 0.0
+            t0 = time.perf_counter()
+            for _ in range(MESH3D_STEPS):
+                st = step(params, st, mesh=mesh)
+            torch.cuda.synchronize()
+            dist.barrier()
+            seconds = time.perf_counter() - t0
+            counts = kernels_pkg.launch_counts()
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            per_step = {k: (n - before[k]) / MESH3D_STEPS for k, n in counts.items()
+                        if n - before[k]}
+            want = mesh3d_expected(params, st, step, step3d.blocks3d(mesh, st.f))
+            check(per_step == want, f"mesh3d {label}: launches a step {per_step}, the block "
+                                    f"route launches {want}")
+            row = {"run": label, "mesh": dict(zip(axes, shape)), "res": list(run[2]["res"]),
+                   "storage": storage, "change": change, "block": list(st.f.shape[2:]),
+                   "h_channels": st.h.shape[1] if getattr(st, "h", None) is not None else None,
+                   "steps": st.step, "ms_per_step": seconds / MESH3D_STEPS * 1e3,
+                   "launches_per_step": per_step,
+                   "exchanges_per_step": (ring_halo.exchanges - n0) / MESH3D_STEPS,
+                   "ms_in_exchanges_per_step": in_exchanges[0] / MESH3D_STEPS * 1e3,
+                   "bytes_sent_per_step": (ring_halo.sent_bytes - b0) / MESH3D_STEPS}
+            mine = {n: _bits_sha(x) for n, x in _state_fields(st).items()}
+            every = [None] * world
+            dist.all_gather_object(every, mine)
+            del st
+            torch.cuda.empty_cache()
+            if mesh.rank == 0:
+                ref, ms1, launches1 = mesh3d_one_device(run, params, whole, step, mesh.device)
+                del whole
+                differ = [(r, n) for r in range(world) for n, x in _state_fields(
+                    shard_state(ref, dataclasses.replace(mesh, rank=r))).items()
+                          if every[r].get(n) != _bits_sha(x)]
+                check(all(every[r] for r in range(world)), f"mesh3d {label}: no fields hashed")
+                row.update(ms_per_step_one_device=ms1, launches_per_step_one_device=launches1,
+                           bit_for_bit_to_one_device=not differ, differ=differ[:8])
+                check(not differ, f"mesh3d {label}: blocks differ from one device: "
+                                  f"{differ[:8]}")
+                del ref
+                torch.cuda.empty_cache()
+            dist.barrier()
+            rows.append(row)
+    finally:
+        dist.destroy_process_group()
+    print("MESH3D_RANK " + json.dumps({"rank": int(os.environ["RANK"]), "rows": rows,
+                                       "launches": total}), flush=True)
+    return 0
+
+
+def phase_mesh3d(dev, card):
+    """3D states on the block route (phase ``mesh3d``, ROADMAP A12 slice
+    4b): the runs of :data:`MESH3D_RUNS` as 4 gloo ranks sharing the one
+    card (processes of ``chip_smoke.py --mesh3d-rank``, torchrun's
+    variables set), each held bit for bit to one device's steps on the same
+    route, its launches a step checked kernel by kernel, with ms a step
+    beside one device's in the same call, exchanges and bytes a rank sends
+    a step (rank 0's).  Returns the launches of every rank's meshed steps
+    by kernel id."""
+    del dev
+    t0 = time.perf_counter()
+    world = math.prod(MESH3D_RUNS[0][4])
+    check(all(math.prod(r[4]) == world for r in MESH3D_RUNS), "mesh3d: the runs' meshes differ")
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+    outs = run_processes("mesh3d job",
+                         [[str(ROOT / "chip_smoke.py"), "--mesh3d-rank",
+                           json.dumps(MESH3D_RUNS)]] * world,
+                         [dict(env, RANK=str(r), LOCAL_RANK=str(r)) for r in range(world)],
+                         MESH3D_TIMEOUT, "MESH3D_RANK")
+    reports = [o for out_ in outs for o in out_]
+    first = [o for o in reports if o["rank"] == 0]
+    check(len(first) == 1 and len(reports) == world, f"mesh3d: {len(reports)} rank reports")
+    launches = {}
+    for o in reports:
+        for k, n in o["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    emit({"phase": "mesh3d", "runs": first[0]["rows"], "launches": launches,
+          "seconds": time.perf_counter() - t0, "card": card, "ok": True})
+    return launches
+
+
 def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     """Phases 3-8; returns one row per kernel for the ``kernels`` line, one
     per bfloat16 form, one for B11b's last pass with B7's trailing stage in
@@ -5996,7 +6231,6 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     runs, (worst16, launches16) = phase_2d(dev, kernels_pkg, smi, meanwhile=(
         lambda: phase_kernels_bf16(dev, K), lambda: phase_bf16_main(dev, kernels_pkg, smi)))
     phase_rosensweig_2d_bf16(smi, runs)
-    launches = {kid: sum(p.get(kid, 0) for p in per_path) for kid in K}
     launches16 = {kid: n + spikes16.get(kid, 0) + padded["launches16"].get(kid, 0)
                   for kid, n in launches16.items()}
     phase_long_horizon(dev, smi)
@@ -6015,6 +6249,8 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
                                                        flag16["B5 emit_mac"]["max_abs_err"]))
     batch_total, batch_kernels = phase_batch(dev, kernels_pkg, smi)
     phase_mesh2d(dev, smi)
+    per_path.append(phase_mesh3d(dev, smi))
+    launches = {kid: sum(p.get(kid, 0) for p in per_path) for kid in K}
     return [{
         "name": f"{kid} {k.wrapper.__name__}", "route": "cuda",
         "source": k.module.CUDA_SOURCE, "replaces": k.tpu_kernel,
@@ -6117,6 +6353,8 @@ def main() -> int:
         return job_2d(sys.argv[sys.argv.index("--2d-job") + 1])
     if "--mesh2d-rank" in sys.argv[1:]:
         return mesh2d_rank(sys.argv[sys.argv.index("--mesh2d-rank") + 1])
+    if "--mesh3d-rank" in sys.argv[1:]:
+        return mesh3d_rank(sys.argv[sys.argv.index("--mesh3d-rank") + 1])
     for flag in ("--step-time", "--route-time"):
         if flag in sys.argv[1:]:
             at = sys.argv.index(flag) + 1
@@ -6190,6 +6428,9 @@ def main() -> int:
         print(smi, flush=True)
     elif "--mesh2d" in sys.argv[1:]:
         phase_mesh2d(dev, smi)
+        print(smi, flush=True)
+    elif "--mesh3d" in sys.argv[1:]:
+        phase_mesh3d(dev, smi)
         print(smi, flush=True)
     elif {"--compat", "--dibr", "--native", "--inverse"} & set(sys.argv[1:]):
         if "--compat" in sys.argv[1:]:

@@ -56,40 +56,60 @@ sweeps, into which :func:`prime_premac` converts h and which is its only
 ``params.kbc_type``).  A 2D step launches no kernel and carries no premac.
 
 With ``mesh`` (``parallel/mesh.py``: this rank's place among the ranks of a
-('batch', 'z') or ('batch', 'y', 'x') mesh) :func:`prime_premac` and
+mesh over ``batch``, ``z``, ``y`` and ``x``) :func:`prime_premac` and
 :func:`ferrofluid_step` take and return this rank's part of the state
-(``parallel/sharding.py``), as the JAX step's ``mesh=`` does (:318-358, :419-466, :583-735, :979-1026 there).
-On a z-slab mesh (``nz > 1``, or ``slab=True``) every 3D route runs on the
-kernels' slab forms (``parallel/step3d.py``): the capillogue steady state
-(6 leaves: the solve, B2, B3); the epilogue steady state (5 leaves), which
-is also what an out-of-plane field (``h_ext_axis=2``) primes to, and the
-un-carried step (premac None: B4 each step), each through the solve, B2,
-B10b (the Laplacian of density(rho_ca), the density map taken as B6's
-single-device kernel takes it, so the routes equal the single-device ones
-bit for bit), B6 with that Laplacian as an input, and B5 (with
-``emit_mac`` on 5 leaves), as the JAX meshed step takes the capillogue
-only for a 6-leaf premac (:588-592 there).  The solve takes the form of
-``state.h``: the scalar carry (B1's slab rounds) or the 19-channel h
-(``ops/magnetic.py:solve_H_int`` with ``mesh``: B11b's slab rounds, the
-substitution, B10a), which priming keeps where the collapse does not
-apply.  An out-of-plane field's Poisson source reads phi a plane across
-the slab's faces (``step3d.poisson_rhs_sharded``).  Priming and the step
-run the same gates (:func:`_slab_gates`); ``phys_extent`` on a split grid
-and a 3D state on a mesh with a y or x axis raise ``NotImplementedError``
-naming ROADMAP A12 slice 4b.  A 2D state on a mesh with ``y`` and ``x``
-axes steps on the rank's block (``parallel/step2d.py``): the same plain
-ops on the block extended by ghost cells, the solve's sweeps in rounds,
-priming's scalar conversion across the block's faces, bit for bit to one
-device; a 2D state on a z mesh raises.  On a batch mesh each rank steps
-its own batch elements on the single-device route its state selects.
+(``parallel/sharding.py``), as the JAX step's ``mesh=`` does (:318-358,
+:419-466, :583-735, :979-1026 there).  A 3D state takes one of two routes
+on a split grid (``parallel/step3d.py:on_slabs``):
+
+* **z-slabs** (z and batch axes only, or ``slab=True``; one batch element a
+  rank; slabs of 4 or more planes): every 3D route runs on the kernels'
+  slab forms: the capillogue steady state (6 leaves: the solve, B2, B3);
+  the epilogue steady state (5 leaves), which is also what an out-of-plane
+  field (``h_ext_axis=2``) primes to, and the un-carried step (premac None:
+  B4 each step), each through the solve, B2, B10b (the Laplacian of
+  density(rho_ca), the density map taken as B6's single-device kernel
+  takes it, so the routes equal the single-device ones bit for bit), B6
+  with that Laplacian as an input, and B5 (with ``emit_mac`` on 5 leaves),
+  as the JAX meshed step takes the capillogue only for a 6-leaf premac
+  (:588-592 there).  The solve takes the form of ``state.h``: the scalar
+  carry (B1's slab rounds) or the 19-channel h (``ops/magnetic.py:
+  solve_H_int`` with ``mesh``: B11b's slab rounds, the substitution,
+  B10a), which priming keeps where the collapse does not apply.  An
+  out-of-plane field's Poisson source reads phi a plane across the slab's
+  faces (``step3d.poisson_rhs_sharded``).
+* **blocks** (any other split grid: a y or x axis, or slabs of 2 or 3
+  planes; one batch element a rank): the un-carried route, whose every
+  launch has one edge rule, as the JAX package's meshed priming selects
+  off its slab gates (:979-995 there: the scalar carry where the collapse
+  applies, no premac).  :func:`prime_premac` converts h across the block's
+  faces (the obstacle check over every rank) and returns ``premac=None``;
+  each step runs B4, the Poisson source, the solve (the scalar carry: B1's
+  passes in rounds, then its H2 launch; the 19-channel h: B11b's passes in
+  rounds, then the substitution and B10a, the psi route), B2, B6 and B5,
+  every kernel the single-device one on the rank's block extended by ghost
+  cells under its edge rule (``parallel/blocks.py``), bit for bit to one
+  device's steps on the same route.  A state that carries a premac there
+  raises, at priming and at the step alike: prime it on the mesh.
+
+Priming and the step run the same gates (:func:`_slab_gates`,
+:func:`_block_gates`; ROADMAP C7).  ``phys_extent`` on a split grid raises
+``NotImplementedError`` naming ROADMAP A12 slice 4c.  A 2D state on a mesh
+with ``y`` and ``x`` axes steps on the rank's block (``parallel/step2d.py``):
+the same plain ops on the block extended by ghost cells, the solve's
+sweeps in rounds, priming's scalar conversion across the block's faces,
+bit for bit to one device; a 2D state on a z mesh raises.  On a batch mesh
+each rank steps its own batch elements on the single-device route its
+state selects.
 
 A batch of more than one element ([B, ...]; a batch mesh's rank part too)
 steps as the JAX package steps it: :func:`prime_premac` returns it as it
 is, so in 3D it steps un-carried on its 19-channel h (B4, B11b's passes
 with B7's trailing stage, B2, B6, B5), each kernel one launch for the whole
 batch; in 2D on the plain ops.  The scalar carry and the 6-leaf premac at
-B > 1 (B1 and B3 have no batch form, ROADMAP A12 slice 8) and the padded
-layout at B > 1 (slice 6) raise.
+B > 1 (B1 and B3 have no batch form, ROADMAP A12 slice 8), the padded
+layout at B > 1 (slice 6) and more than one element a rank on a split
+grid (slice 7) raise.
 
 Every entry point runs on the card unless ``device="cpu"`` is passed, and
 the kernels run unless ``plain=True`` is passed, which selects their plain
@@ -166,12 +186,21 @@ def make_H_ext(params: SimulationParams, res, batch=1, dtype=torch.float32,
     return H, tuple(staggered(H))
 
 
-def validate_mag_shell(params: SimulationParams, magnetic_flags) -> None:
+def validate_mag_shell(params: SimulationParams, magnetic_flags, blk=None) -> None:
     """Check the ``mag_flags_shell`` declaration against the flags: the
-    magnetic obstacles must lie in the x-edge columns and z-edge planes."""
+    magnetic obstacles must lie in the x-edge columns and z-edge planes;
+    with ``blk`` (a rank's block) those of the whole domain, on every
+    rank."""
     if not (params.mag_flags_shell and params.dim == 3):
         return
-    if (magnetic_flags[..., 1:-1, :, 1:-1] == int(CellType.OBSTACLE)).any():
+    obs = magnetic_flags == int(CellType.OBSTACLE)
+    if blk is not None:
+        from ..parallel.blocks import any_rank, interior
+
+        bad = any_rank(blk, interior(blk, obs, dims=(2, 4)))
+    else:
+        bad = bool(obs[..., 1:-1, :, 1:-1].any())
+    if bad:
         raise ValueError(
             "params.mag_flags_shell=True, but magnetic_flags has OBSTACLE "
             "cells outside the x-edge columns / z-edge planes shell; unset "
@@ -230,10 +259,10 @@ def _scalar_physics_ok(params: SimulationParams, magnetic_flags, blk=None) -> bo
     h not stored in float64 (the carry is float32), an axis-aligned field,
     and magnetic obstacles on the boundary ring only (the declared
     ``mag_flags_shell`` counts only without ``phys_extent``); with ``blk``
-    (a rank's block of a 2D state on a y/x mesh) the ring is the whole
+    (a rank's block of a grid split over a mesh) the ring is the whole
     domain's, checked on every rank."""
     if blk is not None:
-        from ..parallel.step2d import mag_boundary_only
+        from ..parallel.blocks import mag_boundary_only
 
         boundary_only = mag_boundary_only(blk, magnetic_flags)
     else:
@@ -366,9 +395,9 @@ def _scalar_convert(params: SimulationParams, state, blk=None):
     (JAX ``_prime_steady`` :926-929).  The carry is float32 whatever
     ``h_dtype`` stores the channel h in (JAX ``_scalar_convert`` :889-891).
     A batch of more than one keeps its channel h, in 2D too (JAX
-    ``_scalar_carry_ok`` :832-842).  With ``blk`` (a 2D state on a y/x
-    mesh) the rank's block: the obstacle check over the whole domain, the
-    wall channels read across the block's faces."""
+    ``_scalar_carry_ok`` :832-842).  With ``blk`` (a rank's block of a grid
+    split over a mesh) the rank's block: the obstacle check over the whole
+    domain, the wall channels read across the block's faces."""
     if (state.h.shape[1] == 2 or state.h.shape[0] != 1
             or not _scalar_physics_ok(params, state.magnetic_flags, blk)):
         return state.h, state.cmask
@@ -389,31 +418,25 @@ def _on_mesh(state, mesh, device):
 
 def _split_gates(params: SimulationParams, mesh) -> None:
     """Raise for a 3D state on a split grid the port does not step, before
-    the state's own checks read its cut arrays: a y or x axis, and the
-    padded layout (ROADMAP A12 slice 4b)."""
+    the state's own checks read its cut arrays: the padded layout (ROADMAP
+    A12 slice 4c)."""
     from ..parallel import step3d
 
-    step3d.check_slab_mesh(mesh)
     if params.phys_extent is not None:
-        raise step3d.unported("phys_extent (the padded layout) on a split grid", "4b")
+        raise step3d.unported("phys_extent (the padded layout) on a split grid", "4c")
 
 
 def _slab_gates(params: SimulationParams, state, mesh, plain, primed):
     """The gates of the z-slab routes, shared by priming and the step with
     the same messages (ROADMAP C7: a state primed on one device and cut
-    onto a slab mesh meets them at its first step): one batch element a
-    rank, slabs of 4 or more planes (B4, B5, B6 and B3), a plan of the
-    solve's slab rounds in the form h will have (``primed``: as
-    ``state.h`` has it, since the step never converts it), and the
-    kernels' grid on the card."""
+    onto a slab mesh meets them at its first step): a plan of the solve's
+    slab rounds in the form h will have (``primed``: as ``state.h`` has
+    it, since the step never converts it), and the kernels' grid on the
+    card.  One batch element a rank and 4 or more planes a slab are
+    ``step3d.on_slabs``'s, which routes the rest to the blocks."""
     from ..parallel import step3d
 
     shape = step3d.global_shape(state.f.shape, mesh)
-    if state.f.shape[0] != 1:
-        raise step3d.unported(f"{state.f.shape[0]} batch elements a rank on a z-slab mesh", 7)
-    if shape[2] // mesh.nz < 4:
-        raise ValueError(f"a slab of {shape[2] // mesh.nz} planes: the slab forms need 4 or "
-                         "more planes a rank; use fewer ranks along z")
     if not step3d.fused_step_sharded_ok(mesh, shape, params.kbc_type):
         raise step3d.unported(f"kbc_type={params.kbc_type}")
     if _channel_form(params, state, primed):
@@ -426,12 +449,42 @@ def _slab_gates(params: SimulationParams, state, mesh, plain, primed):
     check_kernel_grid(state.f, plain)
 
 
+def _block_gates(state, mesh, plain):
+    """The gates of the block route, shared by priming and the step with
+    the same messages (ROADMAP C7): one batch element a rank (slice 7), no
+    premac (the block route steps un-carried, as the JAX package's meshed
+    priming leaves it there: a state primed on one device and cut onto the
+    mesh refuses here), and the kernels' grid on the card.  Returns this
+    rank's :class:`~..parallel.blocks.Blocks`."""
+    from ..parallel import step3d
+
+    blk = step3d.blocks3d(mesh, state.f)
+    if state.premac is not None:
+        raise ValueError(
+            "a premac on the block route (a 3D state on a mesh with a y or x axis, or on "
+            "z-slabs of under 4 planes), which steps un-carried: prime the state on the mesh, "
+            "prime_premac(..., mesh=), which carries no premac there (ROADMAP C7)")
+    step3d.check_block_grid(blk, state.f, plain)
+    return blk
+
+
 def _channel_form(params: SimulationParams, state, primed) -> bool:
     """Whether the step solves on a 19-channel h: ``state.h`` has 19
     channels and, before priming (``primed`` False), the collapse to the
     scalar carry does not apply."""
     return state.h.shape[1] != 2 and (primed or not _scalar_physics_ok(params,
                                                                        state.magnetic_flags))
+
+
+def _prime_premac_blocks(params: SimulationParams, state, mesh, plain):
+    """:func:`prime_premac` on the block route: h converted to the scalar
+    carry across the block's faces where the collapse applies (else the
+    19-channel h kept), no premac, phi, force and H_ext kept (JAX
+    :979-995, whose meshed priming off the slab gates only converts)."""
+    blk = _block_gates(state, mesh, plain)
+    validate_mag_shell(params, state.magnetic_flags, blk)
+    h, cmask = _scalar_convert(params, state, blk)
+    return state.replace(h=h, cmask=cmask)
 
 
 def _prime_premac_slab(params: SimulationParams, state, mesh, plain):
@@ -475,9 +528,10 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
     A state that is already primed is returned as it is.  In 2D the scalar
     carry is the only priming (JAX :969-977): h converts where the
     collapse applies and nothing else changes.  With ``mesh`` the state is
-    this rank's part (module docstring); on a z-slab mesh priming runs the
-    step's gates first.  A batch of more than one element (a rank's part
-    too) is returned as it is, in 2D and 3D, as the JAX package returns it
+    this rank's part (module docstring); on a split grid priming runs the
+    step's gates first, and on the block route it only converts h.  A
+    batch of more than one element (a batch mesh's rank part too) is
+    returned as it is, in 2D and 3D, as the JAX package returns it
     (``fused_step_supported`` and the scalar carry need B == 1): it steps
     un-carried on its channel h."""
     blk = None
@@ -488,9 +542,13 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
         if params.dim == 2:
             blk = mesh_blocks(params, state, mesh, device)
         elif not dp_dispatch(mesh):
+            from ..parallel.step3d import on_slabs
+
             _split_gates(params, mesh)
             check_device(state.f, device)
             _check_supported(params, state)
+            if not on_slabs(mesh, state.f.shape):
+                return _prime_premac_blocks(params, state, mesh, plain)
             if state.premac is not None:
                 return state
             return _prime_premac_slab(params, state, mesh, plain)
@@ -633,10 +691,14 @@ def ferrofluid_step(params: SimulationParams, state: FerrofluidState, *,
         if params.dim == 2:
             blk = mesh_blocks(params, state, mesh, device)
         elif not dp_dispatch(mesh):
+            from ..parallel.step3d import on_slabs
+
             _split_gates(params, mesh)
             check_device(state.f, device)
             _check_supported(params, state)
-            return _ferrofluid_step_slab(params, state, mesh, plain)
+            if on_slabs(mesh, state.f.shape):
+                return _ferrofluid_step_slab(params, state, mesh, plain)
+            return _ferrofluid_step_blocks(params, state, mesh, plain)
     check_device(state.f, device)
     _check_supported(params, state)
     if params.dim == 2:
@@ -711,6 +773,49 @@ def ferrofluid_step(params: SimulationParams, state: FerrofluidState, *,
     )
 
 
+def _ferrofluid_step_blocks(params: SimulationParams, state, mesh, plain):
+    """:func:`ferrofluid_step` on the block route: the un-carried step (B4,
+    the Poisson source, the solve by the form of ``state.h``, B2, B6, B5;
+    JAX :318-359, :394-507, :636-735 under GSPMD), every kernel the
+    single-device one on the rank's block extended under its edge rule
+    (``parallel/blocks.py:HALOS``); the fields read deeper later are
+    extended first, one exchange a dtype."""
+    from ..parallel import step3d
+
+    blk = _block_gates(state, mesh, plain)
+    gas = dict(rho_gas=float(params.rho_gas), rho_fluid=float(params.rho_fluid),
+               density_gas=float(params.density_gas),
+               density_fluid=float(params.density_fluid))
+    dx, dt = float(params.dx), float(params.dt)
+    blk.extend([state.f, state.g], 1)
+    blk.extend([state.flags, state.magnetic_flags],
+               step3d.solve_depth(blk, params.poisson_iters))
+    prologue = lbm_prologue_plain if plain else lbm_prologue
+    rho, vel, density, m0g, m1g = blk.op(prologue)(state.f, state.g, state.flags, state.rho,
+                                                   state.vel, c=dx / dt, **gas)
+    phi = phi_from_density(density, params.density_gas, params.density_fluid)
+    # the source's and B2's and B6's stencil fields of this step's macros
+    blk.extend([phi, rho, density, state.pressure], 3)
+    rhs = blk.op(poisson_rhs_scaled)(phi, state.magnetic_flags, _hext_static(params),
+                                     tau=params.tau, dx=dx, dt=dt)
+    H2, h = _solve(params, state, rhs, plain, blk)
+    surgery = contact_angle_3d_plain if plain else contact_angle_3d
+    rho_ca = blk.op(surgery)(rho, state.flags, float(params.contact_angle))
+    capillary = hcz_capillary_gradmac_plain if plain else hcz_capillary_gradmac
+    grav = tuple(float(v) for v in params.gravity_vec().reshape(-1))
+    vel, pressure, force, dfai, dprho = blk.op(capillary)(
+        rho, density, state.pressure, rho_ca, H2, phi, state.flags, m0g, m1g, vel,
+        kappa=float(params.kappa), gravity=grav, dx=dx, dt=dt, **gas,
+    )
+    density = rho_to_density(rho_ca, **gas)
+    epilogue = lbm_epilogue_plain if plain else lbm_epilogue
+    f, g = blk.op(epilogue)(state.f, state.g, state.flags, rho_ca, vel, density, pressure, force,
+                            dfai, dprho, tau_f=float(params.tau_f), tau_g=float(params.tau_g),
+                            dx=dx, dt=dt)
+    return state.replace(f=f, g=g, h=h, rho=rho_ca, vel=vel, density=density, pressure=pressure,
+                         force=force, phi=phi, step=state.step + 1, premac=None)
+
+
 def _ferrofluid_step_2d(params: SimulationParams, state, blk=None):
     """One 2D step: the JAX step's unfused branch (:358-371), the solve by
     the form of ``state.h`` (:394-507) and the shared HCZ stages with H2
@@ -737,11 +842,12 @@ def _ferrofluid_step_2d(params: SimulationParams, state, blk=None):
                          pressure=pressure, force=force, phi=phi, step=state.step + 1)
 
 
-def _solve(params: SimulationParams, state, rhs, plain):
-    """(H2, h') of the magnetic solve in the form that ``state.h`` has.  A
-    padded layout runs the scalar sweeps on the padded arrays and composes
-    H2 on the box (JAX :422-439); its channel form raises, as the JAX step's
-    (:485-493), since that solve composes its gradient at the array faces."""
+def _solve(params: SimulationParams, state, rhs, plain, blk=None):
+    """(H2, h') of the magnetic solve in the form that ``state.h`` has; with
+    ``blk`` on the rank's block (the block route).  A padded layout runs
+    the scalar sweeps on the padded arrays and composes H2 on the box (JAX
+    :422-439); its channel form raises, as the JAX step's (:485-493), since
+    that solve composes its gradient at the array faces."""
     if state.h.shape[1] == 2 and params.phys_extent is not None:
         psi, h = solve_psi_scalar(state.h, state.cmask, rhs, n_iters=params.poisson_iters,
                                   plain=plain)
@@ -754,10 +860,10 @@ def _solve(params: SimulationParams, state, rhs, plain):
     if state.h.shape[1] == 2:
         return solve_H_int_scalar(
             state.h, state.cmask, rhs, n_iters=params.poisson_iters, dx=params.dx,
-            h2_ext=_hext_static(params), plain=plain,
+            h2_ext=_hext_static(params), plain=plain, blocks=blk,
         )
     return solve_H_int(
         params.lattice, state.h, None, state.magnetic_flags, None, tau=float(params.tau),
         n_iters=params.poisson_iters, dx=params.dx, dt=params.dt, rhs_scaled=rhs,
-        h2_ext=_hext_static(params), plain=plain,
+        h2_ext=_hext_static(params), plain=plain, blocks=blk,
     )

@@ -24,9 +24,12 @@ gravity is always a tuple of floats, so it runs the branch that
 ``hcz_capillary`` itself picks for a concrete gravity.  In 2D (D2Q9) the
 same six stages run the plain ops on any device, with KBC on g when
 ``params.kbc_type`` asks for it, as the JAX package runs 2D through
-``jnp`` only.  With ``mesh`` a 2D state is the rank's block of a y/x mesh
-and its ops run on it extended by ghost cells (``parallel/step2d.py``),
-a 3D HCZ state a z-slab (:func:`_hcz_step_slab`).  Every entry point runs
+``jnp`` only.  With ``mesh`` a state is the rank's part: a 2D state the
+rank's block of a y/x mesh, whose ops run on it extended by ghost cells
+(``parallel/step2d.py``); a 3D HCZ state a z-slab (:func:`_hcz_step_slab`)
+or, on any other split grid, a (z, y, x) block stepping through the
+single-device kernels on its extensions (:func:`_hcz_step_blocks`); a 3D
+Shan-Chen state a block of its plain ops.  Every entry point runs
 on the card unless ``device="cpu"``; ``plain=True`` runs the kernels'
 plain PyTorch versions.  f and g may be stored in bfloat16
 (``fg_dtype``), on the kernels' bfloat16 forms on the card.
@@ -113,17 +116,18 @@ def check_supported(params: SimulationParams, f: torch.Tensor, hcz: bool = True,
         raise ValueError(f"gravity_axis={params.gravity_axis} is not an axis")
 
 
-def check_kernel_grid(f: torch.Tensor, plain: bool, ids=None) -> None:
-    """Raise on the card without ``plain=True`` where the grid has an axis
-    shorter than the ``min_axis`` of a kernel wrapper that the step
-    launches (``ids``, default all: B2's needs 4, and every HCZ-family step
-    runs B2), before any kernel launches.  The plain versions (the CPU,
+def check_kernel_grid(f: torch.Tensor, plain: bool, ids=None, grid=None) -> None:
+    """Raise on the card without ``plain=True`` where the grid (``f``'s, or
+    ``grid``: the whole domain's of a rank's block) has an axis shorter
+    than the ``min_axis`` of a kernel wrapper that the step launches
+    (``ids``, default all: B2's needs 4, and every HCZ-family step runs
+    B2), before any kernel launches.  The plain versions (the CPU,
     ``plain=True``, and every 2D step) step any grid the JAX step steps
     (the JAX package gates only its kernels and steps smaller grids
     through jnp)."""
     if plain or f.device.type != "cuda" or len(f.shape) != 5:
         return
-    grid = tuple(f.shape[2:])
+    grid = tuple(f.shape[2:]) if grid is None else tuple(grid)
     short = [f"{kid} {k.wrapper.__name__} (>= {k.wrapper.min_axis})"
              for kid, k in KERNELS.items()
              if (ids is None or kid in ids) and min(grid) < getattr(k.wrapper, "min_axis", 1)]
@@ -149,28 +153,29 @@ def init_sc_state(params: SimulationParams, rho, density, vel, flags, *,
 
 
 def on_block(blk, fn, depth=None):
-    """``fn`` on this rank's block of a 2D domain split over a y/x mesh
-    (``parallel/step2d.py:Blocks.op``: its fields extended by the op's
+    """``fn`` on this rank's block of a grid split over a mesh
+    (``parallel/blocks.py:Blocks.op``: its fields extended by the op's
     ghost cells, its outputs cut back), or ``fn`` itself on one device
     (``blk`` None)."""
     return fn if blk is None else blk.op(fn, depth)
 
 
 def mesh_blocks(params: SimulationParams, state, mesh, device):
-    """The :class:`~..parallel.step2d.Blocks` of a 2D step on ``mesh``, or
-    None where each rank steps its part on the single-device route (a batch
-    mesh); a 3D state on a split grid raises (ROADMAP A12 slice 4b), as
-    does a 2D state on a z mesh.  Checks ``device`` against the mesh's."""
+    """The :class:`~..parallel.blocks.Blocks` of a step on ``mesh``, or None
+    where each rank steps its part on the single-device route (a batch
+    mesh): a 2D state's on y and x (a 2D state on a z mesh raises), a 3D
+    state's on z, y and x (the block route, ``parallel/step3d.py:blocks3d``;
+    more than one batch element a rank raises, ROADMAP A12 slice 7).
+    Checks ``device`` against the mesh's."""
     from ..parallel import step2d, step3d
 
     if device is not None and torch.device(device).type != mesh.device.type:
         raise ValueError(f"device={device} does not match the mesh's device {mesh.device}")
     if step3d.dp_dispatch(mesh):
         return None
-    if params.dim != 2:
-        raise step3d.unported(f"the {params.lattice.name} step on a split grid "
-                              f"(z={mesh.nz}, y={mesh.ny}, x={mesh.nx})", "4b")
-    return step2d.blocks(mesh, state.f)
+    if params.dim == 2:
+        return step2d.blocks(mesh, state.f)
+    return step3d.blocks3d(mesh, state.f)
 
 
 def sc_step(params: SimulationParams, state: HCZState, *, device=None,
@@ -178,9 +183,9 @@ def sc_step(params: SimulationParams, state: HCZState, *, device=None,
     """One Shan-Chen step (JAX ``sc_step_impl`` :65-106), plain PyTorch on
     any device; ``plain`` is accepted for the runner's and the tests'
     uniform calls and changes nothing.  With ``mesh`` the state is this
-    rank's part: a 2D state on a y/x mesh steps on its block
-    (``parallel/step2d.py``), bit for bit to one device; a batch mesh
-    steps each rank's elements."""
+    rank's part: a 2D state on a y/x mesh, and a 3D state on any split
+    grid, steps on its block (``parallel/blocks.py``), bit for bit to one
+    device; a batch mesh steps each rank's elements."""
     del plain
     blk = None
     if mesh is not None:
@@ -289,13 +294,6 @@ def _hcz_step_slab(params: SimulationParams, state, mesh, plain):
     is local); the pins are the rank's part of the state's."""
     from ..parallel import step3d
 
-    shape = step3d.global_shape(state.f.shape, mesh)
-    step3d.check_slab_mesh(mesh)
-    if state.f.shape[0] != 1:
-        raise step3d.unported(f"{state.f.shape[0]} batch elements a rank on a z-slab mesh", 7)
-    if shape[2] // mesh.nz < 4:
-        raise ValueError(f"a slab of {shape[2] // mesh.nz} planes: the slab forms need 4 or "
-                         "more planes a rank; use fewer ranks along z")
     check_kernel_grid(state.f, plain)
     dx, dt = float(params.dx), float(params.dt)
     gas = _gas(params)
@@ -322,6 +320,45 @@ def _hcz_step_slab(params: SimulationParams, state, mesh, plain):
                          pressure=pressure, force=force, step=state.step + 1)
 
 
+def _hcz_step_blocks(params: SimulationParams, state, mesh, plain):
+    """:func:`hcz_step` on the block route (a 3D state on a split grid the
+    slab forms do not take, ``parallel/step3d.py:on_slabs``): B8b, B8a, B2
+    and B6 each on the rank's block extended under its edge rule
+    (``parallel/blocks.py:HALOS``), the pins and B9 on the block, as one
+    device runs them (JAX ``_hcz_step_shared`` :175-256 under GSPMD)."""
+    from ..parallel import step3d
+
+    blk = step3d.blocks3d(mesh, state.f)
+    step3d.check_block_grid(blk, state.f, plain)
+    dx, dt = float(params.dx), float(params.dt)
+    gas = _gas(params)
+    macro = stream_bounce_macro_plain if plain else stream_bounce_macro
+    moments = stream_bounce_moments_plain if plain else stream_bounce_moments
+    surgery = contact_angle_3d_plain if plain else contact_angle_3d
+    capillary = hcz_capillary_gradmac_plain if plain else hcz_capillary_gradmac
+    collide = hcz_collide_fused_plain if plain else hcz_collide_fused
+    # f and g in one exchange a side and axis
+    blk.extend([state.f, state.g], 1)
+    f, rho, vel, density = blk.op(macro)(state.f, state.flags, state.rho, state.vel, c=dx / dt,
+                                         **gas)
+    g, m0g, m1g = blk.op(moments)(state.g, state.flags)
+    vel = _maybe_pin(state, vel)
+    # B6's stencil fields of this step's macros in one exchange
+    blk.extend([rho, density, state.pressure], 3)
+    rho_ca = blk.op(surgery)(rho, state.flags, float(params.contact_angle))
+    vel, pressure, force, dfai, dprho = blk.op(capillary)(
+        rho, density, state.pressure, rho_ca, None, None, state.flags, m0g, m1g, vel,
+        kappa=float(params.kappa),
+        gravity=tuple(float(v) for v in params.gravity_vec().reshape(-1)), dx=dx, dt=dt, **gas,
+    )
+    density = rho_to_density(rho_ca, **gas)
+    vel = _maybe_pin(state, vel)
+    f, g = collide(f, g, rho_ca, vel, density, pressure, state.flags, force, dfai, dprho,
+                   tau_f=float(params.tau_f), tau_g=float(params.tau_g), dx=dx, dt=dt)
+    return state.replace(f=f, g=g, rho=rho_ca, vel=vel, density=density,
+                         pressure=pressure, force=force, step=state.step + 1)
+
+
 def hcz_step(params: SimulationParams, state: HCZState, *, device=None,
              plain=False, mesh=None) -> HCZState:
     """One HCZ step.  ``plain=True`` runs the kernels' plain PyTorch
@@ -329,21 +366,24 @@ def hcz_step(params: SimulationParams, state: HCZState, *, device=None,
     plain ops and launches no kernel.  A batch [B, ...] steps in one launch
     a kernel (B8b, B8a, B2, B6, B9).  With ``mesh`` the state is this
     rank's part (``parallel/sharding.py``): on a batch mesh (nz == 1) each
-    rank steps its own batch elements; on a z-slab mesh (``nz > 1``, or
-    ``slab=True``) a 3D state steps on the kernels' slab forms
-    (:func:`_hcz_step_slab`), and on a y/x mesh a 2D state steps on its
-    block (``parallel/step2d.py``), each bit for bit to one device."""
+    rank steps its own batch elements; a 3D state on z-slabs of 4 or more
+    planes (``nz > 1``, or ``slab=True``) steps on the kernels' slab forms
+    (:func:`_hcz_step_slab`), on any other split grid on its (z, y, x)
+    block (:func:`_hcz_step_blocks`), and on a y/x mesh a 2D state steps on
+    its block (``parallel/step2d.py``), each bit for bit to one device."""
     blk = None
     if mesh is not None:
-        from ..parallel.step3d import dp_dispatch
+        from ..parallel import step3d
 
         if params.dim == 2:
             blk = mesh_blocks(params, state, mesh, device)
         device = mesh.device.type if device is None else device
-        if params.dim != 2 and not dp_dispatch(mesh):
+        if params.dim != 2 and not step3d.dp_dispatch(mesh):
             check_device(state.f, device)
             check_supported(params, state.f)
-            return _hcz_step_slab(params, state, mesh, plain)
+            if step3d.on_slabs(mesh, state.f.shape):
+                return _hcz_step_slab(params, state, mesh, plain)
+            return _hcz_step_blocks(params, state, mesh, plain)
     check_device(state.f, device)
     check_supported(params, state.f)
     if params.dim == 2:

@@ -39,9 +39,13 @@ class SimulationRunner:
     ``sc_step``, ``hcz_step``, ``ferrofluid_step`` or any compatible
     function) over many steps, as the JAX runner does (runner.py:39-47);
     a step function that takes a ``device`` keyword is given the runner's.
-    With ``mesh`` (``parallel/mesh.py``) the state is this rank's part: the
-    step function and priming are given the mesh, and the runner runs and
-    synchronises on the mesh's device (each rank times its own).
+    With ``mesh`` (``parallel/mesh.py``) the state is this rank's part (a
+    slab, a 2D or 3D block, or batch elements): the step function and
+    priming are given the mesh, and the runner runs and synchronises on the
+    mesh's device (each rank times its own).  ``io_fn`` and the finite
+    checks see the rank's part; an ``io_fn`` that wants the whole state
+    calls ``parallel.gather_state(state, mesh)``, a collective that every
+    rank's ``io_fn`` makes at the same steps.
 
     Runs on the card unless ``device="cpu"``."""
 

@@ -10,8 +10,10 @@ In 3D (D3Q19) the stream is the B8a kernel on the card
 (``ops/kernels/stream3d.py:stream_bounce_moments``, the TPU kernel the JAX
 step runs there); ``plain=True`` and CPU tensors run its plain version.  In
 2D every op is plain PyTorch on any device, as the JAX package runs 2D only
-through ``jnp``.  Every entry point runs on the card unless
-``device="cpu"``.
+through ``jnp``.  With ``mesh`` a 2D state steps on its block of a y/x
+mesh and a 3D state on its (z, y, x) block of any split grid, B8a on the
+block extended by one wrapped cell (``parallel/blocks.py``).  Every entry
+point runs on the card unless ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -49,9 +51,9 @@ def step(params: SimulationParams, state: SinglePhaseState, *, device=None,
          plain=False, mesh=None) -> SinglePhaseState:
     """One single-phase step.  3D launches B8a once on the card unless
     ``plain=True``; 2D launches no kernel of the port.  With ``mesh`` the
-    state is this rank's part: a 2D state on a y/x mesh steps on its block
-    (``parallel/step2d.py``), bit for bit to one device; a batch mesh
-    steps each rank's elements."""
+    state is this rank's part: a 2D state on a y/x mesh and a 3D state on
+    any split grid step on their block (``parallel/blocks.py``), bit for bit
+    to one device; a batch mesh steps each rank's elements."""
     blk = None
     if mesh is not None:
         blk = mesh_blocks(params, state, mesh, device)
@@ -62,7 +64,11 @@ def step(params: SimulationParams, state: SinglePhaseState, *, device=None,
     dx, dt = float(params.dx), float(params.dt)
     if lat.dim == 3:
         check_kernel_grid(state.f, plain, ("B8a",))
-        f, m0, m1 = (b8a_plain if plain else b8a)(state.f, state.flags)
+        if blk is not None:
+            from ..parallel.step3d import check_block_grid
+
+            check_block_grid(blk, state.f, plain, ("B8a",))
+        f, m0, m1 = on_block(blk, b8a_plain if plain else b8a)(state.f, state.flags)
     else:
         f, m0, m1 = on_block(blk, stream_bounce_moments)(lat, state.f, state.flags)
     is_obs = state.flags == int(CellType.OBSTACLE)

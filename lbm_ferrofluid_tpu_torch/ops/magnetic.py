@@ -147,8 +147,8 @@ def h_int_from_psi(psi, magnetic_flags, *, dx, h2_ext, grad=None):
 
 
 def _on(blocks, fn, depth=None):
-    """``fn``, or ``fn`` on a rank's block of a 2D grid split over a y/x
-    mesh (``parallel/step2d.py:Blocks.op``)."""
+    """``fn``, or ``fn`` on a rank's block of a grid split over a mesh
+    (``parallel/blocks.py:Blocks.op``)."""
     return fn if blocks is None else blocks.op(fn, depth)
 
 
@@ -176,10 +176,13 @@ def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters
     h2=True)`` admits it; otherwise (and without a static field) the psi
     route's slab forms, the substitution with its z pad at the domain's
     true edges only (JAX pads the whole domain, :466-475) and B10a with
-    one psi plane a side.  2D runs the JAX body (:480-502) on any device;
-    with ``blocks`` (``parallel/step2d.py:Blocks``, a rank's block of a y/x
-    mesh) on the block, the sweeps in rounds of k on a k-cell halo, bit for
-    bit to one device.  ``rhs_scaled`` defaults to
+    one psi plane a side.  With ``blocks`` (``parallel/blocks.py:Blocks``,
+    a rank's block of a grid split over a mesh) the block route: in 3D
+    B11b's passes in rounds, then the psi route on the block extended under
+    the clamp rule (``parallel/step3d.py:channel_poisson_blocks``), bit for
+    bit to one device's psi route; 2D runs the JAX body (:480-502) on any
+    device, with ``blocks`` the sweeps in rounds of k on a k-cell halo, bit
+    for bit to one device.  ``rhs_scaled`` defaults to
     :func:`poisson_rhs_scaled` of ``phi``.
 
     The trailing stage multiplies the gradient's sums by f32(-1/(12 dx)),
@@ -198,6 +201,12 @@ def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters
     if lat.dim == 3:
         from .kernels import poisson, stencil3d
 
+        if blocks is not None:
+            from ..parallel import step3d
+
+            return step3d.channel_poisson_blocks(blocks, h, magnetic_flags, rhs_scaled, tau=tau,
+                                                 n_iters=n_iters, dx=dx, h2_ext=h2_ext,
+                                                 plain=plain)
         h2 = tuple(h2_ext) if h2_ext is not None and len(h2_ext) == 3 else None
         if mesh is not None:
             from ..parallel import step3d
@@ -262,7 +271,9 @@ def solve_H_int_scalar(s2, cmask, rhs_scaled, *, n_iters=30, dx=1.0, h2_ext,
     sweeps (:func:`ops.scalar_poisson.scalar_sweeps_exact`) and the 2D
     gradient of the last psi on any device, which need ``magnetic_flags``
     (JAX ``solve_H_int_scalar`` :229-257); with ``blocks`` on a rank's
-    block of a y/x mesh, as :func:`solve_H_int`."""
+    block of a mesh, as :func:`solve_H_int` (3D: B1's passes in rounds and
+    its H2 launch on the clamp extension,
+    ``parallel/step3d.py:scalar_poisson_blocks``)."""
     if s2.ndim == 4:
         psi, s, sp = None, s2[:, :1], s2[:, 1:2]
         for k in [n_iters] if blocks is None else blocks.rounds(n_iters):
@@ -270,6 +281,11 @@ def solve_H_int_scalar(s2, cmask, rhs_scaled, *, n_iters=30, dx=1.0, h2_ext,
                                                              magnetic_flags, k)
         return (_on(blocks, h_int_from_psi)(psi, magnetic_flags, dx=dx, h2_ext=h2_ext),
                 torch.cat([s, sp], dim=1))
+    if blocks is not None:
+        from ..parallel import step3d
+
+        return step3d.scalar_poisson_blocks(blocks, s2, cmask, rhs_scaled, n_iters=n_iters,
+                                            dx=dx, h_ext=h2_ext, plain=plain)
     from .kernels.scalar_poisson import scalar_wavefront, scalar_wavefront_plain
 
     fn = scalar_wavefront_plain if plain else scalar_wavefront

@@ -5,11 +5,9 @@ Port of ``lbm_ferrofluid_tpu/parallel/mesh.py``.  The JAX package lays a
 one device, joined by ``torch.distributed``, and :class:`Mesh` is this
 rank's view of the ranks: its coordinates along the named axes, its device
 and the backend its exchanges use.  The axes are ``batch`` (data parallel:
-a batch element a rank), ``z`` (slabs of a 3D grid along z,
-``parallel/step3d.py``), and ``y`` and ``x`` (blocks of a 2D grid,
-``parallel/step2d.py``).  A ``z`` axis larger than 1 together with a ``y``
-or ``x`` axis larger than 1 raises: the 3D paths split along z only
-(ROADMAP A12 slice 4b).
+a batch element a rank), and ``z``, ``y`` and ``x``, the spatial axes: a
+3D grid splits along any of them (z-slabs on the slab forms, or blocks,
+``parallel/step3d.py``), a 2D grid along y and x (``parallel/step2d.py``).
 
 The transport is chosen, never found by trying: NCCL where every rank of a
 host has a card of its own, gloo otherwise (the CPU, and several ranks that
@@ -176,20 +174,20 @@ class Mesh:
         return self.rank_at(z=iz)
 
 
-def make_mesh(axis_names: tuple = ("batch", "z"), shape: tuple | None = None, *,
+def make_mesh(axis_names: tuple = ("z", "y"), shape: tuple | None = None, *,
               backend: str | None = None, device=None, slab: bool = False) -> Mesh:
     """This rank's :class:`Mesh` over the process group's ranks (one rank
     without a group).
 
-    ``shape=None`` factors the ranks over the axes (:func:`auto_mesh_shape`).
+    ``axis_names`` defaults to the JAX package's ("z", "y"); ``shape=None``
+    factors the ranks over the axes (:func:`auto_mesh_shape`).
     ``device``: ``"cpu"``, or None for ``cuda:<local rank mod the card
     count>``, which becomes the current card (a CUDA device is required
     then).  ``backend`` names the exchanges' transport, by default the
     group's.  ``slab=True`` runs the slab forms at ``nz == 1`` too (their
     ghosts from the rank itself: sent to itself through NCCL, else
-    copied, :func:`~.halo.ring_halo`).  Raises where ``shape`` does not cover the ranks,
-    names an axis other than ``batch``, ``z``, ``y`` and ``x`` larger than 1, or puts
-    more than one rank on z and on y or x together."""
+    copied, :func:`~.halo.ring_halo`).  Raises where ``shape`` does not cover the ranks
+    or names an axis other than ``batch``, ``z``, ``y`` and ``x`` larger than 1."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     axis_names = tuple(axis_names)
@@ -198,12 +196,6 @@ def make_mesh(axis_names: tuple = ("batch", "z"), shape: tuple | None = None, *,
     if wide:
         raise ValueError(f"mesh axes {', '.join(wide)}: the port's mesh axes are "
                          f"{', '.join(AXES)}")
-    sizes = dict(zip(axis_names, shape))
-    if sizes.get("z", 1) > 1 and sizes.get("y", 1) * sizes.get("x", 1) > 1:
-        raise NotImplementedError(
-            f"mesh {sizes}: z together with y or x is not ported (ROADMAP A12 slice 4b: a 3D "
-            "state on a mesh with a y or x axis); 3D states split along z, 2D states along "
-            "y and x")
     if len(shape) != len(axis_names) or math.prod(shape) != world:
         raise ValueError(f"mesh shape {shape} over axes {axis_names} does not cover "
                          f"{world} ranks")

@@ -4,7 +4,8 @@ Port of ``lbm_ferrofluid_tpu/parallel/sharding.py`` (``_leaf_spec``).
 Fields are laid out [B, C, (z,) y, x]; the mesh's ``batch`` axis takes the
 batch dimension and its spatial axes the array axis counted from the
 right, x the last, y the one before and z the one before that, of every
-leaf for which that axis is not one of its first two (batch and channels).
+leaf for which that axis is not one of its first two (batch and channels):
+a 3D state splits along z, y and x, a 2D state along y and x.
 A leaf whose extent along a mesh axis is not divisible by that axis's size
 stays whole along it on every rank, as the JAX package replicates it: the
 MAC-staggered ``H_ext_mac`` leaves of extent N + 1 along their own axis,

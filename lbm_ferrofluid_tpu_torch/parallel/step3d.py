@@ -1,4 +1,4 @@
-"""The z-slab decomposition of the 3D ferrofluid and HCZ steps over ranks.
+"""The decomposition of the 3D steps over ranks: z-slabs and blocks.
 
 Port of ``lbm_ferrofluid_tpu/parallel/step3d.py`` for the ferrofluid step
 (``models/ferrofluid.py``) in either form of its magnetic solve and the
@@ -48,6 +48,21 @@ kernels (:func:`dp_dispatch`), unless the mesh is made with ``slab=True``,
 which keeps the slab forms with the rank's own wrap as its ghosts (the JAX
 package's ``LBM_SLAB_FORCE``).
 
+The slab forms take a ferrofluid or HCZ state on z and batch axes only,
+one batch element a rank, in slabs of 4 or more planes (:func:`on_slabs`).
+Every other 3D state on a split grid with one element a rank takes the
+block route (:func:`blocks3d`, the JAX package's GSPMD route where its
+slab gates fail, ``lbm_ferrofluid_tpu/parallel/step3d.py:76-98``): its
+(z, y, x) block steps through the single-device kernels themselves, each
+on the block extended by ghost cells under its edge rule
+(``parallel/blocks.py:HALOS``), bit for bit to one device's steps on the
+same route.  The ferrofluid step there is the un-carried route (B4, the
+solve, B2, B6, B5), whose every launch has one edge rule; its solve runs
+in rounds (:func:`scalar_poisson_blocks`: B1's passes and its H2 launch;
+:func:`channel_poisson_blocks`: B11b's passes, then the substitution and
+B10a, the psi route).  The HCZ step runs B8b, B8a, B2, B6 and B9, single
+phase B8a, and Shan-Chen its plain ops (it has no kernel).
+
 The gates take GLOBAL [B, C, Z, Y, X] shapes, as the JAX package's; their
 structural conditions are the port's (the TPU's alignment and VMEM gates
 are not: ROADMAP ground rules).  Every function here takes and returns the
@@ -92,15 +107,22 @@ from ..ops.kernels.stream3d import (
     stream_bounce_moments,
     stream_bounce_moments_plain,
 )
-from ..ops.magnetic import poisson_rhs_scaled
+from ..ops.kernels.scalar_poisson import h2_from_psi_plain, scalar_h2
+from ..ops.magnetic import h_int_from_psi, poisson_rhs_scaled
 from ..ops.scalar_poisson import make_cmask, s_prev_from_h, scalar_from_h
 from ..ops.stencils import substitute_obstacles, substitute_obstacles_slab
+from .blocks import HALOS, WRAP, Blocks
 from .halo import ring_halo
 from .mesh import AXES, Mesh
 
 __all__ = [
     "dp_dispatch",
-    "check_slab_mesh",
+    "on_slabs",
+    "blocks3d",
+    "check_block_grid",
+    "solve_depth",
+    "scalar_poisson_blocks",
+    "channel_poisson_blocks",
     "sharded3d_ok",
     "fused_step_sharded_ok",
     "contact3d_sharded_ok",
@@ -128,10 +150,10 @@ __all__ = [
     "stream_bounce_moments_sharded",
 ]
 
-#: ROADMAP A12's slices after the first, which a refusal names
-SLICES = {"4b": "a 3D state on a mesh with a y or x axis, the padded layout on a mesh, and "
-                "the 3D single-phase and Shan-Chen steps on a split grid",
-          7: "the slab forms at more than one batch element a rank"}
+#: ROADMAP A12's slices that a refusal names
+SLICES = {"4c": "the padded layout on a split grid, which needs each rank's box coordinates",
+          7: "more than one batch element a rank on a split grid (the slab forms, the block "
+             "route and B1, B3, B10a and B10b step one element)"}
 
 
 def dp_dispatch(mesh: Mesh) -> bool:
@@ -141,10 +163,44 @@ def dp_dispatch(mesh: Mesh) -> bool:
     return mesh.nz * mesh.ny * mesh.nx == 1 and not mesh.slab
 
 
-def check_slab_mesh(mesh: Mesh) -> None:
-    """Raise where a 3D state meets a mesh with a y or x axis (slice 4b)."""
-    if mesh.ny * mesh.nx > 1:
-        raise unported(f"a 3D state on a mesh with y={mesh.ny}, x={mesh.nx}", "4b")
+def on_slabs(mesh: Mesh, local_shape) -> bool:
+    """Does a ferrofluid or HCZ state whose rank part has ``local_shape``
+    ([B, C, Zl, Y, X]) step on the slab forms: a split grid (not
+    :func:`dp_dispatch`) with z and batch axes only, one batch element a
+    rank and slabs of 4 or more planes.  Else a split grid takes the block
+    route (:func:`blocks3d`)."""
+    return (not dp_dispatch(mesh) and mesh.ny * mesh.nx == 1 and local_shape[0] == 1
+            and local_shape[2] >= 4)
+
+
+def blocks3d(mesh: Mesh, f) -> Blocks:
+    """This rank's :class:`~.blocks.Blocks` for a step of the 3D state whose
+    f is ``f`` on the block route; raises for more than one batch element a
+    rank (slice 7).  A field is first extended at its first use's depth."""
+    if f.shape[0] != 1:
+        raise unported(f"{f.shape[0]} batch elements a rank on a split grid", 7)
+    return Blocks(mesh, tuple(f.shape[2:]), min_depth=1)
+
+
+def check_block_grid(blk: Blocks, f, plain: bool, ids=None) -> None:
+    """Raise on the card without ``plain=True`` where a kernel that the step
+    launches (``ids``, default all) would meet an extension shorter than
+    its ``min_axis`` (4: B2, B5, B10a): a domain axis under it
+    (``models/multiphase.py:check_kernel_grid``), or a block so thin along
+    a split axis that its extension by one wrapped cell is."""
+    from ..models.multiphase import check_kernel_grid
+    from ..ops.kernels import KERNELS
+
+    check_kernel_grid(f, plain, ids, grid=tuple(a[3] for a in blk.axes.values()))
+    if plain or f.device.type != "cuda":
+        return
+    need = max(getattr(k.wrapper, "min_axis", 1) for kid, k in KERNELS.items()
+               if ids is None or kid in ids)
+    thin = [f"{a[0]}={a[1]}" for a in blk.split.values() if a[1] + 2 < need]
+    if thin:
+        raise ValueError(f"blocks of {', '.join(thin)} cells: the kernels on the block route "
+                         f"need {need - 2} or more cells a rank along each split axis; use "
+                         "fewer ranks there, or pass plain=True")
 
 
 def global_shape(local_shape, mesh: Mesh) -> tuple:
@@ -159,13 +215,14 @@ def unported(route: str, slice_=None) -> NotImplementedError:
     where = "ROADMAP A12" if slice_ is None else f"ROADMAP A12 slice {slice_}: {SLICES[slice_]}"
     return NotImplementedError(
         f"{route} is not ported yet ({where}); step it on one device or on a batch mesh, "
-        "a 3D state with the scalar carry on a z-slab mesh, or a 2D state on a y/x mesh")
+        "or with one batch element a rank on a mesh with z, y or x axes")
 
 
 def sharded3d_ok(mesh: Mesh, shape) -> bool:
     """Can the slab path run this global [B, C, Z, Y, X] shape on ``mesh``?
     Only the batch and z axes larger than 1, one batch element a rank, and
-    Z dividing into slabs of 2 or more planes."""
+    Z dividing into slabs of 2 or more planes (the ferrofluid and HCZ steps
+    take the slab forms at 4 or more, :func:`on_slabs`)."""
     if len(shape) != 5:
         return False
     B, _, Z, _, _ = shape
@@ -604,3 +661,59 @@ def stream_bounce_moments_sharded(g, flags, mesh: Mesh, *, plain=False):
     :129)."""
     moments = stream_bounce_moments_plain if plain else stream_bounce_moments
     return moments(g, flags, None if dp_dispatch(mesh) else _stream_ghosts(g, mesh))
+
+
+# ---------------------------------------------------------------- block route
+def solve_depth(blk: Blocks, n_iters: int) -> int:
+    """The ghost depth of the solve's flags, cmask and source on the block
+    route: the deepest round's, the last with the tail's clamp depth
+    (``HALOS[scalar_h2]``, ``HALOS[h_int_from_psi]``: 3) added so that psi
+    is exact that far past the block."""
+    rounds = blk.rounds(n_iters)
+    return max(max(rounds), rounds[-1] + HALOS[scalar_h2][1])
+
+
+def _rounds(blk: Blocks, sweeps, x, aux, n_iters, **kw):
+    """The sweeps of a solve on the rank's block in rounds
+    (:meth:`~.blocks.Blocks.rounds`): each round extends the carried ``x``
+    by k wrapped ghost cells (the last by k + 3) and runs k sweeps of
+    ``sweeps(x, *aux, n_iters=k, **kw)`` on it, whose wrap reaches only
+    ghost cells; ``aux`` (flags or cmask, and the source) is extended once.
+    Returns (x', psi of the last sweep, its ghosts exact 3 cells deep)."""
+    tail = HALOS[scalar_h2][1]
+    rounds = blk.rounds(n_iters)
+    blk.extend(list(aux), solve_depth(blk, n_iters))
+    for i, k in enumerate(rounds):
+        g = k + tail if i == len(rounds) - 1 else k
+        ext = blk.extend([x, *aux], g)
+        out, psi = sweeps(*ext, n_iters=k, **kw)
+        x = blk.cut(out, g, WRAP)
+    return x, blk.adopt(psi, g, tail)
+
+
+def scalar_poisson_blocks(blk: Blocks, s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext,
+                          plain=False):
+    """B1 on the rank's block; returns (H2, s2').  The passes in rounds
+    (``scalar_wavefront(..., emit="psi")``), then B1's H2 launch
+    (``scalar_h2``) on psi and cmask extended by 3 cells under the clamp
+    rule, cut from their wrap extensions, so that the gradient's ring and
+    obstacle substitution meet the domain's true faces."""
+    wavefront = scalar_wavefront_plain if plain else scalar_wavefront
+    s2, psi = _rounds(blk, wavefront, s2, (cmask, rhs_scaled), n_iters, emit="psi")
+    h2 = h2_from_psi_plain if plain else scalar_h2
+    return blk.op(h2)(psi, cmask, float(dx), tuple(float(v) for v in h_ext)), s2
+
+
+def channel_poisson_blocks(blk: Blocks, h, magnetic_flags, rhs_scaled, *, tau, n_iters,
+                           dx=1.0, h2_ext=None, plain=False):
+    """B11b on the rank's block; returns (H_int, or H2 with ``h2_ext``,
+    h').  The passes in rounds, the last emitting psi, then the psi route
+    (``ops/magnetic.py:h_int_from_psi``: the obstacle substitution and
+    B10a) on psi and the flags extended by 3 cells under the clamp rule, as
+    one device's ``solve_H_int`` runs it where B7's trailing stage does
+    not apply (the trailing stage mixes the sweeps' wrap with the
+    gradient's clamp)."""
+    sweeps = poisson_sweeps_plain if plain else poisson_sweeps
+    h, psi = _rounds(blk, sweeps, h, (magnetic_flags, rhs_scaled), n_iters, tau=tau)
+    grad = grad_fields_plain if plain else grad_fields
+    return blk.op(h_int_from_psi)(psi, magnetic_flags, dx=dx, h2_ext=h2_ext, grad=grad), h

@@ -30,9 +30,11 @@ h in the scalar carry (primed), in 9 channels, and in bfloat16 storage.
 * exchanges a step: one a side and axis for the fields of one dtype;
 * ``shard_state`` then ``gather_state`` along y and x gives the state back,
   with ``H_ext_mac`` cut only along the axis it divides;
-* the gates: a block of 1x1 cells, a grid that does not divide, z with y
-  or x, a 3D state or a padded layout on a y/x mesh (ROADMAP A12 slice 4b),
-  a 2D state on a z mesh.
+* the gates: a block of 1x1 cells, a grid that does not divide, a padded
+  layout on a y/x mesh (ROADMAP A12 slice 4c), a 2D state on a z mesh;
+  a mesh of z with y (the default axes), and a 3D state on a y/x mesh
+  routed to the block route (its steps: tests/test_torch_mesh3d.py), where
+  a state primed on one device refuses at priming and step alike.
 """
 
 import dataclasses
@@ -49,8 +51,9 @@ from lbm_ferrofluid_tpu.parallel.mesh import make_mesh as jmake_mesh  # noqa: E4
 from lbm_ferrofluid_tpu.parallel.sharding import shard_state as jshard  # noqa: E402
 
 from lbm_ferrofluid_tpu_torch import models as pm  # noqa: E402
+from lbm_ferrofluid_tpu_torch.models.multiphase import mesh_blocks  # noqa: E402
 from lbm_ferrofluid_tpu_torch.models.state import to_numpy  # noqa: E402
-from lbm_ferrofluid_tpu_torch.parallel import Mesh, make_mesh, shard_state  # noqa: E402
+from lbm_ferrofluid_tpu_torch.parallel import Mesh, make_mesh, shard_state, step3d  # noqa: E402
 
 CPU = torch.device("cpu")
 STEPS = 5
@@ -231,33 +234,40 @@ def test_gates_and_refusals():
         shard_state(s, _mesh(("y", "x"), (3, 1)))
     with pytest.raises(ValueError, match="X=24 does not split over the mesh's x axis of 5"):
         shard_state(s, _mesh(("y", "x"), (1, 5)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 slice 4b"):
-        make_mesh(("z", "y"), (2, 2), device="cpu")
+    # z with y or x is a mesh (3D states step on its blocks,
+    # tests/test_torch_mesh3d.py), and ("z", "y") the default axes, as JAX's
+    assert make_mesh(("z", "y"), (1, 1), device="cpu").axis_names == ("z", "y")
+    assert make_mesh(device="cpu").axis_names == ("z", "y")
     with pytest.raises(NotImplementedError, match="split along y and x"):
         shard_state(s, _mesh(("batch", "z"), (1, 2)))
     slab = make_mesh(device="cpu", slab=True)
     with pytest.raises(NotImplementedError, match="split along y and x"):
         pm.hcz_step(p, s, mesh=slab)
+    # a 3D state on a y/x mesh takes the block route, stepped bit for bit to
+    # one device in tests/test_torch_mesh3d.py; here its dispatch, and its
+    # gate that reads no exchange: a state primed on one device refuses at
+    # priming and at the step with one message
     yx = _mesh(("y", "x"), (2, 1))
     p3, s3 = pm.rosensweig_3d(res=(8, 8, 10), device="cpu")
     part = shard_state(s3, yx)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 slice 4b"):
-        pm.ferrofluid_step(p3, part, mesh=yx)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 slice 4b"):
-        pm.prime_premac(p3, part, mesh=yx)
+    assert not step3d.on_slabs(yx, part.f.shape)
+    assert mesh_blocks(p3, part, yx, None).block == (8, 4, 10)
+    primed = shard_state(pm.prime_premac(p3, s3, device="cpu"), yx)
+    with pytest.raises(ValueError, match="premac on the block route") as at_step:
+        pm.ferrofluid_step(p3, primed, mesh=yx)
+    with pytest.raises(ValueError, match="premac on the block route") as at_prime:
+        pm.prime_premac(p3, primed, mesh=yx)
+    assert str(at_step.value) == str(at_prime.value)
     ph, sh = pm.multiphase_3d(res=(8, 8, 10), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 slice 4b"):
-        pm.hcz_step(ph, shard_state(sh, yx), mesh=yx)
+    blk = mesh_blocks(ph, shard_state(sh, yx), yx, None)
+    assert (blk.block, list(blk.split)) == ((8, 4, 10), [3])
     pp, sp = pm.rosensweig_3d_tpu(res=(6, 8, 10), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 slice 4b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A12 slice 4c"):
         pm.prime_premac(pp, shard_state(sp, yx), mesh=yx)
     params = pm.SimulationParams(dim=3, tau=0.6)
     res = (1, 1, 8, 8, 10)
     rho, flags = np.full(res, 0.2, np.float32), np.ones(res, np.uint8)
     vel = np.zeros((1, 3, *res[2:]), np.float32)
-    for step, st in ((pm.singlephase_step, pm.init_singlephase_state(params, rho, vel, flags,
-                                                                      device="cpu")),
-                     (pm.sc_step, pm.init_sc_state(params, rho, rho, vel, flags,
-                                                   device="cpu"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12 slice 4b"):
-            step(params, shard_state(st, yx), mesh=yx)
+    for st in (pm.init_singlephase_state(params, rho, vel, flags, device="cpu"),
+               pm.init_sc_state(params, rho, rho, vel, flags, device="cpu")):
+        assert mesh_blocks(params, shard_state(st, yx), yx, None).block == (8, 4, 10)

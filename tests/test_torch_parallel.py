@@ -28,11 +28,11 @@ own scene for its sharded tests (tests/test_sharded_step.py:_flagship,
   steps;
 * ``halo.sharded_poisson_sweeps`` on 2 gloo z ranks against the JAX
   package's single-device channel-form loop (tests/test_halo.py's bars);
-* the gates and refusals: Z not divisible by nz, slabs under 4 planes, z
-  together with y or x, and the routes the slab mesh does not run (the
-  padded layout and 2D); the step's gates
-  are priming's (a state primed on one device and cut onto 3- and 2-plane
-  slabs, ROADMAP C7); ``auto_mesh_shape``
+* the gates and refusals: Z not divisible by nz, slabs under 4 planes and
+  z together with y routed to the block route, and the routes the slab
+  mesh does not run (the padded layout and 2D); the step's gates are
+  priming's (a state primed on one device and cut onto 3- and 2-plane
+  slabs, which take the block route, ROADMAP C7); ``auto_mesh_shape``
   against JAX's; ``initialize_distributed`` without torchrun's variables;
 * a kernel's launch is refused for a tensor off the current card
   (``_lib.stream_of``), held with a fake card index.
@@ -72,6 +72,8 @@ from lbm_ferrofluid_tpu_torch.parallel import (  # noqa: E402
     shard_state,
 )
 from lbm_ferrofluid_tpu_torch.parallel import step3d  # noqa: E402
+
+import lbm_ferrofluid_tpu_torch.models.ferrofluid as port_ferro  # noqa: E402
 
 STEPS = 3
 FIELDS = ("f", "g", "vel", "density", "pressure")
@@ -197,19 +199,27 @@ def test_slab_forced_epilogue_routes_match(route):
 
 @pytest.mark.parametrize("Z", [12, 8], ids=["3-plane", "2-plane"])
 def test_step_gates_match_priming(Z):
-    """ROADMAP C7: a state primed on one device and cut onto 4 z ranks of
-    3- or 2-plane slabs refuses at the step with priming's message, on
-    every route, where it used to step (3 planes) or raise B1's 'no slab
-    plan' (2 planes)."""
+    """ROADMAP C7: on 4 z ranks of 3- or 2-plane slabs a 3D state takes the
+    block route, whose priming only converts h and leaves no premac
+    (tests/test_torch_mesh3d.py primes and steps it there).  A state primed
+    on one device and cut onto those slabs refuses at the step on routes Z
+    and E with the message that priming it gives, which names the block
+    route and says to prime on the mesh; on route U (premac None, the carry
+    as the block route's priming makes it) it passes the step's gates."""
     params, s = rosensweig_3d(res=(Z, 8, 10), device="cpu")
     primed = prime_premac(params, s, device="cpu")
     for iz in range(4):
         mesh = _mesh((1, 4), iz=iz)
-        with pytest.raises(ValueError, match="4 or more planes a rank") as at_prime:
-            prime_premac(params, shard_state(s, mesh), mesh=mesh)
+        assert not step3d.on_slabs(mesh, shard_state(s, mesh).f.shape)
+        with pytest.raises(ValueError, match="premac on the block route") as at_prime:
+            prime_premac(params, shard_state(primed, mesh), mesh=mesh)
+        assert "prime the state on the mesh" in str(at_prime.value)
         for route in ("Z", "E", "U"):
             part = worker.on_route(shard_state(primed, mesh), route)
-            with pytest.raises(ValueError, match="4 or more planes a rank") as at_step:
+            if route == "U":
+                assert port_ferro._block_gates(part, mesh, False).block == (Z // 4, 8, 10)
+                continue
+            with pytest.raises(ValueError, match="premac on the block route") as at_step:
                 ferrofluid_step(params, part, mesh=mesh)
             assert str(at_step.value) == str(at_prime.value)
 
@@ -300,11 +310,11 @@ def test_gates_and_refusals():
     params, s = rosensweig_3d(res=(16, 8, 10), device="cpu")
     with pytest.raises(ValueError, match="does not split over the mesh's z axis"):
         shard_state(s, _mesh((1, 3)))
+    # 2-plane slabs and a mesh of z with y take the block route
     thin = _mesh((1, 8))
-    with pytest.raises(ValueError, match="4 or more planes a rank"):
-        prime_premac(params, shard_state(s, thin), mesh=thin)
-    with pytest.raises(NotImplementedError, match="z together with y or x"):
-        make_mesh(("z", "y"), (2, 2), device="cpu")
+    assert not step3d.on_slabs(thin, shard_state(s, thin).f.shape)
+    assert step3d.on_slabs(_mesh((1, 4)), shard_state(s, _mesh((1, 4))).f.shape)
+    assert make_mesh(("z", "y"), (1, 1), device="cpu").sizes == {"z": 1, "y": 1}
     assert not step3d.sharded3d_ok(Mesh(("z", "y"), (1, 2), 0, CPU), (1, 19, 16, 8, 10))
     assert not step3d.sharded3d_ok(_mesh((1, 3)), (1, 19, 16, 8, 10))
     assert step3d.fused_step_sharded_ok(_mesh((1, 4)), (1, 19, 16, 8, 10), None)
@@ -331,14 +341,14 @@ def _routes():
         p, s = rosensweig_2d(res=(16, 16), device="cpu")
         ferrofluid_step(p, s, mesh=slab)
 
-    return {"padded": (padded, "ROADMAP A12 slice 4b"),
+    return {"padded": (padded, "ROADMAP A12 slice 4c"),
             "2d": (two_d, "2D states split along y and x")}
 
 
 @pytest.mark.parametrize("route", sorted(_routes()))
 def test_unported_meshed_routes_raise(route):
     """Each route left raises: the padded layout naming its ROADMAP A12
-    slice (4b), a 2D state saying that 2D states split along y and x
+    slice (4c), a 2D state saying that 2D states split along y and x
     (tests/test_torch_mesh2d.py); the channel form, an un-primed 19-channel
     h and the HCZ step run on slabs (tests/test_torch_parallel_channel.py)."""
     call, message = _routes()[route]

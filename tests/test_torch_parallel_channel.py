@@ -24,7 +24,7 @@ on ``droplet_spread_3d``, gravity and the wetting floor (HD), at 16x8x12.
   as on a slab).
 * One rank with ``slab=True`` (the slab forms with the rank's own wrap as
   ghosts) on routes C, U19 and H, bit for bit to the single-device steps.
-* The gates: the HCZ step on slabs under 4 planes.
+* The gates: the HCZ step on slabs under 4 planes takes the block route.
 """
 
 import dataclasses
@@ -42,8 +42,8 @@ from lbm_ferrofluid_tpu.models import hcz_step as jhcz_step  # noqa: E402
 from lbm_ferrofluid_tpu.models import init_ferrofluid_state as jinit  # noqa: E402
 from lbm_ferrofluid_tpu.models import scenes as jscenes  # noqa: E402
 
-from lbm_ferrofluid_tpu_torch.models import hcz_step, multiphase_3d  # noqa: E402
-from lbm_ferrofluid_tpu_torch.parallel import Mesh, make_mesh, shard_state  # noqa: E402
+from lbm_ferrofluid_tpu_torch.models import multiphase_3d  # noqa: E402
+from lbm_ferrofluid_tpu_torch.parallel import Mesh, make_mesh, shard_state, step3d  # noqa: E402
 
 STEPS = 3
 FERRO = ("f", "g", "h", "rho", "vel", "density", "pressure")
@@ -158,8 +158,13 @@ def test_slab_forced_route_matches(route):
 
 
 def test_hcz_step_gates():
-    """The HCZ step on a z-slab mesh needs 4 or more planes a rank."""
+    """The HCZ step takes the slab forms on 4 or more planes a rank, and
+    the block route on thinner slabs (stepped bit for bit to one device in
+    tests/test_torch_mesh3d.py)."""
     params, s = multiphase_3d(res=(12, 8, 10), device="cpu")
     thin = Mesh(("batch", "z"), (1, 4), 1, torch.device("cpu"), "gloo", False)
-    with pytest.raises(ValueError, match="4 or more planes a rank"):
-        hcz_step(params, shard_state(s, thin), mesh=thin)
+    part = shard_state(s, thin)
+    assert not step3d.on_slabs(thin, part.f.shape)
+    assert step3d.blocks3d(thin, part.f).block == (3, 8, 10)
+    slabs = Mesh(("batch", "z"), (1, 3), 1, torch.device("cpu"), "gloo", False)
+    assert step3d.on_slabs(slabs, shard_state(s, slabs).f.shape)

@@ -587,3 +587,149 @@ def run_mesh2d(out_dir, axes, shape, jobs, steps=5):
                                           steps, str(out_dir)),
                        nprocs=world, start_method="spawn")
     return {name: dict(np.load(pathlib.Path(out_dir) / f"{name}.npz")) for name in jobs}
+
+
+# ------------------------------------------------------------------ 3D on blocks
+#: the JAX package's tests/test_sharding.py flagship scene's parameters (on
+#: ``flagship_fields``' arrays at 16x8x16, with no declared shell)
+SHARDING_3D = dict(
+    dim=3, density_gas=0.02381, density_fluid=0.2508, rho_gas=0.02381, rho_fluid=0.2508,
+    kappa=0.01, tau_f=0.68, tau_g=0.68, gravity=1e-4, mag_strength=85.0, poisson_iters=5,
+)
+BF16 = {"fg_dtype": "bfloat16", "h_dtype": "bfloat16"}
+#: the 3D cases on the block route: (model, params change).  scalar: the
+#: flagship scene with h in the scalar carry (primed on the mesh); channel:
+#: at tau 0.8 (the 19-channel h); channel_obs: at tau 1 with magnetic
+#: obstacles inside the domain, across the blocks' seams (the collapse does
+#: not apply); the _bf16 cases with f, g and h stored in bfloat16; hcz:
+#: HCZ on the flagship pool (its density moved by seeded noise); bgk:
+#: single phase with velocities from a seed around an obstacle block; sc:
+#: Shan-Chen on the noisy pool
+MESH3D_CASES = {
+    "scalar": ("ferro", {}),
+    "channel": ("ferro", {"tau": 0.8}),
+    "channel_obs": ("ferro_obs", {}),
+    "scalar_bf16": ("ferro", BF16),
+    "channel_bf16": ("ferro", dict(BF16, tau=0.8)),
+    "hcz": ("hcz", {}),
+    "bgk": ("single", {}),
+    "sc": ("sc", {}),
+}
+#: the step a model takes (``lbm_ferrofluid_tpu_torch.models`` names)
+MESH3D_STEPS = {"ferro": "ferrofluid_step", "ferro_obs": "ferrofluid_step",
+                "hcz": "hcz_step", "single": "singlephase_step", "sc": "sc_step"}
+
+
+def mesh3d_fields(model, res, seed=11):
+    """(params keywords, numpy fields) of a 3D case's whole state."""
+    rho, den, vel, flags, mflags = flagship_fields(res)
+    rng = np.random.default_rng(seed)
+    if model == "single":
+        vel = rng.uniform(-0.05, 0.05, vel.shape).astype(np.float32)
+        flags = np.full_like(flags, FLUID)
+        Z, Y, X = res
+        flags[..., Z // 4:Z // 2, 2:Y // 2, X // 4:X // 2] = OBSTACLE
+        return dict(dim=3, tau=0.6), dict(rho=np.full_like(rho, 0.265), vel=vel, flags=flags)
+    if model in ("sc", "hcz"):
+        rho = (rho * (1 + 1e-3 * rng.uniform(-1, 1, rho.shape))).astype(np.float32)
+    fields = dict(rho=rho, density=rho.copy(), vel=vel, flags=flags)
+    if model == "sc":
+        return dict(SHARDING_3D, tau=1.0), fields
+    if model == "hcz":
+        return dict(SHARDING_3D, kappa=0.08, tau_f=0.7, tau_g=0.8,
+                    contact_angle=0.75 * np.pi), fields
+    if model == "ferro_obs":
+        Z, Y, X = res
+        mflags[..., Z // 2 - 1:Z // 2 + 1, Y // 2 - 1:Y // 2 + 1, X // 2 - 2:X // 2 + 2] = OBSTACLE
+    fields["magnetic_flags"] = mflags
+    return dict(SHARDING_3D), fields
+
+
+def mesh3d_state(case, res=RES):
+    """(params, whole state) of a case of :data:`MESH3D_CASES` on the CPU."""
+    from lbm_ferrofluid_tpu_torch import models as pm
+
+    model, change = MESH3D_CASES[case]
+    kw, fd = mesh3d_fields(model, res)
+    params = pm.SimulationParams(**kw).replace(**change)
+    if model == "single":
+        return params, pm.init_singlephase_state(params, fd["rho"], fd["vel"], fd["flags"],
+                                                 device="cpu")
+    args = (params, fd["rho"], fd["density"], fd["vel"], fd["flags"])
+    if model == "sc":
+        return params, pm.init_sc_state(*args, device="cpu")
+    if model == "hcz":
+        return params, pm.init_hcz_state(*args, device="cpu")
+    return params, pm.init_ferrofluid_state(*args, fd["magnetic_flags"], device="cpu")
+
+
+def mesh3d_main(rank, world, port, axes, shape, jobs, steps, out_dir):
+    """One rank of 3D steps on a mesh over ``axes``: for each job (case,
+    grid), the whole state built on every rank, this rank's block cut,
+    primed on the mesh where the model is the ferrofluid step, ``steps``
+    meshed steps through the model's entry point, gathered; rank 0 writes
+    ``<job>.npz`` with the exchanges and bytes a step (``stats.``) and
+    whether priming left a premac (``stats.premac``).  A job named
+    ``runner...`` steps through ``SimulationRunner(..., mesh=)``, which
+    primes, with an ``io_fn`` at every step that gathers the whole state
+    (``stats.io_calls``, and ``stats.io_whole``: every gather whole)."""
+    import torch
+    import torch.distributed as dist
+
+    from lbm_ferrofluid_tpu_torch import models as pm
+    from lbm_ferrofluid_tpu_torch.models.state import to_numpy
+    from lbm_ferrofluid_tpu_torch.parallel import (
+        gather_state, initialize_distributed, make_mesh, ring_halo, shard_state,
+    )
+
+    torch.set_num_threads(1)
+    out_dir = pathlib.Path(out_dir)
+    assert initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo") == world
+    try:
+        mesh = make_mesh(axes, shape, device="cpu")
+        for name, (case, res) in jobs.items():
+            params, whole = mesh3d_state(case, tuple(res))
+            model = MESH3D_CASES[case][0]
+            step = getattr(pm, MESH3D_STEPS[model])
+            st = shard_state(whole, mesh)
+            n0, b0 = ring_halo.exchanges, ring_halo.sent_bytes
+            if name.startswith("runner"):
+                shapes = []
+
+                def io_fn(state):
+                    shapes.append(tuple(gather_state(state, mesh).f.shape))
+
+                st = pm.SimulationRunner(params, step, mesh=mesh).run(
+                    st, steps, io_interval=1, io_fn=io_fn, nan_guard=True)
+                stats = dict(io_calls=len(shapes),
+                             io_whole=all(sh == tuple(whole.f.shape) for sh in shapes),
+                             premac=getattr(st, "premac", None) is not None)
+            else:
+                if step is pm.ferrofluid_step:
+                    st = pm.prime_premac(params, st, mesh=mesh)
+                premac = getattr(st, "premac", None) is not None
+                n0, b0 = ring_halo.exchanges, ring_halo.sent_bytes
+                for _ in range(steps):
+                    st = step(params, st, mesh=mesh)
+                stats = dict(exchanges=(ring_halo.exchanges - n0) / steps,
+                             bytes=(ring_halo.sent_bytes - b0) / steps, premac=premac)
+            out = gather_state(st, mesh)
+            if rank == 0:
+                np.savez(out_dir / f"{name}.npz", **_flat(to_numpy(out)),
+                         **{"stats." + key: v for key, v in stats.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh3d(out_dir, axes, shape, jobs, steps=3):
+    """:func:`mesh3d_main` on the ranks of ``shape`` (spawned): {job: the
+    gathered state's arrays}."""
+    import math
+
+    import torch.multiprocessing as mp
+
+    world = math.prod(shape)
+    mp.start_processes(mesh3d_main, args=(world, free_port(), tuple(axes), tuple(shape), jobs,
+                                          steps, str(out_dir)),
+                       nprocs=world, start_method="spawn")
+    return {name: dict(np.load(pathlib.Path(out_dir) / f"{name}.npz")) for name in jobs}
