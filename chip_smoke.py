@@ -24,6 +24,8 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
     python3 chip_smoke.py --batch          # only batched states on one device (phase batch)
     python3 chip_smoke.py --route-time [ROOT]  # ms a step of routes U and H at 256^3,
                                            # B = 1, of the package at ROOT
+    python3 chip_smoke.py --trail-time [ROOT]  # B7's trailing pass alone in each instance
+                                           # at 256^3, then --route-time, of the package at ROOT
     python3 chip_smoke.py --mesh2d         # only the 2D models on y/x meshes (phase mesh2d)
     python3 chip_smoke.py --mesh3d         # only 3D states on the block route (phase mesh3d)
 
@@ -149,7 +151,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    B11b with B7's trailing stage on the channel flagship's inputs
    (``trail_report``): h2 and hint bit for bit to the plain version,
    launch by launch, the trailing pass's plan, resident blocks and ptxas
-   line, the h2 call timed in turns against the psi route (B11b's psi,
+   line; the trailing pass alone in each instance (``trail_instances``:
+   tau 1 and 0.8, h2 and hint, B = 2, a slab at a true edge and between
+   neighbours) bit for bit to its plain version with a hash of its bits,
+   beside a regular pass and its bound; the h2 call timed in turns against the psi route (B11b's psi,
    the substitution, B10a, the H2 ops); C and U ms a step at 256^3 on
    both routes in turns, with their launches a step (``route_turns``);
 5c. the north star and the demos (after phase 5), each with the counters
@@ -1680,15 +1685,132 @@ def trail_report(K, params, st, ptxas, bf16=False):
                        .passes[-1], sms, 2 if bf16 else 4)
     tau1 = int(1.0 / params.tau == 1.0)
     name = f"lbm_poisson_trail_kernel<{'bf16,' if bf16 else ''}{tau1},{tp.ty + 2 * tp.k},0,0>"
+    out["instances"] = trail_instances(K, params, st, ptxas, bf16)
     out["trail_pass"] = dict(
         k=tp.k, tile=[pp.tile_width(tp.k + 1), tp.ty], lz=tp.lz,
-        threads=pp.threads(tp.k + 1, tp.ty),
+        threads=pp.threads(tp.k, tp.ty),
         smem_bytes=pp.smem_bytes(tp.k, tp.ty, 2 if bf16 else 4, trail=True),
         blocks_per_sm=blocks_per_sm("lbm_poisson_pass_occupancy", tp.k, tp.ty, tau1, int(bf16),
                                     1),
         ptxas={name: (ptxas or {}).get(name)})
     torch.cuda.empty_cache()
     return out
+
+
+#: the trailing pass's instances (``trail_instances``): label, tau (None:
+#: the scene's), emit and form: "one" (B = 1), "batch" (B = 2), a slab of
+#: ``TRAIL_SLAB`` planes at the domain's lower true edge ("edge", clamp (1,
+#: Zl)) or between two neighbours ("inner", clamp (-1, Zl))
+TRAIL_INSTANCES = (("tau 1 h2", 1.0, "h2", "one"), ("tau 1 hint", 1.0, "hint", "one"),
+                   ("tau 0.8 h2", 0.8, "h2", "one"), ("tau 0.8 hint", 0.8, "hint", "one"),
+                   ("B=2 h2", None, "h2", "batch"), ("slab edge h2", None, "h2", "edge"),
+                   ("slab inner h2", None, "h2", "inner"))
+#: a slab's planes and band planes a side (G >= k + 1)
+TRAIL_SLAB = (64, 4)
+
+
+def trail_instance_args(params, st, tau, emit, form):
+    """(args, kw, cost) of one launch of B11b's trailing pass, a call of k =
+    3 sweeps with B7's trailing stage, on ``st``'s inputs in ``form``
+    (``TRAIL_INSTANCES``); a slab is cut from the grid with its bands and
+    its flags and rhs extended by G planes a side (wrapped)."""
+    import functools
+
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
+
+    h, mf, rhs = st.h, st.magnetic_flags, st.premac[5]
+    kw = emit_kw(params, emit, params.tau if tau is None else tau, 3)
+    if form == "one":
+        return (h, mf, rhs), kw, pp.cost
+    if form == "batch":
+        return ((torch.cat([h, h.roll(1, dims=-1)]), torch.cat([mf, mf]), torch.cat([rhs, rhs])),
+                kw, pp.cost)
+    Zl, G = TRAIL_SLAB
+    z0 = 0 if form == "edge" else (h.shape[2] - Zl) // 2
+    idx = torch.arange(z0 - G, z0 + Zl + G, device=h.device) % h.shape[2]
+    hz = h.index_select(2, idx)
+    kw = dict(kw, ghosts=(hz[:, :, :G].contiguous(), hz[:, :, G + Zl:].contiguous()),
+              clamp=(1 if form == "edge" else -1, Zl))
+    return ((hz[:, :, G:G + Zl].contiguous(), mf.index_select(2, idx), rhs.index_select(2, idx)),
+            kw, functools.partial(pp.cost_slab, rounds=(3,), G=G))
+
+
+def trail_instances(K, params, st, ptxas, bf16=False, plain=True, reps=10):
+    """B11b's trailing pass alone (one launch) on ``st``'s inputs in each
+    of ``TRAIL_INSTANCES``: ms beside a regular pass of the same k (which
+    stores psi) on the same inputs, its bound (``cost``, ``cost_slab``), a
+    hash of the emitted field's bits and, with ``plain``, both outputs held
+    bit for bit to the plain version's (the check fails otherwise) with the
+    plain field's hash; its plan, resident blocks an SM and the ptxas line
+    of its instance."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tag = " bf16" if bf16 else ""
+    rows = {}
+    for label, tau, emit, form in TRAIL_INSTANCES:
+        args, kw, cost = trail_instance_args(params, st, tau, emit, form)
+        got = K["B11b"].wrapper(*args, **kw)
+        row = {"form": form, "emit": emit, "tau": kw["tau"], "B": args[0].shape[0],
+               "sha256": _bits_sha(got[1])[:16]}
+        if plain:
+            want = K["B11b"].plain(*args, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"B11b's trailing pass {label}{tag}: differs from its plain version")
+            row["plain_sha256"] = _bits_sha(want[1])[:16]
+            del want
+        del got
+        regular = {key: v for key, v in kw.items() if key not in ("emit", "dx", "h_ext", "clamp")}
+        row["ms"] = time_cuda(lambda: K["B11b"].wrapper(*args, **kw), reps)
+        row["regular_pass_ms"] = time_cuda(lambda: K["B11b"].wrapper(*args, **regular), reps)
+        moved, flops = cost(*args, **kw)
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        tp = pp.trail_pass(*args[0].shape[2:], 3, sms, 2 if bf16 else 4)
+        tau1 = int(1.0 / kw["tau"] == 1.0)
+        name = (f"lbm_poisson_trail_kernel<{'bf16,' if bf16 else ''}{tau1},{tp.ty + 6},"
+                f"{int(form in ('edge', 'inner'))},{int(form == 'batch')}>")
+        row.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else
+                   "operations", ty=tp.ty, lz=tp.lz,
+                   blocks_per_sm=blocks_per_sm("lbm_poisson_pass_occupancy", 3, tp.ty, tau1,
+                                               int(bf16), 1),
+                   ptxas={name: (ptxas or {}).get(name)})
+        rows[label] = row
+        del args, kw
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_trail_time(dev, card, ptxas=None):
+    """B11b's trailing pass alone in each instance (``trail_instances``,
+    float32 and bfloat16 h, 20 launches each) at the inputs of the 256^3
+    channel-form step after 5 steps, in the package that
+    ``lbm_ferrofluid_tpu_torch`` imports from (``--trail-time ROOT``: a
+    checkout at ROOT, for an A/B of two trees in one call, whose hashes of
+    the outputs' bits must agree); then :func:`phase_route_time`."""
+    import torch
+
+    import lbm_ferrofluid_tpu_torch
+    from lbm_ferrofluid_tpu_torch.models import SimulationRunner, ferrofluid_step, rosensweig_3d
+    from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+
+    out = {"phase": "trail_time", "package": lbm_ferrofluid_tpu_torch.__file__, "card": card}
+    params, st = rosensweig_3d(res=(256, 256, 256), mag_strength=85.0, device=dev)
+    params = params.replace(scalar_carry=False)
+    for label, (p, s) in (("f32", (params, st)), ("bf16", turbo(params, st, dev))):
+        s, _ = SimulationRunner(p, ferrofluid_step, device=dev).benchmark(s, n_steps=3, warmup=2)
+        check(s.h.shape[1] == 19, f"trail time {label}: not the channel form")
+        out[label] = trail_instances(kernels_pkg.KERNELS, p, s, ptxas, bf16=label == "bf16",
+                                     plain=False, reps=20)
+        del s
+        torch.cuda.empty_cache()
+    del st
+    emit(dict(out, ok=True))
+    phase_route_time(dev, card)
 
 
 def route_turns(params, state, dev):
@@ -6355,7 +6477,7 @@ def main() -> int:
         return mesh2d_rank(sys.argv[sys.argv.index("--mesh2d-rank") + 1])
     if "--mesh3d-rank" in sys.argv[1:]:
         return mesh3d_rank(sys.argv[sys.argv.index("--mesh3d-rank") + 1])
-    for flag in ("--step-time", "--route-time"):
+    for flag in ("--step-time", "--route-time", "--trail-time"):
         if flag in sys.argv[1:]:
             at = sys.argv.index(flag) + 1
             if at < len(sys.argv) and not sys.argv[at].startswith("--"):
@@ -6425,6 +6547,9 @@ def main() -> int:
         emit({"kernels": batch_rows(kernels_pkg.KERNELS, total, rows)})
     elif "--route-time" in sys.argv[1:]:
         phase_route_time(dev, smi)
+        print(smi, flush=True)
+    elif "--trail-time" in sys.argv[1:]:
+        phase_trail_time(dev, smi, ptxas)
         print(smi, flush=True)
     elif "--mesh2d" in sys.argv[1:]:
         phase_mesh2d(dev, smi)

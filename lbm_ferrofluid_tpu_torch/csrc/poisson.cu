@@ -98,6 +98,25 @@
 // Zl - 2 or Zl), and reads psi of the planes either side of the slab, which
 // its G >= k + 1 band planes keep exact after k sweeps.
 //
+// The trailing pass's block (PERF.md section 6 has the measurements, at
+// 256^3 on an H100).  Its own work is small beside its geometry: with a warp
+// per input row a pass of k + 1 sweeps at k = 3 on 9-row tiles has 17 warps,
+// and ptxas then allots 96 registers a thread where a regular pass's 15
+// warps get 128 (a regular pass on 17 warps is 19 % slower a cell).  So:
+//   - a warp per row 0..EY - 1 of the extended tile, EY warps; the first
+//     and the last also load the 5 channels stage 1 reads of halo rows -1
+//     and EY (LbmTrailInput): 15 warps and 128 registers at k = 3;
+//   - psi and the flags in rings of PP_TRAIL_SLOTS = 4 planes: the stage for
+//     plane ps runs in the next tick, beside stage 1, on planes ps - 1..ps +
+//     1 that stage k finished before that tick's barrier, while stage k
+//     fills the fourth slot, so no barrier follows stage k.  Each tap loads
+//     psi and the obstacle flag, and at an obstacle psi of its clamped cell.
+// Slower than this in the same comparison, and not kept: a ring of psi
+// substituted once a cell by stage k (the TPU kernel's select: stage k's
+// extra work outweighed the flag loads saved), the stage on the warps that
+// stage k or every stage leaves idle, a path without flags for blocks off
+// the boundary, and 8-row tiles.
+//
 // Passes write out of place, so no input is overwritten during a pass; the
 // k = 1 pass is the one-sweep kernel, and every pass computes each cell with
 // lbm_poisson_cell, so every plan gives the same bits.  A pass of k = 3 at

@@ -5,11 +5,16 @@
 // csrc/poisson_trail.cu instantiates the trailing stage's pass, so the build
 // compiles the two beside each other.
 #pragma once
+#include <type_traits>
+
 #include "common.cuh"
 
 #define PP_EX 32  // extended tile width
 // floats a stage ring keeps a cell: 9 channels x 2 planes + 5 x 3 + 5 x 1
 #define PP_RING 38
+// planes of the trailing stage's psi and flags rings: the 3 its taps read
+// and the one stage k fills beside it
+#define PP_TRAIL_SLOTS 4
 // the most shared memory a block may take on an H100
 // (ops/kernels/poisson.py:SMEM_BLOCK_MAX), and the devices a process tracks
 #define PP_SMEM_MAX 232448
@@ -65,6 +70,13 @@ struct LbmPassInput {
   uint8_t flag;
 };
 
+// The same in the trailing stage's pass, whose first and last warps also
+// load the 5 channels that stage 1 reads of the halo row beside them.
+template <class T>
+struct LbmTrailInput : LbmPassInput<T> {
+  T halo[5];
+};
+
 // EY is a template parameter, so every shared-memory offset of a channel
 // is an immediate of the load or store instead of a multiply by the plane
 // size, and the register bound follows the block's size; the host picks
@@ -73,7 +85,8 @@ struct LbmPassInput {
 // -G..-1 from glo and Z..Z + G - 1 from ghi, no wrap, the bands written to
 // blo and bhi), its own kernel so that the one-device kernel's code is as
 // it was.  TRAIL: the trailing stage writes H_int or H2 (tr) to psi_out in
-// place of psi, on the geometry of a pass of k + 1 sweeps.  zblk is the
+// place of psi, on the geometry of a pass of k + 1 sweeps with a warp per
+// row 0..EY - 1 (EY warps, not EY + 2: csrc/poisson.cu's header).  zblk is the
 // block's z chunk (blockIdx.z, or its part of it where the launch folds a
 // batch into gridDim.z: LBM_PASS_ELEM).
 template <class T, bool TAU1, int EY, bool SLAB, bool TRAIL>
@@ -87,8 +100,8 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
   // all in T; then, in float, the (k + 1)-plane rhs ring, the wrapped grid
   // x of the extended columns and y * X of the rows -1..EY, then the flags
   // ring; with TRAIL the final sweep's psi (float) and obstacle flags
-  // (bytes) of 3 planes.  Every channel plane of the input and the rings
-  // holds rows -1..EY (PI elements, row e at (e + 1) * 32; the rings leave
+  // (bytes) of PP_TRAIL_SLOTS planes.  Every channel plane of the input and
+  // the rings holds rows -1..EY (PI elements, row e at (e + 1) * 32; the rings leave
   // rows -1 and EY unused), so each stage reads its source the same way.
   extern __shared__ float smem[];
   constexpr int P = PP_EX * EY, PI = PP_EX * (EY + 2);
@@ -102,13 +115,16 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
   int* rowy = colx + PP_EX;
   uint8_t* flr = reinterpret_cast<uint8_t*>(rowy + EY + 2);
   float* psr = reinterpret_cast<float*>(flr + (k + 1) * P);
-  uint8_t* obr = reinterpret_cast<uint8_t*>(psr + 3 * P);
+  uint8_t* obr = reinterpret_cast<uint8_t*>(psr + PP_TRAIL_SLOTS * P);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
   const int z0 = zblk * LZ, z1 = min(z0 + LZ, Z);
   const long long XY = static_cast<long long>(X) * Y, N = XY * Z, GN = XY * G;
   if (warp == 0) colx[lane] = lbm_mod(x0 - HX + lane, X);
   if (lane == 0) rowy[warp] = lbm_mod(y0 - KG + warp, Y) * X;  // a warp per row -1..EY
+  // (TRAIL: a warp per row -1..EY - 2, the first warp rows EY - 1 and EY)
+  if (TRAIL && warp == 0 && (lane == 1 || lane == 2))
+    rowy[EY - 1 + lane] = lbm_mod(y0 - KG + EY - 1 + lane, Y) * X;
   __syncthreads();
   const int ex[19] = LBM_D3Q19_EX;
   const int ey[19] = LBM_D3Q19_EY;
@@ -119,27 +135,48 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
   // [z0 - 1, z1 + 1))
   const int zb = z0 - KG + 1, n_ticks = z1 - z0 + 2 * KG - 2;
 
-  // the warp's input row (row warp - 1 of the extended tile) and, for rows
-  // 0..EY - 1, its cell of the flags and rhs plane, at in-plane offsets of
-  // the grid
-  const int in_off = rowy[warp] + colx[lane];
-  const bool has_cell = warp >= 1 && warp <= EY;
+  // the warp's input row (row warp - 1 of the extended tile; with TRAIL row
+  // warp) and, for rows 0..EY - 1, its cell of the flags and rhs plane, at
+  // in-plane offsets of the grid
+  const int in_row = TRAIL ? warp + 1 : warp;
+  const int in_off = rowy[in_row] + colx[lane];
+  const bool has_cell = TRAIL || (warp >= 1 && warp <= EY);
+  // TRAIL: the halo row the first (last) warp also loads, row -1 (EY), and
+  // its channels, those with e_y = +1 (-1), which stage 1 reads there
+  const bool has_halo = TRAIL && (warp == 0 || warp == EY - 1);
+  const int halo_row = warp == 0 ? 0 : EY + 1;
+  const int halo_off = TRAIL ? rowy[halo_row] + colx[lane] : 0;
+  // (both lists' e_z are 0, 0, 0, +1, -1: halo_ez, a compile-time index
+  // where the channel is chosen at run time)
+  constexpr int halo_up[5] = {2, 5, 6, 11, 16}, halo_dn[5] = {4, 7, 8, 13, 18};
+  constexpr int halo_ez[5] = {0, 0, 0, 1, -1};
   // stage 1 reads the halo row above the extended tile only in the 5
   // channels with e_y = +1 and the row below only in those with e_y = -1
   auto needs = [&](int q) {
+    if constexpr (TRAIL) return true;
     return warp == 0 ? ey[q] == 1 : (warp == EY + 1 ? ey[q] == -1 : true);
   };
+  using Input = std::conditional_t<TRAIL, LbmTrailInput<T>, LbmPassInput<T>>;
   // the input of the tick whose stage 1 computes grid plane zr: channel q
   // of plane zr - e_z(q), flags and rhs of plane zr; on a slab, planes
   // -G..-1 of h from the lo band and Z..Z + G - 1 from the hi band, read in
   // place, and flags and rhs of plane zr + G of the extended pair
-  auto fetch = [&](int zr, LbmPassInput<T>& b) {
+  auto fetch = [&](int zr, Input& b) {
     if constexpr (!SLAB) {
       const long long zc[3] = {(zr == 0 ? Z - 1 : zr - 1) * XY, zr * XY,
                                (zr == Z - 1 ? 0 : zr + 1) * XY};
 #pragma unroll
       for (int q = 0; q < 19; ++q)
         if (needs(q)) b.h[q] = h[q * N + zc[1 - ez[q]] + in_off];
+      if constexpr (TRAIL) {
+        if (has_halo) {
+#pragma unroll
+          for (int i = 0; i < 5; ++i) {
+            const int q = warp == 0 ? halo_up[i] : halo_dn[i];
+            b.halo[i] = h[q * N + zc[1 - halo_ez[i]] + halo_off];
+          }
+        }
+      }
       if (has_cell) {
         b.rhs = rhs[zc[1] + in_off];
         b.flag = flags[zc[1] + in_off];
@@ -156,6 +193,15 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
 #pragma unroll
       for (int q = 0; q < 19; ++q)
         if (needs(q)) b.h[q] = base[1 - ez[q]][q * cs[1 - ez[q]] + in_off];
+      if constexpr (TRAIL) {
+        if (has_halo) {
+#pragma unroll
+          for (int i = 0; i < 5; ++i) {
+            const int q = warp == 0 ? halo_up[i] : halo_dn[i];
+            b.halo[i] = base[1 - halo_ez[i]][q * cs[1 - halo_ez[i]] + halo_off];
+          }
+        }
+      }
       if (has_cell) {
         const long long fz = (zr + G) * XY + in_off;
         b.rhs = rhs[fz];
@@ -163,12 +209,19 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
       }
     }
   };
-  auto put = [&](int slot, const LbmPassInput<T>& b) {
+  auto put = [&](int slot, const Input& b) {
 #pragma unroll
     for (int q = 0; q < 19; ++q)
-      if (needs(q)) inp[q * PI + warp * PP_EX + lane] = b.h[q];
+      if (needs(q)) inp[q * PI + in_row * PP_EX + lane] = b.h[q];
+    if constexpr (TRAIL) {
+      if (has_halo) {
+#pragma unroll
+        for (int i = 0; i < 5; ++i)
+          inp[(warp == 0 ? halo_up[i] : halo_dn[i]) * PI + halo_row * PP_EX + lane] = b.halo[i];
+      }
+    }
     if (has_cell) {
-      const int c = (warp - 1) * PP_EX + lane;
+      const int c = (in_row - 1) * PP_EX + lane;
       rhr[slot * P + c] = b.rhs;
       flr[slot * P + c] = b.flag;
     }
@@ -184,8 +237,9 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
     return e >= KG - 1 && yo < Y && (e < KG - 1 + TY || (TRAIL && e == KG - 1 + TY && yo == Y - 1));
   };
 
-  // the trailing stage at block plane ps (grid plane zs = z0 + ps - k): a
-  // warp a row of the tile and the row after it
+  // the trailing stage at block plane ps (grid plane zs = z0 + ps - k),
+  // from the psi and flags rings' planes ps - 1, ps, ps + 1: a warp a row of
+  // the tile and the row after it
   auto trail = [&](int ps) {
     const int zs = z0 + ps - k;
     // a plane off [zlo, zhi] is written by its source's stage
@@ -198,7 +252,8 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
     const int cs = (e + sy - yo) * PP_EX + lane + sx - xo;
     // ring slots of planes zs - 1, zs, zs + 1, and of the planes the
     // substitution clamps them to
-    const int sl[3] = {(ps + 2) % 3, ps % 3, (ps + 1) % 3};
+    const int sl[3] = {(ps - 1) % PP_TRAIL_SLOTS, ps % PP_TRAIL_SLOTS,
+                       (ps + 1) % PP_TRAIL_SLOTS};
     const int sc[3] = {zs == tr.zlo ? sl[1] : sl[0], sl[1], zs == tr.zhi ? sl[1] : sl[2]};
     constexpr int taps[3][10][4] = LBM_GRAD_TAPS;
     float H[3];
@@ -246,7 +301,7 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
 
   // tick r, with rk = r % (k + 1) and zr its stage 1's grid plane (kept by
   // the loop, so no stage divides by a runtime value)
-  auto tick = [&](int r, int rk, int zr, LbmPassInput<T>& b) {
+  auto tick = [&](int r, int rk, int zr, Input& b) {
     // tick r's input over what stage 1 read last tick, plane r's flags and
     // rhs into the slot of plane r - k - 1, which stage k read two ticks
     // ago; then tick r + 1's loads into the registers just emptied, in
@@ -254,6 +309,13 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
     put(rk, b);
     if (r + 1 < n_ticks) fetch(!SLAB && zr == Z - 1 ? 0 : zr + 1, b);
     __syncthreads();
+    // the trailing stage one plane behind what stage k finished last tick,
+    // beside stage 1: its planes are in the rings before this tick's
+    // barrier, and stage k fills the ring's fourth slot (the same for the
+    // whole block)
+    if constexpr (TRAIL) {
+      if (r - k - 1 >= k) trail(r - k - 1);
+    }
     for (int j = 1; j <= k; ++j) {
       const int p = r - j + 1;
       if (p < j - 1 || p >= n_ticks - j + 1) continue;  // the same for the whole block
@@ -287,8 +349,8 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
             return;
           }
           if constexpr (TRAIL) {
-            psr[(p % 3) * P + c] = psi;
-            obr[(p % 3) * P + c] = obstacle;
+            psr[(p % PP_TRAIL_SLOTS) * P + c] = psi;
+            obr[(p % PP_TRAIL_SLOTS) * P + c] = obstacle;
             if (p < k || p >= n_ticks - k) return;  // the planes either side of the chunk
           }
           if (col_in && row_in(e)) {
@@ -326,23 +388,23 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
       }
       // stage 1 of a one-sweep pass reads the input plane that the next
       // put overwrites; a later stage reads nothing the next tick's put
-      // or stage 1 writes before its barrier; the trailing stage reads
-      // stage k's psi of this tick
-      if (j < k || k == 1 || TRAIL) __syncthreads();
-    }
-    // one plane behind stage k (the same for the whole block)
-    if constexpr (TRAIL) {
-      if (r - k >= k && r - k < n_ticks - k) trail(r - k);
+      // or stage 1 writes before its barrier
+      if (j < k || k == 1) __syncthreads();
     }
   };
 
-  LbmPassInput<T> b{};
+  Input b{};
   int zr = SLAB ? zb : lbm_mod(zb, Z);
   fetch(zr, b);
   for (int r = 0, rk = 0; r < n_ticks; ++r) {
     tick(r, rk, zr, b);
     rk = rk == k ? 0 : rk + 1;
     zr = !SLAB && zr == Z - 1 ? 0 : zr + 1;
+  }
+  // the trailing stage of the chunk's last plane, after stage k's last tick
+  if constexpr (TRAIL) {
+    __syncthreads();
+    trail(n_ticks - k - 1);
   }
 }
 
@@ -362,13 +424,13 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
   }
 
 // Shared memory of a pass block in bytes with h stored in elements of es
-// bytes, with the trailing stage's psi and flags ring where trail is set
+// bytes, with the trailing stage's psi and flags rings where trail is set
 // (ops/kernels/poisson.py:smem_bytes counts the same), and the most a block
 // may take on an H100 (SMEM_BLOCK_MAX there).
 static int lbm_poisson_pass_smem(int k, int EY, int es, bool trail) {
   const int P = PP_EX * EY, PI = PP_EX * (EY + 2);
   return es * (8 + 19 * PI + (k - 1) * PP_RING * PI) + 4 * ((k + 1) * P + PP_EX + EY + 2) +
-         (k + 1) * P + (trail ? 15 * P : 0);
+         (k + 1) * P + (trail ? 5 * PP_TRAIL_SLOTS * P : 0);
 }
 
 struct LbmPassArgs {

@@ -12,9 +12,11 @@
 
 // The last pass with the trailing stage, on one device or (SLAB) on a slab;
 // BATCH: on one device, a batch of more than one element (its own
-// instance, as csrc/poisson.cu's batch instances of the pass).
+// instance, as csrc/poisson.cu's batch instances of the pass).  A warp per
+// row of the extended tile, EY: at EY = 15, 15 warps fit 128 registers a
+// thread where 17 got 96 (4 warps a quarter of the SM's register file).
 template <class T, bool TAU1, int EY, bool SLAB, bool BATCH>
-__global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_trail_kernel(
+__global__ void __launch_bounds__(PP_EX * EY, 1) lbm_poisson_trail_kernel(
     const T* __restrict__ h, const uint8_t* __restrict__ flags, const float* __restrict__ rhs,
     T* __restrict__ out, float* __restrict__ psi_out, int Z, int Y, int X, int k, int LZ,
     float inv_tau, float a, const T* __restrict__ glo, const T* __restrict__ ghi, int G,
@@ -40,7 +42,7 @@ static cudaError_t lbm_poisson_trail_instance(const LbmPassArgs& g, cudaStream_t
       reinterpret_cast<const void*>(lbm_poisson_trail_kernel<T, TAU1, EY, SLAB, BATCH>);
   cudaError_t err = lbm_pass_allow_smem(kernel, allowed);
   if (err != cudaSuccess) return err;
-  const int smem = lbm_poisson_pass_smem(g.k, EY, sizeof(T), true), threads = PP_EX * (EY + 2);
+  const int smem = lbm_poisson_pass_smem(g.k, EY, sizeof(T), true), threads = PP_EX * EY;
   if (blocks != nullptr)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
   // the last column and row go with the tile before them (tiles over X - 1

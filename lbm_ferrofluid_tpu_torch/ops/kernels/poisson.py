@@ -60,9 +60,11 @@ substitution, the 18-tap isotropic gradient summed in the TPU's tap order
 times f32(-1/(12 dx)), and the output's x/y ring and z edge planes taken
 from the nearest interior cell (:func:`trail_plain`).  That pass has the
 geometry of a pass of k + 1 sweeps (:func:`trail_pass`: tiles
-``tile_width(k + 1)`` wide and ty + 2k rows extended, the grid's last
-column and row written by the tile before them, z chunks that keep each
-edge plane with the plane it copies); ``launches_emit`` counts it.  Its
+``tile_width(k + 1)`` wide and ty + 2k rows extended, a warp a row, the
+grid's last column and row written by the tile before them, z chunks that
+keep each edge plane with the plane it copies) and runs the stage one tick
+behind stage k on psi and flags rings of ``TRAIL_SLOTS`` planes;
+``launches_emit`` counts it.  Its
 slab form takes ``clamp`` (the z clamp: 1 and Zl - 2 at the domain's true
 edges, -1 and Zl where the slab has a neighbour) and G >= k + 1 band
 planes, as the TPU's ``slab_clamp`` and its spare ghost plane.
@@ -144,6 +146,10 @@ RING_FLOATS = 38
 #: and on a slab, and its most sweeps
 TRAIL_EXT_HEIGHTS = (11, 13, 15)
 TRAIL_MAX_K = 3
+#: planes of the trailing stage's psi and flags rings (csrc/poisson_pass.cuh:
+#: PP_TRAIL_SLOTS): the three its taps read and the one stage k fills beside
+#: them
+TRAIL_SLOTS = 4
 #: what a call writes beside h': psi, H_int (3 channels) or H2 (1 channel)
 EMITS = ("psi", "hint", "h2")
 #: the 19-point isotropic gradient's taps, (z, y, x) offsets and weights,
@@ -177,11 +183,11 @@ def smem_bytes(k: int, ty: int, elem: int = 4, trail: bool = False) -> int:
     ring of the extended tile (32 x ey cells), the wrapped column and row
     tables, and the (k + 1)-plane flags ring (1 byte a cell); with
     ``trail`` the final sweep's psi (float32) and obstacle flags (1 byte) of
-    3 planes."""
+    ``TRAIL_SLOTS`` planes."""
     ey = ty + 2 * (k - 1) + 2 * trail
     p, pi = EXT_WIDTH * ey, EXT_WIDTH * (ey + 2)
     return (elem * (8 + 19 * pi + (k - 1) * RING_FLOATS * pi)
-            + 4 * ((k + 1) * p + EXT_WIDTH + ey + 2) + (k + 1) * p + 15 * p * trail)
+            + 4 * ((k + 1) * p + EXT_WIDTH + ey + 2) + (k + 1) * p + 5 * TRAIL_SLOTS * p * trail)
 
 
 def tile_width(k: int) -> int:
@@ -197,7 +203,9 @@ def halo_left(k: int) -> int:
 
 
 def threads(k: int, ty: int) -> int:
-    """Threads of a pass block: a warp per row of the input plane."""
+    """Threads of a pass block of k sweeps: a warp per row of the input
+    plane (ty + 2k rows); of the trailing stage's pass of k sweeps too: a
+    warp per row of its ty + 2k extended rows."""
     return EXT_WIDTH * (ty + 2 * k)
 
 
@@ -247,7 +255,7 @@ def _chunk(Z: int, Y: int, X: int, k: int, ty: int, sms: int, elem: int,
     kg = k + trail
     # resident blocks an SM, as shared memory and the SM's 2048 threads
     # allow them
-    slots = min(2048 // threads(kg, ty),
+    slots = min(2048 // threads(k, ty),
                 SMEM_SM // (smem_bytes(k, ty, elem, trail) + 1024)) * sms
     tiles = -(-(X - trail) // tile_width(kg)) * -(-(Y - trail) // ty)
 

@@ -22,9 +22,11 @@ plain version.  Bars, each with its reason:
   grouped sums by 12 dx), rel <= 1e-12 in float64.
 * A replay of the trailing pass's schedule (tiles of a pass of k + 1
   sweeps, the grid's last column and row with the tile before them, z
-  chunks, the source of each output cell, the 3-plane psi ring with cells
-  that stage k does not compute as NaN): bit for bit to ``trail_plain``,
-  every output cell and every h' cell written exactly once.
+  chunks, the source of each output cell, the 4-plane psi and flags rings
+  with cells that stage k does not compute as NaN, the stage one tick
+  behind, a warp a row): bit for bit to ``trail_plain``, every output cell
+  and every h' cell written exactly once; its warps' loads of the input
+  plane cover what stage 1 reads.
 * ``solve_H_int`` in 3D and one capillogue steady-state step in channel
   form against the JAX package, at tests/test_torch_poisson.py's and
   tests/test_torch_parallel_channel.py's bars.
@@ -206,9 +208,11 @@ def test_trail_limits_are_the_cuda_sources():
             pl = pp.trail_pass(256, 256, 256, k, 132, elem)
             assert pl.ty + 2 * k in pp.TRAIL_EXT_HEIGHTS and pl.passes == (k,)
             assert pp.smem_bytes(k, pl.ty, elem, trail=True) <= pp.SMEM_BLOCK_MAX
-    # the trailing stage adds a psi (4 B) and a flags (1 B) plane of 3 slots
+    # the trailing stage adds a psi (4 B) and a flags (1 B) plane of 4 slots
     # to the block of a pass with two more extended rows
-    assert pp.smem_bytes(3, 9, trail=True) == pp.smem_bytes(3, 11) + 15 * 32 * 15
+    assert pp.smem_bytes(3, 9, trail=True) == pp.smem_bytes(3, 11) + 20 * 32 * 15
+    head = (Path(pp.__file__).parents[2] / "csrc" / "poisson_pass.cuh").read_text()
+    assert int(re.search(r"#define PP_TRAIL_SLOTS (\d+)", head)[1]) == pp.TRAIL_SLOTS
     # the call's own plan ends on a pass the trailing stage runs
     for n in (1, 2, 7, 29, 30):
         pp.trail_pass(130, 66, 130, pp.plan(130, 66, 130, n, 132).passes[-1], 132)
@@ -267,32 +271,59 @@ def test_emit_arguments_are_checked():
 
 
 # ---------------------------------------------------------------- replay
+#: D3Q19's e_y (stage 1 at extended row e reads channel q at row e - e_y(q))
+EY_Q = [int(v) for v in D3Q19.e[:, 1]]
+
+
+def trail_loads(ey):
+    """{(extended row, channel): warp} as the trailing pass's warps load
+    its input plane (csrc/poisson_pass.cuh, TRAIL): warp w row w, every
+    channel; warp 0 also row -1 and warp ey - 1 row ey, the channels with
+    e_y = +1 and -1."""
+    loads = {}
+    for w in range(ey):
+        for q in range(19):
+            loads[w, q] = w
+    for q in range(19):
+        if EY_Q[q] == 1:
+            loads[-1, q] = 0
+        if EY_Q[q] == -1:
+            loads[ey, q] = ey - 1
+    return loads
+
+
 def emulate_trail(psi_ext, obs_ext, k, ty, lz, clamp, dx, emit, h_ext):
     """The trailing stage of a pass of ``k`` sweeps as
     ``lbm_poisson_trail_kernel`` schedules it, on psi and the magnetic
     obstacles of grid planes -1..Z (``psi_ext``, ``obs_ext`` [Z + 2, Y, X]):
     returns (output [C, Z, Y, X], times each output cell was written, times
     each h' cell was written).  Each block (a tile of the geometry of a pass
-    of k + 1 sweeps and a z chunk) sees in its ring only what its stage k
-    computes: rows [k - 1, EY - k + 1), lanes [k, 32 - k) of its extended
-    tile (wrapped through the grid), planes [z0 - 1, z1 + 1); a read of any
-    other cell, row, lane or plane gives NaN."""
+    of k + 1 sweeps and a z chunk) walks its ticks: stage k writes psi and
+    the flags of block plane r - k + 1 into slot (r - k + 1) mod 4 of its
+    rings, rows [k - 1, EY - k + 1) of its extended tile (wrapped through
+    the grid), psi exact on lanes [k, 32 - k) and NaN on the rest; the other
+    rows keep what the slot held, and a slot no stage wrote is NaN (flags
+    unknown).  The trailing stage of block plane r - k - 1 runs at the start
+    of tick r on the rings as they are, before stage k's store, a warp a row
+    (warp w row w of the tile, w <= ty); a slot that stage k writes in the
+    same tick reads NaN.  At each output cell it takes the taps at its
+    source as the kernel does: psi, or at an obstacle psi of the clamped
+    cell on the clamped plane."""
     Zp, Y, X = psi_ext.shape
     Z = Zp - 2
     zlo, zhi = clamp
-    kg = k + 1
+    kg, slots = k + 1, pp.TRAIL_SLOTS
     tx, hx, ey, ew = pp.tile_width(kg), pp.halo_left(kg), ty + 2 * k, pp.EXT_WIDTH
+    assert ty + 1 <= ey  # a warp for each row of the stage
     nan = float("nan")
     out = torch.full((3 if emit == "hint" else 1, Z, Y, X), nan)
     writes = torch.zeros((Z, Y, X), dtype=torch.int64)
     h_writes = torch.zeros((Z, Y, X), dtype=torch.int64)
     m = torch.tensor(-1.0 / (12.0 * dx), dtype=torch.float32)
     lanes, rows = torch.arange(ew), torch.arange(ey)
-    valid = ((rows >= k - 1) & (rows < ey - k + 1))[:, None] & ((lanes >= k) & (lanes < ew - k))
+    stage_k = (rows >= k - 1) & (rows < ey - k + 1)
+    exact = stage_k[:, None] & ((lanes >= k) & (lanes < ew - k))[None, :]
     warps = torch.arange(ty + 1)
-
-    def clampi(v, n):
-        return torch.clamp(torch.clamp(v, max=n - 2), min=1)
 
     for y0 in range(0, Y - 1, ty):
         rowy = (y0 - kg + 1 + rows) % Y
@@ -304,46 +335,48 @@ def emulate_trail(psi_ext, obs_ext, k, ty, lz, clamp, dx, emit, h_ext):
             xo = x0 + lanes - hx
             col = (lanes >= hx) & (xo < X) & ((lanes < hx + tx) | ((lanes == hx + tx) & (
                 xo == X - 1)))
+            sx = torch.clamp(torch.clamp(xo, max=X - 2), min=1)
             for z0 in range(0, Z, lz):
                 z1 = min(z0 + lz, Z)
+                n_ticks = z1 - z0 + 2 * k
                 # h': stage k's cells of the tile and the last column and row
                 cells = row_h[:, None] & col[None, :]
                 for z in range(z0, z1):
                     h_writes[z, yo_h[:, None].expand_as(cells)[cells],
                              xo[None, :].expand_as(cells)[cells]] += 1
+                ring = [torch.full((ey, ew), nan) for _ in range(slots)]
+                ring_obs = [torch.full((ey, ew), nan) for _ in range(slots)]
 
-                def ring(z):
-                    """(psi, obstacle, bad) of grid plane z in the ring."""
-                    t = psi_ext[z + 1][rowy][:, colx]
-                    o = obs_ext[z + 1][rowy][:, colx]
-                    bad = ~valid if z0 - 1 <= z <= z1 else torch.ones_like(valid)
-                    return t, o, bad
-
-                for zs in range(z0, z1):
+                def trail(ps, busy):
+                    zs = z0 + ps - k
                     if not zlo <= zs <= zhi:
-                        continue
+                        return
+                    # slots of planes zs - 1, zs, zs + 1, and of the planes
+                    # the substitution clamps them to
+                    sl = [(ps + oz) % slots for oz in (-1, 0, 1)]
+                    sc = [sl[1] if zs == zlo else sl[0], sl[1], sl[1] if zs == zhi else sl[2]]
+                    # warp w, row w of the tile: rows 0..ty at once
                     e, yo = k + warps, y0 + warps
                     ok = ((yo < Y) & ((warps < ty) | (yo == Y - 1)))[:, None] & col[None, :]
-                    sy, sx = clampi(yo, Y), clampi(xo, X)
-                    es = (e + sy - yo)[:, None]
-                    ls = (lanes + sx - xo)[None, :]
+                    sy = torch.clamp(torch.clamp(yo, max=Y - 2), min=1)
                     H = []
                     for taps in pp.GRAD_TAPS:
                         acc = None
                         for (oz, oy, ox), w in taps:
-                            q = zs + oz
-                            cq = zs if (oz == -1 and zs == zlo) or (oz == 1 and zs == zhi) else q
-                            tq, oq, bq = ring(q)
-                            tc, _, bc = ring(cq)
-                            r, c = es + oy, ls + ox
-                            dr = (clampi(sy + oy, Y) - (sy + oy))[:, None]
-                            dc = (clampi(sx + ox, X) - (sx + ox))[None, :]
-                            inside = (r >= 0) & (r < ey) & (c >= 0) & (c < ew)
-                            ri, ci = r.clamp(0, ey - 1), c.clamp(0, ew - 1)
-                            r2, c2 = (ri + dr).clamp(0, ey - 1), (ci + dc).clamp(0, ew - 1)
-                            o = oq[ri, ci]
-                            v = torch.where(o, tc[r2, c2], tq[ri, ci])
-                            bad = ~inside | bq[ri, ci] | (o & bc[r2, c2])
+                            r_ = (e + sy - yo + oy)[:, None]
+                            c_ = (lanes + sx - xo + ox)[None, :]
+                            bad = ~((r_ >= 0) & (r_ < ey) & (c_ >= 0) & (c_ < ew))
+                            ri, ci = r_.clamp(0, ey - 1), c_.clamp(0, ew - 1)
+                            v = ring[sl[oz + 1]][ri, ci]
+                            o = ring_obs[sl[oz + 1]][ri, ci]
+                            # the clamped cell of an obstacle
+                            r2 = (ri + (torch.clamp(torch.clamp(sy + oy, max=Y - 2), min=1)
+                                        - (sy + oy))[:, None]).clamp(0, ey - 1)
+                            c2 = (ci + (torch.clamp(torch.clamp(sx + ox, max=X - 2), min=1)
+                                        - (sx + ox))[None, :]).clamp(0, ew - 1)
+                            v = torch.where(o == 1, ring[sc[oz + 1]][r2, c2], v)
+                            bad = bad | torch.isnan(o) | (sl[oz + 1] in busy) | (
+                                (o == 1) & (sc[oz + 1] in busy))
                             v = torch.where(bad, torch.full_like(v, nan), v)
                             tp = v * w
                             acc = tp if acc is None else acc + tp
@@ -362,7 +395,38 @@ def emulate_trail(psi_ext, obs_ext, k, ty, lz, clamp, dx, emit, h_ext):
                     for zw in range(lo, hi + 1):
                         out[:, zw, yy, xx] = H[:, ok]
                         writes[zw, yy, xx] += 1
+
+                for r in range(n_ticks):
+                    p = r - k + 1
+                    store = k - 1 <= p < n_ticks - k + 1
+                    if r - k - 1 >= k:
+                        trail(r - k - 1, {p % slots} if store else set())
+                    if store:
+                        zp = z0 + p - k
+                        v = psi_ext[zp + 1][rowy][:, colx]
+                        ring[p % slots] = torch.where(
+                            stage_k[:, None], torch.where(exact, v, torch.full_like(v, nan)),
+                            ring[p % slots])
+                        ring_obs[p % slots] = torch.where(
+                            stage_k[:, None], obs_ext[zp + 1][rowy][:, colx].float(),
+                            ring_obs[p % slots])
+                trail(n_ticks - k - 1, set())
     return out, writes, h_writes
+
+
+def test_trail_pass_loads_its_input_plane_once():
+    """The trailing pass's EY warps (``threads``) load every (row, channel)
+    of the input plane that stage 1 reads, rows -1..EY, each by one warp,
+    and of the halo rows -1 and EY only those."""
+    for k in range(1, pp.TRAIL_MAX_K + 1):
+        ey = pp.TY + 2 * k
+        assert pp.threads(k, pp.TY) == 32 * ey
+        reads = {(e - EY_Q[q], q) for e in range(ey) for q in range(19)}
+        loads = trail_loads(ey)
+        assert reads <= set(loads)
+        assert {key for key in loads if key[0] in (-1, ey)} == {
+            key for key in reads if key[0] in (-1, ey)}
+        assert set(loads.values()) == set(range(ey))
 
 
 #: (grid, k, ty, lz): the grid's last column and row each alone past a tile
@@ -401,6 +465,40 @@ def test_trail_schedule_equals_plain_bit_for_bit(res, k, ty, lz, emit):
                           clamp=(1, Z - 2))
     assert torch.equal(writes, torch.ones_like(writes))
     assert torch.equal(h_writes, torch.ones_like(h_writes))
+    assert torch.equal(got, want[0])
+
+
+def _seam_obstacles(res, k, ty):
+    """Magnetic obstacles on both z edge planes, on the x/y ring at and beside
+    the trailing pass's tile seams (x = tx - 1, tx, 2 tx - 1, 2 tx; y = ty -
+    1, ty) and at its corners, on every plane, so that the substitution reads
+    across planes (planes 0 and Z - 1 from 1 and Z - 2) and across the tiles'
+    edges; the rest fluid."""
+    Z, Y, X = res
+    tx = pp.tile_width(k + 1)
+    obs = torch.zeros(res, dtype=torch.bool)
+    obs[0], obs[-1] = True, True
+    for x in (tx - 1, tx, 2 * tx - 1, 2 * tx, 0, X - 1):
+        obs[:, 0, x % X], obs[:, Y - 1, x % X] = True, True
+    for y in (ty - 1, ty, 0, Y - 1):
+        obs[:, y % Y, 0], obs[:, y % Y, X - 1] = True, True
+    return obs
+
+
+@pytest.mark.parametrize("emit", ["hint", "h2"])
+def test_trail_schedule_with_seam_obstacles(emit):
+    """Obstacles only where the substitution changes a value (the z edge
+    planes, the x/y ring beside the tile seams): one device, bit for bit
+    to ``trail_plain``."""
+    res, k, ty, lz = (8, 19, 49), 3, 9, 3
+    Z = res[0]
+    psi = _replay_inputs(res, 13)[0]
+    obs = _seam_obstacles(res, k, ty)
+    wrap = torch.arange(-1, Z + 1) % Z
+    got, writes, _ = emulate_trail(psi[wrap], obs[wrap], k, ty, lz, (1, Z - 2), 0.5, emit, H_EXT)
+    mf = torch.where(obs, OBS, FLUID).to(torch.uint8)[None, None]
+    want = pp.trail_plain(psi[None, None], mf, dx=0.5, h_ext=H_EXT, emit=emit, clamp=(1, Z - 2))
+    assert torch.equal(writes, torch.ones_like(writes))
     assert torch.equal(got, want[0])
 
 
