@@ -50,7 +50,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    with and without ``emit_mac`` on B6's outputs, B10b Laplacian) at
    34x66x130 and 130x66x130, B11b, B10a and B10b as above at 50x50x193,
    which no tile divides, and B10a and B10b at 4x66x130 (the z clamp at
-   both ends of every strip); HCZ kernels (B8b/B8a
+   both ends of every strip); B10a's batch form at B = 2 on psi at
+   130x66x130 (``b10a_batch_row``: bit for bit to two B = 1 calls, against
+   its plain version, ms beside those calls and its bound at B); HCZ
+   kernels (B8b/B8a
    stream + bounce, B2 at 0.75 pi, B6 capillary stage with and without H2,
    B9 collide, each fed with what the kernels before it produced, then the
    capillary stage's stencil route B10b + B10a against its plain version
@@ -194,10 +197,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    30 steps through B8a against 30 ``plain=True`` steps at phase 3's bars,
    50 timed steps, B8a once a step, B8a timed beside its bound; each 2D
    scene at its demo's default resolution (130x130, ``two_droplets_2d``
-   98x384) for 500 steps through the runner, finite, summed rho within
+   98x384) for 250 steps through the runner, finite, summed rho within
    ``SCENE_DRIFT``, no kernel launched, and 2000 steps of ``rosensweig_2d``
    at 64x64 in bfloat16 against float32 with tests/test_bf16_physics.py's
-   assertions, these ten runs in four concurrent processes of this script
+   assertions, these ten runs in three concurrent processes of this script
    on the card (``--2d-job``: host-bound runs, each process checking that
    it launches no kernel) while phase 7's first two parts, which time
    nothing, run in this process; then, in this process alone, the single-phase BGK and KBC,
@@ -255,10 +258,16 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    ranks sharing the card (:data:`MESH3D_RUNS`: Rosensweig 130x66x130 on
    (z, y) = (2, 2) in float32 and turbo and 256^3, the channel form on
    (y, x) = (2, 2), HCZ 130^3 on (z, y, x) = (2, 2, 1), single phase 128^3,
-   HCZ on 2-plane z-slabs), every run bit for bit to one device's steps on
-   the same route by hashes of each rank's blocks, the single-device
-   kernels' launches a step checked, ms a step beside one device's,
-   exchanges and bytes a step.
+   HCZ on 2-plane z-slabs; at two batch elements a rank, ROADMAP A12 slice
+   7: Rosensweig 130x66x130 B = 2 on (z, y) = (2, 2) in float32 and
+   turbo, HCZ 128^3 B = 2 on 4 z ranks, single phase 128^3 B = 2 on
+   (y, x) = (2, 2); and the float32 B = 2 Rosensweig state on (batch, z)
+   = (2, 2), one element a rank on the slab route U19, beside its block
+   run), every run bit for bit to one device's steps of the whole batch on
+   the same route by hashes of each rank's blocks, the kernels' launches a
+   step checked (at two elements a rank every launch a batch's), ms a step
+   beside one device's, exchanges and bytes a step, ms inside the
+   exchanges.
 
 The build phase reports each kernel's registers, static shared memory and
 spills as ptxas gives them.
@@ -269,7 +278,8 @@ phase 7's paths, one for B11b's last pass with B7's trailing stage in
 float32 and bfloat16 with its launches on the channel-form paths, one for
 each of B1's psi and B3's box forms with its launches on the padded
 paths, the slab forms' rows, and the batch forms' rows with their
-launches on phase 9's paths) and, last, ``{"ok": true, "device":
+launches on phase 9's paths, B10a's on phase 11's runs at two elements a
+rank) and, last, ``{"ok": true, "device":
 {...}}``.  Bounds use the H100 SXM peaks of NVIDIA's data sheet: 3.35
 TB/s and 67 TFLOP/s float32 (non-tensor), and each kernel's ``cost``: the
 bytes and flops that the call's own inputs need (an input read only at
@@ -901,8 +911,11 @@ def phase_kernels(dev, K):
             extra = b2_cells_differing(got, K[kid].plain(*args, **kw)) if kid == "B2" else {}
             log(kid, kid, res, r, contact_angle=p.contact_angle, tau=p.tau,
                 n_iters=p.poisson_iters, **extra)
-        psi = b11b_checks(params, d, res)
-        stencil_checks(substitute_obstacles(psi, d["mflags_block"]), d["fields4"], res)
+        psi = substitute_obstacles(b11b_checks(params, d, res), d["mflags_block"])
+        stencil_checks(psi, d["fields4"], res)
+        if res == (130, 66, 130):
+            b10a_batch = b10a_batch_row(K, psi, f"B10a batch form at {res}")
+            rows.append({"kernel": "B10a batch form", "res": list(res), **b10a_batch})
         for emit_mac in (False, True):
             args, kw = epilogue_call(K, params, d, emit_mac)
             _, r = run_and_compare(K, "B5", args, kw, f"B5 emit_mac={emit_mac} at {res}")
@@ -942,7 +955,43 @@ def phase_kernels(dev, K):
         del args
     emit({"phase": "kernels", "bar_rel": BAR_REL, "bar_vel_abs": BAR_VEL_ABS,
           "checks": rows, "ok": True})
-    return worst
+    return worst, b10a_batch
+
+
+def b10a_batch_row(K, one, what, batch=2):
+    """B10a's batch form on ``one`` ([1, N, ...]) and ``batch - 1`` more
+    elements moved by seeded noise: one call of the batch bit for bit to
+    its elements' B = 1 calls, against its plain version (phase 3's bars;
+    whether it is bit for bit too), its launches (``launches_batch``, one a
+    chunk of the B * N fields), ms beside the B = 1 calls one after another
+    (``sequential_ms``) and the plain version, its bound at B (``cost``
+    counts every element)."""
+    import torch
+
+    k = K["B10a"]
+    gen = torch.Generator(device=one.device).manual_seed(41)
+    noise = torch.rand((batch, *one.shape[1:]), generator=gen, device=one.device) * 2 - 1
+    noise[0] = 0
+    x = (one * (1 + 1e-3 * noise)).contiguous()
+    n0, b0 = k.wrapper.launches, k.wrapper.launches_batch
+    got = k.wrapper(x, dx=1.0)
+    launches, batched = k.wrapper.launches - n0, k.wrapper.launches_batch - b0
+    want = k.module.launches_per_call(batch * one.shape[1])
+    check(launches == batched == want, f"{what}: {launches} launches ({batched} counted as a "
+                                       f"batch's), {want} expected")
+    for b in range(batch):
+        alone = k.wrapper(x[b:b + 1], dx=1.0)
+        torch.cuda.synchronize()
+        check(torch.equal(got[b:b + 1], alone),
+              f"{what}: element {b} differs from its B = 1 call by "
+              f"{float((got[b:b + 1].double() - alone.double()).abs().max()):.3e}")
+    plain_bits = bool(torch.equal(got, k.plain(x, dx=1.0)))
+    row = measure(K, "B10a", (x,), dict(dx=1.0), want, want, what)
+    row.update(batch=batch, n_fields=int(one.shape[1]), launches=launches,
+               bit_for_bit_to_b1_calls=True, bit_for_bit_to_plain=plain_bits,
+               sequential_ms=time_cuda(lambda: [k.wrapper(x[b:b + 1], dx=1.0)
+                                                for b in range(batch)], reps=10))
+    return row
 
 
 def _golden_rows(what, pairs):
@@ -3546,26 +3595,28 @@ def phase_golden_2d(dev):
           "bars": "atol 2e-5 + rtol 2e-4 (tests/test_parity.py)", "fields": rows, "ok": True})
 
 
-def taylor_green_3d(res, dev, *, tau=0.8, u0=0.05, seed=0):
+def taylor_green_3d(res, dev, *, tau=0.8, u0=0.05, seed=0, batch=1):
     """Single-phase D3Q19 BGK on a seeded Taylor-Green-like field: rho 1,
     |u| <= ``u0`` (the vortex's phase per axis from ``seed``), FLUID inside
     an obstacle frame, tau 0.8.  The JAX package has no 3D single-phase
-    scene; this one is built from numpy on the host."""
+    scene; this one is built from numpy on the host.  A ``batch`` of more
+    than one takes element b's phases from ``seed + b``."""
     from lbm_ferrofluid_tpu_torch.models import SimulationParams, init_singlephase_state
 
-    rng = np.random.default_rng(seed)
     z, y, x = np.meshgrid(*(2 * np.pi * (np.arange(n, dtype=np.float32) + 0.5) / n
                             for n in res), indexing="ij", sparse=True)
-    a, b, c = (np.float32(v) for v in rng.uniform(0.0, 2 * np.pi, 3))
-    vel = np.zeros((1, 3, *res), np.float32)
+    vel = np.zeros((batch, 3, *res), np.float32)
     amp = np.float32(u0 / math.sqrt(2.0))
-    vel[0, 0] = amp * np.sin(x + a) * np.cos(y + b) * np.cos(z + c)
-    vel[0, 1] = -amp * np.cos(x + a) * np.sin(y + b) * np.cos(z + c)
-    flags = np.full((1, 1, *res), 2, np.uint8)
+    for e in range(batch):
+        rng = np.random.default_rng(seed + e)
+        a, b, c = (np.float32(v) for v in rng.uniform(0.0, 2 * np.pi, 3))
+        vel[e, 0] = amp * np.sin(x + a) * np.cos(y + b) * np.cos(z + c)
+        vel[e, 1] = -amp * np.cos(x + a) * np.sin(y + b) * np.cos(z + c)
+    flags = np.full((batch, 1, *res), 2, np.uint8)
     flags[..., 1:-1, 1:-1, 1:-1] = 1
     vel *= flags == 1
     params = SimulationParams(dim=3, tau=tau)
-    return params, init_singlephase_state(params, np.ones((1, 1, *res), np.float32), vel,
+    return params, init_singlephase_state(params, np.ones((batch, 1, *res), np.float32), vel,
                                           flags, device=dev)
 
 
@@ -3678,13 +3729,14 @@ def _scene_mass(state) -> float:
 
 #: seconds the 2D jobs' processes may take, together
 JOBS_2D_TIMEOUT = 400
-#: the 2D scenes' drift runs in two processes of about equal length (45.7
-#: and 48.0 s at 1000 steps when each scene runs alone on an H100): with the two
-#: 2000-step ``rosensweig_2d`` runs, four processes share the card (ten,
-#: one a run, slowed the short steps up to 8x; four, up to 4x)
-SCENE_GROUPS_2D = (("rosensweig_2d", "wave", "shear_layer_kbc", "shear_layer"),
-                   ("two_droplets_2d", "droplet_spread_2d", "multiphase_drop_hcz",
-                    "multiphase_drop_sc"))
+#: the 2D scenes' drift runs in one process (45.7 and 48.0 s at 1000 steps
+#: for each half when each scene runs alone on an H100; 250 steps now):
+#: with the two 2000-step ``rosensweig_2d`` runs, the window's long pole,
+#: three processes share the card (ten, one a run, slowed the short steps up
+#: to 8x; four, up to 4x: every process more slows the others)
+SCENE_GROUPS_2D = (("rosensweig_2d", "wave", "shear_layer_kbc", "shear_layer",
+                    "two_droplets_2d", "droplet_spread_2d", "multiphase_drop_hcz",
+                    "multiphase_drop_sc"),)
 
 
 def scene_2d_run(dev, name, steps):
@@ -3790,13 +3842,15 @@ def run_2d_jobs(jobs, meanwhile=()):
     return [out[0] for out in outs], during
 
 
-def phase_2d(dev, kernels_pkg, card, steps=500, big=(2048, 2048), bf16_steps=(1000, 2000),
+def phase_2d(dev, kernels_pkg, card, steps=250, big=(2048, 2048), bf16_steps=(1000, 2000),
              meanwhile=()):
     """Each 2D scene at its demo's default resolution (:func:`scene_2d_run`,
-    ``steps`` = 500; 1000 before the block route's phase ``mesh3d`` took
-    their card time), and ``rosensweig_2d`` in float32 and bfloat16 for
+    ``steps`` = 250; 1000 before the block route's phase ``mesh3d`` took
+    their card time, 500 before its runs at two elements a rank did: fewer
+    processes then share the card with the ``rosensweig_2d`` runs, the
+    window's long pole), and ``rosensweig_2d`` in float32 and bfloat16 for
     ``bf16_steps`` (:func:`rosensweig_2d_run`, held by
-    :func:`phase_rosensweig_2d_bf16`), as four concurrent processes on the
+    :func:`phase_rosensweig_2d_bf16`), as three concurrent processes on the
     card (the scenes in ``SCENE_GROUPS_2D``), each checking that it
     launches no kernel, while this process runs the callables
     ``meanwhile`` (phases that time nothing).  Then, in this process alone,
@@ -5296,7 +5350,7 @@ def wait_processes(label, procs, timeout, tag):
     return outs
 
 
-def run_rank_job(res, mag, shape, batch, route, slab, steps=30):
+def run_rank_job(res, mag, shape, batch, route, slab, steps=20):
     """One job's ranks as processes on the one card (``--sharded-rank``),
     torchrun's variables set for each (gloo for several ranks on the card,
     NCCL for one: ``parallel/mesh.py:default_backend``): their rows, or
@@ -5857,16 +5911,29 @@ def phase_batch(dev, kernels_pkg, card):
     return total, kernel_rows
 
 
-def batch_rows(K, total, kernel_rows):
+def batch_rows(K, total, kernel_rows, b10a=None, mesh3d_batch=None):
     """The ``kernels`` line's rows of the batch forms: launches over the
     batch phase's counted steps; times and bound of the batched call at
     256^3 B = 2 on route U (B2, B4, B5, B6 with H2, B11b with the trailing
     stage) or the HCZ route (B8a, B8b, B9), the largest error over both
-    routes."""
+    routes.  B10a's batch form (the block route's psi route, which the
+    batch phase's routes do not take): its launches on phase ``mesh3d``'s
+    runs at two elements a rank (``mesh3d_batch``), its times and bound at
+    B = 2 on psi at 130x66x130 (``b10a``, from the kernel phase)."""
     from lbm_ferrofluid_tpu_torch.ops.kernels import BATCH_FORMS
 
     rows = []
     for kid in BATCH_FORMS:
+        if kid == "B10a":
+            if b10a is not None:
+                rows.append({
+                    "name": f"B10a {K[kid].wrapper.__name__} batch", "route": "cuda",
+                    "source": K[kid].module.CUDA_SOURCE, "replaces": K[kid].tpu_kernel,
+                    "launches": (mesh3d_batch or {}).get(kid, 0), "res": [130, 66, 130],
+                    **{key: b10a[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "batch", "sequential_ms", "max_abs_err")},
+                    "library_ms": None})
+            continue
         own = [r for label, r in kernel_rows.items() if label.split(" ", 1)[1] == kid]
         row = kernel_rows.get(f"U {kid}", own[0])
         rows.append({
@@ -6100,7 +6167,15 @@ def phase_mesh2d(dev, card):
 #: and turbo; bench.py's 256^3 (mag 85) on (2, 2); the channel form at
 #: 130x66x130 on (y, x) = (2, 2); HCZ multiphase_3d 130^3 on (z, y, x) =
 #: (2, 2, 1); single phase 128^3 on (y, x) = (2, 2); HCZ on 2-plane z-slabs
-#: (8x130x130 on 4 z ranks, which the slab forms do not take)
+#: (8x130x130 on 4 z ranks, which the slab forms do not take).  Two batch
+#: elements a rank (ROADMAP A12 slice 7, keyword ``batch``; each element
+#: after the first moved by seeded noise): Rosensweig 130x66x130 at B = 2
+#: on (z, y) = (2, 2) in float32 and turbo (h in 19 channels, the psi
+#: route); the same float32 state on (batch, z) = (2, 2), one element a rank
+#: on the slab route U19 (un-carried, never primed): the block route at two
+#: elements a rank against the slab route at one, the grounds of slice 7b;
+#: HCZ 128^3 at B = 2 on 4 z ranks; single phase 128^3 at B = 2 on (y, x)
+#: = (2, 2)
 MESH3D_RUNS = (
     ("rosensweig", "rosensweig_3d", {"res": (130, 66, 130)}, ("z", "y"), (2, 2), "float32", {}),
     ("rosensweig turbo", "rosensweig_3d", {"res": (130, 66, 130)}, ("z", "y"), (2, 2),
@@ -6113,9 +6188,19 @@ MESH3D_RUNS = (
      {}),
     ("single", "taylor_green_3d", {"res": (128, 128, 128)}, ("y", "x"), (2, 2), "float32", {}),
     ("hcz 2-plane slabs", "multiphase_3d", {"res": (8, 130, 130)}, ("z",), (4,), "float32", {}),
+    ("rosensweig B=2", "rosensweig_3d", {"res": (130, 66, 130), "batch": 2}, ("z", "y"),
+     (2, 2), "float32", {}),
+    ("rosensweig turbo B=2", "rosensweig_3d", {"res": (130, 66, 130), "batch": 2},
+     ("z", "y"), (2, 2), "bfloat16", {}),
+    ("rosensweig B=2 slabs", "rosensweig_3d", {"res": (130, 66, 130), "batch": 2},
+     ("batch", "z"), (2, 2), "float32", {}),
+    ("hcz B=2", "multiphase_3d", {"res": (128, 128, 128), "batch": 2}, ("z",), (4,), "float32",
+     {}),
+    ("single B=2", "taylor_green_3d", {"res": (128, 128, 128), "batch": 2}, ("y", "x"), (2, 2),
+     "float32", {}),
 )
 MESH3D_WARM, MESH3D_STEPS = 2, 4
-MESH3D_TIMEOUT = 240
+MESH3D_TIMEOUT = 360
 
 
 def mesh3d_scene(run, dev):
@@ -6123,54 +6208,78 @@ def mesh3d_scene(run, dev):
     on ``dev``."""
     from lbm_ferrofluid_tpu_torch import models
 
+    import torch
+
     _, build, kw, _, _, storage, change = run
-    if build == "taylor_green_3d":
-        params, st = taylor_green_3d(tuple(kw["res"]), dev)
-        return params, st, models.singlephase_step
     kw = dict(kw, res=tuple(kw["res"]))
+    if build == "taylor_green_3d":
+        params, st = taylor_green_3d(kw["res"], dev, batch=kw.get("batch", 1))
+        return params, st, models.singlephase_step
     params, st = getattr(models, build)(device=dev, **kw)
     params = params.replace(**change)
     if storage == "bfloat16":
         params, st = turbo(params, st, dev)
+    if st.f.shape[0] > 1:
+        # the scene copies one element: move the others' f by seeded noise
+        gen = torch.Generator(device=st.f.device).manual_seed(37)
+        noise = torch.rand(st.f.shape, generator=gen, device=st.f.device) * 2 - 1
+        noise[0] = 0
+        st = st.replace(f=(st.f.float() * (1 + 1e-3 * noise)).to(st.f.dtype))
     step = models.ferrofluid_step if build == "rosensweig_3d" else models.hcz_step
     return params, st, step
 
 
-def mesh3d_expected(params, state, step, blk) -> dict:
-    """The kernels a step on the block route launches, and how often: B4,
-    B1's passes in each round and its H2 launch (or B11b's passes in each
-    round and B10a on psi), B2, B6 and B5; HCZ B8b, B8a, B2, B6 and B9;
-    single phase B8a."""
+def mesh3d_expected(params, state, step, mesh) -> dict:
+    """The kernels a step of the rank part ``state`` on ``mesh`` launches,
+    and how often.  The block route: B4, B1's passes in each round and its
+    H2 launch (or B11b's passes in each round and B10a on psi, one launch
+    for the rank's elements), B2, B6 and B5; HCZ B8b, B8a, B2, B6 and B9;
+    single phase B8a.  The z-slab route U19 (a never-primed state on z and
+    batch axes, one element a rank): the slab forms of B4, B11b (a launch
+    a round of ``step3d.channel_slab_plan``, the last emitting H2, or B10a
+    on psi where its h2 plan refuses), B2, B10b, B6 and B5."""
     from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, hcz_step
     from lbm_ferrofluid_tpu_torch.ops.kernels import poisson, scalar_poisson, stencil3d
+    from lbm_ferrofluid_tpu_torch.parallel import step3d
 
     if step is hcz_step:
         return {k: 1 for k in ("B8b", "B8a", "B2", "B6", "B9")}
     if step is not ferrofluid_step:
         return {"B8a": 1}
-    rounds = blk.rounds(params.poisson_iters)
+    if step3d.on_slabs(mesh, state.f.shape):
+        shape = (1, 19, *step3d.global_shape(state.f.shape, mesh)[2:])
+        n = params.poisson_iters
+        plan = step3d.channel_slab_plan(mesh, shape, n, h2=True)
+        k, _, r = plan or step3d.channel_slab_plan(mesh, shape, n)
+        out = {k_: 1 for k_ in ("B4", "B2", "B10b", "B6", "B5")}
+        out["B11b"] = n // k + (r > 0)
+        if plan is None:
+            out["B10a"] = stencil3d.launches_per_call(1)
+        return out
+    rounds = step3d.blocks3d(mesh, state.f).rounds(params.poisson_iters)
     out = {k: 1 for k in ("B4", "B2", "B6", "B5")}
     if state.h.shape[1] == 2:
         out["B1"] = sum(len(scalar_poisson.passes(k)) for k in rounds) + 1
     else:
         out["B11b"] = sum(len(poisson.passes(k)) for k in rounds)
-        out["B10a"] = stencil3d.launches_per_call(1)
+        out["B10a"] = stencil3d.launches_per_call(state.f.shape[0])
     return out
 
 
-def mesh3d_one_device(run, params, whole, step, dev):
-    """One device's steps on the block route's route (priming only converts
-    h: the un-carried step; the channel form's solve on the psi route): the
-    state after the warm and timed steps, ms a timed step and launches a
-    step."""
+def mesh3d_one_device(run, params, whole, step, dev, slabs=False):
+    """One device's steps of the whole batch on the meshed route's route
+    (the block route: priming only converts h, the un-carried step, the
+    channel form's solve on the psi route; ``slabs``, route U19: never
+    primed, the solve's H2 from B7's trailing stage): the state after the
+    warm and timed steps, ms a timed step and launches a step."""
     from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac
     from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
 
     st = whole
-    if step is ferrofluid_step:
+    if step is ferrofluid_step and not slabs:
         primed = prime_premac(params, st, device=dev)
         st = st.replace(h=primed.h, cmask=primed.cmask)
-    with psi_route():
+    with contextlib.nullcontext() if slabs else psi_route():
         for _ in range(MESH3D_WARM):
             st = step(params, st, device=dev)
         kernels_pkg.reset_launch_counts()
@@ -6187,8 +6296,11 @@ def mesh3d_rank(job_json) -> int:
     rank synchronising its device, then a barrier), with the launch
     counters zeroed just before the warm steps and read after the timed
     ones; hashes its block of each field.  Rank 0 then runs one device's
-    steps alone and holds each rank's block of them to that rank's hashes.
-    Prints its rows and its launches over the runs."""
+    steps of the whole batch alone and holds each rank's block of them to
+    that rank's hashes.  A never-primed run on the slab route (U19) is not
+    primed.  At two or more elements a rank every launch takes the rank's
+    batch (``launches_batch``).  Prints its rows and its launches over the
+    runs, all and at B > 1."""
     import dataclasses
 
     import torch
@@ -6209,10 +6321,10 @@ def mesh3d_rank(job_json) -> int:
         finally:
             in_exchanges[0] += time.perf_counter() - t
 
-    blocks.ring_halo = timed_halo
+    blocks.ring_halo = step3d.ring_halo = timed_halo
     runs = json.loads(job_json)
     world = initialize_distributed()
-    rows, total = [], {}
+    rows, total, total_batch = [], {}, {}
     try:
         for run in runs:
             label, _, _, axes, shape, storage, change = run
@@ -6223,13 +6335,15 @@ def mesh3d_rank(job_json) -> int:
                 del whole
             torch.cuda.empty_cache()
             kernels_pkg.reset_launch_counts()
-            if step.__name__ == "ferrofluid_step":
+            slabs = step3d.on_slabs(mesh, st.f.shape)
+            if step.__name__ == "ferrofluid_step" and not slabs:
                 st = prime_premac(params, st, mesh=mesh)
             check(getattr(st, "premac", None) is None, f"mesh3d {label}: priming left a premac")
             for _ in range(MESH3D_WARM):
                 st = step(params, st, mesh=mesh)
             n0, b0 = ring_halo.exchanges, ring_halo.sent_bytes
             before = kernels_pkg.launch_counts()
+            before_batch = kernels_pkg.launch_counts(batch=True)
             torch.cuda.synchronize()
             dist.barrier()
             in_exchanges[0] = 0.0
@@ -6240,14 +6354,24 @@ def mesh3d_rank(job_json) -> int:
             dist.barrier()
             seconds = time.perf_counter() - t0
             counts = kernels_pkg.launch_counts()
+            counts_batch = kernels_pkg.launch_counts(batch=True)
             for k, n in counts.items():
                 total[k] = total.get(k, 0) + n
+                total_batch[k] = total_batch.get(k, 0) + counts_batch[k]
             per_step = {k: (n - before[k]) / MESH3D_STEPS for k, n in counts.items()
                         if n - before[k]}
-            want = mesh3d_expected(params, st, step, step3d.blocks3d(mesh, st.f))
-            check(per_step == want, f"mesh3d {label}: launches a step {per_step}, the block "
+            per_step_batch = {k: (n - before_batch[k]) / MESH3D_STEPS
+                              for k, n in counts_batch.items() if n - before_batch[k]}
+            want = mesh3d_expected(params, st, step, mesh)
+            route = "z-slabs" if slabs else "blocks"
+            check(per_step == want, f"mesh3d {label}: launches a step {per_step}, the {route} "
                                     f"route launches {want}")
+            check(per_step_batch == (want if st.f.shape[0] > 1 else {}),
+                  f"mesh3d {label}: batch launches a step {per_step_batch} at "
+                  f"{st.f.shape[0]} elements a rank")
             row = {"run": label, "mesh": dict(zip(axes, shape)), "res": list(run[2]["res"]),
+                   "route": route, "batch": run[2].get("batch", 1),
+                   "batch_a_rank": st.f.shape[0],
                    "storage": storage, "change": change, "block": list(st.f.shape[2:]),
                    "h_channels": st.h.shape[1] if getattr(st, "h", None) is not None else None,
                    "steps": st.step, "ms_per_step": seconds / MESH3D_STEPS * 1e3,
@@ -6261,7 +6385,8 @@ def mesh3d_rank(job_json) -> int:
             del st
             torch.cuda.empty_cache()
             if mesh.rank == 0:
-                ref, ms1, launches1 = mesh3d_one_device(run, params, whole, step, mesh.device)
+                ref, ms1, launches1 = mesh3d_one_device(run, params, whole, step, mesh.device,
+                                                        slabs)
                 del whole
                 differ = [(r, n) for r in range(world) for n, x in _state_fields(
                     shard_state(ref, dataclasses.replace(mesh, rank=r))).items()
@@ -6278,7 +6403,8 @@ def mesh3d_rank(job_json) -> int:
     finally:
         dist.destroy_process_group()
     print("MESH3D_RANK " + json.dumps({"rank": int(os.environ["RANK"]), "rows": rows,
-                                       "launches": total}), flush=True)
+                                       "launches": total, "launches_batch": total_batch}),
+          flush=True)
     return 0
 
 
@@ -6289,8 +6415,9 @@ def phase_mesh3d(dev, card):
     variables set), each held bit for bit to one device's steps on the same
     route, its launches a step checked kernel by kernel, with ms a step
     beside one device's in the same call, exchanges and bytes a rank sends
-    a step (rank 0's).  Returns the launches of every rank's meshed steps
-    by kernel id."""
+    a step (rank 0's); the B = 2 Rosensweig state's block run (two elements
+    a rank) beside its slab run (one element a rank).  Returns the launches
+    of every rank's meshed steps by kernel id, all and at B > 1."""
     del dev
     t0 = time.perf_counter()
     world = math.prod(MESH3D_RUNS[0][4])
@@ -6305,13 +6432,26 @@ def phase_mesh3d(dev, card):
     reports = [o for out_ in outs for o in out_]
     first = [o for o in reports if o["rank"] == 0]
     check(len(first) == 1 and len(reports) == world, f"mesh3d: {len(reports)} rank reports")
-    launches = {}
+    launches, launches_batch = {}, {}
     for o in reports:
         for k, n in o["launches"].items():
             launches[k] = launches.get(k, 0) + n
-    emit({"phase": "mesh3d", "runs": first[0]["rows"], "launches": launches,
-          "seconds": time.perf_counter() - t0, "card": card, "ok": True})
-    return launches
+        for k, n in o["launches_batch"].items():
+            launches_batch[k] = launches_batch.get(k, 0) + n
+    rows = first[0]["rows"]
+    by_label = {r["run"]: r for r in rows}
+    block, slab = by_label.get("rosensweig B=2"), by_label.get("rosensweig B=2 slabs")
+    pair = None if not (block and slab) else {
+        "state": "rosensweig_3d 130x66x130 B=2, float32, un-carried, h in 19 channels",
+        "blocks_2_a_rank_ms": block["ms_per_step"], "slabs_1_a_rank_ms": slab["ms_per_step"],
+        "one_device_ms": [block["ms_per_step_one_device"], slab["ms_per_step_one_device"]],
+        "blocks_over_slabs": block["ms_per_step"] / slab["ms_per_step"],
+        "bytes_sent_per_step": [block["bytes_sent_per_step"], slab["bytes_sent_per_step"]],
+        "exchanges_per_step": [block["exchanges_per_step"], slab["exchanges_per_step"]]}
+    emit({"phase": "mesh3d", "runs": rows, "block_vs_slab_b2": pair, "launches": launches,
+          "launches_batch": launches_batch, "seconds": time.perf_counter() - t0,
+          "card": card, "ok": True})
+    return launches, launches_batch
 
 
 def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
@@ -6327,7 +6467,7 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     and the turbo spike run, and a named form's its launches on the padded
     paths."""
     K = kernels_pkg.KERNELS
-    worst = phase_kernels(dev, K)
+    worst, b10a_batch = phase_kernels(dev, K)
     phase_grad_guard(dev, kernels_pkg)
     phase_golden(dev)
     phase_small_grid(dev, kernels_pkg)
@@ -6371,7 +6511,8 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
                                                        flag16["B5 emit_mac"]["max_abs_err"]))
     batch_total, batch_kernels = phase_batch(dev, kernels_pkg, smi)
     phase_mesh2d(dev, smi)
-    per_path.append(phase_mesh3d(dev, smi))
+    mesh3d_launches, mesh3d_batch = phase_mesh3d(dev, smi)
+    per_path.append(mesh3d_launches)
     launches = {kid: sum(p.get(kid, 0) for p in per_path) for kid in K}
     return [{
         "name": f"{kid} {k.wrapper.__name__}", "route": "cuda",
@@ -6409,7 +6550,7 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     } for kid, form, row, launches_key in (
         ("B1", "psi form", "B1", "form_launches"), ("B3", "box form", "B3", "form_launches"),
         ("B3", "box form bf16", "B3 bf16", "form_launches16"))] + sharded + batch_rows(
-            K, batch_total, batch_kernels)
+            K, batch_total, batch_kernels, b10a_batch, mesh3d_batch)
 
 
 def phase_step_time(dev, card, repeats=5):

@@ -63,7 +63,7 @@ mesh over ``batch``, ``z``, ``y`` and ``x``) :func:`prime_premac` and
 on a split grid (``parallel/step3d.py:on_slabs``):
 
 * **z-slabs** (z and batch axes only, or ``slab=True``; one batch element a
-  rank; slabs of 4 or more planes): every 3D route runs on the kernels'
+  rank, ROADMAP A12 slice 7b; slabs of 4 or more planes): every 3D route runs on the kernels'
   slab forms: the capillogue steady state (6 leaves: the solve, B2, B3);
   the epilogue steady state (5 leaves), which is also what an out-of-plane
   field (``h_ext_axis=2``) primes to, and the un-carried step (premac None:
@@ -78,8 +78,9 @@ on a split grid (``parallel/step3d.py:on_slabs``):
   B10a), which priming keeps where the collapse does not apply.  An
   out-of-plane field's Poisson source reads phi a plane across the slab's
   faces (``step3d.poisson_rhs_sharded``).
-* **blocks** (any other split grid: a y or x axis, or slabs of 2 or 3
-  planes; one batch element a rank): the un-carried route, whose every
+* **blocks** (any other split grid: a y or x axis, slabs of 2 or 3
+  planes, or two or more batch elements a rank on any split grid): the
+  un-carried route, whose every
   launch has one edge rule, as the JAX package's meshed priming selects
   off its slab gates (:979-995 there: the scalar carry where the collapse
   applies, no premac).  :func:`prime_premac` converts h across the block's
@@ -89,7 +90,10 @@ on a split grid (``parallel/step3d.py:on_slabs``):
   rounds, then the substitution and B10a, the psi route), B2, B6 and B5,
   every kernel the single-device one on the rank's block extended by ghost
   cells under its edge rule (``parallel/blocks.py``), bit for bit to one
-  device's steps on the same route.  A state that carries a premac there
+  device's steps on the same route.  A rank part of B_local > 1 elements
+  steps as one device steps a batch: priming leaves it as it is (h in 19
+  channels), and each launch takes the rank's whole batch (B10a on the
+  psi route by its batch form).  A state that carries a premac there
   raises, at priming and at the step alike: prime it on the mesh.
 
 Priming and the step run the same gates (:func:`_slab_gates`,
@@ -107,9 +111,10 @@ steps as the JAX package steps it: :func:`prime_premac` returns it as it
 is, so in 3D it steps un-carried on its 19-channel h (B4, B11b's passes
 with B7's trailing stage, B2, B6, B5), each kernel one launch for the whole
 batch; in 2D on the plain ops.  The scalar carry and the 6-leaf premac at
-B > 1 (B1 and B3 have no batch form, ROADMAP A12 slice 8), the padded
-layout at B > 1 (slice 6) and more than one element a rank on a split
-grid (slice 7) raise.
+B > 1 (B1 and B3 have no batch form, ROADMAP A12 slice 8) raise, and so
+does the padded layout at B > 1, as the JAX package refuses it: a batch
+keeps the 19-channel h, whose solve does not take ``phys_extent``.  More
+than one element a rank on a split grid steps on the block route.
 
 Every entry point runs on the card unless ``device="cpu"`` is passed, and
 the kernels run unless ``plain=True`` is passed, which selects their plain
@@ -440,10 +445,11 @@ def _slab_gates(params: SimulationParams, state, mesh, plain, primed):
     if not step3d.fused_step_sharded_ok(mesh, shape, params.kbc_type):
         raise step3d.unported(f"kbc_type={params.kbc_type}")
     if _channel_form(params, state, primed):
-        if not step3d.channel_sharded_ok(mesh, (1, 19, *shape[2:]), params.poisson_iters):
+        if not step3d.channel_sharded_ok(mesh, (shape[0], 19, *shape[2:]),
+                                           params.poisson_iters):
             raise step3d.unported(f"{params.poisson_iters} channel-form sweeps on slabs of "
                                   f"{shape[2] // mesh.nz} planes (no round plan)")
-    elif not step3d.scalar_sharded_ok(mesh, (1, 2, *shape[2:]), params.poisson_iters):
+    elif not step3d.scalar_sharded_ok(mesh, (shape[0], 2, *shape[2:]), params.poisson_iters):
         raise step3d.unported(f"{params.poisson_iters} sweeps on slabs of "
                               f"{shape[2] // mesh.nz} planes (no round plan)")
     check_kernel_grid(state.f, plain)
@@ -451,18 +457,20 @@ def _slab_gates(params: SimulationParams, state, mesh, plain, primed):
 
 def _block_gates(state, mesh, plain):
     """The gates of the block route, shared by priming and the step with
-    the same messages (ROADMAP C7): one batch element a rank (slice 7), no
-    premac (the block route steps un-carried, as the JAX package's meshed
-    priming leaves it there: a state primed on one device and cut onto the
-    mesh refuses here), and the kernels' grid on the card.  Returns this
-    rank's :class:`~..parallel.blocks.Blocks`."""
+    the same messages (ROADMAP C7): no premac (the block route steps
+    un-carried, as the JAX package's meshed priming leaves it there: a
+    state primed on one device and cut onto the mesh refuses here), and the
+    kernels' grid on the card.  Returns this rank's
+    :class:`~..parallel.blocks.Blocks`, of any number of batch elements a
+    rank."""
     from ..parallel import step3d
 
     blk = step3d.blocks3d(mesh, state.f)
     if state.premac is not None:
         raise ValueError(
-            "a premac on the block route (a 3D state on a mesh with a y or x axis, or on "
-            "z-slabs of under 4 planes), which steps un-carried: prime the state on the mesh, "
+            "a premac on the block route (a 3D state on a mesh with a y or x axis, on "
+            "z-slabs of under 4 planes, or of two or more batch elements a rank), which steps "
+            "un-carried: prime the state on the mesh, "
             "prime_premac(..., mesh=), which carries no premac there (ROADMAP C7)")
     step3d.check_block_grid(blk, state.f, plain)
     return blk

@@ -84,9 +84,10 @@ def check_supported(params: SimulationParams, f: torch.Tensor, hcz: bool = True,
     JAX package's own ``ValueError``), and (for the HCZ family, ``hcz``)
     the storage dtypes it has no route for and, unless the caller steps
     ``padded`` layouts (the ferrofluid step), ``phys_extent``; a padded
-    layout at a batch of more than one (ROADMAP A12 slice 6).  Any other
-    batch [B, ...] steps on one device, the B elements in each kernel's
-    one launch."""
+    layout at a batch of more than one, which the JAX package refuses too
+    (a batch keeps the 19-channel h, and the channel-form solve does not
+    take ``phys_extent``).  Any other batch [B, ...] steps on one device,
+    the B elements in each kernel's one launch."""
     lat = params.lattice
     if f.ndim - 2 != params.dim or f.shape[1] != lat.q:
         raise ValueError(
@@ -107,10 +108,11 @@ def check_supported(params: SimulationParams, f: torch.Tensor, hcz: bool = True,
         )
     if params.phys_extent is not None and f.shape[0] != 1:
         raise NotImplementedError(
-            f"phys_extent (the padded layout) at a batch of {f.shape[0]} is not ported "
-            "(ROADMAP A12 slice 6: the padded layout at a batch of more than one; its B1 psi "
-            "form and B3 box form step one element): step each element on its own, or a "
-            "batch of the native layout"
+            f"phys_extent (the padded layout) at a batch of {f.shape[0]}: a batch keeps the "
+            "19-channel h (the scalar carry needs B == 1), and the channel-form solve does not "
+            "take phys_extent, so the JAX package refuses it too (phys_extent layouts require "
+            "the tau==1 scalar Poisson carry); step each element on its own, or a batch of "
+            "the native layout"
         )
     if params.gravity_axis not in range(params.dim):
         raise ValueError(f"gravity_axis={params.gravity_axis} is not an axis")
@@ -164,8 +166,8 @@ def mesh_blocks(params: SimulationParams, state, mesh, device):
     """The :class:`~..parallel.blocks.Blocks` of a step on ``mesh``, or None
     where each rank steps its part on the single-device route (a batch
     mesh): a 2D state's on y and x (a 2D state on a z mesh raises), a 3D
-    state's on z, y and x (the block route, ``parallel/step3d.py:blocks3d``;
-    more than one batch element a rank raises, ROADMAP A12 slice 7).
+    state's on z, y and x (the block route, ``parallel/step3d.py:blocks3d``,
+    at any number of batch elements a rank).
     Checks ``device`` against the mesh's."""
     from ..parallel import step2d, step3d
 
@@ -367,10 +369,12 @@ def hcz_step(params: SimulationParams, state: HCZState, *, device=None,
     a kernel (B8b, B8a, B2, B6, B9).  With ``mesh`` the state is this
     rank's part (``parallel/sharding.py``): on a batch mesh (nz == 1) each
     rank steps its own batch elements; a 3D state on z-slabs of 4 or more
-    planes (``nz > 1``, or ``slab=True``) steps on the kernels' slab forms
-    (:func:`_hcz_step_slab`), on any other split grid on its (z, y, x)
-    block (:func:`_hcz_step_blocks`), and on a y/x mesh a 2D state steps on
-    its block (``parallel/step2d.py``), each bit for bit to one device."""
+    planes (``nz > 1``, or ``slab=True``) at one element a rank steps on
+    the kernels' slab forms (:func:`_hcz_step_slab`), on any other split
+    grid, or at more elements a rank, on its (z, y, x) block
+    (:func:`_hcz_step_blocks`, each launch taking the rank's batch), and
+    on a y/x mesh a 2D state steps on its block (``parallel/step2d.py``),
+    each bit for bit to one device."""
     blk = None
     if mesh is not None:
         from ..parallel import step3d

@@ -40,7 +40,8 @@ class SimulationRunner:
     function) over many steps, as the JAX runner does (runner.py:39-47);
     a step function that takes a ``device`` keyword is given the runner's.
     With ``mesh`` (``parallel/mesh.py``) the state is this rank's part (a
-    slab, a 2D or 3D block, or batch elements): the step function and
+    slab, a 2D or 3D block, batch elements, or a block of several batch
+    elements): the step function and
     priming are given the mesh, and the runner runs and synchronises on the
     mesh's device (each rank times its own).  ``io_fn`` and the finite
     checks see the rank's part; an ``io_fn`` that wants the whole state

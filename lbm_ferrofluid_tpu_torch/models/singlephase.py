@@ -11,8 +11,9 @@ In 3D (D3Q19) the stream is the B8a kernel on the card
 step runs there); ``plain=True`` and CPU tensors run its plain version.  In
 2D every op is plain PyTorch on any device, as the JAX package runs 2D only
 through ``jnp``.  With ``mesh`` a 2D state steps on its block of a y/x
-mesh and a 3D state on its (z, y, x) block of any split grid, B8a on the
-block extended by one wrapped cell (``parallel/blocks.py``).  Every entry
+mesh and a 3D state on its (z, y, x) block of any split grid, at any
+number of batch elements a rank, B8a on the block extended by one wrapped
+cell (``parallel/blocks.py``).  Every entry
 point runs on the card unless ``device="cpu"``.
 """
 

@@ -148,12 +148,15 @@ PATHS = {
 }
 
 #: the kernels with a batch form: one launch steps every element of a
-#: [B, ...] batch (``launches_batch`` counts the launches at B > 1).  The
-#: routes a batch takes on one device launch only these: the un-carried
-#: ferrofluid step on the 19-channel h (B4, B11b with B7's trailing stage,
-#: B2, B6, B5), the HCZ step (B8b, B8a, B2, B6, B9) and 3D single phase
-#: (B8a); B1, B3, B10a and B10b raise on a batch (ROADMAP A12 slice 8)
-BATCH_FORMS = ("B2", "B4", "B5", "B6", "B8a", "B8b", "B9", "B11b")
+#: [B, ...] batch (``launches_batch`` counts the launches at B > 1; B10a
+#: one a chunk of the elements' fields).  The routes a batch takes launch
+#: only these: on one device the un-carried ferrofluid step on the
+#: 19-channel h (B4, B11b with B7's trailing stage, B2, B6, B5), the HCZ
+#: step (B8b, B8a, B2, B6, B9) and 3D single phase (B8a); on the block
+#: route of a split grid the same, the ferrofluid solve on the psi route
+#: (B11b's psi, then B10a); B1, B3 and B10b raise on a batch (ROADMAP A12
+#: slice 8)
+BATCH_FORMS = ("B2", "B4", "B5", "B6", "B8a", "B8b", "B9", "B10a", "B11b")
 
 #: the kernels with a named form and its name (``launches_<name>`` counts
 #: the launches of that form): B1's psi emission, B3's box form, B11b's

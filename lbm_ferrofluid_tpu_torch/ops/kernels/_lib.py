@@ -171,7 +171,8 @@ def check_batch(name: str, B: int, slab: bool = False, zblocks: int = 1) -> None
     if slab and B != 1:
         raise NotImplementedError(
             f"{name}: the slab forms step one batch element a rank, got {B} (ROADMAP A12 "
-            "slice 7: the slab forms at more than one batch element a rank)")
+            "slice 7b: the slab forms at more than one batch element a rank; such a rank "
+            "part steps on the block route, parallel/step3d.py:on_slabs)")
     if not 1 <= B * zblocks <= MAX_BATCH:
         raise ValueError(f"{name}: a launch takes 1 to {MAX_BATCH // zblocks} batch elements "
                          f"here ({zblocks} blocks along z an element), got {B}")
@@ -179,12 +180,13 @@ def check_batch(name: str, B: int, slab: bool = False, zblocks: int = 1) -> None
 
 def check_unbatched(name: str, B: int) -> None:
     """Raise for a batch of more than one element at a kernel without a batch
-    form (B1, B3, B10a, B10b: no batched route of the port launches them)."""
+    form (B1, B3, B10b: no batched route of the port launches them; B10a
+    has its batch form since the block route's psi route runs it)."""
     if B != 1:
         raise NotImplementedError(
             f"{name}: a batch of {B} elements is not ported (ROADMAP A12 slice 8: the batch "
-            "forms of B1, B3, B10a and B10b); a batch steps on the routes of B2, B4, B5, B6, "
-            "B8a, B8b, B9 and B11b")
+            "forms of B1, B3 and B10b); a batch steps on the routes of B2, B4, B5, B6, "
+            "B8a, B8b, B9, B10a and B11b")
 
 
 def check_slab_clamp(name: str, clamp, Z: int, min_planes: int) -> None:

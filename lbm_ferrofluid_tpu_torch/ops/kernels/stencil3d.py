@@ -42,9 +42,18 @@ route's (B6's slab form takes it as an input) equals the single-device
 route's bit for bit; the plain version maps with
 ``ops/moments.py:rho_to_density``.
 
+B10a takes a batch ``[B, N, Z, Y, X]`` (the block route's psi route at
+more than one element a rank, ``parallel/step3d.py:channel_poisson_blocks``)
+as the B * N fields of one element: the kernel computes each field on its
+own and the wrapper writes field f's three components at channels 3f..3f+2,
+so the contiguous batch is viewed as ``[1, BN, ...]`` and the output
+``[1, 3BN, ...]`` as ``[B, 3N, ...]``, each element's bits those of a call
+on it alone (no CUDA change); ``launches_batch`` counts its launches at
+B > 1, one a chunk of ``MAX_FIELDS`` fields.  B10b takes one element.
+
 B10a's slab form (``ghosts=``, ``clamp=``: the TPU kernel's ghost_lo and
 ghost_hi with its caller's fix, ``parallel/step3d.py:grad_fields_sharded``)
-takes each field's neighbour planes, ``ghosts = (lo, hi)`` [1, N, 1, Y, X]
+takes each field's neighbour planes, ``ghosts = (lo, hi)`` [B, N, 1, Y, X]
 each, and the same z clamp: the output ring is replicated in x and y on
 every slab and in z only at the domain's true edges (``launches_slab``,
 one a chunk of fields); its plain version is :func:`grad_fields_plain` of
@@ -63,8 +72,8 @@ import torch
 from ..collide import MU0, capillary_potentials, chi_of_phi, recover_macros
 from ..moments import rho_to_density
 from ..stencils import grad_ring_replicate, isotropic_laplacian, substitute_obstacles
-from ._lib import (call, check_cuda, check_no_grad, check_slab_clamp, check_unbatched,
-                   count_launch, ptr, stream_of)
+from ._lib import (call, check_batch, check_cuda, check_no_grad, check_slab_clamp,
+                   check_unbatched, count_launch, ptr, stream_of)
 
 __all__ = [
     "grad_fields", "grad_fields_plain", "cost", "laplacian_field", "laplacian_field_plain",
@@ -153,16 +162,18 @@ def chunks(n_fields: int) -> list[int]:
 
 
 def launches_per_call(n_fields: int) -> int:
-    """B10a's launches for ``n_fields`` fields: one a chunk."""
+    """B10a's launches for ``n_fields`` fields (B * N of a batch of B
+    elements of N fields): one a chunk."""
     return len(chunks(n_fields))
 
 
 def cost(fields, **_) -> tuple[int, int]:
     """(bytes, flops) that a call on these inputs must move and do: each
-    field read once and its three components written once (16 B per cell
-    and field); 33 flops per interior cell and field (the ring copies the
-    interior)."""
-    _, n_fields, Z, Y, X = fields.shape
+    field of each batch element read once and its three components written
+    once (16 B per cell and field); 33 flops per interior cell and field
+    (the ring copies the interior)."""
+    B, n_fields, Z, Y, X = fields.shape
+    n_fields *= B
     n = Z * Y * X
     return 16 * n_fields * n, 33 * n_fields * (Z - 2) * (Y - 2) * (X - 2)
 
@@ -171,7 +182,8 @@ def cost_slab(fields, ghosts=None, clamp=None, **_) -> tuple[int, int]:
     """:func:`cost` of the slab form: the two ghost planes of each field
     read once more; the stencil at the planes that ``clamp`` computes (a
     true edge's plane copies its neighbour's)."""
-    _, n_fields, Z, Y, X = fields.shape
+    B, n_fields, Z, Y, X = fields.shape
+    n_fields *= B
     planes = Z - (clamp[0] > 0) - (clamp[1] < Z)
     return 16 * n_fields * Z * Y * X + 8 * n_fields * Y * X, 33 * n_fields * planes * (
         Y - 2) * (X - 2)
@@ -197,41 +209,49 @@ def grad_fields_plain(fields, ghosts=None, clamp=None, *, dx=1.0):
 
 
 def grad_fields(fields, ghosts=None, clamp=None, *, dx=1.0):
-    """(gx, gy, gz) of each of N fields, ``[1, N, Z, Y, X]`` float32 ->
-    ``[1, 3N, Z, Y, X]``, with the boundary ring replicated from the
+    """(gx, gy, gz) of each of N fields, ``[B, N, Z, Y, X]`` float32 ->
+    ``[B, 3N, Z, Y, X]``, with the boundary ring replicated from the
     interior; with ``ghosts`` and ``clamp`` the slab form (module
     docstring).  Obstacle substitution is the caller's.  CPU tensors take
     the plain version; CUDA tensors launch the kernel,
-    ``launches_per_call`` times; anything else raises.  The input is not
-    modified."""
+    ``launches_per_call(B * N)`` times; anything else raises.  The input
+    is not modified.
+
+    The batch form: the kernel takes each field on its own and writes its
+    three components side by side, so the B elements' N fields run as the
+    B * N fields of one element (a view of the contiguous input), and the
+    output ``[1, 3BN, ...]`` is the ``[B, 3N, ...]`` batch; each element's
+    bits are those of a call on it alone."""
     if (ghosts is None) != (clamp is None):
         raise ValueError("grad_fields: give ghosts and clamp together, or neither")
     if fields.device.type == "cpu":
         return grad_fields_plain(fields, ghosts, clamp, dx=dx)
     check_no_grad("grad_fields", fields)
     B, n_fields, Z, Y, X = fields.shape
-    check_unbatched("grad_fields", B)
-    check_cuda("fields", fields, torch.float32, (1, n_fields, Z, Y, X))
+    check_batch("grad_fields", B)
+    check_cuda("fields", fields, torch.float32, (B, n_fields, Z, Y, X))
     if ghosts is not None:
         for name, t in zip(("ghost_lo", "ghost_hi"), ghosts, strict=True):
-            check_cuda(name, t, torch.float32, (1, n_fields, 1, Y, X))
+            check_cuda(name, t, torch.float32, (B, n_fields, 1, Y, X))
         check_slab_clamp("grad_fields", clamp, Z, grad_fields.min_planes)
+        ghosts = tuple(g.view(1, B * n_fields, 1, Y, X) for g in ghosts)
     if (min(Y, X, Z if ghosts is None else grad_fields.min_axis) < grad_fields.min_axis
             or n_fields < 1):
         raise ValueError(f"grad_fields needs Z, Y, X >= {grad_fields.min_axis} and at least "
                          "one field")
-    out = torch.empty((1, 3 * n_fields, Z, Y, X), dtype=torch.float32, device=fields.device)
+    out = torch.empty((B, 3 * n_fields, Z, Y, X), dtype=torch.float32, device=fields.device)
+    flat, flat_out = fields.view(1, B * n_fields, Z, Y, X), out.view(1, -1, Z, Y, X)
     sms = torch.cuda.get_device_properties(fields.device).multi_processor_count
     f0 = 0
-    for n in chunks(n_fields):
+    for n in chunks(B * n_fields):
         pl = plan(Z, Y, X, sms, n)
         lo, hi = (None, None) if ghosts is None else (g[:, f0:f0 + n] for g in ghosts)
-        call("lbm_grad_fields", ptr(fields[:, f0:f0 + n]), ptr(lo), ptr(hi),
-             ptr(out[:, 3 * f0:3 * (f0 + n)]), ctypes.c_int(n), ctypes.c_int(Z),
+        call("lbm_grad_fields", ptr(flat[:, f0:f0 + n]), ptr(lo), ptr(hi),
+             ptr(flat_out[:, 3 * f0:3 * (f0 + n)]), ctypes.c_int(n), ctypes.c_int(Z),
              ctypes.c_int(Y), ctypes.c_int(X), *(ctypes.c_int(v) for v in pl),
              *(ctypes.c_int(v) for v in (clamp or (1, Z - 2))), ctypes.c_double(dx),
              stream_of(fields))
-        count_launch(grad_fields, False, None if ghosts is None else "slab")
+        count_launch(grad_fields, False, None if ghosts is None else "slab", B)
         f0 += n
     return out
 
@@ -239,6 +259,7 @@ def grad_fields(fields, ghosts=None, clamp=None, *, dx=1.0):
 grad_fields.launches = 0
 grad_fields.launches_bf16 = 0
 grad_fields.launches_slab = 0
+grad_fields.launches_batch = 0
 #: cells an axis needs at least (the ring copies from the interior)
 grad_fields.min_axis = 4
 #: planes a slab of the slab form needs at least

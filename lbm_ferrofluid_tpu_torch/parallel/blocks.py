@@ -44,9 +44,11 @@ the edges and corners (D3Q19's and D2Q9's diagonals) come from the
 diagonal ranks; a block thinner than the depth takes them in rounds, each
 from the neighbours' extended block, so a band can cross several ranks.  An
 axis of one rank takes no ghosts: its ops wrap or meet its faces on the
-whole domain's extent.  Fields of one dtype travel in one exchange, and
-each field is extended once a step (:class:`Blocks` keeps the deepest
-extension, and cuts shallower ones from it).  The Poisson sweeps run in
+whole domain's extent.  Fields of one dtype travel in one exchange (the
+rank's batch elements with them: its bytes grow with the batch, not the
+count of exchanges), and each field is extended once a step
+(:class:`Blocks` keeps the deepest extension, and cuts shallower ones from
+it).  The Poisson sweeps run in
 rounds of k sweeps on a halo of k cells (:meth:`Blocks.rounds`).
 """
 
@@ -331,7 +333,10 @@ def interior(blk: Blocks, x, dims=None):
 
 def any_rank(blk: Blocks, local) -> bool:
     """Whether ``local`` (a tensor of booleans) holds anywhere on any rank
-    (one all-reduce)."""
+    (one all-reduce; none for a mesh of one rank without a process group,
+    as ``make_mesh(slab=True)`` makes it)."""
+    if blk.mesh.backend is None:
+        return bool(local.any())
     found = torch.tensor([int(local.any())], dtype=torch.int32,
                          device=blk.mesh.device if blk.mesh.backend == "nccl" else "cpu")
     dist.all_reduce(found, op=dist.ReduceOp.MAX)

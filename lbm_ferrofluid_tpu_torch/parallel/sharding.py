@@ -10,7 +10,8 @@ A leaf whose extent along a mesh axis is not divisible by that axis's size
 stays whole along it on every rank, as the JAX package replicates it: the
 MAC-staggered ``H_ext_mac`` leaves of extent N + 1 along their own axis,
 per-step constants.  The grid itself must divide: a state whose f does not
-split along a mesh axis raises.
+split along a mesh axis raises.  A mesh with a batch axis and a spatial one
+cuts both: B / nb elements a rank, each on the rank's block.
 """
 
 from __future__ import annotations

@@ -50,12 +50,14 @@ package's ``LBM_SLAB_FORCE``).
 
 The slab forms take a ferrofluid or HCZ state on z and batch axes only,
 one batch element a rank, in slabs of 4 or more planes (:func:`on_slabs`).
-Every other 3D state on a split grid with one element a rank takes the
-block route (:func:`blocks3d`, the JAX package's GSPMD route where its
-slab gates fail, ``lbm_ferrofluid_tpu/parallel/step3d.py:76-98``): its
-(z, y, x) block steps through the single-device kernels themselves, each
-on the block extended by ghost cells under its edge rule
-(``parallel/blocks.py:HALOS``), bit for bit to one device's steps on the
+Every other 3D state on a split grid takes the block route
+(:func:`blocks3d`, the JAX package's GSPMD route where its slab gates
+fail, ``lbm_ferrofluid_tpu/parallel/step3d.py:76-98``), two or more batch
+elements a rank among them (the JAX package's slab kernels need ``B // nb
+== 1``, :92 there): its [B_local, C, bz, by, bx] block steps through the
+single-device kernels themselves, each on the block extended by ghost cells
+under its edge rule (``parallel/blocks.py:HALOS``) and each launch taking
+the rank's whole batch, bit for bit to one device's batched steps on the
 same route.  The ferrofluid step there is the un-carried route (B4, the
 solve, B2, B6, B5), whose every launch has one edge rule; its solve runs
 in rounds (:func:`scalar_poisson_blocks`: B1's passes and its H2 launch;
@@ -151,9 +153,7 @@ __all__ = [
 ]
 
 #: ROADMAP A12's slices that a refusal names
-SLICES = {"4c": "the padded layout on a split grid, which needs each rank's box coordinates",
-          7: "more than one batch element a rank on a split grid (the slab forms, the block "
-             "route and B1, B3, B10a and B10b step one element)"}
+SLICES = {"4c": "the padded layout on a split grid, which needs each rank's box coordinates"}
 
 
 def dp_dispatch(mesh: Mesh) -> bool:
@@ -168,17 +168,19 @@ def on_slabs(mesh: Mesh, local_shape) -> bool:
     ([B, C, Zl, Y, X]) step on the slab forms: a split grid (not
     :func:`dp_dispatch`) with z and batch axes only, one batch element a
     rank and slabs of 4 or more planes.  Else a split grid takes the block
-    route (:func:`blocks3d`)."""
+    route (:func:`blocks3d`): two or more elements a rank take it on any
+    split grid, a ``slab=True`` mesh too (the slab forms step one element,
+    ROADMAP A12 slice 7b)."""
     return (not dp_dispatch(mesh) and mesh.ny * mesh.nx == 1 and local_shape[0] == 1
             and local_shape[2] >= 4)
 
 
 def blocks3d(mesh: Mesh, f) -> Blocks:
     """This rank's :class:`~.blocks.Blocks` for a step of the 3D state whose
-    f is ``f`` on the block route; raises for more than one batch element a
-    rank (slice 7).  A field is first extended at its first use's depth."""
-    if f.shape[0] != 1:
-        raise unported(f"{f.shape[0]} batch elements a rank on a split grid", 7)
+    f is ``f`` ([B_local, 19, bz, by, bx]) on the block route, any
+    B_local: the ghosts, cuts and ops carry the batch axis, and each
+    exchange moves every element's band.  A field is first extended at its
+    first use's depth."""
     return Blocks(mesh, tuple(f.shape[2:]), min_depth=1)
 
 
@@ -214,8 +216,8 @@ def unported(route: str, slice_=None) -> NotImplementedError:
     on its mesh, naming the ROADMAP A12 slice that would port it."""
     where = "ROADMAP A12" if slice_ is None else f"ROADMAP A12 slice {slice_}: {SLICES[slice_]}"
     return NotImplementedError(
-        f"{route} is not ported yet ({where}); step it on one device or on a batch mesh, "
-        "or with one batch element a rank on a mesh with z, y or x axes")
+        f"{route} is not ported yet ({where}); step it on one device, on a batch mesh, or on "
+        "a mesh with a y or x axis (the block route)")
 
 
 def sharded3d_ok(mesh: Mesh, shape) -> bool:
@@ -286,8 +288,9 @@ def scalar_slab_plan(mesh: Mesh, s2_shape, n_iters: int):
 
 
 def scalar_sharded_ok(mesh: Mesh, s2_shape, n_iters: int) -> bool:
-    """Can B1 solve the global [1, 2, Z, Y, X] carry on ``mesh``: the
-    single-device kernel under :func:`dp_dispatch`, else a slab plan."""
+    """Can B1 solve the global [B, 2, Z, Y, X] carry (B = nb: one element a
+    rank) on ``mesh``: the single-device kernel under :func:`dp_dispatch`,
+    else a slab plan."""
     if not sharded3d_ok(mesh, s2_shape):
         return False
     if dp_dispatch(mesh):
@@ -348,8 +351,9 @@ def channel_slab_plan(mesh: Mesh, h_shape, n_iters: int, h2: bool = False):
 
 
 def channel_sharded_ok(mesh: Mesh, h_shape, n_iters: int) -> bool:
-    """Can B11b solve the global [1, 19, Z, Y, X] h on ``mesh``: the
-    single-device kernel under :func:`dp_dispatch`, else a slab plan."""
+    """Can B11b solve the global [B, 19, Z, Y, X] h (B = nb: one element a
+    rank) on ``mesh``: the single-device kernel under :func:`dp_dispatch`,
+    else a slab plan."""
     if not sharded3d_ok(mesh, h_shape):
         return False
     return dp_dispatch(mesh) or channel_slab_plan(mesh, h_shape, n_iters) is not None
@@ -712,7 +716,8 @@ def channel_poisson_blocks(blk: Blocks, h, magnetic_flags, rhs_scaled, *, tau, n
     B10a) on psi and the flags extended by 3 cells under the clamp rule, as
     one device's ``solve_H_int`` runs it where B7's trailing stage does
     not apply (the trailing stage mixes the sweeps' wrap with the
-    gradient's clamp)."""
+    gradient's clamp).  Two or more elements a rank run in each launch:
+    B11b's batch instances, B10a's batch form."""
     sweeps = poisson_sweeps_plain if plain else poisson_sweeps
     h, psi = _rounds(blk, sweeps, h, (magnetic_flags, rhs_scaled), n_iters, tau=tau)
     grad = grad_fields_plain if plain else grad_fields

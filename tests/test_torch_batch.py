@@ -11,12 +11,13 @@
   bits unchanged;
 * ``prime_premac`` at B = 2 is a no-op in 2D and 3D (premac None, h in 19
   or 9 channels), as in JAX;
-* each of the eight kernels on the batched routes (B2, B4, B5, B6, B8a,
-  B8b, B9, B11b with B7's trailing stage): its plain version at B = 2
+* each of the nine kernels on the batched routes (B2, B4, B5, B6, B8a,
+  B8b, B9, B10a, B11b with B7's trailing stage): its plain version at B = 2
   equals two B = 1 calls bit for bit (the wrappers take it on CPU tensors);
-* the raises: a padded layout at B > 1 (ROADMAP A12 slice 6), a z-slab
-  mesh with more than one element a rank (slice 7), the scalar carry or
-  the 6-leaf premac at B > 1 (slice 8);
+* the raises: a padded layout at B > 1 (as the JAX package's own step
+  refuses it), the scalar carry or the 6-leaf premac at B > 1 (slice 8);
+* a ``slab=True`` mesh with two elements a rank steps on the block route,
+  bit for bit to one device's batched steps;
 * a (batch 2, z 1) mesh of gloo ranks with B = 4 (two elements a rank)
   equals one device's B = 4 steps bit for bit; checkpoint save and load of
   a B = 4 state, the runner's NaN guard on one bad element and the
@@ -40,7 +41,7 @@ from lbm_ferrofluid_tpu.models import scenes as jscenes  # noqa: E402
 import torch_mesh_worker as worker  # noqa: E402
 from lbm_ferrofluid_tpu_torch import models as pm  # noqa: E402
 from lbm_ferrofluid_tpu_torch.ops.kernels import capmac, contact3d, fused_step, hcz3d  # noqa: E402
-from lbm_ferrofluid_tpu_torch.ops.kernels import poisson, stream3d  # noqa: E402
+from lbm_ferrofluid_tpu_torch.ops.kernels import poisson, stencil3d, stream3d  # noqa: E402
 from lbm_ferrofluid_tpu_torch.parallel import make_mesh, shard_state  # noqa: E402
 from lbm_ferrofluid_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from lbm_ferrofluid_tpu_torch.utils.diagnostics import diagnostics  # noqa: E402
@@ -238,7 +239,7 @@ def _rng_fields(seed, shape, lo=0.0, hi=1.0):
 
 
 def _kernel_inputs(res=(6, 8, 10), batch=B, seed=11):
-    """Per-element random inputs of the eight kernels (distinct elements)."""
+    """Per-element random inputs of the nine kernels (distinct elements)."""
     Z, Y, X = res
     rng = np.random.default_rng(seed)
     flags = np.full((batch, 1, *res), FLUID, np.uint8)
@@ -296,6 +297,11 @@ KERNEL_CALLS = {
     "B9": lambda a: hcz3d.hcz_collide_fused_plain(
         a["f"], a["g"], a["rho"], a["vel"], a["density"], a["pressure"], a["flags"],
         a["force"], a["dfai"], a["dprho"], **HCZ_K),
+    "B10a": lambda a: stencil3d.grad_fields_plain(a["phi"]),
+    "B10a N=3": lambda a: stencil3d.grad_fields_plain(torch.cat([a["phi"], a["rho"],
+                                                                 a["H2"]], dim=1)),
+    "B10a slab": lambda a: stencil3d.grad_fields_plain(
+        a["phi"][:, :, 1:-1], (a["phi"][:, :, :1], a["phi"][:, :, -1:]), (-1, 4)),
     "B11b": lambda a: poisson.poisson_sweeps_plain(a["h"], a["mflags"], a["rhs"], tau=0.8,
                                                    n_iters=3),
     "B11b B7 h2": lambda a: poisson.poisson_sweeps_plain(
@@ -334,6 +340,12 @@ def test_batch_instances_are_the_cuda_sources():
     for n in (1, 2, 3, 7, 30):
         pl = poisson.plan(256, 256, 256, n, 132)
         assert all(pl.ty + 2 * (k - 1) in poisson.BATCH_EXT_HEIGHTS for k in pl.passes), n
+    # the block route's rounds (any k up to the sweeps, psi emitted by the
+    # last pass) on a block's extended shapes launch the same instances
+    for n in range(1, 31):
+        for shape in ((11, 19, 71), (69, 39, 71), (37, 35, 33)):
+            pl = poisson.plan(*shape, n, 132)
+            assert all(pl.ty + 2 * (k - 1) in poisson.BATCH_EXT_HEIGHTS for k in pl.passes), n
 
 
 def test_kernel_costs_count_every_element():
@@ -350,6 +362,7 @@ def test_kernel_costs_count_every_element():
                           "dfai", "dprho"), {}),
             (capmac.cost, ("rho", "density", "pressure", "rho_ca", "H2", "phi", "flags",
                            "m0g", "m1g", "vel"), {}),
+            (stencil3d.cost, ("phi",), {}),
             (poisson.cost, ("h", "mflags", "rhs"), dict(tau=1.0, n_iters=30, emit="h2",
                                                         h_ext=(0.0, 85.0, 0.0)))):
         c1 = cost(*(one[k] for k in args), **kw)
@@ -358,27 +371,59 @@ def test_kernel_costs_count_every_element():
 
 
 def test_padded_layout_at_b2_raises():
+    """A padded layout at B = 2 is refused as the JAX package refuses it: a
+    batch keeps the 19-channel h, and the channel-form solve does not take
+    ``phys_extent`` (JAX's ``ferrofluid_step`` raises after its own
+    ``prime_premac``, which leaves the batch as it is)."""
     params, state = pm.rosensweig_3d_tpu(res=(6, 8, 10), device="cpu")
     two = dataclasses.replace(state, **{
         f.name: (torch.cat([v, v]) if torch.is_tensor(v) else
                  tuple(torch.cat([x, x]) for x in v) if isinstance(v, tuple) else v)
         for f in dataclasses.fields(state) for v in (getattr(state, f.name),)})
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 slice 6"):
+    refusal = "a batch keeps the 19-channel h .* does not take phys_extent"
+    with pytest.raises(NotImplementedError, match=refusal):
         pm.prime_premac(params, two, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 slice 6"):
+    with pytest.raises(NotImplementedError, match=refusal):
         pm.ferrofluid_step(params, two, device="cpu")
+    jp, js = jscenes.rosensweig_3d_tpu(res=(6, 8, 10))
+    js = dataclasses.replace(js, **{
+        f.name: (jnp.concatenate([v, v]) if isinstance(v, jnp.ndarray) and v.ndim else
+                 tuple(jnp.concatenate([x, x]) for x in v) if isinstance(v, tuple) else v)
+        for f in dataclasses.fields(js) for v in (getattr(js, f.name),)})
+    js = jmodels.prime_premac(jp, js)
+    assert js.premac is None and js.h.shape[:2] == (2, 19)
+    with pytest.raises(NotImplementedError, match="require the tau==1 scalar Poisson carry"):
+        jmodels.ferrofluid_step(jp, js)
 
 
-def test_slab_mesh_with_two_elements_a_rank_raises():
+def test_slab_mesh_with_two_elements_a_rank_steps_bit_for_bit(monkeypatch):
+    """A ``slab=True`` mesh (one rank, no process group) with two elements
+    a rank: the slab forms step one element, so the part takes the block
+    route, which has no split axis here.  3 ferrofluid steps (primed on the
+    mesh: h stays in 19 channels, no premac; the solve on the psi route)
+    and 3 HCZ steps, bit for bit to one device's batched steps on the same
+    route."""
     slab = make_mesh(device="cpu", slab=True)
-    params, state = pm.rosensweig_3d(res=(8, 8, 10), batch=B, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 slice 7"):
-        pm.prime_premac(params, shard_state(state, slab), mesh=slab)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 slice 7"):
-        pm.ferrofluid_step(params, shard_state(state, slab), mesh=slab)
+    params, state = worker.batch_state(B)
+    part = pm.prime_premac(params, shard_state(state, slab), mesh=slab)
+    assert part.premac is None and part.h.shape[:2] == (B, 19)
     hp, hs = pm.multiphase_3d(res=(8, 8, 10), batch=B, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 slice 7"):
-        pm.hcz_step(hp, shard_state(hs, slab), mesh=slab)
+    noise = torch.from_numpy(np.random.default_rng(9).uniform(-1, 1, hs.f.shape))
+    noise[0] = 0
+    hs = hs.replace(f=(hs.f * (1 + 1e-3 * noise)).to(hs.f.dtype))
+    hpart = shard_state(hs, slab)
+    for _ in range(3):
+        part = pm.ferrofluid_step(params, part, mesh=slab)
+        hpart = pm.hcz_step(hp, hpart, mesh=slab)
+    monkeypatch.setattr(poisson, "emit_ok", lambda *a, **kw: False)
+    one, hone = pm.prime_premac(params, state, device="cpu"), hs
+    for _ in range(3):
+        one = pm.ferrofluid_step(params, one, device="cpu")
+        hone = pm.hcz_step(hp, hone, device="cpu")
+    for k in ("f", "g", "h", "rho", "vel", "density", "pressure", "phi"):
+        assert torch.equal(getattr(part, k), getattr(one, k)), k
+    for k in ("f", "g", "rho", "vel", "density", "pressure"):
+        assert torch.equal(getattr(hpart, k), getattr(hone, k)), f"HCZ {k}"
 
 
 def test_scalar_carry_and_capillogue_at_b2_raise():

@@ -387,14 +387,23 @@ def test_unsupported_hcz_configs_raise(case):
 
 
 def test_batched_hcz_state_raises():
-    """A batch of two on a z-slab mesh (one rank, ``slab=True``) has no
-    route: the slab forms step one element a rank (ROADMAP A12)."""
-    from lbm_ferrofluid_tpu_torch.parallel import make_mesh, shard_state
+    """A batch of two on a z-slab mesh (one rank, ``slab=True``): the slab
+    forms step one element a rank (ROADMAP A12 slice 7b), so since slice 7
+    the part takes the block route instead of raising, and a step equals
+    one device's batched step bit for bit; the second element's f and g
+    are scaled so the two differ."""
+    from lbm_ferrofluid_tpu_torch.parallel import make_mesh, shard_state, step3d
 
     params, state = multiphase_3d(res=(6, 8, 10), batch=2, device="cpu")
+    scale = torch.tensor([1.0, 1.001]).reshape(2, 1, 1, 1, 1)
+    state = state.replace(f=state.f * scale, g=state.g * scale)
     slab = make_mesh(device="cpu", slab=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        hcz_step(params, shard_state(state, slab), mesh=slab)
+    part = shard_state(state, slab)
+    assert not step3d.on_slabs(slab, part.f.shape)
+    got = hcz_step(params, part, mesh=slab)
+    want = hcz_step(params, state, device="cpu")
+    for name in ("f", "g", "rho", "vel", "density", "pressure", "force"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
 def test_batched_hcz_state_steps_per_element():

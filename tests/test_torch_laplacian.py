@@ -136,3 +136,42 @@ def test_stencil_route_on_cpu_is_the_plain_stage():
     assert kernels.launch_counts(["B10a", "B10b"]) == {"B10a": 0, "B10b": 0}
     with pytest.raises(ValueError, match="together"):
         kernels.hcz_capillary_stencils(*args[:7], None, *args[8:], **kw)
+
+
+# ---------------------------------------------------------------- B10a's batch form
+@pytest.mark.parametrize("n_fields", [1, 3])
+@pytest.mark.parametrize("slab", [False, True], ids=["device", "slab"])
+def test_grad_fields_batch_fold_layout(n_fields, slab):
+    """B10a's batch form runs the B elements' N fields as the B * N fields of
+    one element (a view of the contiguous [B, N, ...] input) and views its
+    [1, 3BN, ...] output as [B, 3N, ...]: that fold gives every element the
+    bits of its own call, in the plain version as in the kernel, which
+    computes each field on its own.  The slab form folds its ghost planes
+    alike."""
+    B, res = 2, (6, 8, 10)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (B, n_fields, *res)).astype(np.float32))
+    args = (x[:, :, 1:-1].contiguous(), (x[:, :, :1].contiguous(), x[:, :, -1:].contiguous()),
+            (1, 3)) if slab else (x,)
+
+    def fold(t):
+        return t.reshape(1, -1, *t.shape[2:])
+
+    batched = kernels.grad_fields_plain(*args, dx=0.5)
+    assert batched.shape == (B, 3 * n_fields, *args[0].shape[2:])
+    folded = kernels.grad_fields_plain(
+        fold(args[0]), *(((fold(args[1][0]), fold(args[1][1])), args[2]) if slab else ()),
+        dx=0.5).reshape(batched.shape)
+    assert torch.equal(folded, batched)
+    for b in range(B):
+        alone = kernels.grad_fields_plain(
+            args[0][b:b + 1], *(((args[1][0][b:b + 1], args[1][1][b:b + 1]), args[2])
+                                if slab else ()), dx=0.5)
+        assert torch.equal(batched[b:b + 1], alone), b
+    # the wrapper on CPU tensors is the plain version; a call of B elements
+    # of N fields launches as B * N fields would, and costs B times one
+    assert torch.equal(kernels.grad_fields(*args, dx=0.5), batched)
+    assert kernels.stencil3d.launches_per_call(B * n_fields) == len(
+        kernels.stencil3d.chunks(B * n_fields))
+    c1, cb = kernels.stencil3d.cost(x[:1]), kernels.stencil3d.cost(x)
+    assert cb == (B * c1[0], B * c1[1])

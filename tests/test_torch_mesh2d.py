@@ -9,12 +9,14 @@ tests/test_sharding.py scene (32x16), Shan-Chen, HCZ on that file's scene
 (16x24) and on a wetting floor with KBC on g, and the ferrofluid step with
 h in the scalar carry (primed), in 9 channels, and in bfloat16 storage.
 
-* Each case on ``(y, x) = (4, 2)`` and ``(2, 4)`` (the JAX tests' meshes)
-  and on ``(batch, y, x) = (2, 2, 1)`` (a batch of 2 whose elements
-  differ), 5 steps through the model's entry point, gathered: bit for bit
-  to the port's one-device steps (at the batch mesh each element to its own
-  one-element steps, since each rank primes its own element as one device
-  primes one element);
+* Each case on ``(y, x) = (4, 2)`` and ``(2, 4)`` (the JAX tests' meshes),
+  on ``(batch, y, x) = (2, 2, 1)`` (a batch of 2 whose elements differ)
+  and on ``(y, x) = (2, 2)`` with both elements of a batch of 2 on every
+  rank (``y2x2b2``), 5 steps through the model's entry point, gathered:
+  bit for bit to the port's one-device steps (at the batch mesh each
+  element to its own one-element steps, since each rank primes its own
+  element as one device primes one element; on ``y2x2b2`` to one device's
+  batched steps, which keep a batch's h in 9 channels);
 * against the JAX package's own GSPMD-sharded steps on the same mesh over
   the 8 virtual CPU devices of tests/conftest.py, inputs from the same
   numpy seed, at the bar of tests/test_torch_ferro2d.py:284 (atol 2e-5 +
@@ -58,7 +60,10 @@ from lbm_ferrofluid_tpu_torch.parallel import Mesh, make_mesh, shard_state, step
 CPU = torch.device("cpu")
 STEPS = 5
 MESHES = {"y4x2": (("y", "x"), (4, 2)), "y2x4": (("y", "x"), (2, 4)),
-          "b2y2x1": (("batch", "y", "x"), (2, 2, 1))}
+          "b2y2x1": (("batch", "y", "x"), (2, 2, 1)), "y2x2b2": (("y", "x"), (2, 2))}
+#: the meshes whose cases run a batch of 2: one element a rank on the batch
+#: mesh, both elements on every rank of y2x2b2
+BATCHES = {"b2y2x1": 2, "y2x2b2": 2}
 CASES = tuple(worker.MESH2D_CASES)
 #: the seam jobs (name: case, grid) on the mesh of the key: blocks of 1
 #: column (16x4 on y2x4) and of 2 (8x8), of 1 row (4x6 on y4x2), whose
@@ -84,8 +89,7 @@ def runs(tmp_path_factory):
     """{mesh: {job: the gathered arrays}} of every case (and seam job)."""
     out = {}
     for key, (axes, shape) in MESHES.items():
-        batch = 2 if axes[0] == "batch" else 1
-        jobs = {c: (c, batch, None) for c in CASES}
+        jobs = {c: (c, BATCHES.get(key, 1), None) for c in CASES}
         jobs.update({n: (c, 1, res) for n, (c, res) in SEAMS.get(key, {}).items()})
         if key == "y4x2":
             jobs["roundtrip"] = ("channel", 1, None)
@@ -134,7 +138,8 @@ def _assert_bits(got, want, what):
 def test_meshed_steps_equal_one_device_bit_for_bit(runs, mesh, case):
     got = runs[mesh][case]
     if MESHES[mesh][0][0] != "batch":
-        _assert_bits(got, _one_device(case), f"{case} on {mesh}")
+        _assert_bits(got, _one_device(case, BATCHES.get(mesh, 1)), f"{case} on {mesh}")
+        assert got["f"].shape[0] == BATCHES.get(mesh, 1)
         return
     for b in range(2):
         want = _one_device(case, 2, element=b)

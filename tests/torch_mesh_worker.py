@@ -620,10 +620,17 @@ MESH3D_STEPS = {"ferro": "ferrofluid_step", "ferro_obs": "ferrofluid_step",
                 "hcz": "hcz_step", "single": "singlephase_step", "sc": "sc_step"}
 
 
-def mesh3d_fields(model, res, seed=11):
-    """(params keywords, numpy fields) of a 3D case's whole state."""
-    rho, den, vel, flags, mflags = flagship_fields(res)
+def mesh3d_fields(model, res, seed=11, batch=1):
+    """(params keywords, numpy fields) of a 3D case's whole state; a batch
+    of more than one has every element's density (or, single phase, its
+    velocity) moved by noise from its own seed, so that a step in which one
+    element reads another shows it."""
+    rho, den, vel, flags, mflags = flagship_fields(res, batch)
     rng = np.random.default_rng(seed)
+    if batch > 1 and model != "single":
+        for b in range(batch):
+            n = np.random.default_rng(seed + 101 * b).uniform(-1, 1, rho[b].shape)
+            rho[b] = (rho[b] * (1 + 1e-3 * n)).astype(np.float32)
     if model == "single":
         vel = rng.uniform(-0.05, 0.05, vel.shape).astype(np.float32)
         flags = np.full_like(flags, FLUID)
@@ -645,12 +652,13 @@ def mesh3d_fields(model, res, seed=11):
     return dict(SHARDING_3D), fields
 
 
-def mesh3d_state(case, res=RES):
-    """(params, whole state) of a case of :data:`MESH3D_CASES` on the CPU."""
+def mesh3d_state(case, res=RES, batch=1):
+    """(params, whole state) of a case of :data:`MESH3D_CASES` on the CPU,
+    at a batch of ``batch`` elements (:func:`mesh3d_fields`)."""
     from lbm_ferrofluid_tpu_torch import models as pm
 
     model, change = MESH3D_CASES[case]
-    kw, fd = mesh3d_fields(model, res)
+    kw, fd = mesh3d_fields(model, res, batch=batch)
     params = pm.SimulationParams(**kw).replace(**change)
     if model == "single":
         return params, pm.init_singlephase_state(params, fd["rho"], fd["vel"], fd["flags"],
@@ -665,11 +673,13 @@ def mesh3d_state(case, res=RES):
 
 def mesh3d_main(rank, world, port, axes, shape, jobs, steps, out_dir):
     """One rank of 3D steps on a mesh over ``axes``: for each job (case,
-    grid), the whole state built on every rank, this rank's block cut,
+    grid[, batch]), the whole state built on every rank, this rank's block cut,
     primed on the mesh where the model is the ferrofluid step, ``steps``
     meshed steps through the model's entry point, gathered; rank 0 writes
     ``<job>.npz`` with the exchanges and bytes a step (``stats.``) and
     whether priming left a premac (``stats.premac``).  A job named
+    ``u19...`` is never primed (the un-carried step on the 19-channel h:
+    route U19 where the rank part takes the slab forms).  A job named
     ``runner...`` steps through ``SimulationRunner(..., mesh=)``, which
     primes, with an ``io_fn`` at every step that gathers the whole state
     (``stats.io_calls``, and ``stats.io_whole``: every gather whole)."""
@@ -687,8 +697,8 @@ def mesh3d_main(rank, world, port, axes, shape, jobs, steps, out_dir):
     assert initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo") == world
     try:
         mesh = make_mesh(axes, shape, device="cpu")
-        for name, (case, res) in jobs.items():
-            params, whole = mesh3d_state(case, tuple(res))
+        for name, (case, res, *batch) in jobs.items():
+            params, whole = mesh3d_state(case, tuple(res), *batch)
             model = MESH3D_CASES[case][0]
             step = getattr(pm, MESH3D_STEPS[model])
             st = shard_state(whole, mesh)
@@ -705,7 +715,7 @@ def mesh3d_main(rank, world, port, axes, shape, jobs, steps, out_dir):
                              io_whole=all(sh == tuple(whole.f.shape) for sh in shapes),
                              premac=getattr(st, "premac", None) is not None)
             else:
-                if step is pm.ferrofluid_step:
+                if step is pm.ferrofluid_step and not name.startswith("u19"):
                     st = pm.prime_premac(params, st, mesh=mesh)
                 premac = getattr(st, "premac", None) is not None
                 n0, b0 = ring_halo.exchanges, ring_halo.sent_bytes
