@@ -263,8 +263,12 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    turbo, HCZ 128^3 B = 2 on 4 z ranks, single phase 128^3 B = 2 on
    (y, x) = (2, 2); and the float32 B = 2 Rosensweig state on (batch, z)
    = (2, 2), one element a rank on the slab route U19, beside its block
-   run), every run bit for bit to one device's steps of the whole batch on
-   the same route by hashes of each rank's blocks, the kernels' launches a
+   run; the padded layout, ROADMAP A12 slice 4c: the demo's 66x136x256
+   arrays on (z, y) = (2, 2) in float32 and turbo and on (y, x) = (2, 2),
+   and 64x136x256 on 4 z ranks, the slab route, held to a one-rank
+   ``slab=True`` mesh), every run bit for bit to one device's steps of the
+   whole batch on the same route by hashes of each rank's blocks (a
+   premac's leaves too), the kernels' launches a
    step checked (at two elements a rank every launch a batch's), ms a step
    beside one device's, exchanges and bytes a step, ms inside the
    exchanges.
@@ -4562,7 +4566,7 @@ def phase_padded(dev, kernels_pkg, card, steps=30, timed=200):
             h2 = ff._h2_box(params, psi, cmask, plain=False)
             h2_rows = compare("padded B1 H2 on the box", ["H2"], h2,
                               ff._h2_box(params, psi, cmask, plain=True))
-            box = (ff._to_phys(params, psi), ff._to_phys(params, cmask))
+            box = tuple(scenes.phys_view(params, x).contiguous() for x in (psi, cmask))
             h_ext = (0.0, params.mag_strength, 0.0)
             moved, flops = sp_mod.cost_h2(*box)
             forms["B1 H2 on the box"] = {
@@ -5350,7 +5354,7 @@ def wait_processes(label, procs, timeout, tag):
     return outs
 
 
-def run_rank_job(res, mag, shape, batch, route, slab, steps=20):
+def run_rank_job(res, mag, shape, batch, route, slab, steps=15):
     """One job's ranks as processes on the one card (``--sharded-rank``),
     torchrun's variables set for each (gloo for several ranks on the card,
     NCCL for one: ``parallel/mesh.py:default_backend``): their rows, or
@@ -6175,7 +6179,12 @@ def phase_mesh2d(dev, card):
 #: on the slab route U19 (un-carried, never primed): the block route at two
 #: elements a rank against the slab route at one, the grounds of slice 7b;
 #: HCZ 128^3 at B = 2 on 4 z ranks; single phase 128^3 at B = 2 on (y, x)
-#: = (2, 2)
+#: = (2, 2).  The padded transposed layout (ROADMAP A12 slice 4c): the
+#: demo's ``rosensweig_3d_tpu()`` (arrays 66x136x256, box 66x130x130) on
+#: (z, y) = (2, 2) in float32 and turbo and on (y, x) = (2, 2) (rank x = 1
+#: holds 2 box columns), the block route; ``rosensweig_3d_tpu(res=(130, 64,
+#: 130))`` (arrays 64x136x256: physical y cut 66 -> 64 to split in 4) on 4 z
+#: ranks, the slab route, primed to a 5-leaf premac
 MESH3D_RUNS = (
     ("rosensweig", "rosensweig_3d", {"res": (130, 66, 130)}, ("z", "y"), (2, 2), "float32", {}),
     ("rosensweig turbo", "rosensweig_3d", {"res": (130, 66, 130)}, ("z", "y"), (2, 2),
@@ -6198,6 +6207,12 @@ MESH3D_RUNS = (
      {}),
     ("single B=2", "taylor_green_3d", {"res": (128, 128, 128), "batch": 2}, ("y", "x"), (2, 2),
      "float32", {}),
+    ("padded", "rosensweig_3d_tpu", {"res": (130, 66, 130)}, ("z", "y"), (2, 2), "float32", {}),
+    ("padded turbo", "rosensweig_3d_tpu", {"res": (130, 66, 130)}, ("z", "y"), (2, 2),
+     "bfloat16", {}),
+    ("padded y/x", "rosensweig_3d_tpu", {"res": (130, 66, 130)}, ("y", "x"), (2, 2), "float32",
+     {}),
+    ("padded slabs", "rosensweig_3d_tpu", {"res": (130, 64, 130)}, ("z",), (4,), "float32", {}),
 )
 MESH3D_WARM, MESH3D_STEPS = 2, 4
 MESH3D_TIMEOUT = 360
@@ -6225,8 +6240,23 @@ def mesh3d_scene(run, dev):
         noise = torch.rand(st.f.shape, generator=gen, device=st.f.device) * 2 - 1
         noise[0] = 0
         st = st.replace(f=(st.f.float() * (1 + 1e-3 * noise)).to(st.f.dtype))
-    step = models.ferrofluid_step if build == "rosensweig_3d" else models.hcz_step
+    step = models.ferrofluid_step if build.startswith("rosensweig") else models.hcz_step
     return params, st, step
+
+
+def mesh3d_fields(st) -> dict:
+    """The fields of a meshed run's state that are hashed: those of
+    :data:`MESH2D_FIELDS` and the premac's leaves."""
+    return dict(_state_fields(st), **{f"premac.{i}": x for i, x in
+                                      enumerate(getattr(st, "premac", None) or ())})
+
+
+def mesh3d_primes(params, step, slabs) -> bool:
+    """Whether a meshed run primes on the mesh: the ferrofluid step on the
+    block route, and a padded layout on slabs too (to its 5-leaf premac);
+    the other slab runs step as built (route U19)."""
+    return step.__name__ == "ferrofluid_step" and (params.phys_extent is not None
+                                                   or not slabs)
 
 
 def mesh3d_expected(params, state, step, mesh) -> dict:
@@ -6237,7 +6267,11 @@ def mesh3d_expected(params, state, step, mesh) -> dict:
     single phase B8a.  The z-slab route U19 (a never-primed state on z and
     batch axes, one element a rank): the slab forms of B4, B11b (a launch
     a round of ``step3d.channel_slab_plan``, the last emitting H2, or B10a
-    on psi where its h2 plan refuses), B2, B10b, B6 and B5."""
+    on psi where its h2 plan refuses), B2, B10b, B6 and B5.  A padded
+    layout: B1's psi passes in the rounds of the rank's blocks (z-only on
+    slabs), and where the rank's block holds a box cell B1's H2 launch and
+    B2 on its part of the box; then B5, after B4 on blocks, with
+    ``emit_mac`` (2 launches) on slabs."""
     from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, hcz_step
     from lbm_ferrofluid_tpu_torch.ops.kernels import poisson, scalar_poisson, stencil3d
     from lbm_ferrofluid_tpu_torch.parallel import step3d
@@ -6246,6 +6280,13 @@ def mesh3d_expected(params, state, step, mesh) -> dict:
         return {k: 1 for k in ("B8b", "B8a", "B2", "B6", "B9")}
     if step is not ferrofluid_step:
         return {"B8a": 1}
+    if params.phys_extent is not None:
+        blk = step3d.blocks3d(mesh, state.f)
+        box = all(c0 < p for (_, _, c0, _), p in zip(blk.axes.values(), params.phys_extent))
+        passes = sum(len(scalar_poisson.passes(k)) for k in blk.rounds(params.poisson_iters))
+        out = {"B1": passes + box, "B2": 1} if box else {"B1": passes}
+        slabs = step3d.on_slabs(mesh, state.f.shape)
+        return dict(out, **({"B5": 2} if slabs else {"B4": 1, "B5": 1}))
     if step3d.on_slabs(mesh, state.f.shape):
         shape = (1, 19, *step3d.global_shape(state.f.shape, mesh)[2:])
         n = params.poisson_iters
@@ -6270,13 +6311,21 @@ def mesh3d_one_device(run, params, whole, step, dev, slabs=False):
     """One device's steps of the whole batch on the meshed route's route
     (the block route: priming only converts h, the un-carried step, the
     channel form's solve on the psi route; ``slabs``, route U19: never
-    primed, the solve's H2 from B7's trailing stage): the state after the
-    warm and timed steps, ms a timed step and launches a step."""
+    primed, the solve's H2 from B7's trailing stage; a padded layout on
+    slabs: a one-rank ``slab=True`` mesh, primed on it): the state after
+    the warm and timed steps, ms a timed step and launches a step."""
     from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac
     from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+    from lbm_ferrofluid_tpu_torch.parallel import Mesh
 
     st = whole
-    if step is ferrofluid_step and not slabs:
+    if slabs and params.phys_extent is not None:
+        one = Mesh(("batch", "z"), (1, 1), 0, dev, None, slab=True)
+        st = prime_premac(params, st, mesh=one)
+
+        def step(params, state, device=None):
+            return ferrofluid_step(params, state, mesh=one)
+    elif step is ferrofluid_step and not slabs:
         primed = prime_premac(params, st, device=dev)
         st = st.replace(h=primed.h, cmask=primed.cmask)
     with contextlib.nullcontext() if slabs else psi_route():
@@ -6298,7 +6347,8 @@ def mesh3d_rank(job_json) -> int:
     ones; hashes its block of each field.  Rank 0 then runs one device's
     steps of the whole batch alone and holds each rank's block of them to
     that rank's hashes.  A never-primed run on the slab route (U19) is not
-    primed.  At two or more elements a rank every launch takes the rank's
+    primed; a padded layout's slab run is, to a 5-leaf premac, whose leaves
+    are hashed too.  At two or more elements a rank every launch takes the rank's
     batch (``launches_batch``).  Prints its rows and its launches over the
     runs, all and at B > 1."""
     import dataclasses
@@ -6336,9 +6386,13 @@ def mesh3d_rank(job_json) -> int:
             torch.cuda.empty_cache()
             kernels_pkg.reset_launch_counts()
             slabs = step3d.on_slabs(mesh, st.f.shape)
-            if step.__name__ == "ferrofluid_step" and not slabs:
+            route = "z-slabs" if slabs else "blocks"
+            if mesh3d_primes(params, step, slabs):
                 st = prime_premac(params, st, mesh=mesh)
-            check(getattr(st, "premac", None) is None, f"mesh3d {label}: priming left a premac")
+            leaves = len(getattr(st, "premac", None) or ())
+            want = 5 if slabs and params.phys_extent is not None else 0
+            check(leaves == want, f"mesh3d {label}: priming on the {route} route left "
+                                  f"{leaves} premac leaves, not {want}")
             for _ in range(MESH3D_WARM):
                 st = step(params, st, mesh=mesh)
             n0, b0 = ring_halo.exchanges, ring_halo.sent_bytes
@@ -6363,7 +6417,6 @@ def mesh3d_rank(job_json) -> int:
             per_step_batch = {k: (n - before_batch[k]) / MESH3D_STEPS
                               for k, n in counts_batch.items() if n - before_batch[k]}
             want = mesh3d_expected(params, st, step, mesh)
-            route = "z-slabs" if slabs else "blocks"
             check(per_step == want, f"mesh3d {label}: launches a step {per_step}, the {route} "
                                     f"route launches {want}")
             check(per_step_batch == (want if st.f.shape[0] > 1 else {}),
@@ -6379,7 +6432,7 @@ def mesh3d_rank(job_json) -> int:
                    "exchanges_per_step": (ring_halo.exchanges - n0) / MESH3D_STEPS,
                    "ms_in_exchanges_per_step": in_exchanges[0] / MESH3D_STEPS * 1e3,
                    "bytes_sent_per_step": (ring_halo.sent_bytes - b0) / MESH3D_STEPS}
-            mine = {n: _bits_sha(x) for n, x in _state_fields(st).items()}
+            mine = {n: _bits_sha(x) for n, x in mesh3d_fields(st).items()}
             every = [None] * world
             dist.all_gather_object(every, mine)
             del st
@@ -6388,7 +6441,7 @@ def mesh3d_rank(job_json) -> int:
                 ref, ms1, launches1 = mesh3d_one_device(run, params, whole, step, mesh.device,
                                                         slabs)
                 del whole
-                differ = [(r, n) for r in range(world) for n, x in _state_fields(
+                differ = [(r, n) for r in range(world) for n, x in mesh3d_fields(
                     shard_state(ref, dataclasses.replace(mesh, rank=r))).items()
                           if every[r].get(n) != _bits_sha(x)]
                 check(all(every[r] for r in range(world)), f"mesh3d {label}: no fields hashed")

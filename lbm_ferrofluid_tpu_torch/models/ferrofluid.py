@@ -96,9 +96,18 @@ on a split grid (``parallel/step3d.py:on_slabs``):
   psi route by its batch form).  A state that carries a premac there
   raises, at priming and at the step alike: prime it on the mesh.
 
+A padded layout (``phys_extent``) takes the same two routes, as the JAX
+meshed step takes its box stages on any mesh (:422-438, :641-650 there):
+priming leaves the 5-leaf premac on slabs and none on blocks, with the
+scalar h; each step solves with B1's psi passes in the rounds of the
+rank's blocks (z-only on slabs), then composes H2 (B1's H2 launch), runs
+B2 and the plain capillary stage on the rank's part of the box
+(:func:`_on_box`: the box's intersection with the block extended by 3
+cells, in global coordinates, so that the box faces keep their rules),
+then B5 (its slab form with ``emit_mac`` on slabs).
+
 Priming and the step run the same gates (:func:`_slab_gates`,
-:func:`_block_gates`; ROADMAP C7).  ``phys_extent`` on a split grid raises
-``NotImplementedError`` naming ROADMAP A12 slice 4c.  A 2D state on a mesh
+:func:`_block_gates`; ROADMAP C7).  A 2D state on a mesh
 with ``y`` and ``x`` axes steps on the rank's block (``parallel/step2d.py``):
 the same plain ops on the block extended by ghost cells, the solve's
 sweeps in rounds, priming's scalar conversion across the block's faces,
@@ -264,12 +273,12 @@ def _scalar_physics_ok(params: SimulationParams, magnetic_flags, blk=None) -> bo
     h not stored in float64 (the carry is float32), an axis-aligned field,
     and magnetic obstacles on the boundary ring only (the declared
     ``mag_flags_shell`` counts only without ``phys_extent``); with ``blk``
-    (a rank's block of a grid split over a mesh) the ring is the whole
-    domain's, checked on every rank."""
+    (a rank's block of a grid split over a mesh) the ring, or the padded
+    layout's box and pad, is the whole domain's, checked on every rank."""
     if blk is not None:
         from ..parallel.blocks import mag_boundary_only
 
-        boundary_only = mag_boundary_only(blk, magnetic_flags)
+        boundary_only = mag_boundary_only(blk, magnetic_flags, params.phys_extent)
     else:
         boundary_only = _mag_boundary_only(magnetic_flags, params.phys_extent)
     return (
@@ -281,12 +290,19 @@ def _scalar_physics_ok(params: SimulationParams, magnetic_flags, blk=None) -> bo
     )
 
 
-def _check_supported(params: SimulationParams, state) -> None:
+def _check_supported(params: SimulationParams, state, mesh=None) -> None:
     """Raise for configurations the port does not step.  A padded layout
     needs the orientation ``scenes.rosensweig_3d_tpu`` builds: gravity and
     the field along array z (the JAX package does not check this; its
-    in-plane source emission would then run on a padded layout)."""
-    check_supported(params, state.f, padded=True)
+    in-plane source emission would then run on a padded layout).  With a
+    3D ``mesh`` the padded layout's checks read the whole domain's batch
+    and extent, not the rank's part."""
+    shape = tuple(state.f.shape)
+    if mesh is not None and params.dim == 3:
+        from ..parallel.step3d import global_shape
+
+        shape = global_shape(shape, mesh)
+    check_supported(params, state.f, padded=True, batch=shape[0])
     if params.h_ext_axis not in range(params.dim):
         raise ValueError(f"h_ext_axis={params.h_ext_axis} is not an axis")
     if params.dim == 3 and state.f.shape[0] != 1 and (
@@ -306,9 +322,9 @@ def _check_supported(params: SimulationParams, state) -> None:
             f"h_ext_axis={params.h_ext_axis} (scenes.rosensweig_3d_tpu builds it)"
         )
     if len(params.phys_extent) != 3 or not all(
-            3 <= b <= n for b, n in zip(params.phys_extent, state.f.shape[2:])):
+            3 <= b <= n for b, n in zip(params.phys_extent, shape[2:])):
         raise ValueError(f"phys_extent={params.phys_extent} is not a box of 3 or more cells "
-                         f"an axis inside the array {tuple(state.f.shape[2:])}")
+                         f"an axis inside the array {shape[2:]}")
 
 
 def _hext_static(params: SimulationParams):
@@ -318,79 +334,116 @@ def _hext_static(params: SimulationParams):
     )
 
 
-def _box(params: SimulationParams):
-    pz, py, px = params.phys_extent
-    return (Ellipsis, slice(0, pz), slice(0, py), slice(0, px))
+def _phys(x, vector=False):
+    """``x`` with (z_a, y_a) swapped to the physical (z, y) and, for a
+    vector, its channels permuted (0, 2, 1); its own inverse."""
+    x = x.transpose(-3, -2)
+    return (x[:, (0, 2, 1)] if vector else x).contiguous()
 
 
-def _to_phys(params: SimulationParams, x, vector=False):
-    """The physical box of a padded field, (z_a, y_a) swapped back to the
-    physical (z, y), contiguous; vector channels permuted (0, 2, 1)."""
-    out = x[_box(params)].transpose(-3, -2)
-    return (out[:, (0, 2, 1)] if vector else out).contiguous()
+#: the ghost depth of the box ops on a rank (``parallel/blocks.py:HALOS``'
+#: clamp depth of B2, B1's H2 launch and the capillary stage)
+BOX_DEPTH = 3
 
 
-def _from_phys(params: SimulationParams, base, x_p, vector=False):
-    """``base`` with its box replaced by the physical-orientation ``x_p``."""
-    out = base.clone()
-    out[_box(params)] = (x_p[:, (0, 2, 1)] if vector else x_p).transpose(-3, -2)
-    return out
+def _on_box(params: SimulationParams, fn, fields, vectors=(), blk=None):
+    """Run ``fn`` on the physical box of a padded layout, in physical
+    orientation (the ``fields`` whose index is in ``vectors`` permuted),
+    and return (its output, ``put``): ``put(base, y, vector=False)`` is a
+    copy of ``base`` with its box cells from ``y``, an output of ``fn``
+    (past the box ``base``'s values stay).  ``fn`` applies its face rules
+    at the faces of what it is given.  On one device that is the box.  On
+    a rank's block (``blk``) it is the box's intersection with the block
+    extended by :data:`BOX_DEPTH` cells under the clamp rule, in global
+    coordinates: each face there is a box face, or an inner face whose
+    wrong cells lie in the ghosts that ``put`` drops.  A rank with no box
+    cell runs nothing (output None, ``put`` copies ``base``), after taking
+    part in the exchanges."""
+    if blk is None:
+        ext, start = list(fields), (0, 0, 0)
+        block = [(0, n) for n in fields[0].shape[2:]]
+    else:
+        from ..parallel.blocks import CLAMP
+
+        ext = blk.extend(list(fields), BOX_DEPTH, CLAMP)
+        start = blk.origin(BOX_DEPTH, CLAMP)
+        block = [(c0, n) for _, n, c0, _ in blk.axes.values()]
+    # the box starts at the domain's first cell: it ends in the extension
+    # at min(extent, p - start) and in the block at min(n, p - c0)
+    ends = [min(n, p - s) for n, p, s in zip(ext[0].shape[2:], params.phys_extent, start)]
+    held = [min(n, p - c0) for (c0, n), p in zip(block, params.phys_extent)]
+    if min(held) <= 0:
+        # a new tensor all the same: the exchanges key a field by its
+        # identity, so that each rank extends the same fields
+        return None, lambda base, y, vector=False: base.clone()
+    out = fn(*(_phys(x[(Ellipsis, *(slice(0, e) for e in ends))], i in vectors)
+               for i, x in enumerate(ext)))
+    src = (Ellipsis, *(slice(c0 - s, c0 - s + m) for (c0, _), s, m in zip(block, start, held)))
+    dst = (Ellipsis, *(slice(0, m) for m in held))
+
+    def put(base, y, vector=False):
+        base = base.clone()
+        base[dst] = _phys(y, vector)[src]
+        return base
+
+    return out, put
 
 
-def _contact_angle(params: SimulationParams, rho, flags, plain):
+def _contact_angle(params: SimulationParams, rho, flags, plain, blk=None):
     """The contact-angle rewrite of rho (B2).  On a padded layout it runs on
     the physical box in its physical orientation, as the reference's
     surgery at its array faces, whose corner rule depends on the order of
     the faces (JAX ``_contact_angle_box`` :162-182); cells past the box
-    keep rho."""
+    keep rho.  ``blk``: on a rank's block (:func:`_on_box`)."""
     surgery = contact_angle_3d_plain if plain else contact_angle_3d
     angle = float(params.contact_angle)
     if params.phys_extent is None:
         return surgery(rho, flags, angle)
-    return _from_phys(params, rho, surgery(_to_phys(params, rho), _to_phys(params, flags),
-                                           angle))
+    rho_ca, put = _on_box(params, lambda r, fl: surgery(r, fl, angle), (rho, flags), blk=blk)
+    return put(rho, rho_ca)
 
 
-def _h2_box(params: SimulationParams, psi, cmask, plain):
+def _h2_box(params: SimulationParams, psi, cmask, plain, blk=None):
     """H2 = |H_ext + H_int|^2 composed on the physical box of a padded
     layout, zero past it (JAX ``_h2_box`` :185-206): the box of psi in
     physical orientation, the gradient's obstacle substitution and output
     replicate at its faces, the field's channels permuted (0, 2, 1); B1's
     H2 launch on the box copy (``cmask < 0`` marks the same cells as the
-    box's magnetic obstacles)."""
+    box's magnetic obstacles).  ``blk``: on a rank's block, psi exact
+    :data:`BOX_DEPTH` cells past it (:func:`_on_box`)."""
     h = _hext_static(params)
     compose = h2_from_psi_plain if plain else scalar_h2
-    H2_p = compose(_to_phys(params, psi), _to_phys(params, cmask), float(params.dx),
-                   (h[0], h[2], h[1]))
-    return _from_phys(params, torch.zeros_like(psi), H2_p)
+    H2, put = _on_box(params, lambda p, c: compose(p, c, float(params.dx), (h[0], h[2], h[1])),
+                      (psi, cmask), blk=blk)
+    return put(torch.zeros_like(psi), H2)
 
 
 def _hcz_capillary_box(params: SimulationParams, rho, rho_ca, vel, flags, density, pressure,
-                       H2, phi, m0g, m1g):
+                       H2, phi, m0g, m1g, blk=None):
     """The plain capillary stage on the physical box of a padded layout
     (JAX ``_hcz_capillary_box`` :209-260): the box in physical orientation,
     vectors permuted (0, 2, 1), gravity along physical y, the ring fixes at
     its faces.  Returns (vel, density, pressure, force, dfai, dprho): past
     the box vel, density and pressure keep their values, and force, dfai
     and dprho are zero (nothing reads them there: every fluid cell's
-    stencil stays inside the box)."""
+    stencil stays inside the box).  ``blk``: on a rank's block
+    (:func:`_on_box`)."""
     # gravity rounded to float32 as params.gravity_vec() rounds it (JAX :230-231)
     grav = torch.zeros((1, 3, 1, 1, 1), dtype=vel.dtype, device=vel.device)
     grav[0, 1] = float(np.float32(-params.gravity))
 
-    def t(x, vector=False):
-        return _to_phys(params, x, vector)
+    def stage(*xs):
+        return hcz_capillary(
+            *xs, kappa=params.kappa, gravity=grav, rho_gas=params.rho_gas,
+            rho_fluid=params.rho_fluid, density_gas=params.density_gas,
+            density_fluid=params.density_fluid, dx=params.dx, dt=params.dt)[1:]
 
-    _, vel_p, den_p, pres_p, force_p, dfai_p, dprho_p = hcz_capillary(
-        t(rho), t(vel, True), t(flags), t(density), t(pressure), t(rho_ca), t(H2), t(phi),
-        t(m0g), t(m1g, True), kappa=params.kappa, gravity=grav, rho_gas=params.rho_gas,
-        rho_fluid=params.rho_fluid, density_gas=params.density_gas,
-        density_fluid=params.density_fluid, dx=params.dx, dt=params.dt,
-    )
+    out, put = _on_box(params, stage, (rho, vel, flags, density, pressure, rho_ca, H2, phi,
+                                       m0g, m1g), vectors=(1, 9), blk=blk)
+    vel_p, den_p, pres_p, force_p, dfai_p, dprho_p = out or (None,) * 6
     zeros = torch.zeros_like(vel)
-    return (_from_phys(params, vel, vel_p, True), _from_phys(params, density, den_p),
-            _from_phys(params, pressure, pres_p), _from_phys(params, zeros, force_p, True),
-            _from_phys(params, zeros, dfai_p, True), _from_phys(params, zeros, dprho_p, True))
+    return (put(vel, vel_p, True), put(density, den_p), put(pressure, pres_p),
+            put(zeros, force_p, True), put(zeros, dfai_p, True), put(zeros, dprho_p, True))
 
 
 def _scalar_convert(params: SimulationParams, state, blk=None):
@@ -421,35 +474,28 @@ def _on_mesh(state, mesh, device):
     return dev.type
 
 
-def _split_gates(params: SimulationParams, mesh) -> None:
-    """Raise for a 3D state on a split grid the port does not step, before
-    the state's own checks read its cut arrays: the padded layout (ROADMAP
-    A12 slice 4c)."""
-    from ..parallel import step3d
-
-    if params.phys_extent is not None:
-        raise step3d.unported("phys_extent (the padded layout) on a split grid", "4c")
-
-
-def _slab_gates(params: SimulationParams, state, mesh, plain, primed):
+def _slab_gates(params: SimulationParams, state, mesh, plain, channel):
     """The gates of the z-slab routes, shared by priming and the step with
     the same messages (ROADMAP C7: a state primed on one device and cut
     onto a slab mesh meets them at its first step): a plan of the solve's
-    slab rounds in the form h will have (``primed``: as ``state.h`` has
-    it, since the step never converts it), and the kernels' grid on the
-    card.  One batch element a rank and 4 or more planes a slab are
-    ``step3d.on_slabs``'s, which routes the rest to the blocks."""
+    slab rounds in the form h will have (``channel``: the 19-channel h,
+    :func:`_channel_form`), and the kernels' grid on the card.  A padded
+    layout's solve runs in rounds of any depth (:func:`_solve`), which
+    needs no plan.  One batch element a rank and 4 or more planes a slab
+    are ``step3d.on_slabs``'s, which routes the rest to the blocks."""
     from ..parallel import step3d
 
     shape = step3d.global_shape(state.f.shape, mesh)
     if not step3d.fused_step_sharded_ok(mesh, shape, params.kbc_type):
         raise step3d.unported(f"kbc_type={params.kbc_type}")
-    if _channel_form(params, state, primed):
+    padded = params.phys_extent is not None
+    if channel and not padded:
         if not step3d.channel_sharded_ok(mesh, (shape[0], 19, *shape[2:]),
                                            params.poisson_iters):
             raise step3d.unported(f"{params.poisson_iters} channel-form sweeps on slabs of "
                                   f"{shape[2] // mesh.nz} planes (no round plan)")
-    elif not step3d.scalar_sharded_ok(mesh, (shape[0], 2, *shape[2:]), params.poisson_iters):
+    elif not padded and not step3d.scalar_sharded_ok(mesh, (shape[0], 2, *shape[2:]),
+                                                     params.poisson_iters):
         raise step3d.unported(f"{params.poisson_iters} sweeps on slabs of "
                               f"{shape[2] // mesh.nz} planes (no round plan)")
     check_kernel_grid(state.f, plain)
@@ -476,12 +522,13 @@ def _block_gates(state, mesh, plain):
     return blk
 
 
-def _channel_form(params: SimulationParams, state, primed) -> bool:
+def _channel_form(params: SimulationParams, state, primed, blk=None) -> bool:
     """Whether the step solves on a 19-channel h: ``state.h`` has 19
     channels and, before priming (``primed`` False), the collapse to the
-    scalar carry does not apply."""
-    return state.h.shape[1] != 2 and (primed or not _scalar_physics_ok(params,
-                                                                       state.magnetic_flags))
+    scalar carry does not apply (``blk``: checked over the whole domain
+    from the rank's block)."""
+    return state.h.shape[1] != 2 and (primed or not _scalar_physics_ok(
+        params, state.magnetic_flags, blk))
 
 
 def _prime_premac_blocks(params: SimulationParams, state, mesh, plain):
@@ -504,7 +551,8 @@ def _prime_premac_slab(params: SimulationParams, state, mesh, plain):
     :979-1022)."""
     from ..parallel import step3d
 
-    _slab_gates(params, state, mesh, plain, primed=False)
+    channel = _channel_form(params, state, False, step3d.blocks3d(mesh, state.f))
+    _slab_gates(params, state, mesh, plain, channel)
     validate_mag_shell(params, state.magnetic_flags)
     premac = step3d.fused_prologue_sharded(
         state.f, state.g, state.flags, state.rho, state.vel, mesh, c=params.dx / params.dt,
@@ -512,7 +560,7 @@ def _prime_premac_slab(params: SimulationParams, state, mesh, plain):
         density_fluid=params.density_fluid, plain=plain,
     )
     h, cmask = state.h, state.cmask
-    if h.shape[1] != 2 and not _channel_form(params, state, primed=False):
+    if h.shape[1] != 2 and not channel:
         h, cmask = step3d.scalar_convert_sharded(state.h, state.magnetic_flags, mesh)
     if params.h_ext_axis == 2:
         return state.replace(h=h, cmask=cmask, premac=tuple(premac))
@@ -552,16 +600,15 @@ def prime_premac(params: SimulationParams, state: FerrofluidState, *,
         elif not dp_dispatch(mesh):
             from ..parallel.step3d import on_slabs
 
-            _split_gates(params, mesh)
             check_device(state.f, device)
-            _check_supported(params, state)
+            _check_supported(params, state, mesh)
             if not on_slabs(mesh, state.f.shape):
                 return _prime_premac_blocks(params, state, mesh, plain)
             if state.premac is not None:
                 return state
             return _prime_premac_slab(params, state, mesh, plain)
     check_device(state.f, device)
-    _check_supported(params, state)
+    _check_supported(params, state, mesh)
     if state.premac is not None:
         # checked when it was primed; the flags check reads the device
         # and would stall every step's enqueue
@@ -619,10 +666,14 @@ def _ferrofluid_step_slab(params: SimulationParams, state, mesh, plain):
     B10b, B6, B5 with ``emit_mac`` on 5 leaves; JAX :318-359, :455-471,
     :636-686, :708-735); the solve by the form of ``state.h``
     (:func:`_solve_slab`).  Each kernel runs its slab form
-    (``parallel/step3d.py``)."""
+    (``parallel/step3d.py``).  A padded layout (5 leaves or None) takes the
+    JAX meshed step's box stages (:422-438, :641-650) on the slab's part of
+    the box, where B2, B10b and B6 run: B1's psi passes in rounds and B1's
+    H2 launch on the box (:func:`_solve`), B2 on the box and the plain
+    capillary stage on the box (:func:`_on_box`), then B5's slab form."""
     from ..parallel import step3d
 
-    _slab_gates(params, state, mesh, plain, primed=True)
+    _slab_gates(params, state, mesh, plain, channel=state.h.shape[1] != 2)
     premac = state.premac
     if premac is not None and len(premac) not in (5, 6):
         raise ValueError(f"a premac of 5 or 6 leaves, or None; this state carries {len(premac)}")
@@ -657,18 +708,27 @@ def _ferrofluid_step_slab(params: SimulationParams, state, mesh, plain):
     phi = phi_from_density(density, params.density_gas, params.density_fluid)
     rhs = step3d.poisson_rhs_sharded(phi, state.magnetic_flags, mesh, _hext_static(params),
                                      tau=params.tau, dx=dx, dt=dt)
-    H2, h = _solve_slab(params, state, rhs, mesh, plain)
-    rho_ca = step3d.contact3d_sharded(rho, state.flags, float(params.contact_angle), mesh,
-                                      plain=plain)
-    density_ca = rho_to_density(rho_ca, **gas)
-    # the Laplacian of density(rho_ca) as B6's single-device kernel builds it
-    # (B10b maps rho_ca as it loads it)
-    lap = step3d.laplacian_field_sharded(rho_ca, mesh, dx=dx, density_of=tuple(gas.values()),
-                                         plain=plain)
-    vel, pressure, force, dfai, dprho = step3d.capmac_sharded(
-        lap, rho, density, state.pressure, rho_ca, H2, phi, state.flags, m0g, m1g, vel, mesh,
-        kappa=float(params.kappa), gravity=grav, plain=plain, dx=dx, dt=dt, **gas,
-    )
+    if params.phys_extent is not None:
+        # the padded solve and box stages on the slab's z-only blocks
+        blk = step3d.blocks3d(mesh, state.f)
+        H2, h = _solve(params, state, rhs, plain, blk)
+        rho_ca = _contact_angle(params, rho, state.flags, plain, blk)
+        vel, density_ca, pressure, force, dfai, dprho = _hcz_capillary_box(
+            params, rho, rho_ca, vel, state.flags, density, state.pressure, H2, phi, m0g, m1g,
+            blk)
+    else:
+        H2, h = _solve_slab(params, state, rhs, mesh, plain)
+        rho_ca = step3d.contact3d_sharded(rho, state.flags, float(params.contact_angle), mesh,
+                                          plain=plain)
+        density_ca = rho_to_density(rho_ca, **gas)
+        # the Laplacian of density(rho_ca) as B6's single-device kernel
+        # builds it (B10b maps rho_ca as it loads it)
+        lap = step3d.laplacian_field_sharded(rho_ca, mesh, dx=dx,
+                                             density_of=tuple(gas.values()), plain=plain)
+        vel, pressure, force, dfai, dprho = step3d.capmac_sharded(
+            lap, rho, density, state.pressure, rho_ca, H2, phi, state.flags, m0g, m1g, vel,
+            mesh, kappa=float(params.kappa), gravity=grav, plain=plain, dx=dx, dt=dt, **gas,
+        )
     emit = premac is not None
     out = step3d.fused_epilogue_sharded(
         state.f, state.g, state.flags, rho_ca, vel, density_ca, pressure, force, dfai, dprho,
@@ -701,14 +761,13 @@ def ferrofluid_step(params: SimulationParams, state: FerrofluidState, *,
         elif not dp_dispatch(mesh):
             from ..parallel.step3d import on_slabs
 
-            _split_gates(params, mesh)
             check_device(state.f, device)
-            _check_supported(params, state)
+            _check_supported(params, state, mesh)
             if on_slabs(mesh, state.f.shape):
                 return _ferrofluid_step_slab(params, state, mesh, plain)
             return _ferrofluid_step_blocks(params, state, mesh, plain)
     check_device(state.f, device)
-    _check_supported(params, state)
+    _check_supported(params, state, mesh)
     if params.dim == 2:
         return _ferrofluid_step_2d(params, state, blk)
     check_kernel_grid(state.f, plain)
@@ -787,7 +846,10 @@ def _ferrofluid_step_blocks(params: SimulationParams, state, mesh, plain):
     JAX :318-359, :394-507, :636-735 under GSPMD), every kernel the
     single-device one on the rank's block extended under its edge rule
     (``parallel/blocks.py:HALOS``); the fields read deeper later are
-    extended first, one exchange a dtype."""
+    extended first, one exchange a dtype.  A padded layout takes the box
+    stages of one device's un-carried step in place of B2 and B6 (B2 and
+    the plain capillary stage on the rank's part of the box,
+    :func:`_on_box`)."""
     from ..parallel import step3d
 
     blk = _block_gates(state, mesh, plain)
@@ -807,15 +869,21 @@ def _ferrofluid_step_blocks(params: SimulationParams, state, mesh, plain):
     rhs = blk.op(poisson_rhs_scaled)(phi, state.magnetic_flags, _hext_static(params),
                                      tau=params.tau, dx=dx, dt=dt)
     H2, h = _solve(params, state, rhs, plain, blk)
-    surgery = contact_angle_3d_plain if plain else contact_angle_3d
-    rho_ca = blk.op(surgery)(rho, state.flags, float(params.contact_angle))
-    capillary = hcz_capillary_gradmac_plain if plain else hcz_capillary_gradmac
-    grav = tuple(float(v) for v in params.gravity_vec().reshape(-1))
-    vel, pressure, force, dfai, dprho = blk.op(capillary)(
-        rho, density, state.pressure, rho_ca, H2, phi, state.flags, m0g, m1g, vel,
-        kappa=float(params.kappa), gravity=grav, dx=dx, dt=dt, **gas,
-    )
-    density = rho_to_density(rho_ca, **gas)
+    if params.phys_extent is not None:
+        rho_ca = _contact_angle(params, rho, state.flags, plain, blk)
+        vel, density, pressure, force, dfai, dprho = _hcz_capillary_box(
+            params, rho, rho_ca, vel, state.flags, density, state.pressure, H2, phi, m0g, m1g,
+            blk)
+    else:
+        surgery = contact_angle_3d_plain if plain else contact_angle_3d
+        rho_ca = blk.op(surgery)(rho, state.flags, float(params.contact_angle))
+        capillary = hcz_capillary_gradmac_plain if plain else hcz_capillary_gradmac
+        grav = tuple(float(v) for v in params.gravity_vec().reshape(-1))
+        vel, pressure, force, dfai, dprho = blk.op(capillary)(
+            rho, density, state.pressure, rho_ca, H2, phi, state.flags, m0g, m1g, vel,
+            kappa=float(params.kappa), gravity=grav, dx=dx, dt=dt, **gas,
+        )
+        density = rho_to_density(rho_ca, **gas)
     epilogue = lbm_epilogue_plain if plain else lbm_epilogue
     f, g = blk.op(epilogue)(state.f, state.g, state.flags, rho_ca, vel, density, pressure, force,
                             dfai, dprho, tau_f=float(params.tau_f), tau_g=float(params.tau_g),
@@ -852,14 +920,15 @@ def _ferrofluid_step_2d(params: SimulationParams, state, blk=None):
 
 def _solve(params: SimulationParams, state, rhs, plain, blk=None):
     """(H2, h') of the magnetic solve in the form that ``state.h`` has; with
-    ``blk`` on the rank's block (the block route).  A padded layout runs
-    the scalar sweeps on the padded arrays and composes H2 on the box (JAX
-    :422-439); its channel form raises, as the JAX step's (:485-493), since
-    that solve composes its gradient at the array faces."""
+    ``blk`` on the rank's block (the block route, and a padded layout's
+    slabs).  A padded layout runs the scalar sweeps on the padded arrays
+    and composes H2 on the box (JAX :422-439); its channel form raises, as
+    the JAX step's (:485-493), since that solve composes its gradient at
+    the array faces."""
     if state.h.shape[1] == 2 and params.phys_extent is not None:
         psi, h = solve_psi_scalar(state.h, state.cmask, rhs, n_iters=params.poisson_iters,
-                                  plain=plain)
-        return _h2_box(params, psi, state.cmask, plain), h
+                                  plain=plain, blocks=blk)
+        return _h2_box(params, psi, state.cmask, plain, blk), h
     if params.phys_extent is not None:
         raise NotImplementedError(
             "phys_extent layouts require the tau == 1 scalar Poisson carry: prime_premac "

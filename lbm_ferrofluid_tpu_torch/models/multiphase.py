@@ -78,7 +78,7 @@ def storage_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(params: SimulationParams, f: torch.Tensor, hcz: bool = True,
-                    padded: bool = False) -> None:
+                    padded: bool = False, batch: int | None = None) -> None:
     """Raise for what the port does not step: a state whose rank or
     distribution count is not ``params.dim``'s lattice, KBC off D2Q9 (the
     JAX package's own ``ValueError``), and (for the HCZ family, ``hcz``)
@@ -86,8 +86,9 @@ def check_supported(params: SimulationParams, f: torch.Tensor, hcz: bool = True,
     ``padded`` layouts (the ferrofluid step), ``phys_extent``; a padded
     layout at a batch of more than one, which the JAX package refuses too
     (a batch keeps the 19-channel h, and the channel-form solve does not
-    take ``phys_extent``).  Any other batch [B, ...] steps on one device,
-    the B elements in each kernel's one launch."""
+    take ``phys_extent``; ``batch``: the whole batch of a rank's part,
+    default f's).  Any other batch [B, ...] steps on one device, the B
+    elements in each kernel's one launch."""
     lat = params.lattice
     if f.ndim - 2 != params.dim or f.shape[1] != lat.q:
         raise ValueError(
@@ -106,9 +107,10 @@ def check_supported(params: SimulationParams, f: torch.Tensor, hcz: bool = True,
             "the JAX package's hcz_step ignores phys_extent and would tie its ring "
             "fixes to the padded array faces, so step the physical grid instead"
         )
-    if params.phys_extent is not None and f.shape[0] != 1:
+    batch = f.shape[0] if batch is None else batch
+    if params.phys_extent is not None and batch != 1:
         raise NotImplementedError(
-            f"phys_extent (the padded layout) at a batch of {f.shape[0]}: a batch keeps the "
+            f"phys_extent (the padded layout) at a batch of {batch}: a batch keeps the "
             "19-channel h (the scalar carry needs B == 1), and the channel-form solve does not "
             "take phys_extent, so the JAX package refuses it too (phys_extent layouts require "
             "the tau==1 scalar Poisson carry); step each element on its own, or a batch of "

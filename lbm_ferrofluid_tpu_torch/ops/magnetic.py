@@ -294,7 +294,7 @@ def solve_H_int_scalar(s2, cmask, rhs_scaled, *, n_iters=30, dx=1.0, h2_ext,
     return H2, s2
 
 
-def solve_psi_scalar(s2, cmask, rhs_scaled, *, n_iters=30, plain=False):
+def solve_psi_scalar(s2, cmask, rhs_scaled, *, n_iters=30, plain=False, blocks=None):
     """Scalar-collapse sweeps at tau == 1 without the gradient composition
     (JAX ``solve_psi_scalar`` :261-311); returns (psi of the last sweep,
     s2').  For the padded transposed layout, whose caller composes H2 on
@@ -302,8 +302,15 @@ def solve_psi_scalar(s2, cmask, rhs_scaled, *, n_iters=30, plain=False):
     form (``ops/kernels/scalar_poisson.py``) on CUDA tensors, its plain
     version on CPU tensors or when ``plain`` is set; the JAX package runs
     its exact-order jnp sweeps off the TPU, whose grouping differs at the
-    ulp level (ROADMAP C)."""
+    ulp level (ROADMAP C).  With ``blocks`` on a rank's block, in rounds
+    (``parallel/step3d.py:scalar_psi_blocks``)."""
     from .kernels.scalar_poisson import scalar_wavefront, scalar_wavefront_plain
+
+    if blocks is not None:
+        from ..parallel import step3d
+
+        return step3d.scalar_psi_blocks(blocks, s2, cmask, rhs_scaled, n_iters=n_iters,
+                                        plain=plain)
 
     fn = scalar_wavefront_plain if plain else scalar_wavefront
     s2, psi = fn(s2, cmask, rhs_scaled, n_iters=n_iters, emit="psi")

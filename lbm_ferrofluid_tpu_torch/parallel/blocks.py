@@ -219,6 +219,12 @@ class Blocks:
         _, n, c0, N = self.split[dim]
         return (g, g) if mode == WRAP else (min(g, c0), min(g, N - c0 - n))
 
+    def origin(self, g, mode):
+        """The whole domain's coordinates of the first cell of an extension
+        by ``g`` under ``mode``, per spatial dim."""
+        return tuple(c0 - self._sides(d, g, mode)[0] if d in self.split else 0
+                     for d, (_, _, c0, _) in self.axes.items())
+
     def view(self, ext, G, g, mode):
         """The extension by ``g`` under ``mode`` cut from a wrap extension
         by ``G >= g``."""
@@ -343,8 +349,21 @@ def any_rank(blk: Blocks, local) -> bool:
     return bool(found.item())
 
 
-def mag_boundary_only(blk: Blocks, magnetic_flags) -> bool:
+def mag_boundary_only(blk: Blocks, magnetic_flags, phys_extent=None) -> bool:
     """``models/ferrofluid.py:_mag_boundary_only`` of the whole domain from
     the ranks' blocks: no magnetic obstacle off the domain's outermost ring
-    on any rank (one all-reduce)."""
-    return not any_rank(blk, interior(blk, magnetic_flags == int(CellType.OBSTACLE)))
+    on any rank; with ``phys_extent`` (a padded layout's box, which starts
+    at the domain's first cell) every cell past the box an obstacle and the
+    box's interior free of them (one all-reduce)."""
+    obs = magnetic_flags == int(CellType.OBSTACLE)
+    if phys_extent is None:
+        return not any_rank(blk, interior(blk, obs))
+    inside = inner = torch.ones_like(obs)
+    for dim, p in zip(blk.axes, phys_extent):
+        _, n, c0, _ = blk.axes[dim]
+        cells = torch.arange(c0, c0 + n, device=obs.device)
+        shape = [1] * obs.ndim
+        shape[dim] = n
+        inside = inside & (cells < p).reshape(shape)
+        inner = inner & ((cells > 0) & (cells < p - 1)).reshape(shape)
+    return not any_rank(blk, (~inside & ~obs) | (inner & obs))

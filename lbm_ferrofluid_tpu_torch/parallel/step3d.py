@@ -123,6 +123,7 @@ __all__ = [
     "blocks3d",
     "check_block_grid",
     "solve_depth",
+    "scalar_psi_blocks",
     "scalar_poisson_blocks",
     "channel_poisson_blocks",
     "sharded3d_ok",
@@ -151,10 +152,6 @@ __all__ = [
     "stream_bounce_macro_sharded",
     "stream_bounce_moments_sharded",
 ]
-
-#: ROADMAP A12's slices that a refusal names
-SLICES = {"4c": "the padded layout on a split grid, which needs each rank's box coordinates"}
-
 
 def dp_dispatch(mesh: Mesh) -> bool:
     """True where each rank holds the whole grid of its batch elements and
@@ -206,18 +203,17 @@ def check_block_grid(blk: Blocks, f, plain: bool, ids=None) -> None:
 
 
 def global_shape(local_shape, mesh: Mesh) -> tuple:
-    """The whole domain's [B, C, Z, Y, X] shape of a rank's slab."""
-    B, C, Z, *rest = local_shape
-    return (B * mesh.nb, C, Z * mesh.nz, *rest)
+    """The whole domain's [B, C, Z, Y, X] shape of a rank's block."""
+    B, C, Z, Y, X = local_shape
+    return (B * mesh.nb, C, Z * mesh.nz, Y * mesh.ny, X * mesh.nx)
 
 
-def unported(route: str, slice_=None) -> NotImplementedError:
+def unported(route: str) -> NotImplementedError:
     """The error for a route of the meshed step that the port does not run
-    on its mesh, naming the ROADMAP A12 slice that would port it."""
-    where = "ROADMAP A12" if slice_ is None else f"ROADMAP A12 slice {slice_}: {SLICES[slice_]}"
+    on its mesh."""
     return NotImplementedError(
-        f"{route} is not ported yet ({where}); step it on one device, on a batch mesh, or on "
-        "a mesh with a y or x axis (the block route)")
+        f"{route} is not ported yet (ROADMAP A12); step it on one device, on a batch mesh, or "
+        "on a mesh with a y or x axis (the block route)")
 
 
 def sharded3d_ok(mesh: Mesh, shape) -> bool:
@@ -695,15 +691,24 @@ def _rounds(blk: Blocks, sweeps, x, aux, n_iters, **kw):
     return x, blk.adopt(psi, g, tail)
 
 
+def scalar_psi_blocks(blk: Blocks, s2, cmask, rhs_scaled, *, n_iters, plain=False):
+    """B1's passes on the rank's block in rounds
+    (``scalar_wavefront(..., emit="psi")``); returns (psi, s2'), psi
+    adopted with ghosts exact 3 cells deep (``Blocks.adopt``), from which
+    an H2 launch under the clamp rule cuts its ghosts."""
+    wavefront = scalar_wavefront_plain if plain else scalar_wavefront
+    s2, psi = _rounds(blk, wavefront, s2, (cmask, rhs_scaled), n_iters, emit="psi")
+    return psi, s2
+
+
 def scalar_poisson_blocks(blk: Blocks, s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext,
                           plain=False):
     """B1 on the rank's block; returns (H2, s2').  The passes in rounds
-    (``scalar_wavefront(..., emit="psi")``), then B1's H2 launch
-    (``scalar_h2``) on psi and cmask extended by 3 cells under the clamp
-    rule, cut from their wrap extensions, so that the gradient's ring and
-    obstacle substitution meet the domain's true faces."""
-    wavefront = scalar_wavefront_plain if plain else scalar_wavefront
-    s2, psi = _rounds(blk, wavefront, s2, (cmask, rhs_scaled), n_iters, emit="psi")
+    (:func:`scalar_psi_blocks`), then B1's H2 launch (``scalar_h2``) on psi
+    and cmask extended by 3 cells under the clamp rule, cut from their wrap
+    extensions, so that the gradient's ring and obstacle substitution meet
+    the domain's true faces."""
+    psi, s2 = scalar_psi_blocks(blk, s2, cmask, rhs_scaled, n_iters=n_iters, plain=plain)
     h2 = h2_from_psi_plain if plain else scalar_h2
     return blk.op(h2)(psi, cmask, float(dx), tuple(float(v) for v in h_ext)), s2
 

@@ -33,7 +33,8 @@ h in the scalar carry (primed), in 9 channels, and in bfloat16 storage.
 * ``shard_state`` then ``gather_state`` along y and x gives the state back,
   with ``H_ext_mac`` cut only along the axis it divides;
 * the gates: a block of 1x1 cells, a grid that does not divide, a padded
-  layout on a y/x mesh (ROADMAP A12 slice 4c), a 2D state on a z mesh;
+  batch on a y/x mesh (the padded layout of one element steps there,
+  tests/test_torch_mesh3d_padded.py), a 2D state on a z mesh;
   a mesh of z with y (the default axes), and a 3D state on a y/x mesh
   routed to the block route (its steps: tests/test_torch_mesh3d.py), where
   a state primed on one device refuses at priming and step alike.
@@ -266,8 +267,8 @@ def test_gates_and_refusals():
     ph, sh = pm.multiphase_3d(res=(8, 8, 10), device="cpu")
     blk = mesh_blocks(ph, shard_state(sh, yx), yx, None)
     assert (blk.block, list(blk.split)) == ((8, 4, 10), [3])
-    pp, sp = pm.rosensweig_3d_tpu(res=(6, 8, 10), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12 slice 4c"):
+    pp, sp = pm.rosensweig_3d_tpu(res=(6, 8, 10), batch=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="a batch keeps the 19-channel h"):
         pm.prime_premac(pp, shard_state(sp, yx), mesh=yx)
     params = pm.SimulationParams(dim=3, tau=0.6)
     res = (1, 1, 8, 8, 10)

@@ -40,9 +40,10 @@ Shan-Chen.
   and twice its bytes; ``SimulationRunner(..., mesh=)`` at B = 2; the
   flagship scene and HCZ at B = 2 on (z, y) = (4, 2) against the JAX
   package's GSPMD steps (f, g, h, vel, density at the same bars);
-* the gates, at priming and at the step alike: the padded layout on a split
-  grid (slice 4c) and a premac carried onto a block mesh; a part of two
-  elements a rank takes the block route.
+* the gates, at priming and at the step alike: a padded batch (the padded
+  layout of one element steps on the block route, bit for bit) and a
+  premac carried onto a block mesh; a part of two elements a rank takes the
+  block route.
 """
 
 import contextlib
@@ -95,6 +96,11 @@ ROUNDS = [("y2x2", "scalar_k2", "scalar", (8, 32, 32)),
 #: the un-carried step on the 19-channel h): (mesh, job, case, grid, batch)
 SLAB_JOBS = [("b2z2", "u19_scalar_b2", "scalar", worker.RES, 2),
              ("b2z2", "u19_channel_b2", "channel", worker.RES, 2)]
+#: the padded layout (ROADMAP A12 slice 4c, whose own tests are
+#: tests/test_torch_mesh3d_padded.py) on the meshes of the gate test, at a
+#: grid whose arrays (8x8x128) split there: (mesh, job, case, physical grid)
+PADDED_JOBS = [("z2y2", "padded", worker.PADDED, (6, 8, 10)),
+               ("z4", "padded", worker.PADDED, (6, 8, 10))]
 #: every case run on a mesh: (mesh, job, case, batch)
 JOBS = [(m, c, c, 1) for m, spec in MESHES.items() for c in spec[3]] + [
     (m, f"{c}_b{spec[4][0]}", c, spec[4][0]) for m, spec in MESHES.items() for c in spec[4][1]]
@@ -106,7 +112,8 @@ def runs(tmp_path_factory):
     out = {}
     for key, (axes, shape, res, *_) in MESHES.items():
         jobs = {name: (c, res, b) for m, name, c, b in JOBS if m == key}
-        jobs.update({n: (c, r, *b) for m, n, c, r, *b in ROUNDS + SLAB_JOBS if m == key})
+        jobs.update({n: (c, r, *b) for m, n, c, r, *b in ROUNDS + SLAB_JOBS + PADDED_JOBS
+                     if m == key})
         out[key] = worker.run_mesh3d(tmp_path_factory.mktemp(key), axes, shape, jobs, STEPS)
     return out
 
@@ -274,19 +281,33 @@ def _mesh(axes, shape, rank=0):
                          ids=["z2y2", "z4"])
 def test_gates_at_priming_and_step(runs, mesh):
     """What the block route leaves out raises with one message at priming
-    and at the step: the padded layout on a split grid (ROADMAP A12 slice
-    4c), a premac carried onto the blocks (priming on the mesh carries none
-    there).  A part of two batch elements a rank takes the block route
-    (``on_slabs`` sends it there, on z-slabs of 4 or more planes too) and
-    steps: the B = 2 runs of this mesh primed on the mesh without a premac,
-    kept h in 19 channels and stepped to finite fields."""
+    and at the step: a padded batch (as the JAX package refuses it), a
+    premac carried onto the blocks (priming on the mesh carries none
+    there).  The padded layout of one element steps there (ROADMAP A12
+    slice 4c): its run on this mesh primed without a premac to the scalar
+    h, and its 3 steps equal one device's un-carried steps bit for bit.  A
+    part of two batch elements a rank takes the block route (``on_slabs``
+    sends it there, on z-slabs of 4 or more planes too) and steps: the B =
+    2 runs of this mesh primed on the mesh without a premac, kept h in 19
+    channels and stepped to finite fields."""
     key, *mesh = mesh
     m = _mesh(*mesh)
-    pp, sp = pm.rosensweig_3d_tpu(res=(8, 8, 10), device="cpu")
+    pp, sp = pm.rosensweig_3d_tpu(res=(6, 8, 10), batch=2, device="cpu")
     part = shard_state(sp, m)
+    errors = []
     for call in (pm.prime_premac, pm.ferrofluid_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12 slice 4c"):
+        with pytest.raises(NotImplementedError, match="a batch keeps the 19-channel h") as e:
             call(pp, part, mesh=m)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+    padded = runs[key]["padded"]
+    assert not padded["stats.premac"] and padded["h"].shape[1] == 2
+    params, one = worker.mesh3d_state(worker.PADDED, (6, 8, 10))
+    assert not step3d.on_slabs(m, shard_state(one, m).f.shape)
+    one = pm.prime_premac(params, one, device="cpu").replace(premac=None)
+    for _ in range(STEPS):
+        one = pm.ferrofluid_step(params, one, device="cpu")
+    _assert_bits(padded, worker._flat(to_numpy(one)), f"padded on {key}")
     p2, s2 = pm.rosensweig_3d(res=(16, 8, 16), batch=2, device="cpu")
     two = shard_state(s2, m)
     assert two.f.shape[0] == 2 and two.f.shape[2] >= 2

@@ -335,22 +335,24 @@ def _routes():
         return prime_premac(p, shard_state(s, slab), mesh=slab)
 
     def padded():
-        primed(*rosensweig_3d_tpu(res=(6, 8, 10), device="cpu"))
+        primed(*rosensweig_3d_tpu(res=(6, 8, 10), batch=2, device="cpu"))
 
     def two_d():
         p, s = rosensweig_2d(res=(16, 16), device="cpu")
         ferrofluid_step(p, s, mesh=slab)
 
-    return {"padded": (padded, "ROADMAP A12 slice 4c"),
+    return {"padded": (padded, "a batch keeps the 19-channel h"),
             "2d": (two_d, "2D states split along y and x")}
 
 
 @pytest.mark.parametrize("route", sorted(_routes()))
 def test_unported_meshed_routes_raise(route):
-    """Each route left raises: the padded layout naming its ROADMAP A12
-    slice (4c), a 2D state saying that 2D states split along y and x
-    (tests/test_torch_mesh2d.py); the channel form, an un-primed 19-channel
-    h and the HCZ step run on slabs (tests/test_torch_parallel_channel.py)."""
+    """Each route left raises: a padded batch, as the JAX package refuses it
+    (a padded layout of one element steps on slabs,
+    tests/test_torch_mesh3d_padded.py), a 2D state saying that 2D states
+    split along y and x (tests/test_torch_mesh2d.py); the channel form, an
+    un-primed 19-channel h and the HCZ step run on slabs
+    (tests/test_torch_parallel_channel.py)."""
     call, message = _routes()[route]
     with pytest.raises(NotImplementedError, match=message):
         call()

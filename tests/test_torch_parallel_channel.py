@@ -15,7 +15,9 @@ and the HCZ step (B8b, B8a, B2, B10b, B6 in slab form, B9 local) on
 on ``droplet_spread_3d``, gravity and the wetting floor (HD), at 16x8x12.
 
 * 2 z ranks (3 sweeps a solve: one round of B11b) and 4 (6 sweeps: two
-  rounds, the emitted bands exchanged between them): prime as the route
+  rounds, the emitted bands exchanged between them; CM's obstacles then
+  lie on every slab's edge planes, which only the whole domain's check
+  sees): prime as the route
   asks and 3 steps, gathered, against 3 JAX single-device steps
   (``use_pallas=False``) at tests/test_sharded_step.py's bars, rtol 2e-5
   and atol 1e-6, h compared directly; and bit for bit against 3 of the
@@ -50,7 +52,7 @@ FERRO = ("f", "g", "h", "rho", "vel", "density", "pressure")
 HCZ = ("f", "g", "rho", "vel", "density", "pressure", "force")
 #: the meshes: (z ranks, sweeps a solve, routes of its job)
 JOBS = {2: (3, worker.CHANNEL_ROUTES + worker.HCZ_ROUTES),
-        4: (6, ("C", "U19") + worker.HCZ_ROUTES)}
+        4: (6, worker.CHANNEL_ROUTES + worker.HCZ_ROUTES)}
 CASES = [(r, nz) for nz, (_, routes) in JOBS.items() for r in routes]
 
 

@@ -617,7 +617,17 @@ MESH3D_CASES = {
 }
 #: the step a model takes (``lbm_ferrofluid_tpu_torch.models`` names)
 MESH3D_STEPS = {"ferro": "ferrofluid_step", "ferro_obs": "ferrofluid_step",
-                "hcz": "hcz_step", "single": "singlephase_step", "sc": "sc_step"}
+                "hcz": "hcz_step", "single": "singlephase_step", "sc": "sc_step",
+                "padded": "ferrofluid_step"}
+#: the padded transposed layout (``scenes.rosensweig_3d_tpu``), a case of
+#: its own: its job's grid is the physical (z, y, x) of the scene, whose
+#: arrays are (y, z rounded up to 8, x rounded up to 128)
+PADDED = "padded"
+
+
+def case_model(case):
+    """The model of a 3D case: :data:`MESH3D_CASES`' or the padded layout."""
+    return PADDED if case == PADDED else MESH3D_CASES[case][0]
 
 
 def mesh3d_fields(model, res, seed=11, batch=1):
@@ -657,6 +667,8 @@ def mesh3d_state(case, res=RES, batch=1):
     at a batch of ``batch`` elements (:func:`mesh3d_fields`)."""
     from lbm_ferrofluid_tpu_torch import models as pm
 
+    if case == PADDED:
+        return pm.rosensweig_3d_tpu(res=tuple(res), batch=batch, device="cpu")
     model, change = MESH3D_CASES[case]
     kw, fd = mesh3d_fields(model, res, batch=batch)
     params = pm.SimulationParams(**kw).replace(**change)
@@ -676,8 +688,10 @@ def mesh3d_main(rank, world, port, axes, shape, jobs, steps, out_dir):
     grid[, batch]), the whole state built on every rank, this rank's block cut,
     primed on the mesh where the model is the ferrofluid step, ``steps``
     meshed steps through the model's entry point, gathered; rank 0 writes
-    ``<job>.npz`` with the exchanges and bytes a step (``stats.``) and
-    whether priming left a premac (``stats.premac``).  A job named
+    ``<job>.npz`` with the exchanges and bytes a step (``stats.``), whether
+    priming left a premac (``stats.premac``) and of how many leaves
+    (``stats.premac_leaves``), and h's channels after priming
+    (``stats.primed_h``).  A job named
     ``u19...`` is never primed (the un-carried step on the 19-channel h:
     route U19 where the rank part takes the slab forms).  A job named
     ``runner...`` steps through ``SimulationRunner(..., mesh=)``, which
@@ -699,8 +713,7 @@ def mesh3d_main(rank, world, port, axes, shape, jobs, steps, out_dir):
         mesh = make_mesh(axes, shape, device="cpu")
         for name, (case, res, *batch) in jobs.items():
             params, whole = mesh3d_state(case, tuple(res), *batch)
-            model = MESH3D_CASES[case][0]
-            step = getattr(pm, MESH3D_STEPS[model])
+            step = getattr(pm, MESH3D_STEPS[case_model(case)])
             st = shard_state(whole, mesh)
             n0, b0 = ring_halo.exchanges, ring_halo.sent_bytes
             if name.startswith("runner"):
@@ -717,12 +730,14 @@ def mesh3d_main(rank, world, port, axes, shape, jobs, steps, out_dir):
             else:
                 if step is pm.ferrofluid_step and not name.startswith("u19"):
                     st = pm.prime_premac(params, st, mesh=mesh)
-                premac = getattr(st, "premac", None) is not None
+                premac = getattr(st, "premac", None)
+                primed = dict(premac=premac is not None, premac_leaves=len(premac or ()),
+                              primed_h=st.h.shape[1] if hasattr(st, "h") else 0)
                 n0, b0 = ring_halo.exchanges, ring_halo.sent_bytes
                 for _ in range(steps):
                     st = step(params, st, mesh=mesh)
                 stats = dict(exchanges=(ring_halo.exchanges - n0) / steps,
-                             bytes=(ring_halo.sent_bytes - b0) / steps, premac=premac)
+                             bytes=(ring_halo.sent_bytes - b0) / steps, **primed)
             out = gather_state(st, mesh)
             if rank == 0:
                 np.savez(out_dir / f"{name}.npz", **_flat(to_numpy(out)),
