@@ -847,6 +847,83 @@ def b11b_emit_checks(K, params, h, mflags, rhs, sms, what):
     return rows
 
 
+def psi_band_checks(dev, card):
+    """``lbm_psi_ghost_band`` (ROADMAP B-8; ``ops/kernels/psi_halo.py``) at
+    the bands of phase ``mesh3d``'s B = 2 slab run (130x66x130 on 2 z
+    ranks: slabs of 65 planes, G = 3, and G_f = 4 in the h2 round), on the
+    shell's magnetic obstacles: B11b's kernel sweeps a slab at tau 1 and
+    both bands of both depths, packed from its h' and psi, are rebuilt by
+    the kernel, bit for bit to its plain version on the same inputs and to
+    the planes B11b stored, in float32 and bfloat16; ms a launch (G = 3,
+    the lo band; CUDA events around the launch), ms a wrapper call back to
+    back, the plain version's and the bound.  Returns the float32 row
+    of the ``kernels`` line without ``launches``."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson, psi_halo
+
+    Zl, Y, X = 65, 66, 130
+    rng = np.random.default_rng(43)
+    mf = np.full((1, 1, Zl, Y, X), 1, np.uint8)
+    mf[..., 0] = mf[..., X - 1] = mf[:, :, 0] = 2  # x-edge columns, a z-edge plane
+    mf = torch.from_numpy(mf).to(dev)
+    rhs = torch.from_numpy(rng.uniform(-1e-2, 1e-2, (1, 1, Zl, Y, X)).astype(np.float32))
+    rhs = (rhs.to(dev) * (mf == 1))
+    h0 = torch.from_numpy(rng.uniform(-0.1, 0.1, (1, 19, Zl, Y, X)).astype(np.float32)).to(dev)
+    rows, timed, worst = [], {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        h, psi = poisson.poisson_sweeps(h0.to(dtype), mf, rhs, tau=1.0, n_iters=3)
+        for G in (3, 4):
+            for band, planes, outer in (("lo", slice(Zl - G, Zl), slice(Zl - G, Zl - 1)),
+                                        ("hi", slice(0, G), slice(1, G))):
+                packed = psi_halo.pack(h, psi, G, band)
+                r = rhs[:, :, outer].contiguous()
+                kw = dict(band=band, G=G, Y=Y, X=X, dtype=dtype)
+                got = psi_halo.psi_ghost_band(packed, r, **kw)
+                torch.cuda.synchronize()
+                plain = psi_halo.psi_ghost_band_plain(packed, r, **kw)
+                stored = h[:, :, planes]
+                same = (torch.equal(got, plain), torch.equal(got, stored))
+                err = float((got.double() - plain.double()).abs().max())
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                rows.append({"storage": str(dtype), "G": G, "band": band, "max_abs_err": err,
+                             "bit_for_bit_to_plain": same[0],
+                             "bit_for_bit_to_stored_planes": same[1]})
+                check(all(same), f"lbm_psi_ghost_band {dtype} G={G} {band}: plain, stored "
+                                 f"planes equal: {same}")
+                if G == 3 and band == "lo":
+                    moved, flops = psi_halo.cost(packed, r, **kw)
+                    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+                    t_ops = flops / F32_FLOPS_PER_S * 1e3
+                    def call():
+                        return psi_halo.psi_ghost_band(packed, r, **kw)
+
+                    timed[dtype] = {
+                        # the launch alone (events around it), and the
+                        # wrapper's calls back to back, which the host's
+                        # Python bounds
+                        "ms": launch_split([psi_halo], call, 50)["lbm_psi_ghost_band"][
+                            "ms_per_call"],
+                        "ms_wrapper_calls": time_cuda(call, 50),
+                        "plain_ms": time_cuda(lambda: psi_halo.psi_ghost_band_plain(
+                            packed, r, **kw), 10),
+                        "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                        "bytes": moved, "flops": flops}
+    emit({"phase": "psi_band", "checks": rows,
+          "timed": {str(k): v for k, v in timed.items()}, "card": card, "ok": True})
+    row = timed[torch.float32]
+    return {"name": "psi_band lbm_psi_ghost_band", "route": "cuda",
+            "source": psi_halo.CUDA_SOURCE, "replaces": psi_halo.TPU_KERNEL,
+            "max_abs_err": worst[torch.float32],
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None, "bf16": dict(max_abs_err=worst[torch.bfloat16], **{
+                k: timed[torch.bfloat16][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}),
+            "what": "the psi-refreshed ghost band of the meshed channel-form solve (jnp glue "
+                    "in the JAX package), at G = 3 planes of 66x130; launches: phase mesh3d's "
+                    "B = 2 slab run and phase sharded's C1 job"}
+
+
 def phase_kernels(dev, K):
     import torch
 
@@ -4754,15 +4831,22 @@ HCZ_GRID = {(256, 256, 256): (256, 256, 256), (130, 66, 130): (130, 130, 130)}
 #: 2 (B1's rounds and their bands, B2, B3), C on 2 at 130x66x130 runs B2's
 #: and B3's at that grid, and O on 2 every kernel and exchange of E (and its
 #: source's phi planes besides).  Two lanes run side by side, each job after
-#: the one before it in its lane, the last field True for the slab-forced
+#: the one before it in its lane, the sixth field True for the slab-forced
 #: steps once through NCCL (one rank sending its ghosts to itself, which
 #: NCCL takes): the jobs of several ranks at 256^3 in one lane, since two at
-#: once ran out of the card's memory, the rest in the other
+#: once ran out of the card's memory, the rest in the other.  The last
+#: field: None, or a change of the parameters for a second run of the same
+#: ranks, held to the first bit for bit (up to the sign of a zero): Z's
+#: shell sliver (``scalar_sliver``); C1's full-h bands (C1 is C at tau 1,
+#: whose solve rebuilds its bands from psi, ROADMAP B-8)
 SHARDED_LANES = (
-    (((256, 256, 256), 85.0, (1, 4), 1, "Z", False), ((256, 256, 256), 85.0, (1, 2), 1, "O", False),
-     ((256, 256, 256), None, (1, 2), 1, "H", False)),
-    (((130, 66, 130), None, (2, 1), 2, "Z", False), ((130, 66, 130), None, (1, 2), 1, "C", False),
-     ((256, 256, 256), 85.0, (1, 1), 1, "Z", True)),
+    (((256, 256, 256), 85.0, (1, 4), 1, "Z", False, {"scalar_sliver": True}),
+     ((256, 256, 256), 85.0, (1, 2), 1, "O", False, None),
+     ((256, 256, 256), None, (1, 2), 1, "H", False, None)),
+    (((130, 66, 130), None, (2, 1), 2, "Z", False, None),
+     ((130, 66, 130), None, (1, 2), 1, "C", False, None),
+     ((130, 66, 130), None, (1, 2), 1, "C1", False, {"poisson_psi_halo": False}),
+     ((256, 256, 256), 85.0, (1, 1), 1, "Z", True, None)),
 )
 #: the meshed step's routes: Z the capillogue steady state (6-leaf premac:
 #: B1, B2, B3), E the epilogue steady state (its first 5 leaves: B1, B2,
@@ -4774,13 +4858,16 @@ SHARDED_LANES = (
 #: un-carried step on the 19-channel h (never primed: B4, B11b, B10a, B2,
 #: B10b, B6, B5), H the HCZ step (B8b, B8a, B2, B10b, B6, then B9)
 ROUTES = ("Z", "E", "O", "U", "C", "U19", "H")
+#: C1: route C at tau 1 (``scalar_carry=False`` alone), a gloo job's route
+#: only: its meshed solve takes the psi-refreshed bands
 #: the single-device route each meshed route is held to: its own, except
 #: O, whose single-device steps run B3's box form where the meshed step
 #: runs E's kernels; the un-carried steps of the same field run those
 #: (B4 on f' equals the emission B5 makes)
-REF_ROUTE = {"Z": "Z", "E": "E", "O": "U", "U": "U", "C": "C", "U19": "U19", "H": "H"}
+REF_ROUTE = {"Z": "Z", "E": "E", "O": "U", "U": "U", "C": "C", "U19": "U19", "H": "H",
+             "C1": "C1"}
 #: the routes whose state is primed before its steps (U drops the premac)
-PRIMED = ("Z", "E", "O", "U", "C")
+PRIMED = ("Z", "E", "O", "U", "C", "C1")
 #: the channel-form routes' change of the scene's parameters
 CHANNEL = dict(scalar_carry=False, tau=0.8)
 #: seconds a rank job's ranks may take, the card shared by all of them
@@ -4801,6 +4888,8 @@ def sharded_scene(res, mag, dev, batch=1, route="Z"):
         params = params.replace(h_ext_axis=2)
     if route in ("C", "U19"):
         params = params.replace(**CHANNEL)
+    if route == "C1":
+        params = params.replace(scalar_carry=False)
     return params, state
 
 
@@ -4835,7 +4924,7 @@ def route_fields(route):
     routes also return phi and force)."""
     if route == "H":
         return list(HCZ_FIELDS)
-    return list(FERRO_FIELDS) + ([] if route in ("Z", "C") else ["phi", "force"])
+    return list(FERRO_FIELDS) + ([] if route in ("Z", "C", "C1") else ["phi", "force"])
 
 
 def slab_launches_per_step(K, params, shape, mesh, route="Z"):
@@ -4852,14 +4941,14 @@ def slab_launches_per_step(K, params, shape, mesh, route="Z"):
     if route == "H":
         return dict(per, B8a=1, B8b=1, B10b=1, B6=K["B6"].module.N_LAUNCHES)
     n = params.poisson_iters
-    if route in ("C", "U19"):
+    if route in ("C", "C1", "U19"):
         k, _, _ = step3d.channel_slab_plan(
             mesh, step3d.global_shape((1, 19, *shape[2:]), mesh), n, h2=True)
         per.update(B11b=-(-n // k))
     else:
         k, _ = step3d.scalar_slab_plan(mesh, step3d.global_shape((1, 2, *shape[2:]), mesh), n)
         per["B1"] = n // k * len(K["B1"].module.passes(k)) + 1
-    if route in ("Z", "C"):
+    if route in ("Z", "C", "C1"):
         return dict(per, B3=K["B3"].module.N_LAUNCHES)
     uncarried = route in ("U", "U19")
     per.update({"B10b": 1, "B6": K["B6"].module.N_LAUNCHES, "B5": 1 if uncarried else 2})
@@ -5354,18 +5443,19 @@ def wait_processes(label, procs, timeout, tag):
     return outs
 
 
-def run_rank_job(res, mag, shape, batch, route, slab, steps=15):
+def run_rank_job(res, mag, shape, batch, route, slab, pair=None, steps=10):
     """One job's ranks as processes on the one card (``--sharded-rank``),
     torchrun's variables set for each (gloo for several ranks on the card,
     NCCL for one: ``parallel/mesh.py:default_backend``): their rows, or
     CheckFailed for a rank that fails or outlasts ``SHARDED_TIMEOUT``
     (every rank is then stopped).  ``slab``: the mesh's ``slab=True`` (one
-    NCCL rank then sends its ghosts to itself)."""
+    NCCL rank then sends its ghosts to itself); ``pair``: a change of the
+    parameters for a second run of the same ranks (:func:`sharded_rank`)."""
     import os
 
     world = shape[0] * shape[1]
     job = json.dumps({"res": list(res), "mag": mag, "shape": list(shape), "batch": batch,
-                      "steps": steps, "slab": slab, "route": route})
+                      "steps": steps, "slab": slab, "route": route, "pair": pair})
     env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
                WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
     outs = run_processes(f"rank job {job}",
@@ -5381,9 +5471,15 @@ def sharded_rank(job_json) -> int:
     """A rank of a job of ``run_rank_job``: joins the group from
     torchrun's variables, builds the scene on the card, cuts its part,
     primes and steps it on the mesh (launch counters zeroed just before,
-    read just after, exact a step), gathers, and on rank 0 holds the whole
+    read just after, exact a step; ``lbm_psi_ghost_band``'s as
+    :func:`psi_band_expected` says), gathers, and on rank 0 holds the whole
     state to as many single-device kernel steps of the same scene (phase
-    3's bars; each batch element on a batch mesh).  Prints its row."""
+    3's bars; each batch element on a batch mesh).  With the job's ``pair``
+    the same part is primed and stepped again with the parameters so
+    changed, its bytes, exchanges and ms a step beside the first run's, and
+    its state held to the first run's bit for bit up to the sign of a zero;
+    then both are stepped again in the other order (turns: the job's run,
+    the pair's, the pair's, the job's).  Prints its row."""
     import torch
     import torch.distributed as dist
 
@@ -5395,6 +5491,7 @@ def sharded_rank(job_json) -> int:
     job = json.loads(job_json)
     route = job["route"]
     world = initialize_distributed()
+    psi_band = kernels_pkg.GLUE_KERNELS["psi_band"].wrapper
     try:
         mesh = make_mesh(("batch", "z"), tuple(job["shape"]), slab=job["slab"])
         K = kernels_pkg.KERNELS
@@ -5404,34 +5501,60 @@ def sharded_rank(job_json) -> int:
         del whole  # several ranks share the card
         torch.cuda.empty_cache()
         step = meshed_step(mesh, route)
-        kernels_pkg.reset_launch_counts()
-        st = start_route(params, part, route, mesh=mesh)
-        ring_halo.sent_bytes = 0
-        torch.cuda.synchronize()
-        dist.barrier()
-        t0 = time.perf_counter()
-        for _ in range(job["steps"]):
-            st = step(params, st)
-        torch.cuda.synchronize()
-        dist.barrier()
-        seconds = time.perf_counter() - t0
-        launches = kernels_pkg.launch_counts(kernels_pkg.SLAB_FORMS)
-        slab_l = kernels_pkg.launch_counts(kernels_pkg.SLAB_FORMS, slab=True)
-        if step3d.dp_dispatch(mesh):
-            per = {"B1": K["B1"].module.launches_per_call(params.poisson_iters, st.rho.shape),
-                   "B2": 1, "B3": K["B3"].module.N_LAUNCHES}
-            check_launches("batch mesh", launches, per, job["steps"], extra={"B4": 1})
-            check(not any(slab_l.values()), f"batch mesh: slab forms launched: {slab_l}")
-        else:
-            per = slab_launches_per_step(K, params, st.f.shape, mesh, route)
-            check_launches("z-slab mesh", slab_l, per, job["steps"],
-                           extra={"B4": 1} if route in PRIMED else {})
-            check(launches == slab_l, f"z-slab mesh: launches outside the slab forms {launches}")
-        out = {"rank": mesh.rank, "world": world, "backend": mesh.backend, "route": route,
-               "launches": launches, "slab_launches": slab_l,
-               "launches_per_step": per, "ms_per_step": seconds / job["steps"] * 1e3,
-               "bytes_sent_per_step": ring_halo.sent_bytes / job["steps"]}
+
+        def run(p):
+            """Prime and step the part with ``p``: (state, its row)."""
+            kernels_pkg.reset_launch_counts()
+            st = start_route(p, part, route, mesh=mesh)
+            ring_halo.sent_bytes, n0 = 0, ring_halo.exchanges
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(job["steps"]):
+                st = step(p, st)
+            torch.cuda.synchronize()
+            dist.barrier()
+            seconds = time.perf_counter() - t0
+            launches = kernels_pkg.launch_counts(kernels_pkg.SLAB_FORMS)
+            slab_l = kernels_pkg.launch_counts(kernels_pkg.SLAB_FORMS, slab=True)
+            if step3d.dp_dispatch(mesh):
+                per = {"B1": K["B1"].module.launches_per_call(p.poisson_iters, st.rho.shape),
+                       "B2": 1, "B3": K["B3"].module.N_LAUNCHES}
+                check_launches("batch mesh", launches, per, job["steps"], extra={"B4": 1})
+                check(not any(slab_l.values()), f"batch mesh: slab forms launched: {slab_l}")
+            else:
+                per = slab_launches_per_step(K, p, st.f.shape, mesh, route)
+                check_launches("z-slab mesh", slab_l, per, job["steps"],
+                               extra={"B4": 1} if route in PRIMED else {})
+                check(launches == slab_l,
+                      f"z-slab mesh: launches outside the slab forms {launches}")
+            psi_want = psi_band_expected(p, st, mesh) * job["steps"]
+            check(psi_band.launches == psi_want, f"rank job {job}: lbm_psi_ghost_band launched "
+                                                 f"{psi_band.launches} times, not {psi_want}")
+            return st, {"launches": launches, "slab_launches": slab_l, "launches_per_step": per,
+                        "psi_band_launches": psi_band.launches,
+                        "ms_per_step": seconds / job["steps"] * 1e3,
+                        "bytes_sent_per_step": ring_halo.sent_bytes / job["steps"],
+                        "exchanges_per_step": (ring_halo.exchanges - n0) / job["steps"]}
+
+        st, row = run(params)
+        out = {"rank": mesh.rank, "world": world, "backend": mesh.backend, "route": route, **row}
+        if job["pair"]:
+            paired = params.replace(**job["pair"])
+            st2, out["pair"] = run(paired)
+            fields = route_fields(route)
+            pairs = [(n, getattr(st, n), getattr(st2, n)) for n in fields] + [
+                (f"premac.{i}", a, b) for i, (a, b) in enumerate(zip(
+                    getattr(st, "premac", None) or (), getattr(st2, "premac", None) or ()))]
+            # the rank's part, its zeros' signs dropped (-0.0 + 0.0 is +0.0)
+            differ = [n for n, a, b in pairs if not torch.equal(a + 0.0, b + 0.0)]
+            check(not differ, f"rank job {job}: the pair's run differs in {differ}")
+            out["pair"]["bit_for_bit_to_first_run"] = True
+            del st2, pairs
+            # the two runs again, the other way round: turns A, B, B, A
+            out["turns"] = [run(paired)[1], run(params)[1]]
         got = gather_state(st, mesh)
+        del st
         if mesh.rank == 0:
             one = sharded_scene(tuple(job["res"]), job["mag"], mesh.device, route=route)[1]
             ref = start_route(params, one, REF_ROUTE[route], device=mesh.device.type)
@@ -5457,6 +5580,57 @@ def sharded_rank(job_json) -> int:
     return 0
 
 
+def rank_job_row(job, ranks, wall):
+    """The phase line's row of a rank job (``job`` a tuple of
+    ``SHARDED_LANES``, ``ranks`` its ranks' rows, ``wall`` its seconds)."""
+    res, _, shape, batch, route, slab, pair = job
+    lead = next(r for r in ranks if r["rank"] == 0)
+    check(lead["backend"] == ("nccl" if slab else "gloo"),
+          f"rank job {res} {shape}: backend {lead['backend']}")
+    return {"res": list(res), "mesh": list(shape), "batch": batch, "route": route,
+            "transport": ("nccl, one rank sending its ghosts to itself" if slab
+                          else "gloo, host-staged, all ranks on one card (not a multi-GPU "
+                               "number)"),
+            "ms_per_step": [r["ms_per_step"] for r in ranks],
+            "bytes_sent_per_step": [r["bytes_sent_per_step"] for r in ranks],
+            "exchanges_per_step": lead["exchanges_per_step"],
+            "psi_band_launches": [r["psi_band_launches"] for r in ranks],
+            "launches_per_step": lead["launches_per_step"],
+            "single_device_route": lead["single_device_route"],
+            "against_single_device": lead["against_single_device"],
+            "bit_for_bit_to_single_device": lead["bit_for_bit_to_single_device"],
+            "wall_s": wall, **({"pair": {
+                "change": pair,
+                **{key: [r["pair"][key] for r in ranks] for key in (
+                    "ms_per_step", "bytes_sent_per_step", "psi_band_launches")},
+                "exchanges_per_step": lead["pair"]["exchanges_per_step"],
+                "bit_for_bit_to_first_run": lead["pair"]["bit_for_bit_to_first_run"],
+                # ms a step of each rank in turns: the job's run, the pair's,
+                # the pair's again, the job's again
+                "ms_per_step_turns": [[r[k]["ms_per_step"] if k else r["ms_per_step"]
+                                       for k in (None, "pair")] + [
+                    t["ms_per_step"] for t in r["turns"]] for r in ranks],
+            }} if pair else {})}
+
+
+def phase_psi_halo(dev, card):
+    """``--psi-halo``: the runs of the meshed solves' exchange options
+    alone (ROADMAP B-8 and the shell sliver): ``lbm_psi_ghost_band``'s
+    checks, phase ``mesh3d``'s B = 2 slab runs (psi-refreshed and full-h)
+    and phase ``sharded``'s paired rank jobs (Z with and without the
+    sliver, C1 with and without the refresh), one after another."""
+    psi_band_checks(dev, card)
+    phase_mesh3d(dev, card, tuple(r for r in MESH3D_RUNS
+                                  if r[0].startswith("rosensweig B=2 slabs")))
+    jobs = []
+    for job in (j for lane in SHARDED_LANES for j in lane if j[6]):
+        t0 = time.perf_counter()
+        ranks = run_rank_job(*job)
+        jobs.append(rank_job_row(job, ranks, time.perf_counter() - t0))
+    emit({"phase": "sharded", "part": "paired rank jobs", "jobs": jobs, "card": card,
+          "ok": True})
+
+
 def phase_sharded(dev, kernels_pkg, card):
     """The z-slab path on the one card (phase ``sharded``): one rank with
     ``slab=True`` at 256^3 (bench.py's scene) and 130x66x130 (the HCZ step at
@@ -5470,7 +5644,8 @@ def phase_sharded(dev, kernels_pkg, card):
     of 2 ranks, and the slab-forced 256^3 steps once through NCCL (one rank
     sending to itself); the refusal of 4 z ranks at 130x66x130, and a state
     primed on one device refused at the step on 3-plane slabs (ROADMAP C7).
-    Returns the slab forms' rows for the ``kernels`` line."""
+    Returns the slab forms' rows for the ``kernels`` line and the launches
+    of ``lbm_psi_ghost_band`` in the rank jobs (C1's)."""
     import torch
 
     from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac
@@ -5526,35 +5701,24 @@ def phase_sharded(dev, kernels_pkg, card):
         """The lane's jobs one after another: each job's ranks' rows and
         wall seconds."""
         out = []
-        for res, mag, shape, batch, route, slab in lane_jobs:
+        for job in lane_jobs:
             t0 = time.perf_counter()
-            out.append((run_rank_job(res, mag, shape, batch, route, slab),
-                        time.perf_counter() - t0))
+            out.append((run_rank_job(*job), time.perf_counter() - t0))
         return out
 
     with concurrent.futures.ThreadPoolExecutor(len(SHARDED_LANES)) as pool:
         done = [f.result() for f in [pool.submit(lane, jobs) for jobs in SHARDED_LANES]]
-    jobs = []
+    jobs, psi_launches = [], 0
     for lane_jobs, results in zip(SHARDED_LANES, done):
-        for (res, mag, shape, batch, route, slab), (ranks, wall) in zip(lane_jobs, results):
+        for job, (ranks, wall) in zip(lane_jobs, results):
             for r in ranks:
-                for kid in launches:
-                    launches[kid] += r["slab_launches"].get(kid, 0)
-            lead = next(r for r in ranks if r["rank"] == 0)
-            check(lead["backend"] == ("nccl" if slab else "gloo"),
-                  f"rank job {res} {shape}: backend {lead['backend']}")
-            jobs.append({"res": list(res), "mesh": list(shape), "batch": batch, "route": route,
-                         "transport": ("nccl, one rank sending its ghosts to itself" if slab
-                                       else "gloo, host-staged, all ranks on one card (not a "
-                                            "multi-GPU number)"),
-                         "ms_per_step": [r["ms_per_step"] for r in ranks],
-                         "bytes_sent_per_step": [r["bytes_sent_per_step"] for r in ranks],
-                         "launches_per_step": lead["launches_per_step"],
-                         "single_device_route": lead["single_device_route"],
-                         "against_single_device": lead["against_single_device"],
-                         "bit_for_bit_to_single_device": lead["bit_for_bit_to_single_device"],
-                         "wall_s": wall})
-    emit({"phase": "sharded", "part": "ranks", "jobs": jobs, "refused_4_ranks_130": refused,
+                for run in [r] + ([r["pair"], *r["turns"]] if job[6] else []):
+                    for kid in launches:
+                        launches[kid] += run["slab_launches"].get(kid, 0)
+                    psi_launches += run["psi_band_launches"]
+            jobs.append(rank_job_row(job, ranks, wall))
+    emit({"phase": "sharded", "part": "ranks", "jobs": jobs, "psi_band_launches": psi_launches,
+          "refused_4_ranks_130": refused,
           "refused_step_3_planes": refused_step,
           "slab_launches": launches, "slab_launches_bf16": launches16, "card": card,
           "ok": True})
@@ -5603,7 +5767,7 @@ def phase_sharded(dev, kernels_pkg, card):
                                                       "single_device_ms")},
             "library_ms": None, "what": "the slab solve, its last round with the trailing stage",
         })
-    return rows
+    return rows, psi_launches
 
 
 #: the batched cells of the batch phase: route (U the un-carried Rosensweig
@@ -6184,7 +6348,11 @@ def phase_mesh2d(dev, card):
 #: (z, y) = (2, 2) in float32 and turbo and on (y, x) = (2, 2) (rank x = 1
 #: holds 2 box columns), the block route; ``rosensweig_3d_tpu(res=(130, 64,
 #: 130))`` (arrays 64x136x256: physical y cut 66 -> 64 to split in 4) on 4 z
-#: ranks, the slab route, primed to a 5-leaf premac
+#: ranks, the slab route, primed to a 5-leaf premac.  The B = 2 slab run
+#: (tau 1, the shell declared: ROADMAP B-8's psi-refreshed bands) and its
+#: full-h twin (``poisson_psi_halo=False``) in turns: psi, full-h, full-h,
+#: psi (4 time-sliced ranks on a shared host move one run's ms by tens of
+#: per cent)
 MESH3D_RUNS = (
     ("rosensweig", "rosensweig_3d", {"res": (130, 66, 130)}, ("z", "y"), (2, 2), "float32", {}),
     ("rosensweig turbo", "rosensweig_3d", {"res": (130, 66, 130)}, ("z", "y"), (2, 2),
@@ -6202,6 +6370,12 @@ MESH3D_RUNS = (
     ("rosensweig turbo B=2", "rosensweig_3d", {"res": (130, 66, 130), "batch": 2},
      ("z", "y"), (2, 2), "bfloat16", {}),
     ("rosensweig B=2 slabs", "rosensweig_3d", {"res": (130, 66, 130), "batch": 2},
+     ("batch", "z"), (2, 2), "float32", {}),
+    ("rosensweig B=2 slabs full-h", "rosensweig_3d", {"res": (130, 66, 130), "batch": 2},
+     ("batch", "z"), (2, 2), "float32", {"poisson_psi_halo": False}),
+    ("rosensweig B=2 slabs full-h 2", "rosensweig_3d", {"res": (130, 66, 130), "batch": 2},
+     ("batch", "z"), (2, 2), "float32", {"poisson_psi_halo": False}),
+    ("rosensweig B=2 slabs 2", "rosensweig_3d", {"res": (130, 66, 130), "batch": 2},
      ("batch", "z"), (2, 2), "float32", {}),
     ("hcz B=2", "multiphase_3d", {"res": (128, 128, 128), "batch": 2}, ("z",), (4,), "float32",
      {}),
@@ -6307,6 +6481,23 @@ def mesh3d_expected(params, state, step, mesh) -> dict:
     return out
 
 
+def psi_band_expected(params, state, mesh) -> int:
+    """Launches a step of ``lbm_psi_ghost_band`` on the rank part ``state``:
+    two a band of the channel-form slab solve that is rebuilt from psi
+    (the shell declared, ``poisson_psi_halo``, ``step3d.psi_refresh_ok``
+    for its depth), none elsewhere."""
+    from lbm_ferrofluid_tpu_torch.parallel import step3d
+
+    h = getattr(state, "h", None)  # an HCZ state has none
+    if not (h is not None and h.shape[1] == 19 and step3d.on_slabs(mesh, state.f.shape)
+            and params.mag_flags_shell and params.poisson_psi_halo):
+        return 0
+    shape = (1, 19, *step3d.global_shape(state.f.shape, mesh)[2:])
+    _, depth, _ = step3d.channel_slab_rounds(mesh, shape, params.poisson_iters, h2=True)
+    Zl = state.f.shape[2]
+    return 2 * sum(step3d.psi_refresh_ok(params.tau, g, Zl) for g in depth[1:])
+
+
 def mesh3d_one_device(run, params, whole, step, dev, slabs=False):
     """One device's steps of the whole batch on the meshed route's route
     (the block route: priming only converts h, the un-carried step, the
@@ -6372,9 +6563,10 @@ def mesh3d_rank(job_json) -> int:
             in_exchanges[0] += time.perf_counter() - t
 
     blocks.ring_halo = step3d.ring_halo = timed_halo
+    psi_band = kernels_pkg.GLUE_KERNELS["psi_band"].wrapper
     runs = json.loads(job_json)
     world = initialize_distributed()
-    rows, total, total_batch = [], {}, {}
+    rows, total, total_batch = [], {"psi_band": 0}, {}
     try:
         for run in runs:
             label, _, _, axes, shape, storage, change = run
@@ -6398,6 +6590,7 @@ def mesh3d_rank(job_json) -> int:
             n0, b0 = ring_halo.exchanges, ring_halo.sent_bytes
             before = kernels_pkg.launch_counts()
             before_batch = kernels_pkg.launch_counts(batch=True)
+            psi0 = psi_band.launches
             torch.cuda.synchronize()
             dist.barrier()
             in_exchanges[0] = 0.0
@@ -6409,6 +6602,11 @@ def mesh3d_rank(job_json) -> int:
             seconds = time.perf_counter() - t0
             counts = kernels_pkg.launch_counts()
             counts_batch = kernels_pkg.launch_counts(batch=True)
+            psi_per_step = (psi_band.launches - psi0) / MESH3D_STEPS
+            check(psi_per_step == psi_band_expected(params, st, mesh),
+                  f"mesh3d {label}: lbm_psi_ghost_band launched {psi_per_step} times a step, "
+                  f"not {psi_band_expected(params, st, mesh)}")
+            total["psi_band"] += psi_band.launches
             for k, n in counts.items():
                 total[k] = total.get(k, 0) + n
                 total_batch[k] = total_batch.get(k, 0) + counts_batch[k]
@@ -6429,6 +6627,7 @@ def mesh3d_rank(job_json) -> int:
                    "h_channels": st.h.shape[1] if getattr(st, "h", None) is not None else None,
                    "steps": st.step, "ms_per_step": seconds / MESH3D_STEPS * 1e3,
                    "launches_per_step": per_step,
+                   "psi_band_launches_per_step": psi_per_step,
                    "exchanges_per_step": (ring_halo.exchanges - n0) / MESH3D_STEPS,
                    "ms_in_exchanges_per_step": in_exchanges[0] / MESH3D_STEPS * 1e3,
                    "bytes_sent_per_step": (ring_halo.sent_bytes - b0) / MESH3D_STEPS}
@@ -6461,7 +6660,7 @@ def mesh3d_rank(job_json) -> int:
     return 0
 
 
-def phase_mesh3d(dev, card):
+def phase_mesh3d(dev, card, runs=MESH3D_RUNS):
     """3D states on the block route (phase ``mesh3d``, ROADMAP A12 slice
     4b): the runs of :data:`MESH3D_RUNS` as 4 gloo ranks sharing the one
     card (processes of ``chip_smoke.py --mesh3d-rank``, torchrun's
@@ -6473,13 +6672,13 @@ def phase_mesh3d(dev, card):
     of every rank's meshed steps by kernel id, all and at B > 1."""
     del dev
     t0 = time.perf_counter()
-    world = math.prod(MESH3D_RUNS[0][4])
-    check(all(math.prod(r[4]) == world for r in MESH3D_RUNS), "mesh3d: the runs' meshes differ")
+    world = math.prod(runs[0][4])
+    check(all(math.prod(r[4]) == world for r in runs), "mesh3d: the runs' meshes differ")
     env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
                WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
     outs = run_processes("mesh3d job",
                          [[str(ROOT / "chip_smoke.py"), "--mesh3d-rank",
-                           json.dumps(MESH3D_RUNS)]] * world,
+                           json.dumps(runs)]] * world,
                          [dict(env, RANK=str(r), LOCAL_RANK=str(r)) for r in range(world)],
                          MESH3D_TIMEOUT, "MESH3D_RANK")
     reports = [o for out_ in outs for o in out_]
@@ -6501,7 +6700,23 @@ def phase_mesh3d(dev, card):
         "blocks_over_slabs": block["ms_per_step"] / slab["ms_per_step"],
         "bytes_sent_per_step": [block["bytes_sent_per_step"], slab["bytes_sent_per_step"]],
         "exchanges_per_step": [block["exchanges_per_step"], slab["exchanges_per_step"]]}
-    emit({"phase": "mesh3d", "runs": rows, "block_vs_slab_b2": pair, "launches": launches,
+    turns = [by_label.get(f"rosensweig B=2 slabs{tag}") for tag in ("", " full-h",
+                                                                     " full-h 2", " 2")]
+    psi, full = turns[0], turns[1]
+    psi_pair = None if not all(turns) else {
+        "state": "rosensweig_3d 130x66x130 B=2 on (batch, z) = (2, 2), tau 1, the shell "
+                 "declared, h in 19 channels: the psi-refreshed bands against the full-h "
+                 "ones in turns (psi, full-h, full-h, psi), each bit for bit to one device "
+                 "by hashes",
+        **{key: [r[key] for r in turns] for key in (
+            "ms_per_step", "ms_in_exchanges_per_step", "bytes_sent_per_step",
+            "exchanges_per_step", "psi_band_launches_per_step")},
+        "bytes_ratio": psi["bytes_sent_per_step"] / full["bytes_sent_per_step"]}
+    if psi_pair:
+        check(psi["psi_band_launches_per_step"] > 0 and psi["exchanges_per_step"]
+              == full["exchanges_per_step"], f"mesh3d psi pair: {psi_pair}")
+    emit({"phase": "mesh3d", "runs": rows, "block_vs_slab_b2": pair, "psi_vs_full_b2": psi_pair,
+          "launches": launches,
           "launches_batch": launches_batch, "seconds": time.perf_counter() - t0,
           "card": card, "ok": True})
     return launches, launches_batch
@@ -6521,6 +6736,7 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     paths."""
     K = kernels_pkg.KERNELS
     worst, b10a_batch = phase_kernels(dev, K)
+    psi_band = psi_band_checks(dev, smi)
     phase_grad_guard(dev, kernels_pkg)
     phase_golden(dev)
     phase_small_grid(dev, kernels_pkg)
@@ -6533,7 +6749,7 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
                 phase_compat(dev, kernels_pkg, smi)]
     padded = phase_padded(dev, kernels_pkg, smi)
     per_path.append(padded["launches"])
-    sharded = phase_sharded(dev, kernels_pkg, smi)
+    sharded, psi_sharded = phase_sharded(dev, kernels_pkg, smi)
     spikes, spikes16 = phase_spikes(dev, kernels_pkg, smi)
     per_path += [spikes, phase_demo(dev, kernels_pkg, smi), phase_demos(dev, kernels_pkg, smi)]
     phase_dibr(dev, smi, big=(64, 64, 64))
@@ -6567,6 +6783,8 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     mesh3d_launches, mesh3d_batch = phase_mesh3d(dev, smi)
     per_path.append(mesh3d_launches)
     launches = {kid: sum(p.get(kid, 0) for p in per_path) for kid in K}
+    psi_band.update(launches=mesh3d_launches["psi_band"] + psi_sharded)
+    check(psi_band["launches"] > 0, "lbm_psi_ghost_band: no launch on the main paths")
     return [{
         "name": f"{kid} {k.wrapper.__name__}", "route": "cuda",
         "source": k.module.CUDA_SOURCE, "replaces": k.tpu_kernel,
@@ -6602,8 +6820,8 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
         "library_ms": None,
     } for kid, form, row, launches_key in (
         ("B1", "psi form", "B1", "form_launches"), ("B3", "box form", "B3", "form_launches"),
-        ("B3", "box form bf16", "B3 bf16", "form_launches16"))] + sharded + batch_rows(
-            K, batch_total, batch_kernels, b10a_batch, mesh3d_batch)
+        ("B3", "box form bf16", "B3 bf16", "form_launches16"))] + sharded + [psi_band] + (
+            batch_rows(K, batch_total, batch_kernels, b10a_batch, mesh3d_batch))
 
 
 def phase_step_time(dev, card, repeats=5):
@@ -6732,7 +6950,7 @@ def main() -> int:
         phase_padded(dev, kernels_pkg, smi)
         print(smi, flush=True)
     elif "--sharded" in sys.argv[1:]:
-        rows = phase_sharded(dev, kernels_pkg, smi)
+        rows, _ = phase_sharded(dev, kernels_pkg, smi)
         print(smi, flush=True)
         emit({"kernels": rows})
     elif "--batch" in sys.argv[1:]:
@@ -6747,6 +6965,9 @@ def main() -> int:
         print(smi, flush=True)
     elif "--mesh2d" in sys.argv[1:]:
         phase_mesh2d(dev, smi)
+        print(smi, flush=True)
+    elif "--psi-halo" in sys.argv[1:]:
+        phase_psi_halo(dev, smi)
         print(smi, flush=True)
     elif "--mesh3d" in sys.argv[1:]:
         phase_mesh3d(dev, smi)

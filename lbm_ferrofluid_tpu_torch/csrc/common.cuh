@@ -441,6 +441,18 @@ __device__ __forceinline__ T lbm_slab_at(const T* __restrict__ v, const T* __res
 // version's order (the __f*_rn intrinsics keep nvcc from contracting them
 // into FMAs), so any schedule of the sweeps gives poisson_sweeps_plain's
 // outputs bit for bit.  Returns psi.
+//
+// lbm_poisson_out is a non-obstacle cell's channel q from t and u (s_q
+// read only where tau != 1).  At tau == 1 it is a function of psi and rhs
+// alone: csrc/psi_halo.cu rebuilds a neighbour's stored h with it, bit for
+// bit, from that neighbour's psi.
+template <bool TAU1>
+__device__ __forceinline__ float lbm_poisson_out(int q, float t, float u, float a, float s_q) {
+  const float wu = __fmul_rn(lbm_weight(q), u);
+  const float c = TAU1 ? wu : __fadd_rn(__fmul_rn(a, s_q), wu);
+  return q == 0 ? __fsub_rn(c, t) : c;
+}
+
 template <bool TAU1>
 __device__ __forceinline__ float lbm_poisson_cell(const float s[19], bool obstacle, float rhs,
                                                   float inv_tau, float a, float out[19]) {
@@ -457,11 +469,7 @@ __device__ __forceinline__ float lbm_poisson_cell(const float s[19], bool obstac
   const float t = TAU1 ? psi : __fmul_rn(psi, inv_tau);
   const float u = __fadd_rn(t, rhs);
 #pragma unroll
-  for (int q = 0; q < 19; ++q) {
-    const float wu = __fmul_rn(lbm_weight(q), u);
-    const float c = TAU1 ? wu : __fadd_rn(__fmul_rn(a, s[q]), wu);
-    out[q] = q == 0 ? __fsub_rn(c, t) : c;
-  }
+  for (int q = 0; q < 19; ++q) out[q] = lbm_poisson_out<TAU1>(q, t, u, a, s[q]);
   return psi;
 }
 

@@ -551,9 +551,10 @@ def _prime_premac_slab(params: SimulationParams, state, mesh, plain):
     :979-1022)."""
     from ..parallel import step3d
 
-    channel = _channel_form(params, state, False, step3d.blocks3d(mesh, state.f))
+    blk = step3d.blocks3d(mesh, state.f)
+    channel = _channel_form(params, state, False, blk)
     _slab_gates(params, state, mesh, plain, channel)
-    validate_mag_shell(params, state.magnetic_flags)
+    validate_mag_shell(params, state.magnetic_flags, blk)
     premac = step3d.fused_prologue_sharded(
         state.f, state.g, state.flags, state.rho, state.vel, mesh, c=params.dx / params.dt,
         rho_gas=params.rho_gas, rho_fluid=params.rho_fluid, density_gas=params.density_gas,
@@ -644,17 +645,23 @@ def _solve_slab(params: SimulationParams, state, rhs, mesh, plain):
     """(H2, h') of the magnetic solve on the rank's slab, in the form that
     ``state.h`` has: B1's slab rounds on the scalar carry, else
     :func:`~..ops.magnetic.solve_H_int` with ``mesh`` (B11b's slab rounds,
-    the substitution, B10a)."""
+    the substitution, B10a).  Under the ``mag_flags_shell`` declaration
+    ``scalar_sliver`` sends B1's bands as the shell sliver and
+    ``poisson_psi_halo`` rebuilds B11b's from psi at tau == 1 (JAX
+    :466-471, :509)."""
     from ..parallel import step3d
 
+    shell = params.mag_flags_shell
     if state.h.shape[1] == 2:
         return step3d.scalar_poisson_sharded(state.h, state.cmask, rhs, mesh,
                                              n_iters=params.poisson_iters, dx=float(params.dx),
-                                             h_ext=_hext_static(params), plain=plain)
+                                             h_ext=_hext_static(params), plain=plain,
+                                             shell_sliver=params.scalar_sliver and shell)
     return solve_H_int(
         params.lattice, state.h, None, state.magnetic_flags, None, tau=float(params.tau),
         n_iters=params.poisson_iters, dx=params.dx, dt=params.dt, rhs_scaled=rhs,
         h2_ext=_hext_static(params), plain=plain, mesh=mesh,
+        psi_halo=params.poisson_psi_halo and shell,
     )
 
 

@@ -2,11 +2,17 @@
 
 Copy of ``lbm_ferrofluid_tpu/models/params.py`` with the same fields, the
 same defaults and the same JSON, so one parameter file loads in both
-packages (the port imports nothing of the JAX package).  Fields that select
-JAX-only machinery (``use_pallas``, ``poisson_halo_depth``,
-``poisson_psi_halo``, ``scalar_sliver``) are carried for that round trip and
-read by nothing in the port; configurations the port does not cover
-raise ``NotImplementedError`` at the step (``models/ferrofluid.py``).
+packages (the port imports nothing of the JAX package).  Two fields select
+JAX-only machinery and are carried for that round trip, read by nothing in
+the port: ``use_pallas`` and ``poisson_halo_depth`` (the port's slab rounds
+take the depth of least measured cost; every depth gives the same bits).
+The meshed solves read the two exchange options under ``mag_flags_shell``
+as the JAX package does: ``poisson_psi_halo`` (the channel form's bands
+after the first round rebuilt from psi at tau == 1,
+``parallel/step3d.py:poisson_sweeps_sharded``) and ``scalar_sliver`` (the
+scalar carry's s_prev bands as the shell's sliver,
+``step3d.scalar_poisson_sharded``).  Configurations the port does not
+cover raise ``NotImplementedError`` at the step (``models/ferrofluid.py``).
 """
 
 from __future__ import annotations

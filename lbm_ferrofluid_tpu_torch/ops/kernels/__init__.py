@@ -22,6 +22,7 @@ from . import (
     fused_step,
     hcz3d,
     poisson,
+    psi_halo,
     scalar_poisson,
     stencil3d,
     stream3d,
@@ -32,6 +33,7 @@ from .contact3d import contact_angle_3d, contact_angle_3d_plain
 from .fused_step import lbm_epilogue, lbm_epilogue_plain, lbm_prologue, lbm_prologue_plain
 from .hcz3d import hcz_collide_fused, hcz_collide_fused_plain
 from .poisson import poisson_sweeps, poisson_sweeps_plain
+from .psi_halo import psi_ghost_band, psi_ghost_band_plain
 from .scalar_poisson import scalar_wavefront, scalar_wavefront_plain
 from .stencil3d import (
     capillary_stack,
@@ -51,6 +53,7 @@ from .stream3d import (
 __all__ = [
     "Kernel",
     "KERNELS",
+    "GLUE_KERNELS",
     "PATHS",
     "BF16_FORMS",
     "SLAB_FORMS",
@@ -84,6 +87,8 @@ __all__ = [
     "hcz_capillary_stencils",
     "poisson_sweeps",
     "poisson_sweeps_plain",
+    "psi_ghost_band",
+    "psi_ghost_band_plain",
 ]
 
 
@@ -122,6 +127,15 @@ KERNELS = {
     "B10b": _kernel(stencil3d, laplacian_field, laplacian_field_plain,
                     stencil3d.cost_laplacian, stencil3d.TPU_KERNEL_LAPLACIAN),
     "B11b": _kernel(poisson, poisson_sweeps, poisson_sweeps_plain),
+}
+
+#: hand-written kernels of the port that replace jnp glue of the JAX
+#: package, not a Pallas kernel (their ``tpu_kernel`` names the glue): the
+#: psi-refreshed ghost bands of the meshed channel-form solve at tau == 1
+#: (ROADMAP B-8), launched twice a round after the first where
+#: ``parallel/step3d.py:poisson_sweeps_sharded`` takes them
+GLUE_KERNELS = {
+    "psi_band": _kernel(psi_halo, psi_ghost_band, psi_ghost_band_plain),
 }
 
 #: the kernels each path launches: the ferrofluid step (with its priming)
@@ -196,6 +210,9 @@ SLAB_TPU_KERNELS = {
 
 
 def reset_launch_counts() -> None:
+    for k in GLUE_KERNELS.values():
+        k.wrapper.launches = 0
+        k.wrapper.launches_bf16 = 0
     for kid, k in KERNELS.items():
         k.wrapper.launches = 0
         k.wrapper.launches_bf16 = 0

@@ -154,7 +154,7 @@ def _on(blocks, fn, depth=None):
 
 def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters=30,
                 dx=1.0, dt=1.0, rhs_scaled=None, h2_ext=None, plain=False, mesh=None,
-                blocks=None):
+                blocks=None, psi_halo=False):
     """``n_iters`` sweeps of [stream -> bounce-back -> relaxation] on the
     Q-channel h; returns (H_int of the last sweep's psi, h'), or (H2, h')
     with ``h2_ext``.
@@ -176,7 +176,10 @@ def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters
     h2=True)`` admits it; otherwise (and without a static field) the psi
     route's slab forms, the substitution with its z pad at the domain's
     true edges only (JAX pads the whole domain, :466-475) and B10a with
-    one psi plane a side.  With ``blocks`` (``parallel/blocks.py:Blocks``,
+    one psi plane a side; ``psi_halo`` (JAX's, which its caller passes as
+    ``params.poisson_psi_halo and params.mag_flags_shell``, :509) rebuilds
+    the bands of the rounds after the first from the neighbours' psi at tau
+    == 1 (``step3d.poisson_sweeps_sharded``), the same bits.  With ``blocks`` (``parallel/blocks.py:Blocks``,
     a rank's block of a grid split over a mesh) the block route: in 3D
     B11b's passes in rounds, then the psi route on the block extended under
     the clamp rule (``parallel/step3d.py:channel_poisson_blocks``), bit for
@@ -212,7 +215,7 @@ def solve_H_int(lat: Lattice, h, phi, magnetic_flags, H_ext_mac, *, tau, n_iters
             from ..parallel import step3d
 
             if not step3d.dp_dispatch(mesh):
-                kw = dict(tau=tau, n_iters=n_iters, plain=plain)
+                kw = dict(tau=tau, n_iters=n_iters, plain=plain, psi_halo=psi_halo)
                 if h2 is not None:
                     h, aux, emitted = step3d.poisson_sweeps_sharded(
                         h, magnetic_flags, rhs_scaled, mesh, emit_h2=h2, dx=dx, **kw)

@@ -14,8 +14,9 @@ B8b with ``ghosts=``; B9 is local) and exchanges the ghost planes with
   slab form, the f and g planes the pulls cross the slab's faces for);
 * each step: :func:`scalar_poisson_sharded` (rounds of k sweeps of B1's
   slab form on the slab extended by G = k + 1 planes a side, the boundary
-  bands of (s, s_prev) exchanged between rounds, H2 from the last) and
-  :func:`contact3d_sharded` (B2's, one rho plane a side);
+  bands of (s, s_prev) exchanged between rounds, under ``scalar_sliver``
+  as the shell's sliver, H2 from the last) and :func:`contact3d_sharded`
+  (B2's, one rho plane a side);
 * the capillogue steady state (6-leaf premac): :func:`capillogue_sharded`
   (B3's: the f and g planes, one bundle of the capillary fields' planes a
   side, and one exchange of the collided edge planes between its collide
@@ -32,10 +33,11 @@ B8b with ``ghosts=``; B9 is local) and exchanges the ghost planes with
   with ``mesh``): :func:`poisson_sweeps_sharded` (rounds of one launch of
   k <= 4 sweeps of B11b's slab form, the slab read in place with G = k
   band planes a side, the bands of each round's output exchanged before
-  the next, flags and rhs extended once: :func:`channel_slab_plan`), whose
-  last round's trailing stage (B7's ``emit="h2"``) emits H2 with the z
-  clamp at the domain's true edges only, from G = k + 1 band planes taken
-  from h; where :func:`channel_slab_plan` with ``h2=True`` refuses, psi and
+  the next, flags and rhs extended once: :func:`channel_slab_plan`; under
+  ``poisson_psi_halo`` at tau 1 each band after the first round rebuilt
+  from the neighbour's psi by ``lbm_psi_ghost_band``), whose last round's
+  trailing stage (B7's ``emit="h2"``) emits H2 with the z clamp at the
+  domain's true edges only, from G = k + 1 band planes; where :func:`channel_slab_plan` with ``h2=True`` refuses, psi and
   then :func:`substitute_obstacles_sharded` (local: the z pad at true edges
   only) and :func:`grad_fields_sharded` (B10a's, one psi plane a side);
 * the HCZ step: :func:`stream_bounce_macro_sharded` and
@@ -96,6 +98,8 @@ from ..ops.kernels.poisson import (
     poisson_sweeps,
     poisson_sweeps_plain,
 )
+from ..ops.kernels.psi_halo import pack as pack_psi_band
+from ..ops.kernels.psi_halo import psi_ghost_band, psi_ghost_band_plain
 from ..ops.kernels.scalar_poisson import scalar_wavefront, scalar_wavefront_plain
 from ..ops.kernels.stencil3d import (
     grad_fields,
@@ -133,6 +137,7 @@ __all__ = [
     "scalar_sharded_ok",
     "scalar_slab_plan",
     "channel_slab_plan",
+    "channel_slab_rounds",
     "channel_sharded_ok",
     "global_shape",
     "unported",
@@ -146,6 +151,7 @@ __all__ = [
     "laplacian_field_sharded",
     "capmac_sharded",
     "fused_epilogue_sharded",
+    "psi_refresh_ok",
     "poisson_sweeps_sharded",
     "substitute_obstacles_sharded",
     "grad_fields_sharded",
@@ -346,6 +352,22 @@ def channel_slab_plan(mesh: Mesh, h_shape, n_iters: int, h2: bool = False):
     return k, k, n_iters % k
 
 
+def channel_slab_rounds(mesh: Mesh, h_shape, n_iters: int, h2: bool = False):
+    """(rounds, depth, emitted) of the slab solve on the global [1, 19, Z,
+    Y, X] h, or None without a plan: the sweeps of each round of
+    :func:`channel_slab_plan` (with ``h2`` its trailing-stage plan where it
+    admits one, ``emitted``), and the band planes a side each round reads:
+    G, and G_f = k_f + 1 in the last round where it emits H2."""
+    plan = channel_slab_plan(mesh, h_shape, n_iters, h2=True) if h2 else None
+    emitted = plan is not None
+    plan = plan or channel_slab_plan(mesh, h_shape, n_iters)
+    if plan is None:
+        return None
+    k, G, r = plan
+    rounds = [k] * (n_iters // k) + [r] * (r > 0)
+    return rounds, [G] * (len(rounds) - 1) + [rounds[-1] + 1 if emitted else G], emitted
+
+
 def channel_sharded_ok(mesh: Mesh, h_shape, n_iters: int) -> bool:
     """Can B11b solve the global [B, 19, Z, Y, X] h (B = nb: one element a
     rank) on ``mesh``: the single-device kernel under :func:`dp_dispatch`,
@@ -493,14 +515,55 @@ def fused_epilogue_sharded(f, g, flags, rho, vel, density, pressure, force, dfai
     return epilogue(*args, _fg_ghosts(f, g, mesh), emit, **kw)
 
 
+def _sliver_planes(mesh: Mesh, Zl: int, G: int, shift: int, sender: bool) -> list:
+    """The positions in a band of G planes travelling ``shift`` (+1: the
+    sender's top G planes, -1: its bottom G) of the planes whose global z
+    is 1 and Z - 2 (None where the band holds none), as the sender
+    (``sender``) or the receiver counts them: the same on both sides."""
+    iz = mesh.iz if sender else mesh.iz - shift
+    first = iz * Zl + (Zl - G if shift > 0 else 0)
+    Z = Zl * mesh.nz
+    at = {(first + g) % Z: g for g in range(G)}
+    return [at.get(1), at.get(Z - 2)]
+
+
+def _sliver_xchg(band, mesh: Mesh, shift: int, Zl: int):
+    """:func:`~.halo.ring_halo` of an (s, s_prev) band [1, 2, G, Y, X]
+    under the shell sliver (JAX ``band_xchg`` :1492-1538): s whole, s_prev
+    as its columns x = 1, X - 2 and two planes, those of global z 1 and Z -
+    2 (zeros where the band holds neither: every rank sends as many bytes
+    as it receives), in one exchange; the receiver zero-fills the rest of
+    s_prev, which a sweep reads only where cmask > 0 (cells next to the
+    shell's obstacles)."""
+    _, _, G, Y, X = band.shape
+    zero = band.new_zeros((1, Y, X))
+    planes = [zero if g is None else band[:, 1, g] for g in
+              _sliver_planes(mesh, Zl, G, shift, True)]
+    got = ring_halo(torch.cat([band[:, 0].reshape(-1), band[:, 1][..., [1, X - 2]].reshape(-1),
+                               *(p.reshape(-1) for p in planes)]), mesh, shift)
+    n, nc = G * Y * X, 2 * G * Y
+    sp = torch.zeros((1, G, Y, X), dtype=band.dtype, device=band.device)
+    for i, g in enumerate(_sliver_planes(mesh, Zl, G, shift, False)):
+        if g is not None:
+            sp[:, g] = got[n + nc + i * Y * X:n + nc + (i + 1) * Y * X].view(1, Y, X)
+    cols = got[n:n + nc].view(1, G, Y, 2)
+    sp[..., 1], sp[..., X - 2] = cols[..., 0], cols[..., 1]
+    return torch.stack([got[:n].view(1, G, Y, X), sp], dim=1)
+
+
 def scalar_poisson_sharded(s2, cmask, rhs_scaled, mesh: Mesh, *, n_iters, dx=1.0, h_ext,
-                           plain=False):
+                           plain=False, shell_sliver=False):
     """B1 on the rank's slab; returns (H2, s2').  ``n_iters / k`` rounds of
     k sweeps on the slab extended by G = k + 1 planes a side
     (:func:`scalar_slab_plan`); cmask and rhs are extended once, the bands
     of (s, s_prev) are exchanged before each round (taken from the
     previous round's output, never from its input), and the last round
-    emits H2 with the z clamp at the domain's true edges only."""
+    emits H2 with the z clamp at the domain's true edges only.
+
+    ``shell_sliver`` (the caller holds the ``mag_flags_shell``
+    declaration; JAX ``shell_sliver`` :1428-1439): every band travels as
+    :func:`_sliver_xchg`'s sliver, about half the bytes, the same bits up
+    to the sign of a zero."""
     wavefront = scalar_wavefront_plain if plain else scalar_wavefront
     if dp_dispatch(mesh):
         s2o, h2 = wavefront(s2, cmask, rhs_scaled, n_iters=n_iters, emit="h2", dx=dx,
@@ -512,14 +575,20 @@ def scalar_poisson_sharded(s2, cmask, rhs_scaled, mesh: Mesh, *, n_iters, dx=1.0
     k, G = plan
     Zl = s2.shape[2]
     Ze = Zl + 2 * G
+
+    def xchg(band, shift):
+        if shell_sliver:
+            return _sliver_xchg(band, mesh, shift, Zl)
+        return ring_halo(band, mesh, shift)
+
     cr = _extend(torch.cat([cmask, rhs_scaled], dim=1), G, mesh)
     c_ext, r_ext = cr[:, :1].contiguous(), cr[:, 1:].contiguous()
     clamp = (G + 1 if mesh.iz == 0 else 1, G + Zl - 2 if mesh.iz == mesh.nz - 1 else Ze - 2)
-    bands = (ring_halo(s2[:, :, -G:], mesh, +1), ring_halo(s2[:, :, :G], mesh, -1))
+    bands = (xchg(s2[:, :, -G:], +1), xchg(s2[:, :, :G], -1))
     for _ in range(n_iters // k - 1):
         s2, (blo, bhi) = wavefront(s2, c_ext, r_ext, n_iters=k, emit=None, ghosts=bands,
                                    emit_bands=True)
-        bands = (ring_halo(bhi, mesh, +1), ring_halo(blo, mesh, -1))
+        bands = (xchg(bhi, +1), xchg(blo, -1))
     s2, h2 = wavefront(s2, c_ext, r_ext, n_iters=k, emit="h2", dx=dx, h_ext=h_ext,
                        ghosts=bands, slab_clamp=clamp)
     return h2, s2
@@ -555,8 +624,33 @@ def _edge_bands(h, G: int, mesh: Mesh):
     return ring_halo(h[:, :, -G:], mesh, +1), ring_halo(h[:, :, :G], mesh, -1)
 
 
+def psi_refresh_ok(tau, G: int, Zl: int) -> bool:
+    """Can a band of G planes of a slab of Zl planes be rebuilt from the
+    neighbour's psi (ROADMAP B-8, JAX ``body_psi`` :1155-1163): tau == 1
+    (the stored h a function of psi and the source) and 2 <= G < Zl (at G
+    == Zl the outermost plane can be a z-edge plane of the domain, whose
+    obstacles psi cannot give; one plane is the full exchange).  The
+    caller also holds the ``mag_flags_shell`` declaration."""
+    return float(tau) == 1.0 and 2 <= G < Zl
+
+
+def _psi_bands(h, psi, r_ext, G_ext: int, G: int, mesh: Mesh, plain: bool):
+    """The neighbours' G-plane bands of the next round rebuilt from their
+    psi (:mod:`~..ops.kernels.psi_halo`): one exchange a side of the packed
+    psi planes, innermost plane and x-edge columns, then
+    ``psi_ghost_band`` with the planes of the source ``r_ext`` (extended
+    by G_ext) under each band's outer planes."""
+    band = psi_ghost_band_plain if plain else psi_ghost_band
+    Zl, Y, X = h.shape[2:]
+    lo = ring_halo(pack_psi_band(h, psi, G, "lo"), mesh, +1)  # the rank below's top
+    hi = ring_halo(pack_psi_band(h, psi, G, "hi"), mesh, -1)  # the rank above's bottom
+    kw = dict(G=G, Y=Y, X=X, dtype=h.dtype)
+    return (band(lo, r_ext[:, :, G_ext - G:G_ext - 1], band="lo", **kw),
+            band(hi, r_ext[:, :, G_ext + Zl + 1:G_ext + Zl + G], band="hi", **kw))
+
+
 def poisson_sweeps_sharded(h, magnetic_flags, rhs_scaled, mesh: Mesh, *, tau, n_iters,
-                           plain=False, emit_h2=None, dx=1.0):
+                           plain=False, emit_h2=None, dx=1.0, psi_halo=False):
     """B11b on the rank's slab; returns (h', psi of the last sweep).  Rounds
     of :func:`channel_slab_plan`: each one launch of the slab form, which
     reads h in place and its two G-plane bands through their own pointers
@@ -568,11 +662,17 @@ def poisson_sweeps_sharded(h, magnetic_flags, rhs_scaled, mesh: Mesh, *, tau, n_
     ``emit_h2`` (the static field's 3 components): returns (h', H2, True)
     where the plan with ``h2=True`` admits it, the last round's trailing
     stage emitting H2 with the z clamp at the domain's true edges only
-    (:func:`slab_clamp`) from bands of G_f = k_f + 1 planes that it takes
-    from h (the round before it emits none; JAX exchanges k + 1 planes every
-    round, :1083-1093), flags and rhs extended by max(G, G_f); else (h',
-    psi, False), psi for the caller's substitution and gradient (JAX's
-    fall-through)."""
+    (:func:`slab_clamp`) from bands of G_f = k_f + 1 planes of h'
+    (JAX exchanges k + 1 planes every round, :1083-1093), flags and rhs
+    extended by max(G, G_f); else (h', psi, False), psi for the caller's
+    substitution and gradient (JAX's fall-through).
+
+    ``psi_halo`` (the caller holds the ``mag_flags_shell`` declaration;
+    JAX ``psi_halo`` :1039-1046): each round after the first whose bands
+    :func:`psi_refresh_ok` admits reads bands rebuilt from the round
+    before's psi (:func:`_psi_bands`; that round emits psi, not bands),
+    the final h2 round's G_f planes too: the same exchanges, fewer bytes,
+    the same bits as the full-h bands."""
     sweeps = poisson_sweeps_plain if plain else poisson_sweeps
     if dp_dispatch(mesh):
         if emit_h2 is None:
@@ -581,37 +681,38 @@ def poisson_sweeps_sharded(h, magnetic_flags, rhs_scaled, mesh: Mesh, *, tau, n_
         kw = dict(emit="h2", dx=dx, h_ext=emit_h2) if emitted else {}
         return (*sweeps(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters, **kw),
                 emitted)
-    shape = global_shape(h.shape, mesh)
-    plan = channel_slab_plan(mesh, shape, n_iters, h2=True) if emit_h2 is not None else None
-    emitted = plan is not None
-    plan = plan or channel_slab_plan(mesh, shape, n_iters)
-    if plan is None:
+    planned = channel_slab_rounds(mesh, global_shape(h.shape, mesh), n_iters,
+                                  h2=emit_h2 is not None)
+    if planned is None:
         raise ValueError("no slab plan for B11b: gate on channel_sharded_ok")
-    k, G, r = plan
-    Zl = h.shape[2]
-    rounds = [k] * (n_iters // k) + [r] * (r > 0)
-    G_f = rounds[-1] + 1 if emitted else G
-    G_ext = max(G, G_f)
+    rounds, depth, emitted = planned
+    # G: the plan's band planes (depth[0] wherever a round before the last
+    # or a last round without the trailing stage reads it)
+    G, G_ext, Zl = depth[0], max(depth), h.shape[2]
     f_ext, r_ext = _extend_flags_rhs(magnetic_flags, rhs_scaled, G_ext, mesh)
 
     def extended(g):
         """The flags and source of the slab extended by g planes a side."""
         return f_ext[:, :, G_ext - g:G_ext + Zl + g], r_ext[:, :, G_ext - g:G_ext + Zl + g]
 
-    # the last round with the trailing stage takes its bands from h, so the
-    # round before it emits none (and a single round exchanges only those)
-    bands = _edge_bands(h, G, mesh) if len(rounds) > 1 or not emitted else None
-    for i, kk in enumerate(rounds[:-1]):
-        emit_bands = not (emitted and i == len(rounds) - 2)
+    bands = _edge_bands(h, depth[0], mesh)
+    for kk, g in zip(rounds[:-1], depth[1:]):
+        refresh = psi_halo and psi_refresh_ok(tau, g, Zl)
+        # the kernel emits the next round's bands where they are G planes
+        # of h; G_f planes of h are sliced from h'
+        emit_bands = g == G and not refresh
         out = sweeps(h, *extended(G), tau=tau, n_iters=kk, ghosts=bands, emit_bands=emit_bands,
-                     emit_psi=False)
+                     emit_psi=refresh)
         h = out[0]
-        if emit_bands:
+        if refresh:
+            bands = _psi_bands(h, out[1], r_ext, G_ext, g, mesh, plain)
+        elif emit_bands:
             bands = (ring_halo(out[2][1], mesh, +1), ring_halo(out[2][0], mesh, -1))
+        else:
+            bands = _edge_bands(h, g, mesh)
     if emitted:
-        h, h2 = sweeps(h, *extended(G_f), tau=tau, n_iters=rounds[-1],
-                       ghosts=_edge_bands(h, G_f, mesh), emit="h2", dx=dx, h_ext=emit_h2,
-                       clamp=slab_clamp(mesh, Zl))
+        h, h2 = sweeps(h, *extended(depth[-1]), tau=tau, n_iters=rounds[-1], ghosts=bands,
+                       emit="h2", dx=dx, h_ext=emit_h2, clamp=slab_clamp(mesh, Zl))
         return h, h2, True
     out = sweeps(h, *extended(G), tau=tau, n_iters=rounds[-1], ghosts=bands)
     return (*out, False) if emit_h2 is not None else out

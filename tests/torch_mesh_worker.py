@@ -1,7 +1,8 @@
 """Ranks of the port's meshed step, for tests/test_torch_parallel.py,
 tests/test_torch_parallel_channel.py (``run_routes``: the channel-form and
-HCZ routes) and tests/test_torch_batch.py (``run_batch``: a batch mesh with
-several elements a rank).
+HCZ routes), tests/test_torch_batch.py (``run_batch``: a batch mesh with
+several elements a rank) and tests/test_torch_psi_halo.py (``run_psi``:
+the meshed solves' exchange options).
 
 Imports torch, numpy and the port only: the test spawns these ranks as
 processes (``spawn`` start method), which must not load JAX.  Each rank
@@ -758,3 +759,182 @@ def run_mesh3d(out_dir, axes, shape, jobs, steps=3):
                                           steps, str(out_dir)),
                        nprocs=world, start_method="spawn")
     return {name: dict(np.load(pathlib.Path(out_dir) / f"{name}.npz")) for name in jobs}
+
+
+# ------------------------------------------------------------------ exchange options
+#: the solves of ``run_psi`` on (batch, z) = (2, 2), each with its option
+#: on and off: name -> (form, h's storage, sweeps, static field).  psi, h2
+#: and bf16: the channel-form solve at tau 1 on the shell with
+#: ``psi_halo`` (rounds of 3, the h2 final round on 4 planes); sliver: the
+#: scalar carry with ``shell_sliver``
+PSI_SOLVES = {"psi": ("channel", "float32", 30, False), "h2": ("channel", "float32", 30, True),
+              "bf16": ("channel", "bfloat16", 30, True), "sliver": ("scalar", "float32", 12, True)}
+#: the steps of ``run_psi``: the flagship at tau 1 without the scalar carry,
+#: a batch of 2, primed on the mesh (C: one element a rank primes to the
+#: capillogue steady state) or never (U19), each also with
+#: ``poisson_psi_halo=False`` (``<route>_full``)
+PSI_ROUTES = ("C", "U19")
+PSI_STEPS = 3
+PSI_ITERS = 12
+PSI_FIELDS = ("f", "g", "h", "rho", "vel", "density", "pressure")
+PSI_FIELD = (0.0, 85.0, 0.0)
+
+
+def psi_config(b):
+    """(params keywords, (rho, density, vel, flags, magnetic_flags)) of
+    element ``b`` of ``run_psi``'s batch: the flagship scene at tau 1 with
+    the scalar carry off, its rho moved by noise from the element's seed."""
+    rho, den, vel, flags, mflags = flagship_fields()
+    n = np.random.default_rng(5 + 101 * b).uniform(-1, 1, rho.shape)
+    rho = (rho * (1 + 1e-3 * n)).astype(np.float32)
+    kw = dict(FLAGSHIP, h_ext_axis=1, scalar_carry=False, poisson_iters=PSI_ITERS)
+    return kw, (rho, rho.copy(), vel, flags, mflags)
+
+
+def psi_state(change=None, batch=2):
+    """(params, whole state) of ``run_psi``'s steps: the elements of
+    :func:`psi_config` stacked."""
+    from lbm_ferrofluid_tpu_torch.models import SimulationParams, init_ferrofluid_state
+
+    kw, _ = psi_config(0)
+    fields = [np.concatenate(parts) for parts in zip(*(psi_config(b)[1]
+                                                        for b in range(batch)))]
+    params = SimulationParams(**kw).replace(**(change or {}))
+    return params, init_ferrofluid_state(params, *fields, device="cpu")
+
+
+def psi_reference(route, b):
+    """One device's ``PSI_STEPS`` steps of element ``b`` on ``route`` (C
+    primed), as arrays."""
+    from lbm_ferrofluid_tpu_torch.models import (
+        SimulationParams, ferrofluid_step, init_ferrofluid_state, prime_premac,
+    )
+    from lbm_ferrofluid_tpu_torch.models.state import to_numpy
+
+    kw, fields = psi_config(b)
+    params = SimulationParams(**kw)
+    st = init_ferrofluid_state(params, *fields, device="cpu")
+    if route == "C":
+        st = prime_premac(params, st, device="cpu")
+    for _ in range(PSI_STEPS):
+        st = ferrofluid_step(params, st, device="cpu")
+    return _flat(to_numpy(st))
+
+
+def psi_solve_inputs(form, storage, res=RES, seed=25):
+    """The whole domain's inputs of a solve of :data:`PSI_SOLVES`: the
+    shell's magnetic obstacles, h (or the scalar pair and its cmask) and
+    the source from the seed."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.scalar_poisson import make_cmask
+
+    rng = np.random.default_rng(seed)
+    mf = np.full((1, 1, *res), OBSTACLE, np.uint8)
+    mf[..., 1:-1, :, 1:-1] = FLUID
+    rhs = torch.from_numpy((rng.uniform(-1e-2, 1e-2, (1, 1, *res)) * (mf == FLUID))
+                           .astype(np.float32))
+    mf = torch.from_numpy(mf)
+    if form == "scalar":
+        mask = (mf == FLUID).float()
+        s2 = torch.cat([torch.from_numpy(rng.uniform(-1, 1, (1, 1, *res)).astype(np.float32))
+                        * mask for _ in range(2)], dim=1)
+        return s2, make_cmask(mf), rhs
+    dt = getattr(torch, storage)
+    return torch.from_numpy(rng.uniform(-0.1, 0.1, (1, 19, *res)).astype(np.float32)).to(dt), \
+        mf, rhs
+
+
+def psi_main(rank, world, port, out_dir):
+    """One rank of (batch, z) = (2, 2): each solve of :data:`PSI_SOLVES`
+    on its z slab with the option on and off (``ring_halo``'s bytes and
+    exchanges counted around each, the outputs compared, the sliver's up to
+    the sign of a zero), priming refused where a magnetic obstacle breaks
+    the shell on a slab's edge plane (``check.shell_refused``), then each
+    route of :data:`PSI_ROUTES` and its ``_full`` twin stepped
+    ``PSI_STEPS`` times and gathered; rank 0 writes ``psi.npz``."""
+    import torch
+    import torch.distributed as dist
+
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac
+    from lbm_ferrofluid_tpu_torch.models.state import to_numpy
+    from lbm_ferrofluid_tpu_torch.parallel import (
+        gather_state, initialize_distributed, make_mesh, ring_halo, shard_state, step3d,
+    )
+
+    torch.set_num_threads(1)
+    assert initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo") == world
+    out = {}
+    try:
+        mesh = make_mesh(("batch", "z"), (2, 2), device="cpu")
+        Zl = RES[0] // mesh.nz
+        for case, (form, storage, n, emit) in PSI_SOLVES.items():
+            args = [x[:, :, mesh.iz * Zl:(mesh.iz + 1) * Zl].contiguous()
+                    for x in psi_solve_inputs(form, storage)]
+            res = {}
+            for on in (True, False):
+                n0, b0 = ring_halo.exchanges, ring_halo.sent_bytes
+                if form == "scalar":
+                    got = step3d.scalar_poisson_sharded(*args, mesh, n_iters=n, h_ext=PSI_FIELD,
+                                                        shell_sliver=on)
+                    got = [x + 0.0 for x in got]  # -0.0 + 0.0 is +0.0
+                else:
+                    got = step3d.poisson_sweeps_sharded(
+                        *args, mesh, tau=1.0, n_iters=n, psi_halo=on,
+                        emit_h2=PSI_FIELD if emit else None)[:2]
+                res[on] = got
+                tag = "on" if on else "off"
+                out[f"solve.{case}.bytes_{tag}"] = ring_halo.sent_bytes - b0
+                out[f"solve.{case}.exchanges_{tag}"] = ring_halo.exchanges - n0
+            equal = all(torch.equal(a, b) for a, b in zip(res[True], res[False]))
+            every = [None] * world
+            dist.all_gather_object(every, equal)
+            out[f"solve.{case}.equal"] = all(every)
+        # the shell declaration checked over the whole domain at priming: a
+        # magnetic obstacle off the shell on slab 0's top plane, which that
+        # slab's own interior does not hold
+        params, whole = psi_state()
+        mf = whole.magnetic_flags.clone()
+        mf[:, :, Zl - 1, 3, 5] = OBSTACLE
+        try:
+            prime_premac(params, shard_state(whole.replace(magnetic_flags=mf), mesh), mesh=mesh)
+            out["check.shell_refused"] = False
+        except ValueError as e:
+            out["check.shell_refused"] = "mag_flags_shell" in str(e)
+        for route in PSI_ROUTES:
+            for full in (False, True):
+                params, whole = psi_state({"poisson_psi_halo": False} if full else None)
+                st = shard_state(whole, mesh)
+                if route == "C":
+                    st = prime_premac(params, st, mesh=mesh)
+                assert st.h.shape[1] == 19 and (st.premac is None) == (route == "U19")
+                b0 = ring_halo.sent_bytes
+                for _ in range(PSI_STEPS):
+                    st = ferrofluid_step(params, st, mesh=mesh)
+                name = route + "_full" * full
+                out[f"{name}.stats.bytes"] = (ring_halo.sent_bytes - b0) / PSI_STEPS
+                gathered = gather_state(st, mesh)
+                out.update({f"{name}.{k}": v for k, v in _flat(to_numpy(gathered)).items()})
+        if rank == 0:
+            np.savez(pathlib.Path(out_dir) / "psi.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_psi(out_dir):
+    """:func:`psi_main` on 4 spawned ranks: {"solve.<case>": {key: value},
+    route: {field or "stats.bytes": array}} of rank 0."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(psi_main, args=(4, free_port(), str(out_dir)), nprocs=4,
+                       start_method="spawn")
+    flat = dict(np.load(pathlib.Path(out_dir) / "psi.npz"))
+    res = {}
+    for key, v in flat.items():
+        if key.startswith("solve."):
+            _, case, field = key.split(".", 2)
+            res.setdefault(f"solve.{case}", {})[field] = v
+        else:
+            name, field = key.split(".", 1)
+            res.setdefault(name, {})[field] = v
+    return res
