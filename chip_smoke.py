@@ -33,7 +33,8 @@ Phases, each printing one JSON line; any failed check exits non-zero:
 
 1. device: the card's name, count and power limit (``nvidia-smi``);
 2. build: one nvcc process per CUDA source, all started together, link the
-   kernel library from ``csrc/``;
+   kernel library from ``csrc/`` (the default run first starts phase 5b's
+   2D processes, which launch none of its kernels, and builds beside them);
 3. kernels: each kernel against its plain PyTorch version on seeded inputs
    with an interior obstacle block.  Ferrofluid kernels (B1 scalar Poisson
    sweeps + H2 at 30 sweeps and at 7, which its pass depth does not divide,
@@ -159,9 +160,17 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    neighbours) bit for bit to its plain version with a hash of its bits,
    beside a regular pass and its bound; the h2 call timed in turns against the psi route (B11b's psi,
    the substitution, B10a, the H2 ops); C and U ms a step at 256^3 on
-   both routes in turns, with their launches a step (``route_turns``);
-5c. the north star and the demos (after phase 5), each with the counters
-   zeroed just before it and read just after:
+   both routes in turns, with their launches a step (``route_turns``).
+   Each timed route of phases 6 and 8 (R, C, E and U; turbo, the
+   bfloat16 channel form, bfloat16 E and U) carries ``traffic``
+   (:func:`traffic_row`): the bytes a cell of the port's traffic model
+   (``models/traffic.py``), the rate they make at its MLUPS and its share
+   of 3.35 TB/s, and beside them the bytes a cell of the step's kernel
+   calls by their ``cost``;
+5c. the north star and the demos (demo and dibr after phase 5; spikes,
+   demos, native and inverse before phase 3, while phase 5b's 2D
+   processes run), each with the counters zeroed just before it and read
+   just after:
    - spikes: the spike-pattern golden (tests/golden/
      rosensweig3d_spikes_ref.npz, the reference solver's perturbed
      64x33x64 Rosensweig pool) from its initial fields, 4000 steps of the
@@ -202,14 +211,18 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    at 64x64 in bfloat16 against float32 with tests/test_bf16_physics.py's
    assertions, these ten runs in three concurrent processes of this script
    on the card (``--2d-job``: host-bound runs, each process checking that
-   it launches no kernel) while phase 7's first two parts, which time
-   nothing, run in this process; then, in this process alone, the single-phase BGK and KBC,
+   it launches no kernel), started before the build in the default run,
+   while this process builds the kernels and runs phase 7's first two
+   parts and its long horizon, phase 5c's spikes, demos, native and
+   inverse and the 2D goldens, before phase 3 (their lines, and the
+   build's, say ``beside_2d_jobs``: their times were taken on a card and
+   host those processes share); then, in this process alone,
+   the single-phase BGK and KBC,
    HCZ and ferrofluid (scalar carry, channel form) 2D steps timed at
    native size and at 2048^2 with their CUDA kernel launches a step from
    ``torch.profiler``;
-7. bfloat16 storage of f, g and h (the JAX package's turbo mode; its
-   forms and routes run while phase 5b's 2D processes do, the rest
-   between phases 5b and 6): each bfloat16 form (B3 at the magnetic tau 1
+7. bfloat16 storage of f, g and h (the JAX package's turbo mode; it runs
+   before phase 3, while phase 5b's 2D processes do): each bfloat16 form (B3 at the magnetic tau 1
    and 0.8, B4, B5 with and without ``emit_mac``, B11b at tau 1 and 0.8
    and 30 and 7 sweeps at 34x66x130 and 130x66x130, with and without the
    trailing stage; B8b, B8a, B9 in the
@@ -320,10 +333,19 @@ class CheckFailed(Exception):
 _T0 = time.monotonic()
 
 
+#: set while phase 5b's 2D processes share the card with this one
+#: (:func:`run_2d_jobs`): a phase line emitted then says so
+_BESIDE_2D_JOBS = []
+
+
 def emit(obj) -> None:
-    """One JSON line; a phase's line with the seconds since the start."""
+    """One JSON line; a phase's line with the seconds since the start, and
+    ``beside_2d_jobs`` where its times were taken with phase 5b's 2D
+    processes on the card."""
     if "phase" in obj:
         obj = dict(obj, clock_s=time.monotonic() - _T0)
+        if _BESIDE_2D_JOBS:
+            obj["beside_2d_jobs"] = True
     print(json.dumps(obj), flush=True)
 
 
@@ -1685,6 +1707,63 @@ def epilogue_inputs(K, params, s5):
                 rho_ca=K["B2"].wrapper(rho_pre, s5.flags, params.contact_angle))
 
 
+def step_cost_bytes(K, params, st, kids):
+    """Bytes of one step's kernel calls by their ``cost``
+    (``ops/kernels/*.py``), per entry of ``kids`` (kernel ids; "B5
+    emit_mac" is B5 with its emission), on the state ``st`` of the route.
+    A cost reads the flags, the storage types and which optional inputs a
+    call passes, never the fields' values, so the state's own fields stand
+    in for the step's intermediates (held to the ``measure`` rows' bytes
+    where a phase has them, :func:`traffic_row`)."""
+    n, flags, nones = params.poisson_iters, st.flags, (None,) * 8
+    calls = {
+        "B1": ((st.h, st.cmask, None), dict(n_iters=n, emit="h2")),
+        "B2": ((st.rho, flags), {}),
+        "B3": ((st.f, st.g, flags, *nones, st.magnetic_flags), dict(emit_rhs=True)),
+        "B4": ((st.f, st.g, flags, None, None), {}),
+        "B5": ((st.f, st.g, flags, *nones[:7]), dict(emit_mac=False)),
+        "B5 emit_mac": ((st.f, st.g, flags, *nones[:7]), dict(emit_mac=True)),
+        # H2 given: the Kelvin form of the capillary stage
+        "B6": ((None, None, None, None, st.rho, None, flags, None, None, None), {}),
+        "B11b": ((st.h, st.magnetic_flags, None), emit_kw(params, "h2", params.tau, n)),
+    }
+    return {kid: K[kid.split()[0]].cost(*calls[kid][0], **calls[kid][1])[0] for kid in kids}
+
+
+def traffic_row(params, st, mlups, kernel_bytes, measured=None):
+    """The traffic figures of a timed route on ``st``'s grid, as a
+    benchmark's ``pct_roofline`` reckons them: the port's model bytes a
+    cell (``models/traffic.py``, for the route the state's premac and h
+    name and its storage), the rate they make at ``mlups`` and its share of
+    the data sheet's 3.35 TB/s; beside them the bytes a cell of the step's
+    kernel calls by their ``cost`` (``kernel_bytes``, from
+    :func:`step_cost_bytes`), held to the bytes of the ``measure`` rows of
+    the same calls (``measured``: kernel id -> bytes) where the phase has
+    them."""
+    from lbm_ferrofluid_tpu_torch.models.traffic import model_bytes_per_cell
+    from lbm_ferrofluid_tpu_torch.ops.kernels._lib import elem_bytes
+
+    for kid, b in (measured or {}).items():
+        check(kernel_bytes[kid] == b, f"traffic: {kid}'s cost on the state {kernel_bytes[kid]} "
+                                      f"is not its measured call's {b}")
+    res = tuple(st.f.shape[2:])
+    cells = math.prod(res)
+    scalar = st.h.shape[1] == 2
+    premac = None if st.premac is None else len(st.premac)
+    b_fg, b_h = elem_bytes(st.f), 4 if scalar else elem_bytes(st.h)
+    model = model_bytes_per_cell(params.poisson_iters, b_fg, b_h, res, scalar, premac=premac)
+    cost = sum(kernel_bytes.values()) / cells
+    rate = mlups * 1e6
+    return {"premac": premac, "solve": "scalar carry" if scalar else "channel form",
+            "b_fg": b_fg, "b_h": b_h, "mlups": mlups,
+            "model_bytes_per_cell": model, "model_GBps": rate * model / 1e9,
+            "pct_of_3.35TBps": 100 * rate * model / HBM_BYTES_PER_S,
+            "kernel_cost_bytes_per_cell": cost,
+            "kernel_cost_by_kernel": {kid: b / cells for kid, b in kernel_bytes.items()},
+            "kernel_cost_GBps": rate * cost / 1e9,
+            "kernel_cost_pct_of_3.35TBps": 100 * rate * cost / HBM_BYTES_PER_S}
+
+
 def phase_flagship(dev, K, card):
     import torch
 
@@ -1717,9 +1796,13 @@ def phase_flagship(dev, K, card):
                              blocks_per_sm=blocks_per_sm("lbm_scalar_pass_occupancy",
                                                          pl.k, pl.ty))
     out["B3"]["collide_blocks_per_sm"] = blocks_per_sm("lbm_cap_collide_occupancy", 0)
+    kids = ("B1", "B2", "B3")
+    traffic = traffic_row(params, st, stats["mlups"], step_cost_bytes(K, params, st, kids),
+                          {kid: out[kid]["bytes"] for kid in kids})
     emit({"phase": "flagship", "scene": "rosensweig_3d", "res": [256, 256, 256],
           "mlups": stats["mlups"], "seconds_30_steps": stats["seconds"],
-          "peak_mem_gb": peak / 1e9, "card": card, "per_kernel": out, "ok": True})
+          "peak_mem_gb": peak / 1e9, "card": card, "per_kernel": out, "traffic": traffic,
+          "ok": True})
     return out
 
 
@@ -2000,6 +2083,9 @@ def phase_channel_flagship(dev, K, card, ptxas=None):
     del psi_sub
     trail = trail_report(K, params, st, ptxas)
     out["B11b emit"] = trail["h2"]
+    traffic = traffic_row(params, st, stats["mlups"],
+                          step_cost_bytes(K, params, st, ("B11b", "B2", "B3")),
+                          {"B11b": trail["h2"]["bytes"]})
     routes = {"C": route_turns(params, st, dev)}
     del st
     torch.cuda.empty_cache()
@@ -2014,7 +2100,7 @@ def phase_channel_flagship(dev, K, card, ptxas=None):
           "solve": "channel form (scalar_carry=False)", "mlups": stats["mlups"],
           "ms_per_step": stats["seconds"] / stats["steps"] * 1e3,
           "seconds_20_steps": stats["seconds"], "peak_mem_gb": peak / 1e9, "card": card,
-          "per_kernel": out, "trailing_stage": trail,
+          "per_kernel": out, "trailing_stage": trail, "traffic": traffic,
           "routes_ms_a_step": {k: v[0] for k, v in routes.items()},
           "routes_launches_a_step": {k: v[1] for k, v in routes.items()}, "ok": True})
     return out
@@ -2037,6 +2123,12 @@ def timed_steps(params, state, step, dev, n_steps, warmup):
                    "steps": n_steps}
 
 
+#: the kernel calls of a step of the un-carried route in channel form (U)
+#: and of the epilogue steady state with the scalar carry (E)
+UNCARRIED_KIDS = ("B4", "B11b", "B2", "B6", "B5")
+EPILOGUE_KIDS = ("B1", "B2", "B6", "B5 emit_mac")
+
+
 def phase_epilogue_flagship(dev, K, card, ptxas=None):
     """bench.py's Rosensweig scene at 256^3 on the two routes of B5: the
     un-carried step (channel-form h) and the epilogue steady state (scalar
@@ -2055,6 +2147,8 @@ def phase_epilogue_flagship(dev, K, card, ptxas=None):
     check(su.premac is None and su.h.shape[1] == 19, "256^3 un-carried: the state changed form")
     out["uncarried"] = dict(stats, ms_per_step=stats["seconds"] / stats["steps"] * 1e3,
                             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    uncarried_bytes = step_cost_bytes(K, params, su, UNCARRIED_KIDS)
+    out["uncarried"]["traffic"] = traffic_row(params, su, stats["mlups"], uncarried_bytes)
     del su
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2073,6 +2167,13 @@ def phase_epilogue_flagship(dev, K, card, ptxas=None):
         per_kernel[label] = measure(K, "B5", args, kw, n, n, f"{label} at 256^3")
     per_kernel["B5"]["plans"] = b5_flagship_plans(K, args, kw, ptxas)
     out["per_kernel"] = per_kernel
+    out["epilogue_steady_state"]["traffic"] = traffic_row(
+        params, s5, out["epilogue_steady_state"]["mlups"],
+        step_cost_bytes(K, params, s5, EPILOGUE_KIDS),
+        {"B5 emit_mac": per_kernel["B5 emit_mac"]["bytes"]})
+    # B5 without the emission (the un-carried step's) on the same flags
+    check(uncarried_bytes["B5"] == per_kernel["B5"]["bytes"],
+          "traffic: B5's cost on the un-carried state is not its measured call's")
     emit(dict(out, ok=True))
     return per_kernel
 
@@ -3315,7 +3416,8 @@ def phase_demo(dev, kernels_pkg, card, steps=100, io_interval=50, image_size=256
     triangle set on the card equal to the host's within ``TRI_ATOL``;
     ``soft_rasterize`` on the card against the CPU for a 64-pixel sphere
     within ``RASTER_ABS`` (in float64; float32 reported).  ms a frame of
-    each path, ms a step of the demo's steps.  Frames are ``image_size``
+    each path (the two frames compared: mesh and image, no PNG), ms a step
+    of the demo's steps.  Frames are ``image_size``
     pixels a side (the driver's default), and the pipeline's triangle
     budget the power of 2 of the host mesh, at least ``min_budget`` (the
     JAX package's default)."""
@@ -3330,7 +3432,7 @@ def phase_demo(dev, kernels_pkg, card, steps=100, io_interval=50, image_size=256
     from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
     from lbm_ferrofluid_tpu_torch.render import (
         _bucket_mesh, _image, default_renderer, make_render_pipeline, phi_to_mesh,
-        phi_to_mesh_torch, render_phi_frame, soft_rasterize, vertices_to_faces,
+        phi_to_mesh_torch, soft_rasterize, vertices_to_faces,
     )
     from lbm_ferrofluid_tpu_torch.utils.io import read_png
 
@@ -3376,8 +3478,15 @@ def phase_demo(dev, kernels_pkg, card, steps=100, io_interval=50, image_size=256
                       0.68)
 
     pipe = make_render_pipeline(res, renderer=renderer, budget=budget, device=dev)
+    ms = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     img_h = host_frame()
+    torch.cuda.synchronize()
+    ms["host"] = (time.perf_counter() - t0) * 1e3
     img_d, count = pipe(phi)
+    torch.cuda.synchronize()
+    ms["pipeline"] = (time.perf_counter() - t0) * 1e3 - ms["host"]
     check(int(count) == len(faces) <= budget,
           f"demo: device mesh {int(count)} triangles, host {len(faces)}, budget {budget}")
     d = (img_d - img_h).abs()
@@ -3392,18 +3501,6 @@ def phase_demo(dev, kernels_pkg, card, steps=100, io_interval=50, image_size=256
                         "bar": TRI_ATOL}
     check(int(tcount) == len(faces) and dist <= TRI_ATOL,
           f"demo: device triangle set off the host's: {out['triangles']}")
-    with tempfile.TemporaryDirectory() as tmp:
-        ms = {}
-        for label, fn in (("host", lambda: render_phi_frame(phi, f"{tmp}/h.png", res,
-                                                            renderer=renderer)),
-                          ("pipeline", lambda: render_phi_frame(phi, f"{tmp}/p.png", res,
-                                                                pipeline=pipe))):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(2):
-                fn()
-            torch.cuda.synchronize()
-            ms[label] = (time.perf_counter() - t0) / 2 * 1e3
     out.update(faces=len(faces), bucket=bucket, budget=budget, ms_per_frame=ms)
     # the rasterizer on the card against the CPU: a sphere at 64 pixels
     n = 12
@@ -3531,6 +3628,10 @@ def phase_bf16_flagships(dev, K, card, ptxas=None):
     for kid, n in (("B3", K["B3"].module.N_LAUNCHES), ("B4", 1)):
         per_kernel[kid] = measure(K, kid, *calls[kid], n, 0 if kid == "B4" else n,
                                   f"{kid} bf16 at 256^3", rows=bf16_rows)
+    out["turbo"]["traffic"] = traffic_row(
+        p16, st, out["turbo"]["mlups"], step_cost_bytes(K, p16, st, ("B1", "B2", "B3")),
+        {"B1": K["B1"].cost(*calls["B1"][0], **calls["B1"][1])[0],
+         "B3": per_kernel["B3"]["bytes"]})
     per_kernel["B3"]["split"] = launch_split(
         [capillogue, fused_step], lambda: K["B3"].wrapper(*calls["B3"][0], **calls["B3"][1]),
         reps=10)
@@ -3552,12 +3653,17 @@ def phase_bf16_flagships(dev, K, card, ptxas=None):
     trail = trail_report(K, pc, st, ptxas, bf16=True)
     per_kernel["B11b emit"] = trail["h2"]
     out["trailing_stage"] = trail
+    out["channel_form"]["traffic"] = traffic_row(
+        pc, st, out["channel_form"]["mlups"], step_cost_bytes(K, pc, st, ("B11b", "B2", "B3")),
+        {"B11b": trail["h2"]["bytes"]})
     del st, args
 
     _, s16 = turbo(params, rosensweig_3d(res=res, mag_strength=85.0, device=dev)[1], dev)
     su = steps("uncarried", p16, s16, lambda p, s: timed_steps(p, s, ferrofluid_step, dev,
                                                                n_steps=20, warmup=10))
     check(su.premac is None and su.h.dtype == torch.bfloat16, "256^3 bf16 un-carried")
+    out["uncarried"]["traffic"] = traffic_row(p16, su, out["uncarried"]["mlups"],
+                                              step_cost_bytes(K, p16, su, UNCARRIED_KIDS))
     del su
     s5 = steps("epilogue_steady_state", p16, epilogue_state(p16, dev)(s16, False), bench)
     check(len(s5.premac) == 5, "256^3 bf16 epilogue: the state changed form")
@@ -3569,6 +3675,10 @@ def phase_bf16_flagships(dev, K, card, ptxas=None):
         per_kernel[label] = measure(K, "B5", args, kw, n, n, f"{label} bf16 at 256^3",
                                     rows=bf16_rows)
     per_kernel["B5"]["plans"] = b5_flagship_plans(K, args, kw, ptxas)
+    out["epilogue_steady_state"]["traffic"] = traffic_row(
+        p16, s5, out["epilogue_steady_state"]["mlups"],
+        step_cost_bytes(K, p16, s5, EPILOGUE_KIDS),
+        {"B5 emit_mac": per_kernel["B5 emit_mac"]["bytes"]})
     del s5, d, args
     torch.cuda.empty_cache()
 
@@ -3903,38 +4013,70 @@ def job_2d(job_json) -> int:
     return 0
 
 
-def run_2d_jobs(jobs, meanwhile=()):
-    """The 2D jobs as concurrent processes on the card (``--2d-job``), and
-    the callables ``meanwhile`` in this process while they run: the jobs'
-    rows, in order, and the callables' results; a failing process fails the
-    phase, and a failing callable stops the processes."""
+def jobs_2d(steps=250, bf16_steps=(1000, 2000)):
+    """The 2D jobs of :func:`phase_2d`: the scenes of each group of
+    ``SCENE_GROUPS_2D`` for ``steps``, and ``rosensweig_2d`` in float32
+    and bfloat16 to each of ``bf16_steps``."""
+    check(sorted(n for g in SCENE_GROUPS_2D for n in g) == sorted(SCENES_2D),
+          "SCENE_GROUPS_2D does not hold every 2D scene once")
+    jobs = [{"kind": "scenes", "names": list(g), "steps": steps} for g in SCENE_GROUPS_2D]
+    return jobs + [{"kind": "rosensweig_2d", "dtype": dtype, "steps": list(bf16_steps)}
+                   for dtype in ("float32", "bfloat16")]
+
+
+def start_2d_jobs(jobs):
+    """The 2D jobs started as concurrent processes on the card
+    (``--2d-job``): (jobs, processes, start time).  Until
+    :func:`run_2d_jobs` has waited for them, phase lines say
+    ``beside_2d_jobs``."""
     import os
 
     procs = start_processes([[str(ROOT / "chip_smoke.py"), "--2d-job", json.dumps(j)]
                              for j in jobs], [dict(os.environ)] * len(jobs))
+    _BESIDE_2D_JOBS.append(True)
+    return jobs, procs, time.perf_counter()
+
+
+def run_2d_jobs(started, meanwhile=()):
+    """The callables ``meanwhile`` in this process while the 2D jobs
+    ``started`` (:func:`start_2d_jobs`) run, then the jobs' end: their
+    rows, in order, the callables' results and the jobs' wall seconds; a
+    failing process fails the phase, and a failing callable stops the
+    processes."""
+    import os
+
+    import torch
+
+    jobs, procs, t0 = started
+    # a core for each job's one thread (its steps are host-bound)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, min(threads, (os.cpu_count() or 1) - len(jobs))))
     try:
         during = [fn() for fn in meanwhile]
+        outs = wait_processes("2D jobs", procs, JOBS_2D_TIMEOUT, "JOB_2D")
     except BaseException:
         stop_processes(procs)
         raise
-    outs = wait_processes("2D jobs", procs, JOBS_2D_TIMEOUT, "JOB_2D")
+    finally:
+        _BESIDE_2D_JOBS.clear()
+        torch.set_num_threads(threads)
     for job, out in zip(jobs, outs):
         check(len(out) == 1, f"2D job {job}: {len(out)} rows")
-    return [out[0] for out in outs], during
+    return [out[0] for out in outs], during, time.perf_counter() - t0
 
 
-def phase_2d(dev, kernels_pkg, card, steps=250, big=(2048, 2048), bf16_steps=(1000, 2000),
-             meanwhile=()):
+def phase_2d(dev, kernels_pkg, card, big=(2048, 2048), meanwhile=(), started=None):
     """Each 2D scene at its demo's default resolution (:func:`scene_2d_run`,
-    ``steps`` = 250; 1000 before the block route's phase ``mesh3d`` took
-    their card time, 500 before its runs at two elements a rank did: fewer
+    250 steps; 1000 before the block route's phase ``mesh3d`` took their
+    card time, 500 before its runs at two elements a rank did: fewer
     processes then share the card with the ``rosensweig_2d`` runs, the
-    window's long pole), and ``rosensweig_2d`` in float32 and bfloat16 for
-    ``bf16_steps`` (:func:`rosensweig_2d_run`, held by
+    window's long pole), and ``rosensweig_2d`` in float32 and bfloat16 to
+    1000 and 2000 steps (:func:`rosensweig_2d_run`, held by
     :func:`phase_rosensweig_2d_bf16`), as three concurrent processes on the
-    card (the scenes in ``SCENE_GROUPS_2D``), each checking that it
-    launches no kernel, while this process runs the callables
-    ``meanwhile`` (phases that time nothing).  Then, in this process alone,
+    card (:func:`jobs_2d`; ``started``, or started here), each checking
+    that it launches no kernel, while this process runs the callables
+    ``meanwhile`` (phases whose times no kernel row or bound reads; their
+    lines say ``beside_2d_jobs``).  Then, in this process alone,
     the single-phase BGK and KBC, HCZ and ferrofluid (scalar carry and
     channel form) steps timed at native size and at ``big`` (2048^2, 4.2 M
     cells): ms a step over warm steps ending in ``torch.cuda.synchronize()``,
@@ -3948,17 +4090,12 @@ def phase_2d(dev, kernels_pkg, card, steps=250, big=(2048, 2048), bf16_steps=(10
     from lbm_ferrofluid_tpu_torch.models.runner import assert_finite
 
     out = {"phase": "scenes_2d", "card": card, "scenes": {}, "timed": {}}
-    check(sorted(n for g in SCENE_GROUPS_2D for n in g) == sorted(SCENES_2D),
-          "SCENE_GROUPS_2D does not hold every 2D scene once")
-    jobs = [{"kind": "scenes", "names": list(g), "steps": steps} for g in SCENE_GROUPS_2D]
-    jobs += [{"kind": "rosensweig_2d", "dtype": dtype, "steps": list(bf16_steps)}
-             for dtype in ("float32", "bfloat16")]
-    torch.cuda.empty_cache()  # the jobs share the card
-    t0 = time.perf_counter()
-    rows, during = run_2d_jobs(jobs, meanwhile)
-    out["jobs_wall_s"] = time.perf_counter() - t0
+    if started is None:
+        torch.cuda.empty_cache()  # the jobs share the card
+        started = start_2d_jobs(jobs_2d())
+    rows, during, out["jobs_wall_s"] = run_2d_jobs(started, meanwhile)
     runs = {}
-    for job, row in zip(jobs, rows):
+    for job, row in zip(started[0], rows):
         if job["kind"] == "scenes":
             out["scenes"].update(row["scenes"])
         else:
@@ -4299,7 +4436,7 @@ def phase_dibr(dev, card, res=(32, 32, 32), image=256, big=(130, 130, 130)):
         cams, pts, args = dibr_inputs(verts, dev, torch.float32)
         out["modes"][mode] = {"float64": {"ms_per_frame": ms, "rel": rel},
                               "ms_per_frame_card_f32": time_cuda(
-                                  lambda: r((pts, faces), cams, *args[mode]), 1)}
+                                  lambda: r((pts, faces), cams, *args[mode]), 1, warm=0)}
     out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
     # gradient of an image loss with respect to the vertices, card vs CPU
     gv, gf = droplet_mesh((16, 16, 16))
@@ -5477,9 +5614,8 @@ def sharded_rank(job_json) -> int:
     3's bars; each batch element on a batch mesh).  With the job's ``pair``
     the same part is primed and stepped again with the parameters so
     changed, its bytes, exchanges and ms a step beside the first run's, and
-    its state held to the first run's bit for bit up to the sign of a zero;
-    then both are stepped again in the other order (turns: the job's run,
-    the pair's, the pair's, the job's).  Prints its row."""
+    its state held to the first run's bit for bit up to the sign of a
+    zero.  Prints its row."""
     import torch
     import torch.distributed as dist
 
@@ -5551,8 +5687,6 @@ def sharded_rank(job_json) -> int:
             check(not differ, f"rank job {job}: the pair's run differs in {differ}")
             out["pair"]["bit_for_bit_to_first_run"] = True
             del st2, pairs
-            # the two runs again, the other way round: turns A, B, B, A
-            out["turns"] = [run(paired)[1], run(params)[1]]
         got = gather_state(st, mesh)
         del st
         if mesh.rank == 0:
@@ -5605,11 +5739,6 @@ def rank_job_row(job, ranks, wall):
                     "ms_per_step", "bytes_sent_per_step", "psi_band_launches")},
                 "exchanges_per_step": lead["pair"]["exchanges_per_step"],
                 "bit_for_bit_to_first_run": lead["pair"]["bit_for_bit_to_first_run"],
-                # ms a step of each rank in turns: the job's run, the pair's,
-                # the pair's again, the job's again
-                "ms_per_step_turns": [[r[k]["ms_per_step"] if k else r["ms_per_step"]
-                                       for k in (None, "pair")] + [
-                    t["ms_per_step"] for t in r["turns"]] for r in ranks],
             }} if pair else {})}
 
 
@@ -5712,7 +5841,7 @@ def phase_sharded(dev, kernels_pkg, card):
     for lane_jobs, results in zip(SHARDED_LANES, done):
         for job, (ranks, wall) in zip(lane_jobs, results):
             for r in ranks:
-                for run in [r] + ([r["pair"], *r["turns"]] if job[6] else []):
+                for run in [r] + ([r["pair"]] if job[6] else []):
                     for kid in launches:
                         launches[kid] += run["slab_launches"].get(kid, 0)
                     psi_launches += run["psi_band_launches"]
@@ -6350,9 +6479,10 @@ def phase_mesh2d(dev, card):
 #: 130))`` (arrays 64x136x256: physical y cut 66 -> 64 to split in 4) on 4 z
 #: ranks, the slab route, primed to a 5-leaf premac.  The B = 2 slab run
 #: (tau 1, the shell declared: ROADMAP B-8's psi-refreshed bands) and its
-#: full-h twin (``poisson_psi_halo=False``) in turns: psi, full-h, full-h,
-#: psi (4 time-sliced ranks on a shared host move one run's ms by tens of
-#: per cent)
+#: full-h twin (``poisson_psi_halo=False``), one pair: each bit for bit to
+#: one device, with its bytes and exchanges (4 time-sliced ranks on a
+#: shared host move one run's ms by tens of per cent, so the pair's ms
+#: compare nothing)
 MESH3D_RUNS = (
     ("rosensweig", "rosensweig_3d", {"res": (130, 66, 130)}, ("z", "y"), (2, 2), "float32", {}),
     ("rosensweig turbo", "rosensweig_3d", {"res": (130, 66, 130)}, ("z", "y"), (2, 2),
@@ -6373,10 +6503,6 @@ MESH3D_RUNS = (
      ("batch", "z"), (2, 2), "float32", {}),
     ("rosensweig B=2 slabs full-h", "rosensweig_3d", {"res": (130, 66, 130), "batch": 2},
      ("batch", "z"), (2, 2), "float32", {"poisson_psi_halo": False}),
-    ("rosensweig B=2 slabs full-h 2", "rosensweig_3d", {"res": (130, 66, 130), "batch": 2},
-     ("batch", "z"), (2, 2), "float32", {"poisson_psi_halo": False}),
-    ("rosensweig B=2 slabs 2", "rosensweig_3d", {"res": (130, 66, 130), "batch": 2},
-     ("batch", "z"), (2, 2), "float32", {}),
     ("hcz B=2", "multiphase_3d", {"res": (128, 128, 128), "batch": 2}, ("z",), (4,), "float32",
      {}),
     ("single B=2", "taylor_green_3d", {"res": (128, 128, 128), "batch": 2}, ("y", "x"), (2, 2),
@@ -6700,14 +6826,12 @@ def phase_mesh3d(dev, card, runs=MESH3D_RUNS):
         "blocks_over_slabs": block["ms_per_step"] / slab["ms_per_step"],
         "bytes_sent_per_step": [block["bytes_sent_per_step"], slab["bytes_sent_per_step"]],
         "exchanges_per_step": [block["exchanges_per_step"], slab["exchanges_per_step"]]}
-    turns = [by_label.get(f"rosensweig B=2 slabs{tag}") for tag in ("", " full-h",
-                                                                     " full-h 2", " 2")]
-    psi, full = turns[0], turns[1]
+    turns = [by_label.get(f"rosensweig B=2 slabs{tag}") for tag in ("", " full-h")]
+    psi, full = turns
     psi_pair = None if not all(turns) else {
         "state": "rosensweig_3d 130x66x130 B=2 on (batch, z) = (2, 2), tau 1, the shell "
-                 "declared, h in 19 channels: the psi-refreshed bands against the full-h "
-                 "ones in turns (psi, full-h, full-h, psi), each bit for bit to one device "
-                 "by hashes",
+                 "declared, h in 19 channels: the psi-refreshed bands, then the full-h "
+                 "ones, each bit for bit to one device by hashes",
         **{key: [r[key] for r in turns] for key in (
             "ms_per_step", "ms_in_exchanges_per_step", "bytes_sent_per_step",
             "exchanges_per_step", "psi_band_launches_per_step")},
@@ -6722,7 +6846,7 @@ def phase_mesh3d(dev, card, runs=MESH3D_RUNS):
     return launches, launches_batch
 
 
-def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
+def run_phases(dev, kernels_pkg, smi, ptxas=None, started_2d=None) -> list:
     """Phases 3-8; returns one row per kernel for the ``kernels`` line, one
     per bfloat16 form, one for B11b's last pass with B7's trailing stage in
     float32 and in bfloat16 (its launches on the channel-form main paths),
@@ -6733,8 +6857,21 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     padded paths, the spike runs and the demo drivers), a bfloat16 form's
     its launches over phase 7's bfloat16 main paths, the padded turbo run
     and the turbo spike run, and a named form's its launches on the padded
-    paths."""
+    paths.  ``started_2d``: phase 5b's 2D processes, started before the
+    build (:func:`start_2d_jobs`)."""
     K = kernels_pkg.KERNELS
+    # while the 2D runs go, the phases whose times no kernel row or bound
+    # reads: phase 7's first two parts, its long horizon, the spike golden,
+    # the demo drivers, inverse design, the 2D goldens and the native
+    # library (host work)
+    runs, (worst16, launches16, _, (spikes, spikes16), demos, _, _, _) = phase_2d(
+        dev, kernels_pkg, smi, started=started_2d, meanwhile=(
+            lambda: phase_kernels_bf16(dev, K), lambda: phase_bf16_main(dev, kernels_pkg, smi),
+            lambda: phase_long_horizon(dev, smi), lambda: phase_spikes(dev, kernels_pkg, smi),
+            lambda: phase_demos(dev, kernels_pkg, smi),
+            lambda: phase_inverse(dev, kernels_pkg, smi), lambda: phase_golden_2d(dev),
+            lambda: phase_native(smi)))
+    phase_rosensweig_2d_bf16(smi, runs)
     worst, b10a_batch = phase_kernels(dev, K)
     psi_band = psi_band_checks(dev, smi)
     phase_grad_guard(dev, kernels_pkg)
@@ -6750,21 +6887,12 @@ def run_phases(dev, kernels_pkg, smi, ptxas=None) -> list:
     padded = phase_padded(dev, kernels_pkg, smi)
     per_path.append(padded["launches"])
     sharded, psi_sharded = phase_sharded(dev, kernels_pkg, smi)
-    spikes, spikes16 = phase_spikes(dev, kernels_pkg, smi)
-    per_path += [spikes, phase_demo(dev, kernels_pkg, smi), phase_demos(dev, kernels_pkg, smi)]
+    per_path.append(phase_demo(dev, kernels_pkg, smi))
     phase_dibr(dev, smi, big=(64, 64, 64))
-    phase_native(smi)
-    phase_inverse(dev, kernels_pkg, smi)
-    phase_golden_2d(dev)
     sp_launches, sp_b8a = phase_singlephase_3d(dev, kernels_pkg, smi)
-    per_path.append(sp_launches)
-    # phase 7's first two parts time nothing: they run while the 2D runs do
-    runs, (worst16, launches16) = phase_2d(dev, kernels_pkg, smi, meanwhile=(
-        lambda: phase_kernels_bf16(dev, K), lambda: phase_bf16_main(dev, kernels_pkg, smi)))
-    phase_rosensweig_2d_bf16(smi, runs)
+    per_path += [sp_launches, spikes, demos]
     launches16 = {kid: n + spikes16.get(kid, 0) + padded["launches16"].get(kid, 0)
                   for kid, n in launches16.items()}
-    phase_long_horizon(dev, smi)
     flag = phase_flagship(dev, K, smi)
     flag.update(phase_channel_flagship(dev, K, smi, ptxas))
     epi = phase_epilogue_flagship(dev, K, smi, ptxas)
@@ -6907,6 +7035,21 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda, "ok": True})
 
+    # the default run starts phase 5b's 2D processes first: their host-bound
+    # steps launch none of the library's kernels and run while it builds
+    started_2d = start_2d_jobs(jobs_2d()) if len(sys.argv) == 1 else None
+    try:
+        return run(dev, smi, kernels_pkg, _lib, started_2d)
+    finally:
+        if started_2d:
+            stop_processes(started_2d[1])
+
+
+def run(dev, smi, kernels_pkg, _lib, started_2d) -> int:
+    """``main`` from the build on; ``started_2d``: the default run's 2D
+    processes, started before it."""
+    import torch
+
     t0 = time.perf_counter()
     path = _lib.build()
     build_s = time.perf_counter() - t0
@@ -6984,7 +7127,7 @@ def main() -> int:
             phase_inverse(dev, kernels_pkg, smi)
         print(smi, flush=True)
     else:
-        rows = run_phases(dev, kernels_pkg, smi, ptxas)
+        rows = run_phases(dev, kernels_pkg, smi, ptxas, started_2d)
         print(smi, flush=True)
         emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -275,6 +275,12 @@ static cudaError_t lbm_poisson_pass_run(const LbmPassArgs& g, double tau, cudaSt
                           : lbm_poisson_pass_dispatch<T, false>(g, stream, blocks);
 }
 
+#ifdef PP_BF16_PART
+cudaError_t lbm_poisson_pass_bf16(const LbmPassArgs& g, double tau, cudaStream_t stream,
+                                  int* blocks) {
+  return lbm_poisson_pass_run<__nv_bfloat16>(g, tau, stream, blocks);
+}
+#else
 static cudaError_t lbm_poisson_pass_any(const LbmPassArgs& g, double tau, int bf16,
                                         cudaStream_t stream, int* blocks) {
   const bool trail = g.trail != 0;
@@ -288,7 +294,7 @@ static cudaError_t lbm_poisson_pass_any(const LbmPassArgs& g, double tau, int bf
       PP_SMEM_MAX)
     return cudaErrorInvalidValue;
   if (trail) return lbm_poisson_trail_run(g, tau, bf16, stream, blocks);
-  return bf16 ? lbm_poisson_pass_run<__nv_bfloat16>(g, tau, stream, blocks)
+  return bf16 ? lbm_poisson_pass_bf16(g, tau, stream, blocks)
               : lbm_poisson_pass_run<float>(g, tau, stream, blocks);
 }
 
@@ -344,3 +350,4 @@ extern "C" int lbm_poisson_pass_occupancy(int k, int TY, int tau1, int bf16, int
                       0.f, nullptr, nullptr, 0, nullptr, nullptr, trail, LbmTrail{0, 1, 1}};
   return static_cast<int>(lbm_poisson_pass_any(g, tau1 ? 1.0 : 0.5, bf16, nullptr, blocks));
 }
+#endif  // PP_BF16_PART

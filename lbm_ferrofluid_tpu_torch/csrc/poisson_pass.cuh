@@ -469,3 +469,10 @@ static inline cudaError_t lbm_pass_allow_smem(const void* kernel, bool* allowed)
 // reports its resident blocks an SM (blocks non-null).
 cudaError_t lbm_poisson_trail_run(const LbmPassArgs& g, double tau, int bf16,
                                   cudaStream_t stream, int* blocks);
+// The bfloat16 instances of the pass and of the trailing stage's pass,
+// each a translation unit of its own (csrc/poisson_bf16.cu,
+// csrc/poisson_trail_bf16.cu: the two storages compile in parallel).
+cudaError_t lbm_poisson_pass_bf16(const LbmPassArgs& g, double tau, cudaStream_t stream,
+                                  int* blocks);
+cudaError_t lbm_poisson_trail_bf16(const LbmPassArgs& g, bool tau1, cudaStream_t stream,
+                                   int* blocks);

@@ -78,15 +78,21 @@ static cudaError_t lbm_poisson_trail_form(const LbmPassArgs& g, cudaStream_t str
                  : lbm_poisson_trail_dispatch<T, TAU1, false, false>(g, stream, blocks);
 }
 
+#ifdef PP_BF16_PART
+cudaError_t lbm_poisson_trail_bf16(const LbmPassArgs& g, bool tau1, cudaStream_t stream,
+                                   int* blocks) {
+  return tau1 ? lbm_poisson_trail_form<__nv_bfloat16, true>(g, stream, blocks)
+              : lbm_poisson_trail_form<__nv_bfloat16, false>(g, stream, blocks);
+}
+#else
 cudaError_t lbm_poisson_trail_run(const LbmPassArgs& g, double tau, int bf16,
                                   cudaStream_t stream, int* blocks) {
   if (g.k > PP_TRAIL_MAX_K || g.Y < 3 || g.X < 3 || g.tr.zlo > g.tr.zhi || g.blo != nullptr ||
       g.bhi != nullptr)
     return cudaErrorInvalidValue;
   const bool tau1 = 1.0 / tau == 1.0;
-  if (bf16)
-    return tau1 ? lbm_poisson_trail_form<__nv_bfloat16, true>(g, stream, blocks)
-                : lbm_poisson_trail_form<__nv_bfloat16, false>(g, stream, blocks);
+  if (bf16) return lbm_poisson_trail_bf16(g, tau1, stream, blocks);
   return tau1 ? lbm_poisson_trail_form<float, true>(g, stream, blocks)
               : lbm_poisson_trail_form<float, false>(g, stream, blocks);
 }
+#endif  // PP_BF16_PART

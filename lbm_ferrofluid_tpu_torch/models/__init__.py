@@ -1,6 +1,7 @@
 """The port's models: parameters, states, the single-phase, Shan-Chen, HCZ
-and ferrofluid steps, scenes and the runner."""
+and ferrofluid steps, scenes, the runner and the step's traffic model."""
 
+from . import traffic
 from .ferrofluid import (
     ferrofluid_step,
     init_ferrofluid_state,
@@ -60,4 +61,5 @@ __all__ = [
     "rosensweig_3d",
     "rosensweig_3d_tpu",
     "SimulationRunner",
+    "traffic",
 ]

@@ -151,21 +151,24 @@ def _bits(a):
     return a.view(np.uint16 if a.dtype.itemsize == 2 else np.uint8)
 
 
-def _assert_bits(got, want, what):
+def _assert_bits(got, want, what, out_dir):
+    """``got``'s fields equal ``want``'s bit for bit; a mismatch keeps both
+    sides in ``out_dir`` (``worker.keep_mismatch``)."""
     keys = [k for k in want if np.ndim(want[k])]
-    bad = [k for k in keys if got[k].shape != np.shape(want[k])
-           or not np.array_equal(_bits(got[k]), _bits(want[k]))]
-    assert not bad, f"{what}: fields {bad} differ from one device"
+    with worker.keep_mismatch(out_dir, what, got, want):
+        bad = [k for k in keys if got[k].shape != np.shape(want[k])
+               or not np.array_equal(_bits(got[k]), _bits(want[k]))]
+        assert not bad, f"{what}: fields {bad} differ from one device"
 
 
 @pytest.mark.parametrize("job", JOBS, ids=[f"{m}-{n}" for m, n, _, _ in JOBS])
-def test_block_steps_equal_one_device_bit_for_bit(runs, job):
+def test_block_steps_equal_one_device_bit_for_bit(runs, job, tmp_path):
     """Every case on every mesh, at one element a rank and (``_b2``,
     ``_b4``) at two, bit for bit to one device's steps of the whole batch;
     at two elements a rank the ferrofluid step keeps h in 19 channels."""
     mesh, name, case, batch = job
     got = runs[mesh][name]
-    _assert_bits(got, _one_device(case, MESHES[mesh][2], batch), f"{name} on {mesh}")
+    _assert_bits(got, _one_device(case, MESHES[mesh][2], batch), f"{name} on {mesh}", tmp_path)
     assert got["f"].shape[0] == batch
     if worker.MESH3D_CASES[case][0].startswith("ferro"):
         assert not got["stats.premac"]
@@ -173,21 +176,21 @@ def test_block_steps_equal_one_device_bit_for_bit(runs, job):
 
 
 @pytest.mark.parametrize("job", ROUNDS, ids=[r[1] for r in ROUNDS])
-def test_solve_rounds_and_runner_bit_for_bit(runs, job):
+def test_solve_rounds_and_runner_bit_for_bit(runs, job, tmp_path):
     """The solve in rounds of 2 sweeps, and ``SimulationRunner(...,
     mesh=)``, which primes on the mesh and calls its ``io_fn`` (here a
     gather of the whole state on every rank) at every step, also at two
     elements a rank."""
     mesh, name, case, res, *batch = job
     got = runs[mesh][name]
-    _assert_bits(got, _one_device(case, res, *batch), f"{name} on {mesh}")
+    _assert_bits(got, _one_device(case, res, *batch), f"{name} on {mesh}", tmp_path)
     if name.startswith("runner"):
         assert int(got["stats.io_calls"]) == STEPS and bool(got["stats.io_whole"])
         assert not got["stats.premac"]
 
 
 @pytest.mark.parametrize("job", SLAB_JOBS, ids=[r[1] for r in SLAB_JOBS])
-def test_slab_route_at_one_element_a_rank_of_a_batch(runs, job):
+def test_slab_route_at_one_element_a_rank_of_a_batch(runs, job, tmp_path):
     """A batch mesh with a z axis, one element a rank: the slab forms (route
     U19, never primed; the solve's H2 from the trailing stage of the slab
     rounds), bit for bit to one device's un-carried steps of the whole
@@ -197,7 +200,7 @@ def test_slab_route_at_one_element_a_rank_of_a_batch(runs, job):
     params, st = worker.mesh3d_state(case, res, batch)
     for _ in range(STEPS):
         st = pm.ferrofluid_step(params, st, device="cpu")
-    _assert_bits(got, worker._flat(to_numpy(st)), f"{name} on {mesh}")
+    _assert_bits(got, worker._flat(to_numpy(st)), f"{name} on {mesh}", tmp_path)
     assert got["h"].shape[:2] == (batch, 19) and not got["stats.premac"]
     assert float(got["stats.exchanges"]) > 0
 
@@ -279,7 +282,7 @@ def _mesh(axes, shape, rank=0):
 
 @pytest.mark.parametrize("mesh", [("z2y2", ("z", "y"), (2, 2)), ("z4", ("z",), (4,))],
                          ids=["z2y2", "z4"])
-def test_gates_at_priming_and_step(runs, mesh):
+def test_gates_at_priming_and_step(runs, mesh, tmp_path):
     """What the block route leaves out raises with one message at priming
     and at the step: a padded batch (as the JAX package refuses it), a
     premac carried onto the blocks (priming on the mesh carries none
@@ -307,7 +310,7 @@ def test_gates_at_priming_and_step(runs, mesh):
     one = pm.prime_premac(params, one, device="cpu").replace(premac=None)
     for _ in range(STEPS):
         one = pm.ferrofluid_step(params, one, device="cpu")
-    _assert_bits(padded, worker._flat(to_numpy(one)), f"padded on {key}")
+    _assert_bits(padded, worker._flat(to_numpy(one)), f"padded on {key}", tmp_path)
     p2, s2 = pm.rosensweig_3d(res=(16, 8, 16), batch=2, device="cpu")
     two = shard_state(s2, m)
     assert two.f.shape[0] == 2 and two.f.shape[2] >= 2

@@ -108,7 +108,7 @@ def _bits(a):
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
-def test_padded_steps_equal_one_device_bit_for_bit(runs, one_device, mesh):
+def test_padded_steps_equal_one_device_bit_for_bit(runs, one_device, mesh, tmp_path):
     """Priming on the mesh leaves a 5-leaf premac on slabs and none on
     blocks, with the 2-channel scalar h (as the JAX package's meshed
     priming); 3 steps, gathered, equal the port's one-device steps on the
@@ -120,21 +120,23 @@ def test_padded_steps_equal_one_device_bit_for_bit(runs, one_device, mesh):
     assert bool(got["stats.premac"]) == (route == "slabs")
     keys = sorted(k for k in want if np.ndim(want[k]))
     assert sorted(k for k in got if np.ndim(got[k]) and not k.startswith("stats.")) == keys
-    bad = [k for k in keys if got[k].shape != want[k].shape
-           or not np.array_equal(_bits(got[k]), _bits(want[k]))]
-    assert not bad, f"{mesh}: fields {bad} differ from one device"
+    with worker.keep_mismatch(tmp_path, f"padded on {mesh}", got, want):
+        bad = [k for k in keys if got[k].shape != want[k].shape
+               or not np.array_equal(_bits(got[k]), _bits(want[k]))]
+        assert not bad, f"{mesh}: fields {bad} differ from one device"
     assert float(got["stats.exchanges"]) > 0
 
 
-def test_runner_on_the_mesh_bit_for_bit(runs, one_device):
+def test_runner_on_the_mesh_bit_for_bit(runs, one_device, tmp_path):
     """``SimulationRunner(..., mesh=)`` primes the padded scene on (z, y) =
     (2, 2) and gathers the whole state in its ``io_fn`` at every step; it
     ends as one device's un-carried steps, bit for bit."""
     got, want = runs["z2y2"]["runner_padded"], one_device["blocks"]
     assert int(got["stats.io_calls"]) == STEPS and bool(got["stats.io_whole"])
     assert not got["stats.premac"]
-    for k in ("f", "g", "h", "rho", "vel", "density", "pressure", "force", "phi"):
-        assert np.array_equal(_bits(got[k]), _bits(want[k])), k
+    with worker.keep_mismatch(tmp_path, "runner padded on z2y2", got, want):
+        for k in ("f", "g", "h", "rho", "vel", "density", "pressure", "force", "phi"):
+            assert np.array_equal(_bits(got[k]), _bits(want[k])), k
 
 
 def _close(got, want, name, atol=2e-5, rtol=2e-4):

@@ -135,15 +135,19 @@ def test_sharded_steady_state_matches(nz, iters, jax_steps, tmp_path):
     assert "phi" not in got and "force" not in got
     assert_matches_jax(got, jax_steps[iters])
     ref = port_steps(iters)
-    for name in FIELDS + ("h", "rho"):
-        np.testing.assert_array_equal(got[name], getattr(ref, name).numpy(), err_msg=name)
-    for i, leaf in enumerate(ref.premac):
-        np.testing.assert_array_equal(got[f"premac.{i}"], leaf.numpy(), err_msg=f"premac {i}")
+    want = worker.named_fields(ref, FIELDS + ("h", "rho"))
+    with worker.keep_mismatch(tmp_path, f"Z nz{nz}", got, want):
+        for name in FIELDS + ("h", "rho"):
+            np.testing.assert_array_equal(got[name], getattr(ref, name).numpy(), err_msg=name)
+        for i, leaf in enumerate(ref.premac):
+            np.testing.assert_array_equal(got[f"premac.{i}"], leaf.numpy(),
+                                          err_msg=f"premac {i}")
     if nz == 2:
         resumed = dict(np.load(tmp_path / "resumed.npz"))
         assert resumed.keys() == got.keys()
-        for name in got:
-            np.testing.assert_array_equal(resumed[name], got[name], err_msg=name)
+        with worker.keep_mismatch(tmp_path, f"Z nz{nz} resumed", resumed, got):
+            for name in got:
+                np.testing.assert_array_equal(resumed[name], got[name], err_msg=name)
 
 
 #: the fields the epilogue routes also return (the JAX step's force and phi)
@@ -170,19 +174,23 @@ def test_meshed_epilogue_routes_match(route, nz, iters, jax_steps, tmp_path):
         f"premac.{i}" for i in range(n_premac)}
     assert_matches_jax(got, jax_steps["O" if route == "O" else iters], fields=EPI_FIELDS)
     ref = port_steps(iters, route)
-    for name in EPI_FIELDS + ("h", "rho"):
-        np.testing.assert_array_equal(got[name], getattr(ref, name).numpy(), err_msg=name)
-    for i, leaf in enumerate(ref.premac or ()):
-        np.testing.assert_array_equal(got[f"premac.{i}"], leaf.numpy(), err_msg=f"premac {i}")
+    want = worker.named_fields(ref, EPI_FIELDS + ("h", "rho"))
+    with worker.keep_mismatch(tmp_path, f"{route} nz{nz}", got, want):
+        for name in EPI_FIELDS + ("h", "rho"):
+            np.testing.assert_array_equal(got[name], getattr(ref, name).numpy(), err_msg=name)
+        for i, leaf in enumerate(ref.premac or ()):
+            np.testing.assert_array_equal(got[f"premac.{i}"], leaf.numpy(),
+                                          err_msg=f"premac {i}")
     if route == "E" and nz == 2:
         resumed = dict(np.load(tmp_path / "resumed.npz"))
         assert resumed.keys() == got.keys()
-        for name in got:
-            np.testing.assert_array_equal(resumed[name], got[name], err_msg=name)
+        with worker.keep_mismatch(tmp_path, f"{route} nz{nz} resumed", resumed, got):
+            for name in got:
+                np.testing.assert_array_equal(resumed[name], got[name], err_msg=name)
 
 
 @pytest.mark.parametrize("route", ["E", "O", "U"])
-def test_slab_forced_epilogue_routes_match(route):
+def test_slab_forced_epilogue_routes_match(route, tmp_path):
     """One rank with ``slab=True`` on routes E, O and U: every slab form,
     its ghosts the rank's own wrap and both z edges true, bit for bit to
     the single-device steps of the same route."""
@@ -192,8 +200,11 @@ def test_slab_forced_epilogue_routes_match(route):
     for _ in range(STEPS):
         s = ferrofluid_step(params, s, mesh=mesh)
     ref = port_steps(3, route)
-    for name in EPI_FIELDS + ("h", "rho"):
-        assert torch.equal(getattr(s, name), getattr(ref, name)), name
+    names = EPI_FIELDS + ("h", "rho")
+    with worker.keep_mismatch(tmp_path, f"{route} slab", worker.named_fields(s, names),
+                              worker.named_fields(ref, names)):
+        for name in EPI_FIELDS + ("h", "rho"):
+            assert torch.equal(getattr(s, name), getattr(ref, name)), name
     assert (s.premac is None) == (route == "U")
 
 
@@ -235,7 +246,7 @@ def test_batch_mesh_matches(jax_steps, tmp_path):
         assert_matches_jax(got, jax_steps[3], batch_index=b)
 
 
-def test_slab_forced_one_rank_matches(jax_steps):
+def test_slab_forced_one_rank_matches(jax_steps, tmp_path):
     """One rank with ``slab=True``: the slab forms, ghosts from the rank's
     own wrap, bit for bit to the single-device steps and at the bars to
     JAX's."""
@@ -248,8 +259,11 @@ def test_slab_forced_one_rank_matches(jax_steps):
     for _ in range(STEPS):
         s = ferrofluid_step(params, s, mesh=mesh)
     ref = port_steps(3)
-    for name in FIELDS + ("h", "rho"):
-        assert torch.equal(getattr(s, name), getattr(ref, name)), name
+    names = FIELDS + ("h", "rho")
+    with worker.keep_mismatch(tmp_path, "Z slab", worker.named_fields(s, names),
+                              worker.named_fields(ref, names)):
+        for name in FIELDS + ("h", "rho"):
+            assert torch.equal(getattr(s, name), getattr(ref, name)), name
     assert_matches_jax(to_numpy(s), jax_steps[3])
 
 

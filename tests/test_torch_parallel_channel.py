@@ -133,19 +133,22 @@ def test_meshed_route_matches_jax(route, nz, meshed, jax_steps):
 
 
 @pytest.mark.parametrize("route,nz", CASES, ids=[f"{r}-nz{nz}" for r, nz in CASES])
-def test_meshed_route_bit_for_bit(route, nz, meshed):
+def test_meshed_route_bit_for_bit(route, nz, meshed, tmp_path):
     """The same ranks' gathered state equals 3 of the port's single-device
     steps bit for bit, premac too."""
     got = meshed[nz][route]
     ref = port_steps(route, JOBS[nz][0])
-    for name in _fields(route):
-        np.testing.assert_array_equal(got[name], getattr(ref, name).numpy(), err_msg=name)
-    for i, leaf in enumerate(getattr(ref, "premac", None) or ()):
-        np.testing.assert_array_equal(got[f"premac.{i}"], leaf.numpy(), err_msg=f"premac {i}")
+    want = worker.named_fields(ref, _fields(route))
+    with worker.keep_mismatch(tmp_path, f"{route} nz{nz}", got, want):
+        for name in _fields(route):
+            np.testing.assert_array_equal(got[name], getattr(ref, name).numpy(), err_msg=name)
+        for i, leaf in enumerate(getattr(ref, "premac", None) or ()):
+            np.testing.assert_array_equal(got[f"premac.{i}"], leaf.numpy(),
+                                          err_msg=f"premac {i}")
 
 
 @pytest.mark.parametrize("route", ["C", "U19", "H"])
-def test_slab_forced_route_matches(route):
+def test_slab_forced_route_matches(route, tmp_path):
     """One rank with ``slab=True``: every slab form, its ghosts the rank's
     own wrap and both z edges true, bit for bit to the single-device
     steps."""
@@ -155,8 +158,10 @@ def test_slab_forced_route_matches(route):
     for _ in range(STEPS):
         s = step(params, s, mesh=mesh)
     ref = port_steps(route, 3)
-    for name in _fields(route):
-        assert torch.equal(getattr(s, name), getattr(ref, name)), name
+    with worker.keep_mismatch(tmp_path, f"{route} slab", worker.named_fields(s, _fields(route)),
+                              worker.named_fields(ref, _fields(route))):
+        for name in _fields(route):
+            assert torch.equal(getattr(s, name), getattr(ref, name)), name
 
 
 def test_hcz_step_gates():

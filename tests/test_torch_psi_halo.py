@@ -196,18 +196,23 @@ SPLIT = [(nz, k, n, emit, torch.float32) for nz in (2, 4) for k in (1, 2, 3, 4)
 @pytest.mark.parametrize("nz,k,n_iters,emit,dtype", SPLIT, ids=[
     f"nz{nz}-k{k}-n{n}-{'h2' if e else 'psi'}-{'bf16' if d == BF else 'f32'}"
     for nz, k, n, e, d in SPLIT])
-def test_psi_refresh_bit_for_bit(scene, monkeypatch, nz, k, n_iters, emit, dtype):
+def test_psi_refresh_bit_for_bit(scene, monkeypatch, nz, k, n_iters, emit, dtype, tmp_path):
     """The psi-refreshed solve equals the full-h solve and one device's
     call bit for bit, and sends no more bytes (fewer wherever a band of 2
     or more planes short of the slab is rebuilt)."""
     on, ring_on = solve(scene, nz, monkeypatch, n_iters=n_iters, k=k, dtype=dtype, emit=emit)
     off, ring_off = solve(scene, nz, monkeypatch, n_iters=n_iters, k=k, dtype=dtype, emit=emit,
                           psi=False)
-    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+    sides = ("h", "psi or H2")
+    with worker.keep_mismatch(tmp_path, "psi on vs off", dict(zip(sides, on)),
+                              dict(zip(sides, off))):
+        assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
     kw = dict(emit="h2", h_ext=H_EXT) if emit else {}
     whole = poisson.poisson_sweeps_plain(scene["h"].to(dtype), scene["mf"], scene["rhs"],
                                          tau=1.0, n_iters=n_iters, **kw)
-    assert torch.equal(on[0], whole[0]) and torch.equal(on[1], whole[1])
+    with worker.keep_mismatch(tmp_path, "psi on vs one device", dict(zip(sides, on)),
+                              dict(zip(sides, whole))):
+        assert torch.equal(on[0], whole[0]) and torch.equal(on[1], whole[1])
     assert ring_on.count == ring_off.count
     rounds, depth = planned(z_mesh(nz), n_iters, emit, k)
     refreshed = any(step3d.psi_refresh_ok(1.0, g, RES[0] // nz) for g in depth[1:])
@@ -376,18 +381,21 @@ def zero_signs(x):
 
 
 @pytest.mark.parametrize("nz,n_iters", [(2, 4), (4, 4), (2, 12), (4, 6)])
-def test_sliver_bit_for_bit(scalar_scene, monkeypatch, nz, n_iters):
+def test_sliver_bit_for_bit(scalar_scene, monkeypatch, nz, n_iters, tmp_path):
     """The sliver solve equals the full-band one and one device's bit for
     bit up to the sign of a zero; its bands take G planes of s, 2 columns
     of s_prev and two planes of s_prev (global z = 1, Z - 2, or zeros)."""
     (h2_v, s2_v), ring_v = scalar_solve(scalar_scene, nz, monkeypatch, n_iters, True)
     (h2_f, s2_f), ring_f = scalar_solve(scalar_scene, nz, monkeypatch, n_iters, False)
-    assert torch.equal(zero_signs(s2_v), zero_signs(s2_f))
-    assert torch.equal(zero_signs(h2_v), zero_signs(h2_f))
+    sliver = {"s2": s2_v, "H2": h2_v}
+    with worker.keep_mismatch(tmp_path, "sliver vs full band", sliver, {"s2": s2_f, "H2": h2_f}):
+        assert torch.equal(zero_signs(s2_v), zero_signs(s2_f))
+        assert torch.equal(zero_signs(h2_v), zero_signs(h2_f))
     s2_1, h2_1 = scalar_wavefront_plain(scalar_scene["s2"], make_cmask(scalar_scene["mf"]),
                                         scalar_scene["rhs"], n_iters=n_iters, h_ext=H_EXT)
-    assert torch.equal(zero_signs(s2_v), zero_signs(s2_1))
-    assert torch.equal(zero_signs(h2_v), zero_signs(h2_1))
+    with worker.keep_mismatch(tmp_path, "sliver vs one device", sliver, {"s2": s2_1, "H2": h2_1}):
+        assert torch.equal(zero_signs(s2_v), zero_signs(s2_1))
+        assert torch.equal(zero_signs(h2_v), zero_signs(h2_1))
     for r in range(nz):
         assert (ring_v.sent[r], ring_v.count[r]) == scalar_bytes(z_mesh(nz, r), n_iters, True)
         assert (ring_f.sent[r], ring_f.count[r]) == scalar_bytes(z_mesh(nz, r), n_iters, False)
@@ -503,17 +511,21 @@ def test_gloo_priming_checks_the_shell_over_the_domain(ranks):
 
 
 @pytest.mark.parametrize("route", worker.PSI_ROUTES)
-def test_gloo_steps_bit_for_bit(ranks, route):
+def test_gloo_steps_bit_for_bit(ranks, route, tmp_path):
     """The flagship at tau 1 without the scalar carry, B = 2 on (batch, z)
     = (2, 2): each element on 2 z ranks, the psi refresh on, bit for bit to
     ``poisson_psi_halo=False`` and to one device's steps of the element."""
     got, off = ranks[route], ranks[f"{route}_full"]
-    for name in worker.PSI_FIELDS:
-        np.testing.assert_array_equal(got[name], off[name], err_msg=name)
+    with worker.keep_mismatch(tmp_path, f"{route} psi on vs off", got, off):
+        for name in worker.PSI_FIELDS:
+            np.testing.assert_array_equal(got[name], off[name], err_msg=name)
     for b in range(2):
         ref = worker.psi_reference(route, b)
-        for name in worker.PSI_FIELDS:
-            np.testing.assert_array_equal(got[name][b:b + 1], ref[name], err_msg=f"{name} {b}")
+        with worker.keep_mismatch(tmp_path, f"{route} element {b} vs one device",
+                                  {n: got[n][b:b + 1] for n in worker.PSI_FIELDS}, ref):
+            for name in worker.PSI_FIELDS:
+                np.testing.assert_array_equal(got[name][b:b + 1], ref[name],
+                                              err_msg=f"{name} {b}")
     assert float(got["stats.bytes"]) < float(off["stats.bytes"])
 
 

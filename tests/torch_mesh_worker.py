@@ -10,11 +10,18 @@ joins a gloo process group on the CPU, builds the scene's whole state, cuts
 its part (``shard_state``), primes and steps it on the mesh, gathers the
 whole state and, on rank 0, writes it as numpy arrays (``to_numpy``) to
 the job's output directory.
+
+``keep_mismatch`` is the bit-for-bit tests' record of a failure: both
+sides' arrays and their hashes, written where the test names them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import json
 import pathlib
+import re
 import socket
 
 import numpy as np
@@ -42,6 +49,56 @@ def flagship_fields(res=RES, batch=1, rho_gas=0.02381, rho_fluid=0.2508):
     den[..., : res[1] // 2, :] = rho_fluid
     vel = np.zeros((batch, 3, *res), np.float32)
     return rho, den, vel, flags, mflags
+
+
+def _as_numpy(x):
+    """``x`` (a tensor or an array) as a numpy array that ``np.savez``
+    keeps without pickling: bfloat16 as its 16 bits."""
+    if hasattr(x, "detach"):
+        import torch
+
+        x = x.detach().cpu()
+        return (x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy()
+    x = np.asarray(x)
+    return x.view(np.uint16) if x.dtype.kind == "V" or x.dtype.name == "bfloat16" else x
+
+
+def save_sides(out_dir, what, got, want) -> pathlib.Path:
+    """Write ``got`` and ``want`` (dicts of tensors or arrays by name) to
+    ``out_dir/mismatch-<what>.npz`` as ``got.<name>`` and ``want.<name>``,
+    and each array's SHA-256 of its bytes beside it (``.json``); returns
+    the ``.npz`` path."""
+    arrays = {f"{side}.{name}": _as_numpy(v) for side, d in (("got", got), ("want", want))
+              for name, v in d.items() if v is not None}
+    path = pathlib.Path(out_dir) / f"mismatch-{re.sub(r'[^\w.-]+', '_', what)}.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **arrays)
+    path.with_suffix(".json").write_text(json.dumps({
+        k: {"sha256": hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest(),
+            "shape": list(a.shape), "dtype": str(a.dtype)} for k, a in arrays.items()},
+        indent=1))
+    return path
+
+
+def named_fields(state, names):
+    """``state``'s fields ``names`` and its premac leaves (``premac.<i>``),
+    by the names of a gathered state's npz."""
+    out = {name: getattr(state, name) for name in names}
+    out.update({f"premac.{i}": x for i, x in enumerate(getattr(state, "premac", None) or ())})
+    return out
+
+
+@contextlib.contextmanager
+def keep_mismatch(out_dir, what, got, want):
+    """A block of bit-for-bit asserts of ``got`` against ``want``: where
+    one fails, both sides go to :func:`save_sides` first, and the failure
+    names the file."""
+    try:
+        yield
+    except AssertionError as e:
+        path = save_sides(out_dir, what, got, want)
+        raise AssertionError(f"{e}\n{what}: both sides and their hashes kept in {path} "
+                             f"and {path.with_suffix('.json')}") from e
 
 
 def free_port() -> int:
