@@ -26,6 +26,8 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
                                            # B = 1, of the package at ROOT
     python3 chip_smoke.py --trail-time [ROOT]  # B7's trailing pass alone in each instance
                                            # at 256^3, then --route-time, of the package at ROOT
+    python3 chip_smoke.py --slab-time [ROOT]   # B1's slab solve and route Z slab-forced at
+                                           # 256^3 and 130x66x130, of the package at ROOT
     python3 chip_smoke.py --mesh2d         # only the 2D models on y/x meshes (phase mesh2d)
     python3 chip_smoke.py --mesh3d         # only 3D states on the block route (phase mesh3d)
 
@@ -2026,6 +2028,71 @@ def phase_trail_time(dev, card, ptxas=None):
     phase_route_time(dev, card)
 
 
+def phase_slab_time(dev, card, reps=20, steps=10):
+    """B1's slab solve on one rank with ``slab=True`` (route Z slab-forced)
+    at each of ``SHARDED_GRIDS``, in the package that
+    ``lbm_ferrofluid_tpu_torch`` imports from (``--slab-time ROOT``: a
+    checkout at ROOT, for an A/B of two trees in one call): after 5 meshed
+    steps, ms of the slab solve and of the single-device call on its
+    inputs (CUDA events, ``reps`` calls each), route Z's ms a step
+    slab-forced and on one device (``steps`` steps after 3, in turns),
+    B1's launches a slab step, and hashes of the solve's outputs (slab
+    and single device equal bit for bit)."""
+    import torch
+
+    import lbm_ferrofluid_tpu_torch
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step, prime_premac
+    from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+    from lbm_ferrofluid_tpu_torch.ops.kernels import scalar_poisson as sp
+    from lbm_ferrofluid_tpu_torch.parallel import make_mesh, shard_state, step3d
+
+    out = {"phase": "slab_time", "package": lbm_ferrofluid_tpu_torch.__file__, "card": card}
+    mesh = make_mesh(slab=True)
+    for res, mag in SHARDED_GRIDS:
+        params, s0 = sharded_scene(res, mag, dev)
+        sm = prime_premac(params, shard_state(s0, mesh), mesh=mesh)
+        ss = prime_premac(params, s0, device=dev)
+        for _ in range(5):
+            sm = ferrofluid_step(params, sm, mesh=mesh)
+        h_ext = tuple(params.mag_strength if a == params.h_ext_axis else 0.0 for a in range(3))
+        kw = dict(n_iters=params.poisson_iters, dx=params.dx, h_ext=h_ext)
+        args = (sm.h, sm.cmask, sm.premac[5])
+        torch.cuda.synchronize()
+        slab = step3d.scalar_poisson_sharded(*args, mesh, **kw)
+        one = sp.scalar_wavefront(*args, **kw)[::-1]
+        torch.cuda.synchronize()
+        row = {"plan": list(step3d.scalar_slab_plan(mesh, step3d.global_shape(sm.h.shape, mesh),
+                                                    params.poisson_iters)),
+               "slab_bit_for_bit_to_single_device": all(
+                   torch.equal(a, b) for a, b in zip(slab, one, strict=True)),
+               "sha256": {name: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+                          for name, t in zip(("H2", "s2"), slab)}}
+        ms = {}
+        for label, fn in (("slab_solve", lambda: step3d.scalar_poisson_sharded(*args, mesh, **kw)),
+                          ("single_device", lambda: sp.scalar_wavefront(*args, **kw)),
+                          ("slab_solve_again",
+                           lambda: step3d.scalar_poisson_sharded(*args, mesh, **kw)),
+                          ("single_device_again", lambda: sp.scalar_wavefront(*args, **kw))):
+            ms[label] = time_cuda(fn, reps)
+        row["ms"] = ms
+        kernels_pkg.reset_launch_counts()
+        sm = ferrofluid_step(params, sm, mesh=mesh)
+        torch.cuda.synchronize()
+        row["b1_launches_a_slab_step"] = kernels_pkg.launch_counts(["B1"], slab=True)["B1"]
+        step_ms = {}
+        on_slab = meshed_step(mesh)
+        for label, fn, st in (("slab", on_slab, sm), ("single_device", ferrofluid_step, ss),
+                              ("single_device_again", ferrofluid_step, ss),
+                              ("slab_again", on_slab, sm)):
+            _, stats = timed_steps(params, st, fn, dev, steps, warmup=3)
+            step_ms[label] = stats["seconds"] / steps * 1e3
+        row["route_z_ms_per_step"] = step_ms
+        out["x".join(map(str, res))] = row
+        del sm, ss, s0, slab, one, args
+        torch.cuda.empty_cache()
+    emit(dict(out, ok=True))
+
+
 def route_turns(params, state, dev):
     """ms a step of ``state``'s route at the trailing stage and on the psi
     route, in turns (trailing stage, psi route, psi route, trailing stage;
@@ -2596,6 +2663,7 @@ def phase_scalar_plans(dev, card):
             return step3d.scalar_poisson_sharded(*args, mesh, **kw)
 
         want = slab_solve()
+        one = sp.scalar_wavefront(*args, **kw)[::-1]
         rows = []
         try:
             for k in [k for k in range(2, n + 1) if n % k == 0 and k < st.h.shape[2]]:
@@ -2603,7 +2671,12 @@ def phase_scalar_plans(dev, card):
                 got = slab_solve()
                 check(all(torch.equal(a, b) for a, b in zip(got, want)),
                       f"B1 slab solve in rounds of {k} differs from rounds of {chosen[0]}")
-                rows.append(dict(k=k, rounds=n // k, ms=time_cuda(slab_solve, 5)))
+                check(all(torch.equal(a, b) for a, b in zip(got, one)),
+                      f"B1 slab solve in rounds of {k} differs from the single-device call")
+                err = compare(f"B1 slab solve in rounds of {k}", ["H2", "s2"], got,
+                              step3d.scalar_poisson_sharded(*args, mesh, plain=True, **kw))
+                rows.append(dict(k=k, rounds=n // k, ms=time_cuda(slab_solve, 5),
+                                 max_abs_err={m: e["max_abs_err"] for m, e in err.items()}))
         finally:
             step3d.scalar_slab_plan = real
         emit({"phase": "scalar_slab_plans", "res": list(res), "n_iters": n, "card": card,
@@ -5427,7 +5500,58 @@ def slab_form_rows(params, st, mesh, what, bf16=False):
             "bit_for_bit_to_single_device": True,
         }
         torch.cuda.empty_cache()
+    if not bf16:
+        rows["B1"]["round_lengths"] = b1_round_lengths(params, st, mesh, what)
     return rows
+
+
+def b1_round_lengths(params, st, mesh, what, timed=5):
+    """B1's slab solve on the primed slab state in rounds of every k that
+    divides the sweeps (G = k + 1 <= Zl, ``step3d.scalar_slab_plan``
+    forced): each bit for bit to the chosen k's solve and to the
+    single-device call, and against its plain version at phase 3's bars
+    (the kernel's sweep contracts its multiply-adds, and PyTorch divides
+    by a scalar through its reciprocal on the card); its ms a solve and
+    launches.  The banded kernel reads the bands, cmask and rhs in place
+    at every k (one pass a round up to k = 3, several above)."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import scalar_poisson as sp
+    from lbm_ferrofluid_tpu_torch.parallel import step3d
+
+    h_ext = tuple(params.mag_strength if a == params.h_ext_axis else 0.0 for a in range(3))
+    n, Zl = params.poisson_iters, st.h.shape[2]
+    args = (st.h, st.cmask, st.premac[5], mesh)
+    kw = dict(n_iters=n, dx=params.dx, h_ext=h_ext)
+    real = step3d.scalar_slab_plan
+    chosen = real(mesh, step3d.global_shape(st.h.shape, mesh), n)
+    want = step3d.scalar_poisson_sharded(*args, **kw)
+    one = sp.scalar_wavefront(st.h, st.cmask, st.premac[5], **kw)[::-1]
+    rows = []
+    try:
+        for k in [k for k in range(2, n + 1) if n % k == 0 and k + 1 <= Zl]:
+            step3d.scalar_slab_plan = lambda *a, k=k: (k, k + 1)
+            before = sp.scalar_wavefront.launches
+            got = step3d.scalar_poisson_sharded(*args, **kw)
+            torch.cuda.synchronize()
+            launches = sp.scalar_wavefront.launches - before
+            err = compare(f"{what} B1 slab solve in rounds of {k}", ["H2", "s2"], got,
+                          step3d.scalar_poisson_sharded(*args, plain=True, **kw))
+            for ref, to in ((want, f"rounds of {chosen[0]}"), (one, "the single-device call")):
+                bits_equal(f"{what} B1 slab solve in rounds of {k} against {to}", ["H2", "s2"],
+                           got, ref)
+            check(launches == n // k * len(sp.passes(k)) + 1,
+                  f"{what}: B1 slab solve in rounds of {k} launched {launches} times")
+            rows.append(dict(k=k, G=k + 1, rounds=n // k, passes_a_round=len(sp.passes(k)),
+                             launches=launches, bit_for_bit_to_chosen_and_single_device=True,
+                             max_abs_err={name: e["max_abs_err"] for name, e in err.items()},
+                             ms=time_cuda(lambda: step3d.scalar_poisson_sharded(*args, **kw),
+                                          timed)))
+            del got
+    finally:
+        step3d.scalar_slab_plan = real
+    torch.cuda.empty_cache()
+    return {"chosen_k": chosen[0], "rows": rows}
 
 
 def slab_forced(K, kernels_pkg, params, s0, dev, card, what, steps=30, timed=10, bf16=False,
@@ -7017,7 +7141,7 @@ def main() -> int:
         return mesh2d_rank(sys.argv[sys.argv.index("--mesh2d-rank") + 1])
     if "--mesh3d-rank" in sys.argv[1:]:
         return mesh3d_rank(sys.argv[sys.argv.index("--mesh3d-rank") + 1])
-    for flag in ("--step-time", "--route-time", "--trail-time"):
+    for flag in ("--step-time", "--route-time", "--trail-time", "--slab-time"):
         if flag in sys.argv[1:]:
             at = sys.argv.index(flag) + 1
             if at < len(sys.argv) and not sys.argv[at].startswith("--"):
@@ -7105,6 +7229,9 @@ def run(dev, smi, kernels_pkg, _lib, started_2d) -> int:
         print(smi, flush=True)
     elif "--trail-time" in sys.argv[1:]:
         phase_trail_time(dev, smi, ptxas)
+        print(smi, flush=True)
+    elif "--slab-time" in sys.argv[1:]:
+        phase_slab_time(dev, smi)
         print(smi, flush=True)
     elif "--mesh2d" in sys.argv[1:]:
         phase_mesh2d(dev, smi)

@@ -57,14 +57,23 @@
 // is one shared-memory read.
 //
 // Slab form (the TPU kernel's ghosts=, slab_clamp= and emit_bands=,
-// scalar_poisson.py:562-612, for a z-slab of a domain decomposed along z):
-// a round of k sweeps runs the passes above on the slab extended by G =
-// k + 1 ghost planes a side (the neighbours' edge bands of (s, s_prev)).
-// The passes' wrap at the extension's ends reaches only ghost planes, each
-// sweep spoiling one more of them from each end, so after k sweeps the
-// slab's planes and one plane a side are exact.  The last round's H2
-// launch (lbm_scalar_h2_slab) reads psi of the extension and writes the
-// slab's planes, its z clamp [zlo, zhi] at the domain's true edges only.
+// scalar_poisson.py:562-612, its ghost-ref mode :111-133, for a z-slab of a
+// domain decomposed along z): a round of k sweeps runs the passes above on
+// the slab's window [0, Zl + 2G) with G >= k + 1 ghost planes a side (the
+// neighbours' edge bands of (s, s_prev), cmask and rhs).  The passes read
+// that window in place through lbm_plane: the bands and the slab stay where
+// they are, and no extended copy is made.  Their wrap at the window's ends
+// reaches only ghost planes, each sweep spoiling one more of them from each
+// end, so after k sweeps the slab's planes and one plane a side are exact.
+// A round of several passes hands the window between them in two full
+// buffers (pass outputs, never the input: a pass's blocks read their
+// neighbours' halo planes while others write, so nothing is updated in
+// place).  The round's last pass writes only what lives on: the slab's Zl
+// planes of (s', s_prev'), with emit_bands also planes [G, 2G) and
+// [Zl, Zl + G) into two [2, G, Y, X] bands (the next round's exchange), and
+// for H2 psi of planes [G - 1, G + Zl + 1), which the H2 launch
+// (lbm_scalar_h2_slab) reads with cmask in place to write the slab's
+// planes, its z clamp [zlo, zhi] at the domain's true edges only.
 #include "common.cuh"
 
 #define SP_THREADS 256
@@ -76,10 +85,41 @@
 // cells of an extended plane a thread loads
 #define SP_LOADS (SP_EX * SP_MAX_EY / SP_THREADS)
 
+// Plane z of a field over the window [0, Zl + 2G) held in three parts,
+// read in place: plane z < G of lo, G <= z < G + Zl of mid at z - G, the
+// rest of hi at z - G - Zl, each part's planes XY apart.  Without BANDED
+// the field is one contiguous array at lo (the single-device call, G = 0,
+// and the window buffers a slab round's passes hand on).
+template <bool BANDED>
+__device__ __forceinline__ const float* lbm_plane(const float* lo, const float* mid,
+                                                  const float* hi, int z, int G, int Zl,
+                                                  long long XY) {
+  if (!BANDED) return lo + z * XY;
+  return z < G ? lo + z * XY : (z < G + Zl ? mid + (z - G) * XY : hi + (z - G - Zl) * XY);
+}
+
+// BANDED: (s, s_prev), cmask and rhs read through lbm_plane's three parts
+// (the first pass of a slab round).  The outputs: without SPLIT, s' and
+// s_prev' of the whole window into s_out and sp_out and, unless null,
+// psi into psi_out (pz = 0: the single-device call, and the passes before
+// a slab round's last); with SPLIT (a slab round's last pass), s' and
+// s_prev' of planes [oz, oz + on) at (z - oz) XY, unless null the
+// [2, G, Y, X] bands (s', s_prev') of planes [G, 2G) and [Zl, Zl + G), and
+// unless null psi of planes [pz, pz + pn) at (z - pz) XY.  The instances
+// keep every pointer a __restrict__ parameter, so the next plane's loads
+// may be issued across the stage's stores.
+template <bool BANDED, bool SPLIT>
 __global__ void __launch_bounds__(SP_THREADS, 2) lbm_scalar_pass_kernel(
-    const float* __restrict__ s, const float* __restrict__ sp, const float* __restrict__ cmask,
-    const float* __restrict__ rhs, float* __restrict__ s_out, float* __restrict__ sp_out,
-    float* __restrict__ psi_out, int Z, int Y, int X, int k, int TY, int LZ) {
+    const float* __restrict__ s_lo, const float* __restrict__ s_mid,
+    const float* __restrict__ s_hi, const float* __restrict__ sp_lo,
+    const float* __restrict__ sp_mid, const float* __restrict__ sp_hi,
+    const float* __restrict__ c_lo, const float* __restrict__ c_mid,
+    const float* __restrict__ c_hi, const float* __restrict__ r_lo,
+    const float* __restrict__ r_mid, const float* __restrict__ r_hi, float* __restrict__ s_out,
+    float* __restrict__ sp_out, float* __restrict__ band_lo, float* __restrict__ band_hi,
+    float* __restrict__ psi_out, int oz, int on, int pz, int pn, int G, int Zl, int Y, int X,
+    int k, int TY, int LZ) {
+  const int Z = Zl + 2 * G;
   // 4 floats of padding (the edge lanes of row 0 read one float before it),
   // k 3-plane stage rings, the cmask and rhs rings, the s_prev ring, then
   // the wrapped grid x of each extended column and y * X of each row
@@ -113,10 +153,11 @@ __global__ void __launch_bounds__(SP_THREADS, 2) lbm_scalar_pass_kernel(
     off[m] = row < EY ? rowy[row] + colx[lane] : 0;
   }
   float pre[SP_LOADS];
-  auto fetch = [&](long long base) {
+  auto fetch = [&](int z) {
+    const float* p = lbm_plane<BANDED>(s_lo, s_mid, s_hi, z, G, Zl, XY);
 #pragma unroll
     for (int m = 0; m < SP_LOADS; ++m)
-      if (tid + m * SP_THREADS < P) pre[m] = s[base + off[m]];
+      if (tid + m * SP_THREADS < P) pre[m] = p[off[m]];
   };
   auto put = [&]() {
     float* d = rings + r3 * P;
@@ -126,15 +167,17 @@ __global__ void __launch_bounds__(SP_THREADS, 2) lbm_scalar_pass_kernel(
   };
   // plane z of cmask, rhs and s_prev into cmask/rhs slot ks, s_prev slot ss
   auto fetch_async = [&](int z, int ks, int ss) {
-    const long long base = z * XY;
+    const float* cz = lbm_plane<BANDED>(c_lo, c_mid, c_hi, z, G, Zl, XY);
+    const float* rz_ = lbm_plane<BANDED>(r_lo, r_mid, r_hi, z, G, Zl, XY);
+    const float* qz = lbm_plane<BANDED>(sp_lo, sp_mid, sp_hi, z, G, Zl, XY);
     float *c = cmr + ks * P, *r = rhr + ks * P, *q = spr + ss * P;
 #pragma unroll
     for (int m = 0; m < SP_LOADS; ++m) {
       const int e = tid + m * SP_THREADS;
       if (e < P) {
-        lbm_cp_async4(c + e, cmask + base + off[m]);
-        lbm_cp_async4(r + e, rhs + base + off[m]);
-        lbm_cp_async4(q + e, sp + base + off[m]);
+        lbm_cp_async4(c + e, cz + off[m]);
+        lbm_cp_async4(r + e, rz_ + off[m]);
+        lbm_cp_async4(q + e, qz + off[m]);
       }
     }
     lbm_cp_async_commit();
@@ -142,12 +185,12 @@ __global__ void __launch_bounds__(SP_THREADS, 2) lbm_scalar_pass_kernel(
 
   const float w1 = static_cast<float>(1.5 / 18.0), w2 = static_cast<float>(1.5 / 36.0);
   const int t_end = z1 + k;
-  fetch(rz * XY);
+  fetch(rz);
   fetch_async(rz, rk, r3);
   for (int t = z0 - k; t < t_end; ++t) {
     put();
     const int z_next = rz + 1 == Z ? 0 : rz + 1;
-    if (t + 1 < t_end) fetch(z_next * XY);
+    if (t + 1 < t_end) fetch(z_next);
     lbm_cp_async_wait_prior();  // planes up to t - 1 of cmask, rhs, s_prev
     __syncthreads();
     // plane t + 1, read from tick t + 2 on: two ticks to land, into slots
@@ -172,6 +215,15 @@ __global__ void __launch_bounds__(SP_THREADS, 2) lbm_scalar_pass_kernel(
         const float* last = rings + (3 * (k - 1) + sb) * P;
         float* dst = rb + (3 + sb) * P;
         const long long base = zw * XY;
+        // with SPLIT, stage k's destinations at plane zw (null: not written)
+        float *so = nullptr, *spo = nullptr, *lo = nullptr, *hi = nullptr, *po = nullptr;
+        if (SPLIT && j == k) {
+          if (zw >= oz && zw < oz + on) so = s_out + (zw - oz) * XY, spo = sp_out + (zw - oz) * XY;
+          if (band_lo != nullptr && zw >= G && zw < 2 * G) lo = band_lo + (zw - G) * XY;
+          if (band_hi != nullptr && zw >= Zl && zw < Zl + G) hi = band_hi + (zw - Zl) * XY;
+          if (psi_out != nullptr && zw >= pz && zw < pz + pn) po = psi_out + (zw - pz) * XY;
+        }
+        const long long GXY = G * XY;
         // groups of SP_R rows of [j, EY - j), the last one moved up to end
         // at EY - j (its overlap is computed twice, to the same values)
         const int groups = (EY - 2 * j + SP_R - 1) / SP_R;
@@ -216,10 +268,19 @@ __global__ void __launch_bounds__(SP_THREADS, 2) lbm_scalar_pass_kernel(
             } else if (lane >= k && lane < SP_EX - k && x0 + lane - k < X &&
                        y0 + ey0 + i - k < Y) {
               // the tile, inside the grid: no wrap
-              const long long n = base + rowy[ey0 + i] + colx[lane];
-              s_out[n] = snew;
-              sp_out[n] = last[o];
-              if (psi_out != nullptr) psi_out[n] = psi;
+              if (SPLIT) {
+                const int n = rowy[ey0 + i] + colx[lane];
+                const float snp = last[o];
+                if (so != nullptr) so[n] = snew, spo[n] = snp;
+                if (lo != nullptr) lo[n] = snew, lo[GXY + n] = snp;
+                if (hi != nullptr) hi[n] = snew, hi[GXY + n] = snp;
+                if (po != nullptr) po[n] = psi;
+              } else {
+                const long long n = base + rowy[ey0 + i] + colx[lane];
+                s_out[n] = snew;
+                sp_out[n] = last[o];
+                if (psi_out != nullptr) psi_out[n] = psi;
+              }
             }
           }
         }
@@ -242,12 +303,17 @@ __global__ void __launch_bounds__(SP_THREADS, 2) lbm_scalar_pass_kernel(
 #define H2_TY 8
 #define H2_ZB 16
 
-// H2 of planes [zo, zo + Zo) of psi [Z, Y, X], the gradient's plane and the
-// substitution's clamped to [zlo, zhi], written to h2 [Zo, Y, X]: the whole
-// domain with zo = 0, Zo = Z, zlo = 1, zhi = Z - 2.
+// H2 of planes [zo, zo + Zo) of a window of Z = Zl + 2G planes, the
+// gradient's plane and the substitution's clamped to [zlo, zhi], written to
+// h2 [Zo, Y, X]: psi holds planes [pz, ...) of the window (those the walk
+// reads, [zlo - 1, zhi + 1] at most), cmask the window read in place.  The
+// whole domain: G = 0, Zl = Z, pz = 0, zo = 0, Zo = Z, zlo = 1, zhi = Z - 2,
+// cmask contiguous (BANDED false).
+template <bool BANDED>
 __global__ void __launch_bounds__(H2_TX* H2_TY) lbm_scalar_h2_kernel(
-    const float* __restrict__ psi, const float* __restrict__ cmask, float* __restrict__ h2,
-    int Z, int Y, int X, int zo, int Zo, int zlo, int zhi, float d12, float hx, float hy,
+    const float* __restrict__ psi, int pz, const float* __restrict__ c_lo,
+    const float* __restrict__ c_mid, const float* __restrict__ c_hi, float* __restrict__ h2,
+    int G, int Zl, int Y, int X, int zo, int Zo, int zlo, int zhi, float d12, float hx, float hy,
     float hz) {
   // psi of three planes of the tile and its halo, replaced at obstacles by
   // the value at the nearest interior cell
@@ -255,11 +321,17 @@ __global__ void __launch_bounds__(H2_TX* H2_TY) lbm_scalar_h2_kernel(
   const int x0 = blockIdx.x * H2_TX, y0 = blockIdx.y * H2_TY;
   const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
   const int z0 = zo + blockIdx.z * H2_ZB, z1 = min(z0 + H2_ZB, zo + Zo);
+  const long long XY = static_cast<long long>(X) * Y;
   auto load = [&](int p) {
+    // n and c index planes p and pc, its clamp, of a [*, Y, X] array
+    const int pc = lbm_clamp(p, zlo, zhi);
+    const long long np = p * XY, nc = pc * XY;
+    const float* cm = lbm_plane<BANDED>(c_lo, c_mid, c_hi, p, G, Zl, XY);
+    const float *pp = psi + (p - pz) * XY, *pq = psi + (pc - pz) * XY;
     lbm_halo_cells_clamped<H2_TX, H2_TY>(p, x0, y0, zlo, zhi, Y, X, Y, X,
                                          [&](int ey, int ex, long long n, long long c) {
                                            ring[lbm_mod(p, 3)][ey][ex] =
-                                               psi[cmask[n] < 0.f ? c : n];
+                                               cm[n - np] < 0.f ? pq[c - nc] : pp[n - np];
                                          });
   };
   const int xl = lbm_clamp(x, 1, X - 2) - lbm_ring_origin(x0, X);
@@ -285,8 +357,9 @@ static int lbm_scalar_pass_smem(int k, int TY) {
 #define SP_SMEM_MAX 232448
 #define SP_MAX_DEVICES 64
 
-// Lets lbm_scalar_pass_kernel take SP_SMEM_MAX bytes of dynamic shared
-// memory on the current device: one attribute call a device, not a launch.
+// Lets each instance of lbm_scalar_pass_kernel take SP_SMEM_MAX bytes of
+// dynamic shared memory on the current device: one attribute call an
+// instance and device, not a launch.
 static cudaError_t lbm_scalar_pass_allow_smem() {
   static bool allowed[SP_MAX_DEVICES] = {};
   int dev = 0;
@@ -294,22 +367,45 @@ static cudaError_t lbm_scalar_pass_allow_smem() {
   if (err != cudaSuccess) return err;
   if (dev >= SP_MAX_DEVICES) return cudaErrorInvalidDevice;
   if (!allowed[dev]) {
-    err = cudaFuncSetAttribute(lbm_scalar_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SP_SMEM_MAX);
-    if (err != cudaSuccess) return err;
+    const int attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+    for (const void* f : {reinterpret_cast<const void*>(lbm_scalar_pass_kernel<false, false>),
+                          reinterpret_cast<const void*>(lbm_scalar_pass_kernel<false, true>),
+                          reinterpret_cast<const void*>(lbm_scalar_pass_kernel<true, false>),
+                          reinterpret_cast<const void*>(lbm_scalar_pass_kernel<true, true>)}) {
+      err = cudaFuncSetAttribute(f, static_cast<cudaFuncAttribute>(attr), SP_SMEM_MAX);
+      if (err != cudaSuccess) return err;
+    }
     allowed[dev] = true;
   }
   return cudaSuccess;
 }
 
-// k sweeps on (s, sp) -> s_out (sweep k), sp_out (sweep k - 1) and, unless
-// null, psi_out (psi of sweep k), on tiles (32 - 2k) x TY and z chunks of
-// LZ planes; 1 <= k <= SP_MAX_K, SP_R <= TY <= SP_MAX_EY - 2k, and the
-// block's shared memory within SP_SMEM_MAX.
-extern "C" int lbm_scalar_pass(const float* s, const float* sp, const float* cmask,
-                               const float* rhs, float* s_out, float* sp_out, float* psi_out,
-                               int Z, int Y, int X, int k, int TY, int LZ, void* stream) {
-  if (k < 1 || k > SP_MAX_K || TY < SP_R || TY + 2 * k > SP_MAX_EY || LZ < 1)
+// Does a field's (lo, mid, hi) hold the window [0, Zl + 2G) contiguously?
+static bool lbm_whole(const float* lo, const float* mid, const float* hi, int G, int Zl,
+                      long long XY) {
+  return mid == lo + G * XY && hi == lo + (G + Zl) * XY;
+}
+
+// k sweeps on the window [0, Zl + 2G) of (s, sp), cmask and rhs, each read
+// in place through its three parts (lbm_plane: lo, mid, hi; a contiguous
+// array with G = 0 for the single-device call) -> s' (sweep k) and s_prev'
+// (sweep k - 1) of planes [oz, oz + on) into s_out and sp_out, with
+// band_lo and band_hi (unless null) the [2, G, Y, X] bands of planes
+// [G, 2G) and [Zl, Zl + G), and psi of sweep k of planes [pz, pz + pn)
+// (unless psi_out is null), on tiles (32 - 2k) x TY and z chunks of LZ
+// planes; 1 <= k <= SP_MAX_K, SP_R <= TY <= SP_MAX_EY - 2k, and the block's
+// shared memory within SP_SMEM_MAX.
+extern "C" int lbm_scalar_pass(const float* s_lo, const float* s_mid, const float* s_hi,
+                               const float* sp_lo, const float* sp_mid, const float* sp_hi,
+                               const float* c_lo, const float* c_mid, const float* c_hi,
+                               const float* r_lo, const float* r_mid, const float* r_hi, int G,
+                               int Zl, float* s_out, float* sp_out, int oz, int on,
+                               float* band_lo, float* band_hi, float* psi_out, int pz, int pn,
+                               int Y, int X, int k, int TY, int LZ, void* stream) {
+  const int Z = Zl + 2 * G;
+  if (k < 1 || k > SP_MAX_K || TY < SP_R || TY + 2 * k > SP_MAX_EY || LZ < 1 || G < 0 ||
+      Zl < 1 || oz < 0 || on < 0 || oz + on > Z || pz < 0 || pn < 0 || pz + pn > Z ||
+      ((band_lo != nullptr || band_hi != nullptr) && G > Zl))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = lbm_scalar_pass_smem(k, TY);
   if (smem > SP_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
@@ -317,8 +413,20 @@ extern "C" int lbm_scalar_pass(const float* s, const float* sp, const float* cma
   if (err != cudaSuccess) return static_cast<int>(err);
   const int TX = SP_EX - 2 * k;
   const dim3 grid((X + TX - 1) / TX, (Y + TY - 1) / TY, (Z + LZ - 1) / LZ);
-  lbm_scalar_pass_kernel<<<grid, SP_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      s, sp, cmask, rhs, s_out, sp_out, psi_out, Z, Y, X, k, TY, LZ);
+  const long long XY = static_cast<long long>(X) * Y;
+  const bool banded = !(lbm_whole(s_lo, s_mid, s_hi, G, Zl, XY) &&
+                        lbm_whole(sp_lo, sp_mid, sp_hi, G, Zl, XY) &&
+                        lbm_whole(c_lo, c_mid, c_hi, G, Zl, XY) &&
+                        lbm_whole(r_lo, r_mid, r_hi, G, Zl, XY));
+  const bool split = !(oz == 0 && on == Z && band_lo == nullptr && band_hi == nullptr &&
+                       (psi_out == nullptr || (pz == 0 && pn == Z)));
+  auto kernel = banded ? (split ? lbm_scalar_pass_kernel<true, true>
+                                : lbm_scalar_pass_kernel<true, false>)
+                       : (split ? lbm_scalar_pass_kernel<false, true>
+                                : lbm_scalar_pass_kernel<false, false>);
+  kernel<<<grid, SP_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      s_lo, s_mid, s_hi, sp_lo, sp_mid, sp_hi, c_lo, c_mid, c_hi, r_lo, r_mid, r_hi, s_out,
+      sp_out, band_lo, band_hi, psi_out, oz, on, pz, pn, G, Zl, Y, X, k, TY, LZ);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -328,31 +436,45 @@ extern "C" int lbm_scalar_pass_occupancy(int k, int TY, int* blocks) {
   const cudaError_t err = lbm_scalar_pass_allow_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, lbm_scalar_pass_kernel, SP_THREADS, lbm_scalar_pass_smem(k, TY)));
+      blocks, lbm_scalar_pass_kernel<false, false>, SP_THREADS, lbm_scalar_pass_smem(k, TY)));
 }
 
-static int lbm_scalar_h2_launch(const float* psi, const float* cmask, float* h2, int Z, int Y,
-                                int X, int zo, int Zo, int zlo, int zhi, double dx, double hx,
-                                double hy, double hz, void* stream) {
+static int lbm_scalar_h2_launch(const float* psi, int pz, const float* c_lo, const float* c_mid,
+                                const float* c_hi, float* h2, int G, int Zl, int Y, int X, int zo,
+                                int Zo, int zlo, int zhi, double dx, double hx, double hy,
+                                double hz, void* stream) {
   const dim3 grid((X + H2_TX - 1) / H2_TX, (Y + H2_TY - 1) / H2_TY, (Zo + H2_ZB - 1) / H2_ZB);
-  lbm_scalar_h2_kernel<<<grid, dim3(H2_TX, H2_TY), 0, static_cast<cudaStream_t>(stream)>>>(
-      psi, cmask, h2, Z, Y, X, zo, Zo, zlo, zhi, static_cast<float>(12.0 * dx),
-      static_cast<float>(hx), static_cast<float>(hy), static_cast<float>(hz));
+  auto kernel = lbm_whole(c_lo, c_mid, c_hi, G, Zl, static_cast<long long>(X) * Y)
+                    ? lbm_scalar_h2_kernel<false>
+                    : lbm_scalar_h2_kernel<true>;
+  kernel<<<grid, dim3(H2_TX, H2_TY), 0, static_cast<cudaStream_t>(stream)>>>(
+      psi, pz, c_lo, c_mid, c_hi, h2, G, Zl, Y, X, zo, Zo, zlo, zhi,
+      static_cast<float>(12.0 * dx), static_cast<float>(hx), static_cast<float>(hy),
+      static_cast<float>(hz));
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int lbm_scalar_h2(const float* psi, const float* cmask, float* h2, int Z, int Y, int X,
                              double dx, double hx, double hy, double hz, void* stream) {
-  return lbm_scalar_h2_launch(psi, cmask, h2, Z, Y, X, 0, Z, 1, Z - 2, dx, hx, hy, hz, stream);
+  const float* end = cmask + static_cast<long long>(Z) * Y * X;
+  return lbm_scalar_h2_launch(psi, 0, cmask, cmask, end, h2, 0, Z, Y, X, 0, Z, 1, Z - 2, dx, hx,
+                              hy, hz, stream);
 }
 
-// The slab form: psi and cmask of the extended slab [Z, Y, X], H2 of its
-// planes [zo, zo + Zo) into h2 [Zo, Y, X], clamped to [zlo, zhi] (extended
-// coordinates; 1 <= zlo and zhi <= Z - 2).
-extern "C" int lbm_scalar_h2_slab(const float* psi, const float* cmask, float* h2, int Z, int Y,
-                                  int X, int zo, int Zo, int zlo, int zhi, double dx, double hx,
-                                  double hy, double hz, void* stream) {
-  if (zlo < 1 || zhi > Z - 2 || zo < 0 || zo + Zo > Z)
+// The slab form: H2 of planes [zo, zo + Zo) of the window [0, Zl + 2G) into
+// h2 [Zo, Y, X], clamped to [zlo, zhi] (window coordinates; 1 <= zlo and
+// zhi <= Zl + 2G - 2), from psi of planes [pz, pz + pn) and cmask read in
+// place through its three parts (lbm_plane); the walk reads planes
+// [max(zlo, zo) - 1, min(zhi, zo + Zo - 1) + 1], which psi must hold.
+extern "C" int lbm_scalar_h2_slab(const float* psi, int pz, int pn, const float* c_lo,
+                                  const float* c_mid, const float* c_hi, float* h2, int G, int Zl,
+                                  int Y, int X, int zo, int Zo, int zlo, int zhi, double dx,
+                                  double hx, double hy, double hz, void* stream) {
+  const int Z = Zl + 2 * G;
+  auto clamp = [&](int z) { return z < zlo ? zlo : (z > zhi ? zhi : z); };
+  if (zlo < 1 || zhi > Z - 2 || zlo > zhi || zo < 0 || Zo < 1 || zo + Zo > Z ||
+      clamp(zo) - 1 < pz || clamp(zo + Zo - 1) + 1 >= pz + pn)
     return static_cast<int>(cudaErrorInvalidValue);
-  return lbm_scalar_h2_launch(psi, cmask, h2, Z, Y, X, zo, Zo, zlo, zhi, dx, hx, hy, hz, stream);
+  return lbm_scalar_h2_launch(psi, pz, c_lo, c_mid, c_hi, h2, G, Zl, Y, X, zo, Zo, zlo, zhi, dx,
+                              hx, hy, hz, stream);
 }

@@ -194,7 +194,8 @@ SLAB_FORMS = ("B1", "B2", "B3", "B4", "B5", "B6", "B8a", "B8b", "B10a", "B10b", 
 #: form is the counterpart of B7's ghost-ref mode, the TPU's only channel-
 #: form kernel with ghosts)
 SLAB_TPU_KERNELS = {
-    "B1": "lbm_ferrofluid_tpu/ops/pallas/scalar_poisson.py:562",
+    "B1": "lbm_ferrofluid_tpu/ops/pallas/scalar_poisson.py:562 (scalar_wavefront in its "
+          "ghost-ref mode: ghosts=, slab_clamp=, emit_bands=; kernel :111-133)",
     "B2": "lbm_ferrofluid_tpu/ops/pallas/contact3d.py:309",
     "B3": "lbm_ferrofluid_tpu/ops/pallas/capillogue.py:809",
     "B4": "lbm_ferrofluid_tpu/ops/pallas/fused_step.py:721",

@@ -22,20 +22,25 @@ Bound on an H100 (card peaks from NVIDIA's data sheet): see :func:`cost`;
 at 30 sweeps the float32 operation rate bounds it (0.16 ms at 256^3
 against 0.12 ms for the bytes).
 
-The slab form (``ghosts=``, the TPU kernel's ghost mode, for a z-slab of a
-domain decomposed along z over ranks: ``parallel/step3d.py``) is one round
-of ``n_iters`` sweeps: ``s2`` holds the slab's Zl planes, ``cmask`` and
-``rhs_scaled`` come extended by G planes a side ([1, 1, Zl + 2G, Y, X]) and
-``ghosts = (lo, hi)`` are the neighbours' edge bands of (s, s_prev),
-[1, 2, G, Y, X] each.  The round copies the bands and the slab into one
-extended pair, runs the passes on it (their z-wrap reaches only ghost
-planes, so G >= ``n_iters`` keeps the slab exact, and G >= ``n_iters`` + 1
-keeps psi exact one plane past it for H2), and returns the slab's planes
-with either the boundary bands of the result (``emit_bands=True``, for the
-next round's exchange) or H2 of the slab's planes (``emit="h2"`` with
-``slab_clamp = (zlo, zhi)``, the gradient's z clamp in extended coordinates:
-G + 1 and G + Zl - 2 at the domain's true edges, 1 and Zl + 2G - 2
-elsewhere).  Its launches count in ``launches_slab``.
+The slab form (``ghosts=``, the TPU kernel's ghost-ref mode, for a z-slab
+of a domain decomposed along z over ranks: ``parallel/step3d.py``) is one
+round of ``n_iters`` sweeps on the window of the slab's Zl planes and G
+ghost planes a side: ``s2`` holds the slab's planes, ``ghosts = (lo, hi)``
+are the neighbours' edge bands of (s, s_prev), [1, 2, G, Y, X] each, and
+``cmask`` and ``rhs_scaled`` come either extended by G planes a side
+([1, 1, Zl + 2G, Y, X], the TPU kernel's contract) or as the slab's planes
+with ``aux_ghosts = (lo, hi)``, the neighbours' [1, 2, G, Y, X] bands of
+(cmask, rhs).  The kernel reads the window in place (``csrc/
+scalar_poisson.cu``: ``lbm_plane``), so no extended copy is made; the
+passes' z-wrap reaches only ghost planes, so G >= ``n_iters`` keeps the
+slab exact, and G >= ``n_iters`` + 1 keeps psi exact one plane past it
+for H2.  The round's last pass writes the slab's planes with either its
+boundary bands (``emit_bands=True``: the final values of planes [0, G) and
+[Zl - G, Zl), for the next round's exchange) or psi of the planes H2 reads
+(``emit="h2"`` with ``slab_clamp = (zlo, zhi)``, the gradient's z clamp in
+window coordinates: G + 1 and G + Zl - 2 at the domain's true edges, 1 and
+Zl + 2G - 2 elsewhere), and H2 of the slab's planes follows.  Its launches
+count in ``launches_slab``.
 """
 
 from __future__ import annotations
@@ -186,9 +191,9 @@ def cost(s2, cmask, rhs_scaled, *, n_iters, emit="h2", **_) -> tuple[int, int]:
 
 def cost_slab(s2, cmask, rhs_scaled, *, n_iters, emit="h2", ghosts=None, **_) -> tuple[int, int]:
     """(bytes, flops) of a slab round: :func:`cost`'s sweeps over the
-    extended planes (``cmask`` comes extended; the ghost bands are among
-    those planes), with no psi written, and in the final round H2 of the
-    slab's own planes (:func:`cost_h2` over them)."""
+    window's planes (``cmask`` extended: the ghost bands are among its
+    planes), with no psi written, and in the final round H2 of the slab's
+    own planes (:func:`cost_h2` over them)."""
     nbytes, flops = cost(s2, cmask, rhs_scaled, n_iters=n_iters, emit="psi")
     nbytes -= 4 * cmask.numel()
     if emit == "h2":
@@ -237,18 +242,29 @@ def h2_from_psi_plain(psi, cmask, dx, h_ext):
     return maybe_h2(-isotropic_grad(psi, dx, flags), h_ext)
 
 
-def _check_slab(s2, cmask, n_iters, emit, ghosts, slab_clamp, emit_bands):
+def _check_slab(s2, cmask, n_iters, emit, ghosts, slab_clamp, emit_bands, aux_ghosts):
     """G, the ghost bands' depth, once the slab form's arguments hold."""
     if (emit, emit_bands, slab_clamp is None) not in (("h2", False, False), (None, True, True)):
         raise ValueError("the slab form emits H2 (emit='h2' with slab_clamp) or the "
                          "boundary bands (emit=None, emit_bands=True)")
     G = ghosts[0].shape[2]
     Zl = s2.shape[2]
-    if cmask.shape[2] != Zl + 2 * G or G < n_iters + (emit == "h2") or G > Zl:
+    planes = Zl if aux_ghosts is not None else Zl + 2 * G
+    if cmask.shape[2] != planes or G < n_iters + (emit == "h2") or G > Zl:
         raise ValueError(f"slab round of {n_iters} sweeps: cmask/rhs extended by G planes a "
-                         f"side with n_iters{' + 1' if emit == 'h2' else ''} <= G <= Zl; got "
-                         f"G={G}, Zl={Zl}, extended {cmask.shape[2]}")
+                         f"side, or the slab's with aux_ghosts, and "
+                         f"n_iters{' + 1' if emit == 'h2' else ''} <= G <= Zl; got G={G}, "
+                         f"Zl={Zl}, cmask of {cmask.shape[2]} planes")
     return G
+
+
+def _extended(cmask, rhs_scaled, aux_ghosts):
+    """cmask and rhs over the window: as given, or with the (cmask, rhs)
+    bands of ``aux_ghosts`` put around the slab's planes."""
+    if aux_ghosts is None:
+        return cmask, rhs_scaled
+    return tuple(torch.cat([aux_ghosts[0][:, c:c + 1], x, aux_ghosts[1][:, c:c + 1]], dim=2)
+                 for c, x in enumerate((cmask, rhs_scaled)))
 
 
 def _slab_out(ext, G, Zl, emit_bands):
@@ -272,11 +288,14 @@ def h2_slab_plain(psi, cmask, dx, h_ext, G, Zl, slab_clamp):
 
 
 def scalar_wavefront_plain(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext=None,
-                           emit="h2", ghosts=None, slab_clamp=None, emit_bands=False):
+                           emit="h2", ghosts=None, slab_clamp=None, emit_bands=False,
+                           aux_ghosts=None):
     """Plain PyTorch version of :func:`scalar_wavefront`; the slab form
-    sweeps the extended pair."""
+    sweeps the window as one extended copy (the bands and the slab put
+    together, cmask and rhs too with ``aux_ghosts``)."""
     if ghosts is not None:
-        G = _check_slab(s2, cmask, n_iters, emit, ghosts, slab_clamp, emit_bands)
+        G = _check_slab(s2, cmask, n_iters, emit, ghosts, slab_clamp, emit_bands, aux_ghosts)
+        cmask, rhs_scaled = _extended(cmask, rhs_scaled, aux_ghosts)
         Zl = s2.shape[2]
         ext, psi = scalar_sweeps_plain(torch.cat([ghosts[0], s2, ghosts[1]], dim=2), cmask,
                                        rhs_scaled, n_iters)
@@ -290,32 +309,70 @@ def scalar_wavefront_plain(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext=None
     return s2, h2_from_psi_plain(psi, cmask, dx, h_ext)
 
 
-def _passes(s2, cmask, rhs_scaled, n_iters, want_psi, form):
-    """Launch the passes of ``n_iters`` sweeps on the pair ``s2``; returns
-    (s2', psi of the last sweep, or None)."""
-    B, C, Z, Y, X = s2.shape
+def _parts(x, c, G, Zl, bands=None, bc=None):
+    """Pointers (lo, mid, hi) of channel ``c`` of a field over the window
+    [0, Zl + 2G) (``lbm_plane``'s lo, mid, hi): ``x`` holds the window contiguously, or
+    the slab's planes with ``bands`` = (lo, hi) the G planes around it,
+    channel ``bc`` of those (``c`` unless given)."""
+    size = x.element_size()
+    at = x.data_ptr() + c * x.stride(1) * size
+    if bands is None:
+        plane = x.shape[-1] * x.shape[-2] * size
+        return tuple(ctypes.c_void_p(at + z * plane) for z in (0, G, G + Zl))
+    bc = c if bc is None else bc
+    lo, hi = (ctypes.c_void_p(b.data_ptr() + bc * b.stride(1) * size) for b in bands)
+    return lo, ctypes.c_void_p(at), hi
+
+
+def _passes(s2, cmask, rhs_scaled, n_iters, *, G=0, ghosts=None, aux_ghosts=None,
+            emit_bands=False, psi_planes=None, form=None):
+    """Launch the passes of ``n_iters`` sweeps on the window of the pair
+    ``s2`` (its Zl planes, with ``ghosts`` G planes a side read in place;
+    cmask and rhs over the window, with ``aux_ghosts`` their bands).
+    Returns (s2' of the Zl planes, (band_lo, band_hi) with ``emit_bands``
+    else None, psi of ``psi_planes`` = (first, count) of the window's
+    planes, or None)."""
+    B, C, Zl, Y, X = s2.shape
+    Z = Zl + 2 * G
     pl = plan(Z, Y, X, n_iters, torch.cuda.get_device_properties(s2.device).multi_processor_count)
     out = torch.empty_like(s2)
-    # pass i writes out when an even number of passes follows it, else tmp:
-    # each pass reads the pair the one before it wrote, and the last writes out
-    tmp = torch.empty_like(s2) if len(pl.passes) > 1 else None
-    psi = torch.empty_like(cmask) if want_psi else None
-    dims = (ctypes.c_int(Z), ctypes.c_int(Y), ctypes.c_int(X))
+    bands = tuple(s2.new_empty((1, 2, G, Y, X)) for _ in range(2)) if emit_bands else (None,
+                                                                                        None)
+    psi = s2.new_empty((1, 1, psi_planes[1], Y, X)) if psi_planes else None
+    # the passes before the last hand the window on in full buffers: on one
+    # device ``out`` and one more, on a slab two window-sized ones
+    n = len(pl.passes)
+    if G == 0:
+        bufs = [out, torch.empty_like(s2)] if n > 1 else [out]
+    else:
+        bufs = [s2.new_empty((1, 2, Z, Y, X)) for _ in range(min(n - 1, 2))]
+    # each buffer's pointers as a pass's input (s, s_prev over the window)
+    # and as its output (the whole window), made once a call
+    reads = [_parts(b, 0, G, Zl) + _parts(b, 1, G, Zl) for b in bufs]
+    nulls = (ptr(None),) * 3
+    writes = [(ptr(b[:, 0]), ptr(b[:, 1]), 0, Z, *nulls, 0, 0) for b in bufs]
+    pz, pn = psi_planes or (0, 0)
+    last = (ptr(out[:, 0]), ptr(out[:, 1]), G, Zl, ptr(bands[0]), ptr(bands[1]), ptr(psi), pz,
+            pn)
+    fields = (*_parts(cmask, 0, G, Zl, aux_ghosts), *_parts(rhs_scaled, 0, G, Zl, aux_ghosts, 1),
+              G, Zl)
+    src = _parts(s2, 0, G, Zl, ghosts) + _parts(s2, 1, G, Zl, ghosts)
     st = stream_of(s2)
-    src = s2
     for i, k in enumerate(pl.passes):
-        after = len(pl.passes) - 1 - i
-        dst = out if after % 2 == 0 else tmp
-        call("lbm_scalar_pass", ptr(src[:, 0]), ptr(src[:, 1]), ptr(cmask), ptr(rhs_scaled),
-             ptr(dst[:, 0]), ptr(dst[:, 1]), ptr(None if after else psi), *dims,
-             ctypes.c_int(k), ctypes.c_int(pl.ty), ctypes.c_int(pl.lz), st)
+        after = n - 1 - i
+        # one device: pass i writes out when an even number of passes
+        # follows it; a slab: the two window buffers in turn
+        j = (after % 2 if G == 0 else i % 2) if after else None
+        call("lbm_scalar_pass", *src, *fields, *(writes[j] if after else last), Y, X, k, pl.ty,
+             pl.lz, st)
         count_launch(scalar_wavefront, False, form)
-        src = dst
-    return out, psi
+        if after:
+            src = reads[j]
+    return out, (bands if emit_bands else None), psi
 
 
 def scalar_wavefront(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext=None, emit="h2",
-                     ghosts=None, slab_clamp=None, emit_bands=False):
+                     ghosts=None, slab_clamp=None, emit_bands=False, aux_ghosts=None):
     """``n_iters`` scalar sweeps on the fused (s, s_prev) pair, then H2.
 
     ``s2``: [1, 2, Z, Y, X] float32, both channels fluid-masked;
@@ -324,15 +381,17 @@ def scalar_wavefront(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext=None, emit
     Returns (s2', H2), or with ``emit="psi"`` (s2', psi of the last sweep)
     and no H2 launch (``h_ext`` unused).  With ``ghosts`` the slab form
     (module docstring): (s2', H2) with ``emit="h2"`` and ``slab_clamp``, or
-    (s2', (band_lo, band_hi)) with ``emit=None, emit_bands=True``.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel on their
-    card; anything else raises.  Inputs are not modified.
+    (s2', (band_lo, band_hi)) with ``emit=None, emit_bands=True``; cmask
+    and rhs extended, or the slab's with ``aux_ghosts``.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel on their card;
+    anything else raises.  Inputs are not modified.
     """
     if emit not in ("h2", "psi") and not (ghosts is not None and emit is None):
         raise ValueError(f"scalar_wavefront emits 'h2' or 'psi', not {emit!r}")
     kw = dict(n_iters=n_iters, dx=dx, h_ext=h_ext, emit=emit)
     if ghosts is not None:
-        kw.update(ghosts=ghosts, slab_clamp=slab_clamp, emit_bands=emit_bands)
+        kw.update(ghosts=ghosts, slab_clamp=slab_clamp, emit_bands=emit_bands,
+                  aux_ghosts=aux_ghosts)
     if s2.device.type == "cpu":
         return scalar_wavefront_plain(s2, cmask, rhs_scaled, **kw)
     check_no_grad("scalar_wavefront", s2, cmask, rhs_scaled)
@@ -341,31 +400,35 @@ def scalar_wavefront(s2, cmask, rhs_scaled, *, n_iters, dx=1.0, h_ext=None, emit
     check_cuda("s2", s2, torch.float32, (1, 2, Z, Y, X))
     Ze = Z
     if ghosts is not None:
-        G = _check_slab(s2, cmask, n_iters, emit, ghosts, slab_clamp, emit_bands)
-        Ze = Z + 2 * G
-        for name, t in zip(("band_lo", "band_hi"), ghosts, strict=True):
+        G = _check_slab(s2, cmask, n_iters, emit, ghosts, slab_clamp, emit_bands, aux_ghosts)
+        for name, t in zip(("band_lo", "band_hi", "aux_lo", "aux_hi"),
+                           (*ghosts, *(aux_ghosts or ())), strict=False):
             check_cuda(name, t, torch.float32, (1, 2, G, Y, X))
+        Ze = Z if aux_ghosts is not None else Z + 2 * G
     check_cuda("cmask", cmask, torch.float32, (1, 1, Ze, Y, X))
     check_cuda("rhs_scaled", rhs_scaled, torch.float32, (1, 1, Ze, Y, X))
     if min(Z, Y, X) < 3 or n_iters < 1 or (emit == "h2" and len(h_ext) != 3):
         raise ValueError("scalar_wavefront needs Z, Y, X >= 3, n_iters >= 1 and a 3-tuple h_ext")
     if ghosts is None:
-        out, psi = _passes(s2, cmask, rhs_scaled, n_iters, True,
-                           "psi" if emit == "psi" else None)
+        out, _, psi = _passes(s2, cmask, rhs_scaled, n_iters, psi_planes=(0, Z),
+                              form="psi" if emit == "psi" else None)
         if emit == "psi":
             return out, psi
         return out, scalar_h2(psi, cmask, dx, h_ext)
-    ext, psi = _passes(torch.cat([ghosts[0], s2, ghosts[1]], dim=2), cmask, rhs_scaled,
-                       n_iters, emit == "h2", "slab")
+    # psi of the planes the H2 launch reads: [G - 1, G + Z + 1) of the window
+    out, bands, psi = _passes(s2, cmask, rhs_scaled, n_iters, G=G, ghosts=ghosts,
+                              aux_ghosts=aux_ghosts, emit_bands=emit_bands,
+                              psi_planes=None if emit_bands else (G - 1, Z + 2), form="slab")
     if emit_bands:
-        return _slab_out(ext, G, Z, True)
+        return out, bands
     h2 = torch.empty_like(s2[:, :1])
-    call("lbm_scalar_h2_slab", ptr(psi), ptr(cmask), ptr(h2), ctypes.c_int(Ze), ctypes.c_int(Y),
-         ctypes.c_int(X), ctypes.c_int(G), ctypes.c_int(Z), *(ctypes.c_int(int(v))
-                                                                for v in slab_clamp),
-         ctypes.c_double(dx), *(ctypes.c_double(float(v)) for v in h_ext), stream_of(psi))
+    call("lbm_scalar_h2_slab", ptr(psi), ctypes.c_int(G - 1), ctypes.c_int(Z + 2),
+         *_parts(cmask, 0, G, Z, aux_ghosts), ptr(h2), ctypes.c_int(G), ctypes.c_int(Z),
+         ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_int(G), ctypes.c_int(Z),
+         *(ctypes.c_int(int(v)) for v in slab_clamp), ctypes.c_double(dx),
+         *(ctypes.c_double(float(v)) for v in h_ext), stream_of(psi))
     count_launch(scalar_wavefront, False, "slab")
-    return _slab_out(ext, G, Z, False), h2
+    return out, h2
 
 
 def scalar_h2(psi, cmask, dx, h_ext):

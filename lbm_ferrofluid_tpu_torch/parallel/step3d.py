@@ -13,10 +13,11 @@ B8b with ``ghosts=``; B9 is local) and exchanges the ghost planes with
 * priming, and each un-carried step: :func:`fused_prologue_sharded` (B4's
   slab form, the f and g planes the pulls cross the slab's faces for);
 * each step: :func:`scalar_poisson_sharded` (rounds of k sweeps of B1's
-  slab form on the slab extended by G = k + 1 planes a side, the boundary
-  bands of (s, s_prev) exchanged between rounds, under ``scalar_sliver``
-  as the shell's sliver, H2 from the last) and :func:`contact3d_sharded`
-  (B2's, one rho plane a side);
+  slab form on the slab and G = k + 1 ghost planes a side, read in place:
+  the (cmask, rhs) bands exchanged once, the boundary bands of (s,
+  s_prev) between rounds, under ``scalar_sliver`` as the shell's sliver,
+  H2 from the last) and :func:`contact3d_sharded` (B2's, one rho plane a
+  side);
 * the capillogue steady state (6-leaf premac): :func:`capillogue_sharded`
   (B3's: the f and g planes, one bundle of the capillary fields' planes a
   side, and one exchange of the collided edge planes between its collide
@@ -554,11 +555,13 @@ def _sliver_xchg(band, mesh: Mesh, shift: int, Zl: int):
 def scalar_poisson_sharded(s2, cmask, rhs_scaled, mesh: Mesh, *, n_iters, dx=1.0, h_ext,
                            plain=False, shell_sliver=False):
     """B1 on the rank's slab; returns (H2, s2').  ``n_iters / k`` rounds of
-    k sweeps on the slab extended by G = k + 1 planes a side
-    (:func:`scalar_slab_plan`); cmask and rhs are extended once, the bands
-    of (s, s_prev) are exchanged before each round (taken from the
-    previous round's output, never from its input), and the last round
-    emits H2 with the z clamp at the domain's true edges only.
+    k sweeps on the slab with G = k + 1 ghost planes a side
+    (:func:`scalar_slab_plan`), read in place: the G-plane bands of (cmask,
+    rhs) are exchanged once (one exchange a side) and passed beside the
+    slab's own (``aux_ghosts``), the bands of (s, s_prev) are exchanged
+    before each round (taken from the previous round's output, never from
+    its input), and the last round emits H2 with the z clamp at the
+    domain's true edges only.
 
     ``shell_sliver`` (the caller holds the ``mag_flags_shell``
     declaration; JAX ``shell_sliver`` :1428-1439): every band travels as
@@ -581,16 +584,16 @@ def scalar_poisson_sharded(s2, cmask, rhs_scaled, mesh: Mesh, *, n_iters, dx=1.0
             return _sliver_xchg(band, mesh, shift, Zl)
         return ring_halo(band, mesh, shift)
 
-    cr = _extend(torch.cat([cmask, rhs_scaled], dim=1), G, mesh)
-    c_ext, r_ext = cr[:, :1].contiguous(), cr[:, 1:].contiguous()
+    aux = (ring_halo(torch.cat([cmask[:, :, -G:], rhs_scaled[:, :, -G:]], dim=1), mesh, +1),
+           ring_halo(torch.cat([cmask[:, :, :G], rhs_scaled[:, :, :G]], dim=1), mesh, -1))
     clamp = (G + 1 if mesh.iz == 0 else 1, G + Zl - 2 if mesh.iz == mesh.nz - 1 else Ze - 2)
     bands = (xchg(s2[:, :, -G:], +1), xchg(s2[:, :, :G], -1))
     for _ in range(n_iters // k - 1):
-        s2, (blo, bhi) = wavefront(s2, c_ext, r_ext, n_iters=k, emit=None, ghosts=bands,
-                                   emit_bands=True)
+        s2, (blo, bhi) = wavefront(s2, cmask, rhs_scaled, n_iters=k, emit=None, ghosts=bands,
+                                   emit_bands=True, aux_ghosts=aux)
         bands = (xchg(bhi, +1), xchg(blo, -1))
-    s2, h2 = wavefront(s2, c_ext, r_ext, n_iters=k, emit="h2", dx=dx, h_ext=h_ext,
-                       ghosts=bands, slab_clamp=clamp)
+    s2, h2 = wavefront(s2, cmask, rhs_scaled, n_iters=k, emit="h2", dx=dx, h_ext=h_ext,
+                       ghosts=bands, slab_clamp=clamp, aux_ghosts=aux)
     return h2, s2
 
 

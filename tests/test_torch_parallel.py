@@ -46,6 +46,10 @@ import jax.numpy as jnp  # noqa: F401  (JAX on the CPU, as conftest sets it)
 import numpy as np
 import pytest
 
+#: records the ids of the tests this process runs, for a mismatch's record
+#: (``torch_mesh_worker.save_sides``)
+pytest_plugins = ["torch_test_log"]
+
 torch = pytest.importorskip("torch")
 
 import torch_mesh_worker as worker  # noqa: E402

@@ -45,6 +45,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+#: records the ids of the tests this process runs, for a mismatch's record
+#: (``torch_mesh_worker.save_sides``)
+pytest_plugins = ["torch_test_log"]
+
 torch = pytest.importorskip("torch")
 
 from lbm_ferrofluid_tpu import models as jmodels  # noqa: E402

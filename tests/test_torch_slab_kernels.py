@@ -190,6 +190,43 @@ def test_scalar_slab_rounds_match_jax(scene, i):
     close("H2", h2q, h2j)
 
 
+@pytest.mark.parametrize("i", [0, 1], ids=["edge", "interior"])
+def test_scalar_slab_rounds_banded_match_jax(scene, i):
+    """The same two rounds with cmask and rhs as the slab's planes and their
+    (cmask, rhs) bands (``aux_ghosts``, the form the meshed solve passes)
+    against the TPU kernel's ghost mode, which takes them extended; bit
+    for bit to the extended form of the plain version."""
+    nz, k, G = 2, 2, 3
+    Zl = RES[0] // nz
+    s2, cm, rhs, bands = b1_inputs(scene, nz, i, G)
+    aux = tuple(torch.cat([cm[:, :, z], rhs[:, :, z]], dim=1).contiguous()
+                for z in (slice(0, G), slice(-G, None)))
+    c, r = cm[:, :, G:G + Zl].contiguous(), rhs[:, :, G:G + Zl].contiguous()
+    s2j, (blo, bhi) = jwavefront(J(s2), J(cm), J(rhs), n_iters=k, emit=None, k=k,
+                                 ghosts=tuple(J(b)[0] for b in bands), emit_bands=True,
+                                 interpret=True)
+    s2p, (plo, phi) = scalar_poisson.scalar_wavefront_plain(
+        s2, c, r, n_iters=k, emit=None, ghosts=bands, emit_bands=True, aux_ghosts=aux)
+    close("s2", s2p, s2j)
+    close("band_lo", plo[0], blo)
+    close("band_hi", phi[0], bhi)
+    ext = scalar_poisson.scalar_wavefront_plain(s2, cm, rhs, n_iters=k, emit=None, ghosts=bands,
+                                                emit_bands=True)
+    assert torch.equal(s2p, ext[0]) and torch.equal(plo, ext[1][0]) and torch.equal(phi, ext[1][1])
+    Ze = Zl + 2 * G
+    clamp = (G + 1 if i == 0 else 1, G + Zl - 2 if i == nz - 1 else Ze - 2)
+    s2j, h2j = jwavefront(J(s2p), J(cm), J(rhs), n_iters=k, emit="h2", k=k, dx=1.0,
+                          h_ext=HEXT, ghosts=tuple(J(b)[0] for b in bands),
+                          slab_clamp=jnp.asarray(clamp, jnp.int32), interpret=True)
+    s2q, h2q = scalar_poisson.scalar_wavefront_plain(
+        s2p, c, r, n_iters=k, h_ext=HEXT, ghosts=bands, slab_clamp=clamp, aux_ghosts=aux)
+    close("s2", s2q, s2j)
+    close("H2", h2q, h2j)
+    ext = scalar_poisson.scalar_wavefront_plain(s2p, cm, rhs, n_iters=k, h_ext=HEXT,
+                                                ghosts=bands, slab_clamp=clamp)
+    assert torch.equal(s2q, ext[0]) and torch.equal(h2q, ext[1])
+
+
 def cap_slab_inputs(scene, nz, i, collided=None):
     """B3's inputs of slab i: the slab's fields, f/g ghosts, the two
     capillary bundles, the clamp, and the emission's ghosts from the

@@ -20,8 +20,10 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import os
 import pathlib
 import re
+import sys
 import socket
 
 import numpy as np
@@ -66,17 +68,21 @@ def _as_numpy(x):
 def save_sides(out_dir, what, got, want) -> pathlib.Path:
     """Write ``got`` and ``want`` (dicts of tensors or arrays by name) to
     ``out_dir/mismatch-<what>.npz`` as ``got.<name>`` and ``want.<name>``,
-    and each array's SHA-256 of its bytes beside it (``.json``); returns
-    the ``.npz`` path."""
+    and each array's SHA-256 of its bytes beside it (``.json``), with the
+    ids of the tests this process ran before (``"preceding"``, from
+    ``torch_test_log.RAN`` where pytest loaded that plugin) and its pid;
+    returns the ``.npz`` path."""
     arrays = {f"{side}.{name}": _as_numpy(v) for side, d in (("got", got), ("want", want))
               for name, v in d.items() if v is not None}
     path = pathlib.Path(out_dir) / f"mismatch-{re.sub(r'[^\w.-]+', '_', what)}.npz"
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, **arrays)
-    path.with_suffix(".json").write_text(json.dumps({
-        k: {"sha256": hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest(),
-            "shape": list(a.shape), "dtype": str(a.dtype)} for k, a in arrays.items()},
-        indent=1))
+    record = {k: {"sha256": hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest(),
+                  "shape": list(a.shape), "dtype": str(a.dtype)} for k, a in arrays.items()}
+    log = sys.modules.get("torch_test_log")
+    record["preceding"] = None if log is None else log.RAN[:-1]
+    record["pid"] = os.getpid()
+    path.with_suffix(".json").write_text(json.dumps(record, indent=1))
     return path
 
 
