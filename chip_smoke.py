@@ -9,6 +9,7 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
     python3 chip_smoke.py --poisson-plans  # only B11b's plan sweep (256^3, 130x66x130; f32, bf16),
                                            # then its slab rounds at every k
     python3 chip_smoke.py --channel-slab-plans  # only B11b's slab rounds at every k
+    python3 chip_smoke.py --scalar-slab-plans  # only B1's slab rounds at every k
     python3 chip_smoke.py --capillary-plans  # only B6's plan sweep (256^3, 130^3)
     python3 chip_smoke.py --stencil-plans  # only B10a's and B10b's (256^3, 130x66x130)
     python3 chip_smoke.py --epilogue-plans  # only B5's (256^3, 130x66x130; f32, bf16)
@@ -26,8 +27,10 @@ Run from the repository root with one CUDA card and the CUDA toolkit::
                                            # B = 1, of the package at ROOT
     python3 chip_smoke.py --trail-time [ROOT]  # B7's trailing pass alone in each instance
                                            # at 256^3, then --route-time, of the package at ROOT
-    python3 chip_smoke.py --slab-time [ROOT]   # B1's slab solve and route Z slab-forced at
-                                           # 256^3 and 130x66x130, of the package at ROOT
+    python3 chip_smoke.py --slab-time [ROOT]   # B1's slab solve and route Z slab-forced,
+                                           # B11b's slab solve (f32, bf16) and routes C and
+                                           # U19 slab-forced, at 256^3 and 130x66x130, of
+                                           # the package at ROOT
     python3 chip_smoke.py --mesh2d         # only the 2D models on y/x meshes (phase mesh2d)
     python3 chip_smoke.py --mesh3d         # only 3D states on the block route (phase mesh3d)
 
@@ -120,7 +123,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
      U19, the capillogue steady state and the un-carried step with the
      channel-form solve (tau 0.8, 19-channel h: B11b's slab rounds, the
      last emitting H2 with the clamp at true edges only; B10a's slab form
-     on the psi route, three solves without a static field); H, the HCZ
+     on the psi route, three solves without a static field; on C a round
+     of B11b's slab form with the flags and rhs as the slab's planes
+     beside their bands and as the extended pair, bit for bit to each
+     other and to the plain version, ``b11b_flag_forms``); H, the HCZ
      step (B8b, B8a, B2, B10b, B6 in slab
      form, B9 local); one rank with ``slab=True`` at 256^3 and 130x66x130
      (HCZ at 256^3 and 130^3), float32 (30 steps) and turbo (10), exact
@@ -2028,7 +2034,7 @@ def phase_trail_time(dev, card, ptxas=None):
     phase_route_time(dev, card)
 
 
-def phase_slab_time(dev, card, reps=20, steps=10):
+def phase_slab_time(dev, card, ptxas=None, reps=20, steps=10):
     """B1's slab solve on one rank with ``slab=True`` (route Z slab-forced)
     at each of ``SHARDED_GRIDS``, in the package that
     ``lbm_ferrofluid_tpu_torch`` imports from (``--slab-time ROOT``: a
@@ -2037,7 +2043,8 @@ def phase_slab_time(dev, card, reps=20, steps=10):
     inputs (CUDA events, ``reps`` calls each), route Z's ms a step
     slab-forced and on one device (``steps`` steps after 3, in turns),
     B1's launches a slab step, and hashes of the solve's outputs (slab
-    and single device equal bit for bit)."""
+    and single device equal bit for bit); then B11b's
+    (:func:`phase_slab_time_b11b`)."""
     import torch
 
     import lbm_ferrofluid_tpu_torch
@@ -2090,6 +2097,154 @@ def phase_slab_time(dev, card, reps=20, steps=10):
         out["x".join(map(str, res))] = row
         del sm, ss, s0, slab, one, args
         torch.cuda.empty_cache()
+    emit(dict(out, ok=True))
+    phase_slab_time_b11b(dev, card, ptxas, reps, steps)
+
+
+#: an H100's SM: registers, shared memory (bytes, 1 KB of it reserved a
+#: block), warps and blocks it holds at most, and the registers a warp is
+#: allotted at a time
+SM_REGS, SM_SMEM, SMEM_RESERVED, SM_WARPS, SM_BLOCKS, REG_UNIT = 65536, 233472, 1024, 64, 32, 256
+
+
+def resident_blocks(regs, threads, smem):
+    """Blocks of a kernel of ``regs`` registers a thread, ``threads`` a block
+    and ``smem`` bytes of shared memory a block that an SM holds at once,
+    by the occupancy rules of the card (``SM_*``)."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // REG_UNIT) * REG_UNIT
+    return min(SM_REGS // per_warp // warps, SM_SMEM // (smem + SMEM_RESERVED),
+               SM_WARPS // warps, SM_BLOCKS)
+
+
+def b11b_slab_instances(params, shape, mesh, bf16, ptxas):
+    """The slab kernels B11b's slab solve with the trailing stage launches on
+    a rank's [1, 19, Zl, Y, X] h (``channel_slab_rounds(h2=True)``): per
+    instance its rounds, registers, spills (ptxas) and resident blocks an
+    SM (:func:`resident_blocks` of them, the block's threads and shared
+    memory), beside the one-device pass of the same geometry's blocks as
+    the card reports them."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
+    from lbm_ferrofluid_tpu_torch.parallel import step3d
+
+    Zl, Y, X = shape[2:]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    elem, tag = (2, "bf16,") if bf16 else (4, "")
+    tau1 = int(1.0 / float(params.tau) == 1.0)
+    rounds, _, emitted = step3d.channel_slab_rounds(
+        mesh, step3d.global_shape(shape, mesh), params.poisson_iters, h2=True)
+    out = {}
+    for i, k in enumerate(rounds):
+        if emitted and i == len(rounds) - 1:
+            pl = pp.trail_pass(Zl, Y, X, k, sms, elem)
+            ey, threads, trail = pl.ty + 2 * k, 32 * (pl.ty + 2 * k), True
+            name = f"lbm_poisson_trail_kernel<{tag}{tau1},{ey},1,0>"
+        else:
+            pl = pp.slab_plan(Zl, Y, X, k, sms, elem)
+            ey, threads, trail = pl.ty + 2 * (k - 1), 32 * (pl.ty + 2 * k), False
+            name = f"lbm_poisson_slab_kernel<{tag}{tau1},{ey}>"
+        if name in out:
+            out[name]["rounds"] += 1
+            continue
+        info = dict((ptxas or {}).get(name) or {})
+        smem = pp.smem_bytes(k, pl.ty, elem, trail=trail) + info.get("smem", 0)
+        out[name] = dict(rounds=1, k=k, ty=pl.ty, lz=pl.lz, threads=threads, smem_bytes=smem,
+                         ptxas=info, resident_blocks=resident_blocks(info["regs"], threads, smem)
+                         if "regs" in info else None,
+                         one_device_pass_blocks=blocks_per_sm("lbm_poisson_pass_occupancy", k,
+                                                              pl.ty, tau1, int(bf16),
+                                                              int(trail)))
+    return out
+
+
+def phase_slab_time_b11b(dev, card, ptxas=None, reps=20, steps=10):
+    """B11b's slab solve on one rank with ``slab=True`` at each of
+    ``SHARDED_GRIDS``, in the package that ``lbm_ferrofluid_tpu_torch``
+    imports from (``--slab-time ROOT``): after 5 meshed steps of route C,
+    h in float32 and rounded to bfloat16, ms of the slab solve with B7's
+    trailing stage emitting H2 as the step runs it
+    (``poisson_sweeps_sharded(emit_h2=)``) and of the single-device emitting
+    call on its inputs (CUDA events, ``reps`` calls each, in turns), the
+    solve's rounds, hashes of its outputs (slab and single device equal bit
+    for bit), and its slab instances' registers, spills and resident blocks
+    (:func:`b11b_slab_instances`), its launches timed one by one
+    (:func:`launch_split`) and the rest of its time; then ms a step of routes C and U19
+    slab-forced and on one device (``steps`` steps after 3, in turns) and
+    B11b's launches a slab step."""
+    import torch
+
+    import lbm_ferrofluid_tpu_torch
+    from lbm_ferrofluid_tpu_torch.models import ferrofluid_step
+    from lbm_ferrofluid_tpu_torch.ops import kernels as kernels_pkg
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
+    from lbm_ferrofluid_tpu_torch.parallel import make_mesh, shard_state, step3d
+
+    out = {"phase": "slab_time_b11b", "package": lbm_ferrofluid_tpu_torch.__file__,
+           "card": card}
+    mesh = make_mesh(slab=True)
+    for res, mag in SHARDED_GRIDS:
+        params, s0 = sharded_scene(res, mag, dev, route="C")
+        sm = start_route(params, shard_state(s0, mesh), "C", mesh=mesh)
+        for _ in range(5):
+            sm = ferrofluid_step(params, sm, mesh=mesh)
+        n, hext = params.poisson_iters, static_field(params)
+        row = {"rounds": step3d.channel_slab_rounds(mesh, step3d.global_shape(sm.h.shape, mesh),
+                                                    n, h2=True)[:2]}
+        for storage in (torch.float32, torch.bfloat16):
+            args = (sm.h.to(storage), sm.magnetic_flags, sm.premac[5])
+            kw = dict(tau=params.tau, n_iters=n)
+
+            def slab():
+                return step3d.poisson_sweeps_sharded(*args, mesh, emit_h2=hext, dx=params.dx,
+                                                     **kw)
+
+            def one():
+                return pp.poisson_sweeps(*args, emit="h2", dx=params.dx, h_ext=hext, **kw)
+
+            got, want = slab(), one()
+            torch.cuda.synchronize()
+            check(got[2], f"slab time {res}: the slab solve did not take B7's trailing stage")
+            bits = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            check(bits, f"slab time {res} {storage}: the slab solve differs from one device")
+            ms = {label: time_cuda(fn, reps) for label, fn in (
+                ("slab_solve", slab), ("single_device", one), ("single_device_again", one),
+                ("slab_solve_again", slab))}
+            # the solve's kernel launches, each between CUDA events, and the
+            # rest of the solve (its exchanges, copies and host work)
+            split = launch_split([pp], slab, reps)["lbm_poisson_pass"]
+            row[str(storage).replace("torch.", "")] = {
+                "ms": ms, "kernels_ms": split["ms_per_call"],
+                "outside_kernels_ms": (ms["slab_solve"] + ms["slab_solve_again"]) / 2
+                - split["ms_per_call"], "ms_per_launch": split["ms_per_launch"],
+                "slab_bit_for_bit_to_single_device": bits,
+                "sha256": {name: _bits_sha(t)[:16] for name, t in zip(("h", "H2"), got)},
+                "instances": b11b_slab_instances(params, args[0].shape, mesh,
+                                                 storage == torch.bfloat16, ptxas)}
+            del args, got, want
+        del sm
+        torch.cuda.empty_cache()
+        for route in ("C", "U19"):
+            params, s0 = sharded_scene(res, mag, dev, route=route)
+            sm = start_route(params, shard_state(s0, mesh), route, mesh=mesh)
+            ss = start_route(params, s0, route, device=dev)
+            on_slab = meshed_step(mesh, route)
+            kernels_pkg.reset_launch_counts()
+            sm = on_slab(params, sm)
+            torch.cuda.synchronize()
+            launches = kernels_pkg.launch_counts(["B11b"], slab=True)["B11b"]
+            step_ms = {}
+            for label, fn, st in (("slab", on_slab, sm), ("single_device", ferrofluid_step, ss),
+                                  ("single_device_again", ferrofluid_step, ss),
+                                  ("slab_again", on_slab, sm)):
+                _, stats = timed_steps(params, st, fn, dev, steps, warmup=3)
+                step_ms[label] = stats["seconds"] / steps * 1e3
+            row[f"route_{route}"] = {"ms_per_step": step_ms, "b11b_launches_a_slab_step":
+                                     launches}
+            del sm, ss, s0
+            torch.cuda.empty_cache()
+        out["x".join(map(str, res))] = row
     emit(dict(out, ok=True))
 
 
@@ -2606,7 +2761,7 @@ def phase_stencil_plans(dev, card, ptxas=None):
         torch.cuda.empty_cache()
 
 
-def phase_scalar_plans(dev, card):
+def phase_scalar_plans(dev, card, slab_only=False):
     """B1 on the primed Rosensweig scene at 256^3 and 130x66x130 under the
     plans its pass kernel takes (k = 1..6, tile heights in steps of 4, z
     chunk counts from 1 to 32 and the count that fills the card once), each
@@ -2615,7 +2770,8 @@ def phase_scalar_plans(dev, card):
     ``ops/kernels/scalar_poisson.py`` were chosen from.  Then B1's slab
     solve on one rank with ``slab=True`` under every round length k that
     divides the sweeps (G = k + 1 <= Zl), each bit for bit to the chosen
-    one: the data ``parallel/step3d.py:ROUND_CELL_SWEEPS`` was chosen from."""
+    one and timed in turns: the data ``parallel/step3d.py:ROUND_CELL_SWEEPS``
+    was chosen from (``slab_only``: this part alone, ``--scalar-slab-plans``)."""
     import torch
 
     from lbm_ferrofluid_tpu_torch.models import prime_premac, rosensweig_3d
@@ -2634,7 +2790,7 @@ def phase_scalar_plans(dev, card):
         want = sp.scalar_wavefront(*args, **kw)
         rows, real = [], sp.plan
         try:
-            for k in range(1, sp.MAX_K + 1):
+            for k in range(1, 1 if slab_only else sp.MAX_K + 1):
                 for ty in range(sp.ROWS, sp.MAX_EXT_HEIGHT - 2 * k + 1, sp.ROWS):
                     if sp.smem_bytes(k, ty) > sp.SMEM_BLOCK_MAX:
                         continue
@@ -2651,10 +2807,11 @@ def phase_scalar_plans(dev, card):
                                          ms=time_cuda(lambda: sp.scalar_wavefront(*args, **kw), 5)))
         finally:
             sp.plan = real
-        emit({"phase": "scalar_plans", "res": list(res), "n_iters": n, "card": card,
-              "chosen": dict(k=chosen.k, ty=chosen.ty, lz=chosen.lz,
-                             ms=time_cuda(lambda: sp.scalar_wavefront(*args, **kw), 5)),
-              "best": min(rows, key=lambda r: r["ms"]), "plans": rows, "ok": True})
+        if rows:
+            emit({"phase": "scalar_plans", "res": list(res), "n_iters": n, "card": card,
+                  "chosen": dict(k=chosen.k, ty=chosen.ty, lz=chosen.lz,
+                                 ms=time_cuda(lambda: sp.scalar_wavefront(*args, **kw), 5)),
+                  "best": min(rows, key=lambda r: r["ms"]), "plans": rows, "ok": True})
         del want
         mesh, real = make_mesh(slab=True), step3d.scalar_slab_plan
         chosen = real(mesh, st.h.shape, n)
@@ -2664,27 +2821,52 @@ def phase_scalar_plans(dev, card):
 
         want = slab_solve()
         one = sp.scalar_wavefront(*args, **kw)[::-1]
-        rows = []
-        try:
-            for k in [k for k in range(2, n + 1) if n % k == 0 and k < st.h.shape[2]]:
-                step3d.scalar_slab_plan = lambda *a, k=k: (k, k + 1)
-                got = slab_solve()
-                check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                      f"B1 slab solve in rounds of {k} differs from rounds of {chosen[0]}")
-                check(all(torch.equal(a, b) for a, b in zip(got, one)),
-                      f"B1 slab solve in rounds of {k} differs from the single-device call")
-                err = compare(f"B1 slab solve in rounds of {k}", ["H2", "s2"], got,
-                              step3d.scalar_poisson_sharded(*args, mesh, plain=True, **kw))
-                rows.append(dict(k=k, rounds=n // k, ms=time_cuda(slab_solve, 5),
-                                 max_abs_err={m: e["max_abs_err"] for m, e in err.items()}))
-        finally:
-            step3d.scalar_slab_plan = real
+
+        def in_rounds(k):
+            """The slab solve in rounds of k (G = k + 1)."""
+            step3d.scalar_slab_plan = lambda *a, k=k: (k, k + 1)
+            try:
+                return slab_solve()
+            finally:
+                step3d.scalar_slab_plan = real
+
+        ks, errs = [k for k in range(2, n + 1) if n % k == 0 and k < st.h.shape[2]], {}
+        for k in ks:
+            got = in_rounds(k)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"B1 slab solve in rounds of {k} differs from rounds of {chosen[0]}")
+            check(all(torch.equal(a, b) for a, b in zip(got, one)),
+                  f"B1 slab solve in rounds of {k} differs from the single-device call")
+            err = compare(f"B1 slab solve in rounds of {k}", ["H2", "s2"], got,
+                          step3d.scalar_poisson_sharded(*args, mesh, plain=True, **kw))
+            errs[k] = {m: e["max_abs_err"] for m, e in err.items()}
+            del got
+        turns = time_in_turns({k: (lambda k=k: in_rounds(k)) for k in ks}, 5)
+        rows = [dict(k=k, rounds=n // k, ms=float(np.median(turns[k])), ms_turns=turns[k],
+                     faster_than_chosen_in_every_turn=all(
+                         a < b for a, b in zip(turns[k], turns[chosen[0]])),
+                     max_abs_err=errs[k]) for k in ks]
         emit({"phase": "scalar_slab_plans", "res": list(res), "n_iters": n, "card": card,
+              "fit": scalar_slab_fit(res, n, rows),
               "chosen": dict(k=chosen[0], ms=time_cuda(slab_solve, 5)),
               "single_device_ms": time_cuda(lambda: sp.scalar_wavefront(*args, **kw), 5),
               "best": min(rows, key=lambda r: r["ms"]), "rounds": rows, "ok": True})
         del st, args, want
         torch.cuda.empty_cache()
+
+
+def scalar_slab_fit(res, n, rows):
+    """``step3d.ROUND_CELL_SWEEPS`` fitted to B1's slab solves' median ms
+    at every k of one grid (``rows``): by least squares ms = c0 + c1 n / k +
+    c2 2 n (k + 1) Y X, the model of ``scalar_slab_plan`` (a round's own
+    cost beside the ghost planes' cell-sweeps), whose round cost in
+    cell-sweeps is c1 / c2; with the k it chooses there."""
+    _, Y, X = res
+    a = np.asarray([[1.0, n // r["k"], 2 * n * (r["k"] + 1) * Y * X] for r in rows])
+    c = np.linalg.lstsq(a, np.asarray([r["ms"] * 1e6 for r in rows]), rcond=None)[0]
+    sweeps = float(c[1] / c[2])
+    return dict(round_cell_sweeps=sweeps, chosen_by_fit=min(
+        (r["k"] for r in rows), key=lambda k: n // k * sweeps + 2 * n * (k + 1) * Y * X))
 
 
 def phase_small_grid(dev, kernels_pkg):
@@ -2807,6 +2989,7 @@ def phase_channel_slab_plans(dev, card):
     from lbm_ferrofluid_tpu_torch.parallel import make_mesh, step3d
 
     mesh = make_mesh(slab=True)
+    fits = []
     for res in ((256, 256, 256), (130, 66, 130)):
         params, st = rosensweig_3d(res=res, mag_strength=85.0, device=dev)
         params = params.replace(**CHANNEL)
@@ -2823,16 +3006,26 @@ def phase_channel_slab_plans(dev, card):
                 return step3d.poisson_sweeps_sharded(*args, mesh, **kw)
 
             want = solve()
-            rows = []
-            try:
-                for k in range(1, pp.MAX_K + 1):
-                    step3d.channel_slab_plan = lambda *a, k=k: (k, k, n % k)
-                    got = solve()
-                    check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                          f"B11b slab solve in rounds of {k} differs from rounds of {chosen[0]}")
-                    rows.append(dict(k=k, rounds=-(-n // k), ms=time_cuda(solve, 5)))
-            finally:
-                step3d.channel_slab_plan = real
+
+            def in_rounds(k):
+                """The solve in rounds of k (G = k, the remainder on the same bands)."""
+                step3d.channel_slab_plan = lambda *a, k=k: (k, k, n % k)
+                try:
+                    return solve()
+                finally:
+                    step3d.channel_slab_plan = real
+
+            ks = range(1, pp.MAX_K + 1)
+            for k in ks:
+                check(all(torch.equal(a, b) for a, b in zip(in_rounds(k), want)),
+                      f"B11b slab solve in rounds of {k} differs from rounds of {chosen[0]}")
+            turns = time_in_turns({k: (lambda k=k: in_rounds(k)) for k in ks}, 5)
+            rows = [dict(k=k, rounds=-(-n // k), ms=float(np.median(turns[k])), ms_turns=turns[k],
+                         faster_than_chosen_in_every_turn=all(
+                             a < b for a, b in zip(turns[k], turns[chosen[0]])))
+                    for k in ks]
+            if storage == torch.float32:
+                fits.append((res, n, rows))
             emit({"phase": "channel_slab_plans", "res": list(res), "n_iters": n,
                   "storage": str(storage), "card": card,
                   "chosen": dict(k=chosen[0], remainder=chosen[2], ms=time_cuda(solve, 5)),
@@ -2841,6 +3034,60 @@ def phase_channel_slab_plans(dev, card):
             del args, want
         del st
         torch.cuda.empty_cache()
+    emit(dict(channel_slab_fit(fits), phase="channel_slab_fit", card=card, ok=True))
+
+
+def channel_slab_fit(fits):
+    """``step3d``'s ``CHANNEL_ROUND_NS`` and ``CHANNEL_PASS_NS`` fitted by
+    least squares to the float32 slab solves' median ms at every k of both
+    grids (``fits``: (res, n_iters, rows)), the model of
+    ``channel_slab_plan``'s cost: ceil(n / k) rounds of a fixed cost, n // k
+    walks of (Zl + 2k - 2) Y X cells at k's cost a cell and the remainder's
+    walk; with the k that the fitted constants and the current ones choose
+    at each grid."""
+    from lbm_ferrofluid_tpu_torch.parallel import step3d
+
+    ks = sorted({r["k"] for _, _, rows in fits for r in rows})
+    a, b = [], []
+    for (Zl, Y, X), n, rows in fits:
+        for r in rows:
+            k = r["k"]
+            line = [0.0] * (1 + len(ks))
+            line[0] = -(-n // k)
+            line[1 + ks.index(k)] += n // k * (Zl + 2 * k - 2) * Y * X
+            if n % k:
+                line[1 + ks.index(n % k)] += (Zl + 2 * (n % k) - 2) * Y * X
+            a.append(line)
+            b.append(r["ms"] * 1e6)
+    sol = np.linalg.lstsq(np.asarray(a), np.asarray(b), rcond=None)[0]
+    fitted = dict(round_ns=float(sol[0]), pass_ns={k: float(v) for k, v in zip(ks, sol[1:])})
+
+    def chosen(res, n, round_ns, pass_ns):
+        Zl, Y, X = res
+
+        def walk(k):
+            return (Zl + 2 * k - 2) * Y * X * pass_ns[k]
+
+        return min(ks, key=lambda k: -(-n // k) * round_ns + n // k * walk(k)
+                   + (walk(n % k) if n % k else 0))
+
+    return dict(fitted, residual_ms=[float(v) for v in (np.asarray(a) @ sol - b) / 1e6],
+                chosen_by_fit={"x".join(map(str, res)): chosen(res, n, sol[0], fitted["pass_ns"])
+                               for res, n, _ in fits},
+                chosen_now={"x".join(map(str, res)): chosen(res, n, step3d.CHANNEL_ROUND_NS,
+                                                            step3d.CHANNEL_PASS_NS)
+                            for res, n, _ in fits})
+
+
+def time_in_turns(fns, reps):
+    """ms a call of each of ``fns`` (key -> callable), timed with CUDA events
+    (``reps`` calls) in 4 turns: the keys in order, reversed, in order,
+    reversed; {key: [ms of each turn]}."""
+    keys, out = list(fns), {key: [] for key in fns}
+    for turn in range(4):
+        for key in keys if turn % 2 == 0 else keys[::-1]:
+            out[key].append(time_cuda(fns[key], reps))
+    return out
 
 
 # ---------------------------------------------------------------- bfloat16 storage
@@ -5367,6 +5614,43 @@ def channel_form_calls(params, st, mesh):
     return calls
 
 
+def b11b_flag_forms(params, st, what):
+    """One round of B11b's slab form on the slab state ``st`` of one rank
+    with ``slab=True`` (its own edge planes as its bands), the flags and
+    rhs given both ways: as the slab's planes beside bands one plane
+    deeper than h's (``aux_ghosts``, as the meshed solve passes them) and
+    as the extended pair.  A round of 3 sweeps emitting psi and the bands,
+    and one of 3 with B7's trailing stage emitting H2 (4-plane bands, the
+    domain's true edges' clamp), each bit for bit to the other form and to
+    the plain version.  Returns the hashes of each round's outputs."""
+    import torch
+
+    from lbm_ferrofluid_tpu_torch.ops.kernels import poisson as pp
+
+    h, mf, rhs = st.h, st.magnetic_flags, st.premac[5]
+    Zl = h.shape[2]
+    out = {}
+    for label, G, kw in (("psi", 3, dict(emit_bands=True)),
+                         ("h2", 4, dict(emit="h2", dx=params.dx, h_ext=static_field(params),
+                                        clamp=(1, Zl - 2)))):
+        GA = G + 1
+        call = dict(tau=params.tau, n_iters=3, ghosts=(h[:, :, -G:].contiguous(),
+                                                        h[:, :, :G].contiguous()), **kw)
+        aux = tuple((mf[:, :, planes].contiguous(), rhs[:, :, planes].contiguous())
+                    for planes in (slice(-GA, None), slice(None, GA)))
+        ext = [torch.cat([x[:, :, -G:], x, x[:, :, :G]], dim=2) for x in (mf, rhs)]
+        outs = [flat(pp.poisson_sweeps(h, mf, rhs, aux_ghosts=aux, **call)),
+                flat(pp.poisson_sweeps(h, *ext, **call)), flat(pp.poisson_sweeps_plain(h, *ext,
+                                                                                      **call))]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(*outs, strict=True)),
+              f"{what}: B11b's slab round ({label}) differs between its flag forms (banded, "
+              f"extended) or from its plain version")
+        out[label] = [_bits_sha(t)[:16] for t in outs[0]]
+        del outs, ext, aux
+    return out
+
+
 def hcz_form_calls(params, st, mesh):
     """Per slab form of the HCZ step's streams, as :func:`channel_form_calls`,
     on route H's slab state ``st``: B8b on f with the old macros, B8a on g."""
@@ -5623,6 +5907,7 @@ def slab_forced(K, kernels_pkg, params, s0, dev, card, what, steps=30, timed=10,
         forms = epilogue_form_rows(params, sm, mesh, what, bf16=bf16)
     elif route == "C":
         forms = form_rows(channel_form_calls(params, sm, mesh), what)
+        extra["b11b_flag_forms"] = b11b_flag_forms(params, sm, what)
         # the psi route (a field that is not a static constant: solve_H_int
         # without h2_ext), the meshed solve's path through B10a's slab form
         kernels_pkg.reset_launch_counts()
@@ -7184,6 +7469,9 @@ def run(dev, smi, kernels_pkg, _lib, started_2d) -> int:
     if "--scalar-plans" in sys.argv[1:]:
         phase_scalar_plans(dev, smi)
         print(smi, flush=True)
+    elif "--scalar-slab-plans" in sys.argv[1:]:
+        phase_scalar_plans(dev, smi, slab_only=True)
+        print(smi, flush=True)
     elif "--poisson-plans" in sys.argv[1:]:
         phase_poisson_plans(dev, smi)
         phase_channel_slab_plans(dev, smi)
@@ -7231,7 +7519,7 @@ def run(dev, smi, kernels_pkg, _lib, started_2d) -> int:
         phase_trail_time(dev, smi, ptxas)
         print(smi, flush=True)
     elif "--slab-time" in sys.argv[1:]:
-        phase_slab_time(dev, smi)
+        phase_slab_time(dev, smi, ptxas)
         print(smi, flush=True)
     elif "--mesh2d" in sys.argv[1:]:
         phase_mesh2d(dev, smi)

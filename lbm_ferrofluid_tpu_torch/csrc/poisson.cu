@@ -64,10 +64,13 @@
 // poisson.py:881-888, for a z-slab of a domain decomposed along z) is the
 // same walk over the slab's planes -k..Z + k - 1 without a wrap: the slab's
 // own planes come from h, the G >= k planes a side from two band arrays,
-// each read in place (no copy of the slab into an extended array), and the
-// valid region shrinks a plane a sweep, so the k sweeps leave the real planes
-// exact; stage k also writes the first and last G planes to the bands the
-// next exchange sends.  Its bound adds the bands' reads and writes.
+// and the flags and rhs likewise from the slab's own arrays and a band a
+// side of GA >= G planes (of which a round reads the nearest G), each read
+// in place (no copy of the slab, its flags or its rhs into an extended
+// array), and the valid region shrinks a plane a sweep, so the k sweeps
+// leave the real planes exact; stage k also writes the first and last G
+// planes to the bands the next exchange sends.  Its bound adds the bands'
+// reads and writes.
 //
 // The trailing stage (lbm_poisson_trail_kernel, the TPU wavefront's emit="hint"
 // and emit="h2", poisson.py:1150-1162 and :1203-1266) takes the place of the
@@ -180,13 +183,13 @@ __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_pass_kernel(
     float inv_tau, float a) {
   if constexpr (BATCH) {
     LBM_PASS_ELEM(1)
-    lbm_poisson_pass_body<T, TAU1, EY, false, false>(h, flags, rhs, out, psi_out, Z, Y, X, k,
-                                                     LZ, inv_tau, a, nullptr, nullptr, 0,
-                                                     nullptr, nullptr, LbmTrail{}, zblk);
+    lbm_poisson_pass_body<T, TAU1, EY, false, false>(
+        h, flags, rhs, out, psi_out, Z, Y, X, k, LZ, inv_tau, a, nullptr, nullptr, 0, nullptr,
+        nullptr, nullptr, nullptr, nullptr, nullptr, 0, LbmTrail{}, zblk);
   } else {
-    lbm_poisson_pass_body<T, TAU1, EY, false, false>(h, flags, rhs, out, psi_out, Z, Y, X, k,
-                                                     LZ, inv_tau, a, nullptr, nullptr, 0,
-                                                     nullptr, nullptr, LbmTrail{}, blockIdx.z);
+    lbm_poisson_pass_body<T, TAU1, EY, false, false>(
+        h, flags, rhs, out, psi_out, Z, Y, X, k, LZ, inv_tau, a, nullptr, nullptr, 0, nullptr,
+        nullptr, nullptr, nullptr, nullptr, nullptr, 0, LbmTrail{}, blockIdx.z);
   }
 }
 
@@ -195,10 +198,12 @@ __global__ void __launch_bounds__(PP_EX*(EY + 2), 1) lbm_poisson_slab_kernel(
     const T* __restrict__ h, const uint8_t* __restrict__ flags, const float* __restrict__ rhs,
     T* __restrict__ out, float* __restrict__ psi_out, int Z, int Y, int X, int k, int LZ,
     float inv_tau, float a, const T* __restrict__ glo, const T* __restrict__ ghi, int G,
-    T* __restrict__ blo, T* __restrict__ bhi) {
+    T* __restrict__ blo, T* __restrict__ bhi, const uint8_t* __restrict__ flo,
+    const uint8_t* __restrict__ fhi, const float* __restrict__ rlo,
+    const float* __restrict__ rhi, int GA) {
   lbm_poisson_pass_body<T, TAU1, EY, true, false>(h, flags, rhs, out, psi_out, Z, Y, X, k, LZ,
-                                                  inv_tau, a, glo, ghi, G, blo, bhi,
-                                                  LbmTrail{}, blockIdx.z);
+                                                  inv_tau, a, glo, ghi, G, blo, bhi, flo, fhi,
+                                                  rlo, rhi, GA, LbmTrail{}, blockIdx.z);
 }
 
 // One instance of the pass kernel (SLAB the slab form, BATCH the batch
@@ -226,7 +231,8 @@ static cudaError_t lbm_poisson_pass_instance(const LbmPassArgs& g, cudaStream_t 
     lbm_poisson_slab_kernel<T, TAU1, EY><<<grid, threads, smem, stream>>>(
         static_cast<const T*>(g.h), g.flags, g.rhs, static_cast<T*>(g.out), g.psi_out, g.Z,
         g.Y, g.X, g.k, g.LZ, g.inv_tau, g.a, static_cast<const T*>(g.glo),
-        static_cast<const T*>(g.ghi), g.G, static_cast<T*>(g.blo), static_cast<T*>(g.bhi));
+        static_cast<const T*>(g.ghi), g.G, static_cast<T*>(g.blo), static_cast<T*>(g.bhi),
+        g.flo, g.fhi, g.rlo, g.rhi, g.GA);
   else
     lbm_poisson_pass_kernel<T, TAU1, EY, BATCH><<<grid, threads, smem, stream>>>(
         static_cast<const T*>(g.h), g.flags, g.rhs, static_cast<T*>(g.out), g.psi_out, g.Z,
@@ -288,7 +294,9 @@ static cudaError_t lbm_poisson_pass_any(const LbmPassArgs& g, double tau, int bf
       static_cast<long long>(g.B) * ((g.Z + g.LZ - 1) / g.LZ) > 65535 ||
       (g.glo != nullptr && g.B != 1))
     return cudaErrorInvalidValue;
-  if (g.glo != nullptr && (g.ghi == nullptr || g.k + trail > g.G || g.G > g.Z))
+  if (g.glo != nullptr &&
+      (g.ghi == nullptr || g.k + trail > g.G || g.G > g.Z || g.flo == nullptr ||
+       g.fhi == nullptr || g.rlo == nullptr || g.rhi == nullptr || g.GA < g.G))
     return cudaErrorInvalidValue;
   if (lbm_poisson_pass_smem(g.k, g.TY + 2 * (g.k - 1) + 2 * trail, bf16 ? 2 : 4, trail) >
       PP_SMEM_MAX)
@@ -305,10 +313,11 @@ static cudaError_t lbm_poisson_pass_any(const LbmPassArgs& g, double tau, int bf
 // PP_SMEM_MAX (cudaErrorInvalidValue otherwise).  h and out in float32, or
 // in bfloat16 where bf16 is nonzero; psi_out in float32.
 //
-// The slab form (glo not null): h holds the Z real planes of a z-slab,
-// glo and ghi the G planes of the neighbours below and above ([19, G, Y, X]
-// each, read in place), and flags and rhs the Z + 2G planes of the slab
-// extended by G a side; k <= G <= Z.  The walk covers planes -k..Z + k - 1
+// The slab form (glo not null): h, flags and rhs hold the Z real planes
+// of a z-slab, glo and ghi the G planes of h of the neighbours below and
+// above ([19, G, Y, X] each), flo, rlo and fhi, rhi the neighbours' GA >= G
+// nearest planes of the flags and rhs ([1, GA, Y, X] each), all read in
+// place; k <= G <= Z.  The walk covers planes -k..Z + k - 1
 // without a wrap, so the real planes are exact after the k sweeps (the
 // valid region shrinks a plane a sweep), and only they are written; blo and
 // bhi, unless null, take the first and the last G planes of out again, the
@@ -324,16 +333,18 @@ static cudaError_t lbm_poisson_pass_any(const LbmPassArgs& g, double tau, int bf
 extern "C" int lbm_poisson_pass(const void* h, const uint8_t* flags, const float* rhs,
                                 void* out, float* psi_out, int B, int Z, int Y, int X, int k,
                                 int TY, int LZ, double tau, int bf16, const void* glo,
-                                const void* ghi, int G, void* blo, void* bhi, int trail, int zlo,
-                                int zhi, double dx, double hx, double hy, double hz,
-                                void* stream) {
+                                const void* ghi, int G, void* blo, void* bhi,
+                                const uint8_t* flo, const uint8_t* fhi, const float* rlo,
+                                const float* rhi, int GA, int trail, int zlo, int zhi, double dx,
+                                double hx, double hy, double hz, void* stream) {
   const double inv_tau = 1.0 / tau;
   const LbmTrail tr{trail == 2, zlo, zhi, static_cast<float>(-1.0 / (12.0 * dx)),
                     {static_cast<float>(hx), static_cast<float>(hy), static_cast<float>(hz)},
                     {hx != 0.0, hy != 0.0, hz != 0.0}};
   const LbmPassArgs g{h, flags, rhs, out, psi_out, B, Z, Y, X, k, TY, LZ,
                       static_cast<float>(inv_tau), static_cast<float>(1.0 - inv_tau),
-                      glo, ghi, glo != nullptr ? G : 0, blo, bhi, trail, tr};
+                      glo, ghi, glo != nullptr ? G : 0, blo, bhi, flo, fhi, rlo, rhi,
+                      glo != nullptr ? GA : 0, trail, tr};
   if (trail && psi_out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
       lbm_poisson_pass_any(g, tau, bf16, static_cast<cudaStream_t>(stream), nullptr);
@@ -347,7 +358,8 @@ extern "C" int lbm_poisson_pass(const void* h, const uint8_t* flags, const float
 extern "C" int lbm_poisson_pass_occupancy(int k, int TY, int tau1, int bf16, int trail,
                                           int* blocks) {
   const LbmPassArgs g{nullptr, nullptr, nullptr, nullptr, nullptr, 1, 3, 3, 3, k, TY, 1, 1.f,
-                      0.f, nullptr, nullptr, 0, nullptr, nullptr, trail, LbmTrail{0, 1, 1}};
+                      0.f, nullptr, nullptr, 0, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, 0, trail, LbmTrail{0, 1, 1}};
   return static_cast<int>(lbm_poisson_pass_any(g, tau1 ? 1.0 : 0.5, bf16, nullptr, blocks));
 }
 #endif  // PP_BF16_PART

@@ -82,11 +82,13 @@ struct LbmTrailInput : LbmPassInput<T> {
 // size, and the register bound follows the block's size; the host picks
 // the instance (lbm_poisson_pass_instance).  T is h's storage type, which
 // the input plane and the stage rings keep.  SLAB: the slab form (planes
-// -G..-1 from glo and Z..Z + G - 1 from ghi, no wrap, the bands written to
-// blo and bhi), its own kernel so that the one-device kernel's code is as
-// it was.  TRAIL: the trailing stage writes H_int or H2 (tr) to psi_out in
-// place of psi, on the geometry of a pass of k + 1 sweeps with a warp per
-// row 0..EY - 1 (EY warps, not EY + 2: csrc/poisson.cu's header).  zblk is the
+// -G..-1 of h from glo and Z..Z + G - 1 from ghi, those of the flags and
+// rhs from the bands flo, rlo and fhi, rhi of GA >= G planes, no wrap, the
+// bands written to blo and bhi), its own kernel so that the one-device
+// kernel's code is as it was.  TRAIL: the trailing stage writes H_int or
+// H2 (tr) to psi_out in place of psi, on the geometry of a pass of k + 1
+// sweeps with a warp per row 0..EY - 1 (EY warps, not EY + 2:
+// csrc/poisson.cu's header).  zblk is the
 // block's z chunk (blockIdx.z, or its part of it where the launch folds a
 // batch into gridDim.z: LBM_PASS_ELEM).
 template <class T, bool TAU1, int EY, bool SLAB, bool TRAIL>
@@ -94,7 +96,9 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
     const T* __restrict__ h, const uint8_t* __restrict__ flags, const float* __restrict__ rhs,
     T* __restrict__ out, float* __restrict__ psi_out, int Z, int Y, int X, int k, int LZ,
     float inv_tau, float a, const T* __restrict__ glo, const T* __restrict__ ghi, int G,
-    T* __restrict__ blo, T* __restrict__ bhi, const LbmTrail& tr, int zblk) {
+    T* __restrict__ blo, T* __restrict__ bhi, const uint8_t* __restrict__ flo,
+    const uint8_t* __restrict__ fhi, const float* __restrict__ rlo,
+    const float* __restrict__ rhi, int GA, const LbmTrail& tr, int zblk) {
   // 4 elements of padding (edge lanes read one element before and after a
   // plane), the input plane (19 channels), the k - 1 stage rings, 4 more,
   // all in T; then, in float, the (k + 1)-plane rhs ring, the wrapped grid
@@ -158,9 +162,10 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
   };
   using Input = std::conditional_t<TRAIL, LbmTrailInput<T>, LbmPassInput<T>>;
   // the input of the tick whose stage 1 computes grid plane zr: channel q
-  // of plane zr - e_z(q), flags and rhs of plane zr; on a slab, planes
-  // -G..-1 of h from the lo band and Z..Z + G - 1 from the hi band, read in
-  // place, and flags and rhs of plane zr + G of the extended pair
+  // of plane zr - e_z(q), flags and rhs of plane zr; on a slab every plane
+  // read in place: planes -G..-1 of h from the lo band and Z..Z + G - 1
+  // from the hi band, and of the flags and rhs the same planes from their
+  // bands of GA planes (plane zr < 0 at zr + GA, zr >= Z at zr - Z)
   auto fetch = [&](int zr, Input& b) {
     if constexpr (!SLAB) {
       const long long zc[3] = {(zr == 0 ? Z - 1 : zr - 1) * XY, zr * XY,
@@ -203,9 +208,10 @@ __device__ __forceinline__ void lbm_poisson_pass_body(
         }
       }
       if (has_cell) {
-        const long long fz = (zr + G) * XY + in_off;
-        b.rhs = rhs[fz];
-        b.flag = flags[fz];
+        const bool lo = zr < 0, hi = zr >= Z;
+        const long long fz = (lo ? zr + GA : (hi ? zr - Z : zr)) * XY + in_off;
+        b.rhs = (lo ? rlo : (hi ? rhi : rhs))[fz];
+        b.flag = (lo ? flo : (hi ? fhi : flags))[fz];
       }
     }
   };
@@ -444,6 +450,10 @@ struct LbmPassArgs {
   const void *glo, *ghi;  // a slab's bands (null on one device)
   int G;
   void *blo, *bhi;  // a slab's emitted bands (null: none)
+  // a slab's flags and rhs bands of GA planes (null on one device)
+  const uint8_t *flo, *fhi;
+  const float *rlo, *rhi;
+  int GA;
   int trail;        // 0: none, 1: H_int, 2: H2
   LbmTrail tr;
 };

@@ -20,17 +20,18 @@ __global__ void __launch_bounds__(PP_EX * EY, 1) lbm_poisson_trail_kernel(
     const T* __restrict__ h, const uint8_t* __restrict__ flags, const float* __restrict__ rhs,
     T* __restrict__ out, float* __restrict__ psi_out, int Z, int Y, int X, int k, int LZ,
     float inv_tau, float a, const T* __restrict__ glo, const T* __restrict__ ghi, int G,
-    LbmTrail tr) {
+    const uint8_t* __restrict__ flo, const uint8_t* __restrict__ fhi,
+    const float* __restrict__ rlo, const float* __restrict__ rhi, int GA, LbmTrail tr) {
   if constexpr (BATCH) {
     // the block's batch element (H2 one channel, H_int three)
     LBM_PASS_ELEM(tr.h2 ? 1 : 3)
     lbm_poisson_pass_body<T, TAU1, EY, SLAB, true>(h, flags, rhs, out, psi_out, Z, Y, X, k, LZ,
                                                    inv_tau, a, glo, ghi, G, nullptr, nullptr,
-                                                   tr, zblk);
+                                                   flo, fhi, rlo, rhi, GA, tr, zblk);
   } else {
     lbm_poisson_pass_body<T, TAU1, EY, SLAB, true>(h, flags, rhs, out, psi_out, Z, Y, X, k, LZ,
                                                    inv_tau, a, glo, ghi, G, nullptr, nullptr,
-                                                   tr, blockIdx.z);
+                                                   flo, fhi, rlo, rhi, GA, tr, blockIdx.z);
   }
 }
 
@@ -53,7 +54,7 @@ static cudaError_t lbm_poisson_trail_instance(const LbmPassArgs& g, cudaStream_t
   lbm_poisson_trail_kernel<T, TAU1, EY, SLAB, BATCH><<<grid, threads, smem, stream>>>(
       static_cast<const T*>(g.h), g.flags, g.rhs, static_cast<T*>(g.out), g.psi_out, g.Z, g.Y,
       g.X, g.k, g.LZ, g.inv_tau, g.a, static_cast<const T*>(g.glo),
-      static_cast<const T*>(g.ghi), g.G, g.tr);
+      static_cast<const T*>(g.ghi), g.G, g.flo, g.fhi, g.rlo, g.rhi, g.GA, g.tr);
   return cudaGetLastError();
 }
 

@@ -43,7 +43,11 @@ z over ranks, ``parallel/step3d.py``) is one pass of k <= ``MAX_K``
 sweeps: ``h`` holds the slab's Zl real planes, ``ghosts = (lo, hi)`` the
 neighbours' G >= k nearest planes below and above ([1, 19, G, Y, X] each,
 read in place: the slab is never copied into an extended array), and the
-flags and rhs cover the slab extended by G planes a side.  The walk covers
+flags and rhs either the slab's own planes with ``aux_ghosts = ((flags_lo,
+rhs_lo), (flags_hi, rhs_hi))``, the neighbours' GA >= G nearest planes of
+each ([1, 1, GA, Y, X], uint8 and float32; the round reads the nearest G),
+or the slab extended by G planes a side (the TPU kernel's contract).  The
+kernel reads every part in place, so neither form is copied.  The walk covers
 planes -k..Zl + k - 1 without a wrap, so the valid region shrinks a plane
 a sweep and the real planes are exact after the k sweeps; only they are
 written, psi with ``emit_psi``, and with ``emit_bands`` the first and last
@@ -349,17 +353,17 @@ def cost(h, magnetic_flags, rhs_scaled, *, tau, n_iters, emit="psi", h_ext=None,
 def cost_slab(h, magnetic_flags, rhs_scaled, *, tau, n_iters, rounds, G, emit="psi",
               h_ext=None, clamp=None, **_) -> tuple[int, int]:
     """(bytes, flops) that a slab solve of ``n_iters`` sweeps in ``rounds``
-    (the sweeps of each launch, G band planes a side; flags and rhs
-    extended by G) must move and do, as :func:`cost` counts one device's
-    call: h's real planes read and written once, psi (H_int, H2) written
-    once, the flags and rhs of the Zl + 2G planes read once, and the bands
+    (the sweeps of each launch, G band planes a side; flags and rhs with
+    bands of G planes) must move and do, as :func:`cost` counts one
+    device's call: h's real planes read and written once, psi (H_int, H2)
+    written once, the flags and rhs of the Zl + 2G planes read once, and the bands
     each round reads (the first round's from the incoming h), which the
     round before it writes; the sweeps' flops over the planes each sweep of
     a round's shrinking region computes (Zl + 2(k - j) at its sweep j), 78
     or 39 a cell by tau.  With the trailing stage (``emit``, ``clamp``)
     the last round reads G_f = k_f + 1 band planes a side of h (the round
-    before it writes none), flags and rhs are extended by max(G, G_f), the
-    last round's sweeps reach one plane further a side, and the stage's
+    before it writes none), the flags' and rhs' bands hold max(G, G_f)
+    planes, the last round's sweeps reach one plane further a side, and the stage's
     flops count the planes its clamp computes."""
     _, _, Zl, Y, X = h.shape
     plane = Y * X
@@ -493,7 +497,7 @@ def _check_emit(h, ghosts, emit, n_iters, h_ext, clamp, emit_bands):
 
 def poisson_sweeps_plain(h, magnetic_flags, rhs_scaled, *, tau, n_iters, ghosts=None,
                          emit_bands=False, emit_psi=True, emit="psi", dx=1.0, h_ext=None,
-                         clamp=None):
+                         clamp=None, aux_ghosts=None):
     """Plain PyTorch version of :func:`poisson_sweeps`: ``n_iters`` times
     the periodic pull and :func:`sweep_cell`, each sweep's output stored in
     h's dtype (a bfloat16 h is widened to float32 for the sweep and its
@@ -503,12 +507,19 @@ def poisson_sweeps_plain(h, magnetic_flags, rhs_scaled, *, tau, n_iters, ghosts=
     flags and rhs), whose wrap reaches no real plane in k sweeps, and keeps
     the real planes; with the trailing stage by k + 1 planes, so psi is
     exact a plane past the slab, and H_int or H2 comes from
-    :func:`trail_plain` of the slab's psi and one plane a side."""
+    :func:`trail_plain` of the slab's psi and one plane a side.  With
+    ``aux_ghosts`` the flags and rhs are first extended by the nearest G
+    planes of their bands."""
     _check_emit(h, ghosts, emit, n_iters, h_ext, clamp, emit_bands)
     trail = emit != "psi"
     if ghosts is not None:
         k, G = n_iters, ghosts[0].shape[2]
         Zl = h.shape[2]
+        GA = _aux_depth(h, magnetic_flags, rhs_scaled, G, aux_ghosts)
+        if aux_ghosts is not None:
+            magnetic_flags, rhs_scaled = (
+                torch.cat([lo[:, :, GA - G:], x, hi[:, :, :G]], dim=2)
+                for x, lo, hi in zip((magnetic_flags, rhs_scaled), *aux_ghosts, strict=True))
         w = k + trail
         ext = slice(G - w, G + Zl + w)
         he, psi = poisson_sweeps_plain(
@@ -533,8 +544,43 @@ def poisson_sweeps_plain(h, magnetic_flags, rhs_scaled, *, tau, n_iters, ghosts=
     return h, psi
 
 
-def _check_slab(h, magnetic_flags, rhs_scaled, ghosts, n_iters):
-    """Raise unless the slab form takes these inputs; returns G."""
+def _flags_rhs_parts(magnetic_flags, rhs_scaled, G, Zl, aux_ghosts):
+    """The slab form's flags and rhs as (name, tensor, dtype, planes): the
+    extended pair of Zl + 2G planes, or the slab's planes and, with
+    ``aux_ghosts``, the bands of each side."""
+    if aux_ghosts is None:
+        return [("magnetic_flags", magnetic_flags, torch.uint8, Zl + 2 * G),
+                ("rhs_scaled", rhs_scaled, torch.float32, Zl + 2 * G)]
+    if len(aux_ghosts) != 2 or not all(isinstance(side, (tuple, list)) and len(side) == 2
+                                       for side in aux_ghosts):
+        raise ValueError("poisson_sweeps: aux_ghosts takes a (flags, rhs) pair a side, "
+                         "((flags_lo, rhs_lo), (flags_hi, rhs_hi))")
+    GA = aux_ghosts[0][0].shape[2]
+    return [("magnetic_flags", magnetic_flags, torch.uint8, Zl),
+            ("rhs_scaled", rhs_scaled, torch.float32, Zl)] + [
+        (f"{name}_{side}", t, dtype, GA) for side, pair in zip(("lo", "hi"), aux_ghosts)
+        for name, t, dtype in zip(("flags", "rhs"), pair, (torch.uint8, torch.float32))]
+
+
+def _aux_depth(h, magnetic_flags, rhs_scaled, G, aux_ghosts):
+    """GA, the planes of the slab form's flags and rhs bands (G for the
+    extended pair), once their dtypes and shapes hold: every band of GA >=
+    G planes, the flags uint8 and the rhs float32."""
+    _, _, Zl, Y, X = h.shape
+    parts = _flags_rhs_parts(magnetic_flags, rhs_scaled, G, Zl, aux_ghosts)
+    for name, t, dtype, planes in parts:
+        if t.dtype != dtype or tuple(t.shape) != (1, 1, planes, Y, X):
+            raise ValueError(f"poisson_sweeps' slab form: {name} must be {dtype} of shape "
+                             f"{(1, 1, planes, Y, X)}, got {t.dtype} of {tuple(t.shape)}")
+    GA = G if aux_ghosts is None else parts[-1][3]
+    if GA < G:
+        raise ValueError(f"poisson_sweeps' slab form: the flags and rhs bands hold {GA} planes, "
+                         f"fewer than the G = {G} planes of h's bands")
+    return GA
+
+
+def _check_slab(h, magnetic_flags, rhs_scaled, ghosts, n_iters, aux_ghosts=None):
+    """Raise unless the slab form takes these inputs; returns (G, GA)."""
     _, _, Zl, Y, X = h.shape
     G = ghosts[0].shape[2]
     if not 1 <= n_iters <= min(MAX_K, G) or G > Zl:
@@ -542,9 +588,25 @@ def _check_slab(h, magnetic_flags, rhs_scaled, ghosts, n_iters):
                          f"(k <= {MAX_K}), got k = {n_iters}, G = {G}, Zl = {Zl}")
     for name, t in zip(("ghost_lo", "ghost_hi"), ghosts, strict=True):
         check_cuda(name, t, (h.dtype,), (1, 19, G, Y, X))
-    check_cuda("magnetic_flags", magnetic_flags, torch.uint8, (1, 1, Zl + 2 * G, Y, X))
-    check_cuda("rhs_scaled", rhs_scaled, torch.float32, (1, 1, Zl + 2 * G, Y, X))
-    return G
+    GA = _aux_depth(h, magnetic_flags, rhs_scaled, G, aux_ghosts)
+    for name, t, dtype, planes in _flags_rhs_parts(magnetic_flags, rhs_scaled, G, Zl,
+                                                   aux_ghosts):
+        check_cuda(name, t, dtype, (1, 1, planes, Y, X))
+    return G, GA
+
+
+def _flags_rhs_ptrs(magnetic_flags, rhs_scaled, G, Zl, aux_ghosts):
+    """The C entry point's flags, rhs, flo, fhi, rlo, rhi: the slab's
+    planes and their bands, or the extended pair's planes [G, G + Zl) and
+    the G planes either side of them, in place."""
+    if aux_ghosts is not None:
+        (flo, rlo), (fhi, rhi) = aux_ghosts
+        return tuple(ptr(t) for t in (magnetic_flags, rhs_scaled, flo, fhi, rlo, rhi))
+    plane = magnetic_flags.shape[-1] * magnetic_flags.shape[-2]
+    f, r = magnetic_flags.data_ptr(), rhs_scaled.data_ptr()
+    return tuple(ctypes.c_void_p(a) for a in (f + G * plane, r + 4 * G * plane, f,
+                                               f + (G + Zl) * plane, r,
+                                               r + 4 * (G + Zl) * plane))
 
 
 @functools.lru_cache(maxsize=None)
@@ -573,7 +635,8 @@ def _trail_args(emit, dx, h_ext, clamp):
 
 
 def poisson_sweeps(h, magnetic_flags, rhs_scaled, *, tau, n_iters, ghosts=None,
-                   emit_bands=False, emit_psi=True, emit="psi", dx=1.0, h_ext=None, clamp=None):
+                   emit_bands=False, emit_psi=True, emit="psi", dx=1.0, h_ext=None, clamp=None,
+                   aux_ghosts=None):
     """``n_iters`` channel-form Poisson sweeps.
 
     ``h``: [B, 19, Z, Y, X] float32 or bfloat16; ``magnetic_flags``: [B, 1, Z, Y, X]
@@ -584,7 +647,8 @@ def poisson_sweeps(h, magnetic_flags, rhs_scaled, *, tau, n_iters, ghosts=None,
     field ``h_ext``, both with the gradient's ``dx`` (the trailing stage,
     module docstring).  The B elements of a batch run in each launch, on
     an element's plan.  With ``ghosts`` the slab form (module docstring, B = 1),
-    flags and rhs extended by G planes a side: returns (h', psi or None
+    flags and rhs extended by G planes a side, or the slab's with their
+    bands ``aux_ghosts``: returns (h', psi or None
     without ``emit_psi``, or H_int or H2 with ``clamp``) and with
     ``emit_bands`` also (band_lo, band_hi).  CPU tensors take the plain
     version; CUDA tensors launch the kernel, one launch a pass of
@@ -592,17 +656,19 @@ def poisson_sweeps(h, magnetic_flags, rhs_scaled, *, tau, n_iters, ghosts=None,
     the slab form one launch); anything else raises.  Inputs are not
     modified.
     """
-    if ghosts is None and (emit_bands or not emit_psi):
-        raise ValueError("poisson_sweeps: emit_bands and emit_psi=False are the slab form's")
+    if ghosts is None and (emit_bands or not emit_psi or aux_ghosts is not None):
+        raise ValueError("poisson_sweeps: emit_bands, emit_psi=False and aux_ghosts are the "
+                         "slab form's")
     if h.device.type == "cpu":
         return poisson_sweeps_plain(h, magnetic_flags, rhs_scaled, tau=tau, n_iters=n_iters,
                                     ghosts=ghosts, emit_bands=emit_bands, emit_psi=emit_psi,
-                                    emit=emit, dx=dx, h_ext=h_ext, clamp=clamp)
+                                    emit=emit, dx=dx, h_ext=h_ext, clamp=clamp,
+                                    aux_ghosts=aux_ghosts)
     check_no_grad("poisson_sweeps", h, rhs_scaled)
     _check_emit(h, ghosts, emit, n_iters, h_ext, clamp, emit_bands)
     if ghosts is not None:
         return _sweeps_slab(h, magnetic_flags, rhs_scaled, ghosts, tau, n_iters, emit_bands,
-                            emit_psi, emit, dx, h_ext, clamp)
+                            emit_psi, emit, dx, h_ext, clamp, aux_ghosts)
     B, Q, Z, Y, X = h.shape
     check_cuda("h", h, STORAGE, (B, 19, Z, Y, X))
     check_cuda("magnetic_flags", magnetic_flags, torch.uint8, (B, 1, Z, Y, X))
@@ -628,20 +694,21 @@ def poisson_sweeps(h, magnetic_flags, rhs_scaled, *, tau, n_iters, ghosts=None,
         call("lbm_poisson_pass", ptr(src), ptr(magnetic_flags), ptr(rhs_scaled), ptr(dst),
              ptr(None if after else aux), *dims, ctypes.c_int(k), ctypes.c_int(tile.ty),
              ctypes.c_int(tile.lz), ctypes.c_double(tau), ctypes.c_int(bf16), ptr(None),
-             ptr(None), ctypes.c_int(0), ptr(None), ptr(None),
-             *_trail_args(mode, dx, h_ext, (1, Z - 2)), st)
+             ptr(None), ctypes.c_int(0), ptr(None), ptr(None), *(ptr(None),) * 4,
+             ctypes.c_int(0), *_trail_args(mode, dx, h_ext, (1, Z - 2)), st)
         count_launch(poisson_sweeps, bf16, "emit" if mode != "psi" else None, B)
         src = dst
     return out, aux
 
 
 def _sweeps_slab(h, magnetic_flags, rhs_scaled, ghosts, tau, k, emit_bands, emit_psi, emit, dx,
-                 h_ext, clamp):
+                 h_ext, clamp, aux_ghosts):
     """The slab form's one launch (:func:`poisson_sweeps`)."""
     B, Q, Zl, Y, X = h.shape
     check_batch("poisson_sweeps", B, slab=True)
     check_cuda("h", h, STORAGE, (1, 19, Zl, Y, X))
-    G = _check_slab(h, magnetic_flags, rhs_scaled, ghosts, k)
+    G, GA = _check_slab(h, magnetic_flags, rhs_scaled, ghosts, k, aux_ghosts)
+    flags, rhs, *bands_in = _flags_rhs_ptrs(magnetic_flags, rhs_scaled, G, Zl, aux_ghosts)
     bf16 = h.dtype == torch.bfloat16
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     if emit == "psi":
@@ -652,11 +719,12 @@ def _sweeps_slab(h, magnetic_flags, rhs_scaled, ghosts, tau, k, emit_bands, emit
     aux = (torch.empty((1, EMIT_CHANNELS[emit], Zl, Y, X), dtype=torch.float32, device=h.device)
            if emit_psi or emit != "psi" else None)
     bands = tuple(torch.empty_like(ghosts[0]) for _ in range(2)) if emit_bands else (None, None)
-    call("lbm_poisson_pass", ptr(h), ptr(magnetic_flags), ptr(rhs_scaled), ptr(out), ptr(aux),
-         ctypes.c_int(1), ctypes.c_int(Zl), ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_int(k),
+    call("lbm_poisson_pass", ptr(h), flags, rhs, ptr(out), ptr(aux), ctypes.c_int(1),
+         ctypes.c_int(Zl), ctypes.c_int(Y), ctypes.c_int(X), ctypes.c_int(k),
          ctypes.c_int(pl.ty), ctypes.c_int(pl.lz), ctypes.c_double(tau), ctypes.c_int(bf16),
          ptr(ghosts[0]), ptr(ghosts[1]), ctypes.c_int(G), ptr(bands[0]), ptr(bands[1]),
-         *_trail_args(emit, dx, h_ext, clamp or (1, Zl - 2)), stream_of(h))
+         *bands_in, ctypes.c_int(GA), *_trail_args(emit, dx, h_ext, clamp or (1, Zl - 2)),
+         stream_of(h))
     count_launch(poisson_sweeps, bf16, ("slab", "emit") if emit != "psi" else "slab")
     return (out, aux, bands) if emit_bands else (out, aux)
 

@@ -34,7 +34,8 @@ B8b with ``ghosts=``; B9 is local) and exchanges the ghost planes with
   with ``mesh``): :func:`poisson_sweeps_sharded` (rounds of one launch of
   k <= 4 sweeps of B11b's slab form, the slab read in place with G = k
   band planes a side, the bands of each round's output exchanged before
-  the next, flags and rhs extended once: :func:`channel_slab_plan`; under
+  the next, the flags' and rhs' bands exchanged once and read in place
+  beside the caller's flags and rhs: :func:`channel_slab_plan`; under
   ``poisson_psi_halo`` at tau 1 each band after the first round rebuilt
   from the neighbour's psi by ``lbm_psi_ghost_band``), whose last round's
   trailing stage (B7's ``emit="h2"``) emits H2 with the z clamp at the
@@ -614,12 +615,17 @@ def scalar_convert_sharded(h, magnetic_flags, mesh: Mesh):
     return s2[:, :, 1:-1].contiguous(), cmask[:, :, 1:-1].contiguous()
 
 
-def _extend_flags_rhs(flags, rhs, G: int, mesh: Mesh):
-    """The flags and the source of the slab extended by the neighbours' G
-    nearest planes a side, in one exchange a side (the flags travel as
-    values of the source's type, which holds them exactly)."""
-    ext = _extend(torch.cat([flags.to(rhs.dtype), rhs], dim=1), G, mesh)
-    return ext[:, :1].to(flags.dtype).contiguous(), ext[:, 1:].contiguous()
+def _flags_rhs_bands(flags, rhs, G: int, mesh: Mesh):
+    """The neighbours' G nearest planes of the flags and the source,
+    ((flags, rhs) below, (flags, rhs) above): one exchange a side of those
+    planes alone (the flags travel as values of the source's type, which
+    holds them exactly), the slab's own planes left where they are."""
+    def side(planes, shift):
+        got = ring_halo(torch.cat([flags[:, :, planes].to(rhs.dtype), rhs[:, :, planes]], dim=1),
+                        mesh, shift)
+        return got[:, :1].to(flags.dtype), got[:, 1:]
+
+    return side(slice(-G, None), +1), side(slice(None, G), -1)
 
 
 def _edge_bands(h, G: int, mesh: Mesh):
@@ -637,19 +643,22 @@ def psi_refresh_ok(tau, G: int, Zl: int) -> bool:
     return float(tau) == 1.0 and 2 <= G < Zl
 
 
-def _psi_bands(h, psi, r_ext, G_ext: int, G: int, mesh: Mesh, plain: bool):
+def _psi_bands(h, psi, aux, G: int, mesh: Mesh, plain: bool):
     """The neighbours' G-plane bands of the next round rebuilt from their
     psi (:mod:`~..ops.kernels.psi_halo`): one exchange a side of the packed
     psi planes, innermost plane and x-edge columns, then
-    ``psi_ghost_band`` with the planes of the source ``r_ext`` (extended
-    by G_ext) under each band's outer planes."""
+    ``psi_ghost_band`` with the source planes under each band's outer
+    planes, taken from the source's bands in ``aux``
+    (:func:`_flags_rhs_bands`)."""
     band = psi_ghost_band_plain if plain else psi_ghost_band
-    Zl, Y, X = h.shape[2:]
+    Y, X = h.shape[3:]
     lo = ring_halo(pack_psi_band(h, psi, G, "lo"), mesh, +1)  # the rank below's top
     hi = ring_halo(pack_psi_band(h, psi, G, "hi"), mesh, -1)  # the rank above's bottom
+    r_lo, r_hi = aux[0][1], aux[1][1]
+    G_ext = r_lo.shape[2]
     kw = dict(G=G, Y=Y, X=X, dtype=h.dtype)
-    return (band(lo, r_ext[:, :, G_ext - G:G_ext - 1], band="lo", **kw),
-            band(hi, r_ext[:, :, G_ext + Zl + 1:G_ext + Zl + G], band="hi", **kw))
+    return (band(lo, r_lo[:, :, G_ext - G:G_ext - 1], band="lo", **kw),
+            band(hi, r_hi[:, :, 1:G], band="hi", **kw))
 
 
 def poisson_sweeps_sharded(h, magnetic_flags, rhs_scaled, mesh: Mesh, *, tau, n_iters,
@@ -659,15 +668,18 @@ def poisson_sweeps_sharded(h, magnetic_flags, rhs_scaled, mesh: Mesh, *, tau, n_
     reads h in place and its two G-plane bands through their own pointers
     (the TPU wavefront's ghost-ref mode, JAX ``poisson_sweeps_sharded``
     :1181-1250); the first round's bands are the incoming h's edge planes,
-    each later round's those the round before it emitted; flags and rhs
-    are extended once.  Under :func:`dp_dispatch` the single-device call.
+    each later round's those the round before it emitted.  The flags and
+    rhs stay the caller's tensors: their bands of the deepest round's
+    planes are exchanged once (:func:`_flags_rhs_bands`, one exchange a
+    side) and every round reads them beside the slab's in place
+    (``aux_ghosts``).  Under :func:`dp_dispatch` the single-device call.
 
     ``emit_h2`` (the static field's 3 components): returns (h', H2, True)
     where the plan with ``h2=True`` admits it, the last round's trailing
     stage emitting H2 with the z clamp at the domain's true edges only
     (:func:`slab_clamp`) from bands of G_f = k_f + 1 planes of h'
-    (JAX exchanges k + 1 planes every round, :1083-1093), flags and rhs
-    extended by max(G, G_f); else (h', psi, False), psi for the caller's
+    (JAX exchanges k + 1 planes every round, :1083-1093), the flags and
+    rhs bands max(G, G_f) planes deep; else (h', psi, False), psi for the caller's
     substitution and gradient (JAX's fall-through).
 
     ``psi_halo`` (the caller holds the ``mag_flags_shell`` declaration;
@@ -691,33 +703,29 @@ def poisson_sweeps_sharded(h, magnetic_flags, rhs_scaled, mesh: Mesh, *, tau, n_
     rounds, depth, emitted = planned
     # G: the plan's band planes (depth[0] wherever a round before the last
     # or a last round without the trailing stage reads it)
-    G, G_ext, Zl = depth[0], max(depth), h.shape[2]
-    f_ext, r_ext = _extend_flags_rhs(magnetic_flags, rhs_scaled, G_ext, mesh)
-
-    def extended(g):
-        """The flags and source of the slab extended by g planes a side."""
-        return f_ext[:, :, G_ext - g:G_ext + Zl + g], r_ext[:, :, G_ext - g:G_ext + Zl + g]
-
+    G, Zl = depth[0], h.shape[2]
+    aux = _flags_rhs_bands(magnetic_flags, rhs_scaled, max(depth), mesh)
+    fields = (magnetic_flags, rhs_scaled)
     bands = _edge_bands(h, depth[0], mesh)
     for kk, g in zip(rounds[:-1], depth[1:]):
         refresh = psi_halo and psi_refresh_ok(tau, g, Zl)
         # the kernel emits the next round's bands where they are G planes
         # of h; G_f planes of h are sliced from h'
         emit_bands = g == G and not refresh
-        out = sweeps(h, *extended(G), tau=tau, n_iters=kk, ghosts=bands, emit_bands=emit_bands,
-                     emit_psi=refresh)
+        out = sweeps(h, *fields, tau=tau, n_iters=kk, ghosts=bands, emit_bands=emit_bands,
+                     emit_psi=refresh, aux_ghosts=aux)
         h = out[0]
         if refresh:
-            bands = _psi_bands(h, out[1], r_ext, G_ext, g, mesh, plain)
+            bands = _psi_bands(h, out[1], aux, g, mesh, plain)
         elif emit_bands:
             bands = (ring_halo(out[2][1], mesh, +1), ring_halo(out[2][0], mesh, -1))
         else:
             bands = _edge_bands(h, g, mesh)
     if emitted:
-        h, h2 = sweeps(h, *extended(depth[-1]), tau=tau, n_iters=rounds[-1], ghosts=bands,
-                       emit="h2", dx=dx, h_ext=emit_h2, clamp=slab_clamp(mesh, Zl))
+        h, h2 = sweeps(h, *fields, tau=tau, n_iters=rounds[-1], ghosts=bands, emit="h2", dx=dx,
+                       h_ext=emit_h2, clamp=slab_clamp(mesh, Zl), aux_ghosts=aux)
         return h, h2, True
-    out = sweeps(h, *extended(G), tau=tau, n_iters=rounds[-1], ghosts=bands)
+    out = sweeps(h, *fields, tau=tau, n_iters=rounds[-1], ghosts=bands, aux_ghosts=aux)
     return (*out, False) if emit_h2 is not None else out
 
 

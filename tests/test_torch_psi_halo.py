@@ -547,3 +547,85 @@ def test_gloo_steps_match_jax(ranks, route):
         for name in worker.PSI_FIELDS:
             np.testing.assert_allclose(got[name][b:b + 1], np.asarray(getattr(s, name)),
                                        rtol=2e-5, atol=1e-6, err_msg=f"{name} {b}")
+
+
+# ---------------------------------------------------------------------------
+# the flags and rhs read in place: no whole-volume copy
+# ---------------------------------------------------------------------------
+
+def extended_form(monkeypatch):
+    """Make the solve's slab calls take the flags and rhs as the extended
+    pair (the slab's planes with the nearest G planes of each band put
+    around them: the form that had the solve extend them once), through
+    the plain version."""
+    def sweeps(h, flags, rhs, *, ghosts, aux_ghosts, **kw):
+        G = ghosts[0].shape[2]
+        (flo, rlo), (fhi, rhi) = aux_ghosts
+        GA = flo.shape[2]
+        ext = (torch.cat([lo[:, :, GA - G:], x, hi[:, :, :G]], dim=2)
+               for x, lo, hi in ((flags, flo, fhi), (rhs, rlo, rhi)))
+        return poisson.poisson_sweeps_plain(h, *ext, ghosts=ghosts, **kw)
+
+    monkeypatch.setattr(step3d, "poisson_sweeps", sweeps)
+
+
+IN_PLACE = [(nz, psi, emit, dtype) for nz in (2, 4) for psi in (True, False)
+            for emit in (False, True) for dtype in (torch.float32, BF)]
+
+
+@pytest.mark.parametrize("nz,psi,emit,dtype", IN_PLACE, ids=[
+    f"nz{nz}-{'psi_halo' if p else 'full_h'}-{'h2' if e else 'psi'}-"
+    f"{'bf16' if d == BF else 'f32'}" for nz, p, e, d in IN_PLACE])
+def test_banded_solve_bit_for_bit(scene, monkeypatch, nz, psi, emit, dtype, tmp_path):
+    """The meshed solve at tau 1, 7 sweeps in rounds of 3 (a remainder
+    round; the psi refresh where it holds), whose slab calls read the flags
+    and rhs in place beside their bands, equals the same rounds fed the
+    extended pair and one device's call, bit for bit."""
+    kw = dict(n_iters=7, k=3, dtype=dtype, emit=emit, psi=psi)
+    got, ring = solve(scene, nz, monkeypatch, **kw)
+    with monkeypatch.context() as m:
+        extended_form(m)
+        ext, ring_ext = solve(scene, nz, m, **kw)
+    sides = ("h", "psi or H2")
+    with worker.keep_mismatch(tmp_path, "banded vs extended", dict(zip(sides, got)),
+                              dict(zip(sides, ext))):
+        assert torch.equal(got[0], ext[0]) and torch.equal(got[1], ext[1])
+    one = dict(emit="h2", h_ext=H_EXT) if emit else {}
+    whole = poisson.poisson_sweeps_plain(scene["h"].to(dtype), scene["mf"], scene["rhs"],
+                                         tau=1.0, n_iters=7, **one)
+    with worker.keep_mismatch(tmp_path, "banded vs one device", dict(zip(sides, got)),
+                              dict(zip(sides, whole))):
+        assert torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])
+    assert (ring.sent, ring.count) == (ring_ext.sent, ring_ext.count)
+
+
+@pytest.mark.parametrize("nz", [2, 4])
+@pytest.mark.parametrize("emit", [False, True], ids=["psi", "h2"])
+def test_slab_calls_read_the_callers_flags_and_rhs(scene, monkeypatch, nz, emit):
+    """Every slab call of the meshed solve receives the caller's flags and
+    rhs tensors themselves (the same storage, ``data_ptr``), and bands of
+    the deepest round's planes, read in place: the solve copies no whole
+    volume of either."""
+    real, seen = step3d.poisson_sweeps, []
+    given = {}
+
+    def spy(h, flags, rhs, **kw):
+        seen.append((threading.get_ident(), flags.data_ptr(), rhs.data_ptr(),
+                     tuple(t.shape[2] for side in kw["aux_ghosts"] for t in side)))
+        return real(h, flags, rhs, **kw)
+
+    monkeypatch.setattr(step3d, "poisson_sweeps", spy)
+
+    def rank(mesh):
+        mf, rhs = cut(scene["mf"], nz, mesh.iz), cut(scene["rhs"], nz, mesh.iz)
+        given[threading.get_ident()] = (mf.data_ptr(), rhs.data_ptr())
+        return step3d.poisson_sweeps_sharded(cut(scene["h"], nz, mesh.iz), mf, rhs, mesh,
+                                             tau=1.0, n_iters=7, psi_halo=True,
+                                             emit_h2=H_EXT if emit else None)
+
+    on_ranks(nz, rank, monkeypatch)
+    _, depth = planned(z_mesh(nz), 7, emit)
+    assert len(seen) == nz * len(depth)
+    for tid, f, r, planes in seen:
+        assert (f, r) == given[tid]
+        assert planes == (max(depth),) * 4

@@ -524,3 +524,112 @@ def test_cost_slab_counts_the_last_rounds_bands(scene):
     assert hint[0] - h2[0] == 8 * Zl * plane
     interior = Zl * (RES[1] - 2) * (RES[2] - 2)
     assert h2[1] - psi[1] == 78 * plane * 2 * 3 + (33 + 6) * interior
+
+
+# ---------------------------------------------------------------------------
+# flags and rhs as the slab's own planes with their bands (``aux_ghosts``)
+# ---------------------------------------------------------------------------
+
+def aux_bands(scene, nz, i, GA):
+    """The neighbours' GA nearest planes of the flags and rhs below and
+    above slab i: ((flags_lo, rhs_lo), (flags_hi, rhs_hi))."""
+    (flo, fhi), (rlo, rhi) = (bands(scene[key], nz, i, GA) for key in ("mflags", "rhs"))
+    return (flo, rlo), (fhi, rhi)
+
+
+BANDED = [(k, emit, dtype, i) for k in (1, 2, 3, 4) for emit in ("psi", "h2", "hint")
+          for dtype in (torch.float32, BF) for i in (0, 1)
+          if emit == "psi" or k <= poisson.TRAIL_MAX_K]
+
+
+@pytest.mark.parametrize("k,emit,dtype,i", BANDED, ids=[
+    f"k{k}-{emit}-{'bf16' if d == BF else 'f32'}-{'edge' if i == 0 else 'interior'}"
+    for k, emit, d, i in BANDED])
+def test_plain_banded_equals_extended(scene, k, emit, dtype, i):
+    """One round of k sweeps on slab i of 4: the plain version fed the
+    slab's own flags and rhs with bands one plane deeper than h's (the
+    round reads their nearest G) equals it fed the extended pair, bit for
+    bit, in every output (h', psi or H2 or H_int, the emitted bands)."""
+    nz = 4
+    G = k + (emit != "psi")
+    h = scene["h"].to(dtype)
+    hs, ghosts = cut(h, nz, i), bands(h, nz, i, G)
+    kw = dict(tau=0.8, n_iters=k, ghosts=ghosts)
+    if emit == "psi":
+        kw.update(emit_bands=True)
+    else:
+        kw.update(emit=emit, dx=0.5, h_ext=H_EXT if emit == "h2" else None,
+                  clamp=clamp_of(nz, i))
+    ext = poisson.poisson_sweeps_plain(hs, cut(scene["mflags"], nz, i, G, G),
+                                       cut(scene["rhs"], nz, i, G, G), **kw)
+    got = poisson.poisson_sweeps_plain(hs, cut(scene["mflags"], nz, i), cut(scene["rhs"], nz, i),
+                                       aux_ghosts=aux_bands(scene, nz, i, G + 1), **kw)
+    flat = [ext[0], ext[1], *(ext[2] if emit == "psi" else ())]
+    assert len(got) == len(ext)
+    for a, b in zip([got[0], got[1], *(got[2] if emit == "psi" else ())], flat, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_slab_wrappers_refuse_partial_band_arguments(scene):
+    """``aux_ghosts`` is the slab form's, a (flags, rhs) pair a side, each
+    band uint8 or float32 of [1, 1, GA, Y, X] with GA >= G on both sides,
+    beside the slab's own flags and rhs; the extended pair keeps Zl + 2G
+    planes.  The plain version and the kernel's wrapper refuse the rest
+    with the argument named."""
+    nz, i, G = 4, 1, 3
+    h = scene["h"]
+    hs, ghosts = cut(h, nz, i), bands(h, nz, i, G)
+    mf, rhs = cut(scene["mflags"], nz, i), cut(scene["rhs"], nz, i)
+    good = aux_bands(scene, nz, i, G)
+    (flo, rlo), (fhi, rhi) = good
+    kw = dict(tau=0.8, n_iters=3, ghosts=ghosts)
+    with pytest.raises(ValueError, match="aux_ghosts are the slab form's"):
+        poisson.poisson_sweeps(h, scene["mflags"], scene["rhs"], tau=0.8, n_iters=3,
+                               aux_ghosts=good)
+    for partial in ((good[0],), (good[0], None), ((flo, rlo), (fhi,)), (flo, fhi),
+                    ((flo, rlo, rlo), (fhi, rhi))):
+        with pytest.raises(ValueError, match=r"a \(flags, rhs\) pair a side"):
+            poisson.poisson_sweeps(hs, mf, rhs, aux_ghosts=partial, **kw)
+    wrong = {
+        "flags_lo": ((flo.float(), rlo), (fhi, rhi)),
+        "rhs_hi": ((flo, rlo), (fhi, rhi[..., :-1])),
+        "flags_hi": ((flo, rlo), (fhi[:, :, :2], rhi)),
+        "rhs_lo": ((flo, rlo.double()), (fhi, rhi)),
+    }
+    for name, aux in wrong.items():
+        with pytest.raises(ValueError, match=f"{name} must be"):
+            poisson.poisson_sweeps(hs, mf, rhs, aux_ghosts=aux, **kw)
+    with pytest.raises(ValueError, match="magnetic_flags must be"):
+        poisson.poisson_sweeps(hs, cut(scene["mflags"], nz, i, G, G), rhs, aux_ghosts=good, **kw)
+    with pytest.raises(ValueError, match="rhs_scaled must be"):
+        poisson.poisson_sweeps(hs, cut(scene["mflags"], nz, i, G, G), rhs, **kw)
+    shallow = aux_bands(scene, nz, i, G - 1)
+    with pytest.raises(ValueError, match="fewer than the G = 3 planes"):
+        poisson.poisson_sweeps(hs, mf, rhs, aux_ghosts=shallow, **kw)
+    meta = tuple(tuple(t.to("meta") for t in side) for side in good)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        poisson._check_slab(hs.to("meta"), mf.to("meta"), rhs.to("meta"),
+                            tuple(g.to("meta") for g in ghosts), 3, meta)
+
+
+@pytest.mark.parametrize("banded", [False, True], ids=["extended", "banded"])
+def test_slab_flags_rhs_pointers(scene, banded):
+    """The slab launch's flags and rhs pointers (the slab's planes, then
+    flo, fhi, rlo, rhi) and the band depth GA it passes: the extended
+    pair's planes [G, G + Zl), [0, G) and [G + Zl, Zl + 2G) with GA = G, or
+    the caller's tensors and bands themselves with their own depth."""
+    nz, i, G = 4, 1, 3
+    Zl = RES[0] // nz
+    hs = cut(scene["h"], nz, i)
+    if banded:
+        mf, rhs = cut(scene["mflags"], nz, i), cut(scene["rhs"], nz, i)
+        aux = aux_bands(scene, nz, i, G + 2)
+        (flo, rlo), (fhi, rhi) = aux
+        want = (mf, rhs, flo, fhi, rlo, rhi)
+    else:
+        mf, rhs = cut(scene["mflags"], nz, i, G, G), cut(scene["rhs"], nz, i, G, G)
+        aux = None
+        want = (mf[:, :, G:], rhs[:, :, G:], mf, mf[:, :, G + Zl:], rhs, rhs[:, :, G + Zl:])
+    assert poisson._aux_depth(hs, mf, rhs, G, aux) == (G + 2 if banded else G)
+    got = poisson._flags_rhs_ptrs(mf, rhs, G, Zl, aux)
+    assert [p.value for p in got] == [t.data_ptr() for t in want]
